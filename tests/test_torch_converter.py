@@ -1,0 +1,51 @@
+"""`vjepa2_tpu_torch.hub.converter.state_dict_from_flax` against the JAX
+package's converters: a port state dict taken through the JAX package's
+`convert_encoder` / `convert_attentive_classifier` and back is the identical
+set of tensors; a checkpoint in the released layout loads into the port by key.
+"""
+
+import pytest
+import torch
+
+from vjepa2_tpu.hub.converter import convert_attentive_classifier, convert_encoder
+from vjepa2_tpu_torch.hub.backbones import load_encoder_checkpoint
+from vjepa2_tpu_torch.hub.converter import state_dict_from_flax
+from vjepa2_tpu_torch.models.attentive_pooler import AttentiveClassifier
+from vjepa2_tpu_torch.models.vision_transformer import VisionTransformer
+
+ENC = dict(img_size=(32, 32), num_frames=4, embed_dim=48, depth=2, num_heads=2, use_rope=True)
+
+
+def _encoder(seed):
+    enc = VisionTransformer(**ENC)
+    enc.reset_parameters(torch.Generator().manual_seed(seed))
+    return enc
+
+
+def _assert_same(got, want):
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_encoder_round_trip():
+    sd = _encoder(0).state_dict()
+    _assert_same(state_dict_from_flax(convert_encoder(sd)), sd)
+
+
+@pytest.mark.parametrize("complete_block", [True, False])
+def test_classifier_round_trip(complete_block):
+    clf = AttentiveClassifier(embed_dim=48, num_heads=2, depth=3, num_classes=7,
+                              complete_block=complete_block)
+    clf.reset_parameters(torch.Generator().manual_seed(1))
+    sd = clf.state_dict()
+    _assert_same(state_dict_from_flax(convert_attentive_classifier(sd)), sd)
+
+
+def test_released_checkpoint_loads_by_key(tmp_path):
+    src = _encoder(2).state_dict()
+    path = tmp_path / "vitl.pt"
+    torch.save({"encoder": {f"module.backbone.{k}": v for k, v in src.items()}}, path)
+    enc = _encoder(3)
+    load_encoder_checkpoint(enc, str(path))
+    _assert_same(enc.state_dict(), src)

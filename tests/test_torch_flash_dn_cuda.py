@@ -1,0 +1,130 @@
+"""The hand-written DN flash kernel (B1, `vjepa2_tpu_torch/csrc/flash_fwd_dn.cu`)
+against its plain PyTorch version on the card, over the feature surface and
+the ragged shapes the production shapes do not reach.
+
+Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax, so it runs
+where jax is absent (``--noconftest`` skips the suite's jax conftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_flash_dn_cuda.py -q
+
+Tolerance: both sides see the same bf16 inputs. The kernel rounds q to bf16
+after folding in scale*log2(e), the plain version rounds q before the fp32
+scale (`flash_attention_dn.py:163-164` against `attention.py:283-285`), and
+the two round the probabilities at different points (unnormalised in the
+kernel, normalised in the plain version). Each rounding is 2**-9 relative,
+so a score differs by up to 2**-8*|s| and lse by as much at the row's
+largest scores (|s| < ~7 here): out is held to |d| <= 1e-2 + 1e-2*|plain|
+and lse to |d| <= 3e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
+from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(B, H, D, N, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(3)]
+
+
+def _tables(N, D, dev):
+    pos = torch.arange(N, device=dev)
+    (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, 16, 16), D)
+    return cos, sin
+
+
+def _close(kernel, plain):
+    out_k, lse_k = kernel
+    out_p, lse_p = plain
+    assert torch.isfinite(out_k.float()).all() and torch.isfinite(lse_k).all()
+    d_out = (out_k.float() - out_p.float()).abs()
+    assert (d_out <= 1e-2 + 1e-2 * out_p.float().abs()).all(), d_out.max().item()
+    assert (lse_k - lse_p).abs().max().item() <= 3e-2
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64])
+@pytest.mark.parametrize("N", [64, 100, 200])  # 100: the scalar (unaligned) path
+@pytest.mark.parametrize("feature", ["none", "rope", "rope_dn_tables", "rope_per_sample",
+                                     "kv_valid", "segments", "segments_2p24"])
+def test_kernel_matches_plain(dev, D, N, feature):
+    B, H = 2, 3
+    q, k, v = _inputs(B, H, D, N, dev)
+    kw = {}
+    if feature.startswith("rope"):
+        cos, sin = _tables(N, D, dev)
+        if feature == "rope_dn_tables":
+            cos, sin = cos.transpose(1, 2), sin.transpose(1, 2)  # [1, D, N] strides
+        if feature == "rope_per_sample":  # [B, N, D]: a table per batch element
+            cos, sin = torch.cat([cos, cos.flip(1)]), torch.cat([sin, sin.flip(1)])
+        kw["rope_expanded"] = (cos, sin)
+    if feature == "kv_valid":
+        kw["kv_valid_len"] = N - 37
+    if feature.startswith("segments"):
+        rng = np.random.RandomState(1)
+        seg = np.sort(rng.randint(0, 6, (B, N)), axis=1).astype(np.int32)
+        if feature == "segments_2p24":  # ids one fp32 value cannot tell apart
+            seg = seg + 2**24
+        kw["segment_ids"] = torch.from_numpy(seg).to(dev)
+    with torch.inference_mode():
+        before = fdn.LAUNCHES
+        got = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
+        assert fdn.LAUNCHES == before + 1
+        want = fdn.flash_attention_bhdn_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("N,M", [(100, 200), (256, 64)])
+def test_kernel_takes_fewer_or_more_keys_than_queries(dev, N, M):
+    q = _inputs(2, 3, 32, N, dev)[0]
+    k, v = _inputs(2, 3, 32, M, dev, seed=1)[:2]
+    with torch.inference_mode():
+        got = fdn.flash_attention_bhdn(q, k, v, return_lse=True)
+        want = fdn.flash_attention_bhdn_plain(q, k, v)
+        torch.cuda.synchronize()
+    _close(got, want)
+
+
+def test_kernel_takes_strided_qkv(dev):
+    """q, k, v as the DN projection emits them: views of one [B, 3*H*D, N]
+    buffer, unit-stride along N only."""
+    B, H, D, N = 2, 4, 64, 192
+    rng = np.random.RandomState(2)
+    y = torch.from_numpy(rng.randn(B, 3 * H * D, N).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = y.view(B, 3, H, D, N).unbind(1)
+    assert not q.is_contiguous()
+    rope = _tables(N, D, dev)
+    with torch.inference_mode():
+        got = fdn.flash_attention_bhdn(q, k, v, rope_expanded=rope, return_lse=True)
+        want = fdn.flash_attention_bhdn_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                              rope_expanded=rope)
+        torch.cuda.synchronize()
+    _close(got, want)
+
+
+def test_cuda_route_raises_on_what_it_cannot_take(dev):
+    q, k, v = _inputs(1, 2, 64, 128, dev)
+    with pytest.raises(TypeError):
+        fdn.flash_attention_bhdn(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        fdn.flash_attention_bhdn(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError):
+        qq, kk, vv = _inputs(1, 2, 80, 128, dev)
+        fdn.flash_attention_bhdn(qq, kk, vv)
+    with pytest.raises(RuntimeError):
+        fdn.flash_attention_bhdn(q.requires_grad_(), k, v)

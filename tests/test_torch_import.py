@@ -1,0 +1,37 @@
+"""The port stands apart from JAX: importing every module of
+`vjepa2_tpu_torch` leaves jax (and the JAX package) out of `sys.modules`, and
+the kernel build raises, rather than falls back, where nvcc is missing."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from vjepa2_tpu_torch import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+import vjepa2_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vjepa2_tpu_torch.__path__, "vjepa2_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vjepa2_tpu"))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 10 else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()

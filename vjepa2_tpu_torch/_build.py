@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels with nvcc at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), for Hopper only
+(``sm_90a``). The library lands in ``build/vjepa2_tpu_torch/`` under the
+repository root, named by a hash of the sources and flags, so an edited
+kernel is rebuilt and an unchanged one is reused. A missing ``nvcc`` or a
+failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vjepa2_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's CUDA "
+        "kernels are built from source and need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libvjepa2_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) for
+    the current library, or '' if it was not built yet."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            so.with_suffix(".log").write_text(res.stdout + res.stderr)
+            if res.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr[-4000:]}")
+            os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+        _lib = ctypes.CDLL(str(so))
+        _lib.vjepa2_cuda_error_string.argtypes = [ctypes.c_int]
+        _lib.vjepa2_cuda_error_string.restype = ctypes.c_char_p
+        return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = lib.vjepa2_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,1 @@
+"""See the package docstring of vjepa2_tpu_torch."""

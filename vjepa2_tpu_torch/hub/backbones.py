@@ -1,0 +1,67 @@
+"""Public encoder factories (counterpart of the encoder half of
+`vjepa2_tpu/hub/backbones.py:39 _make_vjepa2_model`, `:122-135`).
+
+``vjepa2_vit_large/huge/giant/giant_384`` build the released encoder
+architecture (RoPE on). ``checkpoint=<torch .pt>`` loads released weights by
+key, with no conversion; otherwise the weights are drawn from ``generator``.
+The predictor is not ported yet, so a factory returns the encoder alone.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vjepa2_tpu_torch.models.vision_transformer import MODEL_REGISTRY, VisionTransformer
+
+ARCH_NAME_MAP = {
+    "vit_large": ("vit_large", "vitl"),
+    "vit_huge": ("vit_huge", "vith"),
+    "vit_giant": ("vit_giant_xformers", "vitg"),
+    "vit_giant_384": ("vit_giant_xformers", "vitg-384"),
+}
+
+
+def load_encoder_checkpoint(encoder: VisionTransformer, path: str) -> None:
+    """Load a released torch checkpoint's encoder into ``encoder`` by key
+    ("encoder", else "target_encoder", else the whole file; ``module.`` and
+    ``backbone.`` prefixes dropped; the sincos ``pos_embed`` is recomputed)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("encoder", ckpt.get("target_encoder", ckpt))
+    sd = {k.replace("module.", "").replace("backbone.", ""): v for k, v in sd.items()}
+    sd.pop("pos_embed", None)
+    encoder.load_state_dict(sd)
+
+
+def _make_vjepa2_model(model_name: str = "vit_large", img_size: int = 256,
+                       patch_size: int = 16, tubelet_size: int = 2, num_frames: int = 64,
+                       checkpoint: Optional[str] = None, dtype=torch.float32, device=None,
+                       generator: Optional[torch.Generator] = None, **kwargs):
+    arch = ARCH_NAME_MAP[model_name][0]
+    kwargs.setdefault("uniform_power", False)
+    kwargs.setdefault("use_rope", True)
+    encoder = MODEL_REGISTRY[arch](patch_size=patch_size, img_size=(img_size, img_size),
+                                   num_frames=num_frames, tubelet_size=tubelet_size,
+                                   dtype=dtype, device=device, **kwargs)
+    if checkpoint is None:
+        encoder.reset_parameters(generator)
+    else:
+        load_encoder_checkpoint(encoder, checkpoint)
+    return encoder
+
+
+def vjepa2_vit_large(**kwargs):
+    return _make_vjepa2_model(model_name="vit_large", img_size=256, **kwargs)
+
+
+def vjepa2_vit_huge(**kwargs):
+    return _make_vjepa2_model(model_name="vit_huge", img_size=256, **kwargs)
+
+
+def vjepa2_vit_giant(**kwargs):
+    return _make_vjepa2_model(model_name="vit_giant", img_size=256, **kwargs)
+
+
+def vjepa2_vit_giant_384(**kwargs):
+    return _make_vjepa2_model(model_name="vit_giant_384", img_size=384, **kwargs)

@@ -1,0 +1,55 @@
+"""JAX parameter tree -> the port's state dict (inverse of
+`vjepa2_tpu/hub/converter.py:73 convert_encoder` and
+`:133 convert_attentive_classifier`).
+
+The port keeps the reference's torch state-dict names, so released torch
+checkpoints load into it directly; this converter is how weights cross from
+the JAX package (nested dicts of arrays) into the port, for example in the
+parity tests. Layout rules, the JAX converter's read backwards:
+
+* ``<name>_<i>`` scopes       -> ``<name>.<i>`` (``blocks_3`` -> ``blocks.3``)
+* Dense ``kernel`` [in, out]  -> ``weight`` [out, in]
+* conv ``kernel`` [t, p, p, C, D] -> ``weight`` [D, C, t, p, p]
+* LayerNorm ``scale``         -> ``weight``
+* anything else keeps its name (``bias``, ``query_tokens``)
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if name == "kernel":
+        if arr.ndim == 2:
+            return "weight", arr.T
+        if arr.ndim == 5:
+            return "weight", arr.transpose(4, 3, 0, 1, 2)
+        raise ValueError(f"unexpected kernel rank {arr.ndim}")
+    if name == "scale":
+        return "weight", arr
+    return name, arr
+
+
+def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax params (optionally under a top-level ``"params"``) -> fp32 torch
+    state dict with the reference's key names."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        for name, val in node.items():
+            if isinstance(val, Mapping):
+                m = re.fullmatch(r"(.+)_(\d+)", name)
+                walk(val, prefix + (f"{m.group(1)}.{m.group(2)}" if m else name) + ".")
+            else:
+                key, arr = _leaf(name, np.array(val, dtype=np.float32))
+                sd[prefix + key] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    walk(params, "")
+    return sd
