@@ -1,16 +1,20 @@
 """`vjepa2_tpu_torch.hub.converter.state_dict_from_flax` against the JAX
 package's converters: a port state dict taken through the JAX package's
-`convert_encoder` / `convert_attentive_classifier` and back is the identical
-set of tensors; a checkpoint in the released layout loads into the port by key.
+`convert_encoder` / `convert_predictor` / `convert_attentive_classifier` and
+back is the identical set of tensors (the predictor's ``mask_tokens.{j}``
+[1, 1, P] included); a checkpoint in the released layout loads into the port
+by key.
 """
 
 import pytest
 import torch
 
-from vjepa2_tpu.hub.converter import convert_attentive_classifier, convert_encoder
+from vjepa2_tpu.hub.converter import (convert_attentive_classifier, convert_encoder,
+                                      convert_predictor)
 from vjepa2_tpu_torch.hub.backbones import load_encoder_checkpoint
 from vjepa2_tpu_torch.hub.converter import state_dict_from_flax
 from vjepa2_tpu_torch.models.attentive_pooler import AttentiveClassifier
+from vjepa2_tpu_torch.models.predictor import VisionTransformerPredictor
 from vjepa2_tpu_torch.models.vision_transformer import VisionTransformer
 
 ENC = dict(img_size=(32, 32), num_frames=4, embed_dim=48, depth=2, num_heads=2, use_rope=True)
@@ -40,6 +44,19 @@ def test_classifier_round_trip(complete_block):
     clf.reset_parameters(torch.Generator().manual_seed(1))
     sd = clf.state_dict()
     _assert_same(state_dict_from_flax(convert_attentive_classifier(sd)), sd)
+
+
+@pytest.mark.parametrize("num_mask_tokens", [2, 4])
+def test_predictor_round_trip(num_mask_tokens):
+    pred = VisionTransformerPredictor(img_size=(32, 32), num_frames=4, embed_dim=48,
+                                      predictor_embed_dim=32, depth=2, num_heads=2,
+                                      use_rope=True, use_mask_tokens=True,
+                                      num_mask_tokens=num_mask_tokens,
+                                      zero_init_mask_tokens=False)
+    pred.reset_parameters(torch.Generator().manual_seed(4))
+    sd = pred.state_dict()
+    assert sd["mask_tokens.1"].shape == (1, 1, 32)
+    _assert_same(state_dict_from_flax(convert_predictor(sd)), sd)
 
 
 def test_released_checkpoint_loads_by_key(tmp_path):

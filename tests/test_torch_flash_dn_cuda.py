@@ -126,5 +126,5 @@ def test_cuda_route_raises_on_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         qq, kk, vv = _inputs(1, 2, 80, 128, dev)
         fdn.flash_attention_bhdn(qq, kk, vv)
-    with pytest.raises(RuntimeError):
-        fdn.flash_attention_bhdn(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError):
+        fdn.flash_attention_bhdn(q, k.cpu(), v)

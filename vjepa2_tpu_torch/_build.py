@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), for Hopper only
-(``sm_90a``). The library lands in ``build/vjepa2_tpu_torch/`` under the
-repository root, named by a hash of the sources and flags, so an edited
-kernel is rebuilt and an unchanged one is reused. A missing ``nvcc`` or a
-failed build raises: there is no fallback.
+Every ``csrc/*.cu`` file is compiled to an object by its own ``nvcc``, all
+started together, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), for Hopper
+only (``sm_90a``). The library lands in ``build/vjepa2_tpu_torch/`` under the
+repository root, named by a hash of the sources (``*.cu`` and ``*.cuh``) and
+flags, so an edited kernel is rebuilt and an unchanged one is reused. A
+missing ``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vjepa2_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -70,20 +71,40 @@ def load() -> ctypes.CDLL:
             return _lib
         so = library_path()
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            so.with_suffix(".log").write_text(res.stdout + res.stderr)
-            if res.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr[-4000:]}")
-            os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+            _compile_and_link(so)
         _lib = ctypes.CDLL(str(so))
         _lib.vjepa2_cuda_error_string.argtypes = [ctypes.c_int]
         _lib.vjepa2_cuda_error_string.restype = ctypes.c_char_p
         return _lib
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; return their outputs or raise on the
+    first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out[-4000:]}")
+    return outs
+
+
+def _compile_and_link(so: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = so.with_name(f"{tag}.tmp.so")
+    try:
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(_sources(), objs)])
+        logs += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        so.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+    finally:
+        tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

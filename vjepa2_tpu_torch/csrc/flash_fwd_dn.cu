@@ -44,10 +44,7 @@
 // rows. q and k tiles sit in shared memory as bf16 [token][d], v as
 // [d][key], so that every mma fragment is one 32-bit shared-memory load.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "dn_common.cuh"
 
 namespace {
 
@@ -55,8 +52,6 @@ constexpr int kBlockQ = 128;
 constexpr int kBlockK = 64;
 constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 elements of row padding: fragment loads hit 32 distinct banks
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, d, n;
@@ -77,31 +72,6 @@ struct Params {
   int H, N, M, kv_lim;
   float qscale;  // scale * log2(e)
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_smem_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Eight consecutive bf16 (16 bytes, aligned) as fp32.
 __device__ __forceinline__ void load8(const __nv_bfloat16* src, float (&out)[8]) {
@@ -152,11 +122,7 @@ __device__ __forceinline__ void stage_rotated(__nv_bfloat16* dst, const __nv_bfl
           load8f(cos_t + (d + kHalf) * p.t_d + n, c_hi);
           load8f(sin_t + (d + kHalf) * p.t_d + n, s_hi);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float r_lo = lo[j] * c_lo[j] - hi[j] * s_lo[j];
-            hi[j] = hi[j] * c_hi[j] + lo[j] * s_hi[j];
-            lo[j] = r_lo;
-          }
+          for (int j = 0; j < 8; ++j) rope_pair(lo[j], hi[j], c_lo[j], s_lo[j], c_hi[j], s_hi[j]);
         }
       } else {
 #pragma unroll
@@ -164,8 +130,8 @@ __device__ __forceinline__ void stage_rotated(__nv_bfloat16* dst, const __nv_bfl
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        dst[(grp * 8 + j) * kStride + d] = __float2bfloat16_rn(lo[j] * mul);
-        dst[(grp * 8 + j) * kStride + d + kHalf] = __float2bfloat16_rn(hi[j] * mul);
+        dst[(grp * 8 + j) * kStride + d] = round_scaled(lo[j], mul);
+        dst[(grp * 8 + j) * kStride + d + kHalf] = round_scaled(hi[j], mul);
       }
     }
   } else {
@@ -178,28 +144,13 @@ __device__ __forceinline__ void stage_rotated(__nv_bfloat16* dst, const __nv_bfl
         if (cos_t != nullptr) {
           const long long i_lo = d * p.t_d + n * p.t_n;
           const long long i_hi = (d + kHalf) * p.t_d + n * p.t_n;
-          const float r_lo = lo * cos_t[i_lo] - hi * sin_t[i_lo];
-          hi = hi * cos_t[i_hi] + lo * sin_t[i_hi];
-          lo = r_lo;
+          rope_pair(lo, hi, cos_t[i_lo], sin_t[i_lo], cos_t[i_hi], sin_t[i_hi]);
         }
       }
-      dst[r * kStride + d] = __float2bfloat16_rn(lo * mul);
-      dst[r * kStride + d + kHalf] = __float2bfloat16_rn(hi * mul);
+      dst[r * kStride + d] = round_scaled(lo, mul);
+      dst[r * kStride + d + kHalf] = round_scaled(hi, mul);
     }
   }
-}
-
-// 16-byte asynchronous copy from global to shared memory; zero-fills the
-// destination instead when `pred` is false.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // Rows [t0, t0 + kRows) of a token-major [n, D] bf16 array (rows at or past
@@ -474,8 +425,6 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 }
-
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 // The 16-byte path needs unit stride along N, rows that start 16-byte aligned
 // (8 bf16 or 4 fp32 elements) and no partial 8-token group at the ends.

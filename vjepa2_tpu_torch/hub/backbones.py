@@ -4,7 +4,8 @@
 ``vjepa2_vit_large/huge/giant/giant_384`` build the released encoder
 architecture (RoPE on). ``checkpoint=<torch .pt>`` loads released weights by
 key, with no conversion; otherwise the weights are drawn from ``generator``.
-The predictor is not ported yet, so a factory returns the encoder alone.
+A factory returns the encoder alone: the predictor module is ported
+(`models/predictor.py`), the factories' predictor half is not yet.
 """
 
 from __future__ import annotations

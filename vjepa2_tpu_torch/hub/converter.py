@@ -1,6 +1,6 @@
 """JAX parameter tree -> the port's state dict (inverse of
-`vjepa2_tpu/hub/converter.py:73 convert_encoder` and
-`:133 convert_attentive_classifier`).
+`vjepa2_tpu/hub/converter.py:73 convert_encoder`, `:95 convert_predictor`
+and `:133 convert_attentive_classifier`).
 
 The port keeps the reference's torch state-dict names, so released torch
 checkpoints load into it directly; this converter is how weights cross from
@@ -11,6 +11,8 @@ parity tests. Layout rules, the JAX converter's read backwards:
 * Dense ``kernel`` [in, out]  -> ``weight`` [out, in]
 * conv ``kernel`` [t, p, p, C, D] -> ``weight`` [D, C, t, p, p]
 * LayerNorm ``scale``         -> ``weight``
+* the predictor's ``mask_tokens`` [num, P] -> ``mask_tokens.{j}`` [1, 1, P]
+  (`vjepa2_tpu/hub/converter.py:104-107,246-249`)
 * anything else keeps its name (``bias``, ``query_tokens``)
 """
 
@@ -47,6 +49,9 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             if isinstance(val, Mapping):
                 m = re.fullmatch(r"(.+)_(\d+)", name)
                 walk(val, prefix + (f"{m.group(1)}.{m.group(2)}" if m else name) + ".")
+            elif name == "mask_tokens":
+                for j, row in enumerate(np.array(val, dtype=np.float32)):
+                    sd[f"{prefix}mask_tokens.{j}"] = torch.from_numpy(row.reshape(1, 1, -1))
             else:
                 key, arr = _leaf(name, np.array(val, dtype=np.float32))
                 sd[prefix + key] = torch.from_numpy(np.ascontiguousarray(arr))

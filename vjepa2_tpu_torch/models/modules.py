@@ -13,7 +13,8 @@ Attention has two routes, as in JAX:
 * the plain route: [B, H, N, Dh] operands and the plain attention math,
   with interleaved-convention RoPE tables.
 
-Not ported yet: drop_path, remat policies, context parallelism, SwiGLU and
+Gradients come from autograd, through the flash kernels' `autograd.Function`
+on the DN route. Not ported yet: drop_path, remat policies, context parallelism, SwiGLU and
 the fused LayerNorm prologues (B7, B8 — off by default in JAX).
 """
 
@@ -142,7 +143,10 @@ class Attention(nn.Module):
         init_linear_(self.qkv, self.init_std, 1.0, generator)
         init_linear_(self.proj, self.init_std, self.proj_init_scale, generator)
 
-    def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None):
+    def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None):
+        """``kv_valid``: the number of real tokens when the model stack-padded
+        the sequence; keys at or past it are masked (pad query rows are the
+        model's to slice off)."""
         B, N, C = x.shape
         H, Dh, dt = self.num_heads, self.head_dim, self.dtype
         if self.use_flash:
@@ -158,13 +162,14 @@ class Attention(nn.Module):
                 y = y + b.to(dt)[:, None]
             q, k, v = y.view(B, 3, H, Dh, N).unbind(1)
             out = attend_bhdn(q, k, v, rope_expanded=rope_expanded if self.use_rope else None,
-                              use_flash=True)
+                              use_flash=True, kv_valid=kv_valid)
             out = out.permute(0, 3, 1, 2).reshape(B, N, C)  # rows (h, d), as proj expects
         else:
             if self.use_rope and rope_cache is None:
                 raise ValueError("the plain route with RoPE needs rope_cache")
             q, k, v = dense(self.qkv, x, dt).view(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
-            out = attend_bhnd(q, k, v, rope_cache=rope_cache if self.use_rope else None)
+            out = attend_bhnd(q, k, v, rope_cache=rope_cache if self.use_rope else None,
+                              kv_valid=kv_valid)
             out = out.transpose(1, 2).reshape(B, N, C)
         return dense(self.proj, out, dt)
 
@@ -190,8 +195,8 @@ class Block(nn.Module):
         self.norm2.reset_parameters()
         self.mlp.reset_parameters(generator)
 
-    def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None):
-        x = x + self.attn(self.norm1(x), rope_cache, rope_expanded, qkv_perm)
+    def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None):
+        x = x + self.attn(self.norm1(x), rope_cache, rope_expanded, qkv_perm, kv_valid)
         return x + self.mlp(self.norm2(x))
 
 

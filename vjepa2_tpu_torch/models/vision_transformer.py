@@ -1,10 +1,19 @@
 """Video ViT encoder (counterpart of `vjepa2_tpu/models/vision_transformer.py:37`).
 
-Channels-last input [B, T, H, W, C]. The unmasked forward with RoPE or with
-the sincos table. With ``use_flash`` and RoPE, the split-half tables and the
-qkv row permutation are built once per forward and shared by every layer
-(the JAX package's ``ROPE_HOIST``). Not ported yet: the masked forward,
-``STACK_PAD``, ``out_layers``, activation checkpointing and the image (2D
+Channels-last input [B, T, H, W, C]. The forward with RoPE or with the sincos
+table, unmasked or masked (tokens gathered after the patch embed, RoPE
+position ids carried alongside). With ``use_flash`` and RoPE, the split-half
+tables and the qkv row permutation are built once per forward and shared by
+every layer (the JAX package's ``ROPE_HOIST``).
+
+``STACK_PAD`` (`vision_transformer.py:33,159-176`): with ``use_flash`` the
+token stream is padded once, with zero rows, to the next multiple of
+``STACK_PAD_MULTIPLE`` and every layer masks the pad keys with a static
+``kv_valid``; pad rows are sliced off before the final norm. The JAX rule
+pads to x8 or x128 for Mosaic's tiling; the CUDA kernels take any length and
+need only x8 for their 16-byte path (578 -> 584 tokens, not 640).
+
+Not ported yet: ``out_layers``, activation checkpointing and the image (2D
 patch) path.
 """
 
@@ -13,10 +22,42 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+import torch.nn.functional as F
+
 from vjepa2_tpu_torch.models.modules import Block, LayerNorm, qkv_row_perm
 from vjepa2_tpu_torch.models.patch_embed import PatchEmbed3D
 from vjepa2_tpu_torch.models.pos_embs import get_3d_sincos_pos_embed
+from vjepa2_tpu_torch.ops.masking import apply_masks
 from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+
+STACK_PAD_MULTIPLE = 8
+
+
+def stack_pad(tokens: torch.Tensor, pos_ids: torch.Tensor | None, use_flash: bool):
+    """Pad [B, N, C] tokens (and [N] or [B, N] position ids, with 0) to the
+    next multiple of ``STACK_PAD_MULTIPLE`` when the flash route runs.
+    Returns (tokens, pos_ids, kv_valid): kv_valid is the real length when a
+    pad was added, else None."""
+    pad = (-tokens.shape[1]) % STACK_PAD_MULTIPLE
+    if not use_flash or pad == 0:
+        return tokens, pos_ids, None
+    kv_valid = tokens.shape[1]
+    tokens = F.pad(tokens, (0, 0, 0, pad))
+    if pos_ids is not None:
+        pos_ids = F.pad(pos_ids, (0, pad))
+    return tokens, pos_ids, kv_valid
+
+
+def rope_tables(pos_ids: torch.Tensor, head_dim: int, num_heads: int, h_patches: int,
+                w_patches: int, use_flash: bool):
+    """(rope_cache, rope_expanded, qkv_perm) for one forward: the interleaved
+    cache for the plain route, or the split-half tables plus the qkv row
+    permutation for the DN route, shared by every layer."""
+    rope_cache = build_rope_cache(pos_ids, head_dim, h_patches, w_patches)
+    if not use_flash:
+        return rope_cache, None, None
+    rope_expanded, perm = expand_rope_cache(rope_cache, head_dim)
+    return None, rope_expanded, qkv_row_perm(perm, num_heads, head_dim, pos_ids.device)
 
 
 class VisionTransformer(nn.Module):
@@ -67,25 +108,36 @@ class VisionTransformer(nn.Module):
             f"sincos table resize to a ({t_patches}, {h_patches}, {w_patches}) grid is not "
             "ported yet")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, T, H, W, C] -> [B, T'H'W', D] in ``dtype``."""
+    def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
+        """x: [B, T, H, W, C] -> [B, T'H'W', D] in ``dtype``.
+
+        masks: None, a [B, K] index tensor, or a list of them; with a list the
+        outputs are stacked along batch (reference semantics):
+        [B * len(masks), K, D].
+        """
+        if masks is not None and not isinstance(masks, (list, tuple)):
+            masks = [masks]
         _, T, H, W, _ = x.shape
         tp, hp, wp = T // self.tubelet_size, H // self.patch_size, W // self.patch_size
         tokens = self.patch_embed(x)
         if not self.use_rope:
             tokens = tokens + self._sincos_table(tp, hp, wp)[None].to(self.dtype)
+        pos_ids = None
+        if masks is not None:
+            tokens = apply_masks(tokens, masks)
+            pos_ids = torch.cat([m.to(device=x.device, dtype=torch.long) for m in masks])
+        elif self.use_rope:
+            pos_ids = torch.arange(tp * hp * wp, device=x.device)
+        n_real = tokens.shape[1]
+        tokens, pos_ids, kv_valid = stack_pad(tokens, pos_ids, self.use_flash)
         rope_cache = rope_expanded = qkv_perm = None
         if self.use_rope:
-            head_dim = self.embed_dim // self.num_heads
-            pos_ids = torch.arange(tp * hp * wp, device=x.device)
-            rope_cache = build_rope_cache(pos_ids, head_dim, hp, wp)
-            if self.use_flash:
-                rope_expanded, perm = expand_rope_cache(rope_cache, head_dim)
-                qkv_perm = qkv_row_perm(perm, self.num_heads, head_dim, x.device)
-                rope_cache = None
+            rope_cache, rope_expanded, qkv_perm = rope_tables(
+                pos_ids, self.embed_dim // self.num_heads, self.num_heads, hp, wp,
+                self.use_flash)
         for blk in self.blocks:
-            tokens = blk(tokens, rope_cache, rope_expanded, qkv_perm)
-        return self.norm(tokens)
+            tokens = blk(tokens, rope_cache, rope_expanded, qkv_perm, kv_valid)
+        return self.norm(tokens[:, :n_real])
 
 
 def _factory(embed_dim, depth, num_heads, mlp_ratio, use_rope=False):

@@ -74,14 +74,16 @@ def _apply_rope_cache_bhnd(x, cache):
     return rotated
 
 
-def attend_bhnd(q, k, v, rope_cache=None):
+def attend_bhnd(q, k, v, rope_cache=None, kv_valid: int | None = None):
     """Attention over [B, H, N, D] operands, returning [B, H, N, D]: the
     plain branch of the JAX function (its flash branch is kernel B3, not
-    ported yet). ``rope_cache`` holds interleaved-convention tables."""
+    ported yet). ``rope_cache`` holds interleaved-convention tables; keys at
+    or past ``kv_valid`` are masked."""
     if rope_cache is not None:
         q = _apply_rope_cache_bhnd(q, rope_cache)
         k = _apply_rope_cache_bhnd(k, rope_cache)
-    return softmax_attention(q, k, v)[0]
+    mask = attention_mask(q.shape[2], k.shape[2], q.device, kv_valid)
+    return softmax_attention(q, k, v, mask=mask)[0]
 
 
 def attend_bhdn(q, k, v, rope_expanded=None, use_flash: bool = False,

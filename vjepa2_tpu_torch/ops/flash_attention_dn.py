@@ -1,20 +1,24 @@
-"""Flash attention forward over [B, H, D, N] ("DN") operands — kernel B1.
+"""Flash attention over [B, H, D, N] ("DN") operands — kernels B1 and B2.
 
-Counterpart of `vjepa2_tpu/ops/flash_attention_dn.py` (`_fwd_kernel_dn:129`,
-`_flash_fwd_bhdn:198`, `flash_attention_bhdn:573`). On a CUDA tensor
-`flash_attention_bhdn` launches the hand-written Hopper kernel in
-`csrc/flash_fwd_dn.cu` or raises; on a CPU tensor it runs
-`flash_attention_bhdn_plain`, the plain PyTorch math of the JAX package's
-fallback (`ops/attention.py:278-298`). There is no other route.
+Counterpart of `vjepa2_tpu/ops/flash_attention_dn.py`: the forward
+(`_fwd_kernel_dn:129`, `_flash_fwd_bhdn:198`), the backward
+(`_bwd_fused_kernel_dn:298`, `_flash_bwd_bhdn:379`) and the differentiable
+entry point (`_flash_core_dn:492`, `flash_attention_bhdn:573`).
+
+`flash_attention_bhdn` is a `torch.autograd.Function` (`FlashAttentionDN`):
+its forward saves (q, k, v, out, lse) and its backward is
+`flash_attention_bhdn_bwd`. On a CUDA tensor each launches its hand-written
+Hopper kernel (`csrc/flash_fwd_dn.cu`, `csrc/flash_bwd_dn.cu`) or raises; on a
+CPU tensor they run `flash_attention_bhdn_plain` (the plain math of the JAX
+package's fallback, `ops/attention.py:278-298`) and
+`flash_attention_bhdn_bwd_plain` (the B2 math written out). There is no other
+route. Segment ids and RoPE tables stay outside autograd: they get no
+gradient.
 
 The TPU block plan, lane padding and fp32 segment side-inputs have no
-counterpart: the CUDA kernel masks its own ragged edge and compares int32
-segment ids as integers (the TPU kernel casts them to fp32, exact only below
+counterpart: the CUDA kernels mask their own ragged edge and compare int32
+segment ids as integers (the TPU kernels cast them to fp32, exact only below
 2**24).
-
-Only the forward is ported. Its backward (B2) is later work, so the CUDA
-route refuses inputs that require grad under grad mode; the CPU plain path
-stays differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -26,18 +30,19 @@ import torch
 
 from vjepa2_tpu_torch import _build
 from vjepa2_tpu_torch.ops.attention import attention_mask, softmax_attention
-from vjepa2_tpu_torch.ops.rope import rope_rotate
+from vjepa2_tpu_torch.ops.rope import rope_rotate, rope_rotate_t
 
 LOG2E = 1.4426950408889634  # 1 / ln 2
 
 # Inclusive head-width bound of the DN route (`flash_attention_dn.py:670`).
 DN_MAX_D = 64
 
-# Kernel launches since the last reset; `chip_smoke.py` reads it to show the
-# main path went through the kernel.
+# Kernel launches since the last reset, forward (B1) and backward (B2);
+# `chip_smoke.py` reads them to show the main path went through the kernels.
 LAUNCHES = 0
+LAUNCHES_BWD = 0
 
-_fn = None
+_fns: dict = {}
 
 
 def dn_head_eligible(d: int) -> bool:
@@ -73,8 +78,10 @@ def _normalize(q, k, v, rope_expanded, segment_ids, kv_valid_len):
         cos, sin = rope_expanded
         if cos.ndim == 2:
             cos, sin = cos[None], sin[None]
-        # the JAX rule: [.., N, D] unless the second-to-last dim is D
-        tables_nd = cos.shape[-1] == D and cos.shape[-2] != D
+        # [.., N, D] unless only [.., D, N] fits; when N == D both fit and the
+        # tables are read [N, D], as `expand_rope_cache` emits them (the JAX
+        # rule, `flash_attention_dn.py:621`, reads them [D, N] there)
+        tables_nd = cos.shape[-1] == D and (cos.shape[-2] != D or N == D)
         want = (N, D) if tables_nd else (D, N)
         if (N != M or tuple(cos.shape[1:]) != want or sin.shape != cos.shape
                 or cos.shape[0] not in (1, B)):
@@ -106,34 +113,75 @@ def flash_attention_bhdn_plain(q, k, v, scale: float | None = None, rope_expande
     return out.transpose(2, 3), lse
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def flash_attention_bhdn_bwd_plain(q, k, v, out, lse, do, scale: float | None = None,
+                                   rope_expanded=None, segment_ids=None,
+                                   kv_valid_len: int | None = None):
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv), each
+    [B, H, D, N|M] in q's dtype; the math of `_bwd_fused_kernel_dn` plus
+    `_flash_bwd_bhdn`, in fp32 (`flash_attention_dn.py:298-484`).
+
+    p is recomputed from lse (0 where lse is -inf or the pair is masked);
+    delta = rowsum(do * out); dv = p^T do; ds = p (dp - delta) scale with
+    dp = do v^T; dk = ds^T q_rot; dq = ds k_rot; then the RoPE adjoint
+    (`rope_rotate_t`) takes dq and dk back to the unrotated q and k. q and k
+    are rotated in fp32 and rounded to their dtype, as in the forward.
+    """
+    cos, sin, tables_nd, seg = _normalize(q, k, v, rope_expanded, segment_ids, kv_valid_len)
+    D = q.shape[2]
+    qn, kn, vn, on, don = (t.transpose(2, 3).float() for t in (q, k, v, out, do))
+    if cos is not None:
+        if not tables_nd:
+            cos, sin = cos.transpose(1, 2), sin.transpose(1, 2)
+        cos = cos.to(device=q.device, dtype=torch.float32)[:, None]
+        sin = sin.to(device=q.device, dtype=torch.float32)[:, None]
+        qn = rope_rotate(qn, cos, sin).to(q.dtype).float()
+        kn = rope_rotate(kn, cos, sin).to(k.dtype).float()
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    lse = lse.float()[..., None]
+    p = torch.exp(torch.matmul(qn, kn.transpose(-1, -2)) * scale - lse)
+    keep = ~torch.isneginf(lse)
+    mask = attention_mask(q.shape[3], k.shape[3], q.device, kv_valid_len, seg)
+    if mask is not None:
+        keep = keep & mask
+    p = torch.where(keep, p, 0.0)
+    delta = (don * on).sum(-1, keepdim=True)
+    dv = torch.matmul(p.transpose(-1, -2), don)
+    ds = p * (torch.matmul(don, vn.transpose(-1, -2)) - delta) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qn)
+    dq = torch.matmul(ds, kn)
+    if cos is not None:
+        dq = rope_rotate_t(dq, cos, sin)
+        dk = rope_rotate_t(dk, cos, sin)
+    return tuple(t.transpose(2, 3).to(q.dtype) for t in (dq, dk, dv))
+
+
+def _kernel(name: str, argtypes: list, restype=ctypes.c_int):
+    """(library, the C function ``name`` with its argtypes and restype set)."""
+    if name not in _fns:
         lib = _build.load()
-        fn = lib.vjepa2_flash_fwd_dn_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = (lib, fn)
-    return _fn
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _fns[name] = (lib, fn)
+    return _fns[name]
 
 
-def _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
-    global LAUNCHES
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention_bhdn on CUDA takes bf16; {name} is {t.dtype}")
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} must be unit-stride along N (the kernel's coalesced dim)")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the flash backward (B2) is not ported yet: call the CUDA forward "
-                           "under torch.inference_mode() or torch.no_grad()")
-    B, H, D, N = q.shape
-    M = k.shape[3]
-    dev = q.device
+def _launcher_argtypes(n_ptrs: int, n_ints: int, n_floats: int) -> list:
+    """Pointers, ints, the strides array, floats, then the stream."""
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_float] * n_floats
+            + [ctypes.c_void_p])
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _side_inputs(dev, cos, sin, tables_nd, seg):
+    """RoPE tables as [B|1, D, N] contiguous fp32 (the kernels read 8 tokens
+    of one feature at a time) and segment ids as int32, on ``dev``; plus
+    their strides (t_b, t_d, t_n, seg_b), batch stride 0 when shared."""
     t_b = t_d = t_n = seg_b = 0
     if cos is not None:
-        # [B|1, D, N] contiguous: the kernel reads 8 tokens of one feature at a time
         if tables_nd:
             cos, sin = cos.transpose(1, 2), sin.transpose(1, 2)
         cos = cos.to(device=dev, dtype=torch.float32).contiguous()
@@ -143,30 +191,135 @@ def _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
     if seg is not None:
         seg = seg.to(device=dev, dtype=torch.int32).contiguous()
         seg_b = seg.stride(0) if seg.shape[0] > 1 else 0
+    return cos, sin, seg, (t_b, t_d, t_n, seg_b)
+
+
+def _check_bf16(**tensors):
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the DN flash kernels on CUDA take bf16; {name} is {t.dtype}")
+
+
+def _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
+    global LAUNCHES
+    _check_bf16(q=q, k=k, v=v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be unit-stride along N (the kernel's coalesced dim)")
+    B, H, D, N = q.shape
+    M = k.shape[3]
+    dev = q.device
+    cos, sin, seg, side = _side_inputs(dev, cos, sin, tables_nd, seg)
     out = torch.empty((B, H, D, N), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
     # the kernel's prologue writes rotated, rounded q and k here, token-major
     q_rot = torch.empty((B, H, N, D), dtype=q.dtype, device=dev)
     k_rot = torch.empty((B, H, M, D), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 20)(*q.stride(), *k.stride(), *v.stride(), *out.stride(),
-                                        t_b, t_d, t_n, seg_b)
+                                        *side)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kv_lim = M if kv_valid_len is None else kv_valid_len
-    lib, fn = _kernel()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib, fn = _kernel("vjepa2_flash_fwd_dn_bf16", _launcher_argtypes(10, 6, 1))
     with torch.cuda.device(dev):
-        err = fn(ptr(q), ptr(k), ptr(v), ptr(cos), ptr(sin), ptr(seg), ptr(out), ptr(lse),
-                 ptr(q_rot), ptr(k_rot), B, H, D, N, M, kv_lim, strides, scale * LOG2E,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(cos), _ptr(sin), _ptr(seg), _ptr(out),
+                 _ptr(lse), _ptr(q_rot), _ptr(k_rot), B, H, D, N, M, kv_lim, strides,
+                 scale * LOG2E, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "flash_fwd_dn")
     LAUNCHES += 1
     return out, lse
 
 
+def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg, kv_valid_len):
+    global LAUNCHES_BWD
+    _check_bf16(q=q, k=k, v=v, out=out, do=do)
+    B, H, D, N = q.shape
+    M = k.shape[3]
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, N):
+        raise ValueError(f"out {tuple(out.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("lse must be contiguous fp32 [B, H, N], as the forward returns it")
+    dev = q.device
+    if any(t.device != dev for t in (out, lse, do)):
+        raise ValueError("q, k, v, out, lse and do must be on one device")
+    cos, sin, seg, side = _side_inputs(dev, cos, sin, tables_nd, seg)
+    dq = torch.empty((B, H, D, N), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, H, D, M), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, H, D, M), dtype=q.dtype, device=dev)
+    lib, fn = _kernel("vjepa2_flash_bwd_dn_bf16", _launcher_argtypes(13, 6, 2))
+    _, size = _kernel("vjepa2_flash_bwd_dn_scratch_bytes", [ctypes.c_int] * 5,
+                      ctypes.c_longlong)
+    # the prologue writes the operands in the layouts the main kernels read
+    scratch = torch.empty(size(B, H, D, N, M), dtype=torch.uint8, device=dev)
+    strides = (ctypes.c_longlong * 24)(*q.stride(), *k.stride(), *v.stride(), *out.stride(),
+                                        *do.stride(), *side)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kv_lim = M if kv_valid_len is None else kv_valid_len
+    with torch.cuda.device(dev):
+        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(lse), _ptr(cos),
+                 _ptr(sin), _ptr(seg), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(scratch),
+                 B, H, D, N, M, kv_lim, strides, scale, scale * LOG2E,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "flash_bwd_dn")
+    LAUNCHES_BWD += 1
+    return dq, dk, dv
+
+
+def _device(*tensors) -> str:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("q, k and v must be on one device")
+    dev = devices.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no DN flash route for device {dev}")
+    return dev.type
+
+
+def flash_attention_bhdn_bwd(q, k, v, out, lse, do, scale: float | None = None,
+                             rope_expanded=None, segment_ids=None,
+                             kv_valid_len: int | None = None):
+    """The backward of `flash_attention_bhdn`: (dq, dk, dv) from the forward's
+    inputs, its (out, lse) and the cotangent ``do`` of out.
+
+    A CUDA tensor launches B2 (bf16 only; any strides) or raises; a CPU tensor
+    takes `flash_attention_bhdn_bwd_plain`.
+    """
+    if _device(q, k, v) == "cpu":
+        return flash_attention_bhdn_bwd_plain(q, k, v, out, lse, do, scale, rope_expanded,
+                                              segment_ids, kv_valid_len)
+    norm = _normalize(q, k, v, rope_expanded, segment_ids, kv_valid_len)
+    return _flash_bwd_cuda(q, k, v, out, lse, do, scale, *norm, kv_valid_len)
+
+
+class FlashAttentionDN(torch.autograd.Function):
+    """B1 forward, B2 backward (`_flash_core_dn:492`, `_core_fwd_dn:503`,
+    `_core_bwd_dn:513`). The forward saves (q, k, v, out, lse); lse is an
+    output without a gradient; tables and segment ids get none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, rope_expanded, segment_ids, kv_valid_len):
+        if _device(q, k, v) == "cpu":
+            out, lse = flash_attention_bhdn_plain(q, k, v, scale, rope_expanded, segment_ids,
+                                                  kv_valid_len)
+        else:
+            norm = _normalize(q, k, v, rope_expanded, segment_ids, kv_valid_len)
+            out, lse = _flash_fwd_cuda(q, k, v, scale, *norm, kv_valid_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, rope_expanded, segment_ids, kv_valid_len)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bhdn_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention_bhdn(q, k, v, scale: float | None = None, rope_expanded=None,
                          segment_ids=None, kv_valid_len: int | None = None,
                          return_lse: bool = False):
-    """Flash attention over [B, H, D, N] tensors.
+    """Flash attention over [B, H, D, N] tensors. Differentiable in q, k, v.
 
     rope_expanded: split-half (cos, sin), [B|1, N, D] as
     `ops.rope.expand_rope_cache` emits them, or [B|1, D, N]. q and k must
@@ -176,17 +329,8 @@ def flash_attention_bhdn(q, k, v, scale: float | None = None, rope_expanded=None
     kv_valid_len: number of real keys; keys at or beyond it are masked.
 
     Returns out [B, H, D, N] (and lse [B, H, N] fp32 with ``return_lse``).
-    A CUDA tensor launches the kernel (bf16 only) or raises; a CPU tensor
-    takes `flash_attention_bhdn_plain`.
+    A CUDA tensor launches the kernels (bf16 only) or raises; a CPU tensor
+    takes the plain versions.
     """
-    if len({t.device for t in (q, k, v)}) != 1:
-        raise ValueError("q, k and v must be on one device")
-    if q.device.type == "cuda":
-        cos, sin, tables_nd, seg = _normalize(q, k, v, rope_expanded, segment_ids, kv_valid_len)
-        out, lse = _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len)
-    elif q.device.type == "cpu":
-        out, lse = flash_attention_bhdn_plain(q, k, v, scale, rope_expanded, segment_ids,
-                                              kv_valid_len)
-    else:
-        raise ValueError(f"no DN flash route for device {q.device}")
+    out, lse = FlashAttentionDN.apply(q, k, v, scale, rope_expanded, segment_ids, kv_valid_len)
     return (out, lse) if return_lse else out

@@ -75,6 +75,15 @@ def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
     return x * cos + torch.cat([-x[..., d:], x[..., :d]], dim=-1) * sin
 
 
+def rope_rotate_t(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Adjoint of `rope_rotate` (the JAX package's `_rope_rotate_dn_t`): the
+    two slots of a pair may carry different angles under the tiled-frequency
+    quirk, so this is R^T, not R(-theta): g*cos + [w_hi, -w_lo], w = g*sin."""
+    d = g.shape[-1] // 2
+    w = g * sin
+    return g * cos + torch.cat([w[..., d:], -w[..., :d]], dim=-1)
+
+
 def splithalf_layout(d: int, rot: int):
     """Head-dim permutation (interleaved pairs -> split-half) for a head of
     width ``d`` whose first ``rot`` features rotate.
