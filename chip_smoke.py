@@ -28,7 +28,29 @@ Phases, each printed as one JSON object on a line of its own:
    with fresh masks each step; 1 warm-up and 5 timed steps, each launching
    B1 96 times and B2 72 times; finite loss and gradients, the EMA of the
    target, and clip 0's loss and gradients against the port's fp32 plain path
-   on the CPU from the same weights.
+   on the CPU from the same weights;
+7. kernel_bhnd — the BHND flash forward (B3) against its plain version at
+   the ViT-H and 16-head ViT-g shapes (RoPE, kv_valid, per-example tables),
+   plus a segments + key-side ids call and a causal call;
+8. kernel_bhnd_bwd — the BHND flash backward (B4/B5) against its plain
+   version at the ViT-H context and target shapes, the ViT-g width, and a
+   ring-hop call (no RoPE, key-side ids, an lse given from outside);
+9. train_huge — the masked-pretrain step of phase 6 with ViT-H/16 (32
+   layers, width 1280, 16 heads of 80): 1 + 5 steps, each launching B3 96
+   times, the BHND backward 64, B1 24 and B2 24 times; the same checks;
+10. encode_giant — the 16-head ViT-g (40 layers, width 1408, heads of 88,
+   `bench.py:369`'s headline encoder) answering 3 requests of 8 clips at
+   16f@256, 40 B3 launches each, one clip's features against the fp32 CPU
+   path;
+11. entry  — the hub factories `vjepa2_vit_huge()` and `vjepa2_vit_large()`
+   called with no argument, as a user calls them: the full encoder on the
+   card in bf16, one clip, one B3 (ViT-H) or B1 (ViT-L) launch per layer.
+
+Every kernel phase also times `torch.nn.functional.scaled_dot_product_attention`
+on the same inputs (pre-rotated q and k) as a yardstick the port never calls,
+and computes each call's bound: the larger of its FLOPs over 989 TFLOP/s
+(bf16 dense) and its bytes (each input read once, each output written once)
+over 3.35 TB/s, with the FLOPs of the (query, key) pairs its masks leave.
 
 Then the kernels' summary line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero without that line;
@@ -39,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +73,14 @@ KERNEL_SOURCE = "vjepa2_tpu_torch/csrc/flash_fwd_dn.cu"
 KERNEL_REPLACES = "vjepa2_tpu/ops/flash_attention_dn.py:129"
 BWD_SOURCE = "vjepa2_tpu_torch/csrc/flash_bwd_dn.cu"
 BWD_REPLACES = "vjepa2_tpu/ops/flash_attention_dn.py:298"
+BHND_SOURCE = "vjepa2_tpu_torch/csrc/flash_fwd_bhnd.cu"
+BHND_REPLACES = "vjepa2_tpu/ops/flash_attention.py:166"
+BHND_BWD_SOURCE = "vjepa2_tpu_torch/csrc/flash_bwd_bhnd.cu"
+# B4 (one pass) and B5 (`_dq_kernel:361`, `_dkv_kernel:434`): one CUDA backward
+BHND_BWD_REPLACES = "vjepa2_tpu/ops/flash_attention.py:511"
+
+# H100 SXM dense bf16 peak and memory rate (NVIDIA's data sheet), for bounds
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 # (name, [B, H, D, N], features) — the shapes B1 takes on the main paths
 SHAPES = [
@@ -95,7 +126,6 @@ BWD_SHAPES = [
 # largest entries.
 BWD_REL_L2, BWD_MAX_ABS = 2e-2, 3e-2
 TRAIN_STEPS, TRAIN_WARMUP = 5, 1
-B1_PER_STEP, B2_PER_STEP = 96, 72  # 24 target + 2 x (24 + 12); 2 x (24 + 12)
 # Clip 0's loss and gradients on the initial weights, bf16 on the card
 # against fp32 on the CPU. The port's plain path in bf16 on the CPU, full
 # depth and widths at 8f@128, differs from fp32 by 1.2e-2 (encoder) and
@@ -103,6 +133,33 @@ B1_PER_STEP, B2_PER_STEP = 96, 72  # 24 target + 2 x (24 + 12); 2 x (24 + 12)
 # kernels add their own roundings (B2: ~5e-3 a call), so about 2e-2 is
 # expected: tolerance 5e-2 on each flattened gradient, 1e-2 on the loss.
 TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-2, 5e-2
+
+# (name, [B, H, N, D], features) — the shapes B3 takes on the main paths
+BHND_SHAPES = [
+    ("vit_huge target", (8, 16, 2048, 80), {"rope": "shared"}),
+    ("vit_huge context, mask 0", (8, 16, 584, 80), {"rope": "ctx0", "kv_valid_len": 578}),
+    ("vit_huge context, mask 1", (8, 16, 176, 80), {"rope": "ctx1", "kv_valid_len": 173}),
+    ("vit_giant encoder", (8, 16, 2048, 88), {"rope": "shared"}),
+    ("segments + seg_kv", (2, 16, 1024, 80), {"seg_kv": True}),
+    ("causal", (2, 16, 1024, 80), {"causal": True}),
+]
+# the BHND backward's shapes: the context passes, JAX's B5 shape (full N with
+# 1024-square blocks), the ViT-g width, and a ring hop
+BHND_BWD_SHAPES = [
+    ("vit_huge context, mask 0", (8, 16, 584, 80), {"rope": "ctx0", "kv_valid_len": 578}),
+    ("vit_huge context, mask 1", (8, 16, 176, 80), {"rope": "ctx1", "kv_valid_len": 173}),
+    ("full N (JAX's B5 shape)", (8, 16, 2048, 80), {"rope": "shared"}),
+    ("vit_giant width", (2, 16, 2048, 88), {"rope": "shared"}),
+    ("ring hop: seg_kv, given lse", (2, 16, 1024, 80), {"seg_kv": True, "global_lse": True}),
+]
+# the step of phase 6 per encoder: (phase, launches per step of B1, B2, B3,
+# the BHND backward). ViT-L: 24 target + 2 x (24 + 12) B1; ViT-H: 32 target +
+# 2 x 32 context B3, 2 x 12 predictor B1.
+TRAIN_CFGS = {
+    "vit_large": ("train", (96, 72, 0, 0)),
+    "vit_huge": ("train_huge", (24, 24, 96, 64)),
+}
+GIANT_REL_L2 = 5e-2  # bf16 on the card against fp32 on the CPU, 40 layers
 
 
 def emit(obj: dict) -> None:
@@ -123,6 +180,61 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: int) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def pair_mask(B, N, M, dev, kv_valid=None, seg_q=None, seg_k=None, causal=False):
+    """[B|1, 1, N, M] bool, True where a query attends a key, or None."""
+    mask = None
+    if kv_valid is not None and kv_valid < M:
+        mask = (torch.arange(M, device=dev) < kv_valid)[None, None, None, :]
+    if seg_q is not None:
+        seg = (seg_q[:, None, :, None] >= seg_k[:, None, None, :])
+        mask = seg if mask is None else mask & seg
+    if causal:
+        tri = torch.ones(N, M, dtype=torch.bool, device=dev).tril()[None, None]
+        mask = tri if mask is None else mask & tri
+    return mask
+
+
+def attended_pairs(B, H, N, M, mask) -> int:
+    """(query, key) pairs the masks leave, over all batches and heads."""
+    if mask is None:
+        return B * H * N * M
+    return int(mask.expand(B, 1, N, M).sum().item()) * H
+
+
+def library_fwd_ms(qr, kr, v, mask, causal=False) -> float:
+    """`F.scaled_dot_product_attention` on pre-rotated [B, H, N, D] operands
+    (timed as a yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    if causal:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, is_causal=True), 20)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask), 20)
+
+
+def library_bwd_ms(qr, kr, v, do, mask, causal=False) -> float:
+    """The backward of `F.scaled_dot_product_attention` alone: autograd
+    through a recorded call, retained, on the same inputs."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (qr, kr, v)]
+    with torch.enable_grad():
+        if causal:
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        else:
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        return cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -134,13 +246,35 @@ def phase_device() -> str:
     return smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_bhnd_kernel<80,80>`` from a mangled ptxas function name:
+    an identifier ending in ``_kernel`` whose length is the number just
+    before it (the digits of a hash may run into that number), then its
+    template arguments."""
+    for m in re.finditer(r"[A-Za-z_]+_kernel", mangled):
+        digits = re.search(r"\d+$", mangled[:m.start()])
+        if digits and digits.group().endswith(str(len(m.group()))):
+            args = re.match(r"I((?:L[ib]\d+E)+)", mangled[m.end():])
+            return m.group() + (f"<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
+                                if args else "")
+    return "?"
+
+
 def phase_build() -> None:
     from vjepa2_tpu_torch import _build
 
     t0 = time.perf_counter()
     _build.load()
-    ptxas = [ln.strip() for ln in _build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+    # per kernel instantiation: registers, spill stores and loads (-Xptxas -v)
+    ptxas, name, spill = [], "?", ""
+    for ln in _build.build_log().splitlines():
+        if "Function properties for" in ln:
+            name = _kernel_name(ln)
+        elif "spill stores" in ln:
+            spill = ", ".join(x.strip() for x in ln.split(",")[1:])
+        elif "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            ptxas.append(f"{name}: {regs} registers, {spill}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_build.library_path().relative_to(_build.BUILD_DIR.parent.parent)),
           "ptxas": ptxas})
@@ -148,7 +282,7 @@ def phase_build() -> None:
 
 def phase_kernels(dev, smi: str) -> dict:
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
-    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache, rope_rotate
 
     first = None
     for name, (B, H, D, N), feats in SHAPES:
@@ -174,8 +308,17 @@ def phase_kernels(dev, smi: str) -> dict:
                       and d_lse.max() <= LSE_ATOL)
             ms = cuda_ms(lambda: fdn.flash_attention_bhdn(q, k, v, **kw), iters=20)
             plain_ms = cuda_ms(lambda: fdn.flash_attention_bhdn_plain(q, k, v, **kw), iters=5)
+            seg = kw.get("segment_ids")
+            seg = None if seg is None else seg[None]
+            mask = pair_mask(B, N, N, dev, kw.get("kv_valid_len"), seg, seg)
+            qr, kr = (rope_rotate(t.transpose(2, 3).float(), cos[:, None], sin[:, None])
+                      .to(torch.bfloat16).contiguous() for t in (q, k))
+            library_ms = library_fwd_ms(qr, kr, v.transpose(2, 3).contiguous(), mask)
+            bound_ms, bound_by = bound(4 * D * attended_pairs(B, H, N, N, mask),
+                                       nbytes(q, k, v, cos, sin, seg, out_k, lse_k))
         rec = {"phase": "kernel", "kernel": "flash_fwd_dn", "shape": name, "bhdn": [B, H, D, N],
-               "features": sorted(kw), "ms": ms, "plain_ms": plain_ms,
+               "features": sorted(kw), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
                "max_abs_err_out": d_out.max().item(), "max_abs_err_lse": d_lse.max().item(),
                "tol": {"out": f"{OUT_ATOL} + {OUT_RTOL}*|plain|", "lse": LSE_ATOL},
                "ok": ok, "gpu": smi}
@@ -213,7 +356,7 @@ def phase_slice(dev, smi: str) -> int:
             return clf(encode_clips(enc, clips.to(dev))).cpu()
 
     answer(requests[0])  # warm-up, outside the counted run
-    fdn.LAUNCHES = 0
+    _reset_launch_counts()
     times, answers = [], []
     for clips in requests:
         before = fdn.LAUNCHES
@@ -268,7 +411,7 @@ def _masks(coll, batch: int):
 def phase_kernels_bwd(dev, smi: str) -> dict:
     from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
-    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache, rope_rotate
 
     me, mp = _masks(MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE)), 8)
     seqs = {f"ctx{i}": np.sort(m, axis=1) for i, m in enumerate(me)}
@@ -315,9 +458,19 @@ def phase_kernels_bwd(dev, smi: str) -> dict:
                          iters=20)
             plain_ms = cuda_ms(
                 lambda: fdn.flash_attention_bhdn_bwd_plain(q, k, v, out, lse, do, **kw), iters=3)
+            seg = kw.get("segment_ids")
+            seg = None if seg is None else seg[None]
+            mask = pair_mask(B, N, N, dev, kw.get("kv_valid_len"), seg, seg)
+            qr, kr = (rope_rotate(t.transpose(2, 3).float(), cos[:, None], sin[:, None])
+                      .to(torch.bfloat16).contiguous() for t in (q, k))
+            library_ms = library_bwd_ms(qr, kr, v.transpose(2, 3).contiguous(),
+                                        do.transpose(2, 3).contiguous(), mask)
+            bound_ms, bound_by = bound(10 * D * attended_pairs(B, H, N, N, mask),
+                                       nbytes(q, k, v, out, do, lse, cos, sin, seg, *got))
         rec = {"phase": "kernel_bwd", "kernel": "flash_bwd_dn", "shape": name,
                "bhdn": [B, H, D, N], "features": sorted(kw),
                "kv_valid": kw.get("kv_valid_len"), "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "tol": {"rel_l2": BWD_REL_L2, "max_abs": f"{BWD_MAX_ABS}*max|plain|"},
                "ok": ok, "gpu": smi}
@@ -328,14 +481,30 @@ def phase_kernels_bwd(dev, smi: str) -> dict:
     return first
 
 
-def phase_train(dev, smi: str) -> tuple[int, int]:
-    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+def _launch_counts() -> tuple[int, int, int, int]:
+    """(B1, B2, B3, BHND backward) launches since the last reset."""
+    from vjepa2_tpu_torch.ops import flash_attention as fa
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
+
+    return fdn.LAUNCHES, fdn.LAUNCHES_BWD, fa.LAUNCHES, fa.LAUNCHES_BWD
+
+
+def _reset_launch_counts() -> None:
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+    from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
+
+    fdn.LAUNCHES = fdn.LAUNCHES_BWD = fa.LAUNCHES = fa.LAUNCHES_BWD = 0
+
+
+def phase_train(dev, smi: str, model: str = "vit_large") -> tuple[int, int, int, int]:
+    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
     from vjepa2_tpu_torch.train import pretrain as tp
     from vjepa2_tpu_torch.train.state import TrainState
 
+    phase, per_step = TRAIN_CFGS[model]
+
     def build(device, dtype):
-        return tp.build_models("vit_large", crop_size=SIZE, num_frames=FRAMES, pred_depth=12,
+        return tp.build_models(model, crop_size=SIZE, num_frames=FRAMES, pred_depth=12,
                                pred_embed_dim=384, pred_num_heads=12, use_rope=True,
                                num_mask_tokens=2, use_flash=True, dtype=dtype, device=device)
 
@@ -401,21 +570,21 @@ def phase_train(dev, smi: str) -> tuple[int, int]:
     if ema_err > 1e-6 * want.abs().max().item():
         raise AssertionError(f"EMA target off m*old + (1-m)*online by {ema_err}")
 
-    fdn.LAUNCHES = fdn.LAUNCHES_BWD = 0
+    _reset_launch_counts()
     times, losses, norms = [], [], []
     for _ in range(TRAIN_STEPS):
-        before = (fdn.LAUNCHES, fdn.LAUNCHES_BWD)
+        before = _launch_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         loss, gnorm, _ = step()
         times.append((time.perf_counter() - t1) * 1e3)
-        launched = (fdn.LAUNCHES - before[0], fdn.LAUNCHES_BWD - before[1])
-        if launched != (B1_PER_STEP, B2_PER_STEP):
-            raise AssertionError(f"a step launched B1, B2 {launched} times, want "
-                                 f"{(B1_PER_STEP, B2_PER_STEP)}")
+        launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+        if launched != per_step:
+            raise AssertionError(f"a step launched B1, B2, B3, the BHND backward {launched} "
+                                 f"times, want {per_step}")
         losses.append(loss)
         norms.append(gnorm)
-    launches = (fdn.LAUNCHES, fdn.LAUNCHES_BWD)
+    launches = _launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     named = [(f"encoder.{k}", p) for k, p in enc.named_parameters()]
     named += [(f"predictor.{k}", p) for k, p in pred.named_parameters()]
@@ -429,24 +598,268 @@ def phase_train(dev, smi: str) -> tuple[int, int]:
     ok = loss_rel <= TRAIN_LOSS_REL and enc_rel <= TRAIN_GRAD_REL_L2 \
         and pred_rel <= TRAIN_GRAD_REL_L2
     med = sorted(times)[len(times) // 2]
-    emit({"phase": "train",
-          "model": "vit_large 16f@256 bs8 + predictor (12 x 384, 12 heads) bf16, AdamW fp32",
+    emit({"phase": phase,
+          "model": f"{model} 16f@256 bs8 + predictor (12 x 384, 12 heads) bf16, AdamW fp32",
           "mask_lengths": {"ctx": [m.shape[1] for m in me], "pred": [m.shape[1] for m in mp]},
           "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS, "ms_per_step": times,
           "median_ms_per_step": med, "clips_per_s": CLIPS / (med / 1e3),
           "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": norms,
-          "b1_launches": launches[0], "b2_launches": launches[1],
-          "b1_per_step": B1_PER_STEP, "b2_per_step": B2_PER_STEP,
+          "launches": dict(zip(("b1", "b2", "b3", "bhnd_bwd"), launches)),
+          "launches_per_step": dict(zip(("b1", "b2", "b3", "bhnd_bwd"), per_step)),
           "ema_max_abs_err": ema_err, "ema_leaf": name,
           "clip0": {"loss_gpu": loss_gpu, "loss_cpu_fp32": loss_cpu, "loss_rel_err": loss_rel,
                     "encoder_grad_rel_l2": enc_rel, "predictor_grad_rel_l2": pred_rel,
                     "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2},
-                    "depth": "full (24 + 12 layers)"},
+                    "depth": f"full ({len(enc.blocks)} + 12 layers)"},
           "setup_s": setup_s, "cpu_reference_s": cpu_s, "ok": ok, "gpu": smi})
     if not ok:
         raise AssertionError(f"clip-0 loss or gradients off the CPU fp32 reference: loss "
                              f"{loss_rel}, encoder {enc_rel}, predictor {pred_rel}")
     return launches
+
+
+def _bhnd_case(dev, B, H, N, D, feats, seqs):
+    """(q, k, v, do, kwargs, mask) for one BHND shape: random bf16 operands,
+    RoPE tables (shared, or per example from a collator mask stack-padded
+    with id 0, as the models pad), and the shape's masks."""
+    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+
+    rng = np.random.RandomState(0)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, H, N, D).astype(np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(4))
+    kw, seg_q, seg_k = {}, None, None
+    rope = feats.get("rope")
+    if rope:
+        pos = torch.arange(N, device=dev)
+        if rope != "shared":
+            ids = seqs[rope]
+            pos = torch.zeros(B, N, dtype=torch.long)
+            pos[:, :ids.shape[1]] = torch.from_numpy(ids)
+            pos = pos.to(dev)
+        (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, 16, 16), D)
+        kw["rope_expanded"] = (cos, sin)
+    if "kv_valid_len" in feats:
+        kw["kv_valid_len"] = feats["kv_valid_len"]
+    if feats.get("seg_kv"):  # a ring hop: frames 4-11 of queries, 0-15 of keys
+        seg_q = (torch.arange(8, device=dev, dtype=torch.int32) + 4).repeat_interleave(N // 8)
+        seg_k = torch.arange(16, device=dev, dtype=torch.int32).repeat_interleave(N // 16)
+        seg_q, seg_k = seg_q[None].expand(B, N), seg_k[None].expand(B, N)
+        kw["segment_ids"], kw["seg_kv"] = seg_q, seg_k
+    if feats.get("causal"):
+        kw["causal"] = True
+    mask = pair_mask(B, N, N, dev, kw.get("kv_valid_len"), seg_q, seg_k, kw.get("causal", False))
+    return q, k, v, do, kw, mask
+
+
+def _rotated(q, k, kw):
+    """q and k rotated and rounded to bf16, for the library call."""
+    from vjepa2_tpu_torch.ops.rope import rope_rotate
+
+    if "rope_expanded" not in kw:
+        return q, k
+    cos, sin = kw["rope_expanded"]
+    return tuple(rope_rotate(t.float(), cos[:, None], sin[:, None]).to(torch.bfloat16)
+                 for t in (q, k))
+
+
+def _context_seqs():
+    """Sorted per-example context positions of one collator step at batch 8."""
+    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+
+    me, _ = _masks(MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE)), 8)
+    return {f"ctx{i}": np.sort(m, axis=1) for i, m in enumerate(me)}
+
+
+def phase_kernels_bhnd(dev, smi: str) -> dict:
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+
+    seqs, first = _context_seqs(), None
+    for name, (B, H, N, D), feats in BHND_SHAPES:
+        q, k, v, _, kw, mask = _bhnd_case(dev, B, H, N, D, feats, seqs)
+        with torch.inference_mode():
+            out_k, lse_k = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+            out_p, lse_p = fa.flash_attention_bhnd_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            d_out = (out_k.float() - out_p.float()).abs()
+            d_lse = (lse_k - lse_p).abs()
+            ok = bool(torch.isfinite(out_k.float()).all() and torch.isfinite(lse_k).all()
+                      and (d_out <= OUT_ATOL + OUT_RTOL * out_p.float().abs()).all()
+                      and d_lse.max() <= LSE_ATOL)
+            ms = cuda_ms(lambda: fa.flash_attention_bhnd(q, k, v, **kw), iters=20)
+            plain_ms = cuda_ms(lambda: fa.flash_attention_bhnd_plain(q, k, v, **kw), iters=5)
+            library_ms = library_fwd_ms(*_rotated(q, k, kw), v, mask, kw.get("causal", False))
+        side = [*kw.get("rope_expanded", ()), kw.get("segment_ids"), kw.get("seg_kv")]
+        bound_ms, bound_by = bound(4 * D * attended_pairs(B, H, N, N, mask),
+                                   nbytes(q, k, v, *side, out_k, lse_k))
+        rec = {"phase": "kernel_bhnd", "kernel": "flash_fwd_bhnd", "shape": name,
+               "bhnd": [B, H, N, D], "features": sorted(kw), "kv_valid": kw.get("kv_valid_len"),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err_out": d_out.max().item(),
+               "max_abs_err_lse": d_lse.max().item(),
+               "tol": {"out": f"{OUT_ATOL} + {OUT_RTOL}*|plain|", "lse": LSE_ATOL},
+               "ok": ok, "gpu": smi}
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"flash_fwd_bhnd disagrees with its plain version at {name}")
+        first = first or rec
+    return first
+
+
+def phase_kernels_bhnd_bwd(dev, smi: str) -> dict:
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+
+    seqs, first = _context_seqs(), None
+    for name, (B, H, N, D), feats in BHND_BWD_SHAPES:
+        q, k, v, do, kw, mask = _bhnd_case(dev, B, H, N, D, feats, seqs)
+
+        def given_lse(lse):  # a ring's global lse: this hop's mass and another's
+            return torch.logaddexp(lse, lse - 0.7) if feats.get("global_lse") else lse
+
+        with torch.no_grad():
+            out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+            lse = given_lse(lse)
+            got = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw)
+            q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+            out_p, lse_p = fa.flash_attention_bhnd_plain(q32, k32, v32, **kw)
+            want = fa.flash_attention_bhnd_bwd_plain(q32, k32, v32, out_p, given_lse(lse_p),
+                                                     do32, **kw)
+            del q32, k32, v32, do32, out_p
+            torch.cuda.synchronize()
+            errs, ok = {}, True
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                g = g.float()
+                rel = ((g - w).norm() / w.norm()).item()
+                err = (g - w).abs().max().item()
+                scale = w.abs().max().item()
+                errs[gname] = {"rel_l2": rel, "max_abs_err": err, "max_abs_plain": scale}
+                ok = ok and bool(torch.isfinite(g).all()) and rel <= BWD_REL_L2 \
+                    and err <= BWD_MAX_ABS * scale
+            del want
+            ms = cuda_ms(lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw),
+                         iters=20)
+            plain_ms = cuda_ms(
+                lambda: fa.flash_attention_bhnd_bwd_plain(q, k, v, out, lse, do, **kw), iters=3)
+        library_ms = library_bwd_ms(*_rotated(q, k, kw), v, do, mask, kw.get("causal", False))
+        side = [*kw.get("rope_expanded", ()), kw.get("segment_ids"), kw.get("seg_kv")]
+        bound_ms, bound_by = bound(10 * D * attended_pairs(B, H, N, N, mask),
+                                   nbytes(q, k, v, out, do, lse, *side, *got))
+        rec = {"phase": "kernel_bhnd_bwd", "kernel": "flash_bwd_bhnd", "shape": name,
+               "bhnd": [B, H, N, D], "features": sorted(kw) + (["global lse"] if
+                                                               feats.get("global_lse") else []),
+               "kv_valid": kw.get("kv_valid_len"), "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "tol": {"rel_l2": BWD_REL_L2, "max_abs": f"{BWD_MAX_ABS}*max|plain|"},
+               "ok": ok, "gpu": smi}
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"flash_bwd_bhnd disagrees with its plain version at {name}")
+        first = first or rec
+    return first
+
+
+def phase_encode_giant(dev, smi: str) -> int:
+    from vjepa2_tpu_torch.evals.wrappers import encode_clips
+    from vjepa2_tpu_torch.models.vision_transformer import vit_giant
+
+    def build(device, dtype, generator=None):
+        enc = vit_giant(img_size=(SIZE, SIZE), num_frames=FRAMES, tubelet_size=2, use_rope=True,
+                        uniform_power=True, use_flash=True, dtype=dtype, device=device)
+        if generator is not None:
+            enc.reset_parameters(generator)
+        return enc.eval()
+
+    t0 = time.perf_counter()
+    enc = build(dev, torch.bfloat16, torch.Generator(device=dev).manual_seed(0))
+    rs = np.random.RandomState(1)
+    requests = [torch.from_numpy(rs.rand(CLIPS, 1, FRAMES, SIZE, SIZE, 3).astype(np.float32))
+                for _ in range(REQUESTS)]
+    setup_s = time.perf_counter() - t0
+    tokens = (FRAMES // 2) * (SIZE // 16) ** 2
+
+    def answer(clips: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return encode_clips(enc, clips.to(dev)).cpu()
+
+    answer(requests[0])  # warm-up, outside the counted run
+    _reset_launch_counts()
+    times, answers = [], []
+    for clips in requests:
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        feats = answer(clips)
+        times.append((time.perf_counter() - t1) * 1e3)
+        launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+        if launched != (0, 0, len(enc.blocks), 0):
+            raise AssertionError(f"a request launched B1, B2, B3, the BHND backward {launched} "
+                                 f"times, want B3 {len(enc.blocks)} times only")
+        if feats.shape != (CLIPS, tokens, enc.embed_dim) or not torch.isfinite(feats).all():
+            raise AssertionError(f"bad features {tuple(feats.shape)}")
+        answers.append(feats)
+    launches = _launch_counts()[2]
+
+    on_device = requests[0].to(dev)
+    with torch.inference_mode():
+        device_ms = cuda_ms(lambda: encode_clips(enc, on_device), iters=3, warmup=1)
+
+    # the same weights in fp32 on the CPU: the wrappers take the plain path there
+    torch.set_num_threads(os.cpu_count() or 1)
+    t2 = time.perf_counter()
+    enc_cpu = build("cpu", torch.float32)
+    enc_cpu.load_state_dict(enc.state_dict())
+    with torch.inference_mode():
+        ref = encode_clips(enc_cpu, requests[0][:1])[0]
+    cpu_s = time.perf_counter() - t2
+    del enc_cpu
+    got = answers[0][0].float()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    ok = rel <= GIANT_REL_L2
+    med = sorted(times)[len(times) // 2]
+    emit({"phase": "encode_giant",
+          "model": "vit_giant (40 layers, 1408 wide, 16 heads of 88) 16f@256 bf16, RoPE",
+          "requests": REQUESTS, "clips_per_request": CLIPS, "warmup_requests": 1,
+          "ms_per_request": times, "median_ms_per_request": med,
+          "clips_per_s": CLIPS / (med / 1e3), "device_ms_per_request": device_ms,
+          "b3_launches": launches, "b3_launches_per_request": len(enc.blocks),
+          "features_rel_l2_vs_cpu_fp32": rel, "tol_rel_l2": GIANT_REL_L2,
+          "reference_depth": f"full ({len(enc.blocks)} layers)",
+          "setup_s": setup_s, "cpu_reference_s": cpu_s, "ok": ok, "gpu": smi})
+    if not ok:
+        raise AssertionError(f"vit_giant features off the CPU fp32 reference: rel L2 {rel}")
+    return launches
+
+
+def phase_entry(dev, smi: str) -> None:
+    """`vjepa2_vit_huge()` and `vjepa2_vit_large()` with no argument build on
+    the card in bf16 and run a clip through their flash kernels."""
+    from vjepa2_tpu_torch.hub import backbones
+
+    clip = torch.from_numpy(np.random.RandomState(2).rand(1, FRAMES, SIZE, SIZE, 3)
+                            .astype(np.float32)).to(dev)
+    rec = {"phase": "entry"}
+    # (factory, index of its kernel in `_launch_counts`: B3 for Dh 80, B1 for Dh 64)
+    for name, slot in (("vjepa2_vit_huge", 2), ("vjepa2_vit_large", 0)):
+        torch.manual_seed(0)
+        enc = getattr(backbones, name)()
+        _reset_launch_counts()
+        with torch.inference_mode():
+            out = enc(clip)
+        launched = _launch_counts()
+        want = tuple(len(enc.blocks) if i == slot else 0 for i in range(4))
+        tokens = (FRAMES // 2) * (SIZE // 16) ** 2
+        ok = (launched == want and enc.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
+              and out.shape == (1, tokens, enc.embed_dim) and bool(torch.isfinite(out.float()).all()))
+        rec[name] = {"dtype": str(enc.dtype), "device": str(next(enc.parameters()).device),
+                     "layers": len(enc.blocks), "launches": dict(zip(("b1", "b2", "b3", "bhnd_bwd"),
+                                                                     launched)), "ok": ok}
+        del enc, out
+        if not ok:
+            emit(rec)
+            raise AssertionError(f"{name}() launched B1, B2, B3, the BHND backward {launched} "
+                                 f"times, want {want}, or gave bad features")
+    rec.update(ok=True, gpu=smi)
+    emit(rec)
 
 
 def main() -> int:
@@ -463,14 +876,28 @@ def main() -> int:
     rec = phase_kernels(dev, smi)
     serve_launches = phase_slice(dev, smi)
     rec_bwd = phase_kernels_bwd(dev, smi)
-    train_b1, train_b2 = phase_train(dev, smi)
+    train_l = phase_train(dev, smi, "vit_large")
+    rec_bhnd = phase_kernels_bhnd(dev, smi)
+    rec_bhnd_bwd = phase_kernels_bhnd_bwd(dev, smi)
+    train_h = phase_train(dev, smi, "vit_huge")
+    giant_launches = phase_encode_giant(dev, smi)
+    phase_entry(dev, smi)
+
+    def entry(name, source, replaces, launches, r, err_key):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": r[err_key], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "shape": r["shape"]}
+
     emit({"kernels": [
-        {"name": "flash_fwd_dn", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": serve_launches + train_b1,
-         "max_abs_err": rec["max_abs_err_out"], "ms": rec["ms"], "plain_ms": rec["plain_ms"]},
-        {"name": "flash_bwd_dn", "route": "cuda", "source": BWD_SOURCE,
-         "replaces": BWD_REPLACES, "launches": train_b2, "max_abs_err": rec_bwd["max_abs_err"],
-         "ms": rec_bwd["ms"], "plain_ms": rec_bwd["plain_ms"]}]})
+        entry("flash_fwd_dn", KERNEL_SOURCE, KERNEL_REPLACES,
+              serve_launches + train_l[0] + train_h[0], rec, "max_abs_err_out"),
+        entry("flash_bwd_dn", BWD_SOURCE, BWD_REPLACES, train_l[1] + train_h[1], rec_bwd,
+              "max_abs_err"),
+        entry("flash_fwd_bhnd", BHND_SOURCE, BHND_REPLACES, train_h[2] + giant_launches,
+              rec_bhnd, "max_abs_err_out"),
+        entry("flash_bwd_bhnd", BHND_BWD_SOURCE, BHND_BWD_REPLACES, train_h[3], rec_bhnd_bwd,
+              "max_abs_err")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -37,6 +37,21 @@ def test_encoder_round_trip():
     _assert_same(state_dict_from_flax(convert_encoder(sd)), sd)
 
 
+def test_encoder_round_trip_at_vith_head_width():
+    """Dh 80 (ViT-H's head width): the weights keep one layout whatever the
+    attention route; the BHND flash route applies its q/k row permutation at
+    use time, so the converted weights give the plain route's forward."""
+    enc = VisionTransformer(**dict(ENC, embed_dim=160, use_flash=True))
+    enc.reset_parameters(torch.Generator().manual_seed(5))
+    sd = enc.state_dict()
+    _assert_same(state_dict_from_flax(convert_encoder(sd)), sd)
+    plain = VisionTransformer(**dict(ENC, embed_dim=160))
+    plain.load_state_dict(state_dict_from_flax(convert_encoder(sd)))
+    x = torch.rand(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        torch.testing.assert_close(enc(x), plain(x), atol=2e-5, rtol=1e-4)
+
+
 @pytest.mark.parametrize("complete_block", [True, False])
 def test_classifier_round_trip(complete_block):
     clf = AttentiveClassifier(embed_dim=48, num_heads=2, depth=3, num_classes=7,

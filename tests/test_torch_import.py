@@ -19,8 +19,9 @@ names = [m.name for m in pkgutil.walk_packages(vjepa2_tpu_torch.__path__, "vjepa
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vjepa2_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 10 else 0)
+missing = {"vjepa2_tpu_torch.ops.flash_attention", "vjepa2_tpu_torch.core.device"} - set(names)
+print(len(names), bad, sorted(missing))
+sys.exit(1 if bad or missing or len(names) < 10 else 0)
 """
 
 

@@ -1,9 +1,9 @@
 """The port's blocks against the flax modules of the JAX package, with the
 same weights (crossed by `hub.converter.state_dict_from_flax`) and the same
-numpy-seeded inputs: LayerNorm, Mlp, Attention (DN route and plain route),
-Block and CrossAttentionBlock. The DN route runs the JAX Pallas kernel in
-interpret mode (`pltpu.force_tpu_interpret_mode()`, as
-`tests/models/test_flash_integration.py` does) and the port's plain version.
+numpy-seeded inputs: LayerNorm, Mlp, Attention (DN, BHND and plain routes),
+Block and CrossAttentionBlock. The flash routes run the JAX Pallas kernels
+in interpret mode (`pltpu.force_tpu_interpret_mode()`, as
+`tests/models/test_flash_integration.py` does) and the port's plain versions.
 
 Tolerance: fp32 throughout; the routes differ only in summation order and in
 base-2 against base-e softmax: atol 2e-5, rtol 1e-4.
@@ -93,6 +93,26 @@ def test_attention_matches_flax(route, num_heads):
                     qkv_perm=tm.qkv_row_perm(perm, num_heads, head_dim))
     else:
         got = tattn(torch.from_numpy(x), rope_cache=cache_t)
+    _close(got, want)
+
+
+# the BHND route at the ViT-H and 16-head ViT-g head widths, with the stack-pad
+# kv_valid: JAX permutes the q/k activations (`head_perm`), the port the qkv rows
+@pytest.mark.parametrize("head_dim", [80, 88])
+def test_attention_bhnd_route_matches_flax(head_dim):
+    num_heads, kv_valid = 2, N - 3
+    dim = num_heads * head_dim
+    x = np.random.RandomState(5).randn(B, N, dim).astype(np.float32)
+    _, expanded_t, perm, _, expanded_j, perm_j = _tables(head_dim)
+    jattn = jm.Attention(dim=dim, num_heads=num_heads, use_rope=True, use_flash=True,
+                         head_perm=perm_j, kv_valid=kv_valid)
+    twin = jm.Attention(dim=dim, num_heads=num_heads)
+    with pltpu.force_tpu_interpret_mode():
+        params, want = _init_apply(jattn, jnp.asarray(x), init_module=twin,
+                                   rope_expanded=expanded_j)
+    tattn = _port(tm.Attention(dim, num_heads, use_rope=True, use_flash=True), params)
+    got = tattn(torch.from_numpy(x), rope_expanded=expanded_t,
+                qkv_perm=tm.qkv_row_perm(perm, num_heads, head_dim), kv_valid=kv_valid)
     _close(got, want)
 
 

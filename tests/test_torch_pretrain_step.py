@@ -1,15 +1,17 @@
 """One masked-pretrain train step of the port against the JAX package's
-`make_train_step`, at small widths: encoder 192, 3 heads, depth 2; predictor
+`make_train_step`, at small widths: encoder 192, 3 heads (Dh 64, the ViT-L
+route), or encoder 160, 2 heads (Dh 80, the ViT-H route), depth 2; predictor
 64, 2 heads (Dh 32), depth 2; RoPE; 4 frames at 64 px,
 batch 2, fp32, the two mask configs of the pretrain headline
 (`bench.py:56-61`) from the collator. Weights cross with
 `state_dict_from_flax`.
 
-The port runs its flash route (the stack pad with kv_valid, and B1/B2's plain
-versions through `FlashAttentionDN` on the CPU); the JAX step runs with
+The port runs its flash routes (the stack pad with kv_valid, and the plain
+versions of B1/B2 through `FlashAttentionDN`, of B3 and the BHND backward
+through `FlashAttentionBHND`, on the CPU); the JAX step runs with
 ``use_flash=False``: its interpret-mode backward kernels would triple this
 file's time (55 s against 18 s on one core), and `test_torch_flash_dn_bwd.py`
-already holds B2's plain version to them.
+and `test_torch_flash_bhnd_bwd.py` already hold the plain backwards to them.
 
 Compared: the loss and the grad norm of the step (JAX's jitted step), every
 gradient (JAX's `jax.grad` of the same loss, built from the package's
@@ -60,6 +62,15 @@ def _flat(sd):
 
 
 def test_train_step_matches_jax():
+    _step_matches_jax(ENC)
+
+
+def test_vith_shaped_train_step_matches_jax():
+    """The encoder at ViT-H's head width (80) takes the BHND route."""
+    _step_matches_jax(dict(ENC, embed_dim=160, num_heads=2), dict(PRED, embed_dim=160))
+
+
+def _step_matches_jax(enc_cfg, pred_cfg=PRED):
     coll = MaskCollator(MASK_CFGS, dataset_fpcs=[T], crop_size=(S, S))
     coll.step()
     masks_enc, masks_pred = coll(T, B)
@@ -67,8 +78,8 @@ def test_train_step_matches_jax():
     jclips = jnp.asarray(clips)
     jme, jmp = tuple(map(jnp.asarray, masks_enc)), tuple(map(jnp.asarray, masks_pred))
 
-    jenc = JaxViT(**dict(ENC, use_flash=False))
-    jpred = JaxPredictor(**dict(PRED, use_flash=False))
+    jenc = JaxViT(**dict(enc_cfg, use_flash=False))
+    jpred = JaxPredictor(**dict(pred_cfg, use_flash=False))
     hp_j = jpre.PretrainHParams(**HP)
     enc_vars = jax.jit(lambda k, c, m: jenc.init(k, c, [m]))(jax.random.PRNGKey(0), jclips,
                                                              jme[0])
@@ -94,7 +105,7 @@ def test_train_step_matches_jax():
     step_j = jax.jit(jpre.make_train_step(jenc, jpred, tx, hp_j))
     state_j, metrics_j = step_j(state_j, jclips, jme, jmp)
 
-    enc, pred = VisionTransformer(**ENC), VisionTransformerPredictor(**PRED)
+    enc, pred = VisionTransformer(**enc_cfg), VisionTransformerPredictor(**pred_cfg)
     enc.load_state_dict(state_dict_from_flax(enc_vars))
     pred.load_state_dict(state_dict_from_flax(pred_vars))
     hp = tpre.PretrainHParams(**HP)

@@ -112,3 +112,30 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.vjepa2_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+LOG2E = 1.4426950408889634  # 1 / ln 2: the kernels fold scale*log2(e) into q
+
+_fns: dict = {}
+
+
+def function(name: str, argtypes: list, restype=ctypes.c_int):
+    """(library, the C function ``name`` with its argtypes and restype set)."""
+    if name not in _fns:
+        lib = load()
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _fns[name] = (lib, fn)
+    return _fns[name]
+
+
+def launcher_argtypes(n_ptrs: int, n_ints: int, n_floats: int) -> list:
+    """Pointers, ints, the strides array, floats, then the stream."""
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+            + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_float] * n_floats
+            + [ctypes.c_void_p])
+
+
+def ptr(t):
+    """A tensor's device address for a kernel argument (None for no tensor)."""
+    return None if t is None else t.data_ptr()

@@ -1,8 +1,11 @@
-// Device helpers shared by the DN flash-attention kernels (B1 `flash_fwd_dn.cu`,
-// B2 `flash_bwd_dn.cu`): bf16 packing, mma.sync, cp.async, and the split-half
-// RoPE rotation. Both kernels rotate and round q and k through `rope_pair` and
-// `round_scaled`, so the backward recomputes exactly the scores the forward's
-// log-sum-exp was taken over.
+// Device helpers shared by the flash-attention kernels, DN (B1 `flash_fwd_dn.cu`,
+// B2 `flash_bwd_dn.cu`) and BHND (B3 `flash_fwd_bhnd.cu`, the B4/B5 backward
+// `flash_bwd_bhnd.cu`): bf16 packing, mma.sync, cp.async, and the split-half
+// RoPE rotation. Every kernel rotates and rounds q and k through `rope_pair`
+// and `round_scaled`, so a backward recomputes exactly the scores its
+// forward's log-sum-exp was taken over. The forwards' shared loop is in
+// `flash_fwd_common.cuh`, the backwards' prologue and tile movers in
+// `flash_bwd_common.cuh`.
 
 #pragma once
 
@@ -13,6 +16,8 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kPad = 8;  // bf16 elements of row padding: fragment loads hit 32 distinct banks
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -22,7 +27,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_smem_u32(const __nv_bfloat16* p) {
+__device__ __forceinline__ uint32_t ld_smem_u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
@@ -52,7 +57,7 @@ __device__ __forceinline__ void rope_pair(float& lo, float& hi, float c_lo, floa
   lo = r_lo;
 }
 
-__device__ __forceinline__ __nv_bfloat16 round_scaled(float x, float mul) {
+__device__ __forceinline__ bf16 round_scaled(float x, float mul) {
   return __float2bfloat16_rn(__fmul_rn(x, mul));
 }
 

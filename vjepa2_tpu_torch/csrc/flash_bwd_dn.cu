@@ -30,8 +30,9 @@
 // What this version does about it (the FlashAttention-2 backward layout, not
 // the TPU kernel's fp32 dk/dv partials [B, H, nq, D, M] summed in XLA, which
 // work around scoped VMEM):
-//   * a prologue (`bwd_prologue_kernel`) runs once per call: it rotates and
-//     rounds q and k as B1 does, computes delta and lse*log2(e), and writes
+//   * a prologue (`flash_bwd_common.cuh:bwd_prologue_kernel`, shared with the
+//     BHND backward) runs once per call: it rotates and rounds q and k as B1
+//     does, computes delta and lse*log2(e), and writes
 //     every operand in the layout its mma.sync fragments want (token-major
 //     q_s, do, k_rot, v; feature-major q_u, do, k_rot), padded to whole
 //     64-token tiles with zeros, so the main kernels copy 16 bytes a thread
@@ -48,195 +49,9 @@
 // Not done yet, for later work: wgmma, TMA, warp specialisation, skipping
 // query tiles that a segment mask hides entirely.
 
-#include "dn_common.cuh"
+#include "flash_bwd_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kTile = 64;              // queries (dq) or keys (dk/dv) per block, and per loop step
-constexpr int kWarps = kTile / 16;     // one warp per 16 rows
-constexpr int kThreads = kWarps * 32;  // 128
-constexpr int kPrologueThreads = 256;
-
-struct Strides {
-  long long b, h, d, n;
-};
-
-struct BwdParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* o;
-  const bf16* dout;
-  const float* lse;  // [B, H, N]
-  const float* cos;  // null: no RoPE; [B|1, D, N] fp32, strides t_b, t_d, t_n
-  const float* sin;
-  const int* seg;    // null: no segment mask; [B|1, N] int32
-  bf16* dq;          // [B, H, D, N]
-  bf16* dk;          // [B, H, D, M]
-  bf16* dv;          // [B, H, D, M]
-  Strides sq, sk, sv, so, sdo;
-  long long t_b, t_d, t_n, seg_b;
-  int H, N, M, Np, Mp, kv_lim;  // Np, Mp: N, M rounded up to whole tiles
-  float qscale;                 // scale * log2(e), the value B1 was given
-  float scale;
-  // scratch written by the prologue, zero past N or M
-  bf16* qs_tok;  // [B, H, Np, D]  bf16(rot(q) * qscale)
-  bf16* do_tok;  // [B, H, Np, D]
-  bf16* qu_dn;   // [B, H, D, Np]  bf16(rot(q))
-  bf16* do_dn;   // [B, H, D, Np]
-  float* delta;  // [B, H, Np]
-  float* lse2;   // [B, H, Np]     lse * log2(e); +inf where p must be 0
-  bf16* kr_tok;  // [B, H, Mp, D]  bf16(rot(k))
-  bf16* v_tok;   // [B, H, Mp, D]
-  bf16* kr_dn;   // [B, H, D, Mp]
-};
-
-// Rows [t0, t0 + kTile) of x[d * s.d + n * s.n] (tokens at or past lim read
-// as 0) into dst[token][d]; neighbouring threads read neighbouring addresses
-// along whichever of n and d has unit stride.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* x, const Strides& s, int t0,
-                                          int lim) {
-  constexpr int kStride = D + kPad;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  if (s.n == 1) {
-    for (int i = threadIdx.x; i < D * kTile; i += blockDim.x) {
-      const int d = i / kTile, r = i % kTile, n = t0 + r;
-      dst[r * kStride + d] = n < lim ? x[d * s.d + n] : zero;
-    }
-  } else {
-    for (int i = threadIdx.x; i < D * kTile; i += blockDim.x) {
-      const int r = i / D, d = i % D, n = t0 + r;
-      dst[r * kStride + d] = n < lim ? x[d * s.d + n * s.n] : zero;
-    }
-  }
-}
-
-// Rotate the pairs (d, d + D/2) of src[token][d] with the tables at tokens
-// t0 + r (none when cos_t is null) and write bf16(rot * mul) into dst, which
-// may be src. Tokens at or past lim are zero already and stay so.
-template <int D>
-__device__ __forceinline__ void rotate_tile(bf16* dst, const bf16* src, const float* cos_t,
-                                            const float* sin_t, const BwdParams& p, int t0,
-                                            int lim, float mul) {
-  constexpr int kHalf = D / 2, kStride = D + kPad;
-  for (int i = threadIdx.x; i < kHalf * kTile; i += blockDim.x) {
-    const int d = i / kTile, r = i % kTile, n = t0 + r;
-    float lo = __bfloat162float(src[r * kStride + d]);
-    float hi = __bfloat162float(src[r * kStride + d + kHalf]);
-    if (cos_t != nullptr && n < lim) {
-      const long long i_lo = d * p.t_d + n * p.t_n;
-      const long long i_hi = (d + kHalf) * p.t_d + n * p.t_n;
-      rope_pair(lo, hi, cos_t[i_lo], sin_t[i_lo], cos_t[i_hi], sin_t[i_hi]);
-    }
-    dst[r * kStride + d] = round_scaled(lo, mul);
-    dst[r * kStride + d + kHalf] = round_scaled(hi, mul);
-  }
-}
-
-// src[token][d] (a whole tile) -> rows [t0, t0 + kTile) of a token-major
-// [*, D] array, 16 bytes a thread.
-template <int D>
-__device__ __forceinline__ void store_tok(bf16* dst, const bf16* src, int t0) {
-  constexpr int kChunks = D / 8, kStride = D + kPad;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = i % kChunks;
-    *reinterpret_cast<uint4*>(dst + (long long)(t0 + r) * D + c * 8) =
-        *reinterpret_cast<const uint4*>(&src[r * kStride + c * 8]);
-  }
-}
-
-// src[token][d] (a whole tile) -> columns [t0, t0 + kTile) of a feature-major
-// [D, len] array.
-template <int D>
-__device__ __forceinline__ void store_dn(bf16* dst, const bf16* src, int t0, int len) {
-  constexpr int kStride = D + kPad;
-  for (int i = threadIdx.x; i < D * kTile; i += blockDim.x) {
-    const int d = i / kTile, r = i % kTile;
-    dst[(long long)d * len + t0 + r] = src[r * kStride + d];
-  }
-}
-
-// Prologue: one block per (b, h, 64 tokens); the query side for tiles below
-// Np, the key side for tiles below Mp.
-template <int D>
-__global__ void __launch_bounds__(kPrologueThreads) bwd_prologue_kernel(const BwdParams p) {
-  constexpr int kStride = D + kPad;
-  __shared__ __align__(16) bf16 s_a[kTile * kStride];
-  __shared__ __align__(16) bf16 s_b[kTile * kStride];
-  __shared__ __align__(16) bf16 s_c[kTile * kStride];
-  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kTile;
-  const long long bh = (long long)b * p.H + h;
-  const float* cos_t = p.cos != nullptr ? p.cos + b * p.t_b : nullptr;
-  const float* sin_t = p.cos != nullptr ? p.sin + b * p.t_b : nullptr;
-
-  if (t0 < p.Np) {
-    load_tile<D>(s_a, p.q + b * p.sq.b + h * p.sq.h, p.sq, t0, p.N);
-    load_tile<D>(s_b, p.dout + b * p.sdo.b + h * p.sdo.h, p.sdo, t0, p.N);
-    load_tile<D>(s_c, p.o + b * p.so.b + h * p.so.h, p.so, t0, p.N);
-    __syncthreads();
-    {  // delta = rowsum(do * out) in fp32: four threads per token
-      const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
-      float acc = 0.f;
-      for (int d = part; d < D; d += 4) {
-        acc += __bfloat162float(s_b[r * kStride + d]) * __bfloat162float(s_c[r * kStride + d]);
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (part == 0) p.delta[bh * p.Np + t0 + r] = acc;
-    }
-    if (threadIdx.x < kTile) {
-      const int n = t0 + threadIdx.x;
-      float l2 = INFINITY;  // past N, or a row with no key: p = exp2(s - inf) = 0
-      if (n < p.N) {
-        const float l = p.lse[bh * p.N + n];
-        if (l != -INFINITY) l2 = l * kLog2e;
-      }
-      p.lse2[bh * p.Np + n] = l2;
-    }
-    __syncthreads();  // s_c (out) is free
-    rotate_tile<D>(s_c, s_a, cos_t, sin_t, p, t0, p.N, 1.f);      // q_u
-    rotate_tile<D>(s_a, s_a, cos_t, sin_t, p, t0, p.N, p.qscale);  // q_s, in place
-    __syncthreads();
-    store_tok<D>(p.qs_tok + bh * p.Np * D, s_a, t0);
-    store_tok<D>(p.do_tok + bh * p.Np * D, s_b, t0);
-    store_dn<D>(p.qu_dn + bh * D * p.Np, s_c, t0, p.Np);
-    store_dn<D>(p.do_dn + bh * D * p.Np, s_b, t0, p.Np);
-    __syncthreads();
-  }
-  if (t0 < p.Mp) {
-    load_tile<D>(s_a, p.k + b * p.sk.b + h * p.sk.h, p.sk, t0, p.M);
-    load_tile<D>(s_b, p.v + b * p.sv.b + h * p.sv.h, p.sv, t0, p.M);
-    __syncthreads();
-    rotate_tile<D>(s_a, s_a, cos_t, sin_t, p, t0, p.M, 1.f);
-    __syncthreads();
-    store_tok<D>(p.kr_tok + bh * p.Mp * D, s_a, t0);
-    store_tok<D>(p.v_tok + bh * p.Mp * D, s_b, t0);
-    store_dn<D>(p.kr_dn + bh * D * p.Mp, s_a, t0, p.Mp);
-  }
-}
-
-// Whole tile [t0, t0 + kTile) of a token-major [*, D] array into dst[row][d].
-template <int D>
-__device__ __forceinline__ void copy_tok_async(bf16* dst, const bf16* src, int t0) {
-  constexpr int kChunks = D / 8, kStride = D + kPad;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    cp_async16(&dst[r * kStride + c * 8], src + (long long)(t0 + r) * D + c * 8, true);
-  }
-}
-
-// Columns [t0, t0 + kTile) of a feature-major [D, len] array into dst[d][col].
-template <int D>
-__device__ __forceinline__ void copy_dn_async(bf16* dst, const bf16* src, int t0, int len) {
-  constexpr int kChunks = kTile / 8, kTStride = kTile + kPad;
-  for (int i = threadIdx.x; i < D * kChunks; i += kThreads) {
-    const int d = i / kChunks, c = i % kChunks;
-    cp_async16(&dst[d * kTStride + c * 8], src + (long long)d * len + t0 + c * 8, true);
-  }
-}
 
 // A fragments (m16n8k16, rows row0 and row0 + 8) of a [row][d] tile.
 template <int D>
@@ -266,24 +81,6 @@ __device__ __forceinline__ void rows_times_tile(float (&acc)[kTile / 8][4],
     for (int ks = 0; ks < D / 16; ++ks) {
       const bf16* r = &s[(nt * 8 + g) * kStride + ks * 16 + 2 * t4];
       mma_bf16(acc[nt], f[ks], ld_smem_u32(r), ld_smem_u32(r + 8));
-    }
-  }
-}
-
-// acc[dt] += P (16 rows x kTile, as packed A fragments) times T, T held as a
-// [d][col] tile: 16 rows x D.
-template <int D>
-__device__ __forceinline__ void packed_times_dn(float (&acc)[D / 8][4],
-                                                const uint32_t (&pf)[kTile / 16][4],
-                                                const bf16* s) {
-  constexpr int kTStride = kTile + kPad;
-  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const bf16* r = &s[(dt * 8 + g) * kTStride + kk * 16 + 2 * t4];
-      mma_bf16(acc[dt], pf[kk], ld_smem_u32(r), ld_smem_u32(r + 8));
     }
   }
 }
@@ -379,8 +176,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
   const bf16* dodn = p.do_dn + bh * D * p.Np;
   const float* lse2 = p.lse2 + bh * p.Np;
   const float* delta = p.delta + bh * p.Np;
-  const bool use_seg = p.seg != nullptr;
-  const int* segp = use_seg ? p.seg + b * p.seg_b : nullptr;
+  const bool use_seg = p.seg_q != nullptr;
+  const int* segq_p = use_seg ? p.seg_q + b * p.segq_b : nullptr;
+  const int* segk_p = use_seg ? p.seg_k + b * p.segk_b : nullptr;
 
   float dk[kDTiles][4], dv[kDTiles][4];
 #pragma unroll
@@ -412,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
         s_f[tid] = lse2[q0 + tid];
         s_f[kTile + tid] = delta[q0 + tid];
         if (use_seg) {
-          reinterpret_cast<int*>(s_f)[2 * kTile + tid] = q0 + tid < p.N ? segp[q0 + tid] : 0;
+          reinterpret_cast<int*>(s_f)[2 * kTile + tid] = q0 + tid < p.N ? segq_p[q0 + tid] : 0;
         }
       }
     };
@@ -429,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParam
     for (int r = 0; r < 2; ++r) {
       const int key = k0 + row0 + 8 * r;
       key_ok[r] = key < p.kv_lim;
-      if (use_seg && key < p.M) segk[r] = segp[key];
+      if (use_seg && key < p.M) segk[r] = segk_p[key];
     }
     __syncthreads();  // stage 1 is refilled below
 
@@ -506,8 +304,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
   const bf16* kr = p.kr_tok + bh * p.Mp * D;
   const bf16* vt = p.v_tok + bh * p.Mp * D;
   const bf16* krdn = p.kr_dn + bh * D * p.Mp;
-  const bool use_seg = p.seg != nullptr;
-  const int* segp = use_seg ? p.seg + b * p.seg_b : nullptr;
+  const bool use_seg = p.seg_q != nullptr;
+  const int* segq_p = use_seg ? p.seg_q + b * p.segq_b : nullptr;
+  const int* segk_p = use_seg ? p.seg_k + b * p.segk_b : nullptr;
 
   // this warp's rows of q_s and do as A fragments, staged in stage 1
   bf16* s_q = reinterpret_cast<bf16*>(stage(1));
@@ -525,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
     copy_tok_async<D>(s_k, kr, k0);
     copy_tok_async<D>(s_v, vt, k0);
     copy_dn_async<D>(s_kt, krdn, k0, p.Mp);
-    if (use_seg && tid < kTile) s_segk[tid] = k0 + tid < p.M ? segp[k0 + tid] : 0;
+    if (use_seg && tid < kTile) s_segk[tid] = k0 + tid < p.M ? segk_p[k0 + tid] : 0;
   };
   load_k(0, 0);
   cp_async_commit();
@@ -541,7 +340,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
     const int n = q0 + row0 + 8 * r;  // < Np: the scratch is padded
     l2[r] = p.lse2[bh * p.Np + n];
     dl[r] = p.delta[bh * p.Np + n];
-    if (use_seg && n < p.N) segq[r] = segp[n];
+    if (use_seg && n < p.N) segq[r] = segq_p[n];
   }
   __syncthreads();
 
@@ -593,41 +392,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
   write_dn<D>(p.dq + bh * D * p.N, dq, reinterpret_cast<bf16*>(stage(0)), q0, p.N);
 }
 
-int round_up(int x) { return (x + kTile - 1) / kTile * kTile; }
-
-// Scratch layout, in the order of the BwdParams fields; every piece a
-// multiple of 16 bytes.
-long long carve(BwdParams* p, char* base, int B, int H, int D, int N, int M) {
-  const long long bh = (long long)B * H, Np = round_up(N), Mp = round_up(M);
-  long long off = 0;
-  auto take = [&](long long bytes) {
-    char* ptr = base == nullptr ? nullptr : base + off;
-    off += (bytes + 255) / 256 * 256;
-    return ptr;
-  };
-  bf16* qs_tok = reinterpret_cast<bf16*>(take(bh * Np * D * 2));
-  bf16* do_tok = reinterpret_cast<bf16*>(take(bh * Np * D * 2));
-  bf16* qu_dn = reinterpret_cast<bf16*>(take(bh * Np * D * 2));
-  bf16* do_dn = reinterpret_cast<bf16*>(take(bh * Np * D * 2));
-  float* delta = reinterpret_cast<float*>(take(bh * Np * 4));
-  float* lse2 = reinterpret_cast<float*>(take(bh * Np * 4));
-  bf16* kr_tok = reinterpret_cast<bf16*>(take(bh * Mp * D * 2));
-  bf16* v_tok = reinterpret_cast<bf16*>(take(bh * Mp * D * 2));
-  bf16* kr_dn = reinterpret_cast<bf16*>(take(bh * Mp * D * 2));
-  if (p != nullptr) {
-    p->qs_tok = qs_tok;
-    p->do_tok = do_tok;
-    p->qu_dn = qu_dn;
-    p->do_dn = do_dn;
-    p->delta = delta;
-    p->lse2 = lse2;
-    p->kr_tok = kr_tok;
-    p->v_tok = v_tok;
-    p->kr_dn = kr_dn;
-  }
-  return off;
-}
-
 template <int D>
 cudaError_t launch(const BwdParams& p, int B, cudaStream_t stream) {
   constexpr int kDkdvSmem = dkdv_smem_bytes<D>();
@@ -639,7 +403,7 @@ cudaError_t launch(const BwdParams& p, int B, cudaStream_t stream) {
                              kDqSmem);
   if (err != cudaSuccess) return err;
   const int longest = p.Np > p.Mp ? p.Np : p.Mp;
-  bwd_prologue_kernel<D><<<dim3(longest / kTile, p.H, B), kPrologueThreads, 0, stream>>>(p);
+  bwd_prologue_kernel<D, D><<<dim3(longest / kTile, p.H, B), kPrologueThreads, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<D><<<dim3(p.Mp / kTile, p.H, B), kThreads, kDkdvSmem, stream>>>(p);
@@ -672,35 +436,18 @@ extern "C" int vjepa2_flash_bwd_dn_bf16(const void* q, const void* k, const void
                                         const long long* strides, float scale, float qscale,
                                         void* stream) {
   BwdParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<const bf16*>(out);
-  p.dout = static_cast<const bf16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.cos = static_cast<const float*>(cos_t);
-  p.sin = static_cast<const float*>(sin_t);
-  p.seg = static_cast<const int*>(seg);
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  p.sq = {strides[0], strides[1], strides[2], strides[3]};
-  p.sk = {strides[4], strides[5], strides[6], strides[7]};
-  p.sv = {strides[8], strides[9], strides[10], strides[11]};
-  p.so = {strides[12], strides[13], strides[14], strides[15]};
-  p.sdo = {strides[16], strides[17], strides[18], strides[19]};
+  Strides* all[] = {&p.sq, &p.sk, &p.sv, &p.so, &p.sdo};
+  for (int i = 0; i < 5; ++i) {  // (b, h, d, n) here, (b, h, n, d) in Strides
+    *all[i] = {strides[4 * i], strides[4 * i + 1], strides[4 * i + 3], strides[4 * i + 2]};
+  }
   p.t_b = strides[20];
   p.t_d = strides[21];
   p.t_n = strides[22];
-  p.seg_b = strides[23];
-  p.H = H;
-  p.N = N;
-  p.M = M;
-  p.Np = round_up(N);
-  p.Mp = round_up(M);
-  p.kv_lim = kv_lim;
-  p.scale = scale;
-  p.qscale = qscale;
+  p.seg_q = p.seg_k = static_cast<const int*>(seg);  // one id array for queries and keys
+  p.segq_b = p.segk_b = strides[23];
+  p.causal = 0;
+  set_common(p, q, k, v, out, dout, lse, cos_t, sin_t, dq, dk, dv, H, N, M, kv_lim, scale,
+             qscale);
   if (N <= 0 || M <= 0 || kv_lim <= 0 || kv_lim > M || reinterpret_cast<uintptr_t>(scratch) % 256 ||
       !aligned16(dq) || !aligned16(dk) || !aligned16(dv))
     return cudaErrorInvalidValue;

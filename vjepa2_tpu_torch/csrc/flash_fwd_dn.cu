@@ -29,7 +29,8 @@
 // (`rope_pack_kernel`) rotates q and k once, folds scale*log2(e) into q and
 // writes both, rounded to bf16, token-major ([B, H, N, D]) into scratch the
 // wrapper allocates; so no query block re-rotates k or reads a RoPE table.
-// The main kernel (`flash_fwd_dn_kernel`) is then a FlashAttention-2 forward:
+// The main kernel (`flash_fwd_dn_kernel`, its loop `flash_fwd_common.cuh`'s,
+// shared with B3) is then a FlashAttention-2 forward:
 // the scores never leave registers (mma.sync m16n8k16 accumulators are
 // re-packed as the A operand of P.V), the softmax is one exp2 (ex2.approx)
 // per score, the row statistics are reduced across the four threads of a
@@ -44,14 +45,9 @@
 // rows. q and k tiles sit in shared memory as bf16 [token][d], v as
 // [d][key], so that every mma fragment is one 32-bit shared-memory load.
 
-#include "dn_common.cuh"
+#include "flash_fwd_common.cuh"
 
 namespace {
-
-constexpr int kBlockQ = 128;
-constexpr int kBlockK = 64;
-constexpr int kWarps = kBlockQ / 16;
-constexpr int kThreads = kWarps * 32;
 
 struct Strides {
   long long b, h, d, n;
@@ -153,19 +149,6 @@ __device__ __forceinline__ void stage_rotated(__nv_bfloat16* dst, const __nv_bfl
   }
 }
 
-// Rows [t0, t0 + kRows) of a token-major [n, D] bf16 array (rows at or past
-// n_lim become 0) into dst[row][d], 16 bytes a copy.
-template <int D, int kRows>
-__device__ __forceinline__ void copy_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int t0, int n_lim) {
-  constexpr int kChunks = D / 8, kStride = D + kPad;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = t0 + r < n_lim;
-    cp_async16(&dst[r * kStride + c * 8], src + (ok ? (long long)(t0 + r) * D + c * 8 : 0), ok);
-  }
-}
-
 // Prologue: q' = bf16(rot(q) * scale*log2(e)), k' = bf16(rot(k)), written
 // token-major [B, H, N|M, D] for the main kernel. One block per (b, h, 64 tokens).
 template <int D, bool kVec>
@@ -197,18 +180,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-constexpr int main_smem_bytes() {
-  return (kBlockQ * (D + kPad) + 2 * kBlockK * (D + kPad) + 2 * D * (kBlockK + kPad)) * 2 +
-         2 * kBlockK * 4;
-}
-
 template <int D, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_dn_kernel(const Params p, const __nv_bfloat16* qr, const __nv_bfloat16* kr) {
-  constexpr int kSteps = D / 16;       // k-steps of Q.K^T over the head dim
-  constexpr int kDTiles = D / 8;       // 8-wide output tiles over the head dim
-  constexpr int kNTiles = kBlockK / 8; // 8-wide score tiles over the keys
+  constexpr int kDTiles = D / 8;            // 8-wide output tiles over the head dim
   constexpr int kStride = D + kPad;         // s_q, s_k rows: [token][d]
   constexpr int kVStride = kBlockK + kPad;  // s_v rows: [d][key]
   constexpr int kOStride = kBlockQ + kPad;  // output stage rows: [d][query], in s_q
@@ -271,15 +246,8 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<1>();  // the q tile has landed
   __syncthreads();
 
-  uint32_t qf[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const __nv_bfloat16* r = &s_q[row0 * kStride + ks * 16 + 2 * t4];
-    qf[ks][0] = ld_smem_u32(r);
-    qf[ks][1] = ld_smem_u32(r + 8 * kStride);
-    qf[ks][2] = ld_smem_u32(r + 8);
-    qf[ks][3] = ld_smem_u32(r + 8 * kStride + 8);
-  }
+  uint32_t qf[D / 16][4];
+  load_q_frags<D>(qf, s_q, row0);
 
   float acc[kDTiles][4];
 #pragma unroll
@@ -299,92 +267,14 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* sk = s_k + buf * kBlockK * kStride;
-    const __nv_bfloat16* sv = s_v + buf * D * kVStride;
-    const int* segk = s_segk + buf * kBlockK;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys, already in base-2 units.
-    float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        const __nv_bfloat16* kr_ = &sk[(nt * 8 + g) * kStride + ks * 16 + 2 * t4];
-        mma_bf16(s[nt], qf[ks], ld_smem_u32(kr_), ld_smem_u32(kr_ + 8));
-      }
-    }
-
-    if (use_seg || k0 + kBlockK > p.kv_lim) {
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = nt * 8 + 2 * t4 + (e & 1);
-          bool ok = k0 + kl < p.kv_lim;
-          if (use_seg) ok = ok && segq[e >> 1] >= segk[kl];
-          if (!ok) s[nt][e] = -INFINITY;
-        }
-      }
-    }
-
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float base[2], corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row masked so far keeps p = 0
-      corr[r] = exp2_approx(m_run[r] - base[r]);
-      m_run[r] = mx[r];
-    }
-
-    // P = exp2(S - m), re-packed as bf16 A fragments of P.V (16 keys per k-step).
-    uint32_t pf[kNTiles / 2][4];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      const float p0 = exp2_approx(s[nt][0] - base[0]);
-      const float p1 = exp2_approx(s[nt][1] - base[0]);
-      const float p2 = exp2_approx(s[nt][2] - base[1]);
-      const float p3 = exp2_approx(s[nt][3] - base[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pf[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l_run[0] = l_run[0] * corr[0] + rs[0];
-    l_run[1] = l_run[1] * corr[1] + rs[1];
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kNTiles / 2; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        const __nv_bfloat16* vr = &sv[(dt * 8 + g) * kVStride + kk * 16 + 2 * t4];
-        mma_bf16(acc[dt], pf[kk], ld_smem_u32(vr), ld_smem_u32(vr + 8));
-      }
-    }
+    attend_tile<D>(acc, m_run, l_run, qf, s_k + buf * kBlockK * kStride,
+                   s_v + buf * D * kVStride, s_segk + buf * kBlockK, segq, use_seg, false, k0,
+                   p.kv_lim, q0 + row0);
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
   float denom[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    denom[r] = l_run[r] == 0.f ? 1.f : l_run[r];
-  }
+  row_denominators(denom, l_run);
 
   // Stage the output as [d][query] in the q buffer (free: the q fragments
   // were loaded before the loop, and the loop's barriers follow).
@@ -397,17 +287,7 @@ __global__ void __launch_bounds__(kThreads)
     s_o[d0 * kOStride + row0 + 8] = __float2bfloat16_rn(acc[dt][2] / denom[1]);
     s_o[(d0 + 1) * kOStride + row0 + 8] = __float2bfloat16_rn(acc[dt][3] / denom[1]);
   }
-  if (t4 == 0) {
-    float* lse = p.lse + ((long long)b * p.H + h) * p.N;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int gn = q0 + row0 + 8 * r;
-      if (gn < p.N) {
-        const float m_nat = m_run[r] == -INFINITY ? -INFINITY : m_run[r] * kLn2;
-        lse[gn] = m_nat + logf(denom[r]);
-      }
-    }
-  }
+  write_lse(p.lse + ((long long)b * p.H + h) * p.N, denom, m_run, q0 + row0, p.N);
   __syncthreads();
   __nv_bfloat16* op = p.o + b * p.so.b + h * p.so.h;
   if constexpr (kVec) {

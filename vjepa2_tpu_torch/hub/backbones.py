@@ -2,8 +2,11 @@
 `vjepa2_tpu/hub/backbones.py:39 _make_vjepa2_model`, `:122-135`).
 
 ``vjepa2_vit_large/huge/giant/giant_384`` build the released encoder
-architecture (RoPE on). ``checkpoint=<torch .pt>`` loads released weights by
-key, with no conversion; otherwise the weights are drawn from ``generator``.
+architecture (RoPE on) on the card, in bf16, with the flash kernels on
+(``device="cuda"``, ``use_flash=True``); without a CUDA device they raise
+unless the caller passes ``device="cpu"`` (fp32 unless ``dtype`` says).
+``checkpoint=<torch .pt>`` loads released weights by key, with no
+conversion; otherwise the weights are drawn from ``generator``.
 A factory returns the encoder alone: the predictor module is ported
 (`models/predictor.py`), the factories' predictor half is not yet.
 """
@@ -14,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from vjepa2_tpu_torch.core.device import entry_device
 from vjepa2_tpu_torch.models.vision_transformer import MODEL_REGISTRY, VisionTransformer
 
 ARCH_NAME_MAP = {
@@ -37,11 +41,17 @@ def load_encoder_checkpoint(encoder: VisionTransformer, path: str) -> None:
 
 def _make_vjepa2_model(model_name: str = "vit_large", img_size: int = 256,
                        patch_size: int = 16, tubelet_size: int = 2, num_frames: int = 64,
-                       checkpoint: Optional[str] = None, dtype=torch.float32, device=None,
+                       checkpoint: Optional[str] = None, dtype=None, device="cuda",
                        generator: Optional[torch.Generator] = None, **kwargs):
+    """``dtype`` None computes in bf16 on the card, which the flash kernels
+    take, and in fp32 on the CPU."""
     arch = ARCH_NAME_MAP[model_name][0]
+    device = entry_device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     kwargs.setdefault("uniform_power", False)
     kwargs.setdefault("use_rope", True)
+    kwargs.setdefault("use_flash", True)
     encoder = MODEL_REGISTRY[arch](patch_size=patch_size, img_size=(img_size, img_size),
                                    num_frames=num_frames, tubelet_size=tubelet_size,
                                    dtype=dtype, device=device, **kwargs)

@@ -5,17 +5,26 @@ Parameters keep the reference's state-dict names (`attn.qkv.weight`,
 in its ``dtype`` (the JAX package's ``param_dtype=float32`` plus ``dtype``).
 LayerNorm runs in fp32 whatever the compute dtype.
 
-Attention has two routes, as in JAX:
+Attention has three routes, as in JAX:
 * the DN route (``use_flash``, head width 16-64): the qkv projection emits
-  [B, H, Dh, N] directly, with the split-half RoPE permutation applied to
-  the q and k rows of ``qkv.weight`` (v stays canonical), and attention runs
-  the flash kernel B1 (`ops/flash_attention_dn.py`);
+  [B, H, Dh, N] directly and attention runs the DN flash kernels B1/B2
+  (`ops/flash_attention_dn.py`);
+* the BHND route (``use_flash``, head width 80, 88 or 104: ViT-H, the
+  16-head ViT-g): q, k and v are [B, H, N, Dh] views of the qkv output
+  [B, N, 3, H, Dh], with no copy, and attention runs the BHND flash kernels
+  B3/B4-B5 (`ops/flash_attention.py`), whose output is laid out as the
+  projection reads it;
 * the plain route: [B, H, N, Dh] operands and the plain attention math,
   with interleaved-convention RoPE tables.
+On both flash routes the split-half RoPE permutation is applied to the q and
+k rows of ``qkv.weight`` (v stays canonical); JAX applies it to the
+activations on the BHND route (`modules.py:483-487`), which is the same
+function.
 
 Gradients come from autograd, through the flash kernels' `autograd.Function`
-on the DN route. Not ported yet: drop_path, remat policies, context parallelism, SwiGLU and
-the fused LayerNorm prologues (B7, B8 — off by default in JAX).
+on the flash routes. Not ported yet: drop_path, remat policies, context
+parallelism, SwiGLU and the fused LayerNorm prologues (B7, B8 — off by
+default in JAX).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vjepa2_tpu_torch.ops.attention import attend_bhdn, attend_bhnd, sdpa
+from vjepa2_tpu_torch.ops.flash_attention import BHND_HEAD_WIDTHS, bhnd_head_supported
 from vjepa2_tpu_torch.ops.flash_attention_dn import dn_head_eligible
 
 # std of a standard normal truncated to [-2, 2]; JAX's truncated_normal
@@ -116,11 +126,12 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Self-attention with optional factorized 3D RoPE.
 
-    With ``use_flash`` the layer takes the DN route and needs a DN-eligible
-    head width (the BHND flash kernel B3 is not ported yet); with RoPE it
-    then needs the split-half ``rope_expanded`` tables and the matching
-    ``qkv_perm`` (`qkv_row_perm`). Without ``use_flash`` it takes the plain
-    route, with RoPE from the interleaved ``rope_cache``.
+    With ``use_flash`` the layer takes the DN route (head width 16-64) or the
+    BHND route (head width 80, 88 or 104); with RoPE it then needs the
+    split-half ``rope_expanded`` tables and the matching ``qkv_perm``
+    (`qkv_row_perm`). Other widths have no flash kernel and raise. Without
+    ``use_flash`` it takes the plain route, with RoPE from the interleaved
+    ``rope_cache``.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, use_rope: bool = False,
@@ -132,10 +143,11 @@ class Attention(nn.Module):
         self.use_rope, self.use_flash = use_rope, use_flash
         self.dtype = dtype
         self.init_std, self.proj_init_scale = init_std, proj_init_scale
-        if use_flash and not dn_head_eligible(self.head_dim):
+        if use_flash and not (dn_head_eligible(self.head_dim)
+                              or bhnd_head_supported(self.head_dim)):
             raise NotImplementedError(
-                f"use_flash at head width {self.head_dim}: the BHND flash kernel (B3) "
-                "is not ported yet")
+                f"use_flash at head width {self.head_dim}: the flash kernels take 16, 32, 48 "
+                f"and 64 (DN) and {', '.join(map(str, BHND_HEAD_WIDTHS))} (BHND)")
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
 
@@ -149,28 +161,33 @@ class Attention(nn.Module):
         model's to slice off)."""
         B, N, C = x.shape
         H, Dh, dt = self.num_heads, self.head_dim, self.dtype
-        if self.use_flash:
-            if self.use_rope and (rope_expanded is None or qkv_perm is None):
-                raise ValueError("the DN route with RoPE needs rope_expanded and qkv_perm")
-            w, b = self.qkv.weight, self.qkv.bias
-            if self.use_rope:
-                w = w[qkv_perm]
-                b = None if b is None else b[qkv_perm]
-            # contract straight into [B, 3*dim, N]: q, k, v come out [B, H, Dh, N]
-            y = torch.matmul(w.to(dt), x.to(dt).transpose(1, 2))
-            if b is not None:
-                y = y + b.to(dt)[:, None]
-            q, k, v = y.view(B, 3, H, Dh, N).unbind(1)
-            out = attend_bhdn(q, k, v, rope_expanded=rope_expanded if self.use_rope else None,
-                              use_flash=True, kv_valid=kv_valid)
-            out = out.permute(0, 3, 1, 2).reshape(B, N, C)  # rows (h, d), as proj expects
-        else:
+        if not self.use_flash:
             if self.use_rope and rope_cache is None:
                 raise ValueError("the plain route with RoPE needs rope_cache")
             q, k, v = dense(self.qkv, x, dt).view(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
             out = attend_bhnd(q, k, v, rope_cache=rope_cache if self.use_rope else None,
                               kv_valid=kv_valid)
-            out = out.transpose(1, 2).reshape(B, N, C)
+            return dense(self.proj, out.transpose(1, 2).reshape(B, N, C), dt)
+        if self.use_rope and (rope_expanded is None or qkv_perm is None):
+            raise ValueError("the flash routes with RoPE need rope_expanded and qkv_perm")
+        w, b = self.qkv.weight, self.qkv.bias
+        if self.use_rope:
+            w = w[qkv_perm]
+            b = None if b is None else b[qkv_perm]
+        rope = rope_expanded if self.use_rope else None
+        if dn_head_eligible(Dh):
+            # contract straight into [B, 3*dim, N]: q, k, v come out [B, H, Dh, N]
+            y = torch.matmul(w.to(dt), x.to(dt).transpose(1, 2))
+            if b is not None:
+                y = y + b.to(dt)[:, None]
+            q, k, v = y.view(B, 3, H, Dh, N).unbind(1)
+            out = attend_bhdn(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid)
+            out = out.permute(0, 3, 1, 2).reshape(B, N, C)  # rows (h, d), as proj expects
+        else:
+            y = F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
+            q, k, v = y.view(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4).unbind(0)
+            out = attend_bhnd(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid)
+            out = out.transpose(1, 2).reshape(B, N, C)  # a view of the kernel's output
         return dense(self.proj, out, dt)
 
 

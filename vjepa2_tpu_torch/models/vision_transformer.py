@@ -52,7 +52,9 @@ def rope_tables(pos_ids: torch.Tensor, head_dim: int, num_heads: int, h_patches:
                 w_patches: int, use_flash: bool):
     """(rope_cache, rope_expanded, qkv_perm) for one forward: the interleaved
     cache for the plain route, or the split-half tables plus the qkv row
-    permutation for the DN route, shared by every layer."""
+    permutation for the flash routes (DN and BHND), shared by every layer.
+    Where 3 x the subspace width falls short of ``head_dim`` (78 of 80, 84
+    of 88) the tail slots carry cos 1 and sin 0."""
     rope_cache = build_rope_cache(pos_ids, head_dim, h_patches, w_patches)
     if not use_flash:
         return rope_cache, None, None

@@ -32,8 +32,6 @@ from vjepa2_tpu_torch import _build
 from vjepa2_tpu_torch.ops.attention import attention_mask, softmax_attention
 from vjepa2_tpu_torch.ops.rope import rope_rotate, rope_rotate_t
 
-LOG2E = 1.4426950408889634  # 1 / ln 2
-
 # Inclusive head-width bound of the DN route (`flash_attention_dn.py:670`).
 DN_MAX_D = 64
 
@@ -41,8 +39,6 @@ DN_MAX_D = 64
 # `chip_smoke.py` reads them to show the main path went through the kernels.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
-
-_fns: dict = {}
 
 
 def dn_head_eligible(d: int) -> bool:
@@ -155,27 +151,6 @@ def flash_attention_bhdn_bwd_plain(q, k, v, out, lse, do, scale: float | None = 
     return tuple(t.transpose(2, 3).to(q.dtype) for t in (dq, dk, dv))
 
 
-def _kernel(name: str, argtypes: list, restype=ctypes.c_int):
-    """(library, the C function ``name`` with its argtypes and restype set)."""
-    if name not in _fns:
-        lib = _build.load()
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
-        _fns[name] = (lib, fn)
-    return _fns[name]
-
-
-def _launcher_argtypes(n_ptrs: int, n_ints: int, n_floats: int) -> list:
-    """Pointers, ints, the strides array, floats, then the stream."""
-    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-            + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_float] * n_floats
-            + [ctypes.c_void_p])
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _side_inputs(dev, cos, sin, tables_nd, seg):
     """RoPE tables as [B|1, D, N] contiguous fp32 (the kernels read 8 tokens
     of one feature at a time) and segment ids as int32, on ``dev``; plus
@@ -219,11 +194,11 @@ def _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
                                         *side)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kv_lim = M if kv_valid_len is None else kv_valid_len
-    lib, fn = _kernel("vjepa2_flash_fwd_dn_bf16", _launcher_argtypes(10, 6, 1))
+    lib, fn = _build.function("vjepa2_flash_fwd_dn_bf16", _build.launcher_argtypes(10, 6, 1))
     with torch.cuda.device(dev):
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(cos), _ptr(sin), _ptr(seg), _ptr(out),
-                 _ptr(lse), _ptr(q_rot), _ptr(k_rot), B, H, D, N, M, kv_lim, strides,
-                 scale * LOG2E, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*map(_build.ptr, (q, k, v, cos, sin, seg, out, lse, q_rot, k_rot)),
+                 B, H, D, N, M, kv_lim, strides, scale * _build.LOG2E,
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "flash_fwd_dn")
     LAUNCHES += 1
     return out, lse
@@ -246,9 +221,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg, kv_v
     dq = torch.empty((B, H, D, N), dtype=q.dtype, device=dev)
     dk = torch.empty((B, H, D, M), dtype=q.dtype, device=dev)
     dv = torch.empty((B, H, D, M), dtype=q.dtype, device=dev)
-    lib, fn = _kernel("vjepa2_flash_bwd_dn_bf16", _launcher_argtypes(13, 6, 2))
-    _, size = _kernel("vjepa2_flash_bwd_dn_scratch_bytes", [ctypes.c_int] * 5,
-                      ctypes.c_longlong)
+    lib, fn = _build.function("vjepa2_flash_bwd_dn_bf16", _build.launcher_argtypes(13, 6, 2))
+    _, size = _build.function("vjepa2_flash_bwd_dn_scratch_bytes", [ctypes.c_int] * 5,
+                              ctypes.c_longlong)
     # the prologue writes the operands in the layouts the main kernels read
     scratch = torch.empty(size(B, H, D, N, M), dtype=torch.uint8, device=dev)
     strides = (ctypes.c_longlong * 24)(*q.stride(), *k.stride(), *v.stride(), *out.stride(),
@@ -256,9 +231,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg, kv_v
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kv_lim = M if kv_valid_len is None else kv_valid_len
     with torch.cuda.device(dev):
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(lse), _ptr(cos),
-                 _ptr(sin), _ptr(seg), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(scratch),
-                 B, H, D, N, M, kv_lim, strides, scale, scale * LOG2E,
+        err = fn(*map(_build.ptr, (q, k, v, out, do, lse, cos, sin, seg, dq, dk, dv, scratch)),
+                 B, H, D, N, M, kv_lim, strides, scale, scale * _build.LOG2E,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "flash_bwd_dn")
     LAUNCHES_BWD += 1

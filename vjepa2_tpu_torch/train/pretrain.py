@@ -21,6 +21,7 @@ from typing import Sequence
 
 import torch
 
+from vjepa2_tpu_torch.core.device import entry_device
 from vjepa2_tpu_torch.core.optim import ScheduledAdamW, ema_update, global_norm
 from vjepa2_tpu_torch.core.schedulers import cosine_wd, ema_momentum, warmup_cosine_lr
 from vjepa2_tpu_torch.models.predictor import VisionTransformerPredictor
@@ -61,11 +62,14 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
                  pred_embed_dim: int = 384, pred_num_heads: int | None = None,
                  uniform_power: bool = True, use_rope: bool = False,
                  use_mask_tokens: bool = True, num_mask_tokens: int = 2,
-                 zero_init_mask_tokens: bool = True, use_flash: bool = False,
-                 dtype=torch.bfloat16, device=None,
+                 zero_init_mask_tokens: bool = True, use_flash: bool = True,
+                 dtype=torch.bfloat16, device="cuda",
                  ) -> tuple[VisionTransformer, VisionTransformerPredictor]:
     """Mirror of reference `app/vjepa/utils.py:init_video_model`; parameters
-    are allocated on ``device`` but not initialised (`init_params` does)."""
+    are allocated on ``device`` but not initialised (`init_params` does).
+    Builds on the card with the flash kernels on by default, and raises
+    without a CUDA device unless ``device="cpu"`` is passed."""
+    device = entry_device(device)
     enc = MODEL_REGISTRY[model_name](
         patch_size=patch_size, img_size=(crop_size, crop_size), num_frames=num_frames,
         tubelet_size=tubelet_size, uniform_power=uniform_power, use_rope=use_rope,
