@@ -11,6 +11,8 @@ interpret mode (as `tests/ops/test_flash_attention.py` runs it):
 * the split-half tables at Dh 80, 88 and 104: 78, 84 and 102 rotated
   features, the pass-through tail at cos 1 and sin 0, equal to the JAX
   package's;
+* out and lse at the fused LayerNorm route's narrow heads, D 32 and 64,
+  rope-free with kv_valid;
 * `attend`, `attend_bhnd` and `sdpa` with ``use_flash`` against the JAX
   package's plain dispatch of the same functions;
 * integer segment ids above 2**24, segment arrays broadcast from [N] and
@@ -85,6 +87,20 @@ def test_bhnd_fwd_matches_jax_kernel(case, D):
         *map(_t, (q, k, v)), segment_ids=_t(seg), seg_kv=_t(seg_kv), causal=causal,
         rope_expanded=None if rope is None else tuple(map(_t, rope)), kv_valid_len=kv_valid,
         return_lse=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_bhnd_rope_free_narrow_heads_match_jax_kernel(D):
+    """The fused LayerNorm route's attention (`models.modules.Attention`
+    with ``ln=``): heads of 32 and 64 on the BHND kernels, rope-free (B7
+    rotated q and k), with a stack-pad kv_valid."""
+    q, k, v, *_ = _inputs(D, "none", seed=2)
+    out_j, lse_j = jfa._flash_fwd_bhnd(*map(_j, (q, k, v)), None, None, None, None, None,
+                                       kv_valid=101, **BLOCKS)
+    out_t, lse_t = fa.flash_attention_bhnd(*map(_t, (q, k, v)), kv_valid_len=101,
+                                           return_lse=True)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=ATOL, rtol=RTOL)
 

@@ -11,6 +11,8 @@ cleared around it (`_flash_bwd_bhnd` reads it at trace time), as
   `FlashAttentionBHND` against `jax.grad` through `flash_attention_bhnd`,
   over {interleaved RoPE tables, split-half tables + kv_valid, segments,
   token-causal} x D {80, 88} x {B4, B5} at B2 H2 N128;
+* the fused LayerNorm route's narrow heads, D 32 and 64, rope-free with
+  kv_valid, x {B4, B5};
 * a ring hop's backward: no RoPE, key-side ids with M != N, and a given
   global lse, `flash_attention_bhnd_bwd` against `_flash_bwd_bhnd`;
 * the port's `autograd.Function` against autograd through its plain
@@ -94,6 +96,26 @@ def test_bhnd_grads_match_jax_vjp(case, D, fused_bwd):
     grads_j = _jax_result(jax.grad(loss_j, argnums=(0, 1, 2)), q, k, v)
     qt, kt, vt = (torch.tensor(t, requires_grad=True) for t in (q, k, v))
     (fa.flash_attention_bhnd(qt, kt, vt, **kw_t) * torch.from_numpy(w)).sum().backward()
+    for name, got, want in zip("qkv", (qt.grad, kt.grad, vt.grad), grads_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_rope_free_narrow_heads_grads_match_jax_vjp(D, fused_bwd):
+    """The fused LayerNorm route's attention backward: heads of 32 and 64,
+    rope-free, kv_valid 101."""
+    q, k, v, w, _ = _inputs(D, seed=2)
+    w[:, :, 101:] = 0.0  # pad query rows carry no cotangent
+
+    def loss_j(q, k, v):
+        out = jfa.flash_attention_bhnd(q, k, v, kv_valid_len=101, bwd_block_q=64,
+                                       bwd_block_k=64, **BLOCKS)
+        return jnp.sum(out * w)
+
+    grads_j = _jax_result(jax.grad(loss_j, argnums=(0, 1, 2)), q, k, v)
+    qt, kt, vt = (torch.tensor(t, requires_grad=True) for t in (q, k, v))
+    (fa.flash_attention_bhnd(qt, kt, vt, kv_valid_len=101) * torch.from_numpy(w)).sum().backward()
     for name, got, want in zip("qkv", (qt.grad, kt.grad, vt.grad), grads_j):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL,
                                    err_msg=f"d{name}")

@@ -1,7 +1,8 @@
 """The hand-written BHND flash kernels (B3 `vjepa2_tpu_torch/csrc/flash_fwd_bhnd.cu`,
 the B4/B5 backward `csrc/flash_bwd_bhnd.cu`) against their plain PyTorch
 versions on the card, over the feature surface and the edges the model
-shapes do not reach: D 80, 88 and 104; ragged N and M; kv_valid in the first
+shapes do not reach: D 80, 88 and 104, and 32 and 64 (the fused LayerNorm
+route's widths); ragged N and M; kv_valid in the first
 and in the last tile; per-example RoPE tables; segment ids, also 2**24
 apart; key-side segment ids with M != N (a ring hop) and a given lse;
 token-causal; q, k, v as views of one qkv output and a non-contiguous
@@ -132,7 +133,7 @@ def _plain(q, k, v, do, **kw):
         return out, lse, fa.flash_attention_bhnd_bwd_plain(q, k, v, out, lse, do, **kw)
 
 
-@pytest.mark.parametrize("D", [80, 88, 104])
+@pytest.mark.parametrize("D", [32, 64, 80, 88, 104])
 # 24: shorter than one tile; 100: ragged, not a multiple of 8; 200: several tiles
 @pytest.mark.parametrize("N", [24, 100, 200])
 @pytest.mark.parametrize("feature", FEATURES)
@@ -189,7 +190,7 @@ def test_rows_without_keys(dev):
     assert not dq[:, :, :10].any()
 
 
-@pytest.mark.parametrize("D", [80, 88])
+@pytest.mark.parametrize("D", [64, 80, 88])
 def test_qkv_views_and_non_contiguous_cotangent(dev, D):
     """q, k, v as [B, H, N, D] views of one [B, N, 3, H, D] projection output
     (token stride 3*H*D) and do as autograd hands it over after the output
@@ -213,7 +214,7 @@ def test_qkv_views_and_non_contiguous_cotangent(dev, D):
 
 
 @pytest.mark.parametrize("entry", ["flash_attention_bhnd", "sdpa", "attend"])
-@pytest.mark.parametrize("D", [64, 72, 128])
+@pytest.mark.parametrize("D", [48, 72, 128])
 def test_unsupported_width_raises(dev, D, entry):
     """The kernel's wrapper and the dispatchers that take ``use_flash`` raise
     on a CUDA tensor at a width no BHND kernel takes; none of them runs the
@@ -222,7 +223,7 @@ def test_unsupported_width_raises(dev, D, entry):
     calls = {"flash_attention_bhnd": lambda: fa.flash_attention_bhnd(q, k, v),
              "sdpa": lambda: tattn.sdpa(q, k, v, use_flash=True),
              "attend": lambda: tattn.attend(q, k, v, use_flash=True)}
-    with pytest.raises(ValueError, match="80, 88, 104"):
+    with pytest.raises(ValueError, match="32, 64, 80, 88, 104"):
         calls[entry]()
 
 

@@ -11,7 +11,7 @@
 // what the forward (B3, `flash_fwd_bhnd.cu`) saved:
 //   * q, k, v, out, do bf16 [B, H, N|M, D], any element strides; lse
 //     [B, H, N] fp32, natural log (the forward's, or a global one passed in
-//     from outside, as a ring hop does); D in {80, 88, 104};
+//     from outside, as a ring hop does); D in {32, 64, 80, 88, 104};
 //   * the scores are recomputed from q and k rotated and rounded exactly as
 //     B3's prologue does (`dn_common.cuh:rope_pair`, `round_scaled`), so
 //     p = exp2(s - lse*log2(e)) is the forward's softmax. A row whose lse is
@@ -33,8 +33,8 @@
 //
 // What this version does about it: B2's design (`flash_bwd_dn.cu`), which is
 // B5's two-pass structure computing B4's function, with the head dim padded
-// to Dp, a whole mma k-step (80 -> 80, 88 -> 96, 104 -> 112):
-//   * B2's prologue (`flash_bwd_common.cuh:bwd_prologue_kernel`) rotates and
+// to Dp, a whole mma k-step (32, 64, 80 unpadded, 88 -> 96, 104 -> 112):
+//   * B2's prologue (`flash_bwd_common.cuh:bwd_prologue`) rotates and
 //     rounds q and k once, computes delta and lse*log2(e), and writes every
 //     operand in the layout its mma.sync fragments want (token-major q_s,
 //     do, k_rot, v; feature-major q_u, do, k_rot), zero-padded to whole
@@ -54,6 +54,12 @@
 #include "flash_bwd_common.cuh"
 
 namespace {
+
+// The shared prologue (`flash_bwd_common.cuh`) under this backward's own name.
+template <int D, int Dp>
+__global__ void __launch_bounds__(kPrologueThreads) bhnd_bwd_prologue_kernel(const BwdParams p) {
+  bwd_prologue<D, Dp>(p);
+}
 
 // acc[nt] = A B^T, A a [row][d] tile (this warp's rows row0 and row0 + 8),
 // B a [col][d] tile: 16 rows x kTile columns. A's fragments are loaded per
@@ -380,6 +386,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_bhnd_dq_kernel(const BwdPa
 
 int padded_width(int D) {
   switch (D) {
+    case 32: return 32;
+    case 64: return 64;
     case 80: return 80;
     case 88: return 96;
     case 104: return 112;
@@ -398,7 +406,8 @@ cudaError_t launch(const BwdParams& p, int B, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
   if (err != cudaSuccess) return err;
   const int longest = p.Np > p.Mp ? p.Np : p.Mp;
-  bwd_prologue_kernel<D, Dp><<<dim3(longest / kTile, p.H, B), kPrologueThreads, 0, stream>>>(p);
+  bhnd_bwd_prologue_kernel<D, Dp><<<dim3(longest / kTile, p.H, B), kPrologueThreads, 0,
+                                     stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_bhnd_dkdv_kernel<D, Dp><<<dim3(p.Mp / kTile, p.H, B), kThreads, kDkdvSmem,
@@ -460,6 +469,8 @@ extern "C" int vjepa2_flash_bwd_bhnd_bf16(const void* q, const void* k, const vo
   carve(&p, static_cast<char*>(scratch), B, H, Dp, N, M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32: return launch<32, 32>(p, B, s);
+    case 64: return launch<64, 64>(p, B, s);
     case 80: return launch<80, 80>(p, B, s);
     case 88: return launch<88, 96>(p, B, s);
     case 104: return launch<104, 112>(p, B, s);

@@ -1,8 +1,8 @@
 // What the two flash-attention backwards share: B2 (`flash_bwd_dn.cu`, head
 // widths 16-64 over [B, H, D, N]) and the B4/B5 backward (`flash_bwd_bhnd.cu`,
-// 80-104 over [B, H, N, D]). Both are the FlashAttention-2 backward in three
+// 32-104 over [B, H, N, D]). Both are the FlashAttention-2 backward in three
 // launches, and the first is this file's prologue:
-//   * `bwd_prologue_kernel` reads q, k, v, out and do at any element strides
+//   * `bwd_prologue` reads q, k, v, out and do at any element strides
 //     (a [B, H, D, N] operand is one more set of strides), rotates and
 //     rounds q and k as the forwards do (`dn_common.cuh:rope_pair`,
 //     `round_scaled`), computes delta = rowsum(do * out) and lse*log2(e), and
@@ -147,10 +147,12 @@ __device__ __forceinline__ void store_dn(bf16* dst, const bf16* src, int t0, int
   }
 }
 
-// Prologue: one block per (b, h, 64 tokens); the query side for tiles below
-// Np, the key side for tiles below Mp.
+// Prologue: one block of kPrologueThreads per (b, h, 64 tokens); the query
+// side for tiles below Np, the key side for tiles below Mp. Each backward
+// launches it through a kernel of its own name (`bwd_prologue_kernel`,
+// `bhnd_bwd_prologue_kernel`), so a profile tells the two apart.
 template <int D, int Dp>
-__global__ void __launch_bounds__(kPrologueThreads) bwd_prologue_kernel(const BwdParams p) {
+__device__ __forceinline__ void bwd_prologue(const BwdParams& p) {
   constexpr int kStride = Dp + kPad;
   __shared__ __align__(16) bf16 s_a[kTile * kStride];
   __shared__ __align__(16) bf16 s_b[kTile * kStride];

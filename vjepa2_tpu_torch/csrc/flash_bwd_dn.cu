@@ -30,7 +30,7 @@
 // What this version does about it (the FlashAttention-2 backward layout, not
 // the TPU kernel's fp32 dk/dv partials [B, H, nq, D, M] summed in XLA, which
 // work around scoped VMEM):
-//   * a prologue (`flash_bwd_common.cuh:bwd_prologue_kernel`, shared with the
+//   * a prologue (`flash_bwd_common.cuh:bwd_prologue`, shared with the
 //     BHND backward) runs once per call: it rotates and rounds q and k as B1
 //     does, computes delta and lse*log2(e), and writes
 //     every operand in the layout its mma.sync fragments want (token-major
@@ -52,6 +52,12 @@
 #include "flash_bwd_common.cuh"
 
 namespace {
+
+// The shared prologue (`flash_bwd_common.cuh`) under this backward's own name.
+template <int D>
+__global__ void __launch_bounds__(kPrologueThreads) bwd_prologue_kernel(const BwdParams p) {
+  bwd_prologue<D, D>(p);
+}
 
 // A fragments (m16n8k16, rows row0 and row0 + 8) of a [row][d] tile.
 template <int D>
@@ -403,7 +409,7 @@ cudaError_t launch(const BwdParams& p, int B, cudaStream_t stream) {
                              kDqSmem);
   if (err != cudaSuccess) return err;
   const int longest = p.Np > p.Mp ? p.Np : p.Mp;
-  bwd_prologue_kernel<D, D><<<dim3(longest / kTile, p.H, B), kPrologueThreads, 0, stream>>>(p);
+  bwd_prologue_kernel<D><<<dim3(longest / kTile, p.H, B), kPrologueThreads, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<D><<<dim3(p.Mp / kTile, p.H, B), kThreads, kDkdvSmem, stream>>>(p);

@@ -4,7 +4,8 @@
 // (wrapper `_flash_fwd_bhnd:257`, `pallas_call` `:307`). Same contract:
 //   * q, k, v bf16 [B, H, N|M, D], any element strides (q, k and v are
 //     usually views of one qkv projection output [B, N, 3, H, D]);
-//     D in {80, 88, 104}, the head widths above the DN route's 64;
+//     D in {80, 88, 104}, the head widths above the DN route's 64, and
+//     32 and 64, which the fused LayerNorm route sends here rope-free;
 //   * split-half RoPE on q and k in fp32 (pairs d and d + D/2), tables fp32
 //     [B|1, N, D] with strides (batch, n, d), batch stride 0 when shared;
 //     q takes scale*log2(e) before it is rounded to bf16, k is rounded after
@@ -32,7 +33,7 @@
 // rotates q and k once, folds scale*log2(e) into q, rounds both to bf16 and
 // writes them token-major [B, H, N|M, Dp] into scratch, with v feature-major
 // [B, H, Dp, Mp] (Mp: M rounded up to whole 64-key tiles), Dp = D rounded up
-// to 16 with zero features (80 -> 80, 88 -> 96, 104 -> 112): so no query
+// to 16 with zero features (32, 64 and 80 unpadded, 88 -> 96, 104 -> 112): so no query
 // block re-rotates k or reads a table, and every mma fragment is one 32-bit
 // shared-memory load. The main kernel (`flash_fwd_bhnd_kernel`) is B1's
 // FlashAttention-2 forward (`flash_fwd_common.cuh:attend_tile`): 128 queries
@@ -310,6 +311,8 @@ long long carve(Params* p, char* base, int B, int H, int Dp, int N, int M) {
 
 int padded_width(int D) {
   switch (D) {
+    case 32: return 32;
+    case 64: return 64;
     case 80: return 80;
     case 88: return 96;
     case 104: return 112;
@@ -396,6 +399,8 @@ extern "C" int vjepa2_flash_fwd_bhnd_bf16(const void* q, const void* k, const vo
   carve(&p, static_cast<char*>(scratch), B, H, Dp, N, M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32: return launch<32, 32>(p, B, s);
+    case 64: return launch<64, 64>(p, B, s);
     case 80: return launch<80, 80>(p, B, s);
     case 88: return launch<88, 96>(p, B, s);
     case 104: return launch<104, 112>(p, B, s);

@@ -1,5 +1,5 @@
 // The FlashAttention-2 forward loop shared by B1 (`flash_fwd_dn.cu`, head
-// widths 16-64 over [B, H, D, N]) and B3 (`flash_fwd_bhnd.cu`, 80-104 over
+// widths 16-64 over [B, H, D, N]) and B3 (`flash_fwd_bhnd.cu`, 32-104 over
 // [B, H, N, D]). Both prologues write q and k rotated and rounded,
 // token-major, and both main kernels stage v feature-major; from there one
 // block of 128 queries (8 warps of 16 rows) runs the same loop over 64-key

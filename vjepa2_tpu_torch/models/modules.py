@@ -5,7 +5,12 @@ Parameters keep the reference's state-dict names (`attn.qkv.weight`,
 in its ``dtype`` (the JAX package's ``param_dtype=float32`` plus ``dtype``).
 LayerNorm runs in fp32 whatever the compute dtype.
 
-Attention has three routes, as in JAX:
+Attention has four routes, as in JAX:
+* the fused LayerNorm route (``ln=(gamma, beta)``, from `Block` with
+  ``fuse_ln_qkv``; JAX's ``FUSE_LN_QKV``, `modules.py:498-515`): the
+  pre-attention LayerNorm, the qkv projection and the split-half RoPE run as
+  one kernel (B7, `ops/ln_qkv.py`) and attention runs the BHND flash kernels
+  rope-free at any width they take (32-104); it comes before the DN route;
 * the DN route (``use_flash``, head width 16-64): the qkv projection emits
   [B, H, Dh, N] directly and attention runs the DN flash kernels B1/B2
   (`ops/flash_attention_dn.py`);
@@ -21,10 +26,15 @@ k rows of ``qkv.weight`` (v stays canonical); JAX applies it to the
 activations on the BHND route (`modules.py:483-487`), which is the same
 function.
 
-Gradients come from autograd, through the flash kernels' `autograd.Function`
-on the flash routes. Not ported yet: drop_path, remat policies, context
-parallelism, SwiGLU and the fused LayerNorm prologues (B7, B8 — off by
-default in JAX).
+With ``fuse_ln_mlp`` (JAX's ``FUSE_LN_MLP``) the pre-MLP LayerNorm, fc1 and
+GELU run as one kernel (B8, `ops/ln_mlp.py`). Both fusions are off by
+default, as in JAX; `parse_ln_fusions` reads the ``--fuse-ln`` list. The
+fused LayerNorm uses the two-pass variance, the unfused module the fast one,
+so the two routes differ by that rounding, as in JAX.
+
+Gradients come from autograd, through the kernels' `autograd.Function`s on
+the flash and fused routes. Not ported yet: drop_path, remat policies,
+context parallelism and SwiGLU.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ import torch.nn.functional as F
 from vjepa2_tpu_torch.ops.attention import attend_bhdn, attend_bhnd, sdpa
 from vjepa2_tpu_torch.ops.flash_attention import BHND_HEAD_WIDTHS, bhnd_head_supported
 from vjepa2_tpu_torch.ops.flash_attention_dn import dn_head_eligible
+from vjepa2_tpu_torch.ops.ln_mlp import ln_mlp
+from vjepa2_tpu_torch.ops.ln_qkv import ln_qkv
 
 # std of a standard normal truncated to [-2, 2]; JAX's truncated_normal
 # divides by it so the truncated draw has the requested std
@@ -65,6 +77,19 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     """``layer`` applied in ``dtype`` (fp32 parameters cast at use)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def parse_ln_fusions(csv: str) -> tuple[bool, bool]:
+    """(fuse_ln_qkv, fuse_ln_mlp) from a comma list ('qkv,mlp', 'qkv', 'mlp',
+    or '' for neither): the counterpart of JAX's `set_ln_fusions`
+    (`vjepa2_tpu/models/modules.py:88`), which sets module globals where the
+    port passes the flags to the blocks' constructors."""
+    sel = {s.strip() for s in csv.split(",") if s.strip()}
+    unknown = sel - {"qkv", "mlp"}
+    if unknown:
+        raise ValueError(f"unknown LN fusion(s) {sorted(unknown)}: "
+                         "expected a comma list drawn from 'qkv','mlp'")
+    return "qkv" in sel, "mlp" in sel
 
 
 def qkv_row_perm(head_perm, num_heads: int, head_dim: int, device=None) -> torch.Tensor:
@@ -103,7 +128,8 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2."""
+    """fc1 -> exact GELU -> fc2; with ``ln=(gamma, beta)`` the input is the
+    pre-LayerNorm stream and LN -> fc1 -> GELU runs as B8 (`ops/ln_mlp.py`)."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int | None = None,
                  dtype=torch.float32, device=None, init_std: float = 0.02,
@@ -119,7 +145,10 @@ class Mlp(nn.Module):
         init_linear_(self.fc1, self.init_std, 1.0, generator)
         init_linear_(self.fc2, self.init_std, self.out_init_scale, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
+        if ln is not None:
+            h = ln_mlp(x, ln[0], ln[1], self.fc1.weight.to(self.dtype), self.fc1.bias.float())
+            return dense(self.fc2, h, self.dtype)
         return dense(self.fc2, F.gelu(dense(self.fc1, x, self.dtype)), self.dtype)
 
 
@@ -155,10 +184,15 @@ class Attention(nn.Module):
         init_linear_(self.qkv, self.init_std, 1.0, generator)
         init_linear_(self.proj, self.init_std, self.proj_init_scale, generator)
 
-    def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None):
+    def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None,
+                ln=None):
         """``kv_valid``: the number of real tokens when the model stack-padded
         the sequence; keys at or past it are masked (pad query rows are the
-        model's to slice off)."""
+        model's to slice off). ``ln=(gamma, beta)``: x is the pre-LayerNorm
+        stream and the fused route runs (B7, then the BHND flash kernels
+        rope-free); `Block` passes it only with ``use_flash``."""
+        if ln is not None:
+            return self._fused_forward(x, ln, rope_expanded, qkv_perm, kv_valid)
         B, N, C = x.shape
         H, Dh, dt = self.num_heads, self.head_dim, self.dtype
         if not self.use_flash:
@@ -190,14 +224,40 @@ class Attention(nn.Module):
             out = out.transpose(1, 2).reshape(B, N, C)  # a view of the kernel's output
         return dense(self.proj, out, dt)
 
+    def _fused_forward(self, x, ln, rope_expanded, qkv_perm, kv_valid):
+        """LN + qkv + RoPE as one kernel (B7; the bias in fp32, the q/k rows
+        permuted to the split-half layout under RoPE), then attention
+        rope-free (`modules.py:498-515`)."""
+        B, N, C = x.shape
+        w, b = self.qkv.weight, self.qkv.bias
+        rope = rope_expanded if self.use_rope else None
+        if self.use_rope:
+            if rope_expanded is None or qkv_perm is None:
+                raise ValueError("the fused route with RoPE needs rope_expanded and qkv_perm")
+            w = w[qkv_perm]
+            b = None if b is None else b[qkv_perm]
+        b = torch.zeros(3 * self.dim, device=w.device) if b is None else b.float()
+        q, k, v = ln_qkv(x, ln[0], ln[1], w.to(self.dtype), b, rope,
+                         num_heads=self.num_heads, head_dim=self.head_dim)
+        out = attend_bhnd(q, k, v, use_flash=self.use_flash, kv_valid=kv_valid)
+        return dense(self.proj, out.transpose(1, 2).reshape(B, N, C), self.dtype)
+
 
 class Block(nn.Module):
-    """Pre-norm transformer block (reference `modules.py:500-563`)."""
+    """Pre-norm transformer block (reference `modules.py:500-563`).
+
+    ``fuse_ln_qkv`` / ``fuse_ln_mlp``: run norm1 inside B7 and norm2 inside B8
+    (JAX's ``FUSE_LN_QKV`` / ``FUSE_LN_MLP``, `modules.py:794-846`). The qkv
+    fusion applies only on the flash route with RoPE off or pre-expanded;
+    the MLP fusion whenever its flag is on. The state dict is the same
+    either way."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  use_rope: bool = False, use_flash: bool = False, layer_id: int = 0,
-                 dtype=torch.float32, device=None, init_std: float = 0.02):
+                 dtype=torch.float32, device=None, init_std: float = 0.02,
+                 fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False):
         super().__init__()
+        self.fuse_ln_qkv, self.fuse_ln_mlp = fuse_ln_qkv, fuse_ln_mlp
         rescale = 1.0 / math.sqrt(2.0 * (layer_id + 1))
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, use_rope, use_flash, dtype, device,
@@ -213,7 +273,16 @@ class Block(nn.Module):
         self.mlp.reset_parameters(generator)
 
     def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None):
-        x = x + self.attn(self.norm1(x), rope_cache, rope_expanded, qkv_perm, kv_valid)
+        # the gate of `modules.py:798-805`; the port has no mask, causal or CP route here
+        fuse_qkv = (self.fuse_ln_qkv and self.attn.use_flash
+                    and (not self.attn.use_rope or rope_expanded is not None))
+        if fuse_qkv:
+            x = x + self.attn(x, rope_cache, rope_expanded, qkv_perm, kv_valid,
+                              ln=(self.norm1.weight, self.norm1.bias))
+        else:
+            x = x + self.attn(self.norm1(x), rope_cache, rope_expanded, qkv_perm, kv_valid)
+        if self.fuse_ln_mlp:
+            return x + self.mlp(x, ln=(self.norm2.weight, self.norm2.bias))
         return x + self.mlp(self.norm2(x))
 
 

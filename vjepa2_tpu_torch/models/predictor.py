@@ -10,7 +10,8 @@ projected back to the encoder's width.
 
 State-dict keys are the reference's: ``predictor_embed.*``,
 ``mask_tokens.{j}`` (each [1, 1, P]), ``predictor_blocks.{i}.*``,
-``predictor_norm.*``, ``predictor_proj.*``. Not ported yet:
+``predictor_norm.*``, ``predictor_proj.*``. ``fuse_ln_qkv`` / ``fuse_ln_mlp``
+put every block on the fused LayerNorm routes (B7, B8). Not ported yet:
 ``chop_last_n_tokens``, ``return_all_tokens``, activation checkpointing.
 """
 
@@ -32,7 +33,7 @@ class VisionTransformerPredictor(nn.Module):
                  use_mask_tokens: bool = False, num_mask_tokens: int = 2,
                  zero_init_mask_tokens: bool = True, use_rope: bool = False,
                  use_flash: bool = False, dtype=torch.float32, device=None,
-                 init_std: float = 0.02):
+                 init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False):
         super().__init__()
         if num_frames <= 1:
             raise NotImplementedError("the image (2D patch) predictor is not ported yet")
@@ -53,7 +54,7 @@ class VisionTransformerPredictor(nn.Module):
                 nn.Parameter(torch.zeros(1, 1, P, device=device)) for _ in range(num_mask_tokens))
         self.predictor_blocks = nn.ModuleList(
             Block(P, num_heads, mlp_ratio, qkv_bias, use_rope, use_flash, i, dtype, device,
-                  init_std)
+                  init_std, fuse_ln_qkv, fuse_ln_mlp)
             for i in range(depth))
         self.predictor_norm = LayerNorm(P, dtype=dtype, device=device)
         self.predictor_proj = nn.Linear(P, embed_dim, device=device)

@@ -4,7 +4,9 @@ Channels-last input [B, T, H, W, C]. The forward with RoPE or with the sincos
 table, unmasked or masked (tokens gathered after the patch embed, RoPE
 position ids carried alongside). With ``use_flash`` and RoPE, the split-half
 tables and the qkv row permutation are built once per forward and shared by
-every layer (the JAX package's ``ROPE_HOIST``).
+every layer (the JAX package's ``ROPE_HOIST``). ``fuse_ln_qkv`` /
+``fuse_ln_mlp`` put every block on the fused LayerNorm routes (B7, B8;
+`models.modules.Block`).
 
 ``STACK_PAD`` (`vision_transformer.py:33,159-176`): with ``use_flash`` the
 token stream is padded once, with zero rows, to the next multiple of
@@ -68,7 +70,7 @@ class VisionTransformer(nn.Module):
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, uniform_power: bool = False, use_rope: bool = False,
                  use_flash: bool = False, dtype=torch.float32, device=None,
-                 init_std: float = 0.02):
+                 init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False):
         super().__init__()
         if num_frames <= 1:
             raise NotImplementedError("the image (2D patch) encoder is not ported yet")
@@ -81,7 +83,7 @@ class VisionTransformer(nn.Module):
                                         device, init_std)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, use_rope, use_flash, i, dtype,
-                  device, init_std)
+                  device, init_std, fuse_ln_qkv, fuse_ln_mlp)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim, dtype=dtype, device=device)
         if not use_rope:

@@ -35,9 +35,12 @@ from vjepa2_tpu_torch import _build
 from vjepa2_tpu_torch.ops.attention import attention_mask, softmax_attention
 from vjepa2_tpu_torch.ops.rope import expand_rope_tables, rope_rotate, rope_rotate_t
 
-# Head widths the CUDA kernels take (ViT-H 1280/16, vit_giant 1408/16,
-# vit_gigantic 1664/16); the DN route (`flash_attention_dn`) takes 16-64.
-BHND_HEAD_WIDTHS = (80, 88, 104)
+# Head widths the CUDA kernels take: ViT-H 1280/16, vit_giant 1408/16,
+# vit_gigantic 1664/16, and the ViT-L encoder's 64 and the predictor's 32,
+# which the fused LayerNorm route (`models.modules.Attention`, ``ln=``) sends
+# here rope-free; the unfused route sends heads of 16-64 to the DN kernels
+# (`flash_attention_dn`).
+BHND_HEAD_WIDTHS = (32, 64, 80, 88, 104)
 
 # Kernel launches since the last reset, forward (B3) and backward (B4/B5);
 # `chip_smoke.py` reads them to show the main path went through the kernels.
@@ -373,8 +376,8 @@ def flash_attention_bhnd(q, k, v, segment_ids=None, causal: bool = False,
     keys; keys at or beyond it are masked.
 
     Returns out [B, H, N, D] (and lse [B, H, N] fp32 with ``return_lse``).
-    A CUDA tensor launches the kernels (bf16, head width 80, 88 or 104) or
-    raises; a CPU tensor takes the plain versions.
+    A CUDA tensor launches the kernels (bf16, head width 32, 64, 80, 88 or
+    104) or raises; a CPU tensor takes the plain versions.
     """
     if rope_tables is not None:
         q, k, rope_expanded, _ = _expand(q, k, rope_tables)  # differentiable gathers

@@ -1,17 +1,20 @@
 """Where the time of the masked-pretrain train step goes, on one CUDA card.
 
-    python -m vjepa2_tpu_torch.tools.profile_pretrain [--model vit_huge] [--steps 2] [--out DIR]
+    python -m vjepa2_tpu_torch.tools.profile_pretrain [--model vit_huge] [--fuse-ln qkv,mlp]
+        [--steps 2] [--out DIR]
 
 Builds the step of `chip_smoke.py` phase ``train`` (``--model vit_large``,
-the default) or ``train_huge`` (``--model vit_huge``): the encoder at
+the default), ``train_huge`` (``--model vit_huge``) or, with ``--fuse-ln
+qkv,mlp``, ``train_fused`` (every block's LayerNorms fused into B7 and B8,
+as `bench.py --fuse-ln` takes the list): the encoder at
 16f@256 bs8, the 12-layer predictor, bf16 with fp32 AdamW, fresh masks each
 step. Runs two warm-up steps, then:
 
 * times ``--steps`` steps three ways: host wall clock, the device time
   between CUDA events around each step, and the mask sampling alone;
 * traces the same number of steps with `torch.profiler` and sums the device
-  time of every kernel into categories (B1, B2, B3, the BHND backward,
-  matmul, elementwise, reductions, copies and casts, gathers, optimizer,
+  time of every kernel into categories (B1, B2, B3, the BHND backward, B6,
+  B7, B8, matmul, elementwise, reductions, copies and casts, gathers, optimizer,
   other).
 
 Prints one JSON object; with ``--out`` it also writes it and the gzipped
@@ -42,6 +45,10 @@ FRAMES, SIZE, CLIPS = 16, 256, 8
 # first match wins (the BHND names contain B1's and B2's prologue names);
 # names are CUDA kernel names as the profiler reports them
 CATEGORIES = [
+    ("B8 ln_mlp", ("ln_gemm_kernel<0>",)),
+    ("B7 ln_qkv", ("ln_gemm_kernel<",)),
+    ("B6 layernorm fwd (B7/B8 statistics)", ("ln_fwd_kernel",)),
+    ("B6 layernorm bwd", ("ln_bwd_kernel",)),
     ("B3 flash_fwd_bhnd", ("flash_fwd_bhnd_kernel", "bhnd_rope_pack_kernel")),
     ("B4/B5 flash_bwd_bhnd", ("flash_bwd_bhnd_dkdv_kernel", "flash_bwd_bhnd_dq_kernel",
                               "bhnd_bwd_prologue_kernel")),
@@ -63,7 +70,7 @@ def category(name: str) -> str:
     return "other"
 
 
-def build(device, model: str = "vit_large"):
+def build(device, model: str = "vit_large", fuse_ln: str = ""):
     from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
     from vjepa2_tpu_torch.train import pretrain as tp
     from vjepa2_tpu_torch.train.state import TrainState
@@ -71,7 +78,7 @@ def build(device, model: str = "vit_large"):
     enc, pred = tp.build_models(model, crop_size=SIZE, num_frames=FRAMES, pred_depth=12,
                                 pred_embed_dim=384, pred_num_heads=12, use_rope=True,
                                 num_mask_tokens=2, use_flash=True, dtype=torch.bfloat16,
-                                device=device)
+                                device=device, fuse_ln=fuse_ln)
     tp.init_params(enc, pred, torch.Generator(device=device).manual_seed(0))
     hp = tp.PretrainHParams(ipe=100, epochs=10)
     state = TrainState.create(enc, pred, tp.make_optimizer(hp, enc, pred))
@@ -96,13 +103,14 @@ def build(device, model: str = "vit_large"):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("vit_large", "vit_huge"), default="vit_large")
+    ap.add_argument("--fuse-ln", default="", help="comma list drawn from 'qkv','mlp'")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pretrain needs a CUDA device")
     dev = torch.device("cuda", 0)
-    step, masks = build(dev, args.model)
+    step, masks = build(dev, args.model, args.fuse_ln)
     for _ in range(2):
         step()
 
@@ -146,7 +154,8 @@ def main(argv=None) -> int:
     busy = sum(cats.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     result = {
-        "gpu": torch.cuda.get_device_name(0), "model": args.model, "steps": args.steps,
+        "gpu": torch.cuda.get_device_name(0), "model": args.model, "fuse_ln": args.fuse_ln,
+        "steps": args.steps,
         "wall_ms_per_step": wall, "device_ms_per_step": device_ms,
         "mask_sampling_ms_per_step": mask_ms, "traced_wall_ms_per_step": traced_ms,
         "kernel_busy_ms_per_step": busy,

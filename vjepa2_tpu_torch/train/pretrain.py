@@ -24,6 +24,7 @@ import torch
 from vjepa2_tpu_torch.core.device import entry_device
 from vjepa2_tpu_torch.core.optim import ScheduledAdamW, ema_update, global_norm
 from vjepa2_tpu_torch.core.schedulers import cosine_wd, ema_momentum, warmup_cosine_lr
+from vjepa2_tpu_torch.models.modules import parse_ln_fusions
 from vjepa2_tpu_torch.models.predictor import VisionTransformerPredictor
 from vjepa2_tpu_torch.models.vision_transformer import MODEL_REGISTRY, VisionTransformer
 from vjepa2_tpu_torch.ops.masking import apply_mask
@@ -63,24 +64,29 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
                  uniform_power: bool = True, use_rope: bool = False,
                  use_mask_tokens: bool = True, num_mask_tokens: int = 2,
                  zero_init_mask_tokens: bool = True, use_flash: bool = True,
-                 dtype=torch.bfloat16, device="cuda",
+                 dtype=torch.bfloat16, device="cuda", fuse_ln: str = "",
                  ) -> tuple[VisionTransformer, VisionTransformerPredictor]:
     """Mirror of reference `app/vjepa/utils.py:init_video_model`; parameters
     are allocated on ``device`` but not initialised (`init_params` does).
     Builds on the card with the flash kernels on by default, and raises
-    without a CUDA device unless ``device="cpu"`` is passed."""
+    without a CUDA device unless ``device="cpu"`` is passed. ``fuse_ln``:
+    the fused LayerNorm prologues for every block of both models, as
+    `bench.py --fuse-ln` takes them ('qkv,mlp', 'qkv', 'mlp' or '')."""
     device = entry_device(device)
+    fuse_qkv, fuse_mlp = parse_ln_fusions(fuse_ln)
     enc = MODEL_REGISTRY[model_name](
         patch_size=patch_size, img_size=(crop_size, crop_size), num_frames=num_frames,
         tubelet_size=tubelet_size, uniform_power=uniform_power, use_rope=use_rope,
-        use_flash=use_flash, dtype=dtype, device=device)
+        use_flash=use_flash, dtype=dtype, device=device, fuse_ln_qkv=fuse_qkv,
+        fuse_ln_mlp=fuse_mlp)
     pred = VisionTransformerPredictor(
         img_size=(crop_size, crop_size), patch_size=patch_size, num_frames=num_frames,
         tubelet_size=tubelet_size, embed_dim=enc.embed_dim, predictor_embed_dim=pred_embed_dim,
         depth=pred_depth, num_heads=pred_num_heads or enc.num_heads,
         uniform_power=uniform_power, use_mask_tokens=use_mask_tokens,
         num_mask_tokens=num_mask_tokens, zero_init_mask_tokens=zero_init_mask_tokens,
-        use_rope=use_rope, use_flash=use_flash, dtype=dtype, device=device)
+        use_rope=use_rope, use_flash=use_flash, dtype=dtype, device=device,
+        fuse_ln_qkv=fuse_qkv, fuse_ln_mlp=fuse_mlp)
     return enc, pred
 
 
