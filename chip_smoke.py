@@ -29,14 +29,16 @@ Phases, each printed as one JSON object on a line of its own:
    B1 96 times and B2 72 times; finite loss and gradients, the EMA of the
    target, and clip 0's loss and gradients against the port's fp32 plain path
    on the CPU from the same weights;
-7. kernel_bhnd — the BHND flash forward (B3) against its plain version at
-   the ViT-H and 16-head ViT-g shapes (RoPE, kv_valid, per-example tables),
-   plus a segments + key-side ids call and a causal call, and at the fused
-   ViT-L step's rope-free shapes (Dh 64 and 32);
-8. kernel_bhnd_bwd — the BHND flash backward (B4/B5) against its plain
-   version at the ViT-H context and target shapes, the ViT-g width, a
-   ring-hop call (no RoPE, key-side ids, an lse given from outside), and the
-   fused step's context (Dh 64) and predictor (Dh 32) shapes;
+7. kernel_bhnd — the BHND flash forward (B3, wgmma and TMA) against its
+   plain version at the ViT-H and 16-head ViT-g shapes (RoPE, kv_valid,
+   per-example tables), plus a segments + key-side ids call and a causal
+   call, and at the fused ViT-L step's rope-free shapes (Dh 64 and 32); each
+   record also gives the achieved TFLOP/s and the share of the bound;
+8. kernel_bhnd_bwd — the BHND flash backward (B4/B5, wgmma and TMA) against
+   its plain version at the ViT-H context and target shapes, the ViT-g width,
+   a ring-hop call (no RoPE, key-side ids, an lse given from outside), and the
+   fused step's context (Dh 64) and predictor (Dh 32) shapes; TFLOP/s (10*Dh
+   FLOPs a score) and the share of the bound as in phase 7;
 9. train_huge — the masked-pretrain step of phase 6 with ViT-H/16 (32
    layers, width 1280, 16 heads of 80): 1 + 5 steps, each launching B3 96
    times, the BHND backward 64, B1 24 and B2 24 times; the same checks;
@@ -342,9 +344,8 @@ def phase_build() -> None:
             name = _kernel_name(ln)
         elif "spill stores" in ln:
             spill = ", ".join(x.strip() for x in ln.split(",")[1:])
-        elif "registers" in ln:
-            regs = re.search(r"Used (\d+) registers", ln).group(1)
-            ptxas.append(f"{name}: {regs} registers, {spill}")
+        elif m := re.search(r"Used (\d+) registers", ln):
+            ptxas.append(f"{name}: {m.group(1)} registers, {spill}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_build.library_path().relative_to(_build.BUILD_DIR.parent.parent)),
           "ptxas": ptxas})
@@ -836,12 +837,13 @@ def phase_kernels_bhnd(dev, smi: str) -> dict:
             plain_ms = cuda_ms(lambda: fa.flash_attention_bhnd_plain(q, k, v, **kw), iters=5)
             library_ms = library_fwd_ms(*_rotated(q, k, kw), v, mask, kw.get("causal", False))
         side = [*kw.get("rope_expanded", ()), kw.get("segment_ids"), kw.get("seg_kv")]
-        bound_ms, bound_by = bound(4 * D * attended_pairs(B, H, N, N, mask),
-                                   nbytes(q, k, v, *side, out_k, lse_k))
+        flops = 4 * D * attended_pairs(B, H, N, N, mask)
+        bound_ms, bound_by = bound(flops, nbytes(q, k, v, *side, out_k, lse_k))
         rec = {"phase": "kernel_bhnd", "kernel": "flash_fwd_bhnd", "shape": name,
                "bhnd": [B, H, N, D], "features": sorted(kw), "kv_valid": kw.get("kv_valid_len"),
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "max_abs_err_out": d_out.max().item(),
+               "bound_by": bound_by, "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
+               "max_abs_err_out": d_out.max().item(),
                "max_abs_err_lse": d_lse.max().item(),
                "tol": {"out": f"{OUT_ATOL} + {OUT_RTOL}*|plain|", "lse": LSE_ATOL},
                "ok": ok, "gpu": smi}
@@ -888,13 +890,14 @@ def phase_kernels_bhnd_bwd(dev, smi: str) -> dict:
                 lambda: fa.flash_attention_bhnd_bwd_plain(q, k, v, out, lse, do, **kw), iters=3)
         library_ms = library_bwd_ms(*_rotated(q, k, kw), v, do, mask, kw.get("causal", False))
         side = [*kw.get("rope_expanded", ()), kw.get("segment_ids"), kw.get("seg_kv")]
-        bound_ms, bound_by = bound(10 * D * attended_pairs(B, H, N, N, mask),
-                                   nbytes(q, k, v, out, do, lse, *side, *got))
+        flops = 10 * D * attended_pairs(B, H, N, N, mask)  # S, dP, dV, dK, dQ
+        bound_ms, bound_by = bound(flops, nbytes(q, k, v, out, do, lse, *side, *got))
         rec = {"phase": "kernel_bhnd_bwd", "kernel": "flash_bwd_bhnd", "shape": name,
                "bhnd": [B, H, N, D], "features": sorted(kw) + (["global lse"] if
                                                                feats.get("global_lse") else []),
                "kv_valid": kw.get("kv_valid_len"), "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
                "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "tol": {"rel_l2": BWD_REL_L2, "max_abs": f"{BWD_MAX_ABS}*max|plain|"},
                "ok": ok, "gpu": smi}

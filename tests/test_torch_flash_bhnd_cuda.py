@@ -7,8 +7,14 @@ and in the last tile; per-example RoPE tables; segment ids, also 2**24
 apart; key-side segment ids with M != N (a ring hop) and a given lse;
 token-causal; q, k, v as views of one qkv output and a non-contiguous
 cotangent; rows with no key; an unsupported width, through the wrapper and
-through `sdpa` and `attend` with ``use_flash``; and a grad-mode forward
-and backward through `Attention` at Dh 80 and 88.
+through `sdpa` and `attend` with ``use_flash``; a grad-mode forward and
+backward through `Attention` at Dh 80 and 88. The Hopper design's own edges:
+N and M at 127, 128, 129 and 255 (the 128-token tiles and the two
+64-row warpgroups); kv_valid inside the last key tile; causal across the
+two warpgroups' rows; RoPE at D 80, 88 and 104, whose pairs straddle the
+64-feature chunks; a view with an unaligned base (copied, still launched);
+backward calls bit-equal at every width; and the built library's SASS:
+wgmma (HGMMA) and no mma.sync (HMMA.16816) in the BHND kernels.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
@@ -63,9 +69,10 @@ def _tables(N, D, dev, per_example=0):
     return cos, sin
 
 
-def _case(B, H, D, N, feature, dev):
-    """(q, k, v, do, kwargs) for one feature; seg_kv gets M = N + 40 keys."""
-    M = N + 40 if feature == "seg_kv" else N
+def _case(B, H, D, N, feature, dev, M=None):
+    """(q, k, v, do, kwargs) for one feature; seg_kv gets M keys (N + 40 by
+    default)."""
+    M = M or N + 40 if feature == "seg_kv" else N
     q, do = _randn((B, H, N, D), dev, 0), _randn((B, H, N, D), dev, 3)
     k, v = _randn((B, H, M, D), dev, 1), _randn((B, H, M, D), dev, 2)
     kw = {}
@@ -262,3 +269,122 @@ def test_attention_layer_grad_mode(dev, dim, heads):
         got = got.float().cpu()
         rel = ((got - want).norm() / want.norm()).item()
         assert rel <= REL_L2, rel
+
+
+EDGES = [127, 128, 129, 255]
+
+
+@pytest.mark.parametrize("D", [32, 64, 80, 88, 104])
+@pytest.mark.parametrize("N", EDGES)
+@pytest.mark.parametrize("feature", ["rope", "causal", "kv_valid_last"])
+def test_tile_edges(dev, D, N, feature):
+    """Query counts at the edges of the 128-query blocks and of their two
+    64-row warpgroups, forward and backward."""
+    q, k, v, do, kw = _case(1, 2, D, N, feature, dev)
+    out, lse = _kernel_fwd(q, k, v, **kw)
+    out_p, lse_p, grads_p = _plain(q, k, v, do, **kw)
+    _fwd_close(out, lse, out_p, lse_p)
+    _grads_close(_kernel_bwd(q, k, v, out, lse, do, **kw), grads_p)
+
+
+@pytest.mark.parametrize("D", [32, 64, 80, 88, 104])
+@pytest.mark.parametrize("M", EDGES)
+def test_key_edges(dev, D, M):
+    """Key counts at the edges of the 128-key tiles (key-side ids, M != N)."""
+    q, k, v, do, kw = _case(1, 2, D, 72, "seg_kv", dev, M=M)
+    assert k.shape[2] == M
+    out, lse = _kernel_fwd(q, k, v, **kw)
+    out_p, lse_p, grads_p = _plain(q, k, v, do, **kw)
+    _fwd_close(out, lse, out_p, lse_p)
+    _grads_close(_kernel_bwd(q, k, v, out, lse, do, **kw), grads_p)
+
+
+@pytest.mark.parametrize("D", [64, 88])
+@pytest.mark.parametrize("kv_valid", [257, 270, 383])
+def test_kv_valid_inside_the_last_key_tile(dev, D, kv_valid):
+    """kv_valid inside the third 128-key tile: its keys are masked one by one."""
+    q, k, v, do, kw = _case(2, 2, D, 384, "rope", dev)
+    kw["kv_valid_len"] = kv_valid
+    out, lse = _kernel_fwd(q, k, v, **kw)
+    out_p, lse_p, grads_p = _plain(q, k, v, do, **kw)
+    _fwd_close(out, lse, out_p, lse_p)
+    _grads_close(_kernel_bwd(q, k, v, out, lse, do, **kw), grads_p)
+
+
+@pytest.mark.parametrize("D", [32, 80, 104])
+def test_causal_across_warpgroups(dev, D):
+    """Token-causal over one 128-query block: rows 0-63 (the first
+    warpgroup) see part of the first key tile, rows 64-127 all of it."""
+    q, k, v, do, kw = _case(2, 3, D, 128, "causal", dev)
+    out, lse = _kernel_fwd(q, k, v, **kw)
+    out_p, lse_p, grads_p = _plain(q, k, v, do, **kw)
+    _fwd_close(out, lse, out_p, lse_p)
+    _grads_close(_kernel_bwd(q, k, v, out, lse, do, **kw), grads_p)
+
+
+@pytest.mark.parametrize("D", [80, 88, 104])
+def test_rope_pairs_straddle_chunks(dev, D):
+    """Per-example RoPE at the widths whose pairs (d, d + D/2) lie in both
+    64-feature chunks: the forward rotates q in shared memory across them,
+    the backward's adjoint reads them back from its fp32 staging."""
+    q, k, v, do, kw = _case(2, 2, D, 200, "rope_per_example", dev)
+    out, lse = _kernel_fwd(q, k, v, **kw)
+    out_p, lse_p, grads_p = _plain(q, k, v, do, **kw)
+    _fwd_close(out, lse, out_p, lse_p)
+    _grads_close(_kernel_bwd(q, k, v, out, lse, do, **kw), grads_p)
+
+
+@pytest.mark.parametrize("D", [64, 80])
+def test_unaligned_view_is_copied_and_launched(dev, D):
+    """q, k, v, do as views whose base is 2 bytes past a 16-byte boundary: TMA
+    cannot read them in place, so the wrapper copies them and still launches
+    the kernels (the counters rise), with the bits of contiguous operands."""
+    B, H, N = 1, 2, 136
+    n = B * H * N * D
+    flat = _randn((4 * n + 8,), dev, 9)
+    q, k, v, do = (flat[1 + i * n: 1 + (i + 1) * n].view(B, H, N, D) for i in range(4))
+    assert q.data_ptr() % 16 and not fa.tma_ready(q)
+    kw = {"kv_valid_len": N - 3}
+    out, lse = _kernel_fwd(q, k, v, **kw)
+    grads = _kernel_bwd(q, k, v, out, lse, do, **kw)
+    cq, ck, cv, cdo = (t.clone() for t in (q, k, v, do))
+    out_c, lse_c = _kernel_fwd(cq, ck, cv, **kw)
+    assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+    for a, b in zip(grads, _kernel_bwd(cq, ck, cv, out_c, lse_c, cdo, **kw)):
+        assert torch.equal(a, b)
+    _grads_close(grads, _plain(q, k, v, do, **kw)[2])
+
+
+@pytest.mark.parametrize("D", [32, 64, 80, 88, 104])
+def test_backward_is_deterministic(dev, D):
+    """Two backward calls give equal bits: no atomics whose order varies."""
+    q, k, v, do, kw = _case(2, 4, D, 300, "rope", dev)
+    kw["kv_valid_len"] = 290
+    out, lse = _kernel_fwd(q, k, v, **kw)
+    first = _kernel_bwd(q, k, v, out, lse, do, **kw)
+    for a, b in zip(first, _kernel_bwd(q, k, v, out, lse, do, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_sass_uses_wgmma_not_mma_sync(dev):
+    """The built library's BHND kernels run on wgmma (HGMMA in the SASS) and
+    contain no mma.sync m16n8k16 (HMMA.16816)."""
+    import os
+    import subprocess
+
+    from vjepa2_tpu_torch import _build
+
+    _build.load()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    bodies = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        bodies[name.strip()] = body
+    names = ("flash_fwd_bhnd_kernel", "flash_bwd_bhnd_dkdv_kernel", "flash_bwd_bhnd_dq_kernel")
+    for kernel in names:
+        found = {n: b for n, b in bodies.items() if kernel in n}
+        assert len(found) == 5, (kernel, sorted(found))  # one per head width
+        for name, body in found.items():
+            assert "HGMMA" in body and "HMMA.16816" not in body, name

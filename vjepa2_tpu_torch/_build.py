@@ -137,5 +137,6 @@ def launcher_argtypes(n_ptrs: int, n_ints: int, n_floats: int) -> list:
 
 
 def ptr(t):
-    """A tensor's device address for a kernel argument (None for no tensor)."""
-    return None if t is None else t.data_ptr()
+    """A tensor's device address for a kernel argument (None for no tensor; an
+    int is an address already)."""
+    return t if t is None or isinstance(t, int) else t.data_ptr()

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel `vjepa2_tpu/ops/flash_attention.py:166 _fwd_kernel`
 // (wrapper `_flash_fwd_bhnd:257`, `pallas_call` `:307`). Same contract:
-//   * q, k, v bf16 [B, H, N|M, D], any element strides (q, k and v are
-//     usually views of one qkv projection output [B, N, 3, H, D]);
+//   * q, k, v bf16 [B, H, N|M, D], unit stride along d and strides that are
+//     multiples of 8 elements from a 16-byte aligned base, as TMA reads them
+//     (q, k and v are usually views of one qkv projection output
+//     [B, N, 3, H, D]; the wrapper copies any other operand first);
 //     D in {80, 88, 104}, the head widths above the DN route's 64, and
 //     32 and 64, which the fused LayerNorm route sends here rope-free;
 //   * split-half RoPE on q and k in fp32 (pairs d and d + D/2), tables fp32
@@ -18,365 +20,368 @@
 //     int32; optional token-causal mask (key <= query); keys at or beyond
 //     `kv_lim` (the static kv_valid, or M) are masked, and the kernel masks
 //     its own ragged edge, so N and M need no padding;
-//   * out bf16 in the layout its strides give (unit stride along d), lse
-//     [B, H, N] fp32 natural log; a row with no key to attend gives output 0
-//     and lse -inf (the TPU kernel's finite -1e30 mask averages v there).
+//   * out bf16 in the layout its strides give (unit stride along d, even
+//     strides), lse [B, H, N] fp32 natural log; a row with no key to attend
+//     gives output 0 and lse -inf (the TPU kernel's finite -1e30 mask
+//     averages v there).
 //
-// What bounds it on this card: per score element the tensor cores do 4*Dh
-// FLOPs (320 at Dh 80) against about 10 scalar operations of softmax, so, as
-// in B1, issue and latency on the CUDA cores bound it more than the tensor
-// cores or memory do (FLOPs / 989 TFLOP/s is the roofline bound, and memory
-// traffic is ~1/100 of it).
+// What bounds it on this card: per score the tensor cores do 4*Dh FLOPs
+// (320 at Dh 80) against about 10 scalar operations of softmax; at 989
+// TFLOP/s the scalar work and its latency, not the tensor cores or memory,
+// set the pace unless the two overlap (memory traffic is ~1/100 of the
+// FLOP bound).
 //
-// What this version does about it: B1's design with the head dim padded to a
-// whole mma k-step. Two launches. A prologue (`bhnd_rope_pack_kernel`)
-// rotates q and k once, folds scale*log2(e) into q, rounds both to bf16 and
-// writes them token-major [B, H, N|M, Dp] into scratch, with v feature-major
-// [B, H, Dp, Mp] (Mp: M rounded up to whole 64-key tiles), Dp = D rounded up
-// to 16 with zero features (32, 64 and 80 unpadded, 88 -> 96, 104 -> 112): so no query
-// block re-rotates k or reads a table, and every mma fragment is one 32-bit
-// shared-memory load. The main kernel (`flash_fwd_bhnd_kernel`) is B1's
-// FlashAttention-2 forward (`flash_fwd_common.cuh:attend_tile`): 128 queries
-// a block in 8 warps, scores kept in registers (mma.sync m16n8k16
-// accumulators re-packed as the A operand of P.V), one exp2 per score, the
-// next k/v tile copied by cp.async while this one is computed, tiles wholly
-// past kv_lim (or above the causal diagonal) skipped. Not done yet, for later
-// work: wgmma, TMA, warp specialisation.
+// Design (`bhnd_hopper.cuh` for the machinery):
+//   * with RoPE, one prologue launch (`bhnd_rope_pack_kernel`) writes
+//     bf16(rot(k)) token-major [B, H, M, D], since every query block reads
+//     every key; a rope-free call (the fused route's) launches nothing else;
+//   * the main kernel (`flash_fwd_bhnd_kernel`): 128 queries a block, two
+//     consumer warpgroups of 64 rows (232 registers each after setmaxnreg)
+//     and a producer warp (40). The producer loads q once and 128-key tiles
+//     of k and v through a 3-stage ring by TMA, straight from the caller's
+//     (or the prologue's) token-major layout;
+//   * each consumer rotates, scales and rounds its 64 q rows in shared
+//     memory once (the same `rope_pair` / `round_scaled` as the backward);
+//   * S = Q K^T is wgmma m64nNk16 over ceil(D/16) k-steps, both operands in
+//     shared memory, N the 128 keys of a tile, or 64 at D 88 and 104, where
+//     the wider O accumulator leaves too few registers for a 64 x 128 S and
+//     its P; masks, running max and one exp2 per score in registers; P
+//     stays in registers as the A operand of O += P V, one wgmma of N = Dp
+//     per 16 keys, with v read as the transposed (MN-major) B operand: no
+//     copy of v exists;
+//   * the two consumers take turns on named barriers (ping-pong): each
+//     issues O += P_{u-1} V_{u-1} and S_u = Q K_u, hands the tensor cores to
+//     the other, and runs its softmax while the other's products run;
+//   * key tiles wholly past kv_lim or above the causal diagonal are skipped.
 
-#include "flash_fwd_common.cuh"
+#include "bhnd_hopper.cuh"
 
 namespace {
 
-constexpr int kRows = 64;  // tokens per prologue block
+constexpr int kBlockQ = 128;  // queries a block, 64 a consumer warpgroup
+constexpr int kBlockK = 128;  // keys a tile
+constexpr int kStages = 3;
+constexpr int kRows = 64;     // tokens per prologue block
 
-struct Strides {
-  long long b, h, n, d;
-};
-
-struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* cos;   // null: no RoPE
+struct FwdParams {
+  CUtensorMap tm_q, tm_k, tm_v;  // boxes of 64 features x 128 tokens
+  const float* cos;              // null: no RoPE
   const float* sin;
-  const int* seg_q;   // null: no segment mask; [B|1, N] int32
-  const int* seg_k;   // [B|1, M]
+  const int* seg_q;              // null: no segment mask; [B|1, N] int32
+  const int* seg_k;              // [B|1, M]
   bf16* o;
-  float* lse;         // [B, H, N]
-  Strides sq, sk, sv, so;
-  long long t_b, t_n, t_d;    // RoPE table strides
-  long long segq_b, segk_b;   // segment-id batch strides
-  int H, N, M, Mp, kv_lim, causal;
-  int vec;       // bit i: 16-byte path for q, k, v, out (i = 0..3)
-  float qscale;  // scale * log2(e)
-  bf16* qr;      // scratch [B, H, N, Dp]   bf16(rot(q) * qscale)
-  bf16* kr;      // scratch [B, H, M, Dp]   bf16(rot(k))
-  bf16* vt;      // scratch [B, H, Dp, Mp]  v, feature-major, zero past M
+  float* lse;                    // [B, H, N]
+  long long o_n, o_h, o_b;       // out's element strides (unit along d)
+  long long t_b, t_n, t_d;       // RoPE table strides
+  long long segq_b, segk_b;      // segment-id batch strides
+  int H, N, M, kv_lim, causal;
+  float qscale;                  // scale * log2(e)
 };
 
-// Rows [t0, t0 + kRows) of x (element strides s; tokens at or past lim read
-// as 0) into dst[row][0, Dp), features D..Dp zero. The 16-byte path needs
-// unit stride along d and 16-byte aligned rows.
-template <int D, int Dp>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* x, const Strides& s, int t0,
-                                          int lim, bool vec) {
-  constexpr int kStride = Dp + kPad;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  if (vec) {
-    constexpr int kChunks = D / 8;
-    for (int i = threadIdx.x; i < kRows * kChunks; i += blockDim.x) {
-      const int r = i / kChunks, c = i % kChunks, n = t0 + r;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (n < lim) u = *reinterpret_cast<const uint4*>(x + n * s.n + c * 8);
-      *reinterpret_cast<uint4*>(&dst[r * kStride + c * 8]) = u;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
-      const int r = i / D, d = i % D, n = t0 + r;
-      dst[r * kStride + d] = n < lim ? x[n * s.n + d * s.d] : zero;
-    }
-  }
-  if constexpr (Dp > D) {
-    for (int i = threadIdx.x; i < kRows * (Dp - D); i += blockDim.x) {
-      dst[(i / (Dp - D)) * kStride + D + i % (Dp - D)] = zero;
-    }
-  }
-}
+struct RotParams {
+  const bf16* k;
+  long long k_n, k_h, k_b, k_d;
+  const float* cos;
+  const float* sin;
+  long long t_b, t_n, t_d;
+  bf16* kr;  // [B, H, M, D]
+  int H, M;
+  bool vec;  // 8-byte loads of k
+};
 
-// dst = bf16(rot(src) * mul) over rows [t0, t0 + kRows) of a [row][d] tile,
-// pairs (d, d + D/2), tables at token n (no rotation when cos_t is null, or
-// past lim where the rows are zero). dst may be src.
-template <int D, int Dp>
-__device__ __forceinline__ void rotate_rows(bf16* dst, const bf16* src, const float* cos_t,
-                                            const float* sin_t, long long t_n, long long t_d,
-                                            int t0, int lim, float mul) {
-  constexpr int kHalf = D / 2, kStride = Dp + kPad;
-  for (int i = threadIdx.x; i < kRows * kHalf; i += blockDim.x) {
-    const int r = i / kHalf, d = i % kHalf, n = t0 + r;
-    float lo = __bfloat162float(src[r * kStride + d]);
-    float hi = __bfloat162float(src[r * kStride + d + kHalf]);
-    if (cos_t != nullptr && n < lim) {
-      const long long i_lo = n * t_n + d * t_d;
-      const long long i_hi = n * t_n + (d + kHalf) * t_d;
-      rope_pair(lo, hi, cos_t[i_lo], sin_t[i_lo], cos_t[i_hi], sin_t[i_hi]);
-    }
-    dst[r * kStride + d] = round_scaled(lo, mul);
-    dst[r * kStride + d + kHalf] = round_scaled(hi, mul);
-  }
-}
-
-// Prologue: one block per (b, h, 64 tokens). q' and k' token-major, v
-// feature-major, as the main kernel's fragments load them.
-template <int D, int Dp>
-__global__ void __launch_bounds__(kThreads) bhnd_rope_pack_kernel(const Params p) {
-  constexpr int kStride = Dp + kPad, kChunks = Dp / 8;
-  __shared__ __align__(16) bf16 s_t[kRows * kStride];
+// Prologue: bf16(rot(k)) for 64 keys of one (b, h), four features a thread
+// and their partners D/2 further.
+template <int D>
+__global__ void __launch_bounds__(256) bhnd_rope_pack_kernel(const RotParams p) {
+  constexpr int kHalf = D / 2, kQuads = kHalf / 4;
   const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * kRows;
-  const long long bh = (long long)b * p.H + h;
-  const float* cos_t = p.cos != nullptr ? p.cos + b * p.t_b : nullptr;
-  const float* sin_t = p.cos != nullptr ? p.sin + b * p.t_b : nullptr;
-  for (int which = 0; which < 2; ++which) {
-    const bool is_q = which == 0;
-    const int lim = is_q ? p.N : p.M;
-    if (t0 >= lim) continue;  // uniform across the block
-    const Strides& s = is_q ? p.sq : p.sk;
-    const bf16* src = (is_q ? p.q : p.k) + b * s.b + h * s.h;
-    load_rows<D, Dp>(s_t, src, s, t0, lim, (p.vec >> which) & 1);
-    __syncthreads();
-    rotate_rows<D, Dp>(s_t, s_t, cos_t, sin_t, p.t_n, p.t_d, t0, lim, is_q ? p.qscale : 1.f);
-    __syncthreads();
-    bf16* dst = (is_q ? p.qr : p.kr) + bh * lim * Dp;
-    for (int i = threadIdx.x; i < kRows * kChunks; i += blockDim.x) {
-      const int r = i / kChunks, c = i % kChunks;
-      if (t0 + r < lim) {
-        *reinterpret_cast<uint4*>(dst + (long long)(t0 + r) * Dp + c * 8) =
-            *reinterpret_cast<const uint4*>(&s_t[r * kStride + c * 8]);
-      }
-    }
-    __syncthreads();
-  }
-  if (t0 < p.M) {  // v -> [Dp][Mp]; rows past M are zero, so is the pad of the last tile
-    load_rows<D, Dp>(s_t, p.v + b * p.sv.b + h * p.sv.h, p.sv, t0, p.M, (p.vec >> 2) & 1);
-    __syncthreads();
-    bf16* dst = p.vt + bh * Dp * p.Mp;
-    for (int i = threadIdx.x; i < Dp * kRows; i += blockDim.x) {
-      const int d = i / kRows, r = i % kRows;
-      dst[(long long)d * p.Mp + t0 + r] = s_t[r * kStride + d];
-    }
+  const bf16* k = p.k + b * p.k_b + h * p.k_h;
+  const float* cos_t = p.cos + b * p.t_b;
+  const float* sin_t = p.sin + b * p.t_b;
+  bf16* kr = p.kr + ((long long)b * p.H + h) * p.M * D;
+  for (int i = threadIdx.x; i < kRows * kQuads; i += blockDim.x) {
+    const int n = t0 + i / kQuads, d = (i % kQuads) * 4;
+    if (n >= p.M) continue;
+    float4 lo = load4(k + n * p.k_n + d * p.k_d, p.k_d, p.vec);
+    float4 hi = load4(k + n * p.k_n + (d + kHalf) * p.k_d, p.k_d, p.vec);
+    rope4(lo, hi, cos_t + n * p.t_n, sin_t + n * p.t_n, d, kHalf, p.t_d);
+    store4(kr + (long long)n * D + d, lo, 1.f);
+    store4(kr + (long long)n * D + d + kHalf, hi, 1.f);
   }
 }
 
-template <int D, int Dp>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bhnd_kernel(const Params p) {
-  constexpr int kDTiles = Dp / 8;            // 8-wide output tiles over the head dim
-  constexpr int kStride = Dp + kPad;         // s_q, s_k rows: [token][d]
-  constexpr int kVStride = kBlockK + kPad;   // s_v rows: [d][key]
+template <int D>
+constexpr int fwd_smem_bytes() {  // q, the k and v rings, barriers, alignment slack
+  return (1 + 2 * kStages) * tile_bytes(D, kBlockK) + 64 + 1024;
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);                    // [kBlockQ][kStride]
-  bf16* s_k = s_q + kBlockQ * kStride;                          // [2][kBlockK][kStride]
-  bf16* s_v = s_k + 2 * kBlockK * kStride;                      // [2][Dp][kVStride]
-  int* s_segk = reinterpret_cast<int*>(s_v + 2 * Dp * kVStride);  // [2][kBlockK]
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bhnd_kernel(const __grid_constant__ FwdParams p) {
+  constexpr int kTile = tile_bytes(D, kBlockK);
+  constexpr int Dp = padded_width(D), kSteps = Dp / 16, kHalf = D / 2;
+  // Keys per softmax step: the whole tile, or half of it at the widths whose
+  // O accumulator leaves too few registers for a 64 x 128 S and its P.
+  constexpr int kSub = Dp > 80 ? 64 : kBlockK, kPer = kBlockK / kSub, kNt = kSub / 8;
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t4 = lane & 3;  // thread within the quad
-  const int row0 = warp * 16 + g;  // this thread's rows in the tile: row0, row0 + 8
-  const long long bh = (long long)b * p.H + h;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* s_q = align1024(smem_raw);
+  unsigned char* s_k = s_q + kTile;              // [kStages][kTile]
+  unsigned char* s_v = s_k + kStages * kTile;    // [kStages][kTile]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(s_v + kStages * kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const bf16* qrp = p.qr + bh * p.N * Dp;
-  const bf16* krp = p.kr + bh * p.M * Dp;
-  const bf16* vtp = p.vt + bh * Dp * p.Mp;
-  const bool use_seg = p.seg_q != nullptr;
-  const int* segq_p = use_seg ? p.seg_q + b * p.segq_b : nullptr;
-  const int* segk_p = use_seg ? p.seg_k + b * p.segk_b : nullptr;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
+  int n_u = (p.kv_lim + kSub - 1) / kSub;  // key sub-tiles; those past kv_lim are all masked
+  if (p.causal) n_u = min(n_u, (min(q0 + kBlockQ, p.N) - 1) / kSub + 1);
+  const int n_kt = (n_u + kPer - 1) / kPer;  // 128-key tiles through the ring
 
-  // Stage k tile `kt` into buffer `buf`; visible after the caller's wait and barrier.
-  auto load_kv = [&](int kt, int buf) {
-    const int k0 = kt * kBlockK;
-    copy_rows_async<Dp, kBlockK>(s_k + buf * kBlockK * kStride, krp, k0, p.M);
-    bf16* sv = s_v + buf * Dp * kVStride;
-    for (int i = tid; i < Dp * (kBlockK / 8); i += kThreads) {
-      const int d = i / (kBlockK / 8), c = i % (kBlockK / 8);
-      cp_async16(&sv[d * kVStride + c * 8], vtp + (long long)d * p.Mp + k0 + c * 8, true);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
     }
-    if (use_seg && tid < kBlockK) {
-      s_segk[buf * kBlockK + tid] = k0 + tid < p.M ? segk_p[k0 + tid] : 0;
-    }
-  };
-
-  int n_ktiles = (p.kv_lim + kBlockK - 1) / kBlockK;  // tiles past kv_lim are all masked
-  if (p.causal) {  // keys above the block's last query are all masked
-    const int q_last = min(q0 + kBlockQ, p.N) - 1;
-    n_ktiles = min(n_ktiles, q_last / kBlockK + 1);
+    mbar_fence_init();
   }
-  copy_rows_async<Dp, kBlockQ>(s_q, qrp, q0, p.N);
-  cp_async_commit();
-  load_kv(0, 0);
-  cp_async_commit();
-  int segq[2] = {0, 0};
-  if (use_seg) {
-    for (int r = 0; r < 2; ++r) {
-      const int gn = q0 + row0 + 8 * r;
-      segq[r] = gn < p.N ? segq_p[gn] : 0;
-    }
-  }
-  cp_async_wait<1>();  // the q tile has landed
   __syncthreads();
 
-  uint32_t qf[Dp / 16][4];
-  load_q_frags<Dp>(qf, s_q, row0);
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
-  float l_run[2] = {0.f, 0.f};              // this thread's share of the running denominator
-
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * kBlockK, buf = kt & 1;
-    if (kt + 1 < n_ktiles) {
-      load_kv(kt + 1, buf ^ 1);  // that buffer was released by the last barrier below
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 2) {  // producer: one thread issues every load
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * kWgThreads) {
+      mbar_expect_tx(q_full, kTile);
+      tma_tile<D, kBlockQ>(s_q, &p.tm_q, q0, h, b, q_full);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * kTile);
+        tma_tile<D, kBlockK>(s_k + s * kTile, &p.tm_k, j * kBlockK, h, b, &full[s]);
+        tma_tile<D, kBlockK>(s_v + s * kTile, &p.tm_v, j * kBlockK, h, b, &full[s]);
+      }
     }
-    __syncthreads();
-    attend_tile<Dp>(acc, m_run, l_run, qf, s_k + buf * kBlockK * kStride,
-                    s_v + buf * Dp * kVStride, s_segk + buf * kBlockK, segq, use_seg, p.causal,
-                    k0, p.kv_lim, q0 + row0);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    return;
   }
+  setmaxnreg_inc<232>();
+
+  const int t = threadIdx.x % kWgThreads, warp = t >> 5, lane = t & 31;
+  const int t4 = lane & 3;
+  const int rbase = wg * 64;                         // this warpgroup's rows in the block
+  const int row0 = rbase + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const long long bh = (long long)b * p.H + h;
+  const bool use_seg = p.seg_q != nullptr;
+  const int* segk_p = use_seg ? p.seg_k + b * p.segk_b : nullptr;
+  int qrow[2], segq[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qrow[r] = q0 + row0 + 8 * r;
+    if (use_seg && qrow[r] < p.N) segq[r] = p.seg_q[b * p.segq_b + qrow[r]];
+  }
+
+  // q_s = bf16(rot(q) * qscale) for this warpgroup's rows, in place
+  mbar_wait(q_full, 0);
+  {
+    bf16* q = reinterpret_cast<bf16*>(s_q);
+    const float* cos_t = p.cos != nullptr ? p.cos + b * p.t_b : nullptr;
+    const float* sin_t = p.cos != nullptr ? p.sin + b * p.t_b : nullptr;
+    for (int i = t; i < 64 * kHalf; i += kWgThreads) {
+      const int r = rbase + i / kHalf, d = i % kHalf, n = q0 + r;
+      bf16* lo_p = q + swz(kBlockQ, r, d);
+      bf16* hi_p = q + swz(kBlockQ, r, d + kHalf);
+      float lo = __bfloat162float(*lo_p), hi = __bfloat162float(*hi_p);
+      if (cos_t != nullptr && n < p.N) {
+        const long long i_lo = n * p.t_n + d * p.t_d, i_hi = n * p.t_n + (d + kHalf) * p.t_d;
+        rope_pair(lo, hi, cos_t[i_lo], sin_t[i_lo], cos_t[i_hi], sin_t[i_hi]);
+      }
+      *lo_p = round_scaled(lo, p.qscale);
+      *hi_p = round_scaled(hi, p.qscale);
+    }
+  }
+  fence_async_smem();
+  bar_sync(3 + wg, kWgThreads);
+
+  float s[kSub / 2];                             // S, 64 rows x kSub keys
+  float o[Dp / 2];                               // O, 64 rows x Dp features
+#pragma unroll
+  for (int i = 0; i < Dp / 2; ++i) o[i] = 0.f;
+  uint32_t pf[kSub / 16][4];                     // P as A fragments, k-steps of 16 keys
+  float m_run[2] = {-INFINITY, -INFINITY};       // running max, base-2 units
+  float l_run[2] = {0.f, 0.f};                   // this thread's share of the denominator
+
+  // The tensor cores in turns (ping-pong): a warpgroup waits for its turn
+  // (named barrier 1 + wg), issues its products, hands the turn to the
+  // other, and runs its softmax while the other's products run. O += P V
+  // trails S = Q K^T by one sub-tile u (keys [u kSub, (u + 1) kSub), in
+  // ring stage (u / kPer) % kStages), so each turn issues both.
+  const uint64_t d_q = desc_k<kBlockQ>(s_q, rbase);
+  auto issue_s = [&](int u) {  // S_u = Q K_u^T
+    const unsigned char* k = s_k + ((u / kPer) % kStages) * kTile;
+    const uint64_t d_k = opaque(desc_k<kBlockK>(k, (u % kPer) * kSub));
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      wgmma_ss<kSub>(s, d_q + step_k<kBlockQ>(ks), d_k + step_k<kBlockK>(ks), ks > 0);
+    }
+  };
+  auto issue_pv = [&](int u) {  // O += P_u V_u
+    const uint64_t d_v = opaque(desc_mn<kBlockK>(s_v + ((u / kPer) % kStages) * kTile));
+    const int kk0 = (u % kPer) * (kSub / 16);
+#pragma unroll
+    for (int kk = 0; kk < kSub / 16; ++kk) {
+      wgmma_rs<Dp>(o, pf[kk], d_v + step_mn<kBlockK>(0, kk0 + kk), 1);
+    }
+  };
+  auto finish = [&]() {  // the products issued this turn, done
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(o);
+  };
+  // masks, running max and denominators, P_u as A fragments, O rescaled
+  auto softmax = [&](int u) {
+    const int k0 = u * kSub;
+    if (use_seg || p.causal || k0 + kSub > p.kv_lim) {
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
+          bool ok = key < p.kv_lim;
+          if (use_seg && ok) ok = segq[e >> 1] >= segk_p[key];
+          if (p.causal) ok = ok && key <= qrow[e >> 1];
+          if (!ok) s[4 * nt + e] = -INFINITY;
+        }
+      }
+    }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * nt + 0], s[4 * nt + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
+    }
+    float base[2], corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row masked so far keeps p = 0
+      corr[r] = exp2_approx(m_run[r] - base[r]);
+      m_run[r] = mx[r];
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {  // P, packed as it is made (S dies as P grows)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * nt + e] = exp2_approx(s[4 * nt + e] - base[e >> 1]);
+        rs[e >> 1] += s[4 * nt + e];
+      }
+      pack_tile(pf[nt / 2], nt & 1, s + 4 * nt);
+    }
+    l_run[0] = l_run[0] * corr[0] + rs[0];
+    l_run[1] = l_run[1] * corr[1] + rs[1];
+#pragma unroll
+    for (int i = 0; i < Dp / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+  };
+
+  const int mine = 1 + wg, other = 1 + (wg ^ 1);
+  if (wg == 1) bar_arrive(other, 2 * kWgThreads);  // warpgroup 0 takes the first turn
+  mbar_wait(&full[0], 0);
+  bar_sync(mine, 2 * kWgThreads);
+  wgmma_fence();
+  issue_s(0);
+  bar_arrive(other, 2 * kWgThreads);
+  finish();
+  softmax(0);
+  for (int u = 1; u < n_u; ++u) {
+    const int j = u / kPer;
+    if (u % kPer == 0) mbar_wait(&full[j % kStages], (j / kStages) & 1);
+    bar_sync(mine, 2 * kWgThreads);
+    wgmma_fence();
+    issue_pv(u - 1);
+    issue_s(u);
+    bar_arrive(other, 2 * kWgThreads);
+    finish();
+    // tile j - 1 is consumed
+    if (u % kPer == 0 && lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);
+    softmax(u);
+  }
+  bar_sync(mine, 2 * kWgThreads);
+  wgmma_fence();
+  issue_pv(n_u - 1);
+  if (wg == 0) bar_arrive(other, 2 * kWgThreads);  // warpgroup 1 takes the last turn
+  finish();
 
   float denom[2];
-  row_denominators(denom, l_run);
-
-  // Stage the output as [query][d] in the q buffer (free: the q fragments
-  // were loaded before the loop, and the loop's barriers follow).
-  bf16* s_o = s_q;
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int d0 = dt * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(&s_o[row0 * kStride + d0]) =
-        pack_bf16(acc[dt][0] / denom[0], acc[dt][1] / denom[0]);
-    *reinterpret_cast<uint32_t*>(&s_o[(row0 + 8) * kStride + d0]) =
-        pack_bf16(acc[dt][2] / denom[1], acc[dt][3] / denom[1]);
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    denom[r] = l_run[r] == 0.f ? 1.f : l_run[r];
   }
-  write_lse(p.lse + bh * p.N, denom, m_run, q0 + row0, p.N);
-  __syncthreads();
-  bf16* op = p.o + b * p.so.b + h * p.so.h;
-  if ((p.vec >> 3) & 1) {
-    constexpr int kChunks = D / 8;
-    for (int i = tid; i < kBlockQ * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = i % kChunks, n = q0 + r;
-      if (n < p.N) {
-        *reinterpret_cast<uint4*>(op + n * p.so.n + c * 8) =
-            *reinterpret_cast<const uint4*>(&s_o[r * kStride + c * 8]);
+  bf16* op = p.o + b * p.o_b + h * p.o_h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qrow[r] >= p.N) continue;
+    bf16* orow = op + qrow[r] * p.o_n;
+#pragma unroll
+    for (int dt = 0; dt < Dp / 8; ++dt) {
+      const int d = dt * 8 + 2 * t4;
+      if (d < D) {
+        *reinterpret_cast<uint32_t*>(orow + d) =
+            pack_bf16(o[4 * dt + 2 * r] / denom[r], o[4 * dt + 2 * r + 1] / denom[r]);
       }
     }
-  } else {
-    for (int i = tid; i < kBlockQ * D; i += kThreads) {
-      const int r = i / D, d = i % D, n = q0 + r;
-      if (n < p.N) op[n * p.so.n + d * p.so.d] = s_o[r * kStride + d];
+    if (t4 == 0) {
+      const float m_nat = m_run[r] == -INFINITY ? -INFINITY : m_run[r] * kLn2;
+      p.lse[bh * p.N + qrow[r]] = m_nat + logf(denom[r]);
     }
   }
 }
 
-constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Scratch layout (q', k', v^T), each piece a multiple of 256 bytes.
-long long carve(Params* p, char* base, int B, int H, int Dp, int N, int M) {
-  const long long bh = (long long)B * H, Mp = round_up(M, kBlockK);
-  long long off = 0;
-  auto take = [&](long long bytes) {
-    char* ptr = base == nullptr ? nullptr : base + off;
-    off += (bytes + 255) / 256 * 256;
-    return ptr;
-  };
-  bf16* qr = reinterpret_cast<bf16*>(take(bh * N * Dp * 2));
-  bf16* kr = reinterpret_cast<bf16*>(take(bh * M * Dp * 2));
-  bf16* vt = reinterpret_cast<bf16*>(take(bh * Mp * Dp * 2));
-  if (p != nullptr) {
-    p->qr = qr;
-    p->kr = kr;
-    p->vt = vt;
-  }
-  return off;
-}
-
-int padded_width(int D) {
-  switch (D) {
-    case 32: return 32;
-    case 64: return 64;
-    case 80: return 80;
-    case 88: return 96;
-    case 104: return 112;
-    default: return 0;
-  }
-}
-
-bool vec_ok(const void* ptr, const Strides& s) {
-  return s.d == 1 && s.n % 8 == 0 && s.h % 8 == 0 && s.b % 8 == 0 && aligned16(ptr);
-}
-
-template <int D, int Dp>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr int kSmem = main_smem_bytes<Dp>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bhnd_kernel<D, Dp>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+template <int D>
+cudaError_t launch(const FwdParams& p, const RotParams& rot, int B, cudaStream_t stream) {
+  constexpr int kSmem = fwd_smem_bytes<D>();
+  cudaError_t err = allow_smem<flash_fwd_bhnd_kernel<D>>(kSmem);
   if (err != cudaSuccess) return err;
-  const int longest = p.N > p.M ? p.N : p.M;
-  bhnd_rope_pack_kernel<D, Dp><<<dim3((longest + kRows - 1) / kRows, p.H, B), kThreads, 0,
-                                  stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (p.cos != nullptr) {
+    bhnd_rope_pack_kernel<D><<<dim3((p.M + kRows - 1) / kRows, p.H, B), 256, 0, stream>>>(rot);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((p.N + kBlockQ - 1) / kBlockQ, p.H, B);
-  flash_fwd_bhnd_kernel<D, Dp><<<grid, kThreads, kSmem, stream>>>(p);
+  flash_fwd_bhnd_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of scratch `vjepa2_flash_fwd_bhnd_bf16` needs for these sizes (0 for
-// an unsupported head width).
-extern "C" long long vjepa2_flash_fwd_bhnd_scratch_bytes(int B, int H, int D, int N, int M) {
-  const int Dp = padded_width(D);
-  return Dp == 0 ? 0 : carve(nullptr, nullptr, B, H, Dp, N, M);
-}
-
 // strides: 21 element strides, in order
 //   q (b, h, n, d), k (b, h, n, d), v (b, h, n, d), out (b, h, n, d),
 //   RoPE tables (b, n, d), query segment ids (b), key segment ids (b).
-// cos/sin null: no RoPE (else N == M). seg_q null: no segment mask (else
-// seg_k is given too). out needs unit stride along d; lse is [B, H, N]
-// contiguous. scratch: vjepa2_flash_fwd_bhnd_scratch_bytes(B, H, D, N, M)
-// bytes, 256-byte aligned. Returns the cudaError_t of the launches (0 on
-// success).
+// q, v and (without RoPE) k are read by TMA: unit stride along d, the other
+// strides multiples of 8, 16-byte aligned bases. cos/sin null: no RoPE (else
+// N == M and kr is scratch for bf16(rot(k)), [B, H, M, D], 16-byte
+// aligned). seg_q null: no segment mask (else seg_k is given too). out needs
+// unit stride along d and even strides; lse is [B, H, N] contiguous. Returns
+// kNotTmaReady (-1), launching nothing, if q, v or k is not TMA-ready, else
+// the cudaError_t of the launches (0 on success).
 extern "C" int vjepa2_flash_fwd_bhnd_bf16(const void* q, const void* k, const void* v,
                                           const void* cos_t, const void* sin_t,
                                           const void* seg_q, const void* seg_k, void* out,
-                                          void* lse, void* scratch, int B, int H, int D, int N,
+                                          void* lse, void* kr, int B, int H, int D, int N,
                                           int M, int kv_lim, int causal,
                                           const long long* strides, float qscale, void* stream) {
-  Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
+  FwdParams p;
   p.cos = static_cast<const float*>(cos_t);
   p.sin = static_cast<const float*>(sin_t);
   p.seg_q = static_cast<const int*>(seg_q);
   p.seg_k = static_cast<const int*>(seg_k);
   p.o = static_cast<bf16*>(out);
   p.lse = static_cast<float*>(lse);
-  p.sq = {strides[0], strides[1], strides[2], strides[3]};
-  p.sk = {strides[4], strides[5], strides[6], strides[7]};
-  p.sv = {strides[8], strides[9], strides[10], strides[11]};
-  p.so = {strides[12], strides[13], strides[14], strides[15]};
+  p.o_b = strides[12];
+  p.o_h = strides[13];
+  p.o_n = strides[14];
   p.t_b = strides[16];
   p.t_n = strides[17];
   p.t_d = strides[18];
@@ -385,25 +390,32 @@ extern "C" int vjepa2_flash_fwd_bhnd_bf16(const void* q, const void* k, const vo
   p.H = H;
   p.N = N;
   p.M = M;
-  p.Mp = round_up(M, kBlockK);
   p.kv_lim = kv_lim;
   p.causal = causal;
   p.qscale = qscale;
-  p.vec = (vec_ok(q, p.sq) ? 1 : 0) | (vec_ok(k, p.sk) ? 2 : 0) | (vec_ok(v, p.sv) ? 4 : 0) |
-          (vec_ok(out, p.so) ? 8 : 0);
-  const int Dp = padded_width(D);
-  if (Dp == 0 || N <= 0 || M <= 0 || kv_lim <= 0 || kv_lim > M || p.so.d != 1 ||
-      (seg_q != nullptr && seg_k == nullptr) || (cos_t != nullptr && N != M) ||
-      reinterpret_cast<uintptr_t>(scratch) % 256)
+  const bool rope = cos_t != nullptr;
+  if (N <= 0 || M <= 0 || kv_lim <= 0 || kv_lim > M || strides[15] != 1 ||
+      (seg_q != nullptr && seg_k == nullptr) || (rope && (N != M || kr == nullptr)))
     return cudaErrorInvalidValue;
-  carve(&p, static_cast<char*>(scratch), B, H, Dp, N, M);
+  if (strides[3] != 1 || strides[11] != 1 || (!rope && strides[7] != 1)) return kNotTmaReady;
+  const Operand oq = operand(q, strides[2], strides[1], strides[0], D, N, H, B);
+  const Operand ov = operand(v, strides[10], strides[9], strides[8], D, M, H, B);
+  const Operand ok = rope ? operand(kr, D, (long long)M * D, (long long)H * M * D, D, M, H, B)
+                          : operand(k, strides[6], strides[5], strides[4], D, M, H, B);
+  if (!tma_ok(oq) || !tma_ok(ov) || !tma_ok(ok)) return kNotTmaReady;
+  if (!encode(&p.tm_q, oq, D, N, H, B, kBlockQ) || !encode(&p.tm_k, ok, D, M, H, B, kBlockK) ||
+      !encode(&p.tm_v, ov, D, M, H, B, kBlockK))
+    return cudaErrorInvalidValue;
+  const RotParams rot{static_cast<const bf16*>(k), strides[6], strides[5], strides[4], strides[7],
+                      p.cos, p.sin, p.t_b, p.t_n, p.t_d, static_cast<bf16*>(kr), H, M,
+                      vec4_ok(k, strides[4], strides[5], strides[6], strides[7])};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32, 32>(p, B, s);
-    case 64: return launch<64, 64>(p, B, s);
-    case 80: return launch<80, 80>(p, B, s);
-    case 88: return launch<88, 96>(p, B, s);
-    case 104: return launch<104, 112>(p, B, s);
+    case 32: return launch<32>(p, rot, B, s);
+    case 64: return launch<64>(p, rot, B, s);
+    case 80: return launch<80>(p, rot, B, s);
+    case 88: return launch<88>(p, rot, B, s);
+    case 104: return launch<104>(p, rot, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -27,6 +27,7 @@ averages v there).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -239,6 +240,68 @@ def _side_inputs(dev, cos, sin, seg_q, seg_k):
     return cos, sin, seg_q, seg_k, (t_b, t_n, t_d, segq_b, segk_b)
 
 
+# What the C entry points return, launching nothing, when an operand that TMA
+# reads is not `tma_ready` (`csrc/bhnd_hopper.cuh:kNotTmaReady`).
+NOT_TMA_READY = -1
+
+
+def tma_ready(t) -> bool:
+    """Whether the kernels' TMA loads can read ``t`` in place: unit stride
+    along d, every other stride (of a dim longer than 1) a positive multiple
+    of 8 elements (16 bytes), and a 16-byte aligned base. The C entry points
+    check the same rule; the wrappers apply it only when one refuses."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(s > 0 and s % 8 == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+
+
+def tma_operand(t):
+    """``t`` itself when `tma_ready`, else a contiguous copy (a fresh, aligned
+    allocation), so the kernel still runs."""
+    return t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def padded_queries(n: int) -> int:
+    """N rounded up to the backward's dQ block of 128 queries: the length of
+    its delta and lse*log2(e) scratch rows."""
+    return -(-n // 128) * 128
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_scratch(B: int, H: int, N: int, M: int, D: int, rope: bool) -> tuple[tuple, int]:
+    """The backward's scratch: byte offsets (256-aligned) of q_s, q_u, k_rot,
+    delta and lse*log2(e) in one buffer (None for a piece that is not
+    needed), and its size. q_u and k_rot exist only with RoPE (without it the
+    kernels read q and k in place)."""
+    tokens = padded_queries(N)
+    sizes = [B * H * N * D * 2, B * H * N * D * 2 * rope, B * H * M * D * 2 * rope,
+             B * H * tokens * 4, B * H * tokens * 4]
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(None if size == 0 else total)
+        total += -(-size // 256) * 256
+    return tuple(offsets), total
+
+
+def _launch(name, argtypes, tensors, tma, ints, stride_of, floats, dev):
+    """Call a BHND entry point. ``tensors``: its pointer arguments (tensors,
+    raw scratch addresses or None); ``tma``: the indices of those it reads by
+    TMA; ``stride_of``: (indices of the tensors whose strides fill the strides
+    array, then the side strides). If it refuses an operand as not TMA-ready,
+    the TMA-read operands that are not are copied and it is called again."""
+    lib, fn = _build.function(name, argtypes)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for attempt in range(2):
+        flat = [s for i in stride_of[0] for s in tensors[i].stride()] + list(stride_of[1])
+        strides = (ctypes.c_longlong * len(flat))(*flat)
+        with torch.cuda.device(dev):
+            err = fn(*map(_build.ptr, tensors), *ints, strides, *floats, stream)
+        if err != NOT_TMA_READY or attempt:
+            break
+        tensors = [tma_operand(t) if i in tma else t for i, t in enumerate(tensors)]
+    _build.check(lib, err, name)
+
+
 def _flash_fwd_cuda(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len):
     global LAUNCHES
     B, H, N, D = q.shape
@@ -249,20 +312,16 @@ def _flash_fwd_cuda(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len
     # BNHD memory seen as BHND: the output projection reads it as [B, N, H*D]
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
-    lib, fn = _build.function("vjepa2_flash_fwd_bhnd_bf16", _build.launcher_argtypes(10, 7, 1))
-    _, size = _build.function("vjepa2_flash_fwd_bhnd_scratch_bytes", [ctypes.c_int] * 5,
-                              ctypes.c_longlong)
-    # the prologue writes rotated q, k and transposed v here
-    scratch = torch.empty(size(B, H, D, N, M), dtype=torch.uint8, device=dev)
-    strides = (ctypes.c_longlong * 21)(*q.stride(), *k.stride(), *v.stride(), *out.stride(),
-                                        *side)
+    # with RoPE the prologue writes bf16(rot(k)) here
+    kr = torch.empty((B, H, M, D), dtype=q.dtype, device=dev) if cos is not None else None
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kv_lim = M if kv_valid_len is None else kv_valid_len
-    with torch.cuda.device(dev):
-        err = fn(*map(_build.ptr, (q, k, v, cos, sin, seg_q, seg_k, out, lse, scratch)),
-                 B, H, D, N, M, kv_lim, int(causal), strides, scale * _build.LOG2E,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "flash_fwd_bhnd")
+    # TMA reads q, v and, rope-free, k as they lie; the RoPE prologue reads k at any strides
+    tma = (0, 2) if cos is not None else (0, 1, 2)
+    _launch("vjepa2_flash_fwd_bhnd_bf16", _build.launcher_argtypes(10, 7, 1),
+            [q, k, v, cos, sin, seg_q, seg_k, out, lse, kr], tma,
+            (B, H, D, N, M, kv_lim, int(causal)), ((0, 1, 2, 7), side), (scale * _build.LOG2E,),
+            dev)
     LAUNCHES += 1
     return out, lse
 
@@ -282,24 +341,22 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal
     if any(t.device != dev for t in (out, lse, do)):
         raise ValueError("q, k, v, out, lse and do must be on one device")
     cos, sin, seg_q, seg_k, side = _side_inputs(dev, cos, sin, seg_q, seg_k)
+    rope = cos is not None
     dq = torch.empty((B, H, N, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, H, M, D), dtype=q.dtype, device=dev)
     dv = torch.empty((B, H, M, D), dtype=q.dtype, device=dev)
-    lib, fn = _build.function("vjepa2_flash_bwd_bhnd_bf16", _build.launcher_argtypes(14, 7, 2))
-    _, size = _build.function("vjepa2_flash_bwd_bhnd_scratch_bytes", [ctypes.c_int] * 5,
-                              ctypes.c_longlong)
-    # the prologue writes the operands in the layouts the main kernels read
-    scratch = torch.empty(size(B, H, D, N, M), dtype=torch.uint8, device=dev)
-    strides = (ctypes.c_longlong * 25)(*q.stride(), *k.stride(), *v.stride(), *out.stride(),
-                                        *do.stride(), *side)
+    offsets, size = bwd_scratch(B, H, N, M, D, rope)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
+    pieces = [None if off is None else base + off for off in offsets]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kv_lim = M if kv_valid_len is None else kv_valid_len
-    with torch.cuda.device(dev):
-        err = fn(*map(_build.ptr, (q, k, v, out, do, lse, cos, sin, seg_q, seg_k, dq, dk, dv,
-                                   scratch)),
-                 B, H, D, N, M, kv_lim, int(causal), strides, scale, scale * _build.LOG2E,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "flash_bwd_bhnd")
+    # TMA reads v, do and, rope-free, q and k as they lie; the prologue reads the rest
+    tma = (2, 4) if rope else (0, 1, 2, 4)
+    _launch("vjepa2_flash_bwd_bhnd_bf16", _build.launcher_argtypes(18, 7, 2),
+            [q, k, v, out, do, lse, cos, sin, seg_q, seg_k, dq, dk, dv, *pieces], tma,
+            (B, H, D, N, M, kv_lim, int(causal)), ((0, 1, 2, 3, 4), side),
+            (scale, scale * _build.LOG2E), dev)
     LAUNCHES_BWD += 1
     return dq, dk, dv
 
