@@ -10,9 +10,11 @@ Phases, each printed as one JSON object on a line of its own:
 1. device  — requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
 2. build   — builds the port's CUDA kernels from ``vjepa2_tpu_torch/csrc``;
-3. kernel  — the DN flash-attention kernel (B1) against its plain PyTorch
-   version at the production shapes, bf16, out and lse, each with its
-   tolerance, and both timed with CUDA events;
+3. kernel  — the DN flash-attention kernel (B1, wgmma and TMA) against its
+   plain PyTorch version at the production shapes, bf16, out and lse, each
+   with its tolerance, and both timed with CUDA events; each record also
+   gives the achieved TFLOP/s (4*Dh FLOPs a score) and the share of the
+   bound;
 4. slice   — the serving path: the ViT-L/16 encoder from the port's hub
    factory (RoPE, bf16, 16 frames at 256 px) and the SSv2 attentive probe
    (depth 4, 16 heads, 174 classes), random weights from a seeded generator,
@@ -53,9 +55,10 @@ Phases, each printed as one JSON object on a line of its own:
    their plain versions at [16384, 1024], [13312, 384], [16384, 1280] and
    [16384, 1408] rows: y, mean and rstd; dx, dgamma and dbeta;
 13. kernel_ln_qkv / kernel_ln_mlp — the fused LayerNorm prologues (B7: LN +
-   qkv + RoPE; B8: LN + fc1 + GELU) against their plain versions at the
-   fused step's shapes (ViT-L target and contexts, the predictor) and at
-   ViT-H and the 16-head ViT-g widths, [8, 2048] rows;
+   qkv + RoPE, mma.sync; B8: LN + fc1 + GELU, wgmma and TMA) against their
+   plain versions at the fused step's shapes (ViT-L target and contexts, the
+   predictor) and at ViT-H and the 16-head ViT-g widths, [8, 2048] rows,
+   with TFLOP/s and the share of the bound;
 14. train_fused — the ViT-L step of phase 6 with ``fuse_ln="qkv,mlp"``
    (`bench.py --fuse-ln qkv,mlp`): every block's LayerNorms fused into B7
    and B8, attention on the BHND kernels; 1 + 5 steps, each launching B7 96,
@@ -104,6 +107,7 @@ LN_SOURCE = "vjepa2_tpu_torch/csrc/layernorm.cu"
 LN_FWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:103"
 LN_BWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:115"
 LN_GEMM_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm.cu"
+LN_MLP_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm_hopper.cu"
 LN_QKV_REPLACES = "vjepa2_tpu/ops/ln_qkv.py:50"
 LN_MLP_REPLACES = "vjepa2_tpu/ops/ln_mlp.py:78"
 
@@ -351,23 +355,34 @@ def phase_build() -> None:
           "ptxas": ptxas})
 
 
+def _dn_case(dev, B, H, D, N, feats):
+    """(q, k, v, kwargs) for one B1 shape: random bf16 [B, H, D, N]
+    operands, shared RoPE tables, and the shape's kv_valid or frame-causal
+    segments (equal frames of tokens)."""
+    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
+               .to(dev, torch.bfloat16) for _ in range(3))
+    (cos, sin), _ = expand_rope_cache(build_rope_cache(torch.arange(N, device=dev), D, 16, 16), D)
+    kw = {"rope_expanded": (cos, sin)}
+    if "kv_valid_len" in feats:
+        kw["kv_valid_len"] = feats["kv_valid_len"]
+    if "segments" in feats:
+        frames = feats["segments"]
+        kw["segment_ids"] = torch.arange(frames, device=dev, dtype=torch.int32) \
+            .repeat_interleave(N // frames)
+    return q, k, v, kw
+
+
 def phase_kernels(dev, smi: str) -> dict:
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
-    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache, rope_rotate
+    from vjepa2_tpu_torch.ops.rope import rope_rotate
 
     first = None
     for name, (B, H, D, N), feats in SHAPES:
-        rng = np.random.RandomState(0)
-        q, k, v = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
-                   .to(dev, torch.bfloat16) for _ in range(3))
-        (cos, sin), _ = expand_rope_cache(build_rope_cache(torch.arange(N, device=dev), D, 16, 16), D)
-        kw = {"rope_expanded": (cos, sin)}
-        if "kv_valid_len" in feats:
-            kw["kv_valid_len"] = feats["kv_valid_len"]
-        if "segments" in feats:  # frame-causal: equal frames of tokens
-            frames = feats["segments"]
-            kw["segment_ids"] = torch.arange(frames, device=dev, dtype=torch.int32) \
-                .repeat_interleave(N // frames)
+        q, k, v, kw = _dn_case(dev, B, H, D, N, feats)
+        cos, sin = kw["rope_expanded"]
         with torch.inference_mode():
             out_k, lse_k = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
             out_p, lse_p = fdn.flash_attention_bhdn_plain(q, k, v, **kw)
@@ -385,11 +400,12 @@ def phase_kernels(dev, smi: str) -> dict:
             qr, kr = (rope_rotate(t.transpose(2, 3).float(), cos[:, None], sin[:, None])
                       .to(torch.bfloat16).contiguous() for t in (q, k))
             library_ms = library_fwd_ms(qr, kr, v.transpose(2, 3).contiguous(), mask)
-            bound_ms, bound_by = bound(4 * D * attended_pairs(B, H, N, N, mask),
-                                       nbytes(q, k, v, cos, sin, seg, out_k, lse_k))
+            flops = 4 * D * attended_pairs(B, H, N, N, mask)
+            bound_ms, bound_by = bound(flops, nbytes(q, k, v, cos, sin, seg, out_k, lse_k))
         rec = {"phase": "kernel", "kernel": "flash_fwd_dn", "shape": name, "bhdn": [B, H, D, N],
                "features": sorted(kw), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / ms / 1e9,
+               "bound_share": bound_ms / ms,
                "max_abs_err_out": d_out.max().item(), "max_abs_err_lse": d_lse.max().item(),
                "tol": {"out": f"{OUT_ATOL} + {OUT_RTOL}*|plain|", "lse": LSE_ATOL},
                "ok": ok, "gpu": smi}
@@ -1071,7 +1087,8 @@ def phase_kernels_prologue(dev, smi: str, kernel: str) -> dict:
                **({"heads": H, "head_dim": D, "tables": tables} if kernel == "ln_qkv" else {}),
                "real_tokens": real, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "library": library, "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": 2 * R * C * n_out / ms / 1e9, "max_abs_err": max(errs),
+               "tflops": 2 * R * C * n_out / ms / 1e9, "bound_share": bound_ms / ms,
+               "max_abs_err": max(errs),
                "tol": f"{PROLOGUE_ATOL} + {PROLOGUE_RTOL}*|plain|", "ok": ok, "gpu": smi}
         emit(rec)
         if not ok:
@@ -1233,7 +1250,7 @@ def main() -> int:
         entry("layernorm_bwd", LN_SOURCE, LN_BWD_REPLACES, total[5], rec_ln_bwd, "max_abs_err"),
         entry("ln_qkv", LN_GEMM_SOURCE, LN_QKV_REPLACES, total[6], rec_qkv, "max_abs_err",
               library=rec_qkv["library"]),
-        entry("ln_mlp", LN_GEMM_SOURCE, LN_MLP_REPLACES, total[7], rec_mlp, "max_abs_err",
+        entry("ln_mlp", LN_MLP_SOURCE, LN_MLP_REPLACES, total[7], rec_mlp, "max_abs_err",
               library=rec_mlp["library"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

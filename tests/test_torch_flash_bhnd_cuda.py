@@ -14,7 +14,8 @@ N and M at 127, 128, 129 and 255 (the 128-token tiles and the two
 two warpgroups' rows; RoPE at D 80, 88 and 104, whose pairs straddle the
 64-feature chunks; a view with an unaligned base (copied, still launched);
 backward calls bit-equal at every width; and the built library's SASS:
-wgmma (HGMMA) and no mma.sync (HMMA.16816) in the BHND kernels.
+wgmma (HGMMA) and no mma.sync (HMMA.16816) in the BHND kernels, B1's main
+kernel and B8's GEMM.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
@@ -367,8 +368,10 @@ def test_backward_is_deterministic(dev, D):
 
 
 def test_sass_uses_wgmma_not_mma_sync(dev):
-    """The built library's BHND kernels run on wgmma (HGMMA in the SASS) and
-    contain no mma.sync m16n8k16 (HMMA.16816)."""
+    """The built library's Hopper kernels run on wgmma (HGMMA in the SASS)
+    and contain no mma.sync m16n8k16 (HMMA.16816): B3 and the BHND backward
+    (one instantiation per head width), B1's main kernel (per width) and
+    B8's GEMM. B2's and B7's kernels, still on mma.sync, are not named."""
     import os
     import subprocess
 
@@ -382,9 +385,11 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         bodies[name.strip()] = body
-    names = ("flash_fwd_bhnd_kernel", "flash_bwd_bhnd_dkdv_kernel", "flash_bwd_bhnd_dq_kernel")
-    for kernel in names:
+    instantiations = {"flash_fwd_bhnd_kernel": 5, "flash_bwd_bhnd_dkdv_kernel": 5,
+                      "flash_bwd_bhnd_dq_kernel": 5, "flash_fwd_dn_kernel": 4,
+                      "ln_gemm_wgmma_kernel": 1}
+    for kernel, count in instantiations.items():
         found = {n: b for n, b in bodies.items() if kernel in n}
-        assert len(found) == 5, (kernel, sorted(found))  # one per head width
+        assert len(found) == count, (kernel, sorted(found))
         for name, body in found.items():
             assert "HGMMA" in body and "HMMA.16816" not in body, name

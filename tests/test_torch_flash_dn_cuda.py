@@ -1,6 +1,10 @@
-"""The hand-written DN flash kernel (B1, `vjepa2_tpu_torch/csrc/flash_fwd_dn.cu`)
-against its plain PyTorch version on the card, over the feature surface and
-the ragged shapes the production shapes do not reach.
+"""The hand-written DN flash kernel (B1, `vjepa2_tpu_torch/csrc/flash_fwd_dn.cu`,
+wgmma and TMA) against its plain PyTorch version on the card, over the
+feature surface and the ragged shapes the production shapes do not reach.
+The Hopper design's own edges: v that TMA cannot read in place (M % 8 != 0,
+or strides that are not multiples of 8), which the prologue copies first,
+at every head width, with N != M, strided q/k/v, segments and kv_valid;
+key tiles that end past M; and two calls giving equal bits.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax, so it runs
 where jax is absent (``--noconftest`` skips the suite's jax conftest):
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
+from vjepa2_tpu_torch.ops.flash_attention import tma_ready
 from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +133,65 @@ def test_cuda_route_raises_on_what_it_cannot_take(dev):
         fdn.flash_attention_bhdn(qq, kk, vv)
     with pytest.raises(ValueError):
         fdn.flash_attention_bhdn(q, k.cpu(), v)
+
+
+def _strided_qkv(B, H, D, N, dev, seed=5):
+    """q, k, v as views of one [B, 3*H*D, N] buffer: unit stride along N,
+    d stride N (not a multiple of 8 when N % 8)."""
+    rng = np.random.RandomState(seed)
+    y = torch.from_numpy(rng.randn(B, 3 * H * D, N).astype(np.float32)).to(dev, torch.bfloat16)
+    return y.view(B, 3, H, D, N).unbind(1)
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64])
+@pytest.mark.parametrize("N,M", [(100, 100), (100, 203), (300, 100), (130, 57)])
+def test_v_copy_path_n_ne_m(dev, D, N, M):
+    """M % 8 != 0: TMA cannot step v's key rows in place, so the prologue
+    copies v into rows of M rounded up to 8; key tiles end past M."""
+    q = _inputs(2, 3, D, N, dev)[0]
+    k, v = _inputs(2, 3, D, M, dev, seed=1)[:2]
+    assert tma_ready(v) == (M % 8 == 0)
+    kw = {"kv_valid_len": M - 5}
+    with torch.inference_mode():
+        got = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
+        want = fdn.flash_attention_bhdn_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("D", [16, 48])
+@pytest.mark.parametrize("N", [100, 200])
+@pytest.mark.parametrize("feature", ["segments", "kv_valid"])
+def test_strided_qkv_with_masks(dev, D, N, feature):
+    """q, k, v as views of one projection output with RoPE, and a mask: at
+    N = 100 v's d stride is not a multiple of 8 (copied), at 200 it is."""
+    B, H = 2, 3
+    q, k, v = _strided_qkv(B, H, D, N, dev)
+    assert tma_ready(v) == (N % 8 == 0)
+    kw = {"rope_expanded": _tables(N, D, dev)}
+    if feature == "segments":
+        rng = np.random.RandomState(3)
+        kw["segment_ids"] = torch.from_numpy(
+            np.sort(rng.randint(0, 5, (B, N)), axis=1).astype(np.int32)).to(dev)
+    else:
+        kw["kv_valid_len"] = N - 29
+    with torch.inference_mode():
+        got = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
+        want = fdn.flash_attention_bhdn_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                              **kw)
+        torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64])
+def test_forward_is_deterministic(dev, D):
+    """Two calls give equal bits, on the in-place and on the copy path."""
+    for N in (256, 250):
+        q, k, v = _inputs(2, 3, D, N, dev, seed=7)
+        kw = {"rope_expanded": _tables(N, D, dev), "kv_valid_len": N - 3}
+        with torch.inference_mode():
+            first = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
+            second = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+

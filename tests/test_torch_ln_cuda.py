@@ -1,12 +1,16 @@
 """The hand-written LayerNorm kernels (B6 `vjepa2_tpu_torch/csrc/layernorm.cu`) and
-the fused LayerNorm prologues (B7 and B8, `csrc/ln_gemm.cu`) against their
+the fused LayerNorm prologues (B7 `csrc/ln_gemm.cu`, B8 `csrc/ln_gemm_hopper.cu`
+on wgmma and TMA) against their
 plain PyTorch versions on the card, over the edges the model shapes do not
 reach: ragged row counts (not multiples of a warp's 8 rows, of B6's 64-row
 partial blocks or of the GEMM's 128-row tiles); rows of zeros (the models'
 stack pad), which must give beta and no NaN; shared against per-example RoPE
 tables; every width the kernels take (D 32, 64, 80, 88; C 384, 1024, 1280,
 1408; hidden 1536, 4096, 5120, 6144); shapes and dtypes they refuse; B6's
-dgamma/dbeta equal from run to run; and a grad-mode forward and backward
+dgamma/dbeta and B8's h equal from run to run; B8 at R = 1 and ragged R
+(37, 130, 1003: part of a 128-row tile, tiles across examples, more
+tiles than a persistent block's first) and on an x view TMA cannot read
+in place (copied, still launched); and a grad-mode forward and backward
 through a fused `Block` on the card against the same block in fp32 on the
 CPU.
 
@@ -171,7 +175,7 @@ def test_ln_qkv_at_model_widths(dev, C, H, D):
 
 
 @pytest.mark.parametrize("C,hidden", [(384, 1536), (1024, 4096), (1280, 5120), (1408, 6144)])
-@pytest.mark.parametrize("B,N", [(1, 1), (2, 37), (3, 130)])
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 37), (1, 130), (2, 37), (3, 130), (1, 1003)])
 def test_ln_mlp_matches_plain(dev, C, hidden, B, N):
     x = _zero_rows(_rand((B, N, C), dev, 0, 1.5, -0.1), [B * N - 1])
     gamma, beta = _affine(C, dev)
@@ -182,6 +186,41 @@ def test_ln_mlp_matches_plain(dev, C, hidden, B, N):
         h = tlnm.ln_mlp(x, gamma, beta, w, bias)
     torch.cuda.synchronize()
     assert tlnm.LAUNCHES == before + 1 and h.shape == (B, N, hidden)
+    _close(h, tlnm.ln_mlp_plain(x, gamma, beta, w, bias), GEMM_ATOL, GEMM_RTOL, "h")
+
+
+@pytest.mark.parametrize("C,hidden", [(384, 1536), (1408, 6144)])
+def test_ln_mlp_is_deterministic(dev, C, hidden):
+    """Two calls give equal bits (each output is one tile's fp32 sum)."""
+    x = _rand((2, 300, C), dev, 5, 1.5, 0.3)
+    gamma, beta = _affine(C, dev)
+    w = _rand((hidden, C), dev, 6, C ** -0.5)
+    bias = _rand((hidden,), dev, 7, 0.5, dtype=torch.float32)
+    with torch.no_grad():
+        first = tlnm.ln_mlp(x, gamma, beta, w, bias)
+        second = tlnm.ln_mlp(x, gamma, beta, w, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_ln_mlp_copies_what_tma_cannot_read(dev):
+    """x as a view with an unaligned base and w as a strided view: the
+    wrapper makes w contiguous, the entry point refuses x (NOT_TMA_READY),
+    the wrapper copies it (`tma_operand`), and the call launches and
+    matches."""
+    C, hidden, R = 1024, 4096, 2 * 70
+    flat = _rand((R * C + 8,), dev, 8, 1.5, -0.2)
+    x = flat[3: 3 + R * C].view(2, 70, C)
+    assert x.data_ptr() % 16 and not fa.tma_ready(x)
+    gamma, beta = _affine(C, dev)
+    w = _rand((C, hidden), dev, 9, C ** -0.5).t()
+    assert not w.is_contiguous()
+    bias = _rand((hidden,), dev, 10, 0.5, dtype=torch.float32)
+    before = tlnm.LAUNCHES
+    with torch.no_grad():
+        h = tlnm.ln_mlp(x, gamma, beta, w, bias)
+    torch.cuda.synchronize()
+    assert tlnm.LAUNCHES == before + 1
     _close(h, tlnm.ln_mlp_plain(x, gamma, beta, w, bias), GEMM_ATOL, GEMM_RTOL, "h")
 
 

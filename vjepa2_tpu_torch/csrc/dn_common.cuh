@@ -1,11 +1,12 @@
-// Device helpers shared by the flash-attention kernels, DN (B1 `flash_fwd_dn.cu`,
-// B2 `flash_bwd_dn.cu`) and BHND (B3 `flash_fwd_bhnd.cu`, the B4/B5 backward
-// `flash_bwd_bhnd.cu`): bf16 packing, mma.sync, cp.async, and the split-half
-// RoPE rotation. Every kernel rotates and rounds q and k through `rope_pair`
-// and `round_scaled`, so a backward recomputes exactly the scores its
-// forward's log-sum-exp was taken over. The forwards' shared loop is in
-// `flash_fwd_common.cuh`, the backwards' prologue and tile movers in
-// `flash_bwd_common.cuh`.
+// Device helpers shared by the port's kernels: bf16 packing, exp2, and the
+// split-half RoPE rotation and rounding, which every flash kernel (B1
+// `flash_fwd_dn.cu`, B2 `flash_bwd_dn.cu`, B3 `flash_fwd_bhnd.cu`, the B4/B5
+// backward `flash_bwd_bhnd.cu`) and B7's epilogue (`ln_gemm.cu`) take through
+// `rope_pair` and `round_scaled`, so a backward recomputes exactly the
+// scores its forward's log-sum-exp was taken over; plus the mma.sync and
+// cp.async primitives of the kernels still on them (B2, B7). The Hopper
+// kernels' machinery (TMA, wgmma) is in `bhnd_hopper.cuh`, B2's prologue
+// and tile movers in `flash_bwd_common.cuh`.
 
 #pragma once
 

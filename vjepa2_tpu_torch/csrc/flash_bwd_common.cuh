@@ -1,20 +1,20 @@
-// What the two flash-attention backwards share: B2 (`flash_bwd_dn.cu`, head
-// widths 16-64 over [B, H, D, N]) and the B4/B5 backward (`flash_bwd_bhnd.cu`,
-// 32-104 over [B, H, N, D]). Both are the FlashAttention-2 backward in three
-// launches, and the first is this file's prologue:
-//   * `bwd_prologue` reads q, k, v, out and do at any element strides
-//     (a [B, H, D, N] operand is one more set of strides), rotates and
-//     rounds q and k as the forwards do (`dn_common.cuh:rope_pair`,
-//     `round_scaled`), computes delta = rowsum(do * out) and lse*log2(e), and
-//     writes every operand into scratch in the layout the main kernels'
-//     mma.sync fragments want: token-major q_s, do, k_rot, v and
-//     feature-major q_u, do, k_rot, zero past N or M (whole 64-token tiles)
-//     and past D (up to Dp, a whole mma k-step);
+// B2's (`flash_bwd_dn.cu`, head widths 16-64 over [B, H, D, N]) prologue,
+// params and tile movers, on mma.sync and cp.async. B2 is the
+// FlashAttention-2 backward in three launches, and the first is this file's
+// prologue (the B4/B5 backward, `flash_bwd_bhnd.cu`, has its own on
+// `bhnd_hopper.cuh`):
+//   * `bwd_prologue` reads q, k, v, out and do at any element strides,
+//     rotates and rounds q and k as the forwards do
+//     (`dn_common.cuh:rope_pair`, `round_scaled`), computes delta =
+//     rowsum(do * out) and lse*log2(e), and writes every operand into
+//     scratch in the layout the main kernels' mma.sync fragments want:
+//     token-major q_s, do, k_rot, v and feature-major q_u, do, k_rot, zero
+//     past N or M (whole 64-token tiles) and past D (up to Dp, a whole mma
+//     k-step);
 //   * the main kernels' tile movers (cp.async, 16 bytes a thread) and the
 //     dV / dK / dQ product over a packed P or dS tile.
-// The dK/dV and dQ kernels stay in the two files: B2 keeps its k, v, q and do
-// fragments in registers and applies the RoPE adjoint in registers, which
-// the wider heads' accumulators leave no room for.
+// The dK/dV and dQ kernels stay in `flash_bwd_dn.cu`, which keeps its k, v,
+// q and do fragments in registers and applies the RoPE adjoint there.
 
 #pragma once
 

@@ -209,11 +209,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m_run[2] = {-INFINITY, -INFINITY};       // running max, base-2 units
   float l_run[2] = {0.f, 0.f};                   // this thread's share of the denominator
 
-  // The tensor cores in turns (ping-pong): a warpgroup waits for its turn
-  // (named barrier 1 + wg), issues its products, hands the turn to the
-  // other, and runs its softmax while the other's products run. O += P V
-  // trails S = Q K^T by one sub-tile u (keys [u kSub, (u + 1) kSub), in
-  // ring stage (u / kPer) % kStages), so each turn issues both.
+  // The tensor cores in turns (`pingpong`): O += P V trails S = Q K^T by one
+  // sub-tile u (keys [u kSub, (u + 1) kSub), in ring stage (u / kPer) %
+  // kStages), so each turn issues both.
   const uint64_t d_q = desc_k<kBlockQ>(s_q, rbase);
   auto issue_s = [&](int u) {  // S_u = Q K_u^T
     const unsigned char* k = s_k + ((u / kPer) % kStages) * kTile;
@@ -253,72 +251,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[4 * nt + 0], s[4 * nt + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
-    }
-    float base[2], corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row masked so far keeps p = 0
-      corr[r] = exp2_approx(m_run[r] - base[r]);
-      m_run[r] = mx[r];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {  // P, packed as it is made (S dies as P grows)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[4 * nt + e] = exp2_approx(s[4 * nt + e] - base[e >> 1]);
-        rs[e >> 1] += s[4 * nt + e];
-      }
-      pack_tile(pf[nt / 2], nt & 1, s + 4 * nt);
-    }
-    l_run[0] = l_run[0] * corr[0] + rs[0];
-    l_run[1] = l_run[1] * corr[1] + rs[1];
-#pragma unroll
-    for (int i = 0; i < Dp / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    online_softmax<kSub>(s, o, pf, m_run, l_run);
   };
 
-  const int mine = 1 + wg, other = 1 + (wg ^ 1);
-  if (wg == 1) bar_arrive(other, 2 * kWgThreads);  // warpgroup 0 takes the first turn
-  mbar_wait(&full[0], 0);
-  bar_sync(mine, 2 * kWgThreads);
-  wgmma_fence();
-  issue_s(0);
-  bar_arrive(other, 2 * kWgThreads);
-  finish();
-  softmax(0);
-  for (int u = 1; u < n_u; ++u) {
-    const int j = u / kPer;
-    if (u % kPer == 0) mbar_wait(&full[j % kStages], (j / kStages) & 1);
-    bar_sync(mine, 2 * kWgThreads);
-    wgmma_fence();
-    issue_pv(u - 1);
-    issue_s(u);
-    bar_arrive(other, 2 * kWgThreads);
-    finish();
-    // tile j - 1 is consumed
-    if (u % kPer == 0 && lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);
-    softmax(u);
-  }
-  bar_sync(mine, 2 * kWgThreads);
-  wgmma_fence();
-  issue_pv(n_u - 1);
-  if (wg == 0) bar_arrive(other, 2 * kWgThreads);  // warpgroup 1 takes the last turn
-  finish();
+  pingpong<kPer, kStages>(wg, lane, n_u, full, empty, issue_s, issue_pv, finish, softmax);
 
-  float denom[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    denom[r] = l_run[r] == 0.f ? 1.f : l_run[r];
-  }
+  float denom[2], lse[2];
+  row_totals(l_run, m_run, denom, lse);
   bf16* op = p.o + b * p.o_b + h * p.o_h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -332,10 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             pack_bf16(o[4 * dt + 2 * r] / denom[r], o[4 * dt + 2 * r + 1] / denom[r]);
       }
     }
-    if (t4 == 0) {
-      const float m_nat = m_run[r] == -INFINITY ? -INFINITY : m_run[r] * kLn2;
-      p.lse[bh * p.N + qrow[r]] = m_nat + logf(denom[r]);
-    }
+    if (t4 == 0) p.lse[bh * p.N + qrow[r]] = lse[r];
   }
 }
 

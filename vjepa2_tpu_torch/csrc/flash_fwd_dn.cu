@@ -2,71 +2,98 @@
 //
 // Replaces the TPU kernel `vjepa2_tpu/ops/flash_attention_dn.py:129 _fwd_kernel_dn`
 // (wrapper `_flash_fwd_bhdn:198`). Same contract:
-//   * q, k, v bf16 [B, H, D, N] (any element strides; the wrapper passes them),
-//     D in {16, 32, 48, 64};
-//   * split-half RoPE on q and k in fp32 inside the kernel (pairs d and d + D/2),
-//     tables fp32 with strides (batch, d, n), batch stride 0 when shared;
-//     q takes scale*log2(e) before it is rounded to bf16, k is rounded after the
-//     rotation, as the TPU kernel does (`:156-164`);
+//   * q, k, v bf16 [B, H, D, N] with unit stride along N (the wrapper checks
+//     it), D in {16, 32, 48, 64};
+//   * split-half RoPE on q and k in fp32 (pairs d and d + D/2), tables fp32
+//     with strides (batch, d, n), batch stride 0 when shared; q takes
+//     scale*log2(e) before it is rounded to bf16, k is rounded after the
+//     rotation, as the TPU kernel does (`:156-164`), through `dn_common.cuh`'s
+//     `rope_pair` / `round_scaled`, so B2's prologue recomputes the same bits;
 //   * online softmax in base 2 with fp32 statistics and fp32 accumulation;
 //   * optional segment mask, attend iff seg_q >= seg_k, compared as int32;
 //   * keys at or beyond `kv_lim` (the static kv_valid, or M) are masked; the
 //     kernel masks its own ragged edge, so N and M need no padding;
 //   * out in the layout given by its strides, lse [B, H, N] fp32 natural log;
-//     a fully masked row gives denominator 1, output 0 and lse -inf.
+//     a row with no key gives output 0 and lse -inf.
 //
-// What bounds it on this card: per score element the tensor cores do 4*Dh
-// FLOPs (QK^T and PV, 256 at Dh 64) while the softmax costs about 10 scalar
-// operations (mask, max, subtract, exp2, sum, scale, convert). At H100 rates
-// (989 TFLOP/s bf16 dense against ~67 TFLOP/s fp32 scalar) the scalar work
-// takes longer than the products, so the kernel is bound by issue and
-// latency on the CUDA cores, not by the tensor cores or by memory. RoPE adds
-// scalar work of its own: done inside the attention loop it would rotate
-// every k tile once per query tile (N/128 times per head), reading fp32
-// cos/sin for every key each time.
+// What bounds it on this card: per score the tensor cores do 4*Dh FLOPs
+// (256 at Dh 64) against about 10 scalar operations of softmax, so the
+// scalar work and its latency set the pace unless the two overlap; memory
+// traffic is ~1/50 of the FLOP bound.
 //
-// What this version does about it: B1 is two launches. A prologue
-// (`rope_pack_kernel`) rotates q and k once, folds scale*log2(e) into q and
-// writes both, rounded to bf16, token-major ([B, H, N, D]) into scratch the
-// wrapper allocates; so no query block re-rotates k or reads a RoPE table.
-// The main kernel (`flash_fwd_dn_kernel`, its loop `flash_fwd_common.cuh`'s,
-// shared with B3) is then a FlashAttention-2 forward:
-// the scores never leave registers (mma.sync m16n8k16 accumulators are
-// re-packed as the A operand of P.V), the softmax is one exp2 (ex2.approx)
-// per score, the row statistics are reduced across the four threads of a
-// quad with two shuffles per tile and the normalisation waits for the
-// epilogue, 128 queries share each k/v tile, and the next k/v tile is copied
-// to shared memory (cp.async, 16 bytes a thread) while this one is computed.
-// Where the operands allow it (unit stride along N, N and M multiples of 8,
-// 16-byte aligned rows) every other global access is a 16-byte vector too.
-// Not done yet, for later work: wgmma, TMA, warp specialisation.
-//
-// Layout of one main block: 128 queries of one (b, h), 8 warps of 16 query
-// rows. q and k tiles sit in shared memory as bf16 [token][d], v as
-// [d][key], so that every mma fragment is one 32-bit shared-memory load.
+// Design, on `bhnd_hopper.cuh` (B3's machinery: TMA, mbarrier rings, wgmma,
+// named barriers, setmaxnreg, and the consumers' `online_softmax` and
+// `pingpong` turns, which B3 runs too):
+//   * launch 1 (`rope_pack_kernel`) rotates q and k once, folds
+//     scale*log2(e) into q, and writes both rounded to bf16 token-major
+//     [B, H, N|M, D] into scratch; v is read in place unless TMA cannot step
+//     it (its key rows must be 16-byte aligned: M % 8 == 0 for a contiguous
+//     v), and then this launch also copies it into [B, H, D, Mp], Mp = M
+//     rounded up to 8 (the entry point refuses such a v without that
+//     buffer, and the wrapper calls again with one);
+//   * launch 2 (`flash_fwd_dn_kernel`): 128 queries a block, two consumer
+//     warpgroups of 64 rows (232 registers after setmaxnreg) and a producer
+//     warp (40). The producer loads q once and 128-key tiles of k and v
+//     through a 3-stage ring by TMA (boxes of 64 features x 128 tokens for q
+//     and k, 64 keys x D features for v), with the tile's key segment ids
+//     copied beside them by the producer warp's lanes;
+//   * S = Q K^T is wgmma m64n128k16 over D/16 k-steps, both operands in
+//     shared memory; masks, running max and one exp2 per score in
+//     registers. With segments the producer also stages each tile's least
+//     and largest key id, and a warpgroup whose queries' ids all reach the
+//     largest skips the mask, and one whose ids all lie below the least
+//     skips the softmax (P = 0); only the other tiles mask score by score; P stays in registers as the A
+//     operand of O += P V, one wgmma of N = D per 16 keys. v's keys are
+//     contiguous, the reduction of P V, so its tile is the K-major B operand
+//     as it lies: no transpose of v exists;
+//   * the two consumers take turns on the tensor cores (ping-pong), each
+//     running its softmax while the other's products run; key tiles wholly
+//     past kv_lim are skipped;
+//   * the epilogue normalises O, transposes it through shared memory and
+//     writes out along N, 16 bytes a store where the strides allow.
 
-#include "flash_fwd_common.cuh"
+#include <limits.h>
+
+#include "bhnd_hopper.cuh"
 
 namespace {
+
+constexpr int kPrologueThreads = 256;
+constexpr int kBlockQ = 128;  // queries a block, 64 a consumer warpgroup
+constexpr int kBlockK = 128;  // keys a tile
+constexpr int kStages = 3;
+constexpr int kQTile = kBlockQ * kRowBytes;  // q or k tile: 128 tokens x 64 features (bf16)
+constexpr int kOStride = 72;  // the output stage's row: 64 queries + 8 (bank spread)
 
 struct Strides {
   long long b, h, d, n;
 };
 
+// The prologue's arguments.
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   const float* cos;  // null: no RoPE
   const float* sin;
-  const int* seg;    // null: no segment mask
-  __nv_bfloat16* o;
-  float* lse;
-  Strides sq, sk, sv, so;
+  __nv_bfloat16* v_copy;  // null: v is read in place
+  Strides sq, sk, sv;
   long long t_b, t_d, t_n;  // RoPE table strides
-  long long seg_b;          // segment-id batch stride
-  int H, N, M, kv_lim;
+  int H, N, M, Mp;
   float qscale;  // scale * log2(e)
+};
+
+// The main kernel's arguments.
+struct MainParams {
+  CUtensorMap tm_q, tm_k;  // q', k' [B, H, N|M, D]: boxes of 64 features x 128 tokens
+  CUtensorMap tm_v;        // v [B, H, D, M] (or its copy): boxes of 64 keys x D features
+  const int* seg;          // null: no segment mask; [B|1, N] int32 (N == M)
+  __nv_bfloat16* o;
+  float* lse;              // [B, H, N]
+  long long o_b, o_h, o_d, o_n;
+  long long seg_b;
+  int H, N, M, kv_lim;
+  int vec_out;             // 16-byte stores of out along N
 };
 
 // Eight consecutive bf16 (16 bytes, aligned) as fp32.
@@ -102,7 +129,7 @@ __device__ __forceinline__ void stage_rotated(__nv_bfloat16* dst, const __nv_bfl
     // a work item is 8 consecutive tokens of one pair; neighbouring lanes
     // take neighbouring 16-byte halves of one 32-byte sector
     constexpr int kGroups = kRows / 8;
-    for (int i = threadIdx.x; i < kHalf * kGroups; i += kThreads) {
+    for (int i = threadIdx.x; i < kHalf * kGroups; i += kPrologueThreads) {
       const int rest = i >> 1;
       const int d = rest % kHalf;
       const int grp = (rest / kHalf) * 2 + (i & 1);
@@ -131,7 +158,7 @@ __device__ __forceinline__ void stage_rotated(__nv_bfloat16* dst, const __nv_bfl
       }
     }
   } else {
-    for (int i = threadIdx.x; i < kHalf * kRows; i += kThreads) {
+    for (int i = threadIdx.x; i < kHalf * kRows; i += kPrologueThreads) {
       const int d = i / kRows, r = i % kRows, n = t0 + r;
       float lo = 0.f, hi = 0.f;
       if (n < n_lim) {
@@ -150,9 +177,11 @@ __device__ __forceinline__ void stage_rotated(__nv_bfloat16* dst, const __nv_bfl
 }
 
 // Prologue: q' = bf16(rot(q) * scale*log2(e)), k' = bf16(rot(k)), written
-// token-major [B, H, N|M, D] for the main kernel. One block per (b, h, 64 tokens).
+// token-major [B, H, N|M, D] for the main kernel, and, when `v_copy` is set,
+// v's rows copied into it with a row length of Mp (M rounded up to 8), which
+// TMA can step. One block per (b, h, 64 tokens).
 template <int D, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPrologueThreads)
     rope_pack_kernel(const Params p, __nv_bfloat16* qr, __nv_bfloat16* kr) {
   constexpr int kRows = 64, kStride = D + kPad, kChunks = D / 8;
   __shared__ __align__(16) __nv_bfloat16 s_t[kRows * kStride];
@@ -169,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
                                   is_q ? p.qscale : 1.f);
     __syncthreads();
     __nv_bfloat16* dst = (is_q ? qr : kr) + ((long long)b * p.H + h) * n_lim * D;
-    for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kPrologueThreads) {
       const int r = i / kChunks, c = i % kChunks;
       if (t0 + r < n_lim) {
         *reinterpret_cast<uint4*>(dst + (long long)(t0 + r) * D + c * 8) =
@@ -178,140 +207,247 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
+  if (p.v_copy != nullptr && t0 < p.M) {
+    const __nv_bfloat16* src = p.v + b * p.sv.b + h * p.sv.h;
+    __nv_bfloat16* dst = p.v_copy + ((long long)b * p.H + h) * D * p.Mp;
+    for (int i = threadIdx.x; i < D * kRows; i += kPrologueThreads) {
+      const int d = i / kRows, n = t0 + i % kRows;
+      if (n < p.M) dst[(long long)d * p.Mp + n] = src[d * p.sv.d + n * p.sv.n];
+    }
+  }
 }
 
-template <int D, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_dn_kernel(const Params p, const __nv_bfloat16* qr, const __nv_bfloat16* kr) {
-  constexpr int kDTiles = D / 8;            // 8-wide output tiles over the head dim
-  constexpr int kStride = D + kPad;         // s_q, s_k rows: [token][d]
-  constexpr int kVStride = kBlockK + kPad;  // s_v rows: [d][key]
-  constexpr int kOStride = kBlockQ + kPad;  // output stage rows: [d][query], in s_q
-  static_assert(D * kOStride <= kBlockQ * kStride, "the output stage fits in the q buffer");
+// v's ring tile: two 64-key chunks of D feature rows (128 bytes each).
+template <int D>
+__host__ __device__ constexpr int v_tile_bytes() {
+  return 2 * D * kRowBytes;
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem);  // [kBlockQ][kStride]
-  __nv_bfloat16* s_k = s_q + kBlockQ * kStride;                  // [2][kBlockK][kStride]
-  __nv_bfloat16* s_v = s_k + 2 * kBlockK * kStride;              // [2][D][kVStride]
-  int* s_segk = reinterpret_cast<int*>(s_v + 2 * D * kVStride);  // [2][kBlockK]
+template <int D>
+constexpr int main_smem_bytes() {  // q, the k and v rings, the output stage, ids, barriers
+  return kQTile + kStages * (kQTile + v_tile_bytes<D>()) + 2 * D * kOStride * 2 +
+         kStages * (kBlockK + 2) * 4 + 16 * 4 + (1 + 2 * kStages) * 8 + 1024;
+}
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t4 = lane & 3;  // thread within the quad
-  const int row0 = warp * 16 + g;  // this thread's rows in the tile: row0, row0 + 8
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_dn_kernel(const __grid_constant__ MainParams p) {
+  constexpr int kVTile = v_tile_bytes<D>(), kSteps = D / 16, kNt = kBlockK / 8;
 
-  const __nv_bfloat16* qrp = qr + ((long long)b * p.H + h) * p.N * D;
-  const __nv_bfloat16* krp = kr + ((long long)b * p.H + h) * p.M * D;
-  const __nv_bfloat16* vp = p.v + b * p.sv.b + h * p.sv.h;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* s_q = align1024(smem_raw);
+  unsigned char* s_k = s_q + kQTile;              // [kStages][kQTile]
+  unsigned char* s_v = s_k + kStages * kQTile;    // [kStages][kVTile]
+  bf16* s_o = reinterpret_cast<bf16*>(s_v + kStages * kVTile);  // [2][D][kOStride]
+  int* s_seg = reinterpret_cast<int*>(s_o + 2 * D * kOStride);   // [kStages][kBlockK]
+  int* s_krange = s_seg + kStages * kBlockK;  // [kStages][2]: a tile's least and largest key id
+  int* s_qrange = s_krange + 2 * kStages;     // [2 warpgroups][4 warps][2]: the same of queries
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(s_qrange + 16);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
+  const int n_kt = (p.kv_lim + kBlockK - 1) / kBlockK;  // tiles past kv_lim are all masked
   const bool use_seg = p.seg != nullptr;
-  const int* segp = use_seg ? p.seg + b * p.seg_b : nullptr;
+  const int* seg = use_seg ? p.seg + b * p.seg_b : nullptr;
 
-  // Stage k tile `kt` into buffer `buf`: k' and (aligned) v by cp.async, the
-  // rest by plain loads; visible after the caller's wait and barrier.
-  auto load_kv = [&](int kt, int buf) {
-    const int k0 = kt * kBlockK;
-    copy_rows_async<D, kBlockK>(s_k + buf * kBlockK * kStride, krp, k0, p.M);
-    __nv_bfloat16* sv = s_v + buf * D * kVStride;
-    if constexpr (kVec) {
-      for (int i = tid; i < D * (kBlockK / 8); i += kThreads) {
-        const int d = i / (kBlockK / 8), grp = i % (kBlockK / 8), n = k0 + grp * 8;
-        const bool ok = n < p.M;
-        cp_async16(&sv[d * kVStride + grp * 8], vp + (ok ? d * p.sv.d + n : 0), ok);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], use_seg ? 1 + 32 : 1);  // the TMA bytes, and each lane's ids
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 2) {  // producer: one warp; its first lane issues every load
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 2 * kWgThreads + 32) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_expect_tx(q_full, kQTile);
+        tma_load(s_q, &p.tm_q, 0, q0, h, b, q_full);
       }
-    } else {
-      for (int i = tid; i < D * kBlockK; i += kThreads) {
-        const int d = i / kBlockK, r = i % kBlockK, n = k0 + r;
-        sv[d * kVStride + r] = n < p.M ? vp[d * p.sv.d + n * p.sv.n] : __float2bfloat16_rn(0.f);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages, k0 = j * kBlockK;
+        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], kQTile + kVTile);
+          tma_load(s_k + s * kQTile, &p.tm_k, 0, k0, h, b, &full[s]);
+          tma_load(s_v + s * kVTile, &p.tm_v, k0, 0, h, b, &full[s]);
+          tma_load(s_v + s * kVTile + D * kRowBytes, &p.tm_v, k0 + kChunk, 0, h, b, &full[s]);
+        }
+        if (use_seg) {
+          int lo = INT_MAX, hi = INT_MIN;
+          for (int i = lane; i < kBlockK; i += 32) {
+            const int id = k0 + i < p.M ? seg[k0 + i] : 0;
+            s_seg[s * kBlockK + i] = id;
+            if (k0 + i < p.M) {
+              lo = min(lo, id);
+              hi = max(hi, id);
+            }
+          }
+          for (int o = 16; o > 0; o >>= 1) {
+            lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+            hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+          }
+          if (lane == 0) {
+            s_krange[2 * s] = lo;
+            s_krange[2 * s + 1] = hi;
+          }
+          mbar_arrive(&full[s]);
+        }
       }
     }
-    if (use_seg && tid < kBlockK) {
-      s_segk[buf * kBlockK + tid] = k0 + tid < p.M ? segp[k0 + tid] : 0;
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int t = threadIdx.x % kWgThreads, warp = t >> 5, lane = t & 31;
+  const int t4 = lane & 3;
+  const int rbase = wg * 64;                       // this warpgroup's rows in the block
+  const int ql = warp * 16 + (lane >> 2);          // this thread's rows in them: ql, ql + 8
+  int qrow[2], segq[2] = {0, 0};
+  int qlo = INT_MAX, qhi = INT_MIN;  // the least and largest id of this warpgroup's queries
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qrow[r] = q0 + rbase + ql + 8 * r;
+    if (use_seg && qrow[r] < p.N) {
+      segq[r] = seg[qrow[r]];
+      qlo = min(qlo, segq[r]);
+      qhi = max(qhi, segq[r]);
+    }
+  }
+  if (use_seg) {
+    for (int o = 16; o > 0; o >>= 1) {
+      qlo = min(qlo, __shfl_xor_sync(0xffffffffu, qlo, o));
+      qhi = max(qhi, __shfl_xor_sync(0xffffffffu, qhi, o));
+    }
+    int* qr = s_qrange + 8 * wg;
+    if (lane == 0) {
+      qr[2 * warp] = qlo;
+      qr[2 * warp + 1] = qhi;
+    }
+    bar_sync(3 + wg, kWgThreads);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      qlo = min(qlo, qr[2 * w]);
+      qhi = max(qhi, qr[2 * w + 1]);
+    }
+  }
+
+  float s[kBlockK / 2];                           // S, 64 rows x 128 keys
+  float o[D / 2];                                 // O, 64 rows x D features
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  uint32_t pf[kBlockK / 16][4];                   // P as A fragments, k-steps of 16 keys
+  float m_run[2] = {-INFINITY, -INFINITY};        // running max, base-2 units
+  float l_run[2] = {0.f, 0.f};                    // this thread's share of the denominator
+
+  mbar_wait(q_full, 0);
+  const uint64_t d_q = desc_k<kBlockQ>(s_q, rbase);
+  auto issue_s = [&](int u) {  // S_u = Q K_u^T
+    const uint64_t d_k = opaque(desc_k<kBlockK>(s_k + (u % kStages) * kQTile, 0));
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      wgmma_ss<kBlockK>(s, d_q + step_k<kBlockQ>(ks), d_k + step_k<kBlockK>(ks), ks > 0);
     }
   };
+  auto issue_pv = [&](int u) {  // O += P_u V_u, v's rows K-major (keys contiguous)
+    const uint64_t d_v = opaque(desc_k<D>(s_v + (u % kStages) * kVTile, 0));
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      wgmma_rs<D, 0>(o, pf[kk], d_v + step_k<D>(kk), 1);
+    }
+  };
+  auto finish = [&]() {  // the products issued this turn, done
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(o);
+  };
+  // masks, running max and denominators, P_u as A fragments, O rescaled.
+  // With segments a tile is classed for this warpgroup's rows by the id
+  // ranges: every pair attended (no mask), none (P = 0, which leaves O and
+  // the statistics as they are), or some (masked score by score).
+  auto softmax = [&](int u) {
+    const int k0 = u * kBlockK, st = u % kStages;
+    bool partial = k0 + kBlockK > p.kv_lim;
+    if (use_seg) {
+      if (qhi < s_krange[2 * st]) {
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk) pf[kk][0] = pf[kk][1] = pf[kk][2] = pf[kk][3] = 0u;
+        return;
+      }
+      partial = partial || qlo < s_krange[2 * st + 1];
+    }
+    if (partial) {
+      const int* segk = s_seg + st * kBlockK;
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        const int kl = nt * 8 + 2 * t4;
+        const int2 ids = use_seg ? *reinterpret_cast<const int2*>(segk + kl)
+                                 : make_int2(INT_MIN, INT_MIN);
+        const bool in0 = k0 + kl < p.kv_lim, in1 = k0 + kl + 1 < p.kv_lim;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (!(in0 && segq[r] >= ids.x)) s[4 * nt + 2 * r] = -INFINITY;
+          if (!(in1 && segq[r] >= ids.y)) s[4 * nt + 2 * r + 1] = -INFINITY;
+        }
+      }
+    }
+    online_softmax<kBlockK>(s, o, pf, m_run, l_run);
+  };
 
-  const int n_ktiles = (p.kv_lim + kBlockK - 1) / kBlockK;  // tiles past kv_lim are all masked
-  copy_rows_async<D, kBlockQ>(s_q, qrp, q0, p.N);
-  cp_async_commit();
-  load_kv(0, 0);
-  cp_async_commit();
-  int segq[2] = {0, 0};
-  if (use_seg) {
+  pingpong<1, kStages>(wg, lane, n_kt, full, empty, issue_s, issue_pv, finish, softmax);
+
+  // out = O / denominator, staged [feature][query] and written along N
+  float denom[2], lse[2];
+  row_totals(l_run, m_run, denom, lse);
+  bf16* so = s_o + wg * D * kOStride;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int d = dt * 8 + 2 * t4;
+#pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int gn = q0 + row0 + 8 * r;
-      segq[r] = gn < p.N ? segp[gn] : 0;
+      so[d * kOStride + ql + 8 * r] = __float2bfloat16_rn(o[4 * dt + 2 * r] / denom[r]);
+      so[(d + 1) * kOStride + ql + 8 * r] = __float2bfloat16_rn(o[4 * dt + 2 * r + 1] / denom[r]);
     }
   }
-  cp_async_wait<1>();  // the q tile has landed
-  __syncthreads();
-
-  uint32_t qf[D / 16][4];
-  load_q_frags<D>(qf, s_q, row0);
-
-  float acc[kDTiles][4];
+  if (t4 == 0) {
+    float* lse_bh = p.lse + ((long long)b * p.H + h) * p.N;
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
-  float l_run[2] = {0.f, 0.f};              // this thread's share of the running denominator
-
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * kBlockK, buf = kt & 1;
-    if (kt + 1 < n_ktiles) {
-      load_kv(kt + 1, buf ^ 1);  // that buffer was released by the last barrier below
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int r = 0; r < 2; ++r) {
+      if (qrow[r] < p.N) lse_bh[qrow[r]] = lse[r];
     }
-    __syncthreads();
-    attend_tile<D>(acc, m_run, l_run, qf, s_k + buf * kBlockK * kStride,
-                   s_v + buf * D * kVStride, s_segk + buf * kBlockK, segq, use_seg, false, k0,
-                   p.kv_lim, q0 + row0);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
   }
-
-  float denom[2];
-  row_denominators(denom, l_run);
-
-  // Stage the output as [d][query] in the q buffer (free: the q fragments
-  // were loaded before the loop, and the loop's barriers follow).
-  __nv_bfloat16* s_o = s_q;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int d0 = dt * 8 + 2 * t4;
-    s_o[d0 * kOStride + row0] = __float2bfloat16_rn(acc[dt][0] / denom[0]);
-    s_o[(d0 + 1) * kOStride + row0] = __float2bfloat16_rn(acc[dt][1] / denom[0]);
-    s_o[d0 * kOStride + row0 + 8] = __float2bfloat16_rn(acc[dt][2] / denom[1]);
-    s_o[(d0 + 1) * kOStride + row0 + 8] = __float2bfloat16_rn(acc[dt][3] / denom[1]);
-  }
-  write_lse(p.lse + ((long long)b * p.H + h) * p.N, denom, m_run, q0 + row0, p.N);
-  __syncthreads();
-  __nv_bfloat16* op = p.o + b * p.so.b + h * p.so.h;
-  if constexpr (kVec) {
-    for (int i = tid; i < D * (kBlockQ / 8); i += kThreads) {
-      const int d = i / (kBlockQ / 8), grp = i % (kBlockQ / 8), n = q0 + grp * 8;
+  bar_sync(3 + wg, kWgThreads);
+  bf16* op = p.o + b * p.o_b + h * p.o_h;
+  const int n0 = q0 + rbase;
+  if (p.vec_out) {  // N % 8 == 0: a group of 8 queries lies wholly below N or past it
+    for (int i = t; i < D * 8; i += kWgThreads) {
+      const int d = i / 8, n = n0 + (i % 8) * 8;
       if (n < p.N) {
-        *reinterpret_cast<uint4*>(op + d * p.so.d + n) =
-            *reinterpret_cast<const uint4*>(&s_o[d * kOStride + grp * 8]);
+        *reinterpret_cast<uint4*>(op + d * p.o_d + n) =
+            *reinterpret_cast<const uint4*>(so + d * kOStride + (i % 8) * 8);
       }
     }
   } else {
-    for (int i = tid; i < D * kBlockQ; i += kThreads) {
-      const int d = i / kBlockQ, r = i % kBlockQ, n = q0 + r;
-      if (n < p.N) op[d * p.so.d + n * p.so.n] = s_o[d * kOStride + r];
+    for (int i = t; i < D * 64; i += kWgThreads) {
+      const int d = i / 64, n = n0 + i % 64;
+      if (n < p.N) op[d * p.o_d + n * p.o_n] = so[d * kOStride + i % 64];
     }
   }
 }
 
-// The 16-byte path needs unit stride along N, rows that start 16-byte aligned
-// (8 bf16 or 4 fp32 elements) and no partial 8-token group at the ends.
-bool vector_ok(const Params& p) {
-  const Strides* all[] = {&p.sq, &p.sk, &p.sv, &p.so};
-  const void* ptrs[] = {p.q, p.k, p.v, p.o};
-  for (int i = 0; i < 4; ++i) {
+// The prologue's 16-byte path needs q and k unit-stride along N with rows
+// that start 16-byte aligned, N and M multiples of 8, and tables likewise.
+bool prologue_vec_ok(const Params& p) {
+  const Strides* all[] = {&p.sq, &p.sk};
+  const void* ptrs[] = {p.q, p.k};
+  for (int i = 0; i < 2; ++i) {
     const Strides& s = *all[i];
     if (s.n != 1 || s.b % 8 || s.h % 8 || s.d % 8 || !aligned16(ptrs[i])) return false;
   }
@@ -322,27 +458,23 @@ bool vector_ok(const Params& p) {
   return true;
 }
 
-template <int D, bool kVec>
-cudaError_t launch_both(const Params& p, int B, __nv_bfloat16* qr, __nv_bfloat16* kr,
-                        cudaStream_t stream) {
+template <int D>
+cudaError_t launch(const Params& pp, const MainParams& mp, int B, __nv_bfloat16* qr,
+                   __nv_bfloat16* kr, cudaStream_t stream) {
   constexpr int kSmem = main_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_dn_kernel<D, kVec>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  cudaError_t err = allow_smem<flash_fwd_dn_kernel<D>>(kSmem);
   if (err != cudaSuccess) return err;
-  const int longest = p.N > p.M ? p.N : p.M;
-  rope_pack_kernel<D, kVec><<<dim3((longest + 63) / 64, p.H, B), kThreads, 0, stream>>>(p, qr, kr);
+  const dim3 pro_grid(((pp.N > pp.M ? pp.N : pp.M) + 63) / 64, pp.H, B);
+  if (prologue_vec_ok(pp)) {
+    rope_pack_kernel<D, true><<<pro_grid, kPrologueThreads, 0, stream>>>(pp, qr, kr);
+  } else {
+    rope_pack_kernel<D, false><<<pro_grid, kPrologueThreads, 0, stream>>>(pp, qr, kr);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + kBlockQ - 1) / kBlockQ, p.H, B);
-  flash_fwd_dn_kernel<D, kVec><<<grid, kThreads, kSmem, stream>>>(p, qr, kr);
+  const dim3 grid((pp.N + kBlockQ - 1) / kBlockQ, pp.H, B);
+  flash_fwd_dn_kernel<D><<<grid, kThreads, kSmem, stream>>>(mp);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch(const Params& p, int B, __nv_bfloat16* qr, __nv_bfloat16* kr,
-                   cudaStream_t stream) {
-  return vector_ok(p) ? launch_both<D, true>(p, B, qr, kr, stream)
-                      : launch_both<D, false>(p, B, qr, kr, stream);
 }
 
 }  // namespace
@@ -350,47 +482,78 @@ cudaError_t launch(const Params& p, int B, __nv_bfloat16* qr, __nv_bfloat16* kr,
 // strides: 20 element strides, in order
 //   q (b, h, d, n), k (b, h, d, n), v (b, h, d, n), out (b, h, d, n),
 //   RoPE tables (b, d, n), segment ids (b).
-// cos/sin null: no RoPE. seg null: no segment mask. lse is [B, H, N] contiguous.
-// q_scratch [B, H, N, D] and k_scratch [B, H, M, D] bf16 receive the rotated,
-// rounded q and k (the prologue's output). Returns the cudaError_t of the
-// launches (0 on success).
+// cos/sin null: no RoPE. seg null: no segment mask. lse is [B, H, N]
+// contiguous. q_scratch [B, H, N, D] and k_scratch [B, H, M, D] bf16 receive
+// the rotated, rounded q and k. v_scratch null: TMA reads v in place, and
+// kNotTmaReady is returned, launching nothing, when it cannot (v's strides
+// other than along N must be multiples of 8 and its base 16-byte aligned);
+// else [B, H, D, Mp] bf16 with Mp = M rounded up to 8, into which the
+// prologue copies v. Returns the cudaError_t of the launches (0 on
+// success); cudaErrorInvalidValue, launching nothing, for arguments it does
+// not take.
 extern "C" int vjepa2_flash_fwd_dn_bf16(const void* q, const void* k, const void* v,
                                         const void* cos_t, const void* sin_t, const void* seg,
                                         void* out, void* lse, void* q_scratch, void* k_scratch,
-                                        int B, int H, int D, int N, int M, int kv_lim,
-                                        const long long* strides, float qscale, void* stream) {
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.cos = static_cast<const float*>(cos_t);
-  p.sin = static_cast<const float*>(sin_t);
-  p.seg = static_cast<const int*>(seg);
-  p.o = static_cast<__nv_bfloat16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.sq = {strides[0], strides[1], strides[2], strides[3]};
-  p.sk = {strides[4], strides[5], strides[6], strides[7]};
-  p.sv = {strides[8], strides[9], strides[10], strides[11]};
-  p.so = {strides[12], strides[13], strides[14], strides[15]};
-  p.t_b = strides[16];
-  p.t_d = strides[17];
-  p.t_n = strides[18];
-  p.seg_b = strides[19];
-  p.H = H;
-  p.N = N;
-  p.M = M;
-  p.kv_lim = kv_lim;
-  p.qscale = qscale;
+                                        void* v_scratch, int B, int H, int D, int N, int M,
+                                        int kv_lim, const long long* strides, float qscale,
+                                        void* stream) {
+  Params pp;
+  pp.q = static_cast<const __nv_bfloat16*>(q);
+  pp.k = static_cast<const __nv_bfloat16*>(k);
+  pp.v = static_cast<const __nv_bfloat16*>(v);
+  pp.cos = static_cast<const float*>(cos_t);
+  pp.sin = static_cast<const float*>(sin_t);
+  pp.v_copy = static_cast<__nv_bfloat16*>(v_scratch);
+  pp.sq = {strides[0], strides[1], strides[2], strides[3]};
+  pp.sk = {strides[4], strides[5], strides[6], strides[7]};
+  pp.sv = {strides[8], strides[9], strides[10], strides[11]};
+  pp.t_b = strides[16];
+  pp.t_d = strides[17];
+  pp.t_n = strides[18];
+  pp.H = H;
+  pp.N = N;
+  pp.M = M;
+  pp.Mp = (M + 7) / 8 * 8;
+  pp.qscale = qscale;
   auto* qr = static_cast<__nv_bfloat16*>(q_scratch);
   auto* kr = static_cast<__nv_bfloat16*>(k_scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 0 || M <= 0 || kv_lim <= 0 || kv_lim > M || !aligned16(qr) || !aligned16(kr))
+  if (N <= 0 || M <= 0 || kv_lim <= 0 || kv_lim > M || !aligned16(qr) || !aligned16(kr) ||
+      (seg != nullptr && N != M))
     return cudaErrorInvalidValue;
+
+  MainParams mp;
+  mp.seg = static_cast<const int*>(seg);
+  mp.o = static_cast<__nv_bfloat16*>(out);
+  mp.lse = static_cast<float*>(lse);
+  mp.o_b = strides[12];
+  mp.o_h = strides[13];
+  mp.o_d = strides[14];
+  mp.o_n = strides[15];
+  mp.seg_b = strides[19];
+  mp.H = H;
+  mp.N = N;
+  mp.M = M;
+  mp.kv_lim = kv_lim;
+  mp.vec_out = mp.o_n == 1 && mp.o_d % 8 == 0 && mp.o_h % 8 == 0 && mp.o_b % 8 == 0 &&
+               aligned16(out) && N % 8 == 0;
+  const Operand oq = operand(qr, D, (long long)N * D, (long long)H * N * D, D, N, H, B);
+  const Operand ok = operand(kr, D, (long long)M * D, (long long)H * M * D, D, M, H, B);
+  // v as a map whose inner dim is the keys and whose rows are the features
+  const Operand ov =
+      v_scratch != nullptr
+          ? operand(v_scratch, pp.Mp, (long long)D * pp.Mp, (long long)H * D * pp.Mp, M, D, H, B)
+          : operand(v, pp.sv.d, pp.sv.h, pp.sv.b, M, D, H, B);
+  if (pp.sv.n != 1) return cudaErrorInvalidValue;
+  if (v_scratch == nullptr && !tma_ok(ov)) return kNotTmaReady;
+  if (!encode(&mp.tm_q, oq, D, N, H, B, kBlockQ) || !encode(&mp.tm_k, ok, D, M, H, B, kBlockK) ||
+      !encode(&mp.tm_v, ov, M, D, H, B, D))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(p, B, qr, kr, s);
-    case 32: return launch<32>(p, B, qr, kr, s);
-    case 48: return launch<48>(p, B, qr, kr, s);
-    case 64: return launch<64>(p, B, qr, kr, s);
+    case 16: return launch<16>(pp, mp, B, qr, kr, s);
+    case 32: return launch<32>(pp, mp, B, qr, kr, s);
+    case 48: return launch<48>(pp, mp, B, qr, kr, s);
+    case 64: return launch<64>(pp, mp, B, qr, kr, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,23 +1,16 @@
-// The fused LayerNorm prologues for Hopper (sm_90a): kernels B7 and B8, one
-// LayerNorm-prologue GEMM with two epilogues.
+// The fused LayerNorm + qkv prologue (kernel B7), for Hopper (sm_90a), on
+// mma.sync.
 //
-// Replaces the TPU kernels
-//   * B7 `vjepa2_tpu/ops/ln_qkv.py:50 _ln_qkv_kernel` (`pallas_call` `:108`):
-//     LN(x) -> y bf16 @ W_qkv (fp32 accumulation) + b (fp32, before the one
-//     rounding) -> split-half RoPE on q and k in fp32 -> q, k, v
-//     [B, H, N, D] bf16, plus mean and rstd [B, N];
-//   * B8 `vjepa2_tpu/ops/ln_mlp.py:78 _ln_mlp_kernel` (`:106`): LN(x) -> y
-//     bf16 @ W_fc1 + b -> exact GELU -> h [B, N, hidden] bf16, plus mean and
-//     rstd. GELU is 0.5 z (1 + erf(z / sqrt 2)) with CUDA's `erff`: the TPU
-//     kernel's Abramowitz-Stegun polynomial (`_erf_poly:57`) stands in for
-//     an `erf` Mosaic cannot lower, and both JAX reference paths use erf.
-// x [R = B*N, C] bf16 contiguous; W [Nout, C] bf16 (the port's
-// `qkv.weight` / `fc1.weight` layout, K-contiguous: the mma B operand as it
-// lies, no transpose); gamma, beta, bias fp32. C in {384, 1024, 1280, 1408};
-// B7: D in {32, 64, 80, 88}, Nout = 3 H D; B8: Nout in {1536, 4096, 5120,
-// 6144}.
+// Replaces the TPU kernel `vjepa2_tpu/ops/ln_qkv.py:50 _ln_qkv_kernel`
+// (`pallas_call` `:108`): LN(x) -> y bf16 @ W_qkv (fp32 accumulation) + b
+// (fp32, before the one rounding) -> split-half RoPE on q and k in fp32 ->
+// q, k, v [B, H, N, D] bf16, plus mean and rstd [B, N].
+// x [R = B*N, C] bf16 contiguous; W [3 H D, C] bf16 (the port's
+// `qkv.weight` layout, K-contiguous: the mma B operand as it lies, no
+// transpose); gamma, beta, bias fp32. C in {384, 1024, 1280, 1408}; D in
+// {32, 64, 80, 88}.
 //
-// What bounds it on this card: the tensor cores. At [8, 2048, 1024] B7 does
+// What bounds it on this card: the tensor cores. At [8, 2048, 1024] it does
 // 103 GFLOP (0.104 ms at 989 TFLOP/s) against ~44 MB moved (0.013 ms).
 //
 // What this version does about it (right and simple first):
@@ -31,15 +24,13 @@
 //     version rounds y); W comes in by cp.async into a double buffer. Rows
 //     past R read as zero and are not written; a row of zeros (a stack-pad
 //     row) normalises to beta.
-//   * B7's epilogue stages the fp32 tile (+ bias) in shared memory: a column
+//   * the epilogue stages the fp32 tile (+ bias) in shared memory: a column
 //     tile holds whole heads of one of q, k, v, so each split-half pair
 //     (d, d + D/2) lies in it; q and k rotate with the [B|1, N, D] tables
 //     (`rope_pair`, the flash kernels' rotation; batch b reads table
 //     b % tb), and q, k, v are written [B, H, N, D].
-//   * B8's epilogue adds the bias, applies GELU and writes bf16 pairs from
-//     the accumulators.
-// Not done yet, for later work: wgmma, TMA, a 3-4 stage pipeline, one
-// barrier per k-step, 16-byte epilogue stores.
+// Not done yet, for later work: the wgmma/TMA mainloop of B8
+// (`ln_gemm_hopper.cu`), whose epilogue is a template parameter for this one.
 
 #include "ln_common.cuh"
 
@@ -59,18 +50,15 @@ struct GemmParams {
   const bf16* w;
   const float* bias;
   int R, C, Nout;
-  // B7
   bf16* q;
   bf16* k;
   bf16* v;
   const float* cos;  // null: no RoPE; [tb, N, D] contiguous
   const float* sin;
   int N, H, tb;
-  // B8
-  bf16* h;  // [R, Nout]
 };
 
-// Column tile: whole heads (D <= 64: 128 columns; D 80, 88: two heads); B8 (D 0): 128.
+// Column tile: whole heads (D <= 64: 128 columns; D 80, 88: two heads).
 __host__ __device__ constexpr int tile_cols(int D) { return D <= 64 ? 128 : 2 * D; }
 
 template <int BN>
@@ -78,18 +66,13 @@ __host__ __device__ constexpr int pipe_bytes() {
   return 2 * (kBM + BN) * kKStride * 2;
 }
 
-template <int BN, int D>
+template <int BN>
 __host__ __device__ constexpr int work_bytes() {
-  // B7 stages the fp32 tile [kBM][BN + 4] over the pipeline buffers
-  return D == 0 ? pipe_bytes<BN>()
-                : (kBM * (BN + 4) * 4 > pipe_bytes<BN>() ? kBM * (BN + 4) * 4 : pipe_bytes<BN>());
+  // the epilogue stages the fp32 tile [kBM][BN + 4] over the pipeline buffers
+  return kBM * (BN + 4) * 4 > pipe_bytes<BN>() ? kBM * (BN + 4) * 4 : pipe_bytes<BN>();
 }
 
-__device__ __forceinline__ float gelu_exact(float z) {
-  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
-}
-
-// D > 0: B7 (q, k, v with RoPE, head width D); D == 0: B8 (GELU).
+// q, k, v with RoPE, head width D.
 template <int D>
 __global__ void __launch_bounds__(kGemmThreads) ln_gemm_kernel(const GemmParams p) {
   constexpr int BN = tile_cols(D);
@@ -211,67 +194,46 @@ __global__ void __launch_bounds__(kGemmThreads) ln_gemm_kernel(const GemmParams 
     __syncthreads();  // this step's buffers are free; A tile kt + 1 is complete
   }
 
-  if constexpr (D == 0) {
-    // B8: bias, GELU, bf16 pairs straight from the accumulators
+  // stage acc + bias as fp32 [kBM][BN + 4], then rotate pairs and scatter
+  constexpr int kSt = BN + 4, kHalf = D / 2, kPairs = BN / 2;
+  float* st = reinterpret_cast<float*>(work);
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = col0 + wn * kWN + nt * 8 + 2 * t4;
-      const float b0 = p.bias[col], b1 = p.bias[col + 1];
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int lc = wn * kWN + nt * 8 + 2 * t4;
+    const float b0 = p.bias[col0 + lc], b1 = p.bias[col0 + lc + 1];
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = row0 + wm * 32 + mt * 16 + g + 8 * half;
-          if (row < p.R) {
-            *reinterpret_cast<uint32_t*>(p.h + (long long)row * p.Nout + col) =
-                pack_bf16(gelu_exact(acc[mt][nt][2 * half] + b0),
-                          gelu_exact(acc[mt][nt][2 * half + 1] + b1));
-          }
-        }
-      }
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int lr = wm * 32 + mt * 16 + g;
+      st[lr * kSt + lc] = acc[mt][nt][0] + b0;
+      st[lr * kSt + lc + 1] = acc[mt][nt][1] + b1;
+      st[(lr + 8) * kSt + lc] = acc[mt][nt][2] + b0;
+      st[(lr + 8) * kSt + lc + 1] = acc[mt][nt][3] + b1;
     }
-  } else {
-    // B7: stage acc + bias as fp32 [kBM][BN + 4], then rotate pairs and scatter
-    constexpr int kSt = BN + 4, kHalf = D / 2, kPairs = BN / 2;
-    float* st = reinterpret_cast<float*>(work);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int lc = wn * kWN + nt * 8 + 2 * t4;
-      const float b0 = p.bias[col0 + lc], b1 = p.bias[col0 + lc + 1];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int lr = wm * 32 + mt * 16 + g;
-        st[lr * kSt + lc] = acc[mt][nt][0] + b0;
-        st[lr * kSt + lc + 1] = acc[mt][nt][1] + b1;
-        st[(lr + 8) * kSt + lc] = acc[mt][nt][2] + b0;
-        st[(lr + 8) * kSt + lc + 1] = acc[mt][nt][3] + b1;
-      }
+  }
+  __syncthreads();
+  const int hd = p.H * D, part = col0 / hd, head0 = (col0 % hd) / D;
+  bf16* out = part == 0 ? p.q : (part == 1 ? p.k : p.v);
+  const bool rotate = part < 2 && p.cos != nullptr;
+  for (int i = tid; i < kBM * kPairs; i += kGemmThreads) {
+    const int lr = i / kPairs, j = i % kPairs, hl = j / kHalf, d = j % kHalf;
+    const int row = row0 + lr;
+    if (row >= p.R) continue;
+    const int bi = row / p.N, n = row % p.N;
+    float lo = st[lr * kSt + hl * D + d], hi = st[lr * kSt + hl * D + d + kHalf];
+    if (rotate) {
+      const long long t = ((long long)(bi % p.tb) * p.N + n) * D;
+      rope_pair(lo, hi, p.cos[t + d], p.sin[t + d], p.cos[t + d + kHalf], p.sin[t + d + kHalf]);
     }
-    __syncthreads();
-    const int hd = p.H * D, part = col0 / hd, head0 = (col0 % hd) / D;
-    bf16* out = part == 0 ? p.q : (part == 1 ? p.k : p.v);
-    const bool rotate = part < 2 && p.cos != nullptr;
-    for (int i = tid; i < kBM * kPairs; i += kGemmThreads) {
-      const int lr = i / kPairs, j = i % kPairs, hl = j / kHalf, d = j % kHalf;
-      const int row = row0 + lr;
-      if (row >= p.R) continue;
-      const int bi = row / p.N, n = row % p.N;
-      float lo = st[lr * kSt + hl * D + d], hi = st[lr * kSt + hl * D + d + kHalf];
-      if (rotate) {
-        const long long t = ((long long)(bi % p.tb) * p.N + n) * D;
-        rope_pair(lo, hi, p.cos[t + d], p.sin[t + d], p.cos[t + d + kHalf], p.sin[t + d + kHalf]);
-      }
-      bf16* dst = out + (((long long)bi * p.H + head0 + hl) * p.N + n) * D;
-      dst[d] = __float2bfloat16_rn(lo);
-      dst[d + kHalf] = __float2bfloat16_rn(hi);
-    }
+    bf16* dst = out + (((long long)bi * p.H + head0 + hl) * p.N + n) * D;
+    dst[d] = __float2bfloat16_rn(lo);
+    dst[d + kHalf] = __float2bfloat16_rn(hi);
   }
 }
 
 template <int D>
 cudaError_t launch_gemm(const GemmParams& p, cudaStream_t stream) {
   constexpr int BN = tile_cols(D);
-  const int smem = 2 * p.C * 4 + work_bytes<BN, D>();
+  const int smem = 2 * p.C * 4 + work_bytes<BN>();
   cudaError_t err = cudaFuncSetAttribute(ln_gemm_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -342,24 +304,4 @@ extern "C" int vjepa2_ln_qkv_bf16(const void* x, const void* gamma, const void* 
     case 88: return launch_gemm<88>(p, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// B8. x [R, C] bf16; gamma, beta [C] fp32; w [hidden, C] bf16; bias
-// [hidden] fp32 -> h [R, hidden] bf16, mean and rstd [R] fp32. Every array
-// contiguous; x, gamma, beta and w 16-byte aligned.
-extern "C" int vjepa2_ln_mlp_bf16(const void* x, const void* gamma, const void* beta,
-                                  const void* w, const void* bias, void* h, void* mean,
-                                  void* rstd, int R, int C, int hidden, float eps, void* stream) {
-  if (!gemm_inputs_ok(x, gamma, beta, w, R, C) ||
-      (hidden != 1536 && hidden != 4096 && hidden != 5120 && hidden != 6144))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_ln_fwd(static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-                                  static_cast<const float*>(beta), nullptr,
-                                  static_cast<float*>(mean), static_cast<float*>(rstd), R, C, eps,
-                                  s);
-  if (err != cudaSuccess) return err;
-  GemmParams p = common_params(x, gamma, beta, w, bias, mean, rstd, R, C, hidden);
-  p.h = static_cast<bf16*>(h);
-  return launch_gemm<0>(p, s);
 }

@@ -240,8 +240,10 @@ def _side_inputs(dev, cos, sin, seg_q, seg_k):
     return cos, sin, seg_q, seg_k, (t_b, t_n, t_d, segq_b, segk_b)
 
 
-# What the C entry points return, launching nothing, when an operand that TMA
-# reads is not `tma_ready` (`csrc/bhnd_hopper.cuh:kNotTmaReady`).
+# What the Hopper entry points (B1, B3, the BHND backward, B8) return,
+# launching nothing, when an operand that TMA reads is not `tma_ready`
+# (`csrc/bhnd_hopper.cuh:kNotTmaReady`); the wrapper then calls again with a
+# copy (`tma_operand`; B1: a buffer its prologue copies v into).
 NOT_TMA_READY = -1
 
 
@@ -249,7 +251,8 @@ def tma_ready(t) -> bool:
     """Whether the kernels' TMA loads can read ``t`` in place: unit stride
     along d, every other stride (of a dim longer than 1) a positive multiple
     of 8 elements (16 bytes), and a 16-byte aligned base. The C entry points
-    check the same rule; the wrappers apply it only when one refuses."""
+    check the same rule (`tma_ok`); the wrappers apply it only when one
+    refuses."""
     if t.stride(-1) != 1 or t.data_ptr() % 16:
         return False
     return all(s > 0 and s % 8 == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)

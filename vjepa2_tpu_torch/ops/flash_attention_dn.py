@@ -8,11 +8,11 @@ entry point (`_flash_core_dn:492`, `flash_attention_bhdn:573`).
 `flash_attention_bhdn` is a `torch.autograd.Function` (`FlashAttentionDN`):
 its forward saves (q, k, v, out, lse) and its backward is
 `flash_attention_bhdn_bwd`. On a CUDA tensor each launches its hand-written
-Hopper kernel (`csrc/flash_fwd_dn.cu`, `csrc/flash_bwd_dn.cu`) or raises; on a
-CPU tensor they run `flash_attention_bhdn_plain` (the plain math of the JAX
-package's fallback, `ops/attention.py:278-298`) and
-`flash_attention_bhdn_bwd_plain` (the B2 math written out). There is no other
-route. Segment ids and RoPE tables stay outside autograd: they get no
+Hopper kernel (`csrc/flash_fwd_dn.cu` on wgmma and TMA, `csrc/flash_bwd_dn.cu`
+on mma.sync) or raises; on a CPU tensor they run `flash_attention_bhdn_plain`
+(the plain math of the JAX package's fallback, `ops/attention.py:278-298`)
+and `flash_attention_bhdn_bwd_plain` (the B2 math written out). There is no
+other route. Segment ids and RoPE tables stay outside autograd: they get no
 gradient.
 
 The TPU block plan, lane padding and fp32 segment side-inputs have no
@@ -30,6 +30,7 @@ import torch
 
 from vjepa2_tpu_torch import _build
 from vjepa2_tpu_torch.ops.attention import attention_mask, softmax_attention
+from vjepa2_tpu_torch.ops.flash_attention import NOT_TMA_READY
 from vjepa2_tpu_torch.ops.rope import rope_rotate, rope_rotate_t
 
 # Inclusive head-width bound of the DN route (`flash_attention_dn.py:670`).
@@ -175,6 +176,23 @@ def _check_bf16(**tensors):
             raise TypeError(f"the DN flash kernels on CUDA take bf16; {name} is {t.dtype}")
 
 
+def v_copy_shape(v) -> tuple:
+    """The buffer into which B1's prologue copies v [B, H, D, M] when its
+    TMA loads cannot read v in place (the entry point refuses it, by
+    `tma_ready`'s rule: a contiguous v needs M % 8 == 0): [B, H, D, M rounded
+    up to 8], so that each feature's keys start 16-byte aligned."""
+    B, H, D, M = v.shape
+    return (B, H, D, (M + 7) // 8 * 8)
+
+
+def fwd_scratch_shapes(q, k) -> tuple:
+    """The scratch B1 always takes: q' [B, H, N, D] and k' [B, H, M, D]
+    (bf16, rotated and rounded by the prologue, token-major)."""
+    B, H, D, N = q.shape
+    M = k.shape[3]
+    return (B, H, N, D), (B, H, M, D)
+
+
 def _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
     global LAUNCHES
     _check_bf16(q=q, k=k, v=v)
@@ -187,18 +205,22 @@ def _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
     cos, sin, seg, side = _side_inputs(dev, cos, sin, tables_nd, seg)
     out = torch.empty((B, H, D, N), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
-    # the kernel's prologue writes rotated, rounded q and k here, token-major
-    q_rot = torch.empty((B, H, N, D), dtype=q.dtype, device=dev)
-    k_rot = torch.empty((B, H, M, D), dtype=q.dtype, device=dev)
+    q_rot, k_rot = (torch.empty(shape, dtype=q.dtype, device=dev)
+                    for shape in fwd_scratch_shapes(q, k))
     strides = (ctypes.c_longlong * 20)(*q.stride(), *k.stride(), *v.stride(), *out.stride(),
                                         *side)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kv_lim = M if kv_valid_len is None else kv_valid_len
-    lib, fn = _build.function("vjepa2_flash_fwd_dn_bf16", _build.launcher_argtypes(10, 6, 1))
-    with torch.cuda.device(dev):
-        err = fn(*map(_build.ptr, (q, k, v, cos, sin, seg, out, lse, q_rot, k_rot)),
-                 B, H, D, N, M, kv_lim, strides, scale * _build.LOG2E,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _build.function("vjepa2_flash_fwd_dn_bf16", _build.launcher_argtypes(11, 6, 1))
+    v_copy = None
+    for attempt in range(2):
+        with torch.cuda.device(dev):
+            err = fn(*map(_build.ptr, (q, k, v, cos, sin, seg, out, lse, q_rot, k_rot, v_copy)),
+                     B, H, D, N, M, kv_lim, strides, scale * _build.LOG2E,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != NOT_TMA_READY or attempt:
+            break
+        v_copy = torch.empty(v_copy_shape(v), dtype=q.dtype, device=dev)
     _build.check(lib, err, "flash_fwd_dn")
     LAUNCHES += 1
     return out, lse

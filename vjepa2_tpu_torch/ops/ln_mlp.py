@@ -9,13 +9,14 @@ custom VJP `_core_fwd:154` / `_core_bwd:160`:
     sqrt 2)) -> h [B, N, hidden] in x's dtype
 
 `ln_mlp` is a `torch.autograd.Function` (`LnMlpFunction`). Its forward is the
-hand-written Hopper kernel of `csrc/ln_gemm.cu` on a CUDA tensor (bf16; C in
-384, 1024, 1280, 1408; hidden in 1536, 4096, 5120, 6144; other inputs raise)
-and `ln_mlp_plain` on a CPU tensor; it saves (x, gamma, beta, w, bias, mean,
-rstd). Its backward is `_core_bwd` in PyTorch: z recomputed with one product
-(fp32 out), dgelu = Phi(z) + z phi(z), dbias, dW and dy as products in x's
-dtype, then the LayerNorm tail `layernorm.ln_backward` (the B6 backward
-kernel on a CUDA tensor). ``w`` is [hidden, C], the port's ``fc1.weight``.
+hand-written Hopper kernel of `csrc/ln_gemm_hopper.cu` (wgmma and TMA) on a
+CUDA tensor (bf16; C in 384, 1024, 1280, 1408; hidden in 1536, 4096, 5120,
+6144; other inputs raise) and `ln_mlp_plain` on a CPU tensor; it saves (x,
+gamma, beta, w, bias, mean, rstd). Its backward is `_core_bwd` in PyTorch: z
+recomputed with one product (fp32 out), dgelu = Phi(z) + z phi(z), dbias, dW
+and dy as products in x's dtype, then the LayerNorm tail
+`layernorm.ln_backward` (the B6 backward kernel on a CUDA tensor). ``w`` is
+[hidden, C], the port's ``fc1.weight``.
 
 The kernel computes erf with CUDA's `erff`: the TPU kernel's
 Abramowitz-Stegun polynomial (`_erf_poly:57`, |err| <= 1.5e-7) stands in for
@@ -31,6 +32,7 @@ import math
 import torch
 
 from vjepa2_tpu_torch import _build
+from vjepa2_tpu_torch.ops.flash_attention import NOT_TMA_READY, tma_operand
 from vjepa2_tpu_torch.ops.layernorm import LN_WIDTHS, ln_backward, ln_forward_f32
 
 # Hidden widths the kernel takes: mlp_ratio 4 at C 384, 1024, 1280 and
@@ -93,6 +95,8 @@ def _ln_mlp_cuda(x, gamma, beta, w, bias, eps):
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"the ln_mlp kernel on CUDA takes bf16 x and w; got {x.dtype}, {w.dtype}")
     dev = x.device
+    # rows of C elements as the kernel steps them; TMA's alignment is checked
+    # by the entry point, which refuses an operand it cannot read
     x, w = x.contiguous(), w.contiguous()
     vec = [t.to(device=dev, dtype=torch.float32).contiguous() for t in (gamma, beta, bias)]
     h = torch.empty((B, N, hidden), dtype=x.dtype, device=dev)
@@ -100,9 +104,13 @@ def _ln_mlp_cuda(x, gamma, beta, w, bias, eps):
     rstd = torch.empty_like(mean)
     lib, fn = _build.function("vjepa2_ln_mlp_bf16", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                               + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(*map(_build.ptr, (x, *vec[:2], w, vec[2], h, mean, rstd)), B * N, C, hidden, eps,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    for attempt in range(2):
+        with torch.cuda.device(dev):
+            err = fn(*map(_build.ptr, (x, *vec[:2], w, vec[2], h, mean, rstd)), B * N, C, hidden,
+                     eps, torch.cuda.current_stream(dev).cuda_stream)
+        if err != NOT_TMA_READY or attempt:
+            break
+        x, w = tma_operand(x), tma_operand(w)
     _build.check(lib, err, "ln_mlp")
     LAUNCHES += 1
     return h, mean, rstd

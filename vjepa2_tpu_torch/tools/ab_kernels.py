@@ -1,10 +1,12 @@
-"""Time the flash kernels of two checkouts on one CUDA card, in turns.
+"""Time the kernels of two checkouts on one CUDA card, in turns.
 
-    python -m vjepa2_tpu_torch.tools.ab_kernels OTHER_CHECKOUT [--rounds 1] [--out FILE]
+    python -m vjepa2_tpu_torch.tools.ab_kernels OTHER_CHECKOUT [--rounds 1]
+        [--phases b1,b2,b3,bhnd_bwd,ln_qkv,ln_mlp] [--out FILE]
 
-Runs `chip_smoke.py`'s kernel phases (B1, B2, B3 and the BHND backward
-against their plain versions at the main-path shapes, each timed with CUDA
-events) in a fresh process from the root of OTHER_CHECKOUT and of this
+Runs `chip_smoke.py`'s kernel phases (B1, B2, B3, the BHND backward and the
+fused LayerNorm prologues B7 and B8 against their plain versions at the
+main-path shapes, each timed with CUDA events; ``--phases`` picks some of
+them) in a fresh process from the root of OTHER_CHECKOUT and of this
 checkout, in the order other, this, this, other for each round, so that
 both see the same card and the same drift. Each process builds its own
 checkout's kernels. Prints a table of each shape's kernel ms per run, then
@@ -22,21 +24,29 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-PHASES = """
+# the kernel phases by name, as `chip_smoke.py` calls them
+PHASES = {
+    "b1": "c.phase_kernels(d, s)",
+    "b2": "c.phase_kernels_bwd(d, s)",
+    "b3": "c.phase_kernels_bhnd(d, s)",
+    "bhnd_bwd": "c.phase_kernels_bhnd_bwd(d, s)",
+    "ln_qkv": "c.phase_kernels_prologue(d, s, 'ln_qkv')",
+    "ln_mlp": "c.phase_kernels_prologue(d, s, 'ln_mlp')",
+}
+PRELUDE = """
 import torch, chip_smoke as c
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 d = torch.device("cuda", 0)
 s = c.phase_device()
 c.phase_build()
-for phase in (c.phase_kernels, c.phase_kernels_bwd, c.phase_kernels_bhnd, c.phase_kernels_bhnd_bwd):
-    phase(d, s)
 """
 
 
-def run(checkout: Path) -> tuple[str, dict]:
+def run(checkout: Path, phases: list[str]) -> tuple[str, dict]:
     """(the card's nvidia-smi line, {(kernel, shape): record}) of one process."""
-    out = subprocess.run([sys.executable, "-c", PHASES], cwd=checkout, capture_output=True,
+    code = PRELUDE + "".join(PHASES[name] + "\n" for name in phases)
+    out = subprocess.run([sys.executable, "-c", code], cwd=checkout, capture_output=True,
                          text=True, timeout=1200)
     if out.returncode != 0:
         raise RuntimeError(f"kernel phases failed in {checkout}:\n{out.stderr[-4000:]}")
@@ -49,13 +59,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="root of the checkout to compare with")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated, of {', '.join(PHASES)}")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     order = [("other", args.other.resolve()), ("this", ROOT), ("this", ROOT),
              ("other", args.other.resolve())] * args.rounds
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases: {', '.join(unknown)}")
     runs = []
     for name, checkout in order:
-        smi, recs = run(checkout)
+        smi, recs = run(checkout, phases)
         runs.append((name, recs))
     print("kernel | shape | " + " ".join(name for name, _ in runs))
     for key in runs[0][1]:

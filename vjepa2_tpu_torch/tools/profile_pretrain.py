@@ -45,7 +45,7 @@ FRAMES, SIZE, CLIPS = 16, 256, 8
 # first match wins (the BHND names contain B1's and B2's prologue names);
 # names are CUDA kernel names as the profiler reports them
 CATEGORIES = [
-    ("B8 ln_mlp", ("ln_gemm_kernel<0>",)),
+    ("B8 ln_mlp", ("ln_gemm_wgmma_kernel",)),
     ("B7 ln_qkv", ("ln_gemm_kernel<",)),
     ("B6 layernorm fwd (B7/B8 statistics)", ("ln_fwd_kernel",)),
     ("B6 layernorm bwd", ("ln_bwd_kernel",)),
