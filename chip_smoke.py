@@ -21,9 +21,11 @@ Phases, each printed as one JSON object on a line of its own:
    answering 3 requests of 8 clips; every request must launch B1 once per
    encoder layer, and the logits of one clip must match the port's fp32
    plain path on the CPU;
-5. kernel_bwd — the DN flash backward (B2) against its plain PyTorch version
-   at the training shapes, with RoPE tables per example from real collator
-   masks: dq, dk and dv, each with its tolerance, both timed;
+5. kernel_bwd — the DN flash backward (B2, wgmma and TMA) against its plain
+   PyTorch version at the training shapes, with RoPE tables per example from
+   real collator masks: dq, dk and dv, each with its tolerance, both timed,
+   with the achieved TFLOP/s (10*Dh FLOPs a score) and the share of the
+   bound;
 6. train   — the masked-pretrain train step: ViT-L/16 (RoPE, bf16, fp32
    parameters and AdamW state), the 12-layer predictor (width 384, 12 heads),
    16 frames at 256 px, batch 8, the two mask configs of `bench.py:56-61`
@@ -55,7 +57,7 @@ Phases, each printed as one JSON object on a line of its own:
    their plain versions at [16384, 1024], [13312, 384], [16384, 1280] and
    [16384, 1408] rows: y, mean and rstd; dx, dgamma and dbeta;
 13. kernel_ln_qkv / kernel_ln_mlp — the fused LayerNorm prologues (B7: LN +
-   qkv + RoPE, mma.sync; B8: LN + fc1 + GELU, wgmma and TMA) against their
+   qkv + RoPE; B8: LN + fc1 + GELU; one wgmma and TMA mainloop) against their
    plain versions at the fused step's shapes (ViT-L target and contexts, the
    predictor) and at ViT-H and the 16-head ViT-g widths, [8, 2048] rows,
    with TFLOP/s and the share of the bound;
@@ -106,8 +108,7 @@ BHND_BWD_REPLACES = "vjepa2_tpu/ops/flash_attention.py:511"
 LN_SOURCE = "vjepa2_tpu_torch/csrc/layernorm.cu"
 LN_FWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:103"
 LN_BWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:115"
-LN_GEMM_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm.cu"
-LN_MLP_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm_hopper.cu"
+LN_GEMM_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm_hopper.cu"  # B7 and B8
 LN_QKV_REPLACES = "vjepa2_tpu/ops/ln_qkv.py:50"
 LN_MLP_REPLACES = "vjepa2_tpu/ops/ln_mlp.py:78"
 
@@ -323,16 +324,23 @@ def phase_device() -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_fwd_bhnd_kernel<80,80>`` from a mangled ptxas function name:
-    an identifier ending in ``_kernel`` whose length is the number just
-    before it (the digits of a hash may run into that number), then its
-    template arguments."""
+    """``flash_fwd_bhnd_kernel<80,80>`` or ``ln_gemm_wgmma_kernel<QkvEpilogue<64,4>>``
+    from a mangled ptxas function name: an identifier ending in ``_kernel``
+    whose length is the number just before it (the digits of a hash may run
+    into that number), then its template arguments (integers, and a struct
+    with integer arguments)."""
     for m in re.finditer(r"[A-Za-z_]+_kernel", mangled):
         digits = re.search(r"\d+$", mangled[:m.start()])
         if digits and digits.group().endswith(str(len(m.group()))):
-            args = re.match(r"I((?:L[ib]\d+E)+)", mangled[m.end():])
-            return m.group() + (f"<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
-                                if args else "")
+            rest = mangled[m.end():]
+            if a := re.match(r"I((?:L[ib]\d+E)+)", rest):
+                return m.group() + f"<{','.join(re.findall(r'L[ib](\d+)E', a.group(1)))}>"
+            if a := re.match(r"INS_(\d+)", rest):  # a struct: its name, then its integers
+                name = rest[a.end():a.end() + int(a.group(1))]
+                b = re.match(r"I((?:L[ib]\d+E)+)", rest[a.end() + len(name):])
+                ints = f"<{','.join(re.findall(r'L[ib](\d+)E', b.group(1)))}>" if b else ""
+                return f"{m.group()}<{name}{ints}>"
+            return m.group()
     return "?"
 
 
@@ -495,31 +503,43 @@ def _masks(coll, batch: int):
     return coll(FRAMES, batch)
 
 
+def _dn_bwd_case(dev, H, D, seq, seqs):
+    """(q, k, v, do, kwargs) for one B2 shape of `BWD_SHAPES`: random bf16
+    [8, H, D, N] operands and cotangent, per-example RoPE tables of a
+    collator sequence stack-padded to a multiple of 8 with its kv_valid, or
+    the AC predictor's frame-causal segments with shared tables."""
+    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+
+    rng = np.random.RandomState(0)
+    kw = {}
+    if seq == "ac":  # 7 frames of 2 + 256 tokens, frame-causal, shared tables
+        N = 1806
+        pos = torch.arange(N, device=dev)
+        kw["segment_ids"] = torch.arange(7, device=dev, dtype=torch.int32) \
+            .repeat_interleave(N // 7)
+    else:  # per-example positions, stack-padded with id 0 as the models pad
+        ids = seqs[seq]
+        N = ids.shape[1] + (-ids.shape[1]) % 8
+        pos = torch.zeros(8, N, dtype=torch.long)
+        pos[:, :ids.shape[1]] = torch.from_numpy(ids)
+        pos = pos.to(dev)
+        kw["kv_valid_len"] = ids.shape[1]
+    (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, 16, 16), D)
+    kw["rope_expanded"] = (cos, sin)
+    q, k, v, do = (torch.from_numpy(rng.randn(8, H, D, N).astype(np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(4))
+    return q, k, v, do, kw
+
+
 def phase_kernels_bwd(dev, smi: str) -> dict:
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
-    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache, rope_rotate
+    from vjepa2_tpu_torch.ops.rope import rope_rotate
 
     seqs, first = _mask_seqs(), None
     for name, H, D, seq in BWD_SHAPES:
-        rng = np.random.RandomState(0)
-        kw = {}
-        if seq == "ac":  # 7 frames of 2 + 256 tokens, frame-causal, shared tables
-            N = 1806
-            pos = torch.arange(N, device=dev)
-            kw["segment_ids"] = torch.arange(7, device=dev, dtype=torch.int32) \
-                .repeat_interleave(N // 7)
-        else:  # per-example positions, stack-padded with id 0 as the models pad
-            ids = seqs[seq]
-            N = ids.shape[1] + (-ids.shape[1]) % 8
-            pos = torch.zeros(8, N, dtype=torch.long)
-            pos[:, :ids.shape[1]] = torch.from_numpy(ids)
-            pos = pos.to(dev)
-            kw["kv_valid_len"] = ids.shape[1]
-        B = 8
-        (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, 16, 16), D)
-        kw["rope_expanded"] = (cos, sin)
-        q, k, v, do = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
-                       .to(dev, torch.bfloat16) for _ in range(4))
+        q, k, v, do, kw = _dn_bwd_case(dev, H, D, seq, seqs)
+        B, N = q.shape[0], q.shape[3]
+        cos, sin = kw["rope_expanded"]
         with torch.no_grad():
             out, lse = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
             got = fdn.flash_attention_bhdn_bwd(q, k, v, out, lse, do, **kw)
@@ -547,13 +567,13 @@ def phase_kernels_bwd(dev, smi: str) -> dict:
                       .to(torch.bfloat16).contiguous() for t in (q, k))
             library_ms = library_bwd_ms(qr, kr, v.transpose(2, 3).contiguous(),
                                         do.transpose(2, 3).contiguous(), mask)
-            bound_ms, bound_by = bound(10 * D * attended_pairs(B, H, N, N, mask),
-                                       nbytes(q, k, v, out, do, lse, cos, sin, seg, *got))
+            flops = 10 * D * attended_pairs(B, H, N, N, mask)  # S, dP, dV, dK, dQ
+            bound_ms, bound_by = bound(flops, nbytes(q, k, v, out, do, lse, cos, sin, seg, *got))
         rec = {"phase": "kernel_bwd", "kernel": "flash_bwd_dn", "shape": name,
                "bhdn": [B, H, D, N], "features": sorted(kw),
                "kv_valid": kw.get("kv_valid_len"), "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms, "errors": errs, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "tol": {"rel_l2": BWD_REL_L2, "max_abs": f"{BWD_MAX_ABS}*max|plain|"},
                "ok": ok, "gpu": smi}
         emit(rec)
@@ -1250,7 +1270,7 @@ def main() -> int:
         entry("layernorm_bwd", LN_SOURCE, LN_BWD_REPLACES, total[5], rec_ln_bwd, "max_abs_err"),
         entry("ln_qkv", LN_GEMM_SOURCE, LN_QKV_REPLACES, total[6], rec_qkv, "max_abs_err",
               library=rec_qkv["library"]),
-        entry("ln_mlp", LN_MLP_SOURCE, LN_MLP_REPLACES, total[7], rec_mlp, "max_abs_err",
+        entry("ln_mlp", LN_GEMM_SOURCE, LN_MLP_REPLACES, total[7], rec_mlp, "max_abs_err",
               library=rec_mlp["library"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -370,12 +370,15 @@ def test_backward_is_deterministic(dev, D):
 def test_sass_uses_wgmma_not_mma_sync(dev):
     """The built library's Hopper kernels run on wgmma (HGMMA in the SASS)
     and contain no mma.sync m16n8k16 (HMMA.16816): B3 and the BHND backward
-    (one instantiation per head width), B1's main kernel (per width) and
-    B8's GEMM. B2's and B7's kernels, still on mma.sync, are not named."""
+    (one instantiation per head width), B1's main kernel and B2's dK/dV and
+    dQ kernels (per width), and the LayerNorm GEMM of B8 and B7 (B8's tile,
+    and B7's per head width and heads a tile). No function in the library
+    contains HMMA.16816: no kernel of the port is left on mma.sync."""
     import os
     import subprocess
 
     from vjepa2_tpu_torch import _build
+    from vjepa2_tpu_torch.ops.ln_qkv import QKV_TILE_HEADS
 
     _build.load()
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -385,11 +388,14 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         bodies[name.strip()] = body
+    b7 = sum(len(heads) for heads in QKV_TILE_HEADS.values())
     instantiations = {"flash_fwd_bhnd_kernel": 5, "flash_bwd_bhnd_dkdv_kernel": 5,
                       "flash_bwd_bhnd_dq_kernel": 5, "flash_fwd_dn_kernel": 4,
-                      "ln_gemm_wgmma_kernel": 1}
+                      "flash_bwd_dn_dkdv_kernel": 4, "flash_bwd_dn_dq_kernel": 4,
+                      "ln_gemm_wgmma_kernel": 1 + b7, "QkvEpilogue": b7}
     for kernel, count in instantiations.items():
         found = {n: b for n, b in bodies.items() if kernel in n}
         assert len(found) == count, (kernel, sorted(found))
         for name, body in found.items():
-            assert "HGMMA" in body and "HMMA.16816" not in body, name
+            assert "HGMMA" in body, name
+    assert not [n for n, b in bodies.items() if "HMMA.16816" in b]

@@ -1,8 +1,11 @@
-"""The hand-written DN flash backward (B2, `vjepa2_tpu_torch/csrc/flash_bwd_dn.cu`)
-against its plain PyTorch version on the card, over the feature surface and
-the edges the training shapes do not reach: short and ragged N, pad keys
-past kv_valid, segment ids at 2**24, D 16 and 48, a non-contiguous
-cotangent, and a grad-mode forward and backward through `Attention`.
+"""The hand-written DN flash backward (B2, `vjepa2_tpu_torch/csrc/flash_bwd_dn.cu`,
+wgmma and TMA) against its plain PyTorch version on the card, over the
+feature surface and the edges the training shapes do not reach: short and
+ragged N, pad keys past kv_valid, segment ids at 2**24, D 16 and 48, a
+non-contiguous cotangent, the copy path of a v and do whose rows TMA cannot
+step (N % 8 != 0, with frame-causal segments as the AC predictor has them),
+equal bits from two calls, and a grad-mode forward and backward through
+`Attention`.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
@@ -138,6 +141,32 @@ def test_non_contiguous_cotangent(dev):
     for a, b in zip(got, same):
         assert torch.equal(a, b)
     _close(got, _grads_plain(q, k, v, do, rope_expanded=rope))
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64])
+def test_bwd_is_deterministic(dev, D):
+    """Two backward calls give equal bits: no atomics whose order varies."""
+    B, H, N = 2, 3, 200
+    q, k, v, do = (_randn((B, H, D, N), dev, s) for s in range(4))
+    kw = {"rope_expanded": _tables(N, D, dev, per_example=B), "kv_valid_len": N - 11}
+    first = _grads_kernel(q, k, v, do, **kw)
+    for a, b in zip(first, _grads_kernel(q, k, v, do, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N", [1806, 100])
+def test_ragged_rows_with_segments_take_the_copy_path(dev, N):
+    """N % 8 != 0: a contiguous v's and do's token rows are not whole
+    16-byte units, so the entry point refuses them and the wrapper calls
+    again with buffers of rows rounded up to 8, into which the prologue
+    copies them; frame-causal segments as the AC predictor's (7 frames)."""
+    B, H, D = 1, 2, 64
+    q, k, v, do = (_randn((B, H, D, N), dev, s) for s in range(4))
+    assert fdn.bwd_copy_shapes(v, do) == ((B, H, D, -(-N // 8) * 8),) * 2
+    frames = 7
+    seg = torch.arange(frames, dtype=torch.int32, device=dev).repeat_interleave(-(-N // frames))[:N]
+    kw = {"segment_ids": seg, "rope_expanded": _tables(N, D, dev)}
+    _close(_grads_kernel(q, k, v, do, **kw), _grads_plain(q, k, v, do, **kw))
 
 
 def test_attention_layer_grad_mode(dev):

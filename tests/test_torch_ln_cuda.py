@@ -1,12 +1,15 @@
 """The hand-written LayerNorm kernels (B6 `vjepa2_tpu_torch/csrc/layernorm.cu`) and
-the fused LayerNorm prologues (B7 `csrc/ln_gemm.cu`, B8 `csrc/ln_gemm_hopper.cu`
-on wgmma and TMA) against their
+the fused LayerNorm prologues (B7 and B8, `csrc/ln_gemm_hopper.cu`, on wgmma
+and TMA) against their
 plain PyTorch versions on the card, over the edges the model shapes do not
 reach: ragged row counts (not multiples of a warp's 8 rows, of B6's 64-row
 partial blocks or of the GEMM's 128-row tiles); rows of zeros (the models'
 stack pad), which must give beta and no NaN; shared against per-example RoPE
-tables; every width the kernels take (D 32, 64, 80, 88; C 384, 1024, 1280,
-1408; hidden 1536, 4096, 5120, 6144); shapes and dtypes they refuse; B6's
+tables, at row counts that are not multiples of a 128-row tile (tiles across
+examples); every width the kernels take (D 32, 64, 80, 88; C 384, 1024, 1280,
+1408; hidden 1536, 4096, 5120, 6144), and B7 at every column tile of its
+plan (vit_giant_xformers' 22 heads of 64 among them); shapes and dtypes they
+refuse; B6's
 dgamma/dbeta and B8's h equal from run to run; B8 at R = 1 and ragged R
 (37, 130, 1003: part of a 128-row tile, tiles across examples, more
 tiles than a persistent block's first) and on an x view TMA cannot read
@@ -169,9 +172,17 @@ def test_ln_qkv_matches_plain(dev, D, H, tables, B, N):
 
 
 @pytest.mark.parametrize("C,H,D", [(1024, 16, 64), (1280, 16, 80), (1408, 16, 88),
-                                   (384, 12, 32)])
+                                   (384, 12, 32), (1408, 22, 64)])
 def test_ln_qkv_at_model_widths(dev, C, H, D):
     _check_qkv(*_qkv_case(2, 200, C, H, D, "per_example", dev, seed=4), H, D)
+
+
+# the pretrain contexts' token counts (578 and 173 stack-padded to 8): a
+# 128-row tile spans two examples; per-example tables
+@pytest.mark.parametrize("B,N", [(3, 584), (4, 176)])
+@pytest.mark.parametrize("C,H,D", [(1024, 16, 64), (1408, 16, 88), (384, 8, 32)])
+def test_ln_qkv_rows_across_examples(dev, B, N, C, H, D):
+    _check_qkv(*_qkv_case(B, N, C, H, D, "per_example", dev, seed=5), H, D)
 
 
 @pytest.mark.parametrize("C,hidden", [(384, 1536), (1024, 4096), (1280, 5120), (1408, 6144)])

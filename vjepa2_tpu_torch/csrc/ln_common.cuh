@@ -1,5 +1,5 @@
 // LayerNorm row statistics shared by B6 (`layernorm.cu`) and the fused
-// LayerNorm prologues B7 and B8 (`ln_gemm.cu`), for Hopper (sm_90a).
+// LayerNorm prologues B7 and B8 (`ln_gemm_hopper.cu`), for Hopper (sm_90a).
 //
 // One warp owns one row of C bf16 values (C in {384, 1024, 1280, 1408}): lane
 // l holds the 16-byte chunks l, l + 32, ... in registers, so the row is read

@@ -8,8 +8,8 @@ entry point (`_flash_core_dn:492`, `flash_attention_bhdn:573`).
 `flash_attention_bhdn` is a `torch.autograd.Function` (`FlashAttentionDN`):
 its forward saves (q, k, v, out, lse) and its backward is
 `flash_attention_bhdn_bwd`. On a CUDA tensor each launches its hand-written
-Hopper kernel (`csrc/flash_fwd_dn.cu` on wgmma and TMA, `csrc/flash_bwd_dn.cu`
-on mma.sync) or raises; on a CPU tensor they run `flash_attention_bhdn_plain`
+Hopper kernel (`csrc/flash_fwd_dn.cu` and `csrc/flash_bwd_dn.cu`, both on wgmma
+and TMA) or raises; on a CPU tensor they run `flash_attention_bhdn_plain`
 (the plain math of the JAX package's fallback, `ops/attention.py:278-298`)
 and `flash_attention_bhdn_bwd_plain` (the B2 math written out). There is no
 other route. Segment ids and RoPE tables stay outside autograd: they get no
@@ -24,13 +24,14 @@ segment ids as integers (the TPU kernels cast them to fp32, exact only below
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from vjepa2_tpu_torch import _build
 from vjepa2_tpu_torch.ops.attention import attention_mask, softmax_attention
-from vjepa2_tpu_torch.ops.flash_attention import NOT_TMA_READY
+from vjepa2_tpu_torch.ops.flash_attention import NOT_TMA_READY, padded_queries, tma_ready
 from vjepa2_tpu_torch.ops.rope import rope_rotate, rope_rotate_t
 
 # Inclusive head-width bound of the DN route (`flash_attention_dn.py:670`).
@@ -177,10 +178,11 @@ def _check_bf16(**tensors):
 
 
 def v_copy_shape(v) -> tuple:
-    """The buffer into which B1's prologue copies v [B, H, D, M] when its
-    TMA loads cannot read v in place (the entry point refuses it, by
-    `tma_ready`'s rule: a contiguous v needs M % 8 == 0): [B, H, D, M rounded
-    up to 8], so that each feature's keys start 16-byte aligned."""
+    """The buffer into which B1's prologue copies v [B, H, D, M] (and B2's
+    copies v or do) when its TMA loads cannot read it in place (the entry
+    point refuses it, by `tma_ready`'s rule: a contiguous v needs M % 8 ==
+    0): [B, H, D, M rounded up to 8], so that each feature's tokens start
+    16-byte aligned."""
     B, H, D, M = v.shape
     return (B, H, D, (M + 7) // 8 * 8)
 
@@ -226,6 +228,33 @@ def _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
     return out, lse
 
 
+@functools.lru_cache(maxsize=256)
+def bwd_scratch(B: int, H: int, D: int, N: int, M: int) -> tuple[tuple, int]:
+    """B2's scratch: byte offsets (256-aligned) in one buffer of q_s and q_u
+    [B, H, N, D] and k_rot [B, H, M, D] (bf16, token-major, rotated and
+    rounded by the prologue for the TMA loads), delta and lse*log2(e)
+    [B, H, Np] fp32 (Np = N rounded up to the dQ block of 128), and its
+    size."""
+    tokens = padded_queries(N)
+    sizes = [B * H * N * D * 2, B * H * N * D * 2, B * H * M * D * 2, B * H * tokens * 4,
+             B * H * tokens * 4]
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += -(-size // 256) * 256
+    return tuple(offsets), total
+
+
+def bwd_copy_shapes(v, do) -> tuple:
+    """The buffers B2's prologue copies v and do into when its TMA loads
+    cannot read them in place (`tma_ready`'s rule, which the entry point
+    checks before it refuses): [B, H, D, tokens rounded up to 8]
+    (`v_copy_shape`), or None for an operand read in place. A do whose unit
+    stride is along D, as autograd hands it over from the output projection,
+    is copied."""
+    return tuple(None if tma_ready(t) else v_copy_shape(t) for t in (v, do))
+
+
 def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg, kv_valid_len):
     global LAUNCHES_BWD
     _check_bf16(q=q, k=k, v=v, out=out, do=do)
@@ -243,19 +272,26 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg, kv_v
     dq = torch.empty((B, H, D, N), dtype=q.dtype, device=dev)
     dk = torch.empty((B, H, D, M), dtype=q.dtype, device=dev)
     dv = torch.empty((B, H, D, M), dtype=q.dtype, device=dev)
-    lib, fn = _build.function("vjepa2_flash_bwd_dn_bf16", _build.launcher_argtypes(13, 6, 2))
-    _, size = _build.function("vjepa2_flash_bwd_dn_scratch_bytes", [ctypes.c_int] * 5,
-                              ctypes.c_longlong)
-    # the prologue writes the operands in the layouts the main kernels read
-    scratch = torch.empty(size(B, H, D, N, M), dtype=torch.uint8, device=dev)
+    offsets, size = bwd_scratch(B, H, D, N, M)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    pieces = [scratch.data_ptr() + off for off in offsets]
     strides = (ctypes.c_longlong * 24)(*q.stride(), *k.stride(), *v.stride(), *out.stride(),
                                         *do.stride(), *side)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     kv_lim = M if kv_valid_len is None else kv_valid_len
-    with torch.cuda.device(dev):
-        err = fn(*map(_build.ptr, (q, k, v, out, do, lse, cos, sin, seg, dq, dk, dv, scratch)),
-                 B, H, D, N, M, kv_lim, strides, scale, scale * _build.LOG2E,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _build.function("vjepa2_flash_bwd_dn_bf16", _build.launcher_argtypes(19, 6, 2))
+    copies = (None, None)
+    for attempt in range(2):
+        with torch.cuda.device(dev):
+            err = fn(*map(_build.ptr, (q, k, v, out, do, lse, cos, sin, seg, dq, dk, dv,
+                                       *pieces, *copies)),
+                     B, H, D, N, M, kv_lim, strides, scale, scale * _build.LOG2E,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != NOT_TMA_READY or attempt:
+            break
+        # the prologue copies what TMA cannot step into buffers it can
+        copies = tuple(None if shape is None else torch.empty(shape, dtype=q.dtype, device=dev)
+                       for shape in bwd_copy_shapes(v, do))
     _build.check(lib, err, "flash_bwd_dn")
     LAUNCHES_BWD += 1
     return dq, dk, dv

@@ -9,8 +9,10 @@ custom VJP `_core_fwd:176` / `_core_bwd:184`:
     rounding) -> split-half RoPE on q and k in fp32 -> q, k, v [B, H, N, D]
 
 `ln_qkv` is a `torch.autograd.Function` (`LnQkvFunction`). Its forward is the
-hand-written Hopper kernel of `csrc/ln_gemm.cu` on a CUDA tensor (bf16; C in
-384, 1024, 1280, 1408; D in 32, 64, 80, 88; other inputs raise) and
+hand-written Hopper kernel of `csrc/ln_gemm_hopper.cu` (B8's wgmma and TMA
+mainloop with a RoPE epilogue) on a CUDA tensor (bf16; C in 384, 1024, 1280,
+1408; D in 32, 64, 80, 88 with the heads `qkv_heads_per_tile` can tile; other
+inputs raise) and
 `ln_qkv_plain` on a CPU tensor; it saves (x, gamma, beta, w, cos, sin, mean,
 rstd), not the LayerNorm output. Its backward is `_core_bwd` in PyTorch: the
 RoPE adjoint R^T (`rope_rotate_t`; not R(-theta), the tables' two slots of a
@@ -35,12 +37,18 @@ import ctypes
 import torch
 
 from vjepa2_tpu_torch import _build
+from vjepa2_tpu_torch.ops.flash_attention import NOT_TMA_READY, tma_operand
 from vjepa2_tpu_torch.ops.layernorm import LN_WIDTHS, ln_backward, ln_forward_f32
 from vjepa2_tpu_torch.ops.rope import rope_rotate, rope_rotate_t
 
 # Head widths the kernel takes: the pretrain predictor (32), ViT-L and
 # vit_giant_xformers (64), ViT-H (80), the 16-head vit_giant (88).
 QKV_HEAD_WIDTHS = (32, 64, 80, 88)
+# The heads a column tile of the kernel's GEMM may hold, per head width,
+# widest first: the tile is heads x D <= 256 columns (a wgmma's width), holds
+# whole heads of one of q, k, v, so that every RoPE pair (d, d + D/2) lies
+# in it, and each (D, heads) is a kernel the library instantiates.
+QKV_TILE_HEADS = {32: (6, 4), 64: (4, 2), 80: (2,), 88: (2,)}
 
 # Kernel launches since the last reset; `chip_smoke.py` reads it.
 LAUNCHES = 0
@@ -96,31 +104,45 @@ def ln_qkv_plain(x, gamma, beta, w, bias, rope=None, eps: float = 1e-6,
     return _plain_fwd(x, gamma, beta, w, bias, cos, sin, eps, num_heads, head_dim)[:3]
 
 
+def qkv_heads_per_tile(H: int, D: int) -> int | None:
+    """The heads a column tile of B7's GEMM holds for H heads of width D: the
+    widest of `QKV_TILE_HEADS` that divides H, so that q, k and v each take
+    whole tiles (None: the kernel takes no such H)."""
+    return next((n for n in QKV_TILE_HEADS.get(D, ()) if H % n == 0), None)
+
+
 def _ln_qkv_cuda(x, gamma, beta, w, bias, cos, sin, eps, H, D):
     global LAUNCHES
     B, N, C = x.shape
-    per_tile = 4 if D == 32 else 2
-    if D not in QKV_HEAD_WIDTHS or C not in LN_WIDTHS or H % per_tile:
+    heads = qkv_heads_per_tile(H, D)
+    if D not in QKV_HEAD_WIDTHS or C not in LN_WIDTHS or heads is None:
         raise ValueError(f"ln_qkv kernel: head width {D} (takes "
                          f"{', '.join(map(str, QKV_HEAD_WIDTHS))}), row width {C} (takes "
-                         f"{', '.join(map(str, LN_WIDTHS))}), {H} heads (a multiple of "
-                         f"{per_tile})")
+                         f"{', '.join(map(str, LN_WIDTHS))}), {H} heads (a multiple of one "
+                         f"of {QKV_TILE_HEADS.get(D, ())})")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"the ln_qkv kernel on CUDA takes bf16 x and w; got {x.dtype}, {w.dtype}")
     dev = x.device
+    # rows of C elements as the kernel steps them; TMA's alignment is checked
+    # by the entry point, which refuses an operand it cannot read
     x, w = x.contiguous(), w.contiguous()
     vec = [t.to(device=dev, dtype=torch.float32).contiguous() for t in (gamma, beta, bias)]
-    if cos is not None:
-        cos, sin = cos.contiguous(), sin.contiguous()
+    if cos is not None:  # the epilogue reads two entries of a table row at a time
+        cos, sin = (t if t.is_contiguous() and t.data_ptr() % 8 == 0
+                    else t.clone(memory_format=torch.contiguous_format) for t in (cos, sin))
     q, k, v = (torch.empty((B, H, N, D), dtype=x.dtype, device=dev) for _ in range(3))
     mean = torch.empty((B, N, 1), dtype=torch.float32, device=dev)
     rstd = torch.empty_like(mean)
-    lib, fn = _build.function("vjepa2_ln_qkv_bf16", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    lib, fn = _build.function("vjepa2_ln_qkv_bf16", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                               + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(*map(_build.ptr, (x, *vec[:2], w, vec[2], cos, sin, q, k, v, mean, rstd)),
-                 B, N, C, H, D, 1 if cos is None else cos.shape[0], eps,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    for attempt in range(2):
+        with torch.cuda.device(dev):
+            err = fn(*map(_build.ptr, (x, *vec[:2], w, vec[2], cos, sin, q, k, v, mean, rstd)),
+                     B, N, C, H, D, heads, 1 if cos is None else cos.shape[0], eps,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != NOT_TMA_READY or attempt:
+            break
+        x, w = tma_operand(x), tma_operand(w)
     _build.check(lib, err, "ln_qkv")
     LAUNCHES += 1
     return q, k, v, mean, rstd

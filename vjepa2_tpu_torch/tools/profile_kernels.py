@@ -2,6 +2,8 @@
 launch and host time per wrapper call.
 
     python -m vjepa2_tpu_torch.tools.profile_kernels [[FAMILY:]SHAPE ...] [--calls 10]
+        [--no-rope]
+    python vjepa2_tpu_torch/tools/profile_kernels.py --checkout OTHER [SHAPE ...]
 
 Run from the repository root. For each shape named on the command line
 (default: the ViT-H target and the 176-token context of the BHND kernels),
@@ -16,8 +18,17 @@ builds the same inputs as `chip_smoke.py`'s kernel phases and then:
 A shape is a family and a name of the smoke's shape table for it
 (`FAMILIES`): ``bhnd:`` (the default family) and a name of ``BHND_SHAPES``
 / ``BHND_BWD_SHAPES`` (B3 forward and the BHND backward), ``dn:`` and a name
-of ``SHAPES`` (B1: its prologue and main kernel), ``ln_mlp:`` and a name of
-``PROLOGUE_SHAPES`` (B8: its statistics launch and GEMM).
+of ``SHAPES`` (B1: its prologue and main kernel), ``dn_bwd:`` and a name of
+``BWD_SHAPES`` (B2: its prologue, dK/dV and dQ kernels), ``ln_qkv:`` or
+``ln_mlp:`` and a name of ``PROLOGUE_SHAPES`` (B7 or B8: the statistics
+launch and the GEMM).
+
+``--no-rope`` drops the RoPE tables from every call (the ``bhnd``, ``dn``,
+``dn_bwd`` and ``ln_qkv`` families): what the rotation costs a kernel.
+``--checkout OTHER`` times the kernels of another checkout (its package and
+its build) on this checkout's shapes, e.g. a parent commit unpacked into an
+ignored directory, where that checkout's own tool lacks a family; run this
+file by its path then, so that the package is imported from OTHER.
 
 Prints one JSON object per shape and the card's name and power limit.
 Needs a CUDA device.
@@ -26,6 +37,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import subprocess
@@ -52,7 +64,7 @@ def host_us(fn, calls: int = 300) -> float:
     return us
 
 
-def _bhnd_calls(c, dev, name, seqs):
+def _bhnd_calls(c, dev, name, seqs, rope):
     """B3 and the BHND backward at `chip_smoke.BHND_SHAPES`' (or
     ``BHND_BWD_SHAPES``') ``name``, as the smoke's kernel phases call them."""
     from vjepa2_tpu_torch.ops import flash_attention as fa
@@ -60,48 +72,83 @@ def _bhnd_calls(c, dev, name, seqs):
     cases = {n: (shape, f) for n, shape, f in c.BHND_SHAPES + c.BHND_BWD_SHAPES}
     (B, H, N, D), feats = cases[name]
     q, k, v, do, kw, _ = c._bhnd_case(dev, B, H, N, D, feats, seqs)
+    if not rope:
+        kw.pop("rope_expanded", None)
     out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
     return ({"fwd": lambda: fa.flash_attention_bhnd(q, k, v, **kw),
              "bwd": lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw)},
             {"bhnd": [B, H, N, D]})
 
 
-def _dn_calls(c, dev, name, seqs):
+def _dn_calls(c, dev, name, seqs, rope):
     """B1 at `chip_smoke.SHAPES`' ``name``, as the smoke's kernel phase calls it."""
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 
     (B, H, D, N), feats = {n: (shape, f) for n, shape, f in c.SHAPES}[name]
     q, k, v, kw = c._dn_case(dev, B, H, D, N, feats)
+    if not rope:
+        kw.pop("rope_expanded", None)
     return {"fwd": lambda: fdn.flash_attention_bhdn(q, k, v, **kw)}, {"bhdn": [B, H, D, N]}
 
 
-def _ln_mlp_calls(c, dev, name, seqs):
-    """B8 at `chip_smoke.PROLOGUE_SHAPES`' ``name``, as the smoke's phase calls it."""
-    from vjepa2_tpu_torch.ops import ln_mlp
+def _dn_bwd_calls(c, dev, name, seqs, rope):
+    """B2 at `chip_smoke.BWD_SHAPES`' ``name``, as the smoke's kernel phase calls it."""
+    from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 
-    row = {r[0]: r for r in c.PROLOGUE_SHAPES}[name]
-    _, B, N, C, H, D, hidden, tables, real = row
-    x, gamma, beta, w, bias, _ = c._prologue_case(dev, B, N, C, H, D, hidden, tables, real, seqs,
-                                                  "ln_mlp")
-    return ({"fwd": lambda: ln_mlp.ln_mlp(x, gamma, beta, w, bias)},
-            {"bnc": [B, N, C], "hidden": hidden})
+    H, D, seq = {n: (h, d, sq) for n, h, d, sq in c.BWD_SHAPES}[name]
+    q, k, v, do, kw = c._dn_bwd_case(dev, H, D, seq, seqs)
+    if not rope:
+        kw.pop("rope_expanded", None)
+    out, lse = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
+    return ({"bwd": lambda: fdn.flash_attention_bhdn_bwd(q, k, v, out, lse, do, **kw)},
+            {"bhdn": list(q.shape)})
 
 
-# family -> (chip_smoke module, device, shape name, mask sequences) ->
-# ({call name: call}, the shape's fields)
-FAMILIES = {"bhnd": _bhnd_calls, "dn": _dn_calls, "ln_mlp": _ln_mlp_calls}
+def _prologue_calls(kernel):
+    """B7 (``kernel="ln_qkv"``) or B8 (``"ln_mlp"``) at
+    `chip_smoke.PROLOGUE_SHAPES`' ``name``, as the smoke's phase calls it."""
+
+    def calls(c, dev, name, seqs, with_rope):
+        from vjepa2_tpu_torch.ops import ln_mlp, ln_qkv
+
+        row = {r[0]: r for r in c.PROLOGUE_SHAPES}[name]
+        _, B, N, C, H, D, hidden, tables, real = row
+        x, gamma, beta, w, bias, rope = c._prologue_case(dev, B, N, C, H, D, hidden, tables,
+                                                         real, seqs, kernel)
+        rope = rope if with_rope else None
+        if kernel == "ln_qkv":
+            return ({"fwd": lambda: ln_qkv.ln_qkv(x, gamma, beta, w, bias, rope, num_heads=H,
+                                                  head_dim=D)},
+                    {"bnc": [B, N, C], "heads": H, "head_dim": D})
+        return ({"fwd": lambda: ln_mlp.ln_mlp(x, gamma, beta, w, bias)},
+                {"bnc": [B, N, C], "hidden": hidden})
+
+    return calls
+
+
+# family -> (chip_smoke module, device, shape name, mask sequences, with
+# RoPE tables) -> ({call name: call}, the shape's fields)
+FAMILIES = {"bhnd": _bhnd_calls, "dn": _dn_calls, "dn_bwd": _dn_bwd_calls,
+            "ln_qkv": _prologue_calls("ln_qkv"), "ln_mlp": _prologue_calls("ln_mlp")}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("shapes", nargs="*", default=list(DEFAULT))
     ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--no-rope", action="store_true", help="drop the RoPE tables from each call")
+    ap.add_argument("--checkout", type=Path,
+                    help="time this checkout's kernels on this file's shapes (run by path)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as c
+    if args.checkout is not None and "vjepa2_tpu_torch" in sys.modules:
+        ap.error("--checkout: run this file by its path, so that the package comes from there")
+    sys.path.insert(0, str((args.checkout or ROOT).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    c = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(c)  # this checkout's shape tables
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", 0)
@@ -109,8 +156,9 @@ def main() -> int:
     for name in args.shapes:
         family, _, sub = name.rpartition(":")
         with torch.no_grad():
-            calls, rec = FAMILIES[family or "bhnd"](c, dev, sub, seqs)
-            rec = {"shape": name, **rec,
+            calls, rec = FAMILIES[family or "bhnd"](c, dev, sub, seqs, not args.no_rope)
+            rec = {"shape": name, **rec, "rope": not args.no_rope,
+                   "checkout": str(args.checkout or "."),
                    "host_us_per_call": {key: host_us(fn) for key, fn in calls.items()}}
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(args.calls):
@@ -120,7 +168,8 @@ def main() -> int:
         rec["device_ms_per_call"] = {
             m.group(): e.device_time_total / 1e3 / args.calls for e in prof.key_averages()
             if e.device_time_total > 0 and "at::" not in e.key
-            and (m := re.search(r"\w+_kernel(<[\w, ]*>)?", e.key))}
+            and (m := re.search(r"\w+_kernel(<[\w, <>]*>)?",
+                                e.key.replace("(anonymous namespace)::", "")))}
         print(json.dumps(rec), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

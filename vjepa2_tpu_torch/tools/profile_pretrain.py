@@ -42,18 +42,20 @@ MASK_CFGS = [
 ]
 FRAMES, SIZE, CLIPS = 16, 256, 8
 
-# first match wins (the BHND names contain B1's and B2's prologue names);
+# first match wins (the BHND names contain B1's prologue name); B7 and B8 are
+# one GEMM kernel told apart by its epilogue;
 # names are CUDA kernel names as the profiler reports them
 CATEGORIES = [
-    ("B8 ln_mlp", ("ln_gemm_wgmma_kernel",)),
-    ("B7 ln_qkv", ("ln_gemm_kernel<",)),
+    ("B7 ln_qkv", ("QkvEpilogue",)),
+    ("B8 ln_mlp", ("GeluEpilogue",)),
     ("B6 layernorm fwd (B7/B8 statistics)", ("ln_fwd_kernel",)),
     ("B6 layernorm bwd", ("ln_bwd_kernel",)),
     ("B3 flash_fwd_bhnd", ("flash_fwd_bhnd_kernel", "bhnd_rope_pack_kernel")),
     ("B4/B5 flash_bwd_bhnd", ("flash_bwd_bhnd_dkdv_kernel", "flash_bwd_bhnd_dq_kernel",
                               "bhnd_bwd_prologue_kernel")),
     ("B1 flash_fwd_dn", ("flash_fwd_dn_kernel", "rope_pack_kernel")),
-    ("B2 flash_bwd_dn", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel", "bwd_prologue_kernel")),
+    ("B2 flash_bwd_dn", ("flash_bwd_dn_dkdv_kernel", "flash_bwd_dn_dq_kernel",
+                         "dn_bwd_prologue_kernel")),
     ("optimizer (AdamW, EMA, grad norm)", ("multi_tensor_apply", "foreach", "fused_adam")),
     ("matmul", ("gemm", "sm90_xmma", "cutlass", "nvjet", "ampere_", "splitk", "sm80_xmma")),
     ("reductions", ("reduce_kernel", "Reduce", "norm_kernel")),
