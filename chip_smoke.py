@@ -55,7 +55,11 @@ Phases, each printed as one JSON object on a line of its own:
    card in bf16, one clip, one B3 (ViT-H) or B1 (ViT-L) launch per layer;
 12. kernel_ln — the LayerNorm kernels (B6 forward and backward) against
    their plain versions at [16384, 1024], [13312, 384], [16384, 1280] and
-   [16384, 1408] rows: y, mean and rstd; dx, dgamma and dbeta;
+   [16384, 1408] rows and at the fused step's other backward rows, [4672,
+   1024], [1408, 1024] and [12992, 384]: y, mean and rstd; dx, dgamma and
+   dbeta; each timed by CUDA events around back-to-back calls (``ms``) and by
+   the profiler with a cold L2 (``device_ms``, and its share of the bound),
+   beside the yardsticks' device time;
 13. kernel_ln_qkv / kernel_ln_mlp — the fused LayerNorm prologues (B7: LN +
    qkv + RoPE; B8: LN + fc1 + GELU; one wgmma and TMA mainloop) against their
    plain versions at the fused step's shapes (ViT-L target and contexts, the
@@ -210,12 +214,16 @@ TRAIN_CFGS = {
 }
 GIANT_REL_L2 = 5e-2  # bf16 on the card against fp32 on the CPU, 40 layers
 
-# B6 rows: (name, [R, C])
+# B6 rows: (name, [R, C]); the last three and the predictor's are the fused
+# ViT-L step's backward rows (the contexts' 578 and 173 tokens stack-padded)
 LN_SHAPES = [
     ("vit_large [8, 2048] rows", (16384, 1024)),
     ("predictor [8, 1664] rows", (13312, 384)),
     ("vit_huge [8, 2048] rows", (16384, 1280)),
     ("vit_giant [8, 2048] rows", (16384, 1408)),
+    ("vit_large context [8, 584] rows", (4672, 1024)),
+    ("vit_large context [8, 176] rows", (1408, 1024)),
+    ("predictor [8, 1624] rows", (12992, 384)),
 ]
 # B6 against plain from the same bf16 inputs: mean within 1e-5, rstd within
 # 1e-4 relative (summation order; rsqrtf within 2 ulp); y and dx are bf16
@@ -254,6 +262,53 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+FLUSH_BYTES = 64 << 20  # more than the card's 50 MB L2
+
+
+def device_times(fn, calls: int = 5, cold: bool = True) -> tuple[float, dict[str, float]]:
+    """(device ms per call of ``fn``, {kernel: device ms per call}) by
+    `torch.profiler`; the first is the time some kernel of the call runs
+    (the union of their intervals: a programmatic dependent launch overlaps
+    its primary), the second sums each kernel's own time (names cut to the
+    kernel's identifier). Cold: a 64 MiB write before each call evicts the
+    L2, so the call reads its inputs from device memory, as a train step
+    finds them; the write's kernels are left out (they are found by
+    profiling the write alone)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(body, skip=frozenset()) -> list[tuple[str, float, float]]:
+        # the profiler now and then returns a session without its device
+        # events: trace again, and fail rather than time nothing
+        for _ in range(5):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(calls):
+                    body(i)
+                torch.cuda.synchronize()
+            spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and e.name not in skip
+                     and e.time_range.end > e.time_range.start]
+            if spans:
+                return spans
+        raise RuntimeError("the profiler recorded no device events in five sessions")
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    skip = {name for name, _, _ in traced(lambda i: flush.fill_(1 + i))} if cold else set()
+    fn()  # warm-up
+    spans = sorted((a, b, name) for name, a, b in
+                   traced(lambda i: (flush.fill_(1 + i) if cold else None, fn()), skip))
+    by_kernel: dict[str, float] = {}
+    busy, end = 0.0, float("-inf")
+    for a, b, name in spans:
+        m = re.search(r"\w+_kernel(<[\w, <>]*>)?", name.replace("(anonymous namespace)::", ""))
+        key = m.group() if m else name[:80]
+        by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3 / calls
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3 / calls, by_kernel
 
 
 def bound(flops: float, nbytes: int, peak: float = PEAK_FLOPS) -> tuple[float, str]:
@@ -968,21 +1023,42 @@ def _within(got, want, atol, rtol) -> bool:
     return bool(torch.isfinite(got).all() and close.all())
 
 
-def phase_kernels_ln(dev, smi: str) -> tuple[dict, dict]:
-    """B6 forward and backward against their plain versions; `F.layer_norm`
-    (bf16 affine) and its autograd backward as the yardsticks."""
+def _ln_case(dev, R, C):
+    """(x, dy, gamma, beta) for one B6 shape: random bf16 rows and cotangent,
+    a random fp32 affine."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((rng.randn(R, C) * 2 + 0.3).astype(np.float32)).to(dev, torch.bfloat16)
+    dy = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dev, torch.bfloat16)
+    gamma = torch.from_numpy((rng.randn(C) * 0.5 + 1).astype(np.float32)).to(dev)
+    beta = torch.from_numpy((rng.randn(C) * 0.5).astype(np.float32)).to(dev)
+    return x, dy, gamma, beta
+
+
+def ln_yardsticks(x, dy, gamma, beta):
+    """`F.layer_norm` (bf16 affine) and its autograd backward on B6's inputs:
+    the yardsticks, never on the port's path."""
     import torch.nn.functional as F
 
+    C = x.shape[-1]
+    g16, b16 = gamma.bfloat16(), beta.bfloat16()
+    leaves = [t.detach().requires_grad_() for t in (x, g16, b16)]
+    with torch.enable_grad():
+        out = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2], 1e-6)
+    return (lambda: F.layer_norm(x, (C,), g16, b16, 1e-6),
+            lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+
+
+def phase_kernels_ln(dev, smi: str) -> tuple[dict, dict]:
+    """B6 forward and backward against their plain versions; `F.layer_norm`
+    (bf16 affine) and its autograd backward as the yardsticks. ``ms`` is CUDA
+    events around 20 back-to-back calls (host time where it exceeds the
+    device's); ``device_ms`` the kernels' own time by the profiler, cold L2."""
     from vjepa2_tpu_torch.ops import layernorm as ln
 
     firsts = [None, None]
     for name, (R, C) in LN_SHAPES:
-        rng = np.random.RandomState(0)
-        x = torch.from_numpy((rng.randn(R, C) * 2 + 0.3).astype(np.float32)).to(dev, torch.bfloat16)
-        dy = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dev, torch.bfloat16)
-        gamma = torch.from_numpy((rng.randn(C) * 0.5 + 1).astype(np.float32)).to(dev)
-        beta = torch.from_numpy((rng.randn(C) * 0.5).astype(np.float32)).to(dev)
-        g16, b16 = gamma.bfloat16(), beta.bfloat16()
+        x, dy, gamma, beta = _ln_case(dev, R, C)
+        lib_fwd, lib_bwd = ln_yardsticks(x, dy, gamma, beta)
         with torch.no_grad():
             y, mean, rstd = ln.ln_forward(x, gamma, beta)
             grads = ln.ln_backward(x, dy, gamma, mean, rstd)
@@ -1000,20 +1076,21 @@ def phase_kernels_ln(dev, smi: str) -> tuple[dict, dict]:
             ok_bwd = (_within(grads[0], grads_p[0], LN_ATOL, LN_RTOL)
                       and bwd_err["dgamma_rel_l2"] <= LN_PARAM_REL_L2
                       and bwd_err["dbeta_rel_l2"] <= LN_PARAM_REL_L2)
+            del y_p, grads_p
+            run = {"fwd": lambda: ln.ln_forward(x, gamma, beta),
+                   "bwd": lambda: ln.ln_backward(x, dy, gamma, mean, rstd)}
             times = {
-                "fwd": (cuda_ms(lambda: ln.ln_forward(x, gamma, beta), 20),
+                "fwd": (cuda_ms(run["fwd"], 20),
                         cuda_ms(lambda: ln.ln_forward_f32(x, gamma, beta, 1e-6)[0].to(x.dtype), 5),
-                        cuda_ms(lambda: F.layer_norm(x, (C,), g16, b16, 1e-6), 20)),
-                "bwd": (cuda_ms(lambda: ln.ln_backward(x, dy, gamma, mean, rstd), 20),
+                        cuda_ms(lib_fwd, 20)),
+                "bwd": (cuda_ms(run["bwd"], 20),
                         cuda_ms(lambda: ln.ln_backward_f32(x, dy.float(), gamma, mean_p, rstd_p),
-                                5)),
+                                5),
+                        cuda_ms(lib_bwd, 20)),
             }
-        leaves = [t.detach().requires_grad_() for t in (x, g16, b16)]
-        with torch.enable_grad():
-            out = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2], 1e-6)
-            times["bwd"] += (cuda_ms(lambda: torch.autograd.grad(out, leaves, dy,
-                                                                 retain_graph=True), 20),)
-        del out, leaves
+            dev_times = {part: device_times(fn) for part, fn in run.items()}
+            library_dev = {"fwd": device_times(lib_fwd)[0], "bwd": device_times(lib_bwd)[0]}
+        del lib_fwd, lib_bwd
         # fp32 work on the CUDA cores, ~8 (forward) and ~13 (backward) operations an element
         bounds = {"fwd": bound(8 * R * C, nbytes(x, gamma, beta, y, mean, rstd), PEAK_FP32),
                   "bwd": bound(13 * R * C, nbytes(x, dy, gamma, mean, rstd, *grads), PEAK_FP32)}
@@ -1025,10 +1102,14 @@ def phase_kernels_ln(dev, smi: str) -> tuple[dict, dict]:
                  {"dx": f"{LN_ATOL} + {LN_RTOL}*|plain|",
                   "dgamma/dbeta_rel_l2": LN_PARAM_REL_L2}))):
             part = kernel[-3:]
+            dev_ms, by_kernel = dev_times[part]
             rec = {"phase": "kernel_ln", "kernel": kernel, "shape": name, "rows": [R, C],
                    "ms": times[part][0], "plain_ms": times[part][1], "library_ms": times[part][2],
+                   "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
+                   "library_device_ms": library_dev[part],
                    "library": "F.layer_norm (bf16 affine)" + (" backward" if i else ""),
-                   "bound_ms": bounds[part][0], "bound_by": bounds[part][1], "errors": err,
+                   "bound_ms": bounds[part][0], "bound_by": bounds[part][1],
+                   "bound_share": bounds[part][0] / dev_ms, "errors": err,
                    "max_abs_err": err["y" if i == 0 else "dx"], "tol": tol, "ok": ok, "gpu": smi}
             emit(rec)
             if not ok:
@@ -1265,9 +1346,12 @@ def main() -> int:
         entry("flash_bwd_bhnd", BHND_BWD_SOURCE, BHND_BWD_REPLACES, total[3], rec_bhnd_bwd,
               "max_abs_err"),
         entry("layernorm_fwd", LN_SOURCE, LN_FWD_REPLACES, total[4], rec_ln_fwd, "max_abs_err",
-              note="off the model paths, as in JAX (layernorm.py:20-26); its statistics code "
-                   "is the first launch of every ln_qkv and ln_mlp call"),
-        entry("layernorm_bwd", LN_SOURCE, LN_BWD_REPLACES, total[5], rec_ln_bwd, "max_abs_err"),
+              device_ms=rec_ln_fwd["device_ms"],
+              note="off the model paths, as in JAX (layernorm.py:20-26); the forward "
+                   "writing mean and rstd only (ln_stats_kernel, ln_common.cuh) is the first "
+                   "launch of every ln_qkv and ln_mlp call (192 a fused ViT-L step)"),
+        entry("layernorm_bwd", LN_SOURCE, LN_BWD_REPLACES, total[5], rec_ln_bwd, "max_abs_err",
+              device_ms=rec_ln_bwd["device_ms"]),
         entry("ln_qkv", LN_GEMM_SOURCE, LN_QKV_REPLACES, total[6], rec_qkv, "max_abs_err",
               library=rec_qkv["library"]),
         entry("ln_mlp", LN_GEMM_SOURCE, LN_MLP_REPLACES, total[7], rec_mlp, "max_abs_err",

@@ -373,7 +373,9 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
     (one instantiation per head width), B1's main kernel and B2's dK/dV and
     dQ kernels (per width), and the LayerNorm GEMM of B8 and B7 (B8's tile,
     and B7's per head width and heads a tile). No function in the library
-    contains HMMA.16816: no kernel of the port is left on mma.sync."""
+    contains HMMA.16816: no kernel of the port is left on mma.sync. B6's
+    forward and backward (one instantiation per width) copy their rows with
+    the bulk copy (UBLKCP)."""
     import os
     import subprocess
 
@@ -399,3 +401,10 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
         for name, body in found.items():
             assert "HGMMA" in body, name
     assert not [n for n, b in bodies.items() if "HMMA.16816" in b]
+    # B6's forward and backward stream their rows by bulk copy (cp.async.bulk:
+    # UBLKCP), one instantiation per width
+    for kernel, count in (("ln_fwd_kernel", 4), ("ln_bwd_kernel", 4)):
+        found = {n: b for n, b in bodies.items() if kernel in n}
+        assert len(found) == count, (kernel, sorted(found))
+        for name, body in found.items():
+            assert "UBLKCP" in body, name

@@ -4,7 +4,8 @@ JAX package's `layer_norm` with its Pallas kernels in interpret mode and its
 custom VJP (`_ln_core_bwd`, the backward kernel in interpret mode):
 
 * the forward and the gradients of x, gamma and beta for a weighted sum of
-  the output, at [2, 24, 128] and [3, 40, 256], fp32;
+  the output, at [2, 24, 128] and [3, 40, 256], and at the kernels' widths
+  with ragged rows, [1003, 384] and [37, 1408], fp32;
 * the plain formulas `ln_forward_f32` / `ln_backward_f32` against the JAX
   package's own, with their saved statistics;
 * bf16 rows: the output in x's dtype, the gradients of a bf16 x in bf16, the
@@ -38,7 +39,8 @@ def _inputs(shape, seed=0):
     return x, gamma, beta, w
 
 
-@pytest.mark.parametrize("shape", [(2, 24, 128), (3, 40, 256)])
+# the last two at the port's widths, with row counts no block size divides
+@pytest.mark.parametrize("shape", [(2, 24, 128), (3, 40, 256), (1003, 384), (37, 1408)])
 def test_layer_norm_and_grads_match_jax_kernels(shape):
     x, gamma, beta, w = _inputs(shape)
 

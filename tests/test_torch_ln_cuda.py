@@ -1,21 +1,23 @@
-"""The hand-written LayerNorm kernels (B6 `vjepa2_tpu_torch/csrc/layernorm.cu`) and
-the fused LayerNorm prologues (B7 and B8, `csrc/ln_gemm_hopper.cu`, on wgmma
-and TMA) against their
-plain PyTorch versions on the card, over the edges the model shapes do not
-reach: ragged row counts (not multiples of a warp's 8 rows, of B6's 64-row
-partial blocks or of the GEMM's 128-row tiles); rows of zeros (the models'
-stack pad), which must give beta and no NaN; shared against per-example RoPE
-tables, at row counts that are not multiples of a 128-row tile (tiles across
-examples); every width the kernels take (D 32, 64, 80, 88; C 384, 1024, 1280,
-1408; hidden 1536, 4096, 5120, 6144), and B7 at every column tile of its
-plan (vit_giant_xformers' 22 heads of 64 among them); shapes and dtypes they
-refuse; B6's
-dgamma/dbeta and B8's h equal from run to run; B8 at R = 1 and ragged R
-(37, 130, 1003: part of a 128-row tile, tiles across examples, more
-tiles than a persistent block's first) and on an x view TMA cannot read
-in place (copied, still launched); and a grad-mode forward and backward
-through a fused `Block` on the card against the same block in fp32 on the
-CPU.
+"""The hand-written LayerNorm kernels (B6 `vjepa2_tpu_torch/csrc/layernorm.cu`,
+`csrc/ln_common.cuh`) and the fused LayerNorm prologues (B7 and B8,
+`csrc/ln_gemm_hopper.cu`, on wgmma and TMA) against their plain PyTorch
+versions on the card, over the edges the model shapes do not reach: ragged
+row counts (not multiples of a ring stage's rows or of the GEMM's 128-row
+tiles), fewer rows than B6's persistent grid has blocks, and the fused
+step's row counts; rows of zeros (the models' stack pad), which must give
+beta and no NaN; B6's statistics launch against its forward; B6's backward
+launching only its two kernels (no torch reduction of partials), and its
+lane groups against `ln_row_plan`; shared against per-example RoPE tables,
+at row counts that are not multiples of a 128-row tile (tiles across
+examples); every width the kernels take (D 32, 64, 80, 88; C 384, 1024,
+1280, 1408; hidden 1536, 4096, 5120, 6144), and B7 at every column tile of
+its plan (vit_giant_xformers' 22 heads of 64 among them); shapes and dtypes
+they refuse; B6's dgamma/dbeta (at every width, at the fused step's rows)
+and B8's h equal from run to run; B8 at R = 1 and ragged R (37, 130, 1003:
+part of a 128-row tile, tiles across examples, more tiles than a persistent
+block's first) and on an x view TMA cannot read in place (copied, still
+launched); and a grad-mode forward and backward through a fused `Block` on
+the card against the same block in fp32 on the CPU.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
@@ -90,7 +92,9 @@ def _zero_rows(x, rows):
 
 
 @pytest.mark.parametrize("C", tln.LN_WIDTHS)
-@pytest.mark.parametrize("R", [1, 7, 100, 1003])
+# fewer rows than SMs (1, 7, 100), ragged (1003), the fused step's contexts
+# and predictor (1408, 4672, 12992)
+@pytest.mark.parametrize("R", [1, 7, 100, 1003, 1408, 4672, 12992])
 def test_layernorm_fwd_bwd_match_plain(dev, C, R):
     x = _zero_rows(_rand((R, C), dev, 0, 2.0, 0.3), [R - 1])  # the last row a pad row
     gamma, beta = _affine(C, dev)
@@ -111,9 +115,9 @@ def test_layernorm_fwd_bwd_match_plain(dev, C, R):
     assert _rel_l2(dgamma, dg_p) <= 1e-4 and _rel_l2(dbeta, db_p) <= 1e-4
 
 
-@pytest.mark.parametrize("C", [384, 1408])
-def test_layernorm_bwd_partials_are_deterministic(dev, C):
-    R = 16384 + 37
+@pytest.mark.parametrize("C", tln.LN_WIDTHS)
+@pytest.mark.parametrize("R", [16384 + 37, 1408, 4672, 12992])
+def test_layernorm_bwd_partials_are_deterministic(dev, C, R):
     x, dy = _rand((R, C), dev, 0), _rand((R, C), dev, 1)
     gamma, beta = _affine(C, dev)
     with torch.no_grad():
@@ -122,6 +126,57 @@ def test_layernorm_bwd_partials_are_deterministic(dev, C):
         for _ in range(3):
             again = tln.ln_backward(x, dy, gamma, mean, rstd)
             assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("C", tln.LN_WIDTHS)
+def test_layernorm_statistics_launch_matches_forward(dev, C):
+    """`ln_stats`, the forward kernel writing no output (B7's and B8's first
+    launch), gives the forward's mean and rstd bit for bit."""
+    x = _rand((4672, C), dev, 2, 2.0, 0.3)
+    gamma, beta = _affine(C, dev)
+    _, mean, rstd = tln.ln_forward(x, gamma, beta)
+    mean_s, rstd_s = tln.ln_stats(x, gamma, beta)
+    assert torch.equal(mean, mean_s) and torch.equal(rstd, rstd_s)
+
+
+def test_layernorm_backward_runs_only_the_ports_kernels(dev):
+    """One `ln_backward` call on the card launches B6's backward and its
+    partial-row sum and nothing else: no torch reduction (`reduce_kernel`)
+    sums the partials."""
+    from torch.profiler import ProfilerActivity, profile
+
+    R, C = 4672, 1024
+    x, dy = _rand((R, C), dev, 0), _rand((R, C), dev, 1)
+    gamma, beta = _affine(C, dev)
+    _, mean, rstd = tln.ln_forward(x, gamma, beta)
+    tln.ln_backward(x, dy, gamma, mean, rstd)  # built and warm
+    torch.cuda.synchronize()
+    for _ in range(5):  # a profiler session now and then records no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tln.ln_backward(x, dy, gamma, mean, rstd)
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+        if kernels:
+            break
+    assert not [k for k in kernels if "reduce_kernel" in k], kernels
+    assert sorted(k.split("<")[0].split("::")[-1] for k in kernels) == [
+        "ln_bwd_kernel", "ln_bwd_sum_kernel"], kernels
+
+
+def test_layernorm_lane_groups_match_the_plan(dev):
+    """The kernels' compile-time lane groups are the ones `ln_row_plan`
+    reports (and `tests/test_torch_layernorm_plan.py` checks)."""
+    import ctypes
+
+    from vjepa2_tpu_torch import _build
+
+    _, fn = _build.function("vjepa2_layernorm_layout",
+                            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2)
+    for C in tln.LN_WIDTHS:
+        lanes, per_lane = ctypes.c_int(), ctypes.c_int()
+        assert fn(C, ctypes.byref(lanes), ctypes.byref(per_lane)) == 0
+        plan = tln.ln_row_plan(100, C, 132)
+        assert (lanes.value, per_lane.value) == (plan.lanes, plan.per_lane), C
 
 
 def test_layer_norm_autograd_on_the_card(dev):

@@ -31,8 +31,8 @@
 // `tools/profile_kernels.py`).
 //
 // Design (`bhnd_hopper.cuh` for the machinery):
-//   * launch 1, `ln_fwd_kernel` with no output (`ln_common.cuh`, B6's
-//     forward): mean and rstd [R], which are outputs anyway;
+//   * launch 1, `ln_stats_kernel` (`ln_common.cuh`, B6's forward writing
+//     no output): mean and rstd [R], which are outputs anyway;
 //   * launch 2, `ln_gemm_wgmma_kernel`: persistent, one block an SM walking
 //     128 x BN output tiles (row tiles outer, column tiles inner; BN 256 for
 //     B8, heads x D for B7); a producer warp feeds a 4-stage ring by TMA
@@ -442,9 +442,8 @@ extern "C" int vjepa2_ln_mlp_bf16(const void* x, const void* gamma, const void* 
   p.e.bias = static_cast<const float*>(bias);
   p.e.h = static_cast<bf16*>(h);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_ln_fwd(static_cast<const bf16*>(x), g.gamma, g.beta, nullptr,
-                                  static_cast<float*>(mean), static_cast<float*>(rstd), R, C, eps,
-                                  s);
+  cudaError_t err = launch_ln_stats(static_cast<const bf16*>(x), static_cast<float*>(mean),
+                                    static_cast<float*>(rstd), R, C, eps, s);
   if (err != cudaSuccess) return err;
   return launch_ln_gemm(p, s);
 }
@@ -497,9 +496,8 @@ extern "C" int vjepa2_ln_qkv_bf16(const void* x, const void* gamma, const void* 
     p.e.N = N;
     p.e.H = H;
     p.e.tb = cos_t != nullptr ? tb : 1;
-    cudaError_t err = launch_ln_fwd(static_cast<const bf16*>(x), g.gamma, g.beta, nullptr,
-                                    static_cast<float*>(mean), static_cast<float*>(rstd), R, C,
-                                    eps, s);
+    cudaError_t err = launch_ln_stats(static_cast<const bf16*>(x), static_cast<float*>(mean),
+                                      static_cast<float*>(rstd), R, C, eps, s);
     return err != cudaSuccess ? err : launch_ln_gemm(p, s);
   };
   switch (D * 16 + heads) {  // the instantiated tiles

@@ -21,7 +21,17 @@ A shape is a family and a name of the smoke's shape table for it
 of ``SHAPES`` (B1: its prologue and main kernel), ``dn_bwd:`` and a name of
 ``BWD_SHAPES`` (B2: its prologue, dK/dV and dQ kernels), ``ln_qkv:`` or
 ``ln_mlp:`` and a name of ``PROLOGUE_SHAPES`` (B7 or B8: the statistics
-launch and the GEMM).
+launch and the GEMM), ``ln:`` and a name of ``LN_SHAPES`` (B6: the forward,
+the statistics-only forward that B7 and B8 launch first, the backward, the
+yardsticks `F.layer_norm` and its autograd backward, and `x.clone` and
+`x.sum`, which move the forward's and the statistics launch's bytes).
+
+The ``ln`` family times each call on its own and twice: cold, with a 64 MiB
+write before each call so that the call reads its rows from device memory
+(B6's rows are 8-100 MB, the card's L2 50 MB), and warm, back to back; the
+write's kernels are left out (`chip_smoke.device_times`). It prints the
+device ms of each call (the time some kernel of it runs) and of each kernel,
+the bound (bytes over 3.35 TB/s) and the share of it taken cold.
 
 ``--no-rope`` drops the RoPE tables from every call (the ``bhnd``, ``dn``,
 ``dn_bwd`` and ``ln_qkv`` families): what the rotation costs a kernel.
@@ -126,10 +136,66 @@ def _prologue_calls(kernel):
     return calls
 
 
+def _ln_calls(c, dev, name, seqs, rope):
+    """B6 at `chip_smoke.LN_SHAPES`' ``name``: the forward, the statistics-only
+    forward (the first launch of B7 and B8), the backward, and the yardsticks
+    `F.layer_norm` and its autograd backward, `x.clone` (the forward's bytes)
+    and `x.sum` (the statistics launch's); with each kernel call's bound
+    (bytes: each input read once, each output written once)."""
+    from vjepa2_tpu_torch.ops import layernorm as ln
+
+    R, C = dict(c.LN_SHAPES)[name]
+    x, dy, gamma, beta = c._ln_case(dev, R, C)
+    _, mean, rstd = ln.ln_forward(x, gamma, beta)
+    lib_fwd, lib_bwd = c.ln_yardsticks(x, dy, gamma, beta)
+    rows, params, stats = R * C * 2, C * 4, R * 4
+    bounds = {"fwd": 2 * rows + 2 * params + 2 * stats, "stats": rows + 2 * stats,
+              "bwd": 3 * rows + 3 * params + 2 * stats}
+    return ({"fwd": lambda: ln.ln_forward(x, gamma, beta),
+             "stats": _ln_stats_call(ln, x, gamma, beta),
+             "bwd": lambda: ln.ln_backward(x, dy, gamma, mean, rstd),
+             "F.layer_norm": lib_fwd, "F.layer_norm backward": lib_bwd,
+             "x.clone": x.clone, "x.sum": x.sum},
+            {"rows": [R, C],
+             "bound_ms": {k: b / c.PEAK_BYTES * 1e3 for k, b in bounds.items()}})
+
+
+def _ln_stats_call(ln, x, gamma, beta):
+    """The statistics-only B6 forward, as B7 and B8 launch it first: through
+    `ln_stats`, or, in a checkout from before it, through the C entry point
+    with a null output (the PR 4-7 signature)."""
+    if hasattr(ln, "ln_stats"):
+        return lambda: ln.ln_stats(x, gamma, beta)
+    import ctypes
+
+    from vjepa2_tpu_torch import _build
+
+    R, C = x.shape
+    mean, rstd = (torch.empty(R, dtype=torch.float32, device=x.device) for _ in range(2))
+    _, fn = _build.function("vjepa2_layernorm_fwd_bf16", [ctypes.c_void_p] * 6
+                            + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    args = (*map(_build.ptr, (x, gamma, beta, None, mean, rstd)), R, C, 1e-6)
+    return lambda: fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def _ln_device(c, calls, bound_ms, n):
+    """Device ms per call, cold (the L2 evicted before each call) and warm,
+    in all and by kernel, and the port's share of the bound (cold)."""
+    cold = {key: c.device_times(fn, n) for key, fn in calls.items()}
+    warm = {key: c.device_times(fn, n, cold=False) for key, fn in calls.items()}
+    return {"device_ms_cold": {key: t[0] for key, t in cold.items()},
+            "device_ms_warm": {key: t[0] for key, t in warm.items()},
+            "device_ms_cold_by_kernel": {key: t[1] for key, t in cold.items()},
+            "device_ms_warm_by_kernel": {key: t[1] for key, t in warm.items()},
+            "bound_ms": bound_ms,
+            "bound_share_cold": {key: b / cold[key][0] for key, b in bound_ms.items()}}
+
+
 # family -> (chip_smoke module, device, shape name, mask sequences, with
 # RoPE tables) -> ({call name: call}, the shape's fields)
 FAMILIES = {"bhnd": _bhnd_calls, "dn": _dn_calls, "dn_bwd": _dn_bwd_calls,
-            "ln_qkv": _prologue_calls("ln_qkv"), "ln_mlp": _prologue_calls("ln_mlp")}
+            "ln_qkv": _prologue_calls("ln_qkv"), "ln_mlp": _prologue_calls("ln_mlp"),
+            "ln": _ln_calls}
 
 
 def main() -> int:
@@ -160,6 +226,10 @@ def main() -> int:
             rec = {"shape": name, **rec, "rope": not args.no_rope,
                    "checkout": str(args.checkout or "."),
                    "host_us_per_call": {key: host_us(fn) for key, fn in calls.items()}}
+            if family == "ln":
+                rec.update(_ln_device(c, calls, rec.pop("bound_ms"), args.calls))
+                print(json.dumps(rec), flush=True)
+                continue
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(args.calls):
                     for fn in calls.values():

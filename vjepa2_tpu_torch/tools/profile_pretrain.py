@@ -15,7 +15,9 @@ step. Runs two warm-up steps, then:
 * traces the same number of steps with `torch.profiler` and sums the device
   time of every kernel into categories (B1, B2, B3, the BHND backward, B6,
   B7, B8, matmul, elementwise, reductions, copies and casts, gathers, optimizer,
-  other).
+  other); a kernel counts only the time no earlier kernel already covers, so
+  that a programmatic dependent launch, resident while its primary runs,
+  counts its tail.
 
 Prints one JSON object; with ``--out`` it also writes it and the gzipped
 Chrome trace there. Needs a CUDA device.
@@ -48,8 +50,8 @@ FRAMES, SIZE, CLIPS = 16, 256, 8
 CATEGORIES = [
     ("B7 ln_qkv", ("QkvEpilogue",)),
     ("B8 ln_mlp", ("GeluEpilogue",)),
-    ("B6 layernorm fwd (B7/B8 statistics)", ("ln_fwd_kernel",)),
-    ("B6 layernorm bwd", ("ln_bwd_kernel",)),
+    ("B6 layernorm fwd (B7/B8 statistics)", ("ln_stats_kernel", "ln_fwd_kernel")),
+    ("B6 layernorm bwd", ("ln_bwd_kernel", "ln_bwd_sum_kernel")),
     ("B3 flash_fwd_bhnd", ("flash_fwd_bhnd_kernel", "bhnd_rope_pack_kernel")),
     ("B4/B5 flash_bwd_bhnd", ("flash_bwd_bhnd_dkdv_kernel", "flash_bwd_bhnd_dq_kernel",
                               "bhnd_bwd_prologue_kernel")),
@@ -142,14 +144,22 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     kernels = defaultdict(lambda: [0.0, 0])
+    spans = []
     for evt in prof.events():
         # device-side ranges of user annotations (``Optimizer.step#AdamW.step``)
         # span kernels counted on their own
         annotation = (getattr(evt, "is_user_annotation", False)
                       or evt.name.startswith(("Optimizer.", "ProfilerStep#")))
         if evt.device_type == torch.autograd.DeviceType.CUDA and not annotation:
-            kernels[evt.name][0] += evt.time_range.elapsed_us() / 1e3 / args.steps
-            kernels[evt.name][1] += 1
+            spans.append((evt.time_range.start, evt.time_range.end, evt.name))
+    # each kernel adds to the busy time what earlier kernels do not already
+    # cover: a programmatic dependent launch (B6's partial-row sum) is
+    # resident, waiting, while its primary runs, and only its tail counts
+    covered = float("-inf")
+    for start, end, name in sorted(spans):
+        kernels[name][0] += max(0.0, end - max(start, covered)) / 1e3 / args.steps
+        kernels[name][1] += 1
+        covered = max(covered, end)
     cats = defaultdict(float)
     for name, (ms, _) in kernels.items():
         cats[category(name)] += ms
