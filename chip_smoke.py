@@ -71,7 +71,38 @@ Phases, each printed as one JSON object on a line of its own:
    B8 96, B3 96, the BHND backward 72, the B6 backward 144 and B1/B2 0
    times; the checks of phase 6 against the fp32 CPU path with the same
    fusions; and, interleaved step by step in the same phase, the unfused
-   step of phase 6 beside it (the A/B; nothing is claimed from it).
+   step of phase 6 beside it (the A/B; nothing is claimed from it);
+15. train_loop — the pretraining loop: `vjepa2_tpu_torch.cli.main`'s
+   `run_vjepa` (the `Pretrainer`: prefetch to the card, CSV log, rolling
+   checkpoint) on the shipped ViT-H config (`LOOP_CONFIG`, equal to
+   `configs/train/vith16/pretrain-256px-16f.yaml`: vit_huge, batch 16,
+   16f@256, full remat, bf16, synthetic clips), overriding only the run
+   folder, ``optimization.ipe`` (4) and the epochs, as printed: epoch 0,
+   then a new trainer on the same folder resumes from the checkpoint and
+   runs epoch 1. Every step launches B3 160, the BHND backward 64, B1 48
+   and B2 24 times; finite losses; the restored state bit-equal to the
+   saved one; the resumed run's first step is step 4 with the schedules'
+   lr, weight decay and EMA momentum there and the masks of an
+   uninterrupted run; the CSV holds 8 rows. Prints the loop's ms a step as
+   it runs (no added sync: from each part's second step to its checkpoint
+   save), clips/s, peak memory, the checkpoints' bytes and save seconds,
+   and the wall, device-busy time and idle share of one more step, all three
+   from one traced call;
+16. train_accum — `run_vjepa` on the shipped ViT-L 64-frame cooldown
+   (`ACCUM_CONFIG`: batch 12 as 6 microbatches of 2, save_attn_qkv_h),
+   overriding ``mesh.model`` 4 -> 1 (one card), the folder, ipe (3) and
+   the epochs: 1 warm-up and 2 timed steps, each launching B1 576 and B2
+   432 times; then, on one microbatch of 2 clips, the loss and gradients
+   under save_attn_qkv_h against no remat on the card, bit-equal (the
+   recompute runs the same kernels on the same inputs, and no kernel on the
+   path adds in a varying order), and the microbatch under no remat, full,
+   save_attn, save_attn_qkv and save_attn_qkv_h: peak memory, and the wall,
+   device-busy time and idle share of one traced call each; the loop's ms a
+   step as in phase 15, and one more step traced.
+The kernel phases 3 and 5 also hold B1 and B2 at the cooldown's shapes
+([2,16,64,8192] target, the contexts of 2302 and 568 tokens, the predictor
+sequences of 6479 and 6471), with per-example RoPE tables of real collator
+masks. A ``seconds`` line gives each phase's time and the script's total.
 
 Every attention kernel phase also times
 `torch.nn.functional.scaled_dot_product_attention` on the same inputs
@@ -120,12 +151,20 @@ LN_MLP_REPLACES = "vjepa2_tpu/ops/ln_mlp.py:78"
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 PEAK_FP32 = 67e12  # fp32 outside the tensor cores (the LayerNorm kernels' arithmetic)
 
-# (name, [B, H, D, N], features) — the shapes B1 takes on the main paths
+# (name, [B, H, D, N], features) — the shapes B1 takes on the main paths;
+# the cooldown's (phase train_accum, one microbatch of 2 clips at 64f) take
+# per-example tables of real collator masks ("seq", `_cooldown_seqs`), N
+# stack-padded to a multiple of 8 with the real length as kv_valid
 SHAPES = [
     ("vit_large encoder", (8, 16, 64, 2048), {}),
     ("pretrain predictor", (8, 12, 32, 1664), {"kv_valid_len": 1623}),
     ("ac predictor", (8, 16, 64, 1806), {"segments": 7}),
     ("vit_giant_xformers encoder", (2, 22, 64, 2048), {}),
+    ("cooldown target", (2, 16, 64, 8192), {}),
+    ("cooldown context, mask 0", (2, 16, 64, 2304), {"seq": "cool_ctx0"}),
+    ("cooldown context, mask 1", (2, 16, 64, 568), {"seq": "cool_ctx1"}),
+    ("cooldown predictor, mask 0", (2, 12, 32, 6480), {"seq": "cool_pred0"}),
+    ("cooldown predictor, mask 1", (2, 12, 32, 6472), {"seq": "cool_pred1"}),
 ]
 # Kernel against plain, both from the same bf16 inputs: they round q at
 # different points (after vs before the scale) and p at different points
@@ -155,6 +194,10 @@ BWD_SHAPES = [
     ("predictor, mask 0", 12, 32, "pred0"),
     ("predictor, mask 1", 12, 32, "pred1"),
     ("ac predictor", 16, 64, "ac"),
+    ("cooldown context, mask 0", 16, 64, "cool_ctx0"),
+    ("cooldown context, mask 1", 16, 64, "cool_ctx1"),
+    ("cooldown predictor, mask 0", 12, 32, "cool_pred0"),
+    ("cooldown predictor, mask 1", 12, 32, "cool_pred1"),
 ]
 # B2 against plain: both from the same bf16 inputs, plain in fp32. The kernels
 # round at 2**-9 relative where plain does not: q_s and k_rot, q_u, p before
@@ -213,6 +256,64 @@ TRAIN_CFGS = {
     ("vit_large", "qkv,mlp"): ("train_fused", (0, 0, 96, 72, 0, 144, 96, 96)),
 }
 GIANT_REL_L2 = 5e-2  # bf16 on the card against fp32 on the CPU, 40 layers
+# launches a step of the loop phases, in the order of KERNEL_COUNTS. ViT-H at
+# batch 16 under full remat: B3 32 target + 2 x 32 context + 64 recomputed,
+# the BHND backward 64, B1 2 x 12 predictor + 24 recomputed, B2 24. The
+# cooldown under save_attn_qkv_h (nothing recomputes the attention forward),
+# 6 microbatches of 24 target + 2 x 24 context + 2 x 12 predictor B1 and
+# 2 x (24 + 12) B2.
+LOOP_LAUNCHES = (48, 24, 160, 64, 0, 0, 0, 0)
+ACCUM_LAUNCHES = (6 * 96, 6 * 72, 0, 0, 0, 0, 0, 0)
+
+# The shipped configs the loop phases run, held here as `yaml.safe_load`
+# gives them (the card's host may lack PyYAML; `tests/test_torch_loop.py`
+# checks them against the files). Each phase overrides only what it prints:
+# the run folder (a temporary directory), `optimization.ipe` and the epochs;
+# the cooldown also `mesh.model` 4 -> 1 (one card has no context-parallel
+# axis; JAX too turns context parallelism off at 1, `loop.py:124-127`).
+_MASKS_8_2 = [
+    {"aspect_ratio": [0.75, 1.5], "num_blocks": 8, "spatial_scale": [0.15, 0.15],
+     "temporal_scale": [1.0, 1.0]},
+    {"aspect_ratio": [0.75, 1.5], "num_blocks": 2, "spatial_scale": [0.7, 0.7],
+     "temporal_scale": [1.0, 1.0]},
+]
+LOOP_CONFIG_FILE = "configs/train/vith16/pretrain-256px-16f.yaml"
+LOOP_CONFIG = {
+    "app": "vjepa", "folder": "./runs/vith16-pretrain-256px-16f",
+    "mesh": {"data": -1, "fsdp": 1, "model": 1},
+    "data": {"datasets": [], "batch_size": 16, "crop_size": 256, "patch_size": 16,
+             "dataset_fpcs": [16], "tubelet_size": 2, "fps": 4, "num_workers": 8},
+    "data_aug": {"random_resize_aspect_ratio": [0.75, 1.35], "random_resize_scale": [0.3, 1.0]},
+    "loss": {"loss_exp": 1.0},
+    "mask": _MASKS_8_2,
+    "meta": {"dtype": "bfloat16", "seed": 239, "load_checkpoint": True},
+    "model": {"model_name": "vit_huge", "pred_depth": 12, "pred_embed_dim": 384,
+              "pred_num_heads": 12, "uniform_power": True, "use_activation_checkpointing": True,
+              "use_mask_tokens": True, "use_rope": True, "zero_init_mask_tokens": True},
+    "optimization": {"ema": [0.99925, 0.99925], "epochs": 10, "final_lr": 0.000425,
+                     "final_weight_decay": 0.04, "ipe": 300, "ipe_scale": 1.25, "lr": 0.000425,
+                     "start_lr": 0.0001, "warmup": 40, "weight_decay": 0.04},
+}
+LOOP_IPE = 4
+LOOP_OVERRIDES = {"optimization.ipe": LOOP_IPE, "optimization.epochs": 2}
+ACCUM_CONFIG_FILE = "configs/train/vitl16/cooldown-256px-64f.yaml"
+ACCUM_CONFIG = {
+    "app": "vjepa", "folder": "./runs/vitl16-cooldown-256px-64f",
+    "mesh": {"data": -1, "fsdp": 1, "model": 4},
+    "data": {"datasets": [], "batch_size": 12, "crop_size": 256, "patch_size": 16,
+             "dataset_fpcs": [64], "tubelet_size": 2, "fps": 4, "num_workers": 8},
+    "loss": {"loss_exp": 1.0},
+    "mask": _MASKS_8_2,
+    "meta": {"dtype": "bfloat16", "seed": 239, "load_checkpoint": True, "read_checkpoint": None},
+    "model": {"model_name": "vit_large", "pred_depth": 12, "pred_embed_dim": 384,
+              "pred_num_heads": 12, "uniform_power": True, "use_activation_checkpointing": True,
+              "remat_policy": "save_attn_qkv_h", "use_mask_tokens": True, "use_rope": True,
+              "context_parallel": True},
+    "optimization": {"ema": [0.99925, 0.99925], "epochs": 4, "final_lr": 1.0e-06,
+                     "final_weight_decay": 0.04, "grad_accum": 6, "ipe": 300, "ipe_scale": 1.25,
+                     "lr": 0.000525, "start_lr": 0.000525, "warmup": 0, "weight_decay": 0.04},
+}
+ACCUM_OVERRIDES = {"mesh.model": 1, "optimization.ipe": 3, "optimization.epochs": 1}
 
 # B6 rows: (name, [R, C]); the last three and the predictor's are the fused
 # ViT-L step's backward rows (the contexts' 578 and 173 tokens stack-padded)
@@ -250,6 +351,19 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def overridden(raw: dict, overrides: dict) -> dict:
+    """A deep copy of the config ``raw`` with each dotted key of
+    ``overrides`` set."""
+    out = json.loads(json.dumps(raw))
+    for key, value in overrides.items():
+        *path, leaf = key.split(".")
+        node = out
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    return out
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -276,39 +390,61 @@ def device_times(fn, calls: int = 5, cold: bool = True) -> tuple[float, dict[str
     L2, so the call reads its inputs from device memory, as a train step
     finds them; the write's kernels are left out (they are found by
     profiling the write alone)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def traced(body, skip=frozenset()) -> list[tuple[str, float, float]]:
-        # the profiler now and then returns a session without its device
-        # events: trace again, and fail rather than time nothing
-        for _ in range(5):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for i in range(calls):
-                    body(i)
-                torch.cuda.synchronize()
-            spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and e.name not in skip
-                     and e.time_range.end > e.time_range.start]
-            if spans:
-                return spans
-        raise RuntimeError("the profiler recorded no device events in five sessions")
+    def traced(body, skip=frozenset()):
+        return _traced_spans(lambda: [body(i) for i in range(calls)], skip)[0]
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     skip = {name for name, _, _ in traced(lambda i: flush.fill_(1 + i))} if cold else set()
     fn()  # warm-up
-    spans = sorted((a, b, name) for name, a, b in
-                   traced(lambda i: (flush.fill_(1 + i) if cold else None, fn()), skip))
+    spans = traced(lambda i: (flush.fill_(1 + i) if cold else None, fn()), skip)
     by_kernel: dict[str, float] = {}
-    busy, end = 0.0, float("-inf")
-    for a, b, name in spans:
+    for name, a, b in spans:
         m = re.search(r"\w+_kernel(<[\w, <>]*>)?", name.replace("(anonymous namespace)::", ""))
         key = m.group() if m else name[:80]
         by_kernel[key] = by_kernel.get(key, 0.0) + (b - a) / 1e3 / calls
+    return _busy_us(spans) / 1e3 / calls, by_kernel
+
+
+def _traced_spans(body, skip=frozenset()) -> tuple[list[tuple[str, float, float]], float]:
+    """([(kernel, start us, end us)], host wall ms) of one traced run of
+    ``body``: the card synchronised before, and after inside the wall time.
+    The profiler now and then returns a session without its device events:
+    trace again, and fail rather than time nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            body()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.name not in skip
+                 and e.time_range.end > e.time_range.start]
+        if spans:
+            return spans, wall_ms
+    raise RuntimeError("the profiler recorded no device events in five sessions")
+
+
+def _busy_us(spans) -> float:
+    """The union of the spans' intervals (us): the time some kernel runs."""
+    busy, end = 0.0, float("-inf")
+    for _, a, b in sorted(spans, key=lambda s: s[1]):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    return busy / 1e3 / calls, by_kernel
+    return busy
+
+
+def wall_and_busy(fn) -> dict:
+    """One call of ``fn`` under the profiler: its host wall ms (synchronised
+    before and after), the device-busy ms of the same call and the idle share
+    1 - busy / wall. The profiler's own host cost is inside the wall."""
+    spans, wall_ms = _traced_spans(fn)
+    busy_ms = _busy_us(spans) / 1e3
+    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": len(spans),
+            "idle_share": 1.0 - busy_ms / wall_ms}
 
 
 def bound(flops: float, nbytes: int, peak: float = PEAK_FLOPS) -> tuple[float, str]:
@@ -418,17 +554,38 @@ def phase_build() -> None:
           "ptxas": ptxas})
 
 
-def _dn_case(dev, B, H, D, N, feats):
+def _seq_positions(dev, ids):
+    """Per-example positions [B, N] of a collator sequence, stack-padded with
+    id 0 to a multiple of 8 as the models pad, and its kv_valid (None when
+    no pad was added)."""
+    n = ids.shape[1]
+    N = n + (-n) % 8
+    pos = torch.zeros(ids.shape[0], N, dtype=torch.long)
+    pos[:, :n] = torch.from_numpy(ids)
+    return pos.to(dev), (n if N != n else None)
+
+
+def _dn_case(dev, B, H, D, N, feats, seqs=None):
     """(q, k, v, kwargs) for one B1 shape: random bf16 [B, H, D, N]
-    operands, shared RoPE tables, and the shape's kv_valid or frame-causal
+    operands, RoPE tables (shared, or per example from a collator sequence
+    of ``seqs`` with its kv_valid), and the shape's kv_valid or frame-causal
     segments (equal frames of tokens)."""
     from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
 
     rng = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
                .to(dev, torch.bfloat16) for _ in range(3))
-    (cos, sin), _ = expand_rope_cache(build_rope_cache(torch.arange(N, device=dev), D, 16, 16), D)
-    kw = {"rope_expanded": (cos, sin)}
+    kw = {}
+    pos = torch.arange(N, device=dev)
+    if "seq" in feats:
+        pos, kv_valid = _seq_positions(dev, seqs[feats["seq"]])
+        if pos.shape != (B, N):
+            raise AssertionError(f"{feats['seq']} gives positions {tuple(pos.shape)}, not "
+                                 f"[{B}, {N}]")
+        if kv_valid is not None:
+            kw["kv_valid_len"] = kv_valid
+    (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, 16, 16), D)
+    kw["rope_expanded"] = (cos, sin)
     if "kv_valid_len" in feats:
         kw["kv_valid_len"] = feats["kv_valid_len"]
     if "segments" in feats:
@@ -442,9 +599,9 @@ def phase_kernels(dev, smi: str) -> dict:
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
     from vjepa2_tpu_torch.ops.rope import rope_rotate
 
-    first = None
+    seqs, first = _mask_seqs(), None
     for name, (B, H, D, N), feats in SHAPES:
-        q, k, v, kw = _dn_case(dev, B, H, D, N, feats)
+        q, k, v, kw = _dn_case(dev, B, H, D, N, feats, seqs)
         cos, sin = kw["rope_expanded"]
         with torch.inference_mode():
             out_k, lse_k = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
@@ -573,15 +730,14 @@ def _dn_bwd_case(dev, H, D, seq, seqs):
         kw["segment_ids"] = torch.arange(7, device=dev, dtype=torch.int32) \
             .repeat_interleave(N // 7)
     else:  # per-example positions, stack-padded with id 0 as the models pad
-        ids = seqs[seq]
-        N = ids.shape[1] + (-ids.shape[1]) % 8
-        pos = torch.zeros(8, N, dtype=torch.long)
-        pos[:, :ids.shape[1]] = torch.from_numpy(ids)
-        pos = pos.to(dev)
-        kw["kv_valid_len"] = ids.shape[1]
+        pos, kv_valid = _seq_positions(dev, seqs[seq])
+        N = pos.shape[1]
+        if kv_valid is not None:
+            kw["kv_valid_len"] = kv_valid
     (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, 16, 16), D)
     kw["rope_expanded"] = (cos, sin)
-    q, k, v, do = (torch.from_numpy(rng.randn(8, H, D, N).astype(np.float32))
+    B = pos.shape[0] if pos.ndim == 2 else 8
+    q, k, v, do = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
                    .to(dev, torch.bfloat16) for _ in range(4))
     return q, k, v, do, kw
 
@@ -863,6 +1019,319 @@ def phase_train_fused(dev, smi: str) -> tuple[tuple[int, ...], tuple[int, ...]]:
     return launches["fused"], launches["unfused"]
 
 
+class _LoopRecorder:
+    """While active, wraps the `Pretrainer` class the CLI builds (restored on
+    exit): every step's launches (the counts before and after it), the host
+    clock at its start, step number, loss, lr, weight decay, EMA momentum and
+    masks; each state ``restore_or_init`` returns (``on_restore(trainer,
+    state)`` runs first); each checkpoint save's host clock at its start,
+    seconds and bytes. Nothing is synchronised or read back while the loop
+    runs (the loss and masks stay on the card until exit), so the loop keeps
+    its own syncs, at its log points and at the epoch's end."""
+
+    def __init__(self, on_restore=None):
+        self.steps, self.states, self.saves, self.last = [], [], [], None
+        self.on_restore = on_restore
+
+    def __enter__(self):
+        from vjepa2_tpu_torch.core.checkpoint import CheckpointManager
+        from vjepa2_tpu_torch.train.loop import Pretrainer
+
+        self._patched = [(Pretrainer, "_step_fn", Pretrainer._step_fn),
+                         (Pretrainer, "restore_or_init", Pretrainer.restore_or_init),
+                         (CheckpointManager, "save", CheckpointManager.save)]
+        make, restore, save = (orig for _, _, orig in self._patched)
+        rec = self
+
+        def step_fn(trainer, fpc):
+            fn = make(trainer, fpc)
+
+            def step(state, clips, me, mp):
+                before, n, t0 = _launch_counts(), state.step, time.perf_counter()
+                metrics = fn(state, clips, me, mp)
+                groups = state.optimizer.opt.param_groups
+                rec.steps.append({
+                    "step": n, "t0": t0, "loss": metrics["loss"],
+                    "launches": tuple(a - b for a, b in zip(_launch_counts(), before)),
+                    "lr": groups[0]["lr"], "wd": groups[0]["weight_decay"],
+                    "ema_momentum": metrics["ema_momentum"],
+                    "masks": [m.clone() for m in (*me, *mp)]})
+                rec.last = (fn, state, clips, me, mp)
+                return metrics
+
+            return step
+
+        def restore_or_init(trainer):
+            state = restore(trainer)
+            if rec.on_restore is not None:
+                rec.on_restore(trainer, state)
+            rec.states.append((trainer, state))
+            return state
+
+        def timed_save(mgr, step, state):
+            t0 = time.perf_counter()
+            save(mgr, step, state)
+            rec.saves.append({"step": step, "t0": t0, "seconds": time.perf_counter() - t0,
+                              "bytes": os.path.getsize(mgr.path(step))})
+
+        Pretrainer._step_fn, Pretrainer.restore_or_init = step_fn, restore_or_init
+        CheckpointManager.save = timed_save
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self._patched:
+            setattr(owner, name, orig)
+        for s in self.steps:
+            if not isinstance(s["loss"], float):
+                s["loss"] = float(s["loss"])
+                s["masks"] = [m.cpu().numpy() for m in s["masks"]]
+        return False
+
+    def loop_ms_per_step(self) -> tuple[float, int]:
+        """(ms a step, steps timed) of the loop as it runs: from the start of
+        its second step to the start of the epoch's checkpoint save, which
+        follows the loop's closing read-back of the losses."""
+        steps = [s for s in self.steps if s["t0"] < self.saves[-1]["t0"]]
+        ms = (self.saves[-1]["t0"] - steps[1]["t0"]) * 1e3
+        return ms / (len(steps) - 1), len(steps) - 1
+
+    def release(self):
+        """Drop the trainers and states held (their memory on the card)."""
+        import gc
+
+        self.states.clear()
+        self.last = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _state_tensors(state):
+    """(name, tensor) of a train state's `state_dict`: the three models and
+    AdamW's moments and per-parameter step counts."""
+    sd = state.state_dict()
+    for m in ("encoder", "predictor", "target_encoder"):
+        yield from ((f"{m}.{k}", v) for k, v in sd[m].items())
+    for i, s in sd["optimizer"]["state"].items():
+        yield from ((f"optimizer.{i}.{k}", v) for k, v in s.items())
+
+
+def _run_config(raw: dict, dev, epochs=None) -> None:
+    """The CLI's app on a config dict: `cli.main.run_vjepa`, on the card."""
+    import argparse
+
+    from vjepa2_tpu_torch.cli.main import run_vjepa
+    from vjepa2_tpu_torch.core.config import PretrainConfig
+
+    run_vjepa(PretrainConfig.from_dict(raw),
+              argparse.Namespace(synthetic_data=False, epochs=epochs, device=dev))
+
+
+def _check_launches(phase: str, steps, want) -> None:
+    for s in steps:
+        if s["launches"] != want:
+            raise AssertionError(f"{phase}: step {s['step']} launched "
+                                 f"{dict(zip(KERNEL_COUNTS, s['launches']))}, want "
+                                 f"{dict(zip(KERNEL_COUNTS, want))}")
+        if not np.isfinite(s["loss"]):
+            raise AssertionError(f"{phase}: non-finite loss at step {s['step']}")
+
+
+def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
+    """The `Pretrainer` through the CLI's `run_vjepa` on the shipped ViT-H
+    config (`LOOP_CONFIG`: batch 16, full remat, bf16, synthetic clips):
+    epoch 0, then a new trainer on the same folder resumes (the config's
+    ``load_checkpoint``) and runs epoch 1. Returns the launches of all its
+    steps."""
+    import shutil
+    import tempfile
+
+    from vjepa2_tpu_torch.core import schedulers
+    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="vjepa2_loop_")
+    overrides = {"folder": folder, **LOOP_OVERRIDES}
+    raw = overridden(LOOP_CONFIG, overrides)
+    per_step = LOOP_LAUNCHES
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _LoopRecorder() as part1:
+            _run_config(raw, dev, epochs=1)
+        _, state1 = part1.states[0]
+        saved = {k: v.detach().cpu() for k, v in _state_tensors(state1)}
+        part1.release()
+        del state1
+        restored = {}
+
+        def compare(trainer, state):  # the restored state against the saved one
+            restored["step"] = state.step
+            restored["tensors"] = len(saved)
+            restored["bit_equal"] = all(torch.equal(v.cpu(), saved[k])
+                                        for k, v in _state_tensors(state)) \
+                and sorted(k for k, _ in _state_tensors(state)) == sorted(saved)
+
+        with _LoopRecorder(on_restore=compare) as part2:
+            _run_config(raw, dev, epochs=2)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        del saved
+        steps = part1.steps + part2.steps
+        _check_launches("train_loop", steps, per_step)
+        if not restored.get("bit_equal") or restored["step"] != LOOP_IPE:
+            raise AssertionError(f"the restored state is not the saved one: {restored}")
+        first = part2.steps[0]
+        trainer, _ = part2.states[0]
+        hp = trainer.hp
+        want = {"step": LOOP_IPE,
+                "lr": schedulers.warmup_cosine_lr(LOOP_IPE, warmup_steps=hp.warmup_steps,
+                                                  start_lr=hp.start_lr, ref_lr=hp.lr,
+                                                  t_max=hp.total_steps, final_lr=hp.final_lr),
+                "wd": schedulers.cosine_wd(LOOP_IPE, ref_wd=hp.wd, t_max=hp.total_steps,
+                                           final_wd=hp.final_wd),
+                "ema_momentum": schedulers.ema_momentum(LOOP_IPE, ema_start=hp.ema[0],
+                                                        ema_end=hp.ema[1], t_max=hp.total_steps)}
+        got = {k: first[k] for k in want}
+        # the masks of an uninterrupted run at this step: a fresh collator
+        # stepped once by init_state and once per step up to this one
+        d = raw["data"]
+        coll = MaskCollator(raw["mask"], dataset_fpcs=d["dataset_fpcs"],
+                            crop_size=(d["crop_size"],) * 2, seed=raw["meta"]["seed"])
+        for _ in range(LOOP_IPE + 2):
+            coll.step()
+        me, mp = coll(d["dataset_fpcs"][0], d["batch_size"])
+        masks_ok = all(np.array_equal(a, b) for a, b in zip(first["masks"], (*me, *mp)))
+        with open(os.path.join(folder, "log_r0.csv")) as f:
+            rows = [ln for ln in f.read().splitlines() if ln and not ln.startswith("epoch")]
+        if got != want or not masks_ok or len(rows) != 2 * LOOP_IPE:
+            raise AssertionError(f"resume: {got} against {want}, masks {masks_ok}, "
+                                 f"{len(rows)} CSV rows for {2 * LOOP_IPE}")
+        # one more step, synchronised and traced: its wall, device-busy time
+        # and idle share, all from that one call
+        fn, state, clips, me_, mp_ = part2.last
+        traced = wall_and_busy(lambda: fn(state, clips, me_, mp_)["loss"].item())
+        (ms1, n1), (ms2, n2) = part1.loop_ms_per_step(), part2.loop_ms_per_step()
+        ms = (ms1 * n1 + ms2 * n2) / (n1 + n2)
+        part2.release()
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    launches = tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
+    emit({"phase": "train_loop", "config": LOOP_CONFIG_FILE,
+          "overrides": {**overrides, "folder": "<temporary directory>"},
+          "model": "vit_huge (32 x 1280, Dh 80) 16f@256 bs16 + predictor (12 x 384, 12 heads), "
+                   "RoPE, bf16, full remat, synthetic clips",
+          "steps": [{k: v for k, v in s.items() if k not in ("masks", "t0")} for s in steps],
+          "loop_ms_per_step": ms, "loop_ms_per_step_by_part": [ms1, ms2],
+          "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3), "timed_steps": n1 + n2,
+          "one_traced_step": traced, "peak_memory_gb": peak_gb,
+          "launches_per_step": dict(zip(KERNEL_COUNTS, per_step)),
+          "checkpoint": [{k: v for k, v in c.items() if k != "t0"}
+                         for c in part1.saves + part2.saves],
+          "restored": restored, "resumed_first": got,
+          "resumed_masks_equal": masks_ok, "csv_rows": len(rows),
+          "seconds": time.perf_counter() - t0, "ok": True, "gpu": smi})
+    return launches
+
+
+def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
+    """The `Pretrainer` through `run_vjepa` on the shipped ViT-L 64-frame
+    cooldown (`ACCUM_CONFIG`: batch 12, grad_accum 6, save_attn_qkv_h) for 1
+    warm-up and 2 timed steps; then, on one microbatch of 2 clips, the
+    gradients under the config's policy against no remat, and each policy's
+    peak memory. Returns the launches of the loop's steps."""
+    import shutil
+    import tempfile
+
+    from vjepa2_tpu_torch.models.modules import block_remat
+    from vjepa2_tpu_torch.train import pretrain as tp
+
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="vjepa2_accum_")
+    overrides = {"folder": folder, **ACCUM_OVERRIDES}
+    raw = overridden(ACCUM_CONFIG, overrides)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _LoopRecorder() as rec:
+            _run_config(raw, dev)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        _check_launches("train_accum", rec.steps, ACCUM_LAUNCHES)
+        trainer, state = rec.states[0]
+        _, _, clips, me, mp = rec.last
+        # microbatch 0 of the last step: 2 clips
+        clips, me, mp = clips[0], [m[0] for m in me], [m[0] for m in mp]
+        enc, pred = state.encoder, state.predictor
+        policy = raw["model"]["remat_policy"]
+
+        def loss_and_grads(name):
+            """One forward and backward of the microbatch with every block
+            under the policy ``name`` (None: no remat): (loss, flat fp32
+            gradients, peak bytes above the start, host ms from a sync before
+            to a sync after the backward)."""
+            enc.remat = pred.remat = block_remat(name is not None, name)
+            enc.zero_grad(set_to_none=True)
+            pred.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t1 = time.perf_counter()
+            h = tp.target_features(state.target_encoder, clips, mp)
+            loss = tp.forward_loss(enc, pred, clips, me, mp, h, trainer.hp.loss_exp, [0, 1])
+            loss.backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            grads = torch.cat([p.grad.float().flatten() for m in (enc, pred)
+                               for p in m.parameters()])
+            return loss.item(), grads, peak, ms
+
+        loss_r, grads_r, _, _ = loss_and_grads(policy)
+        loss_n, grads_n, _, _ = loss_and_grads(None)
+        grad_rel = ((grads_r - grads_n).norm() / grads_n.norm()).item()
+        grad_max_abs = (grads_r - grads_n).abs().max().item()
+        loss_rel = abs(loss_r - loss_n) / abs(loss_n)
+        bit_equal = loss_r == loss_n and torch.equal(grads_r, grads_n)
+        del grads_r, grads_n
+        # each policy: the peak and host ms of an untraced call, then the
+        # wall, device-busy ms and idle share of one traced call
+        micro = {}
+        for name in (None, "full", "save_attn", "save_attn_qkv", "save_attn_qkv_h"):
+            _, _, peak, ms = loss_and_grads(name)
+            micro[name or "none"] = {"peak_gb_above_start": peak / 2**30, "ms": ms,
+                                     **wall_and_busy(lambda: loss_and_grads(name))}
+        peaks = {k: v["peak_gb_above_start"] for k, v in micro.items()}
+        enc.remat = pred.remat = block_remat(True, policy)
+        order = (peaks["full"] < peaks["save_attn"] <= peaks["save_attn_qkv"]
+                 <= peaks["save_attn_qkv_h"])
+        # one more loop step (6 microbatches), synchronised and traced
+        fn, state_, clips_, me_, mp_ = rec.last
+        traced = wall_and_busy(lambda: fn(state_, clips_, me_, mp_)["loss"].item())
+        ms, timed = rec.loop_ms_per_step()
+        rec.release()
+        del state, state_, enc, pred, trainer
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    ok = bit_equal
+    launches = tuple(sum(s["launches"][i] for s in rec.steps) for i in range(len(KERNEL_COUNTS)))
+    emit({"phase": "train_accum", "config": ACCUM_CONFIG_FILE,
+          "overrides": {**overrides, "folder": "<temporary directory>"},
+          "model": "vit_large (24 x 1024, Dh 64) 64f@256 (8192 tokens) bs12 = 6 x 2 + predictor "
+                   "(12 x 384, 12 heads), RoPE, bf16, save_attn_qkv_h, synthetic clips",
+          "steps": [{k: v for k, v in s.items() if k not in ("masks", "t0")} for s in rec.steps],
+          "warmup_steps": 1, "loop_ms_per_step": ms, "timed_steps": timed,
+          "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3), "peak_memory_gb": peak_gb,
+          "one_traced_step": traced,
+          "launches_per_step": dict(zip(KERNEL_COUNTS, ACCUM_LAUNCHES)),
+          "checkpoint": [{k: v for k, v in c.items() if k != "t0"} for c in rec.saves],
+          "microbatch_remat_vs_none": {"policy": policy, "loss_rel_err": loss_rel,
+                                       "grad_rel_l2": grad_rel, "grad_max_abs": grad_max_abs,
+                                       "tol": "bit-equal"},
+          "microbatch_by_policy": micro, "peak_order_holds": order,
+          "seconds": time.perf_counter() - t0, "ok": ok, "gpu": smi})
+    if not ok:
+        raise AssertionError(f"the cooldown microbatch's loss and gradients under {policy} are "
+                             f"not bit-equal to the no-remat ones: loss {loss_rel}, gradients "
+                             f"{grad_rel} relative L2, {grad_max_abs} max abs")
+    return launches
+
+
 def _bhnd_case(dev, B, H, N, D, feats, seqs):
     """(q, k, v, do, kwargs, mask) for one BHND shape: random bf16 operands,
     RoPE tables (`_rope_tables`), and the shape's masks."""
@@ -896,17 +1365,37 @@ def _rotated(q, k, kw):
                  for t in (q, k))
 
 
+def _sorted_seqs(me, mp, prefix=""):
+    seqs = {f"{prefix}ctx{i}": np.sort(m, axis=1) for i, m in enumerate(me)}
+    seqs.update({f"{prefix}pred{i}": np.sort(np.concatenate([a, b], axis=1), axis=1)
+                 for i, (a, b) in enumerate(zip(me, mp))})
+    return seqs
+
+
 def _mask_seqs():
     """Sorted per-example positions of one collator step at batch 8: the
     context (``ctx0``, ``ctx1``) and the predictor's context + targets
-    (``pred0``, ``pred1``) of each mask config."""
+    (``pred0``, ``pred1``) of each mask config; and the cooldown's
+    (``cool_*``, `_cooldown_seqs`)."""
     from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
 
     me, mp = _masks(MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE)), 8)
-    seqs = {f"ctx{i}": np.sort(m, axis=1) for i, m in enumerate(me)}
-    seqs.update({f"pred{i}": np.sort(np.concatenate([a, b], axis=1), axis=1)
-                 for i, (a, b) in enumerate(zip(me, mp))})
-    return seqs
+    return {**_sorted_seqs(me, mp), **_cooldown_seqs()}
+
+
+def _cooldown_seqs():
+    """The cooldown's sequences (``cool_ctx0``, ``cool_ctx1``, ``cool_pred0``,
+    ``cool_pred1``) for one microbatch of 2 clips: the first step of the
+    config's collator (64 frames at 256 px, seed 239): contexts of 2302 and
+    568 of 8192 tokens, predictor sequences of 6479 and 6471."""
+    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+
+    d = ACCUM_CONFIG["data"]
+    coll = MaskCollator(ACCUM_CONFIG["mask"], dataset_fpcs=d["dataset_fpcs"],
+                        crop_size=(d["crop_size"],) * 2, seed=ACCUM_CONFIG["meta"]["seed"])
+    coll.step()
+    me, mp = coll(d["dataset_fpcs"][0], 2)
+    return _sorted_seqs(me, mp, "cool_")
 
 
 def phase_kernels_bhnd(dev, smi: str) -> dict:
@@ -1312,23 +1801,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = phase_device()
-    phase_build()
-    rec = phase_kernels(dev, smi)
-    serve_launches = phase_slice(dev, smi)
-    rec_bwd = phase_kernels_bwd(dev, smi)
-    train_l = phase_train(dev, smi, "vit_large")
-    rec_bhnd = phase_kernels_bhnd(dev, smi)
-    rec_bhnd_bwd = phase_kernels_bhnd_bwd(dev, smi)
-    train_h = phase_train(dev, smi, "vit_huge")
-    giant_launches = phase_encode_giant(dev, smi)
-    phase_entry(dev, smi)
-    rec_ln_fwd, rec_ln_bwd = phase_kernels_ln(dev, smi)
-    rec_qkv = phase_kernels_prologue(dev, smi, "ln_qkv")
-    rec_mlp = phase_kernels_prologue(dev, smi, "ln_mlp")
-    fused_l, unfused_l = phase_train_fused(dev, smi)
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    rec = timed("kernel", phase_kernels, dev, smi)
+    serve_launches = timed("slice", phase_slice, dev, smi)
+    rec_bwd = timed("kernel_bwd", phase_kernels_bwd, dev, smi)
+    train_l = timed("train", phase_train, dev, smi, "vit_large")
+    rec_bhnd = timed("kernel_bhnd", phase_kernels_bhnd, dev, smi)
+    rec_bhnd_bwd = timed("kernel_bhnd_bwd", phase_kernels_bhnd_bwd, dev, smi)
+    train_h = timed("train_huge", phase_train, dev, smi, "vit_huge")
+    giant_launches = timed("encode_giant", phase_encode_giant, dev, smi)
+    timed("entry", phase_entry, dev, smi)
+    rec_ln_fwd, rec_ln_bwd = timed("kernel_ln", phase_kernels_ln, dev, smi)
+    rec_qkv = timed("kernel_ln_qkv", phase_kernels_prologue, dev, smi, "ln_qkv")
+    rec_mlp = timed("kernel_ln_mlp", phase_kernels_prologue, dev, smi, "ln_mlp")
+    fused_l, unfused_l = timed("train_fused", phase_train_fused, dev, smi)
+    loop_l = timed("train_loop", phase_train_loop, dev, smi)
+    accum_l = timed("train_accum", phase_train_accum, dev, smi)
+    emit({"phase": "seconds", "phases": seconds, "total": time.perf_counter() - t_start})
     # every main-path run's launches, in the order of KERNEL_COUNTS
-    total = [sum(c) for c in zip(train_l, train_h, fused_l, unfused_l)]
+    total = [sum(c) for c in zip(train_l, train_h, fused_l, unfused_l, loop_l, accum_l)]
     total[0] += serve_launches
     total[2] += giant_launches
 

@@ -93,21 +93,24 @@ def _scratch_want(B, H, D, N, M):
 
 def test_scratch_at_the_smoke_shapes():
     """The prologue's scratch at every `BWD_SHAPES` entry (the step's
-    contexts and predictor sequences at batch 8, stack-padded to 8, and the
-    AC predictor's 1806): token-major q_s, q_u, k_rot and the padded fp32
+    contexts and predictor sequences at batch 8, stack-padded to 8, the
+    AC predictor's 1806, and the 64-frame cooldown's contexts and predictor
+    sequences at batch 2): token-major q_s, q_u, k_rot and the padded fp32
     rows, 256-aligned pieces, about 3 x the size of q."""
     c = _chip_smoke()
     seqs = c._mask_seqs()
     lengths = {name: ids.shape[1] + (-ids.shape[1]) % 8 for name, ids in seqs.items()}
-    lengths["ac"] = 1806
-    assert [lengths[seq] for _, _, _, seq in c.BWD_SHAPES] == [584, 176, 1624, 1664, 1806]
+    batches = {name: ids.shape[0] for name, ids in seqs.items()}
+    lengths["ac"], batches["ac"] = 1806, 8
+    assert [lengths[seq] for _, _, _, seq in c.BWD_SHAPES] == [584, 176, 1624, 1664, 1806,
+                                                               2304, 568, 6480, 6472]
     for _, H, D, seq in c.BWD_SHAPES:
-        N = lengths[seq]
-        offsets, total = fdn.bwd_scratch(8, H, D, N, N)
-        assert (offsets, total) == _scratch_want(8, H, D, N, N)
+        N, B = lengths[seq], batches[seq]
+        offsets, total = fdn.bwd_scratch(B, H, D, N, N)
+        assert (offsets, total) == _scratch_want(B, H, D, N, N)
         assert all(off % 256 == 0 for off in offsets)
         assert padded_queries(N) % 128 == 0 and padded_queries(N) >= N
-        assert 3 * 8 * H * D * N * 2 < total <= 3 * 8 * H * D * N * 2 + 2 * 8 * H * (N + 128) * 4 + 5 * 256
+        assert 3 * B * H * D * N * 2 < total <= 3 * B * H * D * N * 2 + 2 * B * H * (N + 128) * 4 + 5 * 256
 
 
 @pytest.mark.parametrize("N,M", [(100, 203), (300, 100), (24, 24)])

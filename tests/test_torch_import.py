@@ -19,7 +19,12 @@ names = [m.name for m in pkgutil.walk_packages(vjepa2_tpu_torch.__path__, "vjepa
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vjepa2_tpu"))
-missing = {"vjepa2_tpu_torch.ops.flash_attention", "vjepa2_tpu_torch.core.device"} - set(names)
+missing = {"vjepa2_tpu_torch.ops.flash_attention", "vjepa2_tpu_torch.core.device",
+           "vjepa2_tpu_torch.core.config", "vjepa2_tpu_torch.core.logging",
+           "vjepa2_tpu_torch.core.provenance", "vjepa2_tpu_torch.core.checkpoint",
+           "vjepa2_tpu_torch.train.accum", "vjepa2_tpu_torch.train.loop",
+           "vjepa2_tpu_torch.data.video", "vjepa2_tpu_torch.data.prefetch",
+           "vjepa2_tpu_torch.cli.main"} - set(names)
 print(len(names), bad, sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 10 else 0)
 """

@@ -44,6 +44,15 @@ class ScheduledAdamW:
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        """AdamW's state: each parameter's ``exp_avg``, ``exp_avg_sq`` and
+        ``step``. The lr and weight decay need no saving: every step sets
+        them from ``lr_fn`` and ``wd_fn`` of the train state's step."""
+        return self.opt.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state)
+
     @torch.no_grad()
     def step(self, step: int) -> None:
         lr, wd = self.lr_fn(step), self.wd_fn(step)

@@ -14,6 +14,10 @@ parity tests. Layout rules, the JAX converter's read backwards:
 * the predictor's ``mask_tokens`` [num, P] -> ``mask_tokens.{j}`` [1, 1, P]
   (`vjepa2_tpu/hub/converter.py:104-107,246-249`)
 * anything else keeps its name (``bias``, ``query_tokens``)
+
+`load_pretrain_state` carries a whole pretrain state across: JAX's
+``params = {"encoder", "predictor"}`` and ``target_params`` into a port
+`TrainState`, so that JAX and the port can start from one set of weights.
 """
 
 from __future__ import annotations
@@ -58,3 +62,14 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
     walk(params, "")
     return sd
+
+
+def load_pretrain_state(state, params: Mapping[str, Any], target_params: Mapping[str, Any]):
+    """Load JAX's pretrain parameter trees (``params["encoder"]``,
+    ``params["predictor"]`` and the EMA ``target_params``) into the port's
+    `TrainState` ``state``, in place, onto its models' devices; the
+    optimizer's moments are left as they are. Returns ``state``."""
+    state.encoder.load_state_dict(state_dict_from_flax(params["encoder"]))
+    state.predictor.load_state_dict(state_dict_from_flax(params["predictor"]))
+    state.target_encoder.load_state_dict(state_dict_from_flax(target_params))
+    return state

@@ -33,18 +33,36 @@ fused LayerNorm uses the two-pass variance, the unfused module the fast one,
 so the two routes differ by that rounding, as in JAX.
 
 Gradients come from autograd, through the kernels' `autograd.Function`s on
-the flash and fused routes. Not ported yet: drop_path, remat policies,
-context parallelism and SwiGLU.
+the flash and fused routes.
+
+Activation checkpointing (`remat_call`, JAX's ``nn.remat(Block, policy=)``)
+runs a block under `torch.utils.checkpoint` (non-reentrant) and recomputes
+it in the backward. The policies of `resolve_remat_policy` keep some
+tensors instead, by the names JAX gives them: the flash kernels' (out, lse)
+are the outputs of the dispatcher ops ``torch.ops.vjepa2.flash_fwd_dn`` and
+``flash_fwd_bhnd``; q, k and v ("flash_qkv") and the fc1 pre-activation
+("mlp_h") are the outputs of the one GEMM (or of B7, ``torch.ops.vjepa2.ln_qkv``)
+that a `checkpoint_name` region encloses. A selective checkpoint context
+caches those outputs in the forward and hands them back in the recompute,
+which then launches neither the kernel nor the GEMM.
+
+Not ported yet: drop_path, context parallelism and SwiGLU.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import logging
 import math
+import threading
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from vjepa2_tpu_torch.ops.attention import attend_bhdn, attend_bhnd, sdpa
 from vjepa2_tpu_torch.ops.flash_attention import BHND_HEAD_WIDTHS, bhnd_head_supported
@@ -103,6 +121,97 @@ def qkv_row_perm(head_perm, num_heads: int, head_dim: int, device=None) -> torch
     return torch.as_tensor(idx, dtype=torch.long, device=device)
 
 
+logger = logging.getLogger(__name__)
+
+# What each remat policy keeps, by JAX's names (`save_only_these_names`,
+# `vjepa2_tpu/models/modules.py:102-134`); None and 'full' keep nothing.
+REMAT_SAVES = {
+    "save_attn": frozenset({"flash_out", "flash_lse"}),
+    "save_attn_qkv": frozenset({"flash_out", "flash_lse", "flash_qkv"}),
+    "save_attn_qkv_h": frozenset({"flash_out", "flash_lse", "flash_qkv", "mlp_h"}),
+}
+
+
+def resolve_remat_policy(name) -> frozenset:
+    """The names a remat policy keeps (`modules.py:102`): None / 'full'
+    recompute the whole block (nothing kept); 'save_attn' keeps the flash
+    kernels' (out, lse), so the backward never launches the attention
+    forward again; 'save_attn_qkv' also keeps q, k and v; 'save_attn_qkv_h'
+    also keeps the MLP's fc1 pre-activation. Only blocks that take gradients
+    save anything."""
+    if name in (None, "full"):
+        return frozenset()
+    if name in REMAT_SAVES:
+        return REMAT_SAVES[name]
+    raise ValueError(
+        f"unknown remat_policy {name!r}: expected one of "
+        "None/'full', 'save_attn', 'save_attn_qkv', 'save_attn_qkv_h'")
+
+
+_FUSED_MLP_H_LOGGED = False
+
+
+def block_remat(use_activation_checkpointing: bool, remat_policy, fuse_ln_mlp: bool = False):
+    """The ``saves`` a model passes to `remat_call`: None without activation
+    checkpointing, else `resolve_remat_policy`'s names. With the fused MLP
+    route (B8) 'save_attn_qkv_h' has no fc1 pre-activation to keep and keeps
+    what 'save_attn_qkv' keeps, as JAX's does with ``FUSE_LN_MLP`` on; that
+    is logged once."""
+    global _FUSED_MLP_H_LOGGED
+    if not use_activation_checkpointing:
+        return None
+    saves = resolve_remat_policy(remat_policy)
+    if fuse_ln_mlp and "mlp_h" in saves and not _FUSED_MLP_H_LOGGED:
+        _FUSED_MLP_H_LOGGED = True
+        logger.info("remat_policy 'save_attn_qkv_h' with the fused MLP route: B8 keeps no "
+                    "fc1 pre-activation, so the policy keeps what 'save_attn_qkv' keeps")
+    return saves
+
+
+# The checkpoint name of the ops this thread runs now (`checkpoint_name`).
+_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tag the GEMM (``addmm``, ``baddbmm``, ``mm``, ``bmm``) or the B7 op run
+    inside with ``name`` for the remat policy (JAX's `checkpoint_name`): each
+    region encloses exactly one of them, whose output is the named tensor."""
+    prev = getattr(_TAG, "name", None)
+    _TAG.name = name
+    try:
+        yield
+    finally:
+        _TAG.name = prev
+
+
+def _remat_policy(saves: frozenset):
+    aten = torch.ops.aten
+    flash = ({torch.ops.vjepa2.flash_fwd_dn.default, torch.ops.vjepa2.flash_fwd_bhnd.default}
+             if "flash_out" in saves else set())
+    producers = {aten.addmm.default, aten.baddbmm.default, aten.mm.default, aten.bmm.default,
+                 torch.ops.vjepa2.ln_qkv.default}
+
+    def policy(ctx, func, *args, **kwargs):
+        if func in flash or (getattr(_TAG, "name", None) in saves and func in producers):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def remat_call(block: nn.Module, saves, *args):
+    """``block(*args)``, under activation checkpointing when ``saves`` is not
+    None and autograd records (a block without gradients, such as the EMA
+    target's, neither checkpoints nor recomputes). ``saves``: the names the
+    policy keeps (`block_remat`); empty recomputes the whole block. The
+    blocks draw no random numbers, so no RNG state is stashed."""
+    if saves is None or not torch.is_grad_enabled():
+        return block(*args)
+    kwargs = {"context_fn": _remat_policy(saves)} if saves else {}
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm in fp32 whatever the input dtype (eps 1e-6), with JAX's
     fast-variance formula: var = max(E[x^2] - E[x]^2, 0)
@@ -146,10 +255,12 @@ class Mlp(nn.Module):
         init_linear_(self.fc2, self.init_std, self.out_init_scale, generator)
 
     def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
-        if ln is not None:
+        if ln is not None:  # no "mlp_h" here, as in JAX (`modules.py:228-238`)
             h = ln_mlp(x, ln[0], ln[1], self.fc1.weight.to(self.dtype), self.fc1.bias.float())
             return dense(self.fc2, h, self.dtype)
-        return dense(self.fc2, F.gelu(dense(self.fc1, x, self.dtype)), self.dtype)
+        with checkpoint_name("mlp_h"):
+            h = dense(self.fc1, x, self.dtype)
+        return dense(self.fc2, F.gelu(h), self.dtype)
 
 
 class Attention(nn.Module):
@@ -211,14 +322,17 @@ class Attention(nn.Module):
         rope = rope_expanded if self.use_rope else None
         if dn_head_eligible(Dh):
             # contract straight into [B, 3*dim, N]: q, k, v come out [B, H, Dh, N]
-            y = torch.matmul(w.to(dt), x.to(dt).transpose(1, 2))
-            if b is not None:
-                y = y + b.to(dt)[:, None]
+            wt, xt = w.to(dt).expand(B, -1, -1), x.to(dt).transpose(1, 2)
+            bt = None if b is None else b.to(dt)[:, None]
+            with checkpoint_name("flash_qkv"):
+                y = torch.bmm(wt, xt) if bt is None else torch.baddbmm(bt, wt, xt)
             q, k, v = y.view(B, 3, H, Dh, N).unbind(1)
             out = attend_bhdn(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid)
             out = out.permute(0, 3, 1, 2).reshape(B, N, C)  # rows (h, d), as proj expects
         else:
-            y = F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
+            xt, wt, bt = x.to(dt), w.to(dt), None if b is None else b.to(dt)
+            with checkpoint_name("flash_qkv"):
+                y = F.linear(xt, wt, bt)
             q, k, v = y.view(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4).unbind(0)
             out = attend_bhnd(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid)
             out = out.transpose(1, 2).reshape(B, N, C)  # a view of the kernel's output
@@ -237,8 +351,10 @@ class Attention(nn.Module):
             w = w[qkv_perm]
             b = None if b is None else b[qkv_perm]
         b = torch.zeros(3 * self.dim, device=w.device) if b is None else b.float()
-        q, k, v = ln_qkv(x, ln[0], ln[1], w.to(self.dtype), b, rope,
-                         num_heads=self.num_heads, head_dim=self.head_dim)
+        w = w.to(self.dtype)
+        with checkpoint_name("flash_qkv"):
+            q, k, v = ln_qkv(x, ln[0], ln[1], w, b, rope, num_heads=self.num_heads,
+                             head_dim=self.head_dim)
         out = attend_bhnd(q, k, v, use_flash=self.use_flash, kv_valid=kv_valid)
         return dense(self.proj, out.transpose(1, 2).reshape(B, N, C), self.dtype)
 

@@ -11,8 +11,10 @@ projected back to the encoder's width.
 State-dict keys are the reference's: ``predictor_embed.*``,
 ``mask_tokens.{j}`` (each [1, 1, P]), ``predictor_blocks.{i}.*``,
 ``predictor_norm.*``, ``predictor_proj.*``. ``fuse_ln_qkv`` / ``fuse_ln_mlp``
-put every block on the fused LayerNorm routes (B7, B8). Not ported yet:
-``chop_last_n_tokens``, ``return_all_tokens``, activation checkpointing.
+put every block on the fused LayerNorm routes (B7, B8).
+``use_activation_checkpointing`` / ``remat_policy`` run every block under
+`modules.remat_call`, as the encoder (`predictor.py:51,173-176`). Not ported
+yet: ``chop_last_n_tokens``, ``return_all_tokens``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from vjepa2_tpu_torch.models.modules import Block, LayerNorm, dense, init_linear_, trunc_normal_
+from vjepa2_tpu_torch.models.modules import (Block, LayerNorm, block_remat, dense, init_linear_,
+                                             remat_call, trunc_normal_)
 from vjepa2_tpu_torch.models.pos_embs import get_3d_sincos_pos_embed
 from vjepa2_tpu_torch.models.vision_transformer import rope_tables, stack_pad
 
@@ -33,10 +36,12 @@ class VisionTransformerPredictor(nn.Module):
                  use_mask_tokens: bool = False, num_mask_tokens: int = 2,
                  zero_init_mask_tokens: bool = True, use_rope: bool = False,
                  use_flash: bool = False, dtype=torch.float32, device=None,
-                 init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False):
+                 init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False,
+                 use_activation_checkpointing: bool = False, remat_policy: str | None = None):
         super().__init__()
         if num_frames <= 1:
             raise NotImplementedError("the image (2D patch) predictor is not ported yet")
+        self.remat = block_remat(use_activation_checkpointing, remat_policy, fuse_ln_mlp)
         self.img_size = tuple(img_size)
         self.patch_size = patch_size
         self.embed_dim, self.predictor_embed_dim = embed_dim, predictor_embed_dim
@@ -118,7 +123,8 @@ class VisionTransformerPredictor(nn.Module):
             rope_cache, rope_expanded, qkv_perm = rope_tables(
                 positions_sorted, P // self.num_heads, self.num_heads, hp, wp, self.use_flash)
         for blk in self.predictor_blocks:
-            tokens = blk(tokens, rope_cache, rope_expanded, qkv_perm, kv_valid)
+            tokens = remat_call(blk, self.remat, tokens, rope_cache, rope_expanded, qkv_perm,
+                                kv_valid)
         tokens = self.predictor_norm(tokens[:, :n_seq])
 
         inverse = torch.argsort(order, dim=1)

@@ -15,8 +15,12 @@ token stream is padded once, with zero rows, to the next multiple of
 pads to x8 or x128 for Mosaic's tiling; the CUDA kernels take any length and
 need only x8 for their 16-byte path (578 -> 584 tokens, not 640).
 
-Not ported yet: ``out_layers``, activation checkpointing and the image (2D
-patch) path.
+``use_activation_checkpointing`` runs every block under `modules.remat_call`
+with the names ``remat_policy`` keeps (`modules.resolve_remat_policy`;
+`vision_transformer.py:52-56,185-188`); blocks without gradients (the EMA
+target's) run plainly.
+
+Not ported yet: ``out_layers`` and the image (2D patch) path.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch.nn as nn
 
 import torch.nn.functional as F
 
-from vjepa2_tpu_torch.models.modules import Block, LayerNorm, qkv_row_perm
+from vjepa2_tpu_torch.models.modules import (Block, LayerNorm, block_remat, qkv_row_perm,
+                                             remat_call)
 from vjepa2_tpu_torch.models.patch_embed import PatchEmbed3D
 from vjepa2_tpu_torch.models.pos_embs import get_3d_sincos_pos_embed
 from vjepa2_tpu_torch.ops.masking import apply_masks
@@ -70,10 +75,12 @@ class VisionTransformer(nn.Module):
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, uniform_power: bool = False, use_rope: bool = False,
                  use_flash: bool = False, dtype=torch.float32, device=None,
-                 init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False):
+                 init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False,
+                 use_activation_checkpointing: bool = False, remat_policy: str | None = None):
         super().__init__()
         if num_frames <= 1:
             raise NotImplementedError("the image (2D patch) encoder is not ported yet")
+        self.remat = block_remat(use_activation_checkpointing, remat_policy, fuse_ln_mlp)
         self.img_size = tuple(img_size)
         self.patch_size, self.num_frames, self.tubelet_size = patch_size, num_frames, tubelet_size
         self.embed_dim, self.depth, self.num_heads = embed_dim, depth, num_heads
@@ -140,7 +147,8 @@ class VisionTransformer(nn.Module):
                 pos_ids, self.embed_dim // self.num_heads, self.num_heads, hp, wp,
                 self.use_flash)
         for blk in self.blocks:
-            tokens = blk(tokens, rope_cache, rope_expanded, qkv_perm, kv_valid)
+            tokens = remat_call(blk, self.remat, tokens, rope_cache, rope_expanded, qkv_perm,
+                                kv_valid)
         return self.norm(tokens[:, :n_real])
 
 

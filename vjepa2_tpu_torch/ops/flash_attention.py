@@ -399,6 +399,18 @@ def flash_attention_bhnd_bwd(q, k, v, out, lse, do, segment_ids=None, causal: bo
                             rope_tables, rope_expanded, kv_valid_len, seg_kv)
 
 
+# The forward on normalised arguments is one dispatcher op,
+# ``torch.ops.vjepa2.flash_fwd_bhnd``, so that a selective remat policy can keep
+# its (out, lse) (JAX's "flash_out" and "flash_lse" names,
+# `flash_attention.py:1133-1134`) and the recompute launches nothing
+# (`models.modules.resolve_remat_policy`).
+_LIB = torch.library.Library("vjepa2", "FRAGMENT")
+_LIB.define("flash_fwd_bhnd(Tensor q, Tensor k, Tensor v, float? scale, Tensor? cos, "
+            "Tensor? sin, Tensor? seg_q, Tensor? seg_k, bool causal, int? kv_valid_len) "
+            "-> (Tensor, Tensor)")
+_LIB.impl("flash_fwd_bhnd", _fwd, "CompositeExplicitAutograd")
+
+
 class FlashAttentionBHND(torch.autograd.Function):
     """B3 forward, B4/B5 backward (`_flash_attention_core:803`,
     `_core_fwd:816`, `_core_bwd:826`). The forward saves (q, k, v, out, lse);
@@ -408,7 +420,7 @@ class FlashAttentionBHND(torch.autograd.Function):
     def forward(ctx, q, k, v, scale, rope_expanded, segment_ids, seg_kv, causal, kv_valid_len):
         norm = _normalize(q, k, v, rope_expanded, segment_ids, seg_kv, causal, kv_valid_len)
         ctx.args = (scale, *norm, causal, kv_valid_len)
-        out, lse = _fwd(q, k, v, *ctx.args)
+        out, lse = torch.ops.vjepa2.flash_fwd_bhnd(q, k, v, *ctx.args)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
         return out, lse

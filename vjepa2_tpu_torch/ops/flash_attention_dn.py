@@ -323,6 +323,25 @@ def flash_attention_bhdn_bwd(q, k, v, out, lse, do, scale: float | None = None,
     return _flash_bwd_cuda(q, k, v, out, lse, do, scale, *norm, kv_valid_len)
 
 
+def _fwd_op(q, k, v, scale, cos, sin, segment_ids, kv_valid_len):
+    """The forward: B1 on a CUDA tensor, its plain version on a CPU one."""
+    rope = None if cos is None else (cos, sin)
+    if _device(q, k, v) == "cpu":
+        return flash_attention_bhdn_plain(q, k, v, scale, rope, segment_ids, kv_valid_len)
+    norm = _normalize(q, k, v, rope, segment_ids, kv_valid_len)
+    return _flash_fwd_cuda(q, k, v, scale, *norm, kv_valid_len)
+
+
+# The forward is one dispatcher op, ``torch.ops.vjepa2.flash_fwd_dn``, so that
+# a selective remat policy can keep its (out, lse) (JAX's "flash_out" and
+# "flash_lse" names, `flash_attention_dn.py:650-651`) and the recompute
+# launches nothing (`models.modules.resolve_remat_policy`).
+_LIB = torch.library.Library("vjepa2", "FRAGMENT")
+_LIB.define("flash_fwd_dn(Tensor q, Tensor k, Tensor v, float? scale, Tensor? cos, "
+            "Tensor? sin, Tensor? segment_ids, int? kv_valid_len) -> (Tensor, Tensor)")
+_LIB.impl("flash_fwd_dn", _fwd_op, "CompositeExplicitAutograd")
+
+
 class FlashAttentionDN(torch.autograd.Function):
     """B1 forward, B2 backward (`_flash_core_dn:492`, `_core_fwd_dn:503`,
     `_core_bwd_dn:513`). The forward saves (q, k, v, out, lse); lse is an
@@ -330,12 +349,9 @@ class FlashAttentionDN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, rope_expanded, segment_ids, kv_valid_len):
-        if _device(q, k, v) == "cpu":
-            out, lse = flash_attention_bhdn_plain(q, k, v, scale, rope_expanded, segment_ids,
-                                                  kv_valid_len)
-        else:
-            norm = _normalize(q, k, v, rope_expanded, segment_ids, kv_valid_len)
-            out, lse = _flash_fwd_cuda(q, k, v, scale, *norm, kv_valid_len)
+        cos, sin = (None, None) if rope_expanded is None else rope_expanded
+        out, lse = torch.ops.vjepa2.flash_fwd_dn(q, k, v, scale, cos, sin, segment_ids,
+                                                 kv_valid_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (scale, rope_expanded, segment_ids, kv_valid_len)
         ctx.mark_non_differentiable(lse)

@@ -156,12 +156,24 @@ def _fwd(x, *args):
     raise ValueError(f"no ln_qkv route for device {x.device}")
 
 
+# The forward is one dispatcher op, ``torch.ops.vjepa2.ln_qkv``, so that a
+# selective remat policy can keep its q, k and v (JAX's "flash_qkv" name, which
+# the fused route's q, k and v carry into `flash_attention.py:1124-1126`) and
+# the recompute launches nothing (`models.modules.resolve_remat_policy`).
+_LIB = torch.library.Library("vjepa2", "FRAGMENT")
+_LIB.define("ln_qkv(Tensor x, Tensor gamma, Tensor beta, Tensor w, Tensor bias, Tensor? cos, "
+            "Tensor? sin, float eps, int num_heads, int head_dim) "
+            "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("ln_qkv", _fwd, "CompositeExplicitAutograd")
+
+
 class LnQkvFunction(torch.autograd.Function):
     """B7 forward, `_core_bwd` backward with the B6 backward as its tail."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w, bias, cos, sin, eps, num_heads, head_dim):
-        q, k, v, mean, rstd = _fwd(x, gamma, beta, w, bias, cos, sin, eps, num_heads, head_dim)
+        q, k, v, mean, rstd = torch.ops.vjepa2.ln_qkv(x, gamma, beta, w, bias, cos, sin, eps,
+                                                      num_heads, head_dim)
         ctx.save_for_backward(x, gamma, beta, w, cos, sin, mean, rstd)
         ctx.dims = (num_heads, head_dim, bias.dtype)
         return q, k, v

@@ -95,7 +95,7 @@ def _dn_calls(c, dev, name, seqs, rope):
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 
     (B, H, D, N), feats = {n: (shape, f) for n, shape, f in c.SHAPES}[name]
-    q, k, v, kw = c._dn_case(dev, B, H, D, N, feats)
+    q, k, v, kw = c._dn_case(dev, B, H, D, N, feats, seqs)
     if not rope:
         kw.pop("rope_expanded", None)
     return {"fwd": lambda: fdn.flash_attention_bhdn(q, k, v, **kw)}, {"bhdn": [B, H, D, N]}

@@ -6,6 +6,7 @@ the EMA target encoder (a deep copy of the encoder that takes no gradient)
 and the optimizer. PyTorch updates them in place, so the step mutates the
 state instead of returning a new one. ``step`` counts the updates made;
 the schedules read it (the optimizer keeps no counter of its own).
+`state_dict` / `load_state_dict` carry all of it for `core.checkpoint`.
 """
 
 from __future__ import annotations
@@ -32,3 +33,20 @@ class TrainState:
         target = copy.deepcopy(encoder).requires_grad_(False)
         return cls(step=0, encoder=encoder, predictor=predictor, target_encoder=target,
                    optimizer=optimizer)
+
+    def state_dict(self) -> dict:
+        """The step, the three models' parameters and the optimizer's
+        moments and counts."""
+        return {"step": self.step, "encoder": self.encoder.state_dict(),
+                "predictor": self.predictor.state_dict(),
+                "target_encoder": self.target_encoder.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict` into this state's tensors (bit-exact, onto
+        their devices)."""
+        self.step = int(state["step"])
+        self.encoder.load_state_dict(state["encoder"])
+        self.predictor.load_state_dict(state["predictor"])
+        self.target_encoder.load_state_dict(state["target_encoder"])
+        self.optimizer.load_state_dict(state["optimizer"])
