@@ -98,11 +98,28 @@ Phases, each printed as one JSON object on a line of its own:
    path adds in a varying order), and the microbatch under no remat, full,
    save_attn, save_attn_qkv and save_attn_qkv_h: peak memory, and the wall,
    device-busy time and idle share of one traced call each; the loop's ms a
-   step as in phase 15, and one more step traced.
+   step as in phase 15, and one more step traced;
+17. train_droid — V-JEPA 2-AC post-training: `cli.main`'s `run_vjepa_droid`
+   (the `DroidTrainer`) on the shipped ViT-g DROID config (`DROID_CONFIG`:
+   batch 8, 8 frames at 256 px, the frozen ViT-g target at depth 40, the AC
+   predictor at depth 24, auto_steps 2, bf16, synthetic trajectories),
+   overriding the folder, ipe (4) and the epochs: epoch 0, then a resumed
+   epoch 1. Every step launches B1 88 times (40 target, 24 teacher forcing,
+   24 rollout) and B2 48; before the first step, trajectory 0's loss and
+   predictor gradients on the initial weights against the fp32 CPU path
+   (the tolerances of phase 6); the restored state bit-equal to the saved
+   one, the resumed first step at step 4 with the schedules' lr and weight
+   decay there, the target bit-equal before and after the steps, 8 CSV
+   rows; the loop's ms a step, clips/s, peak memory, the checkpoints, and
+   one more step traced, as in phase 15.
 The kernel phases 3 and 5 also hold B1 and B2 at the cooldown's shapes
 ([2,16,64,8192] target, the contexts of 2302 and 568 tokens, the predictor
 sequences of 6479 and 6471), with per-example RoPE tables of real collator
-masks. A ``seconds`` line gives each phase's time and the script's total.
+masks, and at the DROID step's: B1 over the ViT-g target's single frames
+[64,22,64,256], B1 and B2 over the AC sequences (1806 and 516 tokens,
+frame-causal) as they come and stack-padded to 1808 and 520 with the pad
+keys on segment int32-max, as the AC predictor runs them. A ``seconds``
+line gives each phase's time and the script's total.
 
 Every attention kernel phase also times
 `torch.nn.functional.scaled_dot_product_attention` on the same inputs
@@ -159,6 +176,14 @@ SHAPES = [
     ("vit_large encoder", (8, 16, 64, 2048), {}),
     ("pretrain predictor", (8, 12, 32, 1664), {"kv_valid_len": 1623}),
     ("ac predictor", (8, 16, 64, 1806), {"segments": 7}),
+    # the DROID step (phase train_droid): the ViT-g target over single frames,
+    # and the AC predictor's teacher forcing (7 frames of 2 + 256 tokens) and
+    # rollout (2 frames), each also stack-padded to a multiple of 8 with the
+    # pad keys on segment int32-max, as the model runs them
+    ("ac encoder frames", (64, 22, 64, 256), {}),
+    ("ac predictor, stack-padded", (8, 16, 64, 1808), {"segments": 7, "pad": 2}),
+    ("ac rollout", (8, 16, 64, 516), {"segments": 2}),
+    ("ac rollout, stack-padded", (8, 16, 64, 520), {"segments": 2, "pad": 4}),
     ("vit_giant_xformers encoder", (2, 22, 64, 2048), {}),
     ("cooldown target", (2, 16, 64, 8192), {}),
     ("cooldown context, mask 0", (2, 16, 64, 2304), {"seq": "cool_ctx0"}),
@@ -194,6 +219,9 @@ BWD_SHAPES = [
     ("predictor, mask 0", 12, 32, "pred0"),
     ("predictor, mask 1", 12, 32, "pred1"),
     ("ac predictor", 16, 64, "ac"),
+    ("ac predictor, stack-padded", 16, 64, "ac_pad"),
+    ("ac rollout", 16, 64, "ac_rollout"),
+    ("ac rollout, stack-padded", 16, 64, "ac_rollout_pad"),
     ("cooldown context, mask 0", 16, 64, "cool_ctx0"),
     ("cooldown context, mask 1", 16, 64, "cool_ctx1"),
     ("cooldown predictor, mask 0", 12, 32, "cool_pred0"),
@@ -243,6 +271,8 @@ BHND_BWD_SHAPES = [
     ("fused predictor, mask 0", (8, 12, 1624, 32), {"kv_valid_len": 1623}),
     ("fused predictor, mask 1", (8, 12, 1664, 32), {"kv_valid_len": 1662}),
 ]
+# the AC sequences of `BWD_SHAPES`: (frames of 2 + 256 tokens, stack pad)
+AC_SEQUENCES = {"ac": (7, 0), "ac_pad": (7, 2), "ac_rollout": (2, 0), "ac_rollout_pad": (2, 4)}
 # launch counters, in the order `_launch_counts` reads them
 KERNEL_COUNTS = ("b1", "b2", "b3", "bhnd_bwd", "b6_fwd", "b6_bwd", "b7", "b8")
 # the step of phase 6 per (encoder, fusions): (phase, launches per step in
@@ -314,6 +344,28 @@ ACCUM_CONFIG = {
                      "lr": 0.000525, "start_lr": 0.000525, "warmup": 0, "weight_decay": 0.04},
 }
 ACCUM_OVERRIDES = {"mesh.model": 1, "optimization.ipe": 3, "optimization.epochs": 1}
+# V-JEPA 2-AC post-training (phase train_droid): the ViT-g target over 64
+# single frames (40 B1 forwards), then the AC predictor's teacher forcing and
+# one rollout call (24 B1 and 24 B2 each); batch 8, 8 frames at 256 px
+DROID_CONFIG_FILE = "configs/train/vitg16/droid-256px-8f.yaml"
+DROID_CONFIG = {
+    "app": "vjepa_droid", "folder": "./runs/vitg16-droid-256px-8f",
+    "mesh": {"data": -1, "fsdp": 1, "model": 1},
+    "data": {"datasets": [], "batch_size": 8, "crop_size": 256, "patch_size": 16,
+             "dataset_fpcs": [8], "tubelet_size": 2, "fps": 4, "num_workers": 8},
+    "loss": {"loss_exp": 1.0, "auto_steps": 2, "normalize_reps": True},
+    "mask": [],
+    "meta": {"dtype": "bfloat16", "seed": 234, "load_checkpoint": True, "read_checkpoint": None},
+    "model": {"model_name": "vit_giant_xformers", "pred_depth": 24, "pred_embed_dim": 1024,
+              "pred_num_heads": 16, "uniform_power": False, "use_rope": True,
+              "use_extrinsics": False, "max_num_frames": 512},
+    "optimization": {"epochs": 12, "ipe": 300, "ipe_scale": 1.0, "lr": 4.25e-05,
+                     "start_lr": 2e-05, "final_lr": 0.0, "warmup": 1, "anneal": 2,
+                     "weight_decay": 0.04, "final_weight_decay": 0.4, "enc_lr_scale": 1.0},
+}
+DROID_IPE = 4
+DROID_OVERRIDES = {"optimization.ipe": DROID_IPE, "optimization.epochs": 2}
+DROID_LAUNCHES = (40 + 2 * 24, 2 * 24, 0, 0, 0, 0, 0, 0)
 
 # B6 rows: (name, [R, C]); the last three and the predictor's are the fused
 # ViT-L step's backward rows (the contexts' 578 and 173 tokens stack-padded)
@@ -589,10 +641,16 @@ def _dn_case(dev, B, H, D, N, feats, seqs=None):
     if "kv_valid_len" in feats:
         kw["kv_valid_len"] = feats["kv_valid_len"]
     if "segments" in feats:
-        frames = feats["segments"]
-        kw["segment_ids"] = torch.arange(frames, device=dev, dtype=torch.int32) \
-            .repeat_interleave(N // frames)
+        kw["segment_ids"] = _ac_segments(dev, N, feats["segments"], feats.get("pad", 0))
     return q, k, v, kw
+
+
+def _ac_segments(dev, N, frames, pad):
+    """Frame-causal ids of ``N`` tokens: ``frames`` equal frames, then
+    ``pad`` stack-pad tokens on int32-max (`models.modules.frame_segments`)."""
+    from vjepa2_tpu_torch.models.modules import frame_segments
+
+    return frame_segments(frames, (N - pad) // frames, dev, pad)
 
 
 def phase_kernels(dev, smi: str) -> dict:
@@ -724,11 +782,11 @@ def _dn_bwd_case(dev, H, D, seq, seqs):
 
     rng = np.random.RandomState(0)
     kw = {}
-    if seq == "ac":  # 7 frames of 2 + 256 tokens, frame-causal, shared tables
-        N = 1806
+    if seq in AC_SEQUENCES:  # frames of 2 + 256 tokens, frame-causal, shared tables
+        frames, pad = AC_SEQUENCES[seq]
+        N = frames * 258 + pad
         pos = torch.arange(N, device=dev)
-        kw["segment_ids"] = torch.arange(7, device=dev, dtype=torch.int32) \
-            .repeat_interleave(N // 7)
+        kw["segment_ids"] = _ac_segments(dev, N, frames, pad)
     else:  # per-example positions, stack-padded with id 0 as the models pad
         pos, kv_valid = _seq_positions(dev, seqs[seq])
         N = pos.shape[1]
@@ -1020,43 +1078,48 @@ def phase_train_fused(dev, smi: str) -> tuple[tuple[int, ...], tuple[int, ...]]:
 
 
 class _LoopRecorder:
-    """While active, wraps the `Pretrainer` class the CLI builds (restored on
-    exit): every step's launches (the counts before and after it), the host
-    clock at its start, step number, loss, lr, weight decay, EMA momentum and
-    masks; each state ``restore_or_init`` returns (``on_restore(trainer,
-    state)`` runs first); each checkpoint save's host clock at its start,
-    seconds and bytes. Nothing is synchronised or read back while the loop
-    runs (the loss and masks stay on the card until exit), so the loop keeps
-    its own syncs, at its log points and at the epoch's end."""
+    """While active, wraps the trainer class the CLI builds (the `Pretrainer`,
+    or with ``droid`` the `DroidTrainer`; restored on exit): every step's
+    launches (the counts before and after it), the host clock at its start,
+    step number, loss, lr and weight decay, and the Pretrainer's EMA momentum
+    and masks or the DROID step's grad norm; each state ``restore_or_init``
+    returns (``on_restore(trainer, state)`` runs first); each checkpoint
+    save's host clock at its start, seconds and bytes. Nothing is
+    synchronised or read back while the loop runs (the loss and masks stay
+    on the card until exit), so the loop keeps its own syncs, at its log
+    points and at the epoch's end."""
 
-    def __init__(self, on_restore=None):
+    def __init__(self, on_restore=None, droid: bool = False):
         self.steps, self.states, self.saves, self.last = [], [], [], None
-        self.on_restore = on_restore
+        self.on_restore, self.droid = on_restore, droid
 
     def __enter__(self):
         from vjepa2_tpu_torch.core.checkpoint import CheckpointManager
+        from vjepa2_tpu_torch.train.droid_loop import DroidTrainer
         from vjepa2_tpu_torch.train.loop import Pretrainer
 
-        self._patched = [(Pretrainer, "_step_fn", Pretrainer._step_fn),
-                         (Pretrainer, "restore_or_init", Pretrainer.restore_or_init),
+        cls = DroidTrainer if self.droid else Pretrainer
+        self._patched = [(cls, "_step_fn", cls._step_fn),
+                         (cls, "restore_or_init", cls.restore_or_init),
                          (CheckpointManager, "save", CheckpointManager.save)]
         make, restore, save = (orig for _, _, orig in self._patched)
         rec = self
 
-        def step_fn(trainer, fpc):
-            fn = make(trainer, fpc)
+        def step_fn(trainer, *key):
+            fn = make(trainer, *key)
 
-            def step(state, clips, me, mp):
+            def step(state, *args):
                 before, n, t0 = _launch_counts(), state.step, time.perf_counter()
-                metrics = fn(state, clips, me, mp)
+                metrics = fn(state, *args)
                 groups = state.optimizer.opt.param_groups
+                extra = ({"grad_norm": metrics["grad_norm"]} if rec.droid else
+                         {"ema_momentum": metrics["ema_momentum"],
+                          "masks": [m.clone() for m in (*args[1], *args[2])]})
                 rec.steps.append({
                     "step": n, "t0": t0, "loss": metrics["loss"],
                     "launches": tuple(a - b for a, b in zip(_launch_counts(), before)),
-                    "lr": groups[0]["lr"], "wd": groups[0]["weight_decay"],
-                    "ema_momentum": metrics["ema_momentum"],
-                    "masks": [m.clone() for m in (*me, *mp)]})
-                rec.last = (fn, state, clips, me, mp)
+                    "lr": groups[0]["lr"], "wd": groups[0]["weight_decay"], **extra})
+                rec.last = (fn, state, *args)
                 return metrics
 
             return step
@@ -1074,7 +1137,7 @@ class _LoopRecorder:
             rec.saves.append({"step": step, "t0": t0, "seconds": time.perf_counter() - t0,
                               "bytes": os.path.getsize(mgr.path(step))})
 
-        Pretrainer._step_fn, Pretrainer.restore_or_init = step_fn, restore_or_init
+        cls._step_fn, cls.restore_or_init = step_fn, restore_or_init
         CheckpointManager.save = timed_save
         return self
 
@@ -1082,8 +1145,10 @@ class _LoopRecorder:
         for owner, name, orig in self._patched:
             setattr(owner, name, orig)
         for s in self.steps:
-            if not isinstance(s["loss"], float):
-                s["loss"] = float(s["loss"])
+            for k in ("loss", "grad_norm"):
+                if isinstance(s.get(k), torch.Tensor):
+                    s[k] = float(s[k])
+            if "masks" in s and isinstance(s["masks"][0], torch.Tensor):
                 s["masks"] = [m.cpu().numpy() for m in s["masks"]]
         return False
 
@@ -1106,24 +1171,25 @@ class _LoopRecorder:
 
 
 def _state_tensors(state):
-    """(name, tensor) of a train state's `state_dict`: the three models and
-    AdamW's moments and per-parameter step counts."""
+    """(name, tensor) of a train state's `state_dict`: its models (three, or
+    the DROID state's two) and AdamW's moments and per-parameter step counts."""
     sd = state.state_dict()
     for m in ("encoder", "predictor", "target_encoder"):
-        yield from ((f"{m}.{k}", v) for k, v in sd[m].items())
+        yield from ((f"{m}.{k}", v) for k, v in sd.get(m, {}).items())
     for i, s in sd["optimizer"]["state"].items():
         yield from ((f"optimizer.{i}.{k}", v) for k, v in s.items())
 
 
 def _run_config(raw: dict, dev, epochs=None) -> None:
-    """The CLI's app on a config dict: `cli.main.run_vjepa`, on the card."""
+    """The CLI's app for a config dict (`cli.main.APPS`: `run_vjepa` or
+    `run_vjepa_droid`), on the card."""
     import argparse
 
-    from vjepa2_tpu_torch.cli.main import run_vjepa
+    from vjepa2_tpu_torch.cli.main import APPS
     from vjepa2_tpu_torch.core.config import PretrainConfig
 
-    run_vjepa(PretrainConfig.from_dict(raw),
-              argparse.Namespace(synthetic_data=False, epochs=epochs, device=dev))
+    APPS[raw["app"]](PretrainConfig.from_dict(raw),
+                     argparse.Namespace(synthetic_data=False, epochs=epochs, device=dev))
 
 
 def _check_launches(phase: str, steps, want) -> None:
@@ -1329,6 +1395,151 @@ def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
         raise AssertionError(f"the cooldown microbatch's loss and gradients under {policy} are "
                              f"not bit-equal to the no-remat ones: loss {loss_rel}, gradients "
                              f"{grad_rel} relative L2, {grad_max_abs} max abs")
+    return launches
+
+
+def _droid_trajectory(trainer, predictor, target_encoder):
+    """The DROID losses of the models on trajectory 0 of the trainer's
+    loader, and their backward: ((loss, teacher forcing, rollout), the
+    predictor's flat fp32 gradients on the CPU); the gradients are then
+    cleared. On the card or the CPU, wherever the models are."""
+    from vjepa2_tpu_torch.train.droid import droid_losses
+
+    loader = trainer.make_loader()
+    dev = next(predictor.parameters()).device
+    clips, actions, states = (torch.from_numpy(x[:1]).to(dev)
+                              for x in (loader.clips, loader.actions, loader.states))
+    losses = droid_losses(predictor, target_encoder, trainer.hp, trainer.tpf, clips, actions,
+                          states)
+    losses[0].backward()
+    grads = torch.cat([p.grad.float().flatten().cpu() for p in predictor.parameters()])
+    predictor.zero_grad(set_to_none=True)
+    return tuple(x.item() for x in losses), grads
+
+
+def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
+    """The `DroidTrainer` through the CLI's `run_vjepa_droid` on the shipped
+    ViT-g DROID config (`DROID_CONFIG`: batch 8, 8 frames at 256 px, ViT-g
+    depth 40, predictor depth 24, auto_steps 2, bf16, synthetic trajectories):
+    epoch 0, then a new trainer on the same folder resumes and runs epoch 1.
+    Before the first step, trajectory 0's losses and predictor gradients on
+    the initial weights against the fp32 CPU path from the same weights.
+    Returns the launches of all its steps."""
+    import shutil
+    import tempfile
+
+    from vjepa2_tpu_torch.core import schedulers
+    from vjepa2_tpu_torch.train.droid import build_droid_models
+
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="vjepa2_droid_")
+    overrides = {"folder": folder, **DROID_OVERRIDES}
+    raw = overridden(DROID_CONFIG, overrides)
+    traj = {}
+
+    def on_card(trainer, state):  # the initial weights: trajectory 0, and a CPU copy
+        traj["card"] = _droid_trajectory(trainer, state.predictor, state.target_encoder)
+        traj["weights"] = {k: {n: v.detach().to("cpu", copy=True)
+                               for n, v in m.state_dict().items()}
+                           for k, m in (("predictor", state.predictor),
+                                        ("target_encoder", state.target_encoder))}
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    try:
+        with _LoopRecorder(on_restore=on_card, droid=True) as part1:
+            _run_config(raw, dev, epochs=1)
+        _, state1 = part1.states[0]
+        saved = {k: v.detach().to("cpu", copy=True) for k, v in _state_tensors(state1)}
+        part1.release()
+        del state1
+        restored = {}
+
+        def compare(trainer, state):  # the restored state against the saved one
+            restored["step"] = state.step
+            restored["tensors"] = len(saved)
+            restored["bit_equal"] = all(torch.equal(v.cpu(), saved[k])
+                                        for k, v in _state_tensors(state)) \
+                and sorted(k for k, _ in _state_tensors(state)) == sorted(saved)
+
+        with _LoopRecorder(on_restore=compare, droid=True) as part2:
+            _run_config(raw, dev, epochs=2)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        del saved
+        steps = part1.steps + part2.steps
+        _check_launches("train_droid", steps, DROID_LAUNCHES)
+        if not restored.get("bit_equal") or restored["step"] != DROID_IPE:
+            raise AssertionError(f"the restored state is not the saved one: {restored}")
+        first = part2.steps[0]
+        trainer, state = part2.states[0]
+        hp = trainer.hp
+        want = {"step": DROID_IPE,
+                "lr": schedulers.wsd_lr(DROID_IPE, warmup_steps=hp.warmup_steps,
+                                        anneal_steps=hp.anneal_steps, t_max=hp.total_steps,
+                                        start_lr=hp.start_lr, ref_lr=hp.lr,
+                                        final_lr=hp.final_lr),
+                "wd": schedulers.cosine_wd(DROID_IPE, ref_wd=hp.wd, t_max=hp.total_steps,
+                                           final_wd=hp.final_wd)}
+        got = {k: first[k] for k in want}
+        target_equal = all(torch.equal(v.cpu(), traj["weights"]["target_encoder"][k])
+                           for k, v in state.target_encoder.state_dict().items())
+        with open(os.path.join(folder, "droid_log_r0.csv")) as f:
+            rows = [ln for ln in f.read().splitlines() if ln and not ln.startswith("epoch")]
+        if got != want or not target_equal or len(rows) != 2 * DROID_IPE:
+            raise AssertionError(f"resume: {got} against {want}, target bit-equal "
+                                 f"{target_equal}, {len(rows)} CSV rows for {2 * DROID_IPE}")
+        # one more step, synchronised and traced: its wall, device-busy time
+        # and idle share, all from that one call
+        fn, state_, *batch = part2.last
+        traced = wall_and_busy(lambda: fn(state_, *batch)["loss"].item())
+        (ms1, n1), (ms2, n2) = part1.loop_ms_per_step(), part2.loop_ms_per_step()
+        ms = (ms1 * n1 + ms2 * n2) / (n1 + n2)
+        part2.release()
+        del state, state_, fn, batch
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    # the same trajectory on the CPU in fp32 from the initial weights
+    torch.set_num_threads(os.cpu_count() or 1)
+    t1 = time.perf_counter()
+    m = raw["model"]
+    enc, pred = build_droid_models(
+        model_name=m["model_name"], crop_size=raw["data"]["crop_size"],
+        pred_depth=m["pred_depth"], pred_embed_dim=m["pred_embed_dim"],
+        pred_num_heads=m["pred_num_heads"], uniform_power=m["uniform_power"],
+        dtype=torch.float32, device="cpu")
+    weights = traj.pop("weights")
+    enc.load_state_dict(weights["target_encoder"])
+    pred.load_state_dict(weights["predictor"])
+    cpu_losses, cpu_grads = _droid_trajectory(trainer, pred, enc)
+    cpu_s = time.perf_counter() - t1
+    card_losses, card_grads = traj.pop("card")
+    loss_rel = abs(card_losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
+    grad_rel = ((card_grads - cpu_grads).norm() / cpu_grads.norm()).item()
+    del enc, pred, weights, card_grads, cpu_grads
+    ok = loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
+    launches = tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
+    emit({"phase": "train_droid", "config": DROID_CONFIG_FILE,
+          "overrides": {**overrides, "folder": "<temporary directory>"},
+          "model": "vit_giant_xformers target (40 x 1408, 22 heads of 64) over 64 single "
+                   "frames of 256 tokens + AC predictor (24 x 1024, 16 heads of 64) over 1806 "
+                   "and 516 frame-causal tokens (stack-padded to 1808 and 520), bs8, 8f@256, "
+                   "auto_steps 2, RoPE, bf16, synthetic trajectories",
+          "steps": [{k: v for k, v in s.items() if k != "t0"} for s in steps],
+          "loop_ms_per_step": ms, "loop_ms_per_step_by_part": [ms1, ms2],
+          "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3), "timed_steps": n1 + n2,
+          "one_traced_step": traced, "peak_memory_gb": peak_gb,
+          "launches_per_step": dict(zip(KERNEL_COUNTS, DROID_LAUNCHES)),
+          "checkpoint": [{k: v for k, v in c.items() if k != "t0"}
+                         for c in part1.saves + part2.saves],
+          "restored": restored, "resumed_first": got, "target_bit_equal": target_equal,
+          "csv_rows": len(rows),
+          "trajectory_vs_cpu_fp32": {"card": card_losses, "cpu": cpu_losses,
+                                     "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel,
+                                     "tol": {"loss_rel": TRAIN_LOSS_REL,
+                                             "grad_rel_l2": TRAIN_GRAD_REL_L2}},
+          "cpu_reference_s": cpu_s, "seconds": time.perf_counter() - t0, "ok": ok, "gpu": smi})
+    if not ok:
+        raise AssertionError(f"DROID trajectory 0 off the CPU fp32 path: loss {loss_rel}, "
+                             f"predictor gradients {grad_rel} relative L2")
     return launches
 
 
@@ -1827,9 +2038,11 @@ def main() -> int:
     fused_l, unfused_l = timed("train_fused", phase_train_fused, dev, smi)
     loop_l = timed("train_loop", phase_train_loop, dev, smi)
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
+    droid_l = timed("train_droid", phase_train_droid, dev, smi)
     emit({"phase": "seconds", "phases": seconds, "total": time.perf_counter() - t_start})
     # every main-path run's launches, in the order of KERNEL_COUNTS
-    total = [sum(c) for c in zip(train_l, train_h, fused_l, unfused_l, loop_l, accum_l)]
+    total = [sum(c) for c in zip(train_l, train_h, fused_l, unfused_l, loop_l, accum_l,
+                                 droid_l)]
     total[0] += serve_launches
     total[2] += giant_launches
 

@@ -4,8 +4,9 @@ feature surface and the edges the training shapes do not reach: short and
 ragged N, pad keys past kv_valid, segment ids at 2**24, D 16 and 48, a
 non-contiguous cotangent, the copy path of a v and do whose rows TMA cannot
 step (N % 8 != 0, with frame-causal segments as the AC predictor has them),
-equal bits from two calls, and a grad-mode forward and backward through
-`Attention`.
+equal bits from two calls, a grad-mode forward and backward through
+`Attention`, and the DROID step's AC shapes (the rollout's 516 tokens, and
+516 and 1806 stack-padded with the pad keys on segment int32-max).
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
@@ -215,3 +216,24 @@ def test_cuda_bwd_raises_on_what_it_cannot_take(dev):
         fdn.flash_attention_bhdn_bwd(q, k, v, out, lse.double(), do)
     with pytest.raises(ValueError):
         fdn.flash_attention_bhdn_bwd(q, k, v, out, lse[:, :, :64], do)
+
+
+@pytest.mark.parametrize("N, frames, pad", [
+    (516, 2, 0),   # the DROID rollout call: 2 frames of 2 + 256 tokens (copy path)
+    (520, 2, 4),   # ... stack-padded, pad keys on segment int32-max, as the model runs it
+    (1808, 7, 2),  # teacher forcing, 7 frames, stack-padded
+])
+def test_droid_step_shapes(dev, N, frames, pad):
+    """B2 at the AC predictor's shapes in the DROID step, batch 8, 16 heads
+    of 64; real queries give the pad keys no gradient."""
+    B, H, D = 8, 16, 64
+    q, k, v, do = (_randn((B, H, D, N), dev, s) for s in range(4))
+    kw = {"segment_ids": tm.frame_segments(frames, (N - pad) // frames, dev, pad),
+          "rope_expanded": _tables(N, D, dev)}
+    got = _grads_kernel(q, k, v, do, **kw)
+    _close(got, _grads_plain(q, k, v, do, **kw))
+    if pad:  # only the pad queries (sliced off by the model) reach the pad keys
+        do_real = do.clone()
+        do_real[..., N - pad:] = 0
+        _, dk, dv = _grads_kernel(q, k, v, do_real, **kw)
+        assert not dk[..., N - pad:].any() and not dv[..., N - pad:].any()

@@ -94,16 +94,19 @@ def _scratch_want(B, H, D, N, M):
 def test_scratch_at_the_smoke_shapes():
     """The prologue's scratch at every `BWD_SHAPES` entry (the step's
     contexts and predictor sequences at batch 8, stack-padded to 8, the
-    AC predictor's 1806, and the 64-frame cooldown's contexts and predictor
+    AC predictor's 1806 and 516 tokens as they come and stack-padded to
+    1808 and 520, and the 64-frame cooldown's contexts and predictor
     sequences at batch 2): token-major q_s, q_u, k_rot and the padded fp32
     rows, 256-aligned pieces, about 3 x the size of q."""
     c = _chip_smoke()
     seqs = c._mask_seqs()
     lengths = {name: ids.shape[1] + (-ids.shape[1]) % 8 for name, ids in seqs.items()}
     batches = {name: ids.shape[0] for name, ids in seqs.items()}
-    lengths["ac"], batches["ac"] = 1806, 8
+    for name, (frames, pad) in c.AC_SEQUENCES.items():
+        lengths[name], batches[name] = frames * 258 + pad, 8
     assert [lengths[seq] for _, _, _, seq in c.BWD_SHAPES] == [584, 176, 1624, 1664, 1806,
-                                                               2304, 568, 6480, 6472]
+                                                               1808, 516, 520, 2304, 568,
+                                                               6480, 6472]
     for _, H, D, seq in c.BWD_SHAPES:
         N, B = lengths[seq], batches[seq]
         offsets, total = fdn.bwd_scratch(B, H, D, N, N)

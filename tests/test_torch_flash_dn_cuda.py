@@ -4,7 +4,10 @@ feature surface and the ragged shapes the production shapes do not reach.
 The Hopper design's own edges: v that TMA cannot read in place (M % 8 != 0,
 or strides that are not multiples of 8), which the prologue copies first,
 at every head width, with N != M, strided q/k/v, segments and kv_valid;
-key tiles that end past M; and two calls giving equal bits.
+key tiles that end past M; two calls giving equal bits; and the DROID
+step's shapes (the ViT-g target's single frames, the AC predictor's
+frame-causal rollout, and its sequences stack-padded with the pad keys on
+segment int32-max).
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax, so it runs
 where jax is absent (``--noconftest`` skips the suite's jax conftest):
@@ -25,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from vjepa2_tpu_torch.models.modules import frame_segments
 from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 from vjepa2_tpu_torch.ops.flash_attention import tma_ready
 from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
@@ -195,3 +199,22 @@ def test_forward_is_deterministic(dev, D):
             torch.cuda.synchronize()
         assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
+
+
+@pytest.mark.parametrize("B, H, N, frames, pad", [
+    (64, 22, 256, 0, 0),   # the ViT-g target over single frames
+    (8, 16, 516, 2, 0),    # the rollout call: 2 frames of 2 + 256 tokens
+    (8, 16, 520, 2, 4),    # ... stack-padded, as the AC predictor runs it
+    (8, 16, 1808, 7, 2),   # teacher forcing, 7 frames, stack-padded
+])
+def test_droid_step_shapes(dev, B, H, N, frames, pad):
+    q, k, v = _inputs(B, H, 64, N, dev, seed=11)
+    kw = {"rope_expanded": _tables(N, 64, dev)}
+    if frames:
+        kw["segment_ids"] = frame_segments(frames, (N - pad) // frames, dev, pad)
+    assert tma_ready(v) == (N % 8 == 0)
+    with torch.inference_mode():
+        got = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
+        want = fdn.flash_attention_bhdn_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+    _close(got, want)

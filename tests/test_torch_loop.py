@@ -17,9 +17,11 @@ temporary directory and ``optimization.ipe`` 3.
   grad norm rtol 1e-5, EMA target atol 1e-6) and as the mean of its
   per-bucket losses (rtol 1e-6, `tests/train/test_multifpc.py:83`), and the
   `Pretrainer` grouping two fpcs into one step.
-* The refusals (several cards, datasets on disk, in-process evals, the
-  action-conditioned app), and `chip_smoke.py`'s two config dicts equal to
-  their YAML files after the overrides it prints.
+* The refusals (several cards, datasets on disk, in-process evals), the
+  action-conditioned app running through the same CLI on the smoke config
+  (`tests/test_torch_droid_loop.py` holds it to JAX), and `chip_smoke.py`'s
+  three config dicts equal to their YAML files after the overrides it
+  prints.
 """
 
 import csv
@@ -115,8 +117,8 @@ def _assert_bit_equal(a: TrainState, b: TrainState):
         assert torch.equal(ta[k], tb[k]), k
 
 
-def _csv_rows(folder) -> list[list[str]]:
-    with open(Path(folder) / "log_r0.csv") as f:
+def _csv_rows(folder, name="log_r0.csv") -> list[list[str]]:
+    with open(Path(folder) / name) as f:
         return [r for r in csv.reader(f) if r and r[0] != "epoch"]
 
 
@@ -292,13 +294,16 @@ def test_fp32_on_the_card_is_refused(tmp_path, monkeypatch):
 
 
 def test_refusals_of_the_cli(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        _main(_write(tmp_path, "droid"), "--app", "vjepa_droid")
+    # the action-conditioned app runs (it was refused until ROADMAP A9):
+    # the smoke config as a DROID run, 2 epochs of IPE steps, finite loss
+    out = _main(_write(tmp_path, "droid", {"loss.auto_steps": 2}), "--app", "vjepa_droid")
+    assert out["step"] == 2 * IPE and np.isfinite(out["loss"])
+    assert len(_csv_rows(tmp_path / "droid", "droid_log_r0.csv")) == 2 * IPE
     with pytest.raises(SystemExit, match="A12"):
         _main(_write(tmp_path, "run"), "--num-processes", "2")
 
 
-@pytest.mark.parametrize("name", ["LOOP", "ACCUM"])
+@pytest.mark.parametrize("name", ["LOOP", "ACCUM", "DROID"])
 def test_chip_smoke_configs_are_the_shipped_files(name):
     held = getattr(chip_smoke, f"{name}_CONFIG")
     overrides = {"folder": "/tmp/x", **getattr(chip_smoke, f"{name}_OVERRIDES")}

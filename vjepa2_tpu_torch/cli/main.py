@@ -8,10 +8,15 @@ Usage:
   python -m vjepa2_tpu_torch.cli.main --fname configs/train/vith16/pretrain-256px-16f.yaml
   python -m vjepa2_tpu_torch.cli.main --fname cfg.yaml --epochs 1 --synthetic-data
   python -m vjepa2_tpu_torch.cli.main --fname cfg.yaml --device cpu
+  python -m vjepa2_tpu_torch.cli.main --fname configs/train/vitg16/droid-256px-8f.yaml --epochs 1
 
+Apps: ``vjepa`` (masked pretraining, `train.loop.Pretrainer`) and
+``vjepa_droid`` (action-conditioned post-training, `train.droid_loop.DroidTrainer`).
 ``--device`` is ``cuda`` unless given: without a card the run fails
-(`core.device.entry_device`). SIGTERM checkpoints the run and exits 75 (the
-wrapper requeues it; the restarted run resumes with ``meta.load_checkpoint``).
+(`core.device.entry_device`). Under ``vjepa``, SIGTERM checkpoints the run and
+exits 75 (the wrapper requeues it; the restarted run resumes with
+``meta.load_checkpoint``); JAX's ``vjepa_droid`` installs no such guard, nor
+does the port's.
 """
 
 from __future__ import annotations
@@ -46,8 +51,20 @@ def run_vjepa(cfg: PretrainConfig, args) -> dict:
 
 
 def run_vjepa_droid(cfg: PretrainConfig, args) -> dict:
-    raise NotImplementedError("app 'vjepa_droid' (action-conditioned post-training) is not "
-                              "ported (ROADMAP A9)")
+    """AC post-training (`train.droid_loop.DroidTrainer`); ``meta.read_checkpoint``
+    names a pretrained V-JEPA 2 torch checkpoint whose ``target_encoder``,
+    else ``encoder``, entry becomes the frozen target (JAX `cli/main.py:39-50`)."""
+    from vjepa2_tpu_torch.train.droid_loop import DroidTrainer
+
+    enc_state = None
+    if cfg.meta.read_checkpoint:
+        from vjepa2_tpu_torch.hub.backbones import encoder_state_dict
+
+        enc_state = encoder_state_dict(cfg.meta.read_checkpoint,
+                                       keys=("target_encoder", "encoder"))
+    trainer = DroidTrainer(cfg, enc_state=enc_state, synthetic_data=args.synthetic_data,
+                           device=args.device)
+    return trainer.run(epochs=args.epochs)
 
 
 APPS = {"vjepa": run_vjepa, "vjepa_droid": run_vjepa_droid}

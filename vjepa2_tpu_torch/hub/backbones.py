@@ -28,15 +28,21 @@ ARCH_NAME_MAP = {
 }
 
 
-def load_encoder_checkpoint(encoder: VisionTransformer, path: str) -> None:
-    """Load a released torch checkpoint's encoder into ``encoder`` by key
-    ("encoder", else "target_encoder", else the whole file; ``module.`` and
-    ``backbone.`` prefixes dropped; the sincos ``pos_embed`` is recomputed)."""
+def encoder_state_dict(path: str, keys=("encoder", "target_encoder")) -> dict:
+    """A torch checkpoint's encoder state dict: the entry of the first of
+    ``keys`` it holds, else the whole file; ``module.`` and ``backbone.``
+    prefixes dropped, the sincos ``pos_embed`` left out (recomputed)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("encoder", ckpt.get("target_encoder", ckpt))
+    sd = next((ckpt[k] for k in keys if k in ckpt), ckpt)
     sd = {k.replace("module.", "").replace("backbone.", ""): v for k, v in sd.items()}
     sd.pop("pos_embed", None)
-    encoder.load_state_dict(sd)
+    return sd
+
+
+def load_encoder_checkpoint(encoder: VisionTransformer, path: str) -> None:
+    """Load a released torch checkpoint's encoder into ``encoder`` by key
+    ("encoder", else "target_encoder", else the whole file)."""
+    encoder.load_state_dict(encoder_state_dict(path))
 
 
 def _make_vjepa2_model(model_name: str = "vit_large", img_size: int = 256,

@@ -15,9 +15,15 @@ parity tests. Layout rules, the JAX converter's read backwards:
   (`vjepa2_tpu/hub/converter.py:104-107,246-249`)
 * anything else keeps its name (``bias``, ``query_tokens``)
 
+The AC predictor's tree (the inverse of `vjepa2_tpu/hub/converter.py:117
+convert_ac_predictor`: ``predictor_embed``, ``action_encoder``,
+``state_encoder``, ``extrinsics_encoder``, ``predictor_blocks_<i>``,
+``predictor_norm``, ``predictor_proj``) takes the same rules.
+
 `load_pretrain_state` carries a whole pretrain state across: JAX's
 ``params = {"encoder", "predictor"}`` and ``target_params`` into a port
-`TrainState`, so that JAX and the port can start from one set of weights.
+`TrainState`, so that JAX and the port can start from one set of weights;
+`load_droid_state` does the same for the AC post-training state.
 """
 
 from __future__ import annotations
@@ -70,6 +76,18 @@ def load_pretrain_state(state, params: Mapping[str, Any], target_params: Mapping
     `TrainState` ``state``, in place, onto its models' devices; the
     optimizer's moments are left as they are. Returns ``state``."""
     state.encoder.load_state_dict(state_dict_from_flax(params["encoder"]))
+    state.predictor.load_state_dict(state_dict_from_flax(params["predictor"]))
+    state.target_encoder.load_state_dict(state_dict_from_flax(target_params))
+    return state
+
+
+def load_droid_state(state, params: Mapping[str, Any], target_params: Mapping[str, Any]):
+    """Load JAX's AC post-training trees (``params["predictor"]`` and the
+    frozen ``target_params``) into the port's `DroidState` ``state``, in
+    place; the optimizer's moments are left as they are. JAX's
+    ``params["encoder"]``, the copy it carries with ``enc_lr_scale > 0``,
+    has no counterpart in the port (its gradient is zero and it never
+    changes, `train/droid.py`). Returns ``state``."""
     state.predictor.load_state_dict(state_dict_from_flax(params["predictor"]))
     state.target_encoder.load_state_dict(state_dict_from_flax(target_params))
     return state

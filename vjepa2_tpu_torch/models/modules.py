@@ -46,6 +46,9 @@ that a `checkpoint_name` region encloses. A selective checkpoint context
 caches those outputs in the forward and hands them back in the recompute,
 which then launches neither the kernel nor the GEMM.
 
+The AC predictor's blocks (`ACBlock`, `ACAttention`; JAX `modules.py:629-909`)
+reuse `Attention`'s projections and routes with frame-causal segment ids.
+
 Not ported yet: drop_path, context parallelism and SwiGLU.
 """
 
@@ -69,6 +72,7 @@ from vjepa2_tpu_torch.ops.flash_attention import BHND_HEAD_WIDTHS, bhnd_head_sup
 from vjepa2_tpu_torch.ops.flash_attention_dn import dn_head_eligible
 from vjepa2_tpu_torch.ops.ln_mlp import ln_mlp
 from vjepa2_tpu_torch.ops.ln_qkv import ln_qkv
+from vjepa2_tpu_torch.ops.rope import expand_rope_cache, rope_from_ids, separate_positions
 
 # std of a standard normal truncated to [-2, 2]; JAX's truncated_normal
 # divides by it so the truncated draw has the requested std
@@ -296,12 +300,15 @@ class Attention(nn.Module):
         init_linear_(self.proj, self.init_std, self.proj_init_scale, generator)
 
     def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None,
-                ln=None):
+                ln=None, segment_ids=None):
         """``kv_valid``: the number of real tokens when the model stack-padded
         the sequence; keys at or past it are masked (pad query rows are the
         model's to slice off). ``ln=(gamma, beta)``: x is the pre-LayerNorm
         stream and the fused route runs (B7, then the BHND flash kernels
-        rope-free); `Block` passes it only with ``use_flash``."""
+        rope-free); `Block` passes it only with ``use_flash``.
+        ``segment_ids`` ([N] int): query i attends key j iff seg[i] >=
+        seg[j] (`ACAttention`'s frame-causal ids), on the plain, DN and BHND
+        routes."""
         if ln is not None:
             return self._fused_forward(x, ln, rope_expanded, qkv_perm, kv_valid)
         B, N, C = x.shape
@@ -311,7 +318,7 @@ class Attention(nn.Module):
                 raise ValueError("the plain route with RoPE needs rope_cache")
             q, k, v = dense(self.qkv, x, dt).view(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
             out = attend_bhnd(q, k, v, rope_cache=rope_cache if self.use_rope else None,
-                              kv_valid=kv_valid)
+                              segment_ids=segment_ids, kv_valid=kv_valid)
             return dense(self.proj, out.transpose(1, 2).reshape(B, N, C), dt)
         if self.use_rope and (rope_expanded is None or qkv_perm is None):
             raise ValueError("the flash routes with RoPE need rope_expanded and qkv_perm")
@@ -327,14 +334,16 @@ class Attention(nn.Module):
             with checkpoint_name("flash_qkv"):
                 y = torch.bmm(wt, xt) if bt is None else torch.baddbmm(bt, wt, xt)
             q, k, v = y.view(B, 3, H, Dh, N).unbind(1)
-            out = attend_bhdn(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid)
+            out = attend_bhdn(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid,
+                              segment_ids=segment_ids)
             out = out.permute(0, 3, 1, 2).reshape(B, N, C)  # rows (h, d), as proj expects
         else:
             xt, wt, bt = x.to(dt), w.to(dt), None if b is None else b.to(dt)
             with checkpoint_name("flash_qkv"):
                 y = F.linear(xt, wt, bt)
             q, k, v = y.view(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4).unbind(0)
-            out = attend_bhnd(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid)
+            out = attend_bhnd(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid,
+                              segment_ids=segment_ids)
             out = out.transpose(1, 2).reshape(B, N, C)  # a view of the kernel's output
         return dense(self.proj, out, dt)
 
@@ -397,6 +406,119 @@ class Block(nn.Module):
                               ln=(self.norm1.weight, self.norm1.bias))
         else:
             x = x + self.attn(self.norm1(x), rope_cache, rope_expanded, qkv_perm, kv_valid)
+        if self.fuse_ln_mlp:
+            return x + self.mlp(x, ln=(self.norm2.weight, self.norm2.bias))
+        return x + self.mlp(self.norm2(x))
+
+
+# The segment id of stack-pad tokens in a frame-causal sequence: no real
+# query (seg < it) attends a pad key; the pad query rows are sliced off. The
+# DN wrappers take no kv_valid with segment ids (`flash_attention_dn._normalize`).
+PAD_SEGMENT = torch.iinfo(torch.int32).max
+
+
+def build_ac_rope_cache(head_dim: int, T: int, h_patches: int, w_patches: int,
+                        cond_tokens: int, grid_size: int, device=None):
+    """Interleaved-convention (cos, sin) [T * (A + HW), rot] for the AC
+    sequence (JAX `modules.py:629`): per frame t, A conditioning tokens with
+    ids (t, 0, 0), then the HW frame tokens with (t, row * snap, col * snap),
+    snap = grid_size / patches."""
+    A, HW = cond_tokens, h_patches * w_patches
+    frame, row, col = separate_positions(torch.arange(T * HW, device=device), h_patches,
+                                         w_patches)
+    row = row.to(torch.float32) * (grid_size / h_patches)
+    col = col.to(torch.float32) * (grid_size / w_patches)
+    cond_t = torch.arange(T, dtype=torch.float32, device=device)[:, None].expand(T, A)
+    zeros = torch.zeros(T, A, device=device)
+
+    def interleave(frame_vals, cond_vals):
+        return torch.cat([cond_vals, frame_vals.reshape(T, HW)], dim=1).reshape(-1)
+
+    return rope_from_ids(interleave(frame.to(torch.float32), cond_t), interleave(row, zeros),
+                         interleave(col, zeros), head_dim)
+
+
+def ac_rope_tables(head_dim: int, num_heads: int, T: int, h_patches: int, w_patches: int,
+                   cond_tokens: int, grid_size: int, use_flash: bool, device=None, pad: int = 0):
+    """(rope_cache, rope_expanded, qkv_perm) of an AC sequence, as
+    `vision_transformer.rope_tables` gives them for the encoder: the
+    interleaved cache for the plain route, or the split-half tables (``pad``
+    zero rows appended for the stack pad) and the qkv row permutation."""
+    cache = build_ac_rope_cache(head_dim, T, h_patches, w_patches, cond_tokens, grid_size,
+                                device)
+    if not use_flash:
+        return cache, None, None
+    (cos, sin), perm = expand_rope_cache(cache, head_dim)
+    if pad:
+        cos, sin = F.pad(cos, (0, 0, 0, pad)), F.pad(sin, (0, 0, 0, pad))
+    return None, (cos, sin), qkv_row_perm(perm, num_heads, head_dim, device)
+
+
+def frame_segments(T: int, tokens_per_frame: int, device=None, pad: int = 0) -> torch.Tensor:
+    """Frame-causal segment ids [T * tokens_per_frame + pad] int32: each
+    token its frame's index, ``pad`` trailing tokens `PAD_SEGMENT`."""
+    seg = torch.arange(T * tokens_per_frame, device=device, dtype=torch.int32)
+    seg = seg // tokens_per_frame
+    return F.pad(seg, (0, pad), value=PAD_SEGMENT) if pad else seg
+
+
+class ACAttention(Attention):
+    """Attention over interleaved (conditioning + frame) tokens, frame-causal
+    (JAX `modules.py:660`): [B, T * (A + HW), C], A conditioning tokens
+    leading each frame group. The projections and routes are `Attention`'s
+    (state-dict names ``qkv.*`` and ``proj.*``), always with RoPE; query i
+    attends key j iff frame(i) >= frame(j), as segment ids. JAX's
+    ``is_frame_causal=False`` (full attention) has no caller and is not
+    ported.
+
+    The model hands in the tables and ids it built once for all its blocks
+    (stack-padded on the flash routes); called alone, the layer builds them
+    for the unpadded sequence.
+    """
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, grid_size: int = 16,
+                 use_flash: bool = False, dtype=torch.float32, device=None,
+                 init_std: float = 0.02, proj_init_scale: float = 1.0):
+        super().__init__(dim, num_heads, qkv_bias, True, use_flash, dtype, device, init_std,
+                         proj_init_scale)
+        self.grid_size = grid_size
+
+    def forward(self, x, T: int, h_patches: int, w_patches: int, cond_tokens: int,
+                rope_cache=None, rope_expanded=None, qkv_perm=None, segment_ids=None):
+        if rope_cache is None and rope_expanded is None:
+            rope_cache, rope_expanded, qkv_perm = ac_rope_tables(
+                self.head_dim, self.num_heads, T, h_patches, w_patches, cond_tokens,
+                self.grid_size, self.use_flash, x.device)
+            segment_ids = frame_segments(T, cond_tokens + h_patches * w_patches, x.device)
+        return super().forward(x, rope_cache, rope_expanded, qkv_perm,
+                               segment_ids=segment_ids)
+
+
+class ACBlock(nn.Module):
+    """Pre-norm block with `ACAttention` (JAX `modules.py:858`); with
+    ``fuse_ln_mlp`` norm2, fc1 and GELU run as B8 (JAX's ``FUSE_LN_MLP``,
+    `modules.py:906-914`). State-dict names as `Block`'s."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 grid_size: int = 16, use_flash: bool = False, layer_id: int = 0,
+                 dtype=torch.float32, device=None, init_std: float = 0.02,
+                 fuse_ln_mlp: bool = False):
+        super().__init__()
+        self.fuse_ln_mlp = fuse_ln_mlp
+        rescale = 1.0 / math.sqrt(2.0 * (layer_id + 1))
+        self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
+        self.attn = ACAttention(dim, num_heads, qkv_bias, grid_size, use_flash, dtype, device,
+                                init_std, proj_init_scale=rescale)
+        self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device,
+                       init_std=init_std, out_init_scale=rescale)
+
+    reset_parameters = Block.reset_parameters
+
+    def forward(self, x, T: int, h_patches: int, w_patches: int, cond_tokens: int,
+                rope_cache=None, rope_expanded=None, qkv_perm=None, segment_ids=None):
+        x = x + self.attn(self.norm1(x), T, h_patches, w_patches, cond_tokens, rope_cache,
+                          rope_expanded, qkv_perm, segment_ids)
         if self.fuse_ln_mlp:
             return x + self.mlp(x, ln=(self.norm2.weight, self.norm2.bias))
         return x + self.mlp(self.norm2(x))

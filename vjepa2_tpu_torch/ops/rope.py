@@ -59,12 +59,19 @@ def build_rope_cache(pos_ids: torch.Tensor, head_dim: int, h_patches: int, w_pat
                      grid_size: int | None = None, theta: float = 10000.0):
     """Fused interleaved-convention (cos, sin) of shape pos_ids.shape + (rot,),
     rot = the three subspace widths together."""
-    dims = rope_3d_dims(head_dim)
     d_ids, h_ids, w_ids = (t.to(torch.float32)
                            for t in separate_positions(pos_ids, h_patches, w_patches))
     if grid_size is not None:
         h_ids = h_ids * (grid_size / h_patches)
         w_ids = w_ids * (grid_size / w_patches)
+    return rope_from_ids(d_ids, h_ids, w_ids, head_dim, theta)
+
+
+def rope_from_ids(d_ids: torch.Tensor, h_ids: torch.Tensor, w_ids: torch.Tensor,
+                  head_dim: int, theta: float = 10000.0):
+    """Fused interleaved-convention (cos, sin) of shape ids.shape + (rot,)
+    from per-token (frame, row, col) ids, one subspace of `rope_3d_dims` each."""
+    dims = rope_3d_dims(head_dim)
     parts = [rope_angles(ids, dim, theta) for ids, dim in zip((d_ids, h_ids, w_ids), dims)]
     return torch.cat([c for c, _ in parts], dim=-1), torch.cat([s for _, s in parts], dim=-1)
 

@@ -1,17 +1,23 @@
-"""Where the time of the masked-pretrain train step goes, on one CUDA card.
+"""Where the time of a train step goes, on one CUDA card.
 
     python -m vjepa2_tpu_torch.tools.profile_pretrain [--model vit_huge] [--fuse-ln qkv,mlp]
         [--steps 2] [--out DIR]
+    python -m vjepa2_tpu_torch.tools.profile_pretrain --droid [--steps 2] [--out DIR]
 
 Builds the step of `chip_smoke.py` phase ``train`` (``--model vit_large``,
 the default), ``train_huge`` (``--model vit_huge``) or, with ``--fuse-ln
 qkv,mlp``, ``train_fused`` (every block's LayerNorms fused into B7 and B8,
 as `bench.py --fuse-ln` takes the list): the encoder at
 16f@256 bs8, the 12-layer predictor, bf16 with fp32 AdamW, fresh masks each
-step. Runs two warm-up steps, then:
+step. With ``--droid``: the DROID post-training step of phase
+``train_droid`` instead (the shipped ViT-g config: the frozen ViT-g target
+over 64 single frames, the 24-layer AC predictor's teacher forcing and one
+rollout call, batch 8, synthetic trajectories of the seed 234). Runs two
+warm-up steps, then:
 
 * times ``--steps`` steps three ways: host wall clock, the device time
-  between CUDA events around each step, and the mask sampling alone;
+  between CUDA events around each step, and the mask sampling alone (none
+  in the DROID step);
 * traces the same number of steps with `torch.profiler` and sums the device
   time of every kernel into categories (B1, B2, B3, the BHND backward, B6,
   B7, B8, matmul, elementwise, reductions, copies and casts, gathers, optimizer,
@@ -104,17 +110,43 @@ def build(device, model: str = "vit_large", fuse_ln: str = ""):
     return step, masks
 
 
+def build_droid(device):
+    """The DROID step of `chip_smoke.py` phase ``train_droid`` on its
+    config's first batch, the weights from a generator seeded as the
+    `DroidTrainer` seeds it."""
+    import tempfile
+
+    from chip_smoke import DROID_CONFIG
+    from vjepa2_tpu_torch.core.config import PretrainConfig
+    from vjepa2_tpu_torch.train.droid_loop import DroidTrainer
+
+    with tempfile.TemporaryDirectory(prefix="vjepa2_droid_profile_") as folder:  # no saves
+        trainer = DroidTrainer(PretrainConfig.from_dict(dict(DROID_CONFIG, folder=folder)),
+                               device=device)
+    state = trainer.init_state()
+    train_step = trainer._step_fn()
+    batch = [None if x is None else x.to(device) for x in trainer.stage(next(iter(
+        trainer.make_loader())))]
+
+    def step():
+        return train_step(state, *batch)["loss"].item()
+
+    return step, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("vit_large", "vit_huge"), default="vit_large")
     ap.add_argument("--fuse-ln", default="", help="comma list drawn from 'qkv','mlp'")
+    ap.add_argument("--droid", action="store_true",
+                    help="the DROID post-training step (ViT-g target, AC predictor)")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pretrain needs a CUDA device")
     dev = torch.device("cuda", 0)
-    step, masks = build(dev, args.model, args.fuse_ln)
+    step, masks = build_droid(dev) if args.droid else build(dev, args.model, args.fuse_ln)
     for _ in range(2):
         step()
 
@@ -129,10 +161,12 @@ def main(argv=None) -> int:
         end.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
         device_ms.append(start.elapsed_time(end))
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        masks()
-    mask_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    mask_ms = None
+    if masks is not None:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            masks()
+        mask_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,7 +200,9 @@ def main(argv=None) -> int:
     busy = sum(cats.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     result = {
-        "gpu": torch.cuda.get_device_name(0), "model": args.model, "fuse_ln": args.fuse_ln,
+        "gpu": torch.cuda.get_device_name(0),
+        "model": "droid (chip_smoke.DROID_CONFIG)" if args.droid else args.model,
+        "fuse_ln": args.fuse_ln,
         "steps": args.steps,
         "wall_ms_per_step": wall, "device_ms_per_step": device_ms,
         "mask_sampling_ms_per_step": mask_ms, "traced_wall_ms_per_step": traced_ms,
