@@ -51,8 +51,10 @@ Phases, each printed as one JSON object on a line of its own:
    16f@256, 40 B3 launches each, one clip's features against the fp32 CPU
    path;
 11. entry  — the hub factories `vjepa2_vit_huge()` and `vjepa2_vit_large()`
-   called with no argument, as a user calls them: the full encoder on the
-   card in bf16, one clip, one B3 (ViT-H) or B1 (ViT-L) launch per layer;
+   called with no argument, as a user calls them: the (encoder, predictor)
+   pair on the card in bf16, one clip through the encoder, one B3 (ViT-H) or
+   B1 (ViT-L) launch per layer, then 578 of its tokens through the predictor
+   to 1045 targets, one B1 launch per predictor layer (Dh 32);
 12. kernel_ln — the LayerNorm kernels (B6 forward and backward) against
    their plain versions at [16384, 1024], [13312, 384], [16384, 1280] and
    [16384, 1408] rows and at the fused step's other backward rows, [4672,
@@ -111,14 +113,26 @@ Phases, each printed as one JSON object on a line of its own:
    one, the resumed first step at step 4 with the schedules' lr and weight
    decay there, the target bit-equal before and after the steps, 8 CSV
    rows; the loop's ms a step, clips/s, peak memory, the checkpoints, and
-   one more step traced, as in phase 15.
+   one more step traced, as in phase 15;
+18. plan   — latent planning: the hub's `vjepa2_ac_vit_giant()` called with
+   no argument (the 22-head ViT-g and the 24 x 1024 AC predictor on the
+   card in bf16) in a `planning.WorldModel`: a start and a goal frame
+   encoded (256 px, 40 B1 launches each), then 1 warm-up and 3 timed CEM
+   plans at `CEMConfig()` (400 samples, rollout 2, 10 steps, top-k 10: 480
+   B1 launches each at [400, 16, 64, 264] and [400, 16, 64, 520]), one more
+   plan traced; the plans finite, [2, 7], within the CEM's clips, a repeat
+   with the same seed bit-equal; encode and step_fn (4 candidates at 1 and
+   2 frames) against the fp32 CPU path, and the CEM update on a linear world
+   model on the card against the CPU's. Prints ms per encode and per plan,
+   peak memory, and the traced plan's wall, device-busy time and idle share.
 The kernel phases 3 and 5 also hold B1 and B2 at the cooldown's shapes
 ([2,16,64,8192] target, the contexts of 2302 and 568 tokens, the predictor
 sequences of 6479 and 6471), with per-example RoPE tables of real collator
 masks, and at the DROID step's: B1 over the ViT-g target's single frames
 [64,22,64,256], B1 and B2 over the AC sequences (1806 and 516 tokens,
 frame-causal) as they come and stack-padded to 1808 and 520 with the pad
-keys on segment int32-max, as the AC predictor runs them. A ``seconds``
+keys on segment int32-max, as the AC predictor runs them; phase 3 also
+at a CEM plan's [400, 16, 64, 264] and [400, 16, 64, 520]. A ``seconds``
 line gives each phase's time and the script's total.
 
 Every attention kernel phase also times
@@ -190,7 +204,14 @@ SHAPES = [
     ("cooldown context, mask 1", (2, 16, 64, 568), {"seq": "cool_ctx1"}),
     ("cooldown predictor, mask 0", (2, 12, 32, 6480), {"seq": "cool_pred0"}),
     ("cooldown predictor, mask 1", (2, 12, 32, 6472), {"seq": "cool_pred1"}),
+    # a CEM plan (phase plan): 400 candidates of 1 and 2 frames of 2 + 256
+    # tokens, stack-padded to 264 and 520 with the pad keys on int32-max
+    ("cem rollout, 1 frame", (400, 16, 64, 264), {"segments": 1, "pad": 6}),
+    ("cem rollout, 2 frames", (400, 16, 64, 520), {"segments": 2, "pad": 4}),
 ]
+# operands above this many elements (the plan's 108 M and 213 M) are drawn on
+# the card: numpy takes seconds for each
+DEVICE_RNG_ELEMENTS = 1 << 26
 # Kernel against plain, both from the same bf16 inputs: they round q at
 # different points (after vs before the scale) and p at different points
 # (unnormalised vs normalised), each 2**-9 relative. A score then differs by
@@ -366,6 +387,18 @@ DROID_CONFIG = {
 DROID_IPE = 4
 DROID_OVERRIDES = {"optimization.ipe": DROID_IPE, "optimization.epochs": 2}
 DROID_LAUNCHES = (40 + 2 * 24, 2 * 24, 0, 0, 0, 0, 0, 0)
+# CEM planning (phase plan) on the hub's `vjepa2_ac_vit_giant()` at
+# `CEMConfig`'s defaults (400 samples, rollout 2, 10 steps, top-k 10): an
+# encode runs B1 once a ViT-g layer, a plan once an AC predictor layer in each
+# of its 10 x 2 rollout calls (over 400 x 264 and 400 x 520 tokens)
+ENCODE_LAUNCHES = (40, 0, 0, 0, 0, 0, 0, 0)
+PLAN_LAUNCHES = (10 * 2 * 24, 0, 0, 0, 0, 0, 0, 0)
+PLAN_TIMED, PLAN_CANDIDATES = 3, 4
+# encode and step_fn, bf16 on the card against fp32 on the CPU: the serving
+# slice's relative L2 (40 ViT-g layers, then 24 predictor layers on top); the
+# CEM update on a linear world model, fp32 on both sides, one sampler: the
+# same arithmetic in another order
+PLAN_REL_L2, CEM_UPDATE_ATOL = 5e-2, 1e-6
 
 # B6 rows: (name, [R, C]); the last three and the predictor's are the fused
 # ViT-L step's backward rows (the contexts' 578 and 173 tokens stack-padded)
@@ -624,9 +657,14 @@ def _dn_case(dev, B, H, D, N, feats, seqs=None):
     segments (equal frames of tokens)."""
     from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
 
-    rng = np.random.RandomState(0)
-    q, k, v = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
-               .to(dev, torch.bfloat16) for _ in range(3))
+    if B * H * D * N > DEVICE_RNG_ELEMENTS:
+        gen = torch.Generator(dev).manual_seed(0)
+        q, k, v = (torch.randn(B, H, D, N, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+    else:
+        rng = np.random.RandomState(0)
+        q, k, v = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
+                   .to(dev, torch.bfloat16) for _ in range(3))
     kw = {}
     pos = torch.arange(N, device=dev)
     if "seq" in feats:
@@ -701,8 +739,8 @@ def phase_slice(dev, smi: str) -> int:
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 
     def build(device, dtype, generator=None):
-        enc = vjepa2_vit_large(num_frames=FRAMES, uniform_power=True, use_flash=True,
-                               dtype=dtype, device=device, generator=generator)
+        enc, _ = vjepa2_vit_large(num_frames=FRAMES, uniform_power=True, use_flash=True,
+                                  dtype=dtype, device=device, generator=generator)
         clf = AttentiveClassifier(embed_dim=1024, num_heads=16, depth=4, num_classes=174,
                                   dtype=dtype, device=device)
         clf.reset_parameters(generator)
@@ -1972,35 +2010,202 @@ def phase_encode_giant(dev, smi: str) -> int:
 
 
 def phase_entry(dev, smi: str) -> None:
-    """`vjepa2_vit_huge()` and `vjepa2_vit_large()` with no argument build on
-    the card in bf16 and run a clip through their flash kernels."""
+    """`vjepa2_vit_huge()` and `vjepa2_vit_large()` with no argument build
+    their (encoder, predictor) pairs on the card in bf16; a clip runs through
+    the encoder's flash kernels, then 578 of its tokens through the
+    predictor to 1045 targets (12 B1 launches at Dh 32)."""
     from vjepa2_tpu_torch.hub import backbones
 
-    clip = torch.from_numpy(np.random.RandomState(2).rand(1, FRAMES, SIZE, SIZE, 3)
-                            .astype(np.float32)).to(dev)
+    rs = np.random.RandomState(2)
+    clip = torch.from_numpy(rs.rand(1, FRAMES, SIZE, SIZE, 3).astype(np.float32)).to(dev)
+    tokens = (FRAMES // 2) * (SIZE // 16) ** 2
+    ids = torch.from_numpy(rs.permutation(tokens)).to(dev)
+    ctx, tgt = ids[None, :578].sort().values, ids[None, 578:1623].sort().values
     rec = {"phase": "entry"}
-    # (factory, index of its kernel in `_launch_counts`: B3 for Dh 80, B1 for Dh 64)
+    # (factory, index of its encoder's kernel in `_launch_counts`: B3 for Dh
+    # 80, B1 for Dh 64); the predictor's is B1 (Dh 32)
     for name, slot in (("vjepa2_vit_huge", 2), ("vjepa2_vit_large", 0)):
         torch.manual_seed(0)
-        enc = getattr(backbones, name)()
+        enc, pred = getattr(backbones, name)()
         _reset_launch_counts()
         with torch.inference_mode():
             out = enc(clip)
         launched = _launch_counts()
+        _reset_launch_counts()
+        with torch.inference_mode():
+            y = pred(out[:, ctx[0]], ctx, tgt)
+        launched_pred = _launch_counts()
         want = tuple(len(enc.blocks) if i == slot else 0 for i in range(len(KERNEL_COUNTS)))
-        tokens = (FRAMES // 2) * (SIZE // 16) ** 2
+        want_pred = (len(pred.predictor_blocks),) + (0,) * (len(KERNEL_COUNTS) - 1)
         ok = (launched == want and enc.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
-              and out.shape == (1, tokens, enc.embed_dim) and bool(torch.isfinite(out.float()).all()))
+              and out.shape == (1, tokens, enc.embed_dim) and bool(torch.isfinite(out.float()).all())
+              and launched_pred == want_pred and pred.dtype == torch.bfloat16
+              and y.shape == (1, 1045, enc.embed_dim) and bool(torch.isfinite(y.float()).all()))
         rec[name] = {"dtype": str(enc.dtype), "device": str(next(enc.parameters()).device),
                      "layers": len(enc.blocks), "launches": dict(zip(KERNEL_COUNTS, launched)),
+                     "predictor": {"layers": len(pred.predictor_blocks),
+                                   "head_dim": pred.predictor_embed_dim // pred.num_heads,
+                                   "launches": dict(zip(KERNEL_COUNTS, launched_pred))},
                      "ok": ok}
-        del enc, out
+        del enc, pred, out, y
         if not ok:
             emit(rec)
-            raise AssertionError(f"{name}() launched {dict(zip(KERNEL_COUNTS, launched))}, "
-                                 f"want {dict(zip(KERNEL_COUNTS, want))}, or gave bad features")
+            raise AssertionError(f"{name}() launched {dict(zip(KERNEL_COUNTS, launched))} and "
+                                 f"{dict(zip(KERNEL_COUNTS, launched_pred))}, want "
+                                 f"{dict(zip(KERNEL_COUNTS, want))} and "
+                                 f"{dict(zip(KERNEL_COUNTS, want_pred))}, or gave bad outputs")
     rec.update(ok=True, gpu=smi)
     emit(rec)
+
+
+def _cem_linear_step(reps, actions, poses):
+    """The linear world model of `tests/planning/test_cem.py`: the last
+    frame's [4, 8] latent moved by the action's xyz."""
+    import torch.nn.functional as F
+
+    return reps[:, -4:] + F.pad(actions[:, -1, :3], (0, 5))[:, None, :]
+
+
+def _plan_ok(plan: np.ndarray, cfg) -> bool:
+    """[rollout, 7], finite, no rotation, xyz within maxnorm, the gripper 0
+    or at least 0.25 in size (`cem.py:102-103`)."""
+    grip = np.abs(plan[:, 6])
+    return bool(plan.shape == (cfg.rollout, 7) and np.isfinite(plan).all()
+                and (plan[:, 3:6] == 0).all() and (np.abs(plan[:, :3]) <= cfg.maxnorm).all()
+                and ((grip == 0) | (grip >= 0.25)).all())
+
+
+def phase_plan(dev, smi: str) -> tuple[int, ...]:
+    """CEM planning over the V-JEPA 2-AC world model: `vjepa2_ac_vit_giant()`
+    with no argument (card, bf16, weights drawn after `torch.manual_seed(0)`)
+    in a `WorldModel`: two encodes (start and goal frames, 256 px), 1 warm-up
+    and `PLAN_TIMED` plans at `CEMConfig()`, one traced plan; then the CPU
+    checks. Returns the launches of the counted encodes and plans."""
+    import torch.nn.functional as F
+
+    from vjepa2_tpu_torch.hub.backbones import vjepa2_ac_vit_giant
+    from vjepa2_tpu_torch.planning import CEMConfig, WorldModel, make_cem
+    from vjepa2_tpu_torch.train.droid import tokens_per_frame
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.manual_seed(0)
+    enc, pred = vjepa2_ac_vit_giant()
+    wm = WorldModel(enc, pred, tokens_per_frame(enc))
+    cfg = wm.cem_config
+    rs = np.random.RandomState(4)
+    frames = [rs.rand(SIZE, SIZE, 3).astype(np.float32) for _ in range(2)]  # start, goal
+    pose = np.concatenate([rs.uniform(-0.3, 0.3, 6), [0.5]]).astype(np.float32)
+    setup_s = time.perf_counter() - t0
+    total = [0] * len(KERNEL_COUNTS)
+
+    def counted(fn, want, what):
+        """fn()'s result and host ms (synchronised), its launches held to ``want``."""
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        launched = _launch_counts()
+        if launched != want:
+            raise AssertionError(f"{what} launched {dict(zip(KERNEL_COUNTS, launched))}, want "
+                                 f"{dict(zip(KERNEL_COUNTS, want))}")
+        for i, n in enumerate(launched):
+            total[i] += n
+        return out, ms
+
+    def plan(seed):
+        return wm.infer_next_action(rep, pose, goal, generator=torch.Generator(dev).manual_seed(seed))
+
+    wm.encode(frames[0])  # warm-up, outside the counted run
+    (rep, enc_ms0), (goal, enc_ms1) = (counted(lambda: wm.encode(f), ENCODE_LAUNCHES, "an encode")
+                                       for f in frames)
+    reps_ok = all(r.shape == (256, enc.embed_dim) and r.dtype == torch.float32
+                  and bool(torch.isfinite(r).all()) for r in (rep, goal))
+    warm = plan(0)
+    plans, plan_ms = [], []
+    for seed in range(PLAN_TIMED):
+        p, ms = counted(lambda: plan(seed), PLAN_LAUNCHES, "a plan")
+        plans.append(p)
+        plan_ms.append(ms)
+    repeat_equal = bool(np.array_equal(plans[0], warm))
+    traced = wall_and_busy(lambda: plan(PLAN_TIMED))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    plans_ok = all(_plan_ok(p, cfg) for p in plans + [warm])
+
+    # step_fn on a few candidates at T = 1 and 2 (the start and goal latents
+    # as frames), on the card
+    acts = torch.from_numpy(rs.uniform(-0.05, 0.05, (PLAN_CANDIDATES, 2, 7)).astype(np.float32))
+    poses = torch.from_numpy(rs.uniform(-0.3, 0.3, (PLAN_CANDIDATES, 2, 7)).astype(np.float32))
+    with torch.inference_mode():
+        seq = torch.cat([rep, goal])
+        card_steps = [wm.step_fn(seq[:T * 256][None].expand(PLAN_CANDIDATES, -1, -1),
+                                 acts[:, :T].to(dev), poses[:, :T].to(dev)).cpu()
+                      for T in (1, 2)]
+        card_rep = rep.cpu()
+    # the CEM update on device tensors against the CPU: the linear world
+    # model, one sampler's draws, CEMConfig's defaults
+    draws = rs.randn(cfg.cem_steps, cfg.rollout, cfg.samples, 4).astype(np.float32)
+    lin_rep = (rs.randn(4, 8) * 0.1).astype(np.float32)
+    lin_goal = lin_rep + F.pad(torch.full((3,), 0.04), (0, 5)).numpy()
+    lin = make_cem(_cem_linear_step, CEMConfig())
+    lin_plans = [lin(torch.from_numpy(lin_rep).to(d), pose, torch.from_numpy(lin_goal).to(d),
+                     sampler=lambda step, h: torch.from_numpy(draws[step, h])).cpu()
+                 for d in (dev, "cpu")]
+    cem_err = (lin_plans[0] - lin_plans[1]).abs().max().item()
+    weights = [{k: v.detach().to("cpu", copy=True) for k, v in m.state_dict().items()}
+               for m in (enc, pred)]
+    del wm, enc, pred
+
+    # the same weights in fp32 on the CPU (built on the meta device, then
+    # given the card's weights), the same inputs
+    torch.set_num_threads(os.cpu_count() or 1)
+    t2 = time.perf_counter()
+    enc_cpu, pred_cpu = vjepa2_ac_vit_giant(device="meta")
+    enc_cpu.load_state_dict(weights[0], assign=True)
+    pred_cpu.load_state_dict(weights[1], assign=True)
+    del weights
+    wm_cpu = WorldModel(enc_cpu, pred_cpu, tokens_per_frame(enc_cpu))
+    ref_rep = wm_cpu.encode(frames[0])
+    with torch.inference_mode():
+        seq = torch.cat([card_rep, goal.cpu()])
+        cpu_steps = [wm_cpu.step_fn(seq[:T * 256][None].expand(PLAN_CANDIDATES, -1, -1),
+                                    acts[:, :T], poses[:, :T]) for T in (1, 2)]
+    cpu_s = time.perf_counter() - t2
+    del wm_cpu, enc_cpu, pred_cpu
+
+    def rel(got, want):
+        return ((got.float() - want).norm() / want.norm()).item()
+
+    enc_rel = rel(card_rep, ref_rep)
+    step_rel = [rel(c, r) for c, r in zip(card_steps, cpu_steps)]
+    ok = (reps_ok and plans_ok and repeat_equal and enc_rel <= PLAN_REL_L2
+          and max(step_rel) <= PLAN_REL_L2 and cem_err <= CEM_UPDATE_ATOL)
+    med = sorted(plan_ms)[len(plan_ms) // 2]
+    emit({"phase": "plan",
+          "model": "vjepa2_ac_vit_giant(): vit_giant_xformers (40 x 1408, 22 heads of 64) + AC "
+                   "predictor (24 x 1024, 16 heads of 64), bf16, RoPE, random weights",
+          "cem": {k: getattr(cfg, k) for k in cfg.__dataclass_fields__},
+          "ms_per_encode": [enc_ms0, enc_ms1], "median_ms_per_encode": max(enc_ms0, enc_ms1),
+          "ms_per_plan": plan_ms,
+          "median_ms_per_plan": med, "warmup_plans": 1, "one_traced_plan": traced,
+          "peak_memory_gb": peak_gb,
+          "launches_per_encode": dict(zip(KERNEL_COUNTS, ENCODE_LAUNCHES)),
+          "launches_per_plan": dict(zip(KERNEL_COUNTS, PLAN_LAUNCHES)),
+          "plans": [p.tolist() for p in plans], "plans_ok": plans_ok,
+          "repeat_bit_equal": repeat_equal,
+          "encode_rel_l2_vs_cpu_fp32": enc_rel,
+          "step_fn_rel_l2_vs_cpu_fp32": {"T1": step_rel[0], "T2": step_rel[1],
+                                         "candidates": PLAN_CANDIDATES},
+          "cem_update_max_abs_err_vs_cpu": cem_err,
+          "tol": {"rel_l2": PLAN_REL_L2, "cem_update": CEM_UPDATE_ATOL},
+          "setup_s": setup_s, "cpu_reference_s": cpu_s, "seconds": time.perf_counter() - t0,
+          "ok": ok, "gpu": smi})
+    if not ok:
+        raise AssertionError(f"plan: encode {enc_rel} / step_fn {step_rel} rel L2, CEM update "
+                             f"{cem_err}, plans ok {plans_ok}, repeat equal {repeat_equal}")
+    return tuple(total)
 
 
 def main() -> int:
@@ -2039,10 +2244,11 @@ def main() -> int:
     loop_l = timed("train_loop", phase_train_loop, dev, smi)
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
     droid_l = timed("train_droid", phase_train_droid, dev, smi)
+    plan_l = timed("plan", phase_plan, dev, smi)
     emit({"phase": "seconds", "phases": seconds, "total": time.perf_counter() - t_start})
     # every main-path run's launches, in the order of KERNEL_COUNTS
     total = [sum(c) for c in zip(train_l, train_h, fused_l, unfused_l, loop_l, accum_l,
-                                 droid_l)]
+                                 droid_l, plan_l)]
     total[0] += serve_launches
     total[2] += giant_launches
 

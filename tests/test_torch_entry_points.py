@@ -1,6 +1,6 @@
 """Where the port's entry points build: `train.pretrain.build_models` and the
-hub factories (`hub.backbones.vjepa2_vit_*`) default to the card with the
-flash kernels on. With no CUDA device and no ``device=`` they raise, before
+hub factories (`hub.backbones.vjepa2_vit_*`, each returning its encoder and
+predictor) default to the card with the flash kernels on. With no CUDA device and no ``device=`` they raise, before
 allocating anything, and never hand back a CPU model; ``device="cpu"``
 builds a CPU model whose flash routes run the kernels' plain versions.
 """
@@ -20,7 +20,7 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("factory", ["vjepa2_vit_large", "vjepa2_vit_huge", "vjepa2_vit_giant",
-                                     "vjepa2_vit_giant_384"])
+                                     "vjepa2_vit_giant_384", "vjepa2_ac_vit_giant"])
 def test_hub_factories_raise_without_cuda(no_cuda, factory):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(backbones, factory)()
@@ -44,18 +44,19 @@ def test_build_models_on_the_cpu_when_asked():
 @pytest.mark.parametrize("factory,route", [("vjepa2_vit_huge", "bhnd"),
                                            ("vjepa2_vit_large", "dn")])
 def test_hub_factories_run_on_the_card_by_default(factory, route):
-    """A factory called with no argument builds the full encoder on the card
-    in bf16, and a clip goes through it: one flash launch per layer (B3 at
-    ViT-H's Dh 80, B1 at ViT-L's Dh 64), finite bf16 features."""
+    """A factory called with no argument builds the full encoder and its
+    predictor on the card in bf16, and a clip goes through the encoder: one
+    flash launch per layer (B3 at ViT-H's Dh 80, B1 at ViT-L's Dh 64),
+    finite bf16 features."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no interpret mode)")
     from vjepa2_tpu_torch.ops import flash_attention as fa
     from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 
     counter = {"bhnd": (fa, "LAUNCHES"), "dn": (fdn, "LAUNCHES")}[route]
-    enc = getattr(backbones, factory)()
-    assert enc.dtype == torch.bfloat16
-    assert all(p.device.type == "cuda" for p in enc.parameters())
+    enc, pred = getattr(backbones, factory)()
+    assert enc.dtype == pred.dtype == torch.bfloat16
+    assert all(p.device.type == "cuda" for p in [*enc.parameters(), *pred.parameters()])
     x = torch.from_numpy(np.random.RandomState(0).rand(1, 16, 256, 256, 3).astype(np.float32))
     before = getattr(*counter)
     with torch.inference_mode():
@@ -70,11 +71,11 @@ def test_hub_factory_on_the_cpu_when_asked(monkeypatch):
     ViT-H's head width, 80) with ``device="cpu"``: a CPU encoder on the
     BHND flash route whose plain version runs, equal to the plain route."""
     monkeypatch.setitem(vt.MODEL_REGISTRY, "vit_huge", vt._factory(160, 1, 2, 4))
-    enc = backbones.vjepa2_vit_huge(num_frames=2, device="cpu",
-                                    generator=torch.Generator().manual_seed(0))
+    enc, _ = backbones.vjepa2_vit_huge(num_frames=2, device="cpu",
+                                       generator=torch.Generator().manual_seed(0))
     assert enc.blocks[0].attn.use_flash and enc.blocks[0].attn.head_dim == 80
     assert all(p.device.type == "cpu" for p in enc.parameters())
-    plain = backbones.vjepa2_vit_huge(num_frames=2, device="cpu", use_flash=False)
+    plain, _ = backbones.vjepa2_vit_huge(num_frames=2, device="cpu", use_flash=False)
     plain.load_state_dict(enc.state_dict())
     x = torch.from_numpy(np.random.RandomState(0).rand(1, 2, 256, 256, 3).astype(np.float32))
     with torch.no_grad():

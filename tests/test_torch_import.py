@@ -25,7 +25,10 @@ missing = {"vjepa2_tpu_torch.ops.flash_attention", "vjepa2_tpu_torch.core.device
            "vjepa2_tpu_torch.train.accum", "vjepa2_tpu_torch.train.loop",
            "vjepa2_tpu_torch.data.video", "vjepa2_tpu_torch.data.prefetch",
            "vjepa2_tpu_torch.cli.main", "vjepa2_tpu_torch.models.ac_predictor",
-           "vjepa2_tpu_torch.train.droid", "vjepa2_tpu_torch.train.droid_loop"} - set(names)
+           "vjepa2_tpu_torch.train.droid", "vjepa2_tpu_torch.train.droid_loop",
+           "vjepa2_tpu_torch.planning", "vjepa2_tpu_torch.planning.cem",
+           "vjepa2_tpu_torch.planning.rotations", "vjepa2_tpu_torch.planning.world_model",
+           "vjepa2_tpu_torch.hub.backbones", "vjepa2_tpu_torch.hub.converter"} - set(names)
 print(len(names), bad, sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 10 else 0)
 """

@@ -23,7 +23,8 @@ convert_ac_predictor`: ``predictor_embed``, ``action_encoder``,
 `load_pretrain_state` carries a whole pretrain state across: JAX's
 ``params = {"encoder", "predictor"}`` and ``target_params`` into a port
 `TrainState`, so that JAX and the port can start from one set of weights;
-`load_droid_state` does the same for the AC post-training state.
+`load_droid_state` does the same for the AC post-training state, and
+`load_world_model_state` for a planning `WorldModel`'s encoder and predictor.
 """
 
 from __future__ import annotations
@@ -91,3 +92,12 @@ def load_droid_state(state, params: Mapping[str, Any], target_params: Mapping[st
     state.predictor.load_state_dict(state_dict_from_flax(params["predictor"]))
     state.target_encoder.load_state_dict(state_dict_from_flax(target_params))
     return state
+
+
+def load_world_model_state(wm, enc_params: Mapping[str, Any], pred_params: Mapping[str, Any]):
+    """Load JAX's `WorldModel` trees (its ``enc_params`` and ``pred_params``,
+    `vjepa2_tpu/planning/world_model.py:22`) into the port's `WorldModel`
+    ``wm``, in place, onto its modules' devices. Returns ``wm``."""
+    wm.encoder.load_state_dict(state_dict_from_flax(enc_params))
+    wm.predictor.load_state_dict(state_dict_from_flax(pred_params))
+    return wm

@@ -130,3 +130,10 @@ class VisionTransformerPredictor(nn.Module):
         inverse = torch.argsort(order, dim=1)
         tokens = torch.gather(tokens, 1, inverse[:, :, None].expand(-1, -1, P))[:, n_ctxt:]
         return dense(self.predictor_proj, tokens, self.dtype)
+
+
+def vit_predictor(**kwargs) -> VisionTransformerPredictor:
+    """JAX `predictor.py:210`: MLP ratio 4 and a qkv bias unless given."""
+    kwargs.setdefault("mlp_ratio", 4.0)
+    kwargs.setdefault("qkv_bias", True)
+    return VisionTransformerPredictor(**kwargs)

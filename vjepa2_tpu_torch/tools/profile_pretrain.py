@@ -3,6 +3,7 @@
     python -m vjepa2_tpu_torch.tools.profile_pretrain [--model vit_huge] [--fuse-ln qkv,mlp]
         [--steps 2] [--out DIR]
     python -m vjepa2_tpu_torch.tools.profile_pretrain --droid [--steps 2] [--out DIR]
+    python -m vjepa2_tpu_torch.tools.profile_pretrain --plan [--steps 1] [--out DIR]
 
 Builds the step of `chip_smoke.py` phase ``train`` (``--model vit_large``,
 the default), ``train_huge`` (``--model vit_huge``) or, with ``--fuse-ln
@@ -12,8 +13,11 @@ as `bench.py --fuse-ln` takes the list): the encoder at
 step. With ``--droid``: the DROID post-training step of phase
 ``train_droid`` instead (the shipped ViT-g config: the frozen ViT-g target
 over 64 single frames, the 24-layer AC predictor's teacher forcing and one
-rollout call, batch 8, synthetic trajectories of the seed 234). Runs two
-warm-up steps, then:
+rollout call, batch 8, synthetic trajectories of the seed 234). With
+``--plan``: a "step" is one CEM plan of phase ``plan`` instead
+(`vjepa2_ac_vit_giant()` in a `planning.WorldModel` at `CEMConfig()`'s 400
+samples, rollout 2, 10 steps; the start and goal frames encoded first).
+Runs two warm-up steps, then:
 
 * times ``--steps`` steps three ways: host wall clock, the device time
   between CUDA events around each step, and the mask sampling alone (none
@@ -134,19 +138,48 @@ def build_droid(device):
     return step, None
 
 
+def build_plan(device):
+    """One CEM plan of `chip_smoke.py` phase ``plan``: the hub's AC world
+    model with weights drawn after ``torch.manual_seed(0)``, the start and
+    goal frames of its seed."""
+    from vjepa2_tpu_torch.hub.backbones import vjepa2_ac_vit_giant
+    from vjepa2_tpu_torch.planning import WorldModel
+    from vjepa2_tpu_torch.train.droid import tokens_per_frame
+
+    torch.manual_seed(0)
+    enc, pred = vjepa2_ac_vit_giant(device=device)
+    wm = WorldModel(enc, pred, tokens_per_frame(enc))
+    rs = np.random.RandomState(4)
+    rep, goal = (wm.encode(rs.rand(SIZE, SIZE, 3).astype(np.float32)) for _ in range(2))
+    pose = np.concatenate([rs.uniform(-0.3, 0.3, 6), [0.5]]).astype(np.float32)
+
+    def step():
+        return wm.infer_next_action(rep, pose, goal,
+                                    generator=torch.Generator(device).manual_seed(0))
+
+    return step, None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("vit_large", "vit_huge"), default="vit_large")
     ap.add_argument("--fuse-ln", default="", help="comma list drawn from 'qkv','mlp'")
     ap.add_argument("--droid", action="store_true",
                     help="the DROID post-training step (ViT-g target, AC predictor)")
+    ap.add_argument("--plan", action="store_true",
+                    help="one CEM plan over the V-JEPA 2-AC world model")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pretrain needs a CUDA device")
     dev = torch.device("cuda", 0)
-    step, masks = build_droid(dev) if args.droid else build(dev, args.model, args.fuse_ln)
+    if args.plan:
+        step, masks = build_plan(dev)
+    elif args.droid:
+        step, masks = build_droid(dev)
+    else:
+        step, masks = build(dev, args.model, args.fuse_ln)
     for _ in range(2):
         step()
 
@@ -201,7 +234,8 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     result = {
         "gpu": torch.cuda.get_device_name(0),
-        "model": "droid (chip_smoke.DROID_CONFIG)" if args.droid else args.model,
+        "model": ("plan (vjepa2_ac_vit_giant, CEMConfig())" if args.plan
+                  else "droid (chip_smoke.DROID_CONFIG)" if args.droid else args.model),
         "fuse_ln": args.fuse_ln,
         "steps": args.steps,
         "wall_ms_per_step": wall, "device_ms_per_step": device_ms,
