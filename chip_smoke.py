@@ -124,7 +124,30 @@ Phases, each printed as one JSON object on a line of its own:
    with the same seed bit-equal; encode and step_fn (4 candidates at 1 and
    2 frames) against the fp32 CPU path, and the CEM update on a linear world
    model on the card against the CPU's. Prints ms per encode and per plan,
-   peak memory, and the traced plan's wall, device-busy time and idle share.
+   peak memory, and the traced plan's wall, device-busy time and idle share;
+19. eval_video — the frozen SSv2 probe eval: `cli.eval.run_video_classification`
+   on the shipped ViT-L config (`EVAL_VIDEO_CONFIG`, equal to
+   `configs/eval/vitl/ssv2.yaml`: 2 segments x batch 4 of 16f@256 clips, the
+   encoder in bf16 into features [4, 4096, 1024], 10 fp32 probes of depth 4
+   with 16 heads trained one at a time; synthetic clips), overriding only
+   ipe (4) and the epochs (1), as printed: 4 train steps and 1 val batch,
+   each launching B1 24 times and nothing else; finite losses; a probe save
+   and restore bit-equal; example 0's features and probe 0's logits on them
+   against the fp32 CPU path end to end, every probe's logits and loss and
+   probe 0's gradients on the card's features of example 0 against the CPU's,
+   and on the card the step's losses and gradients against the same
+   recomputed (`_eval_cpu_checks`). Prints ms a train step and val batch
+   (host; encode and probes apart by CUDA events), the probe chunk, peak
+   memory, one more traced step's wall, device-busy time, idle share and
+   kernel time by category, and each probe's top-1 (a smoke signal on
+   random weights);
+20. eval_anticipation — the EK100 anticipation eval: `run_action_anticipation`
+   on the shipped ViT-L config (`EVAL_ANTICIPATION_CONFIG`: batch 16, the
+   encoder and the 12 x 384 predictor in bf16, the predictor's 256 targets 1 s
+   ahead, features [16, 2304, 1024], 10 fp32 three-head probes of depth 1),
+   the same overrides, checks and prints, each step and val batch launching
+   B1 36 times (24 encoder, 12 predictor with per-example RoPE tables), and
+   each probe's recall per head.
 The kernel phases 3 and 5 also hold B1 and B2 at the cooldown's shapes
 ([2,16,64,8192] target, the contexts of 2302 and 568 tokens, the predictor
 sequences of 6479 and 6471), with per-example RoPE tables of real collator
@@ -132,7 +155,8 @@ masks, and at the DROID step's: B1 over the ViT-g target's single frames
 [64,22,64,256], B1 and B2 over the AC sequences (1806 and 516 tokens,
 frame-causal) as they come and stack-padded to 1808 and 520 with the pad
 keys on segment int32-max, as the AC predictor runs them; phase 3 also
-at a CEM plan's [400, 16, 64, 264] and [400, 16, 64, 520]. A ``seconds``
+at a CEM plan's [400, 16, 64, 264] and [400, 16, 64, 520], and at the EK100
+eval's [16, 16, 64, 2048] and [16, 12, 32, 2304] (per-example tables). A ``seconds``
 line gives each phase's time and the script's total.
 
 Every attention kernel phase also times
@@ -208,6 +232,11 @@ SHAPES = [
     # tokens, stack-padded to 264 and 520 with the pad keys on int32-max
     ("cem rollout, 1 frame", (400, 16, 64, 264), {"segments": 1, "pad": 6}),
     ("cem rollout, 2 frames", (400, 16, 64, 520), {"segments": 2, "pad": 4}),
+    # the EK100 eval (phase eval_anticipation): the encoder over 16 clips, and
+    # the predictor over the clip's 2048 tokens plus 256 targets at positions
+    # 2560-2815 (1 s ahead at 4 fps), RoPE tables per example
+    ("ek100 encoder", (16, 16, 64, 2048), {}),
+    ("ek100 predictor, per-example tables", (16, 12, 32, 2304), {"seq": "ek100_pred"}),
 ]
 # operands above this many elements (the plan's 108 M and 213 M) are drawn on
 # the card: numpy takes seconds for each
@@ -400,6 +429,67 @@ PLAN_TIMED, PLAN_CANDIDATES = 3, 4
 # same arithmetic in another order
 PLAN_REL_L2, CEM_UPDATE_ATOL = 5e-2, 1e-6
 
+# The frozen evals (phases eval_video, eval_anticipation): the shipped ViT-L
+# configs as `yaml.safe_load` gives them (`tests/test_torch_eval_cli.py`
+# holds them to the files), through `cli.eval`'s run functions on the card;
+# each phase overrides only ipe and the epochs (4 train steps, 1 val batch).
+# Both share the reference's grid of 10 probes: 5 lrs x 2 weight decays.
+_PROBE_GRID = [{"lr": lr, "start_lr": lr, "final_lr": 0.0, "weight_decay": wd,
+                "final_weight_decay": wd, "warmup": 0.0}
+               for wd in (0.01, 0.1) for lr in (0.005, 0.003, 0.001, 0.0003, 0.0001)]
+EVAL_VIDEO_CONFIG_FILE = "configs/eval/vitl/ssv2.yaml"
+EVAL_VIDEO_CONFIG = {
+    "eval_name": "video_classification_frozen", "folder": "./runs/evals/vitl/ssv2",
+    "tag": "ssv2-vitl16",
+    "experiment": {
+        "classifier": {"num_heads": 16, "num_probe_blocks": 4},
+        "data": {"dataset_type": "VideoDataset", "dataset_train": None, "dataset_val": None,
+                 "frame_step": 4, "frames_per_clip": 16, "num_classes": 174, "num_segments": 2,
+                 "num_views_per_segment": 3, "resolution": 256},
+        "optimization": {"batch_size": 4, "num_epochs": 20, "ipe": 300,
+                         "multihead_kwargs": _PROBE_GRID}},
+    "model_kwargs": {
+        "checkpoint": None,
+        "module_name": "evals.video_classification_frozen.modelcustom.vit_encoder_multiclip",
+        "pretrain_kwargs": {"model_name": "vit_large", "patch_size": 16, "tubelet_size": 2,
+                            "uniform_power": True, "use_rope": True},
+        "wrapper_kwargs": {"use_pos_embed": False}},
+}
+EVAL_ANTICIPATION_CONFIG_FILE = "configs/eval/vitl/ek100.yaml"
+EVAL_ANTICIPATION_CONFIG = {
+    "eval_name": "action_anticipation_frozen", "folder": "./runs/evals/vitl/ek100",
+    "experiment": {
+        "data": {"annotations_train": None, "annotations_val": None, "frames_per_clip": 16,
+                 "frames_per_second": 4, "resolution": 256, "anticipation_time": [1.0, 1.0]},
+        "optimization": {"batch_size": 16, "num_epochs": 10, "ipe": 300, "lr": 0.001,
+                         "weight_decay": 0.01, "recall_k": 5, "multihead_kwargs": _PROBE_GRID}},
+    "model_kwargs": {
+        "module_name":
+            "evals.action_anticipation_frozen.modelcustom.vit_encoder_predictor_concat_ar",
+        "checkpoint": None,
+        "pretrain_kwargs": {"model_name": "vit_large", "use_rope": True, "uniform_power": True}},
+}
+EVAL_IPE = 4
+EVAL_OVERRIDES = {"experiment.optimization.ipe": EVAL_IPE,
+                  "experiment.optimization.num_epochs": 1}
+# launches a train step or val batch: SSv2's encoder over its 4 x 2 clips in
+# one call (24 B1 at [8,16,64,2048]); EK100's over 16 clips (24 at
+# [16,16,64,2048]) and its predictor over 2048 + 256 tokens (12 at
+# [16,12,32,2304], per-example tables); the fp32 probes launch no kernel
+EVAL_VIDEO_LAUNCHES = (24, 0, 0, 0, 0, 0, 0, 0)
+EVAL_ANTICIPATION_LAUNCHES = (24 + 12, 0, 0, 0, 0, 0, 0, 0)
+# Card against the fp32 CPU path (`_eval_cpu_checks`). Example 0's features
+# and probe 0's logits on them, end to end (bf16 encoder and predictor on the
+# card): the serving slice's relative L2. Every probe's logits and loss, and
+# probe 0's gradients, on the card's own bf16 features: fp32 on both sides,
+# only the summation order differs (cuBLAS against the CPU's GEMMs, softmax
+# sums over up to 4096 keys; measured ~1e-7 on the losses, ~1e-6 on the
+# gradients): 1e-4 relative L2 on the logits, 1e-4 relative on the losses,
+# 1e-3 relative L2 on the flattened gradients. The step's own losses and
+# gradients against the same computed again on the card: 1e-5.
+EVAL_REL_L2, EVAL_PROBE_REL_L2, EVAL_LOSS_RTOL, EVAL_GRAD_REL_L2 = 5e-2, 1e-4, 1e-4, 1e-3
+EVAL_STEP_RTOL = 1e-5
+
 # B6 rows: (name, [R, C]); the last three and the predictor's are the fused
 # ViT-L step's backward rows (the contexts' 578 and 173 tokens stack-padded)
 LN_SHAPES = [
@@ -524,12 +614,20 @@ def _busy_us(spans) -> float:
 
 def wall_and_busy(fn) -> dict:
     """One call of ``fn`` under the profiler: its host wall ms (synchronised
-    before and after), the device-busy ms of the same call and the idle share
-    1 - busy / wall. The profiler's own host cost is inside the wall."""
+    before and after), the device-busy ms of the same call, the idle share
+    1 - busy / wall and the kernels' ms summed by
+    `tools.profile_pretrain.category`. The profiler's own host cost is inside
+    the wall."""
+    from vjepa2_tpu_torch.tools.profile_pretrain import category
+
     spans, wall_ms = _traced_spans(fn)
     busy_ms = _busy_us(spans) / 1e3
+    cats: dict[str, float] = {}
+    for name, a, b in spans:
+        cats[category(name)] = cats.get(category(name), 0.0) + (b - a) / 1e3
     return {"traced_wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernels": len(spans),
-            "idle_share": 1.0 - busy_ms / wall_ms}
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_ms_by_category": dict(sorted(cats.items(), key=lambda kv: -kv[1]))}
 
 
 def bound(flops: float, nbytes: int, peak: float = PEAK_FLOPS) -> tuple[float, str]:
@@ -1629,7 +1727,19 @@ def _mask_seqs():
     from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
 
     me, mp = _masks(MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE)), 8)
-    return {**_sorted_seqs(me, mp), **_cooldown_seqs()}
+    return {**_sorted_seqs(me, mp), **_cooldown_seqs(), "ek100_pred": _ek100_positions()}
+
+
+def _ek100_positions():
+    """The EK100 predictor's positions [16, 2304] as `anticipative_features`
+    gives them for the eval's synthetic batches (every clip 1 s ahead at 4
+    fps, 2 tubelet steps): the clip's 2048 tokens, then 256 targets from
+    2048 + 2 x 256 = 2560."""
+    d = EVAL_ANTICIPATION_CONFIG["experiment"]["data"]
+    tokens, per_frame = (FRAMES // 2) * (SIZE // 16) ** 2, (SIZE // 16) ** 2
+    steps = int(d["anticipation_time"][0] * d["frames_per_second"] / 2)
+    row = np.concatenate([np.arange(tokens), tokens + per_frame * steps + np.arange(per_frame)])
+    return np.tile(row, (EVAL_ANTICIPATION_CONFIG["experiment"]["optimization"]["batch_size"], 1))
 
 
 def _cooldown_seqs():
@@ -2208,6 +2318,374 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
     return tuple(total)
 
 
+def _host_copy(x):
+    """A CPU copy of a tensor or of a dict of them (a copy on the CPU too,
+    since the probes' stacks are updated in place)."""
+    if isinstance(x, dict):
+        return {k: _host_copy(v) for k, v in x.items()}
+    return x.detach().to("cpu", copy=True)
+
+
+class _EvalRecorder:
+    """While active, wraps the eval class that a `cli.eval` run function
+    builds (`VideoClassificationEval` or `AnticipationEval`; restored on
+    exit): keeps the instance; gives each train step and val pass
+    (``train_batch``, ``eval_batch``, ``evaluate``) its launches, its host ms
+    (each ends in a read-back) and the CUDA-event ms of its frozen features
+    and of its probes; keeps the first train step's arguments, its features
+    and the probes' parameters before it (on the CPU), and after it the
+    step's losses and probe 0's first Adam moment, for the CPU checks."""
+
+    def __init__(self, cls):
+        self.cls = cls
+        self.instance, self.batches, self.first, self._open = None, [], None, None
+
+    def __enter__(self):
+        cls, rec = self.cls, self
+        names = [n for n in ("__init__", "train_batch", "eval_batch", "evaluate")
+                 if n in vars(cls)]
+        self._patched = [(cls, n, vars(cls)[n]) for n in names]
+        self._attrs = []
+        init = vars(cls)["__init__"]
+
+        def wrapped_init(ev, *args, **kwargs):
+            init(ev, *args, **kwargs)
+            rec.instance = ev
+            for obj, name, kind in ((ev, "features", "encode"), (ev.grid, "train_step", "probes"),
+                                    (ev.grid, "eval_logits", "probes")):
+                setattr(obj, name, rec._timed(getattr(obj, name), kind, name))
+                rec._attrs.append((obj, name))
+
+        cls.__init__ = wrapped_init
+        for name in names[1:]:
+            setattr(cls, name, self._batch(vars(cls)[name], name))
+        return self
+
+    def _timed(self, fn, kind, name):
+        rec = self
+
+        def call(*args, **kwargs):
+            first = name == "train_step" and rec.first is not None and "params" not in rec.first
+            if first:  # (params, opt, step, feats, *targets)
+                rec.first.update(params=_host_copy(args[0]), feats=_host_copy(args[3]),
+                                 targets=[_host_copy(t) for t in args[4:]])
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            rec._open[kind].append((start, end))
+            if first:
+                rec.first.update(losses=_host_copy(out[3]["loss"]),
+                                 mu0=_host_copy({k: v[0] for k, v in out[1]["mu"].items()}))
+            return out
+
+        return call
+
+    def _batch(self, fn, name):
+        rec = self
+
+        def call(ev, *args, **kwargs):
+            if name == "train_batch" and rec.first is None:
+                rec.first = {"args": args}
+            rec._open = {"encode": [], "probes": []}
+            before, t0 = _launch_counts(), time.perf_counter()
+            out = fn(ev, *args, **kwargs)
+            torch.cuda.synchronize()
+            rec.batches.append({"kind": "train" if name == "train_batch" else "val",
+                                "host_ms": (time.perf_counter() - t0) * 1e3,
+                                "launches": tuple(a - b for a, b in zip(_launch_counts(), before)),
+                                "events": rec._open})
+            return out
+
+        return call
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self._patched:
+            setattr(owner, name, orig)
+        for obj, name in self._attrs:
+            delattr(obj, name)
+        torch.cuda.synchronize()
+        for b in self.batches:
+            events = b.pop("events")
+            b["encode_calls"] = len(events["encode"])
+            for kind, pairs in events.items():
+                b[f"{kind}_ms"] = sum(s.elapsed_time(e) for s, e in pairs)
+        return False
+
+    def check_launches(self, phase: str, want) -> None:
+        """Every train step and val batch launched ``want`` (a val pass: once
+        a batch it encoded)."""
+        for i, b in enumerate(self.batches):
+            if b["launches"] != tuple(n * b["encode_calls"] for n in want):
+                raise AssertionError(f"{phase}: {b['kind']} call {i} launched "
+                                     f"{dict(zip(KERNEL_COUNTS, b['launches']))} over "
+                                     f"{b['encode_calls']} batches, want "
+                                     f"{dict(zip(KERNEL_COUNTS, want))} a batch")
+
+    def summary(self) -> dict:
+        """Per-call records, and the medians of the train steps after the
+        first (which draws the probes) and of the val batches."""
+        out = {"calls": self.batches}
+        for kind in ("train", "val"):
+            rows = [b for b in self.batches if b["kind"] == kind]
+            rows = rows[1:] if kind == "train" and len(rows) > 1 else rows
+            for key in ("host_ms", "encode_ms", "probes_ms"):
+                vals = sorted(b[key] / b["encode_calls"] for b in rows)
+                out[f"median_{key}_per_{kind}_batch"] = vals[len(vals) // 2]
+        return out
+
+
+def _eval_args(dev):
+    import argparse
+
+    return argparse.Namespace(checkpoint=None, epochs=None, synthetic_data=False,
+                              val_only=False, device=dev)
+
+
+def _cpu_model(module, build):
+    """``build(device="meta")`` given ``module``'s weights on the CPU, fp32,
+    on the plain route."""
+    cpu = build(device="meta")
+    cpu.load_state_dict({k: v.detach().to("cpu", torch.float32)
+                         for k, v in module.state_dict().items()}, assign=True)
+    return cpu.eval()
+
+
+def _flat_rel(got, want) -> float:
+    """Relative L2 error of a tensor, or of a tuple of them concatenated."""
+    if isinstance(got, (tuple, list)):
+        got, want = (torch.cat([t.reshape(-1).float() for t in x]) for x in (got, want))
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _rows(out, n: int):
+    """The first ``n`` examples of a probe's logits (a tensor, or the
+    anticipation probe's three)."""
+    return tuple(t[:n] for t in out) if isinstance(out, tuple) else out[:n]
+
+
+def _eval_cpu_checks(ev, rec, cpu_features) -> dict:
+    """The eval phases' checks against the fp32 CPU path, from the probes'
+    weights before the first step and that step's bf16 features; the CPU
+    runs example 0 only (a probe's plain fp32 attention over 4096 tokens
+    costs seconds a probe and example there), tied to the step on the card:
+
+    (1) example 0's features, CPU encoder (and predictor) in fp32 from
+    ``cpu_features()`` against the card's (bf16); probe 0's logits on each
+    (end to end);
+    (2) every probe's logits on the card's features of example 0, card
+    against CPU (fp32 on both sides), and the loss of example 0 from them;
+    on the card, each probe's loss over the whole batch from the same
+    weights against the step's own loss;
+    (3) probe 0's gradients of example 0's loss, card against CPU; on the
+    card, its gradients over the whole batch against the step's, read back
+    from Adam's first moment (m = (1 - b1) g after one step)."""
+    import copy
+
+    from torch.func import functional_call
+
+    from vjepa2_tpu_torch.evals.probes import ADAM_B1
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    grid, first, dev = ev.grid, rec.first, ev.device
+    probe = lambda p, i: {k: v[i] for k, v in p.items()}  # noqa: E731
+    loss = lambda out, n: grid.objective(_rows(out, n), *(t[:n] for t in targets))[0]  # noqa: E731
+    params, feats = first["params"], first["feats"]
+    card_params = {k: v.to(dev) for k, v in params.items()}
+    card_feats = feats.to(dev)
+    B = feats.shape[0]
+    # on the card: every probe's logits over the batch from the first step's weights
+    targets = [t.to(dev) for t in first["targets"]]
+    with torch.no_grad():
+        card_out = [functional_call(grid.model, probe(card_params, i), (card_feats,))
+                    for i in range(grid.n)]
+        card_batch_loss = [loss(o, B).item() for o in card_out]
+        card_ex0_loss = [loss(o, 1).item() for o in card_out]
+    card_ex0 = [_rows(o, 1) for o in card_out]
+    card_ex0 = [tuple(t.cpu() for t in o) if isinstance(o, tuple) else o.cpu() for o in card_ex0]
+    del card_out
+
+    def grads(model, p, x, n):
+        p = {k: v.clone().requires_grad_() for k, v in p.items()}
+        return torch.autograd.grad(loss(functional_call(model, p, (x,)), n), list(p.values()))
+
+    card_g_batch = grads(grid.model, probe(card_params, 0), card_feats, B)
+    card_g_ex0 = [g.cpu() for g in grads(grid.model, probe(card_params, 0), card_feats[:1], 1)]
+    step_g = [first["mu0"][k].to(dev) / (1 - ADAM_B1) for k in params]
+    step_grad_rel = _flat_rel(list(card_g_batch), step_g)
+    del card_params, card_feats, card_g_batch, step_g
+    t_card = time.perf_counter() - t0
+
+    # on the CPU, example 0 only
+    model = copy.deepcopy(grid.model).cpu()
+    targets = first["targets"]
+    with torch.inference_mode():
+        f0 = cpu_features()
+        cpu_ex0 = [functional_call(model, probe(params, i), (feats[:1],)) for i in range(grid.n)]
+        e2e = functional_call(model, probe(params, 0), (f0,))
+        cpu_ex0_loss = [loss(o, 1).item() for o in cpu_ex0]
+    cpu_g_ex0 = grads(model, probe(params, 0), feats[:1], 1)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    out = {"features_rel_l2_vs_cpu_fp32": _flat_rel(feats[:1], f0),
+           "probe0_logits_end_to_end_rel_l2": _flat_rel(card_ex0[0], e2e),
+           "logits_rel_l2_vs_cpu_fp32": [_flat_rel(c, o) for c, o in zip(card_ex0, cpu_ex0)],
+           "example0_loss": {"card": card_ex0_loss, "cpu_fp32": cpu_ex0_loss},
+           "example0_loss_max_rel_err": max(map(rel, card_ex0_loss, cpu_ex0_loss)),
+           "first_step_loss": {"step": first["losses"].tolist(), "recomputed": card_batch_loss},
+           "first_step_loss_max_rel_err": max(map(rel, card_batch_loss,
+                                                  first["losses"].tolist())),
+           "probe0_grad_rel_l2_vs_cpu_fp32": _flat_rel(card_g_ex0, cpu_g_ex0),
+           "probe0_step_grad_rel_l2_vs_recomputed": step_grad_rel,
+           "tol": {"end_to_end_rel_l2": EVAL_REL_L2, "logits_rel_l2": EVAL_PROBE_REL_L2,
+                   "loss_rtol": EVAL_LOSS_RTOL, "grad_rel_l2": EVAL_GRAD_REL_L2,
+                   "step_rtol": EVAL_STEP_RTOL},
+           "card_reference_s": t_card, "cpu_reference_s": time.perf_counter() - t0 - t_card}
+    out["ok"] = (out["features_rel_l2_vs_cpu_fp32"] <= EVAL_REL_L2
+                 and out["probe0_logits_end_to_end_rel_l2"] <= EVAL_REL_L2
+                 and max(out["logits_rel_l2_vs_cpu_fp32"]) <= EVAL_PROBE_REL_L2
+                 and out["example0_loss_max_rel_err"] <= EVAL_LOSS_RTOL
+                 and out["probe0_grad_rel_l2_vs_cpu_fp32"] <= EVAL_GRAD_REL_L2
+                 and out["first_step_loss_max_rel_err"] <= EVAL_STEP_RTOL
+                 and step_grad_rel <= EVAL_STEP_RTOL)
+    return out
+
+
+def _probes_restore_bit_equal(ev) -> bool:
+    """`save_probes`, then `restore_probes` into the same eval: the params,
+    the Adam moments and count, and the step come back bit for bit. The
+    anticipation eval saves and restores its Adam state; the video eval saves
+    none and keeps the one it trained (JAX's rule), so its moments hold by
+    construction."""
+    import shutil
+    import tempfile
+
+    def saved_part(state):
+        params, opt, step = state
+        tensors = dict(params, count=opt["count"])
+        for moment in ("mu", "nu"):
+            tensors.update({f"{moment}.{k}": v for k, v in opt[moment].items()})
+        return _host_copy(tensors), step
+
+    before, step = saved_part(ev._probe_state)
+    folder = tempfile.mkdtemp(prefix="vjepa2_probes_")
+    try:
+        ev.save_probes(os.path.join(folder, "probes.pt"))
+        ev.restore_probes(os.path.join(folder, "probes.pt"))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    after, step_after = saved_part(ev._probe_state)
+    return step_after == step and before.keys() == after.keys() and all(
+        torch.equal(after[k], v) for k, v in before.items())
+
+
+def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, cls, want,
+                    run, cpu_features, extra: dict) -> tuple[int, ...]:
+    """One eval config through its `cli.eval` run function under an
+    `_EvalRecorder`; then one more traced train step, the CPU checks and a
+    probe save and restore. Returns the launches of its train steps and val
+    batches."""
+    import gc
+
+    t0 = time.perf_counter()
+    raw = overridden(config, EVAL_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    with _EvalRecorder(cls) as rec:
+        result = run(raw, _eval_args(dev))
+    launches = _launch_counts()
+    rec.check_launches(phase, want)
+    if launches != tuple(sum(b["launches"][i] for b in rec.batches)
+                         for i in range(len(KERNEL_COUNTS))):
+        raise AssertionError(f"{phase}: {launches} launched outside its steps and val batches")
+    run_s = time.perf_counter() - t0
+    ev = rec.instance
+    losses_finite = bool(torch.isfinite(rec.first["losses"]).all())
+    traced = wall_and_busy(lambda: ev.train_batch(*rec.first["args"]))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    restored = _probes_restore_bit_equal(ev)
+    checks = _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"]))
+    ok = checks.pop("ok") and losses_finite and restored
+    emit({"phase": phase, "config": config_file, "overrides": EVAL_OVERRIDES, **extra,
+          "probes": ev.grid.n, "probe_chunk": 1, **rec.summary(),
+          "launches_per_batch": dict(zip(KERNEL_COUNTS, want)),
+          "one_traced_train_step": traced, "peak_memory_gb": peak_gb,
+          "result_smoke_signal_random_weights": json.loads(json.dumps(
+              result, default=lambda o: o.tolist())), "losses_finite": losses_finite,
+          "probes_restored_bit_equal": restored, **checks, "run_s": run_s,
+          "seconds": time.perf_counter() - t0, "ok": ok, "gpu": smi})
+    del ev, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"{phase}: a check failed (see its record)")
+    return launches
+
+
+def phase_eval_video(dev, smi: str) -> tuple[int, ...]:
+    """The SSv2 probe eval: `cli.eval.run_video_classification` on the
+    shipped ViT-L config (`EVAL_VIDEO_CONFIG`): the encoder (RoPE, bf16,
+    16f@256) over 4 x 2 clips a batch into features [4, 4096, 1024], 10 fp32
+    probes of depth 4 (16 heads, 174 classes) trained one at a time; 4 train
+    steps and 1 val batch (one view)."""
+    from vjepa2_tpu_torch.cli import eval as cli_eval
+    from vjepa2_tpu_torch.evals.video_classification import VideoClassificationEval
+    from vjepa2_tpu_torch.evals.wrappers import encode_clips
+    from vjepa2_tpu_torch.models.vision_transformer import vit_large
+
+    def cpu_features(ev, args):
+        enc = _cpu_model(ev.encoder, lambda device: vit_large(
+            img_size=(SIZE, SIZE), num_frames=FRAMES, uniform_power=True, use_rope=True,
+            device=device))
+        return encode_clips(enc, torch.from_numpy(np.asarray(args[0][:1])))
+
+    return _run_eval_phase(
+        "eval_video", dev, smi, EVAL_VIDEO_CONFIG, EVAL_VIDEO_CONFIG_FILE,
+        VideoClassificationEval, EVAL_VIDEO_LAUNCHES, cli_eval.run_video_classification,
+        cpu_features, {"model": "vit_large 16f@256 bf16 RoPE, 2 segments x batch 4 -> features "
+                                "[4, 4096, 1024]; 10 fp32 probes (depth 4, 16 heads, 174 "
+                                "classes), one at a time; random weights, synthetic clips"})
+
+
+def phase_eval_anticipation(dev, smi: str) -> tuple[int, ...]:
+    """The EK100 anticipation eval: `cli.eval.run_action_anticipation` on
+    the shipped ViT-L config (`EVAL_ANTICIPATION_CONFIG`): the encoder over
+    16 clips, the predictor (12 x 384, 12 heads of 32) over 2048 context
+    tokens plus 256 targets 1 s ahead, features [16, 2304, 1024]; 10 fp32
+    three-head probes of depth 1; 4 train steps and 1 val batch."""
+    from vjepa2_tpu_torch.cli import eval as cli_eval
+    from vjepa2_tpu_torch.evals.action_anticipation import AnticipationEval, anticipative_features
+    from vjepa2_tpu_torch.models.predictor import vit_predictor
+    from vjepa2_tpu_torch.models.vision_transformer import vit_large
+
+    d = EVAL_ANTICIPATION_CONFIG["experiment"]["data"]
+
+    def cpu_features(ev, args):
+        enc = _cpu_model(ev.encoder, lambda device: vit_large(
+            img_size=(SIZE, SIZE), num_frames=FRAMES, uniform_power=True, use_rope=True,
+            device=device))
+        pred = _cpu_model(ev.predictor, lambda device: vit_predictor(
+            img_size=(SIZE, SIZE), num_frames=FRAMES, tubelet_size=2, embed_dim=enc.embed_dim,
+            predictor_embed_dim=384, depth=12, num_heads=12, num_mask_tokens=10,
+            use_mask_tokens=True, use_rope=True, device=device))
+        hp = SIZE // 16
+        return anticipative_features(enc, pred, torch.from_numpy(np.asarray(args[0][:1])),
+                                     torch.from_numpy(np.asarray(args[1][:1])),
+                                     frames_per_second=d["frames_per_second"], grid_size=hp,
+                                     h_patches=hp, w_patches=hp)
+
+    return _run_eval_phase(
+        "eval_anticipation", dev, smi, EVAL_ANTICIPATION_CONFIG, EVAL_ANTICIPATION_CONFIG_FILE,
+        AnticipationEval, EVAL_ANTICIPATION_LAUNCHES, cli_eval.run_action_anticipation,
+        cpu_features, {"model": "vit_large 16f@256 bf16 RoPE, batch 16, + predictor (12 x 384, "
+                                "12 heads of 32) over 2048 + 256 tokens -> features "
+                                "[16, 2304, 1024]; 10 fp32 three-head probes (depth 1), one at "
+                                "a time; random weights, synthetic clips",
+                       "note": "the val pass's host_ms holds drawing its synthetic batch "
+                               "(numpy, inside evaluate's loop); its encode_ms and probes_ms "
+                               "are the device's"})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke run needs one",
@@ -2245,10 +2723,12 @@ def main() -> int:
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
     droid_l = timed("train_droid", phase_train_droid, dev, smi)
     plan_l = timed("plan", phase_plan, dev, smi)
+    eval_v = timed("eval_video", phase_eval_video, dev, smi)
+    eval_a = timed("eval_anticipation", phase_eval_anticipation, dev, smi)
     emit({"phase": "seconds", "phases": seconds, "total": time.perf_counter() - t_start})
     # every main-path run's launches, in the order of KERNEL_COUNTS
     total = [sum(c) for c in zip(train_l, train_h, fused_l, unfused_l, loop_l, accum_l,
-                                 droid_l, plan_l)]
+                                 droid_l, plan_l, eval_v, eval_a)]
     total[0] += serve_launches
     total[2] += giant_launches
 

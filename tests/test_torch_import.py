@@ -28,7 +28,11 @@ missing = {"vjepa2_tpu_torch.ops.flash_attention", "vjepa2_tpu_torch.core.device
            "vjepa2_tpu_torch.train.droid", "vjepa2_tpu_torch.train.droid_loop",
            "vjepa2_tpu_torch.planning", "vjepa2_tpu_torch.planning.cem",
            "vjepa2_tpu_torch.planning.rotations", "vjepa2_tpu_torch.planning.world_model",
-           "vjepa2_tpu_torch.hub.backbones", "vjepa2_tpu_torch.hub.converter"} - set(names)
+           "vjepa2_tpu_torch.hub.backbones", "vjepa2_tpu_torch.hub.converter",
+           "vjepa2_tpu_torch.evals.wrappers", "vjepa2_tpu_torch.evals.probes",
+           "vjepa2_tpu_torch.evals.plugins", "vjepa2_tpu_torch.evals.video_classification",
+           "vjepa2_tpu_torch.evals.image_classification",
+           "vjepa2_tpu_torch.evals.action_anticipation", "vjepa2_tpu_torch.cli.eval"} - set(names)
 print(len(names), bad, sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 10 else 0)
 """

@@ -9,7 +9,9 @@ first use. Ported so far: the frozen-encoder forward and the attentive-probe
 classifier, the masked-pretrain train step (unfused and with the fused
 LayerNorm prologues, remat policies, gradient accumulation, multi-fpc), and
 the pretraining loop (``train.loop.Pretrainer``, ``cli.main``), V-JEPA 2-AC
-post-training (``train.droid_loop.DroidTrainer``), and CEM planning over the
-AC world model (``planning``, ``hub.vjepa2_ac_vit_giant``), with every TPU
-kernel of the JAX package (B1-B8).
+post-training (``train.droid_loop.DroidTrainer``), CEM planning over the
+AC world model (``planning``, ``hub.vjepa2_ac_vit_giant``), and the frozen
+evals (``evals``, ``cli.eval``: probe grids for video and image
+classification and EK100 anticipation), with every TPU kernel of the JAX
+package (B1-B8).
 """

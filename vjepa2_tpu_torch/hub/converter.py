@@ -20,6 +20,14 @@ convert_ac_predictor`: ``predictor_embed``, ``action_encoder``,
 ``state_encoder``, ``extrinsics_encoder``, ``predictor_blocks_<i>``,
 ``predictor_norm``, ``predictor_proj``) takes the same rules.
 
+A frozen eval's probe grid (JAX's `evals/probes.py:ProbeGrid`, the grid of
+`evals/action_anticipation.py:AnticipationEval`) stacks every probe leaf on
+a leading [P] axis: `probe_grid_from_flax` turns it into the port's grid
+params (each state-dict name -> its [P, ...] stack), for the
+`AttentiveClassifier` and the `MultiHeadAttentiveClassifier` trees alike,
+and `adam_state_from_optax` turns the stacked optax ``ScaleByAdamState``
+(count, mu, nu) into the port's grid optimizer state.
+
 `load_pretrain_state` carries a whole pretrain state across: JAX's
 ``params = {"encoder", "predictor"}`` and ``target_params`` into a port
 `TrainState`, so that JAX and the port can start from one set of weights;
@@ -101,3 +109,30 @@ def load_world_model_state(wm, enc_params: Mapping[str, Any], pred_params: Mappi
     wm.encoder.load_state_dict(state_dict_from_flax(enc_params))
     wm.predictor.load_state_dict(state_dict_from_flax(pred_params))
     return wm
+
+
+def _probe_slice(node: Mapping[str, Any], i: int) -> dict:
+    return {name: _probe_slice(val, i) if isinstance(val, Mapping) else np.asarray(val)[i]
+            for name, val in node.items()}
+
+
+def probe_grid_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX's [P]-stacked probe params (optionally under ``"params"``) ->
+    {state-dict name: fp32 [P, ...] tensor}: each probe through
+    `state_dict_from_flax`, then stacked."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    leaf = params
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    per_probe = [state_dict_from_flax(_probe_slice(params, i))
+                 for i in range(np.asarray(leaf).shape[0])]
+    return {k: torch.stack([sd[k] for sd in per_probe]) for k in per_probe[0]}
+
+
+def adam_state_from_optax(opt) -> dict:
+    """JAX's stacked optax ``ScaleByAdamState`` (``count`` [P], ``mu`` and
+    ``nu`` trees shaped as the params) -> the port's grid optimizer state
+    {"mu", "nu", "count" (int32 [P])}."""
+    return {"mu": probe_grid_from_flax(opt.mu), "nu": probe_grid_from_flax(opt.nu),
+            "count": torch.from_numpy(np.asarray(opt.count, dtype=np.int32).copy())}

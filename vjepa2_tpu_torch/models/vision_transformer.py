@@ -20,7 +20,12 @@ with the names ``remat_policy`` keeps (`modules.resolve_remat_policy`;
 `vision_transformer.py:52-56,185-188`); blocks without gradients (the EMA
 target's) run plainly.
 
-Not ported yet: ``out_layers`` and the image (2D patch) path.
+``out_layers`` (`vision_transformer.py:59,243-247`): the forward returns the
+list of ``norm(tokens[:, :n_real])`` after each listed block, the one final
+norm shared by every tap, stack-pad rows sliced off before it (the frozen
+evals' multilevel features).
+
+Not ported yet: the image (2D patch) path.
 """
 
 from __future__ import annotations
@@ -76,10 +81,12 @@ class VisionTransformer(nn.Module):
                  qkv_bias: bool = True, uniform_power: bool = False, use_rope: bool = False,
                  use_flash: bool = False, dtype=torch.float32, device=None,
                  init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False,
-                 use_activation_checkpointing: bool = False, remat_policy: str | None = None):
+                 use_activation_checkpointing: bool = False, remat_policy: str | None = None,
+                 out_layers=None):
         super().__init__()
         if num_frames <= 1:
             raise NotImplementedError("the image (2D patch) encoder is not ported yet")
+        self.out_layers = None if out_layers is None else tuple(out_layers)
         self.remat = block_remat(use_activation_checkpointing, remat_policy, fuse_ln_mlp)
         self.img_size = tuple(img_size)
         self.patch_size, self.num_frames, self.tubelet_size = patch_size, num_frames, tubelet_size
@@ -119,8 +126,9 @@ class VisionTransformer(nn.Module):
             f"sincos table resize to a ({t_patches}, {h_patches}, {w_patches}) grid is not "
             "ported yet")
 
-    def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
-        """x: [B, T, H, W, C] -> [B, T'H'W', D] in ``dtype``.
+    def forward(self, x: torch.Tensor, masks=None):
+        """x: [B, T, H, W, C] -> [B, T'H'W', D] in ``dtype``, or with
+        ``out_layers`` the list of those after each listed block.
 
         masks: None, a [B, K] index tensor, or a list of them; with a list the
         outputs are stacked along batch (reference semantics):
@@ -146,9 +154,14 @@ class VisionTransformer(nn.Module):
             rope_cache, rope_expanded, qkv_perm = rope_tables(
                 pos_ids, self.embed_dim // self.num_heads, self.num_heads, hp, wp,
                 self.use_flash)
-        for blk in self.blocks:
+        outs = []
+        for i, blk in enumerate(self.blocks):
             tokens = remat_call(blk, self.remat, tokens, rope_cache, rope_expanded, qkv_perm,
                                 kv_valid)
+            if self.out_layers is not None and i in self.out_layers:
+                outs.append(self.norm(tokens[:, :n_real]))
+        if self.out_layers is not None:
+            return outs
         return self.norm(tokens[:, :n_real])
 
 

@@ -4,7 +4,7 @@ minus DDP wrappers, GradScaler and scheduler replay on resume).
 
 One card: the mesh, pipeline parallelism and ring-attention context
 parallelism are not here (ROADMAP A12), and a config that asks for them is
-refused, as are in-process evals (A10), datasets on disk (A8b) and fp32 on
+refused, as are in-process evals (A10b), datasets on disk (A8b) and fp32 on
 the card (the attention kernels take bf16): nothing is skipped quietly. The models always take the flash routes, whatever
 ``model.use_flash`` says (JAX's default picks XLA's attention; the port's only
 other attention is its plain test version): on the card the hand-written
@@ -110,7 +110,7 @@ def _refuse(c: PretrainConfig, synthetic_data: bool) -> None:
                                       "(ROADMAP A12)")
     if c.evals and c.meta.eval_freq:
         raise NotImplementedError("in-process evals (evals with meta.eval_freq) are not "
-                                  "ported (ROADMAP A10)")
+                                  "ported (ROADMAP A10b; the frozen evals run through cli.eval)")
     if c.data.datasets and not synthetic_data:
         raise NotImplementedError("data.datasets: the data pipeline from disk is not ported "
                                   "(ROADMAP A8b); run on synthetic clips (datasets: [] or "
