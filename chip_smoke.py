@@ -17,10 +17,11 @@ Phases, each printed as one JSON object on a line of its own:
    bound;
 4. slice   — the serving path: the ViT-L/16 encoder from the port's hub
    factory (RoPE, bf16, 16 frames at 256 px) and the SSv2 attentive probe
-   (depth 4, 16 heads, 174 classes), random weights from a seeded generator,
-   answering 3 requests of 8 clips; every request must launch B1 once per
-   encoder layer, and the logits of one clip must match the port's fp32
-   plain path on the CPU;
+   (depth 4, 16 heads, 174 classes; fp32 on the flash route, as the evals'
+   probes), random weights from a seeded generator, answering 3 requests of
+   8 clips; every request must launch B1 once per encoder layer and the fp32
+   BHND forward once per probe self-attention block (3), and the logits of
+   one clip must match the port's fp32 plain path on the CPU;
 5. kernel_bwd — the DN flash backward (B2, wgmma and TMA) against its plain
    PyTorch version at the training shapes, with RoPE tables per example from
    real collator masks: dq, dk and dv, each with its tolerance, both timed,
@@ -92,8 +93,8 @@ Phases, each printed as one JSON object on a line of its own:
    from one traced call;
 16. train_accum — `run_vjepa` on the shipped ViT-L 64-frame cooldown
    (`ACCUM_CONFIG`: batch 12 as 6 microbatches of 2, save_attn_qkv_h),
-   overriding ``mesh.model`` 4 -> 1 (one card), the folder, ipe (3) and
-   the epochs: 1 warm-up and 2 timed steps, each launching B1 576 and B2
+   overriding ``mesh.model`` 4 -> 1 (one card), the folder, ipe (2) and
+   the epochs: 1 warm-up and 1 timed step, each launching B1 576 and B2
    432 times; then, on one microbatch of 2 clips, the loss and gradients
    under save_attn_qkv_h against no remat on the card, bit-equal (the
    recompute runs the same kernels on the same inputs, and no kernel on the
@@ -117,7 +118,7 @@ Phases, each printed as one JSON object on a line of its own:
 18. plan   — latent planning: the hub's `vjepa2_ac_vit_giant()` called with
    no argument (the 22-head ViT-g and the 24 x 1024 AC predictor on the
    card in bf16) in a `planning.WorldModel`: a start and a goal frame
-   encoded (256 px, 40 B1 launches each), then 1 warm-up and 3 timed CEM
+   encoded (256 px, 40 B1 launches each), then 1 warm-up and 2 timed CEM
    plans at `CEMConfig()` (400 samples, rollout 2, 10 steps, top-k 10: 480
    B1 launches each at [400, 16, 64, 264] and [400, 16, 64, 520]), one more
    plan traced; the plans finite, [2, 7], within the CEM's clips, a repeat
@@ -131,7 +132,9 @@ Phases, each printed as one JSON object on a line of its own:
    encoder in bf16 into features [4, 4096, 1024], 10 fp32 probes of depth 4
    with 16 heads trained one at a time; synthetic clips), overriding only
    ipe (4) and the epochs (1), as printed: 4 train steps and 1 val batch,
-   each launching B1 24 times and nothing else; finite losses; a probe save
+   each launching B1 24 times and the fp32 BHND forward 30 times (3 blocks
+   x 10 probes; and its backward 30 times a train step), nothing else;
+   finite losses; a probe save
    and restore bit-equal; example 0's features and probe 0's logits on them
    against the fp32 CPU path end to end, every probe's logits and loss and
    probe 0's gradients on the card's features of example 0 against the CPU's,
@@ -147,7 +150,41 @@ Phases, each printed as one JSON object on a line of its own:
    ahead, features [16, 2304, 1024], 10 fp32 three-head probes of depth 1),
    the same overrides, checks and prints, each step and val batch launching
    B1 36 times (24 encoder, 12 predictor with per-example RoPE tables), and
-   each probe's recall per head.
+   each probe's recall per head;
+21. kernel_fp32 (run after phase 8) — the fp32 BHND flash kernels
+   (`csrc/flash_fp32.cuh`: B3 and B4/B5 on fp32 operands, FFMA, TF32 off)
+   against their plain versions at the probes' shapes [64,16,2048,64]
+   (IN1K), [4,16,4096,64] (SSv2), [8,16,2048,64] (the serving slice) and
+   [1,16,36864,88] (ViT-g/384 K400), forward (out, lse) and backward (dq,
+   dk, dv given the kernel's out and lse), the plain version over chunks of
+   queries where its [B, H, N, N] scores do not fit (256 rows at IN1K, 512
+   at K400: dk and dv summed over the chunks); ms by CUDA events, TFLOP/s
+   (4*Dh and 10*Dh FLOPs a score), the bound at 67 TFLOP/s fp32, the plain
+   version's ms and `F.scaled_dot_product_attention`'s on the same fp32
+   operands with the backend it picked;
+22. eval_image — the IN1K probe eval: `run_image_classification` on the
+   shipped ViT-L config (`EVAL_IMAGE_CONFIG`: 64 images a batch as 16 fake
+   frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 4 and
+   1 epoch: each train step launches B1 24 times and the fp32 forward and
+   backward 18 times each, a val batch B1 24 and the forward 18; the checks
+   of phase 19 with the CPU's share cut to the first 4 examples;
+23. eval_video_384 — the ViT-g/384 K400 probe eval: `run_video_classification`
+   on the shipped config (`EVAL_VIDEO_384_CONFIG`: batch 1 of 8 segments of
+   16f@384, the 22-head ViT-g into features [1, 36864, 1408], 10 fp32
+   probes of depth 4 with 16 heads of 88), ipe 2 and 1 epoch: each train
+   step launches B1 40 times at [8,22,64,4608] and the fp32 forward and
+   backward 30 times each at [1,16,36864,88], a val batch B1 40 and the
+   forward 30; finite losses, a probe save and restore bit-equal, and,
+   forward only against fp32 on the plain route on the card (the host's
+   CPU cannot hold a 36,864-token probe or a 384-px ViT-g clip in the
+   script's time): segment 0's features and probe 0's logits (the plain
+   forward over 512-query chunks), the step's losses and probe 0's
+   gradients recomputed.
+Phases 19, 20, 22 and 23 run in the order eval_anticipation, eval_video,
+eval_image, eval_video_384; each eval phase's
+CPU reference runs on a worker thread beside the card work of the phases
+after it (their steps are device-bound), and its record prints when that
+reference ends; the script waits for all of them before its summary.
 The kernel phases 3 and 5 also hold B1 and B2 at the cooldown's shapes
 ([2,16,64,8192] target, the contexts of 2302 and 568 tokens, the predictor
 sequences of 6479 and 6471), with per-example RoPE tables of real collator
@@ -155,8 +192,9 @@ masks, and at the DROID step's: B1 over the ViT-g target's single frames
 [64,22,64,256], B1 and B2 over the AC sequences (1806 and 516 tokens,
 frame-causal) as they come and stack-padded to 1808 and 520 with the pad
 keys on segment int32-max, as the AC predictor runs them; phase 3 also
-at a CEM plan's [400, 16, 64, 264] and [400, 16, 64, 520], and at the EK100
-eval's [16, 16, 64, 2048] and [16, 12, 32, 2304] (per-example tables). A ``seconds``
+at a CEM plan's [400, 16, 64, 264] and [400, 16, 64, 520], at the EK100
+eval's [16, 16, 64, 2048] and [16, 12, 32, 2304] (per-example tables), and
+at the ViT-g/384 encoder's [8, 22, 64, 4608] (a RoPE grid of 8 x 24 x 24). A ``seconds``
 line gives each phase's time and the script's total.
 
 Every attention kernel phase also times
@@ -175,6 +213,8 @@ so does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -199,6 +239,10 @@ LN_SOURCE = "vjepa2_tpu_torch/csrc/layernorm.cu"
 LN_FWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:103"
 LN_BWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:115"
 LN_GEMM_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm_hopper.cu"  # B7 and B8
+FP32_SOURCE = "vjepa2_tpu_torch/csrc/flash_fp32.cuh"  # B3, and B4/B5, on fp32 operands
+FP32_FWD_REPLACES = "vjepa2_tpu/ops/flash_attention.py:166"
+# B4 (one pass) and B5 (`_dq_kernel:361`, `_dkv_kernel:434`): one fp32 backward
+FP32_BWD_REPLACES = "vjepa2_tpu/ops/flash_attention.py:511"
 LN_QKV_REPLACES = "vjepa2_tpu/ops/ln_qkv.py:50"
 LN_MLP_REPLACES = "vjepa2_tpu/ops/ln_mlp.py:78"
 
@@ -237,6 +281,9 @@ SHAPES = [
     # 2560-2815 (1 s ahead at 4 fps), RoPE tables per example
     ("ek100 encoder", (16, 16, 64, 2048), {}),
     ("ek100 predictor, per-example tables", (16, 12, 32, 2304), {"seq": "ek100_pred"}),
+    # the ViT-g/384 K400 eval (phase eval_video_384): the 22-head encoder over
+    # 8 clips of 16f@384, a RoPE grid of 8 x 24 x 24
+    ("vit_giant_xformers/384 encoder", (8, 22, 64, 4608), {"grid": (24, 24)}),
 ]
 # operands above this many elements (the plan's 108 M and 213 M) are drawn on
 # the card: numpy takes seconds for each
@@ -324,16 +371,28 @@ BHND_BWD_SHAPES = [
 # the AC sequences of `BWD_SHAPES`: (frames of 2 + 256 tokens, stack pad)
 AC_SEQUENCES = {"ac": (7, 0), "ac_pad": (7, 2), "ac_rollout": (2, 0), "ac_rollout_pad": (2, 4)}
 # launch counters, in the order `_launch_counts` reads them
-KERNEL_COUNTS = ("b1", "b2", "b3", "bhnd_bwd", "b6_fwd", "b6_bwd", "b7", "b8")
+# (the fp32 BHND forward and backward, `csrc/flash_fp32.cuh`, count apart)
+KERNEL_COUNTS = ("b1", "b2", "b3", "bhnd_bwd", "b6_fwd", "b6_bwd", "b7", "b8", "b3_fp32",
+                 "bhnd_bwd_fp32")
+
+
+def _counts(**launches) -> tuple[int, ...]:
+    """Launches by KERNEL_COUNTS name, the others 0, in that order."""
+    unknown = set(launches) - set(KERNEL_COUNTS)
+    if unknown:
+        raise KeyError(f"no launch counter {sorted(unknown)}")
+    return tuple(launches.get(name, 0) for name in KERNEL_COUNTS)
+
+
 # the step of phase 6 per (encoder, fusions): (phase, launches per step in
 # the order of KERNEL_COUNTS). ViT-L: 24 target + 2 x (24 + 12) B1; ViT-H: 32
 # target + 2 x 32 context B3, 2 x 12 predictor B1; fused ViT-L: B7, B8 and B3
 # in all 96 blocks, the backwards in the 72 with gradients, B6's backward
 # twice in each (B7's and B8's LayerNorm tail).
 TRAIN_CFGS = {
-    ("vit_large", ""): ("train", (96, 72, 0, 0, 0, 0, 0, 0)),
-    ("vit_huge", ""): ("train_huge", (24, 24, 96, 64, 0, 0, 0, 0)),
-    ("vit_large", "qkv,mlp"): ("train_fused", (0, 0, 96, 72, 0, 144, 96, 96)),
+    ("vit_large", ""): ("train", (96, 72, 0, 0, 0, 0, 0, 0, 0, 0)),
+    ("vit_huge", ""): ("train_huge", (24, 24, 96, 64, 0, 0, 0, 0, 0, 0)),
+    ("vit_large", "qkv,mlp"): ("train_fused", (0, 0, 96, 72, 0, 144, 96, 96, 0, 0)),
 }
 GIANT_REL_L2 = 5e-2  # bf16 on the card against fp32 on the CPU, 40 layers
 # launches a step of the loop phases, in the order of KERNEL_COUNTS. ViT-H at
@@ -342,8 +401,8 @@ GIANT_REL_L2 = 5e-2  # bf16 on the card against fp32 on the CPU, 40 layers
 # cooldown under save_attn_qkv_h (nothing recomputes the attention forward),
 # 6 microbatches of 24 target + 2 x 24 context + 2 x 12 predictor B1 and
 # 2 x (24 + 12) B2.
-LOOP_LAUNCHES = (48, 24, 160, 64, 0, 0, 0, 0)
-ACCUM_LAUNCHES = (6 * 96, 6 * 72, 0, 0, 0, 0, 0, 0)
+LOOP_LAUNCHES = (48, 24, 160, 64, 0, 0, 0, 0, 0, 0)
+ACCUM_LAUNCHES = (6 * 96, 6 * 72, 0, 0, 0, 0, 0, 0, 0, 0)
 
 # The shipped configs the loop phases run, held here as `yaml.safe_load`
 # gives them (the card's host may lack PyYAML; `tests/test_torch_loop.py`
@@ -393,7 +452,7 @@ ACCUM_CONFIG = {
                      "final_weight_decay": 0.04, "grad_accum": 6, "ipe": 300, "ipe_scale": 1.25,
                      "lr": 0.000525, "start_lr": 0.000525, "warmup": 0, "weight_decay": 0.04},
 }
-ACCUM_OVERRIDES = {"mesh.model": 1, "optimization.ipe": 3, "optimization.epochs": 1}
+ACCUM_OVERRIDES = {"mesh.model": 1, "optimization.ipe": 2, "optimization.epochs": 1}
 # V-JEPA 2-AC post-training (phase train_droid): the ViT-g target over 64
 # single frames (40 B1 forwards), then the AC predictor's teacher forcing and
 # one rollout call (24 B1 and 24 B2 each); batch 8, 8 frames at 256 px
@@ -415,14 +474,14 @@ DROID_CONFIG = {
 }
 DROID_IPE = 4
 DROID_OVERRIDES = {"optimization.ipe": DROID_IPE, "optimization.epochs": 2}
-DROID_LAUNCHES = (40 + 2 * 24, 2 * 24, 0, 0, 0, 0, 0, 0)
+DROID_LAUNCHES = (40 + 2 * 24, 2 * 24, 0, 0, 0, 0, 0, 0, 0, 0)
 # CEM planning (phase plan) on the hub's `vjepa2_ac_vit_giant()` at
 # `CEMConfig`'s defaults (400 samples, rollout 2, 10 steps, top-k 10): an
 # encode runs B1 once a ViT-g layer, a plan once an AC predictor layer in each
 # of its 10 x 2 rollout calls (over 400 x 264 and 400 x 520 tokens)
-ENCODE_LAUNCHES = (40, 0, 0, 0, 0, 0, 0, 0)
-PLAN_LAUNCHES = (10 * 2 * 24, 0, 0, 0, 0, 0, 0, 0)
-PLAN_TIMED, PLAN_CANDIDATES = 3, 4
+ENCODE_LAUNCHES = (40, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+PLAN_LAUNCHES = (10 * 2 * 24, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+PLAN_TIMED, PLAN_CANDIDATES = 2, 4
 # encode and step_fn, bf16 on the card against fp32 on the CPU: the serving
 # slice's relative L2 (40 ViT-g layers, then 24 predictor layers on top); the
 # CEM update on a linear world model, fp32 on both sides, one sampler: the
@@ -472,12 +531,69 @@ EVAL_ANTICIPATION_CONFIG = {
 EVAL_IPE = 4
 EVAL_OVERRIDES = {"experiment.optimization.ipe": EVAL_IPE,
                   "experiment.optimization.num_epochs": 1}
-# launches a train step or val batch: SSv2's encoder over its 4 x 2 clips in
-# one call (24 B1 at [8,16,64,2048]); EK100's over 16 clips (24 at
-# [16,16,64,2048]) and its predictor over 2048 + 256 tokens (12 at
-# [16,12,32,2304], per-example tables); the fp32 probes launch no kernel
-EVAL_VIDEO_LAUNCHES = (24, 0, 0, 0, 0, 0, 0, 0)
-EVAL_ANTICIPATION_LAUNCHES = (24 + 12, 0, 0, 0, 0, 0, 0, 0)
+# launches a train step and a val batch: SSv2's encoder over its 4 x 2 clips in
+# one call (24 B1 at [8,16,64,2048]) and its 10 probes' 3 self-attention
+# blocks each (30 fp32 forwards at [4,16,4096,64], and 30 backwards in a
+# train step); EK100's encoder over 16 clips (24 at [16,16,64,2048]) and its
+# predictor over 2048 + 256 tokens (12 at [16,12,32,2304], per-example
+# tables), its depth-1 probes no kernel
+EVAL_VIDEO_LAUNCHES = {"train": _counts(b1=24, b3_fp32=30, bhnd_bwd_fp32=30),
+                       "val": _counts(b1=24, b3_fp32=30)}
+EVAL_ANTICIPATION_LAUNCHES = {"train": _counts(b1=24 + 12), "val": _counts(b1=24 + 12)}
+# IN1K (phase eval_image): the shipped ViT-L config, batch 64 images as 16
+# fake frames (24 B1 at [64,16,64,2048]), 6 probes of depth 4 (18 fp32
+# forwards at [64,16,2048,64], 18 backwards a train step); cut to ipe 4, 1
+# epoch (4 train steps, 1 val batch)
+EVAL_IMAGE_CONFIG_FILE = "configs/eval/vitl/in1k.yaml"
+EVAL_IMAGE_CONFIG = {
+    "eval_name": "image_classification_frozen", "folder": "./runs/evals/vitl/in1k",
+    "experiment": {
+        "classifier": {"num_heads": 16, "num_probe_blocks": 4},
+        "data": {"root": None, "root_val": None, "resolution": 256, "num_classes": 1000},
+        "optimization": {"batch_size": 64, "num_epochs": 20, "ipe": 300,
+                         "multihead_kwargs": [{"lr": lr, "weight_decay": wd}
+                                              for wd in (0.01, 0.1)
+                                              for lr in (0.005, 0.001, 0.0003)]}},
+    "model_kwargs": {
+        "module_name": "evals.image_classification_frozen.modelcustom.vit_encoder",
+        "checkpoint": None,
+        "pretrain_kwargs": {"model_name": "vit_large", "use_rope": True, "uniform_power": True},
+        "wrapper_kwargs": {"img_as_video_nframes": 16}},
+}
+EVAL_IMAGE_LAUNCHES = {"train": _counts(b1=24, b3_fp32=18, bhnd_bwd_fp32=18),
+                       "val": _counts(b1=24, b3_fp32=18)}
+EVAL_IMAGE_CPU_EXAMPLES = 4  # the CPU checks' examples: the host's share of the batch
+# ViT-g/384 K400 (phase eval_video_384): the shipped config, batch 1 of 8
+# segments of 16f@384 (8 x 8 x 24 x 24 = 36,864 tokens); the 22-head ViT-g
+# over the 8 clips (40 B1 at [8,22,64,4608]), 10 probes of depth 4 with 16
+# heads of 88 (30 fp32 forwards at [1,16,36864,88], 30 backwards a train
+# step); cut to ipe 2, 1 epoch (2 train steps, 1 val batch)
+EVAL_VIDEO_384_CONFIG_FILE = "configs/eval/vitg-384/k400.yaml"
+EVAL_VIDEO_384_CONFIG = {
+    "eval_name": "video_classification_frozen", "folder": "./runs/evals/vitg-384/k400",
+    "tag": "k400-vitg-38416-16x8x3-16f",
+    "experiment": {
+        "classifier": {"num_heads": 16, "num_probe_blocks": 4},
+        "data": {"dataset_type": "VideoDataset", "dataset_train": None, "dataset_val": None,
+                 "frame_step": 4, "frames_per_clip": 16, "num_classes": 400, "num_segments": 8,
+                 "num_views_per_segment": 3, "resolution": 384},
+        "optimization": {"batch_size": 1, "num_epochs": 20, "ipe": 300,
+                         "multihead_kwargs": _PROBE_GRID}},
+    "model_kwargs": {
+        "checkpoint": None,
+        "module_name": "evals.video_classification_frozen.modelcustom.vit_encoder_multiclip",
+        "pretrain_kwargs": {"model_name": "vit_giant_xformers", "patch_size": 16,
+                            "tubelet_size": 2, "uniform_power": True, "use_rope": True},
+        "wrapper_kwargs": {"max_frames": 128, "use_pos_embed": False}},
+}
+EVAL_384_IPE = 2
+EVAL_VIDEO_384_OVERRIDES = {"experiment.optimization.ipe": EVAL_384_IPE,
+                            "experiment.optimization.num_epochs": 1}
+EVAL_VIDEO_384_LAUNCHES = {"train": _counts(b1=40, b3_fp32=30, bhnd_bwd_fp32=30),
+                           "val": _counts(b1=40, b3_fp32=30)}
+# the K400 check's query chunk: the plain forward's [1, 16, 512, 36864] fp32
+# scores (1.2 GB) where the whole [1, 16, 36864, 36864] would be 87 GB
+EVAL_384_QUERY_CHUNK = 512
 # Card against the fp32 CPU path (`_eval_cpu_checks`). Example 0's features
 # and probe 0's logits on them, end to end (bf16 encoder and predictor on the
 # card): the serving slice's relative L2. Every probe's logits and loss, and
@@ -516,6 +632,25 @@ PROLOGUE_SHAPES = [
     ("vit_huge target", 8, 2048, 1280, 16, 80, 5120, "shared", None),
     ("vit_giant target", 8, 2048, 1408, 16, 88, 6144, "shared", None),
 ]
+# (name, [B, H, N, D]) — the shapes the fp32 BHND kernels take on the main
+# paths: the probes' self-attention in the IN1K, SSv2 and ViT-g/384 K400
+# evals and in the serving slice
+FP32_SHAPES = [
+    ("in1k vit_large probe", (64, 16, 2048, 64)),
+    ("ssv2 vit_large probe", (4, 16, 4096, 64)),
+    ("serving slice probe", (8, 16, 2048, 64)),
+    ("k400 vit_giant/384 probe", (1, 16, 36864, 88)),
+]
+# The plain version holds [B, H, N, M] fp32 scores (the backward about five
+# such); above FP32_PLAIN_WHOLE bytes it runs over chunks of queries that hold
+# at most FP32_PLAIN_CHUNK bytes (at most 512 rows): out, lse and dq follow
+# row by row, dk and dv are the sums of the chunks' partials.
+FP32_PLAIN_WHOLE, FP32_PLAIN_CHUNK = 8 << 30, 2 << 30
+# fp32 kernel against plain on the same fp32 inputs (TF32 off): the kernel
+# sums 32-key tiles with an online rescale, the plain version whole rows
+# through cuBLAS; fp32 rounding (2**-24) over ~N additions: 2e-5 relative
+# L2 and 1e-4 x max|plain| on out and the gradients, 1e-5 on lse.
+FP32_REL_L2, FP32_MAX_ABS, FP32_LSE_ATOL = 2e-5, 1e-4, 1e-5
 # B7/B8 against plain from the same bf16 inputs: each output rounds once to
 # bf16 (2**-9) and y may round to the neighbouring bf16 value where the
 # statistics differ in the last bit: 5e-3 + 1e-2 |plain|.
@@ -772,7 +907,8 @@ def _dn_case(dev, B, H, D, N, feats, seqs=None):
                                  f"[{B}, {N}]")
         if kv_valid is not None:
             kw["kv_valid_len"] = kv_valid
-    (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, 16, 16), D)
+    grid = feats.get("grid", (16, 16))
+    (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, *grid), D)
     kw["rope_expanded"] = (cos, sin)
     if "kv_valid_len" in feats:
         kw["kv_valid_len"] = feats["kv_valid_len"]
@@ -830,17 +966,17 @@ def phase_kernels(dev, smi: str) -> dict:
     return first
 
 
-def phase_slice(dev, smi: str) -> int:
+def phase_slice(dev, smi: str) -> tuple[int, ...]:
     from vjepa2_tpu_torch.evals.wrappers import encode_clips
     from vjepa2_tpu_torch.hub.backbones import vjepa2_vit_large
     from vjepa2_tpu_torch.models.attentive_pooler import AttentiveClassifier
-    from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 
     def build(device, dtype, generator=None):
         enc, _ = vjepa2_vit_large(num_frames=FRAMES, uniform_power=True, use_flash=True,
                                   dtype=dtype, device=device, generator=generator)
+        # the probe in fp32 on the flash route, as the evals' probes
         clf = AttentiveClassifier(embed_dim=1024, num_heads=16, depth=4, num_classes=174,
-                                  dtype=dtype, device=device)
+                                  device=device, use_flash=True)
         clf.reset_parameters(generator)
         return enc.eval(), clf.eval()
 
@@ -859,19 +995,21 @@ def phase_slice(dev, smi: str) -> int:
     answer(requests[0])  # warm-up, outside the counted run
     _reset_launch_counts()
     times, answers = [], []
+    want = _counts(b1=len(enc.blocks), b3_fp32=len(clf.pooler.blocks))
     for clips in requests:
-        before = fdn.LAUNCHES
+        before = _launch_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         logits = answer(clips)
         times.append((time.perf_counter() - t1) * 1e3)
-        launched = fdn.LAUNCHES - before
-        if launched != len(enc.blocks):
-            raise AssertionError(f"a request launched B1 {launched} times, want {len(enc.blocks)}")
+        launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+        if launched != want:
+            raise AssertionError(f"a request launched {dict(zip(KERNEL_COUNTS, launched))}, "
+                                 f"want {dict(zip(KERNEL_COUNTS, want))}")
         if logits.shape != (CLIPS, 174) or not torch.isfinite(logits).all():
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
         answers.append(logits)
-    launches = fdn.LAUNCHES
+    launches = _launch_counts()
 
     on_device = requests[0].to(dev)
     with torch.inference_mode():
@@ -890,11 +1028,13 @@ def phase_slice(dev, smi: str) -> int:
     rel = ((got - ref).norm() / ref.norm()).item()
     ok = rel <= LOGITS_REL_L2
     med = sorted(times)[len(times) // 2]
-    emit({"phase": "slice", "model": "vit_large 16f@256 bf16 + ssv2 probe (depth 4, 174)",
+    emit({"phase": "slice",
+          "model": "vit_large 16f@256 bf16 + ssv2 probe (depth 4, 174; fp32 flash route)",
           "requests": REQUESTS, "clips_per_request": CLIPS, "warmup_requests": 1,
           "ms_per_request": times, "median_ms_per_request": med,
           "clips_per_s": CLIPS / (med / 1e3), "device_ms_per_request": device_ms,
-          "b1_launches": launches, "b1_launches_per_request": len(enc.blocks),
+          "launches": dict(zip(KERNEL_COUNTS, launches)),
+          "launches_per_request": dict(zip(KERNEL_COUNTS, want)),
           "logits_rel_l2_vs_cpu_fp32": rel, "logits_max_abs_err": (got - ref).abs().max().item(),
           "ref_logits_max_abs": ref.abs().max().item(), "tol_rel_l2": LOGITS_REL_L2,
           "setup_s": setup_s, "cpu_reference_s": cpu_s, "ok": ok, "gpu": smi})
@@ -996,7 +1136,8 @@ def _launch_counts() -> tuple[int, ...]:
     from vjepa2_tpu_torch.ops import ln_mlp, ln_qkv
 
     return (fdn.LAUNCHES, fdn.LAUNCHES_BWD, fa.LAUNCHES, fa.LAUNCHES_BWD, ln.LAUNCHES,
-            ln.LAUNCHES_BWD, ln_qkv.LAUNCHES, ln_mlp.LAUNCHES)
+            ln.LAUNCHES_BWD, ln_qkv.LAUNCHES, ln_mlp.LAUNCHES, fa.LAUNCHES_FP32,
+            fa.LAUNCHES_BWD_FP32)
 
 
 def _reset_launch_counts() -> None:
@@ -1007,6 +1148,8 @@ def _reset_launch_counts() -> None:
 
     fdn.LAUNCHES = fdn.LAUNCHES_BWD = fa.LAUNCHES = fa.LAUNCHES_BWD = 0
     ln.LAUNCHES = ln.LAUNCHES_BWD = ln_qkv.LAUNCHES = ln_mlp.LAUNCHES = 0
+    fa.LAUNCHES_FP32 = fa.LAUNCHES_BWD_FP32 = 0
+
 
 
 class _Trainer:
@@ -1436,7 +1579,7 @@ def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
 def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
     """The `Pretrainer` through `run_vjepa` on the shipped ViT-L 64-frame
     cooldown (`ACCUM_CONFIG`: batch 12, grad_accum 6, save_attn_qkv_h) for 1
-    warm-up and 2 timed steps; then, on one microbatch of 2 clips, the
+    warm-up and 1 timed step; then, on one microbatch of 2 clips, the
     gradients under the config's policy against no remat, and each policy's
     peak memory. Returns the launches of the loop's steps."""
     import shutil
@@ -2047,6 +2190,160 @@ def phase_kernels_prologue(dev, smi: str, kernel: str) -> dict:
     return first
 
 
+def _plain_rows(B, H, N, M):
+    """The query chunk of the fp32 plain reference, or None for whole rows."""
+    row_bytes = B * H * M * 4
+    if row_bytes * N <= FP32_PLAIN_WHOLE:
+        return None
+    rows = 512
+    while rows > 1 and rows * row_bytes > FP32_PLAIN_CHUNK:
+        rows //= 2
+    return rows
+
+
+@contextlib.contextmanager
+def _plain_in_query_chunks(rows: int):
+    """While active, the plain BHND forward (the probes' route without
+    ``use_flash``) runs over chunks of ``rows`` queries: the same function
+    row by row, without the whole [B, H, N, M] fp32 scores."""
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+
+    whole = fa._plain_fwd
+
+    def chunked(q, k, v, *args):
+        parts = [whole(q[:, :, i:i + rows], k, v, *args) for i in range(0, q.shape[2], rows)]
+        return torch.cat([o for o, _ in parts], 2), torch.cat([lse for _, lse in parts], 2)
+
+    fa._plain_fwd = chunked
+    try:
+        yield
+    finally:
+        fa._plain_fwd = whole
+
+
+def fp32_plain_fwd(q, k, v, rows=None):
+    """`flash_attention_bhnd_plain`, whole or over chunks of ``rows`` queries."""
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+
+    with _plain_in_query_chunks(rows) if rows else contextlib.nullcontext():
+        return fa.flash_attention_bhnd_plain(q, k, v)
+
+
+def fp32_plain_bwd(q, k, v, out, lse, do, rows=None):
+    """`flash_attention_bhnd_bwd_plain`, whole or over chunks of ``rows``
+    queries (dk and dv summed over the chunks)."""
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+
+    N = q.shape[2]
+    rows = rows or N
+    dq, dk, dv = [], torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(0, N, rows):
+        sl = slice(i, i + rows)
+        g = fa.flash_attention_bhnd_bwd_plain(q[:, :, sl], k, v, out[:, :, sl], lse[:, :, sl],
+                                              do[:, :, sl])
+        dq.append(g[0])
+        dk += g[1]
+        dv += g[2]
+    return torch.cat(dq, 2), dk, dv
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend `F.scaled_dot_product_attention` picks for these operands."""
+    from torch.nn.attention import SDPBackend
+
+    names = {int(b): name for name, b in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v)), "unknown")
+
+
+def _fp32_errors(got, want) -> dict:
+    g, w = got.double(), want.double()
+    return {"rel_l2": ((g - w).norm() / w.norm()).item(), "max_abs_err": (g - w).abs().max().item(),
+            "max_abs_plain": w.abs().max().item(), "finite": bool(torch.isfinite(got).all())}
+
+
+def _fp32_ok(e: dict) -> bool:
+    return e["finite"] and e["rel_l2"] <= FP32_REL_L2 and e["max_abs_err"] <= (
+        FP32_MAX_ABS * e["max_abs_plain"])
+
+
+def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
+    """The fp32 BHND kernels (`csrc/flash_fp32.cuh`) against their plain
+    versions at `FP32_SHAPES`, forward and backward (given the kernel's out
+    and lse), the plain version over query chunks where its scores do not
+    fit; each timed by CUDA events with its TFLOP/s and bound (67 TFLOP/s
+    fp32 outside the tensor cores), beside the plain version and
+    `F.scaled_dot_product_attention` on the same fp32 operands (TF32 off),
+    with the backend PyTorch picked."""
+    import torch.nn.functional as F
+
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+
+    firsts = [None, None]
+    for name, (B, H, N, D) in FP32_SHAPES:
+        gen = torch.Generator(dev).manual_seed(0)
+        q, k, v, do = (torch.randn(B, H, N, D, generator=gen, device=dev) for _ in range(4))
+        rows = _plain_rows(B, H, N, N)
+        pairs = B * H * N * N
+        flops = {"fwd": 4 * D * pairs, "bwd": 10 * D * pairs}
+        iters = {kind: max(2, min(20, int(4e12 / f))) for kind, f in flops.items()}
+        with torch.no_grad():
+            out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True)
+            grads = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do)
+            out_p, lse_p = fp32_plain_fwd(q, k, v, rows)
+            want = fp32_plain_bwd(q, k, v, out, lse, do, rows)
+            torch.cuda.synchronize()
+            errs = {"fwd": {"out": _fp32_errors(out, out_p)},
+                    "bwd": {n_: _fp32_errors(g, w)
+                            for n_, g, w in zip(("dq", "dk", "dv"), grads, want)}}
+            lse_err = (lse - lse_p).abs().max().item()
+            del out_p, lse_p, want
+            ms = {"fwd": cuda_ms(lambda: fa.flash_attention_bhnd(q, k, v), iters["fwd"]),
+                  "bwd": cuda_ms(lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do),
+                                 iters["bwd"])}
+            plain_ms = {"fwd": cuda_ms(lambda: fp32_plain_fwd(q, k, v, rows), 1, warmup=1),
+                        "bwd": cuda_ms(lambda: fp32_plain_bwd(q, k, v, out, lse, do, rows), 1,
+                                       warmup=1)}
+            backend = sdpa_backend(q, k, v)
+        library_ms = {"fwd": None, "bwd": None}
+        if backend != "MATH" or rows is None:  # the math backend would hold whole scores
+            with torch.no_grad():
+                library_ms["fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                            iters["fwd"])
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            with torch.enable_grad():
+                ref = F.scaled_dot_product_attention(*leaves)
+                library_ms["bwd"] = cuda_ms(
+                    lambda: torch.autograd.grad(ref, leaves, do, retain_graph=True),
+                    iters["bwd"])
+            del ref, leaves
+        sizes = {"fwd": nbytes(q, k, v, out, lse), "bwd": nbytes(q, k, v, out, do, lse, *grads)}
+        for i, (kernel, kind) in enumerate((("flash_fwd_fp32", "fwd"),
+                                            ("flash_bwd_fp32", "bwd"))):
+            bound_ms, bound_by = bound(flops[kind], sizes[kind], PEAK_FP32)
+            ok = all(_fp32_ok(e) for e in errs[kind].values()) and (
+                kind == "bwd" or lse_err <= FP32_LSE_ATOL)
+            rec = {"phase": "kernel_fp32", "kernel": kernel, "shape": name,
+                   "bhnd": [B, H, N, D], "ms": ms[kind], "iters": iters[kind],
+                   "plain_ms": plain_ms[kind], "plain_query_chunk": rows,
+                   "library_ms": library_ms[kind],
+                   "library": f"F.scaled_dot_product_attention fp32, TF32 off ({backend})",
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "tflops": flops[kind] / ms[kind] / 1e9, "bound_share": bound_ms / ms[kind],
+                   "errors": errs[kind],
+                   "max_abs_err": max(e["max_abs_err"] for e in errs[kind].values()),
+                   "tol": {"rel_l2": FP32_REL_L2, "max_abs": f"{FP32_MAX_ABS}*max|plain|"},
+                   "ok": ok, "gpu": smi}
+            if kind == "fwd":
+                rec.update(max_abs_err_lse=lse_err, tol_lse=FP32_LSE_ATOL)
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
+            firsts[i] = firsts[i] or rec
+        del q, k, v, do, out, lse, grads
+        torch.cuda.empty_cache()
+    return firsts[0], firsts[1]
+
+
 def phase_encode_giant(dev, smi: str) -> int:
     from vjepa2_tpu_torch.evals.wrappers import encode_clips
     from vjepa2_tpu_torch.models.vision_transformer import vit_giant
@@ -2080,7 +2377,7 @@ def phase_encode_giant(dev, smi: str) -> int:
         feats = answer(clips)
         times.append((time.perf_counter() - t1) * 1e3)
         launched = tuple(a - b for a, b in zip(_launch_counts(), before))
-        if launched != (0, 0, len(enc.blocks)) + (0,) * 5:
+        if launched != (0, 0, len(enc.blocks)) + (0,) * (len(KERNEL_COUNTS) - 3):
             raise AssertionError(f"a request launched {dict(zip(KERNEL_COUNTS, launched))}, "
                                  f"want B3 {len(enc.blocks)} times only")
         if feats.shape != (CLIPS, tokens, enc.embed_dim) or not torch.isfinite(feats).all():
@@ -2412,15 +2709,16 @@ class _EvalRecorder:
                 b[f"{kind}_ms"] = sum(s.elapsed_time(e) for s, e in pairs)
         return False
 
-    def check_launches(self, phase: str, want) -> None:
-        """Every train step and val batch launched ``want`` (a val pass: once
-        a batch it encoded)."""
+    def check_launches(self, phase: str, want: dict) -> None:
+        """Every train step and val batch launched ``want[kind]`` (a val
+        pass: once a batch it encoded)."""
         for i, b in enumerate(self.batches):
-            if b["launches"] != tuple(n * b["encode_calls"] for n in want):
+            per = want[b["kind"]]
+            if b["launches"] != tuple(n * b["encode_calls"] for n in per):
                 raise AssertionError(f"{phase}: {b['kind']} call {i} launched "
                                      f"{dict(zip(KERNEL_COUNTS, b['launches']))} over "
                                      f"{b['encode_calls']} batches, want "
-                                     f"{dict(zip(KERNEL_COUNTS, want))} a batch")
+                                     f"{dict(zip(KERNEL_COUNTS, per))} a batch")
 
     def summary(self) -> dict:
         """Per-call records, and the medians of the train steps after the
@@ -2433,6 +2731,13 @@ class _EvalRecorder:
                 vals = sorted(b[key] / b["encode_calls"] for b in rows)
                 out[f"median_{key}_per_{kind}_batch"] = vals[len(vals) // 2]
         return out
+
+
+# The eval phases' CPU references run one at a time on this worker, beside the
+# card work of the phases after them (whose steps keep the card busy); the
+# script waits for them before its summary.
+_CPU_WORK = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+_DEFERRED: list = []
 
 
 def _eval_args(dev):
@@ -2464,29 +2769,33 @@ def _rows(out, n: int):
     return tuple(t[:n] for t in out) if isinstance(out, tuple) else out[:n]
 
 
-def _eval_cpu_checks(ev, rec, cpu_features) -> dict:
+def _eval_cpu_checks(ev, rec, cpu_features, n: int = 1):
     """The eval phases' checks against the fp32 CPU path, from the probes'
     weights before the first step and that step's bf16 features; the CPU
-    runs example 0 only (a probe's plain fp32 attention over 4096 tokens
-    costs seconds a probe and example there), tied to the step on the card:
+    runs the first ``n`` examples only (a probe's plain fp32 attention over
+    4096 tokens costs seconds a probe and example there), tied to the step
+    on the card. The card's part runs now; returned is the CPU's part, a
+    function of no argument that gives the checks' record (with "ok") and
+    touches nothing on the card, so that it can run beside later phases:
 
     (1) example 0's features, CPU encoder (and predictor) in fp32 from
-    ``cpu_features()`` against the card's (bf16); probe 0's logits on each
-    (end to end);
-    (2) every probe's logits on the card's features of example 0, card
-    against CPU (fp32 on both sides), and the loss of example 0 from them;
-    on the card, each probe's loss over the whole batch from the same
-    weights against the step's own loss;
-    (3) probe 0's gradients of example 0's loss, card against CPU; on the
-    card, its gradients over the whole batch against the step's, read back
-    from Adam's first moment (m = (1 - b1) g after one step)."""
+    ``cpu_features()`` (which builds the CPU models now and returns the
+    function that runs them) against the card's (bf16); probe 0's logits on
+    each (end to end);
+    (2) every probe's logits on the card's features of the first n
+    examples, card against CPU (fp32 on both sides), and their loss; on the
+    card, each probe's loss over the whole batch from the same weights
+    against the step's own loss;
+    (3) probe 0's gradients of the first n examples' loss, card against
+    CPU; on the card, its gradients over the whole batch against the
+    step's, read back from Adam's first moment (m = (1 - b1) g after one
+    step)."""
     import copy
 
     from torch.func import functional_call
 
     from vjepa2_tpu_torch.evals.probes import ADAM_B1
 
-    torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
     grid, first, dev = ev.grid, rec.first, ev.device
     probe = lambda p, i: {k: v[i] for k, v in p.items()}  # noqa: E731
@@ -2501,8 +2810,8 @@ def _eval_cpu_checks(ev, rec, cpu_features) -> dict:
         card_out = [functional_call(grid.model, probe(card_params, i), (card_feats,))
                     for i in range(grid.n)]
         card_batch_loss = [loss(o, B).item() for o in card_out]
-        card_ex0_loss = [loss(o, 1).item() for o in card_out]
-    card_ex0 = [_rows(o, 1) for o in card_out]
+        card_ex0_loss = [loss(o, n).item() for o in card_out]
+    card_ex0 = [_rows(o, n) for o in card_out]
     card_ex0 = [tuple(t.cpu() for t in o) if isinstance(o, tuple) else o.cpu() for o in card_ex0]
     del card_out
 
@@ -2511,36 +2820,53 @@ def _eval_cpu_checks(ev, rec, cpu_features) -> dict:
         return torch.autograd.grad(loss(functional_call(model, p, (x,)), n), list(p.values()))
 
     card_g_batch = grads(grid.model, probe(card_params, 0), card_feats, B)
-    card_g_ex0 = [g.cpu() for g in grads(grid.model, probe(card_params, 0), card_feats[:1], 1)]
+    card_g_ex0 = [g.cpu() for g in grads(grid.model, probe(card_params, 0), card_feats[:n], n)]
     step_g = [first["mu0"][k].to(dev) / (1 - ADAM_B1) for k in params]
     step_grad_rel = _flat_rel(list(card_g_batch), step_g)
     del card_params, card_feats, card_g_batch, step_g
-    t_card = time.perf_counter() - t0
-
-    # on the CPU, example 0 only
     model = copy.deepcopy(grid.model).cpu()
-    targets = first["targets"]
-    with torch.inference_mode():
-        f0 = cpu_features()
-        cpu_ex0 = [functional_call(model, probe(params, i), (feats[:1],)) for i in range(grid.n)]
-        e2e = functional_call(model, probe(params, 0), (f0,))
-        cpu_ex0_loss = [loss(o, 1).item() for o in cpu_ex0]
-    cpu_g_ex0 = grads(model, probe(params, 0), feats[:1], 1)
+    features = cpu_features()
+    t_card = time.perf_counter() - t0
+    n_probes = grid.n
+
+    def cpu_part() -> dict:
+        nonlocal targets
+        torch.set_num_threads(os.cpu_count() or 1)
+        t1 = time.perf_counter()
+        targets = first["targets"]
+        with torch.inference_mode():
+            f0 = features()
+            cpu_ex0 = [functional_call(model, probe(params, i), (feats[:n],))
+                       for i in range(n_probes)]
+            e2e = functional_call(model, probe(params, 0), (f0,))
+            cpu_ex0_loss = [loss(o, n).item() for o in cpu_ex0]
+        cpu_g_ex0 = grads(model, probe(params, 0), feats[:n], n)
+        return _eval_cpu_record(
+            n, feats, f0, card_ex0, cpu_ex0, e2e, card_ex0_loss, cpu_ex0_loss, card_batch_loss,
+            first["losses"].tolist(), card_g_ex0, cpu_g_ex0, step_grad_rel, t_card,
+            time.perf_counter() - t1)
+
+    return cpu_part
+
+
+def _eval_cpu_record(n, feats, f0, card_ex0, cpu_ex0, e2e, card_ex0_loss, cpu_ex0_loss,
+                     card_batch_loss, step_losses, card_g_ex0, cpu_g_ex0, step_grad_rel, t_card,
+                     t_cpu) -> dict:
+    """`_eval_cpu_checks`' record: the errors, the tolerances and "ok"."""
     rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
-    out = {"features_rel_l2_vs_cpu_fp32": _flat_rel(feats[:1], f0),
-           "probe0_logits_end_to_end_rel_l2": _flat_rel(card_ex0[0], e2e),
+    out = {"cpu_examples": n, "features_rel_l2_vs_cpu_fp32": _flat_rel(feats[:1], f0),
+           "probe0_logits_end_to_end_rel_l2": _flat_rel(_rows(card_ex0[0], 1), e2e),
            "logits_rel_l2_vs_cpu_fp32": [_flat_rel(c, o) for c, o in zip(card_ex0, cpu_ex0)],
            "example0_loss": {"card": card_ex0_loss, "cpu_fp32": cpu_ex0_loss},
            "example0_loss_max_rel_err": max(map(rel, card_ex0_loss, cpu_ex0_loss)),
-           "first_step_loss": {"step": first["losses"].tolist(), "recomputed": card_batch_loss},
-           "first_step_loss_max_rel_err": max(map(rel, card_batch_loss,
-                                                  first["losses"].tolist())),
+           "first_step_loss": {"step": step_losses, "recomputed": card_batch_loss},
+           "first_step_loss_max_rel_err": max(map(rel, card_batch_loss, step_losses)),
            "probe0_grad_rel_l2_vs_cpu_fp32": _flat_rel(card_g_ex0, cpu_g_ex0),
            "probe0_step_grad_rel_l2_vs_recomputed": step_grad_rel,
            "tol": {"end_to_end_rel_l2": EVAL_REL_L2, "logits_rel_l2": EVAL_PROBE_REL_L2,
                    "loss_rtol": EVAL_LOSS_RTOL, "grad_rel_l2": EVAL_GRAD_REL_L2,
                    "step_rtol": EVAL_STEP_RTOL},
-           "card_reference_s": t_card, "cpu_reference_s": time.perf_counter() - t0 - t_card}
+           "card_reference_s": t_card, "cpu_reference_s": t_cpu}
     out["ok"] = (out["features_rel_l2_vs_cpu_fp32"] <= EVAL_REL_L2
                  and out["probe0_logits_end_to_end_rel_l2"] <= EVAL_REL_L2
                  and max(out["logits_rel_l2_vs_cpu_fp32"]) <= EVAL_PROBE_REL_L2
@@ -2579,16 +2905,18 @@ def _probes_restore_bit_equal(ev) -> bool:
         torch.equal(after[k], v) for k, v in before.items())
 
 
-def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, cls, want,
-                    run, cpu_features, extra: dict) -> tuple[int, ...]:
+def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, cls, want: dict,
+                    run, checks, extra: dict, overrides=EVAL_OVERRIDES) -> tuple[int, ...]:
     """One eval config through its `cli.eval` run function under an
-    `_EvalRecorder`; then one more traced train step, the CPU checks and a
-    probe save and restore. Returns the launches of its train steps and val
-    batches."""
+    `_EvalRecorder`; then one more traced train step, the checks
+    (``checks(ev, rec)``: a dict with "ok", or a function of no argument
+    that gives it, run on the CPU beside the later phases by `_CPU_WORK`,
+    the record emitted when it ends) and a probe save and restore. Returns
+    the launches of its train steps and val batches."""
     import gc
 
     t0 = time.perf_counter()
-    raw = overridden(config, EVAL_OVERRIDES)
+    raw = overridden(config, overrides)
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_launch_counts()
     with _EvalRecorder(cls) as rec:
@@ -2604,21 +2932,31 @@ def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, c
     traced = wall_and_busy(lambda: ev.train_batch(*rec.first["args"]))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     restored = _probes_restore_bit_equal(ev)
-    checks = _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"]))
-    ok = checks.pop("ok") and losses_finite and restored
-    emit({"phase": phase, "config": config_file, "overrides": EVAL_OVERRIDES, **extra,
-          "probes": ev.grid.n, "probe_chunk": 1, **rec.summary(),
-          "launches_per_batch": dict(zip(KERNEL_COUNTS, want)),
-          "one_traced_train_step": traced, "peak_memory_gb": peak_gb,
-          "result_smoke_signal_random_weights": json.loads(json.dumps(
-              result, default=lambda o: o.tolist())), "losses_finite": losses_finite,
-          "probes_restored_bit_equal": restored, **checks, "run_s": run_s,
-          "seconds": time.perf_counter() - t0, "ok": ok, "gpu": smi})
+    checks = checks(ev, rec)
+    record = {"phase": phase, "config": config_file, "overrides": overrides, **extra,
+              "probes": ev.grid.n, "probe_chunk": 1, **rec.summary(),
+              "launches_per_batch": {kind: dict(zip(KERNEL_COUNTS, per))
+                                     for kind, per in want.items()},
+              "one_traced_train_step": traced, "peak_memory_gb": peak_gb,
+              "result_smoke_signal_random_weights": json.loads(json.dumps(
+                  result, default=lambda o: o.tolist())), "losses_finite": losses_finite,
+              "probes_restored_bit_equal": restored, "run_s": run_s,
+              "seconds": time.perf_counter() - t0, "gpu": smi}
     del ev, rec
     gc.collect()
     torch.cuda.empty_cache()
-    if not ok:
-        raise AssertionError(f"{phase}: a check failed (see its record)")
+
+    def finish(checks=checks) -> None:
+        checks = checks() if callable(checks) else checks
+        ok = checks.pop("ok") and losses_finite and restored
+        emit({**record, **checks, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{phase}: a check failed (see its record)")
+
+    if callable(checks):
+        _DEFERRED.append(_CPU_WORK.submit(finish))
+    else:
+        finish()
     return launches
 
 
@@ -2637,14 +2975,15 @@ def phase_eval_video(dev, smi: str) -> tuple[int, ...]:
         enc = _cpu_model(ev.encoder, lambda device: vit_large(
             img_size=(SIZE, SIZE), num_frames=FRAMES, uniform_power=True, use_rope=True,
             device=device))
-        return encode_clips(enc, torch.from_numpy(np.asarray(args[0][:1])))
+        return lambda: encode_clips(enc, torch.from_numpy(np.asarray(args[0][:1])))
 
     return _run_eval_phase(
         "eval_video", dev, smi, EVAL_VIDEO_CONFIG, EVAL_VIDEO_CONFIG_FILE,
         VideoClassificationEval, EVAL_VIDEO_LAUNCHES, cli_eval.run_video_classification,
-        cpu_features, {"model": "vit_large 16f@256 bf16 RoPE, 2 segments x batch 4 -> features "
-                                "[4, 4096, 1024]; 10 fp32 probes (depth 4, 16 heads, 174 "
-                                "classes), one at a time; random weights, synthetic clips"})
+        lambda ev, rec: _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"])),
+        {"model": "vit_large 16f@256 bf16 RoPE, 2 segments x batch 4 -> features "
+                  "[4, 4096, 1024]; 10 fp32 probes (depth 4, 16 heads of 64 on the fp32 flash "
+                  "kernels, 174 classes), one at a time; random weights, synthetic clips"})
 
 
 def phase_eval_anticipation(dev, smi: str) -> tuple[int, ...]:
@@ -2669,21 +3008,146 @@ def phase_eval_anticipation(dev, smi: str) -> tuple[int, ...]:
             predictor_embed_dim=384, depth=12, num_heads=12, num_mask_tokens=10,
             use_mask_tokens=True, use_rope=True, device=device))
         hp = SIZE // 16
-        return anticipative_features(enc, pred, torch.from_numpy(np.asarray(args[0][:1])),
-                                     torch.from_numpy(np.asarray(args[1][:1])),
-                                     frames_per_second=d["frames_per_second"], grid_size=hp,
-                                     h_patches=hp, w_patches=hp)
+        return lambda: anticipative_features(
+            enc, pred, torch.from_numpy(np.asarray(args[0][:1])),
+            torch.from_numpy(np.asarray(args[1][:1])), frames_per_second=d["frames_per_second"],
+            grid_size=hp, h_patches=hp, w_patches=hp)
 
     return _run_eval_phase(
         "eval_anticipation", dev, smi, EVAL_ANTICIPATION_CONFIG, EVAL_ANTICIPATION_CONFIG_FILE,
         AnticipationEval, EVAL_ANTICIPATION_LAUNCHES, cli_eval.run_action_anticipation,
-        cpu_features, {"model": "vit_large 16f@256 bf16 RoPE, batch 16, + predictor (12 x 384, "
-                                "12 heads of 32) over 2048 + 256 tokens -> features "
-                                "[16, 2304, 1024]; 10 fp32 three-head probes (depth 1), one at "
-                                "a time; random weights, synthetic clips",
-                       "note": "the val pass's host_ms holds drawing its synthetic batch "
-                               "(numpy, inside evaluate's loop); its encode_ms and probes_ms "
-                               "are the device's"})
+        lambda ev, rec: _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"])),
+        {"model": "vit_large 16f@256 bf16 RoPE, batch 16, + predictor (12 x 384, 12 heads of "
+                  "32) over 2048 + 256 tokens -> features [16, 2304, 1024]; 10 fp32 "
+                  "three-head probes (depth 1), one at a time; random weights, synthetic clips",
+         "note": "the val pass's host_ms holds drawing its synthetic batch (numpy, inside "
+                 "evaluate's loop); its encode_ms and probes_ms are the device's"})
+
+
+def phase_eval_image(dev, smi: str) -> tuple[int, ...]:
+    """The IN1K probe eval: `cli.eval.run_image_classification` on the
+    shipped ViT-L config (`EVAL_IMAGE_CONFIG`): 64 images a batch, each
+    replicated to 16 fake frames, the encoder (RoPE, bf16) into features
+    [64, 2048, 1024], 6 fp32 probes of depth 4 (16 heads of 64 on the fp32
+    flash kernels, 1000 classes) trained one at a time; 4 train steps and 1
+    val batch. The CPU checks take the first 4 examples."""
+    from vjepa2_tpu_torch.cli import eval as cli_eval
+    from vjepa2_tpu_torch.evals.image_classification import ImageClassificationEval
+    from vjepa2_tpu_torch.evals.wrappers import image_as_video
+    from vjepa2_tpu_torch.models.vision_transformer import vit_large
+
+    frames = EVAL_IMAGE_CONFIG["model_kwargs"]["wrapper_kwargs"]["img_as_video_nframes"]
+
+    def cpu_features(ev, args):
+        enc = _cpu_model(ev.encoder, lambda device: vit_large(
+            img_size=(SIZE, SIZE), num_frames=frames, uniform_power=True, use_rope=True,
+            device=device))
+        return lambda: enc(image_as_video(torch.from_numpy(np.asarray(args[0][:1])), frames))
+
+    return _run_eval_phase(
+        "eval_image", dev, smi, EVAL_IMAGE_CONFIG, EVAL_IMAGE_CONFIG_FILE,
+        ImageClassificationEval, EVAL_IMAGE_LAUNCHES, cli_eval.run_image_classification,
+        lambda ev, rec: _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"]),
+                                         n=EVAL_IMAGE_CPU_EXAMPLES),
+        {"model": "vit_large 16f@256 bf16 RoPE, 64 images as 16 fake frames -> features "
+                  "[64, 2048, 1024]; 6 fp32 probes (depth 4, 16 heads of 64 on the fp32 flash "
+                  "kernels, 1000 classes), one at a time; random weights, synthetic images"})
+
+
+def _eval_384_checks(ev, rec) -> dict:
+    """The K400-384 checks, forward only, against fp32 on the plain route on
+    the card (TF32 off): the host's CPU cannot hold them in the script's
+    time (the SSv2 phase's CPU reference runs near 0.14 TFLOP/s on the H100
+    host: ~2 min for one 4608-token clip through the ViT-g, ~3 min for one
+    probe forward at N = 36,864), and a backward at that N not at all;
+
+    (1) example 0's first segment (one 16f@384 clip): its features from the
+    ViT-g in fp32 on the plain route against the step's (bf16, B1);
+    (2) probe 0's logits on the step's features of example 0 (the whole
+    36,864 tokens): the fp32 flash kernels against the plain forward in
+    chunks of `EVAL_384_QUERY_CHUNK` queries;
+    (3) every probe's loss recomputed against the step's own, and probe 0's
+    gradients recomputed against the step's (Adam's first moment), both on
+    the flash route. The backward's plain reference at this shape is phase
+    kernel_fp32's (over query chunks)."""
+    import copy
+
+    from torch.func import functional_call
+
+    from vjepa2_tpu_torch.evals.probes import ADAM_B1
+    from vjepa2_tpu_torch.evals.wrappers import encode_clips
+    from vjepa2_tpu_torch.models.vision_transformer import vit_giant_xformers
+
+    t0 = time.perf_counter()
+    grid, first, dev = ev.grid, rec.first, ev.device
+    params = {k: v.to(dev) for k, v in first["params"].items()}
+    probe = lambda i: {k: v[i] for k, v in params.items()}  # noqa: E731
+    feats, targets = first["feats"].to(dev), [t.to(dev) for t in first["targets"]]
+    clips = torch.from_numpy(np.asarray(first["args"][0][:1, :1])).to(dev)
+    res = EVAL_VIDEO_384_CONFIG["experiment"]["data"]["resolution"]
+    fpc = EVAL_VIDEO_384_CONFIG["experiment"]["data"]["frames_per_clip"]
+
+    enc32 = vit_giant_xformers(img_size=(res, res), num_frames=fpc, uniform_power=True,
+                               use_rope=True, device="meta")
+    enc32.load_state_dict({k: v.detach().to(dev, torch.float32)
+                           for k, v in ev.encoder.state_dict().items()}, assign=True)
+    with torch.inference_mode():
+        f0 = encode_clips(enc32.eval(), clips)
+    seg_tokens = f0.shape[1]
+    features_rel = _flat_rel(feats[:1, :seg_tokens], f0)
+    del enc32, f0
+
+    plain = copy.deepcopy(grid.model)
+    for blk in plain.pooler.blocks:
+        blk.attn.use_flash = False
+    with torch.no_grad():
+        flash_logits = functional_call(grid.model, probe(0), (feats[:1],))
+        with _plain_in_query_chunks(EVAL_384_QUERY_CHUNK):
+            plain_logits = functional_call(plain, probe(0), (feats[:1],))
+        losses = [grid.objective(functional_call(grid.model, probe(i), (feats,)), *targets)[0]
+                  .item() for i in range(grid.n)]
+    p0 = {k: v.clone().requires_grad_() for k, v in probe(0).items()}
+    g = torch.autograd.grad(grid.objective(functional_call(grid.model, p0, (feats,)),
+                                           *targets)[0], list(p0.values()))
+    step_g = [first["mu0"][k].to(dev) / (1 - ADAM_B1) for k in params]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    out = {"segment0_tokens": seg_tokens,
+           "segment0_features_rel_l2_vs_fp32_plain": features_rel,
+           "probe0_logits_rel_l2_vs_plain_chunks": _flat_rel(flash_logits, plain_logits),
+           "first_step_loss": {"step": first["losses"].tolist(), "recomputed": losses},
+           "first_step_loss_max_rel_err": max(map(rel, losses, first["losses"].tolist())),
+           "probe0_step_grad_rel_l2_vs_recomputed": _flat_rel(list(g), step_g),
+           "tol": {"features_rel_l2": EVAL_REL_L2, "logits_rel_l2": EVAL_PROBE_REL_L2,
+                   "step_rtol": EVAL_STEP_RTOL},
+           "reference": "fp32 plain route on the card (TF32 off), not the CPU: see the "
+                        "phase's docstring; no backward reference at N = 36,864 here",
+           "card_reference_s": time.perf_counter() - t0}
+    out["ok"] = (features_rel <= EVAL_REL_L2
+                 and out["probe0_logits_rel_l2_vs_plain_chunks"] <= EVAL_PROBE_REL_L2
+                 and out["first_step_loss_max_rel_err"] <= EVAL_STEP_RTOL
+                 and out["probe0_step_grad_rel_l2_vs_recomputed"] <= EVAL_STEP_RTOL)
+    return out
+
+
+def phase_eval_video_384(dev, smi: str) -> tuple[int, ...]:
+    """The ViT-g/384 K400 probe eval: `cli.eval.run_video_classification`
+    on the shipped config (`EVAL_VIDEO_384_CONFIG`): batch 1 of 8 segments
+    of 16f@384, the 22-head ViT-g (bf16, B1) into features
+    [1, 36864, 1408], 10 fp32 probes of depth 4 (16 heads of 88 on the fp32
+    flash kernels, 400 classes) trained one at a time; 2 train steps and 1
+    val batch; the checks of `_eval_384_checks`."""
+    from vjepa2_tpu_torch.cli import eval as cli_eval
+    from vjepa2_tpu_torch.evals.video_classification import VideoClassificationEval
+
+    return _run_eval_phase(
+        "eval_video_384", dev, smi, EVAL_VIDEO_384_CONFIG, EVAL_VIDEO_384_CONFIG_FILE,
+        VideoClassificationEval, EVAL_VIDEO_384_LAUNCHES, cli_eval.run_video_classification,
+        _eval_384_checks,
+        {"model": "vit_giant_xformers 16f@384 bf16 RoPE (grid 8 x 24 x 24), 8 segments x batch "
+                  "1 -> features [1, 36864, 1408]; 10 fp32 probes (depth 4, 16 heads of 88 on "
+                  "the fp32 flash kernels, 400 classes), one at a time; random weights, "
+                  "synthetic clips"},
+        overrides=EVAL_VIDEO_384_OVERRIDES)
 
 
 def main() -> int:
@@ -2712,6 +3176,7 @@ def main() -> int:
     train_l = timed("train", phase_train, dev, smi, "vit_large")
     rec_bhnd = timed("kernel_bhnd", phase_kernels_bhnd, dev, smi)
     rec_bhnd_bwd = timed("kernel_bhnd_bwd", phase_kernels_bhnd_bwd, dev, smi)
+    rec_fp32, rec_fp32_bwd = timed("kernel_fp32", phase_kernels_fp32, dev, smi)
     train_h = timed("train_huge", phase_train, dev, smi, "vit_huge")
     giant_launches = timed("encode_giant", phase_encode_giant, dev, smi)
     timed("entry", phase_entry, dev, smi)
@@ -2723,13 +3188,21 @@ def main() -> int:
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
     droid_l = timed("train_droid", phase_train_droid, dev, smi)
     plan_l = timed("plan", phase_plan, dev, smi)
-    eval_v = timed("eval_video", phase_eval_video, dev, smi)
+    # the device-bound eval steps first, so that the CPU references each
+    # phase leaves to `_CPU_WORK` run beside card work that does not time
+    # the host (the anticipation eval's step is host-bound)
     eval_a = timed("eval_anticipation", phase_eval_anticipation, dev, smi)
+    eval_v = timed("eval_video", phase_eval_video, dev, smi)
+    eval_i = timed("eval_image", phase_eval_image, dev, smi)
+    eval_384 = timed("eval_video_384", phase_eval_video_384, dev, smi)
+    t_wait = time.perf_counter()
+    for done in _DEFERRED:
+        done.result()  # raises a deferred check's failure
+    seconds["eval CPU references, after the last phase"] = time.perf_counter() - t_wait
     emit({"phase": "seconds", "phases": seconds, "total": time.perf_counter() - t_start})
     # every main-path run's launches, in the order of KERNEL_COUNTS
-    total = [sum(c) for c in zip(train_l, train_h, fused_l, unfused_l, loop_l, accum_l,
-                                 droid_l, plan_l, eval_v, eval_a)]
-    total[0] += serve_launches
+    total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
+                                 accum_l, droid_l, plan_l, eval_v, eval_a, eval_i, eval_384)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):
@@ -2755,7 +3228,13 @@ def main() -> int:
         entry("ln_qkv", LN_GEMM_SOURCE, LN_QKV_REPLACES, total[6], rec_qkv, "max_abs_err",
               library=rec_qkv["library"]),
         entry("ln_mlp", LN_GEMM_SOURCE, LN_MLP_REPLACES, total[7], rec_mlp, "max_abs_err",
-              library=rec_mlp["library"])]})
+              library=rec_mlp["library"]),
+        entry("flash_fwd_fp32", FP32_SOURCE, FP32_FWD_REPLACES, total[8], rec_fp32,
+              "max_abs_err", library=rec_fp32["library"],
+              note="B3 on fp32 operands (the frozen probes' self-attention)"),
+        entry("flash_bwd_fp32", FP32_SOURCE, FP32_BWD_REPLACES, total[9], rec_fp32_bwd,
+              "max_abs_err", library=rec_fp32_bwd["library"],
+              note="B4 and B5 (flash_attention.py:361, :434) on fp32 operands")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

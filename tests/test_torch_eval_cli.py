@@ -79,14 +79,29 @@ def test_synthetic_loader_matches_jax():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("which", ["VIDEO", "ANTICIPATION"])
+@pytest.mark.parametrize("which", ["VIDEO", "ANTICIPATION", "IMAGE", "VIDEO_384"])
 def test_chip_smoke_eval_configs_are_the_shipped_files(which):
     held = getattr(chip_smoke, f"EVAL_{which}_CONFIG")
     shipped = yaml.safe_load((ROOT / getattr(chip_smoke, f"EVAL_{which}_CONFIG_FILE")).read_text())
     assert held == shipped
-    ran = chip_smoke.overridden(held, chip_smoke.EVAL_OVERRIDES)
+    overrides = getattr(chip_smoke, f"EVAL_{which}_OVERRIDES", chip_smoke.EVAL_OVERRIDES)
+    ipe = chip_smoke.EVAL_384_IPE if which == "VIDEO_384" else chip_smoke.EVAL_IPE
+    ran = chip_smoke.overridden(held, overrides)
     opt = ran["experiment"]["optimization"]
-    assert (opt["ipe"], opt["num_epochs"]) == (chip_smoke.EVAL_IPE, 1)
+    assert (opt["ipe"], opt["num_epochs"]) == (ipe, 1)
+    # only the iterations are cut
+    assert set(overrides) == {"experiment.optimization.ipe", "experiment.optimization.num_epochs"}
+
+
+def test_tiny_vitg_384_k400_runs_on_the_cpu(capsys):
+    """The ViT-g/384 K400 config (`configs/eval/vitg-384/k400.yaml`: the
+    multiclip plugin with ``max_frames: 128``, which JAX's plugin also
+    leaves unread with ``use_pos_embed`` off) through ``--tiny``."""
+    result = cli.main(["--fname", str(ROOT / "configs/eval/vitg-384/k400.yaml"), "--tiny",
+                       "--device", "cpu"])
+    assert result["top1_per_probe"].shape == (2,)
+    assert 0.0 <= result["top1"] <= 1.0
+    assert "{" in capsys.readouterr().out
 
 
 def test_ek100_probes_take_the_encoders_heads(monkeypatch):
@@ -219,3 +234,43 @@ def test_jax_checkpoint_layouts_are_refused(tmp_path):
     for path in (pipeline, orbax):
         with pytest.raises(NotImplementedError, match="A12"):
             cli.build_encoder(MODEL_KWARGS, 64, 4, str(path), device="cpu")
+
+
+def test_vitg_384_rope_grid_and_wrapper_match_jax():
+    """The ViT-g/384 config's geometry at a narrow width: 16 frames at
+    384 px give a RoPE grid of 8 x 24 x 24 (4608 tokens a clip, heads of 64
+    as `vit_giant_xformers`'s), encoded through the config's multiclip
+    plugin with its ``wrapper_kwargs`` (``max_frames: 128``), port against
+    JAX on the same weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from vjepa2_tpu.evals import plugins as jplugins
+    from vjepa2_tpu.models.vision_transformer import VisionTransformer as JaxViT
+    from vjepa2_tpu_torch.evals import plugins
+    from vjepa2_tpu_torch.hub.converter import state_dict_from_flax
+    from vjepa2_tpu_torch.models.vision_transformer import VisionTransformer
+
+    raw = _vitg_384()
+    mdl = raw["model_kwargs"]
+    data = raw["experiment"]["data"]
+    res, fpc = data["resolution"], data["frames_per_clip"]
+    cfg = dict(img_size=(res, res), patch_size=16, num_frames=fpc, tubelet_size=2,
+               embed_dim=128, depth=1, num_heads=2, use_rope=True, uniform_power=True)
+    jenc = JaxViT(**cfg)
+    params = jax.jit(jenc.init)(jax.random.PRNGKey(0),
+                                jnp.zeros((1, fpc, res, res, 3)))["params"]
+    enc = VisionTransformer(**cfg)
+    enc.load_state_dict(state_dict_from_flax(params))
+    clips = np.random.RandomState(0).rand(1, 2, fpc, res, res, 3).astype(np.float32)
+    jx = jplugins.init_module(mdl["module_name"], encoder=jenc, **mdl["wrapper_kwargs"])
+    tx = plugins.init_module(mdl["module_name"], encoder=enc.eval(), **mdl["wrapper_kwargs"])
+    want = np.asarray(jx(params, jnp.asarray(clips)))
+    with torch.inference_mode():
+        got = tx(torch.from_numpy(clips)).numpy()
+    assert got.shape == want.shape == (1, 2 * 8 * 24 * 24, 128)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+def _vitg_384() -> dict:
+    return yaml.safe_load((ROOT / "configs/eval/vitg-384/k400.yaml").read_text())

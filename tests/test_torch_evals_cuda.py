@@ -1,7 +1,8 @@
-"""The frozen evals on the card: the probe grid on CUDA tensors against the
-same grid on the CPU, and B1's launches in each eval step (the frozen
-encoder, and the anticipation eval's predictor, on the flash route in bf16;
-the fp32 probes launch no kernel).
+"""The frozen evals on the card: the probe grid on CUDA tensors (its
+self-attention on the fp32 flash kernels, head width 64) against the same
+grid on the CPU (the plain route), and B1's launches in each eval step (the
+frozen encoder, and the anticipation eval's predictor, on the flash route in
+bf16; the probes' fp32 kernels count apart, `ops.flash_attention`).
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
@@ -63,12 +64,12 @@ def _key_bias(name: str, leaf: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def test_probe_grid_on_the_card_matches_the_cpu(dev):
-    grids = {d: probes.ProbeGrid(CONFIGS, embed_dim=64, num_classes=7, num_heads=4, depth=2,
+    grids = {d: probes.ProbeGrid(CONFIGS, embed_dim=128, num_classes=7, num_heads=2, depth=2,
                                  total_steps=4, device=d) for d in ("cpu", dev)}
     state = grids["cpu"].init()
     rs = np.random.RandomState(0)
     for step in range(2):
-        feats = torch.from_numpy(rs.randn(4, 64, 64).astype(np.float32))
+        feats = torch.from_numpy(rs.randn(4, 64, 128).astype(np.float32))
         labels = torch.from_numpy(rs.randint(0, 7, size=4))
         before = {k: v.clone() for k, v in state[0].items()}
         p_cpu, o_cpu, _, m_cpu = grids["cpu"].train_step(*_state_to(state, "cpu"), feats, labels)
@@ -80,7 +81,7 @@ def test_probe_grid_on_the_card_matches_the_cpu(dev):
                 want = o_cpu[mom][k].numpy()
                 np.testing.assert_allclose(o_dev[mom][k].cpu().numpy(), want, rtol=1e-4,
                                            atol=1e-6 * np.abs(want).max(), err_msg=k)
-            keep = ~_key_bias(k, p_cpu[k], 64)
+            keep = ~_key_bias(k, p_cpu[k], 128)
             update = (p_cpu[k] - before[k])[keep].norm()
             assert (p_dev[k].cpu() - p_cpu[k])[keep].norm() <= 1e-3 * update, k
         state = (p_cpu, o_cpu, step + 1)

@@ -1,0 +1,192 @@
+"""The hand-written fp32 BHND flash kernels (`vjepa2_tpu_torch/csrc/flash_fp32.cuh`:
+the forward, and the dQ and dK/dV backward launches) against their plain
+PyTorch versions on the card (TF32 off): every head width of
+`BHND_HEAD_WIDTHS` at N in {1, 63, 64, 65, 2048} (ragged edges of the
+64-row blocks and 32-row tiles), M != N, operands as views of one qkv
+output and an unaligned view (copied, still launched), two calls bit-equal
+forward and backward, the features the fp32 kernels refuse (RoPE, segment
+ids, kv_valid, causal) and mixed dtypes, bf16 calls still on the bf16
+kernels (the launch counters), and `Attention` and a `ProbeGrid` on the
+card taking the fp32 route.
+
+Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_flash_fp32_cuda.py -q
+
+Tolerances, those of `chip_smoke.py`'s phase kernel_fp32: fp32 on both
+sides, the kernel summing 32-key tiles with an online rescale, the plain
+version whole rows through cuBLAS: out and gradients within 2e-5 relative
+L2 and 1e-4 x max|plain| absolute, lse within 1e-5 absolute.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vjepa2_tpu_torch.evals import probes
+from vjepa2_tpu_torch.models import modules as tm
+from vjepa2_tpu_torch.ops import flash_attention as fa
+from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
+
+pytestmark = pytest.mark.cuda
+
+REL_L2, MAX_ABS, LSE_ATOL = 2e-5, 1e-4, 1e-5
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(shape, dev, seed, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+
+
+def _close(got, want, name):
+    got, want = got.double(), want.double()
+    rel = ((got - want).norm() / want.norm()).item()
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all(), name
+    assert rel <= REL_L2 and err <= MAX_ABS * want.abs().max().item(), (name, rel, err)
+
+
+def _check(q, k, v, do):
+    """Kernel forward and backward against the plain versions. With one key
+    p = 1 and dp = delta, so dq and dk are 0 but for rounding on both sides:
+    there they are held to 1e-5 absolute (unit-variance inputs)."""
+    before = (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32)
+    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True)
+    out_p, lse_p = fa.flash_attention_bhnd_plain(q, k, v)
+    grads = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do)
+    want = fa.flash_attention_bhnd_bwd_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == lse.dtype == torch.float32
+    _close(out, out_p, "out")
+    assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        if k.shape[2] == 1 and name != "dv":
+            assert max(g.abs().max().item(), w.abs().max().item()) <= 1e-5, name
+        else:
+            _close(g, w, name)
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 2048])
+@pytest.mark.parametrize("D", fa.BHND_HEAD_WIDTHS)
+def test_fp32_kernels_match_plain(dev, D, N):
+    B, H = (1, 2) if N == 2048 else (2, 3)
+    q, k, v, do = (_randn((B, H, N, D), dev, s) for s in range(4))
+    _check(q, k, v, do)
+
+
+def test_fp32_cross_lengths_and_qkv_views(dev):
+    """M != N, and q, k, v as views of one [B, N, 3, H, D] projection output,
+    as `Attention` makes them (strides multiples of 4: read in place)."""
+    q = _randn((2, 4, 100, 88), dev, 0)
+    k, v = _randn((2, 4, 300, 88), dev, 1), _randn((2, 4, 300, 88), dev, 2)
+    _check(q, k, v, _randn((2, 4, 100, 88), dev, 3))
+    y = _randn((2, 130, 3 * 4 * 64), dev, 4)
+    qv, kv, vv = y.view(2, 130, 3, 4, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    assert all(fa.vec4_ready(t) for t in (qv, kv, vv))
+    _check(qv, kv, vv, _randn((2, 4, 130, 64), dev, 5))
+
+
+def test_fp32_unaligned_view_is_copied(dev):
+    base = _randn((2 * 2 * 70 * 64 + 1,), dev, 6)
+    q = base[1:].view(2, 2, 70, 64)  # a 4-byte offset: not 16-byte aligned
+    assert not fa.vec4_ready(q)
+    k, v, do = (_randn((2, 2, 70, 64), dev, s) for s in (7, 8, 9))
+    _check(q, k, v, do)
+
+
+@pytest.mark.parametrize("D", [64, 88])
+def test_fp32_two_calls_are_bit_equal(dev, D):
+    q, k, v, do = (_randn((1, 4, 1000, D), dev, s) for s in range(4))
+    out1, lse1 = fa.flash_attention_bhnd(q, k, v, return_lse=True)
+    out2, lse2 = fa.flash_attention_bhnd(q, k, v, return_lse=True)
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    g1 = fa.flash_attention_bhnd_bwd(q, k, v, out1, lse1, do)
+    g2 = fa.flash_attention_bhnd_bwd(q, k, v, out1, lse1, do)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("feature", ["rope", "segments", "kv_valid", "causal"])
+def test_fp32_refuses_the_features_it_lacks(dev, feature):
+    q, k, v = (_randn((1, 2, 64, 64), dev, s) for s in range(3))
+    kw = {"rope": dict(rope_expanded=(torch.ones(1, 64, 64, device=dev),
+                                      torch.zeros(1, 64, 64, device=dev))),
+          "segments": dict(segment_ids=torch.zeros(64, dtype=torch.int32, device=dev)),
+          "kv_valid": dict(kv_valid_len=60), "causal": dict(causal=True)}[feature]
+    before = fa.LAUNCHES_FP32
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        fa.flash_attention_bhnd(q, k, v, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+        fa.flash_attention_bhnd_bwd(q, k, v, q, torch.zeros(1, 2, 64, device=dev), q, **kw)
+    assert fa.LAUNCHES_FP32 == before
+
+
+def test_fp32_refuses_mixed_dtypes_and_other_widths(dev):
+    q, k = _randn((1, 2, 64, 64), dev, 0), _randn((1, 2, 64, 64), dev, 1, torch.bfloat16)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_attention_bhnd(q, k, k)
+    with pytest.raises(ValueError, match="head width 16"):
+        x = _randn((1, 2, 64, 16), dev, 2)
+        fa.flash_attention_bhnd(x, x, x)
+
+
+def test_bf16_calls_still_take_the_bf16_kernels(dev):
+    counts = lambda: (fa.LAUNCHES, fa.LAUNCHES_BWD, fa.LAUNCHES_FP32,  # noqa: E731
+                      fa.LAUNCHES_BWD_FP32)
+    for dtype, want in ((torch.bfloat16, (1, 1, 0, 0)), (torch.float32, (0, 0, 1, 1))):
+        leaves = [_randn((2, 2, 128, 80), dev, s, dtype).requires_grad_() for s in range(3)]
+        before = counts()
+        out = fa.flash_attention_bhnd(*leaves)
+        torch.autograd.grad(out, leaves, torch.ones_like(out))
+        assert tuple(a - b for a, b in zip(counts(), before)) == want, dtype
+
+
+def test_fp32_attention_module_takes_the_bhnd_route(dev):
+    """An fp32 `Attention` at Dh 64 with ``use_flash`` on the card: the fp32
+    BHND kernels (the DN kernels take bf16), forward and backward, against
+    the plain route with the same weights."""
+    flash = tm.Attention(256, 4, use_flash=True, device=dev)
+    flash.reset_parameters(torch.Generator(dev).manual_seed(0))
+    plain = tm.Attention(256, 4, device=dev)
+    plain.load_state_dict(flash.state_dict())
+    x = _randn((2, 200, 256), dev, 1)
+    before = (fdn.LAUNCHES, fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32)
+    outs, grads = [], []
+    for m in (flash, plain):
+        xi = x.clone().requires_grad_()
+        y = m(xi)
+        outs.append(y)
+        grads.append(torch.autograd.grad(y, xi, torch.ones_like(y))[0])
+    assert (fdn.LAUNCHES, fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32) == (
+        before[0], before[1] + 1, before[2] + 1)
+    _close(outs[0], outs[1], "out")
+    _close(grads[0], grads[1], "dx")
+
+
+def test_probe_grid_on_the_card_takes_the_fp32_kernels(dev):
+    """`ProbeGrid` on the card builds its probes with ``use_flash``: a train
+    step launches the fp32 forward and backward once a self-attention block
+    a probe; at a head width no kernel takes it raises."""
+    cfgs = [probes.ProbeConfig(lr=1e-3, weight_decay=0.01)] * 2
+    grid = probes.ProbeGrid(cfgs, embed_dim=128, num_classes=5, num_heads=2, depth=3, device=dev)
+    assert all(blk.attn.use_flash for blk in grid.model.pooler.blocks)
+    params, opt, step = grid.init()
+    feats, labels = _randn((3, 96, 128), dev, 0), torch.tensor([0, 1, 4], device=dev)
+    before = (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32)
+    _, _, _, metrics = grid.train_step(params, opt, step, feats, labels)
+    assert (fa.LAUNCHES_FP32 - before[0], fa.LAUNCHES_BWD_FP32 - before[1]) == (2 * 2, 2 * 2)
+    assert torch.isfinite(metrics["loss"]).all()
+    narrow = probes.ProbeGrid(cfgs, embed_dim=64, num_classes=5, num_heads=4, depth=2, device=dev)
+    p, o, s = narrow.init()
+    with pytest.raises(ValueError, match="head width 16"):
+        narrow.train_step(p, o, s, _randn((3, 96, 64), dev, 1), labels)

@@ -30,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vjepa2_tpu_torch.core.checkpoint import load_params, save_params
-from vjepa2_tpu_torch.evals.probes import ProbeConfig, ProbeGrid
+from vjepa2_tpu_torch.evals.probes import ProbeConfig, ProbeGrid, probe_flash
 from vjepa2_tpu_torch.evals.video_classification import frozen_features
 from vjepa2_tpu_torch.models.attentive_pooler import AttentivePooler
 from vjepa2_tpu_torch.models.modules import init_linear_
@@ -83,12 +83,14 @@ class MultiHeadAttentiveClassifier(nn.Module):
     ``pooler.*``, ``verb_head.*``, ``noun_head.*``, ``action_head.*``."""
 
     def __init__(self, embed_dim: int, num_heads: int, num_verbs: int, num_nouns: int,
-                 num_actions: int, depth: int = 1, device=None, init_std: float = 0.02):
+                 num_actions: int, depth: int = 1, device=None, init_std: float = 0.02,
+                 use_flash: bool = False):
         super().__init__()
         self.num_verbs, self.num_nouns, self.num_actions = num_verbs, num_nouns, num_actions
         self.init_std = init_std
         self.pooler = AttentivePooler(num_queries=3, embed_dim=embed_dim, num_heads=num_heads,
-                                      depth=depth, device=device, init_std=init_std)
+                                      depth=depth, device=device, init_std=init_std,
+                                      use_flash=use_flash)
         self.verb_head = nn.Linear(embed_dim, num_verbs, device=device)
         self.noun_head = nn.Linear(embed_dim, num_nouns, device=device)
         self.action_head = nn.Linear(embed_dim, num_actions, device=device)
@@ -145,13 +147,16 @@ class AnticipationGrid(ProbeGrid):
     probes: JAX's rules (`action_anticipation.py:270-290`), which differ from
     `ProbeGrid`'s in two ways: weight decay applies only to leaves of ndim
     >= 2, and it is each probe's constant ``weight_decay`` (no ``final_wd``).
-    The loss is the focal loss summed over the heads."""
+    The loss is the focal loss summed over the heads. The route is
+    `ProbeGrid`'s (the shipped probes have depth 1: no self-attention block,
+    so no flash launch)."""
 
     def __init__(self, probe_configs, embed_dim: int, num_heads: int, num_verbs: int,
                  num_nouns: int, num_actions: int, total_steps: int = 1000, seed: int = 0,
                  device=None):
         model = MultiHeadAttentiveClassifier(embed_dim, num_heads, num_verbs, num_nouns,
-                                             num_actions, device=device)
+                                             num_actions, device=device,
+                                             use_flash=probe_flash(device))
         self._setup(model, probe_configs, total_steps, seed)
 
     def wd(self, i: int, step: int) -> float:

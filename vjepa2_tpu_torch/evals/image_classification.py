@@ -5,7 +5,9 @@
 Images are replicated into a fake clip so the *video* encoder tokenizes
 them (the reference does this with a forward pre-hook,
 `modelcustom/vit_encoder.py:56-66`), then the probe grid of
-`evals.probes` trains on the frozen features.
+`evals.probes` trains on the frozen features. A val batch is one
+`eval_batch` call; the probe state saves and restores as the video eval's
+(`video_classification.ProbeCheckpoint`; JAX's image eval has neither).
 """
 
 from __future__ import annotations
@@ -17,14 +19,18 @@ import torch
 
 from vjepa2_tpu_torch.core.logging import AverageMeter, get_logger
 from vjepa2_tpu_torch.evals.probes import ProbeConfig, ProbeGrid
-from vjepa2_tpu_torch.evals.video_classification import frozen_features, top1_result
+from vjepa2_tpu_torch.evals.video_classification import (
+    ProbeCheckpoint,
+    frozen_features,
+    top1_result,
+)
 from vjepa2_tpu_torch.evals.wrappers import image_as_video
 
 logger = get_logger(__name__)
 
 
 @dataclass
-class ImageClassificationEval:
+class ImageClassificationEval(ProbeCheckpoint):
     encoder: torch.nn.Module
     num_classes: int = 1000
     probe_configs: Sequence[ProbeConfig] = ()
@@ -58,6 +64,10 @@ class ImageClassificationEval:
         self._probe_state = (params, opt, step)
         return {k: v.cpu().numpy() for k, v in metrics.items()}
 
+    def eval_batch(self, images, labels):
+        """Per-probe #correct on a batch."""
+        return self.grid.eval_correct(self._probe_state[0], self.features(images), labels)
+
     def run(self, train_loader, val_loader, epochs: int = 1) -> dict:
         for epoch in range(epochs):
             meter = AverageMeter()
@@ -66,9 +76,8 @@ class ImageClassificationEval:
                 meter.update(float(m["acc"].max()))
             logger.info("epoch %d train acc(max probe) %.4f", epoch, meter.avg)
         total, correct = 0, None
-        params = self._probe_state[0]
         for images, labels in val_loader:
-            c = self.grid.eval_correct(params, self.features(images), labels)
+            c = self.eval_batch(images, labels)
             correct = c if correct is None else correct + c
             total += len(labels)
         return top1_result(correct, total)

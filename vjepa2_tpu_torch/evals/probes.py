@@ -7,9 +7,11 @@ wd) pair, as a Python loop of separate modules
 whole grid into one program. The port keeps JAX's layout, every parameter
 and Adam moment stacked on a leading [P] axis (one tree for checkpoints and
 the converter), and trains the probes one at a time, as the reference does:
-a probe's plain fp32 self-attention keeps its [B, H, N, N] probabilities for
-the backward pass (4.3 GB a block at the SSv2 eval's N = 4096, batch 4, 16
-heads), so a grid vmapped at full width would not fit on one card.
+a grid vmapped at full width would not fit on one card. On the card the
+probes' fp32 self-attention runs the fp32 flash kernels (``use_flash``,
+`ops.flash_attention`), which keep O(N) state a row: the plain route's
+[B, H, N, N] probabilities (4.3 GB a block at the SSv2 eval's N = 4096,
+batch 4, 16 heads; 87 GB at ViT-g/384 K400's N = 36,864) would not fit.
 
 The function is JAX's: per-probe lr (`core.schedulers.warmup_cosine_lr`
 from start_lr over warmup steps to lr, cosine to final_lr) and weight decay
@@ -57,13 +59,15 @@ class ProbeGrid:
     State is ``(params, opt, step)``: ``params`` maps each state-dict name of
     the probe to its [P, ...] stack, ``opt`` holds the stacked Adam moments
     ``mu`` and ``nu`` (same names) and ``count`` [P] int32, as optax's
-    ``ScaleByAdamState``; ``step`` is the grid's 0-based step."""
+    ``ScaleByAdamState``; ``step`` is the grid's 0-based step. On a card the
+    probes' self-attention blocks take the flash route (`probe_flash`)."""
 
     def __init__(self, probe_configs: Sequence[ProbeConfig], embed_dim: int, num_classes: int,
                  num_heads: int = 12, depth: int = 1, total_steps: int = 1000, seed: int = 0,
                  device=None):
         model = AttentiveClassifier(embed_dim=embed_dim, num_heads=num_heads, depth=depth,
-                                    num_classes=num_classes, device=device)
+                                    num_classes=num_classes, device=device,
+                                    use_flash=probe_flash(device))
         self._setup(model, probe_configs, total_steps, seed)
 
     def _setup(self, model: nn.Module, probe_configs, total_steps: int, seed: int) -> None:
@@ -169,6 +173,13 @@ class ProbeGrid:
     def eval_correct(self, params, feats: torch.Tensor, labels) -> np.ndarray:
         """Per-probe #correct on a batch."""
         return count_correct(self.eval_logits(params, feats), labels)
+
+
+def probe_flash(device) -> bool:
+    """Whether probes on ``device`` take the flash route: on the card (the
+    fp32 flash kernels), as `cli.eval.placement` decides for the encoder;
+    on the CPU the plain route, as JAX's probes."""
+    return device is not None and torch.device(device).type == "cuda"
 
 
 def count_correct(logits: torch.Tensor, labels) -> np.ndarray:

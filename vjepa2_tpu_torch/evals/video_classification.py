@@ -41,8 +41,33 @@ def top1_result(correct: np.ndarray, total: int) -> dict:
     return {"top1_per_probe": top1, "best_probe": best, "top1": float(top1[best])}
 
 
+class ProbeCheckpoint:
+    """`save_probes` / `restore_probes` of an eval's ``_probe_state`` (the
+    video eval's, JAX's `video_classification.py:101-117`; the image eval
+    takes the same)."""
+
+    def save_probes(self, path: str) -> None:
+        """Checkpoint the probe grid's params and step (reference checkpoints
+        probes, `evals/video_classification_frozen/eval.py:225-238`)."""
+        assert self._probe_state is not None, "no probe state to save"
+        params, _, step = self._probe_state
+        save_params(path, {"params": params, "step": step})
+
+    def restore_probes(self, path: str) -> None:
+        """Restore `save_probes`' params and step onto the grid's device.
+        The Adam state is not saved: the eval's current moments and count
+        are kept where it has trained, and are fresh only on a restore into
+        an eval that has not (JAX's rule)."""
+        if self._probe_state is None:
+            self._probe_state = self.grid.init()
+        _, opt, _ = self._probe_state
+        saved = load_params(path)
+        params = {k: v.to(self.device) for k, v in saved["params"].items()}
+        self._probe_state = (params, opt, int(saved["step"]))
+
+
 @dataclass
-class VideoClassificationEval:
+class VideoClassificationEval(ProbeCheckpoint):
     """Trains a probe grid on frozen features and evaluates top-1. The
     encoder holds its weights (JAX's ``enc_params`` goes away); the grid
     lives on the encoder's device."""
@@ -92,25 +117,6 @@ class VideoClassificationEval:
         logits = sum(self.grid.eval_logits(params, self.features(view, clip_indices))
                      for view in np.split(np.asarray(clips), num_views, axis=1))  # [P, B, C]
         return count_correct(logits, labels)
-
-    def save_probes(self, path: str) -> None:
-        """Checkpoint the probe grid's params and step (reference checkpoints
-        probes, `evals/video_classification_frozen/eval.py:225-238`)."""
-        assert self._probe_state is not None, "no probe state to save"
-        params, _, step = self._probe_state
-        save_params(path, {"params": params, "step": step})
-
-    def restore_probes(self, path: str) -> None:
-        """Restore `save_probes`' params and step onto the grid's device.
-        The Adam state is not saved: the eval's current moments and count
-        are kept where it has trained, and are fresh only on a restore into
-        an eval that has not (JAX's rule)."""
-        if self._probe_state is None:
-            self.init_probes()
-        _, opt, _ = self._probe_state
-        saved = load_params(path)
-        params = {k: v.to(self.device) for k, v in saved["params"].items()}
-        self._probe_state = (params, opt, int(saved["step"]))
 
     def run(self, train_loader, val_loader, epochs: int = 1, num_views: int = 1,
             probe_ckpt: str | None = None) -> dict:

@@ -2,9 +2,11 @@
 `vjepa2_tpu/models/attentive_pooler.py:21,73`).
 
 A learnable query cross-attends into frozen features after ``depth - 1``
-self-attention blocks (plain attention route, no RoPE); `AttentiveClassifier`
-adds an fp32 linear head. State-dict keys follow the reference:
-``pooler.query_tokens``, ``pooler.blocks.{i}.*``,
+self-attention blocks (no RoPE; with ``use_flash`` the blocks take the BHND
+flash kernels, fp32 on the card, which JAX's probes leave to its plain
+route: the same function); `AttentiveClassifier` adds an fp32 linear head.
+The cross-attention (1-3 queries against N keys) stays plain, as in JAX.
+State-dict keys follow the reference: ``pooler.query_tokens``, ``pooler.blocks.{i}.*``,
 ``pooler.cross_attention_block.*``, ``linear.*``.
 """
 
@@ -29,14 +31,14 @@ class AttentivePooler(nn.Module):
     def __init__(self, num_queries: int = 1, embed_dim: int = 768, num_heads: int = 12,
                  mlp_ratio: float = 4.0, depth: int = 1, qkv_bias: bool = True,
                  complete_block: bool = True, dtype=torch.float32, device=None,
-                 init_std: float = 0.02):
+                 init_std: float = 0.02, use_flash: bool = False):
         super().__init__()
         self.dtype = dtype
         self.init_std = init_std
         self.query_tokens = nn.Parameter(torch.zeros(1, num_queries, embed_dim, device=device))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, layer_id=i, dtype=dtype,
-                  device=device, init_std=init_std)
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, use_flash=use_flash, layer_id=i,
+                  dtype=dtype, device=device, init_std=init_std)
             for i in range(depth - 1))
         # the reference rescales the cross block's MLP by 1/sqrt(2*(depth-1+1))
         # (`vjepa2_tpu/models/attentive_pooler.py:49`, quirk kept)
@@ -66,11 +68,11 @@ class AttentiveClassifier(nn.Module):
     def __init__(self, embed_dim: int = 768, num_heads: int = 12, mlp_ratio: float = 4.0,
                  depth: int = 1, qkv_bias: bool = True, num_classes: int = 1000,
                  complete_block: bool = True, dtype=torch.float32, device=None,
-                 init_std: float = 0.02):
+                 init_std: float = 0.02, use_flash: bool = False):
         super().__init__()
         self.init_std = init_std
         self.pooler = AttentivePooler(1, embed_dim, num_heads, mlp_ratio, depth, qkv_bias,
-                                      complete_block, dtype, device, init_std)
+                                      complete_block, dtype, device, init_std, use_flash)
         self.linear = nn.Linear(embed_dim, num_classes, device=device)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:

@@ -273,7 +273,10 @@ class Attention(nn.Module):
     With ``use_flash`` the layer takes the DN route (head width 16-64) or the
     BHND route (head width 80, 88 or 104); with RoPE it then needs the
     split-half ``rope_expanded`` tables and the matching ``qkv_perm``
-    (`qkv_row_perm`). Other widths have no flash kernel and raise. Without
+    (`qkv_row_perm`). Other widths have no flash kernel and raise. The DN
+    kernels take bf16 only: fp32 operands on the card take the BHND route at
+    every width (the frozen probes' fp32 attention; on the CPU both routes
+    are the same plain function, and the DN one stays, as in JAX). Without
     ``use_flash`` it takes the plain route, with RoPE from the interleaved
     ``rope_cache``.
     """
@@ -327,7 +330,7 @@ class Attention(nn.Module):
             w = w[qkv_perm]
             b = None if b is None else b[qkv_perm]
         rope = rope_expanded if self.use_rope else None
-        if dn_head_eligible(Dh):
+        if dn_head_eligible(Dh) and not (dt == torch.float32 and x.is_cuda):
             # contract straight into [B, 3*dim, N]: q, k, v come out [B, H, Dh, N]
             wt, xt = w.to(dt).expand(B, -1, -1), x.to(dt).transpose(1, 2)
             bt = None if b is None else b.to(dt)[:, None]

@@ -5,14 +5,18 @@ Counterpart of `vjepa2_tpu/ops/flash_attention.py`: the forward
 `_bwd_fused_kernel:511` and the two-pass `_dq_kernel:361` / `_dkv_kernel:434`,
 chosen in `_flash_bwd_bhnd:613` by a TPU scoped-VMEM rule), and the
 differentiable entry points `flash_attention_bhnd:988` and the BNHD
-`flash_attention:1148`.
+`flash_attention:1148`. JAX runs them in the operands' dtype; so does the
+port: bf16 and fp32 operands each have their kernels.
 
 `flash_attention_bhnd` is a `torch.autograd.Function` (`FlashAttentionBHND`):
 its forward saves (q, k, v, out, lse) and its backward is
 `flash_attention_bhnd_bwd`. On a CUDA tensor each launches its hand-written
-Hopper kernel (`csrc/flash_fwd_bhnd.cu`, `csrc/flash_bwd_bhnd.cu`) or raises;
-on a CPU tensor they run `flash_attention_bhnd_plain` and
-`flash_attention_bhnd_bwd_plain`. There is no other route. One CUDA backward
+Hopper kernel or raises: bf16 operands `csrc/flash_fwd_bhnd.cu` and
+`csrc/flash_bwd_bhnd.cu`; fp32 operands `csrc/flash_fp32.cuh` (full fp32 on
+the CUDA cores, plain attention only: RoPE, segment ids, kv_valid and the
+causal mask raise there, ROADMAP queue B). On a CPU tensor they run
+`flash_attention_bhnd_plain` and `flash_attention_bhnd_bwd_plain`, the plain
+versions of both. There is no other route. One CUDA backward
 serves both TPU backwards: it computes their one function, with no gate.
 Segment ids and RoPE tables stay outside autograd: they get no gradient.
 
@@ -43,10 +47,13 @@ from vjepa2_tpu_torch.ops.rope import expand_rope_tables, rope_rotate, rope_rota
 # (`flash_attention_dn`).
 BHND_HEAD_WIDTHS = (32, 64, 80, 88, 104)
 
-# Kernel launches since the last reset, forward (B3) and backward (B4/B5);
-# `chip_smoke.py` reads them to show the main path went through the kernels.
+# Kernel launches since the last reset, forward (B3) and backward (B4/B5),
+# bf16 and fp32 apart; `chip_smoke.py` reads them to show the main path went
+# through the kernels.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FP32 = 0
+LAUNCHES_BWD_FP32 = 0
 
 
 def bhnd_head_supported(d: int) -> bool:
@@ -214,13 +221,28 @@ def _bwd_with_tables(core, q, k, v, out, lse, do, segment_ids, causal, scale, ro
     return dq, dk, dv
 
 
-def _check_cuda(D, **tensors):
+def _check_cuda(D, **tensors) -> torch.dtype:
+    """The operands' one dtype, bf16 or fp32; raises on anything else."""
     if not bhnd_head_supported(D):
         raise ValueError(f"head width {D}: the BHND flash kernels take "
                          f"{', '.join(map(str, BHND_HEAD_WIDTHS))}")
-    for name, t in tensors.items():
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the BHND flash kernels on CUDA take bf16; {name} is {t.dtype}")
+    dtypes = {name: t.dtype for name, t in tensors.items()}
+    if len(set(dtypes.values())) != 1 or next(iter(dtypes.values())) not in (torch.bfloat16,
+                                                                               torch.float32):
+        raise TypeError(f"the BHND flash kernels on CUDA take bf16 or fp32 operands of one "
+                        f"dtype; got {dtypes}")
+    return next(iter(dtypes.values()))
+
+
+def _refuse_fp32_features(cos, seg_q, causal, kv_valid_len, M) -> None:
+    """The fp32 kernels take plain attention, as the frozen probes run it."""
+    named = [name for name, on in (("RoPE", cos is not None), ("segment ids", seg_q is not None),
+                                   ("causal", causal),
+                                   ("kv_valid_len", kv_valid_len not in (None, M))) if on]
+    if named:
+        raise NotImplementedError(
+            f"the fp32 BHND flash kernels (csrc/flash_fp32.cuh) take no {', '.join(named)} yet "
+            "(ROADMAP queue B); these features run on bf16 operands")
 
 
 def _side_inputs(dev, cos, sin, seg_q, seg_k):
@@ -305,11 +327,68 @@ def _launch(name, argtypes, tensors, tma, ints, stride_of, floats, dev):
     _build.check(lib, err, name)
 
 
+def vec4_ready(t) -> bool:
+    """Whether the fp32 kernels' 16-byte copies can read ``t`` in place: unit
+    stride along d, every other stride (of a dim longer than 1) a multiple of
+    4 elements, and a 16-byte aligned base. The C entry points check the
+    same rule."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(s % 4 == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+
+
+def vec4_operand(t):
+    """``t`` itself when `vec4_ready`, else a contiguous copy (a fresh,
+    aligned allocation)."""
+    return t if vec4_ready(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _flash_fwd_fp32(q, k, v, scale, cos, seg_q, causal, kv_valid_len):
+    """The fp32 forward (`csrc/flash_fp32.cuh`): out in BNHD memory seen as
+    BHND, as the bf16 kernel writes it, and lse."""
+    global LAUNCHES_FP32
+    B, H, N, D = q.shape
+    M = k.shape[2]
+    _refuse_fp32_features(cos, seg_q, causal, kv_valid_len, M)
+    dev = q.device
+    q, k, v = map(vec4_operand, (q, k, v))
+    out = torch.empty((B, N, H, D), dtype=torch.float32, device=dev).transpose(1, 2)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    _launch("vjepa2_flash_fwd_fp32", _build.launcher_argtypes(5, 5, 1), [q, k, v, out, lse], (),
+            (B, H, D, N, M), ((0, 1, 2, 3), ()), (scale * _build.LOG2E,), dev)
+    LAUNCHES_FP32 += 1
+    return out, lse
+
+
+def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, seg_q, causal, kv_valid_len):
+    """The fp32 backward (`csrc/flash_fp32.cuh`): dq, dk, dv contiguous."""
+    global LAUNCHES_BWD_FP32
+    B, H, N, D = q.shape
+    M = k.shape[2]
+    _refuse_fp32_features(cos, seg_q, causal, kv_valid_len, M)
+    dev = q.device
+    q, k, v, out, do = map(vec4_operand, (q, k, v, out, do))
+    dq = torch.empty((B, H, N, D), dtype=torch.float32, device=dev)
+    dk = torch.empty((B, H, M, D), dtype=torch.float32, device=dev)
+    dv = torch.empty((B, H, M, D), dtype=torch.float32, device=dev)
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    # two launches on one stream: delta and dQ, then dK/dV, which reads delta
+    for name in ("vjepa2_flash_bwd_fp32_dq", "vjepa2_flash_bwd_fp32_dkdv"):
+        _launch(name, _build.launcher_argtypes(10, 5, 2),
+                [q, k, v, out, do, lse, delta, dq, dk, dv], (), (B, H, D, N, M),
+                ((0, 1, 2, 3, 4), ()), (scale, scale * _build.LOG2E), dev)
+    LAUNCHES_BWD_FP32 += 1
+    return dq, dk, dv
+
+
 def _flash_fwd_cuda(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len):
     global LAUNCHES
     B, H, N, D = q.shape
     M = k.shape[2]
-    _check_cuda(D, q=q, k=k, v=v)
+    if _check_cuda(D, q=q, k=k, v=v) == torch.float32:
+        return _flash_fwd_fp32(q, k, v, scale, cos, seg_q, causal, kv_valid_len)
     dev = q.device
     cos, sin, seg_q, seg_k, side = _side_inputs(dev, cos, sin, seg_q, seg_k)
     # BNHD memory seen as BHND: the output projection reads it as [B, N, H*D]
@@ -334,7 +413,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal
     global LAUNCHES_BWD
     B, H, N, D = q.shape
     M = k.shape[2]
-    _check_cuda(D, q=q, k=k, v=v, out=out, do=do)
+    dtype = _check_cuda(D, q=q, k=k, v=v, out=out, do=do)
     if out.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, N):
         raise ValueError(f"out {tuple(out.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} "
                          f"do not fit q {tuple(q.shape)}")
@@ -343,6 +422,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal
     dev = q.device
     if any(t.device != dev for t in (out, lse, do)):
         raise ValueError("q, k, v, out, lse and do must be on one device")
+    if dtype == torch.float32:
+        return _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, seg_q, causal, kv_valid_len)
     cos, sin, seg_q, seg_k, side = _side_inputs(dev, cos, sin, seg_q, seg_k)
     rope = cos is not None
     dq = torch.empty((B, H, N, D), dtype=q.dtype, device=dev)
@@ -392,8 +473,9 @@ def flash_attention_bhnd_bwd(q, k, v, out, lse, do, segment_ids=None, causal: bo
     inputs, an (out, lse) pair and the cotangent ``do`` of out. ``lse`` may be
     a global one, as a ring hop's backward passes it (with ``seg_kv``).
 
-    A CUDA tensor launches the B4/B5 kernel (bf16, any strides) or raises; a
-    CPU tensor takes `flash_attention_bhnd_bwd_plain`.
+    A CUDA tensor launches the B4/B5 kernel (bf16, any strides) or its fp32
+    counterpart (plain attention only) or raises; a CPU tensor takes
+    `flash_attention_bhnd_bwd_plain`.
     """
     return _bwd_with_tables(_bwd, q, k, v, out, lse, do, segment_ids, causal, scale,
                             rope_tables, rope_expanded, kv_valid_len, seg_kv)
@@ -448,8 +530,9 @@ def flash_attention_bhnd(q, k, v, segment_ids=None, causal: bool = False,
     keys; keys at or beyond it are masked.
 
     Returns out [B, H, N, D] (and lse [B, H, N] fp32 with ``return_lse``).
-    A CUDA tensor launches the kernels (bf16, head width 32, 64, 80, 88 or
-    104) or raises; a CPU tensor takes the plain versions.
+    A CUDA tensor launches the kernels (head width 32, 64, 80, 88 or 104;
+    bf16, or fp32 without RoPE, segment ids, kv_valid or the causal mask)
+    or raises; a CPU tensor takes the plain versions.
     """
     if rope_tables is not None:
         q, k, rope_expanded, _ = _expand(q, k, rope_tables)  # differentiable gathers

@@ -24,7 +24,10 @@ of ``SHAPES`` (B1: its prologue and main kernel), ``dn_bwd:`` and a name of
 launch and the GEMM), ``ln:`` and a name of ``LN_SHAPES`` (B6: the forward,
 the statistics-only forward that B7 and B8 launch first, the backward, the
 yardsticks `F.layer_norm` and its autograd backward, and `x.clone` and
-`x.sum`, which move the forward's and the statistics launch's bytes).
+`x.sum`, which move the forward's and the statistics launch's bytes),
+``fp32:`` and a name of ``FP32_SHAPES`` (the fp32 BHND forward and its dQ
+and dK/dV backward launches, on fp32 operands as the probes give them; the
+host clock there takes 3 calls, each call taking tens to hundreds of ms).
 
 The ``ln`` family times each call on its own and twice: cold, with a 64 MiB
 write before each call so that the call reads its rows from device memory
@@ -63,7 +66,7 @@ DEFAULT = ("vit_huge target", "vit_huge context, mask 1")
 
 def host_us(fn, calls: int = 300) -> float:
     """Host microseconds per call of ``fn``, after a warm-up."""
-    for _ in range(20):
+    for _ in range(min(20, calls)):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -136,6 +139,20 @@ def _prologue_calls(kernel):
     return calls
 
 
+def _fp32_calls(c, dev, name, seqs, rope):
+    """The fp32 BHND kernels at `chip_smoke.FP32_SHAPES`' ``name``, on the
+    operands the smoke's phase kernel_fp32 draws (no RoPE at fp32)."""
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+
+    B, H, N, D = dict(c.FP32_SHAPES)[name]
+    gen = torch.Generator(dev).manual_seed(0)
+    q, k, v, do = (torch.randn(B, H, N, D, generator=gen, device=dev) for _ in range(4))
+    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True)
+    return ({"fwd": lambda: fa.flash_attention_bhnd(q, k, v),
+             "bwd": lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do)},
+            {"bhnd": [B, H, N, D], "host_calls": 3})
+
+
 def _ln_calls(c, dev, name, seqs, rope):
     """B6 at `chip_smoke.LN_SHAPES`' ``name``: the forward, the statistics-only
     forward (the first launch of B7 and B8), the backward, and the yardsticks
@@ -195,7 +212,7 @@ def _ln_device(c, calls, bound_ms, n):
 # RoPE tables) -> ({call name: call}, the shape's fields)
 FAMILIES = {"bhnd": _bhnd_calls, "dn": _dn_calls, "dn_bwd": _dn_bwd_calls,
             "ln_qkv": _prologue_calls("ln_qkv"), "ln_mlp": _prologue_calls("ln_mlp"),
-            "ln": _ln_calls}
+            "ln": _ln_calls, "fp32": _fp32_calls}
 
 
 def main() -> int:
@@ -223,9 +240,11 @@ def main() -> int:
         family, _, sub = name.rpartition(":")
         with torch.no_grad():
             calls, rec = FAMILIES[family or "bhnd"](c, dev, sub, seqs, not args.no_rope)
+            host_calls = rec.pop("host_calls", 300)
             rec = {"shape": name, **rec, "rope": not args.no_rope,
                    "checkout": str(args.checkout or "."),
-                   "host_us_per_call": {key: host_us(fn) for key, fn in calls.items()}}
+                   "host_us_per_call": {key: host_us(fn, host_calls)
+                                        for key, fn in calls.items()}}
             if family == "ln":
                 rec.update(_ln_device(c, calls, rec.pop("bound_ms"), args.calls))
                 print(json.dumps(rec), flush=True)
