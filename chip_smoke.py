@@ -152,14 +152,16 @@ Phases, each printed as one JSON object on a line of its own:
    B1 36 times (24 encoder, 12 predictor with per-example RoPE tables), and
    each probe's recall per head;
 21. kernel_fp32 (run after phase 8) — the fp32 BHND flash kernels
-   (`csrc/flash_fp32.cuh`: B3 and B4/B5 on fp32 operands, FFMA, TF32 off)
+   (`csrc/flash_fp32.cuh`: B3 and B4/B5 on fp32 operands, 3xTF32 on wgmma
+   after a split pre-pass)
    against their plain versions at the probes' shapes [64,16,2048,64]
    (IN1K), [4,16,4096,64] (SSv2), [8,16,2048,64] (the serving slice) and
    [1,16,36864,88] (ViT-g/384 K400), forward (out, lse) and backward (dq,
    dk, dv given the kernel's out and lse), the plain version over chunks of
    queries where its [B, H, N, N] scores do not fit (256 rows at IN1K, 512
    at K400: dk and dv summed over the chunks); ms by CUDA events, TFLOP/s
-   (4*Dh and 10*Dh FLOPs a score), the bound at 67 TFLOP/s fp32, the plain
+   (4*Dh and 10*Dh FLOPs a score), the bound at 495/3 = 165 TFLOP/s (an
+   fp32-accurate product is three TF32 products), the plain
    version's ms and `F.scaled_dot_product_attention`'s on the same fp32
    operands with the backend it picked;
 22. eval_image — the IN1K probe eval: `run_image_classification` on the
@@ -239,7 +241,10 @@ LN_SOURCE = "vjepa2_tpu_torch/csrc/layernorm.cu"
 LN_FWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:103"
 LN_BWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:115"
 LN_GEMM_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm_hopper.cu"  # B7 and B8
-FP32_SOURCE = "vjepa2_tpu_torch/csrc/flash_fp32.cuh"  # B3, and B4/B5, on fp32 operands
+# B3, and B4/B5, on fp32 operands: 3xTF32 on wgmma (`flash_fp32.cuh`), after the
+# split pre-pass (`flash_fp32_split.cu`); the backward is dQ, then dK/dV (`_dkdv.cu`)
+FP32_FWD_SOURCE = "vjepa2_tpu_torch/csrc/flash_fp32_fwd.cu"
+FP32_BWD_SOURCE = "vjepa2_tpu_torch/csrc/flash_fp32_dq.cu"
 FP32_FWD_REPLACES = "vjepa2_tpu/ops/flash_attention.py:166"
 # B4 (one pass) and B5 (`_dq_kernel:361`, `_dkv_kernel:434`): one fp32 backward
 FP32_BWD_REPLACES = "vjepa2_tpu/ops/flash_attention.py:511"
@@ -249,6 +254,9 @@ LN_MLP_REPLACES = "vjepa2_tpu/ops/ln_mlp.py:78"
 # H100 SXM dense bf16 peak and memory rate (NVIDIA's data sheet), for bounds
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 PEAK_FP32 = 67e12  # fp32 outside the tensor cores (the LayerNorm kernels' arithmetic)
+# fp32-accurate products on the tensor cores: three TF32 products each (495 TFLOP/s
+# TF32 dense): the fp32 attention kernels' bound, whatever implements them
+PEAK_3XTF32 = 495e12 / 3
 
 # (name, [B, H, D, N], features) — the shapes B1 takes on the main paths;
 # the cooldown's (phase train_accum, one microbatch of 2 clips at 64f) take
@@ -647,9 +655,11 @@ FP32_SHAPES = [
 # row by row, dk and dv are the sums of the chunks' partials.
 FP32_PLAIN_WHOLE, FP32_PLAIN_CHUNK = 8 << 30, 2 << 30
 # fp32 kernel against plain on the same fp32 inputs (TF32 off): the kernel
-# sums 32-key tiles with an online rescale, the plain version whole rows
-# through cuBLAS; fp32 rounding (2**-24) over ~N additions: 2e-5 relative
-# L2 and 1e-4 x max|plain| on out and the gradients, 1e-5 on lse.
+# takes each product as three TF32 products (operands held to 2**-22) over
+# 32- or 64-key tiles summed in fp32 with an online rescale, the plain
+# version whole rows through cuBLAS; fp32 rounding (2**-24) over ~N
+# additions: 2e-5 relative L2 and 1e-4 x max|plain| on out and the
+# gradients, 1e-5 on lse.
 FP32_REL_L2, FP32_MAX_ABS, FP32_LSE_ATOL = 2e-5, 1e-4, 1e-5
 # B7/B8 against plain from the same bf16 inputs: each output rounds once to
 # bf16 (2**-9) and y may round to the neighbouring bf16 value where the
@@ -2270,8 +2280,8 @@ def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
     """The fp32 BHND kernels (`csrc/flash_fp32.cuh`) against their plain
     versions at `FP32_SHAPES`, forward and backward (given the kernel's out
     and lse), the plain version over query chunks where its scores do not
-    fit; each timed by CUDA events with its TFLOP/s and bound (67 TFLOP/s
-    fp32 outside the tensor cores), beside the plain version and
+    fit; each timed by CUDA events with its TFLOP/s and bound (`PEAK_3XTF32`:
+    fp32-accurate products on the tensor cores), beside the plain version and
     `F.scaled_dot_product_attention` on the same fp32 operands (TF32 off),
     with the backend PyTorch picked."""
     import torch.nn.functional as F
@@ -2319,7 +2329,7 @@ def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
         sizes = {"fwd": nbytes(q, k, v, out, lse), "bwd": nbytes(q, k, v, out, do, lse, *grads)}
         for i, (kernel, kind) in enumerate((("flash_fwd_fp32", "fwd"),
                                             ("flash_bwd_fp32", "bwd"))):
-            bound_ms, bound_by = bound(flops[kind], sizes[kind], PEAK_FP32)
+            bound_ms, bound_by = bound(flops[kind], sizes[kind], PEAK_3XTF32)
             ok = all(_fp32_ok(e) for e in errs[kind].values()) and (
                 kind == "bwd" or lse_err <= FP32_LSE_ATOL)
             rec = {"phase": "kernel_fp32", "kernel": kernel, "shape": name,
@@ -3229,12 +3239,14 @@ def main() -> int:
               library=rec_qkv["library"]),
         entry("ln_mlp", LN_GEMM_SOURCE, LN_MLP_REPLACES, total[7], rec_mlp, "max_abs_err",
               library=rec_mlp["library"]),
-        entry("flash_fwd_fp32", FP32_SOURCE, FP32_FWD_REPLACES, total[8], rec_fp32,
+        entry("flash_fwd_fp32", FP32_FWD_SOURCE, FP32_FWD_REPLACES, total[8], rec_fp32,
               "max_abs_err", library=rec_fp32["library"],
-              note="B3 on fp32 operands (the frozen probes' self-attention)"),
-        entry("flash_bwd_fp32", FP32_SOURCE, FP32_BWD_REPLACES, total[9], rec_fp32_bwd,
+              note="B3 on fp32 operands (the frozen probes' self-attention): 3xTF32 on "
+                   "wgmma, after the split pre-pass (flash_fp32_split.cu)"),
+        entry("flash_bwd_fp32", FP32_BWD_SOURCE, FP32_BWD_REPLACES, total[9], rec_fp32_bwd,
               "max_abs_err", library=rec_fp32_bwd["library"],
-              note="B4 and B5 (flash_attention.py:361, :434) on fp32 operands")]})
+              note="B4 and B5 (flash_attention.py:361, :434) on fp32 operands: the split "
+                   "pre-pass, dQ (flash_fp32_dq.cu), then dK/dV (flash_fp32_dkdv.cu)")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,22 +1,29 @@
 """The hand-written fp32 BHND flash kernels (`vjepa2_tpu_torch/csrc/flash_fp32.cuh`:
-the forward, and the dQ and dK/dV backward launches) against their plain
-PyTorch versions on the card (TF32 off): every head width of
-`BHND_HEAD_WIDTHS` at N in {1, 63, 64, 65, 2048} (ragged edges of the
-64-row blocks and 32-row tiles), M != N, operands as views of one qkv
-output and an unaligned view (copied, still launched), two calls bit-equal
-forward and backward, the features the fp32 kernels refuse (RoPE, segment
-ids, kv_valid, causal) and mixed dtypes, bf16 calls still on the bf16
-kernels (the launch counters), and `Attention` and a `ProbeGrid` on the
-card taking the fp32 route.
+3xTF32 on wgmma; the split pre-pass, the forward, and the dQ and dK/dV
+backward launches) against their plain PyTorch versions on the card (TF32
+off): every head width of `BHND_HEAD_WIDTHS` at N in {1, 63, 64, 65, 2048}
+(ragged edges of the 64- and 128-row blocks and 32- and 64-row tiles),
+M != N, ragged lengths that are no multiple of 8 (the transposed copies'
+permutation groups), inputs whose 13 low mantissa bits are all set (what
+an unrounded tf32 operand would drop), a peaked softmax (scores to ±40),
+one 36,864-token head (the ViT-g/384 probes') against the plain version
+over query chunks, operands as views of one qkv output and an unaligned
+view (copied, still launched), two calls bit-equal forward and backward,
+the features the fp32 kernels refuse (RoPE, segment ids, kv_valid, causal)
+and mixed dtypes, bf16 calls still on the bf16 kernels (the launch
+counters), and `Attention` and a `ProbeGrid` on the card taking the fp32
+route.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_flash_fp32_cuda.py -q
 
 Tolerances, those of `chip_smoke.py`'s phase kernel_fp32: fp32 on both
-sides, the kernel summing 32-key tiles with an online rescale, the plain
-version whole rows through cuBLAS: out and gradients within 2e-5 relative
-L2 and 1e-4 x max|plain| absolute, lse within 1e-5 absolute.
+sides, the kernel summing three TF32 products a tile with an online
+rescale, the plain version whole rows through cuBLAS: out and gradients
+within 2e-5 relative L2 and 1e-4 x max|plain| absolute, lse within 1e-5
+absolute; in the peaked case lse within 1e-6 x max|lse| (|lse| reaches 40,
+where an fp32 ulp is 3.8e-6; `tests/test_torch_flash_fp32_split.py`).
 """
 
 import numpy as np
@@ -30,7 +37,7 @@ from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 
 pytestmark = pytest.mark.cuda
 
-REL_L2, MAX_ABS, LSE_ATOL = 2e-5, 1e-4, 1e-5
+REL_L2, MAX_ABS, LSE_ATOL, PEAKED_LSE_RTOL = 2e-5, 1e-4, 1e-5, 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +62,7 @@ def _close(got, want, name):
     assert rel <= REL_L2 and err <= MAX_ABS * want.abs().max().item(), (name, rel, err)
 
 
-def _check(q, k, v, do):
+def _check(q, k, v, do, lse_tol=LSE_ATOL):
     """Kernel forward and backward against the plain versions. With one key
     p = 1 and dp = delta, so dq and dk are 0 but for rounding on both sides:
     there they are held to 1e-5 absolute (unit-variance inputs)."""
@@ -68,7 +75,7 @@ def _check(q, k, v, do):
     assert (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32) == (before[0] + 1, before[1] + 1)
     assert out.dtype == lse.dtype == torch.float32
     _close(out, out_p, "out")
-    assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+    assert (lse - lse_p).abs().max().item() <= lse_tol
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         if k.shape[2] == 1 and name != "dv":
@@ -95,6 +102,63 @@ def test_fp32_cross_lengths_and_qkv_views(dev):
     qv, kv, vv = y.view(2, 130, 3, 4, 64).permute(2, 0, 3, 1, 4).unbind(0)
     assert all(fa.vec4_ready(t) for t in (qv, kv, vv))
     _check(qv, kv, vv, _randn((2, 4, 130, 64), dev, 5))
+
+
+@pytest.mark.parametrize("N,M", [(1001, 777), (37, 1201)])
+@pytest.mark.parametrize("D", [64, 88])
+def test_fp32_ragged_lengths(dev, D, N, M):
+    """N and M no multiple of the tiles or of 8 (the transposed copies pad
+    each to a multiple of 8 and permute tokens in groups of 8), M != N."""
+    q, do = _randn((1, 3, N, D), dev, 0), _randn((1, 3, N, D), dev, 1)
+    k, v = _randn((1, 3, M, D), dev, 2), _randn((1, 3, M, D), dev, 3)
+    _check(q, k, v, do)
+
+
+def _low_bits_set(x):
+    """x with its 13 low mantissa bits set: the bits a tf32 operand that was
+    not rounded first would drop (wgmma reads the top 19)."""
+    return (x.view(torch.int32) | 0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("D", [64, 88])
+def test_fp32_low_mantissa_bits(dev, D):
+    q, k, v, do = (_low_bits_set(_randn((2, 2, 300, D), dev, s)) for s in range(4))
+    _check(q, k, v, do)
+
+
+@pytest.mark.parametrize("D", [64, 88])
+def test_fp32_peaked_softmax(dev, D):
+    """q scaled so that the scores reach ±40: p is nearly one-hot and lse is
+    near 40, held to 1e-6 x max|lse| (fp32's own rounding there)."""
+    q, k, v, do = (_randn((1, 2, 500, D), dev, s) for s in range(4))
+    s = (q @ k.transpose(-1, -2)).abs().amax() * D ** -0.5
+    q = q * (40.0 / s)
+    lse = fa.flash_attention_bhnd_plain(q, k, v)[1]
+    _check(q, k, v, do, lse_tol=PEAKED_LSE_RTOL * lse.abs().max().item())
+
+
+def test_fp32_one_long_head(dev):
+    """One ViT-g/384 probe head: [1, 1, 36864, 88], against the plain version
+    over 4096-query chunks (its whole [N, N] scores and their gradients would
+    hold ~27 GB): out, lse and dq row by row, dk and dv the sums of the
+    chunks' partials."""
+    N, D, rows = 36864, 88, 4096
+    q, k, v, do = (_randn((1, 1, N, D), dev, s) for s in range(4))
+    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True)
+    dq, dk, dv = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do)
+    want_dk, want_dv = torch.zeros_like(k), torch.zeros_like(v)
+    for r in range(0, N, rows):
+        sl = slice(r, r + rows)
+        out_p, lse_p = fa.flash_attention_bhnd_plain(q[:, :, sl], k, v)
+        _close(out[:, :, sl], out_p, "out")
+        assert (lse[:, :, sl] - lse_p).abs().max().item() <= LSE_ATOL
+        g = fa.flash_attention_bhnd_bwd_plain(q[:, :, sl], k, v, out[:, :, sl], lse[:, :, sl],
+                                              do[:, :, sl])
+        _close(dq[:, :, sl], g[0], "dq")
+        want_dk += g[1]
+        want_dv += g[2]
+    _close(dk, want_dk, "dk")
+    _close(dv, want_dv, "dv")
 
 
 def test_fp32_unaligned_view_is_copied(dev):

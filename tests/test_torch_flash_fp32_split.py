@@ -1,0 +1,149 @@
+"""The arithmetic of the fp32 flash kernels (`vjepa2_tpu_torch/csrc/flash_fp32.cuh`:
+3xTF32 on the tensor cores) emulated on the CPU, against the JAX package's
+B3/B4/B5 Pallas kernels in interpret mode on the same fp32 inputs (JAX runs
+them in the operands' dtype, `flash_attention.py:202`), as
+`tests/test_torch_flash_fp32.py` runs them.
+
+The emulation: every operand of a product is split into two tf32 parts,
+hi = rna(x) and lo = rna(x - hi), rounded by integer operations on the fp32
+bits to nearest with ties away from zero (as ``cvt.rna.tf32.f32`` does), and
+a product is lo·hi + hi·lo + hi·hi summed in fp32; P and dS are split the
+same way before they meet V, dO, K and Q. The softmax is the kernels' base-2
+one; the emulation takes whole rows where the kernels take tiles (the
+sums' order is not what this file tests). The backward is given the emulated
+forward's out and lse, as the kernels are given the forward kernel's.
+
+Cases: head widths 64 and 88 at N = 320 (B = 1, H = 2), and a peaked softmax
+at 88 (q scaled so that the scores reach ±40). Tolerances, the kernels'
+(`chip_smoke.py`: FP32_REL_L2, FP32_MAX_ABS, FP32_LSE_ATOL): out and the
+gradients within 2e-5 relative L2 and 1e-4·max|JAX| absolute, lse within
+1e-5 absolute. In the peaked case lse is held to 1e-6·max|lse| instead:
+there |lse| ≈ 40, where an fp32 ulp is 3.8e-6 and fp32 itself, the plain
+PyTorch scores against JAX's kernel, differs by 1.5-1.9e-5. The same
+emulation with one TF32 product (hi·hi) misses every one of these
+tolerances, so the file tells the two apart.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vjepa2_tpu.ops import flash_attention as jfa
+
+B, H, N = 1, 2, 320
+REL_L2, MAX_ABS, LSE_ATOL, PEAKED_LSE_RTOL = 2e-5, 1e-4, 1e-5, 1e-6
+LOG2E = 1.4426950408889634
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch ops (6 pytest workers share
+    the host; see `tests/test_torch_eval_cli.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+    zero: add half of the 13 dropped bits' unit to the magnitude, then drop
+    them (an overflow rounds to inf, as it should)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def product(a, b, parts: int = 3):
+    """a @ b from tf32 parts in fp32: lo·hi + hi·lo + hi·hi (3), or hi·hi (1)."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    if parts == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def emulated_fwd(q, k, v, parts=3):
+    scale = q.shape[-1] ** -0.5
+    s = product(q, k.transpose(-1, -2), parts) * np.float32(scale * LOG2E)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = product(p, v, parts) / l
+    lse = (m + torch.log2(l)).squeeze(-1) * np.float32(1 / LOG2E)
+    return out, lse
+
+
+def emulated_bwd(q, k, v, out, lse, do, parts=3):
+    scale = np.float32(q.shape[-1] ** -0.5)
+    s = product(q, k.transpose(-1, -2), parts) * np.float32(scale * LOG2E)
+    p = torch.exp2(s - (lse * np.float32(LOG2E))[..., None])
+    dp = product(do, v.transpose(-1, -2), parts)
+    ds = p * (dp - (do * out).sum(-1, keepdim=True)) * scale
+    return (product(ds, k, parts), product(ds.transpose(-1, -2), q, parts),
+            product(p.transpose(-1, -2), do, parts))
+
+
+def _inputs(D, peak, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(B, H, N, D).astype(np.float32) for _ in range(4))
+    if peak:
+        s = np.einsum("bhnd,bhmd->bhnm", q, k) * D ** -0.5
+        q = (q * np.float32(peak / np.abs(s).max())).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax(q, k, v, do):
+    """JAX's forward (out, lse) and gradients, fetched as numpy."""
+    block = jfa.pick_block(N, 64)
+    fwd = jfa._flash_fwd_bhnd(*map(jnp.asarray, (q, k, v)), None, None, None, None, None,
+                              block_q=block, block_k=block, interpret=True)
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_bhnd(
+        q, k, v, block_q=64, block_k=64, interpret=True), *map(jnp.asarray, (q, k, v)))
+    grads = vjp(jnp.asarray(do))
+    return [np.asarray(x) for x in jax.block_until_ready((*fwd, *grads))]
+
+
+def _errors(got, want):
+    got, want = got.double().numpy(), np.asarray(want, np.float64)
+    return (np.linalg.norm(got - want) / np.linalg.norm(want),
+            np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("D,peak", [(64, 0), (88, 0), (88, 40)])
+def test_3xtf32_holds_the_kernels_tolerances_and_1xtf32_does_not(D, peak):
+    q, k, v, do = _inputs(D, peak, seed=D + peak)
+    want = _jax(q, k, v, do)
+    lse_tol = PEAKED_LSE_RTOL * np.abs(want[1]).max() if peak else LSE_ATOL
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    for parts in (3, 1):
+        out, lse = emulated_fwd(tq, tk, tv, parts)
+        grads = emulated_bwd(tq, tk, tv, out, lse, tdo, parts)
+        errs = {name: _errors(g, w) for name, g, w in
+                zip(("out", "dq", "dk", "dv"), (out, *grads), (want[0], *want[2:]))}
+        lse_err = np.abs(lse.double().numpy() - want[1]).max()
+        if parts == 3:
+            assert lse_err <= lse_tol, lse_err
+            for name, (rel, mx) in errs.items():
+                assert rel <= REL_L2 and mx <= MAX_ABS, (name, rel, mx)
+        else:  # one TF32 product: every output misses
+            assert lse_err > lse_tol, lse_err
+            for name, (rel, mx) in errs.items():
+                assert rel > REL_L2 and mx > MAX_ABS, (name, rel, mx)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The integer rounding against exact cases: 1 + 2^-11 (a tie) rounds away
+    to 1 + 2^-10, just below it to 1; negatives mirror; hi + lo holds x to
+    2^-22 (lo rounds x - hi, which is exact in fp32, to tf32 in turn)."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, -(1 + ulp / 2), 1 + 1.5 * ulp, 3.0],
+                     dtype=torch.float32)
+    hi, lo = split(x)
+    assert hi.tolist() == [1 + ulp, 1.0, -(1 + ulp), 1 + 2 * ulp, 3.0]
+    assert ((hi.double() + lo.double() - x.double()).abs() <= 2.0 ** -22 * x.double().abs()).all()

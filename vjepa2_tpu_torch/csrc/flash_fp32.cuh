@@ -1,597 +1,358 @@
-// Flash attention over fp32 [B, H, N, D] ("BHND") operands, for Hopper (sm_90a),
-// in full fp32 on the CUDA cores (FFMA; no TF32, no tensor cores).
+// Flash attention over fp32 [B, H, N, D] ("BHND") operands for Hopper (sm_90a),
+// on the tensor cores: every product of the attention is three TF32 wgmma
+// products into one fp32 accumulator ("3xTF32"), which keeps fp32's accuracy.
 //
 // Replaces the TPU kernels of the BHND family on fp32 operands, which JAX
 // runs in the storage dtype (`vjepa2_tpu/ops/flash_attention.py:202`; the
 // frozen evals' attentive probes send them fp32 q, k, v):
 //   * the forward `vjepa2_tpu/ops/flash_attention.py:166 _fwd_kernel` (B3,
-//     `pallas_call` `:307`);
+//     `pallas_call` `:307`): `flash_fp32_fwd.cu`;
 //   * the backwards `:511 _bwd_fused_kernel` (B4) and `:361 _dq_kernel` /
 //     `:434 _dkv_kernel` (B5), one function, as `flash_bwd_bhnd.cu` is for
-//     bf16.
+//     bf16: `flash_fp32_dq.cu`, then `flash_fp32_dkdv.cu`;
+//   * and the pre-pass that splits their operands, `flash_fp32_split.cu`.
 // The bf16 operands take `flash_fwd_bhnd.cu` and `flash_bwd_bhnd.cu`.
 // Contract (the probes' attention: no RoPE, no segments, no kv_valid, no
 // causal mask; the wrapper refuses those on fp32):
 //   * q [B, H, N, D], k and v [B, H, M, D] fp32, unit stride along d, every
 //     other stride a multiple of 4 elements from a 16-byte aligned base (the
 //     wrapper copies any other operand first); D in {32, 64, 80, 88, 104};
-//   * forward: s = (q . k) * scale * log2(e) in fp32, an online softmax in
-//     base 2 (`exp2f`, the accurate one), out = sum_j p_j v_j / sum_j p_j in
-//     the layout its strides give (unit stride along d), lse [B, H, N] in
-//     natural log; the kernel masks its own ragged edge, so N and M need no
-//     padding;
+//   * forward: s = (q . k) * scale * log2(e), an online softmax in base 2
+//     (`exp2f`), out = sum_j p_j v_j / sum_j p_j in the layout its strides
+//     give (unit stride along d), lse [B, H, N] in natural log; the kernels
+//     mask their own ragged edge, so N and M need no padding;
 //   * backward, given out, dout and an lse: delta = rowsum(dout * out);
 //     p = exp2(s - lse * log2(e)) (0 where lse is -inf); dv = p^T dout;
 //     dp = dout v^T; ds = p (dp - delta) scale; dk = ds^T q; dq = ds k;
 //     dq, dk, dv written contiguous [B, H, N|M, D].
 //
+// The split: x = hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
+// hi) (x - hi is exact in fp32; hi + lo holds x to 2^-22), and a product is
+// A_lo B_hi + A_hi B_lo + A_hi B_hi, the small terms first (A_lo B_lo, below
+// 2^-22, is dropped). wgmma's tf32 reads only the top 19 bits of a register,
+// so every operand is rounded explicitly before it gets there.
+//
 // What bounds it on this card: 4*D FLOPs a score forward and 10*D backward
-// (14*D as computed: the dQ pass recomputes S and dP), all FFMA, against
-// O(N*D) bytes: the operations, at 67 TFLOP/s of fp32 outside the tensor
-// cores.
+// (14*D as computed: the dQ launch recomputes S and dP), each issued three
+// times at 495 TFLOP/s of TF32: 165 TFLOP/s of fp32-accurate products,
+// against O(N*D) bytes. So the operations.
 //
-// Layout: this header holds the kernels; `flash_fp32_fwd.cu`,
-// `flash_fp32_dq.cu` and `flash_fp32_dkdv.cu` are their build units and C
-// entry points, one kernel each, so that nvcc compiles them in parallel
-// (57 s as one unit on the H100 host, against at most 14 s for any other
-// source).
-//
-// Design: a simple register-tiled kernel, a later redesign's starting point.
-//   * 128 threads a block as a 16 x 8 grid (thread (ty, tx), ty = tid / 8):
-//     64 rows stay resident in shared memory (queries in the forward and
-//     dQ, keys in dK/dV) and 32-row tiles of the other side stream through
-//     a two-stage `cp.async` ring; a thread owns rows ty + 16 i and
-//     streamed rows tx + 8 j (i, j < 4) of each 64 x 32 score tile, and
-//     columns 32 c + 4 tx .. + 3 of each 64 x D product;
-//   * shared rows have a stride of 4 mod 8 floats, so the float4 reads of a
-//     warp (4 resident rows, 8 streamed rows, or 8 consecutive chunks of one
-//     row) each take one wavefront: per 4 features 8 LDS.128 feed 64 FFMA;
-//   * scores stay in registers for the softmax (row maxima over the 8
-//     threads of a row by shuffles, row sums per thread until the end), then
-//     pass through a 64 x 32 shared buffer as the left operand of P V,
-//     dS K, P^T dO and dS^T Q;
-//   * the dQ kernel (one block a 64-query tile, looping over key tiles)
-//     first writes delta for its rows, which the dK/dV kernel (one block a
-//     64-key tile, looping over query tiles), launched after it on the same
-//     stream, reads. No atomics: two calls give equal bits.
+// Design, for the layouts wgmma takes at tf32:
+//   * tf32 operands in shared memory must be K-major (the reduction
+//     contiguous; the transposed descriptors of `bhnd_hopper.cuh` are
+//     bf16/fp16 only). So the pre-pass writes each B operand's hi and lo once
+//     a call: token-major [2][B][H][n][D] ("natural": Q, K, dO, V, where the
+//     features are the reduction) and feature-major [2][B][H][D][np]
+//     ("transposed": V^T, K^T, Q^T, dO^T, where the tokens are), hi at batch
+//     b and lo at batch B + b, so one tensor map reads both;
+//   * a register A operand (P, P^T, dS, dS^T) comes out of the previous
+//     product's accumulator, whose thread holds columns {2t, 2t+1} of each 8;
+//     the tf32 A fragment wants columns {t, t+4}. Instead of a shuffle, the
+//     transposed copies hold their tokens permuted in each group of 8
+//     (position c holds token `permuted(c)`), which the sum does not see;
+//   * the long sums are not left to the tensor cores: their fp32 accumulation
+//     truncates, and a chain over 36,864 keys drifts to ~1e-4 (an emulation
+//     of round-toward-zero; 6e-7 with round-to-nearest). Each tile's product
+//     goes to a fresh accumulator, added to a running sum in registers;
+//   * every A operand is in registers (fragments loaded once a block) or, in
+//     the forward, Q in shared memory; every B operand streams by TMA (128-byte
+//     swizzle, 32 fp32 a row: the k-step arithmetic of `bhnd_hopper.cuh`'s
+//     `desc_k`/`step_k` is the bf16 one) through an mbarrier ring, fed by a
+//     producer warpgroup or, where the consumers need more than 168
+//     registers a thread, by one of their threads (`block_threads`);
+//   * two consumer warpgroups a block: in the forward they take 64 queries
+//     each and turns on the tensor cores (as `pingpong` does); in the backward they
+//     share 64 rows and split the products (dQ: one makes S and P, the other
+//     dP, both form dS and each adds half of dQ's features; dK/dV: one makes
+//     P^T and dV, the other dP^T, dS^T and dK), trading P and dP through
+//     shared memory. Each has one resident operand, so both fit;
+//   * no atomics: dQ is its own launch, so two calls give equal bits.
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "bhnd_hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // thread (ty, tx) = (tid / 8, tid % 8)
-constexpr int kRows = 64;       // resident rows a block
-constexpr int kTile = 32;       // rows of a streamed tile
-constexpr int kPS = kTile + 4;  // row stride of the [kRows][kTile] score buffer
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may take
+constexpr int kSlack = 1024 + 256;  // the 1024-byte alignment and the barriers
+// A block is two consumer warpgroups and, where their registers fit in 168
+// a thread, a producer warpgroup whose one thread issues the TMA loads
+// (`produce`): ptxas caps a block of 384 threads at 168 registers a thread,
+// setmaxnreg or not (so does it at 288). Where they do not fit (the backward
+// above Dh 64, the forward at every width: 182-255 registers), the block is
+// the two warpgroups alone, 256 threads with up to 255 registers, and one
+// consumer thread issues the loads (`refill`); at 384 threads those spilled
+// 172-928 bytes. At Dh 64 the backward is faster with the producer (dQ
+// 22.1 against 26.4 ms, dK/dV 21.0 against 31.7 at [64,16,2048,64] on an
+// H100 80GB HBM3), where the loader's waits and issues sit between the two
+// warpgroups' tiles.
+constexpr int kLoader = kWgThreads;  // the consumer thread that loads without a producer
 
-template <int D>
-struct Shape {
-  static_assert(D % 4 == 0, "rows are copied and read as float4");
-  static constexpr int kChunks = (D + 31) / 32;  // 32-column chunks, 4 columns a thread
-  static constexpr int kStride = 32 * kChunks + 4;  // shared row stride: 4 mod 8 floats
-  static constexpr int kVec = D / 4;              // float4 a row
-};
-
-struct Operand {  // one [B, H, N, D] operand, unit stride along d
-  const float* p;
-  long long b, h, n;
-  __device__ const float* slice(int bi, int hi) const { return p + bi * b + hi * h; }
-};
-
-struct FwdParams {
-  Operand q, k, v;
-  float* o;
-  long long o_b, o_h, o_n;
-  float* lse;
-  int H, N, M;
-  float qscale;  // scale * log2(e)
-};
-
-struct BwdParams {
-  Operand q, k, v, o, dout;
-  const float* lse;
-  float* delta;  // [B, H, N]: written by the dQ kernel, read by dK/dV
-  float *dq, *dk, *dv;
-  int H, N, M;
-  float scale, qscale;
-};
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
-               "r"(ok ? 16 : 0));
+__host__ __device__ constexpr int block_threads(bool producer) {
+  return (producer ? 3 : 2) * kWgThreads;
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Rows [row0, row0 + kN) of one (b, h) slice into dst ([kN][kStride]); rows
-// at or past n_rows are zero-filled. Columns past D are left as they are:
-// they only feed accumulator columns that are never stored.
-template <int D, int kN>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long sn, int row0,
-                                          int n_rows) {
-  constexpr int kVec = Shape<D>::kVec;
-  for (int i = threadIdx.x; i < kN * kVec; i += kThreads) {
-    const int r = i / kVec, c = i - r * kVec;
-    const bool ok = row0 + r < n_rows;
-    cp_async16(dst + r * Shape<D>::kStride + 4 * c, ok ? src + (row0 + r) * sn + 4 * c : src, ok);
+// The producer's loop: tile j into stage j % kStages once the consumers
+// have released the tile before it there.
+template <int kStages, class Load>
+__device__ __forceinline__ void produce(uint64_t* empty, int n, const Load& load) {
+  for (int j = 0; j < n; ++j) {
+    if (j >= kStages) mbar_wait(&empty[j % kStages], ((j / kStages) & 1) ^ 1);
+    load(j);
   }
 }
 
-__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float4& acc, float a, float4 b) {
-  acc.x = fmaf(a, b.x, acc.x);
-  acc.y = fmaf(a, b.y, acc.y);
-  acc.z = fmaf(a, b.z, acc.z);
-  acc.w = fmaf(a, b.w, acc.w);
-}
-
-__device__ __forceinline__ float lane_of(float4 v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float row_max(float x) {  // over the 8 threads of a row
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-// acc[i][j] += a[ty + 16 i] . b[tx + 8 j] over the D features: a is
-// [kRows][kStride], b [kTile][kStride].
-template <int D>
-__device__ __forceinline__ void scores(float (&acc)[4][4], const float* a, const float* b, int ty,
-                                       int tx) {
-  constexpr int kS = Shape<D>::kStride;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * kS + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(b + (tx + 8 * j) * kS + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = dot4(acc[i][j], x[i], y[j]);
+// The ring's refill without a producer: once tile j's stage has been
+// released by all eight warps, the loader thread puts tile j + kStages
+// there (`load`). Called by every consumer thread after its warp's release
+// of tile j.
+template <int kStages, class Load>
+__device__ __forceinline__ void refill(uint64_t* empty, int j, int n, const Load& load) {
+  if (threadIdx.x == kLoader && j + kStages < n) {
+    mbar_wait(&empty[j % kStages], (j / kStages) & 1);
+    load(j + kStages);
   }
 }
 
-// acc[i][c] += sum_r w[ty + 16 i][r] * m[r][32 c + 4 tx .. + 3] over the
-// kTile streamed rows: w is the [kRows][kPS] score buffer, m [kTile][kStride].
-template <int D>
-__device__ __forceinline__ void accumulate(float4 (&acc)[4][Shape<D>::kChunks], const float* w,
-                                           const float* m, int ty, int tx) {
-  constexpr int kS = Shape<D>::kStride;
-#pragma unroll
-  for (int r = 0; r < kTile; r += 4) {
-    float4 x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(w + (ty + 16 * i) * kPS + r);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int c = 0; c < Shape<D>::kChunks; ++c) {
-        const float4 y = *reinterpret_cast<const float4*>(m + (r + u) * kS + 32 * c + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) axpy4(acc[i][c], lane_of(x[i], u), y);
-      }
-    }
+// Position c of each group of 8 tokens in a transposed copy holds token
+// permuted(c) of the group (0, 2, 4, 6, 1, 3, 5, 7): the A fragment's columns t and
+// t + 4 are then the accumulator's 2t and 2t + 1.
+__host__ __device__ constexpr int permuted(int c) { return ((c & 3) << 1) | (c >> 2); }
+
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+// bytes of one part (hi or lo) of a token-major tile of `rows` tokens: ceil(D / 32)
+// chunks of rows x 128 bytes (features past D arrive as zeros)
+__host__ __device__ constexpr int nat_bytes(int D, int rows) { return (D + 31) / 32 * rows * kRowBytes; }
+// bytes of one part of a feature-major tile of `tokens` (a multiple of 32) tokens:
+// tokens / 32 chunks of D rows x 128 bytes
+__host__ __device__ constexpr int tr_bytes(int D, int tokens) { return tokens / 32 * D * kRowBytes; }
+// The first of two column blocks of a D-wide product (both multiples of 8).
+__host__ __device__ constexpr int half_width(int D) { return (D + 15) / 16 * 8; }
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo, both rounded to tf32 (ties away from zero, as cvt.rna does).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+// An 8-column tile of an accumulator (acc[0..3]: rows g, g + 8 at columns 2t,
+// 2t + 1) as the tf32 A fragments (hi, lo) of the next product's k-step:
+// fragment column t takes column 2t, t + 4 takes 2t + 1 (`permuted`).
+__device__ __forceinline__ void split_tile(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* acc) {
+  split_tf32(acc[0], hi[0], lo[0]);
+  split_tf32(acc[2], hi[1], lo[1]);
+  split_tf32(acc[1], hi[2], lo[2]);
+  split_tf32(acc[3], hi[3], lo[3]);
+}
+
+// d (64 x N fp32, accumulator layout) (+)= A (64 x 8 tf32, registers: rows g and g + 8
+// of each warp's 16, columns t and t + 4) * B (8 x N tf32, shared memory, K-major);
+// acc = 0 overwrites d. tf32 reads only the top 19 bits of each register.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                              int acc) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 40) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 56) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 88) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n88k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43}, {%44, %45, %46, %47}, %48, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 104) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51}, {%52, %53, %54, %55}, %56, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else {
+    static_assert(N == 16, "a wgmma width this header has no instruction for");
   }
 }
 
-template <int D>
-__device__ __forceinline__ void zero(float4 (&acc)[4][Shape<D>::kChunks]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < Shape<D>::kChunks; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+// d (64 x N fp32) (+)= A (64 x 8 tf32, shared memory, K-major) * B (8 x N tf32,
+// shared memory, K-major); acc = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  } else {
+    static_assert(N == 32, "a wgmma width this header has no instruction for");
+  }
 }
 
-// Rows ty + 16 i of acc, columns below D, to dst + row * row_stride.
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, long long row_stride, int row0, int n_rows,
-                                           const float4 (&acc)[4][Shape<D>::kChunks], int ty,
-                                           int tx) {
+// d (+)= A B^T over kSteps k-steps of 8, fp32-accurate: A_lo B_hi, A_hi B_lo,
+// then A_hi B_hi. A: register fragments (hi, lo); B: hi and lo tiles of kRows
+// rows (descriptors at their first row); acc = 0 starts d afresh.
+template <int N, int kSteps, int kRows>
+__device__ __forceinline__ void mma3_rs(float (&d)[N / 2], const uint32_t (&ah)[kSteps][4],
+                                        const uint32_t (&al)[kSteps][4], uint64_t b_hi,
+                                        uint64_t b_lo, int acc) {
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs<N>(d, al[ks], b_hi + step_k<kRows>(ks), acc || ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs<N>(d, ah[ks], b_lo + step_k<kRows>(ks), 1);
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs<N>(d, ah[ks], b_hi + step_k<kRows>(ks), 1);
+}
+
+// The tf32 A fragments (hi, lo) of k-steps kFirst .. kFirst + kCount - 1 of
+// this thread's rows of a 64-row block of a split token-major copy
+// ([2][B][H][n][D]: `hi` at the block's (b, h), lo `part` elements further),
+// rows row0 + warp * 16 + g (+ 8) below n; zeros past n.
+template <int D, int kFirst, int kCount>
+__device__ __forceinline__ void load_fragments(uint32_t (&ah)[kCount][4], uint32_t (&al)[kCount][4],
+                                               const float* hi, long long part, int row0, int n) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= n_rows) continue;
+    const int row = row0 + warp * 16 + g + 8 * (i & 1);
 #pragma unroll
-    for (int c = 0; c < Shape<D>::kChunks; ++c) {
-      const int col = 32 * c + 4 * tx;
-      if (col < D) *reinterpret_cast<float4*>(dst + row * row_stride + col) = acc[i][c];
+    for (int ks = 0; ks < kCount; ++ks) {
+      const long long at = (long long)row * D + 8 * (kFirst + ks) + t4 + 4 * (i >> 1);
+      ah[ks][i] = row < n ? __float_as_uint(hi[at]) : 0u;
+      al[ks][i] = row < n ? __float_as_uint(hi[at + part]) : 0u;
     }
   }
 }
 
-template <int D>
-constexpr int fwd_smem_floats() {
-  return (kRows + 4 * kTile) * Shape<D>::kStride + kRows * kPS;
+// The 16 values of a 64 x 32 accumulator tile (kB = 32 columns), thread-major
+// in a [4][128] float4 buffer, so that the other warpgroup's thread t reads
+// what this warpgroup's thread t wrote (the same positions of the tile).
+__device__ __forceinline__ void put16(float* buf, const float (&x)[16]) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int v = 0; v < 4; ++v)
+    reinterpret_cast<float4*>(buf)[v * 128 + t] = make_float4(x[4 * v], x[4 * v + 1], x[4 * v + 2], x[4 * v + 3]);
 }
-
-template <int D>
-constexpr int bwd_smem_floats() {
-  return (2 * kRows + 4 * kTile) * Shape<D>::kStride + kRows * kPS + 2 * kRows;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_fp32_fwd_kernel(const FwdParams p) {
-  using S = Shape<D>;
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // [kRows][kStride]
-  float* sk = sq + kRows * S::kStride;           // [2][kTile][kStride]
-  float* sv = sk + 2 * kTile * S::kStride;       // [2][kTile][kStride]
-  float* sp = sv + 2 * kTile * S::kStride;       // [kRows][kPS]
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
-  const int q0 = blockIdx.x * kRows;
-  const float* k = p.k.slice(b, h);
-  const float* v = p.v.slice(b, h);
-  load_rows<D, kRows>(sq, p.q.slice(b, h), p.q.n, q0, p.N);
-  load_rows<D, kTile>(sk, k, p.k.n, 0, p.M);
-  load_rows<D, kTile>(sv, v, p.v.n, 0, p.M);
-  cp_async_commit();
-
-  float4 o[4][S::kChunks];
-  zero<D>(o);
-  float m[4], l[4];
+__device__ __forceinline__ void get16(const float* buf, float (&x)[16]) {
+  const int t = threadIdx.x & 127;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
-  const int tiles = (p.M + kTile - 1) / kTile;
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < tiles) {
-      load_rows<D, kTile>(sk + (buf ^ 1) * kTile * S::kStride, k, p.k.n, (t + 1) * kTile, p.M);
-      load_rows<D, kTile>(sv + (buf ^ 1) * kTile * S::kStride, v, p.v.n, (t + 1) * kTile, p.M);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[4][4] = {};
-    scores<D>(s, sq, sk + buf * kTile * S::kStride, ty, tx);
-    const int key0 = t * kTile + tx;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = key0 + 8 * j < p.M ? s[i][j] * p.qscale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m[i] - base);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = exp2f(s[i][j] - base);
-        sp[(ty + 16 * i) * kPS + tx + 8 * j] = e;
-        sum += e;
-      }
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < S::kChunks; ++c) {
-        o[i][c].x *= corr;
-        o[i][c].y *= corr;
-        o[i][c].z *= corr;
-        o[i][c].w *= corr;
-      }
-    }
-    __syncthreads();
-    accumulate<D>(o, sp, sv + buf * kTile * S::kStride, ty, tx);
-    __syncthreads();
+  for (int v = 0; v < 4; ++v) {
+    const float4 y = reinterpret_cast<const float4*>(buf)[v * 128 + t];
+    x[4 * v] = y.x, x[4 * v + 1] = y.y, x[4 * v + 2] = y.z, x[4 * v + 3] = y.w;
   }
-
-  float* out = p.o + b * p.o_b + h * p.o_h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float total = row_sum(l[i]);
-    const float denom = total == 0.f ? 1.f : total;
-#pragma unroll
-    for (int c = 0; c < S::kChunks; ++c) {
-      o[i][c].x /= denom;
-      o[i][c].y /= denom;
-      o[i][c].z /= denom;
-      o[i][c].w /= denom;
-    }
-    const int row = q0 + ty + 16 * i;
-    if (tx == 0 && row < p.N) p.lse[(long long)bh * p.N + row] = m[i] * kLn2 + logf(denom);
-  }
-  store_rows<D>(out, p.o_n, q0, p.N, o, ty, tx);
 }
+constexpr int kXBytes = 128 * 16 * 4;  // one exchanged 64 x 32 tile
 
-// One block a 64-query tile: delta for its rows, then dQ over the key tiles.
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_fp32_dq_kernel(const BwdParams p) {
-  using S = Shape<D>;
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // [kRows][kStride]
-  float* sdo = sq + kRows * S::kStride;          // [kRows][kStride]
-  float* sk = sdo + kRows * S::kStride;          // [2][kTile][kStride]
-  float* sv = sk + 2 * kTile * S::kStride;       // [2][kTile][kStride]
-  float* sds = sv + 2 * kTile * S::kStride;      // [kRows][kPS]
-  float* slse = sds + kRows * kPS;               // [kRows]: lse * log2(e), +inf for no row
-  float* sdelta = slse + kRows;                  // [kRows]
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
-  const int q0 = blockIdx.x * kRows;
-  const float* k = p.k.slice(b, h);
-  const float* v = p.v.slice(b, h);
-  load_rows<D, kRows>(sq, p.q.slice(b, h), p.q.n, q0, p.N);
-  load_rows<D, kRows>(sdo, p.dout.slice(b, h), p.dout.n, q0, p.N);
-  load_rows<D, kTile>(sk, k, p.k.n, 0, p.M);
-  load_rows<D, kTile>(sv, v, p.v.n, 0, p.M);
-  cp_async_commit();
-
-  // delta = rowsum(dout * out), a warp a row, read straight from memory
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* o = p.o.slice(b, h);
-  const float* dout = p.dout.slice(b, h);
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < p.N) {
-      for (int d = lane; d < D; d += 32) acc = fmaf(o[row * p.o.n + d], dout[row * p.dout.n + d], acc);
-    }
+// This warpgroup's rows (row0 + warp * 16 + g, + 8) of a 64 x kW accumulator,
+// at column col0 of dst (a [*, D] fp32 array, contiguous), rows below n.
+template <int D, int kW>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kW / 2], int row0, int col0,
+                                           int n) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      sdelta[r] = acc;
-      const float lse = row < p.N ? p.lse[(long long)bh * p.N + row] : -INFINITY;
-      slse[r] = lse == -INFINITY ? INFINITY : lse * kLog2e;
-      if (row < p.N) p.delta[(long long)bh * p.N + row] = acc;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int dt = 0; dt < kW / 8; ++dt) {
+      *reinterpret_cast<float2*>(dst + (long long)row * D + col0 + dt * 8 + 2 * t4) =
+          make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
     }
   }
-  __syncthreads();
-  float lse2[4], delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) lse2[i] = slse[ty + 16 * i], delta[i] = sdelta[ty + 16 * i];
-
-  float4 dq[4][S::kChunks];
-  zero<D>(dq);
-  const int tiles = (p.M + kTile - 1) / kTile;
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < tiles) {
-      load_rows<D, kTile>(sk + (buf ^ 1) * kTile * S::kStride, k, p.k.n, (t + 1) * kTile, p.M);
-      load_rows<D, kTile>(sv + (buf ^ 1) * kTile * S::kStride, v, p.v.n, (t + 1) * kTile, p.M);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* kt = sk + buf * kTile * S::kStride;
-    float s[4][4] = {}, dp[4][4] = {};
-    scores<D>(s, sq, kt, ty, tx);
-    scores<D>(dp, sdo, sv + buf * kTile * S::kStride, ty, tx);
-    const int key0 = t * kTile + tx;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pr = exp2f(key0 + 8 * j < p.M ? s[i][j] * p.qscale - lse2[i] : -INFINITY);
-        sds[(ty + 16 * i) * kPS + tx + 8 * j] = pr * (dp[i][j] - delta[i]) * p.scale;
-      }
-    __syncthreads();
-    accumulate<D>(dq, sds, kt, ty, tx);
-    __syncthreads();
-  }
-  store_rows<D>(p.dq + (long long)bh * p.N * D, D, q0, p.N, dq, ty, tx);
 }
 
-// One block a 64-key tile: dV and dK over the query tiles (delta from the
-// dQ kernel).
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_fp32_dkdv_kernel(const BwdParams p) {
-  using S = Shape<D>;
-  extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);  // [kRows][kStride]
-  float* sv = sk + kRows * S::kStride;           // [kRows][kStride]
-  float* sq = sv + kRows * S::kStride;           // [2][kTile][kStride]
-  float* sdo = sq + 2 * kTile * S::kStride;      // [2][kTile][kStride]
-  float* sw = sdo + 2 * kTile * S::kStride;      // [kRows][kPS]: P^T, then dS^T
-  float* slse = sw + kRows * kPS;                // [2][kTile]
-  float* sdelta = slse + 2 * kTile;              // [2][kTile]
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
-  const int k0 = blockIdx.x * kRows;
-  const float* q = p.q.slice(b, h);
-  const float* dout = p.dout.slice(b, h);
-  const float* lse = p.lse + (long long)bh * p.N;
-  const float* delta = p.delta + (long long)bh * p.N;
-  // lse * log2(e) and delta of query tile t into buffer t & 1 (+inf and 0
-  // past the last query, so p and ds are 0 there)
-  auto load_stats = [&](int t) {
-    const int i = threadIdx.x;
-    if (i < kTile) {
-      const int row = t * kTile + i;
-      const float l = row < p.N ? lse[row] : -INFINITY;
-      slse[(t & 1) * kTile + i] = l == -INFINITY ? INFINITY : l * kLog2e;
-      sdelta[(t & 1) * kTile + i] = row < p.N ? delta[row] : 0.f;
-    }
-  };
-  load_rows<D, kRows>(sk, p.k.slice(b, h), p.k.n, k0, p.M);
-  load_rows<D, kRows>(sv, p.v.slice(b, h), p.v.n, k0, p.M);
-  load_rows<D, kTile>(sq, q, p.q.n, 0, p.N);
-  load_rows<D, kTile>(sdo, dout, p.dout.n, 0, p.N);
-  cp_async_commit();
-  load_stats(0);
+// ---- host ------------------------------------------------------------------
 
-  float4 dk[4][S::kChunks], dv[4][S::kChunks];
-  zero<D>(dk);
-  zero<D>(dv);
-  const int tiles = (p.N + kTile - 1) / kTile;
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < tiles) {
-      load_rows<D, kTile>(sq + (buf ^ 1) * kTile * S::kStride, q, p.q.n, (t + 1) * kTile, p.N);
-      load_rows<D, kTile>(sdo + (buf ^ 1) * kTile * S::kStride, dout, p.dout.n, (t + 1) * kTile,
-                          p.N);
-      cp_async_commit();
-      load_stats(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* qt = sq + buf * kTile * S::kStride;
-    const float* dot = sdo + buf * kTile * S::kStride;
-    const float* lse2 = slse + buf * kTile;
-    const float* dlt = sdelta + buf * kTile;
-    float st[4][4] = {}, dpt[4][4] = {}, ds[4][4];
-    scores<D>(st, sk, qt, ty, tx);
-    scores<D>(dpt, sv, dot, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 8 * j;
-        const float pr = exp2f(st[i][j] * p.qscale - lse2[r]);
-        sw[(ty + 16 * i) * kPS + r] = pr;
-        ds[i][j] = pr * (dpt[i][j] - dlt[r]) * p.scale;
-      }
-    __syncthreads();
-    accumulate<D>(dv, sw, dot, ty, tx);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sw[(ty + 16 * i) * kPS + tx + 8 * j] = ds[i][j];
-    __syncthreads();
-    accumulate<D>(dk, sw, qt, ty, tx);
-    __syncthreads();
-  }
-  store_rows<D>(p.dk + (long long)bh * p.M * D, D, k0, p.M, dk, ty, tx);
-  store_rows<D>(p.dv + (long long)bh * p.M * D, D, k0, p.M, dv, ty, tx);
+// The map of a split copy [2B][H][rows][cols] fp32, contiguous (hi at batch b, lo
+// at B + b), with boxes of 32 columns x box_rows rows, 128-byte swizzle, zeros
+// outside it.
+inline bool encode_split(CUtensorMap* map, const void* ptr, int cols, int rows, int H, int B,
+                         int box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr || !aligned16(ptr) || cols % 4 != 0) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)(2 * B)};
+  const cuuint64_t row = (cuuint64_t)cols * 4;
+  const cuuint64_t strides[3] = {row, row * rows, row * rows * H};
+  const cuuint32_t box[4] = {32, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Lets `Kernel` take `bytes` of dynamic shared memory, once per device.
-template <auto Kernel>
-cudaError_t allow_smem(int bytes) {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
-  return err;
-}
+// Tokens of a transposed copy's row: n rounded up to 8 (its permutation groups).
+inline int padded8(int n) { return (n + 7) / 8 * 8; }
 
-template <auto Kernel, class Params>
-cudaError_t launch(const Params& p, int blocks, int bh, int floats, cudaStream_t stream) {
-  const int bytes = floats * static_cast<int>(sizeof(float));
-  cudaError_t err = allow_smem<Kernel>(bytes);
-  if (err != cudaSuccess) return err;
-  Kernel<<<dim3(blocks, bh), kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_fwd(const FwdParams& p, int B, cudaStream_t s) {
-  return launch<flash_fp32_fwd_kernel<D>>(p, (p.N + kRows - 1) / kRows, B * p.H,
-                                          fwd_smem_floats<D>(), s);
-}
-
-template <int D>
-cudaError_t launch_dq(const BwdParams& p, int B, cudaStream_t s) {
-  return launch<flash_fp32_dq_kernel<D>>(p, (p.N + kRows - 1) / kRows, B * p.H,
-                                         bwd_smem_floats<D>(), s);
-}
-
-template <int D>
-cudaError_t launch_dkdv(const BwdParams& p, int B, cudaStream_t s) {
-  return launch<flash_fp32_dkdv_kernel<D>>(p, (p.M + kRows - 1) / kRows, B * p.H,
-                                           bwd_smem_floats<D>(), s);
-}
-
-inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
-
-// An operand from its (b, h, n, d) strides: unit stride along d, the others
-// multiples of 4 (a dim of length 1 may have any stride), a 16-byte aligned base.
-inline bool make_operand(Operand* o, const void* ptr, const long long* st, int B, int H, int n) {
-  *o = Operand{static_cast<const float*>(ptr), st[0], st[1], st[2]};
-  return ptr != nullptr && aligned16(ptr) && st[3] == 1 && (B == 1 || st[0] % 4 == 0) &&
-         (H == 1 || st[1] % 4 == 0) && (n == 1 || st[2] % 4 == 0);
-}
-
-template <class Params, class Fn>
-int dispatch(int D, const Params& p, int B, cudaStream_t s, Fn) {
+template <class Fn, class... Args>
+int dispatch_width(int D, Args&&... args) {
   switch (D) {
-    case 32: return Fn::template run<32>(p, B, s);
-    case 64: return Fn::template run<64>(p, B, s);
-    case 80: return Fn::template run<80>(p, B, s);
-    case 88: return Fn::template run<88>(p, B, s);
-    case 104: return Fn::template run<104>(p, B, s);
+    case 32: return Fn::template run<32>(args...);
+    case 64: return Fn::template run<64>(args...);
+    case 80: return Fn::template run<80>(args...);
+    case 88: return Fn::template run<88>(args...);
+    case 104: return Fn::template run<104>(args...);
     default: return cudaErrorInvalidValue;
   }
-}
-
-struct RunFwd {
-  template <int D>
-  static int run(const FwdParams& p, int B, cudaStream_t s) { return launch_fwd<D>(p, B, s); }
-};
-
-struct RunDq {
-  template <int D>
-  static int run(const BwdParams& p, int B, cudaStream_t s) { return launch_dq<D>(p, B, s); }
-};
-
-struct RunDkdv {
-  template <int D>
-  static int run(const BwdParams& p, int B, cudaStream_t s) { return launch_dkdv<D>(p, B, s); }
-};
-
-// The backward's parameters from an entry point's arguments (both launches
-// take the same); false if an operand breaks the contract.
-inline bool bwd_params(BwdParams* p, const void* q, const void* k, const void* v, const void* out,
-                       const void* dout, const void* lse, void* delta, void* dq, void* dk,
-                       void* dv, int B, int H, int N, int M, const long long* strides,
-                       float scale, float qscale) {
-  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B * H > 65535 || lse == nullptr ||
-      delta == nullptr || !aligned16(dq) || !aligned16(dk) || !aligned16(dv) ||
-      !make_operand(&p->q, q, strides, B, H, N) || !make_operand(&p->k, k, strides + 4, B, H, M) ||
-      !make_operand(&p->v, v, strides + 8, B, H, M) ||
-      !make_operand(&p->o, out, strides + 12, B, H, N) ||
-      !make_operand(&p->dout, dout, strides + 16, B, H, N))
-    return false;
-  p->lse = static_cast<const float*>(lse);
-  p->delta = static_cast<float*>(delta);
-  p->dq = static_cast<float*>(dq);
-  p->dk = static_cast<float*>(dk);
-  p->dv = static_cast<float*>(dv);
-  p->H = H;
-  p->N = N;
-  p->M = M;
-  p->scale = scale;
-  p->qscale = qscale;
-  return true;
 }
 
 }  // namespace

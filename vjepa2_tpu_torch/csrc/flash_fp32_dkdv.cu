@@ -1,19 +1,245 @@
-// The fp32 BHND flash backward's second build unit and C entry point (the
-// kernel: `flash_fp32.cuh`, `flash_fp32_dkdv_kernel`), launched after
-// `vjepa2_flash_bwd_fp32_dq` (`flash_fp32_dq.cu`) with the same arguments.
+// The fp32 BHND flash backward's second launch, dK and dV, on the tensor
+// cores (3xTF32; the design and the contract: `flash_fp32.cuh`), after the
+// dQ launch (`flash_fp32_dq.cu`) on the same stream.
+//
+// One block a 64-key tile of one (b, h): two warpgroups on the same 64 keys;
+// 32-query tiles of Q and dO (token-major hi/lo), Q^T and dO^T
+// (feature-major hi/lo) and the queries' lse * log2(e) and delta stream
+// through the ring (`refill`). Warpgroup 0 holds K's fragments,
+// makes S^T = K Q^T and P^T, hands P^T to warpgroup 1 through shared memory
+// (double-buffered, one named barrier a tile) and adds P^T dO to dV; warpgroup 1 holds V's fragments, makes dP^T = V dO^T,
+// dS^T = P^T (dP^T - delta) scale, and adds dS^T Q to dK. Each tile's
+// product goes to dV's or dK's running sum in two column blocks (halves of
+// D), so that a block's fresh accumulator costs a quarter of D in registers.
 
 #include "flash_fp32.cuh"
 
-// dk and dv [B, H, M, D] contiguous fp32, from the delta the dQ launch wrote.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int vjepa2_flash_bwd_fp32_dkdv(const void* q, const void* k, const void* v,
-                                        const void* out, const void* dout, const void* lse,
-                                        void* delta, void* dq, void* dk, void* dv, int B, int H,
-                                        int D, int N, int M, const long long* strides,
-                                        float scale, float qscale, void* stream) {
-  BwdParams p;
-  if (!bwd_params(&p, q, k, v, out, dout, lse, delta, dq, dk, dv, B, H, N, M, strides, scale,
-                  qscale))
+namespace {
+
+constexpr int kBlockK = 64;  // keys a block
+constexpr int kB = 32;       // queries a tile
+
+template <int D>
+struct DkdvCfg {
+  static constexpr int kQ = nat_bytes(D, kB);  // one part of a q or do tile
+  static constexpr int kQt = tr_bytes(D, kB);  // one part of a q^T or do^T tile
+  static constexpr int kStats = 1024;          // lse2 and delta, [2][kB] fp32, padded
+  static constexpr int kStage = 4 * kQ + 4 * kQt + kStats;
+  static constexpr int kX = 2 * kXBytes;       // P^T, two buffers
+  static constexpr int kStages = cmin(3, (kSmemMax - kX - kSlack) / kStage);
+  static constexpr bool kProducer = D <= 64;  // the consumers fit in 168 registers
+  static constexpr int kThreads = block_threads(kProducer);
+  static constexpr int kSmem = kX + kStages * kStage + kSlack;
+  static_assert(kStages >= 1 && kSmem <= kSmemMax, "the tiles fit");
+};
+
+struct DkdvParams {
+  CUtensorMap tm_q, tm_do, tm_qt, tm_dot;  // the pre-pass's split copies
+  const float* k_nat;                      // [2][B][H][M][D]
+  const float* v_nat;
+  const float* delta;                      // [B, H, Np]
+  const float* lse2;
+  float* dk;                               // [B, H, M, D]
+  float* dv;
+  int B, H, N, M, Np;
+  float scale, qscale;
+};
+
+// Warpgroup kWg's loop: its first product (S^T or dP^T), the trade, and its
+// output (dV or dK), both column blocks.
+template <int D, int kWg, class Load>
+__device__ __forceinline__ void dkdv_consumer(const DkdvParams& p, unsigned char* stages,
+                                              float* xbuf, uint64_t* full, uint64_t* empty,
+                                              const uint32_t (&ah)[D / 8][4],
+                                              const uint32_t (&al)[D / 8][4], int b, int h, int k0,
+                                              const Load& load) {
+  using C = DkdvCfg<D>;
+  constexpr int kW0 = half_width(D), kW1 = D - kW0;
+  const int t = threadIdx.x % kWgThreads, lane = t & 31, t4 = lane & 3;
+  const long long bh = (long long)b * p.H + h;
+  float run[D / 2];  // dV (warpgroup 0) or dK (1), 64 keys x D
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) run[i] = 0.f;
+  const int n_qt = (p.N + kB - 1) / kB;
+  for (int i = 0; i < n_qt; ++i) {
+    const int s = i % C::kStages;
+    unsigned char* st = stages + s * C::kStage;
+    const float* s_l2 = reinterpret_cast<const float*>(st + 4 * C::kQ + 4 * C::kQt);
+    const float* s_dl = s_l2 + kB;
+    mbar_wait(&full[s], (i / C::kStages) & 1);
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+    float x[16];
+    const unsigned char* bt = st + kWg * 2 * C::kQ;
+    wgmma_fence();
+    mma3_rs<kB, D / 8, kB>(x, ah, al, opaque(desc_k<kB>(bt, 0)), opaque(desc_k<kB>(bt + C::kQ, 0)), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    float* buf = xbuf + (i & 1) * (kXBytes / 4);
+    if constexpr (kWg == 0) {  // P^T; queries past N have lse2 = +inf, so p = 0
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[4 * nt + e] = exp2f(x[4 * nt + e] * p.qscale - s_l2[nt * 8 + 2 * t4 + (e & 1)]);
+        }
+      }
+      put16(buf, x);
+      bar_sync(1, 2 * kWgThreads);
+    } else {  // dS^T
+      float pt[16];
+      bar_sync(1, 2 * kWgThreads);
+      get16(buf, pt);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + 2 * t4 + (e & 1);
+          x[4 * nt + e] = pt[4 * nt + e] * (x[4 * nt + e] - s_dl[c]) * p.scale;
+        }
+      }
+    }
+    uint32_t fh[4][4], fl[4][4];  // P^T or dS^T as A fragments
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) split_tile(fh[nt], fl[nt], x + 4 * nt);
+    // dV += P^T dO (B: dO^T) or dK += dS^T Q (B: Q^T), a column block at a time
+    const unsigned char* tt = st + 4 * C::kQ + (kWg == 0 ? 2 : 0) * C::kQt;
+    const uint64_t t_hi = opaque(desc_k<D>(tt, 0)), t_lo = opaque(desc_k<D>(tt + C::kQt, 0));
+    {
+      float part[kW0 / 2];
+      wgmma_fence();
+      mma3_rs<kW0, 4, D>(part, fh, fl, t_hi, t_lo, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int k = 0; k < kW0 / 2; ++k) run[k] += part[k];
+    }
+    {
+      float part[kW1 / 2];
+      const uint64_t rows = (uint64_t)(kW0 * kRowBytes) >> 4;  // descriptor units
+      wgmma_fence();
+      mma3_rs<kW1, 4, D>(part, fh, fl, t_hi + rows, t_lo + rows, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int k = 0; k < kW1 / 2; ++k) run[kW0 / 2 + k] += part[k];
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if constexpr (!C::kProducer) refill<C::kStages>(empty, i, n_qt, load);
+  }
+  store_rows<D, D>((kWg == 0 ? p.dv : p.dk) + bh * p.M * D, run, k0, 0, p.M);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
+    flash_fp32_dkdv_kernel(const __grid_constant__ DkdvParams p) {
+  using C = DkdvCfg<D>;
+  constexpr int kChunks = (D + 31) / 32;
+  extern __shared__ unsigned char smem_raw[];
+  // [kStages][q hi, q lo, do hi, do lo, q^T hi, q^T lo, do^T hi, do^T lo, lse2, delta]
+  unsigned char* stages = align1024(smem_raw);
+  float* xbuf = reinterpret_cast<float*>(stages + C::kStages * C::kStage);  // [2] P^T
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + C::kStages * C::kStage + C::kX);
+  uint64_t* empty = full + C::kStages;
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBlockK;
+  const long long bh = (long long)b * p.H + h;
+  const int n_qt = (p.N + kB - 1) / kB;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load = [&](int i) {  // query tile i into its stage, by one thread
+    const int s = i % C::kStages, q0 = i * kB;
+    unsigned char* st = stages + s * C::kStage;
+    mbar_expect_tx(&full[s], 4 * C::kQ + 4 * C::kQt + 2 * kB * 4);
+    for (int part = 0; part < 2; ++part) {
+      const int bb = part * p.B + b;
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(st + part * C::kQ + c * kB * kRowBytes, &p.tm_q, 32 * c, q0, h, bb, &full[s]);
+        tma_load(st + (2 + part) * C::kQ + c * kB * kRowBytes, &p.tm_do, 32 * c, q0, h, bb,
+                 &full[s]);
+      }
+      tma_load(st + 4 * C::kQ + part * C::kQt, &p.tm_qt, q0, 0, h, bb, &full[s]);
+      tma_load(st + 4 * C::kQ + (2 + part) * C::kQt, &p.tm_dot, q0, 0, h, bb, &full[s]);
+    }
+    unsigned char* stats = st + 4 * C::kQ + 4 * C::kQt;
+    bulk_load(stats, p.lse2 + bh * p.Np + q0, kB * 4, &full[s]);
+    bulk_load(stats + kB * 4, p.delta + bh * p.Np + q0, kB * 4, &full[s]);
+  };
+  const int wg = threadIdx.x / kWgThreads;
+  if constexpr (C::kProducer) {
+    if (wg == 2) {
+      if (threadIdx.x == 2 * kWgThreads) produce<C::kStages>(empty, n_qt, load);
+      return;
+    }
+  } else if (threadIdx.x == kLoader) {
+    for (int i = 0; i < C::kStages && i < n_qt; ++i) load(i);
+  }
+
+  // warpgroup 0: K's fragments, P^T and dV; 1: V's, dP^T, dS^T and dK
+  uint32_t ah[D / 8][4], al[D / 8][4];
+  const long long part = (long long)p.B * p.H * p.M * D;
+  load_fragments<D, 0, D / 8>(ah, al, (wg == 0 ? p.k_nat : p.v_nat) + bh * p.M * D, part, k0, p.M);
+  if (wg == 0) {
+    dkdv_consumer<D, 0>(p, stages, xbuf, full, empty, ah, al, b, h, k0, load);
+  } else {
+    dkdv_consumer<D, 1>(p, stages, xbuf, full, empty, ah, al, b, h, k0, load);
+  }
+}
+
+struct RunDkdv {
+  template <int D>
+  static int run(const DkdvParams& p, cudaStream_t s) {
+    using C = DkdvCfg<D>;
+    cudaError_t err = allow_smem<flash_fp32_dkdv_kernel<D>>(C::kSmem);
+    if (err != cudaSuccess) return err;
+    flash_fp32_dkdv_kernel<D>
+        <<<dim3((p.M + kBlockK - 1) / kBlockK, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
+    return cudaGetLastError();
+  }
+};
+
+}  // namespace
+
+// dk and dv [B, H, M, D] contiguous fp32, after `vjepa2_flash_bwd_fp32_dq` on
+// the same stream, from the pre-pass's copies (`vjepa2_flash_fp32_prepass_bwd`:
+// q_nat, k_nat, v_nat, do_nat [2][B][H][N|M][D]; q_tr, do_tr
+// [2][B][H][D][padded8(N)]) and statistics (delta, lse2 [B, H, Np], Np: N
+// rounded up to 64). Returns the cudaError_t of the launch (0 on success).
+extern "C" int vjepa2_flash_bwd_fp32_dkdv(const void* q_nat, const void* k_nat,
+                                          const void* v_nat, const void* do_nat, const void* q_tr,
+                                          const void* do_tr, const void* delta, const void* lse2,
+                                          void* dk, void* dv, int B, int H, int D, int N, int M,
+                                          int Np, float scale, float qscale, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 32767 || H > 65535 || Np < N || Np % 64 != 0 ||
+      k_nat == nullptr || v_nat == nullptr || !aligned16(delta) || !aligned16(lse2) ||
+      !aligned16(dk) || !aligned16(dv))
     return cudaErrorInvalidValue;
-  return dispatch(D, p, B, static_cast<cudaStream_t>(stream), RunDkdv{});
+  DkdvParams p;
+  if (!encode_split(&p.tm_q, q_nat, D, N, H, B, kB) || !encode_split(&p.tm_do, do_nat, D, N, H, B, kB) ||
+      !encode_split(&p.tm_qt, q_tr, padded8(N), D, H, B, D) ||
+      !encode_split(&p.tm_dot, do_tr, padded8(N), D, H, B, D))
+    return cudaErrorInvalidValue;
+  p.k_nat = static_cast<const float*>(k_nat);
+  p.v_nat = static_cast<const float*>(v_nat);
+  p.delta = static_cast<const float*>(delta);
+  p.lse2 = static_cast<const float*>(lse2);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.B = B;
+  p.H = H;
+  p.N = N;
+  p.M = M;
+  p.Np = Np;
+  p.scale = scale;
+  p.qscale = qscale;
+  return dispatch_width<RunDkdv>(D, p, static_cast<cudaStream_t>(stream));
 }

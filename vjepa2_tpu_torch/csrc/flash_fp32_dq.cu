@@ -1,21 +1,221 @@
-// The fp32 BHND flash backward's first build unit and C entry point (the
-// kernel: `flash_fp32.cuh`, `flash_fp32_dq_kernel`). B4/B5 on fp32 operands
-// is two launches with the same arguments: this one (delta, then dQ), then
-// `vjepa2_flash_bwd_fp32_dkdv` (`flash_fp32_dkdv.cu`), which reads delta.
+// The fp32 BHND flash backward's first launch, dQ, on the tensor cores
+// (3xTF32; the design and the contract: `flash_fp32.cuh`). B4/B5 on fp32
+// operands is two launches after the pre-pass (`flash_fp32_split.cu`): this
+// one, then dK/dV (`flash_fp32_dkdv.cu`).
+//
+// One block a 64-query tile of one (b, h): two warpgroups on the same 64
+// queries; 32-key tiles of K and V (token-major hi/lo) and K^T
+// (feature-major hi/lo) stream through the ring (`refill`).
+// Warpgroup 0 holds Q's fragments and makes S = Q K^T and P = exp2(S * scale
+// * log2(e) - lse * log2(e)); warpgroup 1 holds dO's and makes dP = dO V^T.
+// They trade P and dP through shared memory (one named barrier a tile, the
+// buffer double-buffered), both form dS = P (dP - delta) scale as A
+// fragments, and each adds dS K for its half of dQ's features to its running
+// sum: the two products a tile run side by side on the tensor cores.
 
 #include "flash_fp32.cuh"
 
-// dq [B, H, N, D] contiguous fp32 and delta [B, H, N] fp32 = rowsum(dout *
-// out); lse [B, H, N] contiguous fp32, natural log. strides: (b, h, n, d) of
-// q, k, v, out and dout. Returns the cudaError_t of the launch (0 on success).
-extern "C" int vjepa2_flash_bwd_fp32_dq(const void* q, const void* k, const void* v,
-                                        const void* out, const void* dout, const void* lse,
-                                        void* delta, void* dq, void* dk, void* dv, int B, int H,
-                                        int D, int N, int M, const long long* strides,
-                                        float scale, float qscale, void* stream) {
-  BwdParams p;
-  if (!bwd_params(&p, q, k, v, out, dout, lse, delta, dq, dk, dv, B, H, N, M, strides, scale,
-                  qscale))
+namespace {
+
+constexpr int kBlockQ = 64;  // queries a block
+constexpr int kB = 32;       // keys a tile
+
+template <int D>
+struct DqCfg {
+  static constexpr int kK = nat_bytes(D, kB);  // one part of a k or v tile
+  static constexpr int kKt = tr_bytes(D, kB);  // one part of a k^T tile
+  static constexpr int kStage = 4 * kK + 2 * kKt;
+  static constexpr int kX = 2 * 2 * kXBytes;   // P and dP, two buffers
+  static constexpr int kStages = cmin(3, (kSmemMax - kX - kSlack) / kStage);
+  static constexpr bool kProducer = D <= 64;  // the consumers fit in 168 registers
+  static constexpr int kThreads = block_threads(kProducer);
+  static constexpr int kSmem = kX + kStages * kStage + kSlack;
+  static_assert(kStages >= 1 && kSmem <= kSmemMax, "the tiles fit");
+};
+
+struct DqParams {
+  CUtensorMap tm_k, tm_v, tm_kt;  // the pre-pass's split copies
+  const float* q_nat;             // [2][B][H][N][D]
+  const float* do_nat;
+  const float* delta;             // [B, H, Np]
+  const float* lse2;              // [B, H, Np], lse * log2(e)
+  float* dq;                      // [B, H, N, D]
+  int B, H, N, M, Np;
+  float scale, qscale;
+};
+
+// Warpgroup kWg's loop: its first product (S or dP) with the A fragments
+// ah/al, the trade, dS, and its kW columns of dQ from column col0.
+template <int D, int kWg, class Load>
+__device__ __forceinline__ void dq_consumer(const DqParams& p, unsigned char* stages,
+                                            float* xbuf, uint64_t* full, uint64_t* empty,
+                                            const uint32_t (&ah)[D / 8][4],
+                                            const uint32_t (&al)[D / 8][4], int b, int h, int q0,
+                                            const Load& load) {
+  using C = DqCfg<D>;
+  constexpr int wg = kWg, col0 = kWg == 0 ? 0 : half_width(D);
+  constexpr int kW = kWg == 0 ? half_width(D) : D - half_width(D);
+  const int t = threadIdx.x % kWgThreads, warp = t >> 5, lane = t & 31, t4 = lane & 3;
+  const long long bh = (long long)b * p.H + h;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;  // < Np: the statistics are padded
+    l2[r] = p.lse2[bh * p.Np + row];
+    dl[r] = p.delta[bh * p.Np + row];
+  }
+  float run[kW / 2], part[kW / 2];
+#pragma unroll
+  for (int i = 0; i < kW / 2; ++i) run[i] = 0.f;
+  const int n_kt = (p.M + kB - 1) / kB;
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % C::kStages, k0 = j * kB;
+    unsigned char* st = stages + s * C::kStage;
+    mbar_wait(&full[s], (j / C::kStages) & 1);
+    // S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1)
+    float x[16], y[16];
+    const unsigned char* bt = st + wg * 2 * C::kK;
+    wgmma_fence();
+    mma3_rs<kB, D / 8, kB>(x, ah, al, opaque(desc_k<kB>(bt, 0)), opaque(desc_k<kB>(bt + C::kK, 0)), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    if constexpr (wg == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = k0 + nt * 8 + 2 * t4 + (e & 1) < p.M;
+          x[4 * nt + e] = ok ? exp2f(x[4 * nt + e] * p.qscale - l2[e >> 1]) : 0.f;  // P
+        }
+      }
+    }
+    float* mine = xbuf + ((j & 1) * 2 + wg) * (kXBytes / 4);
+    put16(mine, x);
+    bar_sync(1, 2 * kWgThreads);
+    get16(xbuf + ((j & 1) * 2 + (wg ^ 1)) * (kXBytes / 4), y);
+    const float(&pr)[16] = wg == 0 ? x : y;
+    const float(&dp)[16] = wg == 0 ? y : x;
+    uint32_t dh[4][4], dlo[4][4];  // dS's A fragments
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[e] = pr[4 * nt + e] * (dp[4 * nt + e] - dl[e >> 1]) * p.scale;
+      split_tile(dh[nt], dlo[nt], ds);
+    }
+    // this warpgroup's columns of dS K, afresh, then into the running sum
+    const unsigned char* kt = st + 4 * C::kK;
+    wgmma_fence();
+    mma3_rs<kW, 4, D>(part, dh, dlo, opaque(desc_k<D>(kt, col0)), opaque(desc_k<D>(kt + C::kKt, col0)), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < kW / 2; ++i) run[i] += part[i];
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if constexpr (!C::kProducer) refill<C::kStages>(empty, j, n_kt, load);
+  }
+  store_rows<D, kW>(p.dq + bh * p.N * D, run, q0, col0, p.N);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
+    flash_fp32_dq_kernel(const __grid_constant__ DqParams p) {
+  using C = DqCfg<D>;
+  constexpr int kChunks = (D + 31) / 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = align1024(smem_raw);  // [kStages][k hi, k lo, v hi, v lo, k^T hi, k^T lo]
+  float* xbuf = reinterpret_cast<float*>(stages + C::kStages * C::kStage);  // [2][P, dP]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + C::kStages * C::kStage + C::kX);
+  uint64_t* empty = full + C::kStages;
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
+  const int n_kt = (p.M + kB - 1) / kB;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load = [&](int j) {  // key tile j into its stage, by one thread
+    const int s = j % C::kStages;
+    unsigned char* st = stages + s * C::kStage;
+    mbar_expect_tx(&full[s], C::kStage);
+    for (int part = 0; part < 2; ++part) {
+      const int bb = part * p.B + b;
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(st + part * C::kK + c * kB * kRowBytes, &p.tm_k, 32 * c, j * kB, h, bb, &full[s]);
+        tma_load(st + (2 + part) * C::kK + c * kB * kRowBytes, &p.tm_v, 32 * c, j * kB, h, bb,
+                 &full[s]);
+      }
+      tma_load(st + 4 * C::kK + part * C::kKt, &p.tm_kt, j * kB, 0, h, bb, &full[s]);
+    }
+  };
+  const int wg = threadIdx.x / kWgThreads;
+  if constexpr (C::kProducer) {
+    if (wg == 2) {
+      if (threadIdx.x == 2 * kWgThreads) produce<C::kStages>(empty, n_kt, load);
+      return;
+    }
+  } else if (threadIdx.x == kLoader) {
+    for (int j = 0; j < C::kStages && j < n_kt; ++j) load(j);
+  }
+
+  // warpgroup 0: Q's fragments, S and P, dQ's first columns; 1: dO's, dP, the rest
+  uint32_t ah[D / 8][4], al[D / 8][4];
+  const long long bh = (long long)b * p.H + h, part = (long long)p.B * p.H * p.N * D;
+  load_fragments<D, 0, D / 8>(ah, al, (wg == 0 ? p.q_nat : p.do_nat) + bh * p.N * D, part, q0, p.N);
+  if (wg == 0) {
+    dq_consumer<D, 0>(p, stages, xbuf, full, empty, ah, al, b, h, q0, load);
+  } else {
+    dq_consumer<D, 1>(p, stages, xbuf, full, empty, ah, al, b, h, q0, load);
+  }
+}
+
+struct RunDq {
+  template <int D>
+  static int run(const DqParams& p, cudaStream_t s) {
+    using C = DqCfg<D>;
+    cudaError_t err = allow_smem<flash_fp32_dq_kernel<D>>(C::kSmem);
+    if (err != cudaSuccess) return err;
+    flash_fp32_dq_kernel<D><<<dim3((p.N + kBlockQ - 1) / kBlockQ, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
+    return cudaGetLastError();
+  }
+};
+
+}  // namespace
+
+// dq [B, H, N, D] contiguous fp32, after `vjepa2_flash_fp32_prepass_bwd` on
+// the same stream: q_nat, k_nat, v_nat, do_nat ([2][B][H][N|M][D]) and k_tr
+// ([2][B][H][D][padded8(M)]) are its split copies, delta and lse2 [B, H, Np]
+// its statistics (Np: N rounded up to 64). Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int vjepa2_flash_bwd_fp32_dq(const void* q_nat, const void* k_nat, const void* v_nat,
+                                        const void* do_nat, const void* k_tr, const void* delta,
+                                        const void* lse2, void* dq, int B, int H, int D, int N,
+                                        int M, int Np, float scale, float qscale, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 32767 || H > 65535 || Np < N || Np % 64 != 0 ||
+      q_nat == nullptr || do_nat == nullptr || delta == nullptr || lse2 == nullptr || !aligned16(dq))
     return cudaErrorInvalidValue;
-  return dispatch(D, p, B, static_cast<cudaStream_t>(stream), RunDq{});
+  DqParams p;
+  if (!encode_split(&p.tm_k, k_nat, D, M, H, B, kB) || !encode_split(&p.tm_v, v_nat, D, M, H, B, kB) ||
+      !encode_split(&p.tm_kt, k_tr, padded8(M), D, H, B, D))
+    return cudaErrorInvalidValue;
+  p.q_nat = static_cast<const float*>(q_nat);
+  p.do_nat = static_cast<const float*>(do_nat);
+  p.delta = static_cast<const float*>(delta);
+  p.lse2 = static_cast<const float*>(lse2);
+  p.dq = static_cast<float*>(dq);
+  p.B = B;
+  p.H = H;
+  p.N = N;
+  p.M = M;
+  p.Np = Np;
+  p.scale = scale;
+  p.qscale = qscale;
+  return dispatch_width<RunDq>(D, p, static_cast<cudaStream_t>(stream));
 }

@@ -12,9 +12,9 @@ port: bf16 and fp32 operands each have their kernels.
 its forward saves (q, k, v, out, lse) and its backward is
 `flash_attention_bhnd_bwd`. On a CUDA tensor each launches its hand-written
 Hopper kernel or raises: bf16 operands `csrc/flash_fwd_bhnd.cu` and
-`csrc/flash_bwd_bhnd.cu`; fp32 operands `csrc/flash_fp32.cuh` (full fp32 on
-the CUDA cores, plain attention only: RoPE, segment ids, kv_valid and the
-causal mask raise there, ROADMAP queue B). On a CPU tensor they run
+`csrc/flash_bwd_bhnd.cu`; fp32 operands `csrc/flash_fp32.cuh` (3xTF32 on
+the tensor cores after a split pre-pass, plain attention only: RoPE, segment
+ids, kv_valid and the causal mask raise there, ROADMAP queue B). On a CPU tensor they run
 `flash_attention_bhnd_plain` and `flash_attention_bhnd_bwd_plain`, the plain
 versions of both. There is no other route. One CUDA backward
 serves both TPU backwards: it computes their one function, with no gate.
@@ -328,7 +328,7 @@ def _launch(name, argtypes, tensors, tma, ints, stride_of, floats, dev):
 
 
 def vec4_ready(t) -> bool:
-    """Whether the fp32 kernels' 16-byte copies can read ``t`` in place: unit
+    """Whether the fp32 pre-pass's 16-byte reads can take ``t`` in place: unit
     stride along d, every other stride (of a dim longer than 1) a multiple of
     4 elements, and a 16-byte aligned base. The C entry points check the
     same rule."""
@@ -343,9 +343,80 @@ def vec4_operand(t):
     return t if vec4_ready(t) else t.clone(memory_format=torch.contiguous_format)
 
 
+def fp32_stat_rows(n: int) -> int:
+    """N rounded up to the fp32 dQ launch's 64-query block: the length of the
+    backward's delta and lse*log2(e) rows."""
+    return -(-n // 64) * 64
+
+
+@functools.lru_cache(maxsize=256)
+def fp32_scratch(B: int, H: int, N: int, M: int, D: int, backward: bool) -> tuple[tuple, int]:
+    """The fp32 kernels' scratch (`csrc/flash_fp32_split.cu`): (name, byte
+    offset) pairs (256-aligned) in one buffer, and its size, of each operand's tf32 split
+    copies, hi and lo: token-major [2, B, H, n, D] (``*_nat``) and
+    feature-major [2, B, H, D, n rounded up to 8] (``*_tr``); the backward's
+    delta and lse*log2(e) rows [B, H, `fp32_stat_rows`]. The forward splits q
+    and k token-major and v feature-major; the backward q, k, v, do token-major
+    and q, k, do feature-major."""
+    def nat(n):
+        return 2 * B * H * n * D * 4
+
+    def tr(n):
+        return 2 * B * H * D * (-(-n // 8) * 8) * 4
+
+    if backward:
+        stats = B * H * fp32_stat_rows(N) * 4
+        sizes = {"q_nat": nat(N), "q_tr": tr(N), "k_nat": nat(M), "k_tr": tr(M),
+                 "v_nat": nat(M), "do_nat": nat(N), "do_tr": tr(N), "delta": stats,
+                 "lse2": stats}
+    else:
+        sizes = {"q_nat": nat(N), "k_nat": nat(M), "v_tr": tr(M)}
+    offsets, total = [], 0
+    for name, size in sizes.items():
+        offsets.append((name, total))
+        total += -(-size // 256) * 256
+    return tuple(offsets), total
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FP32_ARGTYPES = {
+    "vjepa2_flash_fp32_prepass_fwd": _build.launcher_argtypes(6, 5, 0),
+    "vjepa2_flash_fwd_fp32": _build.launcher_argtypes(5, 5, 1),
+    "vjepa2_flash_fp32_prepass_bwd": _build.launcher_argtypes(15, 6, 0),
+    "vjepa2_flash_bwd_fp32_dq": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
+    "vjepa2_flash_bwd_fp32_dkdv": [_P] * 10 + [_I] * 6 + [_F] * 2 + [_P],
+}
+
+
+def _call_fp32(name, *args, dev):
+    """Call an fp32 entry point on ``dev``'s current stream with ``args``
+    (tensors, addresses, ints, a strides array, floats, in its order)."""
+    lib, fn = _build.function(name, _FP32_ARGTYPES[name])
+    args = [_build.ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, name)
+
+
+def _strides(*tensors):
+    """The element strides of ``tensors``, one after another, as a C array."""
+    flat = [s for t in tensors for s in t.stride()]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _scratch(dev, B, H, N, M, D, backward):
+    """The scratch buffer (the caller holds it until the launches are
+    enqueued; the allocator then reuses it in stream order) and each piece's
+    device address."""
+    offsets, size = fp32_scratch(B, H, N, M, D, backward)
+    buf = torch.empty(size, dtype=torch.uint8, device=dev)
+    return buf, {name: buf.data_ptr() + off for name, off in offsets}
+
+
 def _flash_fwd_fp32(q, k, v, scale, cos, seg_q, causal, kv_valid_len):
-    """The fp32 forward (`csrc/flash_fp32.cuh`): out in BNHD memory seen as
-    BHND, as the bf16 kernel writes it, and lse."""
+    """The fp32 forward (`csrc/flash_fp32_split.cu`, then
+    `csrc/flash_fp32_fwd.cu`): out in BNHD memory seen as BHND, as the bf16
+    kernel writes it, and lse."""
     global LAUNCHES_FP32
     B, H, N, D = q.shape
     M = k.shape[2]
@@ -355,14 +426,19 @@ def _flash_fwd_fp32(q, k, v, scale, cos, seg_q, causal, kv_valid_len):
     out = torch.empty((B, N, H, D), dtype=torch.float32, device=dev).transpose(1, 2)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    _launch("vjepa2_flash_fwd_fp32", _build.launcher_argtypes(5, 5, 1), [q, k, v, out, lse], (),
-            (B, H, D, N, M), ((0, 1, 2, 3), ()), (scale * _build.LOG2E,), dev)
+    buf, at = _scratch(dev, B, H, N, M, D, False)
+    _call_fp32("vjepa2_flash_fp32_prepass_fwd", q, k, v, at["q_nat"], at["k_nat"], at["v_tr"],
+               B, H, D, N, M, _strides(q, k, v), dev=dev)
+    _call_fp32("vjepa2_flash_fwd_fp32", at["q_nat"], at["k_nat"], at["v_tr"], out, lse,
+               B, H, D, N, M, _strides(out), scale * _build.LOG2E, dev=dev)
     LAUNCHES_FP32 += 1
     return out, lse
 
 
 def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, seg_q, causal, kv_valid_len):
-    """The fp32 backward (`csrc/flash_fp32.cuh`): dq, dk, dv contiguous."""
+    """The fp32 backward (`csrc/flash_fp32_split.cu`, then
+    `csrc/flash_fp32_dq.cu` and `csrc/flash_fp32_dkdv.cu`): dq, dk, dv
+    contiguous."""
     global LAUNCHES_BWD_FP32
     B, H, N, D = q.shape
     M = k.shape[2]
@@ -372,13 +448,21 @@ def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, seg_q, causal, kv_valid_l
     dq = torch.empty((B, H, N, D), dtype=torch.float32, device=dev)
     dk = torch.empty((B, H, M, D), dtype=torch.float32, device=dev)
     dv = torch.empty((B, H, M, D), dtype=torch.float32, device=dev)
-    delta = torch.empty((B, H, N), dtype=torch.float32, device=dev)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    # two launches on one stream: delta and dQ, then dK/dV, which reads delta
-    for name in ("vjepa2_flash_bwd_fp32_dq", "vjepa2_flash_bwd_fp32_dkdv"):
-        _launch(name, _build.launcher_argtypes(10, 5, 2),
-                [q, k, v, out, do, lse, delta, dq, dk, dv], (), (B, H, D, N, M),
-                ((0, 1, 2, 3, 4), ()), (scale, scale * _build.LOG2E), dev)
+    qscale, Np = scale * _build.LOG2E, fp32_stat_rows(N)
+    buf, at = _scratch(dev, B, H, N, M, D, True)
+    _call_fp32("vjepa2_flash_fp32_prepass_bwd", q, k, v, out, do, lse,
+               *(at[n] for n in ("q_nat", "q_tr", "k_nat", "k_tr", "v_nat", "do_nat", "do_tr",
+                                 "delta", "lse2")),
+               B, H, D, N, M, Np, _strides(q, k, v, out, do), dev=dev)
+    # dQ, then dK/dV, on one stream, from the pre-pass's copies and statistics
+    _call_fp32("vjepa2_flash_bwd_fp32_dq",
+               *(at[n] for n in ("q_nat", "k_nat", "v_nat", "do_nat", "k_tr", "delta", "lse2")),
+               dq, B, H, D, N, M, Np, scale, qscale, dev=dev)
+    _call_fp32("vjepa2_flash_bwd_fp32_dkdv",
+               *(at[n] for n in ("q_nat", "k_nat", "v_nat", "do_nat", "q_tr", "do_tr", "delta",
+                                 "lse2")),
+               dk, dv, B, H, D, N, M, Np, scale, qscale, dev=dev)
     LAUNCHES_BWD_FP32 += 1
     return dq, dk, dv
 

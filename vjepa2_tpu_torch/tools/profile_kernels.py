@@ -25,8 +25,10 @@ launch and the GEMM), ``ln:`` and a name of ``LN_SHAPES`` (B6: the forward,
 the statistics-only forward that B7 and B8 launch first, the backward, the
 yardsticks `F.layer_norm` and its autograd backward, and `x.clone` and
 `x.sum`, which move the forward's and the statistics launch's bytes),
-``fp32:`` and a name of ``FP32_SHAPES`` (the fp32 BHND forward and its dQ
-and dK/dV backward launches, on fp32 operands as the probes give them; the
+``fp32:`` and a name of ``FP32_SHAPES`` (the fp32 BHND forward and backward:
+their split pre-pass, the forward, dQ and dK/dV launches, on fp32 operands as
+the probes give them, with each call's bound, each call traced in its own
+window, so that the split pre-pass's device time is each call's own; the
 host clock there takes 3 calls, each call taking tens to hundreds of ms).
 
 The ``ln`` family times each call on its own and twice: cold, with a 64 MiB
@@ -141,16 +143,28 @@ def _prologue_calls(kernel):
 
 def _fp32_calls(c, dev, name, seqs, rope):
     """The fp32 BHND kernels at `chip_smoke.FP32_SHAPES`' ``name``, on the
-    operands the smoke's phase kernel_fp32 draws (no RoPE at fp32)."""
+    operands the smoke's phase kernel_fp32 draws (no RoPE at fp32), with each
+    call's bound as the smoke reckons it (fp32-accurate products at
+    `chip_smoke.PEAK_3XTF32`; bytes: each input read once, each output
+    written once). The device times list the split pre-pass's launches
+    (``flash_fp32_split_kernel``, ``flash_fp32_stats_kernel``) apart from the
+    forward's, dQ's and dK/dV's."""
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
     B, H, N, D = dict(c.FP32_SHAPES)[name]
     gen = torch.Generator(dev).manual_seed(0)
     q, k, v, do = (torch.randn(B, H, N, D, generator=gen, device=dev) for _ in range(4))
     out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True)
+    pairs = B * H * N * N
+    sizes = {"fwd": c.nbytes(q, k, v, out, lse),
+             "bwd": c.nbytes(q, k, v, out, do, lse) + 3 * c.nbytes(q)}  # + dq, dk, dv
+    bounds = {kind: c.bound(f * D * pairs, sizes[kind], c.PEAK_3XTF32)
+              for kind, f in (("fwd", 4), ("bwd", 10))}
     return ({"fwd": lambda: fa.flash_attention_bhnd(q, k, v),
              "bwd": lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do)},
-            {"bhnd": [B, H, N, D], "host_calls": 3})
+            {"bhnd": [B, H, N, D], "host_calls": 3,
+             "bound_ms": {kind: b[0] for kind, b in bounds.items()},
+             "bound_by": {kind: b[1] for kind, b in bounds.items()}})
 
 
 def _ln_calls(c, dev, name, seqs, rope):
@@ -208,6 +222,21 @@ def _ln_device(c, calls, bound_ms, n):
             "bound_share_cold": {key: b / cold[key][0] for key, b in bound_ms.items()}}
 
 
+def _device_ms(calls, n: int) -> dict:
+    """Device ms per round of ``calls`` by kernel, from a trace of ``n`` rounds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            for fn in calls.values():
+                fn()
+        torch.cuda.synchronize()
+    return {m.group(): e.device_time_total / 1e3 / n for e in prof.key_averages()
+            if e.device_time_total > 0 and "at::" not in e.key
+            and (m := re.search(r"\w+_kernel(<[\w, <>]*>)?",
+                                e.key.replace("(anonymous namespace)::", "")))}
+
+
 # family -> (chip_smoke module, device, shape name, mask sequences, with
 # RoPE tables) -> ({call name: call}, the shape's fields)
 FAMILIES = {"bhnd": _bhnd_calls, "dn": _dn_calls, "dn_bwd": _dn_bwd_calls,
@@ -232,8 +261,6 @@ def main() -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     c = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(c)  # this checkout's shape tables
-    from torch.profiler import ProfilerActivity, profile
-
     dev = torch.device("cuda", 0)
     seqs = c._mask_seqs()
     for name in args.shapes:
@@ -249,16 +276,11 @@ def main() -> int:
                 rec.update(_ln_device(c, calls, rec.pop("bound_ms"), args.calls))
                 print(json.dumps(rec), flush=True)
                 continue
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(args.calls):
-                    for fn in calls.values():
-                        fn()
-                torch.cuda.synchronize()
-        rec["device_ms_per_call"] = {
-            m.group(): e.device_time_total / 1e3 / args.calls for e in prof.key_averages()
-            if e.device_time_total > 0 and "at::" not in e.key
-            and (m := re.search(r"\w+_kernel(<[\w, <>]*>)?",
-                                e.key.replace("(anonymous namespace)::", "")))}
+            if family == "fp32":  # a window a call: the split pre-pass runs in both
+                rec["device_ms_per_call"] = {key: _device_ms({key: fn}, args.calls)
+                                             for key, fn in calls.items()}
+            else:
+                rec["device_ms_per_call"] = _device_ms(calls, args.calls)
         print(json.dumps(rec), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
