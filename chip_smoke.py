@@ -181,7 +181,25 @@ Phases, each printed as one JSON object on a line of its own:
    CPU cannot hold a 36,864-token probe or a 384-px ViT-g clip in the
    script's time): segment 0's features and probe 0's logits (the plain
    forward over 512-query chunks), the step's losses and probe 0's
-   gradients recomputed.
+   gradients recomputed;
+24. export (run after phase 18) — the serving export (`hub.export`). A
+   child process started right after the build exports, beside the phases
+   before this one (the traces are host work on one core):
+   `vjepa2_vit_large(num_frames=16)` and `vjepa2_vit_huge(num_frames=16)`
+   with a symbolic batch (`torch.export`, the weights in the program), and
+   `vjepa2_ac_vit_giant()` in a `WorldModel` with the hub preprocessor at
+   `CEMConfig()` as its encode and plan programs (the CEM steps one
+   while_loop). Then a fresh process that loads the ViT-L program and
+   imports no `vjepa2_tpu_torch.models` module answers requests of 1 and 8
+   clips at 16f@256 (24 B1 each), and the program loaded here is timed
+   against the eager encoder, 5 repeats interleaved; ViT-H answers one clip
+   (32 B3); the world model, loaded as a `ServingWorldModel`, two encodes of
+   480 x 640 uint8 frames (40 B1 each) and one plan at seed 0 (480 B1), each
+   beside eager's (every eager copy built as the child built it). Every answer must equal
+   eager's (`torch.equal`; where they part, the record says where and holds
+   the answer within 5e-2 relative L2 of the fp32 CPU path, and the plan to
+   [2, 7], finite, in the CEM's clips). Prints trace, save and load seconds,
+   artifact bytes, and ms per request, encode and plan, loaded and eager.
 Phases 19, 20, 22 and 23 run in the order eval_anticipation, eval_video,
 eval_image, eval_video_384; each eval phase's
 CPU reference runs on a worker thread beside the card work of the phases
@@ -220,8 +238,10 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -495,6 +515,13 @@ PLAN_TIMED, PLAN_CANDIDATES = 2, 4
 # CEM update on a linear world model, fp32 on both sides, one sampler: the
 # same arithmetic in another order
 PLAN_REL_L2, CEM_UPDATE_ATOL = 5e-2, 1e-6
+# The serving export (phase export): ViT-L answers requests of 1 and 8 clips
+# through its loaded program (24 B1 each), timed against eager 5 times each,
+# interleaved; ViT-H one clip (32 B3); the world model an encode (40 B1) and a
+# plan (480 B1). A loaded program's answer is held to eager's with
+# `torch.equal`; where the two part, to the fp32 CPU path within the serving
+# slice's relative L2.
+EXPORT_BATCHES, EXPORT_REPEATS, EXPORT_REL_L2 = (1, 8), 5, 5e-2
 
 # The frozen evals (phases eval_video, eval_anticipation): the shipped ViT-L
 # configs as `yaml.safe_load` gives them (`tests/test_torch_eval_cli.py`
@@ -2625,6 +2652,393 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
     return tuple(total)
 
 
+# A serving process for phase export: loads the ViT-L program with
+# `hub.export.load_encoder` (the card), answers each batch of the saved
+# clips, and reports its launches and the port's modules it imported.
+_SERVE_SCRIPT = r"""
+import json, sys, time
+import torch
+t0 = time.perf_counter()
+from vjepa2_tpu_torch.hub.export import load_encoder
+fn, meta = load_encoder(sys.argv[1])
+load_s = time.perf_counter() - t0
+from vjepa2_tpu_torch.ops import flash_attention as fa, flash_attention_dn as fdn
+from vjepa2_tpu_torch.ops import layernorm as ln, ln_mlp, ln_qkv
+
+def counts():
+    return [fdn.LAUNCHES, fdn.LAUNCHES_BWD, fa.LAUNCHES, fa.LAUNCHES_BWD, ln.LAUNCHES,
+            ln.LAUNCHES_BWD, ln_qkv.LAUNCHES, ln_mlp.LAUNCHES, fa.LAUNCHES_FP32,
+            fa.LAUNCHES_BWD_FP32]
+
+clips = torch.load(sys.argv[2])
+outs, launches = {}, {}
+for batch in json.loads(sys.argv[4]):
+    before = counts()
+    outs[batch] = fn(clips[:batch]).cpu()
+    launches[batch] = [a - b for a, b in zip(counts(), before)]
+torch.save(outs, sys.argv[3])
+print(json.dumps({"load_s": load_s, "launches": launches,
+                  "modules": sorted(m for m in sys.modules if m.startswith("vjepa2_tpu_torch"))}))
+"""
+
+
+@contextlib.contextmanager
+def _export_clock(clock: dict):
+    """Seconds of each `torch.export.export`, ``save`` and ``load`` call made
+    inside, appended to ``clock`` under "trace_s", "save_s" and "load_s"."""
+    saved = {name: getattr(torch.export, name) for name in ("export", "save", "load")}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                clock.setdefault(key, []).append(time.perf_counter() - t)
+        return call
+
+    for name, key in (("export", "trace_s"), ("save", "save_s"), ("load", "load_s")):
+        setattr(torch.export, name, timed(saved[name], key))
+    try:
+        yield clock
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.export, name, fn)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _parity(got, want, cpu_ref=None) -> dict:
+    """A loaded program's answer against eager's: equal, or where they part
+    (the largest difference and its index) and, with ``cpu_ref`` (a function
+    giving the fp32 CPU answer), both answers' relative L2 to it, held to
+    `EXPORT_REL_L2`."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.shape == want.shape and torch.equal(got, want):
+        return {"equal": True, "ok": True}
+    out = {"equal": False, "shapes": [list(got.shape), list(want.shape)], "ok": False}
+    if got.shape == want.shape:
+        diff = (got.float() - want.float()).abs()
+        out.update(max_abs_diff=diff.max().item(),
+                   parts_at=[int(i) for i in np.unravel_index(int(diff.argmax()), diff.shape)],
+                   differing_share=(diff > 0).float().mean().item())
+        if cpu_ref is not None:
+            ref = cpu_ref()
+            out["rel_l2_vs_cpu_fp32"] = {"loaded": _rel_l2(got, ref), "eager": _rel_l2(want, ref)}
+            out["ok"] = bool(torch.isfinite(got.float()).all()
+                             and out["rel_l2_vs_cpu_fp32"]["loaded"] <= EXPORT_REL_L2)
+    print(f"export: a loaded program parts from eager: {out}", file=sys.stderr, flush=True)
+    return out
+
+
+def _world_model(size: int):
+    """`vjepa2_ac_vit_giant()` (card, bf16, weights drawn after
+    `torch.manual_seed(0)`, as phase plan draws them) in a `WorldModel` with
+    the hub preprocessor at ``size``."""
+    from vjepa2_tpu_torch.hub.backbones import vjepa2_ac_vit_giant
+    from vjepa2_tpu_torch.hub.preprocessor import vjepa2_preprocessor
+    from vjepa2_tpu_torch.planning import WorldModel
+    from vjepa2_tpu_torch.train.droid import tokens_per_frame
+
+    torch.manual_seed(0)
+    enc, pred = vjepa2_ac_vit_giant()
+    return WorldModel(enc, pred, tokens_per_frame(enc), preprocessor=vjepa2_preprocessor(size))
+
+
+def export_artifacts(root: str, frames: int, size: int) -> dict:
+    """Phase export's three artifacts, exported under ``root`` by the process
+    that calls this: `vjepa2_vit_large(num_frames=frames)` and
+    `vjepa2_vit_huge(num_frames=frames)` with a symbolic batch, and the world
+    model of `_world_model`, each built as the phase builds its eager copy
+    (weights drawn after `torch.manual_seed(0)`). Per artifact: the build,
+    trace and save seconds and its bytes."""
+    from vjepa2_tpu_torch.hub import export
+    from vjepa2_tpu_torch.hub.backbones import vjepa2_vit_huge, vjepa2_vit_large
+
+    torch.set_num_threads(1)  # beside the phases that run meanwhile
+    out = {}
+    for name in ("vit_large", "vit_huge", "world_model"):
+        t0 = time.perf_counter()
+        if name == "world_model":
+            model = _world_model(size)
+        else:
+            torch.manual_seed(0)
+            factory = vjepa2_vit_large if name == "vit_large" else vjepa2_vit_huge
+            model, _ = factory(num_frames=frames)
+        clock = {"build_s": time.perf_counter() - t0}
+        art = os.path.join(root, name)
+        with _export_clock(clock):
+            t1 = time.perf_counter()
+            if name == "world_model":
+                export.export_world_model(model, art)
+            else:
+                export.export_encoder(model, art, batch="B")
+            clock["export_s"] = time.perf_counter() - t1
+        out[name] = {**clock, "artifact_bytes": _dir_bytes(art)}
+        del model
+    return out
+
+
+def start_exports(root: str) -> tuple:
+    """A child process exporting phase export's artifacts under ``root``
+    (`export_artifacts`), started after the build so that its traces, host
+    work on one core, run beside the phases before export. Returns (the
+    process, its log prefix)."""
+    log = os.path.join(root, "exports")
+    return _child(log, "import json, sys, chip_smoke; print(json.dumps(chip_smoke."
+                       "export_artifacts(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))))",
+                  root, str(FRAMES), str(SIZE)), log
+
+
+def _child(log: str, code: str, *args: str) -> subprocess.Popen:
+    """``python -c code args`` from the repository root, its output and
+    errors written to ``log`` + ".out" / ".err"."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)}
+    with open(log + ".out", "w") as out, open(log + ".err", "w") as err:
+        return subprocess.Popen([sys.executable, "-c", code, *args], cwd=here, env=env,
+                                stdout=out, stderr=err, text=True)
+
+
+def _child_result(proc: subprocess.Popen, log: str, what: str, timeout: float = 900) -> dict:
+    """The JSON line a child printed last; a failed child fails the phase."""
+    rc = proc.wait(timeout=timeout)
+    with open(log + ".out") as out, open(log + ".err") as err:
+        out, err = out.read(), err.read()
+    if rc:
+        raise AssertionError(f"export: {what} failed (rc {rc}):\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_export(dev, smi: str, exports: tuple, root: str) -> tuple[int, ...]:
+    """The serving export (`hub.export`). The artifacts come from the child
+    `start_exports` started after the build: `vjepa2_vit_large(num_frames=16)`
+    and `vjepa2_vit_huge(num_frames=16)` with a symbolic batch, and
+    `vjepa2_ac_vit_giant()` in a `WorldModel` with the hub preprocessor at
+    `CEMConfig()` (its encode and plan programs). Here: a fresh process
+    loads the ViT-L program with no model module imported and answers
+    requests of 1 and 8 clips (16f@256), while this one loads it and times
+    it against the eager encoder, interleaved; ViT-H answers one clip; the
+    world model runs eagerly, then loaded as a `ServingWorldModel`: two
+    encodes of 480 x 640 uint8 frames and one plan at seed 0 against eager's.
+    Every eager copy is built as the child built it, and every answer
+    launches its kernels exactly as eager does. Returns the launches of the
+    counted calls (this process's)."""
+    from vjepa2_tpu_torch.hub import export
+    from vjepa2_tpu_torch.hub.backbones import (vjepa2_ac_vit_giant, vjepa2_vit_huge,
+                                                vjepa2_vit_large)
+    from vjepa2_tpu_torch.planning import WorldModel
+
+    t0 = time.perf_counter()
+    total = [0] * len(KERNEL_COUNTS)
+
+    def counted(fn, want, what):
+        """fn()'s result and host ms (synchronised), its launches held to ``want``."""
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        launched = _launch_counts()
+        if launched != want:
+            raise AssertionError(f"export: {what} launched {dict(zip(KERNEL_COUNTS, launched))}, "
+                                 f"want {dict(zip(KERNEL_COUNTS, want))}")
+        for i, n in enumerate(launched):
+            total[i] += n
+        return out, ms
+
+    def eager(module):
+        def call(x):
+            with torch.inference_mode():
+                return module(x)
+        return call
+
+    def cpu_features(module, factory, clip):
+        def ref():
+            cpu = _cpu_model(module, lambda device: factory(device=device)[0])
+            with torch.inference_mode():
+                return cpu(clip[:1].cpu())
+        return ref
+
+    rs = np.random.RandomState(5)
+    clips = torch.from_numpy(rs.rand(max(EXPORT_BATCHES), FRAMES, SIZE, SIZE, 3)
+                             .astype(np.float32))
+    rec = {"phase": "export", "elapsed_s": {}}
+    children = []
+
+    def mark(what):
+        rec["elapsed_s"][what] = time.perf_counter() - t0
+
+    try:
+        exported = _child_result(*exports, "the export process")
+        rec["exported_by_child"] = exported
+        mark("artifacts exported (child)")
+
+        # ViT-L: served by a fresh process, loaded here against eager; the
+        # endpoint's clip geometry is baked into the program: 16f@256
+        torch.manual_seed(0)
+        enc, _ = vjepa2_vit_large(num_frames=FRAMES)
+        art = os.path.join(root, "vit_large")
+        clock = {}
+        clips_path, out_path = os.path.join(root, "clips.pt"), os.path.join(root, "served.pt")
+        torch.save(clips, clips_path)
+        t_served = time.perf_counter()
+        serve_log = os.path.join(root, "serve")
+        children.append(_child(serve_log, _SERVE_SCRIPT, art, clips_path, out_path,
+                               json.dumps(EXPORT_BATCHES)))
+        server = children[-1]
+        with _export_clock(clock):
+            t1 = time.perf_counter()
+            fn, meta = export.load_encoder(art)
+            load_s = time.perf_counter() - t1
+        mark("vit_large loaded")
+        want = _counts(b1=len(enc.blocks))
+        ms = {"eager": {b: [] for b in EXPORT_BATCHES}, "loaded": {b: [] for b in EXPORT_BATCHES}}
+        parity = {}
+        for r in range(EXPORT_REPEATS):
+            for b in EXPORT_BATCHES:
+                x = clips[:b].to(dev)
+                runs = [("loaded", fn), ("eager", eager(enc))]
+                for kind, call in runs if r % 2 == 0 else runs[::-1]:
+                    y, t = counted(lambda: call(x), want, f"a {kind} ViT-L request of {b}")
+                    ms[kind][b].append(t)
+                    if r == 0:
+                        parity.setdefault(b, {})[kind] = y
+        mark("vit_large timed")
+        large_ref = cpu_features(enc, lambda **kw: vjepa2_vit_large(num_frames=FRAMES, **kw),
+                                 clips)
+        eager_answers = {b: p["eager"] for b, p in parity.items()}
+        parity = {b: {"loaded_here": _parity(p["loaded"], p["eager"], large_ref)}
+                  for b, p in parity.items()}
+        med = {k: {b: sorted(v)[len(v) // 2] for b, v in d.items()} for k, d in ms.items()}
+        rec["vit_large"] = {
+            "batch": meta["batch"], "in_dtype": meta["in_dtype"],
+            "graph_ops": export.program_op_counts(fn.module), **clock, "load_encoder_s": load_s,
+            "artifact_bytes": _dir_bytes(art),
+            "launches_per_request": dict(zip(KERNEL_COUNTS, want)),
+            "ms_per_request": ms, "median_ms_per_request": med, "parity": parity}
+        ok = all(v["ok"] for p in parity.values() for v in p.values())
+        large_want = want
+        del fn
+
+        # ViT-H: one clip through its loaded program
+        torch.manual_seed(0)
+        enc, _ = vjepa2_vit_huge(num_frames=FRAMES)
+        art = os.path.join(root, "vit_huge")
+        clock = {}
+        with _export_clock(clock):
+            t1 = time.perf_counter()
+            fn, _ = export.load_encoder(art)
+            load_s = time.perf_counter() - t1
+        mark("vit_huge loaded")
+        want = _counts(b3=len(enc.blocks))
+        x = clips[:1].to(dev)
+        got, loaded_ms = counted(lambda: fn(x), want, "a loaded ViT-H request")
+        ref, eager_ms = counted(lambda: eager(enc)(x), want, "an eager ViT-H request")
+        par = _parity(got, ref, cpu_features(
+            enc, lambda **kw: vjepa2_vit_huge(num_frames=FRAMES, **kw), clips))
+        rec["vit_huge"] = {"graph_ops": export.program_op_counts(fn.module), **clock,
+                           "load_encoder_s": load_s, "artifact_bytes": _dir_bytes(art),
+                           "launches_per_request": dict(zip(KERNEL_COUNTS, want)),
+                           "ms_per_request": {"loaded": loaded_ms, "eager": eager_ms},
+                           "parity": par}
+        ok = ok and par["ok"]
+        del enc, fn, got, ref
+
+        # the world model: eager here, then the child's programs loaded
+        wm = _world_model(SIZE)
+        cfg = wm.cem_config
+        frames = [rs.randint(0, 256, (480, 640, 3), np.uint8) for _ in range(2)]  # start, goal
+        pose = np.concatenate([rs.uniform(-0.3, 0.3, 6), [0.5]]).astype(np.float32)
+        eager_out = [counted(lambda: wm.encode(f), ENCODE_LAUNCHES, "an eager encode")
+                     for f in frames]
+        rep, goal = (r for r, _ in eager_out)
+        plan_eager, eager_plan_ms = counted(
+            lambda: wm.infer_next_action(rep, pose, goal,
+                                         generator=torch.Generator(dev).manual_seed(0)),
+            PLAN_LAUNCHES, "an eager plan")
+        mark("world model run eagerly")
+        clock = {}
+        with _export_clock(clock):
+            t1 = time.perf_counter()
+            swm = export.load_world_model(os.path.join(root, "world_model"))
+            load_s = time.perf_counter() - t1
+        mark("world model loaded")
+
+        def cpu_encode(frame):
+            def ref():
+                enc_cpu = _cpu_model(wm.encoder,
+                                     lambda device: vjepa2_ac_vit_giant(device=device)[0])
+                wm_cpu = WorldModel(enc_cpu, None, wm.tokens_per_frame,
+                                    preprocessor=wm.preprocessor)
+                return wm_cpu.encode(frame)
+            return ref
+
+        loaded_out = [counted(lambda: swm.encode(f), ENCODE_LAUNCHES, "a loaded encode")
+                      for f in frames]
+        enc_parity = [_parity(got, want_rep, cpu_encode(f))
+                      for (got, _), (want_rep, _), f in zip(loaded_out, eager_out, frames)]
+        plan, plan_ms = counted(lambda: swm.plan(rep, pose, goal, seed=0), PLAN_LAUNCHES,
+                                "a loaded plan")
+        mark("world model planned")
+        plan_equal = bool(np.array_equal(plan, plan_eager))
+        plan_ok = _plan_ok(plan, cfg) and _plan_ok(plan_eager, cfg)
+        if not plan_equal:
+            print(f"export: the loaded plan parts from eager: {plan.tolist()} vs "
+                  f"{plan_eager.tolist()}", file=sys.stderr, flush=True)
+        rec["world_model"] = {
+            "cem": swm.meta["cem"], "frame_preprocessor": swm.meta["frame_preprocessor"],
+            "graph_ops": {"encode": export.program_op_counts(swm._encode),
+                          "plan (loop body, one CEM step)": export.program_op_counts(swm._plan)},
+            **clock, "load_world_model_s": load_s,
+            "launches_per_encode": dict(zip(KERNEL_COUNTS, ENCODE_LAUNCHES)),
+            "launches_per_plan": dict(zip(KERNEL_COUNTS, PLAN_LAUNCHES)),
+            "ms_per_encode": {"loaded": [t for _, t in loaded_out],
+                              "eager": [t for _, t in eager_out]},
+            "encode_parity": enc_parity,
+            "ms_per_plan": {"loaded": plan_ms, "eager": eager_plan_ms},
+            "plan": plan.tolist(), "plan_equal": plan_equal, "plan_ok": plan_ok}
+        ok = ok and plan_ok and all(p["ok"] for p in enc_parity)
+        del wm, swm, eager_out, loaded_out, rep, goal
+
+        # the ViT-L serving process, which ran beside the work above
+        served = _child_result(server, serve_log, "the serving process")
+        served_s = time.perf_counter() - t_served
+        served_outs = torch.load(out_path)
+        mark("vit_large served")
+        for b in EXPORT_BATCHES:
+            parity[b]["served"] = _parity(served_outs[b], eager_answers[b], large_ref)
+        model_modules = [m for m in served["modules"] if m.startswith("vjepa2_tpu_torch.models")]
+        served_ok = (not model_modules and all(p["served"]["ok"] for p in parity.values())
+                     and all(served["launches"][str(b)] == list(large_want)
+                             for b in EXPORT_BATCHES))
+        rec["vit_large"]["served"] = {
+            "process_s": served_s, "load_s": served["load_s"],
+            "launches_per_request": {b: dict(zip(KERNEL_COUNTS, served["launches"][str(b)]))
+                                     for b in EXPORT_BATCHES},
+            "model_modules_imported": model_modules, "ok": served_ok}
+        ok = ok and served_ok
+    except BaseException:
+        rec.update(seconds=time.perf_counter() - t0, ok=False, gpu=smi)
+        emit(rec)  # what ran before the failure
+        raise
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rec.update(seconds=time.perf_counter() - t0, ok=ok, gpu=smi)
+    emit(rec)
+    if not ok:
+        raise AssertionError("export: a loaded program's answers or launches are off (see the "
+                             "record)")
+    return tuple(total)
+
+
 def _host_copy(x):
     """A CPU copy of a tensor or of a dict of them (a copy on the CPU too,
     since the probes' stacks are updated in place)."""
@@ -3180,6 +3594,19 @@ def main() -> int:
 
     smi = timed("device", phase_device)
     timed("build", phase_build)
+    export_root = tempfile.mkdtemp(prefix="vjepa2_export_")
+    exports = start_exports(export_root)
+    try:
+        return _run_phases(dev, smi, timed, seconds, t_start, exports, export_root)
+    finally:
+        if exports[0].poll() is None:
+            exports[0].kill()
+            exports[0].wait()
+        shutil.rmtree(export_root, ignore_errors=True)
+
+
+def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
+    """Every phase after the build, then the summary lines."""
     rec = timed("kernel", phase_kernels, dev, smi)
     serve_launches = timed("slice", phase_slice, dev, smi)
     rec_bwd = timed("kernel_bwd", phase_kernels_bwd, dev, smi)
@@ -3198,6 +3625,7 @@ def main() -> int:
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
     droid_l = timed("train_droid", phase_train_droid, dev, smi)
     plan_l = timed("plan", phase_plan, dev, smi)
+    export_l = timed("export", phase_export, dev, smi, exports, export_root)
     # the device-bound eval steps first, so that the CPU references each
     # phase leaves to `_CPU_WORK` run beside card work that does not time
     # the host (the anticipation eval's step is host-bound)
@@ -3212,7 +3640,8 @@ def main() -> int:
     emit({"phase": "seconds", "phases": seconds, "total": time.perf_counter() - t_start})
     # every main-path run's launches, in the order of KERNEL_COUNTS
     total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
-                                 accum_l, droid_l, plan_l, eval_v, eval_a, eval_i, eval_384)]
+                                 accum_l, droid_l, plan_l, export_l, eval_v, eval_a, eval_i,
+                                 eval_384)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):

@@ -180,7 +180,13 @@ _TAG = threading.local()
 def checkpoint_name(name: str):
     """Tag the GEMM (``addmm``, ``baddbmm``, ``mm``, ``bmm``) or the B7 op run
     inside with ``name`` for the remat policy (JAX's `checkpoint_name`): each
-    region encloses exactly one of them, whose output is the named tensor."""
+    region encloses exactly one of them, whose output is the named tensor.
+    Without gradients nothing checkpoints (`remat_call`), so nothing is
+    tagged, and a trace without them (`torch.export`, whose CEM loop body
+    dynamo traces) never touches the thread-local."""
+    if not torch.is_grad_enabled():
+        yield
+        return
     prev = getattr(_TAG, "name", None)
     _TAG.name = name
     try:

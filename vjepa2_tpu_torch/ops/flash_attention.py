@@ -541,8 +541,28 @@ def _device(*tensors) -> str:
 
 def _fwd(q, k, v, *args):
     """The forward on normalised arguments: the kernel or, on the CPU, its
-    plain version."""
-    return (_plain_fwd if _device(q, k, v) == "cpu" else _flash_fwd_cuda)(q, k, v, *args)
+    plain version, whose out is laid out as the kernel writes it
+    (`_fwd_fake`)."""
+    if _device(q, k, v) == "cuda":
+        return _flash_fwd_cuda(q, k, v, *args)
+    out, lse = _plain_fwd(q, k, v, *args)
+    return _out_layout(out).copy_(out), lse.contiguous()
+
+
+def _out_layout(q):
+    """An empty [B, H, N, D] tensor like ``q`` laid out [B, N, H, D], as the
+    kernels write out: the projection reads it as [B, N, H * D] in place."""
+    B, H, N, D = q.shape
+    return q.new_empty((B, N, H, D)).transpose(1, 2)
+
+
+def _fwd_fake(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len):
+    """The forward's outputs without the work, for tracing (`torch.export`):
+    out as `_out_layout` and lse [B, H, N] fp32. Operands on different
+    devices raise, as in the real forward."""
+    _device(q, k, v)
+    B, H, N, _ = q.shape
+    return _out_layout(q), q.new_empty((B, H, N), dtype=torch.float32)
 
 
 def _bwd(q, k, v, *args):
@@ -569,12 +589,14 @@ def flash_attention_bhnd_bwd(q, k, v, out, lse, do, segment_ids=None, causal: bo
 # ``torch.ops.vjepa2.flash_fwd_bhnd``, so that a selective remat policy can keep
 # its (out, lse) (JAX's "flash_out" and "flash_lse" names,
 # `flash_attention.py:1133-1134`) and the recompute launches nothing
-# (`models.modules.resolve_remat_policy`).
+# (`models.modules.resolve_remat_policy`); its fake kernel lets `torch.export`
+# trace it into a graph as one node (`hub.export`).
 _LIB = torch.library.Library("vjepa2", "FRAGMENT")
 _LIB.define("flash_fwd_bhnd(Tensor q, Tensor k, Tensor v, float? scale, Tensor? cos, "
             "Tensor? sin, Tensor? seg_q, Tensor? seg_k, bool causal, int? kv_valid_len) "
             "-> (Tensor, Tensor)")
 _LIB.impl("flash_fwd_bhnd", _fwd, "CompositeExplicitAutograd")
+torch.library.register_fake("vjepa2::flash_fwd_bhnd", _fwd_fake, lib=_LIB)
 
 
 class FlashAttentionBHND(torch.autograd.Function):

@@ -324,22 +324,36 @@ def flash_attention_bhdn_bwd(q, k, v, out, lse, do, scale: float | None = None,
 
 
 def _fwd_op(q, k, v, scale, cos, sin, segment_ids, kv_valid_len):
-    """The forward: B1 on a CUDA tensor, its plain version on a CPU one."""
+    """The forward: B1 on a CUDA tensor, its plain version on a CPU one (laid
+    out as the kernel writes them, contiguous, as `_fwd_fake` says)."""
     rope = None if cos is None else (cos, sin)
     if _device(q, k, v) == "cpu":
-        return flash_attention_bhdn_plain(q, k, v, scale, rope, segment_ids, kv_valid_len)
+        out, lse = flash_attention_bhdn_plain(q, k, v, scale, rope, segment_ids, kv_valid_len)
+        return out.contiguous(), lse.contiguous()
     norm = _normalize(q, k, v, rope, segment_ids, kv_valid_len)
     return _flash_fwd_cuda(q, k, v, scale, *norm, kv_valid_len)
+
+
+def _fwd_fake(q, k, v, scale, cos, sin, segment_ids, kv_valid_len):
+    """The forward's outputs without the work, for tracing (`torch.export`):
+    out [B, H, D, N] in q's dtype and lse [B, H, N] fp32, both contiguous.
+    Operands on different devices (or on none the kernels serve) raise, as
+    in the real forward."""
+    _device(q, k, v)
+    B, H, D, N = q.shape
+    return q.new_empty((B, H, D, N)), q.new_empty((B, H, N), dtype=torch.float32)
 
 
 # The forward is one dispatcher op, ``torch.ops.vjepa2.flash_fwd_dn``, so that
 # a selective remat policy can keep its (out, lse) (JAX's "flash_out" and
 # "flash_lse" names, `flash_attention_dn.py:650-651`) and the recompute
-# launches nothing (`models.modules.resolve_remat_policy`).
+# launches nothing (`models.modules.resolve_remat_policy`); its fake kernel
+# lets `torch.export` trace it into a graph as one node (`hub.export`).
 _LIB = torch.library.Library("vjepa2", "FRAGMENT")
 _LIB.define("flash_fwd_dn(Tensor q, Tensor k, Tensor v, float? scale, Tensor? cos, "
             "Tensor? sin, Tensor? segment_ids, int? kv_valid_len) -> (Tensor, Tensor)")
 _LIB.impl("flash_fwd_dn", _fwd_op, "CompositeExplicitAutograd")
+torch.library.register_fake("vjepa2::flash_fwd_dn", _fwd_fake, lib=_LIB)
 
 
 class FlashAttentionDN(torch.autograd.Function):

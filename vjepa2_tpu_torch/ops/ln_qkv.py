@@ -149,22 +149,34 @@ def _ln_qkv_cuda(x, gamma, beta, w, bias, cos, sin, eps, H, D):
 
 
 def _fwd(x, *args):
+    """The kernel or, on the CPU, its plain version, laid out as the kernel
+    writes its outputs (`_fwd_fake`)."""
     if x.device.type == "cpu":
-        return _plain_fwd(x, *args)
+        return tuple(t.contiguous() for t in _plain_fwd(x, *args))
     if x.device.type == "cuda":
         return _ln_qkv_cuda(x, *args)
     raise ValueError(f"no ln_qkv route for device {x.device}")
 
 
+def _fwd_fake(x, gamma, beta, w, bias, cos, sin, eps, num_heads, head_dim):
+    """The outputs without the work, for tracing (`torch.export`): q, k, v
+    [B, H, N, D] in x's dtype and mean, rstd [B, N, 1] fp32, contiguous."""
+    B, N, _ = x.shape
+    qkv = [x.new_empty((B, num_heads, N, head_dim)) for _ in range(3)]
+    return (*qkv, *(x.new_empty((B, N, 1), dtype=torch.float32) for _ in range(2)))
+
+
 # The forward is one dispatcher op, ``torch.ops.vjepa2.ln_qkv``, so that a
 # selective remat policy can keep its q, k and v (JAX's "flash_qkv" name, which
 # the fused route's q, k and v carry into `flash_attention.py:1124-1126`) and
-# the recompute launches nothing (`models.modules.resolve_remat_policy`).
+# the recompute launches nothing (`models.modules.resolve_remat_policy`); its
+# fake kernel lets `torch.export` trace it into a graph as one node.
 _LIB = torch.library.Library("vjepa2", "FRAGMENT")
 _LIB.define("ln_qkv(Tensor x, Tensor gamma, Tensor beta, Tensor w, Tensor bias, Tensor? cos, "
             "Tensor? sin, float eps, int num_heads, int head_dim) "
             "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
 _LIB.impl("ln_qkv", _fwd, "CompositeExplicitAutograd")
+torch.library.register_fake("vjepa2::ln_qkv", _fwd_fake, lib=_LIB)
 
 
 class LnQkvFunction(torch.autograd.Function):

@@ -44,6 +44,16 @@ class WorldModel:
         nxt = self.predictor(reps, actions, poses)[:, -self.tokens_per_frame:]
         return feature_layernorm(nxt) if self.normalize_reps else nxt
 
+    def encode_frame(self, frame: torch.Tensor) -> torch.Tensor:
+        """frame [H, W, 3] fp32, preprocessed, on the models' device -> [N, D]
+        tokens (JAX's ``_encode_impl``, `world_model.py:54`): the frame
+        duplicated into a 2-frame tubelet, encoded, and normalised with
+        ``normalize_reps``. A function of its tensor alone, which
+        `hub.export.export_world_model` traces."""
+        clip = frame[None, None].expand(1, 2, *frame.shape)  # [1, 2, H, W, C]
+        h = self.encoder(clip)[0]
+        return feature_layernorm(h) if self.normalize_reps else h
+
     def encode(self, image) -> torch.Tensor:
         """image [H, W, 3] uint8 (or preprocessed float) -> [N, D] tokens on
         the models' device (fp32 with ``normalize_reps``, else the encoder's
@@ -52,9 +62,7 @@ class WorldModel:
             image = self.preprocessor(np.asarray(image)[None])[0]
         frame = torch.as_tensor(image).to(device=self.device, dtype=torch.float32)
         with torch.inference_mode():
-            clip = frame[None, None].expand(1, 2, *frame.shape)  # [1, 2, H, W, C]
-            h = self.encoder(clip)[0]
-            return feature_layernorm(h) if self.normalize_reps else h
+            return self.encode_frame(frame)
 
     def infer_next_action(self, rep, pose, goal_rep, generator: Optional[torch.Generator] = None,
                           sampler: Optional[Sampler] = None) -> np.ndarray:
