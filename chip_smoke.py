@@ -30,7 +30,7 @@ Phases, each printed as one JSON object on a line of its own:
 6. train   — the masked-pretrain train step: ViT-L/16 (RoPE, bf16, fp32
    parameters and AdamW state), the 12-layer predictor (width 384, 12 heads),
    16 frames at 256 px, batch 8, the two mask configs of `bench.py:56-61`
-   with fresh masks each step; 1 warm-up and 5 timed steps, each launching
+   with fresh masks each step; 1 warm-up and 3 timed steps, each launching
    B1 96 times and B2 72 times; finite loss and gradients, the EMA of the
    target, and clip 0's loss and gradients against the port's fp32 plain path
    on the CPU from the same weights;
@@ -45,7 +45,7 @@ Phases, each printed as one JSON object on a line of its own:
    fused step's context (Dh 64) and predictor (Dh 32) shapes; TFLOP/s (10*Dh
    FLOPs a score) and the share of the bound as in phase 7;
 9. train_huge — the masked-pretrain step of phase 6 with ViT-H/16 (32
-   layers, width 1280, 16 heads of 80): 1 + 5 steps, each launching B3 96
+   layers, width 1280, 16 heads of 80): 1 + 3 steps, each launching B3 96
    times, the BHND backward 64, B1 24 and B2 24 times; the same checks;
 10. encode_giant — the 16-head ViT-g (40 layers, width 1408, heads of 88,
    `bench.py:369`'s headline encoder) answering 3 requests of 8 clips at
@@ -70,7 +70,7 @@ Phases, each printed as one JSON object on a line of its own:
    with TFLOP/s and the share of the bound;
 14. train_fused — the ViT-L step of phase 6 with ``fuse_ln="qkv,mlp"``
    (`bench.py --fuse-ln qkv,mlp`): every block's LayerNorms fused into B7
-   and B8, attention on the BHND kernels; 1 + 5 steps, each launching B7 96,
+   and B8, attention on the BHND kernels; 1 + 3 steps, each launching B7 96,
    B8 96, B3 96, the BHND backward 72, the B6 backward 144 and B1/B2 0
    times; the checks of phase 6 against the fp32 CPU path with the same
    fusions; and, interleaved step by step in the same phase, the unfused
@@ -80,13 +80,13 @@ Phases, each printed as one JSON object on a line of its own:
    checkpoint) on the shipped ViT-H config (`LOOP_CONFIG`, equal to
    `configs/train/vith16/pretrain-256px-16f.yaml`: vit_huge, batch 16,
    16f@256, full remat, bf16, synthetic clips), overriding only the run
-   folder, ``optimization.ipe`` (4) and the epochs, as printed: epoch 0,
+   folder, ``optimization.ipe`` (3) and the epochs, as printed: epoch 0,
    then a new trainer on the same folder resumes from the checkpoint and
    runs epoch 1. Every step launches B3 160, the BHND backward 64, B1 48
    and B2 24 times; finite losses; the restored state bit-equal to the
-   saved one; the resumed run's first step is step 4 with the schedules'
+   saved one; the resumed run's first step is step 3 with the schedules'
    lr, weight decay and EMA momentum there and the masks of an
-   uninterrupted run; the CSV holds 8 rows. Prints the loop's ms a step as
+   uninterrupted run; the CSV holds 6 rows. Prints the loop's ms a step as
    it runs (no added sync: from each part's second step to its checkpoint
    save), clips/s, peak memory, the checkpoints' bytes and save seconds,
    and the wall, device-busy time and idle share of one more step, all three
@@ -118,8 +118,8 @@ Phases, each printed as one JSON object on a line of its own:
 18. plan   — latent planning: the hub's `vjepa2_ac_vit_giant()` called with
    no argument (the 22-head ViT-g and the 24 x 1024 AC predictor on the
    card in bf16) in a `planning.WorldModel`: a start and a goal frame
-   encoded (256 px, 40 B1 launches each), then 1 warm-up and 2 timed CEM
-   plans at `CEMConfig()` (400 samples, rollout 2, 10 steps, top-k 10: 480
+   encoded (256 px, 40 B1 launches each), then 1 warm-up and 1 timed CEM
+   plan at `CEMConfig()` (400 samples, rollout 2, 10 steps, top-k 10: 480
    B1 launches each at [400, 16, 64, 264] and [400, 16, 64, 520]), one more
    plan traced; the plans finite, [2, 7], within the CEM's clips, a repeat
    with the same seed bit-equal; encode and step_fn (4 candidates at 1 and
@@ -131,7 +131,7 @@ Phases, each printed as one JSON object on a line of its own:
    `configs/eval/vitl/ssv2.yaml`: 2 segments x batch 4 of 16f@256 clips, the
    encoder in bf16 into features [4, 4096, 1024], 10 fp32 probes of depth 4
    with 16 heads trained one at a time; synthetic clips), overriding only
-   ipe (4) and the epochs (1), as printed: 4 train steps and 1 val batch,
+   ipe (3) and the epochs (1), as printed: 3 train steps and 1 val batch,
    each launching B1 24 times and the fp32 BHND forward 30 times (3 blocks
    x 10 probes; and its backward 30 times a train step), nothing else;
    finite losses; a probe save
@@ -153,20 +153,45 @@ Phases, each printed as one JSON object on a line of its own:
    each probe's recall per head;
 21. kernel_fp32 (run after phase 8) — the fp32 BHND flash kernels
    (`csrc/flash_fp32.cuh`: B3 and B4/B5 on fp32 operands, 3xTF32 on wgmma
-   after a split pre-pass)
+   after a split pre-pass that also rotates q and k)
    against their plain versions at the probes' shapes [64,16,2048,64]
    (IN1K), [4,16,4096,64] (SSv2), [8,16,2048,64] (the serving slice) and
-   [1,16,36864,88] (ViT-g/384 K400), forward (out, lse) and backward (dq,
-   dk, dv given the kernel's out and lse), the plain version over chunks of
+   [1,16,36864,88] (ViT-g/384 K400), and at the fp32 ViT-L step's: the
+   target [8,16,2048,64] with shared RoPE, the contexts [8,16,584,64]
+   (kv_valid 578) and [8,16,176,64] (173) and the predictor [8,12,1664,32]
+   (1662) and [8,12,1624,32] (1623) on per-example tables of real collator
+   masks; forward (out, lse) and backward (dq,
+   dk, dv given the kernel's out and lse; dk and dv exactly zero past
+   kv_valid), the plain version over chunks of
    queries where its [B, H, N, N] scores do not fit (256 rows at IN1K, 512
    at K400: dk and dv summed over the chunks); ms by CUDA events, TFLOP/s
-   (4*Dh and 10*Dh FLOPs a score), the bound at 495/3 = 165 TFLOP/s (an
-   fp32-accurate product is three TF32 products), the plain
+   (4*Dh and 10*Dh FLOPs a score the masks leave), the bound at 495/3 = 165
+   TFLOP/s (an fp32-accurate product is three TF32 products) or the bytes',
+   whichever is larger, the plain
    version's ms and `F.scaled_dot_product_attention`'s on the same fp32
-   operands with the backend it picked;
+   operands (q and k pre-rotated, k and v cut to kv_valid) with the backend
+   it picked;
+25. train_fp32 (run after phase 21) — the fp32 pretraining path: (a) the
+   shipped `configs/train/smoke-tiny.yaml` (`SMOKE_CONFIG`: vit_tiny, a
+   depth-2 predictor, heads of 64, RoPE, fp32, batch 4 of 4f@64, ipe 8)
+   through `cli.main`'s `run_vjepa` on the card, overriding only the run
+   folder and ``meta.load_checkpoint`` (the resume reads epoch 0's
+   checkpoint): epoch 0, then a resumed epoch 1; every step launches the
+   fp32 forward 40 times and its backward 28 (`SMOKE_LAUNCHES`) and no bf16
+   attention kernel; finite losses, the restored state bit-equal to the
+   saved one, 16 CSV rows, and the first 3 losses against the same config
+   and seed on the CPU from the card's initial weights (`SMOKE_LOSS_RTOL`);
+   (b) phase 6's ViT-L step at fp32 (the model of
+   `configs/train/vitl16/pretrain-256px-16f.yaml` with meta.dtype float32,
+   TF32 off): 1 warm-up and 3 timed steps, each launching the fp32 forward
+   96 times and its backward 72 (B1 and B2 none); clip 0's loss and
+   gradients against phase 6's fp32 CPU path on the same weights, clip and
+   masks, to tolerances phase 6's bf16 step misses (checked in the run); ms
+   a step, clips/s, peak memory, one more step traced (wall, device-busy
+   time, idle share);
 22. eval_image — the IN1K probe eval: `run_image_classification` on the
    shipped ViT-L config (`EVAL_IMAGE_CONFIG`: 64 images a batch as 16 fake
-   frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 4 and
+   frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 3 and
    1 epoch: each train step launches B1 24 times and the fp32 forward and
    backward 18 times each, a val batch B1 24 and the forward 18; the checks
    of phase 19 with the CPU's share cut to the first 4 examples;
@@ -359,7 +384,7 @@ BWD_SHAPES = [
 # 5e-3 is expected: tolerance 2e-2, and max abs 3e-2 x max|plain| for the
 # largest entries.
 BWD_REL_L2, BWD_MAX_ABS = 2e-2, 3e-2
-TRAIN_STEPS, TRAIN_WARMUP = 5, 1
+TRAIN_STEPS, TRAIN_WARMUP = 3, 1  # cut from 5 to keep the script within its time limit
 # Clip 0's loss and gradients on the initial weights, bf16 on the card
 # against fp32 on the CPU. The port's plain path in bf16 on the CPU, full
 # depth and widths at 8f@128, differs from fp32 by 1.2e-2 (encoder) and
@@ -422,6 +447,55 @@ TRAIN_CFGS = {
     ("vit_huge", ""): ("train_huge", (24, 24, 96, 64, 0, 0, 0, 0, 0, 0)),
     ("vit_large", "qkv,mlp"): ("train_fused", (0, 0, 96, 72, 0, 144, 96, 96, 0, 0)),
 }
+# The same ViT-L step at fp32 (phase train_fp32): every attention on the
+# fp32 BHND kernels, B1's 96 forwards and B2's 72 backwards moved there
+FP32_STEP = ("train_fp32", _counts(b3_fp32=96, bhnd_bwd_fp32=72))
+# Clip 0's loss and gradients of the fp32 step on the card against the fp32
+# CPU path of phase 6 (the same weights, clip and masks): fp32 on both
+# sides, the GEMMs in another summation order (cuBLAS, TF32 off), the
+# attention's products 3xTF32 (within 2e-5 of plain, phase kernel_fp32),
+# over 24 + 12 layers forward and back. Measured on an H100: 6.9e-8 on the
+# loss, 4.8e-5 and 5.0e-5 relative L2 on the encoder's and the predictor's
+# gradients (the summation orders' differences compound through the
+# backward). Tolerances 1e-5 on the loss and 1e-3 on each flattened
+# gradient; phase 6's bf16 step (1.1e-4 and 1.3e-2 there) misses both by
+# an order of magnitude, which the phase checks.
+FP32_TRAIN_LOSS_REL, FP32_TRAIN_GRAD_REL_L2 = 1e-5, 1e-3
+# The shipped smoke config (phase train_fp32): vit_tiny (12 x 192, heads of
+# 64) and a 2 x 192 predictor (heads of 64), RoPE, fp32, 4 frames at 64 px,
+# batch 4, ipe 8. A step launches the fp32 forward 12 (target) + 2 x 12
+# (contexts) + 2 x 2 (predictor) times and the backward 2 x (12 + 2).
+SMOKE_CONFIG_FILE = "configs/train/smoke-tiny.yaml"
+SMOKE_CONFIG = {
+    "app": "vjepa", "folder": "/tmp/vjepa2_tpu_smoke",
+    "mesh": {"data": -1, "fsdp": 1, "model": 1},
+    "data": {"datasets": [], "batch_size": 4, "crop_size": 64, "patch_size": 16,
+             "dataset_fpcs": [4], "tubelet_size": 2, "num_workers": 0},
+    "loss": {"loss_exp": 1.0},
+    "mask": [
+        {"aspect_ratio": [0.75, 1.5], "num_blocks": 4, "spatial_scale": [0.15, 0.15],
+         "temporal_scale": [1.0, 1.0]},
+        {"aspect_ratio": [0.75, 1.5], "num_blocks": 2, "spatial_scale": [0.7, 0.7],
+         "temporal_scale": [1.0, 1.0]},
+    ],
+    "meta": {"dtype": "float32", "seed": 0, "load_checkpoint": False},
+    "model": {"model_name": "vit_tiny", "pred_depth": 2, "pred_embed_dim": 192,
+              "pred_num_heads": 3, "uniform_power": True, "use_mask_tokens": True,
+              "use_rope": True},
+    "optimization": {"ema": [0.998, 1.0], "epochs": 2, "final_lr": 1.0e-06,
+                     "final_weight_decay": 0.4, "ipe": 8, "lr": 0.001, "start_lr": 0.0002,
+                     "warmup": 0, "weight_decay": 0.04},
+}
+# the shipped file keeps load_checkpoint off; the resumed epoch 1 reads the
+# checkpoint epoch 0 saved (epoch 0 finds none in its fresh folder)
+SMOKE_OVERRIDES = {"meta.load_checkpoint": True}
+SMOKE_LAUNCHES = _counts(b3_fp32=12 + 2 * 12 + 2 * 2, bhnd_bwd_fp32=2 * (12 + 2))
+# the smoke loop's first 3 losses on the card against the same config and
+# seed on the CPU (fp32 plain path) from the card's initial weights: fp32 on
+# both sides through 12 + 2 layers and 2 Adam steps (the CPU loop's parity
+# with JAX is held to the same, `tests/test_torch_loop.py`; measured on an
+# H100: 7e-8 to 3.2e-7)
+SMOKE_LOSS_RTOL = 1e-5
 GIANT_REL_L2 = 5e-2  # bf16 on the card against fp32 on the CPU, 40 layers
 # launches a step of the loop phases, in the order of KERNEL_COUNTS. ViT-H at
 # batch 16 under full remat: B3 32 target + 2 x 32 context + 64 recomputed,
@@ -461,7 +535,7 @@ LOOP_CONFIG = {
                      "final_weight_decay": 0.04, "ipe": 300, "ipe_scale": 1.25, "lr": 0.000425,
                      "start_lr": 0.0001, "warmup": 40, "weight_decay": 0.04},
 }
-LOOP_IPE = 4
+LOOP_IPE = 3  # cut from 4 to keep the script within its time limit
 LOOP_OVERRIDES = {"optimization.ipe": LOOP_IPE, "optimization.epochs": 2}
 ACCUM_CONFIG_FILE = "configs/train/vitl16/cooldown-256px-64f.yaml"
 ACCUM_CONFIG = {
@@ -509,7 +583,7 @@ DROID_LAUNCHES = (40 + 2 * 24, 2 * 24, 0, 0, 0, 0, 0, 0, 0, 0)
 # of its 10 x 2 rollout calls (over 400 x 264 and 400 x 520 tokens)
 ENCODE_LAUNCHES = (40, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 PLAN_LAUNCHES = (10 * 2 * 24, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-PLAN_TIMED, PLAN_CANDIDATES = 2, 4
+PLAN_TIMED, PLAN_CANDIDATES = 1, 4  # timed plans cut from 2 (the script's time limit)
 # encode and step_fn, bf16 on the card against fp32 on the CPU: the serving
 # slice's relative L2 (40 ViT-g layers, then 24 predictor layers on top); the
 # CEM update on a linear world model, fp32 on both sides, one sampler: the
@@ -526,7 +600,7 @@ EXPORT_BATCHES, EXPORT_REPEATS, EXPORT_REL_L2 = (1, 8), 5, 5e-2
 # The frozen evals (phases eval_video, eval_anticipation): the shipped ViT-L
 # configs as `yaml.safe_load` gives them (`tests/test_torch_eval_cli.py`
 # holds them to the files), through `cli.eval`'s run functions on the card;
-# each phase overrides only ipe and the epochs (4 train steps, 1 val batch).
+# each phase overrides only ipe and the epochs (3 train steps, 1 val batch).
 # Both share the reference's grid of 10 probes: 5 lrs x 2 weight decays.
 _PROBE_GRID = [{"lr": lr, "start_lr": lr, "final_lr": 0.0, "weight_decay": wd,
                 "final_weight_decay": wd, "warmup": 0.0}
@@ -563,7 +637,7 @@ EVAL_ANTICIPATION_CONFIG = {
         "checkpoint": None,
         "pretrain_kwargs": {"model_name": "vit_large", "use_rope": True, "uniform_power": True}},
 }
-EVAL_IPE = 4
+EVAL_IPE = 3  # cut from 4 to keep the script within its time limit
 EVAL_OVERRIDES = {"experiment.optimization.ipe": EVAL_IPE,
                   "experiment.optimization.num_epochs": 1}
 # launches a train step and a val batch: SSv2's encoder over its 4 x 2 clips in
@@ -577,8 +651,8 @@ EVAL_VIDEO_LAUNCHES = {"train": _counts(b1=24, b3_fp32=30, bhnd_bwd_fp32=30),
 EVAL_ANTICIPATION_LAUNCHES = {"train": _counts(b1=24 + 12), "val": _counts(b1=24 + 12)}
 # IN1K (phase eval_image): the shipped ViT-L config, batch 64 images as 16
 # fake frames (24 B1 at [64,16,64,2048]), 6 probes of depth 4 (18 fp32
-# forwards at [64,16,2048,64], 18 backwards a train step); cut to ipe 4, 1
-# epoch (4 train steps, 1 val batch)
+# forwards at [64,16,2048,64], 18 backwards a train step); cut to ipe 3, 1
+# epoch (3 train steps, 1 val batch)
 EVAL_IMAGE_CONFIG_FILE = "configs/eval/vitl/in1k.yaml"
 EVAL_IMAGE_CONFIG = {
     "eval_name": "image_classification_frozen", "folder": "./runs/evals/vitl/in1k",
@@ -667,14 +741,22 @@ PROLOGUE_SHAPES = [
     ("vit_huge target", 8, 2048, 1280, 16, 80, 5120, "shared", None),
     ("vit_giant target", 8, 2048, 1408, 16, 88, 6144, "shared", None),
 ]
-# (name, [B, H, N, D]) — the shapes the fp32 BHND kernels take on the main
-# paths: the probes' self-attention in the IN1K, SSv2 and ViT-g/384 K400
-# evals and in the serving slice
+# (name, [B, H, N, D], features) — the shapes the fp32 BHND kernels take on
+# the main paths: the probes' self-attention in the IN1K, SSv2 and ViT-g/384
+# K400 evals and in the serving slice (plain attention); the fp32 ViT-L step
+# of phase train_fp32 (RoPE: the target's shared tables, per-example tables
+# of real collator masks for the contexts and the predictor, stack-padded
+# with kv_valid, as `_bhnd_case` builds them for phase 7)
 FP32_SHAPES = [
-    ("in1k vit_large probe", (64, 16, 2048, 64)),
-    ("ssv2 vit_large probe", (4, 16, 4096, 64)),
-    ("serving slice probe", (8, 16, 2048, 64)),
-    ("k400 vit_giant/384 probe", (1, 16, 36864, 88)),
+    ("in1k vit_large probe", (64, 16, 2048, 64), {}),
+    ("ssv2 vit_large probe", (4, 16, 4096, 64), {}),
+    ("serving slice probe", (8, 16, 2048, 64), {}),
+    ("k400 vit_giant/384 probe", (1, 16, 36864, 88), {}),
+    ("fp32 vit_large target", (8, 16, 2048, 64), {"rope": "shared"}),
+    ("fp32 vit_large context, mask 0", (8, 16, 584, 64), {"rope": "ctx0", "kv_valid_len": 578}),
+    ("fp32 vit_large context, mask 1", (8, 16, 176, 64), {"rope": "ctx1", "kv_valid_len": 173}),
+    ("fp32 predictor, mask 1", (8, 12, 1664, 32), {"rope": "pred1", "kv_valid_len": 1662}),
+    ("fp32 predictor, mask 0", (8, 12, 1624, 32), {"rope": "pred0", "kv_valid_len": 1623}),
 ]
 # The plain version holds [B, H, N, M] fp32 scores (the backward about five
 # such); above FP32_PLAIN_WHOLE bytes it runs over chunks of queries that hold
@@ -1189,20 +1271,29 @@ def _reset_launch_counts() -> None:
 
 
 
+# phase 6's clip-0 reference on the fp32 CPU path, by model: the initial
+# weights, clip 0's masks, the loss and flattened gradients, and the bf16
+# step's errors against it; phase train_fp32 reuses it
+_CLIP0_CPU: dict = {}
+
+
 class _Trainer:
     """One masked-pretrain run of phase 6 on the card: the models (random
     weights from a seeded generator), AdamW and the EMA target, the collator
-    with fresh masks each step, one bf16 batch of clips."""
+    with fresh masks each step, one batch of clips (bf16; at fp32 the same
+    values, drawn in bf16, so that phase 6's clip-0 reference holds)."""
 
-    def __init__(self, dev, model: str, fuse_ln: str = ""):
+    def __init__(self, dev, model: str, fuse_ln: str = "", dtype=torch.bfloat16):
         from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
         from vjepa2_tpu_torch.train import pretrain as tp
         from vjepa2_tpu_torch.train.state import TrainState
 
         self.dev, self.model, self.fuse_ln, self.tp = dev, model, fuse_ln, tp
-        self.phase, self.per_step = TRAIN_CFGS[(model, fuse_ln)]
+        self.dtype = dtype
+        self.phase, self.per_step = (TRAIN_CFGS[(model, fuse_ln)] if dtype == torch.bfloat16
+                                     else FP32_STEP)
         t0 = time.perf_counter()
-        self.enc, self.pred = self.build(dev, torch.bfloat16)
+        self.enc, self.pred = self.build(dev, dtype)
         tp.init_params(self.enc, self.pred, torch.Generator(device=dev).manual_seed(0))
         self.hp = tp.PretrainHParams(ipe=100, epochs=10)  # as `bench.py:bench_pretrain`
         self.state = TrainState.create(self.enc, self.pred,
@@ -1210,7 +1301,7 @@ class _Trainer:
         self.train_step = tp.make_train_step(self.hp)
         self.coll = MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE))
         self.clips = torch.from_numpy(np.random.RandomState(0).rand(CLIPS, FRAMES, SIZE, SIZE, 3)
-                                      .astype(np.float32)).to(dev, torch.bfloat16)
+                                      .astype(np.float32)).to(dev, torch.bfloat16).to(dtype)
         self.setup_s = time.perf_counter() - t0
 
     def build(self, device, dtype):
@@ -1262,25 +1353,44 @@ class _Trainer:
             return loss.item(), flat
 
         to_dev = lambda ms: [m.to(self.dev) for m in ms]  # noqa: E731
+        ref = _CLIP0_CPU.get(self.model) if self.dtype == torch.float32 else None
+        if ref is not None:  # phase 6's weights, masks and CPU result
+            for m, key in ((self.enc, "encoder"), (self.pred, "predictor"),
+                           (self.state.target_encoder, "encoder")):  # the target: a copy
+                m.load_state_dict(ref["state"][key])
+            me0, mp0 = ref["masks"]
         loss_gpu, (ge_gpu, gp_gpu) = loss_and_grads(self.enc, self.pred, self.state.target_encoder,
                                                     self.clips[:1], to_dev(me0), to_dev(mp0))
-        torch.set_num_threads(os.cpu_count() or 1)
-        t2 = time.perf_counter()
-        enc_cpu, pred_cpu = self.build("cpu", torch.float32)
-        tgt_cpu, _ = self.build("cpu", torch.float32)
-        enc_cpu.load_state_dict(self.enc.state_dict())
-        pred_cpu.load_state_dict(self.pred.state_dict())
-        tgt_cpu.load_state_dict(self.state.target_encoder.state_dict())
-        loss_cpu, (ge_cpu, gp_cpu) = loss_and_grads(enc_cpu, pred_cpu, tgt_cpu,
-                                                    self.clips[:1].float().cpu(), me0, mp0)
-        cpu_s = time.perf_counter() - t2
-        del enc_cpu, pred_cpu, tgt_cpu
-        return {"loss_gpu": loss_gpu, "loss_cpu_fp32": loss_cpu,
-                "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
-                "encoder_grad_rel_l2": ((ge_gpu - ge_cpu).norm() / ge_cpu.norm()).item(),
-                "predictor_grad_rel_l2": ((gp_gpu - gp_cpu).norm() / gp_cpu.norm()).item(),
-                "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2},
-                "depth": f"full ({len(self.enc.blocks)} + 12 layers)", "cpu_reference_s": cpu_s}
+        cpu_s = 0.0
+        if ref is None:
+            torch.set_num_threads(os.cpu_count() or 1)
+            t2 = time.perf_counter()
+            enc_cpu, pred_cpu = self.build("cpu", torch.float32)
+            tgt_cpu, _ = self.build("cpu", torch.float32)
+            enc_cpu.load_state_dict(self.enc.state_dict())
+            pred_cpu.load_state_dict(self.pred.state_dict())
+            tgt_cpu.load_state_dict(self.state.target_encoder.state_dict())
+            loss_cpu, (ge_cpu, gp_cpu) = loss_and_grads(enc_cpu, pred_cpu, tgt_cpu,
+                                                        self.clips[:1].float().cpu(), me0, mp0)
+            cpu_s = time.perf_counter() - t2
+            ref = {"state": {"encoder": enc_cpu.state_dict(), "predictor": pred_cpu.state_dict()},
+                   "masks": (me0, mp0), "loss": loss_cpu, "grads": (ge_cpu, gp_cpu)}
+            del enc_cpu, pred_cpu, tgt_cpu
+        loss_cpu, (ge_cpu, gp_cpu) = ref["loss"], ref["grads"]
+        tol = ({"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2}
+               if self.dtype == torch.bfloat16 else
+               {"loss_rel": FP32_TRAIN_LOSS_REL, "grad_rel_l2": FP32_TRAIN_GRAD_REL_L2})
+        rec = {"loss_gpu": loss_gpu, "loss_cpu_fp32": loss_cpu,
+               "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+               "encoder_grad_rel_l2": ((ge_gpu - ge_cpu).norm() / ge_cpu.norm()).item(),
+               "predictor_grad_rel_l2": ((gp_gpu - gp_cpu).norm() / gp_cpu.norm()).item(),
+               "tol": tol, "depth": f"full ({len(self.enc.blocks)} + 12 layers)",
+               "cpu_reference_s": cpu_s}
+        if cpu_s and (self.model, self.fuse_ln, self.dtype) == ("vit_large", "", torch.bfloat16):
+            _CLIP0_CPU[self.model] = {**ref, "bf16_errors": {
+                k: rec[k] for k in ("loss_rel_err", "encoder_grad_rel_l2",
+                                    "predictor_grad_rel_l2")}}
+        return rec
 
     def warmup_with_ema_check(self) -> tuple[float, str]:
         """The warm-up step, which also checks the EMA on one target leaf."""
@@ -1303,8 +1413,9 @@ class _Trainer:
 
 
 def _clip0_ok(c: dict) -> bool:
-    return (c["loss_rel_err"] <= TRAIN_LOSS_REL and c["encoder_grad_rel_l2"] <= TRAIN_GRAD_REL_L2
-            and c["predictor_grad_rel_l2"] <= TRAIN_GRAD_REL_L2)
+    tol = c["tol"]
+    return (c["loss_rel_err"] <= tol["loss_rel"] and c["encoder_grad_rel_l2"] <= tol["grad_rel_l2"]
+            and c["predictor_grad_rel_l2"] <= tol["grad_rel_l2"])
 
 
 def _step_record(tr: _Trainer, times, losses, norms, masks) -> dict:
@@ -1316,8 +1427,11 @@ def _step_record(tr: _Trainer, times, losses, norms, masks) -> dict:
             "launches_per_step": dict(zip(KERNEL_COUNTS, tr.per_step))}
 
 
-def phase_train(dev, smi: str, model: str = "vit_large") -> tuple[int, ...]:
-    tr = _Trainer(dev, model)
+def _timed_run(dev, tr: _Trainer) -> tuple[dict, tuple[int, ...]]:
+    """Phase 6's run of a trainer: clip 0 against the fp32 CPU path, the
+    warm-up with the EMA check, `TRAIN_STEPS` timed steps (their launches
+    counted from 0), peak memory and finite gradients. Returns (the record's
+    fields, the timed steps' launches)."""
     clip0 = tr.clip0()
     torch.cuda.reset_peak_memory_stats(dev)
     ema_err, leaf = tr.warmup_with_ema_check()
@@ -1331,16 +1445,21 @@ def phase_train(dev, smi: str, model: str = "vit_large") -> tuple[int, ...]:
     launches = _launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     tr.finite_grads()
-    ok = _clip0_ok(clip0)
+    return {"warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+            **_step_record(tr, times, losses, norms, masks), "peak_memory_gb": peak_gb,
+            "launches": dict(zip(KERNEL_COUNTS, launches)), "ema_max_abs_err": ema_err,
+            "ema_leaf": leaf, "clip0": clip0, "setup_s": tr.setup_s}, launches
+
+
+def phase_train(dev, smi: str, model: str = "vit_large") -> tuple[int, ...]:
+    tr = _Trainer(dev, model)
+    rec, launches = _timed_run(dev, tr)
+    ok = _clip0_ok(rec["clip0"])
     emit({"phase": tr.phase,
           "model": f"{model} 16f@256 bs8 + predictor (12 x 384, 12 heads) bf16, AdamW fp32",
-          "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS, **_step_record(tr, times, losses,
-                                                                              norms, masks),
-          "peak_memory_gb": peak_gb, "launches": dict(zip(KERNEL_COUNTS, launches)),
-          "ema_max_abs_err": ema_err, "ema_leaf": leaf, "clip0": clip0,
-          "setup_s": tr.setup_s, "ok": ok, "gpu": smi})
+          **rec, "ok": ok, "gpu": smi})
     if not ok:
-        raise AssertionError(f"clip-0 loss or gradients off the CPU fp32 reference: {clip0}")
+        raise AssertionError(f"clip-0 loss or gradients off the CPU fp32 reference: {rec['clip0']}")
     return launches
 
 
@@ -1611,6 +1730,130 @@ def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
           "resumed_masks_equal": masks_ok, "csv_rows": len(rows),
           "seconds": time.perf_counter() - t0, "ok": True, "gpu": smi})
     return launches
+
+
+def _models_on_cpu(state) -> dict:
+    """A CPU copy of a train state's three models' tensors (the state's own
+    are updated in place by the steps)."""
+    return {m: {k: v.detach().cpu().clone() for k, v in getattr(state, m).state_dict().items()}
+            for m in ("encoder", "predictor", "target_encoder")}
+
+
+def _smoke_fp32_loop(dev, smi: str) -> tuple[int, ...]:
+    """Phase train_fp32, part (a): the shipped fp32 smoke config
+    (`SMOKE_CONFIG`) through `run_vjepa` on the card, epoch 0 and then a
+    resumed epoch 1, and its first 3 losses against the same config and
+    seed on the CPU from the card's initial weights. Returns the launches
+    of the card's steps."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    folders = [tempfile.mkdtemp(prefix="vjepa2_smoke_") for _ in range(2)]
+    overrides = {"folder": folders[0], **SMOKE_OVERRIDES}
+    raw = overridden(SMOKE_CONFIG, overrides)
+    ipe = raw["optimization"]["ipe"]
+    try:
+        init = {}
+
+        def keep_init(trainer, state):  # the card's initial weights, for the CPU run
+            init["models"] = _models_on_cpu(state)
+
+        with _LoopRecorder(on_restore=keep_init) as part1:
+            _run_config(raw, dev, epochs=1)
+        _, state1 = part1.states[0]
+        saved = {k: v.detach().cpu() for k, v in _state_tensors(state1)}
+        part1.release()
+        del state1
+        restored = {}
+
+        def compare(trainer, state):
+            restored["step"] = state.step
+            restored["bit_equal"] = all(torch.equal(v.cpu(), saved[k])
+                                        for k, v in _state_tensors(state)) \
+                and sorted(k for k, _ in _state_tensors(state)) == sorted(saved)
+
+        with _LoopRecorder(on_restore=compare) as part2:
+            _run_config(raw, dev, epochs=2)
+        steps = part1.steps + part2.steps
+        _check_launches("train_fp32", steps, SMOKE_LAUNCHES)
+        (ms1, n1), (ms2, n2) = part1.loop_ms_per_step(), part2.loop_ms_per_step()
+        part2.release()
+        with open(os.path.join(folders[0], "log_r0.csv")) as f:
+            rows = [ln for ln in f.read().splitlines() if ln and not ln.startswith("epoch")]
+
+        def load_init(trainer, state):
+            for m, sd in init["models"].items():
+                getattr(state, m).load_state_dict(sd)
+
+        t_cpu = time.perf_counter()
+        with _LoopRecorder(on_restore=load_init) as cpu:
+            _run_config(overridden(raw, {"folder": folders[1]}), "cpu", epochs=1)
+        cpu_s = time.perf_counter() - t_cpu
+    finally:
+        for folder in folders:
+            shutil.rmtree(folder, ignore_errors=True)
+    card, want = [s["loss"] for s in part1.steps[:3]], [s["loss"] for s in cpu.steps[:3]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, want)]
+    ok = (restored.get("bit_equal") and restored["step"] == ipe and len(rows) == 2 * ipe
+          and len(rel) == 3 and max(rel) <= SMOKE_LOSS_RTOL)
+    launches = tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
+    emit({"phase": "train_fp32", "part": "smoke loop", "config": SMOKE_CONFIG_FILE,
+          "overrides": {**overrides, "folder": "<temporary directory>"},
+          "model": "vit_tiny (12 x 192, Dh 64) 4f@64 bs4 + predictor (2 x 192, Dh 64), RoPE, "
+                   "fp32, synthetic clips",
+          "steps": [{k: v for k, v in s.items() if k not in ("masks", "t0")} for s in steps],
+          "loop_ms_per_step": (ms1 * n1 + ms2 * n2) / (n1 + n2),
+          "launches_per_step": dict(zip(KERNEL_COUNTS, SMOKE_LAUNCHES)),
+          "restored": restored, "csv_rows": len(rows),
+          "first_losses": {"card": card, "cpu_fp32": want, "rel_err": rel,
+                           "tol_rel": SMOKE_LOSS_RTOL},
+          "cpu_reference_s": cpu_s, "seconds": time.perf_counter() - t0, "ok": bool(ok),
+          "gpu": smi})
+    if not ok:
+        raise AssertionError(f"the fp32 smoke loop: restored {restored}, {len(rows)} CSV rows, "
+                             f"first losses {card} against the CPU's {want}")
+    return launches
+
+
+def _vitl_fp32_step(dev, smi: str) -> tuple[int, ...]:
+    """Phase train_fp32, part (b): phase 6's ViT-L step at fp32 (the model of
+    `configs/train/vitl16/pretrain-256px-16f.yaml` with meta.dtype float32):
+    phase 6's run (`_timed_run`, clip 0 against phase 6's fp32 CPU
+    reference), then one more step traced. Returns the timed steps'
+    launches."""
+    tr = _Trainer(dev, "vit_large", dtype=torch.float32)
+    rec, launches = _timed_run(dev, tr)
+    bf16 = _CLIP0_CPU.pop("vit_large", {}).get("bf16_errors")
+    traced = wall_and_busy(tr.step)
+    clip0 = rec["clip0"]
+    ok = _clip0_ok(clip0)
+    # the bf16 step's clip-0 errors against these tolerances: it must miss them
+    bf16_misses = bf16 is not None and (
+        bf16["loss_rel_err"] > FP32_TRAIN_LOSS_REL
+        and min(bf16["encoder_grad_rel_l2"], bf16["predictor_grad_rel_l2"]) > FP32_TRAIN_GRAD_REL_L2)
+    emit({"phase": "train_fp32", "part": "vit_large step",
+          "model": "vit_large 16f@256 bs8 + predictor (12 x 384, 12 heads), RoPE, fp32 "
+                   "(TF32 off), AdamW fp32",
+          **rec, "one_traced_step": traced,
+          "clip0_reference": "phase train's fp32 CPU path (the same weights, clip and masks)"
+          if clip0["cpu_reference_s"] == 0.0 else "computed here",
+          "bf16_clip0_errors": bf16, "bf16_misses_these_tolerances": bf16_misses,
+          "ok": ok and bf16_misses, "gpu": smi})
+    if not ok:
+        raise AssertionError(f"fp32 clip-0 loss or gradients off the CPU fp32 reference: {clip0}")
+    if not bf16_misses:
+        raise AssertionError(f"phase 6's bf16 clip-0 errors {bf16} do not miss the fp32 "
+                             "tolerances: they would not tell the fp32 step from the bf16 one")
+    return launches
+
+
+def phase_train_fp32(dev, smi: str) -> tuple[int, ...]:
+    """The fp32 pretraining path: the shipped smoke loop, then the full-width
+    ViT-L step at fp32. Returns the launches of both."""
+    a = _smoke_fp32_loop(dev, smi)
+    b = _vitl_fp32_step(dev, smi)
+    return tuple(x + y for x, y in zip(a, b))
 
 
 def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
@@ -2258,26 +2501,29 @@ def _plain_in_query_chunks(rows: int):
         fa._plain_fwd = whole
 
 
-def fp32_plain_fwd(q, k, v, rows=None):
-    """`flash_attention_bhnd_plain`, whole or over chunks of ``rows`` queries."""
+def fp32_plain_fwd(q, k, v, rows=None, **kw):
+    """`flash_attention_bhnd_plain`, whole or over chunks of ``rows`` queries
+    (those without RoPE: the tables follow the query rows)."""
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
+    assert not (rows and "rope_expanded" in kw), "RoPE runs whole rows"
     with _plain_in_query_chunks(rows) if rows else contextlib.nullcontext():
-        return fa.flash_attention_bhnd_plain(q, k, v)
+        return fa.flash_attention_bhnd_plain(q, k, v, **kw)
 
 
-def fp32_plain_bwd(q, k, v, out, lse, do, rows=None):
+def fp32_plain_bwd(q, k, v, out, lse, do, rows=None, **kw):
     """`flash_attention_bhnd_bwd_plain`, whole or over chunks of ``rows``
-    queries (dk and dv summed over the chunks)."""
+    queries (dk and dv summed over the chunks; without RoPE)."""
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
     N = q.shape[2]
+    assert not (rows and "rope_expanded" in kw), "RoPE runs whole rows"
     rows = rows or N
     dq, dk, dv = [], torch.zeros_like(k), torch.zeros_like(v)
     for i in range(0, N, rows):
         sl = slice(i, i + rows)
         g = fa.flash_attention_bhnd_bwd_plain(q[:, :, sl], k, v, out[:, :, sl], lse[:, :, sl],
-                                              do[:, :, sl])
+                                              do[:, :, sl], **kw)
         dq.append(g[0])
         dk += g[1]
         dv += g[2]
@@ -2303,64 +2549,93 @@ def _fp32_ok(e: dict) -> bool:
         FP32_MAX_ABS * e["max_abs_plain"])
 
 
+def _fp32_library_operands(q, k, v, do, kw):
+    """`F.scaled_dot_product_attention`'s fp32 operands for a call: q and k
+    rotated in fp32 (as the pre-pass rotates them), k and v cut to the
+    first kv_valid keys, so that it computes the kernel's function without
+    a mask."""
+    from vjepa2_tpu_torch.ops.rope import rope_rotate
+
+    if "rope_expanded" in kw:
+        cos, sin = (t[:, None] for t in kw["rope_expanded"])
+        q, k = rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)
+    kv = kw.get("kv_valid_len") or k.shape[2]
+    return q, k[:, :, :kv].contiguous(), v[:, :, :kv].contiguous(), do
+
+
 def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
     """The fp32 BHND kernels (`csrc/flash_fp32.cuh`) against their plain
     versions at `FP32_SHAPES`, forward and backward (given the kernel's out
     and lse), the plain version over query chunks where its scores do not
-    fit; each timed by CUDA events with its TFLOP/s and bound (`PEAK_3XTF32`:
-    fp32-accurate products on the tensor cores), beside the plain version and
-    `F.scaled_dot_product_attention` on the same fp32 operands (TF32 off),
-    with the backend PyTorch picked."""
+    fit; each timed by CUDA events with its TFLOP/s over the (query, key)
+    pairs the masks leave and its bound (`PEAK_3XTF32`: fp32-accurate
+    products on the tensor cores), beside the plain version and
+    `F.scaled_dot_product_attention` on the same fp32 operands (TF32 off; q
+    and k pre-rotated, k and v cut to kv_valid), with the backend PyTorch
+    picked."""
     import torch.nn.functional as F
 
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
-    firsts = [None, None]
-    for name, (B, H, N, D) in FP32_SHAPES:
+    seqs, firsts = _mask_seqs(), [None, None]
+    for name, (B, H, N, D), feats in FP32_SHAPES:
         gen = torch.Generator(dev).manual_seed(0)
         q, k, v, do = (torch.randn(B, H, N, D, generator=gen, device=dev) for _ in range(4))
+        kw = {}
+        if feats.get("rope"):
+            kw["rope_expanded"] = _rope_tables(dev, B, N, D, feats["rope"], seqs)
+        if "kv_valid_len" in feats:
+            kw["kv_valid_len"] = feats["kv_valid_len"]
+        mask = pair_mask(B, N, N, dev, kw.get("kv_valid_len"))
         rows = _plain_rows(B, H, N, N)
-        pairs = B * H * N * N
+        pairs = attended_pairs(B, H, N, N, mask)
         flops = {"fwd": 4 * D * pairs, "bwd": 10 * D * pairs}
         iters = {kind: max(2, min(20, int(4e12 / f))) for kind, f in flops.items()}
         with torch.no_grad():
-            out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True)
-            grads = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do)
-            out_p, lse_p = fp32_plain_fwd(q, k, v, rows)
-            want = fp32_plain_bwd(q, k, v, out, lse, do, rows)
+            out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+            grads = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw)
+            out_p, lse_p = fp32_plain_fwd(q, k, v, rows, **kw)
+            want = fp32_plain_bwd(q, k, v, out, lse, do, rows, **kw)
             torch.cuda.synchronize()
             errs = {"fwd": {"out": _fp32_errors(out, out_p)},
                     "bwd": {n_: _fp32_errors(g, w)
                             for n_, g, w in zip(("dq", "dk", "dv"), grads, want)}}
             lse_err = (lse - lse_p).abs().max().item()
+            kv = kw.get("kv_valid_len") or N
+            zero_past_kv = not (grads[1][:, :, kv:].any() or grads[2][:, :, kv:].any())
             del out_p, lse_p, want
-            ms = {"fwd": cuda_ms(lambda: fa.flash_attention_bhnd(q, k, v), iters["fwd"]),
-                  "bwd": cuda_ms(lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do),
+            ms = {"fwd": cuda_ms(lambda: fa.flash_attention_bhnd(q, k, v, **kw), iters["fwd"]),
+                  "bwd": cuda_ms(lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw),
                                  iters["bwd"])}
-            plain_ms = {"fwd": cuda_ms(lambda: fp32_plain_fwd(q, k, v, rows), 1, warmup=1),
-                        "bwd": cuda_ms(lambda: fp32_plain_bwd(q, k, v, out, lse, do, rows), 1,
-                                       warmup=1)}
-            backend = sdpa_backend(q, k, v)
+            plain_ms = {"fwd": cuda_ms(lambda: fp32_plain_fwd(q, k, v, rows, **kw), 1, warmup=1),
+                        "bwd": cuda_ms(lambda: fp32_plain_bwd(q, k, v, out, lse, do, rows, **kw),
+                                       1, warmup=1)}
+            lq, lk, lv, ldo = _fp32_library_operands(q, k, v, do, kw)
+            backend = sdpa_backend(lq, lk, lv)
         library_ms = {"fwd": None, "bwd": None}
         if backend != "MATH" or rows is None:  # the math backend would hold whole scores
             with torch.no_grad():
-                library_ms["fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                library_ms["fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv),
                                             iters["fwd"])
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            leaves = [t.detach().requires_grad_() for t in (lq, lk, lv)]
             with torch.enable_grad():
                 ref = F.scaled_dot_product_attention(*leaves)
                 library_ms["bwd"] = cuda_ms(
-                    lambda: torch.autograd.grad(ref, leaves, do, retain_graph=True),
+                    lambda: torch.autograd.grad(ref, leaves, ldo, retain_graph=True),
                     iters["bwd"])
             del ref, leaves
-        sizes = {"fwd": nbytes(q, k, v, out, lse), "bwd": nbytes(q, k, v, out, do, lse, *grads)}
+        del lq, lk, lv, ldo
+        side = kw.get("rope_expanded", ())
+        sizes = {"fwd": nbytes(q, k, v, out, lse, *side),
+                 "bwd": nbytes(q, k, v, out, do, lse, *side, *grads)}
         for i, (kernel, kind) in enumerate((("flash_fwd_fp32", "fwd"),
                                             ("flash_bwd_fp32", "bwd"))):
             bound_ms, bound_by = bound(flops[kind], sizes[kind], PEAK_3XTF32)
             ok = all(_fp32_ok(e) for e in errs[kind].values()) and (
-                kind == "bwd" or lse_err <= FP32_LSE_ATOL)
+                lse_err <= FP32_LSE_ATOL if kind == "fwd" else zero_past_kv)
             rec = {"phase": "kernel_fp32", "kernel": kernel, "shape": name,
-                   "bhnd": [B, H, N, D], "ms": ms[kind], "iters": iters[kind],
+                   "bhnd": [B, H, N, D], "features": sorted(kw),
+                   "kv_valid": kw.get("kv_valid_len"), "ms": ms[kind], "iters": iters[kind],
                    "plain_ms": plain_ms[kind], "plain_query_chunk": rows,
                    "library_ms": library_ms[kind],
                    "library": f"F.scaled_dot_product_attention fp32, TF32 off ({backend})",
@@ -2372,6 +2647,8 @@ def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
                    "ok": ok, "gpu": smi}
             if kind == "fwd":
                 rec.update(max_abs_err_lse=lse_err, tol_lse=FP32_LSE_ATOL)
+            else:
+                rec.update(dk_dv_zero_past_kv_valid=zero_past_kv)
             emit(rec)
             if not ok:
                 raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
@@ -3388,7 +3665,7 @@ def phase_eval_video(dev, smi: str) -> tuple[int, ...]:
     """The SSv2 probe eval: `cli.eval.run_video_classification` on the
     shipped ViT-L config (`EVAL_VIDEO_CONFIG`): the encoder (RoPE, bf16,
     16f@256) over 4 x 2 clips a batch into features [4, 4096, 1024], 10 fp32
-    probes of depth 4 (16 heads, 174 classes) trained one at a time; 4 train
+    probes of depth 4 (16 heads, 174 classes) trained one at a time; 3 train
     steps and 1 val batch (one view)."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.video_classification import VideoClassificationEval
@@ -3415,7 +3692,7 @@ def phase_eval_anticipation(dev, smi: str) -> tuple[int, ...]:
     the shipped ViT-L config (`EVAL_ANTICIPATION_CONFIG`): the encoder over
     16 clips, the predictor (12 x 384, 12 heads of 32) over 2048 context
     tokens plus 256 targets 1 s ahead, features [16, 2304, 1024]; 10 fp32
-    three-head probes of depth 1; 4 train steps and 1 val batch."""
+    three-head probes of depth 1; 3 train steps and 1 val batch."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.action_anticipation import AnticipationEval, anticipative_features
     from vjepa2_tpu_torch.models.predictor import vit_predictor
@@ -3453,7 +3730,7 @@ def phase_eval_image(dev, smi: str) -> tuple[int, ...]:
     shipped ViT-L config (`EVAL_IMAGE_CONFIG`): 64 images a batch, each
     replicated to 16 fake frames, the encoder (RoPE, bf16) into features
     [64, 2048, 1024], 6 fp32 probes of depth 4 (16 heads of 64 on the fp32
-    flash kernels, 1000 classes) trained one at a time; 4 train steps and 1
+    flash kernels, 1000 classes) trained one at a time; 3 train steps and 1
     val batch. The CPU checks take the first 4 examples."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.image_classification import ImageClassificationEval
@@ -3614,6 +3891,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     rec_bhnd = timed("kernel_bhnd", phase_kernels_bhnd, dev, smi)
     rec_bhnd_bwd = timed("kernel_bhnd_bwd", phase_kernels_bhnd_bwd, dev, smi)
     rec_fp32, rec_fp32_bwd = timed("kernel_fp32", phase_kernels_fp32, dev, smi)
+    fp32_l = timed("train_fp32", phase_train_fp32, dev, smi)
     train_h = timed("train_huge", phase_train, dev, smi, "vit_huge")
     giant_launches = timed("encode_giant", phase_encode_giant, dev, smi)
     timed("entry", phase_entry, dev, smi)
@@ -3641,7 +3919,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     # every main-path run's launches, in the order of KERNEL_COUNTS
     total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
                                  accum_l, droid_l, plan_l, export_l, eval_v, eval_a, eval_i,
-                                 eval_384)]
+                                 eval_384, fp32_l)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):
@@ -3670,12 +3948,14 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
               library=rec_mlp["library"]),
         entry("flash_fwd_fp32", FP32_FWD_SOURCE, FP32_FWD_REPLACES, total[8], rec_fp32,
               "max_abs_err", library=rec_fp32["library"],
-              note="B3 on fp32 operands (the frozen probes' self-attention): 3xTF32 on "
-                   "wgmma, after the split pre-pass (flash_fp32_split.cu)"),
+              note="B3 on fp32 operands (the frozen probes' self-attention; the fp32 "
+                   "pretrain step's, with RoPE and kv_valid): 3xTF32 on wgmma, after the "
+                   "split pre-pass (flash_fp32_split.cu), which rotates q and k"),
         entry("flash_bwd_fp32", FP32_BWD_SOURCE, FP32_BWD_REPLACES, total[9], rec_fp32_bwd,
               "max_abs_err", library=rec_fp32_bwd["library"],
               note="B4 and B5 (flash_attention.py:361, :434) on fp32 operands: the split "
-                   "pre-pass, dQ (flash_fp32_dq.cu), then dK/dV (flash_fp32_dkdv.cu)")]})
+                   "pre-pass, dQ (flash_fp32_dq.cu), then dK/dV (flash_fp32_dkdv.cu), the "
+                   "RoPE adjoint in their epilogues")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

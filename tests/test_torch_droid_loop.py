@@ -44,6 +44,17 @@ SMOKE = ROOT / "configs/train/smoke-tiny.yaml"
 IPE = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch ops: 6 pytest workers with
+    torch's default 8 threads each oversubscribe an 8-core host (see
+    `tests/test_torch_eval_cli.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _raw(folder, overrides=None) -> dict:
     raw = yaml.safe_load(SMOKE.read_text())
     return chip_smoke.overridden(raw, {"app": "vjepa_droid", "folder": str(folder),
@@ -222,10 +233,12 @@ def test_refusals(tmp_path, overrides, match):
 
 
 def test_fp32_on_the_card_is_refused(tmp_path, monkeypatch):
+    """The AC predictor's frame-causal segment ids have no fp32 kernel yet:
+    fp32 on the card is refused, naming ROADMAP queue B."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     raw = _raw(tmp_path / "run")
     assert raw["meta"]["dtype"] == "float32"
-    with pytest.raises(NotImplementedError, match="take bf16"):
+    with pytest.raises(NotImplementedError, match="segment ids.*queue B"):
         loop.DroidTrainer(PretrainConfig.from_dict(raw), device="cuda")
 
 

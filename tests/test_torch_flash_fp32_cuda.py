@@ -9,10 +9,14 @@ an unrounded tf32 operand would drop), a peaked softmax (scores to ±40),
 one 36,864-token head (the ViT-g/384 probes') against the plain version
 over query chunks, operands as views of one qkv output and an unaligned
 view (copied, still launched), two calls bit-equal forward and backward,
-the features the fp32 kernels refuse (RoPE, segment ids, kv_valid, causal)
-and mixed dtypes, bf16 calls still on the bf16 kernels (the launch
-counters), and `Attention` and a `ProbeGrid` on the card taking the fp32
-route.
+the pretrain step's features (split-half RoPE tables, shared and per
+example, and kv_valid in {1, M - 1, M - 63} at every width and at N in
+{1, 63, 64, 65, 2048}, on qkv views too; dk and dv exactly zero past
+kv_valid), the features the fp32 kernels still refuse (segment ids, causal:
+ROADMAP queue B) and mixed dtypes, bf16 calls still on the bf16 kernels (the
+launch counters), and `Attention` (rope-free, and with RoPE and kv_valid at
+heads of 32 and 64 with per-example tables, as the predictor and the masked
+encoder run it) and a `ProbeGrid` on the card taking the fp32 route.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
@@ -62,24 +66,32 @@ def _close(got, want, name):
     assert rel <= REL_L2 and err <= MAX_ABS * want.abs().max().item(), (name, rel, err)
 
 
-def _check(q, k, v, do, lse_tol=LSE_ATOL):
-    """Kernel forward and backward against the plain versions. With one key
-    p = 1 and dp = delta, so dq and dk are 0 but for rounding on both sides:
-    there they are held to 1e-5 absolute (unit-variance inputs)."""
+def _check(q, k, v, do, lse_tol=LSE_ATOL, **kw):
+    """Kernel forward and backward against the plain versions (``kw``: RoPE
+    tables, kv_valid_len). With one key p = 1 and dp = delta, so dq and dk
+    are 0 but for rounding on both sides: each row's dp - delta is a
+    rounding residue (~1e-6 at unit-variance inputs), and dk sums N of them,
+    so there they are held to 1e-5 x sqrt(N) absolute (1e-5 at N = 1). Past
+    kv_valid dk and dv are exactly 0."""
     before = (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32)
-    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True)
-    out_p, lse_p = fa.flash_attention_bhnd_plain(q, k, v)
-    grads = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do)
-    want = fa.flash_attention_bhnd_bwd_plain(q, k, v, out, lse, do)
+    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+    out_p, lse_p = fa.flash_attention_bhnd_plain(q, k, v, **kw)
+    grads = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw)
+    want = fa.flash_attention_bhnd_bwd_plain(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     assert (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32) == (before[0] + 1, before[1] + 1)
     assert out.dtype == lse.dtype == torch.float32
     _close(out, out_p, "out")
     assert (lse - lse_p).abs().max().item() <= lse_tol
+    keys = kw.get("kv_valid_len") or k.shape[2]
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
-        if k.shape[2] == 1 and name != "dv":
-            assert max(g.abs().max().item(), w.abs().max().item()) <= 1e-5, name
+        if name != "dq":
+            assert not g[:, :, keys:].any(), name
+            g, w = g[:, :, :keys], w[:, :, :keys]
+        if keys == 1 and name != "dv":
+            tol = 1e-5 * q.shape[2] ** 0.5
+            assert max(g.abs().max().item(), w.abs().max().item()) <= tol, name
         else:
             _close(g, w, name)
 
@@ -90,6 +102,62 @@ def test_fp32_kernels_match_plain(dev, D, N):
     B, H = (1, 2) if N == 2048 else (2, 3)
     q, k, v, do = (_randn((B, H, N, D), dev, s) for s in range(4))
     _check(q, k, v, do)
+
+
+def _tables(dev, B, N, D, per_example, seed):
+    """Split-half (cos, sin) [B|1, N, D] of real 3D RoPE angles: positions
+    0..N-1 shared, or per example a random subset of a 16 x 16 x 16 grid
+    (as masked contexts and predictor sequences take them)."""
+    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+
+    rng = np.random.RandomState(seed)
+    pos = (np.stack([np.sort(rng.choice(4096, N, replace=False)) for _ in range(B)])
+           if per_example else np.arange(N)[None])
+    return expand_rope_cache(build_rope_cache(torch.from_numpy(pos).to(dev), D, 16, 16), D)[0]
+
+
+def _kv_valids(N):
+    return sorted({kv for kv in (1, N - 1, N - 63) if kv > 0})
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 2048])
+@pytest.mark.parametrize("D", fa.BHND_HEAD_WIDTHS)
+def test_fp32_rope_and_kv_valid_match_plain(dev, D, N):
+    """RoPE with shared and per-example tables, each with every kv_valid of
+    {1, N - 1, N - 63} that is positive, and without one."""
+    B, H = (1, 2) if N == 2048 else (2, 3)
+    q, k, v, do = (_randn((B, H, N, D), dev, s) for s in range(4))
+    for per_example in (False, True):
+        tables = _tables(dev, B, N, D, per_example, seed=N + D)
+        for kv in [None, *_kv_valids(N)]:
+            _check(q, k, v, do, rope_expanded=tables, kv_valid_len=kv)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_fp32_kv_valid_without_rope_and_on_qkv_views(dev, D):
+    """kv_valid alone (the fused route's narrow heads), and RoPE + kv_valid
+    on q, k, v as views of one [B, N, 3, H, D] projection output, the route
+    `Attention` takes."""
+    q, k, v, do = (_randn((2, 3, 584, D), dev, s) for s in range(4))
+    for kv in (578, 521):
+        _check(q, k, v, do, kv_valid_len=kv)
+    y = _randn((8, 176, 3 * 16 * D), dev, 4)
+    qv, kv_, vv = y.view(8, 176, 3, 16, D).permute(2, 0, 3, 1, 4).unbind(0)
+    assert all(fa.vec4_ready(t) for t in (qv, kv_, vv))
+    _check(qv, kv_, vv, _randn((8, 16, 176, D), dev, 5),
+           rope_expanded=_tables(dev, 8, 176, D, True, seed=D), kv_valid_len=173)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_fp32_rope_two_calls_are_bit_equal(dev, D):
+    q, k, v, do = (_randn((2, 4, 1664, D), dev, s) for s in range(4))
+    kw = dict(rope_expanded=_tables(dev, 2, 1664, D, True, seed=1), kv_valid_len=1662)
+    out1, lse1 = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+    out2, lse2 = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    g1 = fa.flash_attention_bhnd_bwd(q, k, v, out1, lse1, do, **kw)
+    g2 = fa.flash_attention_bhnd_bwd(q, k, v, out1, lse1, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
 def test_fp32_cross_lengths_and_qkv_views(dev):
@@ -180,13 +248,11 @@ def test_fp32_two_calls_are_bit_equal(dev, D):
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
-@pytest.mark.parametrize("feature", ["rope", "segments", "kv_valid", "causal"])
+@pytest.mark.parametrize("feature", ["segments", "causal"])
 def test_fp32_refuses_the_features_it_lacks(dev, feature):
     q, k, v = (_randn((1, 2, 64, 64), dev, s) for s in range(3))
-    kw = {"rope": dict(rope_expanded=(torch.ones(1, 64, 64, device=dev),
-                                      torch.zeros(1, 64, 64, device=dev))),
-          "segments": dict(segment_ids=torch.zeros(64, dtype=torch.int32, device=dev)),
-          "kv_valid": dict(kv_valid_len=60), "causal": dict(causal=True)}[feature]
+    kw = {"segments": dict(segment_ids=torch.zeros(64, dtype=torch.int32, device=dev)),
+          "causal": dict(causal=True)}[feature]
     before = fa.LAUNCHES_FP32
     with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
         fa.flash_attention_bhnd(q, k, v, **kw)
@@ -229,6 +295,41 @@ def test_fp32_attention_module_takes_the_bhnd_route(dev):
     for m in (flash, plain):
         xi = x.clone().requires_grad_()
         y = m(xi)
+        outs.append(y)
+        grads.append(torch.autograd.grad(y, xi, torch.ones_like(y))[0])
+    assert (fdn.LAUNCHES, fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32) == (
+        before[0], before[1] + 1, before[2] + 1)
+    _close(outs[0], outs[1], "out")
+    _close(grads[0], grads[1], "dx")
+
+
+@pytest.mark.parametrize("heads,D", [(12, 32), (16, 64)])
+def test_fp32_rope_attention_module_takes_the_bhnd_route(dev, heads, D):
+    """An fp32 `Attention` with RoPE and ``use_flash`` on the card, as the
+    ViT-L predictor (heads of 32) and masked encoder (64) run it: per-example
+    split-half tables, q/k rows permuted, a stack-padded sequence with
+    kv_valid; the fp32 BHND kernels, forward and backward, against the plain
+    route with the interleaved tables on the same weights (rows past
+    kv_valid are the model's to drop)."""
+    from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
+
+    dim, N, kv = heads * D, 176, 173
+    flash = tm.Attention(dim, heads, use_rope=True, use_flash=True, device=dev)
+    flash.reset_parameters(torch.Generator(dev).manual_seed(0))
+    plain = tm.Attention(dim, heads, use_rope=True, device=dev)
+    plain.load_state_dict(flash.state_dict())
+    rng = np.random.RandomState(D)
+    pos = torch.from_numpy(np.stack([np.sort(rng.choice(2048, N, replace=False))
+                                     for _ in range(2)])).to(dev)
+    cache = build_rope_cache(pos, D, 16, 16)
+    expanded, perm = expand_rope_cache(cache, D)
+    x = _randn((2, N, dim), dev, 1)
+    before = (fdn.LAUNCHES, fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32)
+    outs, grads = [], []
+    for m, kw in ((flash, dict(rope_expanded=expanded, qkv_perm=tm.qkv_row_perm(perm, heads, D, dev))),
+                  (plain, dict(rope_cache=cache))):
+        xi = x.clone().requires_grad_()
+        y = m(xi, kv_valid=kv, **kw)[:, :kv]
         outs.append(y)
         grads.append(torch.autograd.grad(y, xi, torch.ones_like(y))[0])
     assert (fdn.LAUNCHES, fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32) == (

@@ -1,7 +1,8 @@
 """The pure-Python planning around the fp32 flash kernels
 (`vjepa2_tpu_torch/ops/flash_attention.py`), on the CPU: the scratch that
 holds the split pre-pass's tf32 copies and the backward's row statistics
-(`fp32_scratch`, `fp32_stat_rows`), laid out as the C entry points read it
+(`fp32_scratch`, `fp32_stat_rows`; with kv_valid, planned for the valid
+keys only), laid out as the C entry points read it
 (`csrc/flash_fp32_split.cu`: token-major [2, B, H, n, D] and feature-major
 [2, B, H, D, n rounded up to 8], hi then lo; statistics [B, H, Np]), and
 which operands the pre-pass's 16-byte reads take in place (`vec4_ready`).
@@ -42,6 +43,30 @@ def test_scratch_pieces_fit_their_layouts(B, H, N, M, D, backward):
     assert all(off % 256 == 0 for off, _ in spans)
     assert all(end <= nxt for (_, end), (nxt, _) in zip(spans, spans[1:]))
     assert spans[-1][1] <= size < spans[-1][1] + 256
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("N,kv", [(584, 578), (176, 173), (1664, 1662), (65, 1)])
+def test_kv_valid_plans_only_the_valid_keys(N, kv, backward):
+    """With kv_valid the wrappers run the kernels over the first kv_valid
+    keys (`_fp32_side`), and plan the scratch for those: the key-side copies
+    hold kv_valid rows, the query side and the statistics are unchanged."""
+    B, H, D = 8, 16, 64
+    q = k = torch.zeros(1, 1, N, D)
+    assert fa._fp32_side(q, k, None, None, None, False, kv)[3] == kv
+    assert fa._fp32_side(q, k, None, None, None, False, None)[3] == N
+    cut, size = fa.fp32_scratch(B, H, N, kv, D, backward)
+    cut, full = dict(cut), dict(fa.fp32_scratch(B, H, N, N, D, backward)[0])
+    names = list(cut)
+    for name in names[:names.index("k_nat") + 1]:  # q's pieces come first, as laid out
+        assert cut[name] == full[name], name
+    key_bytes = {"k_nat": 2 * B * H * kv * D * 4, "k_tr": 2 * B * H * D * _pad8(kv) * 4,
+                 "v_nat": 2 * B * H * kv * D * 4, "v_tr": 2 * B * H * D * _pad8(kv) * 4}
+    ends = sorted(cut.values()) + [size]
+    for name, want in key_bytes.items():
+        if name in cut:
+            nxt = min(off for off in ends if off > cut[name])
+            assert want <= nxt - cut[name] < want + 256, name
 
 
 @pytest.mark.parametrize("n,rows", [(1, 64), (64, 64), (65, 128), (36864, 36864)])

@@ -13,8 +13,18 @@ one; the emulation takes whole rows where the kernels take tiles (the
 sums' order is not what this file tests). The backward is given the emulated
 forward's out and lse, as the kernels are given the forward kernel's.
 
+With RoPE the emulation rotates q and k in fp32 before their split, as the
+pre-pass does (`rope_rotate`: each product and sum rounded once, the
+kernels' `rope_pair`), and takes dq and dk through the adjoint
+(`rope_rotate_t`, as the dQ and dK/dV epilogues do); with kv_valid it runs
+over the first kv_valid keys, as the kernels do, and dk, dv are zero past
+them.
+
 Cases: head widths 64 and 88 at N = 320 (B = 1, H = 2), and a peaked softmax
-at 88 (q scaled so that the scores reach ±40). Tolerances, the kernels'
+at 88 (q scaled so that the scores reach ±40); the pretrain step's features
+at head widths 32 and 64, B = 2, N = 128: split-half tables shared and per
+example with kv_valid M - 1 and M - 5 (against JAX's `flash_attention_bhnd`
+with ``rope_expanded`` and ``kv_valid_len``). Tolerances, the kernels'
 (`chip_smoke.py`: FP32_REL_L2, FP32_MAX_ABS, FP32_LSE_ATOL): out and the
 gradients within 2e-5 relative L2 and 1e-4·max|JAX| absolute, lse within
 1e-5 absolute. In the peaked case lse is held to 1e-6·max|lse| instead:
@@ -31,6 +41,7 @@ import pytest
 import torch
 
 from vjepa2_tpu.ops import flash_attention as jfa
+from vjepa2_tpu_torch.ops.rope import rope_rotate, rope_rotate_t
 
 B, H, N = 1, 2, 320
 REL_L2, MAX_ABS, LSE_ATOL, PEAKED_LSE_RTOL = 2e-5, 1e-4, 1e-5, 1e-6
@@ -68,7 +79,18 @@ def product(a, b, parts: int = 3):
     return al @ bh + ah @ bl + ah @ bh
 
 
-def emulated_fwd(q, k, v, parts=3):
+def _prepass(q, k, v, rope, kv):
+    """The pre-pass's view of the operands: q and k rotated in fp32 with the
+    split-half tables [B|1, N, D] (or as they are), k and v cut to the first
+    kv keys (or whole)."""
+    if rope is not None:
+        cos, sin = (t[:, None] for t in rope)
+        q, k = rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)
+    return q, k[:, :, :kv], v[:, :, :kv]
+
+
+def emulated_fwd(q, k, v, parts=3, rope=None, kv=None):
+    q, k, v = _prepass(q, k, v, rope, kv)
     scale = q.shape[-1] ** -0.5
     s = product(q, k.transpose(-1, -2), parts) * np.float32(scale * LOG2E)
     m = s.amax(-1, keepdim=True)
@@ -79,14 +101,22 @@ def emulated_fwd(q, k, v, parts=3):
     return out, lse
 
 
-def emulated_bwd(q, k, v, out, lse, do, parts=3):
+def emulated_bwd(q, k, v, out, lse, do, parts=3, rope=None, kv=None):
+    M = k.shape[2]
+    q, k, v = _prepass(q, k, v, rope, kv)
     scale = np.float32(q.shape[-1] ** -0.5)
     s = product(q, k.transpose(-1, -2), parts) * np.float32(scale * LOG2E)
     p = torch.exp2(s - (lse * np.float32(LOG2E))[..., None])
     dp = product(do, v.transpose(-1, -2), parts)
     ds = p * (dp - (do * out).sum(-1, keepdim=True)) * scale
-    return (product(ds, k, parts), product(ds.transpose(-1, -2), q, parts),
-            product(p.transpose(-1, -2), do, parts))
+    dq, dk = product(ds, k, parts), product(ds.transpose(-1, -2), q, parts)
+    dv = product(p.transpose(-1, -2), do, parts)
+    if rope is not None:  # the epilogues' adjoint, with the keys' table rows
+        cos, sin = (t[:, None] for t in rope)
+        dq, dk = rope_rotate_t(dq, cos, sin), rope_rotate_t(dk, cos[:, :, :k.shape[2]],
+                                                           sin[:, :, :k.shape[2]])
+    pad = (0, 0, 0, M - k.shape[2])  # dK/dV writes zeros past kv_valid
+    return dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)
 
 
 def _inputs(D, peak, seed):
@@ -115,15 +145,52 @@ def _errors(got, want):
             np.abs(got - want).max() / np.abs(want).max())
 
 
+ROPE_B, ROPE_N = 2, 128
+
+
+def _jax_rope(q, k, v, do, rope, kv):
+    """JAX's forward and gradients with split-half tables and kv_valid."""
+    cos, sin = map(jnp.asarray, rope)
+    fwd = jfa._flash_fwd_bhnd(*map(jnp.asarray, (q, k, v)), None, cos, sin, cos, sin,
+                              kv_valid=kv, block_q=64, block_k=64, interpret=True)
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_bhnd(
+        q, k, v, rope_expanded=(cos, sin), kv_valid_len=kv, block_q=64, block_k=64,
+        interpret=True), *map(jnp.asarray, (q, k, v)))
+    grads = vjp(jnp.asarray(do))
+    return [np.asarray(x) for x in jax.block_until_ready((*fwd, *grads))]
+
+
 @pytest.mark.parametrize("D,peak", [(64, 0), (88, 0), (88, 40)])
 def test_3xtf32_holds_the_kernels_tolerances_and_1xtf32_does_not(D, peak):
     q, k, v, do = _inputs(D, peak, seed=D + peak)
-    want = _jax(q, k, v, do)
+    _hold_and_miss(_jax(q, k, v, do), q, k, v, do, peak)
+
+
+@pytest.mark.parametrize("kv_gap", [1, 5])
+@pytest.mark.parametrize("per_example", [False, True])
+@pytest.mark.parametrize("D", [32, 64])
+def test_3xtf32_with_rope_and_kv_valid(D, per_example, kv_gap):
+    """The pre-pass's rotation, the epilogues' adjoint and the valid-key
+    count with the 3xTF32 products: within the kernels' tolerances of JAX's
+    kernels; one TF32 product misses them."""
+    rng = np.random.RandomState(D + kv_gap + per_example)
+    q, k, v, do = (rng.randn(ROPE_B, 2, ROPE_N, D).astype(np.float32) for _ in range(4))
+    rope = tuple(rng.uniform(-1, 1, (ROPE_B if per_example else 1, ROPE_N, D))
+                 .astype(np.float32) for _ in range(2))
+    kv = ROPE_N - kv_gap
+    want = _jax_rope(q, k, v, do, rope, kv)
+    _hold_and_miss(want, q, k, v, do, 0, dict(rope=tuple(map(torch.from_numpy, rope)), kv=kv))
+
+
+def _hold_and_miss(want, q, k, v, do, peak, features=None):
+    """The emulation with 3 TF32 products within the kernels' tolerances of
+    JAX's (out, lse, dq, dk, dv); with 1, every output outside them."""
+    features = features or {}
     lse_tol = PEAKED_LSE_RTOL * np.abs(want[1]).max() if peak else LSE_ATOL
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     for parts in (3, 1):
-        out, lse = emulated_fwd(tq, tk, tv, parts)
-        grads = emulated_bwd(tq, tk, tv, out, lse, tdo, parts)
+        out, lse = emulated_fwd(tq, tk, tv, parts, **features)
+        grads = emulated_bwd(tq, tk, tv, out, lse, tdo, parts, **features)
         errs = {name: _errors(g, w) for name, g, w in
                 zip(("out", "dq", "dk", "dv"), (out, *grads), (want[0], *want[2:]))}
         lse_err = np.abs(lse.double().numpy() - want[1]).max()

@@ -20,8 +20,10 @@ temporary directory and ``optimization.ipe`` 3.
 * The refusals (several cards, datasets on disk, in-process evals), the
   action-conditioned app running through the same CLI on the smoke config
   (`tests/test_torch_droid_loop.py` holds it to JAX), and `chip_smoke.py`'s
-  three config dicts equal to their YAML files after the overrides it
-  prints.
+  four config dicts equal to their YAML files after the overrides it
+  prints (``SMOKE``: `configs/train/smoke-tiny.yaml`, which the card's
+  phase train_fp32 runs); and fp32 on the card passing the `Pretrainer`'s
+  checks (it builds in fp32 on the card).
 """
 
 import csv
@@ -56,6 +58,17 @@ from vjepa2_tpu_torch.train.state import TrainState
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ROOT / "configs/train/smoke-tiny.yaml"
 IPE = 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch ops: 6 pytest workers with
+    torch's default 8 threads each oversubscribe an 8-core host (see
+    `tests/test_torch_eval_cli.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _raw(folder, overrides=None) -> dict:
@@ -285,12 +298,28 @@ def test_refusals(tmp_path, overrides, match):
         loop.Pretrainer(PretrainConfig.from_dict(raw), device="cpu")
 
 
-def test_fp32_on_the_card_is_refused(tmp_path, monkeypatch):
+class _Built(Exception):
+    """Raised in place of building the models: the trainer got that far."""
+
+
+def test_fp32_on_the_card_builds(tmp_path, monkeypatch):
+    """The shipped fp32 smoke config on the card (a card faked here): the
+    `Pretrainer` refuses nothing and builds its models in fp32 on the card
+    (the fp32 flash kernels take RoPE and kv_valid)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    built = {}
+
+    def build_models(**kw):
+        built.update(kw)
+        raise _Built
+
+    monkeypatch.setattr(loop, "build_models", build_models)
     raw = _raw(tmp_path / "run")
     assert raw["meta"]["dtype"] == "float32"
-    with pytest.raises(NotImplementedError, match="take bf16"):
+    with pytest.raises(_Built):
         loop.Pretrainer(PretrainConfig.from_dict(raw), device="cuda")
+    assert built["dtype"] == torch.float32 and built["device"] == torch.device("cuda")
+    assert built["use_flash"] and built["use_rope"]
 
 
 def test_refusals_of_the_cli(tmp_path):
@@ -303,7 +332,7 @@ def test_refusals_of_the_cli(tmp_path):
         _main(_write(tmp_path, "run"), "--num-processes", "2")
 
 
-@pytest.mark.parametrize("name", ["LOOP", "ACCUM", "DROID"])
+@pytest.mark.parametrize("name", ["LOOP", "ACCUM", "DROID", "SMOKE"])
 def test_chip_smoke_configs_are_the_shipped_files(name):
     held = getattr(chip_smoke, f"{name}_CONFIG")
     overrides = {"folder": "/tmp/x", **getattr(chip_smoke, f"{name}_OVERRIDES")}

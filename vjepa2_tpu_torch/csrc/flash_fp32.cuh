@@ -12,11 +12,25 @@
 //     bf16: `flash_fp32_dq.cu`, then `flash_fp32_dkdv.cu`;
 //   * and the pre-pass that splits their operands, `flash_fp32_split.cu`.
 // The bf16 operands take `flash_fwd_bhnd.cu` and `flash_bwd_bhnd.cu`.
-// Contract (the probes' attention: no RoPE, no segments, no kv_valid, no
-// causal mask; the wrapper refuses those on fp32):
+// Contract (the probes' plain attention and the pretrain step's: RoPE and
+// kv_valid; segment ids and the causal mask are refused by the wrapper on
+// fp32, ROADMAP queue B):
 //   * q [B, H, N, D], k and v [B, H, M, D] fp32, unit stride along d, every
 //     other stride a multiple of 4 elements from a 16-byte aligned base (the
 //     wrapper copies any other operand first); D in {32, 64, 80, 88, 104};
+//   * RoPE (optional, N == M): split-half tables cos, sin [B|1, N, D] fp32
+//     (row stride t_n, unit along d; batch stride t_b, 0 when shared). The
+//     pre-pass rotates q and k in fp32 before their split, each pair
+//     (d, d + D/2) as `rope_rotate` does: lo' = lo c_lo - hi s_lo, hi' = hi
+//     c_hi + lo s_hi, each product and each sum rounded once (`rope_pair`,
+//     no FMA), so the rotated operands are those of the plain version; the
+//     products then run on the rotated copies, the mainloops unchanged. The
+//     backward's dq and dk leave through the adjoint R^T in the epilogues of
+//     the dQ and dK/dV launches (`rope_adjoint_rows`);
+//   * kv_valid: keys at or past it are masked. The wrapper passes it as the
+//     key count M of the pre-pass and of the main launches (which mask their
+//     own ragged edge at M), so nothing past it is split, loaded or summed;
+//     dK/dV also gets the keys' full count and writes zeros at or past M;
 //   * forward: s = (q . k) * scale * log2(e), an online softmax in base 2
 //     (`exp2f`), out = sum_j p_j v_j / sum_j p_j in the layout its strides
 //     give (unit stride along d), lse [B, H, N] in natural log; the kernels
@@ -35,7 +49,9 @@
 // What bounds it on this card: 4*D FLOPs a score forward and 10*D backward
 // (14*D as computed: the dQ launch recomputes S and dP), each issued three
 // times at 495 TFLOP/s of TF32: 165 TFLOP/s of fp32-accurate products,
-// against O(N*D) bytes. So the operations.
+// against O(N*D) bytes. So the operations, over the (query, key) pairs that
+// kv_valid leaves. RoPE adds O(N*D) work to the pre-pass, which is bound by
+// its bytes, and to the epilogues; the mainloops are unchanged.
 //
 // Design, for the layouts wgmma takes at tf32:
 //   * tf32 operands in shared memory must be K-major (the reduction
@@ -303,23 +319,53 @@ __device__ __forceinline__ void get16(const float* buf, float (&x)[16]) {
 constexpr int kXBytes = 128 * 16 * 4;  // one exchanged 64 x 32 tile
 
 // This warpgroup's rows (row0 + warp * 16 + g, + 8) of a 64 x kW accumulator,
-// at column col0 of dst (a [*, D] fp32 array, contiguous), rows below n.
+// at column col0 of dst (a [*, D] fp32 array, contiguous), rows below n;
+// rows at or past `valid` are written as zeros (dK/dV past kv_valid).
 template <int D, int kW>
 __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kW / 2], int row0, int col0,
-                                           int n) {
+                                           int valid, int n) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + warp * 16 + g + 8 * r;
     if (row >= n) continue;
+    const bool keep = row < valid;
 #pragma unroll
     for (int dt = 0; dt < kW / 8; ++dt) {
       *reinterpret_cast<float2*>(dst + (long long)row * D + col0 + dt * 8 + 2 * t4) =
-          make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
+          keep ? make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]) : make_float2(0.f, 0.f);
     }
   }
 }
+
+// Rows row0 + r (r < 64) below n of dst (a [*, D] fp32 array, contiguous)
+// from a 64 x D tile in shared memory (row stride D) through the RoPE
+// adjoint R^T of `rope_rotate_t`: lo = g_lo c_lo + g_hi s_hi, hi = g_hi c_hi
+// - g_lo s_lo with the tables' row of the token, each product and each sum
+// rounded once, as the plain version rounds them; rows at or past `valid`
+// are zeros. By `threads` threads, this one `tid`.
+template <int D>
+__device__ __forceinline__ void rope_adjoint_rows(float* dst, const float* tile, const float* cos_t,
+                                                  const float* sin_t, long long t_n, int row0,
+                                                  int valid, int n, int tid, int threads) {
+  constexpr int kHalf = D / 2;
+  for (int i = tid; i < 64 * kHalf; i += threads) {
+    const int r = i / kHalf, d = i - r * kHalf, row = row0 + r;
+    if (row >= n) continue;
+    float lo = 0.f, hi = 0.f;
+    if (row < valid) {
+      const float* c = cos_t + row * t_n;
+      const float* s = sin_t + row * t_n;
+      const float g_lo = tile[r * D + d], g_hi = tile[r * D + d + kHalf];
+      lo = __fadd_rn(__fmul_rn(g_lo, c[d]), __fmul_rn(g_hi, s[d + kHalf]));
+      hi = __fsub_rn(__fmul_rn(g_hi, c[d + kHalf]), __fmul_rn(g_lo, s[d]));
+    }
+    dst[(long long)row * D + d] = lo;
+    dst[(long long)row * D + d + kHalf] = hi;
+  }
+}
+constexpr int kEpilogueBar = 2;  // the named barrier of the two consumer warpgroups' epilogue
 
 // ---- host ------------------------------------------------------------------
 

@@ -11,6 +11,12 @@
 // dS^T = P^T (dP^T - delta) scale, and adds dS^T Q to dK. Each tile's
 // product goes to dV's or dK's running sum in two column blocks (halves of
 // D), so that a block's fresh accumulator costs a quarter of D in registers.
+// With RoPE, K, Q and Q^T are the pre-pass's rotated copies: dK leaves
+// through the adjoint R^T (`rope_adjoint_rows`, `flash_attention.py:505-506`)
+// from a tile in the ring's shared memory, once both warpgroups leave it.
+// With kv_valid, M is the valid keys' count and Mo the keys' full count (the
+// rows of dk and dv): the grid covers Mo, rows at or past M are written as
+// zeros, and a block wholly past M writes its zeros and leaves.
 
 #include "flash_fp32.cuh"
 
@@ -39,9 +45,12 @@ struct DkdvParams {
   const float* v_nat;
   const float* delta;                      // [B, H, Np]
   const float* lse2;
-  float* dk;                               // [B, H, M, D]
+  const float* cos;                        // RoPE tables [B|1, N, D] at (t_b, t_n), or null
+  const float* sin;
+  float* dk;                               // [B, H, Mo, D]
   float* dv;
-  int B, H, N, M, Np;
+  long long t_b, t_n;
+  int B, H, N, M, Mo, Np;
   float scale, qscale;
 };
 
@@ -129,7 +138,21 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvParams& p, unsigned char
     if (lane == 0) mbar_arrive(&empty[s]);
     if constexpr (!C::kProducer) refill<C::kStages>(empty, i, n_qt, load);
   }
-  store_rows<D, D>((kWg == 0 ? p.dv : p.dk) + bh * p.M * D, run, k0, 0, p.M);
+  float* out = (kWg == 0 ? p.dv : p.dk) + bh * p.Mo * D;
+  if (p.cos == nullptr) {
+    store_rows<D, D>(out, run, k0, 0, p.M, p.Mo);
+    return;
+  }
+  float* tile = reinterpret_cast<float*>(stages);  // [64][D]: dK before the adjoint
+  bar_sync(kEpilogueBar, 2 * kWgThreads);        // both warpgroups are out of the ring
+  if constexpr (kWg == 0) {
+    store_rows<D, D>(out, run, k0, 0, p.M, p.Mo);
+  } else {
+    store_rows<D, D>(tile, run, 0, 0, kBlockK, kBlockK);
+  }
+  bar_sync(kEpilogueBar, 2 * kWgThreads);
+  rope_adjoint_rows<D>(p.dk + bh * p.Mo * D, tile, p.cos + b * p.t_b, p.sin + b * p.t_b, p.t_n, k0,
+                       p.M, p.Mo, threadIdx.x, 2 * kWgThreads);
 }
 
 template <int D>
@@ -147,6 +170,12 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBlockK;
   const long long bh = (long long)b * p.H + h;
   const int n_qt = (p.N + kB - 1) / kB;
+  if (k0 >= p.M) {  // every key of the block at or past kv_valid: no gradient
+    const long long at = (bh * p.Mo + k0) * D;
+    const int n = (cmin(kBlockK, p.Mo - k0)) * D;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) p.dk[at + i] = p.dv[at + i] = 0.f;
+    return;
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -202,26 +231,33 @@ struct RunDkdv {
     cudaError_t err = allow_smem<flash_fp32_dkdv_kernel<D>>(C::kSmem);
     if (err != cudaSuccess) return err;
     flash_fp32_dkdv_kernel<D>
-        <<<dim3((p.M + kBlockK - 1) / kBlockK, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
+        <<<dim3((p.Mo + kBlockK - 1) / kBlockK, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
     return cudaGetLastError();
   }
 };
 
 }  // namespace
 
-// dk and dv [B, H, M, D] contiguous fp32, after `vjepa2_flash_bwd_fp32_dq` on
+// dk and dv [B, H, Mo, D] contiguous fp32, after `vjepa2_flash_bwd_fp32_dq` on
 // the same stream, from the pre-pass's copies (`vjepa2_flash_fp32_prepass_bwd`:
 // q_nat, k_nat, v_nat, do_nat [2][B][H][N|M][D]; q_tr, do_tr
-// [2][B][H][D][padded8(N)]) and statistics (delta, lse2 [B, H, Np], Np: N
-// rounded up to 64). Returns the cudaError_t of the launch (0 on success).
+// [2][B][H][D][padded8(N)]; q and k rotated where cos and sin are given,
+// split-half [B|1, N, D] at batch stride t_b, 0 when shared, and row stride
+// t_n) and statistics (delta, lse2 [B, H, Np], Np: N rounded up to 64). M:
+// the keys the pre-pass split (kv_valid), Mo >= M the keys' count; rows M to
+// Mo of dk and dv are zeros. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int vjepa2_flash_bwd_fp32_dkdv(const void* q_nat, const void* k_nat,
                                           const void* v_nat, const void* do_nat, const void* q_tr,
                                           const void* do_tr, const void* delta, const void* lse2,
-                                          void* dk, void* dv, int B, int H, int D, int N, int M,
-                                          int Np, float scale, float qscale, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 32767 || H > 65535 || Np < N || Np % 64 != 0 ||
-      k_nat == nullptr || v_nat == nullptr || !aligned16(delta) || !aligned16(lse2) ||
-      !aligned16(dk) || !aligned16(dv))
+                                          const void* cos, const void* sin, void* dk, void* dv,
+                                          int B, int H, int D, int N, int M, int Mo, int Np,
+                                          long long t_b, long long t_n, float scale, float qscale,
+                                          void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || Mo < M || B > 32767 || H > 65535 || Np < N ||
+      Np % 64 != 0 || k_nat == nullptr || v_nat == nullptr || !aligned16(delta) ||
+      !aligned16(lse2) || !aligned16(dk) || !aligned16(dv) || (cos == nullptr) != (sin == nullptr) ||
+      (cos != nullptr && (Mo != N || t_n < D || t_b < 0)))
     return cudaErrorInvalidValue;
   DkdvParams p;
   if (!encode_split(&p.tm_q, q_nat, D, N, H, B, kB) || !encode_split(&p.tm_do, do_nat, D, N, H, B, kB) ||
@@ -232,12 +268,17 @@ extern "C" int vjepa2_flash_bwd_fp32_dkdv(const void* q_nat, const void* k_nat,
   p.v_nat = static_cast<const float*>(v_nat);
   p.delta = static_cast<const float*>(delta);
   p.lse2 = static_cast<const float*>(lse2);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
+  p.t_b = t_b;
+  p.t_n = t_n;
   p.B = B;
   p.H = H;
   p.N = N;
   p.M = M;
+  p.Mo = Mo;
   p.Np = Np;
   p.scale = scale;
   p.qscale = qscale;

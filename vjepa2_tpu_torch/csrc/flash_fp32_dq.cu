@@ -11,7 +11,13 @@
 // They trade P and dP through shared memory (one named barrier a tile, the
 // buffer double-buffered), both form dS = P (dP - delta) scale as A
 // fragments, and each adds dS K for its half of dQ's features to its running
-// sum: the two products a tile run side by side on the tensor cores.
+// sum: the two products a tile run side by side on the tensor cores. With
+// RoPE, Q, K and K^T are the pre-pass's rotated copies, so the sum is the
+// gradient of the rotated q; the epilogue stages both halves in the ring's
+// shared memory (free once both warpgroups leave it) and writes dQ through
+// the adjoint R^T (`rope_adjoint_rows`; `_rope_rotate_t :120`, applied at
+// `flash_attention.py:429-430`), reading the tables' rows of the block's
+// queries once. With kv_valid, M is the valid keys' count.
 
 #include "flash_fp32.cuh"
 
@@ -39,7 +45,10 @@ struct DqParams {
   const float* do_nat;
   const float* delta;             // [B, H, Np]
   const float* lse2;              // [B, H, Np], lse * log2(e)
+  const float* cos;               // RoPE tables [B|1, N, D] at (t_b, t_n), or null
+  const float* sin;
   float* dq;                      // [B, H, N, D]
+  long long t_b, t_n;
   int B, H, N, M, Np;
   float scale, qscale;
 };
@@ -116,7 +125,17 @@ __device__ __forceinline__ void dq_consumer(const DqParams& p, unsigned char* st
     if (lane == 0) mbar_arrive(&empty[s]);
     if constexpr (!C::kProducer) refill<C::kStages>(empty, j, n_kt, load);
   }
-  store_rows<D, kW>(p.dq + bh * p.N * D, run, q0, col0, p.N);
+  float* dq = p.dq + bh * p.N * D;
+  if (p.cos == nullptr) {
+    store_rows<D, kW>(dq, run, q0, col0, p.N, p.N);
+    return;
+  }
+  float* tile = reinterpret_cast<float*>(stages);  // [64][D]
+  bar_sync(kEpilogueBar, 2 * kWgThreads);        // both warpgroups are out of the ring
+  store_rows<D, kW>(tile, run, 0, col0, kBlockQ, kBlockQ);
+  bar_sync(kEpilogueBar, 2 * kWgThreads);
+  rope_adjoint_rows<D>(dq, tile, p.cos + b * p.t_b, p.sin + b * p.t_b, p.t_n, q0, p.N, p.N,
+                       threadIdx.x, 2 * kWgThreads);
 }
 
 template <int D>
@@ -191,15 +210,21 @@ struct RunDq {
 
 // dq [B, H, N, D] contiguous fp32, after `vjepa2_flash_fp32_prepass_bwd` on
 // the same stream: q_nat, k_nat, v_nat, do_nat ([2][B][H][N|M][D]) and k_tr
-// ([2][B][H][D][padded8(M)]) are its split copies, delta and lse2 [B, H, Np]
-// its statistics (Np: N rounded up to 64). Returns the cudaError_t of the
-// launch (0 on success).
+// ([2][B][H][D][padded8(M)]) are its split copies (q and k rotated where cos
+// and sin are given: split-half [B|1, N, D] at batch stride t_b, 0 when
+// shared, and row stride t_n), delta and lse2 [B, H, Np] its statistics (Np:
+// N rounded up to 64). M: the keys the pre-pass split. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int vjepa2_flash_bwd_fp32_dq(const void* q_nat, const void* k_nat, const void* v_nat,
                                         const void* do_nat, const void* k_tr, const void* delta,
-                                        const void* lse2, void* dq, int B, int H, int D, int N,
-                                        int M, int Np, float scale, float qscale, void* stream) {
+                                        const void* lse2, const void* cos, const void* sin,
+                                        void* dq, int B, int H, int D, int N, int M, int Np,
+                                        long long t_b, long long t_n, float scale, float qscale,
+                                        void* stream) {
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 32767 || H > 65535 || Np < N || Np % 64 != 0 ||
-      q_nat == nullptr || do_nat == nullptr || delta == nullptr || lse2 == nullptr || !aligned16(dq))
+      q_nat == nullptr || do_nat == nullptr || delta == nullptr || lse2 == nullptr ||
+      !aligned16(dq) || (cos == nullptr) != (sin == nullptr) ||
+      (cos != nullptr && (M > N || t_n < D || t_b < 0)))
     return cudaErrorInvalidValue;
   DqParams p;
   if (!encode_split(&p.tm_k, k_nat, D, M, H, B, kB) || !encode_split(&p.tm_v, v_nat, D, M, H, B, kB) ||
@@ -209,7 +234,11 @@ extern "C" int vjepa2_flash_bwd_fp32_dq(const void* q_nat, const void* k_nat, co
   p.do_nat = static_cast<const float*>(do_nat);
   p.delta = static_cast<const float*>(delta);
   p.lse2 = static_cast<const float*>(lse2);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
   p.dq = static_cast<float*>(dq);
+  p.t_b = t_b;
+  p.t_n = t_n;
   p.B = B;
   p.H = H;
   p.N = N;

@@ -13,8 +13,9 @@ its forward saves (q, k, v, out, lse) and its backward is
 `flash_attention_bhnd_bwd`. On a CUDA tensor each launches its hand-written
 Hopper kernel or raises: bf16 operands `csrc/flash_fwd_bhnd.cu` and
 `csrc/flash_bwd_bhnd.cu`; fp32 operands `csrc/flash_fp32.cuh` (3xTF32 on
-the tensor cores after a split pre-pass, plain attention only: RoPE, segment
-ids, kv_valid and the causal mask raise there, ROADMAP queue B). On a CPU tensor they run
+the tensor cores after a split pre-pass that also rotates q and k; RoPE and
+kv_valid, as the pretrain step runs them; segment ids and the causal mask
+raise there, ROADMAP queue B). On a CPU tensor they run
 `flash_attention_bhnd_plain` and `flash_attention_bhnd_bwd_plain`, the plain
 versions of both. There is no other route. One CUDA backward
 serves both TPU backwards: it computes their one function, with no gate.
@@ -234,15 +235,14 @@ def _check_cuda(D, **tensors) -> torch.dtype:
     return next(iter(dtypes.values()))
 
 
-def _refuse_fp32_features(cos, seg_q, causal, kv_valid_len, M) -> None:
-    """The fp32 kernels take plain attention, as the frozen probes run it."""
-    named = [name for name, on in (("RoPE", cos is not None), ("segment ids", seg_q is not None),
-                                   ("causal", causal),
-                                   ("kv_valid_len", kv_valid_len not in (None, M))) if on]
+def _refuse_fp32_features(seg_q, causal) -> None:
+    """The fp32 kernels take RoPE and kv_valid (the probes' and the pretrain
+    step's attention); segment ids and the causal mask are still to port."""
+    named = [name for name, on in (("segment ids", seg_q is not None), ("causal", causal)) if on]
     if named:
         raise NotImplementedError(
-            f"the fp32 BHND flash kernels (csrc/flash_fp32.cuh) take no {', '.join(named)} yet "
-            "(ROADMAP queue B); these features run on bf16 operands")
+            f"the fp32 BHND flash kernels (csrc/flash_fp32.cuh) take no {' or '.join(named)} "
+            "yet (ROADMAP queue B); these features run on bf16 operands")
 
 
 def _side_inputs(dev, cos, sin, seg_q, seg_k):
@@ -357,7 +357,8 @@ def fp32_scratch(B: int, H: int, N: int, M: int, D: int, backward: bool) -> tupl
     feature-major [2, B, H, D, n rounded up to 8] (``*_tr``); the backward's
     delta and lse*log2(e) rows [B, H, `fp32_stat_rows`]. The forward splits q
     and k token-major and v feature-major; the backward q, k, v, do token-major
-    and q, k, do feature-major."""
+    and q, k, do feature-major. M: the keys the kernels run over (kv_valid
+    where the call has it: only those are split)."""
     def nat(n):
         return 2 * B * H * n * D * 4
 
@@ -378,13 +379,13 @@ def fp32_scratch(B: int, H: int, N: int, M: int, D: int, backward: bool) -> tupl
     return tuple(offsets), total
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FP32_ARGTYPES = {
-    "vjepa2_flash_fp32_prepass_fwd": _build.launcher_argtypes(6, 5, 0),
+    "vjepa2_flash_fp32_prepass_fwd": _build.launcher_argtypes(8, 5, 0),
     "vjepa2_flash_fwd_fp32": _build.launcher_argtypes(5, 5, 1),
-    "vjepa2_flash_fp32_prepass_bwd": _build.launcher_argtypes(15, 6, 0),
-    "vjepa2_flash_bwd_fp32_dq": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
-    "vjepa2_flash_bwd_fp32_dkdv": [_P] * 10 + [_I] * 6 + [_F] * 2 + [_P],
+    "vjepa2_flash_fp32_prepass_bwd": _build.launcher_argtypes(17, 6, 0),
+    "vjepa2_flash_bwd_fp32_dq": [_P] * 10 + [_I] * 6 + [_L] * 2 + [_F] * 2 + [_P],
+    "vjepa2_flash_bwd_fp32_dkdv": [_P] * 12 + [_I] * 7 + [_L] * 2 + [_F] * 2 + [_P],
 }
 
 
@@ -398,9 +399,10 @@ def _call_fp32(name, *args, dev):
     _build.check(lib, err, name)
 
 
-def _strides(*tensors):
-    """The element strides of ``tensors``, one after another, as a C array."""
-    flat = [s for t in tensors for s in t.stride()]
+def _strides(*tensors, extra=()):
+    """The element strides of ``tensors``, one after another, then ``extra``,
+    as a C array."""
+    flat = [s for t in tensors for s in t.stride()] + list(extra)
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
@@ -413,36 +415,45 @@ def _scratch(dev, B, H, N, M, D, backward):
     return buf, {name: buf.data_ptr() + off for name, off in offsets}
 
 
-def _flash_fwd_fp32(q, k, v, scale, cos, seg_q, causal, kv_valid_len):
-    """The fp32 forward (`csrc/flash_fp32_split.cu`, then
-    `csrc/flash_fp32_fwd.cu`): out in BNHD memory seen as BHND, as the bf16
-    kernel writes it, and lse."""
+def _fp32_side(q, k, cos, sin, seg_q, causal, kv_valid_len):
+    """What the fp32 entry points take beside the operands: the tables as
+    `_side_inputs` lays them out (None without RoPE), their (batch, row)
+    strides, and the keys the kernels run over (kv_valid, else M)."""
+    _refuse_fp32_features(seg_q, causal)
+    cos, sin, _, _, (t_b, t_n, _, _, _) = _side_inputs(q.device, cos, sin, None, None)
+    return cos, sin, (t_b, t_n), k.shape[2] if kv_valid_len is None else kv_valid_len
+
+
+def _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, causal, kv_valid_len):
+    """The fp32 forward (`csrc/flash_fp32_split.cu`, which rotates q and k
+    with RoPE, then `csrc/flash_fp32_fwd.cu` over the first kv_valid keys):
+    out in BNHD memory seen as BHND, as the bf16 kernel writes it, and lse."""
     global LAUNCHES_FP32
     B, H, N, D = q.shape
-    M = k.shape[2]
-    _refuse_fp32_features(cos, seg_q, causal, kv_valid_len, M)
+    cos, sin, tables, Mv = _fp32_side(q, k, cos, sin, seg_q, causal, kv_valid_len)
     dev = q.device
     q, k, v = map(vec4_operand, (q, k, v))
     out = torch.empty((B, N, H, D), dtype=torch.float32, device=dev).transpose(1, 2)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    buf, at = _scratch(dev, B, H, N, M, D, False)
-    _call_fp32("vjepa2_flash_fp32_prepass_fwd", q, k, v, at["q_nat"], at["k_nat"], at["v_tr"],
-               B, H, D, N, M, _strides(q, k, v), dev=dev)
+    buf, at = _scratch(dev, B, H, N, Mv, D, False)
+    _call_fp32("vjepa2_flash_fp32_prepass_fwd", q, k, v, cos, sin, at["q_nat"], at["k_nat"],
+               at["v_tr"], B, H, D, N, Mv, _strides(q, k, v, extra=tables), dev=dev)
     _call_fp32("vjepa2_flash_fwd_fp32", at["q_nat"], at["k_nat"], at["v_tr"], out, lse,
-               B, H, D, N, M, _strides(out), scale * _build.LOG2E, dev=dev)
+               B, H, D, N, Mv, _strides(out), scale * _build.LOG2E, dev=dev)
     LAUNCHES_FP32 += 1
     return out, lse
 
 
-def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, seg_q, causal, kv_valid_len):
+def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, causal, kv_valid_len):
     """The fp32 backward (`csrc/flash_fp32_split.cu`, then
-    `csrc/flash_fp32_dq.cu` and `csrc/flash_fp32_dkdv.cu`): dq, dk, dv
-    contiguous."""
+    `csrc/flash_fp32_dq.cu` and `csrc/flash_fp32_dkdv.cu`, dq and dk through
+    the RoPE adjoint in their epilogues): dq, dk, dv contiguous, dk and dv
+    zero at and past kv_valid."""
     global LAUNCHES_BWD_FP32
     B, H, N, D = q.shape
     M = k.shape[2]
-    _refuse_fp32_features(cos, seg_q, causal, kv_valid_len, M)
+    cos, sin, tables, Mv = _fp32_side(q, k, cos, sin, seg_q, causal, kv_valid_len)
     dev = q.device
     q, k, v, out, do = map(vec4_operand, (q, k, v, out, do))
     dq = torch.empty((B, H, N, D), dtype=torch.float32, device=dev)
@@ -450,19 +461,19 @@ def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, seg_q, causal, kv_valid_l
     dv = torch.empty((B, H, M, D), dtype=torch.float32, device=dev)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qscale, Np = scale * _build.LOG2E, fp32_stat_rows(N)
-    buf, at = _scratch(dev, B, H, N, M, D, True)
-    _call_fp32("vjepa2_flash_fp32_prepass_bwd", q, k, v, out, do, lse,
+    buf, at = _scratch(dev, B, H, N, Mv, D, True)
+    _call_fp32("vjepa2_flash_fp32_prepass_bwd", q, k, v, out, do, lse, cos, sin,
                *(at[n] for n in ("q_nat", "q_tr", "k_nat", "k_tr", "v_nat", "do_nat", "do_tr",
                                  "delta", "lse2")),
-               B, H, D, N, M, Np, _strides(q, k, v, out, do), dev=dev)
+               B, H, D, N, Mv, Np, _strides(q, k, v, out, do, extra=tables), dev=dev)
     # dQ, then dK/dV, on one stream, from the pre-pass's copies and statistics
     _call_fp32("vjepa2_flash_bwd_fp32_dq",
                *(at[n] for n in ("q_nat", "k_nat", "v_nat", "do_nat", "k_tr", "delta", "lse2")),
-               dq, B, H, D, N, M, Np, scale, qscale, dev=dev)
+               cos, sin, dq, B, H, D, N, Mv, Np, *tables, scale, qscale, dev=dev)
     _call_fp32("vjepa2_flash_bwd_fp32_dkdv",
                *(at[n] for n in ("q_nat", "k_nat", "v_nat", "do_nat", "q_tr", "do_tr", "delta",
                                  "lse2")),
-               dk, dv, B, H, D, N, M, Np, scale, qscale, dev=dev)
+               cos, sin, dk, dv, B, H, D, N, Mv, M, Np, *tables, scale, qscale, dev=dev)
     LAUNCHES_BWD_FP32 += 1
     return dq, dk, dv
 
@@ -472,7 +483,7 @@ def _flash_fwd_cuda(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len
     B, H, N, D = q.shape
     M = k.shape[2]
     if _check_cuda(D, q=q, k=k, v=v) == torch.float32:
-        return _flash_fwd_fp32(q, k, v, scale, cos, seg_q, causal, kv_valid_len)
+        return _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, causal, kv_valid_len)
     dev = q.device
     cos, sin, seg_q, seg_k, side = _side_inputs(dev, cos, sin, seg_q, seg_k)
     # BNHD memory seen as BHND: the output projection reads it as [B, N, H*D]
@@ -507,7 +518,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal
     if any(t.device != dev for t in (out, lse, do)):
         raise ValueError("q, k, v, out, lse and do must be on one device")
     if dtype == torch.float32:
-        return _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, seg_q, causal, kv_valid_len)
+        return _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, causal,
+                               kv_valid_len)
     cos, sin, seg_q, seg_k, side = _side_inputs(dev, cos, sin, seg_q, seg_k)
     rope = cos is not None
     dq = torch.empty((B, H, N, D), dtype=q.dtype, device=dev)
@@ -578,7 +590,7 @@ def flash_attention_bhnd_bwd(q, k, v, out, lse, do, segment_ids=None, causal: bo
     a global one, as a ring hop's backward passes it (with ``seg_kv``).
 
     A CUDA tensor launches the B4/B5 kernel (bf16, any strides) or its fp32
-    counterpart (plain attention only) or raises; a CPU tensor takes
+    counterpart (no segment ids or causal mask) or raises; a CPU tensor takes
     `flash_attention_bhnd_bwd_plain`.
     """
     return _bwd_with_tables(_bwd, q, k, v, out, lse, do, segment_ids, causal, scale,
@@ -637,8 +649,8 @@ def flash_attention_bhnd(q, k, v, segment_ids=None, causal: bool = False,
 
     Returns out [B, H, N, D] (and lse [B, H, N] fp32 with ``return_lse``).
     A CUDA tensor launches the kernels (head width 32, 64, 80, 88 or 104;
-    bf16, or fp32 without RoPE, segment ids, kv_valid or the causal mask)
-    or raises; a CPU tensor takes the plain versions.
+    bf16, or fp32 without segment ids or the causal mask) or raises; a CPU
+    tensor takes the plain versions.
     """
     if rope_tables is not None:
         q, k, rope_expanded, _ = _expand(q, k, rope_tables)  # differentiable gathers

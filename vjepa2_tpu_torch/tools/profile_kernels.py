@@ -143,26 +143,33 @@ def _prologue_calls(kernel):
 
 def _fp32_calls(c, dev, name, seqs, rope):
     """The fp32 BHND kernels at `chip_smoke.FP32_SHAPES`' ``name``, on the
-    operands the smoke's phase kernel_fp32 draws (no RoPE at fp32), with each
-    call's bound as the smoke reckons it (fp32-accurate products at
-    `chip_smoke.PEAK_3XTF32`; bytes: each input read once, each output
-    written once). The device times list the split pre-pass's launches
+    operands the smoke's phase kernel_fp32 draws (with the row's RoPE tables
+    and kv_valid, if it has them), with each call's bound as the smoke
+    reckons it (fp32-accurate products at `chip_smoke.PEAK_3XTF32` over the
+    pairs kv_valid leaves; bytes: each input read once, each output written
+    once). The device times list the split pre-pass's launches
     (``flash_fp32_split_kernel``, ``flash_fp32_stats_kernel``) apart from the
     forward's, dQ's and dK/dV's."""
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
-    B, H, N, D = dict(c.FP32_SHAPES)[name]
+    (B, H, N, D), feats = {n: (shape, f) for n, shape, f in c.FP32_SHAPES}[name]
     gen = torch.Generator(dev).manual_seed(0)
     q, k, v, do = (torch.randn(B, H, N, D, generator=gen, device=dev) for _ in range(4))
-    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True)
-    pairs = B * H * N * N
-    sizes = {"fwd": c.nbytes(q, k, v, out, lse),
-             "bwd": c.nbytes(q, k, v, out, do, lse) + 3 * c.nbytes(q)}  # + dq, dk, dv
+    kw = {}
+    if feats.get("rope"):
+        kw["rope_expanded"] = c._rope_tables(dev, B, N, D, feats["rope"], seqs)
+    if "kv_valid_len" in feats:
+        kw["kv_valid_len"] = feats["kv_valid_len"]
+    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+    pairs = c.attended_pairs(B, H, N, N, c.pair_mask(B, N, N, dev, kw.get("kv_valid_len")))
+    side = kw.get("rope_expanded", ())
+    sizes = {"fwd": c.nbytes(q, k, v, out, lse, *side),
+             "bwd": c.nbytes(q, k, v, out, do, lse, *side) + 3 * c.nbytes(q)}  # + dq, dk, dv
     bounds = {kind: c.bound(f * D * pairs, sizes[kind], c.PEAK_3XTF32)
               for kind, f in (("fwd", 4), ("bwd", 10))}
-    return ({"fwd": lambda: fa.flash_attention_bhnd(q, k, v),
-             "bwd": lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do)},
-            {"bhnd": [B, H, N, D], "host_calls": 3,
+    return ({"fwd": lambda: fa.flash_attention_bhnd(q, k, v, **kw),
+             "bwd": lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw)},
+            {"bhnd": [B, H, N, D], "features": sorted(kw), "host_calls": 3,
              "bound_ms": {kind: b[0] for kind, b in bounds.items()},
              "bound_by": {kind: b[1] for kind, b in bounds.items()}})
 

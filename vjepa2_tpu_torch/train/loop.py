@@ -4,8 +4,10 @@ minus DDP wrappers, GradScaler and scheduler replay on resume).
 
 One card: the mesh, pipeline parallelism and ring-attention context
 parallelism are not here (ROADMAP A12), and a config that asks for them is
-refused, as are in-process evals (A10b), datasets on disk (A8b) and fp32 on
-the card (the attention kernels take bf16): nothing is skipped quietly. The models always take the flash routes, whatever
+refused, as are in-process evals (A10b) and datasets on disk (A8b): nothing
+is skipped quietly. ``meta.dtype`` float32 runs on the card too: the fp32
+BHND flash kernels take the step's RoPE and kv_valid, and the GEMMs stay full
+fp32 (TF32 stays off, PyTorch's default). The models always take the flash routes, whatever
 ``model.use_flash`` says (JAX's default picks XLA's attention; the port's only
 other attention is its plain test version): on the card the hand-written
 kernels run, on the CPU their plain versions.
@@ -128,10 +130,6 @@ class Pretrainer:
         _refuse(c, self.synthetic_data)
         self.device = entry_device(self.device)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise NotImplementedError(f"meta.dtype {c.meta.dtype!r} on the card: the port's "
-                                      "attention kernels take bf16 (set meta.dtype: bfloat16, "
-                                      "or run on the CPU)")
         self.fpcs = sorted(set(c.data.dataset_fpcs))
         self.encoder, self.predictor = build_models(
             model_name=c.model.model_name,
