@@ -46,7 +46,9 @@ Phases, each printed as one JSON object on a line of its own:
    FLOPs a score) and the share of the bound as in phase 7;
 9. train_huge — the masked-pretrain step of phase 6 with ViT-H/16 (32
    layers, width 1280, 16 heads of 80): 1 + 3 steps, each launching B3 96
-   times, the BHND backward 64, B1 24 and B2 24 times; the same checks;
+   times, the BHND backward 64, B1 24 and B2 24 times; the same checks (its
+   clip-0 CPU reference runs on the worker thread once the run reaches phase
+   26, and its record prints when that ends);
 10. encode_giant — the 16-head ViT-g (40 layers, width 1408, heads of 88,
    `bench.py:369`'s headline encoder) answering 3 requests of 8 clips at
    16f@256, 40 B3 launches each, one clip's features against the fp32 CPU
@@ -109,8 +111,10 @@ Phases, each printed as one JSON object on a line of its own:
    overriding the folder, ipe (4) and the epochs: epoch 0, then a resumed
    epoch 1. Every step launches B1 88 times (40 target, 24 teacher forcing,
    24 rollout) and B2 48; before the first step, trajectory 0's loss and
-   predictor gradients on the initial weights against the fp32 CPU path
-   (the tolerances of phase 6); the restored state bit-equal to the saved
+   predictor gradients on the initial weights (phase 26's parameters, bit
+   for bit) against the fp32 CPU path (the tolerances of phase 6; the CPU
+   trajectory runs on a worker thread beside the later phases, and serves
+   phase 26 too); the restored state bit-equal to the saved
    one, the resumed first step at step 4 with the schedules' lr and weight
    decay there, the target bit-equal before and after the steps, 8 CSV
    rows; the loop's ms a step, clips/s, peak memory, the checkpoints, and
@@ -123,9 +127,10 @@ Phases, each printed as one JSON object on a line of its own:
    B1 launches each at [400, 16, 64, 264] and [400, 16, 64, 520]), one more
    plan traced; the plans finite, [2, 7], within the CEM's clips, a repeat
    with the same seed bit-equal; encode and step_fn (4 candidates at 1 and
-   2 frames) against the fp32 CPU path, and the CEM update on a linear world
-   model on the card against the CPU's. Prints ms per encode and per plan,
-   peak memory, and the traced plan's wall, device-busy time and idle share;
+   2 frames) against the fp32 CPU path (on the worker thread; the CPU world
+   model serves phase 27 too), and the CEM update on a linear world model on
+   the card against the CPU's. Prints ms per encode and per plan, peak
+   memory, and the traced plan's wall, device-busy time and idle share;
 19. eval_video — the frozen SSv2 probe eval: `cli.eval.run_video_classification`
    on the shipped ViT-L config (`EVAL_VIDEO_CONFIG`, equal to
    `configs/eval/vitl/ssv2.yaml`: 2 segments x batch 4 of 16f@256 clips, the
@@ -153,14 +158,21 @@ Phases, each printed as one JSON object on a line of its own:
    each probe's recall per head;
 21. kernel_fp32 (run after phase 8) — the fp32 BHND flash kernels
    (`csrc/flash_fp32.cuh`: B3 and B4/B5 on fp32 operands, 3xTF32 on wgmma
-   after a split pre-pass that also rotates q and k)
+   after a split pre-pass that also rotates q and k; the masks on the
+   scores)
    against their plain versions at the probes' shapes [64,16,2048,64]
    (IN1K), [4,16,4096,64] (SSv2), [8,16,2048,64] (the serving slice) and
    [1,16,36864,88] (ViT-g/384 K400), and at the fp32 ViT-L step's: the
    target [8,16,2048,64] with shared RoPE, the contexts [8,16,584,64]
    (kv_valid 578) and [8,16,176,64] (173) and the predictor [8,12,1664,32]
    (1662) and [8,12,1624,32] (1623) on per-example tables of real collator
-   masks; forward (out, lse) and backward (dq,
+   masks, and with the masks: the fp32 DROID step's AC rows
+   [8,16,1808,64] and the fp32 plan's [400,16,264,64] and [400,16,520,64]
+   (forward only), frame-causal with the pad keys on int32-max, a ring hop
+   [2,16,1024,80] (key-side ids, a global lse given to the backward), the
+   causal mask [2,16,1024,80], ids 2**24 and 2**24 + 1 (which must stay
+   apart) and rows with no key (out 0, lse -inf, dq 0) at [2,16,1024,64];
+   forward (out, lse) and backward (dq,
    dk, dv given the kernel's out and lse; dk and dv exactly zero past
    kv_valid), the plain version over chunks of
    queries where its [B, H, N, N] scores do not fit (256 rows at IN1K, 512
@@ -169,8 +181,8 @@ Phases, each printed as one JSON object on a line of its own:
    TFLOP/s (an fp32-accurate product is three TF32 products) or the bytes',
    whichever is larger, the plain
    version's ms and `F.scaled_dot_product_attention`'s on the same fp32
-   operands (q and k pre-rotated, k and v cut to kv_valid) with the backend
-   it picked;
+   operands (q and k pre-rotated, k and v cut to kv_valid, segment ids as
+   the equivalent boolean mask) with the backend it picked;
 25. train_fp32 (run after phase 21) — the fp32 pretraining path: (a) the
    shipped `configs/train/smoke-tiny.yaml` (`SMOKE_CONFIG`: vit_tiny, a
    depth-2 predictor, heads of 64, RoPE, fp32, batch 4 of 4f@64, ipe 8)
@@ -225,11 +237,31 @@ Phases, each printed as one JSON object on a line of its own:
    the answer within 5e-2 relative L2 of the fp32 CPU path, and the plan to
    [2, 7], finite, in the CEM's clips). Prints trace, save and load seconds,
    artifact bytes, and ms per request, encode and plan, loaded and eager.
+26. train_droid_fp32 (run before phase 17) — the DROID trainer at JAX's
+   default precision: `run_vjepa_droid` on `DROID_CONFIG` with
+   ``meta.dtype: float32`` (TF32 off), one epoch of 4 steps (phase 17 covers
+   the resume): every step launches the fp32 forward 88 times and its
+   backward 48, no bf16 attention kernel; trajectory 0's loss and predictor
+   gradients on the initial weights, no op of it making a bf16 tensor,
+   against phase 17's fp32 CPU trajectory (the same weights) within phase
+   25's fp32 tolerances; ms a step, clips/s, peak, one traced step;
+27. plan_fp32 (run after phase 18) — `vjepa2_ac_vit_giant(dtype=
+   torch.float32)` after `torch.manual_seed(0)` (phase 18's weights, bit for
+   bit) in a `WorldModel`: two encodes (40 fp32 forwards each), a warm-up
+   plan at 1 CEM step (both rollout lengths), one timed plan at
+   `CEMConfig()` but for 3 of its 10 CEM steps (144 fp32 forwards at
+   [400,16,264,64] and [400,16,520,64] with frame-causal ids, no bf16
+   kernel; cut to keep the script within its time limit), the warm-up's
+   repeat traced and bit-equal; no op of an encode or a step_fn makes a bf16 tensor; encode
+   and step_fn against phase 18's fp32 CPU world model within 1e-4
+   relative L2; ms per encode and plan, peak, the traced plan's idle share
+   and kernel time by category.
 Phases 19, 20, 22 and 23 run in the order eval_anticipation, eval_video,
-eval_image, eval_video_384; each eval phase's
-CPU reference runs on a worker thread beside the card work of the phases
-after it (their steps are device-bound), and its record prints when that
-reference ends; the script waits for all of them before its summary.
+eval_image, eval_video_384; each eval phase's CPU reference, like those of
+phases 9, 17, 18, 26 and 27, runs on a worker thread beside the card work of
+the phases after it (their steps are device-bound), and its record prints
+when that reference ends; the script waits for all of them before its
+summary.
 The kernel phases 3 and 5 also hold B1 and B2 at the cooldown's shapes
 ([2,16,64,8192] target, the contexts of 2302 and 568 tokens, the predictor
 sequences of 6479 and 6471), with per-example RoPE tables of real collator
@@ -577,6 +609,12 @@ DROID_CONFIG = {
 DROID_IPE = 4
 DROID_OVERRIDES = {"optimization.ipe": DROID_IPE, "optimization.epochs": 2}
 DROID_LAUNCHES = (40 + 2 * 24, 2 * 24, 0, 0, 0, 0, 0, 0, 0, 0)
+# The same config at meta.dtype float32 (phase train_droid_fp32, one epoch):
+# every attention on the fp32 BHND kernels, B1's 88 forwards and B2's 48
+# backwards moved there (the AC rows' frame-causal ids and pad keys too)
+DROID_FP32_OVERRIDES = {"meta.dtype": "float32", "optimization.ipe": DROID_IPE,
+                        "optimization.epochs": 1}
+DROID_FP32_LAUNCHES = _counts(b3_fp32=40 + 2 * 24, bhnd_bwd_fp32=2 * 24)
 # CEM planning (phase plan) on the hub's `vjepa2_ac_vit_giant()` at
 # `CEMConfig`'s defaults (400 samples, rollout 2, 10 steps, top-k 10): an
 # encode runs B1 once a ViT-g layer, a plan once an AC predictor layer in each
@@ -589,6 +627,19 @@ PLAN_TIMED, PLAN_CANDIDATES = 1, 4  # timed plans cut from 2 (the script's time 
 # CEM update on a linear world model, fp32 on both sides, one sampler: the
 # same arithmetic in another order
 PLAN_REL_L2, CEM_UPDATE_ATOL = 5e-2, 1e-6
+# The same plan at fp32 (phase plan_fp32: `vjepa2_ac_vit_giant(dtype=
+# torch.float32)`): every attention on the fp32 BHND kernels, an encode's 40
+# and a plan's 480 forwards (the AC rows with their frame-causal ids and pad
+# keys), no bf16 kernel. One timed plan at `CEMConfig()` but for its CEM
+# steps, PLAN_FP32_STEPS of its 10; its warm-up and the bit-equal repeat
+# (traced) at PLAN_FP32_CUT_STEPS; each step runs both rollout lengths (cut
+# from full plans to keep the script within its time limit: a full fp32
+# plan takes ~46 s on an H100). encode and step_fn against the fp32 CPU path
+# of phase plan (the same weights, checked): fp32 on both sides, the GEMMs in
+# other orders, the attention 3xTF32 (2e-5 of plain), over 40 + 24 layers.
+PLAN_FP32_STEPS, PLAN_FP32_CUT_STEPS, PLAN_FP32_REL_L2 = 3, 1, 1e-4
+ENCODE_FP32_LAUNCHES = _counts(b3_fp32=40)
+PLAN_FP32_LAUNCHES = _counts(b3_fp32=PLAN_FP32_STEPS * 2 * 24)
 # The serving export (phase export): ViT-L answers requests of 1 and 8 clips
 # through its loaded program (24 B1 each), timed against eager 5 times each,
 # interleaved; ViT-H one clip (32 B3); the world model an encode (40 B1) and a
@@ -757,6 +808,19 @@ FP32_SHAPES = [
     ("fp32 vit_large context, mask 1", (8, 16, 176, 64), {"rope": "ctx1", "kv_valid_len": 173}),
     ("fp32 predictor, mask 1", (8, 12, 1664, 32), {"rope": "pred1", "kv_valid_len": 1662}),
     ("fp32 predictor, mask 0", (8, 12, 1624, 32), {"rope": "pred0", "kv_valid_len": 1623}),
+    # the AC predictor's rows at fp32 (frame-causal ids, the stack pad's keys
+    # on int32-max): the DROID step's 7 frames of 2 + 256 tokens, and a CEM
+    # plan's rollouts of 1 and 2 frames (forward only: planning takes no
+    # gradient)
+    ("fp32 droid AC, stack-padded", (8, 16, 1808, 64), {"ac": (7, 2)}),
+    ("fp32 cem rollout, 1 frame", (400, 16, 264, 64), {"ac": (1, 6), "fwd_only": True}),
+    ("fp32 cem rollout, 2 frames", (400, 16, 520, 64), {"ac": (2, 4), "fwd_only": True}),
+    ("fp32 ring hop: seg_kv, given lse", (2, 16, 1024, 80), {"seg_kv": True, "global_lse": True}),
+    ("fp32 causal", (2, 16, 1024, 80), {"causal": True}),
+    # ids an fp32 cast would merge (2**24 + 1 rounds to 2**24), and queries
+    # whose id is below every key's (out 0, lse -inf, no gradient)
+    ("fp32 ids 2**24 and 2**24 + 1", (2, 16, 1024, 64), {"ids": "past 2**24"}),
+    ("fp32 rows with no key", (2, 16, 1024, 64), {"ids": "no key"}),
 ]
 # The plain version holds [B, H, N, M] fp32 scores (the backward about five
 # such); above FP32_PLAIN_WHOLE bytes it runs over chunks of queries that hold
@@ -956,11 +1020,17 @@ def _kernel_name(mangled: str) -> str:
     from a mangled ptxas function name: an identifier ending in ``_kernel``
     whose length is the number just before it (the digits of a hash may run
     into that number), then its template arguments (integers, and a struct
-    with integer arguments)."""
-    for m in re.finditer(r"[A-Za-z_]+_kernel", mangled):
-        digits = re.search(r"\d+$", mangled[:m.start()])
-        if digits and digits.group().endswith(str(len(m.group()))):
-            rest = mangled[m.end():]
+    with integer arguments). The identifier may hold digits (``flash_fp32_fwd_kernel``),
+    so each start that the length before it fits is tried."""
+    for k in re.finditer(r"_kernel", mangled):
+        starts = [i for i in range(k.start(), -1, -1) if re.fullmatch(
+            r"[A-Za-z_][A-Za-z0-9_]*", mangled[i:k.start()] or "_")]
+        for start in starts:
+            m = re.match(r"[A-Za-z_][A-Za-z0-9_]*_kernel", mangled[start:k.end()])
+            digits = re.search(r"\d+$", mangled[:start])
+            if m is None or not digits or not digits.group().endswith(str(len(m.group()))):
+                continue
+            rest = mangled[k.end():]
             if a := re.match(r"I((?:L[ib]\d+E)+)", rest):
                 return m.group() + f"<{','.join(re.findall(r'L[ib](\d+)E', a.group(1)))}>"
             if a := re.match(r"INS_(\d+)", rest):  # a struct: its name, then its integers
@@ -1277,6 +1347,14 @@ def _reset_launch_counts() -> None:
 _CLIP0_CPU: dict = {}
 
 
+def _build_step_models(tp, model: str, fuse_ln: str, device, dtype):
+    """Phase 6's (encoder, predictor) of ``model`` (`train.pretrain.build_models`)."""
+    return tp.build_models(model, crop_size=SIZE, num_frames=FRAMES, pred_depth=12,
+                           pred_embed_dim=384, pred_num_heads=12, use_rope=True,
+                           num_mask_tokens=2, use_flash=True, dtype=dtype, device=device,
+                           fuse_ln=fuse_ln)
+
+
 class _Trainer:
     """One masked-pretrain run of phase 6 on the card: the models (random
     weights from a seeded generator), AdamW and the EMA target, the collator
@@ -1305,10 +1383,7 @@ class _Trainer:
         self.setup_s = time.perf_counter() - t0
 
     def build(self, device, dtype):
-        return self.tp.build_models(self.model, crop_size=SIZE, num_frames=FRAMES, pred_depth=12,
-                                    pred_embed_dim=384, pred_num_heads=12, use_rope=True,
-                                    num_mask_tokens=2, use_flash=True, dtype=dtype,
-                                    device=device, fuse_ln=self.fuse_ln)
+        return _build_step_models(self.tp, self.model, self.fuse_ln, device, dtype)
 
     def step(self):
         me, mp = _masks(self.coll, CLIPS)
@@ -1333,12 +1408,16 @@ class _Trainer:
                                  f"{dict(zip(KERNEL_COUNTS, self.per_step))}")
         return ms, loss, gnorm, masks
 
-    def clip0(self) -> dict:
+    def clip0(self, defer: bool = False):
         """Clip 0's loss and gradients on the initial weights on the card,
         then in fp32 on the CPU through the plain path with the same fusions
         (after a few Adam steps the encoder's gradient norm falls ~2000x and
-        bf16 noise dominates it)."""
-        tp = self.tp
+        bf16 noise dominates it): the record. With ``defer``, a function of no
+        argument that runs the CPU part and gives the record, holding host
+        copies only (the trainer and its card memory may go before it runs)."""
+        tp, loss_exp, model, fuse_ln, dtype = (self.tp, self.hp.loss_exp, self.model,
+                                               self.fuse_ln, self.dtype)
+        depth = f"full ({len(self.enc.blocks)} + 12 layers)"
         me, mp = _masks(self.coll, CLIPS)
         me0, mp0 = [torch.from_numpy(m[:1]) for m in me], [torch.from_numpy(m[:1]) for m in mp]
 
@@ -1346,14 +1425,14 @@ class _Trainer:
             h = tp.target_features(tgt, x, mp_)
             e.zero_grad(set_to_none=True)
             p.zero_grad(set_to_none=True)
-            loss = tp.forward_loss(e, p, x, me_, mp_, h, self.hp.loss_exp)
+            loss = tp.forward_loss(e, p, x, me_, mp_, h, loss_exp)
             loss.backward()
             flat = [torch.cat([q.grad.float().flatten().cpu() for q in m.parameters()])
                     for m in (e, p)]
             return loss.item(), flat
 
         to_dev = lambda ms: [m.to(self.dev) for m in ms]  # noqa: E731
-        ref = _CLIP0_CPU.get(self.model) if self.dtype == torch.float32 else None
+        ref = _CLIP0_CPU.get(model) if dtype == torch.float32 else None
         if ref is not None:  # phase 6's weights, masks and CPU result
             for m, key in ((self.enc, "encoder"), (self.pred, "predictor"),
                            (self.state.target_encoder, "encoder")):  # the target: a copy
@@ -1361,36 +1440,43 @@ class _Trainer:
             me0, mp0 = ref["masks"]
         loss_gpu, (ge_gpu, gp_gpu) = loss_and_grads(self.enc, self.pred, self.state.target_encoder,
                                                     self.clips[:1], to_dev(me0), to_dev(mp0))
-        cpu_s = 0.0
-        if ref is None:
+
+        def record(ref, cpu_s) -> dict:
+            loss_cpu, (ge_cpu, gp_cpu) = ref["loss"], ref["grads"]
+            tol = ({"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2}
+                   if dtype == torch.bfloat16 else
+                   {"loss_rel": FP32_TRAIN_LOSS_REL, "grad_rel_l2": FP32_TRAIN_GRAD_REL_L2})
+            rec = {"loss_gpu": loss_gpu, "loss_cpu_fp32": loss_cpu,
+                   "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+                   "encoder_grad_rel_l2": ((ge_gpu - ge_cpu).norm() / ge_cpu.norm()).item(),
+                   "predictor_grad_rel_l2": ((gp_gpu - gp_cpu).norm() / gp_cpu.norm()).item(),
+                   "tol": tol, "depth": depth, "cpu_reference_s": cpu_s}
+            if cpu_s and (model, fuse_ln, dtype) == ("vit_large", "", torch.bfloat16):
+                _CLIP0_CPU[model] = {**ref, "bf16_errors": {
+                    k: rec[k] for k in ("loss_rel_err", "encoder_grad_rel_l2",
+                                        "predictor_grad_rel_l2")}}
+            return rec
+
+        if ref is not None:
+            return record(ref, 0.0)
+        states = [{k: v.detach().to("cpu", copy=True) for k, v in m.state_dict().items()}
+                  for m in (self.enc, self.pred, self.state.target_encoder)]
+        clip = self.clips[:1].float().cpu()
+
+        def on_cpu() -> dict:
             torch.set_num_threads(os.cpu_count() or 1)
             t2 = time.perf_counter()
-            enc_cpu, pred_cpu = self.build("cpu", torch.float32)
-            tgt_cpu, _ = self.build("cpu", torch.float32)
-            enc_cpu.load_state_dict(self.enc.state_dict())
-            pred_cpu.load_state_dict(self.pred.state_dict())
-            tgt_cpu.load_state_dict(self.state.target_encoder.state_dict())
-            loss_cpu, (ge_cpu, gp_cpu) = loss_and_grads(enc_cpu, pred_cpu, tgt_cpu,
-                                                        self.clips[:1].float().cpu(), me0, mp0)
-            cpu_s = time.perf_counter() - t2
-            ref = {"state": {"encoder": enc_cpu.state_dict(), "predictor": pred_cpu.state_dict()},
-                   "masks": (me0, mp0), "loss": loss_cpu, "grads": (ge_cpu, gp_cpu)}
-            del enc_cpu, pred_cpu, tgt_cpu
-        loss_cpu, (ge_cpu, gp_cpu) = ref["loss"], ref["grads"]
-        tol = ({"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2}
-               if self.dtype == torch.bfloat16 else
-               {"loss_rel": FP32_TRAIN_LOSS_REL, "grad_rel_l2": FP32_TRAIN_GRAD_REL_L2})
-        rec = {"loss_gpu": loss_gpu, "loss_cpu_fp32": loss_cpu,
-               "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
-               "encoder_grad_rel_l2": ((ge_gpu - ge_cpu).norm() / ge_cpu.norm()).item(),
-               "predictor_grad_rel_l2": ((gp_gpu - gp_cpu).norm() / gp_cpu.norm()).item(),
-               "tol": tol, "depth": f"full ({len(self.enc.blocks)} + 12 layers)",
-               "cpu_reference_s": cpu_s}
-        if cpu_s and (self.model, self.fuse_ln, self.dtype) == ("vit_large", "", torch.bfloat16):
-            _CLIP0_CPU[self.model] = {**ref, "bf16_errors": {
-                k: rec[k] for k in ("loss_rel_err", "encoder_grad_rel_l2",
-                                    "predictor_grad_rel_l2")}}
-        return rec
+            enc_cpu, pred_cpu = _build_step_models(tp, model, fuse_ln, "cpu", torch.float32)
+            tgt_cpu, _ = _build_step_models(tp, model, fuse_ln, "cpu", torch.float32)
+            for m, state in zip((enc_cpu, pred_cpu, tgt_cpu), states):
+                m.load_state_dict(state)
+            loss_cpu, grads = loss_and_grads(enc_cpu, pred_cpu, tgt_cpu, clip, me0, mp0)
+            return record({"state": {"encoder": enc_cpu.state_dict(),
+                                     "predictor": pred_cpu.state_dict()},
+                           "masks": (me0, mp0), "loss": loss_cpu, "grads": grads},
+                          time.perf_counter() - t2)
+
+        return on_cpu if defer else on_cpu()
 
     def warmup_with_ema_check(self) -> tuple[float, str]:
         """The warm-up step, which also checks the EMA on one target leaf."""
@@ -1427,12 +1513,13 @@ def _step_record(tr: _Trainer, times, losses, norms, masks) -> dict:
             "launches_per_step": dict(zip(KERNEL_COUNTS, tr.per_step))}
 
 
-def _timed_run(dev, tr: _Trainer) -> tuple[dict, tuple[int, ...]]:
-    """Phase 6's run of a trainer: clip 0 against the fp32 CPU path, the
-    warm-up with the EMA check, `TRAIN_STEPS` timed steps (their launches
-    counted from 0), peak memory and finite gradients. Returns (the record's
-    fields, the timed steps' launches)."""
-    clip0 = tr.clip0()
+def _timed_run(dev, tr: _Trainer, defer: bool = False) -> tuple[dict, tuple[int, ...]]:
+    """Phase 6's run of a trainer: clip 0 against the fp32 CPU path (with
+    ``defer``, its CPU part as a function, `_Trainer.clip0`), the warm-up with
+    the EMA check, `TRAIN_STEPS` timed steps (their launches counted from 0),
+    peak memory and finite gradients. Returns (the record's fields, the timed
+    steps' launches)."""
+    clip0 = tr.clip0(defer)
     torch.cuda.reset_peak_memory_stats(dev)
     ema_err, leaf = tr.warmup_with_ema_check()
     _reset_launch_counts()
@@ -1451,15 +1538,35 @@ def _timed_run(dev, tr: _Trainer) -> tuple[dict, tuple[int, ...]]:
             "ema_leaf": leaf, "clip0": clip0, "setup_s": tr.setup_s}, launches
 
 
-def phase_train(dev, smi: str, model: str = "vit_large") -> tuple[int, ...]:
+# CPU references that phases hand to `_CPU_WORK` only when the run reaches
+# the device-bound phases (`_run_phases` submits them before
+# train_droid_fp32), so that they run beside card work that does not time
+# the host; the phase's record prints when its reference ends.
+_CPU_LATER: list = []
+
+
+def phase_train(dev, smi: str, model: str = "vit_large",
+                defer_clip0: bool = False) -> tuple[int, ...]:
+    """Phase 6's step (or train_huge's); with ``defer_clip0`` its clip-0 CPU
+    reference, and so its record, wait in `_CPU_LATER`."""
     tr = _Trainer(dev, model)
-    rec, launches = _timed_run(dev, tr)
-    ok = _clip0_ok(rec["clip0"])
-    emit({"phase": tr.phase,
-          "model": f"{model} 16f@256 bs8 + predictor (12 x 384, 12 heads) bf16, AdamW fp32",
-          **rec, "ok": ok, "gpu": smi})
-    if not ok:
-        raise AssertionError(f"clip-0 loss or gradients off the CPU fp32 reference: {rec['clip0']}")
+    rec, launches = _timed_run(dev, tr, defer_clip0)
+    phase = tr.phase
+    del tr
+
+    def finish() -> None:
+        clip0 = rec["clip0"]() if callable(rec["clip0"]) else rec["clip0"]
+        ok = _clip0_ok(clip0)
+        emit({"phase": phase,
+              "model": f"{model} 16f@256 bs8 + predictor (12 x 384, 12 heads) bf16, AdamW fp32",
+              **rec, "clip0": clip0, "ok": ok, "gpu": smi})
+        if not ok:
+            raise AssertionError(f"clip-0 loss or gradients off the CPU fp32 reference: {clip0}")
+
+    if defer_clip0:
+        _CPU_LATER.append(finish)
+    else:
+        finish()
     return launches
 
 
@@ -1976,19 +2083,73 @@ def _droid_trajectory(trainer, predictor, target_encoder):
     return tuple(x.item() for x in losses), grads
 
 
+# Trajectory 0 on the fp32 CPU path from the DROID trainer's initial
+# weights, shared by phases train_droid_fp32 (first) and train_droid: the
+# port keeps parameters in fp32 at both dtypes, so both start from the same
+# weights (train_droid checks it). {"weights": train_droid_fp32's initial
+# weights on the host, "same": whether train_droid's equal them,
+# "finish_fp32": train_droid_fp32's check, which train_droid queues on
+# `_CPU_WORK` after the reference; "cpu": (losses, gradients)}
+_DROID_CPU: dict = {}
+
+
+def _droid_cpu_reference(raw: dict, trainer) -> float:
+    """Trajectory 0 in fp32 on the CPU from `_DROID_CPU`'s initial weights:
+    sets _DROID_CPU["cpu"], returns its seconds."""
+    from vjepa2_tpu_torch.train.droid import build_droid_models
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    t1 = time.perf_counter()
+    m = raw["model"]
+    enc, pred = build_droid_models(
+        model_name=m["model_name"], crop_size=raw["data"]["crop_size"],
+        pred_depth=m["pred_depth"], pred_embed_dim=m["pred_embed_dim"],
+        pred_num_heads=m["pred_num_heads"], uniform_power=m["uniform_power"],
+        dtype=torch.float32, device="cpu")
+    weights = _DROID_CPU.pop("weights")
+    enc.load_state_dict(weights["target_encoder"])
+    pred.load_state_dict(weights["predictor"])
+    del weights
+    _DROID_CPU["cpu"] = _droid_trajectory(trainer, pred, enc)
+    return time.perf_counter() - t1
+
+
+def _droid_models(state):
+    return (("predictor", state.predictor), ("target_encoder", state.target_encoder))
+
+
+def _host_weights(state) -> dict:
+    return {k: {n: v.detach().to("cpu", copy=True) for n, v in m.state_dict().items()}
+            for k, m in _droid_models(state)}
+
+
+def _same_parameters(state, weights) -> bool:
+    """Whether the state's models hold ``weights``' parameters, bit for bit."""
+    return all(torch.equal(p.detach().cpu(), weights[k][n])
+               for k, m in _droid_models(state) for n, p in m.named_parameters())
+
+
+def _trajectory_errors(card, cpu) -> dict:
+    (card_losses, card_grads), (cpu_losses, cpu_grads) = card, cpu
+    return {"card": card_losses, "cpu": cpu_losses,
+            "loss_rel_err": abs(card_losses[0] - cpu_losses[0]) / abs(cpu_losses[0]),
+            "grad_rel_l2": ((card_grads - cpu_grads).norm() / cpu_grads.norm()).item()}
+
+
 def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
     """The `DroidTrainer` through the CLI's `run_vjepa_droid` on the shipped
     ViT-g DROID config (`DROID_CONFIG`: batch 8, 8 frames at 256 px, ViT-g
     depth 40, predictor depth 24, auto_steps 2, bf16, synthetic trajectories):
     epoch 0, then a new trainer on the same folder resumes and runs epoch 1.
     Before the first step, trajectory 0's losses and predictor gradients on
-    the initial weights against the fp32 CPU path from the same weights.
-    Returns the launches of all its steps."""
+    the initial weights (the parameters of phase train_droid_fp32's, bit
+    for bit), held to the fp32 CPU path from the same weights, which runs on
+    `_CPU_WORK` beside the later phases (then train_droid_fp32's check; the
+    records print when each ends). Returns the launches of all its steps."""
     import shutil
     import tempfile
 
     from vjepa2_tpu_torch.core import schedulers
-    from vjepa2_tpu_torch.train.droid import build_droid_models
 
     t0 = time.perf_counter()
     folder = tempfile.mkdtemp(prefix="vjepa2_droid_")
@@ -1996,12 +2157,9 @@ def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
     raw = overridden(DROID_CONFIG, overrides)
     traj = {}
 
-    def on_card(trainer, state):  # the initial weights: trajectory 0, and a CPU copy
+    def on_card(trainer, state):  # the initial weights: trajectory 0, and the same as fp32's
         traj["card"] = _droid_trajectory(trainer, state.predictor, state.target_encoder)
-        traj["weights"] = {k: {n: v.detach().to("cpu", copy=True)
-                               for n, v in m.state_dict().items()}
-                           for k, m in (("predictor", state.predictor),
-                                        ("target_encoder", state.target_encoder))}
+        _DROID_CPU["same"] = _same_parameters(state, _DROID_CPU["weights"])
         torch.cuda.reset_peak_memory_stats(dev)
 
     try:
@@ -2028,6 +2186,8 @@ def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
         _check_launches("train_droid", steps, DROID_LAUNCHES)
         if not restored.get("bit_equal") or restored["step"] != DROID_IPE:
             raise AssertionError(f"the restored state is not the saved one: {restored}")
+        if not _DROID_CPU["same"]:
+            raise AssertionError("the bf16 and fp32 DROID trainers start from other weights")
         first = part2.steps[0]
         trainer, state = part2.states[0]
         hp = trainer.hp
@@ -2039,8 +2199,8 @@ def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
                 "wd": schedulers.cosine_wd(DROID_IPE, ref_wd=hp.wd, t_max=hp.total_steps,
                                            final_wd=hp.final_wd)}
         got = {k: first[k] for k in want}
-        target_equal = all(torch.equal(v.cpu(), traj["weights"]["target_encoder"][k])
-                           for k, v in state.target_encoder.state_dict().items())
+        target_equal = all(torch.equal(v.cpu(), _DROID_CPU["weights"]["target_encoder"][k])
+                           for k, v in state.target_encoder.named_parameters())
         with open(os.path.join(folder, "droid_log_r0.csv")) as f:
             rows = [ln for ln in f.read().splitlines() if ln and not ln.startswith("epoch")]
         if got != want or not target_equal or len(rows) != 2 * DROID_IPE:
@@ -2056,50 +2216,150 @@ def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
         del state, state_, fn, batch
     finally:
         shutil.rmtree(folder, ignore_errors=True)
-    # the same trajectory on the CPU in fp32 from the initial weights
-    torch.set_num_threads(os.cpu_count() or 1)
-    t1 = time.perf_counter()
-    m = raw["model"]
-    enc, pred = build_droid_models(
-        model_name=m["model_name"], crop_size=raw["data"]["crop_size"],
-        pred_depth=m["pred_depth"], pred_embed_dim=m["pred_embed_dim"],
-        pred_num_heads=m["pred_num_heads"], uniform_power=m["uniform_power"],
-        dtype=torch.float32, device="cpu")
-    weights = traj.pop("weights")
-    enc.load_state_dict(weights["target_encoder"])
-    pred.load_state_dict(weights["predictor"])
-    cpu_losses, cpu_grads = _droid_trajectory(trainer, pred, enc)
-    cpu_s = time.perf_counter() - t1
-    card_losses, card_grads = traj.pop("card")
-    loss_rel = abs(card_losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
-    grad_rel = ((card_grads - cpu_grads).norm() / cpu_grads.norm()).item()
-    del enc, pred, weights, card_grads, cpu_grads
-    ok = loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
     launches = tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
-    emit({"phase": "train_droid", "config": DROID_CONFIG_FILE,
-          "overrides": {**overrides, "folder": "<temporary directory>"},
-          "model": "vit_giant_xformers target (40 x 1408, 22 heads of 64) over 64 single "
-                   "frames of 256 tokens + AC predictor (24 x 1024, 16 heads of 64) over 1806 "
-                   "and 516 frame-causal tokens (stack-padded to 1808 and 520), bs8, 8f@256, "
-                   "auto_steps 2, RoPE, bf16, synthetic trajectories",
-          "steps": [{k: v for k, v in s.items() if k != "t0"} for s in steps],
-          "loop_ms_per_step": ms, "loop_ms_per_step_by_part": [ms1, ms2],
-          "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3), "timed_steps": n1 + n2,
-          "one_traced_step": traced, "peak_memory_gb": peak_gb,
-          "launches_per_step": dict(zip(KERNEL_COUNTS, DROID_LAUNCHES)),
-          "checkpoint": [{k: v for k, v in c.items() if k != "t0"}
-                         for c in part1.saves + part2.saves],
-          "restored": restored, "resumed_first": got, "target_bit_equal": target_equal,
-          "csv_rows": len(rows),
-          "trajectory_vs_cpu_fp32": {"card": card_losses, "cpu": cpu_losses,
-                                     "loss_rel_err": loss_rel, "grad_rel_l2": grad_rel,
-                                     "tol": {"loss_rel": TRAIN_LOSS_REL,
-                                             "grad_rel_l2": TRAIN_GRAD_REL_L2}},
-          "cpu_reference_s": cpu_s, "seconds": time.perf_counter() - t0, "ok": ok, "gpu": smi})
-    if not ok:
-        raise AssertionError(f"DROID trajectory 0 off the CPU fp32 path: loss {loss_rel}, "
-                             f"predictor gradients {grad_rel} relative L2")
+    record = {"phase": "train_droid", "config": DROID_CONFIG_FILE,
+              "overrides": {**overrides, "folder": "<temporary directory>"},
+              "model": "vit_giant_xformers target (40 x 1408, 22 heads of 64) over 64 single "
+                       "frames of 256 tokens + AC predictor (24 x 1024, 16 heads of 64) over "
+                       "1806 and 516 frame-causal tokens (stack-padded to 1808 and 520), bs8, "
+                       "8f@256, auto_steps 2, RoPE, bf16, synthetic trajectories",
+              "steps": [{k: v for k, v in s.items() if k != "t0"} for s in steps],
+              "loop_ms_per_step": ms, "loop_ms_per_step_by_part": [ms1, ms2],
+              "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3), "timed_steps": n1 + n2,
+              "one_traced_step": traced, "peak_memory_gb": peak_gb,
+              "launches_per_step": dict(zip(KERNEL_COUNTS, DROID_LAUNCHES)),
+              "checkpoint": [{k: v for k, v in c.items() if k != "t0"}
+                             for c in part1.saves + part2.saves],
+              "restored": restored, "resumed_first": got, "target_bit_equal": target_equal,
+              "initial_weights_equal_train_droid_fp32": True, "csv_rows": len(rows),
+              "card_s": time.perf_counter() - t0, "gpu": smi}
+    card = traj.pop("card")
+
+    def finish() -> None:  # the same trajectory on the CPU in fp32, then the check
+        cpu_s = _droid_cpu_reference(raw, trainer)
+        errs = _trajectory_errors(card, _DROID_CPU["cpu"])
+        ok = errs["loss_rel_err"] <= TRAIN_LOSS_REL and errs["grad_rel_l2"] <= TRAIN_GRAD_REL_L2
+        emit({**record, "trajectory_vs_cpu_fp32": {
+            **errs, "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2}},
+            "cpu_reference_s": cpu_s, "ok": ok})
+        if not ok:
+            raise AssertionError(f"DROID trajectory 0 off the CPU fp32 path: {errs}")
+
+    _DEFERRED.append(_CPU_WORK.submit(finish))
+    _DEFERRED.append(_CPU_WORK.submit(_DROID_CPU.pop("finish_fp32")))
     return launches
+
+
+def _no_bf16(fn):
+    """fn()'s result, and the ops it dispatched that made a bf16 tensor (none
+    on an fp32 path, which casts nothing down)."""
+    from torch.utils import _pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+                   for t in _pytree.tree_leaves(out)):
+                seen.append(str(func))
+            return out
+
+    with Watch():
+        out = fn()
+    return out, sorted(set(seen))
+
+
+def phase_train_droid_fp32(dev, smi: str) -> tuple[int, ...]:
+    """The DROID trainer at fp32: `run_vjepa_droid` on the shipped ViT-g
+    DROID config with ``meta.dtype: float32`` (`DROID_FP32_OVERRIDES`), one
+    epoch of `DROID_IPE` steps (phase train_droid, after this one, covers
+    the resume). Trajectory 0's losses and predictor gradients on the
+    initial weights, no op of it making a bf16 tensor, are held at the fp32
+    step's tolerances to the fp32 CPU trajectory that train_droid computes
+    from the same weights (it checks that they are). Every step launches the
+    fp32 forward 88 times and its backward 48 (`DROID_FP32_LAUNCHES`), no
+    bf16 attention kernel. Returns the steps' launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="vjepa2_droid_fp32_")
+    overrides = {"folder": folder, **DROID_FP32_OVERRIDES}
+    raw = overridden(DROID_CONFIG, overrides)
+    traj = {}
+
+    def on_card(trainer, state):  # trajectory 0 on the initial weights, watched
+        traj["card"], traj["bf16_ops"] = _no_bf16(
+            lambda: _droid_trajectory(trainer, state.predictor, state.target_encoder))
+        _DROID_CPU["weights"] = _host_weights(state)
+        traj["dtypes"] = {"compute": str(trainer.dtype), "parameters": sorted(
+            {str(p.dtype) for m in (state.predictor, state.target_encoder)
+             for p in m.parameters()})}
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    try:
+        with _LoopRecorder(on_restore=on_card, droid=True) as part:
+            _run_config(raw, dev, epochs=1)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        _check_launches("train_droid_fp32", part.steps, DROID_FP32_LAUNCHES)
+        losses_finite = all(np.isfinite(s["loss"]) for s in part.steps)
+        fn, state_, *batch = part.last
+        traced = wall_and_busy(lambda: fn(state_, *batch)["loss"].item())
+        ms, n = part.loop_ms_per_step()
+        steps, saves = part.steps, part.saves
+        part.release()
+        del state_, fn, batch
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    launches = tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
+    record = {"phase": "train_droid_fp32", "config": DROID_CONFIG_FILE,
+              "overrides": {**overrides, "folder": "<temporary directory>"},
+              "model": "phase train_droid's models and batch at fp32 (TF32 off): the "
+                       "vit_giant_xformers target and the AC predictor on the fp32 BHND "
+                       "kernels, frame-causal ids with the pad keys on int32-max",
+              "steps": [{k: v for k, v in s.items() if k != "t0"} for s in steps],
+              "loop_ms_per_step": ms, "timed_steps": n,
+              "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3),
+              "one_traced_step": traced, "peak_memory_gb": peak_gb,
+              "launches_per_step": dict(zip(KERNEL_COUNTS, DROID_FP32_LAUNCHES)),
+              "checkpoint": [{k: v for k, v in c.items() if k != "t0"} for c in saves],
+              "losses_finite": losses_finite, "dtypes": traj["dtypes"],
+              "bf16_ops_in_trajectory": traj["bf16_ops"],
+              "card_s": time.perf_counter() - t0, "gpu": smi}
+    card = traj["card"]
+
+    def finish() -> None:  # queued by train_droid, after its CPU reference
+        cpu = _DROID_CPU.pop("cpu")
+        errs = _trajectory_errors(card, cpu)
+        ok = (errs["loss_rel_err"] <= FP32_TRAIN_LOSS_REL
+              and errs["grad_rel_l2"] <= FP32_TRAIN_GRAD_REL_L2 and _DROID_CPU.pop("same")
+              and losses_finite and not record["bf16_ops_in_trajectory"])
+        emit({**record, "initial_weights_equal_train_droid": True,
+              "trajectory_vs_cpu_fp32": {**errs, "tol": {
+                  "loss_rel": FP32_TRAIN_LOSS_REL, "grad_rel_l2": FP32_TRAIN_GRAD_REL_L2},
+                  "reference": "phase train_droid's fp32 CPU trajectory (the same weights)"},
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"train_droid_fp32: trajectory 0 {errs}, losses finite "
+                                 f"{losses_finite}, bf16 ops {record['bf16_ops_in_trajectory']}")
+
+    _DROID_CPU["finish_fp32"] = finish
+    return launches
+
+
+def _ring_hop_ids(dev, B, N):
+    """A ring hop's segment ids [B, N]: frames 4-11 of queries, 0-15 of keys."""
+    seg_q = (torch.arange(8, device=dev, dtype=torch.int32) + 4).repeat_interleave(N // 8)
+    seg_k = torch.arange(16, device=dev, dtype=torch.int32).repeat_interleave(N // 16)
+    return seg_q[None].expand(B, N), seg_k[None].expand(B, N)
+
+
+def _given_lse(lse, feats):
+    """The lse a row's backward is given: a ring's global one (this hop's
+    mass and another's) where the row says so, else the forward's."""
+    return torch.logaddexp(lse, lse - 0.7) if feats.get("global_lse") else lse
 
 
 def _bhnd_case(dev, B, H, N, D, feats, seqs):
@@ -2113,10 +2373,8 @@ def _bhnd_case(dev, B, H, N, D, feats, seqs):
         kw["rope_expanded"] = _rope_tables(dev, B, N, D, feats["rope"], seqs)
     if "kv_valid_len" in feats:
         kw["kv_valid_len"] = feats["kv_valid_len"]
-    if feats.get("seg_kv"):  # a ring hop: frames 4-11 of queries, 0-15 of keys
-        seg_q = (torch.arange(8, device=dev, dtype=torch.int32) + 4).repeat_interleave(N // 8)
-        seg_k = torch.arange(16, device=dev, dtype=torch.int32).repeat_interleave(N // 16)
-        seg_q, seg_k = seg_q[None].expand(B, N), seg_k[None].expand(B, N)
+    if feats.get("seg_kv"):
+        seg_q, seg_k = _ring_hop_ids(dev, B, N)
         kw["segment_ids"], kw["seg_kv"] = seg_q, seg_k
     if feats.get("causal"):
         kw["causal"] = True
@@ -2223,17 +2481,14 @@ def phase_kernels_bhnd_bwd(dev, smi: str) -> dict:
     for name, (B, H, N, D), feats in BHND_BWD_SHAPES:
         q, k, v, do, kw, mask = _bhnd_case(dev, B, H, N, D, feats, seqs)
 
-        def given_lse(lse):  # a ring's global lse: this hop's mass and another's
-            return torch.logaddexp(lse, lse - 0.7) if feats.get("global_lse") else lse
-
         with torch.no_grad():
             out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
-            lse = given_lse(lse)
+            lse = _given_lse(lse, feats)
             got = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw)
             q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
             out_p, lse_p = fa.flash_attention_bhnd_plain(q32, k32, v32, **kw)
-            want = fa.flash_attention_bhnd_bwd_plain(q32, k32, v32, out_p, given_lse(lse_p),
-                                                     do32, **kw)
+            want = fa.flash_attention_bhnd_bwd_plain(q32, k32, v32, out_p,
+                                                     _given_lse(lse_p, feats), do32, **kw)
             del q32, k32, v32, do32, out_p
             torch.cuda.synchronize()
             errs, ok = {}, True
@@ -2506,7 +2761,7 @@ def fp32_plain_fwd(q, k, v, rows=None, **kw):
     (those without RoPE: the tables follow the query rows)."""
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
-    assert not (rows and "rope_expanded" in kw), "RoPE runs whole rows"
+    assert not (rows and kw), "RoPE and the masks run whole rows"
     with _plain_in_query_chunks(rows) if rows else contextlib.nullcontext():
         return fa.flash_attention_bhnd_plain(q, k, v, **kw)
 
@@ -2517,7 +2772,7 @@ def fp32_plain_bwd(q, k, v, out, lse, do, rows=None, **kw):
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
     N = q.shape[2]
-    assert not (rows and "rope_expanded" in kw), "RoPE runs whole rows"
+    assert not (rows and kw), "RoPE and the masks run whole rows"
     rows = rows or N
     dq, dk, dv = [], torch.zeros_like(k), torch.zeros_like(v)
     for i in range(0, N, rows):
@@ -2530,12 +2785,13 @@ def fp32_plain_bwd(q, k, v, out, lse, do, rows=None, **kw):
     return torch.cat(dq, 2), dk, dv
 
 
-def sdpa_backend(q, k, v) -> str:
-    """The backend `F.scaled_dot_product_attention` picks for these operands."""
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend `F.scaled_dot_product_attention` picks for these operands
+    (and ``attn_mask`` or ``is_causal``)."""
     from torch.nn.attention import SDPBackend
 
     names = {int(b): name for name, b in SDPBackend.__members__.items()}
-    return names.get(int(torch._fused_sdp_choice(q, k, v)), "unknown")
+    return names.get(int(torch._fused_sdp_choice(q, k, v, **kw)), "unknown")
 
 
 def _fp32_errors(got, want) -> dict:
@@ -2563,16 +2819,45 @@ def _fp32_library_operands(q, k, v, do, kw):
     return q, k[:, :, :kv].contiguous(), v[:, :, :kv].contiguous(), do
 
 
+def _fp32_masks(dev, B, N, feats) -> dict:
+    """The segment ids or causal flag of an `FP32_SHAPES` row, as kwargs."""
+    if "ac" in feats:
+        frames, pad = feats["ac"]
+        return {"segment_ids": _ac_segments(dev, N, frames, pad)}
+    if feats.get("seg_kv"):
+        seg_q, seg_k = _ring_hop_ids(dev, B, N)
+        return {"segment_ids": seg_q, "seg_kv": seg_k}
+    if feats.get("causal"):
+        return {"causal": True}
+    if feats.get("ids") == "past 2**24":  # 4 frames, ids 2**24 and 2**24 + 1 in turn
+        seg = (1 << 24) + torch.arange(N, device=dev, dtype=torch.int32) // (N // 4) % 2
+        return {"segment_ids": seg}
+    if feats.get("ids") == "no key":  # queries of frame 0; keys of frames 1-4
+        seg = torch.arange(N, device=dev, dtype=torch.int32) // (N // 4)
+        return {"segment_ids": seg, "seg_kv": seg + 1}
+    return {}
+
+
+def _lse_errors(lse, want) -> dict:
+    """The largest |lse - plain| over the rows with a key, and whether lse is
+    -inf exactly where the plain version's is (the rows with none)."""
+    empty = torch.isneginf(want)
+    err = (lse - want)[~empty].abs().max().item() if not empty.all() else 0.0
+    return {"max_abs_err": err, "empty_rows": int(empty.sum().item()),
+            "empty_rows_match": bool(torch.equal(torch.isneginf(lse), empty))}
+
+
 def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
     """The fp32 BHND kernels (`csrc/flash_fp32.cuh`) against their plain
     versions at `FP32_SHAPES`, forward and backward (given the kernel's out
-    and lse), the plain version over query chunks where its scores do not
-    fit; each timed by CUDA events with its TFLOP/s over the (query, key)
-    pairs the masks leave and its bound (`PEAK_3XTF32`: fp32-accurate
-    products on the tensor cores), beside the plain version and
-    `F.scaled_dot_product_attention` on the same fp32 operands (TF32 off; q
-    and k pre-rotated, k and v cut to kv_valid), with the backend PyTorch
-    picked."""
+    and lse, or a ring's global lse), the plain version over query chunks
+    where its scores do not fit; each timed by CUDA events with its TFLOP/s
+    over the (query, key) pairs the masks leave and its bound
+    (`PEAK_3XTF32`: fp32-accurate products on the tensor cores), beside the
+    plain version and `F.scaled_dot_product_attention` on the same fp32
+    operands (TF32 off; q and k pre-rotated, k and v cut to kv_valid, the
+    segment ids as the equivalent boolean mask), with the backend PyTorch
+    picked. Rows with no key to attend: out 0, lse -inf and dq 0 there."""
     import torch.nn.functional as F
 
     from vjepa2_tpu_torch.ops import flash_attention as fa
@@ -2581,79 +2866,106 @@ def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
     for name, (B, H, N, D), feats in FP32_SHAPES:
         gen = torch.Generator(dev).manual_seed(0)
         q, k, v, do = (torch.randn(B, H, N, D, generator=gen, device=dev) for _ in range(4))
-        kw = {}
+        kw = _fp32_masks(dev, B, N, feats)
         if feats.get("rope"):
             kw["rope_expanded"] = _rope_tables(dev, B, N, D, feats["rope"], seqs)
         if "kv_valid_len" in feats:
             kw["kv_valid_len"] = feats["kv_valid_len"]
-        mask = pair_mask(B, N, N, dev, kw.get("kv_valid_len"))
+        seg_q = kw.get("segment_ids")
+        seg_q = None if seg_q is None else seg_q.expand(B, N)
+        seg_k = kw.get("seg_kv", seg_q)
+        seg_k = None if seg_k is None else seg_k.expand(B, N)
+        mask = pair_mask(B, N, N, dev, kw.get("kv_valid_len"), seg_q, seg_k,
+                         kw.get("causal", False))
         rows = _plain_rows(B, H, N, N)
         pairs = attended_pairs(B, H, N, N, mask)
+        kinds = ("fwd",) if feats.get("fwd_only") else ("fwd", "bwd")
         flops = {"fwd": 4 * D * pairs, "bwd": 10 * D * pairs}
         iters = {kind: max(2, min(20, int(4e12 / f))) for kind, f in flops.items()}
         with torch.no_grad():
             out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
-            grads = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw)
             out_p, lse_p = fp32_plain_fwd(q, k, v, rows, **kw)
-            want = fp32_plain_bwd(q, k, v, out, lse, do, rows, **kw)
+            glse = _given_lse(lse, feats)
+            errs = {"fwd": {"out": _fp32_errors(out, out_p)}}
+            lse_errs = _lse_errors(lse, lse_p)
+            empty = torch.isneginf(lse_p)
+            empty_ok = not out[empty].any()
+            grads = None
+            if "bwd" in kinds:
+                grads = fa.flash_attention_bhnd_bwd(q, k, v, out, glse, do, **kw)
+                want = fp32_plain_bwd(q, k, v, out, glse, do, rows, **kw)
+                errs["bwd"] = {n_: _fp32_errors(g, w)
+                               for n_, g, w in zip(("dq", "dk", "dv"), grads, want)}
+                empty_ok = empty_ok and not grads[0][empty].any()
+                del want
             torch.cuda.synchronize()
-            errs = {"fwd": {"out": _fp32_errors(out, out_p)},
-                    "bwd": {n_: _fp32_errors(g, w)
-                            for n_, g, w in zip(("dq", "dk", "dv"), grads, want)}}
-            lse_err = (lse - lse_p).abs().max().item()
             kv = kw.get("kv_valid_len") or N
-            zero_past_kv = not (grads[1][:, :, kv:].any() or grads[2][:, :, kv:].any())
-            del out_p, lse_p, want
-            ms = {"fwd": cuda_ms(lambda: fa.flash_attention_bhnd(q, k, v, **kw), iters["fwd"]),
-                  "bwd": cuda_ms(lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw),
-                                 iters["bwd"])}
-            plain_ms = {"fwd": cuda_ms(lambda: fp32_plain_fwd(q, k, v, rows, **kw), 1, warmup=1),
-                        "bwd": cuda_ms(lambda: fp32_plain_bwd(q, k, v, out, lse, do, rows, **kw),
-                                       1, warmup=1)}
+            zero_past_kv = grads is None or not (grads[1][:, :, kv:].any()
+                                                 or grads[2][:, :, kv:].any())
+            del out_p, lse_p
+            ms = {"fwd": cuda_ms(lambda: fa.flash_attention_bhnd(q, k, v, **kw), iters["fwd"])}
+            plain_ms = {"fwd": cuda_ms(lambda: fp32_plain_fwd(q, k, v, rows, **kw), 1, warmup=1)}
+            if "bwd" in kinds:
+                ms["bwd"] = cuda_ms(
+                    lambda: fa.flash_attention_bhnd_bwd(q, k, v, out, glse, do, **kw),
+                    iters["bwd"])
+                plain_ms["bwd"] = cuda_ms(
+                    lambda: fp32_plain_bwd(q, k, v, out, glse, do, rows, **kw), 1, warmup=1)
             lq, lk, lv, ldo = _fp32_library_operands(q, k, v, do, kw)
-            backend = sdpa_backend(lq, lk, lv)
+            lib_kw = ({"is_causal": True} if kw.get("causal") else
+                      {"attn_mask": mask} if seg_q is not None else {})
+            backend = sdpa_backend(lq, lk, lv, **lib_kw)
         library_ms = {"fwd": None, "bwd": None}
         if backend != "MATH" or rows is None:  # the math backend would hold whole scores
             with torch.no_grad():
-                library_ms["fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv),
-                                            iters["fwd"])
-            leaves = [t.detach().requires_grad_() for t in (lq, lk, lv)]
-            with torch.enable_grad():
-                ref = F.scaled_dot_product_attention(*leaves)
-                library_ms["bwd"] = cuda_ms(
-                    lambda: torch.autograd.grad(ref, leaves, ldo, retain_graph=True),
-                    iters["bwd"])
-            del ref, leaves
+                library_ms["fwd"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(lq, lk, lv, **lib_kw), iters["fwd"])
+            if "bwd" in kinds:
+                leaves = [t.detach().requires_grad_() for t in (lq, lk, lv)]
+                with torch.enable_grad():
+                    ref = F.scaled_dot_product_attention(*leaves, **lib_kw)
+                    library_ms["bwd"] = cuda_ms(
+                        lambda: torch.autograd.grad(ref, leaves, ldo, retain_graph=True),
+                        iters["bwd"])
+                del ref, leaves
         del lq, lk, lv, ldo
-        side = kw.get("rope_expanded", ())
+        side = [*kw.get("rope_expanded", ()), *(t for t in (seg_q, seg_k) if t is not None)]
         sizes = {"fwd": nbytes(q, k, v, out, lse, *side),
-                 "bwd": nbytes(q, k, v, out, do, lse, *side, *grads)}
+                 "bwd": nbytes(q, k, v, out, do, lse, *side, *(grads or ()))}
         for i, (kernel, kind) in enumerate((("flash_fwd_fp32", "fwd"),
                                             ("flash_bwd_fp32", "bwd"))):
+            if kind not in kinds:
+                continue
             bound_ms, bound_by = bound(flops[kind], sizes[kind], PEAK_3XTF32)
-            ok = all(_fp32_ok(e) for e in errs[kind].values()) and (
-                lse_err <= FP32_LSE_ATOL if kind == "fwd" else zero_past_kv)
+            ok = all(_fp32_ok(e) for e in errs[kind].values()) and empty_ok and (
+                lse_errs["max_abs_err"] <= FP32_LSE_ATOL and lse_errs["empty_rows_match"]
+                if kind == "fwd" else zero_past_kv)
             rec = {"phase": "kernel_fp32", "kernel": kernel, "shape": name,
-                   "bhnd": [B, H, N, D], "features": sorted(kw),
+                   "bhnd": [B, H, N, D], "features": sorted(kw) + (
+                       ["global lse"] if kind == "bwd" and feats.get("global_lse") else []),
                    "kv_valid": kw.get("kv_valid_len"), "ms": ms[kind], "iters": iters[kind],
                    "plain_ms": plain_ms[kind], "plain_query_chunk": rows,
                    "library_ms": library_ms[kind],
-                   "library": f"F.scaled_dot_product_attention fp32, TF32 off ({backend})",
+                   "library": f"F.scaled_dot_product_attention fp32, TF32 off ({backend}"
+                              f"{', boolean mask' if 'attn_mask' in lib_kw else ''})",
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "tflops": flops[kind] / ms[kind] / 1e9, "bound_share": bound_ms / ms[kind],
-                   "errors": errs[kind],
+                   "attended_pairs": pairs, "errors": errs[kind],
                    "max_abs_err": max(e["max_abs_err"] for e in errs[kind].values()),
                    "tol": {"rel_l2": FP32_REL_L2, "max_abs": f"{FP32_MAX_ABS}*max|plain|"},
                    "ok": ok, "gpu": smi}
+            if lse_errs["empty_rows"]:
+                rec["rows_with_no_key"] = {"rows": lse_errs["empty_rows"], "zero": empty_ok}
             if kind == "fwd":
-                rec.update(max_abs_err_lse=lse_err, tol_lse=FP32_LSE_ATOL)
+                rec.update(max_abs_err_lse=lse_errs["max_abs_err"], tol_lse=FP32_LSE_ATOL,
+                           lse_neg_inf_where_plain=lse_errs["empty_rows_match"])
             else:
                 rec.update(dk_dv_zero_past_kv_valid=zero_past_kv)
             emit(rec)
             if not ok:
                 raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
             firsts[i] = firsts[i] or rec
-        del q, k, v, do, out, lse, grads
+        del q, k, v, do, out, lse, glse, grads
         torch.cuda.empty_cache()
     return firsts[0], firsts[1]
 
@@ -2796,12 +3108,38 @@ def _plan_ok(plan: np.ndarray, cfg) -> bool:
                 and ((grip == 0) | (grip >= 0.25)).all())
 
 
+# Phase plan's fp32 CPU world model, shared with plan_fp32: {"weights":
+# the hub model's weights on the host (phase plan's; plan_fp32 checks that
+# its parameters equal them), "frames", "pose", "acts", "poses": the inputs,
+# "wm": the CPU world model and "ref_rep" its encode of frame 0 (built by
+# phase plan's check on `_CPU_WORK`, dropped by plan_fp32's after it)}
+_PLAN_CPU: dict = {}
+
+
+def _cpu_steps(wm_cpu, rep, goal, acts, poses) -> list:
+    """step_fn on the CPU at T = 1 and 2 over the latents (rep, goal)."""
+    with torch.inference_mode():
+        seq = torch.cat([rep, goal])
+        return [wm_cpu.step_fn(seq[:T * 256][None].expand(PLAN_CANDIDATES, -1, -1),
+                               acts[:, :T], poses[:, :T]) for T in (1, 2)]
+
+
+def _card_steps(wm, rep, goal, acts, poses) -> list:
+    """step_fn on the card at T = 1 and 2 over the latents, read back."""
+    dev = wm.device
+    with torch.inference_mode():
+        seq = torch.cat([rep, goal])
+        return [wm.step_fn(seq[:T * 256][None].expand(PLAN_CANDIDATES, -1, -1),
+                           acts[:, :T].to(dev), poses[:, :T].to(dev)).cpu() for T in (1, 2)]
+
+
 def phase_plan(dev, smi: str) -> tuple[int, ...]:
     """CEM planning over the V-JEPA 2-AC world model: `vjepa2_ac_vit_giant()`
     with no argument (card, bf16, weights drawn after `torch.manual_seed(0)`)
     in a `WorldModel`: two encodes (start and goal frames, 256 px), 1 warm-up
     and `PLAN_TIMED` plans at `CEMConfig()`, one traced plan; then the CPU
-    checks. Returns the launches of the counted encodes and plans."""
+    checks on `_CPU_WORK` beside the later phases (the record prints when
+    they end). Returns the launches of the counted encodes and plans."""
     import torch.nn.functional as F
 
     from vjepa2_tpu_torch.hub.backbones import vjepa2_ac_vit_giant
@@ -2859,12 +3197,8 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
     # as frames), on the card
     acts = torch.from_numpy(rs.uniform(-0.05, 0.05, (PLAN_CANDIDATES, 2, 7)).astype(np.float32))
     poses = torch.from_numpy(rs.uniform(-0.3, 0.3, (PLAN_CANDIDATES, 2, 7)).astype(np.float32))
-    with torch.inference_mode():
-        seq = torch.cat([rep, goal])
-        card_steps = [wm.step_fn(seq[:T * 256][None].expand(PLAN_CANDIDATES, -1, -1),
-                                 acts[:, :T].to(dev), poses[:, :T].to(dev)).cpu()
-                      for T in (1, 2)]
-        card_rep = rep.cpu()
+    card_steps = _card_steps(wm, rep, goal, acts, poses)
+    card_rep, card_goal = rep.cpu(), goal.cpu()
     # the CEM update on device tensors against the CPU: the linear world
     # model, one sampler's draws, CEMConfig's defaults
     draws = rs.randn(cfg.cem_steps, cfg.rollout, cfg.samples, 4).astype(np.float32)
@@ -2875,57 +3209,161 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
                      sampler=lambda step, h: torch.from_numpy(draws[step, h])).cpu()
                  for d in (dev, "cpu")]
     cem_err = (lin_plans[0] - lin_plans[1]).abs().max().item()
-    weights = [{k: v.detach().to("cpu", copy=True) for k, v in m.state_dict().items()}
-               for m in (enc, pred)]
+    _PLAN_CPU.update(weights=[{k: v.detach().to("cpu", copy=True)
+                               for k, v in m.state_dict().items()} for m in (enc, pred)],
+                     frames=frames, pose=pose, acts=acts, poses=poses)
     del wm, enc, pred
+    record = {"phase": "plan",
+              "model": "vjepa2_ac_vit_giant(): vit_giant_xformers (40 x 1408, 22 heads of 64) + "
+                       "AC predictor (24 x 1024, 16 heads of 64), bf16, RoPE, random weights",
+              "cem": {k: getattr(cfg, k) for k in cfg.__dataclass_fields__},
+              "ms_per_encode": [enc_ms0, enc_ms1], "median_ms_per_encode": max(enc_ms0, enc_ms1),
+              "ms_per_plan": plan_ms, "median_ms_per_plan": sorted(plan_ms)[len(plan_ms) // 2],
+              "warmup_plans": 1, "one_traced_plan": traced, "peak_memory_gb": peak_gb,
+              "launches_per_encode": dict(zip(KERNEL_COUNTS, ENCODE_LAUNCHES)),
+              "launches_per_plan": dict(zip(KERNEL_COUNTS, PLAN_LAUNCHES)),
+              "plans": [p.tolist() for p in plans], "plans_ok": plans_ok,
+              "repeat_bit_equal": repeat_equal, "cem_update_max_abs_err_vs_cpu": cem_err,
+              "tol": {"rel_l2": PLAN_REL_L2, "cem_update": CEM_UPDATE_ATOL},
+              "setup_s": setup_s, "card_s": time.perf_counter() - t0, "gpu": smi}
 
-    # the same weights in fp32 on the CPU (built on the meta device, then
-    # given the card's weights), the same inputs
-    torch.set_num_threads(os.cpu_count() or 1)
-    t2 = time.perf_counter()
-    enc_cpu, pred_cpu = vjepa2_ac_vit_giant(device="meta")
-    enc_cpu.load_state_dict(weights[0], assign=True)
-    pred_cpu.load_state_dict(weights[1], assign=True)
-    del weights
-    wm_cpu = WorldModel(enc_cpu, pred_cpu, tokens_per_frame(enc_cpu))
-    ref_rep = wm_cpu.encode(frames[0])
-    with torch.inference_mode():
-        seq = torch.cat([card_rep, goal.cpu()])
-        cpu_steps = [wm_cpu.step_fn(seq[:T * 256][None].expand(PLAN_CANDIDATES, -1, -1),
-                                    acts[:, :T], poses[:, :T]) for T in (1, 2)]
-    cpu_s = time.perf_counter() - t2
-    del wm_cpu, enc_cpu, pred_cpu
+    def finish() -> None:
+        # the same weights in fp32 on the CPU (built on the meta device, then
+        # given the card's weights), the same inputs
+        torch.set_num_threads(os.cpu_count() or 1)
+        t2 = time.perf_counter()
+        enc_cpu, pred_cpu = vjepa2_ac_vit_giant(device="meta")
+        enc_cpu.load_state_dict(_PLAN_CPU["weights"][0], assign=True)
+        pred_cpu.load_state_dict(_PLAN_CPU["weights"][1], assign=True)
+        wm_cpu = WorldModel(enc_cpu, pred_cpu, tokens_per_frame(enc_cpu))
+        ref_rep = wm_cpu.encode(frames[0])
+        cpu_steps = _cpu_steps(wm_cpu, card_rep, card_goal, acts, poses)
+        _PLAN_CPU.update(wm=wm_cpu, ref_rep=ref_rep)
+        enc_rel = _rel_l2(card_rep, ref_rep)
+        step_rel = [_rel_l2(c, r) for c, r in zip(card_steps, cpu_steps)]
+        ok = (reps_ok and plans_ok and repeat_equal and enc_rel <= PLAN_REL_L2
+              and max(step_rel) <= PLAN_REL_L2 and cem_err <= CEM_UPDATE_ATOL)
+        emit({**record, "encode_rel_l2_vs_cpu_fp32": enc_rel,
+              "step_fn_rel_l2_vs_cpu_fp32": {"T1": step_rel[0], "T2": step_rel[1],
+                                             "candidates": PLAN_CANDIDATES},
+              "cpu_reference_s": time.perf_counter() - t2, "ok": ok})
+        if not ok:
+            raise AssertionError(f"plan: encode {enc_rel} / step_fn {step_rel} rel L2, CEM "
+                                 f"update {cem_err}, plans ok {plans_ok}, repeat equal "
+                                 f"{repeat_equal}")
 
-    def rel(got, want):
-        return ((got.float() - want).norm() / want.norm()).item()
+    _DEFERRED.append(_CPU_WORK.submit(finish))
+    return tuple(total)
 
-    enc_rel = rel(card_rep, ref_rep)
-    step_rel = [rel(c, r) for c, r in zip(card_steps, cpu_steps)]
-    ok = (reps_ok and plans_ok and repeat_equal and enc_rel <= PLAN_REL_L2
-          and max(step_rel) <= PLAN_REL_L2 and cem_err <= CEM_UPDATE_ATOL)
-    med = sorted(plan_ms)[len(plan_ms) // 2]
-    emit({"phase": "plan",
-          "model": "vjepa2_ac_vit_giant(): vit_giant_xformers (40 x 1408, 22 heads of 64) + AC "
-                   "predictor (24 x 1024, 16 heads of 64), bf16, RoPE, random weights",
-          "cem": {k: getattr(cfg, k) for k in cfg.__dataclass_fields__},
-          "ms_per_encode": [enc_ms0, enc_ms1], "median_ms_per_encode": max(enc_ms0, enc_ms1),
-          "ms_per_plan": plan_ms,
-          "median_ms_per_plan": med, "warmup_plans": 1, "one_traced_plan": traced,
-          "peak_memory_gb": peak_gb,
-          "launches_per_encode": dict(zip(KERNEL_COUNTS, ENCODE_LAUNCHES)),
-          "launches_per_plan": dict(zip(KERNEL_COUNTS, PLAN_LAUNCHES)),
-          "plans": [p.tolist() for p in plans], "plans_ok": plans_ok,
-          "repeat_bit_equal": repeat_equal,
-          "encode_rel_l2_vs_cpu_fp32": enc_rel,
-          "step_fn_rel_l2_vs_cpu_fp32": {"T1": step_rel[0], "T2": step_rel[1],
-                                         "candidates": PLAN_CANDIDATES},
-          "cem_update_max_abs_err_vs_cpu": cem_err,
-          "tol": {"rel_l2": PLAN_REL_L2, "cem_update": CEM_UPDATE_ATOL},
-          "setup_s": setup_s, "cpu_reference_s": cpu_s, "seconds": time.perf_counter() - t0,
-          "ok": ok, "gpu": smi})
-    if not ok:
-        raise AssertionError(f"plan: encode {enc_rel} / step_fn {step_rel} rel L2, CEM update "
-                             f"{cem_err}, plans ok {plans_ok}, repeat equal {repeat_equal}")
+
+def phase_plan_fp32(dev, smi: str) -> tuple[int, ...]:
+    """CEM planning at JAX's default precision: `vjepa2_ac_vit_giant(dtype=
+    torch.float32)` after `torch.manual_seed(0)` (phase plan's weights, bit
+    for bit) in a `WorldModel`: two encodes (`ENCODE_FP32_LAUNCHES` each), a
+    warm-up plan at `PLAN_FP32_CUT_STEPS` CEM steps, one timed plan at
+    `CEMConfig()` with `PLAN_FP32_STEPS` CEM steps (`PLAN_FP32_LAUNCHES`), the
+    warm-up's repeat traced and bit-equal to it; no op of an encode or a
+    step_fn makes a bf16 tensor.
+    encode and step_fn (phase plan's candidates, on this phase's latents)
+    against phase plan's fp32 CPU world model within `PLAN_FP32_REL_L2`, on
+    `_CPU_WORK` after phase plan's checks. Returns the launches of the
+    counted encodes and plan."""
+    import dataclasses
+
+    from vjepa2_tpu_torch.hub.backbones import vjepa2_ac_vit_giant
+    from vjepa2_tpu_torch.planning import CEMConfig, WorldModel
+    from vjepa2_tpu_torch.train.droid import tokens_per_frame
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.manual_seed(0)
+    enc, pred = vjepa2_ac_vit_giant(dtype=torch.float32)
+    cfg = dataclasses.replace(CEMConfig(), cem_steps=PLAN_FP32_STEPS)
+    wm = WorldModel(enc, pred, tokens_per_frame(enc), cem_config=cfg)
+    cut = WorldModel(enc, pred, tokens_per_frame(enc),
+                     cem_config=dataclasses.replace(cfg, cem_steps=PLAN_FP32_CUT_STEPS))
+    same = all(torch.equal(v.detach().cpu(), w[k])
+               for m, w in zip((enc, pred), _PLAN_CPU["weights"])
+               for k, v in m.named_parameters())
+    dtypes = {"compute": sorted({str(m.dtype) for m in (enc, pred)}), "parameters": sorted(
+        {str(p.dtype) for m in (enc, pred) for p in m.parameters()})}
+    frames, pose, acts, poses = (_PLAN_CPU[k] for k in ("frames", "pose", "acts", "poses"))
+    setup_s = time.perf_counter() - t0
+    total = [0] * len(KERNEL_COUNTS)
+
+    def counted(fn, want, what):
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        launched = _launch_counts()
+        if launched != want:
+            raise AssertionError(f"{what} launched {dict(zip(KERNEL_COUNTS, launched))}, want "
+                                 f"{dict(zip(KERNEL_COUNTS, want))}")
+        total[:] = [a + b for a, b in zip(total, launched)]
+        return out, ms
+
+    def plan(model, seed):
+        return model.infer_next_action(rep, pose, goal,
+                                       generator=torch.Generator(dev).manual_seed(seed))
+
+    _, encode_bf16_ops = _no_bf16(lambda: wm.encode(frames[0]))  # also the warm-up
+    (rep, enc_ms0), (goal, enc_ms1) = (
+        counted(lambda: wm.encode(f), ENCODE_FP32_LAUNCHES, "an fp32 encode") for f in frames)
+    reps_ok = all(r.shape == (256, enc.embed_dim) and r.dtype == torch.float32
+                  and bool(torch.isfinite(r).all()) for r in (rep, goal))
+    warm = plan(cut, 0)
+    timed, plan_ms = counted(lambda: plan(wm, 0), PLAN_FP32_LAUNCHES, "an fp32 plan")
+    repeat = []
+    traced = wall_and_busy(lambda: repeat.append(plan(cut, 0)))
+    repeat_equal = bool(np.array_equal(repeat[0], warm))
+    plans_ok = all(_plan_ok(p, cfg) for p in (timed, warm, repeat[0]))
+    card_steps, steps_bf16_ops = _no_bf16(lambda: _card_steps(wm, rep, goal, acts, poses))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    card_rep, card_goal = rep.cpu(), goal.cpu()
+    del wm, cut, enc, pred, rep, goal
+    record = {"phase": "plan_fp32",
+              "model": "vjepa2_ac_vit_giant(dtype=torch.float32): vit_giant_xformers (40 x 1408, "
+                       "22 heads of 64) + AC predictor (24 x 1024, 16 heads of 64), fp32 (TF32 "
+                       "off), RoPE, phase plan's random weights",
+              "cem": {k: getattr(cfg, k) for k in cfg.__dataclass_fields__},
+              "cut": {"timed_plan_cem_steps": PLAN_FP32_STEPS,
+                      "of": CEMConfig().cem_steps,
+                      "warmup_and_repeat_cem_steps": PLAN_FP32_CUT_STEPS},
+              "same_weights_as_phase_plan": same, "dtypes": dtypes,
+              "bf16_ops": {"encode": encode_bf16_ops, "step_fn": steps_bf16_ops},
+              "ms_per_encode": [enc_ms0, enc_ms1], "median_ms_per_encode": max(enc_ms0, enc_ms1),
+              "ms_per_plan": plan_ms, "one_traced_cut_plan": traced, "peak_memory_gb": peak_gb,
+              "launches_per_encode": dict(zip(KERNEL_COUNTS, ENCODE_FP32_LAUNCHES)),
+              "launches_per_plan": dict(zip(KERNEL_COUNTS, PLAN_FP32_LAUNCHES)),
+              "plan": timed.tolist(), "plans_ok": plans_ok, "cut_repeat_bit_equal": repeat_equal,
+              "tol": {"rel_l2": PLAN_FP32_REL_L2}, "setup_s": setup_s,
+              "card_s": time.perf_counter() - t0, "gpu": smi}
+    if not same:
+        raise AssertionError("plan_fp32: the fp32 hub model's weights are not phase plan's")
+
+    def finish() -> None:  # after phase plan's check, which built the CPU world model
+        wm_cpu, ref_rep = _PLAN_CPU["wm"], _PLAN_CPU["ref_rep"]
+        t2 = time.perf_counter()
+        cpu_steps = _cpu_steps(wm_cpu, card_rep, card_goal, acts, poses)
+        _PLAN_CPU.clear()
+        enc_rel = _rel_l2(card_rep, ref_rep)
+        step_rel = [_rel_l2(c, r) for c, r in zip(card_steps, cpu_steps)]
+        ok = (reps_ok and plans_ok and repeat_equal and enc_rel <= PLAN_FP32_REL_L2
+              and max(step_rel) <= PLAN_FP32_REL_L2
+              and not (encode_bf16_ops or steps_bf16_ops))
+        emit({**record, "encode_rel_l2_vs_cpu_fp32": enc_rel,
+              "step_fn_rel_l2_vs_cpu_fp32": {"T1": step_rel[0], "T2": step_rel[1],
+                                             "candidates": PLAN_CANDIDATES},
+              "cpu_reference_s": time.perf_counter() - t2, "ok": ok})
+        if not ok:
+            raise AssertionError(f"plan_fp32: encode {enc_rel} / step_fn {step_rel} rel L2, "
+                                 f"plans ok {plans_ok}, repeat equal {repeat_equal}, bf16 ops "
+                                 f"{encode_bf16_ops or steps_bf16_ops}")
+
+    _DEFERRED.append(_CPU_WORK.submit(finish))
     return tuple(total)
 
 
@@ -3892,7 +4330,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     rec_bhnd_bwd = timed("kernel_bhnd_bwd", phase_kernels_bhnd_bwd, dev, smi)
     rec_fp32, rec_fp32_bwd = timed("kernel_fp32", phase_kernels_fp32, dev, smi)
     fp32_l = timed("train_fp32", phase_train_fp32, dev, smi)
-    train_h = timed("train_huge", phase_train, dev, smi, "vit_huge")
+    train_h = timed("train_huge", phase_train, dev, smi, "vit_huge", True)
     giant_launches = timed("encode_giant", phase_encode_giant, dev, smi)
     timed("entry", phase_entry, dev, smi)
     rec_ln_fwd, rec_ln_bwd = timed("kernel_ln", phase_kernels_ln, dev, smi)
@@ -3901,8 +4339,11 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     fused_l, unfused_l = timed("train_fused", phase_train_fused, dev, smi)
     loop_l = timed("train_loop", phase_train_loop, dev, smi)
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
+    _DEFERRED.extend(_CPU_WORK.submit(job) for job in _CPU_LATER)  # beside device-bound phases
+    droid_fp32_l = timed("train_droid_fp32", phase_train_droid_fp32, dev, smi)
     droid_l = timed("train_droid", phase_train_droid, dev, smi)
     plan_l = timed("plan", phase_plan, dev, smi)
+    plan_fp32_l = timed("plan_fp32", phase_plan_fp32, dev, smi)
     export_l = timed("export", phase_export, dev, smi, exports, export_root)
     # the device-bound eval steps first, so that the CPU references each
     # phase leaves to `_CPU_WORK` run beside card work that does not time
@@ -3914,12 +4355,12 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     t_wait = time.perf_counter()
     for done in _DEFERRED:
         done.result()  # raises a deferred check's failure
-    seconds["eval CPU references, after the last phase"] = time.perf_counter() - t_wait
+    seconds["CPU references, after the last phase"] = time.perf_counter() - t_wait
     emit({"phase": "seconds", "phases": seconds, "total": time.perf_counter() - t_start})
     # every main-path run's launches, in the order of KERNEL_COUNTS
     total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
                                  accum_l, droid_l, plan_l, export_l, eval_v, eval_a, eval_i,
-                                 eval_384, fp32_l)]
+                                 eval_384, fp32_l, droid_fp32_l, plan_fp32_l)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):
@@ -3949,13 +4390,15 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
         entry("flash_fwd_fp32", FP32_FWD_SOURCE, FP32_FWD_REPLACES, total[8], rec_fp32,
               "max_abs_err", library=rec_fp32["library"],
               note="B3 on fp32 operands (the frozen probes' self-attention; the fp32 "
-                   "pretrain step's, with RoPE and kv_valid): 3xTF32 on wgmma, after the "
-                   "split pre-pass (flash_fp32_split.cu), which rotates q and k"),
+                   "pretrain step's, with RoPE and kv_valid; the fp32 AC predictor's in the "
+                   "DROID step and the CEM plan, with frame-causal segment ids): 3xTF32 on "
+                   "wgmma, after the split pre-pass (flash_fp32_split.cu), which rotates q "
+                   "and k; segment ids, seg_kv and the causal mask masked on the scores"),
         entry("flash_bwd_fp32", FP32_BWD_SOURCE, FP32_BWD_REPLACES, total[9], rec_fp32_bwd,
               "max_abs_err", library=rec_fp32_bwd["library"],
               note="B4 and B5 (flash_attention.py:361, :434) on fp32 operands: the split "
                    "pre-pass, dQ (flash_fp32_dq.cu), then dK/dV (flash_fp32_dkdv.cu), the "
-                   "RoPE adjoint in their epilogues")]})
+                   "RoPE adjoint in their epilogues, p 0 where the masks say")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,8 +16,11 @@ JAX runs its XLA attention (``use_flash=False``): on the CPU its AC layer
 would take the BHND Pallas route with interleaved tables, and
 `tests/models/test_flash_integration.py` already holds that to the XLA one.
 The port runs its flash route (B1/B2's plain versions through
-`FlashAttentionDN`, split-half tables) and its plain route: the same
-function, compared by outputs and gradients only.
+`FlashAttentionDN`, split-half tables), the route fp32 takes on the card
+(every head width on the BHND kernels' plain versions with the frame-causal
+ids and the pad keys on int32-max: `dn_head_eligible` patched to refuse
+every width, the DN entry refused) and its plain route: the same function,
+compared by outputs and gradients only.
 
 Tolerance: JAX's own AC tolerance, atol 3e-5 and rtol 2e-4 on outputs and
 on every gradient (`tests/models/test_flash_integration.py:49`); the tables
@@ -170,10 +173,23 @@ def _jax_predictor(extrinsics):
     return jax_ac_predictor(**PRED, num_frames=8, tubelet_size=2, use_extrinsics=extrinsics)
 
 
+def bhnd_route(monkeypatch):
+    """The route an fp32 `Attention` takes on the card: no head width to the
+    DN kernels, so every flash call goes to `flash_attention_bhnd`."""
+    def refused(*args, **kwargs):
+        raise AssertionError("the DN route ran")
+
+    monkeypatch.setattr(tm, "dn_head_eligible", lambda d: False)
+    monkeypatch.setattr(tm, "attend_bhdn", refused)
+
+
 @pytest.mark.parametrize("T", [3, 4])
 @pytest.mark.parametrize("extrinsics", [False, True], ids=["as", "ase"])
-@pytest.mark.parametrize("use_flash", [True, False], ids=["dn", "plain"])
-def test_predictor_matches_jax(use_flash, extrinsics, T):
+@pytest.mark.parametrize("route", ["dn", "bhnd", "plain"])
+def test_predictor_matches_jax(route, extrinsics, T, monkeypatch):
+    if route == "bhnd":
+        bhnd_route(monkeypatch)
+    use_flash = route != "plain"
     x, a, s, e, cot = _pred_inputs(T, extrinsics)
     jpred = _jax_predictor(extrinsics)
     inputs = [x, a, s] + ([e] if extrinsics else [])

@@ -232,14 +232,29 @@ def test_refusals(tmp_path, overrides, match):
                           device="cpu")
 
 
-def test_fp32_on_the_card_is_refused(tmp_path, monkeypatch):
-    """The AC predictor's frame-causal segment ids have no fp32 kernel yet:
-    fp32 on the card is refused, naming ROADMAP queue B."""
+class _Built(Exception):
+    """Raised in place of building the models: the trainer got that far."""
+
+
+def test_fp32_on_the_card_builds(tmp_path, monkeypatch):
+    """An fp32 config on the card (a card faked here): the `DroidTrainer`
+    refuses nothing and builds its models in fp32 on the card with the
+    flash routes (the fp32 flash kernels take the AC predictor's
+    frame-causal segment ids)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    built = {}
+
+    def build_droid_models(**kw):
+        built.update(kw)
+        raise _Built
+
+    monkeypatch.setattr(loop, "build_droid_models", build_droid_models)
     raw = _raw(tmp_path / "run")
     assert raw["meta"]["dtype"] == "float32"
-    with pytest.raises(NotImplementedError, match="segment ids.*queue B"):
+    with pytest.raises(_Built):
         loop.DroidTrainer(PretrainConfig.from_dict(raw), device="cuda")
+    assert built["dtype"] == torch.float32 and built["device"] == torch.device("cuda")
+    assert built["use_flash"] and built["use_rope"]
 
 
 def test_without_a_device_the_cli_fails_on_entry_device(tmp_path, monkeypatch):

@@ -26,6 +26,18 @@ def test_hub_factories_raise_without_cuda(no_cuda, factory):
         getattr(backbones, factory)()
 
 
+def test_hub_dtype_none_is_bf16_on_the_card_and_fp32_on_the_cpu(monkeypatch):
+    """A documented difference: JAX's factories build in fp32 when ``dtype``
+    is not given (`vjepa2_tpu/hub/backbones.py:46`, `:92`); the port's build
+    in bf16 on the card, which its bf16 kernels serve fastest, and in fp32 on
+    the CPU. ``dtype=torch.float32`` on the card is taken as given (the fp32
+    flash kernels)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert backbones._placement("cuda", None) == (torch.device("cuda"), torch.bfloat16)
+    assert backbones._placement("cuda", torch.float32) == (torch.device("cuda"), torch.float32)
+    assert backbones._placement("cpu", None) == (torch.device("cpu"), torch.float32)
+
+
 def test_build_models_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tp.build_models("vit_huge", crop_size=256, num_frames=16, pred_num_heads=12)

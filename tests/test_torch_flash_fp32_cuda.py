@@ -12,8 +12,13 @@ view (copied, still launched), two calls bit-equal forward and backward,
 the pretrain step's features (split-half RoPE tables, shared and per
 example, and kv_valid in {1, M - 1, M - 63} at every width and at N in
 {1, 63, 64, 65, 2048}, on qkv views too; dk and dv exactly zero past
-kv_valid), the features the fp32 kernels still refuse (segment ids, causal:
-ROADMAP queue B) and mixed dtypes, bf16 calls still on the bf16 kernels (the
+kv_valid), segment ids (the AC predictor's frame-causal ids with pad keys
+on int32-max, random ids per example), ids at 2**24 and 2**24 + 1 (which
+must stay apart), a ring hop's key-side ids with a given lse, the causal
+mask (N = M, N < M, N > M), rows with no key to attend (out 0, lse -inf, no
+gradient), two calls with segments bit-equal, and the masked kernels' tile
+plan built on the card against its plain version; mixed dtypes refused,
+bf16 calls still on the bf16 kernels (the
 launch counters), and `Attention` (rope-free, and with RoPE and kv_valid at
 heads of 32 and 64 with per-example tables, as the predictor and the masked
 encoder run it) and a `ProbeGrid` on the card taking the fp32 route.
@@ -58,6 +63,14 @@ def _randn(shape, dev, seed, dtype=torch.float32):
     return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
 
 
+def _lse_close(lse, want, tol):
+    """lse within ``tol``; -inf exactly where the plain version has it (a row
+    with no key to attend)."""
+    empty = torch.isneginf(want)
+    assert torch.equal(torch.isneginf(lse), empty)
+    assert (lse - want)[~empty].abs().max().item() <= tol
+
+
 def _close(got, want, name):
     got, want = got.double(), want.double()
     rel = ((got - want).norm() / want.norm()).item()
@@ -82,7 +95,7 @@ def _check(q, k, v, do, lse_tol=LSE_ATOL, **kw):
     assert (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32) == (before[0] + 1, before[1] + 1)
     assert out.dtype == lse.dtype == torch.float32
     _close(out, out_p, "out")
-    assert (lse - lse_p).abs().max().item() <= lse_tol
+    _lse_close(lse, lse_p, lse_tol)
     keys = kw.get("kv_valid_len") or k.shape[2]
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
@@ -248,17 +261,140 @@ def test_fp32_two_calls_are_bit_equal(dev, D):
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
-@pytest.mark.parametrize("feature", ["segments", "causal"])
-def test_fp32_refuses_the_features_it_lacks(dev, feature):
-    q, k, v = (_randn((1, 2, 64, 64), dev, s) for s in range(3))
-    kw = {"segments": dict(segment_ids=torch.zeros(64, dtype=torch.int32, device=dev)),
-          "causal": dict(causal=True)}[feature]
-    before = fa.LAUNCHES_FP32
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
-        fa.flash_attention_bhnd(q, k, v, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
-        fa.flash_attention_bhnd_bwd(q, k, v, q, torch.zeros(1, 2, 64, device=dev), q, **kw)
-    assert fa.LAUNCHES_FP32 == before
+def _frame_ids(dev, frames, tokens, pad):
+    """The AC predictor's frame-causal ids: ``frames`` groups of ``tokens``,
+    then ``pad`` pad tokens on `PAD_SEGMENT` (int32-max)."""
+    return tm.frame_segments(frames, tokens, dev, pad)
+
+
+@pytest.mark.parametrize("frames,tokens,pad", [(1, 258, 6), (2, 258, 4), (7, 258, 2)])
+@pytest.mark.parametrize("D", [64, 88])
+def test_fp32_frame_causal_segments_match_plain(dev, D, frames, tokens, pad):
+    """The AC rows as the predictor runs them: a CEM rollout's 1 and 2
+    frames and the DROID step's 7, stack-padded with pad keys no real query
+    attends, with and without RoPE."""
+    N = frames * tokens + pad
+    q, k, v, do = (_randn((2, 3, N, D), dev, s) for s in range(4))
+    seg = _frame_ids(dev, frames, tokens, pad)
+    _check(q, k, v, do, segment_ids=seg)
+    _check(q, k, v, do, segment_ids=seg, rope_expanded=_tables(dev, 1, N, D, False, seed=D))
+
+
+@pytest.mark.parametrize("D", [32, 80, 104])
+def test_fp32_random_segments_per_example(dev, D):
+    """Random ids per example [B, N] (sorted and not), every width."""
+    rng = np.random.RandomState(D)
+    q, k, v, do = (_randn((3, 2, 333, D), dev, s) for s in range(4))
+    ids = rng.randint(0, 5, (3, 333))
+    ids[1] = np.sort(ids[1])
+    _check(q, k, v, do, segment_ids=torch.from_numpy(ids).to(dev, torch.int32))
+
+
+def test_fp32_ids_past_2_24_stay_apart(dev):
+    """Query ids 2**24 against key ids alternating 2**24 and 2**24 + 1: an
+    fp32 cast would round both to 2**24 and attend every key."""
+    q, k, v, do = (_randn((1, 2, 256, 64), dev, s) for s in range(4))
+    big = 1 << 24
+    seg_q = torch.full((256,), big, dtype=torch.int32, device=dev)
+    seg_k = big + torch.arange(256, device=dev, dtype=torch.int32) % 2
+    _check(q, k, v, do, segment_ids=seg_q, seg_kv=seg_k)
+    half = fa.flash_attention_bhnd(q, k, v, segment_ids=seg_q, seg_kv=seg_k)
+    _close(half, fa.flash_attention_bhnd_plain(q, k[:, :, ::2], v[:, :, ::2])[0], "even keys")
+
+
+@pytest.mark.parametrize("D", [64, 80])
+def test_fp32_ring_hop_seg_kv_given_lse(dev, D):
+    """A ring hop: the keys' own ids (M != N) and a backward given a global
+    lse, larger than the hop's own, as `ring_attention` passes it."""
+    N, M = 1024, 640
+    rng = np.random.RandomState(D)
+    q, do = _randn((2, 3, N, D), dev, 0), _randn((2, 3, N, D), dev, 1)
+    k, v = _randn((2, 3, M, D), dev, 2), _randn((2, 3, M, D), dev, 3)
+    seg_q = torch.from_numpy(np.sort(rng.randint(0, 4, (2, N)))).to(dev, torch.int32)
+    seg_k = torch.from_numpy(np.sort(rng.randint(0, 4, (2, M)))).to(dev, torch.int32)
+    kw = dict(segment_ids=seg_q, seg_kv=seg_k)
+    _check(q, k, v, do, **kw)
+    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+    glob = lse + torch.from_numpy(rng.rand(2, 3, N).astype(np.float32)).to(dev)
+    grads = fa.flash_attention_bhnd_bwd(q, k, v, out, glob, do, **kw)
+    want = fa.flash_attention_bhnd_bwd_plain(q, k, v, out, glob, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        _close(g, w, name)
+
+
+@pytest.mark.parametrize("N,M", [(1024, 1024), (100, 300), (300, 100), (65, 65), (1, 1)])
+@pytest.mark.parametrize("D", [64, 80, 88])
+def test_fp32_causal_matches_plain(dev, D, N, M):
+    """The token-causal mask (key j <= query i): square, more keys, fewer
+    keys (dK/dV blocks past the last query write zeros), ragged."""
+    q, do = _randn((2, 2, N, D), dev, 0), _randn((2, 2, N, D), dev, 1)
+    k, v = _randn((2, 2, M, D), dev, 2), _randn((2, 2, M, D), dev, 3)
+    _check(q, k, v, do, causal=True)
+
+
+@pytest.mark.parametrize("D", [64, 88])
+def test_fp32_rows_with_no_key(dev, D):
+    """Queries whose id is below every key's: out 0, lse -inf, dq 0, and
+    nothing of theirs in dk or dv; the other rows as the plain version."""
+    N = 300
+    q, k, v, do = (_randn((2, 2, N, D), dev, s) for s in range(4))
+    seg_q = torch.ones(N, dtype=torch.int32, device=dev)
+    seg_q[::3] = 0
+    seg_k = torch.ones(N, dtype=torch.int32, device=dev)
+    kw = dict(segment_ids=seg_q, seg_kv=seg_k)
+    _check(q, k, v, do, **kw)
+    out, lse = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+    assert not out[:, :, ::3].any() and torch.isneginf(lse[:, :, ::3]).all()
+    dq, dk, dv = fa.flash_attention_bhnd_bwd(q, k, v, out, lse, do, **kw)
+    assert not dq[:, :, ::3].any()
+    keep = seg_q == 1
+    sub = fa.flash_attention_bhnd_bwd(q[:, :, keep], k, v, out[:, :, keep], lse[:, :, keep],
+                                      do[:, :, keep])
+    _close(dk, sub[1], "dk")
+    _close(dv, sub[2], "dv")
+
+
+@pytest.mark.parametrize("keys_major", [False, True])
+@pytest.mark.parametrize("kind", ["frame-causal", "random", "causal"])
+def test_fp32_plan_kernel_matches_its_plain_version(dev, kind, keys_major):
+    """`flash_fp32_plan_kernel` (the masked kernels' tile plan, built on the
+    card) against `mask_tile_plan`, its plain version, entry for entry: the
+    AC rows, short and ragged lengths, M != N, kv_valid, and a row of more
+    than 128 tiles (the kernel compacts 128 at a time)."""
+    rng = np.random.RandomState(len(kind) + keys_major)
+    shapes = [(1808, 1808), (264, 264), (100, 300), (300, 100), (9000, 9000)]
+    blocks = [(64, 32)] if keys_major else [(128, 64), (128, 32), (64, 32)]
+    for n, m in shapes:
+        seg_q = seg_k = None
+        if kind == "frame-causal":
+            seg_q = tm.frame_segments(n // 258 or 1, 258, dev)[:n]
+            seg_q = torch.nn.functional.pad(seg_q, (0, n - seg_q.numel()),
+                                            value=tm.PAD_SEGMENT)[None].repeat(2, 1)
+            seg_k = tm.frame_segments(m // 258 or 1, 258, dev)[:m]
+            seg_k = torch.nn.functional.pad(seg_k, (0, m - seg_k.numel()),
+                                            value=tm.PAD_SEGMENT)[None].repeat(2, 1)
+        elif kind == "random":
+            seg_q = torch.from_numpy(rng.randint(0, 6, (3, n))).to(dev, torch.int32)
+            seg_k = torch.from_numpy(rng.randint(0, 6, (3, m))).to(dev, torch.int32)
+        for mv in (m, m - 5):
+            for block, tile in blocks:
+                got = fa._plan_cuda(seg_q, seg_k, kind == "causal", n, mv, block, tile,
+                                    keys_major, dev)[0]
+                want = fa.mask_tile_plan(seg_q, seg_k, kind == "causal", n, mv, block, tile,
+                                         keys_major, device=dev)
+                assert torch.equal(got, want), (n, m, mv, block, tile)
+
+
+@pytest.mark.parametrize("D", [64, 88])
+def test_fp32_segments_two_calls_are_bit_equal(dev, D):
+    q, k, v, do = (_randn((2, 4, 1808, D), dev, s) for s in range(4))
+    kw = dict(segment_ids=_frame_ids(dev, 7, 258, 2))
+    out1, lse1 = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+    out2, lse2 = fa.flash_attention_bhnd(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    g1 = fa.flash_attention_bhnd_bwd(q, k, v, out1, lse1, do, **kw)
+    g2 = fa.flash_attention_bhnd_bwd(q, k, v, out1, lse1, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
 def test_fp32_refuses_mixed_dtypes_and_other_widths(dev):

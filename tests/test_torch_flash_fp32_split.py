@@ -18,13 +18,21 @@ pre-pass does (`rope_rotate`: each product and sum rounded once, the
 kernels' `rope_pair`), and takes dq and dk through the adjoint
 (`rope_rotate_t`, as the dQ and dK/dV epilogues do); with kv_valid it runs
 over the first kv_valid keys, as the kernels do, and dk, dv are zero past
-them.
+them. With segment ids and the causal mask the emulation masks as the
+kernels do: the ids compared as integers (seg_q[i] >= seg_k[j]), key j <= i
+under causal, a masked score -inf before the running max (a row with no
+key: out 0, lse -inf) and p = 0 in the backward, where lse * log2(e) is +inf
+for such a row, as the pre-pass writes it.
 
 Cases: head widths 64 and 88 at N = 320 (B = 1, H = 2), and a peaked softmax
 at 88 (q scaled so that the scores reach ±40); the pretrain step's features
 at head widths 32 and 64, B = 2, N = 128: split-half tables shared and per
 example with kv_valid M - 1 and M - 5 (against JAX's `flash_attention_bhnd`
-with ``rope_expanded`` and ``kv_valid_len``). Tolerances, the kernels'
+with ``rope_expanded`` and ``kv_valid_len``); the masks at N = 128: the AC
+predictor's frame-causal ids with pad keys on int32-max at head width 64
+(with and without RoPE), a ring hop's key-side ids (M = 192 != N) with a
+global lse given to the backward at 80, and the causal mask at 88.
+Tolerances, the kernels'
 (`chip_smoke.py`: FP32_REL_L2, FP32_MAX_ABS, FP32_LSE_ATOL): out and the
 gradients within 2e-5 relative L2 and 1e-4·max|JAX| absolute, lse within
 1e-5 absolute. In the peaked case lse is held to 1e-6·max|lse| instead:
@@ -89,24 +97,45 @@ def _prepass(q, k, v, rope, kv):
     return q, k[:, :, :kv], v[:, :, :kv]
 
 
-def emulated_fwd(q, k, v, parts=3, rope=None, kv=None):
+def kernel_mask(N, M, seg_q=None, seg_k=None, causal=False):
+    """The kernels' predicate, True = attend, [B|1, 1, N, M] (None when
+    nothing is masked): int32 ids compared as integers, key j <= query i
+    under causal."""
+    mask = None
+    if seg_q is not None:
+        mask = seg_q[:, None, :, None] >= seg_k[:, None, None, :]
+    if causal:
+        tri = torch.ones(N, M, dtype=torch.bool).tril()
+        mask = tri if mask is None else mask & tri
+    return mask
+
+
+def _masked(x, mask, kv):
+    """-inf where ``mask`` (cut to the first kv keys) is False."""
+    return x if mask is None else x.masked_fill(~mask[..., :x.shape[-1]], float("-inf"))
+
+
+def emulated_fwd(q, k, v, parts=3, rope=None, kv=None, mask=None):
     q, k, v = _prepass(q, k, v, rope, kv)
     scale = q.shape[-1] ** -0.5
-    s = product(q, k.transpose(-1, -2), parts) * np.float32(scale * LOG2E)
+    s = _masked(product(q, k.transpose(-1, -2), parts) * np.float32(scale * LOG2E), mask, kv)
     m = s.amax(-1, keepdim=True)
+    empty = torch.isneginf(m)  # no key to attend: the running max stays -inf
+    m = m.masked_fill(empty, 0.0)
     p = torch.exp2(s - m)
-    l = p.sum(-1, keepdim=True)
+    l = p.sum(-1, keepdim=True).masked_fill(empty, 1.0)
     out = product(p, v, parts) / l
-    lse = (m + torch.log2(l)).squeeze(-1) * np.float32(1 / LOG2E)
-    return out, lse
+    lse = ((m + torch.log2(l)) * np.float32(1 / LOG2E)).masked_fill(empty, float("-inf"))
+    return out, lse.squeeze(-1)
 
 
-def emulated_bwd(q, k, v, out, lse, do, parts=3, rope=None, kv=None):
+def emulated_bwd(q, k, v, out, lse, do, parts=3, rope=None, kv=None, mask=None):
     M = k.shape[2]
     q, k, v = _prepass(q, k, v, rope, kv)
     scale = np.float32(q.shape[-1] ** -0.5)
     s = product(q, k.transpose(-1, -2), parts) * np.float32(scale * LOG2E)
-    p = torch.exp2(s - (lse * np.float32(LOG2E))[..., None])
+    lse2 = (lse * np.float32(LOG2E)).masked_fill(torch.isneginf(lse), float("inf"))
+    p = torch.exp2(_masked(s - lse2[..., None], mask, kv))
     dp = product(do, v.transpose(-1, -2), parts)
     ds = p * (dp - (do * out).sum(-1, keepdim=True)) * scale
     dq, dk = product(ds, k, parts), product(ds.transpose(-1, -2), q, parts)
@@ -182,15 +211,18 @@ def test_3xtf32_with_rope_and_kv_valid(D, per_example, kv_gap):
     _hold_and_miss(want, q, k, v, do, 0, dict(rope=tuple(map(torch.from_numpy, rope)), kv=kv))
 
 
-def _hold_and_miss(want, q, k, v, do, peak, features=None):
+def _hold_and_miss(want, q, k, v, do, peak, features=None, given=None):
     """The emulation with 3 TF32 products within the kernels' tolerances of
-    JAX's (out, lse, dq, dk, dv); with 1, every output outside them."""
+    JAX's (out, lse, dq, dk, dv); with 1, every output outside them. The
+    backward is given the emulated forward's (out, lse), or ``given(out,
+    lse)``'s pair, as JAX's was."""
     features = features or {}
     lse_tol = PEAKED_LSE_RTOL * np.abs(want[1]).max() if peak else LSE_ATOL
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     for parts in (3, 1):
         out, lse = emulated_fwd(tq, tk, tv, parts, **features)
-        grads = emulated_bwd(tq, tk, tv, out, lse, tdo, parts, **features)
+        pair = (out, lse) if given is None else given(out, lse)
+        grads = emulated_bwd(tq, tk, tv, *pair, tdo, parts, **features)
         errs = {name: _errors(g, w) for name, g, w in
                 zip(("out", "dq", "dk", "dv"), (out, *grads), (want[0], *want[2:]))}
         lse_err = np.abs(lse.double().numpy() - want[1]).max()
@@ -202,6 +234,98 @@ def _hold_and_miss(want, q, k, v, do, peak, features=None):
             assert lse_err > lse_tol, lse_err
             for name, (rel, mx) in errs.items():
                 assert rel > REL_L2 and mx > MAX_ABS, (name, rel, mx)
+
+
+MASK_B, MASK_N = 2, 128
+PAD_SEGMENT = np.iinfo(np.int32).max
+
+
+def _mask_inputs(D, seed, M=MASK_N):
+    rng = np.random.RandomState(seed)
+    q, do = (rng.randn(MASK_B, 2, MASK_N, D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(MASK_B, 2, M, D).astype(np.float32) for _ in range(2))
+    return q, k, v, do, rng
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_3xtf32_with_frame_causal_segments(rope):
+    """The AC predictor's frame-causal ids at head width 64: 2 frames of 60
+    tokens and 8 pad tokens on int32-max (pad queries attend every key, no
+    real query a pad key), with and without shared RoPE tables."""
+    q, k, v, do, rng = _mask_inputs(64, seed=7 + rope)
+    seg = np.concatenate([np.repeat(np.arange(2), 60), np.full(8, PAD_SEGMENT)])
+    seg = np.tile(seg.astype(np.int32), (MASK_B, 1))
+    tables = tuple(rng.uniform(-1, 1, (1, MASK_N, 64)).astype(np.float32) for _ in range(2))
+    kw_j = dict(segment_ids=jnp.asarray(seg))
+    features = dict(mask=kernel_mask(MASK_N, MASK_N, torch.from_numpy(seg),
+                                     torch.from_numpy(seg)))
+    if rope:
+        kw_j["rope_expanded"] = tuple(map(jnp.asarray, tables))
+        features["rope"] = tuple(map(torch.from_numpy, tables))
+    cos, sin = kw_j.get("rope_expanded", (None, None))
+    fwd = jfa._flash_fwd_bhnd(*map(jnp.asarray, (q, k, v)), kw_j["segment_ids"], cos, sin, cos,
+                              sin, block_q=64, block_k=64, interpret=True)
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_bhnd(
+        q, k, v, block_q=64, block_k=64, interpret=True, **kw_j), *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(x) for x in jax.block_until_ready((*fwd, *vjp(jnp.asarray(do))))]
+    _hold_and_miss(want, q, k, v, do, 0, features)
+
+
+def test_3xtf32_ring_hop_seg_kv_and_a_given_lse():
+    """A ring hop at head width 80: the keys carry their own ids (M = 192
+    != N), and the backward is given the ring's global lse and out, as
+    `ring_attention.py:91-104` passes them (every query sees a key of the
+    hop: JAX's kernel averages v over a row with none)."""
+    M = MASK_N + 64
+    q, k, v, do, rng = _mask_inputs(80, seed=11, M=M)
+    seg = np.sort(rng.randint(1, 6, (MASK_B, MASK_N)), axis=1).astype(np.int32)
+    seg_kv = np.sort(rng.randint(0, 6, (MASK_B, M)), axis=1).astype(np.int32)
+    seg_kv[:, 0] = 0
+    shift = torch.from_numpy(rng.randn(MASK_B, 2, MASK_N).astype(np.float32))
+
+    def given(out, lse):  # the ring's (out, lse) from this hop's and another's
+        glob = torch.logaddexp(lse, shift)
+        return out * torch.exp(lse - glob)[..., None], glob
+
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    mask = kernel_mask(MASK_N, M, torch.from_numpy(seg), torch.from_numpy(seg_kv))
+    out, lse = emulated_fwd(tq, tk, tv, mask=mask)
+    out_g, lse_g = given(out, lse)
+    fwd = jfa._flash_fwd_bhnd(*map(jnp.asarray, (q, k, v, seg)), None, None, None, None,
+                              seg_kv=jnp.asarray(seg_kv), block_q=64, block_k=64, interpret=True)
+    grads = jfa._flash_bwd_bhnd(*map(jnp.asarray, (q, k, v, seg)), None, None, None, None,
+                                *map(jnp.asarray, (out_g.numpy(), lse_g.numpy(), do)),
+                                seg_kv=jnp.asarray(seg_kv), block_q=64, block_k=64,
+                                interpret=True)
+    want = [np.asarray(x) for x in jax.block_until_ready((*fwd, *grads))]
+    _hold_and_miss(want, q, k, v, do, 0, dict(mask=mask), given)
+
+
+def test_3xtf32_with_the_causal_mask():
+    """The token-causal mask (key j <= query i) at head width 88."""
+    q, k, v, do, _ = _mask_inputs(88, seed=13)
+    fwd = jfa._flash_fwd_bhnd(*map(jnp.asarray, (q, k, v)), None, None, None, None, None,
+                              causal=True, block_q=64, block_k=64, interpret=True)
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_bhnd(
+        q, k, v, causal=True, block_q=64, block_k=64, interpret=True),
+        *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(x) for x in jax.block_until_ready((*fwd, *vjp(jnp.asarray(do))))]
+    _hold_and_miss(want, q, k, v, do, 0, dict(mask=kernel_mask(MASK_N, MASK_N, causal=True)))
+
+
+def test_emulated_masks_give_empty_rows_zero_and_no_gradient():
+    """A query whose id is below every key's: the emulation's out 0, lse
+    -inf and dq 0, as the kernels (and `flash_attention_bhnd_plain`) give."""
+    q, k, v, do, _ = _mask_inputs(64, seed=17)
+    seg_q = torch.ones(MASK_B, MASK_N, dtype=torch.int32)
+    seg_q[:, :5] = 0
+    mask = kernel_mask(MASK_N, MASK_N, seg_q, torch.ones_like(seg_q))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = emulated_fwd(tq, tk, tv, mask=mask)
+    dq, dk, dv = emulated_bwd(tq, tk, tv, out, lse, tdo, mask=mask)
+    assert not out[:, :, :5].any() and torch.isneginf(lse[:, :, :5]).all()
+    assert not dq[:, :, :5].any()
+    assert all(torch.isfinite(g).all() for g in (out, dq, dk, dv))
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():

@@ -30,6 +30,7 @@ from vjepa2_tpu.planning import rotations as jrot
 from vjepa2_tpu.planning.world_model import WorldModel as JaxWorldModel
 from vjepa2_tpu.train.droid import feature_layernorm as jax_feature_layernorm
 from vjepa2_tpu_torch.hub.converter import load_world_model_state
+from vjepa2_tpu_torch.models import modules
 from vjepa2_tpu_torch.models.ac_predictor import vit_ac_predictor
 from vjepa2_tpu_torch.models.vision_transformer import VisionTransformer
 from vjepa2_tpu_torch.planning import cem as tcem
@@ -279,6 +280,23 @@ def test_world_model_step_fn_matches_jax(world_models, T):
 
 
 def test_world_model_plan_matches_jax(world_models):
+    _plan_matches_jax(world_models)
+
+
+def test_world_model_plan_matches_jax_on_the_bhnd_route(world_models, monkeypatch):
+    """The plan on the route fp32 takes on the card: the encoder's and the
+    AC predictor's attention on the BHND kernels' plain versions (the
+    frame-causal ids and pad keys of the stack-padded AC sequence), none on
+    the DN route."""
+    def refused(*args, **kwargs):
+        raise AssertionError("the DN route ran")
+
+    monkeypatch.setattr(modules, "dn_head_eligible", lambda d: False)
+    monkeypatch.setattr(modules, "attend_bhdn", refused)
+    _plan_matches_jax(world_models)
+
+
+def _plan_matches_jax(world_models):
     jwm, wm, _ = world_models
     start, goal_frame = _frames(WM_SEED)
     rep, goal = wm.encode(start), wm.encode(goal_frame)

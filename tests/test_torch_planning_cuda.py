@@ -10,6 +10,15 @@ Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
 Tolerances: the CEM over the linear world model of
 `tests/planning/test_cem.py` (fp32 on both sides, one sampler) within 1e-6;
+over a depth-2 fp32 AC predictor (2 heads of 64, 16 tokens a frame, weights
+drawn wider than the init's, as `tests/test_torch_planning.py` draws them,
+so that the actions move its latents; on the card its attention on the
+fp32 BHND kernels with the frame-causal ids and pad keys) within 1e-5, once
+every step's top-k margin exceeds twice the card's distances' distance from
+the CPU's (else a tie could rank differently on the two sides): over 3 CEM
+steps, since the candidates then converge until the 10th and 11th
+distances tie to within fp32's rounding (a margin of 0 to 2e-7 from the
+8th step on this model, measured on the CPU);
 B1 against its plain version as `tests/test_torch_flash_dn_cuda.py` holds it
 (out 1e-2 + 1e-2 |plain|, lse 3e-2), and the real queries' rows bit-equal
 whatever the pad keys hold.
@@ -19,10 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+from vjepa2_tpu_torch.models.ac_predictor import vit_ac_predictor
 from vjepa2_tpu_torch.models.modules import frame_segments
+from vjepa2_tpu_torch.ops import flash_attention as fa
 from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
 from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
 from vjepa2_tpu_torch.planning.cem import CEMConfig, make_cem
+from vjepa2_tpu_torch.train.droid import feature_layernorm
 
 pytestmark = pytest.mark.cuda
 
@@ -49,23 +61,74 @@ def _linear_step(kind):
     return step_fn
 
 
-@pytest.mark.parametrize("kind", ["linear", "constant"])
+def _ac_step():
+    """(a step_fn per device, tokens a frame, width): a depth-2 fp32 AC
+    predictor with ``use_flash`` (2 heads of 64, a 4 x 4 grid of 64-wide
+    tokens), the same weights on the card and on the CPU, drawn with numpy:
+    matrices ~ N(0, 1/fan_in), biases ~ N(0, 0.1^2), LayerNorm scales 1 +
+    N(0, 0.1^2); and `feature_layernorm` of its last frame, as
+    `WorldModel.step_fn`."""
+    cpu = vit_ac_predictor(img_size=(64, 64), patch_size=16, embed_dim=64,
+                           predictor_embed_dim=128, depth=2, num_heads=2, use_flash=True)
+    rs = np.random.RandomState(1)
+    with torch.no_grad():
+        for name, prm in cpu.named_parameters():
+            if prm.ndim == 2:
+                x = rs.randn(*prm.shape) / np.sqrt(prm.shape[1])
+            elif name.endswith("weight"):
+                x = 1.0 + 0.1 * rs.randn(*prm.shape)
+            else:
+                x = 0.1 * rs.randn(*prm.shape)
+            prm.copy_(torch.from_numpy(x.astype(np.float32)))
+    models = {"cpu": cpu, "cuda": vit_ac_predictor(
+        img_size=(64, 64), patch_size=16, embed_dim=64, predictor_embed_dim=128, depth=2,
+        num_heads=2, use_flash=True, device="cuda")}
+    models["cuda"].load_state_dict(cpu.state_dict())
+
+    def step(reps, actions, poses):
+        return feature_layernorm(models[reps.device.type](reps, actions, poses)[:, -16:])
+
+    return step, 16, 64
+
+
+@pytest.mark.parametrize("kind", ["linear", "constant", "fp32"])
 def test_cem_on_the_card_matches_the_cpu(dev, kind):
     """One sampler's draws through the CEM on the card and on the CPU: the
     stable sort, ``std`` and the momenta on device tensors give the CPU's
-    plan ("constant" ties every distance: the first k candidates win)."""
-    cfg = CEMConfig(samples=400, topk=10)
+    plan ("constant" ties every distance: the first k candidates win;
+    "fp32" rolls out an fp32 AC predictor, on the card through the fp32
+    BHND kernels: each rollout call launches the forward once a layer)."""
+    cfg = CEMConfig(samples=400, topk=10, cem_steps=3 if kind == "fp32" else 10)
     rs = np.random.RandomState(0)
     draws = rs.randn(cfg.cem_steps, cfg.rollout, cfg.samples, 4).astype(np.float32)
-    rep = rs.randn(N, D).astype(np.float32) * 0.1
+    step, n, d = _ac_step() if kind == "fp32" else (_linear_step(kind), N, D)
+    rep = rs.randn(n, d).astype(np.float32) * (1.0 if kind == "fp32" else 0.1)
     goal = rep.copy()
     goal[:, :3] += 0.04
     pose = rs.uniform(-0.3, 0.3, size=7).astype(np.float32)
-    cem = make_cem(_linear_step(kind), cfg)
-    plans = [cem(torch.from_numpy(rep).to(d), pose, torch.from_numpy(goal).to(d),
-                 sampler=lambda step, h: torch.from_numpy(draws[step, h])).cpu().numpy()
-             for d in (dev, "cpu")]
-    np.testing.assert_allclose(plans[0], plans[1], atol=1e-6, rtol=0)
+    dists = {"cuda": [], "cpu": []}  # each step's distances of the final frames to the goal
+
+    def recording(reps, actions, poses):
+        out = step(reps, actions, poses)
+        if actions.shape[1] == cfg.rollout:
+            goal_ = torch.from_numpy(goal).to(out.device)
+            dists[out.device.type].append((out - goal_[None]).abs().mean(dim=(1, 2)).cpu())
+        return out
+
+    cem = make_cem(recording, cfg)
+    before = fa.LAUNCHES_FP32
+    with torch.inference_mode():
+        plans = [cem(torch.from_numpy(rep).to(d_), pose, torch.from_numpy(goal).to(d_),
+                     sampler=lambda step, h: torch.from_numpy(draws[step, h])).cpu().numpy()
+                 for d_ in (dev, "cpu")]
+    fp32_calls = cfg.cem_steps * cfg.rollout * 2 if kind == "fp32" else 0
+    assert fa.LAUNCHES_FP32 - before == fp32_calls
+    if kind == "fp32":
+        for i, (card, cpu) in enumerate(zip(dists["cuda"], dists["cpu"])):
+            ranked = torch.sort(cpu).values
+            gap = (ranked[cfg.topk] - ranked[cfg.topk - 1]).item()
+            assert gap > 2 * (card - cpu).abs().max().item(), f"step {i}: top-k margin {gap}"
+    np.testing.assert_allclose(plans[0], plans[1], atol=1e-5 if kind == "fp32" else 1e-6, rtol=0)
 
 
 def test_cem_generator_on_the_card_repeats(dev):

@@ -12,9 +12,9 @@
 //     bf16: `flash_fp32_dq.cu`, then `flash_fp32_dkdv.cu`;
 //   * and the pre-pass that splits their operands, `flash_fp32_split.cu`.
 // The bf16 operands take `flash_fwd_bhnd.cu` and `flash_bwd_bhnd.cu`.
-// Contract (the probes' plain attention and the pretrain step's: RoPE and
-// kv_valid; segment ids and the causal mask are refused by the wrapper on
-// fp32, ROADMAP queue B):
+// Contract (JAX's whole feature set: the probes' plain attention, the
+// pretrain step's RoPE and kv_valid, the AC predictor's frame-causal segment
+// ids, a ring hop's key-side ids with a given lse, the token-causal mask):
 //   * q [B, H, N, D], k and v [B, H, M, D] fp32, unit stride along d, every
 //     other stride a multiple of 4 elements from a 16-byte aligned base (the
 //     wrapper copies any other operand first); D in {32, 64, 80, 88, 104};
@@ -31,6 +31,18 @@
 //     key count M of the pre-pass and of the main launches (which mask their
 //     own ragged edge at M), so nothing past it is split, loaded or summed;
 //     dK/dV also gets the keys' full count and writes zeros at or past M;
+//   * segment ids (optional): seg_q [B, N] and seg_k [B, M] int32 at batch
+//     strides segq_b, segk_b (M != N: a ring hop's keys); query i attends key
+//     j iff seg_q[i] >= seg_k[j], compared as integers (JAX's TPU kernels
+//     cast them to fp32, exact only below 2^24). causal (optional): iff j <=
+//     i. These are each kernel's kMasked variant, which runs the wrapper's
+//     plan (`ops/flash_attention.py mask_tile_plan`): for each block, the
+//     tiles that hold an attended pair, in order, each marked partial where
+//     one of its pairs is masked; only those are loaded, and only partial
+//     ones are tested pair by pair (a masked score -inf before the
+//     forward's running max, p = 0 in both backward launches). The unmasked
+//     variant is the kernel without them. A row with no key to attend gives
+//     out 0, lse -inf and no gradient;
 //   * forward: s = (q . k) * scale * log2(e), an online softmax in base 2
 //     (`exp2f`), out = sum_j p_j v_j / sum_j p_j in the layout its strides
 //     give (unit stride along d), lse [B, H, N] in natural log; the kernels
@@ -50,8 +62,10 @@
 // (14*D as computed: the dQ launch recomputes S and dP), each issued three
 // times at 495 TFLOP/s of TF32: 165 TFLOP/s of fp32-accurate products,
 // against O(N*D) bytes. So the operations, over the (query, key) pairs that
-// kv_valid leaves. RoPE adds O(N*D) work to the pre-pass, which is bound by
-// its bytes, and to the epilogues; the mainloops are unchanged.
+// the masks leave (the kernels still compute a segment-masked pair; the
+// bound counts only the pairs attended). RoPE adds O(N*D) work to the
+// pre-pass, which is bound by its bytes, and to the epilogues; the
+// mainloops are unchanged.
 //
 // Design, for the layouts wgmma takes at tf32:
 //   * tf32 operands in shared memory must be K-major (the reduction
@@ -137,6 +151,9 @@ __device__ __forceinline__ void refill(uint64_t* empty, int j, int n, const Load
 __host__ __device__ constexpr int permuted(int c) { return ((c & 3) << 1) | (c >> 2); }
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+// A masked plan's entry (`mask_tile_plan`): the tile's index, with this bit
+// set where one of its pairs is masked.
+constexpr int kPartialTile = 1 << 16;
 // bytes of one part (hi or lo) of a token-major tile of `rows` tokens: ceil(D / 32)
 // chunks of rows x 128 bytes (features past D arrive as zeros)
 __host__ __device__ constexpr int nat_bytes(int D, int rows) { return (D + 31) / 32 * rows * kRowBytes; }
@@ -317,6 +334,39 @@ __device__ __forceinline__ void get16(const float* buf, float (&x)[16]) {
   }
 }
 constexpr int kXBytes = 128 * 16 * 4;  // one exchanged 64 x 32 tile
+
+// The masked kernels' pair bits for a thread's part of a 64 x (8 kNt)
+// accumulator tile: bit 4 nt + 2 r + c set where its row r (at row0 + 8 r,
+// id row_id[r]) and column col0 + 8 nt + 2 t4 + c (below n_cols; id
+// col_ids[col], or null without segment ids) form an attended pair: the
+// query's id >= the key's (as integers), and under causal the key's position
+// <= the query's. kRowsQueries: rows are queries, columns keys (the forward,
+// dQ); else the other way (dK/dV).
+template <int kNt, bool kRowsQueries>
+__device__ __forceinline__ uint32_t pair_bits(const int (&row_id)[2], int row0,
+                                              const int* col_ids, int col0, int n_cols,
+                                              bool causal) {
+  const int t4 = threadIdx.x & 3;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = col0 + nt * 8 + 2 * t4 + c;
+      const bool in = col < n_cols;
+      const int col_id = col_ids != nullptr && in ? col_ids[col] : 0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        const bool ids_ok = col_ids == nullptr ||
+                            (kRowsQueries ? row_id[r] >= col_id : col_id >= row_id[r]);
+        const bool causal_ok = !causal || (kRowsQueries ? col <= row : row <= col);
+        bits |= (uint32_t)(in && ids_ok && causal_ok) << (4 * nt + 2 * r + c);
+      }
+    }
+  }
+  return bits;
+}
 
 // This warpgroup's rows (row0 + warp * 16 + g, + 8) of a 64 x kW accumulator,
 // at column col0 of dst (a [*, D] fp32 array, contiguous), rows below n;

@@ -16,7 +16,13 @@
 // from a tile in the ring's shared memory, once both warpgroups leave it.
 // With kv_valid, M is the valid keys' count and Mo the keys' full count (the
 // rows of dk and dv): the grid covers Mo, rows at or past M are written as
-// zeros, and a block wholly past M writes its zeros and leaves.
+// zeros, and a block wholly past M writes its zeros and leaves. Segment ids
+// and the causal mask are the kMasked variant (the forward's): the ring
+// takes the plan's query tiles (keys-major: for each block of keys, the
+// tiles of queries that attend one of them), and on a partial one
+// warpgroup 0 (its rows' key ids in registers) loads the tile's query ids
+// and sets a bit a pair it attends while S^T's products run; P^T is 0 at
+// the others. A block with no tile writes zeros and leaves.
 
 #include "flash_fp32.cuh"
 
@@ -47,50 +53,75 @@ struct DkdvParams {
   const float* lse2;
   const float* cos;                        // RoPE tables [B|1, N, D] at (t_b, t_n), or null
   const float* sin;
+  const int* seg_q;                        // segment ids [B, N] at batch stride segq_b, or null
+  const int* seg_k;                        // [B, M] at segk_b
+  const int* plan;                         // kMasked: [B|1][key blocks][plan_w] (count, tiles)
   float* dk;                               // [B, H, Mo, D]
   float* dv;
-  long long t_b, t_n;
-  int B, H, N, M, Mo, Np;
+  long long t_b, t_n, segq_b, segk_b, plan_b, plan_w;
+  int B, H, N, M, Mo, Np, causal;
   float scale, qscale;
 };
 
 // Warpgroup kWg's loop: its first product (S^T or dP^T), the trade, and its
 // output (dV or dK), both column blocks.
-template <int D, int kWg, class Load>
+template <int D, int kWg, bool kMasked, class Load>
 __device__ __forceinline__ void dkdv_consumer(const DkdvParams& p, unsigned char* stages,
                                               float* xbuf, uint64_t* full, uint64_t* empty,
                                               const uint32_t (&ah)[D / 8][4],
                                               const uint32_t (&al)[D / 8][4], int b, int h, int k0,
-                                              const Load& load) {
+                                              const int* tiles, int n, const Load& load) {
   using C = DkdvCfg<D>;
   constexpr int kW0 = half_width(D), kW1 = D - kW0;
-  const int t = threadIdx.x % kWgThreads, lane = t & 31, t4 = lane & 3;
+  const int t = threadIdx.x % kWgThreads, warp = t >> 5, lane = t & 31, t4 = lane & 3;
   const long long bh = (long long)b * p.H + h;
+  const int krow = k0 + warp * 16 + (lane >> 2);  // this thread's keys (P^T's rows): krow, + 8
+  int segk[2] = {0, 0};                           // kMasked, warpgroup 0: their ids
+  if constexpr (kMasked && kWg == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (p.seg_k != nullptr && krow + 8 * r < p.M) segk[r] = p.seg_k[b * p.segk_b + krow + 8 * r];
+    }
+  }
   float run[D / 2];  // dV (warpgroup 0) or dK (1), 64 keys x D
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) run[i] = 0.f;
-  const int n_qt = (p.N + kB - 1) / kB;
-  for (int i = 0; i < n_qt; ++i) {
-    const int s = i % C::kStages;
+  for (int j = 0; j < n; ++j) {  // the ring's j-th query tile: j, or kMasked the plan's j-th
+    const int s = j % C::kStages, q0 = (kMasked ? tiles[j] & (kPartialTile - 1) : j) * kB;
     unsigned char* st = stages + s * C::kStage;
     const float* s_l2 = reinterpret_cast<const float*>(st + 4 * C::kQ + 4 * C::kQt);
     const float* s_dl = s_l2 + kB;
-    mbar_wait(&full[s], (i / C::kStages) & 1);
+    mbar_wait(&full[s], (j / C::kStages) & 1);
     // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
     float x[16];
     const unsigned char* bt = st + kWg * 2 * C::kQ;
     wgmma_fence();
     mma3_rs<kB, D / 8, kB>(x, ah, al, opaque(desc_k<kB>(bt, 0)), opaque(desc_k<kB>(bt + C::kQ, 0)), 0);
     wgmma_commit();
+    // kMasked: this thread's pair bits (`pair_bits`), rows keys and columns
+    // queries, while S^T's products run
+    uint32_t bits = ~0u;  // every bit on a tile the plan marks full
+    if constexpr (kMasked && kWg == 0) {
+      if (tiles[j] & kPartialTile) {
+        bits = pair_bits<4, false>(segk, krow,
+                                   p.seg_q != nullptr ? p.seg_q + b * p.segq_b : nullptr, q0,
+                                   p.N, p.causal);
+      }
+    }
     wgmma_wait<0>();
     fence_regs(x);
-    float* buf = xbuf + (i & 1) * (kXBytes / 4);
+    float* buf = xbuf + (j & 1) * (kXBytes / 4);
     if constexpr (kWg == 0) {  // P^T; queries past N have lse2 = +inf, so p = 0
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          x[4 * nt + e] = exp2f(x[4 * nt + e] * p.qscale - s_l2[nt * 8 + 2 * t4 + (e & 1)]);
+          const float y = x[4 * nt + e] * p.qscale - s_l2[nt * 8 + 2 * t4 + (e & 1)];
+          if constexpr (kMasked) {  // 0 where the pair is masked
+            x[4 * nt + e] = exp2f((bits >> (4 * nt + e)) & 1u ? y : -INFINITY);
+          } else {
+            x[4 * nt + e] = exp2f(y);
+          }
         }
       }
       put16(buf, x);
@@ -136,7 +167,7 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvParams& p, unsigned char
       for (int k = 0; k < kW1 / 2; ++k) run[kW0 / 2 + k] += part[k];
     }
     if (lane == 0) mbar_arrive(&empty[s]);
-    if constexpr (!C::kProducer) refill<C::kStages>(empty, i, n_qt, load);
+    if constexpr (!C::kProducer) refill<C::kStages>(empty, j, n, load);
   }
   float* out = (kWg == 0 ? p.dv : p.dk) + bh * p.Mo * D;
   if (p.cos == nullptr) {
@@ -155,7 +186,7 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvParams& p, unsigned char
                        p.M, p.Mo, threadIdx.x, 2 * kWgThreads);
 }
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
     flash_fp32_dkdv_kernel(const __grid_constant__ DkdvParams p) {
   using C = DkdvCfg<D>;
@@ -169,8 +200,11 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBlockK;
   const long long bh = (long long)b * p.H + h;
-  const int n_qt = (p.N + kB - 1) / kB;
-  if (k0 >= p.M) {  // every key of the block at or past kv_valid: no gradient
+  // query tiles: every one below N, or kMasked the plan's for this key block
+  const int* tiles = kMasked && k0 < p.M ? p.plan + b * p.plan_b + blockIdx.x * p.plan_w + 1
+                                         : nullptr;
+  const int n_qt = kMasked ? (tiles != nullptr ? tiles[-1] : 0) : (p.N + kB - 1) / kB;
+  if (k0 >= p.M || n_qt == 0) {  // no key below kv_valid, or no query attends one: no gradient
     const long long at = (bh * p.Mo + k0) * D;
     const int n = (cmin(kBlockK, p.Mo - k0)) * D;
     for (int i = threadIdx.x; i < n; i += blockDim.x) p.dk[at + i] = p.dv[at + i] = 0.f;
@@ -185,8 +219,8 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
   }
   __syncthreads();
 
-  auto load = [&](int i) {  // query tile i into its stage, by one thread
-    const int s = i % C::kStages, q0 = i * kB;
+  auto load = [&](int j) {  // query tile j (kMasked: the plan's j-th) into its stage, by one thread
+    const int s = j % C::kStages, q0 = (kMasked ? tiles[j] & (kPartialTile - 1) : j) * kB;
     unsigned char* st = stages + s * C::kStage;
     mbar_expect_tx(&full[s], 4 * C::kQ + 4 * C::kQt + 2 * kB * 4);
     for (int part = 0; part < 2; ++part) {
@@ -210,7 +244,7 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
       return;
     }
   } else if (threadIdx.x == kLoader) {
-    for (int i = 0; i < C::kStages && i < n_qt; ++i) load(i);
+    for (int j = 0; j < C::kStages && j < n_qt; ++j) load(j);
   }
 
   // warpgroup 0: K's fragments, P^T and dV; 1: V's, dP^T, dS^T and dK
@@ -218,21 +252,28 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
   const long long part = (long long)p.B * p.H * p.M * D;
   load_fragments<D, 0, D / 8>(ah, al, (wg == 0 ? p.k_nat : p.v_nat) + bh * p.M * D, part, k0, p.M);
   if (wg == 0) {
-    dkdv_consumer<D, 0>(p, stages, xbuf, full, empty, ah, al, b, h, k0, load);
+    dkdv_consumer<D, 0, kMasked>(p, stages, xbuf, full, empty, ah, al, b, h, k0, tiles, n_qt,
+                                 load);
   } else {
-    dkdv_consumer<D, 1>(p, stages, xbuf, full, empty, ah, al, b, h, k0, load);
+    dkdv_consumer<D, 1, kMasked>(p, stages, xbuf, full, empty, ah, al, b, h, k0, tiles, n_qt,
+                                 load);
   }
+}
+
+template <int D, bool kMasked>
+int launch_dkdv(const DkdvParams& p, cudaStream_t s) {
+  using C = DkdvCfg<D>;
+  cudaError_t err = allow_smem<flash_fp32_dkdv_kernel<D, kMasked>>(C::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_fp32_dkdv_kernel<D, kMasked>
+      <<<dim3((p.Mo + kBlockK - 1) / kBlockK, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
+  return cudaGetLastError();
 }
 
 struct RunDkdv {
   template <int D>
   static int run(const DkdvParams& p, cudaStream_t s) {
-    using C = DkdvCfg<D>;
-    cudaError_t err = allow_smem<flash_fp32_dkdv_kernel<D>>(C::kSmem);
-    if (err != cudaSuccess) return err;
-    flash_fp32_dkdv_kernel<D>
-        <<<dim3((p.Mo + kBlockK - 1) / kBlockK, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
-    return cudaGetLastError();
+    return p.plan != nullptr ? launch_dkdv<D, true>(p, s) : launch_dkdv<D, false>(p, s);
   }
 };
 
@@ -245,19 +286,28 @@ struct RunDkdv {
 // split-half [B|1, N, D] at batch stride t_b, 0 when shared, and row stride
 // t_n) and statistics (delta, lse2 [B, H, Np], Np: N rounded up to 64). M:
 // the keys the pre-pass split (kv_valid), Mo >= M the keys' count; rows M to
-// Mo of dk and dv are zeros. Returns the cudaError_t of the launch (0 on
-// success).
+// Mo of dk and dv are zeros. seg_q [B, N] and seg_k [B, M] int32 at batch
+// strides segq_b, segk_b (both or neither), and causal, mask as the forward
+// does; with either, plan (`mask_tile_plan` keys-major: blocks of 64 keys
+// below M, tiles of 32 queries) at batch stride plan_b and row width plan_w.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int vjepa2_flash_bwd_fp32_dkdv(const void* q_nat, const void* k_nat,
                                           const void* v_nat, const void* do_nat, const void* q_tr,
                                           const void* do_tr, const void* delta, const void* lse2,
-                                          const void* cos, const void* sin, void* dk, void* dv,
+                                          const void* cos, const void* sin, const void* seg_q,
+                                          const void* seg_k, const void* plan, void* dk, void* dv,
                                           int B, int H, int D, int N, int M, int Mo, int Np,
-                                          long long t_b, long long t_n, float scale, float qscale,
+                                          int causal, long long t_b, long long t_n,
+                                          long long segq_b, long long segk_b, long long plan_b,
+                                          long long plan_w, float scale, float qscale,
                                           void* stream) {
+  const bool masked = seg_q != nullptr || causal != 0;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || Mo < M || B > 32767 || H > 65535 || Np < N ||
       Np % 64 != 0 || k_nat == nullptr || v_nat == nullptr || !aligned16(delta) ||
       !aligned16(lse2) || !aligned16(dk) || !aligned16(dv) || (cos == nullptr) != (sin == nullptr) ||
-      (cos != nullptr && (Mo != N || t_n < D || t_b < 0)))
+      (cos != nullptr && (Mo != N || t_n < D || t_b < 0)) ||
+      (seg_q == nullptr) != (seg_k == nullptr) || segq_b < 0 || segk_b < 0 ||
+      masked != (plan != nullptr) || plan_b < 0 || (masked && plan_w < 1 + (N + kB - 1) / kB))
     return cudaErrorInvalidValue;
   DkdvParams p;
   if (!encode_split(&p.tm_q, q_nat, D, N, H, B, kB) || !encode_split(&p.tm_do, do_nat, D, N, H, B, kB) ||
@@ -270,10 +320,18 @@ extern "C" int vjepa2_flash_bwd_fp32_dkdv(const void* q_nat, const void* k_nat,
   p.lse2 = static_cast<const float*>(lse2);
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_k = static_cast<const int*>(seg_k);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   p.t_b = t_b;
   p.t_n = t_n;
+  p.segq_b = segq_b;
+  p.segk_b = segk_b;
+  p.plan = static_cast<const int*>(plan);
+  p.plan_b = plan_b;
+  p.plan_w = plan_w;
+  p.causal = causal != 0;
   p.B = B;
   p.H = H;
   p.N = N;

@@ -17,7 +17,11 @@
 // shared memory (free once both warpgroups leave it) and writes dQ through
 // the adjoint R^T (`rope_adjoint_rows`; `_rope_rotate_t :120`, applied at
 // `flash_attention.py:429-430`), reading the tables' rows of the block's
-// queries once. With kv_valid, M is the valid keys' count.
+// queries once. With kv_valid, M is the valid keys' count. Segment ids and
+// the causal mask are the kMasked variant (the forward's): the ring takes
+// the plan's key tiles, and on a partial one warpgroup 0 (its rows' query
+// ids in registers) sets a bit a pair it attends while S's products run; P
+// is 0 at the others. A block with no tile writes zeros.
 
 #include "flash_fp32.cuh"
 
@@ -47,15 +51,25 @@ struct DqParams {
   const float* lse2;              // [B, H, Np], lse * log2(e)
   const float* cos;               // RoPE tables [B|1, N, D] at (t_b, t_n), or null
   const float* sin;
+  const int* seg_q;               // segment ids [B, N] at batch stride segq_b, or null
+  const int* seg_k;               // [B, M] at segk_b
+  const int* plan;                // kMasked: [B|1][query blocks][plan_w] (count, tiles)
   float* dq;                      // [B, H, N, D]
-  long long t_b, t_n;
-  int B, H, N, M, Np;
+  long long t_b, t_n, segq_b, segk_b, plan_b, plan_w;
+  int B, H, N, M, Np, causal;
   float scale, qscale;
 };
 
+// kMasked: the plan's entries for the block at blockIdx.x (its count just
+// before them); null otherwise.
+template <bool kMasked>
+__device__ __forceinline__ const int* dq_tiles(const DqParams& p, int b) {
+  return kMasked ? p.plan + b * p.plan_b + blockIdx.x * p.plan_w + 1 : nullptr;
+}
+
 // Warpgroup kWg's loop: its first product (S or dP) with the A fragments
 // ah/al, the trade, dS, and its kW columns of dQ from column col0.
-template <int D, int kWg, class Load>
+template <int D, int kWg, bool kMasked, class Load>
 __device__ __forceinline__ void dq_consumer(const DqParams& p, unsigned char* stages,
                                             float* xbuf, uint64_t* full, uint64_t* empty,
                                             const uint32_t (&ah)[D / 8][4],
@@ -66,19 +80,25 @@ __device__ __forceinline__ void dq_consumer(const DqParams& p, unsigned char* st
   constexpr int kW = kWg == 0 ? half_width(D) : D - half_width(D);
   const int t = threadIdx.x % kWgThreads, warp = t >> 5, lane = t & 31, t4 = lane & 3;
   const long long bh = (long long)b * p.H + h;
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
   float l2[2], dl[2];
+  int segq[2] = {0, 0};  // kMasked, warpgroup 0: their segment ids
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;  // < Np: the statistics are padded
+    const int row = row0 + 8 * r;  // < Np: the statistics are padded
     l2[r] = p.lse2[bh * p.Np + row];
     dl[r] = p.delta[bh * p.Np + row];
+    if (kMasked && wg == 0 && p.seg_q != nullptr && row < p.N) {
+      segq[r] = p.seg_q[b * p.segq_b + row];
+    }
   }
   float run[kW / 2], part[kW / 2];
 #pragma unroll
   for (int i = 0; i < kW / 2; ++i) run[i] = 0.f;
-  const int n_kt = (p.M + kB - 1) / kB;
+  const int* tiles = dq_tiles<kMasked>(p, b);
+  const int n_kt = kMasked ? tiles[-1] : (p.M + kB - 1) / kB;
   for (int j = 0; j < n_kt; ++j) {
-    const int s = j % C::kStages, k0 = j * kB;
+    const int s = j % C::kStages, k0 = (kMasked ? tiles[j] & (kPartialTile - 1) : j) * kB;
     unsigned char* st = stages + s * C::kStage;
     mbar_wait(&full[s], (j / C::kStages) & 1);
     // S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1)
@@ -87,6 +107,15 @@ __device__ __forceinline__ void dq_consumer(const DqParams& p, unsigned char* st
     wgmma_fence();
     mma3_rs<kB, D / 8, kB>(x, ah, al, opaque(desc_k<kB>(bt, 0)), opaque(desc_k<kB>(bt + C::kK, 0)), 0);
     wgmma_commit();
+    // kMasked: this thread's pair bits (`pair_bits`), while S's products run
+    uint32_t bits = ~0u;  // every bit on a tile the plan marks full
+    if constexpr (kMasked && wg == 0) {
+      if (tiles[j] & kPartialTile) {
+        bits = pair_bits<4, true>(segq, row0,
+                                  p.seg_k != nullptr ? p.seg_k + b * p.segk_b : nullptr, k0,
+                                  p.M, p.causal);
+      }
+    }
     wgmma_wait<0>();
     fence_regs(x);
     if constexpr (wg == 0) {
@@ -94,8 +123,13 @@ __device__ __forceinline__ void dq_consumer(const DqParams& p, unsigned char* st
       for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool ok = k0 + nt * 8 + 2 * t4 + (e & 1) < p.M;
-          x[4 * nt + e] = ok ? exp2f(x[4 * nt + e] * p.qscale - l2[e >> 1]) : 0.f;  // P
+          if constexpr (kMasked) {  // P, 0 where the pair is masked
+            const bool ok = (bits >> (4 * nt + e)) & 1u;
+            x[4 * nt + e] = exp2f(ok ? x[4 * nt + e] * p.qscale - l2[e >> 1] : -INFINITY);
+          } else {
+            const bool ok = k0 + nt * 8 + 2 * t4 + (e & 1) < p.M;
+            x[4 * nt + e] = ok ? exp2f(x[4 * nt + e] * p.qscale - l2[e >> 1]) : 0.f;  // P
+          }
         }
       }
     }
@@ -138,7 +172,7 @@ __device__ __forceinline__ void dq_consumer(const DqParams& p, unsigned char* st
                        threadIdx.x, 2 * kWgThreads);
 }
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
     flash_fp32_dq_kernel(const __grid_constant__ DqParams p) {
   using C = DqCfg<D>;
@@ -150,7 +184,15 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
   uint64_t* empty = full + C::kStages;
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
-  const int n_kt = (p.M + kB - 1) / kB;
+  const int* tiles = dq_tiles<kMasked>(p, b);
+  const int n_kt = kMasked ? tiles[-1] : (p.M + kB - 1) / kB;
+  if (kMasked && n_kt == 0) {  // no key for any query of the block: dq 0
+    float* dq = p.dq + ((long long)b * p.H + h) * p.N * D;
+    for (int i = threadIdx.x; i < kBlockQ * D; i += blockDim.x) {
+      if (q0 + i / D < p.N) dq[(long long)q0 * D + i] = 0.f;
+    }
+    return;
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -160,18 +202,18 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
   }
   __syncthreads();
 
-  auto load = [&](int j) {  // key tile j into its stage, by one thread
-    const int s = j % C::kStages;
+  auto load = [&](int j) {  // key tile j (kMasked: the plan's j-th) into its stage, by one thread
+    const int s = j % C::kStages, k0 = (kMasked ? tiles[j] & (kPartialTile - 1) : j) * kB;
     unsigned char* st = stages + s * C::kStage;
     mbar_expect_tx(&full[s], C::kStage);
     for (int part = 0; part < 2; ++part) {
       const int bb = part * p.B + b;
       for (int c = 0; c < kChunks; ++c) {
-        tma_load(st + part * C::kK + c * kB * kRowBytes, &p.tm_k, 32 * c, j * kB, h, bb, &full[s]);
-        tma_load(st + (2 + part) * C::kK + c * kB * kRowBytes, &p.tm_v, 32 * c, j * kB, h, bb,
+        tma_load(st + part * C::kK + c * kB * kRowBytes, &p.tm_k, 32 * c, k0, h, bb, &full[s]);
+        tma_load(st + (2 + part) * C::kK + c * kB * kRowBytes, &p.tm_v, 32 * c, k0, h, bb,
                  &full[s]);
       }
-      tma_load(st + 4 * C::kK + part * C::kKt, &p.tm_kt, j * kB, 0, h, bb, &full[s]);
+      tma_load(st + 4 * C::kK + part * C::kKt, &p.tm_kt, k0, 0, h, bb, &full[s]);
     }
   };
   const int wg = threadIdx.x / kWgThreads;
@@ -189,20 +231,26 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
   const long long bh = (long long)b * p.H + h, part = (long long)p.B * p.H * p.N * D;
   load_fragments<D, 0, D / 8>(ah, al, (wg == 0 ? p.q_nat : p.do_nat) + bh * p.N * D, part, q0, p.N);
   if (wg == 0) {
-    dq_consumer<D, 0>(p, stages, xbuf, full, empty, ah, al, b, h, q0, load);
+    dq_consumer<D, 0, kMasked>(p, stages, xbuf, full, empty, ah, al, b, h, q0, load);
   } else {
-    dq_consumer<D, 1>(p, stages, xbuf, full, empty, ah, al, b, h, q0, load);
+    dq_consumer<D, 1, kMasked>(p, stages, xbuf, full, empty, ah, al, b, h, q0, load);
   }
+}
+
+template <int D, bool kMasked>
+int launch_dq(const DqParams& p, cudaStream_t s) {
+  using C = DqCfg<D>;
+  cudaError_t err = allow_smem<flash_fp32_dq_kernel<D, kMasked>>(C::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_fp32_dq_kernel<D, kMasked>
+      <<<dim3((p.N + kBlockQ - 1) / kBlockQ, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
+  return cudaGetLastError();
 }
 
 struct RunDq {
   template <int D>
   static int run(const DqParams& p, cudaStream_t s) {
-    using C = DqCfg<D>;
-    cudaError_t err = allow_smem<flash_fp32_dq_kernel<D>>(C::kSmem);
-    if (err != cudaSuccess) return err;
-    flash_fp32_dq_kernel<D><<<dim3((p.N + kBlockQ - 1) / kBlockQ, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
-    return cudaGetLastError();
+    return p.plan != nullptr ? launch_dq<D, true>(p, s) : launch_dq<D, false>(p, s);
   }
 };
 
@@ -213,18 +261,27 @@ struct RunDq {
 // ([2][B][H][D][padded8(M)]) are its split copies (q and k rotated where cos
 // and sin are given: split-half [B|1, N, D] at batch stride t_b, 0 when
 // shared, and row stride t_n), delta and lse2 [B, H, Np] its statistics (Np:
-// N rounded up to 64). M: the keys the pre-pass split. Returns the
-// cudaError_t of the launch (0 on success).
+// N rounded up to 64). M: the keys the pre-pass split. seg_q [B, N] and
+// seg_k [B, M] int32 at batch strides segq_b, segk_b (both or neither), and
+// causal, mask as the forward does; with either, plan (`mask_tile_plan`,
+// blocks of 64 queries, tiles of 32 keys) at batch stride plan_b and row
+// width plan_w. Returns the cudaError_t of the launch (0 on success).
 extern "C" int vjepa2_flash_bwd_fp32_dq(const void* q_nat, const void* k_nat, const void* v_nat,
                                         const void* do_nat, const void* k_tr, const void* delta,
                                         const void* lse2, const void* cos, const void* sin,
+                                        const void* seg_q, const void* seg_k, const void* plan,
                                         void* dq, int B, int H, int D, int N, int M, int Np,
-                                        long long t_b, long long t_n, float scale, float qscale,
+                                        int causal, long long t_b, long long t_n,
+                                        long long segq_b, long long segk_b, long long plan_b,
+                                        long long plan_w, float scale, float qscale,
                                         void* stream) {
+  const bool masked = seg_q != nullptr || causal != 0;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 32767 || H > 65535 || Np < N || Np % 64 != 0 ||
       q_nat == nullptr || do_nat == nullptr || delta == nullptr || lse2 == nullptr ||
       !aligned16(dq) || (cos == nullptr) != (sin == nullptr) ||
-      (cos != nullptr && (M > N || t_n < D || t_b < 0)))
+      (cos != nullptr && (M > N || t_n < D || t_b < 0)) ||
+      (seg_q == nullptr) != (seg_k == nullptr) || segq_b < 0 || segk_b < 0 ||
+      masked != (plan != nullptr) || plan_b < 0 || (masked && plan_w < 1 + (M + kB - 1) / kB))
     return cudaErrorInvalidValue;
   DqParams p;
   if (!encode_split(&p.tm_k, k_nat, D, M, H, B, kB) || !encode_split(&p.tm_v, v_nat, D, M, H, B, kB) ||
@@ -236,9 +293,17 @@ extern "C" int vjepa2_flash_bwd_fp32_dq(const void* q_nat, const void* k_nat, co
   p.lse2 = static_cast<const float*>(lse2);
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_k = static_cast<const int*>(seg_k);
   p.dq = static_cast<float*>(dq);
   p.t_b = t_b;
   p.t_n = t_n;
+  p.segq_b = segq_b;
+  p.segk_b = segk_b;
+  p.plan = static_cast<const int*>(plan);
+  p.plan_b = plan_b;
+  p.plan_w = plan_w;
+  p.causal = causal != 0;
   p.B = B;
   p.H = H;
   p.N = N;

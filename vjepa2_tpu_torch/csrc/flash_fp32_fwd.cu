@@ -14,6 +14,19 @@
 // correction) and runs the online softmax of S_u in base 2, which leaves P_u
 // split as the next turn's A fragments. kB is 64 keys at D <= 64 and 32 above
 // (the shared-memory budget of Q's and the ring's hi/lo tiles).
+//
+// The masks are a variant of their own (kMasked: segment ids or the causal
+// mask; without them the kernel is the unmasked one, which masks only its
+// ragged key edge at M). The wrapper's plan (`ops/flash_attention.py
+// mask_tile_plan`) lists, for each block, the key tiles that hold an
+// attended pair, each marked partial where one of its pairs is masked: the
+// ring loads only those, and on a partial one a thread, while the tile's
+// products run on the tensor cores, loads its key ids and sets one bit a
+// pair it attends (`mask_bits`: its two query rows' ids, kept in registers,
+// compared with each key's as integers; key <= query under causal; key <
+// M); the softmax sets the others to -inf before the running max. A row
+// left with no key writes 0 and lse -inf (`row_totals`; a block with no
+// tile at all writes them alone).
 
 #include "flash_fp32.cuh"
 
@@ -39,14 +52,18 @@ struct FwdCfg {
 struct FwdParams {
   CUtensorMap tm_q, tm_k, tm_vt;  // the pre-pass's split copies (`encode_split`)
   const float* q_nat;             // q's copy itself ([2][B][H][N][D]), for kQRegSteps
+  const int* seg_q;               // segment ids [B, N] at batch stride segq_b, or null
+  const int* seg_k;               // [B, M] at segk_b
+  const int* plan;                // kMasked: [B|1][query blocks][plan_w] (count, tiles)
   float* o;
   float* lse;                     // [B, H, N]
   long long o_n, o_h, o_b;        // out's element strides (unit along d)
-  int B, H, N, M;
+  long long segq_b, segk_b, plan_b, plan_w;
+  int B, H, N, M, causal;
   float qscale;                   // scale * log2(e)
 };
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(block_threads(false), 1)
     flash_fp32_fwd_kernel(const __grid_constant__ FwdParams p) {
   using C = FwdCfg<D>;
@@ -61,7 +78,21 @@ __global__ void __launch_bounds__(block_threads(false), 1)
   uint64_t* empty = full + kStages;
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
-  const int n_u = (p.M + kB - 1) / kB;
+  // key tiles: every one below M, or kMasked the plan's (tile u is entry u)
+  const int* tiles = kMasked ? p.plan + b * p.plan_b + blockIdx.x * p.plan_w + 1 : nullptr;
+  const int n_u = kMasked ? tiles[-1] : (p.M + kB - 1) / kB;
+  if (kMasked && n_u == 0) {  // no key for any query of the block: out 0, lse -inf
+    const long long bh = (long long)b * p.H + h;
+    float* out = p.o + b * p.o_b + h * p.o_h;
+    for (int i = threadIdx.x; i < kBlockQ * D; i += blockDim.x) {
+      const int row = q0 + i / D;
+      if (row < p.N) out[row * p.o_n + i % D] = 0.f;
+    }
+    const int row = q0 + threadIdx.x;
+    if (threadIdx.x < kBlockQ && row < p.N) p.lse[bh * p.N + row] = -INFINITY;
+    return;
+  }
+  auto tile_of = [&](int u) { return kMasked ? tiles[u] & (kPartialTile - 1) : u; };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -76,14 +107,15 @@ __global__ void __launch_bounds__(block_threads(false), 1)
   auto load = [&](int j) {  // key tile j into its stage, by one thread
     const int s = j % kStages;
     unsigned char* st = stages + s * C::kStage;
+    const int k0 = tile_of(j) * kB;
     mbar_expect_tx(&full[s], C::kStage);
     for (int part = 0; part < 2; ++part) {
       for (int c = 0; c < kChunks; ++c) {
-        tma_load(st + part * C::kK + c * kB * kRowBytes, &p.tm_k, 32 * c, j * kB, h,
+        tma_load(st + part * C::kK + c * kB * kRowBytes, &p.tm_k, 32 * c, k0, h,
                  part * p.B + b, &full[s]);
       }
       for (int c = 0; c < kB / 32; ++c) {
-        tma_load(st + 2 * C::kK + part * C::kV + c * D * kRowBytes, &p.tm_vt, j * kB + 32 * c, 0,
+        tma_load(st + 2 * C::kK + part * C::kV + c * D * kRowBytes, &p.tm_vt, k0 + 32 * c, 0,
                  h, part * p.B + b, &full[s]);
       }
     }
@@ -104,6 +136,22 @@ __global__ void __launch_bounds__(block_threads(false), 1)
   const int rbase = wg * 64;
   const int row0 = rbase + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
   const long long bh = (long long)b * p.H + h;
+  int segq[2] = {0, 0};  // kMasked: this thread's query rows' segment ids
+  if constexpr (kMasked) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row0 + 8 * r;
+      if (p.seg_q != nullptr && row < p.N) segq[r] = p.seg_q[b * p.segq_b + row];
+    }
+  }
+  // kMasked: this thread's pair bits (`pair_bits`) of the plan's tile u,
+  // every bit on a tile it marks full; called while tile u's products run
+  auto mask_bits = [&](int u) -> uint32_t {
+    if (!(tiles[u] & kPartialTile)) return ~0u;
+    return pair_bits<kKSteps, true>(segq, q0 + row0,
+                                    p.seg_k != nullptr ? p.seg_k + b * p.segk_b : nullptr,
+                                    tile_of(u) * kB, p.M, p.causal);
+  };
 
   float s[kB / 2];                        // S, 64 rows x kB keys
   float op[D / 2];                        // this tile's P V
@@ -161,7 +209,7 @@ __global__ void __launch_bounds__(block_threads(false), 1)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], corr[(i >> 1) & 1], op[i]);
   };
-  auto softmax = [&](int u) {
+  auto softmax = [&](int u, uint32_t bits) {
     if (u > 0) flush();
     const int k0 = u * kB;
     float mx[2] = {m_run[0], m_run[1]};
@@ -170,7 +218,11 @@ __global__ void __launch_bounds__(block_threads(false), 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[4 * nt + e] * p.qscale;
-        if (k0 + kB > p.M && k0 + nt * 8 + 2 * t4 + (e & 1) >= p.M) x = -INFINITY;
+        if constexpr (kMasked) {
+          if (!((bits >> (4 * nt + e)) & 1u)) x = -INFINITY;
+        } else if (k0 + kB > p.M && k0 + nt * 8 + 2 * t4 + (e & 1) >= p.M) {
+          x = -INFINITY;
+        }
         s[4 * nt + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -210,8 +262,9 @@ __global__ void __launch_bounds__(block_threads(false), 1)
   wgmma_fence();
   issue_s(0);
   bar_arrive(other, 2 * kWgThreads);
+  uint32_t bits = kMasked ? mask_bits(0) : 0u;
   finish();
-  softmax(0);
+  softmax(0, bits);
   for (int u = 1; u < n_u; ++u) {
     mbar_wait(&full[u % kStages], (u / kStages) & 1);
     bar_sync(mine, 2 * kWgThreads);
@@ -219,10 +272,11 @@ __global__ void __launch_bounds__(block_threads(false), 1)
     issue_pv(u - 1);
     issue_s(u);
     bar_arrive(other, 2 * kWgThreads);
+    if constexpr (kMasked) bits = mask_bits(u);
     finish();
     if (lane == 0) mbar_arrive(&empty[(u - 1) % kStages]);
     refill<kStages>(empty, u - 1, n_u, load);
-    softmax(u);
+    softmax(u, bits);
   }
   bar_sync(mine, 2 * kWgThreads);
   wgmma_fence();
@@ -248,15 +302,20 @@ __global__ void __launch_bounds__(block_threads(false), 1)
   }
 }
 
+template <int D, bool kMasked>
+int launch_fwd(const FwdParams& p, cudaStream_t s) {
+  using C = FwdCfg<D>;
+  cudaError_t err = allow_smem<flash_fp32_fwd_kernel<D, kMasked>>(C::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_fp32_fwd_kernel<D, kMasked>
+      <<<dim3((p.N + kBlockQ - 1) / kBlockQ, p.H, p.B), block_threads(false), C::kSmem, s>>>(p);
+  return cudaGetLastError();
+}
+
 struct RunFwd {
   template <int D>
   static int run(const FwdParams& p, cudaStream_t s) {
-    using C = FwdCfg<D>;
-    cudaError_t err = allow_smem<flash_fp32_fwd_kernel<D>>(C::kSmem);
-    if (err != cudaSuccess) return err;
-    flash_fp32_fwd_kernel<D>
-        <<<dim3((p.N + kBlockQ - 1) / kBlockQ, p.H, p.B), block_threads(false), C::kSmem, s>>>(p);
-    return cudaGetLastError();
+    return p.plan != nullptr ? launch_fwd<D, true>(p, s) : launch_fwd<D, false>(p, s);
   }
 };
 
@@ -264,14 +323,26 @@ struct RunFwd {
 
 // The forward, after `vjepa2_flash_fp32_prepass_fwd` on the same stream:
 // q_nat, k_nat ([2][B][H][N|M][D]) and v_tr ([2][B][H][D][padded8(M)]) are its
-// split copies. out: fp32 at element strides o_str (b, h, n; unit along d,
-// even); lse [B, H, N] contiguous fp32. qscale = scale * log2(e). Returns the
-// cudaError_t of the launch (0 on success).
+// split copies. out: fp32 at element strides (b, h, n; unit along d, even);
+// lse [B, H, N] contiguous fp32. seg_q [B, N] and seg_k [B, M] int32 (both or
+// neither): query i attends key j iff seg_q[i] >= seg_k[j]; causal: iff j <= i.
+// With either, plan (`mask_tile_plan`, blocks of 128 queries, tiles of 64
+// keys at D <= 64 and 32 above) at batch stride plan_b and row width plan_w.
+// strides: out's (b, h, n, d), seg_q's and seg_k's batch strides, plan_b,
+// plan_w. qscale = scale * log2(e). Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int vjepa2_flash_fwd_fp32(const void* q_nat, const void* k_nat, const void* v_tr,
-                                     void* out, void* lse, int B, int H, int D, int N, int M,
-                                     const long long* o_str, float qscale, void* stream) {
+                                     void* out, void* lse, const void* seg_q, const void* seg_k,
+                                     const void* plan, int B, int H, int D, int N, int M,
+                                     int causal, const long long* strides, float qscale,
+                                     void* stream) {
+  const long long* o_str = strides;
+  const bool masked = seg_q != nullptr || causal != 0;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 32767 || H > 65535 || !aligned16(out) ||
-      lse == nullptr || o_str[0] % 2 != 0 || o_str[1] % 2 != 0 || o_str[2] % 2 != 0)
+      lse == nullptr || o_str[0] % 2 != 0 || o_str[1] % 2 != 0 || o_str[2] % 2 != 0 ||
+      (seg_q == nullptr) != (seg_k == nullptr) || strides[4] < 0 || strides[5] < 0 ||
+      masked != (plan != nullptr) || strides[6] < 0 ||
+      (masked && strides[7] < 1 + (M + (D <= 64 ? 64 : 32) - 1) / (D <= 64 ? 64 : 32)))
     return cudaErrorInvalidValue;
   FwdParams p;
   if (!encode_split(&p.tm_q, q_nat, D, N, H, B, kBlockQ) ||
@@ -279,6 +350,14 @@ extern "C" int vjepa2_flash_fwd_fp32(const void* q_nat, const void* k_nat, const
       !encode_split(&p.tm_vt, v_tr, padded8(M), D, H, B, D))
     return cudaErrorInvalidValue;
   p.q_nat = static_cast<const float*>(q_nat);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_k = static_cast<const int*>(seg_k);
+  p.segq_b = strides[4];
+  p.segk_b = strides[5];
+  p.plan = static_cast<const int*>(plan);
+  p.plan_b = strides[6];
+  p.plan_w = strides[7];
+  p.causal = causal != 0;
   p.o = static_cast<float*>(out);
   p.lse = static_cast<float*>(lse);
   p.o_b = o_str[0];

@@ -16,9 +16,19 @@
 //     rotated values. With kv_valid the wrapper passes the valid keys as n,
 //     so only those are split;
 //   * `flash_fp32_stats_kernel`: delta = rowsum(dout * out) in fp32 and
-//     lse * log2(e) (+inf where lse is -inf, and past N), [B, H, Np], a warp a row.
+//     lse * log2(e) (+inf where lse is -inf, and past N), [B, H, Np], a warp a row;
+//   * `flash_fp32_plan_kernel`: the masked kernels' tile plan (segment ids or
+//     the causal mask; `ops/flash_attention.py mask_tile_plan` is its plain
+//     version): for each block of rows (queries, or keys for dK/dV) the
+//     tiles of columns that hold an attended pair, in order, each marked
+//     partial (`kPartialTile`) where one of its pairs is masked. A block of
+//     128 threads a row block: the rows' smallest and largest id (positions
+//     under causal, the same predicate j <= i), then, 128 tiles at a time,
+//     each thread its tile's, and an ordered compaction by a block scan.
 // What bounds it: bytes, O(N*D): at [1,16,36864,88] the backward's pre-pass
 // reads 0.8 GB and writes 2.9 GB, next to the main kernels' O(N^2 D) work.
+
+#include <climits>
 
 #include "flash_fp32.cuh"
 
@@ -169,6 +179,97 @@ int split(const void* x, const long long* st, const Tables& t, void* nat, void* 
   return dispatch_width<RunSplit>(D, p, s);
 }
 
+struct PlanParams {
+  const int* seg_q;  // [B, n] at batch stride segq_b, or null (causal: positions)
+  const int* seg_k;  // [B, >= m] at segk_b
+  long long segq_b, segk_b;
+  int* plan;         // [B|1][row blocks][plan_w]: the count, the entries, -1 past them
+  long long plan_b;
+  int plan_w, n, m, block, tile, keys_major;
+};
+
+constexpr int kPlanThreads = 128;
+
+// Smallest and largest id of ids[lo, hi) (positions where ids is null).
+__device__ __forceinline__ void id_range(const int* ids, int lo, int hi, int& mn, int& mx) {
+  if (ids == nullptr) {
+    mn = lo, mx = hi - 1;
+    return;
+  }
+  mn = INT_MAX, mx = INT_MIN;
+  for (int i = lo; i < hi; ++i) mn = min(mn, ids[i]), mx = max(mx, ids[i]);
+}
+
+// x summed over the block's threads, before this one (exclusive) and in all.
+__device__ __forceinline__ int block_scan(int x, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+  for (int w = 0; w < kPlanThreads / 32; ++w) {
+    before += w < warp ? s_warp[w] : 0;
+    total += s_warp[w];
+  }
+  __syncthreads();  // s_warp is reused by the next call
+  return before + incl - x;
+}
+
+__global__ void __launch_bounds__(kPlanThreads)
+    flash_fp32_plan_kernel(const __grid_constant__ PlanParams p) {
+  __shared__ int s_red[2][kPlanThreads / 32], s_warp[kPlanThreads / 32];
+  const int b = blockIdx.y, r = blockIdx.x;
+  const int* sq = p.seg_q != nullptr ? p.seg_q + b * p.segq_b : nullptr;
+  const int* sk = p.seg_k != nullptr ? p.seg_k + b * p.segk_b : nullptr;
+  // rows: queries (keys_major: keys below m); columns: keys below m (queries)
+  const int* rid = p.keys_major ? sk : sq;
+  const int* cid = p.keys_major ? sq : sk;
+  const int rows = p.keys_major ? p.m : p.n, cols = p.keys_major ? p.n : p.m;
+  const int r0 = r * p.block, r1 = min(r0 + p.block, rows);
+  int mn = INT_MAX, mx = INT_MIN;  // the row block's ids
+  for (int i = r0 + threadIdx.x; i < r1; i += kPlanThreads) {
+    const int v = rid != nullptr ? rid[i] : i;
+    mn = min(mn, v), mx = max(mx, v);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  if ((threadIdx.x & 31) == 0) s_red[0][threadIdx.x >> 5] = mn, s_red[1][threadIdx.x >> 5] = mx;
+  __syncthreads();
+  for (int w = 0; w < kPlanThreads / 32; ++w) mn = min(mn, s_red[0][w]), mx = max(mx, s_red[1][w]);
+  int* out = p.plan + b * p.plan_b + (long long)r * p.plan_w;
+  const int n_tiles = (cols + p.tile - 1) / p.tile;
+  int count = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += kPlanThreads) {
+    const int t = t0 + threadIdx.x;
+    bool live = false;
+    int entry = 0;
+    if (t < n_tiles) {
+      int cmn, cmx;
+      id_range(cid, t * p.tile, min((t + 1) * p.tile, cols), cmn, cmx);
+      const int q_mn = p.keys_major ? cmn : mn, q_mx = p.keys_major ? cmx : mx;
+      const int k_mn = p.keys_major ? mn : cmn, k_mx = p.keys_major ? mx : cmx;
+      live = q_mx >= k_mn;
+      const bool full = q_mn >= k_mx && (p.keys_major || (t + 1) * p.tile <= p.m);
+      entry = t | (full ? 0 : kPartialTile);
+    }
+    int total;
+    const int at = block_scan(live, s_warp, total);
+    if (live) out[1 + count + at] = entry;
+    count += total;
+  }
+  for (int i = count + threadIdx.x; i < n_tiles; i += kPlanThreads) out[1 + i] = -1;
+  if (threadIdx.x == 0) out[0] = count;
+}
+
 // The tables of an entry point's arguments; false if only one is given or
 // the row stride is below D.
 bool tables(const void* cos, const void* sin, long long t_b, long long t_n, int D, Tables* t) {
@@ -229,5 +330,29 @@ extern "C" int vjepa2_flash_fp32_prepass_bwd(const void* q, const void* k, const
                       static_cast<const float*>(lse), static_cast<float*>(delta),
                       static_cast<float*>(lse2), H, N, Np, D};
   flash_fp32_stats_kernel<<<dim3(Np / 8, H, B), 256, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+// The masked kernels' tile plan (`mask_tile_plan`'s layout): plan [Bp][row
+// blocks][plan_w] int32 for rows of `block` queries (keys_major: keys below
+// m) and tiles of `tile` keys below m (queries), plan_w >= 1 + the tiles.
+// seg_q [Bp, n] and seg_k [Bp, >= m] int32 (query i attends key j iff
+// seg_q[i] >= seg_k[j]), or both null for the causal mask (j <= i). strides:
+// seg_q's and seg_k's batch strides, the plan's. Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int vjepa2_flash_fp32_plan(const void* seg_q, const void* seg_k, void* plan, int Bp,
+                                      int n, int m, int block, int tile, int keys_major,
+                                      int plan_w, const long long* strides, void* stream) {
+  const int rows = keys_major ? m : n, cols = keys_major ? n : m;
+  if (Bp <= 0 || Bp > 65535 || n <= 0 || m <= 0 || block <= 0 || tile <= 0 || plan == nullptr ||
+      (seg_q == nullptr) != (seg_k == nullptr) || strides[0] < 0 || strides[1] < 0 ||
+      strides[2] < 0 || plan_w < 1 + (cols + tile - 1) / tile ||
+      (cols + tile - 1) / tile >= kPartialTile)
+    return cudaErrorInvalidValue;
+  const PlanParams p{static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), strides[0],
+                     strides[1], static_cast<int*>(plan), strides[2], plan_w, n, m, block,
+                     tile, keys_major != 0};
+  flash_fp32_plan_kernel<<<dim3((rows + block - 1) / block, Bp), kPlanThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }

@@ -10,7 +10,11 @@ builds the V-JEPA 2-AC pair that planning runs on: the 22-head ViT-g and the
 Each factory builds on the card, in bf16, with the flash kernels on
 (``device="cuda"``, ``use_flash=True``); without a CUDA device it raises
 unless the caller passes ``device="cpu"`` (fp32 there unless ``dtype``
-says). ``checkpoint=<torch .pt>`` loads released weights by key, with no
+says). ``dtype=torch.float32`` on the card computes in fp32 on the fp32
+flash kernels, as JAX's factories do by default (`vjepa2_tpu/hub/
+backbones.py:46`, `:92`): ``vjepa2_ac_vit_giant(dtype=torch.float32)`` plans
+at fp32, the AC predictor's frame-causal attention included.
+``checkpoint=<torch .pt>`` loads released weights by key, with no
 conversion: ``module.`` / ``backbone.`` prefixes dropped, as JAX's
 ``clean_prefixes`` does (`vjepa2_tpu/hub/converter.py:31-36`). Otherwise the
 weights are drawn from ``generator``. The modules hold their weights, so

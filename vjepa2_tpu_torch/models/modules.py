@@ -281,12 +281,12 @@ class Attention(nn.Module):
     split-half ``rope_expanded`` tables and the matching ``qkv_perm``
     (`qkv_row_perm`). Other widths have no flash kernel and raise. The DN
     kernels take bf16 only: fp32 operands on the card take the BHND route at
-    every width, whose fp32 kernels take the frozen probes' plain attention
-    and the fp32 pretrain step's RoPE tables (shared or per example) and
-    kv_valid, at heads of 32 (the predictor) and 64 (the encoder) as at 80,
-    88 and 104; segment ids at fp32 (`ACAttention`'s) raise there (on the
-    CPU both routes are the same plain function, and the DN one stays, as in
-    JAX). Without
+    every width, whose fp32 kernels take the frozen probes' plain attention,
+    the fp32 pretrain step's RoPE tables (shared or per example) and
+    kv_valid, and `ACAttention`'s frame-causal segment ids with the stack
+    pad's keys on `PAD_SEGMENT`, at heads of 32 (the predictor) and 64 (the
+    encoders, the AC predictor) as at 80, 88 and 104 (on the CPU both routes
+    are the same plain function, and the DN one stays, as in JAX). Without
     ``use_flash`` it takes the plain route, with RoPE from the interleaved
     ``rope_cache``.
     """

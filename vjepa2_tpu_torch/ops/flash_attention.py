@@ -13,9 +13,9 @@ its forward saves (q, k, v, out, lse) and its backward is
 `flash_attention_bhnd_bwd`. On a CUDA tensor each launches its hand-written
 Hopper kernel or raises: bf16 operands `csrc/flash_fwd_bhnd.cu` and
 `csrc/flash_bwd_bhnd.cu`; fp32 operands `csrc/flash_fp32.cuh` (3xTF32 on
-the tensor cores after a split pre-pass that also rotates q and k; RoPE and
-kv_valid, as the pretrain step runs them; segment ids and the causal mask
-raise there, ROADMAP queue B). On a CPU tensor they run
+the tensor cores after a split pre-pass that also rotates q and k). Both
+take every feature: RoPE, kv_valid, segment ids with key-side ids of their
+own and the causal mask. On a CPU tensor they run
 `flash_attention_bhnd_plain` and `flash_attention_bhnd_bwd_plain`, the plain
 versions of both. There is no other route. One CUDA backward
 serves both TPU backwards: it computes their one function, with no gate.
@@ -36,6 +36,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from vjepa2_tpu_torch import _build
 from vjepa2_tpu_torch.ops.attention import attention_mask, softmax_attention
@@ -235,16 +236,6 @@ def _check_cuda(D, **tensors) -> torch.dtype:
     return next(iter(dtypes.values()))
 
 
-def _refuse_fp32_features(seg_q, causal) -> None:
-    """The fp32 kernels take RoPE and kv_valid (the probes' and the pretrain
-    step's attention); segment ids and the causal mask are still to port."""
-    named = [name for name, on in (("segment ids", seg_q is not None), ("causal", causal)) if on]
-    if named:
-        raise NotImplementedError(
-            f"the fp32 BHND flash kernels (csrc/flash_fp32.cuh) take no {' or '.join(named)} "
-            "yet (ROADMAP queue B); these features run on bf16 operands")
-
-
 def _side_inputs(dev, cos, sin, seg_q, seg_k):
     """RoPE tables as [B|1, N, D] contiguous fp32 and segment ids as [B, N|M]
     int32, on ``dev``; plus their strides (t_b, t_n, t_d, segq_b, segk_b),
@@ -382,10 +373,11 @@ def fp32_scratch(B: int, H: int, N: int, M: int, D: int, backward: bool) -> tupl
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FP32_ARGTYPES = {
     "vjepa2_flash_fp32_prepass_fwd": _build.launcher_argtypes(8, 5, 0),
-    "vjepa2_flash_fwd_fp32": _build.launcher_argtypes(5, 5, 1),
+    "vjepa2_flash_fwd_fp32": _build.launcher_argtypes(8, 6, 1),
     "vjepa2_flash_fp32_prepass_bwd": _build.launcher_argtypes(17, 6, 0),
-    "vjepa2_flash_bwd_fp32_dq": [_P] * 10 + [_I] * 6 + [_L] * 2 + [_F] * 2 + [_P],
-    "vjepa2_flash_bwd_fp32_dkdv": [_P] * 12 + [_I] * 7 + [_L] * 2 + [_F] * 2 + [_P],
+    "vjepa2_flash_bwd_fp32_dq": [_P] * 13 + [_I] * 7 + [_L] * 6 + [_F] * 2 + [_P],
+    "vjepa2_flash_bwd_fp32_dkdv": [_P] * 15 + [_I] * 8 + [_L] * 6 + [_F] * 2 + [_P],
+    "vjepa2_flash_fp32_plan": _build.launcher_argtypes(3, 7, 0),
 }
 
 
@@ -415,23 +407,114 @@ def _scratch(dev, B, H, N, M, D, backward):
     return buf, {name: buf.data_ptr() + off for name, off in offsets}
 
 
-def _fp32_side(q, k, cos, sin, seg_q, causal, kv_valid_len):
+# The fp32 kernels' blocks and tiles (`csrc/flash_fp32_*.cu`): the forward
+# takes blocks of 128 queries and tiles of 64 keys (32 above Dh 64), dQ
+# blocks of 64 queries and tiles of 32 keys, dK/dV blocks of 64 keys and
+# tiles of 32 queries. A masked plan's entry is a tile's index, with
+# PARTIAL_TILE set where one of its pairs is masked.
+FP32_FWD_BLOCK, FP32_BWD_BLOCK, FP32_BWD_TILE = 128, 64, 32
+PARTIAL_TILE = 1 << 16
+_I32 = torch.iinfo(torch.int32)
+
+
+def fp32_fwd_key_tile(d: int) -> int:
+    """Keys a tile of the fp32 forward at head width ``d``."""
+    return 64 if d <= 64 else 32
+
+
+def _id_bounds(ids, n: int, size: int):
+    """(min, max) of ids [B', n] over blocks of ``size`` (a ragged last
+    block's missing entries left out), [B', ceil(n / size)] each."""
+    nb, pad = -(-n // size), -(-n // size) * size - n
+    lo = F.pad(ids, (0, pad), value=_I32.max).view(ids.shape[0], nb, size).amin(-1)
+    hi = F.pad(ids, (0, pad), value=_I32.min).view(ids.shape[0], nb, size).amax(-1)
+    return lo, hi
+
+
+def mask_tile_plan(seg_q, seg_k, causal: bool, n: int, m: int, block: int, tile: int,
+                   keys_major: bool = False, device=None):
+    """The masked fp32 kernels' plan, as `csrc/flash_fp32_split.cu`'s
+    `flash_fp32_plan_kernel` builds it on the card (this is its plain
+    version, which the tests hold it to): for each block of ``block`` queries
+    (of keys with ``keys_major``, as dK/dV runs), the tiles of ``tile`` keys
+    (queries) that hold an attended pair, in order, each with PARTIAL_TILE
+    set where one of its pairs is masked (the kernel tests those pair by
+    pair, and skips the test on the others): int32 [B|1, n_blocks, 1 +
+    n_tiles], the count, then the entries, -1 past the count.
+
+    seg_q [B, n] and seg_k [B, >= m] integer ids: query i attends key j iff
+    seg_q[i] >= seg_k[j]; ``causal``: iff j <= i, the same predicate on
+    positions. ``m``: the keys the kernels run over (kv_valid); a key tile
+    reaching past it is partial (its ragged edge) in the query-major plans.
+    A tile is live iff the block's largest query id reaches the tile's
+    smallest key id, and full iff its smallest reaches the tile's largest."""
+    if seg_q is not None:
+        q_ids, k_ids = seg_q.to(torch.int32), seg_k[:, :m].to(torch.int32)
+    else:
+        q_ids = torch.arange(n, device=device, dtype=torch.int32)[None]
+        k_ids = torch.arange(m, device=device, dtype=torch.int32)[None]
+    q_lo, q_hi = _id_bounds(q_ids, n, tile if keys_major else block)
+    k_lo, k_hi = _id_bounds(k_ids, m, block if keys_major else tile)
+    if keys_major:  # [B, key blocks, query tiles]
+        live = q_hi[:, None, :] >= k_lo[:, :, None]
+        full = q_lo[:, None, :] >= k_hi[:, :, None]
+    else:  # [B, query blocks, key tiles]; a key tile past m is partial
+        live = q_hi[:, :, None] >= k_lo[:, None, :]
+        complete = (torch.arange(k_lo.shape[1], device=k_lo.device) + 1) * tile <= m
+        full = (q_lo[:, :, None] >= k_hi[:, None, :]) & complete
+    n_tiles = live.shape[-1]
+    if n_tiles >= PARTIAL_TILE:
+        raise ValueError(f"{n_tiles} tiles: the plan's entries hold tile indices below "
+                         f"{PARTIAL_TILE}")
+    idx = torch.arange(n_tiles, device=live.device, dtype=torch.int32)
+    entries = torch.where(live, idx + PARTIAL_TILE * (~full).to(torch.int32), -1)
+    order = torch.sort(torch.where(live, idx, n_tiles), dim=-1).indices
+    entries = torch.gather(entries, -1, order)
+    count = live.sum(-1, dtype=torch.int32)[..., None]
+    return torch.cat([count, entries], -1).contiguous()
+
+
+def _plan_cuda(seg_q, seg_k, causal, n, m, block, tile, keys_major, dev):
+    """(`mask_tile_plan`'s plan built on the card by `flash_fp32_plan_kernel`,
+    its batch stride (0 when shared), its row width); (None, 0, 0) when
+    nothing is masked. seg_q, seg_k: `_side_inputs`' int32 ids, or None."""
+    if seg_q is None and not causal:
+        return None, 0, 0
+    rows, cols = (m, n) if keys_major else (n, m)
+    bp = 1 if seg_q is None else seg_q.shape[0]
+    plan = torch.empty((bp, -(-rows // block), 1 + -(-cols // tile)), dtype=torch.int32,
+                       device=dev)
+    plan_b = plan.stride(0) if bp > 1 else 0
+    segq_b, segk_b = (0, 0) if seg_q is None else (seg_q.stride(0), seg_k.stride(0))
+    _call_fp32("vjepa2_flash_fp32_plan", seg_q, seg_k, plan, bp, n, m, block, tile,
+               int(keys_major), plan.shape[2], _strides(extra=(segq_b, segk_b, plan_b)), dev=dev)
+    return plan, plan_b, plan.shape[2]
+
+
+def _fp32_side(q, k, cos, sin, seg_q, seg_k, kv_valid_len):
     """What the fp32 entry points take beside the operands: the tables as
     `_side_inputs` lays them out (None without RoPE), their (batch, row)
-    strides, and the keys the kernels run over (kv_valid, else M)."""
-    _refuse_fp32_features(seg_q, causal)
-    cos, sin, _, _, (t_b, t_n, _, _, _) = _side_inputs(q.device, cos, sin, None, None)
-    return cos, sin, (t_b, t_n), k.shape[2] if kv_valid_len is None else kv_valid_len
+    strides, the keys the kernels run over (kv_valid, else M), then the
+    segment ids as `_side_inputs` lays them out (int32 [B, N] and [B, M],
+    None without) and their batch strides."""
+    cos, sin, seg_q, seg_k, (t_b, t_n, _, segq_b, segk_b) = _side_inputs(q.device, cos, sin,
+                                                                       seg_q, seg_k)
+    Mv = k.shape[2] if kv_valid_len is None else kv_valid_len
+    return cos, sin, (t_b, t_n), Mv, seg_q, seg_k, (segq_b, segk_b)
 
 
-def _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, causal, kv_valid_len):
+def _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len):
     """The fp32 forward (`csrc/flash_fp32_split.cu`, which rotates q and k
-    with RoPE, then `csrc/flash_fp32_fwd.cu` over the first kv_valid keys):
-    out in BNHD memory seen as BHND, as the bf16 kernel writes it, and lse."""
+    with RoPE, then `csrc/flash_fp32_fwd.cu` over the first kv_valid keys,
+    masking by segment ids and the causal mask): out in BNHD memory seen as
+    BHND, as the bf16 kernel writes it, and lse."""
     global LAUNCHES_FP32
     B, H, N, D = q.shape
-    cos, sin, tables, Mv = _fp32_side(q, k, cos, sin, seg_q, causal, kv_valid_len)
+    cos, sin, tables, Mv, seg_q, seg_k, seg_b = _fp32_side(q, k, cos, sin, seg_q, seg_k,
+                                                           kv_valid_len)
     dev = q.device
+    plan, plan_b, plan_w = _plan_cuda(seg_q, seg_k, causal, N, Mv, FP32_FWD_BLOCK,
+                                      fp32_fwd_key_tile(D), False, dev)
     q, k, v = map(vec4_operand, (q, k, v))
     out = torch.empty((B, N, H, D), dtype=torch.float32, device=dev).transpose(1, 2)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
@@ -439,22 +522,27 @@ def _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, causal, kv_valid_len):
     buf, at = _scratch(dev, B, H, N, Mv, D, False)
     _call_fp32("vjepa2_flash_fp32_prepass_fwd", q, k, v, cos, sin, at["q_nat"], at["k_nat"],
                at["v_tr"], B, H, D, N, Mv, _strides(q, k, v, extra=tables), dev=dev)
-    _call_fp32("vjepa2_flash_fwd_fp32", at["q_nat"], at["k_nat"], at["v_tr"], out, lse,
-               B, H, D, N, Mv, _strides(out), scale * _build.LOG2E, dev=dev)
+    _call_fp32("vjepa2_flash_fwd_fp32", at["q_nat"], at["k_nat"], at["v_tr"], out, lse, seg_q,
+               seg_k, plan, B, H, D, N, Mv, int(causal),
+               _strides(out, extra=(*seg_b, plan_b, plan_w)), scale * _build.LOG2E, dev=dev)
     LAUNCHES_FP32 += 1
     return out, lse
 
 
-def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, causal, kv_valid_len):
+def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal,
+                    kv_valid_len):
     """The fp32 backward (`csrc/flash_fp32_split.cu`, then
     `csrc/flash_fp32_dq.cu` and `csrc/flash_fp32_dkdv.cu`, dq and dk through
-    the RoPE adjoint in their epilogues): dq, dk, dv contiguous, dk and dv
-    zero at and past kv_valid."""
+    the RoPE adjoint in their epilogues, p 0 where the masks say): dq, dk,
+    dv contiguous, dk and dv zero at and past kv_valid."""
     global LAUNCHES_BWD_FP32
     B, H, N, D = q.shape
     M = k.shape[2]
-    cos, sin, tables, Mv = _fp32_side(q, k, cos, sin, seg_q, causal, kv_valid_len)
+    cos, sin, tables, Mv, seg_q, seg_k, seg_b = _fp32_side(q, k, cos, sin, seg_q, seg_k,
+                                                           kv_valid_len)
     dev = q.device
+    plans = [_plan_cuda(seg_q, seg_k, causal, N, Mv, FP32_BWD_BLOCK, FP32_BWD_TILE, keys_major,
+                        dev) for keys_major in (False, True)]
     q, k, v, out, do = map(vec4_operand, (q, k, v, out, do))
     dq = torch.empty((B, H, N, D), dtype=torch.float32, device=dev)
     dk = torch.empty((B, H, M, D), dtype=torch.float32, device=dev)
@@ -469,11 +557,13 @@ def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, causal, kv_va
     # dQ, then dK/dV, on one stream, from the pre-pass's copies and statistics
     _call_fp32("vjepa2_flash_bwd_fp32_dq",
                *(at[n] for n in ("q_nat", "k_nat", "v_nat", "do_nat", "k_tr", "delta", "lse2")),
-               cos, sin, dq, B, H, D, N, Mv, Np, *tables, scale, qscale, dev=dev)
+               cos, sin, seg_q, seg_k, plans[0][0], dq, B, H, D, N, Mv, Np, int(causal),
+               *tables, *seg_b, *plans[0][1:], scale, qscale, dev=dev)
     _call_fp32("vjepa2_flash_bwd_fp32_dkdv",
                *(at[n] for n in ("q_nat", "k_nat", "v_nat", "do_nat", "q_tr", "do_tr", "delta",
                                  "lse2")),
-               cos, sin, dk, dv, B, H, D, N, Mv, M, Np, *tables, scale, qscale, dev=dev)
+               cos, sin, seg_q, seg_k, plans[1][0], dk, dv, B, H, D, N, Mv, M, Np,
+               int(causal), *tables, *seg_b, *plans[1][1:], scale, qscale, dev=dev)
     LAUNCHES_BWD_FP32 += 1
     return dq, dk, dv
 
@@ -483,7 +573,7 @@ def _flash_fwd_cuda(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len
     B, H, N, D = q.shape
     M = k.shape[2]
     if _check_cuda(D, q=q, k=k, v=v) == torch.float32:
-        return _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, causal, kv_valid_len)
+        return _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len)
     dev = q.device
     cos, sin, seg_q, seg_k, side = _side_inputs(dev, cos, sin, seg_q, seg_k)
     # BNHD memory seen as BHND: the output projection reads it as [B, N, H*D]
@@ -518,7 +608,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal
     if any(t.device != dev for t in (out, lse, do)):
         raise ValueError("q, k, v, out, lse and do must be on one device")
     if dtype == torch.float32:
-        return _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, causal,
+        return _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal,
                                kv_valid_len)
     cos, sin, seg_q, seg_k, side = _side_inputs(dev, cos, sin, seg_q, seg_k)
     rope = cos is not None
@@ -590,7 +680,7 @@ def flash_attention_bhnd_bwd(q, k, v, out, lse, do, segment_ids=None, causal: bo
     a global one, as a ring hop's backward passes it (with ``seg_kv``).
 
     A CUDA tensor launches the B4/B5 kernel (bf16, any strides) or its fp32
-    counterpart (no segment ids or causal mask) or raises; a CPU tensor takes
+    counterpart or raises; a CPU tensor takes
     `flash_attention_bhnd_bwd_plain`.
     """
     return _bwd_with_tables(_bwd, q, k, v, out, lse, do, segment_ids, causal, scale,
@@ -649,8 +739,7 @@ def flash_attention_bhnd(q, k, v, segment_ids=None, causal: bool = False,
 
     Returns out [B, H, N, D] (and lse [B, H, N] fp32 with ``return_lse``).
     A CUDA tensor launches the kernels (head width 32, 64, 80, 88 or 104;
-    bf16, or fp32 without segment ids or the causal mask) or raises; a CPU
-    tensor takes the plain versions.
+    bf16 or fp32) or raises; a CPU tensor takes the plain versions.
     """
     if rope_tables is not None:
         q, k, rope_expanded, _ = _expand(q, k, rope_tables)  # differentiable gathers

@@ -67,7 +67,8 @@ CATEGORIES = [
                               "bhnd_bwd_prologue_kernel")),
     ("B3 fp32 flash_fp32_fwd", ("flash_fp32_fwd_kernel",)),
     ("B4/B5 fp32 flash_fp32_dq/dkdv", ("flash_fp32_dq_kernel", "flash_fp32_dkdv_kernel")),
-    ("B3-B5 fp32 split pre-pass", ("flash_fp32_split_kernel", "flash_fp32_stats_kernel")),
+    ("B3-B5 fp32 split pre-pass", ("flash_fp32_split_kernel", "flash_fp32_stats_kernel",
+                                   "flash_fp32_plan_kernel")),
     ("B1 flash_fwd_dn", ("flash_fwd_dn_kernel", "rope_pack_kernel")),
     ("B2 flash_bwd_dn", ("flash_bwd_dn_dkdv_kernel", "flash_bwd_dn_dq_kernel",
                          "dn_bwd_prologue_kernel")),

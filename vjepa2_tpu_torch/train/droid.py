@@ -9,8 +9,9 @@ predictor is then trained with (a) teacher-forced next-frame prediction and
 whose first input frame is the teacher-forced prediction (the gradient runs
 through it into the teacher-forcing call). The loss is L1^p on both against
 the shifted target features; AdamW follows the WSD learning rate and the
-cosine weight decay. bf16 compute with fp32 parameters and optimizer state
-needs no loss scaling.
+cosine weight decay. Parameters and optimizer state are fp32 at either
+compute dtype (``meta.dtype``, bf16 or fp32 on the card); bf16 compute needs
+no loss scaling.
 
 JAX carries a trainable copy of the encoder when ``enc_lr_scale > 0``
 (`droid.py:249-250`); the objective never reads it, so its gradient is zero,

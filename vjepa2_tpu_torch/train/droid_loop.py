@@ -6,9 +6,10 @@ The target encoder is frozen (drawn from ``meta.seed``, or a pretrained
 encoder's state dict passed in as ``enc_state``); the AC predictor trains.
 What one card and this slice cannot honour is refused as in the
 `Pretrainer` (`loop._refuse`): several cards (ROADMAP A12), DROID
-trajectories from disk (A8b, with `data/droid.py`), in-process evals, and
-fp32 on the card (the AC predictor's frame-causal segment ids have no fp32
-flash kernel yet: ROADMAP queue B). The models take the flash routes whatever
+trajectories from disk (A8b, with `data/droid.py`) and in-process evals.
+``meta.dtype`` is the compute dtype on either device: bf16 on the card runs
+the bf16 kernels, fp32 the fp32 ones (the AC predictor's frame-causal
+segment ids included). The models take the flash routes whatever
 ``model.use_flash`` says: the kernels on the card, their plain versions on
 the CPU. Each iteration logs (epoch, itr, loss, iter_ms) to
 ``droid_log_r0.csv``; a non-finite loss aborts the run; every epoch ends
@@ -87,11 +88,6 @@ class DroidTrainer:
         _refuse(c, self.synthetic_data)
         self.device = entry_device(self.device)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"meta.dtype {c.meta.dtype!r} on the card: the AC predictor's frame-causal "
-                "segment ids have no fp32 flash kernel yet (ROADMAP queue B, segments at fp32); "
-                "set meta.dtype: bfloat16, or run on the CPU")
         # reference: max_num_frames = max(dataset_fpcs) (`train.py:106`)
         self.frames_per_clip = max(c.data.dataset_fpcs) if c.data.dataset_fpcs else 8
         m = c.model
