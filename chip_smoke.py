@@ -19,9 +19,10 @@ Phases, each printed as one JSON object on a line of its own:
    factory (RoPE, bf16, 16 frames at 256 px) and the SSv2 attentive probe
    (depth 4, 16 heads, 174 classes; fp32 on the flash route, as the evals'
    probes), random weights from a seeded generator, answering 3 requests of
-   8 clips; every request must launch B1 once per encoder layer and the fp32
-   BHND forward once per probe self-attention block (3), and the logits of
-   one clip must match the port's fp32 plain path on the CPU;
+   8 clips; every request must launch B1 once per encoder layer and B1 at
+   fp32 once per probe self-attention block (3: the probe's heads of 64 take
+   the DN route), and the logits of one clip must match the port's fp32
+   plain path on the CPU;
 5. kernel_bwd — the DN flash backward (B2, wgmma and TMA) against its plain
    PyTorch version at the training shapes, with RoPE tables per example from
    real collator masks: dq, dk and dv, each with its tolerance, both timed,
@@ -136,9 +137,10 @@ Phases, each printed as one JSON object on a line of its own:
    `configs/eval/vitl/ssv2.yaml`: 2 segments x batch 4 of 16f@256 clips, the
    encoder in bf16 into features [4, 4096, 1024], 10 fp32 probes of depth 4
    with 16 heads trained one at a time; synthetic clips), overriding only
-   ipe (3) and the epochs (1), as printed: 3 train steps and 1 val batch,
-   each launching B1 24 times and the fp32 BHND forward 30 times (3 blocks
-   x 10 probes; and its backward 30 times a train step), nothing else;
+   ipe (2) and the epochs (1), as printed: 2 train steps and 1 val batch,
+   each launching B1 24 times and B1 at fp32 30 times (3 blocks x 10
+   probes, heads of 64: the DN route; and B2 at fp32 30 times a train
+   step), nothing else;
    finite losses; a probe save
    and restore bit-equal; example 0's features and probe 0's logits on them
    against the fp32 CPU path end to end, every probe's logits and loss and
@@ -182,35 +184,46 @@ Phases, each printed as one JSON object on a line of its own:
    whichever is larger, the plain
    version's ms and `F.scaled_dot_product_attention`'s on the same fp32
    operands (q and k pre-rotated, k and v cut to kv_valid, segment ids as
-   the equivalent boolean mask) with the backend it picked;
+   the equivalent boolean mask) with the backend it picked; then B1 and B2
+   on fp32 operands (the same kernels on the DN layout [B, H, D, N]: the
+   split pre-pass reads it in place, the epilogues store D-major) against
+   their plain versions at the same tolerances, at `FP32_DN_SHAPES`: the
+   fp32 ViT-L step's target [8,16,64,2048] (shared RoPE, forward), a context
+   [8,16,64,584] (kv_valid 578) and a predictor [8,12,32,1664] (1662) on
+   per-example tables, the DROID AC rows [8,16,64,1808] (frame-causal, pad
+   keys on int32-max), the DROID target's frames [64,22,64,256] (forward),
+   the CEM's [400,16,64,264|520] (forward), and heads of 16 and 48; each
+   row also runs the BHND fp32 kernels on the same data transposed (their
+   ms, and whether their bits are the DN call's);
 25. train_fp32 (run after phase 21) — the fp32 pretraining path: (a) the
    shipped `configs/train/smoke-tiny.yaml` (`SMOKE_CONFIG`: vit_tiny, a
    depth-2 predictor, heads of 64, RoPE, fp32, batch 4 of 4f@64, ipe 8)
    through `cli.main`'s `run_vjepa` on the card, overriding only the run
    folder and ``meta.load_checkpoint`` (the resume reads epoch 0's
-   checkpoint): epoch 0, then a resumed epoch 1; every step launches the
-   fp32 forward 40 times and its backward 28 (`SMOKE_LAUNCHES`) and no bf16
-   attention kernel; finite losses, the restored state bit-equal to the
+   checkpoint): epoch 0, then a resumed epoch 1; every step launches B1 at
+   fp32 40 times and B2 at fp32 28 (`SMOKE_LAUNCHES`: heads of 64 take the
+   DN route, as in JAX) and no bf16 attention kernel and no BHND one
+   (`fp32_route`); finite losses, the restored state bit-equal to the
    saved one, 16 CSV rows, and the first 3 losses against the same config
    and seed on the CPU from the card's initial weights (`SMOKE_LOSS_RTOL`);
    (b) phase 6's ViT-L step at fp32 (the model of
    `configs/train/vitl16/pretrain-256px-16f.yaml` with meta.dtype float32,
-   TF32 off): 1 warm-up and 3 timed steps, each launching the fp32 forward
-   96 times and its backward 72 (B1 and B2 none); clip 0's loss and
+   TF32 off): 1 warm-up and 3 timed steps, each launching B1 at fp32 96
+   times and B2 at fp32 72 (the BHND kernels none); clip 0's loss and
    gradients against phase 6's fp32 CPU path on the same weights, clip and
    masks, to tolerances phase 6's bf16 step misses (checked in the run); ms
    a step, clips/s, peak memory, one more step traced (wall, device-busy
    time, idle share);
 22. eval_image — the IN1K probe eval: `run_image_classification` on the
    shipped ViT-L config (`EVAL_IMAGE_CONFIG`: 64 images a batch as 16 fake
-   frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 3 and
-   1 epoch: each train step launches B1 24 times and the fp32 forward and
-   backward 18 times each, a val batch B1 24 and the forward 18; the checks
+   frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 2 and
+   1 epoch: each train step launches B1 24 times and B1 and B2 at fp32 18
+   times each, a val batch B1 24 and B1 at fp32 18; the checks
    of phase 19 with the CPU's share cut to the first 4 examples;
 23. eval_video_384 — the ViT-g/384 K400 probe eval: `run_video_classification`
    on the shipped config (`EVAL_VIDEO_384_CONFIG`: batch 1 of 8 segments of
    16f@384, the 22-head ViT-g into features [1, 36864, 1408], 10 fp32
-   probes of depth 4 with 16 heads of 88), ipe 2 and 1 epoch: each train
+   probes of depth 4 with 16 heads of 88), ipe 1 and 1 epoch: each train
    step launches B1 40 times at [8,22,64,4608] and the fp32 forward and
    backward 30 times each at [1,16,36864,88], a val batch B1 40 and the
    forward 30; finite losses, a probe save and restore bit-equal, and,
@@ -240,28 +253,29 @@ Phases, each printed as one JSON object on a line of its own:
 26. train_droid_fp32 (run before phase 17) — the DROID trainer at JAX's
    default precision: `run_vjepa_droid` on `DROID_CONFIG` with
    ``meta.dtype: float32`` (TF32 off), one epoch of 4 steps (phase 17 covers
-   the resume): every step launches the fp32 forward 88 times and its
-   backward 48, no bf16 attention kernel; trajectory 0's loss and predictor
+   the resume): every step launches B1 at fp32 88 times and B2 at fp32 48,
+   no bf16 attention kernel and no BHND one; trajectory 0's loss and predictor
    gradients on the initial weights, no op of it making a bf16 tensor,
    against phase 17's fp32 CPU trajectory (the same weights) within phase
    25's fp32 tolerances; ms a step, clips/s, peak, one traced step;
 27. plan_fp32 (run after phase 18) — `vjepa2_ac_vit_giant(dtype=
    torch.float32)` after `torch.manual_seed(0)` (phase 18's weights, bit for
-   bit) in a `WorldModel`: two encodes (40 fp32 forwards each), a warm-up
+   bit) in a `WorldModel`: two encodes (40 B1 launches at fp32 each), a warm-up
    plan at 1 CEM step (both rollout lengths), one timed plan at
-   `CEMConfig()` but for 3 of its 10 CEM steps (144 fp32 forwards at
-   [400,16,264,64] and [400,16,520,64] with frame-causal ids, no bf16
-   kernel; cut to keep the script within its time limit), the warm-up's
+   `CEMConfig()` but for 3 of its 10 CEM steps (144 B1 launches at fp32 at
+   [400,16,64,264] and [400,16,64,520] with frame-causal ids, no bf16
+   kernel and no BHND one; cut to keep the script within its time limit), the warm-up's
    repeat traced and bit-equal; no op of an encode or a step_fn makes a bf16 tensor; encode
    and step_fn against phase 18's fp32 CPU world model within 1e-4
    relative L2; ms per encode and plan, peak, the traced plan's idle share
    and kernel time by category.
 Phases 19, 20, 22 and 23 run in the order eval_anticipation, eval_video,
 eval_image, eval_video_384; each eval phase's CPU reference, like those of
-phases 9, 17, 18, 26 and 27, runs on a worker thread beside the card work of
-the phases after it (their steps are device-bound), and its record prints
-when that reference ends; the script waits for all of them before its
-summary.
+phases 4, 6, 9, 10, 14, 17, 18, 26 and 27, runs on a worker thread beside
+the card work of the phases after it (phase 6's beside the kernel phases,
+and train_fp32 waits for it; phases 9's and 14's from train_droid_fp32 on),
+and its record prints when that reference ends; the script waits for all
+of them before its summary.
 The kernel phases 3 and 5 also hold B1 and B2 at the cooldown's shapes
 ([2,16,64,8192] target, the contexts of 2302 and 568 tokens, the predictor
 sequences of 6479 and 6471), with per-example RoPE tables of real collator
@@ -455,10 +469,10 @@ BHND_BWD_SHAPES = [
 ]
 # the AC sequences of `BWD_SHAPES`: (frames of 2 + 256 tokens, stack pad)
 AC_SEQUENCES = {"ac": (7, 0), "ac_pad": (7, 2), "ac_rollout": (2, 0), "ac_rollout_pad": (2, 4)}
-# launch counters, in the order `_launch_counts` reads them
-# (the fp32 BHND forward and backward, `csrc/flash_fp32.cuh`, count apart)
+# launch counters, in the order `_launch_counts` reads them (the fp32 calls
+# of the BHND and DN wrappers, both on `csrc/flash_fp32.cuh`, count apart)
 KERNEL_COUNTS = ("b1", "b2", "b3", "bhnd_bwd", "b6_fwd", "b6_bwd", "b7", "b8", "b3_fp32",
-                 "bhnd_bwd_fp32")
+                 "bhnd_bwd_fp32", "b1_fp32", "b2_fp32")
 
 
 def _counts(**launches) -> tuple[int, ...]:
@@ -475,13 +489,14 @@ def _counts(**launches) -> tuple[int, ...]:
 # in all 96 blocks, the backwards in the 72 with gradients, B6's backward
 # twice in each (B7's and B8's LayerNorm tail).
 TRAIN_CFGS = {
-    ("vit_large", ""): ("train", (96, 72, 0, 0, 0, 0, 0, 0, 0, 0)),
-    ("vit_huge", ""): ("train_huge", (24, 24, 96, 64, 0, 0, 0, 0, 0, 0)),
-    ("vit_large", "qkv,mlp"): ("train_fused", (0, 0, 96, 72, 0, 144, 96, 96, 0, 0)),
+    ("vit_large", ""): ("train", _counts(b1=96, b2=72)),
+    ("vit_huge", ""): ("train_huge", _counts(b1=24, b2=24, b3=96, bhnd_bwd=64)),
+    ("vit_large", "qkv,mlp"): ("train_fused", _counts(b3=96, bhnd_bwd=72, b6_bwd=144, b7=96,
+                                                      b8=96)),
 }
-# The same ViT-L step at fp32 (phase train_fp32): every attention on the
-# fp32 BHND kernels, B1's 96 forwards and B2's 72 backwards moved there
-FP32_STEP = ("train_fp32", _counts(b3_fp32=96, bhnd_bwd_fp32=72))
+# The same ViT-L step at fp32 (phase train_fp32): every attention on the DN
+# route, as in JAX, through B1 and B2 at fp32 (the BHND fp32 kernels none)
+FP32_STEP = ("train_fp32", _counts(b1_fp32=96, b2_fp32=72))
 # Clip 0's loss and gradients of the fp32 step on the card against the fp32
 # CPU path of phase 6 (the same weights, clip and masks): fp32 on both
 # sides, the GEMMs in another summation order (cuBLAS, TF32 off), the
@@ -495,8 +510,8 @@ FP32_STEP = ("train_fp32", _counts(b3_fp32=96, bhnd_bwd_fp32=72))
 FP32_TRAIN_LOSS_REL, FP32_TRAIN_GRAD_REL_L2 = 1e-5, 1e-3
 # The shipped smoke config (phase train_fp32): vit_tiny (12 x 192, heads of
 # 64) and a 2 x 192 predictor (heads of 64), RoPE, fp32, 4 frames at 64 px,
-# batch 4, ipe 8. A step launches the fp32 forward 12 (target) + 2 x 12
-# (contexts) + 2 x 2 (predictor) times and the backward 2 x (12 + 2).
+# batch 4, ipe 8. A step launches B1 at fp32 12 (target) + 2 x 12
+# (contexts) + 2 x 2 (predictor) times and B2 at fp32 2 x (12 + 2).
 SMOKE_CONFIG_FILE = "configs/train/smoke-tiny.yaml"
 SMOKE_CONFIG = {
     "app": "vjepa", "folder": "/tmp/vjepa2_tpu_smoke",
@@ -521,7 +536,7 @@ SMOKE_CONFIG = {
 # the shipped file keeps load_checkpoint off; the resumed epoch 1 reads the
 # checkpoint epoch 0 saved (epoch 0 finds none in its fresh folder)
 SMOKE_OVERRIDES = {"meta.load_checkpoint": True}
-SMOKE_LAUNCHES = _counts(b3_fp32=12 + 2 * 12 + 2 * 2, bhnd_bwd_fp32=2 * (12 + 2))
+SMOKE_LAUNCHES = _counts(b1_fp32=12 + 2 * 12 + 2 * 2, b2_fp32=2 * (12 + 2))
 # the smoke loop's first 3 losses on the card against the same config and
 # seed on the CPU (fp32 plain path) from the card's initial weights: fp32 on
 # both sides through 12 + 2 layers and 2 Adam steps (the CPU loop's parity
@@ -535,8 +550,8 @@ GIANT_REL_L2 = 5e-2  # bf16 on the card against fp32 on the CPU, 40 layers
 # cooldown under save_attn_qkv_h (nothing recomputes the attention forward),
 # 6 microbatches of 24 target + 2 x 24 context + 2 x 12 predictor B1 and
 # 2 x (24 + 12) B2.
-LOOP_LAUNCHES = (48, 24, 160, 64, 0, 0, 0, 0, 0, 0)
-ACCUM_LAUNCHES = (6 * 96, 6 * 72, 0, 0, 0, 0, 0, 0, 0, 0)
+LOOP_LAUNCHES = _counts(b1=48, b2=24, b3=160, bhnd_bwd=64)
+ACCUM_LAUNCHES = _counts(b1=6 * 96, b2=6 * 72)
 
 # The shipped configs the loop phases run, held here as `yaml.safe_load`
 # gives them (the card's host may lack PyYAML; `tests/test_torch_loop.py`
@@ -608,19 +623,19 @@ DROID_CONFIG = {
 }
 DROID_IPE = 4
 DROID_OVERRIDES = {"optimization.ipe": DROID_IPE, "optimization.epochs": 2}
-DROID_LAUNCHES = (40 + 2 * 24, 2 * 24, 0, 0, 0, 0, 0, 0, 0, 0)
+DROID_LAUNCHES = _counts(b1=40 + 2 * 24, b2=2 * 24)
 # The same config at meta.dtype float32 (phase train_droid_fp32, one epoch):
-# every attention on the fp32 BHND kernels, B1's 88 forwards and B2's 48
-# backwards moved there (the AC rows' frame-causal ids and pad keys too)
+# every attention on B1 and B2 at fp32 (heads of 64: the DN route, the AC
+# rows' frame-causal ids and pad keys too), the BHND fp32 kernels none
 DROID_FP32_OVERRIDES = {"meta.dtype": "float32", "optimization.ipe": DROID_IPE,
                         "optimization.epochs": 1}
-DROID_FP32_LAUNCHES = _counts(b3_fp32=40 + 2 * 24, bhnd_bwd_fp32=2 * 24)
+DROID_FP32_LAUNCHES = _counts(b1_fp32=40 + 2 * 24, b2_fp32=2 * 24)
 # CEM planning (phase plan) on the hub's `vjepa2_ac_vit_giant()` at
 # `CEMConfig`'s defaults (400 samples, rollout 2, 10 steps, top-k 10): an
 # encode runs B1 once a ViT-g layer, a plan once an AC predictor layer in each
 # of its 10 x 2 rollout calls (over 400 x 264 and 400 x 520 tokens)
-ENCODE_LAUNCHES = (40, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-PLAN_LAUNCHES = (10 * 2 * 24, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+ENCODE_LAUNCHES = _counts(b1=40)
+PLAN_LAUNCHES = _counts(b1=10 * 2 * 24)
 PLAN_TIMED, PLAN_CANDIDATES = 1, 4  # timed plans cut from 2 (the script's time limit)
 # encode and step_fn, bf16 on the card against fp32 on the CPU: the serving
 # slice's relative L2 (40 ViT-g layers, then 24 predictor layers on top); the
@@ -628,9 +643,9 @@ PLAN_TIMED, PLAN_CANDIDATES = 1, 4  # timed plans cut from 2 (the script's time 
 # same arithmetic in another order
 PLAN_REL_L2, CEM_UPDATE_ATOL = 5e-2, 1e-6
 # The same plan at fp32 (phase plan_fp32: `vjepa2_ac_vit_giant(dtype=
-# torch.float32)`): every attention on the fp32 BHND kernels, an encode's 40
-# and a plan's 480 forwards (the AC rows with their frame-causal ids and pad
-# keys), no bf16 kernel. One timed plan at `CEMConfig()` but for its CEM
+# torch.float32)`): every attention on B1 at fp32 (the DN route, heads of
+# 64), an encode's 40 and a plan's 480 forwards (the AC rows with their
+# frame-causal ids and pad keys), no bf16 kernel and no BHND one. One timed plan at `CEMConfig()` but for its CEM
 # steps, PLAN_FP32_STEPS of its 10; its warm-up and the bit-equal repeat
 # (traced) at PLAN_FP32_CUT_STEPS; each step runs both rollout lengths (cut
 # from full plans to keep the script within its time limit: a full fp32
@@ -638,8 +653,8 @@ PLAN_REL_L2, CEM_UPDATE_ATOL = 5e-2, 1e-6
 # of phase plan (the same weights, checked): fp32 on both sides, the GEMMs in
 # other orders, the attention 3xTF32 (2e-5 of plain), over 40 + 24 layers.
 PLAN_FP32_STEPS, PLAN_FP32_CUT_STEPS, PLAN_FP32_REL_L2 = 3, 1, 1e-4
-ENCODE_FP32_LAUNCHES = _counts(b3_fp32=40)
-PLAN_FP32_LAUNCHES = _counts(b3_fp32=PLAN_FP32_STEPS * 2 * 24)
+ENCODE_FP32_LAUNCHES = _counts(b1_fp32=40)
+PLAN_FP32_LAUNCHES = _counts(b1_fp32=PLAN_FP32_STEPS * 2 * 24)
 # The serving export (phase export): ViT-L answers requests of 1 and 8 clips
 # through its loaded program (24 B1 each), timed against eager 5 times each,
 # interleaved; ViT-H one clip (32 B3); the world model an encode (40 B1) and a
@@ -651,7 +666,7 @@ EXPORT_BATCHES, EXPORT_REPEATS, EXPORT_REL_L2 = (1, 8), 5, 5e-2
 # The frozen evals (phases eval_video, eval_anticipation): the shipped ViT-L
 # configs as `yaml.safe_load` gives them (`tests/test_torch_eval_cli.py`
 # holds them to the files), through `cli.eval`'s run functions on the card;
-# each phase overrides only ipe and the epochs (3 train steps, 1 val batch).
+# each phase overrides only ipe and the epochs (2 train steps, 1 val batch).
 # Both share the reference's grid of 10 probes: 5 lrs x 2 weight decays.
 _PROBE_GRID = [{"lr": lr, "start_lr": lr, "final_lr": 0.0, "weight_decay": wd,
                 "final_weight_decay": wd, "warmup": 0.0}
@@ -688,22 +703,22 @@ EVAL_ANTICIPATION_CONFIG = {
         "checkpoint": None,
         "pretrain_kwargs": {"model_name": "vit_large", "use_rope": True, "uniform_power": True}},
 }
-EVAL_IPE = 3  # cut from 4 to keep the script within its time limit
+EVAL_IPE = 2  # cut from 4 (3 at PR 17) to keep the script within its time limit
 EVAL_OVERRIDES = {"experiment.optimization.ipe": EVAL_IPE,
                   "experiment.optimization.num_epochs": 1}
 # launches a train step and a val batch: SSv2's encoder over its 4 x 2 clips in
 # one call (24 B1 at [8,16,64,2048]) and its 10 probes' 3 self-attention
-# blocks each (30 fp32 forwards at [4,16,4096,64], and 30 backwards in a
-# train step); EK100's encoder over 16 clips (24 at [16,16,64,2048]) and its
+# blocks each (30 B1 at fp32 at [4,16,64,4096], heads of 64 on the DN
+# route, and 30 B2 at fp32 in a train step); EK100's encoder over 16 clips (24 at [16,16,64,2048]) and its
 # predictor over 2048 + 256 tokens (12 at [16,12,32,2304], per-example
 # tables), its depth-1 probes no kernel
-EVAL_VIDEO_LAUNCHES = {"train": _counts(b1=24, b3_fp32=30, bhnd_bwd_fp32=30),
-                       "val": _counts(b1=24, b3_fp32=30)}
+EVAL_VIDEO_LAUNCHES = {"train": _counts(b1=24, b1_fp32=30, b2_fp32=30),
+                       "val": _counts(b1=24, b1_fp32=30)}
 EVAL_ANTICIPATION_LAUNCHES = {"train": _counts(b1=24 + 12), "val": _counts(b1=24 + 12)}
 # IN1K (phase eval_image): the shipped ViT-L config, batch 64 images as 16
-# fake frames (24 B1 at [64,16,64,2048]), 6 probes of depth 4 (18 fp32
-# forwards at [64,16,2048,64], 18 backwards a train step); cut to ipe 3, 1
-# epoch (3 train steps, 1 val batch)
+# fake frames (24 B1 at [64,16,64,2048]), 6 probes of depth 4 (18 B1 at
+# fp32 at [64,16,64,2048], 18 B2 at fp32 a train step); cut to ipe 2, 1
+# epoch (2 train steps, 1 val batch)
 EVAL_IMAGE_CONFIG_FILE = "configs/eval/vitl/in1k.yaml"
 EVAL_IMAGE_CONFIG = {
     "eval_name": "image_classification_frozen", "folder": "./runs/evals/vitl/in1k",
@@ -720,14 +735,14 @@ EVAL_IMAGE_CONFIG = {
         "pretrain_kwargs": {"model_name": "vit_large", "use_rope": True, "uniform_power": True},
         "wrapper_kwargs": {"img_as_video_nframes": 16}},
 }
-EVAL_IMAGE_LAUNCHES = {"train": _counts(b1=24, b3_fp32=18, bhnd_bwd_fp32=18),
-                       "val": _counts(b1=24, b3_fp32=18)}
+EVAL_IMAGE_LAUNCHES = {"train": _counts(b1=24, b1_fp32=18, b2_fp32=18),
+                       "val": _counts(b1=24, b1_fp32=18)}
 EVAL_IMAGE_CPU_EXAMPLES = 4  # the CPU checks' examples: the host's share of the batch
 # ViT-g/384 K400 (phase eval_video_384): the shipped config, batch 1 of 8
 # segments of 16f@384 (8 x 8 x 24 x 24 = 36,864 tokens); the 22-head ViT-g
 # over the 8 clips (40 B1 at [8,22,64,4608]), 10 probes of depth 4 with 16
 # heads of 88 (30 fp32 forwards at [1,16,36864,88], 30 backwards a train
-# step); cut to ipe 2, 1 epoch (2 train steps, 1 val batch)
+# step); cut to ipe 1, 1 epoch (1 train step, 1 val batch; 2 before PR 18)
 EVAL_VIDEO_384_CONFIG_FILE = "configs/eval/vitg-384/k400.yaml"
 EVAL_VIDEO_384_CONFIG = {
     "eval_name": "video_classification_frozen", "folder": "./runs/evals/vitg-384/k400",
@@ -746,7 +761,7 @@ EVAL_VIDEO_384_CONFIG = {
                             "tubelet_size": 2, "uniform_power": True, "use_rope": True},
         "wrapper_kwargs": {"max_frames": 128, "use_pos_embed": False}},
 }
-EVAL_384_IPE = 2
+EVAL_384_IPE = 1  # cut from 2 to keep the script within its time limit
 EVAL_VIDEO_384_OVERRIDES = {"experiment.optimization.ipe": EVAL_384_IPE,
                             "experiment.optimization.num_epochs": 1}
 EVAL_VIDEO_384_LAUNCHES = {"train": _counts(b1=40, b3_fp32=30, bhnd_bwd_fp32=30),
@@ -822,6 +837,30 @@ FP32_SHAPES = [
     ("fp32 ids 2**24 and 2**24 + 1", (2, 16, 1024, 64), {"ids": "past 2**24"}),
     ("fp32 rows with no key", (2, 16, 1024, 64), {"ids": "no key"}),
 ]
+# (name, [B, H, D, N], features) — the shapes B1 and B2 take at fp32 on the
+# main paths, the DN route (`flash_attention_dn`: heads of 16-64, as JAX's
+# `modules.py:515-546` routes them): the fp32 ViT-L step's target (shared
+# RoPE; no gradient), a context and a predictor on per-example tables with
+# kv_valid, the fp32 DROID step's AC rows (frame-causal, the pad keys on
+# int32-max) and its target's single frames (no gradient), the fp32 plan's
+# rollouts (no gradient), and heads of 16 and 48. Each row also runs the
+# BHND fp32 kernels on the same data transposed: the two share the split
+# copies and the mainloops, so they are expected to give equal bits.
+FP32_DN_SHAPES = [
+    ("fp32 vit_large target", (8, 16, 64, 2048), {"rope": "shared", "fwd_only": True}),
+    ("fp32 vit_large context, mask 0", (8, 16, 64, 584), {"rope": "ctx0", "kv_valid_len": 578}),
+    ("fp32 predictor, mask 1", (8, 12, 32, 1664), {"rope": "pred1", "kv_valid_len": 1662}),
+    ("fp32 droid AC, stack-padded", (8, 16, 64, 1808), {"ac": (7, 2)}),
+    ("fp32 droid target frames", (64, 22, 64, 256), {"rope": "shared", "fwd_only": True}),
+    ("fp32 cem rollout, 1 frame", (400, 16, 64, 264), {"ac": (1, 6), "fwd_only": True}),
+    ("fp32 cem rollout, 2 frames", (400, 16, 64, 520), {"ac": (2, 4), "fwd_only": True}),
+    ("fp32 heads of 16", (8, 16, 16, 2048), {"rope": "shared"}),
+    ("fp32 heads of 48", (8, 16, 48, 2048), {"rope": "shared"}),
+]
+# the row of the main path's shape for the BHND fp32 kernels, whose record
+# the kernels line gives: the heads of 16-64 take the DN route, and the
+# ViT-g/384 K400 probes' heads of 88 this one
+FP32_BHND_MAIN_ROW = "k400 vit_giant/384 probe"
 # The plain version holds [B, H, N, M] fp32 scores (the backward about five
 # such); above FP32_PLAIN_WHOLE bytes it runs over chunks of queries that hold
 # at most FP32_PLAIN_CHUNK bytes (at most 512 rows): out, lse and dq follow
@@ -1184,7 +1223,7 @@ def phase_slice(dev, smi: str) -> tuple[int, ...]:
     answer(requests[0])  # warm-up, outside the counted run
     _reset_launch_counts()
     times, answers = [], []
-    want = _counts(b1=len(enc.blocks), b3_fp32=len(clf.pooler.blocks))
+    want = _counts(b1=len(enc.blocks), b1_fp32=len(clf.pooler.blocks))
     for clips in requests:
         before = _launch_counts()
         torch.cuda.synchronize()
@@ -1204,31 +1243,38 @@ def phase_slice(dev, smi: str) -> tuple[int, ...]:
     with torch.inference_mode():
         device_ms = cuda_ms(lambda: clf(encode_clips(enc, on_device)), iters=3, warmup=1)
 
-    # the same weights in fp32 on the CPU: the wrapper takes the plain path there
-    torch.set_num_threads(os.cpu_count() or 1)
-    t2 = time.perf_counter()
-    enc_cpu, clf_cpu = build("cpu", torch.float32)
-    enc_cpu.load_state_dict(enc.state_dict())
-    clf_cpu.load_state_dict(clf.state_dict())
-    with torch.inference_mode():
-        ref = clf_cpu(encode_clips(enc_cpu, requests[0][:1]))[0]
-    cpu_s = time.perf_counter() - t2
+    # the same weights in fp32 on the CPU (the wrapper takes the plain path
+    # there), on `_CPU_WORK` beside the next phases; the record prints then
+    states = [{k: v.to("cpu", copy=True) for k, v in m.state_dict().items()} for m in (enc, clf)]
     got = answers[0][0]
-    rel = ((got - ref).norm() / ref.norm()).item()
-    ok = rel <= LOGITS_REL_L2
     med = sorted(times)[len(times) // 2]
-    emit({"phase": "slice",
-          "model": "vit_large 16f@256 bf16 + ssv2 probe (depth 4, 174; fp32 flash route)",
-          "requests": REQUESTS, "clips_per_request": CLIPS, "warmup_requests": 1,
-          "ms_per_request": times, "median_ms_per_request": med,
-          "clips_per_s": CLIPS / (med / 1e3), "device_ms_per_request": device_ms,
-          "launches": dict(zip(KERNEL_COUNTS, launches)),
-          "launches_per_request": dict(zip(KERNEL_COUNTS, want)),
-          "logits_rel_l2_vs_cpu_fp32": rel, "logits_max_abs_err": (got - ref).abs().max().item(),
-          "ref_logits_max_abs": ref.abs().max().item(), "tol_rel_l2": LOGITS_REL_L2,
-          "setup_s": setup_s, "cpu_reference_s": cpu_s, "ok": ok, "gpu": smi})
-    if not ok:
-        raise AssertionError(f"slice logits off the CPU fp32 reference: rel L2 {rel}")
+
+    def finish() -> None:
+        torch.set_num_threads(os.cpu_count() or 1)
+        t2 = time.perf_counter()
+        enc_cpu, clf_cpu = build("cpu", torch.float32)
+        enc_cpu.load_state_dict(states[0])
+        clf_cpu.load_state_dict(states[1])
+        with torch.inference_mode():
+            ref = clf_cpu(encode_clips(enc_cpu, requests[0][:1]))[0]
+        cpu_s = time.perf_counter() - t2
+        rel = ((got - ref).norm() / ref.norm()).item()
+        ok = rel <= LOGITS_REL_L2
+        emit({"phase": "slice",
+              "model": "vit_large 16f@256 bf16 + ssv2 probe (depth 4, 174; fp32 flash route)",
+              "requests": REQUESTS, "clips_per_request": CLIPS, "warmup_requests": 1,
+              "ms_per_request": times, "median_ms_per_request": med,
+              "clips_per_s": CLIPS / (med / 1e3), "device_ms_per_request": device_ms,
+              "launches": dict(zip(KERNEL_COUNTS, launches)),
+              "launches_per_request": dict(zip(KERNEL_COUNTS, want)),
+              "logits_rel_l2_vs_cpu_fp32": rel,
+              "logits_max_abs_err": (got - ref).abs().max().item(),
+              "ref_logits_max_abs": ref.abs().max().item(), "tol_rel_l2": LOGITS_REL_L2,
+              "setup_s": setup_s, "cpu_reference_s": cpu_s, "ok": ok, "gpu": smi})
+        if not ok:
+            raise AssertionError(f"slice logits off the CPU fp32 reference: rel L2 {rel}")
+
+    _DEFERRED.append(_CPU_WORK.submit(finish))
     return launches
 
 
@@ -1326,7 +1372,21 @@ def _launch_counts() -> tuple[int, ...]:
 
     return (fdn.LAUNCHES, fdn.LAUNCHES_BWD, fa.LAUNCHES, fa.LAUNCHES_BWD, ln.LAUNCHES,
             ln.LAUNCHES_BWD, ln_qkv.LAUNCHES, ln_mlp.LAUNCHES, fa.LAUNCHES_FP32,
-            fa.LAUNCHES_BWD_FP32)
+            fa.LAUNCHES_BWD_FP32, fdn.LAUNCHES_FP32, fdn.LAUNCHES_BWD_FP32)
+
+
+def _check_fp32_route(phase: str, launches) -> dict:
+    """Where a path's fp32 attention went, from its launches (in the order of
+    KERNEL_COUNTS): B1/B2 at fp32 (the DN route, heads of 16-64) and the
+    BHND fp32 kernels (wider heads). The fp32 paths' heads are 64 and 32:
+    raises unless the DN route took some and the BHND kernels none."""
+    by = dict(zip(KERNEL_COUNTS, launches))
+    route = {"dn_fp32": by["b1_fp32"] + by["b2_fp32"],
+             "bhnd_fp32": by["b3_fp32"] + by["bhnd_bwd_fp32"]}
+    if route["dn_fp32"] == 0 or route["bhnd_fp32"]:
+        raise AssertionError(f"{phase}: the fp32 attention took {route}, want the DN route "
+                             "only (heads of 64 and 32)")
+    return route
 
 
 def _reset_launch_counts() -> None:
@@ -1337,7 +1397,7 @@ def _reset_launch_counts() -> None:
 
     fdn.LAUNCHES = fdn.LAUNCHES_BWD = fa.LAUNCHES = fa.LAUNCHES_BWD = 0
     ln.LAUNCHES = ln.LAUNCHES_BWD = ln_qkv.LAUNCHES = ln_mlp.LAUNCHES = 0
-    fa.LAUNCHES_FP32 = fa.LAUNCHES_BWD_FP32 = 0
+    fa.LAUNCHES_FP32 = fa.LAUNCHES_BWD_FP32 = fdn.LAUNCHES_FP32 = fdn.LAUNCHES_BWD_FP32 = 0
 
 
 
@@ -1545,12 +1605,18 @@ def _timed_run(dev, tr: _Trainer, defer: bool = False) -> tuple[dict, tuple[int,
 _CPU_LATER: list = []
 
 
+# phase 6's clip-0 CPU reference on `_CPU_WORK`, by model: train_fp32 waits
+# for it (`_CLIP0_CPU` holds its result)
+_CLIP0_DONE: dict = {}
+
+
 def phase_train(dev, smi: str, model: str = "vit_large",
                 defer_clip0: bool = False) -> tuple[int, ...]:
-    """Phase 6's step (or train_huge's); with ``defer_clip0`` its clip-0 CPU
-    reference, and so its record, wait in `_CPU_LATER`."""
+    """Phase 6's step (or train_huge's). Its clip-0 CPU reference, and so its
+    record, runs on `_CPU_WORK`: at once, beside the next phases (phase 6's,
+    `_CLIP0_DONE`), or with ``defer_clip0`` from `_CPU_LATER`."""
     tr = _Trainer(dev, model)
-    rec, launches = _timed_run(dev, tr, defer_clip0)
+    rec, launches = _timed_run(dev, tr, True)
     phase = tr.phase
     del tr
 
@@ -1566,7 +1632,8 @@ def phase_train(dev, smi: str, model: str = "vit_large",
     if defer_clip0:
         _CPU_LATER.append(finish)
     else:
-        finish()
+        _CLIP0_DONE[model] = _CPU_WORK.submit(finish)
+        _DEFERRED.append(_CLIP0_DONE[model])
     return launches
 
 
@@ -1577,7 +1644,7 @@ def phase_train_fused(dev, smi: str) -> tuple[tuple[int, ...], tuple[int, ...]]:
     before the unfused run exists, the unfused one's in phase `train`.
     Returns the launches of (the fused steps, the unfused steps)."""
     fused = _Trainer(dev, "vit_large", "qkv,mlp")
-    clip0 = fused.clip0()
+    clip0_cpu = fused.clip0(defer=True)  # its CPU part waits in `_CPU_LATER`
     torch.cuda.reset_peak_memory_stats(dev)
     ema_err, leaf = fused.warmup_with_ema_check()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1599,23 +1666,30 @@ def phase_train_fused(dev, smi: str) -> tuple[tuple[int, ...], tuple[int, ...]]:
             if name == "fused":
                 masks = masks_
     fused.finite_grads()
-    ok = _clip0_ok(clip0)
     rec = {name: _step_record(tr, times, losses, norms, masks)
            for name, (tr, times, losses, norms) in runs.items()}
     rec["fused"].update(peak_memory_gb=peak_gb,
                         launches=dict(zip(KERNEL_COUNTS, launches["fused"])))
     rec["unfused"]["launches"] = dict(zip(KERNEL_COUNTS, launches["unfused"]))
-    emit({"phase": "train_fused",
-          "model": "vit_large 16f@256 bs8 + predictor (12 x 384, 12 heads) bf16, AdamW fp32, "
-                   "fuse_ln qkv,mlp",
-          "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
-          "order": f"unfused, fused; x{TRAIN_STEPS}",
-          **rec, "fused_over_unfused_median": rec["fused"]["median_ms_per_step"]
-          / rec["unfused"]["median_ms_per_step"],
-          "ema_max_abs_err": ema_err, "ema_leaf": leaf, "clip0": clip0,
-          "setup_s": fused.setup_s, "ok": ok, "gpu": smi})
-    if not ok:
-        raise AssertionError(f"fused clip-0 loss or gradients off the CPU fp32 reference: {clip0}")
+    setup_s = fused.setup_s
+
+    def finish() -> None:
+        clip0 = clip0_cpu()
+        ok = _clip0_ok(clip0)
+        emit({"phase": "train_fused",
+              "model": "vit_large 16f@256 bs8 + predictor (12 x 384, 12 heads) bf16, AdamW "
+                       "fp32, fuse_ln qkv,mlp",
+              "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+              "order": f"unfused, fused; x{TRAIN_STEPS}",
+              **rec, "fused_over_unfused_median": rec["fused"]["median_ms_per_step"]
+              / rec["unfused"]["median_ms_per_step"],
+              "ema_max_abs_err": ema_err, "ema_leaf": leaf, "clip0": clip0,
+              "setup_s": setup_s, "ok": ok, "gpu": smi})
+        if not ok:
+            raise AssertionError(f"fused clip-0 loss or gradients off the CPU fp32 reference: "
+                                 f"{clip0}")
+
+    _CPU_LATER.append(finish)
     return launches["fused"], launches["unfused"]
 
 
@@ -1884,6 +1958,7 @@ def _smoke_fp32_loop(dev, smi: str) -> tuple[int, ...]:
             _run_config(raw, dev, epochs=2)
         steps = part1.steps + part2.steps
         _check_launches("train_fp32", steps, SMOKE_LAUNCHES)
+        route = _check_fp32_route("train_fp32", SMOKE_LAUNCHES)
         (ms1, n1), (ms2, n2) = part1.loop_ms_per_step(), part2.loop_ms_per_step()
         part2.release()
         with open(os.path.join(folders[0], "log_r0.csv")) as f:
@@ -1911,7 +1986,7 @@ def _smoke_fp32_loop(dev, smi: str) -> tuple[int, ...]:
                    "fp32, synthetic clips",
           "steps": [{k: v for k, v in s.items() if k not in ("masks", "t0")} for s in steps],
           "loop_ms_per_step": (ms1 * n1 + ms2 * n2) / (n1 + n2),
-          "launches_per_step": dict(zip(KERNEL_COUNTS, SMOKE_LAUNCHES)),
+          "launches_per_step": dict(zip(KERNEL_COUNTS, SMOKE_LAUNCHES)), "fp32_route": route,
           "restored": restored, "csv_rows": len(rows),
           "first_losses": {"card": card, "cpu_fp32": want, "rel_err": rel,
                            "tol_rel": SMOKE_LOSS_RTOL},
@@ -1929,8 +2004,12 @@ def _vitl_fp32_step(dev, smi: str) -> tuple[int, ...]:
     phase 6's run (`_timed_run`, clip 0 against phase 6's fp32 CPU
     reference), then one more step traced. Returns the timed steps'
     launches."""
+    done = _CLIP0_DONE.pop("vit_large", None)
+    if done is not None:  # phase 6's reference on `_CPU_WORK`: `_CLIP0_CPU` then holds it
+        done.result()
     tr = _Trainer(dev, "vit_large", dtype=torch.float32)
     rec, launches = _timed_run(dev, tr)
+    route = _check_fp32_route("train_fp32", launches)
     bf16 = _CLIP0_CPU.pop("vit_large", {}).get("bf16_errors")
     traced = wall_and_busy(tr.step)
     clip0 = rec["clip0"]
@@ -1942,7 +2021,7 @@ def _vitl_fp32_step(dev, smi: str) -> tuple[int, ...]:
     emit({"phase": "train_fp32", "part": "vit_large step",
           "model": "vit_large 16f@256 bs8 + predictor (12 x 384, 12 heads), RoPE, fp32 "
                    "(TF32 off), AdamW fp32",
-          **rec, "one_traced_step": traced,
+          **rec, "one_traced_step": traced, "fp32_route": route,
           "clip0_reference": "phase train's fp32 CPU path (the same weights, clip and masks)"
           if clip0["cpu_reference_s"] == 0.0 else "computed here",
           "bf16_clip0_errors": bf16, "bf16_misses_these_tolerances": bf16_misses,
@@ -2278,9 +2357,9 @@ def phase_train_droid_fp32(dev, smi: str) -> tuple[int, ...]:
     the resume). Trajectory 0's losses and predictor gradients on the
     initial weights, no op of it making a bf16 tensor, are held at the fp32
     step's tolerances to the fp32 CPU trajectory that train_droid computes
-    from the same weights (it checks that they are). Every step launches the
-    fp32 forward 88 times and its backward 48 (`DROID_FP32_LAUNCHES`), no
-    bf16 attention kernel. Returns the steps' launches."""
+    from the same weights (it checks that they are). Every step launches B1
+    at fp32 88 times and B2 at fp32 48 (`DROID_FP32_LAUNCHES`), no bf16
+    attention kernel and no BHND one. Returns the steps' launches."""
     import shutil
     import tempfile
 
@@ -2304,6 +2383,7 @@ def phase_train_droid_fp32(dev, smi: str) -> tuple[int, ...]:
             _run_config(raw, dev, epochs=1)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
         _check_launches("train_droid_fp32", part.steps, DROID_FP32_LAUNCHES)
+        route = _check_fp32_route("train_droid_fp32", DROID_FP32_LAUNCHES)
         losses_finite = all(np.isfinite(s["loss"]) for s in part.steps)
         fn, state_, *batch = part.last
         traced = wall_and_busy(lambda: fn(state_, *batch)["loss"].item())
@@ -2317,8 +2397,9 @@ def phase_train_droid_fp32(dev, smi: str) -> tuple[int, ...]:
     record = {"phase": "train_droid_fp32", "config": DROID_CONFIG_FILE,
               "overrides": {**overrides, "folder": "<temporary directory>"},
               "model": "phase train_droid's models and batch at fp32 (TF32 off): the "
-                       "vit_giant_xformers target and the AC predictor on the fp32 BHND "
-                       "kernels, frame-causal ids with the pad keys on int32-max",
+                       "vit_giant_xformers target and the AC predictor on B1 and B2 at fp32 "
+                       "(the DN route), frame-causal ids with the pad keys on int32-max",
+              "fp32_route": route,
               "steps": [{k: v for k, v in s.items() if k != "t0"} for s in steps],
               "loop_ms_per_step": ms, "timed_steps": n,
               "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3),
@@ -2819,6 +2900,31 @@ def _fp32_library_operands(q, k, v, do, kw):
     return q, k[:, :, :kv].contiguous(), v[:, :, :kv].contiguous(), do
 
 
+def _fp32_library_ms(q, k, v, do, kw, lib_kw, kinds, iters, rows) -> tuple[dict, str]:
+    """`F.scaled_dot_product_attention`'s ms on a call's fp32 operands
+    (`_fp32_library_operands`, token-major [B, H, N, D]; ``lib_kw``: its
+    mask), forward and, in ``kinds``, backward, and the backend it picked;
+    None where its math backend would hold the whole scores (``rows``)."""
+    import torch.nn.functional as F
+
+    with torch.no_grad():
+        lq, lk, lv, ldo = (t.contiguous() for t in _fp32_library_operands(q, k, v, do, kw))
+        backend = sdpa_backend(lq, lk, lv, **lib_kw)
+    library_ms = {"fwd": None, "bwd": None}
+    if backend != "MATH" or rows is None:
+        with torch.no_grad():
+            library_ms["fwd"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(lq, lk, lv, **lib_kw), iters["fwd"])
+        if "bwd" in kinds:
+            leaves = [t.detach().requires_grad_() for t in (lq, lk, lv)]
+            with torch.enable_grad():
+                ref = F.scaled_dot_product_attention(*leaves, **lib_kw)
+                library_ms["bwd"] = cuda_ms(
+                    lambda: torch.autograd.grad(ref, leaves, ldo, retain_graph=True),
+                    iters["bwd"])
+    return library_ms, backend
+
+
 def _fp32_masks(dev, B, N, feats) -> dict:
     """The segment ids or causal flag of an `FP32_SHAPES` row, as kwargs."""
     if "ac" in feats:
@@ -2857,9 +2963,10 @@ def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
     plain version and `F.scaled_dot_product_attention` on the same fp32
     operands (TF32 off; q and k pre-rotated, k and v cut to kv_valid, the
     segment ids as the equivalent boolean mask), with the backend PyTorch
-    picked. Rows with no key to attend: out 0, lse -inf and dq 0 there."""
-    import torch.nn.functional as F
-
+    picked. Rows with no key to attend: out 0, lse -inf and dq 0 there.
+    Then B1 and B2 at fp32 (`_dn_fp32_rows`). Returns a record of each of
+    the four: the BHND kernels' at `FP32_BHND_MAIN_ROW`, the DN calls'
+    first."""
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
     seqs, firsts = _mask_seqs(), [None, None]
@@ -2911,24 +3018,9 @@ def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
                     iters["bwd"])
                 plain_ms["bwd"] = cuda_ms(
                     lambda: fp32_plain_bwd(q, k, v, out, glse, do, rows, **kw), 1, warmup=1)
-            lq, lk, lv, ldo = _fp32_library_operands(q, k, v, do, kw)
-            lib_kw = ({"is_causal": True} if kw.get("causal") else
-                      {"attn_mask": mask} if seg_q is not None else {})
-            backend = sdpa_backend(lq, lk, lv, **lib_kw)
-        library_ms = {"fwd": None, "bwd": None}
-        if backend != "MATH" or rows is None:  # the math backend would hold whole scores
-            with torch.no_grad():
-                library_ms["fwd"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(lq, lk, lv, **lib_kw), iters["fwd"])
-            if "bwd" in kinds:
-                leaves = [t.detach().requires_grad_() for t in (lq, lk, lv)]
-                with torch.enable_grad():
-                    ref = F.scaled_dot_product_attention(*leaves, **lib_kw)
-                    library_ms["bwd"] = cuda_ms(
-                        lambda: torch.autograd.grad(ref, leaves, ldo, retain_graph=True),
-                        iters["bwd"])
-                del ref, leaves
-        del lq, lk, lv, ldo
+        lib_kw = ({"is_causal": True} if kw.get("causal") else
+                  {"attn_mask": mask} if seg_q is not None else {})
+        library_ms, backend = _fp32_library_ms(q, k, v, do, kw, lib_kw, kinds, iters, rows)
         side = [*kw.get("rope_expanded", ()), *(t for t in (seg_q, seg_k) if t is not None)]
         sizes = {"fwd": nbytes(q, k, v, out, lse, *side),
                  "bwd": nbytes(q, k, v, out, do, lse, *side, *(grads or ()))}
@@ -2964,8 +3056,152 @@ def phase_kernels_fp32(dev, smi: str) -> tuple[dict, dict]:
             emit(rec)
             if not ok:
                 raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
-            firsts[i] = firsts[i] or rec
+            if firsts[i] is None or name == FP32_BHND_MAIN_ROW:
+                firsts[i] = rec
         del q, k, v, do, out, lse, glse, grads
+        torch.cuda.empty_cache()
+    return (firsts[0], firsts[1], *_dn_fp32_rows(dev, smi, seqs))
+
+
+def _bit_gap(got, want) -> float:
+    """0.0 where the two are equal bit for bit (-inf where both are), else
+    their largest absolute difference."""
+    return 0.0 if torch.equal(got, want) else (got - want).abs().nan_to_num().max().item()
+
+
+def bhnd_fp32(q, k, v, kw, grad=None):
+    """The fp32 kernels through the BHND layout's launches
+    (`flash_attention.fp32_forward` / `fp32_backward`) on contiguous
+    [B, H, N, D] q, k, v, at any width the kernels take (the BHND wrapper
+    takes 32-104; the DN route's 16 and 48 too here), with a DN call's
+    ``kw``: (out, lse), or with ``grad`` = (out, lse, do) (dq, dk, dv)."""
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+
+    B, H, N, D = q.shape
+    cos, sin = kw.get("rope_expanded", (None, None))
+    seg = kw.get("segment_ids")
+    seg = None if seg is None else seg.expand(B, N)
+    cos, sin, tables, Mv, seg_q, seg_k, seg_b = fa._fp32_side(q, k, cos, sin, seg, seg,
+                                                              kw.get("kv_valid_len"))
+    side = (None, cos, sin, tables, Mv, seg_q, seg_k, seg_b, False)
+    if grad is None:
+        out = torch.empty((B, N, H, D), device=q.device).transpose(1, 2)
+        lse = torch.empty((B, H, N), device=q.device)
+        fa.fp32_forward(q, k, v, out, lse, *side)
+        return out, lse
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    fa.fp32_backward(q, k, v, *grad, dq, dk, dv, False, *side)
+    return dq, dk, dv
+
+
+def _dn_fp32_rows(dev, smi: str, seqs) -> tuple[dict, dict]:
+    """B1 and B2 at fp32 (`flash_attention_dn` on fp32 [B, H, D, N]: the
+    kernels of `csrc/flash_fp32.cuh`, the pre-pass reading the DN layout in
+    place, out, dq, dk and dv stored D-major) against their plain versions
+    (`flash_attention_bhdn_plain`, `flash_attention_bhdn_bwd_plain`) at
+    `FP32_DN_SHAPES`, at phase kernel_fp32's tolerances, each timed as there
+    beside the plain version, the same kernels on the same data transposed
+    to [B, H, N, D] (`bhnd_fp32`: their ms and whether they give the same
+    bits) and
+    `F.scaled_dot_product_attention` fp32 on pre-rotated token-major q and k.
+    Returns the first forward and backward records."""
+    from vjepa2_tpu_torch.ops import flash_attention_dn as fdn
+
+    firsts = [None, None]
+    for name, (B, H, D, N), feats in FP32_DN_SHAPES:
+        gen = torch.Generator(dev).manual_seed(0)
+        q, k, v, do = (torch.randn(B, H, D, N, generator=gen, device=dev) for _ in range(4))
+        kw = {}
+        if "ac" in feats:
+            kw["segment_ids"] = _ac_segments(dev, N, *feats["ac"])
+        if feats.get("rope"):
+            kw["rope_expanded"] = _rope_tables(dev, B, N, D, feats["rope"], seqs)
+        if "kv_valid_len" in feats:
+            kw["kv_valid_len"] = feats["kv_valid_len"]
+        qt, kt, vt, dot = (t.transpose(2, 3) for t in (q, k, v, do))  # the BHND views
+        qc, kc, vc, doc = (t.contiguous() for t in (qt, kt, vt, dot))  # and layout
+        seg = kw.get("segment_ids")
+        seg = None if seg is None else seg.expand(B, N)
+        mask = pair_mask(B, N, N, dev, kw.get("kv_valid_len"), seg, seg)
+        pairs = attended_pairs(B, H, N, N, mask)
+        kinds = ("fwd",) if feats.get("fwd_only") else ("fwd", "bwd")
+        flops = {"fwd": 4 * D * pairs, "bwd": 10 * D * pairs}
+        iters = {kind: max(2, min(20, int(4e12 / f))) for kind, f in flops.items()}
+        with torch.no_grad():
+            out, lse = fdn.flash_attention_bhdn(q, k, v, return_lse=True, **kw)
+            out_p, lse_p = fdn.flash_attention_bhdn_plain(q, k, v, **kw)
+            errs = {"fwd": {"out": _fp32_errors(out, out_p)}}
+            lse_errs = _lse_errors(lse, lse_p)
+            del out_p, lse_p
+            out_b, lse_b = bhnd_fp32(qc, kc, vc, kw)
+            gaps = {"out": _bit_gap(out, out_b.transpose(2, 3)), "lse": _bit_gap(lse, lse_b)}
+            del out_b, lse_b
+            grads = None
+            if "bwd" in kinds:
+                grads = fdn.flash_attention_bhdn_bwd(q, k, v, out, lse, do, **kw)
+                want = fdn.flash_attention_bhdn_bwd_plain(q, k, v, out, lse, do, **kw)
+                errs["bwd"] = {n_: _fp32_errors(g, w)
+                               for n_, g, w in zip(("dq", "dk", "dv"), grads, want)}
+                del want
+                out_c = out.transpose(2, 3).contiguous()
+                grads_b = bhnd_fp32(qc, kc, vc, kw, (out_c, lse, doc))
+                gaps.update({n_: _bit_gap(g, gb.transpose(2, 3))
+                             for n_, g, gb in zip(("dq", "dk", "dv"), grads, grads_b)})
+                del grads_b
+            torch.cuda.synchronize()
+            kv = kw.get("kv_valid_len") or N
+            zero_past_kv = grads is None or not (grads[1][..., kv:].any() or grads[2][..., kv:].any())
+            ms = {"fwd": cuda_ms(lambda: fdn.flash_attention_bhdn(q, k, v, **kw), iters["fwd"])}
+            bhnd_ms = {"fwd": cuda_ms(lambda: bhnd_fp32(qc, kc, vc, kw), iters["fwd"])}
+            plain_ms = {"fwd": cuda_ms(lambda: fdn.flash_attention_bhdn_plain(q, k, v, **kw), 1,
+                                       warmup=1)}
+            if "bwd" in kinds:
+                ms["bwd"] = cuda_ms(lambda: fdn.flash_attention_bhdn_bwd(q, k, v, out, lse, do, **kw),
+                                    iters["bwd"])
+                bhnd_ms["bwd"] = cuda_ms(lambda: bhnd_fp32(qc, kc, vc, kw, (out_c, lse, doc)),
+                                         iters["bwd"])
+                plain_ms["bwd"] = cuda_ms(
+                    lambda: fdn.flash_attention_bhdn_bwd_plain(q, k, v, out, lse, do, **kw), 1,
+                    warmup=1)
+        library_ms, backend = _fp32_library_ms(qt, kt, vt, dot, kw, {} if seg is None else {
+            "attn_mask": mask}, kinds, iters, None)
+        side = [*kw.get("rope_expanded", ()), *(t for t in (seg,) if t is not None)]
+        sizes = {"fwd": nbytes(q, k, v, out, lse, *side),
+                 "bwd": nbytes(q, k, v, out, do, lse, *side, *(grads or ()))}
+        for i, (kernel, kind) in enumerate((("flash_fwd_dn_fp32", "fwd"),
+                                            ("flash_bwd_dn_fp32", "bwd"))):
+            if kind not in kinds:
+                continue
+            bound_ms, bound_by = bound(flops[kind], sizes[kind], PEAK_3XTF32)
+            ok = all(_fp32_ok(e) for e in errs[kind].values()) and (
+                lse_errs["max_abs_err"] <= FP32_LSE_ATOL and lse_errs["empty_rows_match"]
+                if kind == "fwd" else zero_past_kv)
+            outs = ("out", "lse") if kind == "fwd" else ("dq", "dk", "dv")
+            rec = {"phase": "kernel_fp32", "kernel": kernel, "shape": name,
+                   "bhdn": [B, H, D, N], "features": sorted(kw),
+                   "kv_valid": kw.get("kv_valid_len"), "ms": ms[kind], "iters": iters[kind],
+                   "plain_ms": plain_ms[kind], "bhnd_fp32_ms": bhnd_ms[kind],
+                   "bhnd_fp32_same_bits": all(gaps[o] == 0.0 for o in outs),
+                   "bhnd_fp32_max_abs_gap": {o: gaps[o] for o in outs},
+                   "library_ms": library_ms[kind],
+                   "library": f"F.scaled_dot_product_attention fp32, TF32 off, on pre-rotated "
+                              f"token-major q, k ({backend}"
+                              f"{', boolean mask' if seg is not None else ''})",
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "tflops": flops[kind] / ms[kind] / 1e9, "bound_share": bound_ms / ms[kind],
+                   "attended_pairs": pairs, "errors": errs[kind],
+                   "max_abs_err": max(e["max_abs_err"] for e in errs[kind].values()),
+                   "tol": {"rel_l2": FP32_REL_L2, "max_abs": f"{FP32_MAX_ABS}*max|plain|"},
+                   "ok": ok, "gpu": smi}
+            if kind == "fwd":
+                rec.update(max_abs_err_lse=lse_errs["max_abs_err"], tol_lse=FP32_LSE_ATOL)
+            else:
+                rec.update(dk_dv_zero_past_kv_valid=zero_past_kv)
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
+            firsts[i] = firsts[i] or rec
+        del q, k, v, do, qt, kt, vt, dot, qc, kc, vc, doc, out, lse, grads, mask
         torch.cuda.empty_cache()
     return firsts[0], firsts[1]
 
@@ -3015,30 +3251,35 @@ def phase_encode_giant(dev, smi: str) -> int:
     with torch.inference_mode():
         device_ms = cuda_ms(lambda: encode_clips(enc, on_device), iters=3, warmup=1)
 
-    # the same weights in fp32 on the CPU: the wrappers take the plain path there
-    torch.set_num_threads(os.cpu_count() or 1)
-    t2 = time.perf_counter()
-    enc_cpu = build("cpu", torch.float32)
-    enc_cpu.load_state_dict(enc.state_dict())
-    with torch.inference_mode():
-        ref = encode_clips(enc_cpu, requests[0][:1])[0]
-    cpu_s = time.perf_counter() - t2
-    del enc_cpu
+    # the same weights in fp32 on the CPU (the wrappers take the plain path
+    # there), on `_CPU_WORK` beside the next phases; the record prints then
+    state = {k: v.to("cpu", copy=True) for k, v in enc.state_dict().items()}
     got = answers[0][0].float()
-    rel = ((got - ref).norm() / ref.norm()).item()
-    ok = rel <= GIANT_REL_L2
-    med = sorted(times)[len(times) // 2]
-    emit({"phase": "encode_giant",
-          "model": "vit_giant (40 layers, 1408 wide, 16 heads of 88) 16f@256 bf16, RoPE",
-          "requests": REQUESTS, "clips_per_request": CLIPS, "warmup_requests": 1,
-          "ms_per_request": times, "median_ms_per_request": med,
-          "clips_per_s": CLIPS / (med / 1e3), "device_ms_per_request": device_ms,
-          "b3_launches": launches, "b3_launches_per_request": len(enc.blocks),
-          "features_rel_l2_vs_cpu_fp32": rel, "tol_rel_l2": GIANT_REL_L2,
-          "reference_depth": f"full ({len(enc.blocks)} layers)",
-          "setup_s": setup_s, "cpu_reference_s": cpu_s, "ok": ok, "gpu": smi})
-    if not ok:
-        raise AssertionError(f"vit_giant features off the CPU fp32 reference: rel L2 {rel}")
+    med, depth = sorted(times)[len(times) // 2], len(enc.blocks)
+
+    def finish() -> None:
+        torch.set_num_threads(os.cpu_count() or 1)
+        t2 = time.perf_counter()
+        enc_cpu = build("cpu", torch.float32)
+        enc_cpu.load_state_dict(state)
+        with torch.inference_mode():
+            ref = encode_clips(enc_cpu, requests[0][:1])[0]
+        cpu_s = time.perf_counter() - t2
+        rel = ((got - ref).norm() / ref.norm()).item()
+        ok = rel <= GIANT_REL_L2
+        emit({"phase": "encode_giant",
+              "model": "vit_giant (40 layers, 1408 wide, 16 heads of 88) 16f@256 bf16, RoPE",
+              "requests": REQUESTS, "clips_per_request": CLIPS, "warmup_requests": 1,
+              "ms_per_request": times, "median_ms_per_request": med,
+              "clips_per_s": CLIPS / (med / 1e3), "device_ms_per_request": device_ms,
+              "b3_launches": launches, "b3_launches_per_request": depth,
+              "features_rel_l2_vs_cpu_fp32": rel, "tol_rel_l2": GIANT_REL_L2,
+              "reference_depth": f"full ({depth} layers)",
+              "setup_s": setup_s, "cpu_reference_s": cpu_s, "ok": ok, "gpu": smi})
+        if not ok:
+            raise AssertionError(f"vit_giant features off the CPU fp32 reference: rel L2 {rel}")
+
+    _DEFERRED.append(_CPU_WORK.submit(finish))
     return launches
 
 
@@ -3324,7 +3565,8 @@ def phase_plan_fp32(dev, smi: str) -> tuple[int, ...]:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     card_rep, card_goal = rep.cpu(), goal.cpu()
     del wm, cut, enc, pred, rep, goal
-    record = {"phase": "plan_fp32",
+    route = _check_fp32_route("plan_fp32", total)
+    record = {"phase": "plan_fp32", "fp32_route": route,
               "model": "vjepa2_ac_vit_giant(dtype=torch.float32): vit_giant_xformers (40 x 1408, "
                        "22 heads of 64) + AC predictor (24 x 1024, 16 heads of 64), fp32 (TF32 "
                        "off), RoPE, phase plan's random weights",
@@ -3383,7 +3625,7 @@ from vjepa2_tpu_torch.ops import layernorm as ln, ln_mlp, ln_qkv
 def counts():
     return [fdn.LAUNCHES, fdn.LAUNCHES_BWD, fa.LAUNCHES, fa.LAUNCHES_BWD, ln.LAUNCHES,
             ln.LAUNCHES_BWD, ln_qkv.LAUNCHES, ln_mlp.LAUNCHES, fa.LAUNCHES_FP32,
-            fa.LAUNCHES_BWD_FP32]
+            fa.LAUNCHES_BWD_FP32, fdn.LAUNCHES_FP32, fdn.LAUNCHES_BWD_FP32]
 
 clips = torch.load(sys.argv[2])
 outs, launches = {}, {}
@@ -4130,7 +4372,7 @@ def phase_eval_anticipation(dev, smi: str) -> tuple[int, ...]:
     the shipped ViT-L config (`EVAL_ANTICIPATION_CONFIG`): the encoder over
     16 clips, the predictor (12 x 384, 12 heads of 32) over 2048 context
     tokens plus 256 targets 1 s ahead, features [16, 2304, 1024]; 10 fp32
-    three-head probes of depth 1; 3 train steps and 1 val batch."""
+    three-head probes of depth 1; 2 train steps and 1 val batch."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.action_anticipation import AnticipationEval, anticipative_features
     from vjepa2_tpu_torch.models.predictor import vit_predictor
@@ -4168,7 +4410,7 @@ def phase_eval_image(dev, smi: str) -> tuple[int, ...]:
     shipped ViT-L config (`EVAL_IMAGE_CONFIG`): 64 images a batch, each
     replicated to 16 fake frames, the encoder (RoPE, bf16) into features
     [64, 2048, 1024], 6 fp32 probes of depth 4 (16 heads of 64 on the fp32
-    flash kernels, 1000 classes) trained one at a time; 3 train steps and 1
+    flash kernels, 1000 classes) trained one at a time; 2 train steps and 1
     val batch. The CPU checks take the first 4 examples."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.image_classification import ImageClassificationEval
@@ -4273,7 +4515,7 @@ def phase_eval_video_384(dev, smi: str) -> tuple[int, ...]:
     on the shipped config (`EVAL_VIDEO_384_CONFIG`): batch 1 of 8 segments
     of 16f@384, the 22-head ViT-g (bf16, B1) into features
     [1, 36864, 1408], 10 fp32 probes of depth 4 (16 heads of 88 on the fp32
-    flash kernels, 400 classes) trained one at a time; 2 train steps and 1
+    flash kernels, 400 classes) trained one at a time; 1 train step and 1
     val batch; the checks of `_eval_384_checks`."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.video_classification import VideoClassificationEval
@@ -4328,7 +4570,8 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     train_l = timed("train", phase_train, dev, smi, "vit_large")
     rec_bhnd = timed("kernel_bhnd", phase_kernels_bhnd, dev, smi)
     rec_bhnd_bwd = timed("kernel_bhnd_bwd", phase_kernels_bhnd_bwd, dev, smi)
-    rec_fp32, rec_fp32_bwd = timed("kernel_fp32", phase_kernels_fp32, dev, smi)
+    rec_fp32, rec_fp32_bwd, rec_dn_fp32, rec_dn_fp32_bwd = timed("kernel_fp32", phase_kernels_fp32,
+                                                                 dev, smi)
     fp32_l = timed("train_fp32", phase_train_fp32, dev, smi)
     train_h = timed("train_huge", phase_train, dev, smi, "vit_huge", True)
     giant_launches = timed("encode_giant", phase_encode_giant, dev, smi)
@@ -4389,16 +4632,25 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
               library=rec_mlp["library"]),
         entry("flash_fwd_fp32", FP32_FWD_SOURCE, FP32_FWD_REPLACES, total[8], rec_fp32,
               "max_abs_err", library=rec_fp32["library"],
-              note="B3 on fp32 operands (the frozen probes' self-attention; the fp32 "
-                   "pretrain step's, with RoPE and kv_valid; the fp32 AC predictor's in the "
-                   "DROID step and the CEM plan, with frame-causal segment ids): 3xTF32 on "
-                   "wgmma, after the split pre-pass (flash_fp32_split.cu), which rotates q "
+              note="B3 on fp32 operands (heads wider than 64 at fp32: the ViT-g/384 "
+                   "probes' self-attention; with RoPE, kv_valid and segment ids; ring hops): 3xTF32 "
+                   "on wgmma, after the split pre-pass (flash_fp32_split.cu), which rotates q "
                    "and k; segment ids, seg_kv and the causal mask masked on the scores"),
         entry("flash_bwd_fp32", FP32_BWD_SOURCE, FP32_BWD_REPLACES, total[9], rec_fp32_bwd,
               "max_abs_err", library=rec_fp32_bwd["library"],
               note="B4 and B5 (flash_attention.py:361, :434) on fp32 operands: the split "
                    "pre-pass, dQ (flash_fp32_dq.cu), then dK/dV (flash_fp32_dkdv.cu), the "
-                   "RoPE adjoint in their epilogues, p 0 where the masks say")]})
+                   "RoPE adjoint in their epilogues, p 0 where the masks say"),
+        entry("flash_fwd_dn_fp32", FP32_FWD_SOURCE, KERNEL_REPLACES, total[10], rec_dn_fp32,
+              "max_abs_err", library=rec_dn_fp32["library"],
+              note="B1 on fp32 operands (the fp32 pretrain step, the smoke loop, the fp32 "
+                   "DROID step and the fp32 CEM plan, heads of 16-64 on JAX's DN route): the "
+                   "3xTF32 kernels of flash_fp32.cuh, the split pre-pass reading [B, H, D, N] "
+                   "in place, out stored D-major"),
+        entry("flash_bwd_dn_fp32", FP32_BWD_SOURCE, BWD_REPLACES, total[11], rec_dn_fp32_bwd,
+              "max_abs_err", library=rec_dn_fp32_bwd["library"],
+              note="B2 on fp32 operands: the split pre-pass (delta summed over D), dQ, then "
+                   "dK/dV of flash_fp32.cuh, dq, dk and dv stored D-major")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

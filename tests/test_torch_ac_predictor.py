@@ -16,11 +16,12 @@ JAX runs its XLA attention (``use_flash=False``): on the CPU its AC layer
 would take the BHND Pallas route with interleaved tables, and
 `tests/models/test_flash_integration.py` already holds that to the XLA one.
 The port runs its flash route (B1/B2's plain versions through
-`FlashAttentionDN`, split-half tables), the route fp32 takes on the card
-(every head width on the BHND kernels' plain versions with the frame-causal
-ids and the pad keys on int32-max: `dn_head_eligible` patched to refuse
-every width, the DN entry refused) and its plain route: the same function,
-compared by outputs and gradients only.
+`FlashAttentionDN`, split-half tables), which heads of 16-64 take on the
+card at bf16 and at fp32, the BHND route that wider heads keep (every head
+width on the BHND kernels' plain versions with the frame-causal ids and the
+pad keys on int32-max: `dn_head_eligible` patched to refuse every width,
+the DN entry refused) and its plain route: the same function, compared by
+outputs and gradients only.
 
 Tolerance: JAX's own AC tolerance, atol 3e-5 and rtol 2e-4 on outputs and
 on every gradient (`tests/models/test_flash_integration.py:49`); the tables
@@ -174,8 +175,9 @@ def _jax_predictor(extrinsics):
 
 
 def bhnd_route(monkeypatch):
-    """The route an fp32 `Attention` takes on the card: no head width to the
-    DN kernels, so every flash call goes to `flash_attention_bhnd`."""
+    """The BHND route, which heads wider than 64 take (at bf16 and fp32): no
+    head width to the DN kernels, so every flash call goes to
+    `flash_attention_bhnd`."""
     def refused(*args, **kwargs):
         raise AssertionError("the DN route ran")
 

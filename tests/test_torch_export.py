@@ -9,7 +9,9 @@ JAX's `export_encoder` / `load_encoder` round trip at B = 1, 2 and 3, within
 eager module; one op node a block, by route: `flash_fwd_dn` at heads of 64,
 `flash_fwd_bhnd` at 80, `ln_qkv` + `flash_fwd_bhnd` + `ln_mlp` fused), a
 loader that imports no model module (a fresh process), and
-`torch.library.opcheck` of the four ops, fake kernel against real.
+`torch.library.opcheck` of the four ops, fake kernel against real, and of
+`flash_fwd_dn` at fp32 and bf16 on the DN route's strided views (the fake
+keeps the operands' dtype: an fp32 model on the DN route traces).
 
 The world model: the depth-2 encoder and AC predictor of
 `tests/test_torch_planning.py` (numpy-drawn weights on both sides), with the
@@ -196,6 +198,33 @@ def test_ops_pass_opcheck(op):
     for args in _op_cases()[op]:
         result = torch.library.opcheck(overload, args)
         assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_dn_opcheck_at_the_operands_dtype(dtype):
+    """`flash_fwd_dn` at fp32 (the DN route's dtype on the card too, since
+    B1/B2 take fp32 operands) and at bf16, on the CPU: opcheck on q, k, v as
+    views of one [B, 3 * dim, N] projection output, as `Attention` makes
+    them, with per-example tables, and with frame-causal ids and pad keys on
+    int32-max; the fake kernel gives out in the operands' dtype and lse in
+    fp32, so an fp32 model on the DN route traces."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    rs = np.random.RandomState(3)
+    B, H, D, N = 2, 2, 16, 24
+    y = torch.from_numpy(rs.randn(B, 3 * H * D, N).astype(np.float32)).to(dtype)
+    q, k, v = y.view(B, 3, H, D, N).unbind(1)
+    cos, sin = (torch.from_numpy(rs.uniform(-1, 1, (B, N, D)).astype(np.float32))
+                for _ in range(2))
+    seg = torch.cat([torch.arange(N - 4, dtype=torch.int32) // 10,
+                     torch.full((4,), torch.iinfo(torch.int32).max, dtype=torch.int32)])
+    op = torch.ops.vjepa2.flash_fwd_dn.default
+    for args in ((q, k, v, None, cos, sin, None, None), (q, k, v, None, None, None, seg, None)):
+        result = torch.library.opcheck(op, args)
+        assert set(result.values()) == {"SUCCESS"}, result
+    with FakeTensorMode() as mode:
+        out, lse = op(*(mode.from_tensor(t) for t in (q, k, v)), None, None, None, None, None)
+    assert out.dtype == dtype and out.shape == (B, H, D, N) and lse.dtype == torch.float32
 
 
 # -- the world model -----------------------------------------------------------

@@ -374,8 +374,9 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
     dQ kernels (per width), and the LayerNorm GEMM of B8 and B7 (B8's tile,
     and B7's per head width and heads a tile). No function in the library
     contains HMMA.16816: no kernel of the port is left on mma.sync. The
-    fp32 flash kernels (B3 and B4/B5 on fp32: the forward, dQ and dK/dV, an
-    unmasked and a masked instantiation per head width) run on wgmma at TF32
+    fp32 flash kernels (B3 and B4/B5 on fp32, and B1/B2 on fp32 through them:
+    the forward, dQ and dK/dV, an unmasked and a masked instantiation per
+    head width, 16 to 104) run on wgmma at TF32
     (HGMMA ... TF32) and
     contain no HMMA at all. B6's forward and backward (one instantiation per
     width) copy their rows with the bulk copy (UBLKCP)."""
@@ -404,10 +405,13 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
         for name, body in found.items():
             assert "HGMMA" in body, name
     assert not [n for n, b in bodies.items() if "HMMA.16816" in b]
-    # the fp32 kernels: 5 widths, each unmasked and masked (segment ids or causal)
-    for kernel in ("flash_fp32_fwd_kernel", "flash_fp32_dq_kernel", "flash_fp32_dkdv_kernel"):
+    # the fp32 kernels: 7 widths (BHND's 32-104 and the DN route's 16 and 48,
+    # which B1/B2 on fp32 operands take), each unmasked and masked (segment
+    # ids or causal); dK/dV also D-major (the DN layout) at the DN widths
+    for kernel, count in (("flash_fp32_fwd_kernel", 2 * 7), ("flash_fp32_dq_kernel", 2 * 7),
+                          ("flash_fp32_dkdv_kernel", 2 * 7 + 2 * 4)):
         found = {n: b for n, b in bodies.items() if kernel in n}
-        assert len(found) == 2 * 5, (kernel, sorted(found))
+        assert len(found) == count, (kernel, sorted(found))
         for name, body in found.items():
             assert any("HGMMA" in line and "TF32" in line for line in body.splitlines()), name
             assert "HMMA" not in body, name

@@ -128,8 +128,10 @@ def test_kernel_takes_strided_qkv(dev):
 
 def test_cuda_route_raises_on_what_it_cannot_take(dev):
     q, k, v = _inputs(1, 2, 64, 128, dev)
-    with pytest.raises(TypeError):
-        fdn.flash_attention_bhdn(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError, match="one dtype"):  # mixed: fp32 q beside bf16 k, v
+        fdn.flash_attention_bhdn(q.float(), k, v)
+    with pytest.raises(TypeError, match="one dtype"):  # fp16: no kernel takes it
+        fdn.flash_attention_bhdn(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         fdn.flash_attention_bhdn(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
     with pytest.raises(ValueError):

@@ -20,8 +20,9 @@ gradient), two calls with segments bit-equal, and the masked kernels' tile
 plan built on the card against its plain version; mixed dtypes refused,
 bf16 calls still on the bf16 kernels (the
 launch counters), and `Attention` (rope-free, and with RoPE and kv_valid at
-heads of 32 and 64 with per-example tables, as the predictor and the masked
-encoder run it) and a `ProbeGrid` on the card taking the fp32 route.
+heads of 80 and 88 with per-example tables, as the masked ViT-H and ViT-g
+encoders run it; narrower heads take the DN route) and a `ProbeGrid` on the
+card taking the fp32 kernels on the route of its head width.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no jax:
 
@@ -418,14 +419,15 @@ def test_bf16_calls_still_take_the_bf16_kernels(dev):
 
 
 def test_fp32_attention_module_takes_the_bhnd_route(dev):
-    """An fp32 `Attention` at Dh 64 with ``use_flash`` on the card: the fp32
-    BHND kernels (the DN kernels take bf16), forward and backward, against
+    """An fp32 `Attention` at Dh 80 with ``use_flash`` on the card: the fp32
+    BHND kernels (heads of 16-64 take the DN route's, at fp32 as at bf16:
+    `tests/test_torch_flash_dn_fp32_cuda.py`), forward and backward, against
     the plain route with the same weights."""
-    flash = tm.Attention(256, 4, use_flash=True, device=dev)
+    flash = tm.Attention(320, 4, use_flash=True, device=dev)
     flash.reset_parameters(torch.Generator(dev).manual_seed(0))
-    plain = tm.Attention(256, 4, device=dev)
+    plain = tm.Attention(320, 4, device=dev)
     plain.load_state_dict(flash.state_dict())
-    x = _randn((2, 200, 256), dev, 1)
+    x = _randn((2, 200, 320), dev, 1)
     before = (fdn.LAUNCHES, fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32)
     outs, grads = [], []
     for m in (flash, plain):
@@ -439,14 +441,15 @@ def test_fp32_attention_module_takes_the_bhnd_route(dev):
     _close(grads[0], grads[1], "dx")
 
 
-@pytest.mark.parametrize("heads,D", [(12, 32), (16, 64)])
+@pytest.mark.parametrize("heads,D", [(16, 80), (16, 88)])
 def test_fp32_rope_attention_module_takes_the_bhnd_route(dev, heads, D):
     """An fp32 `Attention` with RoPE and ``use_flash`` on the card, as the
-    ViT-L predictor (heads of 32) and masked encoder (64) run it: per-example
-    split-half tables, q/k rows permuted, a stack-padded sequence with
-    kv_valid; the fp32 BHND kernels, forward and backward, against the plain
-    route with the interleaved tables on the same weights (rows past
-    kv_valid are the model's to drop)."""
+    masked ViT-H (heads of 80) and 16-head ViT-g (88) encoders run it:
+    per-example split-half tables, q/k rows permuted, a stack-padded
+    sequence with kv_valid; the fp32 BHND kernels, forward and backward,
+    against the plain route with the interleaved tables on the same weights
+    (rows past kv_valid are the model's to drop). Heads of 32 and 64 take
+    the DN route (`tests/test_torch_flash_dn_fp32_cuda.py`)."""
     from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
 
     dim, N, kv = heads * D, 176, 173
@@ -477,17 +480,22 @@ def test_fp32_rope_attention_module_takes_the_bhnd_route(dev, heads, D):
 def test_probe_grid_on_the_card_takes_the_fp32_kernels(dev):
     """`ProbeGrid` on the card builds its probes with ``use_flash``: a train
     step launches the fp32 forward and backward once a self-attention block
-    a probe; at a head width no kernel takes it raises."""
+    a probe, on the route its head width takes (80: the BHND kernels; 16
+    and 64: B1/B2 at fp32, the DN route); at a head width no kernel takes
+    the grid refuses to build."""
     cfgs = [probes.ProbeConfig(lr=1e-3, weight_decay=0.01)] * 2
-    grid = probes.ProbeGrid(cfgs, embed_dim=128, num_classes=5, num_heads=2, depth=3, device=dev)
-    assert all(blk.attn.use_flash for blk in grid.model.pooler.blocks)
-    params, opt, step = grid.init()
-    feats, labels = _randn((3, 96, 128), dev, 0), torch.tensor([0, 1, 4], device=dev)
-    before = (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32)
-    _, _, _, metrics = grid.train_step(params, opt, step, feats, labels)
-    assert (fa.LAUNCHES_FP32 - before[0], fa.LAUNCHES_BWD_FP32 - before[1]) == (2 * 2, 2 * 2)
-    assert torch.isfinite(metrics["loss"]).all()
-    narrow = probes.ProbeGrid(cfgs, embed_dim=64, num_classes=5, num_heads=4, depth=2, device=dev)
-    p, o, s = narrow.init()
-    with pytest.raises(ValueError, match="head width 16"):
-        narrow.train_step(p, o, s, _randn((3, 96, 64), dev, 1), labels)
+    labels = torch.tensor([0, 1, 4], device=dev)
+    counts = lambda: (fa.LAUNCHES_FP32, fa.LAUNCHES_BWD_FP32, fdn.LAUNCHES_FP32,  # noqa: E731
+                      fdn.LAUNCHES_BWD_FP32)
+    for dim, heads, want in ((160, 2, (4, 4, 0, 0)), (128, 2, (0, 0, 4, 4)),
+                             (64, 4, (0, 0, 4, 4))):
+        grid = probes.ProbeGrid(cfgs, embed_dim=dim, num_classes=5, num_heads=heads, depth=3,
+                                device=dev)
+        assert all(blk.attn.use_flash for blk in grid.model.pooler.blocks)
+        params, opt, step = grid.init()
+        before = counts()
+        _, _, _, metrics = grid.train_step(params, opt, step, _randn((3, 96, dim), dev, 0), labels)
+        assert tuple(a - b for a, b in zip(counts(), before)) == want, dim // heads
+        assert torch.isfinite(metrics["loss"]).all()
+    with pytest.raises(NotImplementedError, match="head width 24"):
+        probes.ProbeGrid(cfgs, embed_dim=48, num_classes=5, num_heads=2, depth=2, device=dev)

@@ -284,10 +284,11 @@ def test_world_model_plan_matches_jax(world_models):
 
 
 def test_world_model_plan_matches_jax_on_the_bhnd_route(world_models, monkeypatch):
-    """The plan on the route fp32 takes on the card: the encoder's and the
-    AC predictor's attention on the BHND kernels' plain versions (the
-    frame-causal ids and pad keys of the stack-padded AC sequence), none on
-    the DN route."""
+    """The plan on the BHND route, which heads wider than 64 take on the card
+    (at bf16 and fp32; heads of 16-64 take the DN route at both): the
+    encoder's and the AC predictor's attention on the BHND kernels' plain
+    versions (the frame-causal ids and pad keys of the stack-padded AC
+    sequence), none on the DN route."""
     def refused(*args, **kwargs):
         raise AssertionError("the DN route ran")
 

@@ -12,8 +12,8 @@ Tolerances: the CEM over the linear world model of
 `tests/planning/test_cem.py` (fp32 on both sides, one sampler) within 1e-6;
 over a depth-2 fp32 AC predictor (2 heads of 64, 16 tokens a frame, weights
 drawn wider than the init's, as `tests/test_torch_planning.py` draws them,
-so that the actions move its latents; on the card its attention on the
-fp32 BHND kernels with the frame-causal ids and pad keys) within 1e-5, once
+so that the actions move its latents; on the card its attention on B1
+at fp32, the DN route, with the frame-causal ids and pad keys) within 1e-5, once
 every step's top-k margin exceeds twice the card's distances' distance from
 the CPU's (else a tie could rank differently on the two sides): over 3 CEM
 steps, since the candidates then converge until the 10th and 11th
@@ -96,8 +96,9 @@ def test_cem_on_the_card_matches_the_cpu(dev, kind):
     """One sampler's draws through the CEM on the card and on the CPU: the
     stable sort, ``std`` and the momenta on device tensors give the CPU's
     plan ("constant" ties every distance: the first k candidates win;
-    "fp32" rolls out an fp32 AC predictor, on the card through the fp32
-    BHND kernels: each rollout call launches the forward once a layer)."""
+    "fp32" rolls out an fp32 AC predictor, on the card through B1 at fp32,
+    the DN route at its heads of 64: each rollout call launches the forward
+    once a layer, and the BHND kernels never)."""
     cfg = CEMConfig(samples=400, topk=10, cem_steps=3 if kind == "fp32" else 10)
     rs = np.random.RandomState(0)
     draws = rs.randn(cfg.cem_steps, cfg.rollout, cfg.samples, 4).astype(np.float32)
@@ -116,13 +117,13 @@ def test_cem_on_the_card_matches_the_cpu(dev, kind):
         return out
 
     cem = make_cem(recording, cfg)
-    before = fa.LAUNCHES_FP32
+    before = (fdn.LAUNCHES_FP32, fa.LAUNCHES_FP32)
     with torch.inference_mode():
         plans = [cem(torch.from_numpy(rep).to(d_), pose, torch.from_numpy(goal).to(d_),
                      sampler=lambda step, h: torch.from_numpy(draws[step, h])).cpu().numpy()
                  for d_ in (dev, "cpu")]
     fp32_calls = cfg.cem_steps * cfg.rollout * 2 if kind == "fp32" else 0
-    assert fa.LAUNCHES_FP32 - before == fp32_calls
+    assert (fdn.LAUNCHES_FP32 - before[0], fa.LAUNCHES_FP32 - before[1]) == (fp32_calls, 0)
     if kind == "fp32":
         for i, (card, cpu) in enumerate(zip(dists["cuda"], dists["cpu"])):
             ranked = torch.sort(cpu).values

@@ -15,9 +15,13 @@
 // Contract (JAX's whole feature set: the probes' plain attention, the
 // pretrain step's RoPE and kv_valid, the AC predictor's frame-causal segment
 // ids, a ring hop's key-side ids with a given lse, the token-causal mask):
-//   * q [B, H, N, D], k and v [B, H, M, D] fp32, unit stride along d, every
-//     other stride a multiple of 4 elements from a 16-byte aligned base (the
-//     wrapper copies any other operand first); D in {32, 64, 80, 88, 104};
+//   * q [B, H, N, D], k and v [B, H, M, D] fp32 at element strides: unit
+//     stride along d, every other stride a multiple of 4 elements from a
+//     16-byte aligned base, or unit stride along the tokens at any other
+//     strides (the DN layout [B, H, D, N] of B1/B2, `vjepa2_tpu/ops/
+//     flash_attention_dn.py:129` and `:298`, whose fp32 operands take these
+//     kernels too: the pre-pass reads each operand in its own layout); D in
+//     {16, 32, 48, 64, 80, 88, 104};
 //   * RoPE (optional, N == M): split-half tables cos, sin [B|1, N, D] fp32
 //     (row stride t_n, unit along d; batch stride t_b, 0 when shared). The
 //     pre-pass rotates q and k in fp32 before their split, each pair
@@ -26,7 +30,7 @@
 //     no FMA), so the rotated operands are those of the plain version; the
 //     products then run on the rotated copies, the mainloops unchanged. The
 //     backward's dq and dk leave through the adjoint R^T in the epilogues of
-//     the dQ and dK/dV launches (`rope_adjoint_rows`);
+//     the dQ and dK/dV launches (`rope_adjoint`);
 //   * kv_valid: keys at or past it are masked. The wrapper passes it as the
 //     key count M of the pre-pass and of the main launches (which mask their
 //     own ragged edge at M), so nothing past it is split, loaded or summed;
@@ -50,7 +54,9 @@
 //   * backward, given out, dout and an lse: delta = rowsum(dout * out);
 //     p = exp2(s - lse * log2(e)) (0 where lse is -inf); dv = p^T dout;
 //     dp = dout v^T; ds = p (dp - delta) scale; dk = ds^T q; dq = ds k;
-//     dq, dk, dv written contiguous [B, H, N|M, D].
+//     dq, dk, dv written contiguous [B, H, N|M, D], or [B, H, D, N|M] for a
+//     DN call, whose forward writes out [B, H, D, N] too (`store_cols`): the
+//     layout touches only the pre-pass's reads and the epilogues' stores.
 //
 // The split: x = hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
 // hi) (x - hi is exact in fp32; hi + lo holds x to 2^-22), and a product is
@@ -189,12 +195,26 @@ __device__ __forceinline__ void split_tile(uint32_t (&hi)[4], uint32_t (&lo)[4],
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                               int acc) {
-  if constexpr (N == 16) {
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  } else if constexpr (N == 24) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   } else if constexpr (N == 32) {
     asm volatile(
@@ -369,9 +389,10 @@ __device__ __forceinline__ uint32_t pair_bits(const int (&row_id)[2], int row0,
 }
 
 // This warpgroup's rows (row0 + warp * 16 + g, + 8) of a 64 x kW accumulator,
-// at column col0 of dst (a [*, D] fp32 array, contiguous), rows below n;
-// rows at or past `valid` are written as zeros (dK/dV past kv_valid).
-template <int D, int kW>
+// at column col0 of dst (a [*, kLd] fp32 array: row stride kLd, even where
+// the stores are float2), rows below n; rows at or past `valid` are written
+// as zeros (dK/dV past kv_valid).
+template <int kLd, int kW>
 __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kW / 2], int row0, int col0,
                                            int valid, int n) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -383,36 +404,85 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kW / 2
     const bool keep = row < valid;
 #pragma unroll
     for (int dt = 0; dt < kW / 8; ++dt) {
-      *reinterpret_cast<float2*>(dst + (long long)row * D + col0 + dt * 8 + 2 * t4) =
-          keep ? make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]) : make_float2(0.f, 0.f);
+      float* at = dst + (long long)row * kLd + col0 + dt * 8 + 2 * t4;
+      const float2 x = keep ? make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1])
+                            : make_float2(0.f, 0.f);
+      if constexpr (kLd % 2 == 0) {
+        *reinterpret_cast<float2*>(at) = x;
+      } else {
+        at[0] = x.x;
+        at[1] = x.y;
+      }
     }
   }
 }
 
-// Rows row0 + r (r < 64) below n of dst (a [*, D] fp32 array, contiguous)
-// from a 64 x D tile in shared memory (row stride D) through the RoPE
-// adjoint R^T of `rope_rotate_t`: lo = g_lo c_lo + g_hi s_hi, hi = g_hi c_hi
-// - g_lo s_lo with the tables' row of the token, each product and each sum
-// rounded once, as the plain version rounds them; rows at or past `valid`
-// are zeros. By `threads` threads, this one `tid`.
-template <int D>
-__device__ __forceinline__ void rope_adjoint_rows(float* dst, const float* tile, const float* cos_t,
-                                                  const float* sin_t, long long t_n, int row0,
-                                                  int valid, int n, int tid, int threads) {
+// The D-major counterpart of `store_rows` (the DN layout, [D, ld] for one
+// (b, h): element (row, col) at col * ld + row). A store instruction's
+// lanes hold 8 consecutive rows of each of 4 columns, so each column's part
+// fills one 32-byte sector: the stores need no staging to coalesce.
+template <int kW>
+__device__ __forceinline__ void store_cols(float* dst, const float (&acc)[kW / 2], int row0, int col0,
+                                           int valid, int n, long long ld) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= n) continue;
+    const bool keep = row < valid;
+#pragma unroll
+    for (int dt = 0; dt < kW / 8; ++dt) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        dst[(long long)(col0 + dt * 8 + 2 * t4 + c) * ld + row] = keep ? acc[4 * dt + 2 * r + c] : 0.f;
+      }
+    }
+  }
+}
+
+// Rows row0 + r (r < 64) below n of dst from a 64 x D tile in shared memory
+// (row stride kLd) through the RoPE adjoint R^T of `rope_rotate_t`: lo =
+// g_lo c_lo + g_hi s_hi, hi = g_hi c_hi - g_lo s_lo with the tables' row of
+// the token, each product and each sum rounded once, as the plain version
+// rounds them; rows at or past `valid` are zeros. By `threads` threads, this
+// one `tid`. dst is a [*, D] fp32 array, contiguous, and the tables' rows
+// unit-stride along d (t_n apart); kDMajor: dst is D-major ([D, ld], the DN
+// layout) and the tables [.., D, N] (t_d apart along d, unit along the
+// tokens), and consecutive threads take consecutive rows, so that both the
+// stores and the tables' reads coalesce (kLd odd keeps the tile's column
+// reads off one bank).
+template <int D, int kLd, bool kDMajor>
+__device__ __forceinline__ void rope_adjoint(float* dst, long long ld, const float* tile,
+                                             const float* cos_t, const float* sin_t, long long t_n,
+                                             long long t_d, int row0, int valid, int n, int tid,
+                                             int threads) {
   constexpr int kHalf = D / 2;
   for (int i = tid; i < 64 * kHalf; i += threads) {
-    const int r = i / kHalf, d = i - r * kHalf, row = row0 + r;
+    const int r = kDMajor ? i % 64 : i / kHalf, d = kDMajor ? i / 64 : i - r * kHalf;
+    const int row = row0 + r;
     if (row >= n) continue;
     float lo = 0.f, hi = 0.f;
     if (row < valid) {
-      const float* c = cos_t + row * t_n;
-      const float* s = sin_t + row * t_n;
-      const float g_lo = tile[r * D + d], g_hi = tile[r * D + d + kHalf];
-      lo = __fadd_rn(__fmul_rn(g_lo, c[d]), __fmul_rn(g_hi, s[d + kHalf]));
-      hi = __fsub_rn(__fmul_rn(g_hi, c[d + kHalf]), __fmul_rn(g_lo, s[d]));
+      const float g_lo = tile[r * kLd + d], g_hi = tile[r * kLd + d + kHalf];
+      if constexpr (kDMajor) {
+        const long long lo_at = row + d * t_d, hi_at = lo_at + kHalf * t_d;
+        lo = __fadd_rn(__fmul_rn(g_lo, cos_t[lo_at]), __fmul_rn(g_hi, sin_t[hi_at]));
+        hi = __fsub_rn(__fmul_rn(g_hi, cos_t[hi_at]), __fmul_rn(g_lo, sin_t[lo_at]));
+      } else {
+        const float* c = cos_t + row * t_n;
+        const float* s = sin_t + row * t_n;
+        lo = __fadd_rn(__fmul_rn(g_lo, c[d]), __fmul_rn(g_hi, s[d + kHalf]));
+        hi = __fsub_rn(__fmul_rn(g_hi, c[d + kHalf]), __fmul_rn(g_lo, s[d]));
+      }
     }
-    dst[(long long)row * D + d] = lo;
-    dst[(long long)row * D + d + kHalf] = hi;
+    if constexpr (kDMajor) {
+      dst[(long long)d * ld + row] = lo;
+      dst[(long long)(d + kHalf) * ld + row] = hi;
+    } else {
+      dst[(long long)row * D + d] = lo;
+      dst[(long long)row * D + d + kHalf] = hi;
+    }
   }
 }
 constexpr int kEpilogueBar = 2;  // the named barrier of the two consumer warpgroups' epilogue
@@ -442,7 +512,9 @@ inline int padded8(int n) { return (n + 7) / 8 * 8; }
 template <class Fn, class... Args>
 int dispatch_width(int D, Args&&... args) {
   switch (D) {
+    case 16: return Fn::template run<16>(args...);
     case 32: return Fn::template run<32>(args...);
+    case 48: return Fn::template run<48>(args...);
     case 64: return Fn::template run<64>(args...);
     case 80: return Fn::template run<80>(args...);
     case 88: return Fn::template run<88>(args...);

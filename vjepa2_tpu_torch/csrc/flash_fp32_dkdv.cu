@@ -12,8 +12,10 @@
 // product goes to dV's or dK's running sum in two column blocks (halves of
 // D), so that a block's fresh accumulator costs a quarter of D in registers.
 // With RoPE, K, Q and Q^T are the pre-pass's rotated copies: dK leaves
-// through the adjoint R^T (`rope_adjoint_rows`, `flash_attention.py:505-506`)
+// through the adjoint R^T (`rope_adjoint`, `flash_attention.py:505-506`)
 // from a tile in the ring's shared memory, once both warpgroups leave it.
+// On the DN layout (kDn: B2 on fp32 operands) dV and dK leave D-major
+// (`store_cols`, `rope_adjoint`).
 // With kv_valid, M is the valid keys' count and Mo the keys' full count (the
 // rows of dk and dv): the grid covers Mo, rows at or past M are written as
 // zeros, and a block wholly past M writes its zeros and leaves. Segment ids
@@ -51,21 +53,21 @@ struct DkdvParams {
   const float* v_nat;
   const float* delta;                      // [B, H, Np]
   const float* lse2;
-  const float* cos;                        // RoPE tables [B|1, N, D] at (t_b, t_n), or null
-  const float* sin;
+  const float* cos;                        // RoPE tables [B|1, N, D] at (t_b, t_n), unit along d,
+  const float* sin;                        // or (dn) [B|1, D, N] at (t_b, t_d); or null
   const int* seg_q;                        // segment ids [B, N] at batch stride segq_b, or null
   const int* seg_k;                        // [B, M] at segk_b
   const int* plan;                         // kMasked: [B|1][key blocks][plan_w] (count, tiles)
-  float* dk;                               // [B, H, Mo, D]
+  float* dk;                               // [B, H, Mo, D], or (dn) [B, H, D, Mo]
   float* dv;
-  long long t_b, t_n, segq_b, segk_b, plan_b, plan_w;
-  int B, H, N, M, Mo, Np, causal;
+  long long t_b, t_n, t_d, segq_b, segk_b, plan_b, plan_w;
+  int B, H, N, M, Mo, Np, causal, dn;
   float scale, qscale;
 };
 
 // Warpgroup kWg's loop: its first product (S^T or dP^T), the trade, and its
-// output (dV or dK), both column blocks.
-template <int D, int kWg, bool kMasked, class Load>
+// output (dV or dK), both column blocks; kDn: stored D-major (the DN layout).
+template <int D, int kWg, bool kMasked, bool kDn, class Load>
 __device__ __forceinline__ void dkdv_consumer(const DkdvParams& p, unsigned char* stages,
                                               float* xbuf, uint64_t* full, uint64_t* empty,
                                               const uint32_t (&ah)[D / 8][4],
@@ -170,23 +172,33 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvParams& p, unsigned char
     if constexpr (!C::kProducer) refill<C::kStages>(empty, j, n, load);
   }
   float* out = (kWg == 0 ? p.dv : p.dk) + bh * p.Mo * D;
+  auto store = [&]() {  // this warpgroup's dV or dK, zeros past kv_valid
+    if constexpr (kDn) {
+      store_cols<D>(out, run, k0, 0, p.M, p.Mo, p.Mo);
+    } else {
+      store_rows<D, D>(out, run, k0, 0, p.M, p.Mo);
+    }
+  };
   if (p.cos == nullptr) {
-    store_rows<D, D>(out, run, k0, 0, p.M, p.Mo);
+    store();
     return;
   }
-  float* tile = reinterpret_cast<float*>(stages);  // [64][D]: dK before the adjoint
-  bar_sync(kEpilogueBar, 2 * kWgThreads);        // both warpgroups are out of the ring
+  // dK before the adjoint: [64][kLd] (kDn: an odd row stride, `rope_adjoint`)
+  constexpr int kLd = kDn ? D + 1 : D;
+  float* tile = reinterpret_cast<float*>(stages);
+  bar_sync(kEpilogueBar, 2 * kWgThreads);  // both warpgroups are out of the ring
   if constexpr (kWg == 0) {
-    store_rows<D, D>(out, run, k0, 0, p.M, p.Mo);
+    store();
   } else {
-    store_rows<D, D>(tile, run, 0, 0, kBlockK, kBlockK);
+    store_rows<kLd, D>(tile, run, 0, 0, kBlockK, kBlockK);
   }
   bar_sync(kEpilogueBar, 2 * kWgThreads);
-  rope_adjoint_rows<D>(p.dk + bh * p.Mo * D, tile, p.cos + b * p.t_b, p.sin + b * p.t_b, p.t_n, k0,
-                       p.M, p.Mo, threadIdx.x, 2 * kWgThreads);
+  rope_adjoint<D, kLd, kDn>(p.dk + bh * p.Mo * D, kDn ? p.Mo : D, tile, p.cos + b * p.t_b,
+                            p.sin + b * p.t_b, p.t_n, p.t_d, k0, p.M, p.Mo, threadIdx.x,
+                            2 * kWgThreads);
 }
 
-template <int D, bool kMasked>
+template <int D, bool kMasked, bool kDn>
 __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
     flash_fp32_dkdv_kernel(const __grid_constant__ DkdvParams p) {
   using C = DkdvCfg<D>;
@@ -205,9 +217,12 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
                                          : nullptr;
   const int n_qt = kMasked ? (tiles != nullptr ? tiles[-1] : 0) : (p.N + kB - 1) / kB;
   if (k0 >= p.M || n_qt == 0) {  // no key below kv_valid, or no query attends one: no gradient
-    const long long at = (bh * p.Mo + k0) * D;
-    const int n = (cmin(kBlockK, p.Mo - k0)) * D;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) p.dk[at + i] = p.dv[at + i] = 0.f;
+    const int rows = cmin(kBlockK, p.Mo - k0);
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+      const long long at = kDn ? bh * p.Mo * D + (long long)(i / rows) * p.Mo + k0 + i % rows
+                               : (bh * p.Mo + k0) * D + i;
+      p.dk[at] = p.dv[at] = 0.f;
+    }
     return;
   }
   if (threadIdx.x == 0) {
@@ -252,39 +267,49 @@ __global__ void __launch_bounds__(DkdvCfg<D>::kThreads, 1)
   const long long part = (long long)p.B * p.H * p.M * D;
   load_fragments<D, 0, D / 8>(ah, al, (wg == 0 ? p.k_nat : p.v_nat) + bh * p.M * D, part, k0, p.M);
   if (wg == 0) {
-    dkdv_consumer<D, 0, kMasked>(p, stages, xbuf, full, empty, ah, al, b, h, k0, tiles, n_qt,
-                                 load);
+    dkdv_consumer<D, 0, kMasked, kDn>(p, stages, xbuf, full, empty, ah, al, b, h, k0, tiles,
+                                      n_qt, load);
   } else {
-    dkdv_consumer<D, 1, kMasked>(p, stages, xbuf, full, empty, ah, al, b, h, k0, tiles, n_qt,
-                                 load);
+    dkdv_consumer<D, 1, kMasked, kDn>(p, stages, xbuf, full, empty, ah, al, b, h, k0, tiles,
+                                      n_qt, load);
   }
 }
 
-template <int D, bool kMasked>
+template <int D, bool kMasked, bool kDn>
 int launch_dkdv(const DkdvParams& p, cudaStream_t s) {
   using C = DkdvCfg<D>;
-  cudaError_t err = allow_smem<flash_fp32_dkdv_kernel<D, kMasked>>(C::kSmem);
+  cudaError_t err = allow_smem<flash_fp32_dkdv_kernel<D, kMasked, kDn>>(C::kSmem);
   if (err != cudaSuccess) return err;
-  flash_fp32_dkdv_kernel<D, kMasked>
+  flash_fp32_dkdv_kernel<D, kMasked, kDn>
       <<<dim3((p.Mo + kBlockK - 1) / kBlockK, p.H, p.B), C::kThreads, C::kSmem, s>>>(p);
   return cudaGetLastError();
 }
 
+// The DN layout is its own instantiation, at the DN route's widths only: with
+// a runtime layout test in the epilogue, ptxas allocated the BHND kernels at
+// Dh 64 (168 registers with the producer warpgroup) otherwise than before
+// (12 more bytes of spill unmasked, 68 more bytes of spill loads masked).
 struct RunDkdv {
   template <int D>
   static int run(const DkdvParams& p, cudaStream_t s) {
-    return p.plan != nullptr ? launch_dkdv<D, true>(p, s) : launch_dkdv<D, false>(p, s);
+    if (!p.dn) return p.plan != nullptr ? launch_dkdv<D, true, false>(p, s)
+                                        : launch_dkdv<D, false, false>(p, s);
+    if constexpr (D <= 64) {
+      return p.plan != nullptr ? launch_dkdv<D, true, true>(p, s) : launch_dkdv<D, false, true>(p, s);
+    }
+    return cudaErrorInvalidValue;
   }
 };
 
 }  // namespace
 
-// dk and dv [B, H, Mo, D] contiguous fp32, after `vjepa2_flash_bwd_fp32_dq` on
-// the same stream, from the pre-pass's copies (`vjepa2_flash_fp32_prepass_bwd`:
-// q_nat, k_nat, v_nat, do_nat [2][B][H][N|M][D]; q_tr, do_tr
-// [2][B][H][D][padded8(N)]; q and k rotated where cos and sin are given,
-// split-half [B|1, N, D] at batch stride t_b, 0 when shared, and row stride
-// t_n) and statistics (delta, lse2 [B, H, Np], Np: N rounded up to 64). M:
+// dk and dv [B, H, Mo, D] contiguous fp32 (dn: [B, H, D, Mo], the DN layout),
+// after `vjepa2_flash_bwd_fp32_dq` on the same stream, from the pre-pass's
+// copies (`vjepa2_flash_fp32_prepass_bwd`: q_nat, k_nat, v_nat, do_nat
+// [2][B][H][N|M][D]; q_tr, do_tr [2][B][H][D][padded8(N)]; q and k rotated
+// where cos and sin are given, split-half [B|1, N, D] at batch stride t_b, 0
+// when shared, and row stride t_n, t_d 1; dn: [B|1, D, N] at feature stride
+// t_d, t_n 1) and statistics (delta, lse2 [B, H, Np], Np: N rounded up to 64). M:
 // the keys the pre-pass split (kv_valid), Mo >= M the keys' count; rows M to
 // Mo of dk and dv are zeros. seg_q [B, N] and seg_k [B, M] int32 at batch
 // strides segq_b, segk_b (both or neither), and causal, mask as the forward
@@ -297,15 +322,16 @@ extern "C" int vjepa2_flash_bwd_fp32_dkdv(const void* q_nat, const void* k_nat,
                                           const void* cos, const void* sin, const void* seg_q,
                                           const void* seg_k, const void* plan, void* dk, void* dv,
                                           int B, int H, int D, int N, int M, int Mo, int Np,
-                                          int causal, long long t_b, long long t_n,
-                                          long long segq_b, long long segk_b, long long plan_b,
-                                          long long plan_w, float scale, float qscale,
-                                          void* stream) {
+                                          int causal, int dn, long long t_b, long long t_n,
+                                          long long t_d, long long segq_b, long long segk_b,
+                                          long long plan_b, long long plan_w, float scale,
+                                          float qscale, void* stream) {
   const bool masked = seg_q != nullptr || causal != 0;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || Mo < M || B > 32767 || H > 65535 || Np < N ||
       Np % 64 != 0 || k_nat == nullptr || v_nat == nullptr || !aligned16(delta) ||
       !aligned16(lse2) || !aligned16(dk) || !aligned16(dv) || (cos == nullptr) != (sin == nullptr) ||
-      (cos != nullptr && (Mo != N || t_n < D || t_b < 0)) ||
+      (cos != nullptr && (Mo != N || t_b < 0 ||
+                          (dn ? (t_n != 1 || t_d < N) : (t_d != 1 || t_n < D)))) ||
       (seg_q == nullptr) != (seg_k == nullptr) || segq_b < 0 || segk_b < 0 ||
       masked != (plan != nullptr) || plan_b < 0 || (masked && plan_w < 1 + (N + kB - 1) / kB))
     return cudaErrorInvalidValue;
@@ -326,6 +352,8 @@ extern "C" int vjepa2_flash_bwd_fp32_dkdv(const void* q_nat, const void* k_nat,
   p.dv = static_cast<float*>(dv);
   p.t_b = t_b;
   p.t_n = t_n;
+  p.t_d = t_d;
+  p.dn = dn != 0;
   p.segq_b = segq_b;
   p.segk_b = segk_b;
   p.plan = static_cast<const int*>(plan);

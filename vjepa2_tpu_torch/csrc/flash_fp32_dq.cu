@@ -15,7 +15,7 @@
 // RoPE, Q, K and K^T are the pre-pass's rotated copies, so the sum is the
 // gradient of the rotated q; the epilogue stages both halves in the ring's
 // shared memory (free once both warpgroups leave it) and writes dQ through
-// the adjoint R^T (`rope_adjoint_rows`; `_rope_rotate_t :120`, applied at
+// the adjoint R^T (`rope_adjoint`; `_rope_rotate_t :120`, applied at
 // `flash_attention.py:429-430`), reading the tables' rows of the block's
 // queries once. With kv_valid, M is the valid keys' count. Segment ids and
 // the causal mask are the kMasked variant (the forward's): the ring takes
@@ -49,14 +49,14 @@ struct DqParams {
   const float* do_nat;
   const float* delta;             // [B, H, Np]
   const float* lse2;              // [B, H, Np], lse * log2(e)
-  const float* cos;               // RoPE tables [B|1, N, D] at (t_b, t_n), or null
-  const float* sin;
+  const float* cos;               // RoPE tables [B|1, N, D] at (t_b, t_n), unit along d, or
+  const float* sin;               // (dn) [B|1, D, N] at (t_b, t_d), unit along n; or null
   const int* seg_q;               // segment ids [B, N] at batch stride segq_b, or null
   const int* seg_k;               // [B, M] at segk_b
   const int* plan;                // kMasked: [B|1][query blocks][plan_w] (count, tiles)
-  float* dq;                      // [B, H, N, D]
-  long long t_b, t_n, segq_b, segk_b, plan_b, plan_w;
-  int B, H, N, M, Np, causal;
+  float* dq;                      // [B, H, N, D], or (dn) [B, H, D, N]
+  long long t_b, t_n, t_d, segq_b, segk_b, plan_b, plan_w;
+  int B, H, N, M, Np, causal, dn;
   float scale, qscale;
 };
 
@@ -161,15 +161,27 @@ __device__ __forceinline__ void dq_consumer(const DqParams& p, unsigned char* st
   }
   float* dq = p.dq + bh * p.N * D;
   if (p.cos == nullptr) {
-    store_rows<D, kW>(dq, run, q0, col0, p.N, p.N);
+    if (p.dn) {
+      store_cols<kW>(dq, run, q0, col0, p.N, p.N, p.N);
+    } else {
+      store_rows<D, kW>(dq, run, q0, col0, p.N, p.N);
+    }
     return;
   }
-  float* tile = reinterpret_cast<float*>(stages);  // [64][D]
+  float* tile = reinterpret_cast<float*>(stages);  // [64][D], or (dn) [64][D + 1]
   bar_sync(kEpilogueBar, 2 * kWgThreads);        // both warpgroups are out of the ring
-  store_rows<D, kW>(tile, run, 0, col0, kBlockQ, kBlockQ);
-  bar_sync(kEpilogueBar, 2 * kWgThreads);
-  rope_adjoint_rows<D>(dq, tile, p.cos + b * p.t_b, p.sin + b * p.t_b, p.t_n, q0, p.N, p.N,
-                       threadIdx.x, 2 * kWgThreads);
+  const float *cos_t = p.cos + b * p.t_b, *sin_t = p.sin + b * p.t_b;
+  if (p.dn) {
+    store_rows<D + 1, kW>(tile, run, 0, col0, kBlockQ, kBlockQ);
+    bar_sync(kEpilogueBar, 2 * kWgThreads);
+    rope_adjoint<D, D + 1, true>(dq, p.N, tile, cos_t, sin_t, p.t_n, p.t_d, q0, p.N, p.N,
+                                 threadIdx.x, 2 * kWgThreads);
+  } else {
+    store_rows<D, kW>(tile, run, 0, col0, kBlockQ, kBlockQ);
+    bar_sync(kEpilogueBar, 2 * kWgThreads);
+    rope_adjoint<D, D, false>(dq, D, tile, cos_t, sin_t, p.t_n, p.t_d, q0, p.N, p.N,
+                              threadIdx.x, 2 * kWgThreads);
+  }
 }
 
 template <int D, bool kMasked>
@@ -189,7 +201,8 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
   if (kMasked && n_kt == 0) {  // no key for any query of the block: dq 0
     float* dq = p.dq + ((long long)b * p.H + h) * p.N * D;
     for (int i = threadIdx.x; i < kBlockQ * D; i += blockDim.x) {
-      if (q0 + i / D < p.N) dq[(long long)q0 * D + i] = 0.f;
+      const int row = q0 + (p.dn ? i % kBlockQ : i / D), d = p.dn ? i / kBlockQ : i % D;
+      if (row < p.N) dq[p.dn ? (long long)d * p.N + row : (long long)row * D + d] = 0.f;
     }
     return;
   }
@@ -256,12 +269,13 @@ struct RunDq {
 
 }  // namespace
 
-// dq [B, H, N, D] contiguous fp32, after `vjepa2_flash_fp32_prepass_bwd` on
-// the same stream: q_nat, k_nat, v_nat, do_nat ([2][B][H][N|M][D]) and k_tr
-// ([2][B][H][D][padded8(M)]) are its split copies (q and k rotated where cos
-// and sin are given: split-half [B|1, N, D] at batch stride t_b, 0 when
-// shared, and row stride t_n), delta and lse2 [B, H, Np] its statistics (Np:
-// N rounded up to 64). M: the keys the pre-pass split. seg_q [B, N] and
+// dq [B, H, N, D] contiguous fp32 (dn: [B, H, D, N], the DN layout), after
+// `vjepa2_flash_fp32_prepass_bwd` on the same stream: q_nat, k_nat, v_nat,
+// do_nat ([2][B][H][N|M][D]) and k_tr ([2][B][H][D][padded8(M)]) are its
+// split copies (q and k rotated where cos and sin are given: split-half
+// [B|1, N, D] at batch stride t_b, 0 when shared, and row stride t_n, t_d 1;
+// dn: [B|1, D, N] at feature stride t_d, t_n 1), delta and lse2 [B, H, Np]
+// its statistics (Np: N rounded up to 64). M: the keys the pre-pass split. seg_q [B, N] and
 // seg_k [B, M] int32 at batch strides segq_b, segk_b (both or neither), and
 // causal, mask as the forward does; with either, plan (`mask_tile_plan`,
 // blocks of 64 queries, tiles of 32 keys) at batch stride plan_b and row
@@ -271,15 +285,16 @@ extern "C" int vjepa2_flash_bwd_fp32_dq(const void* q_nat, const void* k_nat, co
                                         const void* lse2, const void* cos, const void* sin,
                                         const void* seg_q, const void* seg_k, const void* plan,
                                         void* dq, int B, int H, int D, int N, int M, int Np,
-                                        int causal, long long t_b, long long t_n,
-                                        long long segq_b, long long segk_b, long long plan_b,
-                                        long long plan_w, float scale, float qscale,
-                                        void* stream) {
+                                        int causal, int dn, long long t_b, long long t_n,
+                                        long long t_d, long long segq_b, long long segk_b,
+                                        long long plan_b, long long plan_w, float scale,
+                                        float qscale, void* stream) {
   const bool masked = seg_q != nullptr || causal != 0;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 32767 || H > 65535 || Np < N || Np % 64 != 0 ||
       q_nat == nullptr || do_nat == nullptr || delta == nullptr || lse2 == nullptr ||
       !aligned16(dq) || (cos == nullptr) != (sin == nullptr) ||
-      (cos != nullptr && (M > N || t_n < D || t_b < 0)) ||
+      (cos != nullptr && (M > N || t_b < 0 ||
+                          (dn ? (t_n != 1 || t_d < N) : (t_d != 1 || t_n < D)))) ||
       (seg_q == nullptr) != (seg_k == nullptr) || segq_b < 0 || segk_b < 0 ||
       masked != (plan != nullptr) || plan_b < 0 || (masked && plan_w < 1 + (M + kB - 1) / kB))
     return cudaErrorInvalidValue;
@@ -298,6 +313,8 @@ extern "C" int vjepa2_flash_bwd_fp32_dq(const void* q_nat, const void* k_nat, co
   p.dq = static_cast<float*>(dq);
   p.t_b = t_b;
   p.t_n = t_n;
+  p.t_d = t_d;
+  p.dn = dn != 0;
   p.segq_b = segq_b;
   p.segk_b = segk_b;
   p.plan = static_cast<const int*>(plan);

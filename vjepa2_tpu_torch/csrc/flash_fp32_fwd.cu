@@ -57,7 +57,7 @@ struct FwdParams {
   const int* plan;                // kMasked: [B|1][query blocks][plan_w] (count, tiles)
   float* o;
   float* lse;                     // [B, H, N]
-  long long o_n, o_h, o_b;        // out's element strides (unit along d)
+  long long o_n, o_h, o_b, o_d;   // out's element strides (unit along d, or along n: DN)
   long long segq_b, segk_b, plan_b, plan_w;
   int B, H, N, M, causal;
   float qscale;                   // scale * log2(e)
@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(block_threads(false), 1)
     float* out = p.o + b * p.o_b + h * p.o_h;
     for (int i = threadIdx.x; i < kBlockQ * D; i += blockDim.x) {
       const int row = q0 + i / D;
-      if (row < p.N) out[row * p.o_n + i % D] = 0.f;
+      if (row < p.N) out[row * p.o_n + (i % D) * p.o_d] = 0.f;
     }
     const int row = q0 + threadIdx.x;
     if (threadIdx.x < kBlockQ && row < p.N) p.lse[bh * p.N + row] = -INFINITY;
@@ -293,10 +293,18 @@ __global__ void __launch_bounds__(block_threads(false), 1)
     const int row = q0 + row0 + 8 * r;
     if (row >= p.N) continue;
     float* orow = out + row * p.o_n;
+    if (p.o_d == 1) {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t4) =
-          make_float2(o[4 * dt + 2 * r] / denom[r], o[4 * dt + 2 * r + 1] / denom[r]);
+      for (int dt = 0; dt < D / 8; ++dt) {
+        *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t4) =
+            make_float2(o[4 * dt + 2 * r] / denom[r], o[4 * dt + 2 * r + 1] / denom[r]);
+      }
+    } else {  // D-major (DN): a column's 8 rows of a warp fill a 32-byte sector (`store_cols`)
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        orow[(dt * 8 + 2 * t4) * p.o_d] = o[4 * dt + 2 * r] / denom[r];
+        orow[(dt * 8 + 2 * t4 + 1) * p.o_d] = o[4 * dt + 2 * r + 1] / denom[r];
+      }
     }
     if (t4 == 0) p.lse[bh * p.N + row] = lse[r];
   }
@@ -323,7 +331,8 @@ struct RunFwd {
 
 // The forward, after `vjepa2_flash_fp32_prepass_fwd` on the same stream:
 // q_nat, k_nat ([2][B][H][N|M][D]) and v_tr ([2][B][H][D][padded8(M)]) are its
-// split copies. out: fp32 at element strides (b, h, n; unit along d, even);
+// split copies. out: fp32 at element strides (b, h, n, d): unit along d and
+// the others even, or unit along n (the DN layout [B, H, D, N]);
 // lse [B, H, N] contiguous fp32. seg_q [B, N] and seg_k [B, M] int32 (both or
 // neither): query i attends key j iff seg_q[i] >= seg_k[j]; causal: iff j <= i.
 // With either, plan (`mask_tile_plan`, blocks of 128 queries, tiles of 64
@@ -338,8 +347,11 @@ extern "C" int vjepa2_flash_fwd_fp32(const void* q_nat, const void* k_nat, const
                                      void* stream) {
   const long long* o_str = strides;
   const bool masked = seg_q != nullptr || causal != 0;
+  const bool d_major = o_str[3] != 1;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 32767 || H > 65535 || !aligned16(out) ||
-      lse == nullptr || o_str[0] % 2 != 0 || o_str[1] % 2 != 0 || o_str[2] % 2 != 0 ||
+      lse == nullptr ||
+      (d_major ? o_str[2] != 1
+               : (o_str[0] % 2 != 0 || o_str[1] % 2 != 0 || (N > 1 && o_str[2] % 2 != 0))) ||
       (seg_q == nullptr) != (seg_k == nullptr) || strides[4] < 0 || strides[5] < 0 ||
       masked != (plan != nullptr) || strides[6] < 0 ||
       (masked && strides[7] < 1 + (M + (D <= 64 ? 64 : 32) - 1) / (D <= 64 ? 64 : 32)))
@@ -363,6 +375,7 @@ extern "C" int vjepa2_flash_fwd_fp32(const void* q_nat, const void* k_nat, const
   p.o_b = o_str[0];
   p.o_h = o_str[1];
   p.o_n = o_str[2];
+  p.o_d = o_str[3];
   p.B = B;
   p.H = H;
   p.N = N;

@@ -6,7 +6,10 @@
 // It also takes the TPU kernels' RoPE prologue (`flash_attention.py:208-211`,
 // `_rope_rotate :112`): q and k are rotated here, once a call, in fp32.
 //
-//   * `flash_fp32_split_kernel`: an operand [B, H, n, D] (strides; float4 reads)
+//   * `flash_fp32_split_kernel`: an operand [B, H, n, D] (strides; float4 reads
+//     where it is unit-stride along d; where it is unit-stride along the
+//     tokens, the DN layout [B, H, D, n] of B1/B2, a warp reads 32 tokens of
+//     one feature with scalar loads, at any alignment, `stage_tokens`)
 //     -> token-major hi/lo [2][B][H][n][D] and/or feature-major hi/lo
 //     [2][B][H][D][np] (np = n rounded up to 8, pad tokens zero), the latter
 //     with its tokens permuted in each group of 8 (`permuted`). A block stages
@@ -14,9 +17,12 @@
 //     it rotates the staged tokens there first (`rope_pair`: each product and
 //     sum rounded once, the plain version's `rope_rotate`), then splits the
 //     rotated values. With kv_valid the wrapper passes the valid keys as n,
-//     so only those are split;
+//     so only those are split. Both layouts give the same copies, bit for bit;
 //   * `flash_fp32_stats_kernel`: delta = rowsum(dout * out) in fp32 and
-//     lse * log2(e) (+inf where lse is -inf, and past N), [B, H, Np], a warp a row;
+//     lse * log2(e) (+inf where lse is -inf, and past N), [B, H, Np], a warp a
+//     row, where out and dout are unit-stride along d; otherwise
+//     `flash_fp32_stats_staged_kernel`, which stages 32 rows of each through
+//     shared memory first and then sums in the same order (equal bits);
 //   * `flash_fp32_plan_kernel`: the masked kernels' tile plan (segment ids or
 //     the causal mask; `ops/flash_attention.py mask_tile_plan` is its plain
 //     version): for each block of rows (queries, or keys for dK/dV) the
@@ -37,11 +43,11 @@ namespace {
 constexpr int kSplitRows = 64;  // tokens a block
 
 struct SplitParams {
-  const float* x;    // [B, H, n, D] at element strides (b, h, n), unit along d
-  long long sb, sh, sn;
-  const float* cos;  // split-half tables [B|1, >= n, D] at (t_b, t_n), unit along d; null: no rotation
-  const float* sin;
-  long long t_b, t_n;
+  const float* x;    // [B, H, n, D] at element strides (b, h, n, d): unit along d, or along n
+  long long sb, sh, sn, sd;
+  const float* cos;  // split-half tables [B|1, >= n, D] at (t_b, t_n, t_d), unit along d or
+  const float* sin;  // along n; null: no rotation
+  long long t_b, t_n, t_d;
   float* nat;        // [2][B][H][n][D], or null
   float* tr;         // [2][B][H][D][np], or null
   int B, H, n, np;
@@ -58,6 +64,27 @@ __device__ __forceinline__ void store_split4(float* dst, long long part, float4 
   *reinterpret_cast<uint4*>(dst + part) = lo;
 }
 
+// Tokens t0 .. t0 + kRows - 1 of x (token n, feature d at n * sn + d * sd)
+// into tile[r][d], zeros at and past n_valid, with scalar loads in the order
+// its layout coalesces: along d where sd is 1, else along the tokens (the DN
+// layout: consecutive threads take consecutive tokens of one feature; the
+// tile's odd row stride keeps their stores on distinct banks).
+template <int D, int kRows>
+__device__ __forceinline__ void stage_tokens(float (&tile)[kRows][D + 1], const float* x,
+                                             long long sn, long long sd, int t0, int n_valid) {
+  if (sd == 1) {
+    for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
+      const int r = i / D, d = i - r * D, n = t0 + r;
+      tile[r][d] = n < n_valid ? x[n * sn + d] : 0.f;
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
+      const int d = i / kRows, r = i - d * kRows, n = t0 + r;
+      tile[r][d] = n < n_valid ? x[n * sn + d * sd] : 0.f;
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(256) flash_fp32_split_kernel(const SplitParams p) {
   constexpr int kVec = D / 4, kHalf = D / 2;
@@ -66,32 +93,40 @@ __global__ void __launch_bounds__(256) flash_fp32_split_kernel(const SplitParams
   const long long bh = (long long)b * p.H + h;
   const float* x = p.x + b * p.sb + h * p.sh;
   const long long nat_part = (long long)p.B * p.H * p.n * D;
-  const bool rope = p.cos != nullptr;
-  for (int i = threadIdx.x; i < kSplitRows * kVec; i += blockDim.x) {
-    const int r = i / kVec, c = (i - r * kVec) * 4, n = t0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n < p.n) v = *reinterpret_cast<const float4*>(x + n * p.sn + c);
-    tile[r][c] = v.x;
-    tile[r][c + 1] = v.y;
-    tile[r][c + 2] = v.z;
-    tile[r][c + 3] = v.w;
-    if (!rope && p.nat != nullptr && n < p.n) store_split4(p.nat + (bh * p.n + n) * D + c, nat_part, v);
+  const bool rope = p.cos != nullptr, dn = p.sd != 1;
+  if (dn) {
+    stage_tokens<D, kSplitRows>(tile, x, p.sn, p.sd, t0, p.n);
+  } else {
+    for (int i = threadIdx.x; i < kSplitRows * kVec; i += blockDim.x) {
+      const int r = i / kVec, c = (i - r * kVec) * 4, n = t0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n < p.n) v = *reinterpret_cast<const float4*>(x + n * p.sn + c);
+      tile[r][c] = v.x;
+      tile[r][c + 1] = v.y;
+      tile[r][c + 2] = v.z;
+      tile[r][c + 3] = v.w;
+      if (!rope && p.nat != nullptr && n < p.n) store_split4(p.nat + (bh * p.n + n) * D + c, nat_part, v);
+    }
   }
   if (rope) {  // rotate the staged tokens in place, a pair (d, d + D/2) a thread
     __syncthreads();
     const float* cos_t = p.cos + b * p.t_b;
     const float* sin_t = p.sin + b * p.t_b;
     for (int i = threadIdx.x; i < kSplitRows * kHalf; i += blockDim.x) {
-      const int r = i / kHalf, d = i - r * kHalf, n = t0 + r;
+      // consecutive threads along the tables' unit stride: d, or the tokens
+      const int r = p.t_d == 1 ? i / kHalf : i % kSplitRows;
+      const int d = p.t_d == 1 ? i - r * kHalf : i / kSplitRows, n = t0 + r;
       if (n >= p.n) continue;
-      const long long at = n * p.t_n + d;
+      const long long at = n * p.t_n + d * p.t_d, hi_at = at + kHalf * p.t_d;
       float lo = tile[r][d], hi = tile[r][d + kHalf];
-      rope_pair(lo, hi, cos_t[at], sin_t[at], cos_t[at + kHalf], sin_t[at + kHalf]);
+      rope_pair(lo, hi, cos_t[at], sin_t[at], cos_t[hi_at], sin_t[hi_at]);
       tile[r][d] = lo;
       tile[r][d + kHalf] = hi;
     }
+  }
+  if ((rope || dn) && p.nat != nullptr) {  // the token-major copy from the staged tokens
     __syncthreads();
-    for (int i = threadIdx.x; i < kSplitRows * kVec && p.nat != nullptr; i += blockDim.x) {
+    for (int i = threadIdx.x; i < kSplitRows * kVec; i += blockDim.x) {
       const int r = i / kVec, c = (i - r * kVec) * 4, n = t0 + r;
       if (n < p.n) {
         store_split4(p.nat + (bh * p.n + n) * D + c, nat_part,
@@ -114,14 +149,34 @@ __global__ void __launch_bounds__(256) flash_fp32_split_kernel(const SplitParams
 }
 
 struct StatsParams {
-  const float* o;     // out [B, H, N, D] at strides (b, h, n), unit along d
+  const float* o;     // out [B, H, N, D] at element strides (b, h, n, d)
   const float* dout;  // the same
-  long long ob, oh, on, gb, gh, gn;
+  long long ob, oh, on, od, gb, gh, gn, gd;
   const float* lse;   // [B, H, N]
   float* delta;       // [B, H, Np]
   float* lse2;        // [B, H, Np]
   int H, N, Np, D;
 };
+
+// A row's delta as a warp sums it: lane l takes features l and l + 32 (an
+// fma chain from 0), then the butterfly; feat(d) is (out, dout) at feature d.
+template <class Feat>
+__device__ __forceinline__ float row_delta(const Feat& feat, int D) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    const float2 x = feat(d);
+    acc = fmaf(x.x, x.y, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+__device__ __forceinline__ float lse_log2(const StatsParams& p, long long bh, int n) {
+  const float l = p.lse[bh * p.N + n];
+  return l == -INFINITY ? INFINITY : l * kLog2e;
+}
 
 __global__ void __launch_bounds__(256) flash_fp32_stats_kernel(const StatsParams p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -132,15 +187,39 @@ __global__ void __launch_bounds__(256) flash_fp32_stats_kernel(const StatsParams
   if (n < p.N) {
     const float* o = p.o + b * p.ob + h * p.oh + n * p.on;
     const float* g = p.dout + b * p.gb + h * p.gh + n * p.gn;
-    for (int d = lane; d < p.D; d += 32) acc = fmaf(o[d], g[d], acc);
-    const float l = p.lse[bh * p.N + n];
-    if (l != -INFINITY) l2 = l * kLog2e;
+    acc = row_delta([&](int d) { return make_float2(o[d], g[d]); }, p.D);
+    l2 = lse_log2(p, bh, n);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
     p.delta[bh * p.Np + n] = acc;
     p.lse2[bh * p.Np + n] = l2;
+  }
+}
+
+// The same statistics where out or dout is not unit-stride along d (the DN
+// layout; or a cotangent that is, beside an out that is not): 32 rows a
+// block, both staged through shared memory by reads that coalesce in their
+// own layouts (`stage_tokens`), then a warp a row as above, so the two
+// kernels give equal bits. 32 rows a block: both tiles stay within the 48 KB
+// of static shared memory at D 104.
+constexpr int kStatsRows = 32;
+
+template <int D>
+__global__ void __launch_bounds__(256) flash_fp32_stats_staged_kernel(const StatsParams p) {
+  __shared__ float so[kStatsRows][D + 1], sg[kStatsRows][D + 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, b = blockIdx.z, t0 = blockIdx.x * kStatsRows;
+  const long long bh = (long long)b * p.H + h;
+  stage_tokens<D, kStatsRows>(so, p.o + b * p.ob + h * p.oh, p.on, p.od, t0, p.N);
+  stage_tokens<D, kStatsRows>(sg, p.dout + b * p.gb + h * p.gh, p.gn, p.gd, t0, p.N);
+  __syncthreads();
+  for (int r = warp; r < kStatsRows; r += 8) {
+    const int n = t0 + r;
+    const float acc = row_delta([&](int d) { return make_float2(so[r][d], sg[r][d]); }, D);
+    if (lane == 0) {
+      p.delta[bh * p.Np + n] = acc;
+      p.lse2[bh * p.Np + n] = n < p.N ? lse_log2(p, bh, n) : INFINITY;
+    }
   }
 }
 
@@ -148,6 +227,11 @@ __global__ void __launch_bounds__(256) flash_fp32_stats_kernel(const StatsParams
 bool vec4_operand(const void* x, const long long* st, int B, int H, int n) {
   return x != nullptr && aligned16(x) && st[3] == 1 && (B == 1 || st[0] % 4 == 0) &&
          (H == 1 || st[1] % 4 == 0) && (n == 1 || st[2] % 4 == 0);
+}
+
+// Scalar reads along the tokens (the DN layout), at any other strides.
+bool dn_operand(const void* x, const long long* st) {
+  return x != nullptr && st[2] == 1 && st[3] > 0;
 }
 
 struct RunSplit {
@@ -158,24 +242,33 @@ struct RunSplit {
   }
 };
 
+struct RunStatsStaged {
+  template <int D>
+  static int run(const StatsParams& p, int B, cudaStream_t s) {
+    flash_fp32_stats_staged_kernel<D><<<dim3(p.Np / kStatsRows, p.H, B), 256, 0, s>>>(p);
+    return cudaGetLastError();
+  }
+};
+
 // The RoPE tables of a call: (cos, sin) or neither, and their strides.
 struct Tables {
   const float* cos;
   const float* sin;
-  long long t_b, t_n;
+  long long t_b, t_n, t_d;
 };
-const Tables kNoTables{nullptr, nullptr, 0, 0};
+const Tables kNoTables{nullptr, nullptr, 0, 0, 1};
 
 // Splits x (strides st: b, h, n, d) into nat and/or tr (either may be null),
 // rotated by the tables `t` where it has them.
 int split(const void* x, const long long* st, const Tables& t, void* nat, void* tr, int B, int H,
           int D, int n, cudaStream_t s) {
-  if (!vec4_operand(x, st, B, H, n) || (nat != nullptr && !aligned16(nat)) ||
-      (tr != nullptr && !aligned16(tr)))
+  const bool dn = st[3] != 1;
+  if (!(dn ? dn_operand(x, st) : vec4_operand(x, st, B, H, n)) ||
+      (nat != nullptr && !aligned16(nat)) || (tr != nullptr && !aligned16(tr)))
     return cudaErrorInvalidValue;
-  const SplitParams p{static_cast<const float*>(x), st[0], st[1], st[2], t.cos, t.sin, t.t_b,
-                      t.t_n, static_cast<float*>(nat), static_cast<float*>(tr), B, H, n,
-                      padded8(n)};
+  const SplitParams p{static_cast<const float*>(x), st[0], st[1], st[2], st[3], t.cos, t.sin,
+                      t.t_b, t.t_n, t.t_d, static_cast<float*>(nat), static_cast<float*>(tr), B,
+                      H, n, padded8(n)};
   return dispatch_width<RunSplit>(D, p, s);
 }
 
@@ -270,11 +363,16 @@ __global__ void __launch_bounds__(kPlanThreads)
   if (threadIdx.x == 0) out[0] = count;
 }
 
-// The tables of an entry point's arguments; false if only one is given or
-// the row stride is below D.
-bool tables(const void* cos, const void* sin, long long t_b, long long t_n, int D, Tables* t) {
-  if ((cos == nullptr) != (sin == nullptr) || (cos != nullptr && (t_n < D || t_b < 0))) return false;
-  *t = Tables{static_cast<const float*>(cos), static_cast<const float*>(sin), t_b, t_n};
+// The tables of an entry point's arguments for n tokens; false if only one
+// is given or their strides are neither [.., n, D] (unit along d, rows at
+// least D apart) nor [.., D, n] (unit along the tokens, features at least n
+// apart).
+bool tables(const void* cos, const void* sin, const long long* st, int D, int n, Tables* t) {
+  const long long t_b = st[0], t_n = st[1], t_d = st[2];
+  if ((cos == nullptr) != (sin == nullptr) ||
+      (cos != nullptr && (t_b < 0 || !((t_d == 1 && t_n >= D) || (t_n == 1 && t_d >= n)))))
+    return false;
+  *t = Tables{static_cast<const float*>(cos), static_cast<const float*>(sin), t_b, t_n, t_d};
   return true;
 }
 
@@ -282,9 +380,10 @@ bool tables(const void* cos, const void* sin, long long t_b, long long t_n, int 
 
 // The forward's pre-pass: q and k token-major, v feature-major, each hi/lo
 // ([2][B][H][N][D], [2][B][H][M][D], [2][B][H][D][padded8(M)]); q and k
-// rotated first where cos and sin are given (split-half [B|1, N, D]). M: the
-// keys to split (kv_valid where the call has it). strides: (b, h, n, d) of
-// q, k, v, then the tables' (t_b, t_n). Returns the cudaError_t of the
+// rotated first where cos and sin are given (split-half, [B|1, N, D] or
+// [B|1, D, N]). M: the keys to split (kv_valid where the call has it).
+// strides: (b, h, n, d) of q, k, v, each unit-stride along d or along the
+// tokens, then the tables' (t_b, t_n, t_d). Returns the cudaError_t of the
 // launches (0 on success).
 extern "C" int vjepa2_flash_fp32_prepass_fwd(const void* q, const void* k, const void* v,
                                              const void* cos, const void* sin, void* q_nat,
@@ -292,7 +391,7 @@ extern "C" int vjepa2_flash_fp32_prepass_fwd(const void* q, const void* k, const
                                              int M, const long long* strides, void* stream) {
   Tables t;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 65535 || H > 65535 ||
-      !tables(cos, sin, strides[12], strides[13], D, &t) || (t.cos != nullptr && M > N))
+      !tables(cos, sin, strides + 12, D, N, &t) || (t.cos != nullptr && M > N))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = split(q, strides, t, q_nat, nullptr, B, H, D, N, s);
@@ -305,8 +404,9 @@ extern "C" int vjepa2_flash_fp32_prepass_fwd(const void* q, const void* k, const
 // feature-major, each hi/lo, q and k rotated first where cos and sin are
 // given; delta and lse * log2(e) [B, H, Np] (Np: N rounded up to 64). M: the
 // keys to split (kv_valid where the call has it). strides: (b, h, n, d) of q,
-// k, v, out and dout, then the tables' (t_b, t_n); lse [B, H, N] contiguous.
-// Returns the cudaError_t of the launches (0 on success).
+// k, v, out and dout, each unit-stride along d or along the tokens, then the
+// tables' (t_b, t_n, t_d); lse [B, H, N] contiguous. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int vjepa2_flash_fp32_prepass_bwd(const void* q, const void* k, const void* v,
                                              const void* out, const void* dout, const void* lse,
                                              const void* cos, const void* sin, void* q_nat,
@@ -315,20 +415,23 @@ extern "C" int vjepa2_flash_fp32_prepass_bwd(const void* q, const void* k, const
                                              int B, int H, int D, int N, int M, int Np,
                                              const long long* strides, void* stream) {
   Tables t;
+  const long long *so = strides + 12, *sg = strides + 16;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B > 65535 || H > 65535 || Np < N || Np % 64 != 0 ||
-      lse == nullptr || delta == nullptr || lse2 == nullptr || strides[15] != 1 ||
-      !tables(cos, sin, strides[20], strides[21], D, &t) || (t.cos != nullptr && M > N))
+      lse == nullptr || delta == nullptr || lse2 == nullptr || out == nullptr ||
+      dout == nullptr || (so[3] != 1 && so[2] != 1) || (sg[3] != 1 && sg[2] != 1) ||
+      !tables(cos, sin, strides + 20, D, N, &t) || (t.cos != nullptr && M > N))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = split(q, strides, t, q_nat, q_tr, B, H, D, N, s);
   if (err == 0) err = split(k, strides + 4, t, k_nat, k_tr, B, H, D, M, s);
   if (err == 0) err = split(v, strides + 8, kNoTables, v_nat, nullptr, B, H, D, M, s);
-  if (err == 0) err = split(dout, strides + 16, kNoTables, do_nat, do_tr, B, H, D, N, s);
+  if (err == 0) err = split(dout, sg, kNoTables, do_nat, do_tr, B, H, D, N, s);
   if (err != 0) return err;
-  const StatsParams p{static_cast<const float*>(out), static_cast<const float*>(dout), strides[12],
-                      strides[13], strides[14], strides[16], strides[17], strides[18],
+  const StatsParams p{static_cast<const float*>(out), static_cast<const float*>(dout), so[0],
+                      so[1], so[2], so[3], sg[0], sg[1], sg[2], sg[3],
                       static_cast<const float*>(lse), static_cast<float*>(delta),
                       static_cast<float*>(lse2), H, N, Np, D};
+  if (so[3] != 1 || sg[3] != 1) return dispatch_width<RunStatsStaged>(D, p, B, s);
   flash_fp32_stats_kernel<<<dim3(Np / 8, H, B), 256, 0, s>>>(p);
   return cudaGetLastError();
 }

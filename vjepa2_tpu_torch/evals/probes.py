@@ -8,8 +8,9 @@ whole grid into one program. The port keeps JAX's layout, every parameter
 and Adam moment stacked on a leading [P] axis (one tree for checkpoints and
 the converter), and trains the probes one at a time, as the reference does:
 a grid vmapped at full width would not fit on one card. On the card the
-probes' fp32 self-attention runs the fp32 flash kernels (``use_flash``,
-`ops.flash_attention`), which keep O(N) state a row: the plain route's
+probes' fp32 self-attention runs the fp32 flash kernels (``use_flash``:
+heads of 64 on the DN route, `ops.flash_attention_dn`, heads of 88 on the
+BHND one, `ops.flash_attention`), which keep O(N) state a row: the plain route's
 [B, H, N, N] probabilities (4.3 GB a block at the SSv2 eval's N = 4096,
 batch 4, 16 heads; 87 GB at ViT-g/384 K400's N = 36,864) would not fit.
 

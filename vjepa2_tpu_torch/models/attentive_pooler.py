@@ -2,9 +2,10 @@
 `vjepa2_tpu/models/attentive_pooler.py:21,73`).
 
 A learnable query cross-attends into frozen features after ``depth - 1``
-self-attention blocks (no RoPE; with ``use_flash`` the blocks take the BHND
-flash kernels, fp32 on the card, which JAX's probes leave to its plain
-route: the same function); `AttentiveClassifier` adds an fp32 linear head.
+self-attention blocks (no RoPE; with ``use_flash`` the blocks take the
+flash route of their head width, fp32 on the card: B1/B2 at 16-64, the BHND
+kernels at 80-104; JAX's probes leave it to its plain route: the same
+function); `AttentiveClassifier` adds an fp32 linear head.
 The cross-attention (1-3 queries against N keys) stays plain, as in JAX.
 State-dict keys follow the reference: ``pooler.query_tokens``, ``pooler.blocks.{i}.*``,
 ``pooler.cross_attention_block.*``, ``linear.*``.

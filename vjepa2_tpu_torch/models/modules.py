@@ -277,18 +277,15 @@ class Attention(nn.Module):
     """Self-attention with optional factorized 3D RoPE.
 
     With ``use_flash`` the layer takes the DN route (head width 16-64) or the
-    BHND route (head width 80, 88 or 104); with RoPE it then needs the
-    split-half ``rope_expanded`` tables and the matching ``qkv_perm``
-    (`qkv_row_perm`). Other widths have no flash kernel and raise. The DN
-    kernels take bf16 only: fp32 operands on the card take the BHND route at
-    every width, whose fp32 kernels take the frozen probes' plain attention,
-    the fp32 pretrain step's RoPE tables (shared or per example) and
-    kv_valid, and `ACAttention`'s frame-causal segment ids with the stack
-    pad's keys on `PAD_SEGMENT`, at heads of 32 (the predictor) and 64 (the
-    encoders, the AC predictor) as at 80, 88 and 104 (on the CPU both routes
-    are the same plain function, and the DN one stays, as in JAX). Without
-    ``use_flash`` it takes the plain route, with RoPE from the interleaved
-    ``rope_cache``.
+    BHND route (head width 80, 88 or 104), as JAX's `modules.py:515-546`
+    does, whatever the dtype and the device: on the card bf16 and fp32
+    operands each have their kernels on both routes (the DN route's fp32
+    ones take RoPE tables shared or per example, kv_valid, and
+    `ACAttention`'s frame-causal segment ids with the stack pad's keys on
+    `PAD_SEGMENT`). With RoPE it needs the split-half ``rope_expanded``
+    tables and the matching ``qkv_perm`` (`qkv_row_perm`). Other widths have
+    no flash kernel and raise. Without ``use_flash`` it takes the plain
+    route, with RoPE from the interleaved ``rope_cache``.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, use_rope: bool = False,
@@ -340,7 +337,7 @@ class Attention(nn.Module):
             w = w[qkv_perm]
             b = None if b is None else b[qkv_perm]
         rope = rope_expanded if self.use_rope else None
-        if dn_head_eligible(Dh) and not (dt == torch.float32 and x.is_cuda):
+        if dn_head_eligible(Dh):
             # contract straight into [B, 3*dim, N]: q, k, v come out [B, H, Dh, N]
             wt, xt = w.to(dt).expand(B, -1, -1), x.to(dt).transpose(1, 2)
             bt = None if b is None else b.to(dt)[:, None]

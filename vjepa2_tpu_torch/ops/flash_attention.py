@@ -223,17 +223,23 @@ def _bwd_with_tables(core, q, k, v, out, lse, do, segment_ids, causal, scale, ro
     return dq, dk, dv
 
 
+def operand_dtype(family: str, **tensors) -> torch.dtype:
+    """The operands' one dtype, bf16 or fp32 (each has its kernels, in the
+    BHND and the DN ``family``); raises on anything else."""
+    dtypes = {name: t.dtype for name, t in tensors.items()}
+    if len(set(dtypes.values())) != 1 or next(iter(dtypes.values())) not in (torch.bfloat16,
+                                                                               torch.float32):
+        raise TypeError(f"the {family} flash kernels on CUDA take bf16 or fp32 operands of one "
+                        f"dtype; got {dtypes}")
+    return next(iter(dtypes.values()))
+
+
 def _check_cuda(D, **tensors) -> torch.dtype:
     """The operands' one dtype, bf16 or fp32; raises on anything else."""
     if not bhnd_head_supported(D):
         raise ValueError(f"head width {D}: the BHND flash kernels take "
                          f"{', '.join(map(str, BHND_HEAD_WIDTHS))}")
-    dtypes = {name: t.dtype for name, t in tensors.items()}
-    if len(set(dtypes.values())) != 1 or next(iter(dtypes.values())) not in (torch.bfloat16,
-                                                                               torch.float32):
-        raise TypeError(f"the BHND flash kernels on CUDA take bf16 or fp32 operands of one "
-                        f"dtype; got {dtypes}")
-    return next(iter(dtypes.values()))
+    return operand_dtype("BHND", **tensors)
 
 
 def _side_inputs(dev, cos, sin, seg_q, seg_k):
@@ -334,6 +340,15 @@ def vec4_operand(t):
     return t if vec4_ready(t) else t.clone(memory_format=torch.contiguous_format)
 
 
+def split_operand(t):
+    """A [B, H, n, D] operand as the fp32 pre-pass reads it: ``t`` itself
+    when it is unit-stride along the tokens (the DN layout, read by scalar
+    loads at any other strides and alignment), else `vec4_operand`."""
+    if t.stride(-1) != 1 and t.stride(-2) == 1:
+        return t
+    return vec4_operand(t)
+
+
 def fp32_stat_rows(n: int) -> int:
     """N rounded up to the fp32 dQ launch's 64-query block: the length of the
     backward's delta and lse*log2(e) rows."""
@@ -375,8 +390,8 @@ _FP32_ARGTYPES = {
     "vjepa2_flash_fp32_prepass_fwd": _build.launcher_argtypes(8, 5, 0),
     "vjepa2_flash_fwd_fp32": _build.launcher_argtypes(8, 6, 1),
     "vjepa2_flash_fp32_prepass_bwd": _build.launcher_argtypes(17, 6, 0),
-    "vjepa2_flash_bwd_fp32_dq": [_P] * 13 + [_I] * 7 + [_L] * 6 + [_F] * 2 + [_P],
-    "vjepa2_flash_bwd_fp32_dkdv": [_P] * 15 + [_I] * 8 + [_L] * 6 + [_F] * 2 + [_P],
+    "vjepa2_flash_bwd_fp32_dq": [_P] * 13 + [_I] * 8 + [_L] * 7 + [_F] * 2 + [_P],
+    "vjepa2_flash_bwd_fp32_dkdv": [_P] * 15 + [_I] * 9 + [_L] * 7 + [_F] * 2 + [_P],
     "vjepa2_flash_fp32_plan": _build.launcher_argtypes(3, 7, 0),
 }
 
@@ -493,31 +508,30 @@ def _plan_cuda(seg_q, seg_k, causal, n, m, block, tile, keys_major, dev):
 
 def _fp32_side(q, k, cos, sin, seg_q, seg_k, kv_valid_len):
     """What the fp32 entry points take beside the operands: the tables as
-    `_side_inputs` lays them out (None without RoPE), their (batch, row)
-    strides, the keys the kernels run over (kv_valid, else M), then the
-    segment ids as `_side_inputs` lays them out (int32 [B, N] and [B, M],
+    `_side_inputs` lays them out (None without RoPE), their (batch, row,
+    feature) strides, the keys the kernels run over (kv_valid, else M), then
+    the segment ids as `_side_inputs` lays them out (int32 [B, N] and [B, M],
     None without) and their batch strides."""
-    cos, sin, seg_q, seg_k, (t_b, t_n, _, segq_b, segk_b) = _side_inputs(q.device, cos, sin,
-                                                                       seg_q, seg_k)
+    cos, sin, seg_q, seg_k, (t_b, t_n, t_d, segq_b, segk_b) = _side_inputs(q.device, cos, sin,
+                                                                         seg_q, seg_k)
     Mv = k.shape[2] if kv_valid_len is None else kv_valid_len
-    return cos, sin, (t_b, t_n), Mv, seg_q, seg_k, (segq_b, segk_b)
+    return cos, sin, (t_b, t_n, t_d if cos is not None else 1), Mv, seg_q, seg_k, (segq_b, segk_b)
 
 
-def _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len):
-    """The fp32 forward (`csrc/flash_fp32_split.cu`, which rotates q and k
-    with RoPE, then `csrc/flash_fp32_fwd.cu` over the first kv_valid keys,
-    masking by segment ids and the causal mask): out in BNHD memory seen as
-    BHND, as the bf16 kernel writes it, and lse."""
-    global LAUNCHES_FP32
+def fp32_forward(q, k, v, out, lse, scale, cos, sin, tables, Mv, seg_q, seg_k, seg_b, causal):
+    """The fp32 forward's launches (`csrc/flash_fp32_split.cu`, which rotates
+    q and k with RoPE, then `csrc/flash_fp32_fwd.cu` over the first ``Mv``
+    keys, masking by segment ids and the causal mask) into ``out`` and
+    ``lse``. q, k, v and out are [B, H, n, D] views, each unit-stride along
+    d or along the tokens (a DN call passes its [B, H, D, n] tensors
+    transposed); the side inputs as `_fp32_side` gives them: tables
+    [B|1, N, D] or [B|1, D, N] at ``tables`` = (t_b, t_n, t_d), int32 ids
+    at batch strides ``seg_b``."""
     B, H, N, D = q.shape
-    cos, sin, tables, Mv, seg_q, seg_k, seg_b = _fp32_side(q, k, cos, sin, seg_q, seg_k,
-                                                           kv_valid_len)
     dev = q.device
     plan, plan_b, plan_w = _plan_cuda(seg_q, seg_k, causal, N, Mv, FP32_FWD_BLOCK,
                                       fp32_fwd_key_tile(D), False, dev)
-    q, k, v = map(vec4_operand, (q, k, v))
-    out = torch.empty((B, N, H, D), dtype=torch.float32, device=dev).transpose(1, 2)
-    lse = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    q, k, v = map(split_operand, (q, k, v))
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     buf, at = _scratch(dev, B, H, N, Mv, D, False)
     _call_fp32("vjepa2_flash_fp32_prepass_fwd", q, k, v, cos, sin, at["q_nat"], at["k_nat"],
@@ -525,28 +539,22 @@ def _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len
     _call_fp32("vjepa2_flash_fwd_fp32", at["q_nat"], at["k_nat"], at["v_tr"], out, lse, seg_q,
                seg_k, plan, B, H, D, N, Mv, int(causal),
                _strides(out, extra=(*seg_b, plan_b, plan_w)), scale * _build.LOG2E, dev=dev)
-    LAUNCHES_FP32 += 1
-    return out, lse
 
 
-def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal,
-                    kv_valid_len):
-    """The fp32 backward (`csrc/flash_fp32_split.cu`, then
+def fp32_backward(q, k, v, out, lse, do, dq, dk, dv, dn, scale, cos, sin, tables, Mv, seg_q,
+                  seg_k, seg_b, causal):
+    """The fp32 backward's launches (`csrc/flash_fp32_split.cu`, then
     `csrc/flash_fp32_dq.cu` and `csrc/flash_fp32_dkdv.cu`, dq and dk through
-    the RoPE adjoint in their epilogues, p 0 where the masks say): dq, dk,
-    dv contiguous, dk and dv zero at and past kv_valid."""
-    global LAUNCHES_BWD_FP32
+    the RoPE adjoint in their epilogues, p 0 where the masks say) into dq,
+    dk and dv: contiguous [B, H, N|M, D], or with ``dn`` [B, H, D, N|M], dk
+    and dv zero at and past ``Mv``. Operands and side inputs as
+    `fp32_forward` takes them; lse [B, H, N] contiguous fp32."""
     B, H, N, D = q.shape
     M = k.shape[2]
-    cos, sin, tables, Mv, seg_q, seg_k, seg_b = _fp32_side(q, k, cos, sin, seg_q, seg_k,
-                                                           kv_valid_len)
     dev = q.device
     plans = [_plan_cuda(seg_q, seg_k, causal, N, Mv, FP32_BWD_BLOCK, FP32_BWD_TILE, keys_major,
                         dev) for keys_major in (False, True)]
-    q, k, v, out, do = map(vec4_operand, (q, k, v, out, do))
-    dq = torch.empty((B, H, N, D), dtype=torch.float32, device=dev)
-    dk = torch.empty((B, H, M, D), dtype=torch.float32, device=dev)
-    dv = torch.empty((B, H, M, D), dtype=torch.float32, device=dev)
+    q, k, v, out, do = map(split_operand, (q, k, v, out, do))
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qscale, Np = scale * _build.LOG2E, fp32_stat_rows(N)
     buf, at = _scratch(dev, B, H, N, Mv, D, True)
@@ -558,12 +566,38 @@ def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal
     _call_fp32("vjepa2_flash_bwd_fp32_dq",
                *(at[n] for n in ("q_nat", "k_nat", "v_nat", "do_nat", "k_tr", "delta", "lse2")),
                cos, sin, seg_q, seg_k, plans[0][0], dq, B, H, D, N, Mv, Np, int(causal),
-               *tables, *seg_b, *plans[0][1:], scale, qscale, dev=dev)
+               int(dn), *tables, *seg_b, *plans[0][1:], scale, qscale, dev=dev)
     _call_fp32("vjepa2_flash_bwd_fp32_dkdv",
                *(at[n] for n in ("q_nat", "k_nat", "v_nat", "do_nat", "q_tr", "do_tr", "delta",
                                  "lse2")),
                cos, sin, seg_q, seg_k, plans[1][0], dk, dv, B, H, D, N, Mv, M, Np,
-               int(causal), *tables, *seg_b, *plans[1][1:], scale, qscale, dev=dev)
+               int(causal), int(dn), *tables, *seg_b, *plans[1][1:], scale, qscale, dev=dev)
+
+
+def _flash_fwd_fp32(q, k, v, scale, cos, sin, seg_q, seg_k, causal, kv_valid_len):
+    """The fp32 forward (`fp32_forward`): out in BNHD memory seen as BHND, as
+    the bf16 kernel writes it, and lse."""
+    global LAUNCHES_FP32
+    B, H, N, D = q.shape
+    cos, sin, tables, Mv, seg_q, seg_k, seg_b = _fp32_side(q, k, cos, sin, seg_q, seg_k,
+                                                           kv_valid_len)
+    out = torch.empty((B, N, H, D), dtype=torch.float32, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    fp32_forward(q, k, v, out, lse, scale, cos, sin, tables, Mv, seg_q, seg_k, seg_b, causal)
+    LAUNCHES_FP32 += 1
+    return out, lse
+
+
+def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, seg_q, seg_k, causal,
+                    kv_valid_len):
+    """The fp32 backward (`fp32_backward`): dq, dk, dv contiguous, dk and dv
+    zero at and past kv_valid."""
+    global LAUNCHES_BWD_FP32
+    cos, sin, tables, Mv, seg_q, seg_k, seg_b = _fp32_side(q, k, cos, sin, seg_q, seg_k,
+                                                           kv_valid_len)
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=q.device) for t in (q, k, v))
+    fp32_backward(q, k, v, out, lse, do, dq, dk, dv, False, scale, cos, sin, tables, Mv, seg_q,
+                  seg_k, seg_b, causal)
     LAUNCHES_BWD_FP32 += 1
     return dq, dk, dv
 

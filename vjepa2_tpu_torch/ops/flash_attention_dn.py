@@ -7,11 +7,16 @@ entry point (`_flash_core_dn:492`, `flash_attention_bhdn:573`).
 
 `flash_attention_bhdn` is a `torch.autograd.Function` (`FlashAttentionDN`):
 its forward saves (q, k, v, out, lse) and its backward is
-`flash_attention_bhdn_bwd`. On a CUDA tensor each launches its hand-written
-Hopper kernel (`csrc/flash_fwd_dn.cu` and `csrc/flash_bwd_dn.cu`, both on wgmma
-and TMA) or raises; on a CPU tensor they run `flash_attention_bhdn_plain`
-(the plain math of the JAX package's fallback, `ops/attention.py:278-298`)
-and `flash_attention_bhdn_bwd_plain` (the B2 math written out). There is no
+`flash_attention_bhdn_bwd`. JAX runs both in the operands' dtype, and so
+does the port. On a CUDA tensor each launches its hand-written Hopper kernel
+or raises: bf16 operands `csrc/flash_fwd_dn.cu` and `csrc/flash_bwd_dn.cu`
+(both on wgmma and TMA); fp32 operands the 3xTF32 kernels of
+`csrc/flash_fp32.cuh` (`flash_attention.fp32_forward` / `fp32_backward`),
+whose split pre-pass reads the DN layout in place and whose epilogues store
+out, dq, dk and dv D-major, head widths 16-64 as JAX's DN route takes them.
+On a CPU tensor they run `flash_attention_bhdn_plain` (the plain math of the
+JAX package's fallback, `ops/attention.py:278-298`) and
+`flash_attention_bhdn_bwd_plain` (the B2 math written out). There is no
 other route. Segment ids and RoPE tables stay outside autograd: they get no
 gradient.
 
@@ -30,6 +35,7 @@ import math
 import torch
 
 from vjepa2_tpu_torch import _build
+from vjepa2_tpu_torch.ops import flash_attention as fa
 from vjepa2_tpu_torch.ops.attention import attention_mask, softmax_attention
 from vjepa2_tpu_torch.ops.flash_attention import NOT_TMA_READY, padded_queries, tma_ready
 from vjepa2_tpu_torch.ops.rope import rope_rotate, rope_rotate_t
@@ -37,10 +43,13 @@ from vjepa2_tpu_torch.ops.rope import rope_rotate, rope_rotate_t
 # Inclusive head-width bound of the DN route (`flash_attention_dn.py:670`).
 DN_MAX_D = 64
 
-# Kernel launches since the last reset, forward (B1) and backward (B2);
-# `chip_smoke.py` reads them to show the main path went through the kernels.
+# Kernel launches since the last reset, forward (B1) and backward (B2), bf16
+# and fp32 apart; `chip_smoke.py` reads them to show the main path went
+# through the kernels.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FP32 = 0
+LAUNCHES_BWD_FP32 = 0
 
 
 def dn_head_eligible(d: int) -> bool:
@@ -171,10 +180,44 @@ def _side_inputs(dev, cos, sin, tables_nd, seg):
     return cos, sin, seg, (t_b, t_d, t_n, seg_b)
 
 
-def _check_bf16(**tensors):
-    for name, t in tensors.items():
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the DN flash kernels on CUDA take bf16; {name} is {t.dtype}")
+def _fp32_side(dev, cos, sin, tables_nd, seg):
+    """The fp32 kernels' side inputs of a DN call, in `fa.fp32_forward`'s
+    form: the tables as `_side_inputs` lays them out ([B|1, D, N], unit
+    along the tokens) with their (t_b, t_n, t_d) strides, and the ids as
+    both query and key ids (int32 [S, N]) with their batch strides."""
+    cos, sin, seg, (t_b, t_d, _, seg_b) = _side_inputs(dev, cos, sin, tables_nd, seg)
+    tables = (t_b, 1, t_d) if cos is not None else (0, 0, 1)
+    return cos, sin, tables, seg, seg, (seg_b, seg_b)
+
+
+def _flash_fwd_fp32(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
+    """B1 on fp32 operands (`fa.fp32_forward` on the [B, H, N, D] views of
+    the DN tensors): out [B, H, D, N] contiguous and lse."""
+    global LAUNCHES_FP32
+    B, H, D, N = q.shape
+    M = k.shape[3]
+    cos, sin, tables, seg_q, seg_k, seg_b = _fp32_side(q.device, cos, sin, tables_nd, seg)
+    out = torch.empty((B, H, D, N), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    Mv = M if kv_valid_len is None else kv_valid_len
+    fa.fp32_forward(*(t.transpose(2, 3) for t in (q, k, v, out)), lse, scale, cos, sin, tables,
+                    Mv, seg_q, seg_k, seg_b, False)
+    LAUNCHES_FP32 += 1
+    return out, lse
+
+
+def _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg, kv_valid_len):
+    """B2 on fp32 operands (`fa.fp32_backward`): dq, dk, dv [B, H, D, N|M]
+    contiguous, dk and dv zero at and past kv_valid."""
+    global LAUNCHES_BWD_FP32
+    M = k.shape[3]
+    cos, sin, tables, seg_q, seg_k, seg_b = _fp32_side(q.device, cos, sin, tables_nd, seg)
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=q.device) for t in (q, k, v))
+    Mv = M if kv_valid_len is None else kv_valid_len
+    fa.fp32_backward(*(t.transpose(2, 3) for t in (q, k, v, out)), lse, do.transpose(2, 3), dq,
+                     dk, dv, True, scale, cos, sin, tables, Mv, seg_q, seg_k, seg_b, False)
+    LAUNCHES_BWD_FP32 += 1
+    return dq, dk, dv
 
 
 def v_copy_shape(v) -> tuple:
@@ -197,7 +240,8 @@ def fwd_scratch_shapes(q, k) -> tuple:
 
 def _flash_fwd_cuda(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len):
     global LAUNCHES
-    _check_bf16(q=q, k=k, v=v)
+    if fa.operand_dtype("DN", q=q, k=k, v=v) == torch.float32:
+        return _flash_fwd_fp32(q, k, v, scale, cos, sin, tables_nd, seg, kv_valid_len)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be unit-stride along N (the kernel's coalesced dim)")
@@ -257,7 +301,7 @@ def bwd_copy_shapes(v, do) -> tuple:
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg, kv_valid_len):
     global LAUNCHES_BWD
-    _check_bf16(q=q, k=k, v=v, out=out, do=do)
+    dtype = fa.operand_dtype("DN", q=q, k=k, v=v, out=out, do=do)
     B, H, D, N = q.shape
     M = k.shape[3]
     if out.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, N):
@@ -268,6 +312,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg, kv_v
     dev = q.device
     if any(t.device != dev for t in (out, lse, do)):
         raise ValueError("q, k, v, out, lse and do must be on one device")
+    if dtype == torch.float32:
+        return _flash_bwd_fp32(q, k, v, out, lse, do, scale, cos, sin, tables_nd, seg,
+                               kv_valid_len)
     cos, sin, seg, side = _side_inputs(dev, cos, sin, tables_nd, seg)
     dq = torch.empty((B, H, D, N), dtype=q.dtype, device=dev)
     dk = torch.empty((B, H, D, M), dtype=q.dtype, device=dev)
@@ -313,8 +360,8 @@ def flash_attention_bhdn_bwd(q, k, v, out, lse, do, scale: float | None = None,
     """The backward of `flash_attention_bhdn`: (dq, dk, dv) from the forward's
     inputs, its (out, lse) and the cotangent ``do`` of out.
 
-    A CUDA tensor launches B2 (bf16 only; any strides) or raises; a CPU tensor
-    takes `flash_attention_bhdn_bwd_plain`.
+    A CUDA tensor launches B2 (bf16 or fp32; any strides) or raises; a CPU
+    tensor takes `flash_attention_bhdn_bwd_plain`.
     """
     if _device(q, k, v) == "cpu":
         return flash_attention_bhdn_bwd_plain(q, k, v, out, lse, do, scale, rope_expanded,
@@ -391,8 +438,9 @@ def flash_attention_bhdn(q, k, v, scale: float | None = None, rope_expanded=None
     kv_valid_len: number of real keys; keys at or beyond it are masked.
 
     Returns out [B, H, D, N] (and lse [B, H, N] fp32 with ``return_lse``).
-    A CUDA tensor launches the kernels (bf16 only) or raises; a CPU tensor
-    takes the plain versions.
+    A CUDA tensor launches the kernels (bf16 or fp32: head width 16, 32, 48
+    or 64; bf16 q, k, v unit-stride along N, fp32 ones at any strides) or
+    raises; a CPU tensor takes the plain versions.
     """
     out, lse = FlashAttentionDN.apply(q, k, v, scale, rope_expanded, segment_ids, kv_valid_len)
     return (out, lse) if return_lse else out

@@ -65,10 +65,11 @@ CATEGORIES = [
     ("B3 flash_fwd_bhnd", ("flash_fwd_bhnd_kernel", "bhnd_rope_pack_kernel")),
     ("B4/B5 flash_bwd_bhnd", ("flash_bwd_bhnd_dkdv_kernel", "flash_bwd_bhnd_dq_kernel",
                               "bhnd_bwd_prologue_kernel")),
-    ("B3 fp32 flash_fp32_fwd", ("flash_fp32_fwd_kernel",)),
-    ("B4/B5 fp32 flash_fp32_dq/dkdv", ("flash_fp32_dq_kernel", "flash_fp32_dkdv_kernel")),
-    ("B3-B5 fp32 split pre-pass", ("flash_fp32_split_kernel", "flash_fp32_stats_kernel",
-                                   "flash_fp32_plan_kernel")),
+    # the fp32 kernels serve B1/B2 (the DN route) and B3-B5 (BHND) alike
+    ("B1/B3 fp32 flash_fp32_fwd", ("flash_fp32_fwd_kernel",)),
+    ("B2/B4/B5 fp32 flash_fp32_dq/dkdv", ("flash_fp32_dq_kernel", "flash_fp32_dkdv_kernel")),
+    ("B1-B5 fp32 split pre-pass", ("flash_fp32_split_kernel", "flash_fp32_stats_kernel",
+                                   "flash_fp32_stats_staged_kernel", "flash_fp32_plan_kernel")),
     ("B1 flash_fwd_dn", ("flash_fwd_dn_kernel", "rope_pack_kernel")),
     ("B2 flash_bwd_dn", ("flash_bwd_dn_dkdv_kernel", "flash_bwd_dn_dq_kernel",
                          "dn_bwd_prologue_kernel")),
