@@ -65,19 +65,34 @@ Phases, each printed as one JSON object on a line of its own:
    1024], [1408, 1024] and [12992, 384]: y, mean and rstd; dx, dgamma and
    dbeta; each timed by CUDA events around back-to-back calls (``ms``) and by
    the profiler with a cold L2 (``device_ms``, and its share of the bound),
-   beside the yardsticks' device time;
+   beside the yardsticks' device time; then kernel_ln_fp32, the same rows
+   on fp32 operands (the `_f32` kernels of the same source) at fp32's
+   tolerances, `F.layer_norm` at fp32 beside them;
 13. kernel_ln_qkv / kernel_ln_mlp — the fused LayerNorm prologues (B7: LN +
    qkv + RoPE; B8: LN + fc1 + GELU; one wgmma and TMA mainloop) against their
    plain versions at the fused step's shapes (ViT-L target and contexts, the
    predictor) and at ViT-H and the 16-head ViT-g widths, [8, 2048] rows,
-   with TFLOP/s and the share of the bound;
+   with TFLOP/s and the share of the bound; then kernel_ln_qkv_fp32 /
+   kernel_ln_mlp_fp32, the same shapes on fp32 operands
+   (`csrc/ln_gemm_fp32.cu`: 3xTF32 on wgmma after a split of W) against the
+   plain versions at the fp32 flash kernels' tolerances, the chain at fp32
+   (TF32 off) beside them, the bound at 495/3 TFLOP/s;
 14. train_fused — the ViT-L step of phase 6 with ``fuse_ln="qkv,mlp"``
    (`bench.py --fuse-ln qkv,mlp`): every block's LayerNorms fused into B7
    and B8, attention on the BHND kernels; 1 + 3 steps, each launching B7 96,
    B8 96, B3 96, the BHND backward 72, the B6 backward 144 and B1/B2 0
    times; the checks of phase 6 against the fp32 CPU path with the same
    fusions; and, interleaved step by step in the same phase, the unfused
-   step of phase 6 beside it (the A/B; nothing is claimed from it);
+   step of phase 6 beside it (the A/B; nothing is claimed from it); then
+   train_fused_fp32, the same fused step at fp32 (TF32 off; JAX's
+   `bench.py --fuse-ln qkv,mlp` step at its default precision): 1 warm-up
+   and 3 timed steps, each launching B7 and B8 at fp32 96 times, B3 at fp32
+   96, the BHND fp32 backward 72 and the B6 fp32 backward 144, and B1/B2
+   and every bf16 kernel 0 times; finite loss and gradients, the EMA, and
+   clip 0's loss and gradients on train_fused's weights, clip and masks
+   against train_fused's fp32 CPU result (computed once for both phases)
+   within phase 25's fp32 tolerances; its ms a step beside phase 25's
+   unfused fp32 step (nothing is claimed from it);
 15. train_loop — the pretraining loop: `vjepa2_tpu_torch.cli.main`'s
    `run_vjepa` (the `Pretrainer`: prefetch to the card, CSV log, rolling
    checkpoint) on the shipped ViT-H config (`LOOP_CONFIG`, equal to
@@ -332,6 +347,7 @@ LN_SOURCE = "vjepa2_tpu_torch/csrc/layernorm.cu"
 LN_FWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:103"
 LN_BWD_REPLACES = "vjepa2_tpu/ops/layernorm.py:115"
 LN_GEMM_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm_hopper.cu"  # B7 and B8
+LN_GEMM_FP32_SOURCE = "vjepa2_tpu_torch/csrc/ln_gemm_fp32.cu"  # B7 and B8 on fp32 operands
 # B3, and B4/B5, on fp32 operands: 3xTF32 on wgmma (`flash_fp32.cuh`), after the
 # split pre-pass (`flash_fp32_split.cu`); the backward is dQ, then dK/dV (`_dkdv.cu`)
 FP32_FWD_SOURCE = "vjepa2_tpu_torch/csrc/flash_fp32_fwd.cu"
@@ -470,9 +486,11 @@ BHND_BWD_SHAPES = [
 # the AC sequences of `BWD_SHAPES`: (frames of 2 + 256 tokens, stack pad)
 AC_SEQUENCES = {"ac": (7, 0), "ac_pad": (7, 2), "ac_rollout": (2, 0), "ac_rollout_pad": (2, 4)}
 # launch counters, in the order `_launch_counts` reads them (the fp32 calls
-# of the BHND and DN wrappers, both on `csrc/flash_fp32.cuh`, count apart)
+# of the BHND and DN wrappers, both on `csrc/flash_fp32.cuh`, count apart, as
+# do B6's, B7's and B8's fp32 calls)
 KERNEL_COUNTS = ("b1", "b2", "b3", "bhnd_bwd", "b6_fwd", "b6_bwd", "b7", "b8", "b3_fp32",
-                 "bhnd_bwd_fp32", "b1_fp32", "b2_fp32")
+                 "bhnd_bwd_fp32", "b1_fp32", "b2_fp32", "b6_fwd_fp32", "b6_bwd_fp32", "b7_fp32",
+                 "b8_fp32")
 
 
 def _counts(**launches) -> tuple[int, ...]:
@@ -494,9 +512,17 @@ TRAIN_CFGS = {
     ("vit_large", "qkv,mlp"): ("train_fused", _counts(b3=96, bhnd_bwd=72, b6_bwd=144, b7=96,
                                                       b8=96)),
 }
-# The same ViT-L step at fp32 (phase train_fp32): every attention on the DN
-# route, as in JAX, through B1 and B2 at fp32 (the BHND fp32 kernels none)
-FP32_STEP = ("train_fp32", _counts(b1_fp32=96, b2_fp32=72))
+# The same ViT-L steps at fp32 (phases train_fp32 and train_fused_fp32), per
+# fusions: unfused, every attention on the DN route, as in JAX, through B1
+# and B2 at fp32 (the BHND fp32 kernels none); fused, B7 and B8 at fp32 in
+# all 96 blocks, the BHND fp32 kernels rope-free, B6's fp32 backward twice
+# in each of the 72 blocks with gradients, and no bf16 kernel
+FP32_STEPS = {
+    ("vit_large", ""): ("train_fp32", _counts(b1_fp32=96, b2_fp32=72)),
+    ("vit_large", "qkv,mlp"): ("train_fused_fp32", _counts(b3_fp32=96, bhnd_bwd_fp32=72,
+                                                           b6_bwd_fp32=144, b7_fp32=96,
+                                                           b8_fp32=96)),
+}
 # Clip 0's loss and gradients of the fp32 step on the card against the fp32
 # CPU path of phase 6 (the same weights, clip and masks): fp32 on both
 # sides, the GEMMs in another summation order (cuBLAS, TF32 off), the
@@ -797,6 +823,14 @@ LN_SHAPES = [
 # roundings of one fp32 value, so within one bf16 step (2**-7 relative) plus
 # 1e-3; dgamma and dbeta within 1e-4 relative L2 (fp32 sums in another order).
 LN_STAT_ATOL, LN_RSTD_RTOL, LN_ATOL, LN_RTOL, LN_PARAM_REL_L2 = 1e-5, 1e-4, 1e-3, 2**-7, 1e-4
+# B6 on fp32 operands against plain on the same inputs: nothing rounds to
+# bf16, so only fp32's order: a row's sums over C <= 1408 elements in
+# another order (~sqrt(C) 2**-24, 2e-6 relative at worst) and rsqrtf (2 ulp)
+# move mean by ~1e-7 and rstd by ~2.4e-7 relative, y and dx by a few 1e-6
+# at |values| <= ~10 (measured on an H100: 1.2e-7, 2.4e-7, 1.9e-6, 9.5e-7;
+# dgamma/dbeta 2.3e-7): tolerances about 5x those.
+LN_FP32_STAT_ATOL, LN_FP32_RSTD_RTOL, LN_FP32_ATOL, LN_FP32_RTOL, LN_FP32_PARAM_REL_L2 = (
+    1e-6, 1e-6, 1e-5, 1e-5, 1e-5)
 # B7/B8: (name, B, N, C, heads, head width, hidden, tables, real tokens)
 PROLOGUE_SHAPES = [
     ("vit_large target", 8, 2048, 1024, 16, 64, 4096, "shared", None),
@@ -875,7 +909,12 @@ FP32_PLAIN_WHOLE, FP32_PLAIN_CHUNK = 8 << 30, 2 << 30
 FP32_REL_L2, FP32_MAX_ABS, FP32_LSE_ATOL = 2e-5, 1e-4, 1e-5
 # B7/B8 against plain from the same bf16 inputs: each output rounds once to
 # bf16 (2**-9) and y may round to the neighbouring bf16 value where the
-# statistics differ in the last bit: 5e-3 + 1e-2 |plain|.
+# statistics differ in the last bit: 5e-3 + 1e-2 |plain|. On fp32 inputs the
+# kernels (3xTF32) are held to the fp32 flash kernels' FP32_REL_L2 and
+# FP32_MAX_ABS x max|plain|: the split keeps each operand to 2**-22 and the
+# tensor cores' truncating fp32 adds over C / 8 k-steps drift ~1e-5 at C
+# 1408 (measured on an H100: 2.5e-6 relative L2 at 384, 7e-6 at 1024, 1e-5
+# at 1408).
 PROLOGUE_ATOL, PROLOGUE_RTOL = 5e-3, 1e-2
 
 
@@ -1372,7 +1411,8 @@ def _launch_counts() -> tuple[int, ...]:
 
     return (fdn.LAUNCHES, fdn.LAUNCHES_BWD, fa.LAUNCHES, fa.LAUNCHES_BWD, ln.LAUNCHES,
             ln.LAUNCHES_BWD, ln_qkv.LAUNCHES, ln_mlp.LAUNCHES, fa.LAUNCHES_FP32,
-            fa.LAUNCHES_BWD_FP32, fdn.LAUNCHES_FP32, fdn.LAUNCHES_BWD_FP32)
+            fa.LAUNCHES_BWD_FP32, fdn.LAUNCHES_FP32, fdn.LAUNCHES_BWD_FP32, ln.LAUNCHES_FP32,
+            ln.LAUNCHES_BWD_FP32, ln_qkv.LAUNCHES_FP32, ln_mlp.LAUNCHES_FP32)
 
 
 def _check_fp32_route(phase: str, launches) -> dict:
@@ -1398,13 +1438,21 @@ def _reset_launch_counts() -> None:
     fdn.LAUNCHES = fdn.LAUNCHES_BWD = fa.LAUNCHES = fa.LAUNCHES_BWD = 0
     ln.LAUNCHES = ln.LAUNCHES_BWD = ln_qkv.LAUNCHES = ln_mlp.LAUNCHES = 0
     fa.LAUNCHES_FP32 = fa.LAUNCHES_BWD_FP32 = fdn.LAUNCHES_FP32 = fdn.LAUNCHES_BWD_FP32 = 0
+    ln.LAUNCHES_FP32 = ln.LAUNCHES_BWD_FP32 = ln_qkv.LAUNCHES_FP32 = ln_mlp.LAUNCHES_FP32 = 0
 
 
 
 # phase 6's clip-0 reference on the fp32 CPU path, by model: the initial
 # weights, clip 0's masks, the loss and flattened gradients, and the bf16
-# step's errors against it; phase train_fp32 reuses it
+# step's errors against it; phase train_fp32 reuses it. Under the key
+# (model, "qkv,mlp"), train_fused's, which train_fused_fp32 reuses: its
+# weights and masks (`_CLIP0_INPUTS`) when its card part runs, its CPU
+# result when that ends on `_CPU_WORK` (before train_fused_fp32's record).
 _CLIP0_CPU: dict = {}
+_CLIP0_INPUTS: dict = {}
+# the unfused fp32 ViT-L step's median ms (phase train_fp32), printed beside
+# the fused one's
+_FP32_STEP_MS: dict = {}
 
 
 def _build_step_models(tp, model: str, fuse_ln: str, device, dtype):
@@ -1428,8 +1476,8 @@ class _Trainer:
 
         self.dev, self.model, self.fuse_ln, self.tp = dev, model, fuse_ln, tp
         self.dtype = dtype
-        self.phase, self.per_step = (TRAIN_CFGS[(model, fuse_ln)] if dtype == torch.bfloat16
-                                     else FP32_STEP)
+        self.phase, self.per_step = (TRAIN_CFGS if dtype == torch.bfloat16
+                                     else FP32_STEPS)[(model, fuse_ln)]
         t0 = time.perf_counter()
         self.enc, self.pred = self.build(dev, dtype)
         tp.init_params(self.enc, self.pred, torch.Generator(device=dev).manual_seed(0))
@@ -1492,12 +1540,19 @@ class _Trainer:
             return loss.item(), flat
 
         to_dev = lambda ms: [m.to(self.dev) for m in ms]  # noqa: E731
-        ref = _CLIP0_CPU.get(model) if dtype == torch.float32 else None
+        ref = _CLIP0_CPU.get(model) if (dtype, fuse_ln) == (torch.float32, "") else None
         if ref is not None:  # phase 6's weights, masks and CPU result
             for m, key in ((self.enc, "encoder"), (self.pred, "predictor"),
                            (self.state.target_encoder, "encoder")):  # the target: a copy
                 m.load_state_dict(ref["state"][key])
             me0, mp0 = ref["masks"]
+        shared = (_CLIP0_INPUTS.pop((model, fuse_ln), None)
+                  if dtype == torch.float32 and fuse_ln else None)
+        if shared is not None:  # the bf16 fused step's weights and masks (train_fused)
+            for m, state in zip((self.enc, self.pred, self.state.target_encoder),
+                                shared["state"]):
+                m.load_state_dict(state)
+            me0, mp0 = shared["masks"]
         loss_gpu, (ge_gpu, gp_gpu) = loss_and_grads(self.enc, self.pred, self.state.target_encoder,
                                                     self.clips[:1], to_dev(me0), to_dev(mp0))
 
@@ -1515,13 +1570,23 @@ class _Trainer:
                 _CLIP0_CPU[model] = {**ref, "bf16_errors": {
                     k: rec[k] for k in ("loss_rel_err", "encoder_grad_rel_l2",
                                         "predictor_grad_rel_l2")}}
+            if cpu_s and (model, fuse_ln, dtype) == ("vit_large", "qkv,mlp", torch.bfloat16):
+                _CLIP0_CPU[(model, fuse_ln)] = ref
             return rec
 
         if ref is not None:
             return record(ref, 0.0)
+        if shared is not None:  # train_fused's CPU result, on `_CPU_WORK` ahead of this
+
+            def against_shared() -> dict:
+                return record(_CLIP0_CPU.pop((model, fuse_ln)), 0.0)
+
+            return against_shared if defer else against_shared()
         states = [{k: v.detach().to("cpu", copy=True) for k, v in m.state_dict().items()}
                   for m in (self.enc, self.pred, self.state.target_encoder)]
         clip = self.clips[:1].float().cpu()
+        if (model, fuse_ln, dtype) == ("vit_large", "qkv,mlp", torch.bfloat16):
+            _CLIP0_INPUTS[(model, fuse_ln)] = {"state": states, "masks": (me0, mp0)}
 
         def on_cpu() -> dict:
             torch.set_num_threads(os.cpu_count() or 1)
@@ -1691,6 +1756,37 @@ def phase_train_fused(dev, smi: str) -> tuple[tuple[int, ...], tuple[int, ...]]:
 
     _CPU_LATER.append(finish)
     return launches["fused"], launches["unfused"]
+
+
+def phase_train_fused_fp32(dev, smi: str) -> tuple[int, ...]:
+    """train_fused's fused ViT-L step at fp32 (TF32 off): phase 6's run
+    (`_timed_run`: the exact launches of `FP32_STEPS`, the EMA, finite
+    gradients), clip 0 on train_fused's initial weights, clip and masks, held
+    to train_fused's fp32 CPU result when that ends on `_CPU_WORK` (the
+    record prints then). Returns the timed steps' launches."""
+    tr = _Trainer(dev, "vit_large", "qkv,mlp", dtype=torch.float32)
+    rec, launches = _timed_run(dev, tr, True)
+    del tr
+    unfused_ms = _FP32_STEP_MS.get("vit_large")
+
+    def finish() -> None:
+        clip0 = rec["clip0"]()
+        ok = _clip0_ok(clip0)
+        emit({"phase": "train_fused_fp32",
+              "model": "vit_large 16f@256 bs8 + predictor (12 x 384, 12 heads), RoPE, fp32 "
+                       "(TF32 off), AdamW fp32, fuse_ln qkv,mlp",
+              **rec, "clip0": clip0,
+              "clip0_reference": "train_fused's fp32 CPU path (its weights, clip and masks)",
+              "unfused_fp32_median_ms_per_step": unfused_ms,
+              "fused_over_unfused_fp32_median": (rec["median_ms_per_step"] / unfused_ms
+                                                 if unfused_ms else None),
+              "ok": ok, "gpu": smi})
+        if not ok:
+            raise AssertionError(f"fused fp32 clip-0 loss or gradients off the CPU fp32 "
+                                 f"reference: {clip0}")
+
+    _CPU_LATER.append(finish)
+    return launches
 
 
 class _LoopRecorder:
@@ -2009,6 +2105,7 @@ def _vitl_fp32_step(dev, smi: str) -> tuple[int, ...]:
         done.result()
     tr = _Trainer(dev, "vit_large", dtype=torch.float32)
     rec, launches = _timed_run(dev, tr)
+    _FP32_STEP_MS["vit_large"] = rec["median_ms_per_step"]
     route = _check_fp32_route("train_fp32", launches)
     bf16 = _CLIP0_CPU.pop("vit_large", {}).get("bf16_errors")
     traced = wall_and_busy(tr.step)
@@ -2630,24 +2727,24 @@ def _within(got, want, atol, rtol) -> bool:
     return bool(torch.isfinite(got).all() and close.all())
 
 
-def _ln_case(dev, R, C):
-    """(x, dy, gamma, beta) for one B6 shape: random bf16 rows and cotangent,
-    a random fp32 affine."""
+def _ln_case(dev, R, C, dtype=torch.bfloat16):
+    """(x, dy, gamma, beta) for one B6 shape: random rows and cotangent in
+    ``dtype`` (bf16 or fp32), a random fp32 affine."""
     rng = np.random.RandomState(0)
-    x = torch.from_numpy((rng.randn(R, C) * 2 + 0.3).astype(np.float32)).to(dev, torch.bfloat16)
-    dy = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dev, torch.bfloat16)
+    x = torch.from_numpy((rng.randn(R, C) * 2 + 0.3).astype(np.float32)).to(dev, dtype)
+    dy = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dev, dtype)
     gamma = torch.from_numpy((rng.randn(C) * 0.5 + 1).astype(np.float32)).to(dev)
     beta = torch.from_numpy((rng.randn(C) * 0.5).astype(np.float32)).to(dev)
     return x, dy, gamma, beta
 
 
 def ln_yardsticks(x, dy, gamma, beta):
-    """`F.layer_norm` (bf16 affine) and its autograd backward on B6's inputs:
-    the yardsticks, never on the port's path."""
+    """`F.layer_norm` (the affine in x's dtype) and its autograd backward on
+    B6's inputs: the yardsticks, never on the port's path."""
     import torch.nn.functional as F
 
     C = x.shape[-1]
-    g16, b16 = gamma.bfloat16(), beta.bfloat16()
+    g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
     leaves = [t.detach().requires_grad_() for t in (x, g16, b16)]
     with torch.enable_grad():
         out = F.layer_norm(leaves[0], (C,), leaves[1], leaves[2], 1e-6)
@@ -2655,16 +2752,22 @@ def ln_yardsticks(x, dy, gamma, beta):
             lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
 
 
-def phase_kernels_ln(dev, smi: str) -> tuple[dict, dict]:
-    """B6 forward and backward against their plain versions; `F.layer_norm`
-    (bf16 affine) and its autograd backward as the yardsticks. ``ms`` is CUDA
-    events around 20 back-to-back calls (host time where it exceeds the
+def phase_kernels_ln(dev, smi: str, dtype=torch.bfloat16) -> tuple[dict, dict]:
+    """B6 forward and backward on ``dtype`` rows (bf16, or fp32: phase
+    kernel_ln_fp32) against their plain versions; `F.layer_norm` (the affine
+    in that dtype) and its autograd backward as the yardsticks. ``ms`` is
+    CUDA events around 20 back-to-back calls (host time where it exceeds the
     device's); ``device_ms`` the kernels' own time by the profiler, cold L2."""
     from vjepa2_tpu_torch.ops import layernorm as ln
 
+    fp32 = dtype == torch.float32
+    suffix = "_fp32" if fp32 else ""
+    stat_atol, rstd_rtol, atol, rtol, param_rel_l2 = (
+        (LN_FP32_STAT_ATOL, LN_FP32_RSTD_RTOL, LN_FP32_ATOL, LN_FP32_RTOL, LN_FP32_PARAM_REL_L2)
+        if fp32 else (LN_STAT_ATOL, LN_RSTD_RTOL, LN_ATOL, LN_RTOL, LN_PARAM_REL_L2))
     firsts = [None, None]
     for name, (R, C) in LN_SHAPES:
-        x, dy, gamma, beta = _ln_case(dev, R, C)
+        x, dy, gamma, beta = _ln_case(dev, R, C, dtype)
         lib_fwd, lib_bwd = ln_yardsticks(x, dy, gamma, beta)
         with torch.no_grad():
             y, mean, rstd = ln.ln_forward(x, gamma, beta)
@@ -2675,14 +2778,14 @@ def phase_kernels_ln(dev, smi: str) -> tuple[dict, dict]:
             fwd_err = {"y": (y.float() - y_p).abs().max().item(),
                        "mean": (mean - mean_p).abs().max().item(),
                        "rstd_rel": ((rstd - rstd_p).abs() / rstd_p).max().item()}
-            ok_fwd = (_within(y, y_p, LN_ATOL, LN_RTOL) and fwd_err["mean"] <= LN_STAT_ATOL
-                      and fwd_err["rstd_rel"] <= LN_RSTD_RTOL)
+            ok_fwd = (_within(y, y_p, atol, rtol) and fwd_err["mean"] <= stat_atol
+                      and fwd_err["rstd_rel"] <= rstd_rtol)
             bwd_err = {"dx": (grads[0].float() - grads_p[0]).abs().max().item(),
                        "dgamma_rel_l2": _rel_l2(grads[1], grads_p[1]),
                        "dbeta_rel_l2": _rel_l2(grads[2], grads_p[2])}
-            ok_bwd = (_within(grads[0], grads_p[0], LN_ATOL, LN_RTOL)
-                      and bwd_err["dgamma_rel_l2"] <= LN_PARAM_REL_L2
-                      and bwd_err["dbeta_rel_l2"] <= LN_PARAM_REL_L2)
+            ok_bwd = (_within(grads[0], grads_p[0], atol, rtol)
+                      and bwd_err["dgamma_rel_l2"] <= param_rel_l2
+                      and bwd_err["dbeta_rel_l2"] <= param_rel_l2)
             del y_p, grads_p
             run = {"fwd": lambda: ln.ln_forward(x, gamma, beta),
                    "bwd": lambda: ln.ln_backward(x, dy, gamma, mean, rstd)}
@@ -2703,18 +2806,19 @@ def phase_kernels_ln(dev, smi: str) -> tuple[dict, dict]:
                   "bwd": bound(13 * R * C, nbytes(x, dy, gamma, mean, rstd, *grads), PEAK_FP32)}
         for i, (kernel, err, ok, tol) in enumerate((
                 ("layernorm_fwd", fwd_err, ok_fwd,
-                 {"y": f"{LN_ATOL} + {LN_RTOL}*|plain|", "mean": LN_STAT_ATOL,
-                  "rstd_rel": LN_RSTD_RTOL}),
+                 {"y": f"{atol} + {rtol}*|plain|", "mean": stat_atol, "rstd_rel": rstd_rtol}),
                 ("layernorm_bwd", bwd_err, ok_bwd,
-                 {"dx": f"{LN_ATOL} + {LN_RTOL}*|plain|",
-                  "dgamma/dbeta_rel_l2": LN_PARAM_REL_L2}))):
+                 {"dx": f"{atol} + {rtol}*|plain|", "dgamma/dbeta_rel_l2": param_rel_l2}))):
             part = kernel[-3:]
+            kernel += suffix
             dev_ms, by_kernel = dev_times[part]
-            rec = {"phase": "kernel_ln", "kernel": kernel, "shape": name, "rows": [R, C],
+            rec = {"phase": "kernel_ln" + suffix, "kernel": kernel, "shape": name,
+                   "rows": [R, C], "dtype": str(dtype).split(".")[-1],
                    "ms": times[part][0], "plain_ms": times[part][1], "library_ms": times[part][2],
                    "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
                    "library_device_ms": library_dev[part],
-                   "library": "F.layer_norm (bf16 affine)" + (" backward" if i else ""),
+                   "library": f"F.layer_norm ({'fp32' if fp32 else 'bf16'} affine)"
+                              + (" backward" if i else ""),
                    "bound_ms": bounds[part][0], "bound_by": bounds[part][1],
                    "bound_share": bounds[part][0] / dev_ms, "errors": err,
                    "max_abs_err": err["y" if i == 0 else "dx"], "tol": tol, "ok": ok, "gpu": smi}
@@ -2725,39 +2829,45 @@ def phase_kernels_ln(dev, smi: str) -> tuple[dict, dict]:
     return firsts[0], firsts[1]
 
 
-def _prologue_case(dev, B, N, C, H, D, hidden, tables, real, seqs, kernel):
-    """(x, gamma, beta, w, bias, rope) for one B7 or B8 shape: random bf16 x
-    with the stack-pad rows zero, a random LayerNorm affine, W scaled by
-    1/sqrt(C), a random fp32 bias, the RoPE tables of the shape (B7)."""
+def _prologue_case(dev, B, N, C, H, D, hidden, tables, real, seqs, kernel,
+                   dtype=torch.bfloat16):
+    """(x, gamma, beta, w, bias, rope) for one B7 or B8 shape: random x in
+    ``dtype`` (bf16 or fp32) with the stack-pad rows zero, a random
+    LayerNorm affine, W in ``dtype`` scaled by 1/sqrt(C), a random fp32 bias,
+    the RoPE tables of the shape (B7)."""
     rng = np.random.RandomState(0)
     x = torch.from_numpy((rng.randn(B, N, C) * 1.5 + 0.2).astype(np.float32))
     if real is not None:
         x[:, real:] = 0.0
-    x = x.to(dev, torch.bfloat16)
+    x = x.to(dev, dtype)
     gamma = torch.from_numpy((rng.randn(C) * 0.5 + 1).astype(np.float32)).to(dev)
     beta = torch.from_numpy((rng.randn(C) * 0.5).astype(np.float32)).to(dev)
     n_out = 3 * H * D if kernel == "ln_qkv" else hidden
     w = torch.from_numpy((rng.randn(n_out, C) / np.sqrt(C)).astype(np.float32))
-    w = w.to(dev, torch.bfloat16)
+    w = w.to(dev, dtype)
     bias = torch.from_numpy((rng.randn(n_out) * 0.5).astype(np.float32)).to(dev)
     rope = _rope_tables(dev, B, N, D, tables, seqs) if kernel == "ln_qkv" else None
     return x, gamma, beta, w, bias, rope
 
 
-def phase_kernels_prologue(dev, smi: str, kernel: str) -> dict:
-    """B7 (``kernel="ln_qkv"``) or B8 (``"ln_mlp"``) against its plain
-    version; the unfused chain `F.layer_norm` -> `F.linear` -> RoPE or
-    `F.gelu` as the yardstick (there is no single PyTorch call for either)."""
+def phase_kernels_prologue(dev, smi: str, kernel: str, dtype=torch.bfloat16) -> dict:
+    """B7 (``kernel="ln_qkv"``) or B8 (``"ln_mlp"``) on ``dtype`` operands
+    (bf16, or fp32: phases kernel_ln_qkv_fp32 / kernel_ln_mlp_fp32) against
+    its plain version; the unfused chain `F.layer_norm` -> `F.linear` -> RoPE
+    or `F.gelu` in that dtype as the yardstick (there is no single PyTorch
+    call for either)."""
     import torch.nn.functional as F
 
     from vjepa2_tpu_torch.ops import ln_mlp, ln_qkv
     from vjepa2_tpu_torch.ops.rope import rope_rotate
 
+    fp32 = dtype == torch.float32
+    suffix = "_fp32" if fp32 else ""
     seqs, first = _mask_seqs(), None
     for name, B, N, C, H, D, hidden, tables, real in PROLOGUE_SHAPES:
         x, gamma, beta, w, bias, rope = _prologue_case(dev, B, N, C, H, D, hidden, tables, real,
-                                                       seqs, kernel)
-        g16, b16, bias16 = gamma.bfloat16(), beta.bfloat16(), bias.bfloat16()
+                                                       seqs, kernel, dtype)
+        g16, b16, bias16 = gamma.to(dtype), beta.to(dtype), bias.to(dtype)
         if kernel == "ln_qkv":
             run = lambda: ln_qkv.ln_qkv(x, gamma, beta, w, bias, rope, num_heads=H,  # noqa: E731
                                         head_dim=D)
@@ -2770,37 +2880,48 @@ def phase_kernels_prologue(dev, smi: str, kernel: str) -> dict:
                 q, k, v = qkv.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
                 return (rope_rotate(q.float(), c, s).to(x.dtype),
                         rope_rotate(k.float(), c, s).to(x.dtype), v)
-            library = "chain: F.layer_norm -> F.linear -> split-half RoPE (fp32)"
+            library = ("chain: F.layer_norm -> F.linear -> split-half RoPE (fp32)"
+                       + (", all fp32 (TF32 off)" if fp32 else ""))
         else:
             run = lambda: (ln_mlp.ln_mlp(x, gamma, beta, w, bias),)  # noqa: E731
             plain = lambda: (ln_mlp.ln_mlp_plain(x, gamma, beta, w, bias),)  # noqa: E731
             def chain():
                 return F.gelu(F.linear(F.layer_norm(x, (C,), g16, b16, 1e-6), w, bias16))
 
-            library = "chain: F.layer_norm -> F.linear -> F.gelu"
+            library = "chain: F.layer_norm -> F.linear -> F.gelu" + (
+                ", fp32 (TF32 off)" if fp32 else "")
         with torch.no_grad():
             got, want = run(), plain()
             torch.cuda.synchronize()
             errs = [(g.float() - p.float()).abs().max().item() for g, p in zip(got, want)]
-            ok = all(_within(g, p, PROLOGUE_ATOL, PROLOGUE_RTOL) for g, p in zip(got, want))
+            if fp32:
+                fp32_errs = [_fp32_errors(g, p) for g, p in zip(got, want)]
+                ok = all(_fp32_ok(e) for e in fp32_errs)
+            else:
+                ok = all(_within(g, p, PROLOGUE_ATOL, PROLOGUE_RTOL) for g, p in zip(got, want))
             ms = cuda_ms(run, 20)
             plain_ms = cuda_ms(plain, 3)
             library_ms = cuda_ms(chain, 20)
         R, n_out = B * N, w.shape[0]
-        # the product on the tensor cores; mean and rstd [R] fp32 are written too
+        # the product on the tensor cores (fp32-accurate at fp32: three TF32
+        # products each); mean and rstd [R] fp32 are written too
         bound_ms, bound_by = bound(2 * R * C * n_out,
-                                   nbytes(x, gamma, beta, w, bias, *(rope or ()), *got) + 8 * R)
-        rec = {"phase": f"kernel_{kernel}", "kernel": kernel, "shape": name,
-               "bnc": [B, N, C], "out_features": n_out,
+                                   nbytes(x, gamma, beta, w, bias, *(rope or ()), *got) + 8 * R,
+                                   PEAK_3XTF32 if fp32 else PEAK_FLOPS)
+        rec = {"phase": f"kernel_{kernel}{suffix}", "kernel": kernel + suffix, "shape": name,
+               "bnc": [B, N, C], "out_features": n_out, "dtype": str(dtype).split(".")[-1],
                **({"heads": H, "head_dim": D, "tables": tables} if kernel == "ln_qkv" else {}),
                "real_tokens": real, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "library": library, "bound_ms": bound_ms, "bound_by": bound_by,
                "tflops": 2 * R * C * n_out / ms / 1e9, "bound_share": bound_ms / ms,
                "max_abs_err": max(errs),
-               "tol": f"{PROLOGUE_ATOL} + {PROLOGUE_RTOL}*|plain|", "ok": ok, "gpu": smi}
+               **({"errors": fp32_errs,
+                   "tol": {"rel_l2": FP32_REL_L2, "max_abs": f"{FP32_MAX_ABS}*max|plain|"}}
+                  if fp32 else {"tol": f"{PROLOGUE_ATOL} + {PROLOGUE_RTOL}*|plain|"}),
+               "ok": ok, "gpu": smi}
         emit(rec)
         if not ok:
-            raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
+            raise AssertionError(f"{kernel}{suffix} disagrees with its plain version at {name}")
         first = first or rec
         del x, w, got, want
     return first
@@ -3625,7 +3746,8 @@ from vjepa2_tpu_torch.ops import layernorm as ln, ln_mlp, ln_qkv
 def counts():
     return [fdn.LAUNCHES, fdn.LAUNCHES_BWD, fa.LAUNCHES, fa.LAUNCHES_BWD, ln.LAUNCHES,
             ln.LAUNCHES_BWD, ln_qkv.LAUNCHES, ln_mlp.LAUNCHES, fa.LAUNCHES_FP32,
-            fa.LAUNCHES_BWD_FP32, fdn.LAUNCHES_FP32, fdn.LAUNCHES_BWD_FP32]
+            fa.LAUNCHES_BWD_FP32, fdn.LAUNCHES_FP32, fdn.LAUNCHES_BWD_FP32, ln.LAUNCHES_FP32,
+            ln.LAUNCHES_BWD_FP32, ln_qkv.LAUNCHES_FP32, ln_mlp.LAUNCHES_FP32]
 
 clips = torch.load(sys.argv[2])
 outs, launches = {}, {}
@@ -4579,7 +4701,14 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     rec_ln_fwd, rec_ln_bwd = timed("kernel_ln", phase_kernels_ln, dev, smi)
     rec_qkv = timed("kernel_ln_qkv", phase_kernels_prologue, dev, smi, "ln_qkv")
     rec_mlp = timed("kernel_ln_mlp", phase_kernels_prologue, dev, smi, "ln_mlp")
+    rec_ln_fwd32, rec_ln_bwd32 = timed("kernel_ln_fp32", phase_kernels_ln, dev, smi,
+                                       torch.float32)
+    rec_qkv32 = timed("kernel_ln_qkv_fp32", phase_kernels_prologue, dev, smi, "ln_qkv",
+                      torch.float32)
+    rec_mlp32 = timed("kernel_ln_mlp_fp32", phase_kernels_prologue, dev, smi, "ln_mlp",
+                      torch.float32)
     fused_l, unfused_l = timed("train_fused", phase_train_fused, dev, smi)
+    fused_fp32_l = timed("train_fused_fp32", phase_train_fused_fp32, dev, smi)
     loop_l = timed("train_loop", phase_train_loop, dev, smi)
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
     _DEFERRED.extend(_CPU_WORK.submit(job) for job in _CPU_LATER)  # beside device-bound phases
@@ -4603,7 +4732,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     # every main-path run's launches, in the order of KERNEL_COUNTS
     total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
                                  accum_l, droid_l, plan_l, export_l, eval_v, eval_a, eval_i,
-                                 eval_384, fp32_l, droid_fp32_l, plan_fp32_l)]
+                                 eval_384, fp32_l, droid_fp32_l, plan_fp32_l, fused_fp32_l)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):
@@ -4650,7 +4779,24 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
         entry("flash_bwd_dn_fp32", FP32_BWD_SOURCE, BWD_REPLACES, total[11], rec_dn_fp32_bwd,
               "max_abs_err", library=rec_dn_fp32_bwd["library"],
               note="B2 on fp32 operands: the split pre-pass (delta summed over D), dQ, then "
-                   "dK/dV of flash_fp32.cuh, dq, dk and dv stored D-major")]})
+                   "dK/dV of flash_fp32.cuh, dq, dk and dv stored D-major"),
+        entry("layernorm_fwd_fp32", LN_SOURCE, LN_FWD_REPLACES, total[12], rec_ln_fwd32,
+              "max_abs_err", device_ms=rec_ln_fwd32["device_ms"],
+              note="B6's forward on fp32 rows: off the model paths, as in JAX; its "
+                   "statistics launch on fp32 rows is the first launch of every fp32 ln_qkv "
+                   "and ln_mlp call (192 a fused fp32 ViT-L step)"),
+        entry("layernorm_bwd_fp32", LN_SOURCE, LN_BWD_REPLACES, total[13], rec_ln_bwd32,
+              "max_abs_err", device_ms=rec_ln_bwd32["device_ms"],
+              note="B6's backward on fp32 rows: the LayerNorm tail of the fp32 ln_qkv and "
+                   "ln_mlp backwards"),
+        entry("ln_qkv_fp32", LN_GEMM_FP32_SOURCE, LN_QKV_REPLACES, total[14], rec_qkv32,
+              "max_abs_err", library=rec_qkv32["library"],
+              note="B7 on fp32 operands: the statistics launch, W's tf32 split, then 3xTF32 "
+                   "on wgmma (tiles of 128 columns at most) with the bias and RoPE in fp32"),
+        entry("ln_mlp_fp32", LN_GEMM_FP32_SOURCE, LN_MLP_REPLACES, total[15], rec_mlp32,
+              "max_abs_err", library=rec_mlp32["library"],
+              note="B8 on fp32 operands: the statistics launch, W's tf32 split, then 3xTF32 "
+                   "on wgmma with the bias and the exact GELU in fp32")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -378,13 +378,18 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
     the forward, dQ and dK/dV, an unmasked and a masked instantiation per
     head width, 16 to 104) run on wgmma at TF32
     (HGMMA ... TF32) and
-    contain no HMMA at all. B6's forward and backward (one instantiation per
-    width) copy their rows with the bulk copy (UBLKCP)."""
+    contain no HMMA at all; so do the fp32 LayerNorm GEMMs of B8 and B7
+    (`ln_gemm_tf32_kernel`: B8's tile and B7's per head width and heads a
+    tile at fp32), whose products are not on the CUDA cores: no FFMA
+    between their first and last HGMMA (GELU's erff, in B8's epilogue,
+    comes after). B6's forward and backward (one instantiation per width and
+    row dtype, bf16 and fp32) copy their rows with the bulk copy
+    (UBLKCP)."""
     import os
     import subprocess
 
     from vjepa2_tpu_torch import _build
-    from vjepa2_tpu_torch.ops.ln_qkv import QKV_TILE_HEADS
+    from vjepa2_tpu_torch.ops.ln_qkv import QKV_TILE_HEADS, QKV_TILE_HEADS_FP32
 
     _build.load()
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -398,7 +403,7 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
     instantiations = {"flash_fwd_bhnd_kernel": 5, "flash_bwd_bhnd_dkdv_kernel": 5,
                       "flash_bwd_bhnd_dq_kernel": 5, "flash_fwd_dn_kernel": 4,
                       "flash_bwd_dn_dkdv_kernel": 4, "flash_bwd_dn_dq_kernel": 4,
-                      "ln_gemm_wgmma_kernel": 1 + b7, "QkvEpilogue": b7}
+                      "ln_gemm_wgmma_kernel": 1 + b7, "11QkvEpilogueI": b7}
     for kernel, count in instantiations.items():
         found = {n: b for n, b in bodies.items() if kernel in n}
         assert len(found) == count, (kernel, sorted(found))
@@ -415,9 +420,20 @@ def test_sass_uses_wgmma_not_mma_sync(dev):
         for name, body in found.items():
             assert any("HGMMA" in line and "TF32" in line for line in body.splitlines()), name
             assert "HMMA" not in body, name
+    # the fp32 LayerNorm GEMMs: B8's tile and B7's fp32 tiles, on wgmma at TF32
+    b7_fp32 = sum(len(heads) for heads in QKV_TILE_HEADS_FP32.values())
+    found = {n: b for n, b in bodies.items() if "ln_gemm_tf32_kernel" in n}
+    assert len(found) == 1 + b7_fp32, sorted(found)
+    assert len([n for n in found if "QkvEpilogueF32" in n]) == b7_fp32
+    for name, body in found.items():
+        lines = body.splitlines()
+        gmma = [i for i, line in enumerate(lines) if "HGMMA" in line]
+        assert gmma and all("TF32" in lines[i] for i in gmma), name
+        assert "HMMA" not in body, name
+        assert not [line for line in lines[gmma[0]:gmma[-1]] if "FFMA" in line], name
     # B6's forward and backward stream their rows by bulk copy (cp.async.bulk:
-    # UBLKCP), one instantiation per width
-    for kernel, count in (("ln_fwd_kernel", 4), ("ln_bwd_kernel", 4)):
+    # UBLKCP), one instantiation per width and row dtype
+    for kernel, count in (("ln_fwd_kernel", 8), ("ln_bwd_kernel", 8)):
         found = {n: b for n, b in bodies.items() if kernel in n}
         assert len(found) == count, (kernel, sorted(found))
         for name, body in found.items():

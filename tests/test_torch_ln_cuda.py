@@ -171,10 +171,10 @@ def test_layernorm_lane_groups_match_the_plan(dev):
     from vjepa2_tpu_torch import _build
 
     _, fn = _build.function("vjepa2_layernorm_layout",
-                            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2)
+                            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
     for C in tln.LN_WIDTHS:
         lanes, per_lane = ctypes.c_int(), ctypes.c_int()
-        assert fn(C, ctypes.byref(lanes), ctypes.byref(per_lane)) == 0
+        assert fn(C, 2, ctypes.byref(lanes), ctypes.byref(per_lane)) == 0  # bf16 rows
         plan = tln.ln_row_plan(100, C, 132)
         assert (lanes.value, per_lane.value) == (plan.lanes, plan.per_lane), C
 
@@ -294,8 +294,8 @@ def test_unsupported_shapes_and_dtypes_raise(dev):
     x, gamma, beta, w, bias, _ = _qkv_case(1, 16, 384, 2, 64, "none", dev)
     with pytest.raises(ValueError, match="row width"):
         tln.ln_forward(_rand((4, 512), dev, 0), *_affine(512, dev))
-    with pytest.raises(TypeError, match="bf16"):
-        tln.ln_forward(x.float(), gamma, beta)
+    with pytest.raises(TypeError, match="bf16 or fp32"):  # fp32 rows take the fp32 kernels
+        tln.ln_forward(x.half(), gamma, beta)
     with pytest.raises(ValueError, match="head width 48"):
         tlnq.ln_qkv(x, gamma, beta, w[: 3 * 2 * 48], bias[: 3 * 2 * 48], num_heads=2,
                     head_dim=48)

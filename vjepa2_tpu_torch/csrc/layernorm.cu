@@ -1,19 +1,26 @@
-// LayerNorm forward and backward over bf16 rows, for Hopper (sm_90a): kernel B6.
+// LayerNorm forward and backward over bf16 or fp32 rows, for Hopper (sm_90a):
+// kernel B6.
 //
 // Replaces the TPU kernels `vjepa2_tpu/ops/layernorm.py:103 _ln_fwd_kernel`
 // (`pallas_call` `:137`) and `:115 _ln_bwd_kernel` (`:164`). Same contract:
-//   * forward: x [R, C] bf16 -> y [R, C] bf16 with fp32 two-pass statistics
-//     and affine (`ln_common.cuh`), saving mean and rstd [R] fp32; with no y,
-//     the statistics launch of `ln_common.cuh`;
-//   * backward: from x, dy (bf16, the dtype of x), gamma and the saved mean
-//     and rstd: xhat = (x - mean) * rstd, wdy = dy * gamma,
+//   * forward: x [R, C] -> y [R, C] in x's dtype with fp32 two-pass
+//     statistics and affine (`ln_common.cuh`), saving mean and rstd [R] fp32;
+//     with no y, the statistics launch of `ln_common.cuh`;
+//   * backward: from x, dy (the dtype of x), gamma and the saved mean and
+//     rstd: xhat = (x - mean) * rstd, wdy = dy * gamma,
 //     c1 = mean(wdy), c2 = mean(wdy * xhat), dx = (wdy - c1 - xhat * c2) * rstd
 //     in x's dtype (`ln_backward_f32:88`); dgamma = sum(dy * xhat) and
 //     dbeta = sum(dy) over the rows, fp32 [C].
-// C in {384, 1024, 1280, 1408}; rows 16-byte aligned.
+// x in bf16 (the `_bf16` entry points) or fp32 (`_f32`: JAX's kernels are
+// generic in the storage dtype, and its fp32 models send them fp32 rows);
+// C in {384, 1024, 1280, 1408}; rows 16-byte aligned. Every kernel is one
+// template over the element type: an fp32 16-byte chunk holds 4 elements,
+// so a lane holds twice the chunks and a ring stage twice the bytes (the
+// ring then holds fewer stages: 2-4 at fp32, 2-8 in bf16).
 //
 // What bounds it on this card: memory. Per element the forward does ~8 and
-// the backward ~15 fp32 operations against 4 and 6 bytes moved, far below
+// the backward ~15 fp32 operations against 4 and 6 bytes moved (8 and 12 at
+// fp32), far below
 // the ~295 operations per byte at which the tensor cores' peak would bind
 // (and there are no products to give them).
 //
@@ -62,10 +69,10 @@ constexpr int kLnMaxBlockRows = 1024;  // rows a block at most (`LN_MAX_BLOCK_RO
 constexpr int kSumRows = 16;      // partial rows a warp of the sum adds with all loads in flight
 constexpr int kSumMaxWarps = 32;  // warps of a block of the sum at most
 
-template <int C>
-using FwdLayout = RowLayout<C, ln_lanes<C>(), kLnFwdWarps, C <= 1024 ? kLnFwdRows : 1, 1>;
-template <int C>
-using BwdLayout = RowLayout<C, ln_lanes<C>(), kLnBwdWarps, kLnBwdRows, 2>;
+template <int C, class T>
+using FwdLayout = RowLayout<C, ln_lanes<C>(), kLnFwdWarps, C <= 1024 ? kLnFwdRows : 1, 1, T>;
+template <int C, class T>
+using BwdLayout = RowLayout<C, ln_lanes<C>(), kLnBwdWarps, kLnBwdRows, 2, T>;
 
 // Shared memory of a row kernel: the mbarriers, the ring, then kParams fp32
 // vectors of C where the layout keeps them there.
@@ -78,7 +85,7 @@ constexpr int ln_smem_bytes() {
 // registers, or, where the layout keeps it in shared memory, a copy there.
 template <class L, int C>
 struct RowParams {
-  float r[L::kParamsInSmem ? 1 : L::kPerLane][8];
+  float r[L::kParamsInSmem ? 1 : L::kPerLane][L::kE];
   const float* s;
   // every consumer thread calls it; in shared memory the consumers copy the
   // vector and wait for one another (named barrier 1), so the producer, which
@@ -92,16 +99,16 @@ struct RowParams {
     } else {
 #pragma unroll
       for (int i = 0; i < L::kPerLane; ++i) {
-        if (L::has(gl, i)) load8(v + L::chunk(gl, i) * 8, r[i]);
+        if (L::has(gl, i)) L::Elem::load(v + L::chunk(gl, i) * L::kE, r[i]);
       }
     }
   }
-  __device__ __forceinline__ void get(int gl, int i, float (&f)[8]) const {
+  __device__ __forceinline__ void get(int gl, int i, float (&f)[L::kE]) const {
     if constexpr (L::kParamsInSmem) {
-      load8(s + L::chunk(gl, i) * 8, f);
+      L::Elem::load(s + L::chunk(gl, i) * L::kE, f);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = r[i][e];
+      for (int e = 0; e < L::kE; ++e) f[e] = r[i][e];
     }
   }
 };
@@ -111,20 +118,20 @@ struct RowParams {
 // the kSrcs tensors into it with one bulk copy each. One lane runs it.
 template <class L, int C, int kSrcs>
 __device__ __forceinline__ void ring_produce(unsigned char* ring, uint64_t* full, uint64_t* empty,
-                                             const bf16* const (&src)[kSrcs], long long row0,
-                                             int rows) {
+                                             const typename L::Type* const (&src)[kSrcs],
+                                             long long row0, int rows) {
   constexpr int kStageRows = L::kStageRows, kStages = L::kStages;
-  constexpr int kStageBytes = L::kStageBytes;
+  constexpr int kStageBytes = L::kStageBytes, kRowBytes_ = C * sizeof(typename L::Type);
   const int n_stages = (rows + kStageRows - 1) / kStageRows;
   for (int s = 0; s < n_stages; ++s) {
     const int slot = s % kStages;
     if (s >= kStages) mbar_wait(&empty[slot], (s / kStages - 1) & 1);
     const int n = min(kStageRows, rows - s * kStageRows);
-    const uint32_t bytes = static_cast<uint32_t>(n) * C * 2;
+    const uint32_t bytes = static_cast<uint32_t>(n) * kRowBytes_;
     mbar_expect_tx(&full[slot], bytes * kSrcs);
 #pragma unroll
     for (int k = 0; k < kSrcs; ++k) {
-      bulk_load(ring + slot * kStageBytes + k * (kStageRows * C * 2),
+      bulk_load(ring + slot * kStageBytes + k * (kStageRows * kRowBytes_),
                 src[k] + (row0 + static_cast<long long>(s) * kStageRows) * C, bytes, &full[slot]);
     }
   }
@@ -144,15 +151,16 @@ __device__ __forceinline__ void ln_init_ring(uint64_t* full, uint64_t* empty) {
   __syncthreads();
 }
 
-// B6 forward over x [R, C]: y [R, C] bf16, mean and rstd [R] fp32. Block b
-// owns rows [b * rows_per_block, ...).
-template <int C>
-__global__ void __launch_bounds__(FwdLayout<C>::kThreads, 2)
-    ln_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, bf16* __restrict__ y,
+// B6 forward over x [R, C]: y [R, C] in x's dtype, mean and rstd [R] fp32.
+// Block b owns rows [b * rows_per_block, ...).
+template <int C, class T>
+__global__ void __launch_bounds__(FwdLayout<C, T>::kThreads, 2)
+    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, T* __restrict__ y,
                   float* __restrict__ mean_out, float* __restrict__ rstd_out, int R,
                   int rows_per_block, float eps) {
-  using L = FwdLayout<C>;
+  using L = FwdLayout<C, T>;
+  constexpr int kE = L::kE;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + L::kStages;
@@ -165,7 +173,7 @@ __global__ void __launch_bounds__(FwdLayout<C>::kThreads, 2)
   ln_init_ring<L>(full, empty);
   if (warp == L::kWarps) {
     if (lane == 0) {
-      const bf16* const src[1] = {x};
+      const T* const src[1] = {x};
       ring_produce<L, C, 1>(ring, full, empty, src, row0, rows);
     }
     return;
@@ -177,7 +185,7 @@ __global__ void __launch_bounds__(FwdLayout<C>::kThreads, 2)
   for (int s = 0; s < n_stages; ++s) {
     const int slot = s % L::kStages;
     mbar_wait(&full[slot], (s / L::kStages) & 1);
-    const bf16* stage = reinterpret_cast<const bf16*>(ring + slot * L::kStageBytes);
+    const T* stage = reinterpret_cast<const T*>(ring + slot * L::kStageBytes);
     uint4 u[L::kRows][L::kPerLane];
 #pragma unroll
     for (int k = 0; k < L::kRows; ++k) {
@@ -200,61 +208,62 @@ __global__ void __launch_bounds__(FwdLayout<C>::kThreads, 2)
 #pragma unroll
       for (int i = 0; i < L::kPerLane; ++i) {
         if (L::has(gl, i)) {
-          float f[8], gv[8], bv[8];
-          unpack8(u[k][i], f);
+          float f[kE], gv[kE], bv[kE];
+          L::Elem::unpack(u[k][i], f);
           gam.get(gl, i, gv);
           bet.get(gl, i, bv);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = ln_affine(f[e], mean[k], rstd[k], gv[e], bv[e]);
-          *reinterpret_cast<uint4*>(y + row * C + L::chunk(gl, i) * 8) = pack8(f);
+          for (int e = 0; e < kE; ++e) f[e] = ln_affine(f[e], mean[k], rstd[k], gv[e], bv[e]);
+          *reinterpret_cast<uint4*>(y + row * C + L::chunk(gl, i) * kE) = L::Elem::pack(f);
         }
       }
     }
   }
 }
 
-template <int C>
-cudaError_t launch_ln_fwd_c(const bf16* x, const float* gamma, const float* beta, bf16* y,
+template <int C, class T>
+cudaError_t launch_ln_fwd_c(const T* x, const float* gamma, const float* beta, T* y,
                             float* mean, float* rstd, int R, int rows_per_block, float eps,
                             cudaStream_t stream) {
-  constexpr int smem = ln_smem_bytes<FwdLayout<C>, C, 2>();
-  const cudaError_t err = allow_smem<ln_fwd_kernel<C>>(smem);
+  constexpr int smem = ln_smem_bytes<FwdLayout<C, T>, C, 2>();
+  const cudaError_t err = allow_smem<ln_fwd_kernel<C, T>>(smem);
   if (err != cudaSuccess) return err;
-  ln_fwd_kernel<C><<<(R + rows_per_block - 1) / rows_per_block, FwdLayout<C>::kThreads, smem,
-                     stream>>>(
+  ln_fwd_kernel<C, T><<<(R + rows_per_block - 1) / rows_per_block, FwdLayout<C, T>::kThreads,
+                        smem, stream>>>(
       x, gamma, beta, y, mean, rstd, R, rows_per_block, eps);
   return cudaGetLastError();
 }
 
 // Launch `ln_fwd_kernel` over ceil(R / rows_per_block) blocks for a width the
 // kernels take (else cudaErrorInvalidValue).
-inline cudaError_t launch_ln_fwd(const bf16* x, const float* gamma, const float* beta, bf16* y,
-                                 float* mean, float* rstd, int R, int C, int rows_per_block,
-                                 float eps, cudaStream_t stream) {
+template <class T>
+cudaError_t launch_ln_fwd(const T* x, const float* gamma, const float* beta, T* y, float* mean,
+                          float* rstd, int R, int C, int rows_per_block, float eps,
+                          cudaStream_t stream) {
   if (R <= 0 || rows_per_block <= 0) return cudaErrorInvalidValue;
   auto run = [&](auto launch) {
     return launch(x, gamma, beta, y, mean, rstd, R, rows_per_block, eps, stream);
   };
   switch (C) {
-    case 384: return run(launch_ln_fwd_c<384>);
-    case 1024: return run(launch_ln_fwd_c<1024>);
-    case 1280: return run(launch_ln_fwd_c<1280>);
-    case 1408: return run(launch_ln_fwd_c<1408>);
+    case 384: return run(launch_ln_fwd_c<384, T>);
+    case 1024: return run(launch_ln_fwd_c<1024, T>);
+    case 1280: return run(launch_ln_fwd_c<1280, T>);
+    case 1408: return run(launch_ln_fwd_c<1408, T>);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // B6 backward: block b owns rows [b * rows_per_block, ...) and writes its
 // partial row of dgamma and dbeta to dg_part[b], db_part[b].
-template <int C>
-__global__ void __launch_bounds__(BwdLayout<C>::kThreads, 2)
-    ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+template <int C, class T>
+__global__ void __launch_bounds__(BwdLayout<C, T>::kThreads, 2)
+    ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma, const float* __restrict__ mean,
-                  const float* __restrict__ rstd, bf16* __restrict__ dx,
+                  const float* __restrict__ rstd, T* __restrict__ dx,
                   float* __restrict__ dg_part, float* __restrict__ db_part, int R,
                   int rows_per_block) {
-  using L = BwdLayout<C>;
-  constexpr int kRows = L::kRows;
+  using L = BwdLayout<C, T>;
+  constexpr int kRows = L::kRows, kE = L::kE;
   static_assert(2 * L::kGroups * C * 4 <= L::kRing, "the block's sums reuse the ring");
   // the sum kernel may take its SMs' spare room now; it waits for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -269,7 +278,7 @@ __global__ void __launch_bounds__(BwdLayout<C>::kThreads, 2)
   ln_init_ring<L>(full, empty);
   if (warp == L::kWarps) {
     if (lane == 0) {
-      const bf16* const src[2] = {x, dy};
+      const T* const src[2] = {x, dy};
       ring_produce<L, C, 2>(ring, full, empty, src, row0, rows);
     }
     return;
@@ -287,11 +296,11 @@ __global__ void __launch_bounds__(BwdLayout<C>::kThreads, 2)
   gam.load(gamma, s_rstd + kLnMaxBlockRows, gl);
   bar_sync(1, L::kWarps * 32);
 
-  float dg[L::kPerLane][8], db[L::kPerLane][8];
+  float dg[L::kPerLane][kE], db[L::kPerLane][kE];
 #pragma unroll
   for (int i = 0; i < L::kPerLane; ++i) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) dg[i][e] = db[i][e] = 0.f;
+    for (int e = 0; e < kE; ++e) dg[i][e] = db[i][e] = 0.f;
   }
   const int n_stages = (rows + L::kStageRows - 1) / L::kStageRows;
   for (int s = 0; s < n_stages; ++s) {
@@ -307,23 +316,23 @@ __global__ void __launch_bounds__(BwdLayout<C>::kThreads, 2)
       r[k] = valid[k] ? s_rstd[j] : 0.f;
     }
     mbar_wait(&full[slot], (s / L::kStages) & 1);
-    const bf16* xs = reinterpret_cast<const bf16*>(ring + slot * L::kStageBytes);
-    const bf16* ds = xs + L::kStageRows * C;
+    const T* xs = reinterpret_cast<const T*>(ring + slot * L::kStageBytes);
+    const T* ds = xs + L::kStageRows * C;
     float c1[kRows], c2[kRows];
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int j = L::row_of(grp, k) * C;
-      float s1[8] = {}, s2[8] = {};  // eight sums each, so that no add waits for the one before
+      float s1[kE] = {}, s2[kE] = {};  // kE sums each, so that no add waits for the one before
 #pragma unroll
       for (int i = 0; i < L::kPerLane; ++i) {
         if (valid[k] && L::has(gl, i)) {
-          const int c = L::chunk(gl, i) * 8;
-          float xf[8], df[8], gv[8];
-          unpack8(*reinterpret_cast<const uint4*>(xs + j + c), xf);
-          unpack8(*reinterpret_cast<const uint4*>(ds + j + c), df);
+          const int c = L::chunk(gl, i) * kE;
+          float xf[kE], df[kE], gv[kE];
+          L::Elem::unpack(*reinterpret_cast<const uint4*>(xs + j + c), xf);
+          L::Elem::unpack(*reinterpret_cast<const uint4*>(ds + j + c), df);
           gam.get(gl, i, gv);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
+          for (int e = 0; e < kE; ++e) {
             const float xhat = (xf[e] - m[k]) * r[k];
             const float wdy = df[e] * gv[e];
             s1[e] += wdy;
@@ -331,8 +340,8 @@ __global__ void __launch_bounds__(BwdLayout<C>::kThreads, 2)
           }
         }
       }
-      c1[k] = sum8(s1);
-      c2[k] = sum8(s2);
+      c1[k] = L::Elem::sum(s1);
+      c2[k] = L::Elem::sum(s2);
     }
     group_sums<L::kLanes_>(c1);
     group_sums<L::kLanes_>(c2);
@@ -345,20 +354,20 @@ __global__ void __launch_bounds__(BwdLayout<C>::kThreads, 2)
 #pragma unroll
       for (int i = 0; i < L::kPerLane; ++i) {
         if (valid[k] && L::has(gl, i)) {
-          const int c = L::chunk(gl, i) * 8;
-          float xf[8], df[8], gv[8], out[8];
-          unpack8(*reinterpret_cast<const uint4*>(xs + j + c), xf);
-          unpack8(*reinterpret_cast<const uint4*>(ds + j + c), df);
+          const int c = L::chunk(gl, i) * kE;
+          float xf[kE], df[kE], gv[kE], out[kE];
+          L::Elem::unpack(*reinterpret_cast<const uint4*>(xs + j + c), xf);
+          L::Elem::unpack(*reinterpret_cast<const uint4*>(ds + j + c), df);
           gam.get(gl, i, gv);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
+          for (int e = 0; e < kE; ++e) {
             const float xhat = (xf[e] - m[k]) * r[k];
             const float wdy = df[e] * gv[e];
             out[e] = (wdy - c1[k] - xhat * c2[k]) * r[k];
             dg[i][e] += df[e] * xhat;
             db[i][e] += df[e];
           }
-          *reinterpret_cast<uint4*>(dx + row * C + c) = pack8(out);
+          *reinterpret_cast<uint4*>(dx + row * C + c) = L::Elem::pack(out);
         }
       }
     }
@@ -374,9 +383,9 @@ __global__ void __launch_bounds__(BwdLayout<C>::kThreads, 2)
   for (int i = 0; i < L::kPerLane; ++i) {
     if (L::has(gl, i)) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        red[grp * C + L::chunk(gl, i) * 8 + e] = dg[i][e];
-        red[(L::kGroups + grp) * C + L::chunk(gl, i) * 8 + e] = db[i][e];
+      for (int e = 0; e < kE; ++e) {
+        red[grp * C + L::chunk(gl, i) * kE + e] = dg[i][e];
+        red[(L::kGroups + grp) * C + L::chunk(gl, i) * kE + e] = db[i][e];
       }
     }
   }
@@ -425,15 +434,15 @@ __global__ void __launch_bounds__(kSumMaxWarps * 32)
   }
 }
 
-template <int C>
-cudaError_t launch_ln_bwd(const bf16* x, const bf16* dy, const float* gamma, const float* mean,
-                          const float* rstd, bf16* dx, float* dparams, float* part, int R,
+template <int C, class T>
+cudaError_t launch_ln_bwd(const T* x, const T* dy, const float* gamma, const float* mean,
+                          const float* rstd, T* dx, float* dparams, float* part, int R,
                           int rows_per_block, cudaStream_t stream) {
-  constexpr int smem = ln_smem_bytes<BwdLayout<C>, C, 1>() + 2 * kLnMaxBlockRows * 4;
-  cudaError_t err = allow_smem<ln_bwd_kernel<C>>(smem);
+  constexpr int smem = ln_smem_bytes<BwdLayout<C, T>, C, 1>() + 2 * kLnMaxBlockRows * 4;
+  cudaError_t err = allow_smem<ln_bwd_kernel<C, T>>(smem);
   if (err != cudaSuccess) return err;
   const int grid = (R + rows_per_block - 1) / rows_per_block;
-  ln_bwd_kernel<C><<<grid, BwdLayout<C>::kThreads, smem, stream>>>(
+  ln_bwd_kernel<C, T><<<grid, BwdLayout<C, T>::kThreads, smem, stream>>>(
       x, dy, gamma, mean, rstd, dx, part, part + static_cast<long long>(grid) * C, R,
       rows_per_block);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -451,12 +460,58 @@ cudaError_t launch_ln_bwd(const bf16* x, const bf16* dy, const float* gamma, con
                             grid);
 }
 
+// The entry points of one element type: the forward (a null y: the
+// statistics launch) and the backward, with the checks they share.
+template <class T>
+int ln_fwd_entry(const void* x, const void* gamma, const void* beta, void* y, void* mean,
+                 void* rstd, int R, int C, int rows_per_block, float eps, void* stream) {
+  if (R <= 0 || !ln_width_ok(C) || !aligned16(x) || !aligned16(gamma) || !aligned16(beta) ||
+      (y != nullptr && !aligned16(y)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (y == nullptr) {
+    return launch_ln_stats(static_cast<const T*>(x), static_cast<float*>(mean),
+                           static_cast<float*>(rstd), R, C, eps, s);
+  }
+  return launch_ln_fwd(static_cast<const T*>(x), static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta), static_cast<T*>(y),
+                       static_cast<float*>(mean), static_cast<float*>(rstd), R, C, rows_per_block,
+                       eps, s);
+}
+
+template <class T>
+int ln_bwd_entry(const void* x, const void* dy, const void* gamma, const void* mean,
+                 const void* rstd, void* dx, void* dparams, void* part, int R, int C,
+                 int rows_per_block, void* stream) {
+  if (R <= 0 || rows_per_block <= 0 || rows_per_block > kLnMaxBlockRows || !ln_width_ok(C) ||
+      !aligned16(x) || !aligned16(dy) || !aligned16(dx) || !aligned16(gamma))
+    return cudaErrorInvalidValue;
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  const float* g = static_cast<const float*>(gamma);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  T* dxp = static_cast<T*>(dx);
+  float* dpp = static_cast<float*>(dparams);
+  float* pp = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 384: return launch_ln_bwd<384>(xp, dyp, g, m, r, dxp, dpp, pp, R, rows_per_block, s);
+    case 1024: return launch_ln_bwd<1024>(xp, dyp, g, m, r, dxp, dpp, pp, R, rows_per_block, s);
+    case 1280: return launch_ln_bwd<1280>(xp, dyp, g, m, r, dxp, dpp, pp, R, rows_per_block, s);
+    default: return launch_ln_bwd<1408>(xp, dyp, g, m, r, dxp, dpp, pp, R, rows_per_block, s);
+  }
+}
+
 }  // namespace
 
-// The lane group of B6's kernels at width C: lanes a row and 16-byte chunks
-// a lane (the forward's, the statistics launch's and the backward's alike).
-// 0 on success, cudaErrorInvalidValue for a width they do not take.
-extern "C" int vjepa2_layernorm_layout(int C, int* lanes, int* per_lane) {
+// The lane group of B6's kernels at width C on rows of `elem_bytes`-byte
+// elements (2: bf16, 4: fp32): lanes a row and 16-byte chunks a lane (the
+// forward's, the statistics launch's and the backward's alike). 0 on
+// success, cudaErrorInvalidValue for a width or element size they do not
+// take.
+extern "C" int vjepa2_layernorm_layout(int C, int elem_bytes, int* lanes, int* per_lane) {
+  if (elem_bytes != 2 && elem_bytes != 4) return cudaErrorInvalidValue;
   switch (C) {
     case 384: *lanes = ln_lanes<384>(); break;
     case 1024: *lanes = ln_lanes<1024>(); break;
@@ -464,7 +519,7 @@ extern "C" int vjepa2_layernorm_layout(int C, int* lanes, int* per_lane) {
     case 1408: *lanes = ln_lanes<1408>(); break;
     default: return cudaErrorInvalidValue;
   }
-  *per_lane = (C / 8 + *lanes - 1) / *lanes;
+  *per_lane = (C * elem_bytes / 16 + *lanes - 1) / *lanes;
   return 0;
 }
 
@@ -477,18 +532,14 @@ extern "C" int vjepa2_layernorm_layout(int C, int* lanes, int* per_lane) {
 extern "C" int vjepa2_layernorm_fwd_bf16(const void* x, const void* gamma, const void* beta,
                                          void* y, void* mean, void* rstd, int R, int C,
                                          int rows_per_block, float eps, void* stream) {
-  if (R <= 0 || !ln_width_ok(C) || !aligned16(x) || !aligned16(gamma) || !aligned16(beta) ||
-      (y != nullptr && !aligned16(y)))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (y == nullptr) {
-    return launch_ln_stats(static_cast<const bf16*>(x), static_cast<float*>(mean),
-                           static_cast<float*>(rstd), R, C, eps, s);
-  }
-  return launch_ln_fwd(static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-                       static_cast<const float*>(beta), static_cast<bf16*>(y),
-                       static_cast<float*>(mean), static_cast<float*>(rstd), R, C, rows_per_block,
-                       eps, s);
+  return ln_fwd_entry<bf16>(x, gamma, beta, y, mean, rstd, R, C, rows_per_block, eps, stream);
+}
+
+// The same on fp32 rows: x, y [R, C] fp32.
+extern "C" int vjepa2_layernorm_fwd_f32(const void* x, const void* gamma, const void* beta,
+                                        void* y, void* mean, void* rstd, int R, int C,
+                                        int rows_per_block, float eps, void* stream) {
+  return ln_fwd_entry<float>(x, gamma, beta, y, mean, rstd, R, C, rows_per_block, eps, stream);
 }
 
 // x, dy [R, C] bf16, gamma [C], mean and rstd [R] fp32 -> dx [R, C] bf16 and
@@ -501,22 +552,15 @@ extern "C" int vjepa2_layernorm_bwd_bf16(const void* x, const void* dy, const vo
                                          const void* mean, const void* rstd, void* dx,
                                          void* dparams, void* part, int R, int C,
                                          int rows_per_block, void* stream) {
-  if (R <= 0 || rows_per_block <= 0 || rows_per_block > kLnMaxBlockRows || !ln_width_ok(C) ||
-      !aligned16(x) || !aligned16(dy) || !aligned16(dx) || !aligned16(gamma))
-    return cudaErrorInvalidValue;
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* dyp = static_cast<const bf16*>(dy);
-  const float* g = static_cast<const float*>(gamma);
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  bf16* dxp = static_cast<bf16*>(dx);
-  float* dpp = static_cast<float*>(dparams);
-  float* pp = static_cast<float*>(part);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 384: return launch_ln_bwd<384>(xp, dyp, g, m, r, dxp, dpp, pp, R, rows_per_block, s);
-    case 1024: return launch_ln_bwd<1024>(xp, dyp, g, m, r, dxp, dpp, pp, R, rows_per_block, s);
-    case 1280: return launch_ln_bwd<1280>(xp, dyp, g, m, r, dxp, dpp, pp, R, rows_per_block, s);
-    default: return launch_ln_bwd<1408>(xp, dyp, g, m, r, dxp, dpp, pp, R, rows_per_block, s);
-  }
+  return ln_bwd_entry<bf16>(x, dy, gamma, mean, rstd, dx, dparams, part, R, C, rows_per_block,
+                            stream);
+}
+
+// The same on fp32 rows: x, dy, dx [R, C] fp32.
+extern "C" int vjepa2_layernorm_bwd_f32(const void* x, const void* dy, const void* gamma,
+                                        const void* mean, const void* rstd, void* dx,
+                                        void* dparams, void* part, int R, int C,
+                                        int rows_per_block, void* stream) {
+  return ln_bwd_entry<float>(x, dy, gamma, mean, rstd, dx, dparams, part, R, C, rows_per_block,
+                             stream);
 }

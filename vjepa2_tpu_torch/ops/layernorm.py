@@ -11,8 +11,9 @@ from the unfused one by that rounding, as in JAX.
 
 `layer_norm` is a `torch.autograd.Function` (`LayerNormFunction`) whose
 forward and backward are the hand-written Hopper kernels of
-`csrc/layernorm.cu` on a CUDA tensor (bf16, C in 384, 1024, 1280, 1408; other
-inputs raise) and the plain formulas on a CPU tensor. `ln_backward` is the
+`csrc/layernorm.cu` on a CUDA tensor (bf16 or fp32 rows, as JAX's kernels
+are generic in the storage dtype; C in 384, 1024, 1280, 1408; other inputs
+raise) and the plain formulas on a CPU tensor. `ln_backward` is the
 backward alone: the fused prologues' backwards end in it. `ln_stats` is the
 forward writing only mean and rstd, the launch B7 and B8 make first (its
 own kernel, which reads rows with no ring). The forward with an output and
@@ -36,10 +37,16 @@ from vjepa2_tpu_torch import _build
 # the pretrain predictor 384).
 LN_WIDTHS = (384, 1024, 1280, 1408)
 
-# Kernel launches since the last reset, forward and backward; `chip_smoke.py`
-# reads them to show the main path went through the kernels.
+# Kernel launches since the last reset, forward and backward, on bf16 rows
+# and, apart, on fp32 rows; `chip_smoke.py` reads them to show the main path
+# went through the kernels.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FP32 = 0
+LAUNCHES_BWD_FP32 = 0
+
+# The kernels' entry points by row dtype.
+_ENTRY = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def ln_forward_f32(x, gamma, beta, eps: float):
@@ -68,11 +75,19 @@ def ln_backward_f32(x, dy, gamma, mean, rstd):
 
 
 # Blocks an SM of B6's persistent row kernels (`csrc/layernorm.cu`): each
-# takes at most ~105 KB of shared memory and 168 registers a thread, so two
-# fit. A block takes at most LN_MAX_BLOCK_ROWS rows: the backward stages its
-# rows' mean and rstd in shared memory.
+# takes at most ~108 KB of shared memory (`ln_block_bytes`, bf16 and fp32
+# rows alike: an fp32 ring holds fewer stages) and 168 registers a thread,
+# so two fit. A block takes at most LN_MAX_BLOCK_ROWS rows: the backward
+# stages its rows' mean and rstd in shared memory.
 LN_BLOCKS_PER_SM = 2
 LN_MAX_BLOCK_ROWS = 1024
+# The kernels' layout constants (`csrc/ln_common.cuh`, `csrc/layernorm.cu`):
+# a ring holds at most LN_RING_BYTES in 2 to LN_MAX_STAGES stages, a lane
+# keeps gamma/beta in registers up to LN_REG_CHUNKS chunks (else in shared
+# memory), 4 consumer warps a block, 128 bytes of barriers.
+LN_RING_BYTES, LN_MAX_STAGES, LN_REG_CHUNKS, LN_WARPS = 96 * 1024, 8, 5, 4
+# An SM's shared memory on an H100 (228 KB), of which each block reserves 1 KB.
+SM_SHARED_BYTES, BLOCK_RESERVED_BYTES = 233472, 1024
 
 
 class LnRowPlan(NamedTuple):
@@ -82,7 +97,7 @@ class LnRowPlan(NamedTuple):
     grid: int  # blocks, each a contiguous range of rows (the backward's partial rows)
     rows_per_block: int  # ceil(R / grid); the last block may hold fewer, none holds none
     lanes: int  # lanes of a warp that hold one row
-    per_lane: int  # 16-byte chunks a lane holds: ceil(C / 8 / lanes)
+    per_lane: int  # 16-byte chunks a lane holds: ceil(C * itemsize / 16 / lanes)
 
 
 def ln_lanes(C: int) -> int:
@@ -90,26 +105,52 @@ def ln_lanes(C: int) -> int:
     chunks of 16 bytes as 16 lanes x 3, two rows a warp), else 32 (1024 as 32
     x 4, 1280 as 32 x 5, and 1408 as 32 x 6 with the sixth chunk on half the
     lanes: 16 lanes x 11 ran slower on an H100, and in the backward would hold
-    176 dgamma/dbeta sums a lane in registers)."""
+    176 dgamma/dbeta sums a lane in registers). The counts are bf16's; an
+    fp32 row has twice the chunks on the same lanes (16 x 6, 32 x 8, 32 x 10,
+    32 x 11)."""
     return 16 if C == 384 else 32
 
 
+def ln_per_lane(C: int, itemsize: int) -> int:
+    """16-byte chunks a lane holds of a row of C elements of ``itemsize``
+    bytes (2: bf16, 4: fp32)."""
+    return -(-(C * itemsize // 16) // ln_lanes(C))
+
+
+def ln_block_bytes(C: int, itemsize: int, backward: bool) -> int:
+    """Shared memory of one block of B6's forward (with an output) or
+    backward on rows of C elements of ``itemsize`` bytes, as the kernels lay
+    it out: the barriers, the ring (a stage is one row a lane group of each
+    source, two rows in the forward up to C 1024), gamma (and beta) where a
+    lane would hold more than `LN_REG_CHUNKS` chunks of them, and the
+    backward's staged mean and rstd."""
+    groups = LN_WARPS * (32 // ln_lanes(C))
+    rows = 1 if backward or C > 1024 else 2
+    stage = (2 if backward else 1) * groups * rows * C * itemsize
+    stages = min(max(LN_RING_BYTES // stage, 2), LN_MAX_STAGES)
+    params = (1 if backward else 2) * C * 4 if ln_per_lane(C, itemsize) > LN_REG_CHUNKS else 0
+    return 128 + stages * stage + params + (2 * LN_MAX_BLOCK_ROWS * 4 if backward else 0)
+
+
 @functools.lru_cache(maxsize=256)
-def ln_row_plan(R: int, C: int, sm_count: int) -> LnRowPlan:
-    """B6's persistent grid for R rows of width C on a card of ``sm_count``
-    SMs: at most `LN_BLOCKS_PER_SM` blocks an SM and at most one a row, each
-    block a contiguous range of ceil(R / blocks) rows (at most
-    `LN_MAX_BLOCK_ROWS`, so more blocks than that only past 2048 rows an SM),
-    then only as many blocks as those ranges need (none empty). Depends on
-    nothing else."""
+def ln_row_plan(R: int, C: int, sm_count: int, itemsize: int = 2) -> LnRowPlan:
+    """B6's persistent grid for R rows of width C (elements of ``itemsize``
+    bytes: 2 bf16, 4 fp32) on a card of ``sm_count`` SMs: at most
+    `LN_BLOCKS_PER_SM` blocks an SM (the fp32 kernels' blocks fit two an SM
+    too, `ln_block_bytes`) and at most one a row, each block a contiguous
+    range of ceil(R / blocks) rows (at most `LN_MAX_BLOCK_ROWS`, so more
+    blocks than that only past 2048 rows an SM), then only as many blocks as
+    those ranges need (none empty). Depends on nothing else; the grid not on
+    the element size."""
     if C not in LN_WIDTHS:
         raise ValueError(f"row width {C}: the LayerNorm kernels take "
                          f"{', '.join(map(str, LN_WIDTHS))}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"{itemsize}-byte elements: the LayerNorm kernels take bf16 and fp32")
     if R <= 0 or sm_count <= 0:
         raise ValueError(f"no LayerNorm plan for {R} rows on {sm_count} SMs")
     rows = min(-(-R // min(R, LN_BLOCKS_PER_SM * sm_count)), LN_MAX_BLOCK_ROWS)
-    lanes = ln_lanes(C)
-    return LnRowPlan(-(-R // rows), rows, lanes, -(-(C // 8) // lanes))
+    return LnRowPlan(-(-R // rows), rows, ln_lanes(C), ln_per_lane(C, itemsize))
 
 
 _SM_COUNTS: dict[int, int] = {}
@@ -125,14 +166,17 @@ def sm_count(device) -> int:
 
 
 def _check_cuda(x, C, *fp32):
+    """The suffix of the kernels' entry points for x's dtype, after the
+    checks that would make them refuse."""
     if C not in LN_WIDTHS:
         raise ValueError(f"row width {C}: the LayerNorm kernels take "
                          f"{', '.join(map(str, LN_WIDTHS))}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the LayerNorm kernels on CUDA take bf16 rows; got {x.dtype}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"the LayerNorm kernels on CUDA take bf16 or fp32 rows; got {x.dtype}")
     for t in fp32:
         if t.device != x.device or t.shape != (C,):
             raise ValueError(f"gamma/beta must be [{C}] on {x.device}")
+    return _ENTRY[x.dtype]
 
 
 def _rows(x):
@@ -168,44 +212,50 @@ def _launch(name, argtypes, device, *args):
 
 
 def _ln_fwd_cuda(x, gamma, beta, eps, with_y=True):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_FP32
     C = x.shape[-1]
-    _check_cuda(x, C, gamma, beta)
+    kind = _check_cuda(x, C, gamma, beta)
     x2 = _rows(x)
     R = x2.shape[0]
     y = torch.empty_like(x2) if with_y else None
     stats = torch.empty((2, R), dtype=torch.float32, device=x.device)  # mean, rstd
-    plan = ln_row_plan(R, C, sm_count(x.device))
+    plan = ln_row_plan(R, C, sm_count(x.device), x.element_size())
     p = stats.data_ptr()
-    _launch("vjepa2_layernorm_fwd_bf16", _FWD_ARGS, x.device, x2.data_ptr(),
+    _launch(f"vjepa2_layernorm_fwd_{kind}", _FWD_ARGS, x.device, x2.data_ptr(),
             _f32(gamma).data_ptr(), _f32(beta).data_ptr(), _build.ptr(y), p, p + 4 * R, R, C,
             plan.rows_per_block, eps)
-    LAUNCHES += 1
+    if kind == "f32":
+        LAUNCHES_FP32 += 1
+    else:
+        LAUNCHES += 1
     lead = x.shape[:-1]
     stats = stats.view(2, *lead, 1)
     return (None if y is None else y.view(x.shape)), stats[0], stats[1]
 
 
 def _ln_bwd_cuda(x, dy, gamma, mean, rstd):
-    global LAUNCHES_BWD
+    global LAUNCHES_BWD, LAUNCHES_BWD_FP32
     C = x.shape[-1]
-    _check_cuda(x, C, gamma)
+    kind = _check_cuda(x, C, gamma)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x {tuple(x.shape)} "
                          f"{x.dtype}")
     x2, dy2 = _rows(x), _rows(dy)
     R = x2.shape[0]
-    plan = ln_row_plan(R, C, sm_count(x.device))
+    plan = ln_row_plan(R, C, sm_count(x.device), x.element_size())
     dx = torch.empty_like(x2)
     # dgamma and dbeta in one allocation; the partial rows in their own, so
     # that a gradient kept by autograd does not keep them alive
     dparams = torch.empty((2, C), dtype=torch.float32, device=x.device)
     part = torch.empty((2, plan.grid, C), dtype=torch.float32, device=x.device)
-    _launch("vjepa2_layernorm_bwd_bf16", _BWD_ARGS, x.device, x2.data_ptr(), dy2.data_ptr(),
+    _launch(f"vjepa2_layernorm_bwd_{kind}", _BWD_ARGS, x.device, x2.data_ptr(), dy2.data_ptr(),
             _f32(gamma).data_ptr(), _f32(mean.reshape(R)).data_ptr(),
             _f32(rstd.reshape(R)).data_ptr(), dx.data_ptr(), dparams.data_ptr(),
             part.data_ptr(), R, C, plan.rows_per_block)
-    LAUNCHES_BWD += 1
+    if kind == "f32":
+        LAUNCHES_BWD_FP32 += 1
+    else:
+        LAUNCHES_BWD += 1
     return dx.view(x.shape), dparams[0], dparams[1]
 
 
@@ -236,8 +286,9 @@ def ln_stats(x, gamma, beta, eps: float = 1e-6):
 def ln_backward(x, dy, gamma, mean, rstd):
     """The LayerNorm backward from the saved (mean, rstd): (dx in x's dtype,
     dgamma, dbeta fp32). On a CUDA tensor the B6 backward kernels, which take
-    ``dy`` in x's dtype (the fused prologues' backwards hand it a bf16
-    product, exact in that dtype) and sum dgamma and dbeta on the card in a
+    ``dy`` in x's dtype (the fused prologues' backwards hand it a product in
+    that dtype: bf16, or fp32 on an fp32 model, which goes to the fp32
+    kernels with no cast) and sum dgamma and dbeta on the card in a
     fixed order: the same bits from call to call on one card; a card with
     another SM count has another grid (`ln_row_plan`), which changes only
     their rounding. On a CPU tensor `ln_backward_f32` of ``dy`` in fp32."""

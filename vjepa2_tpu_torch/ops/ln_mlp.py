@@ -9,10 +9,12 @@ custom VJP `_core_fwd:154` / `_core_bwd:160`:
     sqrt 2)) -> h [B, N, hidden] in x's dtype
 
 `ln_mlp` is a `torch.autograd.Function` (`LnMlpFunction`). Its forward is the
-dispatcher op ``torch.ops.vjepa2.ln_mlp``: the
-hand-written Hopper kernel of `csrc/ln_gemm_hopper.cu` (wgmma and TMA) on a
-CUDA tensor (bf16; C in 384, 1024, 1280, 1408; hidden in 1536, 4096, 5120,
-6144; other inputs raise) and `ln_mlp_plain` on a CPU tensor; it saves (x,
+dispatcher op ``torch.ops.vjepa2.ln_mlp``: on a CUDA tensor a hand-written
+Hopper kernel, `csrc/ln_gemm_hopper.cu` (wgmma and TMA) on bf16 x and w and
+`csrc/ln_gemm_fp32.cu` (the same mainloop at fp32: 3xTF32 on wgmma) on fp32
+x and w, as JAX's kernel is generic in the dtype (C in 384, 1024, 1280,
+1408; hidden in 1536, 4096, 5120, 6144; other inputs raise); on a CPU
+tensor `ln_mlp_plain`; it saves (x,
 gamma, beta, w, bias, mean, rstd). Its backward is `_core_bwd` in PyTorch: z
 recomputed with one product (fp32 out), dgelu = Phi(z) + z phi(z), dbias, dW
 and dy as products in x's dtype, then the LayerNorm tail
@@ -40,8 +42,10 @@ from vjepa2_tpu_torch.ops.layernorm import LN_WIDTHS, ln_backward, ln_forward_f3
 # vit_giant's 48/11 at 1408.
 MLP_HIDDEN_WIDTHS = (1536, 4096, 5120, 6144)
 
-# Kernel launches since the last reset; `chip_smoke.py` reads it.
+# Kernel launches since the last reset, on bf16 and, apart, on fp32
+# operands; `chip_smoke.py` reads them.
 LAUNCHES = 0
+LAUNCHES_FP32 = 0
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -66,7 +70,13 @@ def _check_shapes(x, gamma, beta, w, bias):
 def _z(y, w, bias):
     """y W^T + b in fp32 from y and w in their (compute) dtype: fp32
     accumulation and no rounding of the product, as JAX's
-    ``preferred_element_type=float32``."""
+    ``preferred_element_type=float32``. At fp32 on the card this is an fp32
+    GEMM (TF32 off), where the forward's kernel took 3xTF32 products: the
+    two z differ by ~1e-6 relative (fp32 sums in another order; the split's
+    dropped lo*lo term is below 2^-22), and GELU's derivative Phi(z) + z
+    phi(z) has slope phi(z) (2 - z^2), at most 0.8 in magnitude, so dgelu
+    moves by ~1e-6 |z| there: four orders below the fp32 step's 1e-3
+    gradient tolerance."""
     if y.device.type == "cuda" and y.dtype != torch.float32:
         z = torch.mm(y.reshape(-1, y.shape[-1]), w.t(), out_dtype=torch.float32)
         return z.view(*y.shape[:-1], w.shape[0]) + bias.float()
@@ -87,14 +97,16 @@ def ln_mlp_plain(x, gamma, beta, w, bias, eps: float = 1e-6):
 
 
 def _ln_mlp_cuda(x, gamma, beta, w, bias, eps):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_FP32
     B, N, C = x.shape
     hidden = w.shape[0]
     if C not in LN_WIDTHS or hidden not in MLP_HIDDEN_WIDTHS:
         raise ValueError(f"ln_mlp kernel: row width {C} (takes {', '.join(map(str, LN_WIDTHS))}), "
                          f"hidden {hidden} (takes {', '.join(map(str, MLP_HIDDEN_WIDTHS))})")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"the ln_mlp kernel on CUDA takes bf16 x and w; got {x.dtype}, {w.dtype}")
+    if x.dtype != w.dtype or x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the ln_mlp kernel on CUDA takes x and w both bf16 or both fp32; got "
+                        f"{x.dtype}, {w.dtype}")
+    fp32 = x.dtype == torch.float32
     dev = x.device
     # rows of C elements as the kernel steps them; TMA's alignment is checked
     # by the entry point, which refuses an operand it cannot read
@@ -103,17 +115,23 @@ def _ln_mlp_cuda(x, gamma, beta, w, bias, eps):
     h = torch.empty((B, N, hidden), dtype=x.dtype, device=dev)
     mean = torch.empty((B, N, 1), dtype=torch.float32, device=dev)
     rstd = torch.empty_like(mean)
-    lib, fn = _build.function("vjepa2_ln_mlp_bf16", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    # fp32: W's tf32 parts (hi rows, then lo rows), which the kernel writes
+    split = (torch.empty((2, hidden, C), dtype=torch.float32, device=dev),) if fp32 else ()
+    lib, fn = _build.function("vjepa2_ln_mlp_f32" if fp32 else "vjepa2_ln_mlp_bf16",
+                              [ctypes.c_void_p] * (8 + len(split)) + [ctypes.c_int] * 3
                               + [ctypes.c_float, ctypes.c_void_p])
     for attempt in range(2):
         with torch.cuda.device(dev):
-            err = fn(*map(_build.ptr, (x, *vec[:2], w, vec[2], h, mean, rstd)), B * N, C, hidden,
-                     eps, torch.cuda.current_stream(dev).cuda_stream)
+            err = fn(*map(_build.ptr, (x, *vec[:2], w, vec[2], *split, h, mean, rstd)), B * N, C,
+                     hidden, eps, torch.cuda.current_stream(dev).cuda_stream)
         if err != NOT_TMA_READY or attempt:
             break
         x, w = tma_operand(x), tma_operand(w)
     _build.check(lib, err, "ln_mlp")
-    LAUNCHES += 1
+    if fp32:
+        LAUNCHES_FP32 += 1
+    else:
+        LAUNCHES += 1
     return h, mean, rstd
 
 

@@ -8,18 +8,20 @@ custom VJP `_core_fwd:176` / `_core_bwd:184`:
     dtype -> y W^T (fp32 accumulation) + b (fp32, added before the one
     rounding) -> split-half RoPE on q and k in fp32 -> q, k, v [B, H, N, D]
 
-`ln_qkv` is a `torch.autograd.Function` (`LnQkvFunction`). Its forward is the
-hand-written Hopper kernel of `csrc/ln_gemm_hopper.cu` (B8's wgmma and TMA
-mainloop with a RoPE epilogue) on a CUDA tensor (bf16; C in 384, 1024, 1280,
-1408; D in 32, 64, 80, 88 with the heads `qkv_heads_per_tile` can tile; other
-inputs raise) and
-`ln_qkv_plain` on a CPU tensor; it saves (x, gamma, beta, w, cos, sin, mean,
-rstd), not the LayerNorm output. Its backward is `_core_bwd` in PyTorch: the
-RoPE adjoint R^T (`rope_rotate_t`; not R(-theta), the tables' two slots of a
-pair carry different angles), the fp32 dqkv, y recomputed from the saved
-statistics, dbias, and dW and dy as products in x's dtype (JAX leaves those
-to XLA); its LayerNorm tail is `layernorm.ln_backward`, the B6 backward
-kernel on a CUDA tensor. The RoPE tables get no gradient.
+`ln_qkv` is a `torch.autograd.Function` (`LnQkvFunction`). Its forward is a
+hand-written Hopper kernel on a CUDA tensor: `csrc/ln_gemm_hopper.cu` (B8's
+wgmma and TMA mainloop with a RoPE epilogue) on bf16 x and w, and
+`csrc/ln_gemm_fp32.cu` (the same mainloop at fp32: 3xTF32 on wgmma) on fp32
+x and w, as JAX's kernel is generic in the dtype; C in 384, 1024, 1280,
+1408; D in 32, 64, 80, 88 with the heads `qkv_heads_per_tile` can tile;
+other inputs raise. On a CPU tensor it is `ln_qkv_plain`; it saves (x,
+gamma, beta, w, cos, sin, mean, rstd), not the LayerNorm output. Its
+backward is `_core_bwd` in PyTorch: the RoPE adjoint R^T (`rope_rotate_t`;
+not R(-theta), the tables' two slots of a pair carry different angles), the
+fp32 dqkv, y recomputed from the saved statistics, dbias, and dW and dy as
+products in x's dtype (JAX leaves those to XLA; at fp32 they are fp32
+GEMMs); its LayerNorm tail is `layernorm.ln_backward`, the B6 backward
+kernel of x's dtype on a CUDA tensor. The RoPE tables get no gradient.
 
 Layouts: ``w`` is [3 H D, C], the port's ``qkv.weight`` (rows q, k, v, each
 (h, d)), with any split-half head permutation already applied to the q and
@@ -49,9 +51,17 @@ QKV_HEAD_WIDTHS = (32, 64, 80, 88)
 # whole heads of one of q, k, v, so that every RoPE pair (d, d + D/2) lies
 # in it, and each (D, heads) is a kernel the library instantiates.
 QKV_TILE_HEADS = {32: (6, 4), 64: (4, 2), 80: (2,), 88: (2,)}
+# The same at fp32 (`csrc/ln_gemm_fp32.cu`): a tile of at most 128 columns,
+# whose W stage holds both tf32 parts (hi, lo) of each row, so that a ring
+# of four 48 KB stages fits beside the consumers' 64 accumulators a thread;
+# one head where two would pass 128, two at D 32 where four do not divide H.
+# It takes every head count the bf16 plan takes, and any at D 80 and 88.
+QKV_TILE_HEADS_FP32 = {32: (4, 2), 64: (2,), 80: (1,), 88: (1,)}
 
-# Kernel launches since the last reset; `chip_smoke.py` reads it.
+# Kernel launches since the last reset, on bf16 and, apart, on fp32
+# operands; `chip_smoke.py` reads them.
 LAUNCHES = 0
+LAUNCHES_FP32 = 0
 
 
 def _tables(rope, x):
@@ -104,24 +114,29 @@ def ln_qkv_plain(x, gamma, beta, w, bias, rope=None, eps: float = 1e-6,
     return _plain_fwd(x, gamma, beta, w, bias, cos, sin, eps, num_heads, head_dim)[:3]
 
 
-def qkv_heads_per_tile(H: int, D: int) -> int | None:
-    """The heads a column tile of B7's GEMM holds for H heads of width D: the
-    widest of `QKV_TILE_HEADS` that divides H, so that q, k and v each take
+def qkv_heads_per_tile(H: int, D: int, dtype=torch.bfloat16) -> int | None:
+    """The heads a column tile of B7's GEMM holds for H heads of width D on
+    operands of ``dtype``: the widest of `QKV_TILE_HEADS` (bf16) or
+    `QKV_TILE_HEADS_FP32` (fp32) that divides H, so that q, k and v each take
     whole tiles (None: the kernel takes no such H)."""
-    return next((n for n in QKV_TILE_HEADS.get(D, ()) if H % n == 0), None)
+    plan = QKV_TILE_HEADS_FP32 if dtype == torch.float32 else QKV_TILE_HEADS
+    return next((n for n in plan.get(D, ()) if H % n == 0), None)
 
 
 def _ln_qkv_cuda(x, gamma, beta, w, bias, cos, sin, eps, H, D):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_FP32
     B, N, C = x.shape
-    heads = qkv_heads_per_tile(H, D)
+    if x.dtype != w.dtype or x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the ln_qkv kernel on CUDA takes x and w both bf16 or both fp32; got "
+                        f"{x.dtype}, {w.dtype}")
+    fp32 = x.dtype == torch.float32
+    heads = qkv_heads_per_tile(H, D, x.dtype)
     if D not in QKV_HEAD_WIDTHS or C not in LN_WIDTHS or heads is None:
+        plan = QKV_TILE_HEADS_FP32 if fp32 else QKV_TILE_HEADS
         raise ValueError(f"ln_qkv kernel: head width {D} (takes "
                          f"{', '.join(map(str, QKV_HEAD_WIDTHS))}), row width {C} (takes "
                          f"{', '.join(map(str, LN_WIDTHS))}), {H} heads (a multiple of one "
-                         f"of {QKV_TILE_HEADS.get(D, ())})")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"the ln_qkv kernel on CUDA takes bf16 x and w; got {x.dtype}, {w.dtype}")
+                         f"of {plan.get(D, ())})")
     dev = x.device
     # rows of C elements as the kernel steps them; TMA's alignment is checked
     # by the entry point, which refuses an operand it cannot read
@@ -133,18 +148,25 @@ def _ln_qkv_cuda(x, gamma, beta, w, bias, cos, sin, eps, H, D):
     q, k, v = (torch.empty((B, H, N, D), dtype=x.dtype, device=dev) for _ in range(3))
     mean = torch.empty((B, N, 1), dtype=torch.float32, device=dev)
     rstd = torch.empty_like(mean)
-    lib, fn = _build.function("vjepa2_ln_qkv_bf16", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+    # fp32: W's tf32 parts (hi rows, then lo rows), which the kernel writes
+    split = (torch.empty((2, 3 * H * D, C), dtype=torch.float32, device=dev),) if fp32 else ()
+    lib, fn = _build.function("vjepa2_ln_qkv_f32" if fp32 else "vjepa2_ln_qkv_bf16",
+                              [ctypes.c_void_p] * (12 + len(split)) + [ctypes.c_int] * 7
                               + [ctypes.c_float, ctypes.c_void_p])
     for attempt in range(2):
         with torch.cuda.device(dev):
-            err = fn(*map(_build.ptr, (x, *vec[:2], w, vec[2], cos, sin, q, k, v, mean, rstd)),
+            err = fn(*map(_build.ptr, (x, *vec[:2], w, vec[2], cos, sin, *split, q, k, v, mean,
+                                       rstd)),
                      B, N, C, H, D, heads, 1 if cos is None else cos.shape[0], eps,
                      torch.cuda.current_stream(dev).cuda_stream)
         if err != NOT_TMA_READY or attempt:
             break
         x, w = tma_operand(x), tma_operand(w)
     _build.check(lib, err, "ln_qkv")
-    LAUNCHES += 1
+    if fp32:
+        LAUNCHES_FP32 += 1
+    else:
+        LAUNCHES += 1
     return q, k, v, mean, rstd
 
 

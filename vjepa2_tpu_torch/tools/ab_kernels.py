@@ -1,12 +1,13 @@
 """Time the kernels of two checkouts on one CUDA card, in turns.
 
     python -m vjepa2_tpu_torch.tools.ab_kernels OTHER_CHECKOUT [--rounds 1]
-        [--phases b1,b2,b3,bhnd_bwd,ln_qkv,ln_mlp,ln,fp32] [--out FILE]
+        [--phases b1,b2,b3,bhnd_bwd,ln_qkv,ln_mlp,ln,fp32,ln_qkv_fp32,ln_mlp_fp32,ln_fp32]
+        [--out FILE]
 
 Runs `chip_smoke.py`'s kernel phases (B1, B2, B3, the BHND backward, the
-fused LayerNorm prologues B7 and B8, the LayerNorm B6, and the fp32 BHND
-forward and backward against their plain versions at the main-path shapes,
-each timed with CUDA events;
+fused LayerNorm prologues B7 and B8, the LayerNorm B6, the fp32 BHND
+forward and backward, and B7, B8 and B6 on fp32 operands, against their
+plain versions at the main-path shapes, each timed with CUDA events;
 ``--phases`` picks some of them) in a fresh process from the root of OTHER_CHECKOUT and of this
 checkout, in the order other, this, this, other for each round, so that
 both see the same card and the same drift. Each process builds its own
@@ -37,6 +38,9 @@ PHASES = {
     "ln_mlp": "c.phase_kernels_prologue(d, s, 'ln_mlp')",
     "ln": "c.phase_kernels_ln(d, s)",
     "fp32": "c.phase_kernels_fp32(d, s)",
+    "ln_qkv_fp32": "c.phase_kernels_prologue(d, s, 'ln_qkv', torch.float32)",
+    "ln_mlp_fp32": "c.phase_kernels_prologue(d, s, 'ln_mlp', torch.float32)",
+    "ln_fp32": "c.phase_kernels_ln(d, s, torch.float32)",
 }
 PRELUDE = """
 import torch, chip_smoke as c

@@ -1,7 +1,7 @@
 """Where the time of a train step goes, on one CUDA card.
 
     python -m vjepa2_tpu_torch.tools.profile_pretrain [--model vit_huge] [--fuse-ln qkv,mlp]
-        [--steps 2] [--out DIR]
+        [--fp32] [--steps 2] [--out DIR]
     python -m vjepa2_tpu_torch.tools.profile_pretrain --droid [--steps 2] [--out DIR]
     python -m vjepa2_tpu_torch.tools.profile_pretrain --plan [--steps 1] [--out DIR]
 
@@ -10,7 +10,9 @@ the default), ``train_huge`` (``--model vit_huge``) or, with ``--fuse-ln
 qkv,mlp``, ``train_fused`` (every block's LayerNorms fused into B7 and B8,
 as `bench.py --fuse-ln` takes the list): the encoder at
 16f@256 bs8, the 12-layer predictor, bf16 with fp32 AdamW, fresh masks each
-step. With ``--droid``: the DROID post-training step of phase
+step; with ``--fp32`` the same step at fp32 (TF32 off: phases
+``train_fp32`` and, with ``--fuse-ln qkv,mlp``, ``train_fused_fp32``).
+With ``--droid``: the DROID post-training step of phase
 ``train_droid`` instead (the shipped ViT-g config: the frozen ViT-g target
 over 64 single frames, the 24-layer AC predictor's teacher forcing and one
 rollout call, batch 8, synthetic trajectories of the seed 234). With
@@ -58,6 +60,9 @@ FRAMES, SIZE, CLIPS = 16, 256, 8
 # one GEMM kernel told apart by its epilogue;
 # names are CUDA kernel names as the profiler reports them
 CATEGORIES = [
+    ("B7 ln_qkv fp32", ("QkvEpilogueF32",)),
+    ("B8 ln_mlp fp32", ("GeluEpilogueF32",)),
+    ("B7/B8 fp32 W split", ("ln_split_w_kernel",)),
     ("B7 ln_qkv", ("QkvEpilogue",)),
     ("B8 ln_mlp", ("GeluEpilogue",)),
     ("B6 layernorm fwd (B7/B8 statistics)", ("ln_stats_kernel", "ln_fwd_kernel")),
@@ -89,14 +94,14 @@ def category(name: str) -> str:
     return "other"
 
 
-def build(device, model: str = "vit_large", fuse_ln: str = ""):
+def build(device, model: str = "vit_large", fuse_ln: str = "", dtype=torch.bfloat16):
     from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
     from vjepa2_tpu_torch.train import pretrain as tp
     from vjepa2_tpu_torch.train.state import TrainState
 
     enc, pred = tp.build_models(model, crop_size=SIZE, num_frames=FRAMES, pred_depth=12,
                                 pred_embed_dim=384, pred_num_heads=12, use_rope=True,
-                                num_mask_tokens=2, use_flash=True, dtype=torch.bfloat16,
+                                num_mask_tokens=2, use_flash=True, dtype=dtype,
                                 device=device, fuse_ln=fuse_ln)
     tp.init_params(enc, pred, torch.Generator(device=device).manual_seed(0))
     hp = tp.PretrainHParams(ipe=100, epochs=10)
@@ -104,7 +109,7 @@ def build(device, model: str = "vit_large", fuse_ln: str = ""):
     train_step = tp.make_train_step(hp)
     coll = MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE))
     clips = torch.from_numpy(np.random.RandomState(0).rand(CLIPS, FRAMES, SIZE, SIZE, 3)
-                             .astype(np.float32)).to(device, torch.bfloat16)
+                             .astype(np.float32)).to(device, torch.bfloat16).to(dtype)
 
     def masks():
         coll.step()
@@ -169,6 +174,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("vit_large", "vit_huge"), default="vit_large")
     ap.add_argument("--fuse-ln", default="", help="comma list drawn from 'qkv','mlp'")
+    ap.add_argument("--fp32", action="store_true",
+                    help="the step at fp32 (TF32 off), as chip_smoke's train_fp32 and "
+                         "train_fused_fp32")
     ap.add_argument("--droid", action="store_true",
                     help="the DROID post-training step (ViT-g target, AC predictor)")
     ap.add_argument("--plan", action="store_true",
@@ -179,12 +187,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_pretrain needs a CUDA device")
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.plan:
         step, masks = build_plan(dev)
     elif args.droid:
         step, masks = build_droid(dev)
     else:
-        step, masks = build(dev, args.model, args.fuse_ln)
+        step, masks = build(dev, args.model, args.fuse_ln,
+                            torch.float32 if args.fp32 else torch.bfloat16)
     for _ in range(2):
         step()
 
@@ -241,7 +252,7 @@ def main(argv=None) -> int:
         "gpu": torch.cuda.get_device_name(0),
         "model": ("plan (vjepa2_ac_vit_giant, CEMConfig())" if args.plan
                   else "droid (chip_smoke.DROID_CONFIG)" if args.droid else args.model),
-        "fuse_ln": args.fuse_ln,
+        "fuse_ln": args.fuse_ln, "dtype": "float32" if args.fp32 else "bfloat16",
         "steps": args.steps,
         "wall_ms_per_step": wall, "device_ms_per_step": device_ms,
         "mask_sampling_ms_per_step": mask_ms, "traced_wall_ms_per_step": traced_ms,
