@@ -98,17 +98,14 @@ Phases, each printed as one JSON object on a line of its own:
    checkpoint) on the shipped ViT-H config (`LOOP_CONFIG`, equal to
    `configs/train/vith16/pretrain-256px-16f.yaml`: vit_huge, batch 16,
    16f@256, full remat, bf16, synthetic clips), overriding only the run
-   folder, ``optimization.ipe`` (3) and the epochs, as printed: epoch 0,
-   then a new trainer on the same folder resumes from the checkpoint and
-   runs epoch 1. Every step launches B3 160, the BHND backward 64, B1 48
-   and B2 24 times; finite losses; the restored state bit-equal to the
-   saved one; the resumed run's first step is step 3 with the schedules'
-   lr, weight decay and EMA momentum there and the masks of an
-   uninterrupted run; the CSV holds 6 rows. Prints the loop's ms a step as
-   it runs (no added sync: from each part's second step to its checkpoint
-   save), clips/s, peak memory, the checkpoints' bytes and save seconds,
-   and the wall, device-busy time and idle share of one more step, all three
-   from one traced call;
+   folder, ``optimization.ipe`` (3) and the epochs (1; the resumed epoch 1
+   and its checks moved to phase 29 in PR 20), as printed. Every step
+   launches B3 160, the BHND backward 64, B1 48 and B2 24 times; finite
+   losses; the CSV holds 3 rows. Prints the loop's ms a step as it runs (no
+   added sync: from its second step to its checkpoint save), clips/s, peak
+   memory, the checkpoint's bytes and save seconds, and the wall,
+   device-busy time and idle share of one more step, all three from one
+   traced call;
 16. train_accum — `run_vjepa` on the shipped ViT-L 64-frame cooldown
    (`ACCUM_CONFIG`: batch 12 as 6 microbatches of 2, save_attn_qkv_h),
    overriding ``mesh.model`` 4 -> 1 (one card), the folder, ipe (2) and
@@ -151,8 +148,10 @@ Phases, each printed as one JSON object on a line of its own:
    on the shipped ViT-L config (`EVAL_VIDEO_CONFIG`, equal to
    `configs/eval/vitl/ssv2.yaml`: 2 segments x batch 4 of 16f@256 clips, the
    encoder in bf16 into features [4, 4096, 1024], 10 fp32 probes of depth 4
-   with 16 heads trained one at a time; synthetic clips), overriding only
-   ipe (2) and the epochs (1), as printed: 2 train steps and 1 val batch,
+   with 16 heads trained one at a time), overriding ipe (2), the epochs (1)
+   and ``dataset_train`` / ``dataset_val`` (phase 28's 72- and 4-row
+   manifests: clips read from disk through the port's `VideoDataset` and
+   spawned loader workers), as printed: 2 train steps and 1 val batch,
    each launching B1 24 times and B1 at fp32 30 times (3 blocks x 10
    probes, heads of 64: the DN route; and B2 at fp32 30 times a train
    step), nothing else;
@@ -234,14 +233,16 @@ Phases, each printed as one JSON object on a line of its own:
    frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 2 and
    1 epoch: each train step launches B1 24 times and B1 and B2 at fp32 18
    times each, a val batch B1 24 and B1 at fp32 18; the checks
-   of phase 19 with the CPU's share cut to the first 4 examples;
+   of phase 19 with the CPU's share cut to the first 4 examples, but the
+   probe save and restore (phase 19's code; cut in PR 20 for time);
 23. eval_video_384 — the ViT-g/384 K400 probe eval: `run_video_classification`
    on the shipped config (`EVAL_VIDEO_384_CONFIG`: batch 1 of 8 segments of
    16f@384, the 22-head ViT-g into features [1, 36864, 1408], 10 fp32
    probes of depth 4 with 16 heads of 88), ipe 1 and 1 epoch: each train
    step launches B1 40 times at [8,22,64,4608] and the fp32 forward and
    backward 30 times each at [1,16,36864,88], a val batch B1 40 and the
-   forward 30; finite losses, a probe save and restore bit-equal, and,
+   forward 30; finite losses (the probe save and restore is phase 19's
+   code: cut here in PR 20 for time), and,
    forward only against fp32 on the plain route on the card (the host's
    CPU cannot hold a 36,864-token probe or a 384-px ViT-g clip in the
    script's time): segment 0's features and probe 0's logits (the plain
@@ -283,7 +284,33 @@ Phases, each printed as one JSON object on a line of its own:
    repeat traced and bit-equal; no op of an encode or a step_fn makes a bf16 tensor; encode
    and step_fn against phase 18's fp32 CPU world model within 1e-4
    relative L2; ms per encode and plan, peak, the traced plan's idle share
-   and kernel time by category.
+   and kernel time by category;
+28. disk_data (on a thread from the build on) — the card host's decoders
+   (cv2, imageio, the libav headers of the native decoder; the port's
+   `data.video.available_backends`), then 8 source videos of 300 frames at
+   256 x 340: mp4 files written with cv2 where cv2 is present (each read
+   back through the port's `VideoReader`, its length, fps and frames
+   checked), else uint8 `.npy` arrays read by `NpyVideoDataset`, a reader
+   double defined here and no part of the package; a 72-row manifest (each
+   video 9 times), a 192-row one and a 4-row one. Prints ``{"decoder":
+   ...}`` on a line of its own;
+29. train_disk (last) — `run_vjepa` on
+   the shipped ViT-L config (`TRAIN_DISK_CONFIG`, equal to
+   `configs/train/vitl16/pretrain-256px-16f.yaml`: batch 24, 16f@256, fps
+   4, 8 spawned loader workers, full remat, bf16) with ``data.datasets`` the
+   72-row manifest, overriding the folder, ipe (3) and the epochs (2):
+   epoch 0, then a new trainer resumes and runs epoch 1. Every step
+   launches B1 168 (96 forwards, 72 recomputed) and B2 72 times; finite
+   losses; the restored state bit-equal to the saved one, the resumed
+   first step (step 3) with the schedules' lr, weight decay and EMA
+   momentum there and the masks of an uninterrupted run, 6 CSV rows; each
+   epoch's sample indices equal to the sampler's for that epoch (an
+   uninterrupted run's), epoch 1's order not epoch 0's. Prints the loop's
+   ms a step from disk beside the same trainer's epoch 2 on synthetic
+   clips (no checkpoint written), the loader alone over 5 of the 192-row
+   manifest's 8 batches (seconds to the first batch, clips/s), then two
+   traced steps from disk on the same loader (wall, device-busy, idle
+   share, the wait for each batch), peak memory and the decoder.
 Phases 19, 20, 22 and 23 run in the order eval_anticipation, eval_video,
 eval_image, eval_video_384; each eval phase's CPU reference, like those of
 phases 4, 6, 9, 10, 14, 17, 18, 26 and 27, runs on a worker thread beside
@@ -332,6 +359,11 @@ import time
 
 import numpy as np
 import torch
+
+try:  # the base of the `.npy` reader double (`NpyVideoDataset`)
+    from vjepa2_tpu_torch.data.video_dataset import VideoDataset as _VideoDataset
+except ImportError:  # chip_smoke.py alone: `main` stops before any phase
+    _VideoDataset = object
 
 KERNEL_SOURCE = "vjepa2_tpu_torch/csrc/flash_fwd_dn.cu"
 KERNEL_REPLACES = "vjepa2_tpu/ops/flash_attention_dn.py:129"
@@ -609,7 +641,8 @@ LOOP_CONFIG = {
                      "start_lr": 0.0001, "warmup": 40, "weight_decay": 0.04},
 }
 LOOP_IPE = 3  # cut from 4 to keep the script within its time limit
-LOOP_OVERRIDES = {"optimization.ipe": LOOP_IPE, "optimization.epochs": 2}
+# one epoch: cut from 2 (a resumed epoch 1) in PR 20, whose train_disk resumes
+LOOP_OVERRIDES = {"optimization.ipe": LOOP_IPE, "optimization.epochs": 1}
 ACCUM_CONFIG_FILE = "configs/train/vitl16/cooldown-256px-64f.yaml"
 ACCUM_CONFIG = {
     "app": "vjepa", "folder": "./runs/vitl16-cooldown-256px-64f",
@@ -807,6 +840,69 @@ EVAL_384_QUERY_CHUNK = 512
 EVAL_REL_L2, EVAL_PROBE_REL_L2, EVAL_LOSS_RTOL, EVAL_GRAD_REL_L2 = 5e-2, 1e-4, 1e-4, 1e-3
 EVAL_STEP_RTOL = 1e-5
 
+# Video from disk (phase train_disk; phase eval_video reads its clips from the
+# same files). The shipped ViT-L pretrain config as `yaml.safe_load` gives it
+# (`tests/test_torch_data_smoke.py` holds it to the file): batch 24, 16f@256,
+# fps 4, 8 workers, full remat, bf16. Overridden: the run folder (a temporary
+# directory), `data.datasets` (the manifest below), ipe 3 and 2 epochs, run as
+# epoch 0 then a resumed epoch 1.
+TRAIN_DISK_CONFIG_FILE = "configs/train/vitl16/pretrain-256px-16f.yaml"
+TRAIN_DISK_CONFIG = {
+    "app": "vjepa", "folder": "./runs/vitl16-pretrain-256px-16f",
+    "mesh": {"data": -1, "fsdp": 1, "model": 1},
+    "data": {"dataset_type": "VideoDataset", "datasets": [], "batch_size": 24,
+             "crop_size": 256, "patch_size": 16, "dataset_fpcs": [16], "tubelet_size": 2,
+             "fps": 4, "num_workers": 8},
+    "data_aug": {"auto_augment": False, "motion_shift": False,
+                 "random_resize_aspect_ratio": [0.75, 1.35], "random_resize_scale": [0.3, 1.0],
+                 "reprob": 0.0},
+    "loss": {"loss_exp": 1.0},
+    "mask": [{**m, "full_complement": False, "max_keep": None, "max_temporal_keep": 1.0}
+             for m in _MASKS_8_2],
+    "meta": {"dtype": "bfloat16", "seed": 239, "load_checkpoint": True, "save_every_freq": 50},
+    "model": {"model_name": "vit_large", "pred_depth": 12, "pred_embed_dim": 384,
+              "pred_num_heads": 12, "uniform_power": True, "use_activation_checkpointing": True,
+              "use_mask_tokens": True, "use_rope": True, "zero_init_mask_tokens": True},
+    "optimization": {"ema": [0.99925, 0.99925], "epochs": 10, "final_lr": 0.000525,
+                     "final_weight_decay": 0.04, "ipe": 300, "ipe_scale": 1.25, "lr": 0.000525,
+                     "start_lr": 0.0001, "warmup": 40, "weight_decay": 0.04},
+}
+TRAIN_DISK_IPE = 3
+TRAIN_DISK_OVERRIDES = {"optimization.ipe": TRAIN_DISK_IPE, "optimization.epochs": 2}
+# a step under full remat: B1 24 target + 2 x 24 context + 2 x 12 predictor
+# forwards, the 72 with gradients again in the backward (recomputed); B2 72
+TRAIN_DISK_LAUNCHES = _counts(b1=96 + 72, b2=72)
+# the files: 8 source videos of 300 frames at 256 x 340 (30 fps), each listed
+# 9 times in a 72-row space-delimited CSV (label: the video's index); the
+# SSv2 eval's val manifest lists the first 4 once (one val batch of 4)
+DISK_VIDEOS, DISK_FRAMES, DISK_HW, DISK_FPS, DISK_REPEATS = 8, 300, (256, 340), 30.0, 9
+DISK_VAL_ROWS = 4
+
+
+class _NpyReader:
+    """A video held as a uint8 [T, H, W, 3] `.npy` array, memory-mapped:
+    ``get_batch`` reads only the frames asked for; 30 fps."""
+
+    avg_fps = DISK_FPS
+
+    def __init__(self, path: str):
+        self._frames = np.load(path, mmap_mode="r")
+
+    def __len__(self) -> int:
+        return self._frames.shape[0]
+
+    def get_batch(self, indices) -> np.ndarray:
+        return np.ascontiguousarray(self._frames[np.asarray(indices, np.int64)])
+
+
+class NpyVideoDataset(_VideoDataset):
+    """The reader double of a host with no video decoder: `VideoDataset`
+    opening `_NpyReader` files (defined here, at the top level, where the
+    loader's spawned workers unpickle it; it is no part of the package)."""
+
+    def open_video(self, path: str):
+        return _NpyReader(path)
+
 # B6 rows: (name, [R, C]); the last three and the predictor's are the fused
 # ViT-L step's backward rows (the contexts' 578 and 173 tokens stack-padded)
 LN_SHAPES = [
@@ -965,9 +1061,9 @@ def device_times(fn, calls: int = 5, cold: bool = True) -> tuple[float, dict[str
         return _traced_spans(lambda: [body(i) for i in range(calls)], skip)[0]
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    skip = {name for name, _, _ in traced(lambda i: flush.fill_(1 + i))} if cold else set()
+    skip = {name for name, _, _ in traced(lambda i: flush.fill_(1 + i % 250))} if cold else set()
     fn()  # warm-up
-    spans = traced(lambda i: (flush.fill_(1 + i) if cold else None, fn()), skip)
+    spans = traced(lambda i: (flush.fill_(1 + i % 250) if cold else None, fn()), skip)
     by_kernel: dict[str, float] = {}
     for name, a, b in spans:
         m = re.search(r"\w+_kernel(<[\w, <>]*>)?", name.replace("(anonymous namespace)::", ""))
@@ -1796,14 +1892,15 @@ class _LoopRecorder:
     step number, loss, lr and weight decay, and the Pretrainer's EMA momentum
     and masks or the DROID step's grad norm; each state ``restore_or_init``
     returns (``on_restore(trainer, state)`` runs first); each checkpoint
-    save's host clock at its start, seconds and bytes. Nothing is
+    save's host clock at its start, seconds and bytes (with ``skip_saves``
+    the clock only: nothing is written). Nothing is
     synchronised or read back while the loop runs (the loss and masks stay
     on the card until exit), so the loop keeps its own syncs, at its log
     points and at the epoch's end."""
 
-    def __init__(self, on_restore=None, droid: bool = False):
+    def __init__(self, on_restore=None, droid: bool = False, skip_saves: bool = False):
         self.steps, self.states, self.saves, self.last = [], [], [], None
-        self.on_restore, self.droid = on_restore, droid
+        self.on_restore, self.droid, self.skip_saves = on_restore, droid, skip_saves
 
     def __enter__(self):
         from vjepa2_tpu_torch.core.checkpoint import CheckpointManager
@@ -1845,6 +1942,9 @@ class _LoopRecorder:
 
         def timed_save(mgr, step, state):
             t0 = time.perf_counter()
+            if rec.skip_saves:  # its start only: the end of the loop's last step
+                rec.saves.append({"step": step, "t0": t0, "seconds": 0.0, "bytes": 0})
+                return
             save(mgr, step, state)
             rec.saves.append({"step": step, "t0": t0, "seconds": time.perf_counter() - t0,
                               "bytes": os.path.getsize(mgr.path(step))})
@@ -1894,7 +1994,8 @@ def _state_tensors(state):
 
 def _run_config(raw: dict, dev, epochs=None) -> None:
     """The CLI's app for a config dict (`cli.main.APPS`: `run_vjepa` or
-    `run_vjepa_droid`), on the card."""
+    `run_vjepa_droid`), on the card; ``data.datasets`` from disk, else
+    synthetic clips."""
     import argparse
 
     from vjepa2_tpu_torch.cli.main import APPS
@@ -1914,17 +2015,68 @@ def _check_launches(phase: str, steps, want) -> None:
             raise AssertionError(f"{phase}: non-finite loss at step {s['step']}")
 
 
+def _restore_check(part1):
+    """(on_restore, record): the state of ``part1``'s run copied to the host
+    (its recorder released), and a callback for the next run's recorder that
+    holds the state it restores to that copy, bit for bit, into ``record``."""
+    _, state1 = part1.states[0]
+    saved = {k: v.detach().cpu() for k, v in _state_tensors(state1)}
+    part1.release()
+    del state1
+    record = {}
+
+    def compare(trainer, state):
+        record["step"] = state.step
+        record["tensors"] = len(saved)
+        record["bit_equal"] = all(torch.equal(v.cpu(), saved[k])
+                                  for k, v in _state_tensors(state)) \
+            and sorted(k for k, _ in _state_tensors(state)) == sorted(saved)
+        saved.clear()
+
+    return compare, record
+
+
+def _resume_checks(raw: dict, part2, folder: str, ipe: int) -> dict:
+    """The resumed run's first step (step ``ipe``): the schedules' lr, weight
+    decay and EMA momentum there, and the masks of an uninterrupted run (a
+    fresh collator stepped once by init_state and once a step up to this
+    one); the CSV's rows, two epochs' worth."""
+    from vjepa2_tpu_torch.core import schedulers
+    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+
+    first = part2.steps[0]
+    trainer, _ = part2.states[0]
+    hp = trainer.hp
+    want = {"step": ipe,
+            "lr": schedulers.warmup_cosine_lr(ipe, warmup_steps=hp.warmup_steps,
+                                              start_lr=hp.start_lr, ref_lr=hp.lr,
+                                              t_max=hp.total_steps, final_lr=hp.final_lr),
+            "wd": schedulers.cosine_wd(ipe, ref_wd=hp.wd, t_max=hp.total_steps,
+                                       final_wd=hp.final_wd),
+            "ema_momentum": schedulers.ema_momentum(ipe, ema_start=hp.ema[0],
+                                                    ema_end=hp.ema[1], t_max=hp.total_steps)}
+    got = {k: first[k] for k in want}
+    d = raw["data"]
+    coll = MaskCollator(raw["mask"], dataset_fpcs=d["dataset_fpcs"],
+                        crop_size=(d["crop_size"],) * 2, seed=raw["meta"]["seed"])
+    for _ in range(ipe + 2):
+        coll.step()
+    me, mp = coll(d["dataset_fpcs"][0], d["batch_size"])
+    masks_ok = all(np.array_equal(a, b) for a, b in zip(first["masks"], (*me, *mp)))
+    with open(os.path.join(folder, "log_r0.csv")) as f:
+        rows = [ln for ln in f.read().splitlines() if ln and not ln.startswith("epoch")]
+    return {"resumed_first": got, "resumed_schedules_equal": got == want,
+            "resumed_masks_equal": masks_ok, "csv_rows": len(rows),
+            "ok": got == want and masks_ok and len(rows) == 2 * ipe}
+
+
 def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
     """The `Pretrainer` through the CLI's `run_vjepa` on the shipped ViT-H
     config (`LOOP_CONFIG`: batch 16, full remat, bf16, synthetic clips):
-    epoch 0, then a new trainer on the same folder resumes (the config's
-    ``load_checkpoint``) and runs epoch 1. Returns the launches of all its
-    steps."""
+    epoch 0 (the resume is phase train_disk's since PR 20). Returns the
+    launches of its steps."""
     import shutil
     import tempfile
-
-    from vjepa2_tpu_torch.core import schedulers
-    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
 
     t0 = time.perf_counter()
     folder = tempfile.mkdtemp(prefix="vjepa2_loop_")
@@ -1935,60 +2087,19 @@ def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
         torch.cuda.reset_peak_memory_stats(dev)
         with _LoopRecorder() as part1:
             _run_config(raw, dev, epochs=1)
-        _, state1 = part1.states[0]
-        saved = {k: v.detach().cpu() for k, v in _state_tensors(state1)}
-        part1.release()
-        del state1
-        restored = {}
-
-        def compare(trainer, state):  # the restored state against the saved one
-            restored["step"] = state.step
-            restored["tensors"] = len(saved)
-            restored["bit_equal"] = all(torch.equal(v.cpu(), saved[k])
-                                        for k, v in _state_tensors(state)) \
-                and sorted(k for k, _ in _state_tensors(state)) == sorted(saved)
-
-        with _LoopRecorder(on_restore=compare) as part2:
-            _run_config(raw, dev, epochs=2)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-        del saved
-        steps = part1.steps + part2.steps
+        steps = part1.steps
         _check_launches("train_loop", steps, per_step)
-        if not restored.get("bit_equal") or restored["step"] != LOOP_IPE:
-            raise AssertionError(f"the restored state is not the saved one: {restored}")
-        first = part2.steps[0]
-        trainer, _ = part2.states[0]
-        hp = trainer.hp
-        want = {"step": LOOP_IPE,
-                "lr": schedulers.warmup_cosine_lr(LOOP_IPE, warmup_steps=hp.warmup_steps,
-                                                  start_lr=hp.start_lr, ref_lr=hp.lr,
-                                                  t_max=hp.total_steps, final_lr=hp.final_lr),
-                "wd": schedulers.cosine_wd(LOOP_IPE, ref_wd=hp.wd, t_max=hp.total_steps,
-                                           final_wd=hp.final_wd),
-                "ema_momentum": schedulers.ema_momentum(LOOP_IPE, ema_start=hp.ema[0],
-                                                        ema_end=hp.ema[1], t_max=hp.total_steps)}
-        got = {k: first[k] for k in want}
-        # the masks of an uninterrupted run at this step: a fresh collator
-        # stepped once by init_state and once per step up to this one
-        d = raw["data"]
-        coll = MaskCollator(raw["mask"], dataset_fpcs=d["dataset_fpcs"],
-                            crop_size=(d["crop_size"],) * 2, seed=raw["meta"]["seed"])
-        for _ in range(LOOP_IPE + 2):
-            coll.step()
-        me, mp = coll(d["dataset_fpcs"][0], d["batch_size"])
-        masks_ok = all(np.array_equal(a, b) for a, b in zip(first["masks"], (*me, *mp)))
         with open(os.path.join(folder, "log_r0.csv")) as f:
             rows = [ln for ln in f.read().splitlines() if ln and not ln.startswith("epoch")]
-        if got != want or not masks_ok or len(rows) != 2 * LOOP_IPE:
-            raise AssertionError(f"resume: {got} against {want}, masks {masks_ok}, "
-                                 f"{len(rows)} CSV rows for {2 * LOOP_IPE}")
+        if len(rows) != LOOP_IPE:
+            raise AssertionError(f"train_loop: {len(rows)} CSV rows for {LOOP_IPE}")
         # one more step, synchronised and traced: its wall, device-busy time
         # and idle share, all from that one call
-        fn, state, clips, me_, mp_ = part2.last
+        fn, state, clips, me_, mp_ = part1.last
         traced = wall_and_busy(lambda: fn(state, clips, me_, mp_)["loss"].item())
-        (ms1, n1), (ms2, n2) = part1.loop_ms_per_step(), part2.loop_ms_per_step()
-        ms = (ms1 * n1 + ms2 * n2) / (n1 + n2)
-        part2.release()
+        ms, n = part1.loop_ms_per_step()
+        part1.release()
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     launches = tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
@@ -1997,15 +2108,11 @@ def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
           "model": "vit_huge (32 x 1280, Dh 80) 16f@256 bs16 + predictor (12 x 384, 12 heads), "
                    "RoPE, bf16, full remat, synthetic clips",
           "steps": [{k: v for k, v in s.items() if k not in ("masks", "t0")} for s in steps],
-          "loop_ms_per_step": ms, "loop_ms_per_step_by_part": [ms1, ms2],
-          "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3), "timed_steps": n1 + n2,
-          "one_traced_step": traced, "peak_memory_gb": peak_gb,
+          "loop_ms_per_step": ms, "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3),
+          "timed_steps": n, "one_traced_step": traced, "peak_memory_gb": peak_gb,
           "launches_per_step": dict(zip(KERNEL_COUNTS, per_step)),
-          "checkpoint": [{k: v for k, v in c.items() if k != "t0"}
-                         for c in part1.saves + part2.saves],
-          "restored": restored, "resumed_first": got,
-          "resumed_masks_equal": masks_ok, "csv_rows": len(rows),
-          "seconds": time.perf_counter() - t0, "ok": True, "gpu": smi})
+          "checkpoint": [{k: v for k, v in c.items() if k != "t0"} for c in part1.saves],
+          "csv_rows": len(rows), "seconds": time.perf_counter() - t0, "ok": True, "gpu": smi})
     return launches
 
 
@@ -4409,13 +4516,15 @@ def _probes_restore_bit_equal(ev) -> bool:
 
 
 def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, cls, want: dict,
-                    run, checks, extra: dict, overrides=EVAL_OVERRIDES) -> tuple[int, ...]:
+                    run, checks, extra: dict, overrides=EVAL_OVERRIDES,
+                    restore_check: bool = True) -> tuple[int, ...]:
     """One eval config through its `cli.eval` run function under an
     `_EvalRecorder`; then one more traced train step, the checks
     (``checks(ev, rec)``: a dict with "ok", or a function of no argument
     that gives it, run on the CPU beside the later phases by `_CPU_WORK`,
-    the record emitted when it ends) and a probe save and restore. Returns
-    the launches of its train steps and val batches."""
+    the record emitted when it ends) and, with ``restore_check``, a probe
+    save and restore. Returns the launches of its train steps and val
+    batches."""
     import gc
 
     t0 = time.perf_counter()
@@ -4434,7 +4543,9 @@ def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, c
     losses_finite = bool(torch.isfinite(rec.first["losses"]).all())
     traced = wall_and_busy(lambda: ev.train_batch(*rec.first["args"]))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    restored = _probes_restore_bit_equal(ev)
+    # the IN1K and K400-384 probes restore through eval_video's code
+    # (`ProbeCheckpoint`); their copies to the host took 16-47 s (PR 20)
+    restored = _probes_restore_bit_equal(ev) if restore_check else "checked in eval_video"
     checks = checks(ev, rec)
     record = {"phase": phase, "config": config_file, "overrides": overrides, **extra,
               "probes": ev.grid.n, "probe_chunk": 1, **rec.summary(),
@@ -4451,7 +4562,7 @@ def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, c
 
     def finish(checks=checks) -> None:
         checks = checks() if callable(checks) else checks
-        ok = checks.pop("ok") and losses_finite and restored
+        ok = checks.pop("ok") and losses_finite and bool(restored)
         emit({**record, **checks, "ok": ok})
         if not ok:
             raise AssertionError(f"{phase}: a check failed (see its record)")
@@ -4463,12 +4574,14 @@ def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, c
     return launches
 
 
-def phase_eval_video(dev, smi: str) -> tuple[int, ...]:
+def phase_eval_video(dev, smi: str, data: dict) -> tuple[int, ...]:
     """The SSv2 probe eval: `cli.eval.run_video_classification` on the
-    shipped ViT-L config (`EVAL_VIDEO_CONFIG`): the encoder (RoPE, bf16,
-    16f@256) over 4 x 2 clips a batch into features [4, 4096, 1024], 10 fp32
-    probes of depth 4 (16 heads, 174 classes) trained one at a time; 3 train
-    steps and 1 val batch (one view)."""
+    shipped ViT-L config (`EVAL_VIDEO_CONFIG`) with ``dataset_train`` /
+    ``dataset_val`` the manifests of phase disk_data, read through the
+    port's loaders (4 spawned workers, JAX's default): the encoder (RoPE,
+    bf16, 16f@256) over 4 x 2 clips a batch into features [4, 4096, 1024],
+    10 fp32 probes of depth 4 (16 heads, 174 classes) trained one at a time;
+    2 train steps and 1 val batch (one view)."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.video_classification import VideoClassificationEval
     from vjepa2_tpu_torch.evals.wrappers import encode_clips
@@ -4480,13 +4593,19 @@ def phase_eval_video(dev, smi: str) -> tuple[int, ...]:
             device=device))
         return lambda: encode_clips(enc, torch.from_numpy(np.asarray(args[0][:1])))
 
-    return _run_eval_phase(
-        "eval_video", dev, smi, EVAL_VIDEO_CONFIG, EVAL_VIDEO_CONFIG_FILE,
-        VideoClassificationEval, EVAL_VIDEO_LAUNCHES, cli_eval.run_video_classification,
-        lambda ev, rec: _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"])),
-        {"model": "vit_large 16f@256 bf16 RoPE, 2 segments x batch 4 -> features "
-                  "[4, 4096, 1024]; 10 fp32 probes (depth 4, 16 heads of 64 on the fp32 flash "
-                  "kernels, 174 classes), one at a time; random weights, synthetic clips"})
+    overrides = {**EVAL_OVERRIDES, "experiment.data.dataset_train": data["train"],
+                 "experiment.data.dataset_val": data["val"]}
+    with disk_datasets(data):
+        return _run_eval_phase(
+            "eval_video", dev, smi, EVAL_VIDEO_CONFIG, EVAL_VIDEO_CONFIG_FILE,
+            VideoClassificationEval, EVAL_VIDEO_LAUNCHES, cli_eval.run_video_classification,
+            lambda ev, rec: _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"])),
+            {"model": "vit_large 16f@256 bf16 RoPE, 2 segments x batch 4 -> features "
+                      "[4, 4096, 1024]; 10 fp32 probes (depth 4, 16 heads of 64 on the fp32 "
+                      "flash kernels, 174 classes), one at a time; random weights; clips from "
+                      f"disk ({DISK_VIDEOS * DISK_REPEATS}-row train and {DISK_VAL_ROWS}-row "
+                      "val manifests, frame step 4)", "decoder": data["decoder"]},
+            overrides=overrides)
 
 
 def phase_eval_anticipation(dev, smi: str) -> tuple[int, ...]:
@@ -4554,7 +4673,8 @@ def phase_eval_image(dev, smi: str) -> tuple[int, ...]:
                                          n=EVAL_IMAGE_CPU_EXAMPLES),
         {"model": "vit_large 16f@256 bf16 RoPE, 64 images as 16 fake frames -> features "
                   "[64, 2048, 1024]; 6 fp32 probes (depth 4, 16 heads of 64 on the fp32 flash "
-                  "kernels, 1000 classes), one at a time; random weights, synthetic images"})
+                  "kernels, 1000 classes), one at a time; random weights, synthetic images"},
+        restore_check=False)
 
 
 def _eval_384_checks(ev, rec) -> dict:
@@ -4650,7 +4770,253 @@ def phase_eval_video_384(dev, smi: str) -> tuple[int, ...]:
                   "1 -> features [1, 36864, 1408]; 10 fp32 probes (depth 4, 16 heads of 88 on "
                   "the fp32 flash kernels, 400 classes), one at a time; random weights, "
                   "synthetic clips"},
-        overrides=EVAL_VIDEO_384_OVERRIDES)
+        overrides=EVAL_VIDEO_384_OVERRIDES, restore_check=False)
+
+
+def _disk_video(i: int) -> np.ndarray:
+    """Source video ``i``: uint8 [DISK_FRAMES, H, W, 3], a smooth random field
+    panning 2 px a frame (the numpy resize of a coarse grid), with fine
+    noise."""
+    from vjepa2_tpu_torch.data.transforms import resize_clip
+
+    H, W = DISK_HW
+    rng = np.random.default_rng(1000 + i)
+    wide = W + 2 * DISK_FRAMES
+    coarse = rng.integers(0, 256, (1, H // 16, wide // 16, 3), dtype=np.uint8)
+    field = resize_clip(coarse, (H, wide))[0]
+    noise = rng.integers(-6, 7, (H, W, 3))
+    return np.stack([np.clip(field[:, 2 * t:2 * t + W] + noise, 0, 255).astype(np.uint8)
+                     for t in range(DISK_FRAMES)])
+
+
+def phase_disk_data(root: str) -> dict:
+    """The video files of phases train_disk and eval_video, under ``root``:
+    the card host's decoders first (cv2, imageio, the libav headers the
+    native decoder needs). Where cv2 can write and the port can read, mp4
+    files (mp4v) read by the port's `VideoReader` (its own backend choice);
+    else uint8 `.npy` arrays read by `NpyVideoDataset`, the double. The
+    manifests: ``train`` (72 rows, each video 9 times, labelled with its
+    index), ``bench`` (192 rows: a batch for each of the 8 loader workers)
+    and ``val`` (the first 4 videos). Runs on a thread beside the kernel
+    phases; prints the decoder on a line of its own."""
+    from vjepa2_tpu_torch.data import native, video
+
+    t0 = time.perf_counter()
+    cv2 = video._cv2()
+    found = {"cv2": getattr(cv2, "__version__", None),
+             "imageio": getattr(video._iio(), "__version__", None) if video._iio() else None,
+             "libav_headers": native.libav_headers(),
+             "port_backends": video.available_backends()}
+    decoder = "npy-double"
+    paths, nbytes = [], 0
+    for i in range(DISK_VIDEOS):
+        frames = _disk_video(i)
+        if cv2 is not None:
+            path = os.path.join(root, f"video_{i}.mp4")
+            out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), DISK_FPS,
+                                  (DISK_HW[1], DISK_HW[0]))
+            for f in frames:
+                out.write(np.ascontiguousarray(f[..., ::-1]))  # RGB -> cv2's BGR
+            out.release()
+            reader = video.VideoReader(path)
+            probe = [0, DISK_FRAMES // 2, DISK_FRAMES - 1]
+            got = reader.get_batch(probe)
+            err = float(np.abs(got.astype(np.float32) - frames[probe]).mean())
+            if len(reader) != DISK_FRAMES or reader.avg_fps != DISK_FPS or err > 8.0:
+                raise AssertionError(f"disk_data: {path} reads back {len(reader)} frames at "
+                                     f"{reader.avg_fps} fps, mean |error| {err}")
+            decoder = reader.backend
+        else:
+            path = os.path.join(root, f"video_{i}.npy")
+            np.save(path, frames)
+        paths.append(path)
+        nbytes += os.path.getsize(path)
+    manifests = {}
+    for name, rows in (("train", paths * DISK_REPEATS), ("bench", paths * 24),
+                       ("val", paths[:DISK_VAL_ROWS])):
+        manifests[name] = os.path.join(root, f"{name}.csv")
+        with open(manifests[name], "w") as f:
+            f.writelines(f"{p} {paths.index(p)}\n" for p in rows)
+    emit({"decoder": decoder})
+    emit({"phase": "disk_data", **found, "decoder": decoder, "videos": DISK_VIDEOS,
+          "frames": DISK_FRAMES, "height_width": list(DISK_HW), "fps": DISK_FPS,
+          "bytes": nbytes, "train_rows": len(paths) * DISK_REPEATS,
+          "seconds": time.perf_counter() - t0})
+    return {"decoder": decoder, **manifests}
+
+
+@contextlib.contextmanager
+def disk_datasets(data: dict):
+    """While active, with the double, the port's loaders build
+    `NpyVideoDataset` where they build `VideoDataset`."""
+    if data["decoder"] != "npy-double":
+        yield
+        return
+    from vjepa2_tpu_torch.data import manager, video_dataset
+
+    saved = manager.VideoDataset, video_dataset.VideoDataset
+    manager.VideoDataset = video_dataset.VideoDataset = NpyVideoDataset
+    try:
+        yield
+    finally:
+        manager.VideoDataset, video_dataset.VideoDataset = saved
+
+
+@contextlib.contextmanager
+def _batch_indices():
+    """While active, [(epoch, sample indices)] of every batch a `DataLoader`
+    hands out, in order."""
+    from vjepa2_tpu_torch.data.loader import DataLoader
+
+    seen, orig = [], DataLoader.batched_indices
+
+    def batched(loader):
+        for b in orig(loader):
+            seen.append((loader.epoch, list(b)))
+            yield b
+
+    DataLoader.batched_indices = batched
+    try:
+        yield seen
+    finally:
+        DataLoader.batched_indices = orig
+
+
+# batches of the bench manifest's 8 (a batch a worker) that train_disk's
+# loader hands over with no step; the 3 after feed a step and two traced steps
+LOADER_ALONE_BATCHES = 5
+
+
+def _loader_and_traced_steps(trainer, rec, manifest: str, dev) -> tuple[dict, dict]:
+    """One loader of the trainer's (its transform, workers and batch) over the
+    bench manifest: its first `LOADER_ALONE_BATCHES` batches iterated with
+    no step (seconds to the first, the workers' start included, then
+    clips/s), then a step on the next batch and two traced steps, in one
+    call, on the two after (each one's wait for its batch timed apart)."""
+    from vjepa2_tpu_torch.data.manager import init_video_data
+    from vjepa2_tpu_torch.data.prefetch import device_prefetch
+
+    c = trainer.cfg
+    bs = c.data.batch_size
+    transform = trainer.make_loader(0).dataset.transform
+    _, loader, _ = init_video_data(data_paths=[manifest], batch_size=bs, transform=transform,
+                                   dataset_fpcs=c.data.dataset_fpcs, fps=c.data.fps,
+                                   num_workers=c.data.num_workers, ordered=True,
+                                   seed=c.meta.seed)
+    it = iter(loader)
+    t0 = time.perf_counter()
+    clips = next(it)[0][0]
+    first = time.perf_counter() - t0
+    for _ in range(LOADER_ALONE_BATCHES - 1):
+        next(it)
+    total = time.perf_counter() - t0
+    n = LOADER_ALONE_BATCHES * bs
+    alone = {"workers": c.data.num_workers, "batches": LOADER_ALONE_BATCHES, "clips": n,
+             "seconds": total, "first_batch_s": first, "clips_per_s": n / total,
+             "clips_per_s_after_first": (n - bs) / (total - first),
+             "clip_bytes": clips[0].nbytes}
+    fn, state = rec.last[0], rec.last[1]
+    batches = device_prefetch(it, size=2, transform=trainer.stage, device=dev)
+    waits = []
+
+    def step():
+        t1 = time.perf_counter()
+        args = next(batches)
+        waits.append((time.perf_counter() - t1) * 1e3)
+        return fn(state, *args)["loss"].item()
+
+    step()
+    traced = wall_and_busy(lambda: [step() for _ in range(2)])
+    batches.close()
+    it.close()
+    return alone, {**traced, "steps": 2, "batch_wait_ms": waits[1:]}
+
+
+def phase_train_disk(dev, smi: str, data: dict) -> tuple[int, ...]:
+    """The `Pretrainer` through `cli.main.run_vjepa` on the shipped ViT-L
+    config (`TRAIN_DISK_CONFIG`: batch 24, 16f@256, fps 4, 8 spawned
+    workers, full remat, bf16) with ``data.datasets`` the 72-row manifest:
+    epoch 0, then a new trainer resumes and runs epoch 1; then the same
+    trainer runs epoch 2 on synthetic clips (no checkpoint written), for the
+    loop's ms a step beside; the loader alone, then two traced steps from
+    disk on the same loader.
+    Checks: every step's B1/B2 launches, finite losses; the restored state
+    bit-equal to the saved one, the resumed first step's schedules and masks
+    those of an uninterrupted run, the CSV's 6 rows (train_loop's resume
+    checks until PR 20); each epoch's sample indices against the sampler's
+    for that epoch (the uninterrupted run's), and epoch 1's order against
+    epoch 0's. Returns the launches of the steps from disk."""
+    import shutil
+    import tempfile
+
+    from vjepa2_tpu_torch.data.samplers import DistributedSampler
+
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="vjepa2_disk_")
+    overrides = {"folder": folder, "data.datasets": [data["train"]], **TRAIN_DISK_OVERRIDES}
+    raw = overridden(TRAIN_DISK_CONFIG, overrides)
+    bs, rows = raw["data"]["batch_size"], DISK_VIDEOS * DISK_REPEATS
+    try:
+        with disk_datasets(data), _batch_indices() as seen:
+            torch.cuda.reset_peak_memory_stats(dev)
+            with _LoopRecorder() as part1:
+                _run_config(raw, dev, epochs=1)
+            compare, restored = _restore_check(part1)
+            with _LoopRecorder(on_restore=compare) as part2:
+                _run_config(raw, dev, epochs=2)
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+            run_batches = list(seen)
+            resume = _resume_checks(raw, part2, folder, TRAIN_DISK_IPE)
+            trainer, _ = part2.states[0]
+            part2.release()
+            trainer.synthetic_data, trainer._step_fns = True, {}
+            with _LoopRecorder(skip_saves=True) as synth:
+                trainer.run(epochs=3)  # epoch 2, from epoch 1's checkpoint
+            trainer.synthetic_data = False
+            alone, traced = _loader_and_traced_steps(trainer, synth, data["bench"], dev)
+            synth.release()
+            del trainer
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    steps = part1.steps + part2.steps
+    _check_launches("train_disk", steps, TRAIN_DISK_LAUNCHES)
+    _check_launches("train_disk (synthetic)", synth.steps, TRAIN_DISK_LAUNCHES)
+    want = {}
+    for epoch in (0, 1):
+        sampler = DistributedSampler(rows, 1, 0, seed=raw["meta"]["seed"])
+        sampler.set_epoch(epoch)
+        idx = list(sampler)
+        want[epoch] = [idx[i * bs:(i + 1) * bs] for i in range(TRAIN_DISK_IPE)]
+    got = {e: [b for ep, b in run_batches if ep == e] for e in (0, 1)}
+    indices = {"epoch0_equal_sampler": got[0] == want[0],
+               "epoch1_resumed_equal_uninterrupted": got[1] == want[1],
+               "epoch1_order_differs": got[1] != got[0]}
+    (ms1, n1), (ms2, n2) = part1.loop_ms_per_step(), part2.loop_ms_per_step()
+    ms = (ms1 * n1 + ms2 * n2) / (n1 + n2)
+    ms_synth, n_synth = synth.loop_ms_per_step()
+    ok = (all(indices.values()) and restored.get("step") == TRAIN_DISK_IPE
+          and restored.get("bit_equal") and resume.pop("ok"))
+    emit({"phase": "train_disk", "config": TRAIN_DISK_CONFIG_FILE,
+          "overrides": {**overrides, "folder": "<temporary directory>",
+                        "data.datasets": [f"<{rows}-row manifest of {DISK_VIDEOS} videos>"]},
+          "decoder": data["decoder"],
+          "model": "vit_large (24 x 1024, Dh 64) 16f@256 bs24 + predictor (12 x 384, 12 heads), "
+                   "RoPE, bf16, full remat; clips from disk: 8 spawned workers, fps 4 of "
+                   f"{DISK_FPS:g}, random resized crops, flips",
+          "steps": [{k: v for k, v in s.items() if k not in ("masks", "t0")} for s in steps],
+          "loop_ms_per_step_disk": ms, "loop_ms_per_step_disk_by_part": [ms1, ms2],
+          "loop_ms_per_step_synthetic": ms_synth, "disk_over_synthetic": ms / ms_synth,
+          "timed_steps": [n1 + n2, n_synth], "clips_per_s_disk": bs / (ms / 1e3),
+          "loader_alone": alone, "traced_steps_from_disk": traced, "peak_memory_gb": peak_gb,
+          "launches_per_step": dict(zip(KERNEL_COUNTS, TRAIN_DISK_LAUNCHES)),
+          "checkpoint": [{k: v for k, v in c.items() if k != "t0"}
+                         for c in part1.saves + part2.saves],
+          "restored": restored, **resume, "sample_indices": indices,
+          "seconds": time.perf_counter() - t0, "ok": ok, "gpu": smi})
+    if not ok:
+        raise AssertionError(f"train_disk: resume or sample indices off: {indices}, "
+                             f"restored {restored}, {resume}")
+    return tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
 
 
 def main() -> int:
@@ -4675,17 +5041,23 @@ def main() -> int:
     timed("build", phase_build)
     export_root = tempfile.mkdtemp(prefix="vjepa2_export_")
     exports = start_exports(export_root)
+    data_root = tempfile.mkdtemp(prefix="vjepa2_videos_")
+    writer = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    data = writer.submit(phase_disk_data, data_root)  # beside the kernel phases
     try:
-        return _run_phases(dev, smi, timed, seconds, t_start, exports, export_root)
+        return _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data)
     finally:
         if exports[0].poll() is None:
             exports[0].kill()
             exports[0].wait()
+        writer.shutdown(wait=True)
         shutil.rmtree(export_root, ignore_errors=True)
+        shutil.rmtree(data_root, ignore_errors=True)
 
 
-def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
-    """Every phase after the build, then the summary lines."""
+def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data) -> int:
+    """Every phase after the build, then the summary lines. ``data``: the
+    future of phase disk_data's files."""
     rec = timed("kernel", phase_kernels, dev, smi)
     serve_launches = timed("slice", phase_slice, dev, smi)
     rec_bwd = timed("kernel_bwd", phase_kernels_bwd, dev, smi)
@@ -4721,9 +5093,13 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     # phase leaves to `_CPU_WORK` run beside card work that does not time
     # the host (the anticipation eval's step is host-bound)
     eval_a = timed("eval_anticipation", phase_eval_anticipation, dev, smi)
-    eval_v = timed("eval_video", phase_eval_video, dev, smi)
+    data = data.result()
+    eval_v = timed("eval_video", phase_eval_video, dev, smi, data)
     eval_i = timed("eval_image", phase_eval_image, dev, smi)
     eval_384 = timed("eval_video_384", phase_eval_video_384, dev, smi)
+    # last: its 8 loader workers want the host's cores, which the CPU
+    # references leave by the time its loader is timed alone
+    disk_l = timed("train_disk", phase_train_disk, dev, smi, data)
     t_wait = time.perf_counter()
     for done in _DEFERRED:
         done.result()  # raises a deferred check's failure
@@ -4732,7 +5108,8 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root) -> int:
     # every main-path run's launches, in the order of KERNEL_COUNTS
     total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
                                  accum_l, droid_l, plan_l, export_l, eval_v, eval_a, eval_i,
-                                 eval_384, fp32_l, droid_fp32_l, plan_fp32_l, fused_fp32_l)]
+                                 eval_384, fp32_l, droid_fp32_l, plan_fp32_l, fused_fp32_l,
+                                 disk_l)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):

@@ -4,7 +4,7 @@ the shipped ViT-L configs (SSv2: the multiclip plugin; Diving-48: the
 multilevel plugin with ``out_layers``; IN1K: the image plugin; EK100:
 anticipation), `shrink_config` and the synthetic loaders equal to JAX's,
 `chip_smoke.py`'s eval dicts equal to their YAML files, and the refusals:
-dataset paths set without ``--synthetic-data`` (ROADMAP A8b), several
+image and EK100 paths set without ``--synthetic-data`` (ROADMAP A8c), several
 processes, the pipeline-parallel checkpoint layout and Orbax directories
 (ROADMAP A12), no card without ``--device cpu``. Checkpoints: a released
 `.pt` and a `Pretrainer` checkpoint load their target encoder, and the EK100
@@ -138,8 +138,7 @@ def _args(**kw):
                                  "val_only": False, "device": torch.device("cpu"), **kw})
 
 
-@pytest.mark.parametrize("name, key", [("ssv2", "dataset_train"), ("in1k", "root"),
-                                       ("ek100", "annotations_train")])
+@pytest.mark.parametrize("name, key", [("in1k", "root"), ("ek100", "annotations_train")])
 def test_data_on_disk_is_refused_without_synthetic_data(name, key):
     raw = cli.shrink_config(_yaml(name))
     raw["experiment"]["data"][key] = "/data/train.csv"

@@ -17,7 +17,7 @@ temporary directory and ``optimization.ipe`` 3.
   grad norm rtol 1e-5, EMA target atol 1e-6) and as the mean of its
   per-bucket losses (rtol 1e-6, `tests/train/test_multifpc.py:83`), and the
   `Pretrainer` grouping two fpcs into one step.
-* The refusals (several cards, datasets on disk, in-process evals), the
+* The refusals (several cards, in-process evals), the
   action-conditioned app running through the same CLI on the smoke config
   (`tests/test_torch_droid_loop.py` holds it to JAX), and `chip_smoke.py`'s
   four config dicts equal to their YAML files after the overrides it
@@ -284,7 +284,6 @@ def test_without_a_device_the_cli_fails_on_entry_device(tmp_path, monkeypatch):
     ({"mesh.model": 4, "model.context_parallel": True}, "A12"),
     ({"mesh.fsdp": 2}, "A12"),
     ({"mesh.pipe": 2}, "A12"),
-    ({"data.datasets": ["/data/k400.csv"]}, "A8b"),
     ({"evals": ["configs/eval/vitl/ssv2.yaml"], "meta.eval_freq": 1}, "A10"),
 ])
 def test_refusals(tmp_path, overrides, match):

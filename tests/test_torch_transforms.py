@@ -121,7 +121,8 @@ def test_video_transform_matches_jax(cfg, seed):
     clip = _frames(seed, (4, 240, 320, 3))
     want = jt.VideoTransform(crop_size=224, use_native=False, **cfg)(
         clip.copy(), np.random.default_rng(seed))
-    got = tt.VideoTransform(crop_size=224, **cfg)(clip, np.random.default_rng(seed))
+    got = tt.VideoTransform(crop_size=224, use_native=False, **cfg)(
+        clip, np.random.default_rng(seed))
     _close(got, want)
 
 
@@ -129,7 +130,7 @@ def test_video_transform_float_clip_matches_jax():
     """A float clip in [0, 1] is not rescaled by 255 (JAX's jitter path)."""
     clip = np.random.RandomState(3).rand(3, 200, 260, 3).astype(np.float32)
     want = jt.VideoTransform(crop_size=128, use_native=False)(clip.copy(), np.random.default_rng(3))
-    got = tt.VideoTransform(crop_size=128)(clip, np.random.default_rng(3))
+    got = tt.VideoTransform(crop_size=128, use_native=False)(clip, np.random.default_rng(3))
     np.testing.assert_allclose(got, want, atol=1e-4 / float(jt.IMAGENET_STD.min()), rtol=0)
 
 

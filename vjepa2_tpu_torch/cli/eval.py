@@ -16,10 +16,13 @@ a card the run fails (`core.device.entry_device`). On the card the encoder
 (``use_flash``), as the `Pretrainer` and the hub build theirs; on the CPU in
 fp32 on the plain route. The probes compute in fp32 either way.
 
-Data: with the config's dataset paths left null the eval probes synthetic
-clips, with JAX's warning; with them set it is refused unless
-``--synthetic-data`` is given, since the loaders from disk are not ported
-(ROADMAP A8b). Checkpoints (``--checkpoint`` or ``model_kwargs.checkpoint``):
+Data: the video evals read ``data.dataset_train`` / ``dataset_val`` (CSV or
+``.npy`` manifests) from disk through `data.video_dataset.VideoDataset` and
+`data.loader.DataLoader`, as JAX's `make_video_eval_loaders`; with the paths
+left null the eval probes synthetic clips, with JAX's warning. The image
+(``root``) and EK100 (``annotations_*``) paths are refused unless
+``--synthetic-data`` is given: those loaders are not ported (ROADMAP A8c).
+Checkpoints (``--checkpoint`` or ``model_kwargs.checkpoint``):
 a torch file (a released ``.pt``: its ``target_encoder``, else ``encoder``,
 else the whole file; or a `Pretrainer` step file, whose target encoder it
 takes) or a `Pretrainer` checkpoint directory (its latest step); JAX's
@@ -152,13 +155,13 @@ def build_encoder(model_kwargs: dict, resolution: int, fpc: int, checkpoint=None
 
 
 def refuse_data_paths(data_c: dict, keys, synthetic: bool) -> None:
-    """A config naming data on disk needs the loaders of ROADMAP A8b."""
+    """The image folders and EK100 annotations need the loaders of ROADMAP A8c."""
     named = [k for k in keys if data_c.get(k)]
     if named and not synthetic:
         raise NotImplementedError(
-            f"the eval config names data on disk ({', '.join(named)}): the eval loaders from "
-            "disk are not ported (ROADMAP A8b); pass --synthetic-data to probe on synthetic "
-            "clips")
+            f"the eval config names data on disk ({', '.join(named)}): its loader from disk "
+            "is not ported (ROADMAP A8c, the rest of A8b: the video manifests are read); pass "
+            "--synthetic-data to probe on synthetic clips")
 
 
 def _warn_synthetic(data_c: dict, key: str, synthetic: bool) -> None:
@@ -167,11 +170,42 @@ def _warn_synthetic(data_c: dict, key: str, synthetic: bool) -> None:
                        "clips; the logged metric is a smoke signal, NOT a benchmark number.")
 
 
-def make_video_eval_loaders(batch_size, fpc, res, num_clips, num_classes, ipe):
-    """(train, val) synthetic loaders: ``ipe`` batches, then ``ipe // 4``."""
-    return (SyntheticEvalLoader(batch_size, num_clips, fpc, res, num_classes, ipe),
-            SyntheticEvalLoader(batch_size, num_clips, fpc, res, num_classes,
-                                max(1, ipe // 4), seed=1))
+def eval_collate(samples):
+    """[(clips_list, label, clip_indices), ...] -> (clips [B, nc, T, S, S, 3],
+    labels [B], clip_indices [B, nc, T]) (JAX's collate, `cli/eval.py:144`)."""
+    clips = np.stack([np.stack(s[0]) for s in samples])
+    labels = np.asarray([s[1] for s in samples])
+    ci = np.stack([np.stack([np.asarray(c) for c in s[2]]) for s in samples])
+    return clips, labels, ci
+
+
+def make_video_eval_loaders(data_c, batch_size, fpc, res, num_clips, num_classes, ipe,
+                            synthetic=False):
+    """(train, val) loaders of a probe eval: ``data.dataset_train`` and
+    ``dataset_val`` from disk (a `VideoDataset` with JAX's frame step and
+    random-crop transform, flipped only in training; ``ipe`` train batches
+    an epoch, the whole val manifest), else synthetic: ``ipe`` batches, then
+    ``ipe // 4``. The batches come in the sampler's order."""
+    if synthetic or not data_c.get("dataset_train"):
+        _warn_synthetic(data_c, "dataset_train", synthetic)
+        return (SyntheticEvalLoader(batch_size, num_clips, fpc, res, num_classes, ipe),
+                SyntheticEvalLoader(batch_size, num_clips, fpc, res, num_classes,
+                                    max(1, ipe // 4), seed=1))
+    from vjepa2_tpu_torch.data.loader import DataLoader
+    from vjepa2_tpu_torch.data.samplers import DistributedSampler
+    from vjepa2_tpu_torch.data.transforms import VideoTransform
+    from vjepa2_tpu_torch.data.video_dataset import VideoDataset
+
+    def make(path, train):
+        ds = VideoDataset(data_paths=[path], frames_per_clip=fpc,
+                          frame_step=data_c.get("frame_step", 4), fps=None, num_clips=num_clips,
+                          transform=VideoTransform(crop_size=res, horizontal_flip=train))
+        sampler = DistributedSampler(len(ds), 1, 0, shuffle=train)
+        return DataLoader(ds, sampler, batch_size, num_workers=data_c.get("num_workers", 4),
+                          collate_fn=eval_collate, ordered=True,
+                          epoch_len=ipe if train else None)
+
+    return make(data_c["dataset_train"], True), make(data_c["dataset_val"], False)
 
 
 def _extract(mdl_c: dict, wrapper_kwargs: dict, **modules):
@@ -190,9 +224,6 @@ def run_video_classification(cfg: dict, args) -> dict:
     data_c, opt_c = exp["data"], exp["optimization"]
     cls_c = exp.get("classifier", {})
     mdl_c = cfg.get("model_kwargs", {})
-    refuse_data_paths(data_c, ("dataset_train", "dataset_val"), args.synthetic_data)
-    _warn_synthetic(data_c, "dataset_train", args.synthetic_data)
-
     fpc = int(data_c.get("frames_per_clip", 16))
     res = int(data_c.get("resolution", 256))
     num_classes = int(data_c.get("num_classes", 174))
@@ -211,8 +242,9 @@ def run_video_classification(cfg: dict, args) -> dict:
         probe_depth=int(cls_c.get("num_probe_blocks", 1)), total_steps=epochs * ipe,
         use_pos_embed=bool(wrapper_kwargs.get("use_pos_embed", False)),
         extract_fn=_extract(mdl_c, wrapper_kwargs, encoder=encoder))
-    train_loader, val_loader = make_video_eval_loaders(batch_size, fpc, res, num_clips,
-                                                       num_classes, ipe)
+    train_loader, val_loader = make_video_eval_loaders(data_c, batch_size, fpc, res, num_clips,
+                                                       num_classes, ipe,
+                                                       synthetic=args.synthetic_data)
     val_only = args.val_only or bool(cfg.get("val_only", False))
     probe_ckpt = mdl_c.get("probe_checkpoint")
     if val_only and probe_ckpt:

@@ -12,6 +12,8 @@ Usage:
 
 Apps: ``vjepa`` (masked pretraining, `train.loop.Pretrainer`) and
 ``vjepa_droid`` (action-conditioned post-training, `train.droid_loop.DroidTrainer`).
+A config's ``data.datasets`` (CSV or ``.npy`` video manifests) trains from
+disk; ``--synthetic-data`` (or ``datasets: []``) trains on synthetic clips.
 ``--device`` is ``cuda`` unless given: without a card the run fails
 (`core.device.entry_device`). Under ``vjepa``, SIGTERM checkpoints the run and
 exits 75 (the wrapper requeues it; the restarted run resumes with

@@ -11,7 +11,7 @@ the layout the port's encoders take. The random transforms draw from the
 ``np.random.Generator`` they are given, in JAX's order, so one seed gives the
 same boxes, flips and jitter on both sides.
 
-The resize is cv2's ``INTER_LINEAR`` written in numpy (the card's host has no
+The resize is cv2's ``INTER_LINEAR`` written in numpy (the transforms need no
 cv2): half-pixel centres, edge clamp, no antialiasing when shrinking. A
 uint8 frame takes cv2's fixed-point arithmetic: the horizontal pass with
 11-bit weights into integer sums, the vertical pass as cv2's vector path
@@ -19,11 +19,12 @@ computes it, rounded to the nearest quarter level and then to the nearest
 level. The exact products rounded once differ from cv2 by one level on about
 an eighth of the pixels (measured against cv2 on uniform uint8 frames); this
 formulation on about a thousandth. A float frame takes the weights in fp32.
-JAX's nearest-neighbour fallback without cv2 (tests only) and its fused C++
-crop-resize-normalise (``use_native``, `native/host_ops.cpp`) have no
-counterpart: `VideoTransform` takes the resize path, as JAX's
-``use_native=False`` does. RandAugment, random erasing and deferred
-(on-device) normalisation are not ported yet.
+JAX's nearest-neighbour fallback without cv2 (tests only) has no
+counterpart. `VideoTransform`'s ``use_native`` takes the fused C++
+crop-resize(-normalise) of `native/host_ops.cpp` (`data.native`), by default
+wherever it builds, as JAX's does; ``normalize_on_device`` keeps the clip
+uint8 for the train step to normalise on the card; ``auto_augment`` and
+``rand_erase_prob`` add `data.augment`'s RandAugment and random erasing.
 """
 
 from __future__ import annotations
@@ -160,8 +161,17 @@ def _normalized(out: np.ndarray, normalize: bool, mean, std, scale: bool = True)
 @dataclass
 class VideoTransform:
     """Pretrain-time augmentation (reference `app/vjepa/transforms.py:37-116`):
-    the jitter, the crop box, the flip, then the motion-shift end box, each
-    drawn from ``rng`` as JAX's ``use_native=False`` path draws them."""
+    RandAugment, the jitter, the crop box, the flip, then the motion-shift end
+    box, then random erasing, each drawn from ``rng`` in JAX's order, so that
+    one seed gives the same clip on both sides.
+
+    ``use_native`` (None: wherever the library builds, as JAX's) crops,
+    resizes and normalises a uint8 clip in one threaded pass of
+    `native/host_ops.cpp`; True raises where it cannot be built.
+    ``normalize_on_device`` emits uint8 [T, S, S, 3] (crop, resize and flip
+    only) for the train step to normalise on the card
+    (`train.pretrain._device_normalize`): a quarter of the host's bytes
+    through collation, the workers' pipes and the copy to the card."""
 
     crop_size: int = 224
     random_resize_scale: tuple[float, float] = (0.3, 1.0)
@@ -169,20 +179,59 @@ class VideoTransform:
     horizontal_flip: bool = False
     motion_shift: bool = False
     normalize: bool = True
+    normalize_on_device: bool = False
     mean: np.ndarray = None
     std: np.ndarray = None
+    use_native: Optional[bool] = None
+    native_threads: int = 4
+    auto_augment: bool = False
+    aa_config: str = "rand-m7-n4-mstd0.5"
+    rand_erase_prob: float = 0.0
     color_jitter_strength: float = 0.0  # clip-consistent brightness/contrast/saturation
     pad_frames: Optional[int] = None  # circulant-pad short clips to this length
 
     def __post_init__(self):
         self.mean = IMAGENET_MEAN if self.mean is None else np.asarray(self.mean, np.float32)
         self.std = IMAGENET_STD if self.std is None else np.asarray(self.std, np.float32)
+        if self.normalize_on_device and not self.normalize:
+            # the card's step normalises every uint8 clip: it cannot honour
+            # normalize=False
+            raise ValueError("normalize_on_device=True requires normalize=True; use the host "
+                             "float path for un-normalized clips")
+        from vjepa2_tpu_torch.data import native
+
+        if self.use_native is None:
+            self.use_native = self.normalize and native.available()
+        elif self.use_native:
+            native.load()  # raises NativeBuildError with the reason
+        self._rand_augment = self._rand_erase = None
+        if self.auto_augment:
+            from vjepa2_tpu_torch.data.augment import RandAugment
+
+            self._rand_augment = RandAugment.from_config(self.aa_config)
+        if self.rand_erase_prob > 0:
+            from vjepa2_tpu_torch.data.augment import RandomErasing
+
+            self._rand_erase = RandomErasing(probability=self.rand_erase_prob)
+
+    def _native_call(self, clip, boxes, hflip):
+        from vjepa2_tpu_torch.data import native
+
+        if self.normalize_on_device:
+            return native.crop_resize_clip_u8(clip, *boxes, self.crop_size, hflip=hflip,
+                                              num_threads=self.native_threads)
+        return native.crop_resize_normalize_clip(clip, *boxes, self.crop_size, self.mean,
+                                                 self.std, hflip=hflip,
+                                                 num_threads=self.native_threads)
 
     def __call__(self, clip: np.ndarray, rng: Optional[np.random.Generator] = None) -> np.ndarray:
-        """clip: [T, H, W, C] uint8 -> [T, S, S, C] float32 normalized."""
+        """clip: [T, H, W, C] uint8 -> [T, S, S, C] float32 normalized (uint8
+        with ``normalize_on_device``)."""
         rng = rng or np.random.default_rng()
         if self.pad_frames is not None:
             clip = circulant_frame_padding(clip, self.pad_frames)
+        if self._rand_augment is not None and clip.dtype == np.uint8:
+            clip = self._rand_augment(clip, rng=rng)
         if self.color_jitter_strength > 0:
             s = self.color_jitter_strength
             clip = color_jitter(clip, rng, brightness=s, contrast=s, saturation=s)
@@ -197,15 +246,30 @@ class VideoTransform:
             top2, left2, h2, w2 = _sample_crop_box(H, W, scale, ratio, rng)
             tops, lefts, hs, ws = (np.linspace(a, b, T).astype(int)
                                    for a, b in ((top, top2), (left, left2), (h, h2), (w, w2)))
-            out = np.stack([_resize_frame(clip[t, tops[t]:tops[t] + hs[t],
-                                               lefts[t]:lefts[t] + ws[t]], S)
-                            for t in range(T)])
+        if self.use_native and clip.dtype == np.uint8:
+            boxes = ((tops, lefts, hs, ws) if self.motion_shift else
+                     tuple(np.full(T, v, np.int32) for v in (top, left, h, w)))
+            out = self._native_call(clip, boxes, flip)
         else:
-            out = resize_clip(clip[:, top:top + h, left:left + w], S)
-        if flip:
-            out = out[:, :, ::-1]
-        # a float clip (after colour jitter) is already in [0, 1]
-        return _normalized(out, self.normalize, self.mean, self.std, out.dtype == np.uint8)
+            if self.motion_shift:
+                out = np.stack([_resize_frame(clip[t, tops[t]:tops[t] + hs[t],
+                                                   lefts[t]:lefts[t] + ws[t]], S)
+                                for t in range(T)])
+            else:
+                out = resize_clip(clip[:, top:top + h, left:left + w], S)
+            if flip:
+                out = out[:, :, ::-1]
+            if out.dtype == np.uint8 and self.normalize_on_device:
+                out = np.ascontiguousarray(out)  # stays uint8: the card normalises
+            else:
+                # a float clip (after colour jitter) is already in [0, 1], and
+                # is normalised here even under normalize_on_device: the card
+                # normalises only uint8 clips
+                out = _normalized(out, self.normalize, self.mean, self.std,
+                                  out.dtype == np.uint8)
+        if self._rand_erase is not None:
+            out = self._rand_erase(out, rng=rng)
+        return out
 
 
 @dataclass

@@ -21,8 +21,9 @@ A shape is a family and a name of the smoke's shape table for it
 of ``SHAPES`` (B1: its prologue and main kernel), ``dn_bwd:`` and a name of
 ``BWD_SHAPES`` (B2: its prologue, dK/dV and dQ kernels), ``ln_qkv:`` or
 ``ln_mlp:`` and a name of ``PROLOGUE_SHAPES`` (B7 or B8: the statistics
-launch and the GEMM), ``ln:`` and a name of ``LN_SHAPES`` (B6: the forward,
-the statistics-only forward that B7 and B8 launch first, the backward, the
+launch and the GEMM), ``ln:`` and a name of ``LN_SHAPES`` (B6 on bf16 rows,
+``ln_fp32:`` on fp32 rows: the forward, the statistics-only forward that B7
+and B8 launch first, the backward, the
 yardsticks `F.layer_norm` and its autograd backward, and `x.clone` and
 `x.sum`, which move the forward's and the statistics launch's bytes),
 ``fp32:`` and a name of ``FP32_SHAPES`` (the fp32 BHND forward and backward:
@@ -52,6 +53,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import re
@@ -174,19 +176,20 @@ def _fp32_calls(c, dev, name, seqs, rope):
              "bound_by": {kind: b[1] for kind, b in bounds.items()}})
 
 
-def _ln_calls(c, dev, name, seqs, rope):
+def _ln_calls(c, dev, name, seqs, rope, dtype=torch.bfloat16):
     """B6 at `chip_smoke.LN_SHAPES`' ``name``: the forward, the statistics-only
     forward (the first launch of B7 and B8), the backward, and the yardsticks
     `F.layer_norm` and its autograd backward, `x.clone` (the forward's bytes)
     and `x.sum` (the statistics launch's); with each kernel call's bound
-    (bytes: each input read once, each output written once)."""
+    (bytes: each input read once, each output written once). Rows of
+    ``dtype``: bf16 (family ``ln``) or fp32 (``ln_fp32``)."""
     from vjepa2_tpu_torch.ops import layernorm as ln
 
     R, C = dict(c.LN_SHAPES)[name]
-    x, dy, gamma, beta = c._ln_case(dev, R, C)
+    x, dy, gamma, beta = c._ln_case(dev, R, C, dtype)
     _, mean, rstd = ln.ln_forward(x, gamma, beta)
     lib_fwd, lib_bwd = c.ln_yardsticks(x, dy, gamma, beta)
-    rows, params, stats = R * C * 2, C * 4, R * 4
+    rows, params, stats = R * C * x.element_size(), C * 4, R * 4
     bounds = {"fwd": 2 * rows + 2 * params + 2 * stats, "stats": rows + 2 * stats,
               "bwd": 3 * rows + 3 * params + 2 * stats}
     return ({"fwd": lambda: ln.ln_forward(x, gamma, beta),
@@ -248,7 +251,8 @@ def _device_ms(calls, n: int) -> dict:
 # RoPE tables) -> ({call name: call}, the shape's fields)
 FAMILIES = {"bhnd": _bhnd_calls, "dn": _dn_calls, "dn_bwd": _dn_bwd_calls,
             "ln_qkv": _prologue_calls("ln_qkv"), "ln_mlp": _prologue_calls("ln_mlp"),
-            "ln": _ln_calls, "fp32": _fp32_calls}
+            "ln": _ln_calls, "ln_fp32": functools.partial(_ln_calls, dtype=torch.float32),
+            "fp32": _fp32_calls}
 
 
 def main() -> int:
@@ -279,7 +283,7 @@ def main() -> int:
                    "checkout": str(args.checkout or "."),
                    "host_us_per_call": {key: host_us(fn, host_calls)
                                         for key, fn in calls.items()}}
-            if family == "ln":
+            if family in ("ln", "ln_fp32"):
                 rec.update(_ln_device(c, calls, rec.pop("bound_ms"), args.calls))
                 print(json.dumps(rec), flush=True)
                 continue

@@ -5,8 +5,8 @@ DROID step (counterpart of `vjepa2_tpu/train/droid_loop.py`; reference
 The target encoder is frozen (drawn from ``meta.seed``, or a pretrained
 encoder's state dict passed in as ``enc_state``); the AC predictor trains.
 What one card and this slice cannot honour is refused as in the
-`Pretrainer` (`loop._refuse`): several cards (ROADMAP A12), DROID
-trajectories from disk (A8b, with `data/droid.py`) and in-process evals.
+`Pretrainer` (`loop._refuse`): several cards (ROADMAP A12) and in-process
+evals; and DROID trajectories from disk (A8c, with `data/droid.py`).
 ``meta.dtype`` is the compute dtype on either device: bf16 on the card runs
 the bf16 kernels, fp32 the fp32 ones (the AC predictor's frame-causal
 segment ids included). The models take the flash routes whatever
@@ -85,7 +85,11 @@ class DroidTrainer:
 
     def __post_init__(self):
         c = self.cfg
-        _refuse(c, self.synthetic_data)
+        _refuse(c)
+        if c.data.datasets and not self.synthetic_data:
+            raise NotImplementedError("data.datasets: DROID trajectories from disk are not "
+                                      "ported (ROADMAP A8c, the rest of A8b); run on synthetic "
+                                      "trajectories (datasets: [] or --synthetic-data)")
         self.device = entry_device(self.device)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
         # reference: max_num_frames = max(dataset_fpcs) (`train.py:106`)

@@ -4,10 +4,21 @@ minus DDP wrappers, GradScaler and scheduler replay on resume).
 
 One card: the mesh, pipeline parallelism and ring-attention context
 parallelism are not here (ROADMAP A12), and a config that asks for them is
-refused, as are in-process evals (A10b) and datasets on disk (A8b): nothing
-is skipped quietly. ``meta.dtype`` float32 runs on the card too: the fp32
-BHND flash kernels take the step's RoPE and kv_valid, and the GEMMs stay full
-fp32 (TF32 stays off, PyTorch's default). The models always take the flash routes, whatever
+refused, as are in-process evals (A8c): nothing is skipped quietly.
+
+Data: ``data.datasets`` (CSV or ``.npy`` manifests) is read from disk through
+`data.manager.init_video_data` and `data.transforms.VideoTransform` built
+from ``data`` and ``data_aug`` as JAX builds them (`loop.py:224-254`); with
+``datasets: []`` or ``synthetic_data`` the loop runs on synthetic clips. Two
+departures from JAX's loop (ROADMAP queue C): each epoch's loader draws that
+epoch's order, windows and crops (JAX builds every epoch's loader at epoch 0,
+so every epoch replays the first), and the loader yields its batches in the
+sampler's order (JAX's yields them as its workers finish, so a resume's skip
+of the trained batches can drop other batches than those).
+
+``meta.dtype`` float32 runs on the card too: the fp32 BHND flash kernels
+take the step's RoPE and kv_valid, and the GEMMs stay full fp32 (TF32 stays
+off, PyTorch's default). The models always take the flash routes, whatever
 ``model.use_flash`` says (JAX's default picks XLA's attention; the port's only
 other attention is its plain test version): on the card the hand-written
 kernels run, on the CPU their plain versions.
@@ -33,7 +44,9 @@ from vjepa2_tpu_torch.core.checkpoint import CheckpointManager
 from vjepa2_tpu_torch.core.config import PretrainConfig
 from vjepa2_tpu_torch.core.device import entry_device
 from vjepa2_tpu_torch.core.logging import AverageMeter, CSVLogger, get_logger
+from vjepa2_tpu_torch.data.manager import init_video_data
 from vjepa2_tpu_torch.data.prefetch import device_prefetch
+from vjepa2_tpu_torch.data.transforms import VideoTransform
 from vjepa2_tpu_torch.data.video import synthetic_clip
 from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
 from vjepa2_tpu_torch.train.accum import validate_grad_accum
@@ -98,7 +111,7 @@ def group_fpc_batches(loader, fpcs, max_pending: int = 8):
             yield [pending[x].popleft() for x in fpcs]
 
 
-def _refuse(c: PretrainConfig, synthetic_data: bool) -> None:
+def _refuse(c: PretrainConfig) -> None:
     """Raise on what one card and this slice cannot honour, naming the
     ROADMAP item that brings it."""
     m = c.mesh
@@ -112,11 +125,8 @@ def _refuse(c: PretrainConfig, synthetic_data: bool) -> None:
                                       "(ROADMAP A12)")
     if c.evals and c.meta.eval_freq:
         raise NotImplementedError("in-process evals (evals with meta.eval_freq) are not "
-                                  "ported (ROADMAP A10b; the frozen evals run through cli.eval)")
-    if c.data.datasets and not synthetic_data:
-        raise NotImplementedError("data.datasets: the data pipeline from disk is not ported "
-                                  "(ROADMAP A8b); run on synthetic clips (datasets: [] or "
-                                  "--synthetic-data)")
+                                  "ported (ROADMAP A8c, formerly A10b; the frozen evals run "
+                                  "through cli.eval)")
 
 
 @dataclass
@@ -127,7 +137,7 @@ class Pretrainer:
 
     def __post_init__(self):
         c = self.cfg
-        _refuse(c, self.synthetic_data)
+        _refuse(c)
         self.device = entry_device(self.device)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
         self.fpcs = sorted(set(c.data.dataset_fpcs))
@@ -176,10 +186,27 @@ class Pretrainer:
         self._step_fns: dict = {}
 
     # -- data ---------------------------------------------------------------
-    def make_loader(self):
+    def make_loader(self, epoch: int = 0):
+        """Epoch ``epoch``'s batches: synthetic clips, or ``data.datasets``
+        from disk (ipe batches, in the sampler's order)."""
         c = self.cfg
-        return SyntheticVideoLoader(c.data.batch_size, self.fpcs, c.data.crop_size, self.hp.ipe,
-                                    c.meta.seed)
+        if self.synthetic_data or not c.data.datasets:
+            return SyntheticVideoLoader(c.data.batch_size, self.fpcs, c.data.crop_size,
+                                        self.hp.ipe, c.meta.seed)
+        aug = c.data_aug
+        transform = VideoTransform(
+            crop_size=c.data.crop_size, random_resize_scale=tuple(aug.random_resize_scale),
+            random_resize_aspect_ratio=tuple(aug.random_resize_aspect_ratio),
+            horizontal_flip=aug.horizontal_flip, motion_shift=aug.motion_shift,
+            auto_augment=aug.auto_augment, rand_erase_prob=aug.reprob,
+            normalize_on_device=c.data.normalize_on_device)
+        _, loader, _ = init_video_data(
+            data_paths=c.data.datasets, batch_size=c.data.batch_size, transform=transform,
+            datasets_weights=c.data.datasets_weights, dataset_fpcs=c.data.dataset_fpcs,
+            fps=c.data.fps, num_workers=c.data.num_workers, ordered=True, ipe=self.hp.ipe,
+            seed=c.meta.seed)
+        loader.set_epoch(epoch)
+        return loader
 
     # -- state --------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -279,7 +306,7 @@ class Pretrainer:
         skip_itrs = int(state.step) % self.hp.ipe
         last_loss = float("nan")
         for epoch in range(start_epoch, epochs):
-            loader = self.make_loader()
+            loader = self.make_loader(epoch)
             loss_meter, time_meter = AverageMeter(), AverageMeter()
             pending: list = []  # (itr, metrics)
             window_t0 = time.perf_counter()
