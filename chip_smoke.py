@@ -101,11 +101,17 @@ Phases, each printed as one JSON object on a line of its own:
    folder, ``optimization.ipe`` (3) and the epochs (1; the resumed epoch 1
    and its checks moved to phase 29 in PR 20), as printed. Every step
    launches B3 160, the BHND backward 64, B1 48 and B2 24 times; finite
-   losses; the CSV holds 3 rows. Prints the loop's ms a step as it runs (no
-   added sync: from its second step to its checkpoint save), clips/s, peak
-   memory, the checkpoint's bytes and save seconds, and the wall,
-   device-busy time and idle share of one more step, all three from one
-   traced call;
+   losses; the CSV holds 3 rows. The epoch's checkpoint is not written
+   (phases 17 and 29 write and restore theirs). Then the online eval
+   (``evals``: the SSv2 config of phase 19 on phase 28's manifests, read in
+   the main process, ``meta.eval_freq`` 1): JAX's online probes (the
+   first 4 of the grid at depth 1, ipe 20) on the EMA target over the
+   pretraining clips, 4 train batches of 4 (a 16-row manifest) and 1 val
+   batch, each launching B3 32 times; one row in ``eval_log_r0.csv``, its
+   top-1 and seconds. Prints the loop's ms a step as it runs (no added
+   sync: from its second step to where the checkpoint save would start),
+   clips/s, peak memory, and the wall, device-busy time and idle share of
+   one more step, all three from one traced call;
 16. train_accum — `run_vjepa` on the shipped ViT-L 64-frame cooldown
    (`ACCUM_CONFIG`: batch 12 as 6 microbatches of 2, save_attn_qkv_h),
    overriding ``mesh.model`` 4 -> 1 (one card), the folder, ipe (2) and
@@ -120,18 +126,24 @@ Phases, each printed as one JSON object on a line of its own:
 17. train_droid — V-JEPA 2-AC post-training: `cli.main`'s `run_vjepa_droid`
    (the `DroidTrainer`) on the shipped ViT-g DROID config (`DROID_CONFIG`:
    batch 8, 8 frames at 256 px, the frozen ViT-g target at depth 40, the AC
-   predictor at depth 24, auto_steps 2, bf16, synthetic trajectories),
-   overriding the folder, ipe (4) and the epochs: epoch 0, then a resumed
-   epoch 1. Every step launches B1 88 times (40 target, 24 teacher forcing,
-   24 rollout) and B2 48; before the first step, trajectory 0's loss and
-   predictor gradients on the initial weights (phase 26's parameters, bit
-   for bit) against the fp32 CPU path (the tolerances of phase 6; the CPU
-   trajectory runs on a worker thread beside the later phases, and serves
-   phase 26 too); the restored state bit-equal to the saved
-   one, the resumed first step at step 4 with the schedules' lr and weight
-   decay there, the target bit-equal before and after the steps, 8 CSV
-   rows; the loop's ms a step, clips/s, peak memory, the checkpoints, and
-   one more step traced, as in phase 15;
+   predictor at depth 24, auto_steps 2, bf16, 8 loader workers), overriding
+   the folder, ipe (4), the epochs and ``data.datasets`` (phase 28's CSV of
+   8 trajectory directories, each listed 4 times: trajectories from
+   disk, the trajectory file through `DroidDouble` where the host has no
+   h5py): epoch 0, then a resumed epoch 1. Every step launches B1 88 times
+   (40 target, 24 teacher forcing, 24 rollout) and B2 48; before the first
+   step, trajectory 0's loss and predictor gradients on the initial weights
+   (phase 26's parameters, bit for bit) and the synthetic trajectories'
+   fixed batch against the fp32 CPU path (the tolerances of phase 6; the
+   CPU trajectory runs on a worker thread beside the later phases, and
+   serves phase 26 too); the restored state bit-equal to the saved one, the
+   resumed first step at step 4 with the schedules' lr and weight decay
+   there, the target bit-equal before and after the steps, 8 CSV rows, each
+   epoch's sample indices the sampler's for that epoch (epoch 1's order not
+   epoch 0's); the loop's ms a step from disk beside the same step on the
+   synthetic trajectories, each epoch loader's first batch (its workers'
+   start) and clips/s, peak memory, the checkpoints, and one more step
+   traced, as in phase 15;
 18. plan   — latent planning: the hub's `vjepa2_ac_vit_giant()` called with
    no argument (the 22-head ViT-g and the 24 x 1024 AC predictor on the
    card in bf16) in a `planning.WorldModel`: a start and a goal frame
@@ -151,7 +163,7 @@ Phases, each printed as one JSON object on a line of its own:
    with 16 heads trained one at a time), overriding ipe (2), the epochs (1)
    and ``dataset_train`` / ``dataset_val`` (phase 28's 72- and 4-row
    manifests: clips read from disk through the port's `VideoDataset` and
-   spawned loader workers), as printed: 2 train steps and 1 val batch,
+   loader, in the main process), as printed: 2 train steps and 1 val batch,
    each launching B1 24 times and B1 at fp32 30 times (3 blocks x 10
    probes, heads of 64: the DN route; and B2 at fp32 30 times a train
    step), nothing else;
@@ -169,9 +181,11 @@ Phases, each printed as one JSON object on a line of its own:
    on the shipped ViT-L config (`EVAL_ANTICIPATION_CONFIG`: batch 16, the
    encoder and the 12 x 384 predictor in bf16, the predictor's 256 targets 1 s
    ahead, features [16, 2304, 1024], 10 fp32 three-head probes of depth 1),
-   the same overrides, checks and prints, each step and val batch launching
-   B1 36 times (24 encoder, 12 predictor with per-example RoPE tables), and
-   each probe's recall per head;
+   the same overrides, checks and prints, with ``annotations_train`` /
+   ``annotations_val`` phase 28's EK100 CSVs (clips from disk, 12 verb and
+   noun ids, read in the main process: ``num_workers`` 0), each step and
+   val batch launching B1 36 times (24 encoder, 12 predictor with
+   per-example RoPE tables), and each probe's recall per head;
 21. kernel_fp32 (run after phase 8) — the fp32 BHND flash kernels
    (`csrc/flash_fp32.cuh`: B3 and B4/B5 on fp32 operands, 3xTF32 on wgmma
    after a split pre-pass that also rotates q and k; the masks on the
@@ -231,7 +245,9 @@ Phases, each printed as one JSON object on a line of its own:
 22. eval_image — the IN1K probe eval: `run_image_classification` on the
    shipped ViT-L config (`EVAL_IMAGE_CONFIG`: 64 images a batch as 16 fake
    frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 2 and
-   1 epoch: each train step launches B1 24 times and B1 and B2 at fp32 18
+   1 epoch, ``root`` / ``root_val`` phase 28's ImageNet folders (128
+   and 64 JPEGs of 500 x 375 decoded with PIL in the main process):
+   each train step launches B1 24 times and B1 and B2 at fp32 18
    times each, a val batch B1 24 and B1 at fp32 18; the checks
    of phase 19 with the CPU's share cut to the first 4 examples, but the
    probe save and restore (phase 19's code; cut in PR 20 for time);
@@ -273,7 +289,8 @@ Phases, each printed as one JSON object on a line of its own:
    no bf16 attention kernel and no BHND one; trajectory 0's loss and predictor
    gradients on the initial weights, no op of it making a bf16 tensor,
    against phase 17's fp32 CPU trajectory (the same weights) within phase
-   25's fp32 tolerances; ms a step, clips/s, peak, one traced step;
+   25's fp32 tolerances; ms a step, clips/s, peak, one traced step; its
+   checkpoint is not written (phase 17 writes and restores one);
 27. plan_fp32 (run after phase 18) — `vjepa2_ac_vit_giant(dtype=
    torch.float32)` after `torch.manual_seed(0)` (phase 18's weights, bit for
    bit) in a `WorldModel`: two encodes (40 B1 launches at fp32 each), a warm-up
@@ -292,8 +309,14 @@ Phases, each printed as one JSON object on a line of its own:
    back through the port's `VideoReader`, its length, fps and frames
    checked), else uint8 `.npy` arrays read by `NpyVideoDataset`, a reader
    double defined here and no part of the package; a 72-row manifest (each
-   video 9 times), a 192-row one and a 4-row one. Prints ``{"decoder":
-   ...}`` on a line of its own;
+   video 9 times), a 192-row one and a 4-row one. Then the other
+   layouts: 8 DROID trajectory directories (``trajectory.h5`` with h5py,
+   else the same arrays in ``trajectory.npz`` for `DroidDouble`, the
+   script's trajectory double; a metadata ``.json``; two mp4 views of 48
+   frames at 15 fps at 256 x 340) and their CSV, EK100 annotation CSVs (32
+   and 16 rows over the 8 videos) and ImageNet folders (128 and 64 JPEGs).
+   Prints ``{"decoder": ...}`` and ``{"trajectory_reader": ...}`` on lines
+   of their own;
 29. train_disk (last) — `run_vjepa` on
    the shipped ViT-L config (`TRAIN_DISK_CONFIG`, equal to
    `configs/train/vitl16/pretrain-256px-16f.yaml`: batch 24, 16f@256, fps
@@ -360,10 +383,12 @@ import time
 import numpy as np
 import torch
 
-try:  # the base of the `.npy` reader double (`NpyVideoDataset`)
+try:  # the bases of the reader doubles (`NpyVideoDataset`, `NpyEpicKitchens`, `DroidDouble`)
+    from vjepa2_tpu_torch.data.droid import DROIDVideoDataset as _DroidDataset
+    from vjepa2_tpu_torch.data.epickitchens import EpicKitchensAnticipation as _EpicKitchens
     from vjepa2_tpu_torch.data.video_dataset import VideoDataset as _VideoDataset
 except ImportError:  # chip_smoke.py alone: `main` stops before any phase
-    _VideoDataset = object
+    _VideoDataset = _EpicKitchens = _DroidDataset = object
 
 KERNEL_SOURCE = "vjepa2_tpu_torch/csrc/flash_fwd_dn.cu"
 KERNEL_REPLACES = "vjepa2_tpu/ops/flash_attention_dn.py:129"
@@ -643,6 +668,16 @@ LOOP_CONFIG = {
 LOOP_IPE = 3  # cut from 4 to keep the script within its time limit
 # one epoch: cut from 2 (a resumed epoch 1) in PR 20, whose train_disk resumes
 LOOP_OVERRIDES = {"optimization.ipe": LOOP_IPE, "optimization.epochs": 1}
+# the online eval at the end of train_loop's epoch (``evals`` with
+# ``meta.eval_freq`` 1): the shipped SSv2 config (`EVAL_VIDEO_CONFIG`) on
+# phase disk_data's ``online`` and ``val`` manifests, JAX's online settings
+# (the first 4 probes at depth 1, ipe 20, 1 epoch) at the pretraining
+# geometry (16f@256): the ViT-H target over each batch of 4 clips (32 B3,
+# heads of 80), the depth-1 probes no kernel; 4 train batches (the 8 videos
+# twice: cut from the 72-row manifest's 18 to keep the script within its
+# time limit) and 1 val batch
+ONLINE_REPEATS = 2
+ONLINE_EVAL_LAUNCHES = {"train": _counts(b3=32), "val": _counts(b3=32)}
 ACCUM_CONFIG_FILE = "configs/train/vitl16/cooldown-256px-64f.yaml"
 ACCUM_CONFIG = {
     "app": "vjepa", "folder": "./runs/vitl16-cooldown-256px-64f",
@@ -763,6 +798,11 @@ EVAL_ANTICIPATION_CONFIG = {
         "pretrain_kwargs": {"model_name": "vit_large", "use_rope": True, "uniform_power": True}},
 }
 EVAL_IPE = 2  # cut from 4 (3 at PR 17) to keep the script within its time limit
+# The eval phases read from disk in the main process: their train and val
+# loaders' spawned workers took 8-24 s each to start on the H100 host (2 a
+# phase), for 3 batches a phase (cut to keep the script within its time
+# limit; train_disk and train_droid spawn theirs, 8 workers as shipped)
+EVAL_DISK_WORKERS = 0
 EVAL_OVERRIDES = {"experiment.optimization.ipe": EVAL_IPE,
                   "experiment.optimization.num_epochs": 1}
 # launches a train step and a val batch: SSv2's encoder over its 4 x 2 clips in
@@ -902,6 +942,62 @@ class NpyVideoDataset(_VideoDataset):
 
     def open_video(self, path: str):
         return _NpyReader(path)
+
+
+class NpyEpicKitchens(_EpicKitchens):
+    """`EpicKitchensAnticipation` opening `_NpyReader` files (the double of
+    a host with no video decoder)."""
+
+    def open_video(self, path: str):
+        return _NpyReader(path)
+
+
+# DROID trajectories (phase train_droid): 8 directories, one an example of
+# the config's batch 8, each with two views of DROID_FRAMES frames at 15 fps
+# (the config's fps 4 at 8 frames a clip: a frame step of 4, 32-frame
+# windows); the trajectory CSV lists each directory DROID_IPE times, so that
+# an epoch holds DROID_IPE batches
+DROID_TRAJECTORIES, DROID_FRAMES, DROID_FPS = 8, 48, 15.0
+DROID_CAMERAS = ("13062452", "20521388")  # DROID's camera serials name the views' files
+
+
+class _DroidNpyReader(_NpyReader):
+    avg_fps = DROID_FPS
+
+
+class DroidDouble(_DroidDataset):
+    """The trajectory double: `DROIDVideoDataset` reading ``trajectory.npz``
+    (the h5 file's arrays under their paths) where the host has no h5py,
+    and with no video decoder the views as `.npy` arrays; defined here, no
+    part of the package."""
+
+    needs_h5py = False
+
+    def __init__(self, *args, npz: bool = True, npy_videos: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.npz, self.npy_videos = npz, npy_videos
+
+    def read_trajectory(self, path: str) -> dict:
+        if not self.npz:
+            return super().read_trajectory(path)
+        prefix = "observation/camera_extrinsics/"
+        with np.load(os.path.join(path, "trajectory.npz")) as z:
+            return {"cartesian_position": z["observation/robot_state/cartesian_position"],
+                    "gripper_position": z["observation/robot_state/gripper_position"],
+                    "camera_extrinsics": {k[len(prefix):]: z[k] for k in z.files
+                                          if k.startswith(prefix)}}
+
+    def open_video(self, path: str):
+        return _DroidNpyReader(path) if self.npy_videos else super().open_video(path)
+
+
+# EK100 annotations (phase eval_anticipation) over the 8 videos: 32 train rows
+# (2 batches of 16) and 16 val rows (one batch), verb and noun ids 1-12, each
+# action a tenth of its video long (1 s of 10), starting 35-80% into it
+EK100_TRAIN_ROWS, EK100_VAL_ROWS, EK100_IDS = 32, 16, 12
+# ImageNet folders (phase eval_image): JPEGs of 500 x 375 in 8 classes, 128
+# train (2 batches of 64) and 64 val (one batch)
+IMAGE_CLASSES, IMAGE_TRAIN, IMAGE_VAL, IMAGE_HW = 8, 128, 64, (375, 500)
 
 # B6 rows: (name, [R, C]); the last three and the predictor's are the fused
 # ViT-L step's backward rows (the contexts' 578 and 173 tokens stack-padded)
@@ -2070,22 +2166,63 @@ def _resume_checks(raw: dict, part2, folder: str, ipe: int) -> dict:
             "ok": got == want and masks_ok and len(rows) == 2 * ipe}
 
 
-def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
+@contextlib.contextmanager
+def _online_eval_clock():
+    """While active, the `Pretrainer`'s online evals are timed: each call's
+    seconds, launches and result, under an `_EvalRecorder` of the video
+    eval (its per-batch launches and times)."""
+    from vjepa2_tpu_torch.evals.video_classification import VideoClassificationEval
+    from vjepa2_tpu_torch.train import loop
+
+    calls, make = [], loop.make_online_eval
+
+    def clocked(paths, **kw):
+        fn = make(paths, **kw)
+
+        def run(encoder, epoch, **ctx):
+            with _EvalRecorder(VideoClassificationEval) as rec, _loader_clock() as clock:
+                before, t0 = _launch_counts(), time.perf_counter()
+                out = fn(encoder, epoch, **ctx)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            calls.append({"epoch": epoch, "result": out, "seconds": seconds, "rec": rec,
+                          "loaders": [_loader_record(r) for r in clock],
+                          "launches": tuple(a - b for a, b in zip(_launch_counts(), before))})
+            return out
+
+        return run
+
+    loop.make_online_eval = clocked
+    try:
+        yield calls
+    finally:
+        loop.make_online_eval = make
+
+
+def phase_train_loop(dev, smi: str, data: dict) -> tuple[int, ...]:
     """The `Pretrainer` through the CLI's `run_vjepa` on the shipped ViT-H
     config (`LOOP_CONFIG`: batch 16, full remat, bf16, synthetic clips):
-    epoch 0 (the resume is phase train_disk's since PR 20). Returns the
-    launches of its steps."""
+    epoch 0 (the resume is phase train_disk's), then its online
+    eval (``evals``: the SSv2 config on phase disk_data's manifests,
+    ``meta.eval_freq`` 1) on the EMA target after the epoch's checkpoint.
+    Returns the launches of its steps and of the online eval."""
     import shutil
     import tempfile
 
     t0 = time.perf_counter()
     folder = tempfile.mkdtemp(prefix="vjepa2_loop_")
-    overrides = {"folder": folder, **LOOP_OVERRIDES}
+    eval_cfg = os.path.join(folder, "ssv2_online.yaml")
+    with open(eval_cfg, "w") as f:  # JSON is YAML
+        json.dump(overridden(EVAL_VIDEO_CONFIG, {"experiment.data.dataset_train": data["online"],
+                                                 "experiment.data.dataset_val": data["val"],
+                                                 "experiment.data.num_workers": 0}), f)
+    overrides = {"folder": folder, **LOOP_OVERRIDES, "evals": [eval_cfg], "meta.eval_freq": 1}
     raw = overridden(LOOP_CONFIG, overrides)
     per_step = LOOP_LAUNCHES
     try:
         torch.cuda.reset_peak_memory_stats(dev)
-        with _LoopRecorder() as part1:
+        with disk_datasets(data), _online_eval_clock() as evals, \
+                _LoopRecorder(skip_saves=True) as part1:
             _run_config(raw, dev, epochs=1)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
         steps = part1.steps
@@ -2094,6 +2231,8 @@ def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
             rows = [ln for ln in f.read().splitlines() if ln and not ln.startswith("epoch")]
         if len(rows) != LOOP_IPE:
             raise AssertionError(f"train_loop: {len(rows)} CSV rows for {LOOP_IPE}")
+        with open(os.path.join(folder, "eval_log_r0.csv")) as f:
+            eval_rows = [ln for ln in f.read().splitlines() if ln and not ln.startswith("epoch")]
         # one more step, synchronised and traced: its wall, device-busy time
         # and idle share, all from that one call
         fn, state, clips, me_, mp_ = part1.last
@@ -2102,17 +2241,45 @@ def phase_train_loop(dev, smi: str) -> tuple[int, ...]:
         part1.release()
     finally:
         shutil.rmtree(folder, ignore_errors=True)
-    launches = tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
+    if len(evals) != 1 or len(eval_rows) != 1:
+        raise AssertionError(f"train_loop: {len(evals)} online evals, {len(eval_rows)} rows "
+                             "in eval_log_r0.csv, for 1 epoch at eval_freq 1")
+    online = evals[0]
+    rec = online["rec"]
+    rec.check_launches("train_loop online eval", ONLINE_EVAL_LAUNCHES)
+    batch_launches = tuple(sum(b["launches"][i] for b in rec.batches)
+                           for i in range(len(KERNEL_COUNTS)))
+    top1 = online["result"].get(EVAL_VIDEO_CONFIG["tag"], float("nan"))
+    online_ok = (batch_launches == online["launches"] and 0.0 <= top1 <= 1.0
+                 and bool(torch.isfinite(rec.first["losses"]).all()))
+    launches = tuple(sum(s["launches"][i] for s in steps) + online["launches"][i]
+                     for i in range(len(KERNEL_COUNTS)))
     emit({"phase": "train_loop", "config": LOOP_CONFIG_FILE,
-          "overrides": {**overrides, "folder": "<temporary directory>"},
+          "overrides": {**overrides, "folder": "<temporary directory>",
+                        "evals": ["<EVAL_VIDEO_CONFIG with phase disk_data's manifests>"]},
           "model": "vit_huge (32 x 1280, Dh 80) 16f@256 bs16 + predictor (12 x 384, 12 heads), "
                    "RoPE, bf16, full remat, synthetic clips",
           "steps": [{k: v for k, v in s.items() if k not in ("masks", "t0")} for s in steps],
           "loop_ms_per_step": ms, "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3),
           "timed_steps": n, "one_traced_step": traced, "peak_memory_gb": peak_gb,
           "launches_per_step": dict(zip(KERNEL_COUNTS, per_step)),
-          "checkpoint": [{k: v for k, v in c.items() if k != "t0"} for c in part1.saves],
-          "csv_rows": len(rows), "seconds": time.perf_counter() - t0, "ok": True, "gpu": smi})
+          "checkpoint": "not written (cut for time; train_disk and train_droid write theirs)",
+          "csv_rows": len(rows),
+          "online_eval": {
+              "config": EVAL_VIDEO_CONFIG_FILE, "top1_smoke_signal_random_weights": top1,
+              "seconds": online["seconds"], "decoder": data["decoder"],
+              "probes": "the first 4 of the grid, depth 1, 16 heads of 80 (plain "
+                        "cross-attention), ipe 20, 1 epoch",
+              "launches": dict(zip(KERNEL_COUNTS, online["launches"])),
+              "launches_per_batch": {k: dict(zip(KERNEL_COUNTS, v))
+                                     for k, v in ONLINE_EVAL_LAUNCHES.items()},
+              "loaders": online["loaders"], "eval_log_rows": len(eval_rows),
+              **{k: v for k, v in rec.summary().items() if k != "calls"},
+              "batches": len(rec.batches)},
+          "seconds": time.perf_counter() - t0, "ok": online_ok, "gpu": smi})
+    if not online_ok:
+        raise AssertionError(f"train_loop: the online eval's launches {online['launches']} "
+                             f"(batches {batch_launches}) or top-1 {top1} off")
     return launches
 
 
@@ -2349,12 +2516,16 @@ def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
 
 def _droid_trajectory(trainer, predictor, target_encoder):
     """The DROID losses of the models on trajectory 0 of the trainer's
-    loader, and their backward: ((loss, teacher forcing, rollout), the
-    predictor's flat fp32 gradients on the CPU); the gradients are then
-    cleared. On the card or the CPU, wherever the models are."""
+    synthetic loader (a fixed batch, whatever the trainer reads), and their
+    backward: ((loss, teacher forcing, rollout), the predictor's flat fp32
+    gradients on the CPU); the gradients are then cleared. On the card or
+    the CPU, wherever the models are."""
     from vjepa2_tpu_torch.train.droid import droid_losses
+    from vjepa2_tpu_torch.train.droid_loop import SyntheticDroidLoader
 
-    loader = trainer.make_loader()
+    c = trainer.cfg
+    loader = SyntheticDroidLoader(c.data.batch_size, trainer.frames_per_clip, c.data.crop_size,
+                                  1, c.meta.seed)
     dev = next(predictor.parameters()).device
     clips, actions, states = (torch.from_numpy(x[:1]).to(dev)
                               for x in (loader.clips, loader.actions, loader.states))
@@ -2419,25 +2590,84 @@ def _trajectory_errors(card, cpu) -> dict:
             "grad_rel_l2": ((card_grads - cpu_grads).norm() / cpu_grads.norm()).item()}
 
 
-def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
+@contextlib.contextmanager
+def _loader_clock():
+    """While active, a record of every `DataLoader` iteration: its workers,
+    batch size and the seconds from its start to each batch it hands out."""
+    from vjepa2_tpu_torch.data.loader import DataLoader
+
+    seen, orig = [], DataLoader.__iter__
+
+    def timed(loader):
+        t0 = time.perf_counter()
+        rec = {"workers": loader.num_workers, "batch_size": loader.batch_size, "batch_s": []}
+        seen.append(rec)
+        for batch in orig(loader):
+            rec["batch_s"].append(time.perf_counter() - t0)
+            yield batch
+
+    DataLoader.__iter__ = timed
+    try:
+        yield seen
+    finally:
+        DataLoader.__iter__ = orig
+
+
+def _loader_record(rec: dict) -> dict:
+    """A `_loader_clock` record's workers spawned (no more than its
+    batches), seconds to the first batch (their start included), clips/s
+    over the whole iteration and after the first batch."""
+    t = rec["batch_s"]
+    after = (len(t) - 1) * rec["batch_size"] / (t[-1] - t[0]) if len(t) > 1 else None
+    return {"workers_spawned": min(rec["workers"], len(t)), "batches": len(t),
+            "first_batch_s": t[0], "seconds": t[-1],
+            "clips_per_s": len(t) * rec["batch_size"] / t[-1], "clips_per_s_after_first": after}
+
+
+def _synthetic_droid_ms(trainer, fn, state, dev, steps: int = DROID_IPE) -> float:
+    """ms a step of the trainer's step function on its synthetic
+    trajectories through the trainer's prefetch, timed as the loop times
+    itself: from the second step's start to the read-back after the last."""
+    from vjepa2_tpu_torch.data.prefetch import device_prefetch
+    from vjepa2_tpu_torch.train.droid_loop import SyntheticDroidLoader
+
+    c = trainer.cfg
+    loader = SyntheticDroidLoader(c.data.batch_size, trainer.frames_per_clip, c.data.crop_size,
+                                  steps, c.meta.seed)
+    batches = device_prefetch(loader, size=2, transform=trainer.stage, device=dev)
+    fn(state, *next(batches))["loss"].item()
+    t0 = time.perf_counter()
+    losses = [fn(state, *args)["loss"] for args in batches]
+    losses[-1].item()
+    return (time.perf_counter() - t0) * 1e3 / len(losses)
+
+
+def phase_train_droid(dev, smi: str, data: dict) -> tuple[int, ...]:
     """The `DroidTrainer` through the CLI's `run_vjepa_droid` on the shipped
     ViT-g DROID config (`DROID_CONFIG`: batch 8, 8 frames at 256 px, ViT-g
-    depth 40, predictor depth 24, auto_steps 2, bf16, synthetic trajectories):
-    epoch 0, then a new trainer on the same folder resumes and runs epoch 1.
-    Before the first step, trajectory 0's losses and predictor gradients on
-    the initial weights (the parameters of phase train_droid_fp32's, bit
-    for bit), held to the fp32 CPU path from the same weights, which runs on
+    depth 40, predictor depth 24, auto_steps 2, bf16, 8 loader workers) with
+    ``data.datasets`` phase disk_data's trajectory CSV: epoch 0, then a new
+    trainer on the same folder resumes and runs epoch 1, each epoch's batches
+    from disk (`DROIDVideoDataset`, or `DroidDouble` where the host lacks
+    h5py). Before the first step, trajectory 0's losses and predictor
+    gradients on the initial weights (the parameters of phase
+    train_droid_fp32's, bit for bit) on the synthetic trajectories' fixed
+    batch, held to the fp32 CPU path from the same weights, which runs on
     `_CPU_WORK` beside the later phases (then train_droid_fp32's check; the
-    records print when each ends). Returns the launches of all its steps."""
+    records print when each ends). Then the same step on the synthetic
+    trajectories (ms a step beside). Returns the launches of the steps from
+    disk."""
     import shutil
     import tempfile
 
     from vjepa2_tpu_torch.core import schedulers
+    from vjepa2_tpu_torch.data.samplers import DistributedSampler
 
     t0 = time.perf_counter()
     folder = tempfile.mkdtemp(prefix="vjepa2_droid_")
-    overrides = {"folder": folder, **DROID_OVERRIDES}
+    overrides = {"folder": folder, "data.datasets": [data["droid"]], **DROID_OVERRIDES}
     raw = overridden(DROID_CONFIG, overrides)
+    bs = raw["data"]["batch_size"]
     traj = {}
 
     def on_card(trainer, state):  # the initial weights: trajectory 0, and the same as fp32's
@@ -2446,25 +2676,28 @@ def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
         torch.cuda.reset_peak_memory_stats(dev)
 
     try:
-        with _LoopRecorder(on_restore=on_card, droid=True) as part1:
-            _run_config(raw, dev, epochs=1)
-        _, state1 = part1.states[0]
-        saved = {k: v.detach().to("cpu", copy=True) for k, v in _state_tensors(state1)}
-        part1.release()
-        del state1
-        restored = {}
+        with disk_datasets(data), _batch_indices() as seen, _loader_clock() as clock:
+            with _LoopRecorder(on_restore=on_card, droid=True) as part1:
+                _run_config(raw, dev, epochs=1)
+            _, state1 = part1.states[0]
+            saved = {k: v.detach().to("cpu", copy=True) for k, v in _state_tensors(state1)}
+            part1.release()
+            del state1
+            restored = {}
 
-        def compare(trainer, state):  # the restored state against the saved one
-            restored["step"] = state.step
-            restored["tensors"] = len(saved)
-            restored["bit_equal"] = all(torch.equal(v.cpu(), saved[k])
-                                        for k, v in _state_tensors(state)) \
-                and sorted(k for k, _ in _state_tensors(state)) == sorted(saved)
+            def compare(trainer, state):  # the restored state against the saved one
+                restored["step"] = state.step
+                restored["tensors"] = len(saved)
+                restored["bit_equal"] = all(torch.equal(v.cpu(), saved[k])
+                                            for k, v in _state_tensors(state)) \
+                    and sorted(k for k, _ in _state_tensors(state)) == sorted(saved)
 
-        with _LoopRecorder(on_restore=compare, droid=True) as part2:
-            _run_config(raw, dev, epochs=2)
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-        del saved
+            with _LoopRecorder(on_restore=compare, droid=True) as part2:
+                _run_config(raw, dev, epochs=2)
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+            del saved
+            trainer, state = part2.states[0]
+            dataset = type(trainer.make_loader(0).dataset).__name__
         steps = part1.steps + part2.steps
         _check_launches("train_droid", steps, DROID_LAUNCHES)
         if not restored.get("bit_equal") or restored["step"] != DROID_IPE:
@@ -2472,7 +2705,6 @@ def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
         if not _DROID_CPU["same"]:
             raise AssertionError("the bf16 and fp32 DROID trainers start from other weights")
         first = part2.steps[0]
-        trainer, state = part2.states[0]
         hp = trainer.hp
         want = {"step": DROID_IPE,
                 "lr": schedulers.wsd_lr(DROID_IPE, warmup_steps=hp.warmup_steps,
@@ -2489,10 +2721,24 @@ def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
         if got != want or not target_equal or len(rows) != 2 * DROID_IPE:
             raise AssertionError(f"resume: {got} against {want}, target bit-equal "
                                  f"{target_equal}, {len(rows)} CSV rows for {2 * DROID_IPE}")
+        # each epoch's sample indices: the sampler's for that epoch
+        n_rows = DROID_TRAJECTORIES * DROID_IPE
+        indices = {}
+        for epoch in (0, 1):
+            sampler = DistributedSampler(n_rows, 1, 0, seed=raw["meta"]["seed"])
+            sampler.set_epoch(epoch)
+            idx = list(sampler)
+            indices[epoch] = [b for e, b in seen if e == epoch] == [
+                idx[k * bs:(k + 1) * bs] for k in range(DROID_IPE)]
+        order_differs = [b for e, b in seen if e == 0] != [b for e, b in seen if e == 1]
+        if not (indices[0] and indices[1] and order_differs):
+            raise AssertionError(f"train_droid: sample indices {indices}, epoch 1's order "
+                                 f"differs {order_differs}")
         # one more step, synchronised and traced: its wall, device-busy time
         # and idle share, all from that one call
         fn, state_, *batch = part2.last
         traced = wall_and_busy(lambda: fn(state_, *batch)["loss"].item())
+        ms_synth = _synthetic_droid_ms(trainer, fn, state_, dev)
         (ms1, n1), (ms2, n2) = part1.loop_ms_per_step(), part2.loop_ms_per_step()
         ms = (ms1 * n1 + ms2 * n2) / (n1 + n2)
         part2.release()
@@ -2501,19 +2747,28 @@ def phase_train_droid(dev, smi: str) -> tuple[int, ...]:
         shutil.rmtree(folder, ignore_errors=True)
     launches = tuple(sum(s["launches"][i] for s in steps) for i in range(len(KERNEL_COUNTS)))
     record = {"phase": "train_droid", "config": DROID_CONFIG_FILE,
-              "overrides": {**overrides, "folder": "<temporary directory>"},
+              "overrides": {**overrides, "folder": "<temporary directory>",
+                            "data.datasets": [f"<{n_rows}-row CSV of {DROID_TRAJECTORIES} "
+                                              "trajectory directories>"]},
               "model": "vit_giant_xformers target (40 x 1408, 22 heads of 64) over 64 single "
                        "frames of 256 tokens + AC predictor (24 x 1024, 16 heads of 64) over "
                        "1806 and 516 frame-causal tokens (stack-padded to 1808 and 520), bs8, "
-                       "8f@256, auto_steps 2, RoPE, bf16, synthetic trajectories",
+                       "8f@256, auto_steps 2, RoPE, bf16; trajectories from disk: 2 views of "
+                       f"{DROID_FRAMES} frames at {DROID_FPS:g} fps a trajectory, fps 4, "
+                       "random resized crops",
+              "decoder": data["decoder"], "trajectory_reader": data["trajectory_reader"],
+              "dataset": dataset,
               "steps": [{k: v for k, v in s.items() if k != "t0"} for s in steps],
-              "loop_ms_per_step": ms, "loop_ms_per_step_by_part": [ms1, ms2],
-              "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3), "timed_steps": n1 + n2,
+              "loop_ms_per_step_disk": ms, "loop_ms_per_step_disk_by_part": [ms1, ms2],
+              "ms_per_step_synthetic": ms_synth, "disk_over_synthetic": ms / ms_synth,
+              "clips_per_s_disk": bs / (ms / 1e3), "timed_steps": n1 + n2,
+              "loader_in_the_run": [_loader_record(r) for r in clock],
               "one_traced_step": traced, "peak_memory_gb": peak_gb,
               "launches_per_step": dict(zip(KERNEL_COUNTS, DROID_LAUNCHES)),
               "checkpoint": [{k: v for k, v in c.items() if k != "t0"}
                              for c in part1.saves + part2.saves],
               "restored": restored, "resumed_first": got, "target_bit_equal": target_equal,
+              "sample_indices_equal_sampler": indices, "epoch1_order_differs": order_differs,
               "initial_weights_equal_train_droid_fp32": True, "csv_rows": len(rows),
               "card_s": time.perf_counter() - t0, "gpu": smi}
     card = traj.pop("card")
@@ -2583,7 +2838,7 @@ def phase_train_droid_fp32(dev, smi: str) -> tuple[int, ...]:
         torch.cuda.reset_peak_memory_stats(dev)
 
     try:
-        with _LoopRecorder(on_restore=on_card, droid=True) as part:
+        with _LoopRecorder(on_restore=on_card, droid=True, skip_saves=True) as part:
             _run_config(raw, dev, epochs=1)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
         _check_launches("train_droid_fp32", part.steps, DROID_FP32_LAUNCHES)
@@ -2592,7 +2847,7 @@ def phase_train_droid_fp32(dev, smi: str) -> tuple[int, ...]:
         fn, state_, *batch = part.last
         traced = wall_and_busy(lambda: fn(state_, *batch)["loss"].item())
         ms, n = part.loop_ms_per_step()
-        steps, saves = part.steps, part.saves
+        steps = part.steps
         part.release()
         del state_, fn, batch
     finally:
@@ -2609,7 +2864,7 @@ def phase_train_droid_fp32(dev, smi: str) -> tuple[int, ...]:
               "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3),
               "one_traced_step": traced, "peak_memory_gb": peak_gb,
               "launches_per_step": dict(zip(KERNEL_COUNTS, DROID_FP32_LAUNCHES)),
-              "checkpoint": [{k: v for k, v in c.items() if k != "t0"} for c in saves],
+              "checkpoint": "not written (cut for time; train_droid writes and restores)",
               "losses_finite": losses_finite, "dtypes": traj["dtypes"],
               "bf16_ops_in_trajectory": traj["bf16_ops"],
               "card_s": time.perf_counter() - t0, "gpu": smi}
@@ -4517,13 +4772,14 @@ def _probes_restore_bit_equal(ev) -> bool:
 
 def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, cls, want: dict,
                     run, checks, extra: dict, overrides=EVAL_OVERRIDES,
-                    restore_check: bool = True) -> tuple[int, ...]:
+                    restore_check: bool = True, loaders=None) -> tuple[int, ...]:
     """One eval config through its `cli.eval` run function under an
     `_EvalRecorder`; then one more traced train step, the checks
     (``checks(ev, rec)``: a dict with "ok", or a function of no argument
     that gives it, run on the CPU beside the later phases by `_CPU_WORK`,
     the record emitted when it ends) and, with ``restore_check``, a probe
-    save and restore. Returns the launches of its train steps and val
+    save and restore. ``loaders``: a `_loader_clock` record of the run's
+    loaders, recorded. Returns the launches of its train steps and val
     batches."""
     import gc
 
@@ -4556,6 +4812,8 @@ def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, c
                   result, default=lambda o: o.tolist())), "losses_finite": losses_finite,
               "probes_restored_bit_equal": restored, "run_s": run_s,
               "seconds": time.perf_counter() - t0, "gpu": smi}
+    if loaders is not None:
+        record["loaders"] = [_loader_record(r) for r in loaders]
     del ev, rec
     gc.collect()
     torch.cuda.empty_cache()
@@ -4578,7 +4836,7 @@ def phase_eval_video(dev, smi: str, data: dict) -> tuple[int, ...]:
     """The SSv2 probe eval: `cli.eval.run_video_classification` on the
     shipped ViT-L config (`EVAL_VIDEO_CONFIG`) with ``dataset_train`` /
     ``dataset_val`` the manifests of phase disk_data, read through the
-    port's loaders (4 spawned workers, JAX's default): the encoder (RoPE,
+    port's loaders in the main process (`EVAL_DISK_WORKERS`): the encoder (RoPE,
     bf16, 16f@256) over 4 x 2 clips a batch into features [4, 4096, 1024],
     10 fp32 probes of depth 4 (16 heads, 174 classes) trained one at a time;
     2 train steps and 1 val batch (one view)."""
@@ -4594,8 +4852,9 @@ def phase_eval_video(dev, smi: str, data: dict) -> tuple[int, ...]:
         return lambda: encode_clips(enc, torch.from_numpy(np.asarray(args[0][:1])))
 
     overrides = {**EVAL_OVERRIDES, "experiment.data.dataset_train": data["train"],
-                 "experiment.data.dataset_val": data["val"]}
-    with disk_datasets(data):
+                 "experiment.data.dataset_val": data["val"],
+                 "experiment.data.num_workers": EVAL_DISK_WORKERS}
+    with disk_datasets(data), _loader_clock() as clock:
         return _run_eval_phase(
             "eval_video", dev, smi, EVAL_VIDEO_CONFIG, EVAL_VIDEO_CONFIG_FILE,
             VideoClassificationEval, EVAL_VIDEO_LAUNCHES, cli_eval.run_video_classification,
@@ -4605,15 +4864,19 @@ def phase_eval_video(dev, smi: str, data: dict) -> tuple[int, ...]:
                       "flash kernels, 174 classes), one at a time; random weights; clips from "
                       f"disk ({DISK_VIDEOS * DISK_REPEATS}-row train and {DISK_VAL_ROWS}-row "
                       "val manifests, frame step 4)", "decoder": data["decoder"]},
-            overrides=overrides)
+            overrides=overrides, loaders=clock)
 
 
-def phase_eval_anticipation(dev, smi: str) -> tuple[int, ...]:
+def phase_eval_anticipation(dev, smi: str, data: dict) -> tuple[int, ...]:
     """The EK100 anticipation eval: `cli.eval.run_action_anticipation` on
-    the shipped ViT-L config (`EVAL_ANTICIPATION_CONFIG`): the encoder over
-    16 clips, the predictor (12 x 384, 12 heads of 32) over 2048 context
-    tokens plus 256 targets 1 s ahead, features [16, 2304, 1024]; 10 fp32
-    three-head probes of depth 1; 2 train steps and 1 val batch."""
+    the shipped ViT-L config (`EVAL_ANTICIPATION_CONFIG`) with
+    ``annotations_train`` / ``annotations_val`` phase disk_data's EK100
+    CSVs, the clips read from disk through the port's loaders in the main
+    process (`EVAL_DISK_WORKERS`): the encoder over 16 clips, the
+    predictor (12 x 384, 12 heads of 32) over 2048 context tokens plus 256
+    targets 1 s ahead, features [16, 2304, 1024]; 10 fp32 three-head probes
+    of depth 1 over the train set's 12 verbs, nouns and its actions; 2 train
+    steps and 1 val batch."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.action_anticipation import AnticipationEval, anticipative_features
     from vjepa2_tpu_torch.models.predictor import vit_predictor
@@ -4635,24 +4898,35 @@ def phase_eval_anticipation(dev, smi: str) -> tuple[int, ...]:
             torch.from_numpy(np.asarray(args[1][:1])), frames_per_second=d["frames_per_second"],
             grid_size=hp, h_patches=hp, w_patches=hp)
 
-    return _run_eval_phase(
-        "eval_anticipation", dev, smi, EVAL_ANTICIPATION_CONFIG, EVAL_ANTICIPATION_CONFIG_FILE,
-        AnticipationEval, EVAL_ANTICIPATION_LAUNCHES, cli_eval.run_action_anticipation,
-        lambda ev, rec: _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"])),
-        {"model": "vit_large 16f@256 bf16 RoPE, batch 16, + predictor (12 x 384, 12 heads of "
-                  "32) over 2048 + 256 tokens -> features [16, 2304, 1024]; 10 fp32 "
-                  "three-head probes (depth 1), one at a time; random weights, synthetic clips",
-         "note": "the val pass's host_ms holds drawing its synthetic batch (numpy, inside "
-                 "evaluate's loop); its encode_ms and probes_ms are the device's"})
+    overrides = {**EVAL_OVERRIDES, "experiment.data.annotations_train": data["ek100_train"],
+                 "experiment.data.annotations_val": data["ek100_val"],
+                 "experiment.data.num_workers": EVAL_DISK_WORKERS}
+    with disk_datasets(data), _loader_clock() as clock:
+        return _run_eval_phase(
+            "eval_anticipation", dev, smi, EVAL_ANTICIPATION_CONFIG,
+            EVAL_ANTICIPATION_CONFIG_FILE, AnticipationEval, EVAL_ANTICIPATION_LAUNCHES,
+            cli_eval.run_action_anticipation,
+            lambda ev, rec: _eval_cpu_checks(ev, rec,
+                                             lambda: cpu_features(ev, rec.first["args"])),
+            {"model": "vit_large 16f@256 bf16 RoPE, batch 16, + predictor (12 x 384, 12 heads "
+                      "of 32) over 2048 + 256 tokens -> features [16, 2304, 1024]; 10 fp32 "
+                      "three-head probes (depth 1), one at a time; random weights; clips from "
+                      f"disk ({EK100_TRAIN_ROWS}- and {EK100_VAL_ROWS}-row annotation CSVs over "
+                      f"{DISK_VIDEOS} videos, 12 verb and noun ids)", "decoder": data["decoder"],
+             "note": "the val pass's host_ms holds reading its clips from disk (in the "
+                     "main process); its encode_ms and probes_ms are the device's"},
+            overrides=overrides, loaders=clock)
 
 
-def phase_eval_image(dev, smi: str) -> tuple[int, ...]:
+def phase_eval_image(dev, smi: str, data: dict) -> tuple[int, ...]:
     """The IN1K probe eval: `cli.eval.run_image_classification` on the
-    shipped ViT-L config (`EVAL_IMAGE_CONFIG`): 64 images a batch, each
-    replicated to 16 fake frames, the encoder (RoPE, bf16) into features
-    [64, 2048, 1024], 6 fp32 probes of depth 4 (16 heads of 64 on the fp32
-    flash kernels, 1000 classes) trained one at a time; 2 train steps and 1
-    val batch. The CPU checks take the first 4 examples."""
+    shipped ViT-L config (`EVAL_IMAGE_CONFIG`) with ``root`` / ``root_val``
+    phase disk_data's ImageNet folders, the JPEGs decoded with PIL and
+    cropped by the port's loader in the main process: 64 images a batch, each replicated
+    to 16 fake frames, the encoder (RoPE, bf16) into features [64, 2048,
+    1024], 6 fp32 probes of depth 4 (16 heads of 64 on the fp32 flash
+    kernels, 1000 classes) trained one at a time; 2 train steps and 1 val
+    batch. The CPU checks take the first 4 examples."""
     from vjepa2_tpu_torch.cli import eval as cli_eval
     from vjepa2_tpu_torch.evals.image_classification import ImageClassificationEval
     from vjepa2_tpu_torch.evals.wrappers import image_as_video
@@ -4666,15 +4940,22 @@ def phase_eval_image(dev, smi: str) -> tuple[int, ...]:
             device=device))
         return lambda: enc(image_as_video(torch.from_numpy(np.asarray(args[0][:1])), frames))
 
-    return _run_eval_phase(
-        "eval_image", dev, smi, EVAL_IMAGE_CONFIG, EVAL_IMAGE_CONFIG_FILE,
-        ImageClassificationEval, EVAL_IMAGE_LAUNCHES, cli_eval.run_image_classification,
-        lambda ev, rec: _eval_cpu_checks(ev, rec, lambda: cpu_features(ev, rec.first["args"]),
-                                         n=EVAL_IMAGE_CPU_EXAMPLES),
-        {"model": "vit_large 16f@256 bf16 RoPE, 64 images as 16 fake frames -> features "
-                  "[64, 2048, 1024]; 6 fp32 probes (depth 4, 16 heads of 64 on the fp32 flash "
-                  "kernels, 1000 classes), one at a time; random weights, synthetic images"},
-        restore_check=False)
+    overrides = {**EVAL_OVERRIDES, "experiment.data.root": data["in1k_train"],
+                 "experiment.data.root_val": data["in1k_val"],
+                 "experiment.data.num_workers": EVAL_DISK_WORKERS}
+    with _loader_clock() as clock:
+        return _run_eval_phase(
+            "eval_image", dev, smi, EVAL_IMAGE_CONFIG, EVAL_IMAGE_CONFIG_FILE,
+            ImageClassificationEval, EVAL_IMAGE_LAUNCHES, cli_eval.run_image_classification,
+            lambda ev, rec: _eval_cpu_checks(ev, rec,
+                                             lambda: cpu_features(ev, rec.first["args"]),
+                                             n=EVAL_IMAGE_CPU_EXAMPLES),
+            {"model": "vit_large 16f@256 bf16 RoPE, 64 images as 16 fake frames -> features "
+                      "[64, 2048, 1024]; 6 fp32 probes (depth 4, 16 heads of 64 on the fp32 "
+                      "flash kernels, 1000 classes), one at a time; random weights; images "
+                      f"from disk ({IMAGE_TRAIN} train and {IMAGE_VAL} val JPEGs of "
+                      f"{IMAGE_HW[1]} x {IMAGE_HW[0]} in {IMAGE_CLASSES} classes, PIL)"},
+            overrides=overrides, restore_check=False, loaders=clock)
 
 
 def _eval_384_checks(ev, rec) -> dict:
@@ -4773,32 +5054,138 @@ def phase_eval_video_384(dev, smi: str) -> tuple[int, ...]:
         overrides=EVAL_VIDEO_384_OVERRIDES, restore_check=False)
 
 
-def _disk_video(i: int) -> np.ndarray:
-    """Source video ``i``: uint8 [DISK_FRAMES, H, W, 3], a smooth random field
-    panning 2 px a frame (the numpy resize of a coarse grid), with fine
-    noise."""
+def _disk_video(i: int, frames: int = 0) -> np.ndarray:
+    """Source video ``i``: uint8 [frames (else DISK_FRAMES), H, W, 3], a
+    smooth random field panning 2 px a frame (the numpy resize of a coarse
+    grid), with fine noise."""
     from vjepa2_tpu_torch.data.transforms import resize_clip
 
+    frames = frames or DISK_FRAMES
     H, W = DISK_HW
     rng = np.random.default_rng(1000 + i)
-    wide = W + 2 * DISK_FRAMES
+    wide = W + 2 * frames
     coarse = rng.integers(0, 256, (1, H // 16, wide // 16, 3), dtype=np.uint8)
     field = resize_clip(coarse, (H, wide))[0]
     noise = rng.integers(-6, 7, (H, W, 3))
     return np.stack([np.clip(field[:, 2 * t:2 * t + W] + noise, 0, 255).astype(np.uint8)
-                     for t in range(DISK_FRAMES)])
+                     for t in range(frames)])
+
+
+def _write_video(cv2, path: str, frames: np.ndarray, fps: float) -> str:
+    """``frames`` as an mp4v file at ``path`` with cv2, else as a `.npy`
+    array (under the same name, for the doubles); returns the path."""
+    if cv2 is None:
+        with open(path, "wb") as f:
+            np.save(f, frames)
+        return path
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                          (frames.shape[2], frames.shape[1]))
+    for f in frames:
+        out.write(np.ascontiguousarray(f[..., ::-1]))  # RGB -> cv2's BGR
+    out.release()
+    return path
+
+
+def _write_droid(root: str, cv2) -> tuple[str, str]:
+    """`DROID_TRAJECTORIES` trajectory directories under ``root``, as the
+    DROID release lays them out: the robot state and each camera's
+    extrinsics in ``trajectory.h5`` (with h5py; else the same arrays under
+    the same paths in ``trajectory.npz``, `DroidDouble`'s), a metadata
+    ``.json`` naming the two views, and the views under ``recordings/MP4/``;
+    and the CSV listing each directory `DROID_IPE` times. Returns (the CSV,
+    the trajectory reader)."""
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    dirs = []
+    for i in range(DROID_TRAJECTORIES):
+        path = os.path.join(root, f"droid_{i}")
+        os.makedirs(os.path.join(path, "recordings", "MP4"))
+        rng = np.random.default_rng(2000 + i)
+        T = DROID_FRAMES
+        xyz = 0.5 + np.cumsum(rng.normal(scale=0.005, size=(T, 3)), axis=0)
+        euler = np.cumsum(rng.normal(scale=0.02, size=(T, 3)), axis=0) + rng.uniform(-3, 3, 3)
+        arrays = {"observation/robot_state/cartesian_position": np.concatenate([xyz, euler], 1),
+                  "observation/robot_state/gripper_position": rng.uniform(0, 1, T)}
+        for cam in DROID_CAMERAS:
+            pose = np.concatenate([rng.normal(size=3), rng.uniform(-3, 3, 3)])
+            for side in ("left", "right"):
+                arrays[f"observation/camera_extrinsics/{cam}_{side}"] = np.tile(pose, (T, 1))
+        if h5py is not None:
+            with h5py.File(os.path.join(path, "trajectory.h5"), "w") as f:
+                for key, value in arrays.items():
+                    f[key] = value
+        else:
+            np.savez(os.path.join(path, "trajectory.npz"), **arrays)
+        meta = {}
+        for v, (view, cam) in enumerate(zip(("left_mp4_path", "right_mp4_path"), DROID_CAMERAS)):
+            frames = _disk_video(100 + 2 * i + v, DROID_FRAMES)
+            _write_video(cv2, os.path.join(path, "recordings", "MP4", f"{cam}.mp4"), frames,
+                         DROID_FPS)
+            meta[view] = f"droid_{i}/recordings/MP4/{cam}.mp4"
+        with open(os.path.join(path, f"metadata_droid_{i}.json"), "w") as f:
+            json.dump(meta, f)
+        dirs.append(path)
+    csv_path = os.path.join(root, "droid_trajectories.csv")
+    with open(csv_path, "w") as f:
+        f.writelines(f"{d}\n" for d in dirs * DROID_IPE)
+    return csv_path, "h5py" if h5py is not None else "npz-double"
+
+
+def _write_ek100(root: str, paths: list) -> tuple[str, str]:
+    """EK100 annotation CSVs over the videos ``paths`` (JAX's columns
+    ``video_path,start_sec,stop_sec,verb,noun,action``, numeric ids 1-12):
+    (train, val)."""
+    out, duration = [], DISK_FRAMES / DISK_FPS
+    for name, rows, seed in (("train", EK100_TRAIN_ROWS, 0), ("val", EK100_VAL_ROWS, 1)):
+        rng = np.random.default_rng(3000 + seed)
+        lines = ["video_path,start_sec,stop_sec,verb,noun,action"]
+        for r in range(rows):
+            start = float(rng.uniform(0.35, 0.8)) * duration
+            verb, noun = 1 + (r + seed) % EK100_IDS, 1 + (5 * r) % EK100_IDS
+            lines.append(f"{paths[r % len(paths)]},{start:.3f},{start + 0.1 * duration:.3f},"
+                         f"{verb},{noun},{(verb - 1) * EK100_IDS + noun - 1}")
+        out.append(os.path.join(root, f"ek100_{name}.csv"))
+        with open(out[-1], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return out[0], out[1]
+
+
+def _write_imagenet(root: str) -> tuple[str, str]:
+    """ImageNet folders ``<split>/<wnid>/<image>.JPEG`` (PIL, quality 90):
+    smooth random fields at `IMAGE_HW`; (train, val)."""
+    from PIL import Image
+
+    H, W = IMAGE_HW
+    out = []
+    for split, n, seed in (("train", IMAGE_TRAIN, 0), ("val", IMAGE_VAL, 1)):
+        rng = np.random.default_rng(4000 + seed)
+        for k in range(n):
+            wnid = f"n{1440764 + k % IMAGE_CLASSES:08d}"
+            os.makedirs(os.path.join(root, split, wnid), exist_ok=True)
+            coarse = rng.integers(0, 256, (H // 25, W // 25, 3), dtype=np.uint8)
+            img = Image.fromarray(coarse).resize((W, H), Image.BILINEAR)
+            img.save(os.path.join(root, split, wnid, f"{wnid}_{k}.JPEG"), quality=90)
+        out.append(os.path.join(root, split))
+    return out[0], out[1]
 
 
 def phase_disk_data(root: str) -> dict:
-    """The video files of phases train_disk and eval_video, under ``root``:
-    the card host's decoders first (cv2, imageio, the libav headers the
-    native decoder needs). Where cv2 can write and the port can read, mp4
-    files (mp4v) read by the port's `VideoReader` (its own backend choice);
-    else uint8 `.npy` arrays read by `NpyVideoDataset`, the double. The
-    manifests: ``train`` (72 rows, each video 9 times, labelled with its
-    index), ``bench`` (192 rows: a batch for each of the 8 loader workers)
-    and ``val`` (the first 4 videos). Runs on a thread beside the kernel
-    phases; prints the decoder on a line of its own."""
+    """The files of phases train_disk, train_loop's online eval, eval_video,
+    train_droid, eval_anticipation and eval_image, under ``root``: the card
+    host's decoders first (cv2, imageio, the libav headers the native
+    decoder needs). Where cv2 can write and the port can read, mp4 files
+    (mp4v) read by the port's `VideoReader` (its own backend choice); else
+    uint8 `.npy` arrays read by the doubles (`NpyVideoDataset`,
+    `NpyEpicKitchens`, `DroidDouble`). The manifests: ``train`` (72 rows,
+    each video 9 times, labelled with its index), ``bench`` (192 rows: a
+    batch for each of the 8 loader workers), ``val`` (the first 4 videos)
+    and ``online`` (16 rows); the DROID trajectories and their CSV (``droid``; h5py's files,
+    else `DroidDouble`'s), the EK100 annotations over the 8 videos
+    (``ek100_train``, ``ek100_val``) and the ImageNet folders (``in1k_train``,
+    ``in1k_val``). Runs on a thread beside the kernel phases; prints the
+    decoder and the trajectory reader on lines of their own."""
     from vjepa2_tpu_torch.data import native, video
 
     t0 = time.perf_counter()
@@ -4812,12 +5199,7 @@ def phase_disk_data(root: str) -> dict:
     for i in range(DISK_VIDEOS):
         frames = _disk_video(i)
         if cv2 is not None:
-            path = os.path.join(root, f"video_{i}.mp4")
-            out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), DISK_FPS,
-                                  (DISK_HW[1], DISK_HW[0]))
-            for f in frames:
-                out.write(np.ascontiguousarray(f[..., ::-1]))  # RGB -> cv2's BGR
-            out.release()
+            path = _write_video(cv2, os.path.join(root, f"video_{i}.mp4"), frames, DISK_FPS)
             reader = video.VideoReader(path)
             probe = [0, DISK_FRAMES // 2, DISK_FRAMES - 1]
             got = reader.get_batch(probe)
@@ -4833,33 +5215,56 @@ def phase_disk_data(root: str) -> dict:
         nbytes += os.path.getsize(path)
     manifests = {}
     for name, rows in (("train", paths * DISK_REPEATS), ("bench", paths * 24),
-                       ("val", paths[:DISK_VAL_ROWS])):
+                       ("val", paths[:DISK_VAL_ROWS]), ("online", paths * ONLINE_REPEATS)):
         manifests[name] = os.path.join(root, f"{name}.csv")
         with open(manifests[name], "w") as f:
             f.writelines(f"{p} {paths.index(p)}\n" for p in rows)
     emit({"decoder": decoder})
+    t1 = time.perf_counter()
+    manifests["droid"], reader_name = _write_droid(root, cv2)
+    emit({"trajectory_reader": reader_name})
+    manifests["ek100_train"], manifests["ek100_val"] = _write_ek100(root, paths)
+    manifests["in1k_train"], manifests["in1k_val"] = _write_imagenet(root)
     emit({"phase": "disk_data", **found, "decoder": decoder, "videos": DISK_VIDEOS,
           "frames": DISK_FRAMES, "height_width": list(DISK_HW), "fps": DISK_FPS,
           "bytes": nbytes, "train_rows": len(paths) * DISK_REPEATS,
-          "seconds": time.perf_counter() - t0})
-    return {"decoder": decoder, **manifests}
+          "trajectory_reader": reader_name, "droid_trajectories": DROID_TRAJECTORIES,
+          "droid_frames": DROID_FRAMES, "droid_fps": DROID_FPS,
+          "ek100_rows": [EK100_TRAIN_ROWS, EK100_VAL_ROWS],
+          "images": [IMAGE_TRAIN, IMAGE_VAL], "image_height_width": list(IMAGE_HW),
+          "other_layouts_s": time.perf_counter() - t1, "seconds": time.perf_counter() - t0})
+    return {"decoder": decoder, "trajectory_reader": reader_name, **manifests}
 
 
 @contextlib.contextmanager
 def disk_datasets(data: dict):
-    """While active, with the double, the port's loaders build
-    `NpyVideoDataset` where they build `VideoDataset`."""
-    if data["decoder"] != "npy-double":
-        yield
-        return
-    from vjepa2_tpu_torch.data import manager, video_dataset
+    """While active, the port's loaders build the doubles where this host
+    needs them: with no video decoder, `NpyVideoDataset` and
+    `NpyEpicKitchens` where they build `VideoDataset` and
+    `EpicKitchensAnticipation`; with no h5py or no decoder, `DroidDouble`
+    where the DROID trainer builds `DROIDVideoDataset`."""
+    import functools
 
-    saved = manager.VideoDataset, video_dataset.VideoDataset
-    manager.VideoDataset = video_dataset.VideoDataset = NpyVideoDataset
+    from vjepa2_tpu_torch.data import epickitchens, manager, video_dataset
+    from vjepa2_tpu_torch.train import droid_loop
+
+    npy = data["decoder"] == "npy-double"
+    patches = []
+    if npy:
+        patches += [(manager, "VideoDataset", NpyVideoDataset),
+                    (video_dataset, "VideoDataset", NpyVideoDataset),
+                    (epickitchens, "EpicKitchensAnticipation", NpyEpicKitchens)]
+    if npy or data["trajectory_reader"] != "h5py":
+        patches.append((droid_loop, "DROIDVideoDataset", functools.partial(
+            DroidDouble, npz=data["trajectory_reader"] != "h5py", npy_videos=npy)))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, value in patches:
+        setattr(mod, name, value)
     try:
         yield
     finally:
-        manager.VideoDataset, video_dataset.VideoDataset = saved
+        for mod, name, value in saved:
+            setattr(mod, name, value)
 
 
 @contextlib.contextmanager
@@ -5081,21 +5486,21 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data) -
                       torch.float32)
     fused_l, unfused_l = timed("train_fused", phase_train_fused, dev, smi)
     fused_fp32_l = timed("train_fused_fp32", phase_train_fused_fp32, dev, smi)
-    loop_l = timed("train_loop", phase_train_loop, dev, smi)
+    data = data.result()
+    loop_l = timed("train_loop", phase_train_loop, dev, smi, data)
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
     _DEFERRED.extend(_CPU_WORK.submit(job) for job in _CPU_LATER)  # beside device-bound phases
     droid_fp32_l = timed("train_droid_fp32", phase_train_droid_fp32, dev, smi)
-    droid_l = timed("train_droid", phase_train_droid, dev, smi)
+    droid_l = timed("train_droid", phase_train_droid, dev, smi, data)
     plan_l = timed("plan", phase_plan, dev, smi)
     plan_fp32_l = timed("plan_fp32", phase_plan_fp32, dev, smi)
     export_l = timed("export", phase_export, dev, smi, exports, export_root)
     # the device-bound eval steps first, so that the CPU references each
     # phase leaves to `_CPU_WORK` run beside card work that does not time
     # the host (the anticipation eval's step is host-bound)
-    eval_a = timed("eval_anticipation", phase_eval_anticipation, dev, smi)
-    data = data.result()
+    eval_a = timed("eval_anticipation", phase_eval_anticipation, dev, smi, data)
     eval_v = timed("eval_video", phase_eval_video, dev, smi, data)
-    eval_i = timed("eval_image", phase_eval_image, dev, smi)
+    eval_i = timed("eval_image", phase_eval_image, dev, smi, data)
     eval_384 = timed("eval_video_384", phase_eval_video_384, dev, smi)
     # last: its 8 loader workers want the host's cores, which the CPU
     # references leave by the time its loader is timed alone

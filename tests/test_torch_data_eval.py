@@ -3,8 +3,9 @@
 (videos written with cv2): the train and val batches equal (clips [B, nc,
 T, S, S, 3], labels, clip indices) at one and two segments; `cli.eval`
 running the shipped SSv2 config, shrunk as ``--tiny`` shrinks it, with
-``dataset_train`` / ``dataset_val`` on disk through spawned workers; and
-the image and EK100 paths still refused, naming ROADMAP A8c."""
+``dataset_train`` / ``dataset_val`` on disk through spawned workers; and the
+IN1K and EK100 runs reading their data paths (`tests/test_torch_data_imagenet.py`
+and `test_torch_data_ek100.py` hold their data to JAX's)."""
 
 import copy
 from pathlib import Path
@@ -67,11 +68,27 @@ def test_cli_eval_reads_video_manifests(manifests, tmp_path):
     assert 0.0 <= out["top1"] <= 1.0 and len(out["top1_per_probe"]) == 2
 
 
-@pytest.mark.parametrize("name, key", [("in1k", "root_val"), ("ek100", "annotations_val")])
-def test_image_and_ek100_paths_are_refused(manifests, name, key):
+@pytest.mark.parametrize("name", ["in1k", "ek100"])
+def test_image_and_ek100_paths_run(manifests, name, monkeypatch):
+    """A data path in the IN1K or EK100 config (refused until their loaders
+    were ported) reaches the loader of that data: a folder for IN1K, the
+    annotations for EK100, read here from paths that hold no data."""
     raw = cli.shrink_config(yaml.safe_load((ROOT / f"configs/eval/vitl/{name}.yaml").read_text()))
+    key, maker = {"in1k": ("root", "make_image_eval_loaders"),
+                  "ek100": ("annotations_train", "make_anticipation_loaders")}[name]
     raw["experiment"]["data"][key] = manifests["dataset_val"]
+    seen = {}
+
+    class _Reached(Exception):
+        pass
+
+    def reached(data_c, *args, **kw):
+        seen.update(data_c=data_c, synthetic=kw.get("synthetic"))
+        raise _Reached
+
+    monkeypatch.setattr(cli, maker, reached)
     args = cli.argparse.Namespace(checkpoint=None, epochs=None, synthetic_data=False,
                                   val_only=False, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A8c"):
+    with pytest.raises(_Reached):
         cli.EVALS[raw["eval_name"]](copy.deepcopy(raw), args)
+    assert seen["data_c"][key] == manifests["dataset_val"] and not seen["synthetic"]

@@ -5,7 +5,8 @@ spawned workers with ``ordered=True`` the same batches in the same order on
 a dataset that draws nothing; ``epoch_len`` and ``drop_last``; and the
 port's own guarantees: a worker's failure raises in the trainer, its
 batches do not depend on the workers' race (batch ``b`` to worker
-``b % n``), ``monitor_dir`` writes each worker's resource rows, and
+``b % n``), an epoch shorter than the workers spawns only as many as its
+batches, ``monitor_dir`` writes each worker's resource rows, and
 importing the data modules in a spawned child initialises no CUDA and
 builds nothing."""
 
@@ -108,6 +109,31 @@ def test_spawned_batches_do_not_depend_on_the_race(data):
     _batches_equal(a, b)
     key = (lambda batch: batch[1].tolist())  # the labels name the rows of a.csv
     _batches_equal(sorted(c, key=key), sorted(a, key=key))
+
+
+def test_no_more_workers_than_batches(data, monkeypatch):
+    """An epoch of 2 batches on 4 workers spawns 2 (worker w would take
+    batch w first): the same batches, crops included, as on 2 workers."""
+    ctx, started = tloader.mp.get_context("spawn"), []
+
+    class Counting:
+        def __getattr__(self, name):
+            return getattr(ctx, name)
+
+        def Process(self, *args, **kw):
+            started.append(kw["args"][5])  # the worker id
+            return ctx.Process(*args, **kw)
+
+    def run(workers):
+        ds = tvd.VideoDataset([str(data / "a.csv")], frames_per_clip=4, frame_step=2,
+                              transform=tt.VideoTransform(crop_size=24, use_native=True))
+        return list(tloader.DataLoader(ds, ts.DistributedSampler(9, 1, 0, seed=2), batch_size=2,
+                                       num_workers=workers, ordered=True, epoch_len=2, seed=3))
+
+    monkeypatch.setattr(tloader.mp, "get_context", lambda method: Counting())
+    four = run(4)
+    assert started == [0, 1]
+    _batches_equal(four, run(2))
 
 
 @pytest.mark.parametrize("drop_last", [True, False])

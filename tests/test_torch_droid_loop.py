@@ -18,7 +18,9 @@ temporary directory with ``optimization.ipe`` 3 and ``mesh.data`` 1.
   predictor, the target and AdamW's moments bit-equal; the CSV's rows and
   the checkpoints. ``meta.read_checkpoint``: the target from a torch
   checkpoint's ``target_encoder`` (else ``encoder``) entry, unchanged after
-  the run. A NaN loss aborts the run; the refusals.
+  the run. A NaN loss aborts the run; the refusals (several cards); the
+  trainer reads ``data.datasets`` (`tests/test_torch_data_droid.py` holds
+  its trajectories from disk to JAX's).
 """
 
 import csv
@@ -224,12 +226,28 @@ def test_nan_loss_aborts_the_run(tmp_path, monkeypatch):
     ({"mesh.model": 2}, "A12"),
     ({"mesh.fsdp": 2}, "A12"),
     ({"mesh.data": 2}, "A12"),
-    ({"data.datasets": ["/data/droid_paths.csv"]}, "A8b"),
 ])
 def test_refusals(tmp_path, overrides, match):
     with pytest.raises(NotImplementedError, match=match):
         loop.DroidTrainer(PretrainConfig.from_dict(_raw(tmp_path / "run", overrides)),
                           device="cpu")
+
+
+def test_data_datasets_is_read(tmp_path):
+    """``data.datasets`` names the trajectories on disk (refused until the
+    DROID data was ported): the trainer's loader reads that CSV, and
+    ``--synthetic-data`` keeps the synthetic trajectories."""
+    from vjepa2_tpu_torch.data.droid import DROIDVideoDataset
+
+    csv_path = tmp_path / "droid_paths.csv"
+    csv_path.write_text("/data/droid/traj_0\n/data/droid/traj_1\n")
+    raw = _raw(tmp_path / "run", {"data.datasets": [str(csv_path)]})
+    trainer = loop.DroidTrainer(PretrainConfig.from_dict(raw), device="cpu")
+    loader = trainer.make_loader(1)
+    assert isinstance(loader.dataset, DROIDVideoDataset) and loader.epoch == 1
+    assert loader.dataset.samples == ["/data/droid/traj_0", "/data/droid/traj_1"]
+    trainer.synthetic_data = True
+    assert isinstance(trainer.make_loader(0), loop.SyntheticDroidLoader)
 
 
 class _Built(Exception):

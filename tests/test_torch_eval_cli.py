@@ -3,8 +3,8 @@ package's (`vjepa2_tpu/cli/eval.py`): ``--tiny --device cpu`` end to end on
 the shipped ViT-L configs (SSv2: the multiclip plugin; Diving-48: the
 multilevel plugin with ``out_layers``; IN1K: the image plugin; EK100:
 anticipation), `shrink_config` and the synthetic loaders equal to JAX's,
-`chip_smoke.py`'s eval dicts equal to their YAML files, and the refusals:
-image and EK100 paths set without ``--synthetic-data`` (ROADMAP A8c), several
+`chip_smoke.py`'s eval dicts equal to their YAML files, the image and EK100
+data paths read unless ``--synthetic-data`` is given, and the refusals: several
 processes, the pipeline-parallel checkpoint layout and Orbax directories
 (ROADMAP A12), no card without ``--device cpu``. Checkpoints: a released
 `.pt` and a `Pretrainer` checkpoint load their target encoder, and the EK100
@@ -139,11 +139,14 @@ def _args(**kw):
 
 
 @pytest.mark.parametrize("name, key", [("in1k", "root"), ("ek100", "annotations_train")])
-def test_data_on_disk_is_refused_without_synthetic_data(name, key):
+def test_data_on_disk_is_read_unless_synthetic_data(name, key):
+    """A data path (refused until the IN1K and EK100 loaders were ported) is
+    read: a folder or an annotation file that does not exist fails in its
+    loader; ``--synthetic-data`` probes synthetic data whatever the path."""
     raw = cli.shrink_config(_yaml(name))
     raw["experiment"]["data"][key] = "/data/train.csv"
-    with pytest.raises(NotImplementedError, match="A8b"):
-        cli.EVALS[raw["eval_name"]](raw, _args())
+    with pytest.raises(FileNotFoundError):
+        cli.EVALS[raw["eval_name"]](copy.deepcopy(raw), _args())
     out = cli.EVALS[raw["eval_name"]](copy.deepcopy(raw), _args(synthetic_data=True))
     assert out is not None
 

@@ -36,7 +36,9 @@ missing = {"vjepa2_tpu_torch.ops.flash_attention", "vjepa2_tpu_torch.core.device
            "vjepa2_tpu_torch.core.monitoring", "vjepa2_tpu_torch.data.native",
            "vjepa2_tpu_torch.data.augment", "vjepa2_tpu_torch.data.samplers",
            "vjepa2_tpu_torch.data.video_dataset", "vjepa2_tpu_torch.data.loader",
-           "vjepa2_tpu_torch.data.manager"} - set(names)
+           "vjepa2_tpu_torch.data.manager", "vjepa2_tpu_torch.data.droid",
+           "vjepa2_tpu_torch.data.epickitchens", "vjepa2_tpu_torch.data.imagenet",
+           "vjepa2_tpu_torch.evals.online"} - set(names)
 print(len(names), bad, sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 10 else 0)
 """

@@ -17,7 +17,7 @@ temporary directory and ``optimization.ipe`` 3.
   grad norm rtol 1e-5, EMA target atol 1e-6) and as the mean of its
   per-bucket losses (rtol 1e-6, `tests/train/test_multifpc.py:83`), and the
   `Pretrainer` grouping two fpcs into one step.
-* The refusals (several cards, in-process evals), the
+* The refusals (several cards), the online eval built from ``evals``, the
   action-conditioned app running through the same CLI on the smoke config
   (`tests/test_torch_droid_loop.py` holds it to JAX), and `chip_smoke.py`'s
   four config dicts equal to their YAML files after the overrides it
@@ -284,17 +284,22 @@ def test_without_a_device_the_cli_fails_on_entry_device(tmp_path, monkeypatch):
     ({"mesh.model": 4, "model.context_parallel": True}, "A12"),
     ({"mesh.fsdp": 2}, "A12"),
     ({"mesh.pipe": 2}, "A12"),
-    ({"evals": ["configs/eval/vitl/ssv2.yaml"], "meta.eval_freq": 1}, "A10"),
 ])
 def test_refusals(tmp_path, overrides, match):
-    raw = _raw(tmp_path / "run")
-    if "meta.eval_freq" in overrides:
-        raw["meta"]["eval_freq"] = 1
-    raw = chip_smoke.overridden(raw, {k: v for k, v in overrides.items()
-                                      if k not in ("evals", "meta.eval_freq")})
-    raw["evals"] = overrides.get("evals", [])
+    raw = chip_smoke.overridden(_raw(tmp_path / "run"), overrides)
     with pytest.raises(NotImplementedError, match=match):
         loop.Pretrainer(PretrainConfig.from_dict(raw), device="cpu")
+
+
+def test_evals_build_the_online_eval(tmp_path):
+    """``evals`` with ``meta.eval_freq`` (refused until the online evals were
+    ported) builds the online eval from the eval YAMLs; without ``evals``
+    there is none (`tests/test_torch_online_eval.py` runs it)."""
+    raw = _raw(tmp_path / "run", {"meta.eval_freq": 1})
+    raw["evals"] = [str(ROOT / "configs/eval/vitl/ssv2.yaml")]
+    assert callable(loop.Pretrainer(PretrainConfig.from_dict(raw), device="cpu").online_eval)
+    raw["evals"] = []
+    assert loop.Pretrainer(PretrainConfig.from_dict(raw), device="cpu").online_eval is None
 
 
 class _Built(Exception):

@@ -16,12 +16,16 @@ a card the run fails (`core.device.entry_device`). On the card the encoder
 (``use_flash``), as the `Pretrainer` and the hub build theirs; on the CPU in
 fp32 on the plain route. The probes compute in fp32 either way.
 
-Data: the video evals read ``data.dataset_train`` / ``dataset_val`` (CSV or
-``.npy`` manifests) from disk through `data.video_dataset.VideoDataset` and
-`data.loader.DataLoader`, as JAX's `make_video_eval_loaders`; with the paths
-left null the eval probes synthetic clips, with JAX's warning. The image
-(``root``) and EK100 (``annotations_*``) paths are refused unless
-``--synthetic-data`` is given: those loaders are not ported (ROADMAP A8c).
+Data from disk through the port's `data.loader.DataLoader`, in the
+sampler's order, as JAX's launcher reads it: the video evals'
+``data.dataset_train`` / ``dataset_val`` (CSV or ``.npy`` manifests) through
+`data.video_dataset.VideoDataset`; IN1K's ``root`` / ``root_val`` (ImageNet
+folders) through `data.imagenet.ImageFolder`; EK100's ``annotations_train``
+/ ``annotations_val`` through `data.epickitchens.EpicKitchensAnticipation`,
+both sets on the training set's label space and, as JAX's, on the training
+`VideoTransform` (ROADMAP queue C). With the paths left null, or with
+``--synthetic-data``, an eval probes synthetic clips or images, with JAX's
+warning.
 Checkpoints (``--checkpoint`` or ``model_kwargs.checkpoint``):
 a torch file (a released ``.pt``: its ``target_encoder``, else ``encoder``,
 else the whole file; or a `Pretrainer` step file, whose target encoder it
@@ -154,16 +158,6 @@ def build_encoder(model_kwargs: dict, resolution: int, fpc: int, checkpoint=None
     return enc.eval().requires_grad_(False)
 
 
-def refuse_data_paths(data_c: dict, keys, synthetic: bool) -> None:
-    """The image folders and EK100 annotations need the loaders of ROADMAP A8c."""
-    named = [k for k in keys if data_c.get(k)]
-    if named and not synthetic:
-        raise NotImplementedError(
-            f"the eval config names data on disk ({', '.join(named)}): its loader from disk "
-            "is not ported (ROADMAP A8c, the rest of A8b: the video manifests are read); pass "
-            "--synthetic-data to probe on synthetic clips")
-
-
 def _warn_synthetic(data_c: dict, key: str, synthetic: bool) -> None:
     if not synthetic and not data_c.get(key):
         logger.warning(f"eval: no `data.{key}` in the eval config — probing on SYNTHETIC "
@@ -257,6 +251,42 @@ def run_video_classification(cfg: dict, args) -> dict:
     return result
 
 
+def synthetic_images(batch_size: int, res: int, num_classes: int, ipe: int):
+    """(train, val) of class-dependent synthetic images, JAX's numpy draws:
+    ``ipe`` batches, then ``ipe // 4``; each pass the same batches."""
+    def synth(batches, seed):
+        r = np.random.default_rng(seed)
+        for _ in range(batches):
+            labels = r.integers(0, num_classes, size=batch_size)
+            imgs = r.normal(size=(batch_size, res, res, 3)).astype(np.float32) * 0.1
+            imgs += labels[:, None, None, None] / num_classes
+            yield imgs, labels
+
+    return Replay(lambda: synth(ipe, 0)), Replay(lambda: synth(max(1, ipe // 4), 1))
+
+
+def make_image_eval_loaders(data_c, batch_size, res, num_classes, ipe, synthetic=False):
+    """(train, val) loaders of the IN1K probe: ImageNet folders ``data.root``
+    (``ipe`` batches an epoch, `ImageTransform`'s random resized crops and
+    flips) and ``root_val`` (else ``root``; the whole folder, centre crops),
+    as JAX's launcher (`cli/eval.py:294-306`); else synthetic images."""
+    if synthetic or not data_c.get("root"):
+        _warn_synthetic(data_c, "root", synthetic)
+        return synthetic_images(batch_size, res, num_classes, ipe)
+    from vjepa2_tpu_torch.data.manager import init_image_data
+    from vjepa2_tpu_torch.data.transforms import ImageTransform
+
+    workers = int(data_c.get("num_workers", 4))
+    _, train_loader, _ = init_image_data(
+        data_c["root"], batch_size, transform=ImageTransform(crop_size=res, train=True),
+        train=True, num_workers=workers, ipe=ipe)
+    _, val_loader, _ = init_image_data(
+        data_c.get("root_val") or data_c["root"], batch_size,
+        transform=ImageTransform(crop_size=res, train=False), train=False,
+        num_workers=workers)
+    return train_loader, val_loader
+
+
 def run_image_classification(cfg: dict, args) -> dict:
     """IN1K frozen probe (reference `evals/image_classification_frozen/eval.py`)."""
     from vjepa2_tpu_torch.evals.image_classification import ImageClassificationEval
@@ -265,8 +295,6 @@ def run_image_classification(cfg: dict, args) -> dict:
     data_c, opt_c = exp["data"], exp["optimization"]
     cls_c = exp.get("classifier", {})
     mdl_c = cfg.get("model_kwargs", {})
-    refuse_data_paths(data_c, ("root", "root_val"), args.synthetic_data)
-    _warn_synthetic(data_c, "root", args.synthetic_data)
     res = int(data_c.get("resolution", 256))
     num_classes = int(data_c.get("num_classes", 1000))
     batch_size = int(opt_c.get("batch_size", 16))
@@ -287,19 +315,71 @@ def run_image_classification(cfg: dict, args) -> dict:
         probe_depth=int(cls_c.get("num_probe_blocks", 1)), total_steps=epochs * ipe,
         img_as_video_nframes=nframes, extract_fn=_extract(mdl_c, wrapper_kwargs, encoder=encoder))
 
-    def synth(batches, seed):
-        r = np.random.default_rng(seed)
-        for _ in range(batches):
-            labels = r.integers(0, num_classes, size=batch_size)
-            imgs = r.normal(size=(batch_size, res, res, 3)).astype(np.float32) * 0.1
-            imgs += labels[:, None, None, None] / num_classes
-            yield imgs, labels
-
-    result = ev.run(Replay(lambda: synth(ipe, 0)), Replay(lambda: synth(max(1, ipe // 4), 1)),
-                    epochs=epochs)
+    train_loader, val_loader = make_image_eval_loaders(data_c, batch_size, res, num_classes,
+                                                       ipe, synthetic=args.synthetic_data)
+    result = ev.run(train_loader, val_loader, epochs=epochs)
     logger.info("IN1K top-1 %.4f (best probe %d)", result["top1"], result["best_probe"])
     print({"top1": result["top1"], "best_probe": result["best_probe"]})
     return result
+
+
+SYNTHETIC_LABELS = (5, 7, 9)  # verbs, nouns and actions of the synthetic EK100 batches
+
+
+def synthetic_anticipation(batch_size: int, fpc: int, res: int, ipe: int,
+                           labels=SYNTHETIC_LABELS):
+    """(train, val) of class-dependent synthetic clips with anticipation
+    times of 1 s and ``labels`` verbs, nouns and actions (JAX's numpy
+    draws): ``ipe`` batches, then ``ipe // 4``; each pass the same batches."""
+    nv, nn_, na = labels
+
+    def synth(batches, seed):
+        rr = np.random.default_rng(seed)
+        for _ in range(batches):
+            labels = rr.integers(0, nv, size=batch_size)
+            clips = rr.normal(size=(batch_size, fpc, res, res, 3)).astype(np.float32) * 0.1
+            clips += labels[:, None, None, None, None] / nv
+            yield clips, np.ones(batch_size, np.float32), labels, labels % nn_, labels % na
+
+    return Replay(lambda: synth(ipe, 0)), Replay(lambda: synth(max(1, ipe // 4), 1))
+
+
+def make_anticipation_loaders(data_c, batch_size, fpc, res, ipe, synthetic=False,
+                              default_workers=4, synthetic_labels=SYNTHETIC_LABELS):
+    """((verbs, nouns, actions), the valid action classes or None, (train,
+    val) loaders) of the EK100 eval: ``data.annotations_train`` /
+    ``annotations_val`` (else the train file) from disk as JAX's launcher
+    reads them (`cli/eval.py:377-400`): both on the training set's label
+    space and on the training `VideoTransform` (JAX's; ROADMAP queue C),
+    ``ipe`` train batches an epoch, the whole val set, on
+    ``data.num_workers`` workers (else ``default_workers``); else synthetic
+    clips of ``synthetic_labels``."""
+    if synthetic or not data_c.get("annotations_train"):
+        _warn_synthetic(data_c, "annotations_train", synthetic)
+        return synthetic_labels, None, synthetic_anticipation(batch_size, fpc, res, ipe,
+                                                              synthetic_labels)
+    from vjepa2_tpu_torch.data.epickitchens import (EpicKitchensAnticipation,
+                                                    anticipation_collate)
+    from vjepa2_tpu_torch.data.loader import DataLoader
+    from vjepa2_tpu_torch.data.samplers import DistributedSampler
+    from vjepa2_tpu_torch.data.transforms import VideoTransform
+
+    train_ds = EpicKitchensAnticipation(
+        data_c["annotations_train"], frames_per_clip=fpc, transform=VideoTransform(crop_size=res),
+        anticipation_time_range=tuple(data_c.get("anticipation_time", (1.0, 1.0))))
+    val_ds = EpicKitchensAnticipation(
+        data_c.get("annotations_val") or data_c["annotations_train"],
+        label_space=train_ds.label_space, frames_per_clip=fpc,
+        transform=VideoTransform(crop_size=res))
+
+    def make(ds, train):
+        return DataLoader(ds, DistributedSampler(len(ds), 1, 0, shuffle=train), batch_size,
+                          num_workers=int(data_c.get("num_workers", default_workers)),
+                          collate_fn=anticipation_collate, ordered=True,
+                          epoch_len=ipe if train else None)
+
+    sizes = (train_ds.num_verbs, train_ds.num_nouns, train_ds.num_actions)
+    return sizes, train_ds.valid_action_classes(), (make(train_ds, True), make(val_ds, False))
 
 
 def build_predictor(encoder, res: int, fpc: int, checkpoint=None, device="cuda"):
@@ -338,8 +418,6 @@ def run_action_anticipation(cfg: dict, args) -> dict:
     data_c, opt_c = exp["data"], exp["optimization"]
     cls_c = exp.get("classifier", {}) or {}
     mdl_c = cfg.get("model_kwargs", {})
-    refuse_data_paths(data_c, ("annotations_train", "annotations_val"), args.synthetic_data)
-    _warn_synthetic(data_c, "annotations_train", args.synthetic_data)
     fpc = int(data_c.get("frames_per_clip", 16))
     res = int(data_c.get("resolution", 256))
     batch_size = int(opt_c.get("batch_size", 8))
@@ -353,16 +431,8 @@ def run_action_anticipation(cfg: dict, args) -> dict:
     encoder = build_encoder(mdl_c, res, fpc, ckpt, device=args.device)
     predictor = build_predictor(encoder, res, fpc, ckpt, device=args.device)
     hp = res // 16
-
-    nv, nn_, na = 5, 7, 9
-
-    def synth(batches, seed):
-        rr = np.random.default_rng(seed)
-        for _ in range(batches):
-            labels = rr.integers(0, nv, size=batch_size)
-            clips = rr.normal(size=(batch_size, fpc, res, res, 3)).astype(np.float32) * 0.1
-            clips += labels[:, None, None, None, None] / nv
-            yield clips, np.ones(batch_size, np.float32), labels, labels % nn_, labels % na
+    (nv, nn_, na), valid_actions, (train_batches, val_batches) = make_anticipation_loaders(
+        data_c, batch_size, fpc, res, ipe, synthetic=args.synthetic_data)
 
     # the full probe grid (reference: one classifier per multihead entry,
     # `action_anticipation_frozen/eval.py:125,230`)
@@ -380,12 +450,13 @@ def run_action_anticipation(cfg: dict, args) -> dict:
     else:
         loss = float("nan")  # stays NaN if the loader yields nothing
         for epoch in range(epochs):
-            for batch in synth(ipe, 0):
+            for batch in train_batches:
                 loss = ev.train_batch(*batch)
             logger.info("anticipation epoch %d loss %.4f", epoch, loss)
         if probe_ckpt:
             ev.save_probes(probe_ckpt)
-    result = ev.evaluate(synth(max(1, ipe // 4), 1), k=int(opt_c.get("recall_k", 5)))
+    result = ev.evaluate(val_batches, k=int(opt_c.get("recall_k", 5)),
+                         valid_action_classes=valid_actions)
     logger.info("anticipation: %s", result)
     print({k: result[k]["recall"] for k in ("verb", "noun", "action")})
     return result

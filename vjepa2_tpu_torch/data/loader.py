@@ -12,8 +12,9 @@ clips/s of float32 16f@256 clips from 8 workers, and through shared memory
 reference's out-of-order iterator, no head-of-line blocking);
 ``ordered=True`` yields them in the sampler's order. The workers are
 spawned, never forked: the trainer holds a live CUDA context (JAX spawns for
-its runtime's threads, `loader.py:155-158`). The mask collator runs in the
-trainer, not in the workers.
+its runtime's threads, `loader.py:155-158`), and no more of them than the
+epoch has batches (each costs seconds to start). The mask collator runs in
+the trainer, not in the workers.
 
 Two departures from JAX, each pinned by a test named after it (ROADMAP
 queue C):
@@ -223,21 +224,28 @@ class DataLoader:
         yield from self._iter_workers()
 
     def _iter_workers(self):
+        # no more workers than batches: worker w would take batch w first,
+        # so a short epoch's batches are the same with the idle ones left out
+        batches = self.batched_indices()
+        head = list(itertools.islice(batches, self.num_workers))
+        if not head:
+            return
+        num_workers = len(head)
         ctx = mp.get_context(self.mp_context)
-        index_queues = [ctx.Queue() for _ in range(self.num_workers)]
+        index_queues = [ctx.Queue() for _ in range(num_workers)]
         result_queue = ctx.Queue()
         workers = [
             ctx.Process(target=_worker_loop,
                         args=(self.dataset, index_queues[w], result_queue, self.seed,
                               self.monitor_dir, w, self.rank, self.epoch, self.collate_fn),
                         daemon=True)
-            for w in range(self.num_workers)]
+            for w in range(num_workers)]
         for w in workers:
             w.start()
         try:
-            batch_iter = enumerate(self.batched_indices())
+            batch_iter = enumerate(itertools.chain(head, batches))
             in_flight, next_emit, exhausted = 0, 0, False
-            max_in_flight = self.num_workers * self.prefetch_factor
+            max_in_flight = num_workers * self.prefetch_factor
             held: dict[int, object] = {}
 
             def submit():
@@ -248,7 +256,7 @@ class DataLoader:
                     except StopIteration:
                         exhausted = True
                         return
-                    index_queues[bid % self.num_workers].put((bid, idxs))
+                    index_queues[bid % num_workers].put((bid, idxs))
                     in_flight += 1
 
             submit()

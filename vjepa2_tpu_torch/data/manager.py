@@ -1,12 +1,12 @@
 """Data dispatcher (counterpart of `vjepa2_tpu/data/manager.py`; reference
-`src/datasets/data_manager.py:init_data`): video manifests to a dataset, its
-sampler and a `DataLoader`. ImageNet folders (`init_image_data`) are not
-ported yet (ROADMAP A8c)."""
+`src/datasets/data_manager.py:init_data`): video manifests or an ImageNet
+folder to a dataset, its sampler and a `DataLoader`."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from vjepa2_tpu_torch.data.imagenet import ImageFolder, image_collate
 from vjepa2_tpu_torch.data.loader import DataLoader, FpcBucketSampler
 from vjepa2_tpu_torch.data.samplers import (DistributedSampler,
                                             MemoryEfficientDistributedWeightedSampler)
@@ -59,11 +59,34 @@ def init_video_data(
     return dataset, loader, sampler
 
 
+def init_image_data(
+    root: str,
+    batch_size: int,
+    transform=None,
+    subset_file: Optional[str] = None,
+    train: bool = True,
+    num_workers: int = 4,
+    world_size: int = 1,
+    rank: int = 0,
+    seed: int = 0,
+    ipe: Optional[int] = None,
+):
+    """(dataset, loader, sampler) of an `ImageFolder` under ``root``
+    (reference `data_manager.py`'s 'imagenet' branch): shuffled in training,
+    in order otherwise; full batches of (images, labels), ``ipe`` an epoch,
+    in the sampler's order."""
+    dataset = ImageFolder(root, transform=transform, subset_file=subset_file, seed=seed)
+    sampler = DistributedSampler(len(dataset), world_size, rank, shuffle=train, seed=seed)
+    loader = DataLoader(dataset, sampler, batch_size=batch_size, num_workers=num_workers,
+                        collate_fn=image_collate, ordered=True, seed=seed, epoch_len=ipe,
+                        rank=rank)
+    return dataset, loader, sampler
+
+
 def init_data(dataset_type: str = "VideoDataset", **kwargs):
     """Dispatch on ``dataset_type`` (reference `data_manager.py:42-88`)."""
     if dataset_type.lower() in ("videodataset", "video"):
         return init_video_data(**kwargs)
     if dataset_type.lower() in ("imagenet", "imagefolder"):
-        raise NotImplementedError("ImageNet folders (init_image_data) are not ported yet "
-                                  "(ROADMAP A8c): the port reads video manifests")
+        return init_image_data(**kwargs)
     raise ValueError(f"unknown dataset_type {dataset_type}")

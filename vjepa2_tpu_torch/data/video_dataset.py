@@ -51,7 +51,7 @@ class ConcatIndices:
         return int(self.cumsum[-1])
 
 
-def _typed_column(values: list[str]) -> list:
+def typed_column(values: list[str]) -> list:
     """A column as pandas infers it: ints if every entry parses as one,
     else floats if every entry does, else the strings."""
     for cast in (int, float):
@@ -77,7 +77,7 @@ def read_csv_manifest(path: str) -> tuple[list[str], list]:
         if len(row) < 2:
             raise ValueError(f"{path}: row {i + 1} {row!r} has no label (want 'path label', "
                              "space- or '::'-delimited)")
-    return [r[0] for r in rows], _typed_column([r[1] for r in rows])
+    return [r[0] for r in rows], typed_column([r[1] for r in rows])
 
 
 class VideoDataset:

@@ -4,9 +4,15 @@ DROID step (counterpart of `vjepa2_tpu/train/droid_loop.py`; reference
 
 The target encoder is frozen (drawn from ``meta.seed``, or a pretrained
 encoder's state dict passed in as ``enc_state``); the AC predictor trains.
-What one card and this slice cannot honour is refused as in the
-`Pretrainer` (`loop._refuse`): several cards (ROADMAP A12) and in-process
-evals; and DROID trajectories from disk (A8c, with `data/droid.py`).
+What one card cannot honour is refused as in the `Pretrainer`
+(`loop._refuse`): several cards (ROADMAP A12).
+
+Data: ``data.datasets[0]`` lists DROID trajectory directories, read through
+`data.droid.DROIDVideoDataset` (every frame: ``frameskip`` 1, as JAX's loop,
+`droid_loop.py:126-151`) and the port's `DataLoader` in the sampler's order;
+with ``datasets: []`` or ``synthetic_data``, synthetic trajectories. Each
+epoch's loader draws that epoch's order, views, windows and crops (JAX's
+replays epoch 0 every epoch: ROADMAP queue C).
 ``meta.dtype`` is the compute dtype on either device: bf16 on the card runs
 the bf16 kernels, fp32 the fp32 ones (the AC predictor's frame-causal
 segment ids included). The models take the flash routes whatever
@@ -30,7 +36,11 @@ from vjepa2_tpu_torch.core.checkpoint import CheckpointManager
 from vjepa2_tpu_torch.core.config import PretrainConfig
 from vjepa2_tpu_torch.core.device import entry_device
 from vjepa2_tpu_torch.core.logging import AverageMeter, CSVLogger, get_logger
+from vjepa2_tpu_torch.data.droid import DROIDVideoDataset, droid_collate
+from vjepa2_tpu_torch.data.loader import DataLoader
 from vjepa2_tpu_torch.data.prefetch import device_prefetch
+from vjepa2_tpu_torch.data.samplers import DistributedSampler
+from vjepa2_tpu_torch.data.transforms import VideoTransform
 from vjepa2_tpu_torch.data.video import synthetic_clip
 from vjepa2_tpu_torch.train.accum import validate_grad_accum
 from vjepa2_tpu_torch.train.droid import (DroidHParams, DroidState, build_droid_models,
@@ -86,10 +96,6 @@ class DroidTrainer:
     def __post_init__(self):
         c = self.cfg
         _refuse(c)
-        if c.data.datasets and not self.synthetic_data:
-            raise NotImplementedError("data.datasets: DROID trajectories from disk are not "
-                                      "ported (ROADMAP A8c, the rest of A8b); run on synthetic "
-                                      "trajectories (datasets: [] or --synthetic-data)")
         self.device = entry_device(self.device)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
         # reference: max_num_frames = max(dataset_fpcs) (`train.py:106`)
@@ -117,10 +123,28 @@ class DroidTrainer:
         self._step = make_droid_train_step(self.hp, self.tpf, norm_stats=norm_stats,
                                            grad_accum=self.grad_accum)
 
-    def make_loader(self):
+    def make_loader(self, epoch: int = 0):
+        """Epoch ``epoch``'s batches: synthetic trajectories, or
+        ``data.datasets[0]``'s from disk (``ipe`` batches, in the sampler's
+        order). The loader collates (clips, actions, states, extrinsics):
+        clips and states of ``frames_per_clip`` frames, actions of one
+        fewer."""
         c = self.cfg
-        return SyntheticDroidLoader(c.data.batch_size, self.frames_per_clip, c.data.crop_size,
-                                    self.ipe, c.meta.seed)
+        if self.synthetic_data or not c.data.datasets:
+            return SyntheticDroidLoader(c.data.batch_size, self.frames_per_clip,
+                                        c.data.crop_size, self.ipe, c.meta.seed)
+        ds = DROIDVideoDataset(
+            c.data.datasets[0], camera_views=c.data.camera_views,
+            frames_per_clip=self.frames_per_clip, frameskip=1, fps=c.data.fps,
+            transform=VideoTransform(crop_size=c.data.crop_size,
+                                     normalize_on_device=c.data.normalize_on_device),
+            camera_frame=c.data.camera_frame, seed=c.meta.seed)
+        sampler = DistributedSampler(len(ds), 1, 0, seed=c.meta.seed)
+        loader = DataLoader(ds, sampler, batch_size=c.data.batch_size,
+                            num_workers=c.data.num_workers, collate_fn=droid_collate,
+                            ordered=True, seed=c.meta.seed, epoch_len=self.ipe)
+        loader.set_epoch(epoch)
+        return loader
 
     def init_state(self) -> DroidState:
         """Weights from a generator seeded with ``meta.seed`` on the models'
@@ -196,7 +220,7 @@ class DroidTrainer:
                 pending.clear()
                 window_t0 = time.perf_counter()
 
-            batches = device_prefetch(self.make_loader(), size=2, transform=self.stage,
+            batches = device_prefetch(self.make_loader(epoch), size=2, transform=self.stage,
                                       device=self.device)
             step_fn = self._step_fn()
             for itr, (clips, actions, states, extr) in enumerate(batches):

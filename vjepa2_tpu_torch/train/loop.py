@@ -4,7 +4,13 @@ minus DDP wrappers, GradScaler and scheduler replay on resume).
 
 One card: the mesh, pipeline parallelism and ring-attention context
 parallelism are not here (ROADMAP A12), and a config that asks for them is
-refused, as are in-process evals (A8c): nothing is skipped quietly.
+refused: nothing is skipped quietly.
+
+In-process evals: with ``evals`` (eval YAMLs) and ``meta.eval_freq``, every
+``eval_freq``-th epoch ends, after its checkpoint, with
+`evals.online.make_online_eval`'s probes on the frozen EMA target and the
+live predictor, each metric logged to ``eval_log_r0.csv`` (JAX's
+`loop.py:503-546`).
 
 Data: ``data.datasets`` (CSV or ``.npy`` manifests) is read from disk through
 `data.manager.init_video_data` and `data.transforms.VideoTransform` built
@@ -48,6 +54,7 @@ from vjepa2_tpu_torch.data.manager import init_video_data
 from vjepa2_tpu_torch.data.prefetch import device_prefetch
 from vjepa2_tpu_torch.data.transforms import VideoTransform
 from vjepa2_tpu_torch.data.video import synthetic_clip
+from vjepa2_tpu_torch.evals.online import make_online_eval
 from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
 from vjepa2_tpu_torch.train.accum import validate_grad_accum
 from vjepa2_tpu_torch.train.pretrain import (PretrainHParams, build_models, init_params,
@@ -123,10 +130,6 @@ def _refuse(c: PretrainConfig) -> None:
         if value > 1:
             raise NotImplementedError(f"{name}={value} needs several cards: not ported "
                                       "(ROADMAP A12)")
-    if c.evals and c.meta.eval_freq:
-        raise NotImplementedError("in-process evals (evals with meta.eval_freq) are not "
-                                  "ported (ROADMAP A8c, formerly A10b; the frozen evals run "
-                                  "through cli.eval)")
 
 
 @dataclass
@@ -184,6 +187,9 @@ class Pretrainer:
         keep_period = c.meta.save_every_freq * self.hp.ipe if c.meta.save_every_freq else None
         self.ckpt = CheckpointManager(os.path.join(c.folder, "ckpt"), keep_period=keep_period)
         self._step_fns: dict = {}
+        # in-process probe evals at eval_freq (reference: eval jobs from the
+        # pretrain config's `evals`, `app/vjepa/utils.py:25-87`)
+        self.online_eval = make_online_eval(c.evals) if c.evals else None
 
     # -- data ---------------------------------------------------------------
     def make_loader(self, epoch: int = 0):
@@ -305,6 +311,7 @@ class Pretrainer:
         # mid-epoch resume (preemption): skip the iterations already trained
         skip_itrs = int(state.step) % self.hp.ipe
         last_loss = float("nan")
+        eval_csv = None  # created at the first online eval
         for epoch in range(start_epoch, epochs):
             loader = self.make_loader(epoch)
             loss_meter, time_meter = AverageMeter(), AverageMeter()
@@ -370,4 +377,13 @@ class Pretrainer:
             if preempted:
                 logger.warning("preempted at step %d; checkpoint saved", int(state.step))
                 return {"loss": last_loss, "step": int(state.step), "preempted": True}
+            if (self.online_eval is not None and c.meta.eval_freq
+                    and (epoch + 1) % c.meta.eval_freq == 0):
+                metrics = self.online_eval(state.target_encoder, epoch, predictor=state.predictor)
+                logger.info("online eval @ epoch %d: %s", epoch, metrics)
+                if eval_csv is None:
+                    eval_csv = CSVLogger(os.path.join(c.folder, "eval_log_r0.csv"),
+                                         ("%d", "epoch"), ("%s", "tag"), ("%.5f", "top1"))
+                for tag, top1 in metrics.items():
+                    eval_csv.log(epoch, tag, float(top1))
         return {"loss": last_loss, "step": int(state.step), "preempted": False}
