@@ -31,7 +31,7 @@ Phases, each printed as one JSON object on a line of its own:
 6. train   — the masked-pretrain train step: ViT-L/16 (RoPE, bf16, fp32
    parameters and AdamW state), the 12-layer predictor (width 384, 12 heads),
    16 frames at 256 px, batch 8, the two mask configs of `bench.py:56-61`
-   with fresh masks each step; 1 warm-up and 3 timed steps, each launching
+   with fresh masks each step; 1 warm-up and 2 timed steps, each launching
    B1 96 times and B2 72 times; finite loss and gradients, the EMA of the
    target, and clip 0's loss and gradients against the port's fp32 plain path
    on the CPU from the same weights;
@@ -46,7 +46,7 @@ Phases, each printed as one JSON object on a line of its own:
    fused step's context (Dh 64) and predictor (Dh 32) shapes; TFLOP/s (10*Dh
    FLOPs a score) and the share of the bound as in phase 7;
 9. train_huge — the masked-pretrain step of phase 6 with ViT-H/16 (32
-   layers, width 1280, 16 heads of 80): 1 + 3 steps, each launching B3 96
+   layers, width 1280, 16 heads of 80): 1 + 2 steps, each launching B3 96
    times, the BHND backward 64, B1 24 and B2 24 times; the same checks (its
    clip-0 CPU reference runs on the worker thread once the run reaches phase
    26, and its record prints when that ends);
@@ -79,14 +79,14 @@ Phases, each printed as one JSON object on a line of its own:
    (TF32 off) beside them, the bound at 495/3 TFLOP/s;
 14. train_fused — the ViT-L step of phase 6 with ``fuse_ln="qkv,mlp"``
    (`bench.py --fuse-ln qkv,mlp`): every block's LayerNorms fused into B7
-   and B8, attention on the BHND kernels; 1 + 3 steps, each launching B7 96,
+   and B8, attention on the BHND kernels; 1 + 2 steps, each launching B7 96,
    B8 96, B3 96, the BHND backward 72, the B6 backward 144 and B1/B2 0
    times; the checks of phase 6 against the fp32 CPU path with the same
    fusions; and, interleaved step by step in the same phase, the unfused
    step of phase 6 beside it (the A/B; nothing is claimed from it); then
    train_fused_fp32, the same fused step at fp32 (TF32 off; JAX's
    `bench.py --fuse-ln qkv,mlp` step at its default precision): 1 warm-up
-   and 3 timed steps, each launching B7 and B8 at fp32 96 times, B3 at fp32
+   and 2 timed steps, each launching B7 and B8 at fp32 96 times, B3 at fp32
    96, the BHND fp32 backward 72 and the B6 fp32 backward 144, and B1/B2
    and every bf16 kernel 0 times; finite loss and gradients, the EMA, and
    clip 0's loss and gradients on train_fused's weights, clip and masks
@@ -98,15 +98,15 @@ Phases, each printed as one JSON object on a line of its own:
    checkpoint) on the shipped ViT-H config (`LOOP_CONFIG`, equal to
    `configs/train/vith16/pretrain-256px-16f.yaml`: vit_huge, batch 16,
    16f@256, full remat, bf16, synthetic clips), overriding only the run
-   folder, ``optimization.ipe`` (3) and the epochs (1; the resumed epoch 1
+   folder, ``optimization.ipe`` (2) and the epochs (1; the resumed epoch 1
    and its checks moved to phase 29 in PR 20), as printed. Every step
    launches B3 160, the BHND backward 64, B1 48 and B2 24 times; finite
-   losses; the CSV holds 3 rows. The epoch's checkpoint is not written
+   losses; the CSV holds 2 rows. The epoch's checkpoint is not written
    (phases 17 and 29 write and restore theirs). Then the online eval
    (``evals``: the SSv2 config of phase 19 on phase 28's manifests, read in
    the main process, ``meta.eval_freq`` 1): JAX's online probes (the
    first 4 of the grid at depth 1, ipe 20) on the EMA target over the
-   pretraining clips, 4 train batches of 4 (a 16-row manifest) and 1 val
+   pretraining clips, 2 train batches of 4 (an 8-row manifest) and 1 val
    batch, each launching B3 32 times; one row in ``eval_log_r0.csv``, its
    top-1 and seconds. Prints the loop's ms a step as it runs (no added
    sync: from its second step to where the checkpoint save would start),
@@ -117,18 +117,24 @@ Phases, each printed as one JSON object on a line of its own:
    overriding ``mesh.model`` 4 -> 1 (one card), the folder, ipe (2) and
    the epochs: 1 warm-up and 1 timed step, each launching B1 576 and B2
    432 times; then, on one microbatch of 2 clips, the loss and gradients
-   under save_attn_qkv_h against no remat on the card, bit-equal (the
-   recompute runs the same kernels on the same inputs, and no kernel on the
-   path adds in a varying order), and the microbatch under no remat, full,
-   save_attn, save_attn_qkv and save_attn_qkv_h: peak memory, and the wall,
-   device-busy time and idle share of one traced call each; the loop's ms a
-   step as in phase 15, and one more step traced;
+   under save_attn_qkv_h with the context-parallel route on (every
+   attention of the three models around `ops.ring_attention.in_process_ring`
+   of the shipped 4: B3 16 times a ring call, or once with the RoPE tables
+   where 4 does not divide the tokens, the BHND backward alike, no DN
+   kernel; the launches exact) against it off, within phase 6's bf16
+   tolerances, and the loop given the shipped ``mesh.model`` 4 in this one
+   process failing JAX's `resolve` assertion; the microbatch against no
+   remat, bit-equal (the recompute runs the same kernels on the same
+   inputs, and no kernel on the path adds in a varying order), and under no
+   remat, full, save_attn, save_attn_qkv and save_attn_qkv_h: peak memory,
+   and the wall, device-busy time and idle share of one traced call each;
+   the loop's ms a step as in phase 15 (its traced step went in PR 22);
 17. train_droid — V-JEPA 2-AC post-training: `cli.main`'s `run_vjepa_droid`
    (the `DroidTrainer`) on the shipped ViT-g DROID config (`DROID_CONFIG`:
    batch 8, 8 frames at 256 px, the frozen ViT-g target at depth 40, the AC
    predictor at depth 24, auto_steps 2, bf16, 8 loader workers), overriding
-   the folder, ipe (4), the epochs and ``data.datasets`` (phase 28's CSV of
-   8 trajectory directories, each listed 4 times: trajectories from
+   the folder, ipe (2), the epochs and ``data.datasets`` (phase 28's CSV of
+   8 trajectory directories, each listed twice: trajectories from
    disk, the trajectory file through `DroidDouble` where the host has no
    h5py): epoch 0, then a resumed epoch 1. Every step launches B1 88 times
    (40 target, 24 teacher forcing, 24 rollout) and B2 48; before the first
@@ -137,8 +143,8 @@ Phases, each printed as one JSON object on a line of its own:
    fixed batch against the fp32 CPU path (the tolerances of phase 6; the
    CPU trajectory runs on a worker thread beside the later phases, and
    serves phase 26 too); the restored state bit-equal to the saved one, the
-   resumed first step at step 4 with the schedules' lr and weight decay
-   there, the target bit-equal before and after the steps, 8 CSV rows, each
+   resumed first step at step 2 with the schedules' lr and weight decay
+   there, the target bit-equal before and after the steps, 4 CSV rows, each
    epoch's sample indices the sampler's for that epoch (epoch 1's order not
    epoch 0's); the loop's ms a step from disk beside the same step on the
    synthetic trajectories, each epoch loader's first batch (its workers'
@@ -147,11 +153,11 @@ Phases, each printed as one JSON object on a line of its own:
 18. plan   — latent planning: the hub's `vjepa2_ac_vit_giant()` called with
    no argument (the 22-head ViT-g and the 24 x 1024 AC predictor on the
    card in bf16) in a `planning.WorldModel`: a start and a goal frame
-   encoded (256 px, 40 B1 launches each), then 1 warm-up and 1 timed CEM
-   plan at `CEMConfig()` (400 samples, rollout 2, 10 steps, top-k 10: 480
-   B1 launches each at [400, 16, 64, 264] and [400, 16, 64, 520]), one more
-   plan traced; the plans finite, [2, 7], within the CEM's clips, a repeat
-   with the same seed bit-equal; encode and step_fn (4 candidates at 1 and
+   encoded (256 px, 40 B1 launches each), then a warm-up plan at 1 CEM step
+   and 1 timed CEM plan at `CEMConfig()` (400 samples, rollout 2, 10 steps,
+   top-k 10: 480 B1 launches each at [400, 16, 64, 264] and [400, 16, 64,
+   520]), then the same plan (seed 0) traced; the plans finite, [2, 7],
+   within the CEM's clips, the traced repeat bit-equal; encode and step_fn (4 candidates at 1 and
    2 frames) against the fp32 CPU path (on the worker thread; the CPU world
    model serves phase 27 too), and the CEM update on a linear world model on
    the card against the CPU's. Prints ms per encode and per plan, peak
@@ -160,10 +166,10 @@ Phases, each printed as one JSON object on a line of its own:
    on the shipped ViT-L config (`EVAL_VIDEO_CONFIG`, equal to
    `configs/eval/vitl/ssv2.yaml`: 2 segments x batch 4 of 16f@256 clips, the
    encoder in bf16 into features [4, 4096, 1024], 10 fp32 probes of depth 4
-   with 16 heads trained one at a time), overriding ipe (2), the epochs (1)
+   with 16 heads trained one at a time), overriding ipe (1), the epochs (1)
    and ``dataset_train`` / ``dataset_val`` (phase 28's 72- and 4-row
    manifests: clips read from disk through the port's `VideoDataset` and
-   loader, in the main process), as printed: 2 train steps and 1 val batch,
+   loader, in the main process), as printed: 1 train step and 1 val batch,
    each launching B1 24 times and B1 at fp32 30 times (3 blocks x 10
    probes, heads of 64: the DN route; and B2 at fp32 30 times a train
    step), nothing else;
@@ -236,7 +242,7 @@ Phases, each printed as one JSON object on a line of its own:
    and seed on the CPU from the card's initial weights (`SMOKE_LOSS_RTOL`);
    (b) phase 6's ViT-L step at fp32 (the model of
    `configs/train/vitl16/pretrain-256px-16f.yaml` with meta.dtype float32,
-   TF32 off): 1 warm-up and 3 timed steps, each launching B1 at fp32 96
+   TF32 off): 1 warm-up and 2 timed steps, each launching B1 at fp32 96
    times and B2 at fp32 72 (the BHND kernels none); clip 0's loss and
    gradients against phase 6's fp32 CPU path on the same weights, clip and
    masks, to tolerances phase 6's bf16 step misses (checked in the run); ms
@@ -244,7 +250,7 @@ Phases, each printed as one JSON object on a line of its own:
    time, idle share);
 22. eval_image — the IN1K probe eval: `run_image_classification` on the
    shipped ViT-L config (`EVAL_IMAGE_CONFIG`: 64 images a batch as 16 fake
-   frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 2 and
+   frames, features [64, 2048, 1024], 6 fp32 probes of depth 4), ipe 1 and
    1 epoch, ``root`` / ``root_val`` phase 28's ImageNet folders (128
    and 64 JPEGs of 500 x 375 decoded with PIL in the main process):
    each train step launches B1 24 times and B1 and B2 at fp32 18
@@ -284,7 +290,7 @@ Phases, each printed as one JSON object on a line of its own:
    artifact bytes, and ms per request, encode and plan, loaded and eager.
 26. train_droid_fp32 (run before phase 17) — the DROID trainer at JAX's
    default precision: `run_vjepa_droid` on `DROID_CONFIG` with
-   ``meta.dtype: float32`` (TF32 off), one epoch of 4 steps (phase 17 covers
+   ``meta.dtype: float32`` (TF32 off), one epoch of 2 steps (phase 17 covers
    the resume): every step launches B1 at fp32 88 times and B2 at fp32 48,
    no bf16 attention kernel and no BHND one; trajectory 0's loss and predictor
    gradients on the initial weights, no op of it making a bf16 tensor,
@@ -295,7 +301,7 @@ Phases, each printed as one JSON object on a line of its own:
    torch.float32)` after `torch.manual_seed(0)` (phase 18's weights, bit for
    bit) in a `WorldModel`: two encodes (40 B1 launches at fp32 each), a warm-up
    plan at 1 CEM step (both rollout lengths), one timed plan at
-   `CEMConfig()` but for 3 of its 10 CEM steps (144 B1 launches at fp32 at
+   `CEMConfig()` but for 2 of its 10 CEM steps (96 B1 launches at fp32 at
    [400,16,64,264] and [400,16,64,520] with frame-causal ids, no bf16
    kernel and no BHND one; cut to keep the script within its time limit), the warm-up's
    repeat traced and bit-equal; no op of an encode or a step_fn makes a bf16 tensor; encode
@@ -309,7 +315,7 @@ Phases, each printed as one JSON object on a line of its own:
    back through the port's `VideoReader`, its length, fps and frames
    checked), else uint8 `.npy` arrays read by `NpyVideoDataset`, a reader
    double defined here and no part of the package; a 72-row manifest (each
-   video 9 times), a 192-row one and a 4-row one. Then the other
+   video 9 times), a 144-row one and a 4-row one. Then the other
    layouts: 8 DROID trajectory directories (``trajectory.h5`` with h5py,
    else the same arrays in ``trajectory.npz`` for `DroidDouble`, the
    script's trajectory double; a metadata ``.json``; two mp4 views of 48
@@ -321,19 +327,40 @@ Phases, each printed as one JSON object on a line of its own:
    the shipped ViT-L config (`TRAIN_DISK_CONFIG`, equal to
    `configs/train/vitl16/pretrain-256px-16f.yaml`: batch 24, 16f@256, fps
    4, 8 spawned loader workers, full remat, bf16) with ``data.datasets`` the
-   72-row manifest, overriding the folder, ipe (3) and the epochs (2):
+   72-row manifest, overriding the folder, ipe (2) and the epochs (2):
    epoch 0, then a new trainer resumes and runs epoch 1. Every step
    launches B1 168 (96 forwards, 72 recomputed) and B2 72 times; finite
    losses; the restored state bit-equal to the saved one, the resumed
-   first step (step 3) with the schedules' lr, weight decay and EMA
-   momentum there and the masks of an uninterrupted run, 6 CSV rows; each
+   first step (step 2) with the schedules' lr, weight decay and EMA
+   momentum there and the masks of an uninterrupted run, 4 CSV rows; each
    epoch's sample indices equal to the sampler's for that epoch (an
    uninterrupted run's), epoch 1's order not epoch 0's. Prints the loop's
    ms a step from disk beside the same trainer's epoch 2 on synthetic
-   clips (no checkpoint written), the loader alone over 5 of the 192-row
-   manifest's 8 batches (seconds to the first batch, clips/s), then two
+   clips (no checkpoint written), the loader alone over 3 of the 144-row
+   manifest's 6 batches (seconds to the first batch, clips/s), then two
    traced steps from disk on the same loader (wall, device-busy, idle
    share, the wait for each batch), peak memory and the decoder.
+30. multi_rank (run after phase 16) — several ranks on the one card: (a)
+   the ring of the cooldown's ``mesh.model`` 4 held in this process
+   (`ops.ring_attention.in_process_ring`, `RING_SHAPES`) at the cooldown's
+   target [2,16,8192,64] (hops [2,16,2048,64]) and the predictor's
+   [2,12,6480,32] padded onto the ring with pad keys on int32-max, against
+   one B3 call over all the keys and the BHND backward at full N given its
+   (out, lse): out within the bf16 forward tolerances, lse within 3e-2,
+   dq, dk and dv within the backward's; launches exact (B3 4 times a
+   rank's forward, the BHND backward 4 times its backward: 16 and 16 over
+   the 4 ranks held here); the ring's ms against the single call's; (b)
+   sits in phase 16; then ``init_distributed`` with NCCL at world size 1
+   and an all-reduce of a CUDA tensor; (c) two spawned processes on this
+   card over gloo (named: NCCL refuses two ranks on one device) train phase
+   6's ViT-L step through the `Pretrainer` (the shipped ViT-L config at
+   batch 8 = 4 + 4, no remat, synthetic clips, 3 steps): each step's
+   launches (B1 96, B2 72 a rank), the parameters bit-equal to rank 0's
+   after each step (a broadcast), step 1's loss and gradients against the
+   one-process step at batch 8 on the same weights, clips and masks in this
+   process (phase 6's bf16 tolerances), rank 0's checkpoint (only rank 0
+   writes) restored bit-equal on both; ms a step on two processes and on
+   one. It cannot show NCCL across cards;
 Phases 19, 20, 22 and 23 run in the order eval_anticipation, eval_video,
 eval_image, eval_video_384; each eval phase's CPU reference, like those of
 phases 4, 6, 9, 10, 14, 17, 18, 26 and 27, runs on a worker thread beside
@@ -503,7 +530,7 @@ BWD_SHAPES = [
 # 5e-3 is expected: tolerance 2e-2, and max abs 3e-2 x max|plain| for the
 # largest entries.
 BWD_REL_L2, BWD_MAX_ABS = 2e-2, 3e-2
-TRAIN_STEPS, TRAIN_WARMUP = 3, 1  # cut from 5 to keep the script within its time limit
+TRAIN_STEPS, TRAIN_WARMUP = 2, 1  # cut from 5, then 3 (PR 22), for the script's time limit
 # Clip 0's loss and gradients on the initial weights, bf16 on the card
 # against fp32 on the CPU. The port's plain path in bf16 on the CPU, full
 # depth and widths at 8f@128, differs from fp32 by 1.2e-2 (encoder) and
@@ -665,7 +692,7 @@ LOOP_CONFIG = {
                      "final_weight_decay": 0.04, "ipe": 300, "ipe_scale": 1.25, "lr": 0.000425,
                      "start_lr": 0.0001, "warmup": 40, "weight_decay": 0.04},
 }
-LOOP_IPE = 3  # cut from 4 to keep the script within its time limit
+LOOP_IPE = 2  # cut from 4, then 3 (PR 22), to keep the script within its time limit
 # one epoch: cut from 2 (a resumed epoch 1) in PR 20, whose train_disk resumes
 LOOP_OVERRIDES = {"optimization.ipe": LOOP_IPE, "optimization.epochs": 1}
 # the online eval at the end of train_loop's epoch (``evals`` with
@@ -676,7 +703,7 @@ LOOP_OVERRIDES = {"optimization.ipe": LOOP_IPE, "optimization.epochs": 1}
 # heads of 80), the depth-1 probes no kernel; 4 train batches (the 8 videos
 # twice: cut from the 72-row manifest's 18 to keep the script within its
 # time limit) and 1 val batch
-ONLINE_REPEATS = 2
+ONLINE_REPEATS = 1  # the online manifest's 8 videos once: cut from twice in PR 22
 ONLINE_EVAL_LAUNCHES = {"train": _counts(b3=32), "val": _counts(b3=32)}
 ACCUM_CONFIG_FILE = "configs/train/vitl16/cooldown-256px-64f.yaml"
 ACCUM_CONFIG = {
@@ -696,6 +723,25 @@ ACCUM_CONFIG = {
                      "lr": 0.000525, "start_lr": 0.000525, "warmup": 0, "weight_decay": 0.04},
 }
 ACCUM_OVERRIDES = {"mesh.model": 1, "optimization.ipe": 2, "optimization.epochs": 1}
+# Phase multi_rank and train_accum's context-parallel check: the ring of the
+# shipped cooldown's ``mesh.model`` (4), held in this process
+# (`ops.ring_attention.in_process_ring`: one card holds the whole ring). Its
+# shapes: the cooldown's target [2,16,8192,64] (hops [2,16,2048,64]) and the
+# predictor's [2,12,6480,32], padded onto the ring to 6496 with the pad keys
+# on int32-max (hops of 1624). A ring's forward launches B3 RING_SIZE times a
+# rank, its backward the BHND backward as often: RING_SIZE**2 over the
+# in-process ring's RING_SIZE ranks.
+RING_SIZE = 4
+RING_SHAPES = [("cooldown target", 2, 16, 8192, 64),
+               ("cooldown predictor, padded onto the ring", 2, 12, 6480, 32)]
+# (c): phase 6's ViT-L step (16f@256, the 12 x 384 predictor, no remat,
+# bf16) through the `Pretrainer` on two processes on the one card, batch 8
+# = 4 + 4, 3 steps on synthetic clips, over gloo (NCCL refuses two ranks on
+# one device): the shipped ViT-L config with these overrides
+MULTI_RANK_OVERRIDES = {"data.batch_size": 8, "data.num_workers": 0,
+                        "model.use_activation_checkpointing": False,
+                        "optimization.ipe": 3, "optimization.epochs": 1}
+MULTI_RANK_WORLD = 2
 # V-JEPA 2-AC post-training (phase train_droid): the ViT-g target over 64
 # single frames (40 B1 forwards), then the AC predictor's teacher forcing and
 # one rollout call (24 B1 and 24 B2 each); batch 8, 8 frames at 256 px
@@ -715,7 +761,7 @@ DROID_CONFIG = {
                      "start_lr": 2e-05, "final_lr": 0.0, "warmup": 1, "anneal": 2,
                      "weight_decay": 0.04, "final_weight_decay": 0.4, "enc_lr_scale": 1.0},
 }
-DROID_IPE = 4
+DROID_IPE = 2  # cut from 4 in PR 22 (the script's time limit)
 DROID_OVERRIDES = {"optimization.ipe": DROID_IPE, "optimization.epochs": 2}
 DROID_LAUNCHES = _counts(b1=40 + 2 * 24, b2=2 * 24)
 # The same config at meta.dtype float32 (phase train_droid_fp32, one epoch):
@@ -731,6 +777,7 @@ DROID_FP32_LAUNCHES = _counts(b1_fp32=40 + 2 * 24, b2_fp32=2 * 24)
 ENCODE_LAUNCHES = _counts(b1=40)
 PLAN_LAUNCHES = _counts(b1=10 * 2 * 24)
 PLAN_TIMED, PLAN_CANDIDATES = 1, 4  # timed plans cut from 2 (the script's time limit)
+PLAN_WARMUP_STEPS = 1  # the bf16 plan's warm-up CEM steps: cut from 10 in PR 22
 # encode and step_fn, bf16 on the card against fp32 on the CPU: the serving
 # slice's relative L2 (40 ViT-g layers, then 24 predictor layers on top); the
 # CEM update on a linear world model, fp32 on both sides, one sampler: the
@@ -746,7 +793,7 @@ PLAN_REL_L2, CEM_UPDATE_ATOL = 5e-2, 1e-6
 # plan takes ~46 s on an H100). encode and step_fn against the fp32 CPU path
 # of phase plan (the same weights, checked): fp32 on both sides, the GEMMs in
 # other orders, the attention 3xTF32 (2e-5 of plain), over 40 + 24 layers.
-PLAN_FP32_STEPS, PLAN_FP32_CUT_STEPS, PLAN_FP32_REL_L2 = 3, 1, 1e-4
+PLAN_FP32_STEPS, PLAN_FP32_CUT_STEPS, PLAN_FP32_REL_L2 = 2, 1, 1e-4  # 3 steps until PR 22
 ENCODE_FP32_LAUNCHES = _counts(b1_fp32=40)
 PLAN_FP32_LAUNCHES = _counts(b1_fp32=PLAN_FP32_STEPS * 2 * 24)
 # The serving export (phase export): ViT-L answers requests of 1 and 8 clips
@@ -797,7 +844,7 @@ EVAL_ANTICIPATION_CONFIG = {
         "checkpoint": None,
         "pretrain_kwargs": {"model_name": "vit_large", "use_rope": True, "uniform_power": True}},
 }
-EVAL_IPE = 2  # cut from 4 (3 at PR 17) to keep the script within its time limit
+EVAL_IPE = 1  # cut from 4 (3 at PR 17, 2 at PR 21) to keep the script within its time limit
 # The eval phases read from disk in the main process: their train and val
 # loaders' spawned workers took 8-24 s each to start on the H100 host (2 a
 # phase), for 3 batches a phase (cut to keep the script within its time
@@ -907,7 +954,7 @@ TRAIN_DISK_CONFIG = {
                      "final_weight_decay": 0.04, "ipe": 300, "ipe_scale": 1.25, "lr": 0.000525,
                      "start_lr": 0.0001, "warmup": 40, "weight_decay": 0.04},
 }
-TRAIN_DISK_IPE = 3
+TRAIN_DISK_IPE = 2  # cut from 3 in PR 22 (the script's time limit)
 TRAIN_DISK_OVERRIDES = {"optimization.ipe": TRAIN_DISK_IPE, "optimization.epochs": 2}
 # a step under full remat: B1 24 target + 2 x 24 context + 2 x 12 predictor
 # forwards, the 72 with gradients again in the backward (recomputed); B2 72
@@ -2417,12 +2464,15 @@ def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
     """The `Pretrainer` through `run_vjepa` on the shipped ViT-L 64-frame
     cooldown (`ACCUM_CONFIG`: batch 12, grad_accum 6, save_attn_qkv_h) for 1
     warm-up and 1 timed step; then, on one microbatch of 2 clips, the
-    gradients under the config's policy against no remat, and each policy's
-    peak memory. Returns the launches of the loop's steps."""
+    gradients under the config's policy with the context-parallel route on
+    (the in-process ring of 4) against it off, the same under no remat, and
+    each policy's peak memory. Returns the launches of the loop's steps and
+    of the context-parallel microbatch."""
     import shutil
     import tempfile
 
     from vjepa2_tpu_torch.models.modules import block_remat
+    from vjepa2_tpu_torch.ops.ring_attention import in_process_ring
     from vjepa2_tpu_torch.train import pretrain as tp
 
     t0 = time.perf_counter()
@@ -2464,7 +2514,19 @@ def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
                                for p in m.parameters()])
             return loss.item(), grads, peak, ms
 
-        loss_r, grads_r, _, _ = loss_and_grads(policy)
+        loss_r, grads_r, _, ms_r = loss_and_grads(policy)
+        # the context-parallel route on the same microbatch and weights: every
+        # attention of the three models around a ring of the shipped 4
+        models = (enc, pred, state.target_encoder)
+        _set_ring(models, in_process_ring(RING_SIZE))
+        before = _launch_counts()
+        loss_c, grads_c, peak_c, ms_c = loss_and_grads(policy)
+        cp_launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        _set_ring(models, None)
+        cp = _cp_record(loss_c, grads_c, loss_r, grads_r, cp_launches, me, mp)
+        cp.update(ms=ms_c, ms_without=ms_r, peak_gb_above_start=peak_c / 2**30,
+                  loop_refuses_model_4=_refusal(raw))
+        del grads_c
         loss_n, grads_n, _, _ = loss_and_grads(None)
         grad_rel = ((grads_r - grads_n).norm() / grads_n.norm()).item()
         grad_max_abs = (grads_r - grads_n).abs().max().item()
@@ -2482,16 +2544,16 @@ def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
         enc.remat = pred.remat = block_remat(True, policy)
         order = (peaks["full"] < peaks["save_attn"] <= peaks["save_attn_qkv"]
                  <= peaks["save_attn_qkv_h"])
-        # one more loop step (6 microbatches), synchronised and traced
-        fn, state_, clips_, me_, mp_ = rec.last
-        traced = wall_and_busy(lambda: fn(state_, clips_, me_, mp_)["loss"].item())
+        # the traced loop step went in PR 22 (the script's time limit): the
+        # policy's traced microbatch above is one sixth of it
         ms, timed = rec.loop_ms_per_step()
         rec.release()
-        del state, state_, enc, pred, trainer
+        del state, enc, pred, trainer
     finally:
         shutil.rmtree(folder, ignore_errors=True)
-    ok = bit_equal
-    launches = tuple(sum(s["launches"][i] for s in rec.steps) for i in range(len(KERNEL_COUNTS)))
+    ok = bit_equal and cp["ok"]
+    launches = tuple(sum(s["launches"][i] for s in rec.steps) + cp_launches[i]
+                     for i in range(len(KERNEL_COUNTS)))
     emit({"phase": "train_accum", "config": ACCUM_CONFIG_FILE,
           "overrides": {**overrides, "folder": "<temporary directory>"},
           "model": "vit_large (24 x 1024, Dh 64) 64f@256 (8192 tokens) bs12 = 6 x 2 + predictor "
@@ -2499,19 +2561,321 @@ def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
           "steps": [{k: v for k, v in s.items() if k not in ("masks", "t0")} for s in rec.steps],
           "warmup_steps": 1, "loop_ms_per_step": ms, "timed_steps": timed,
           "clips_per_s": raw["data"]["batch_size"] / (ms / 1e3), "peak_memory_gb": peak_gb,
-          "one_traced_step": traced,
           "launches_per_step": dict(zip(KERNEL_COUNTS, ACCUM_LAUNCHES)),
           "checkpoint": [{k: v for k, v in c.items() if k != "t0"} for c in rec.saves],
           "microbatch_remat_vs_none": {"policy": policy, "loss_rel_err": loss_rel,
                                        "grad_rel_l2": grad_rel, "grad_max_abs": grad_max_abs,
                                        "tol": "bit-equal"},
           "microbatch_by_policy": micro, "peak_order_holds": order,
+          "context_parallel": cp,
           "seconds": time.perf_counter() - t0, "ok": ok, "gpu": smi})
-    if not ok:
+    if not bit_equal:
         raise AssertionError(f"the cooldown microbatch's loss and gradients under {policy} are "
                              f"not bit-equal to the no-remat ones: loss {loss_rel}, gradients "
                              f"{grad_rel} relative L2, {grad_max_abs} max abs")
+    if not cp["ok"]:
+        raise AssertionError(f"the cooldown microbatch on the context-parallel route: {cp}")
     return launches
+
+
+def _set_ring(models, ring) -> None:
+    """Put every attention of ``models`` on the context-parallel route around
+    ``ring`` (None: off), as `build_models(cp_attend=ring)` builds them."""
+    from vjepa2_tpu_torch.models.modules import Attention
+
+    for model in models:
+        model.cp_attend = ring
+        for m in model.modules():
+            if isinstance(m, Attention):
+                m.cp_attend = ring
+
+
+def _ring_calls(n: int) -> int:
+    """Launches of one attention call of ``n`` tokens on the context-parallel
+    route: the in-process ring's RING_SIZE**2 hops where the ring divides n,
+    else one (the BHND route with the RoPE tables, as JAX falls through)."""
+    return RING_SIZE**2 if n % RING_SIZE == 0 else 1
+
+
+def _cp_record(loss_c, grads_c, loss_r, grads_r, launches, me, mp) -> dict:
+    """The context-parallel microbatch against the same one without: §2's
+    bf16 step tolerances, and its launches exactly: B3 for each forward
+    attention (the target over 8192 tokens, each context, each predictor
+    sequence), the BHND backward for each with gradients (save_attn_qkv_h
+    recomputes none), no DN kernel."""
+    seqs = [(m_e.shape[1], m_e.shape[1] + m_p.shape[1]) for m_e, m_p in zip(me, mp)]
+    grads = sum(24 * _ring_calls(c) + 12 * _ring_calls(p) for c, p in seqs)
+    want = _counts(b3=24 * _ring_calls(64 * 128) + grads, bhnd_bwd=grads)
+    rec = {"loss_cp": loss_c, "loss": loss_r, "loss_rel_err": abs(loss_c - loss_r) / abs(loss_r),
+           "grad_rel_l2": ((grads_c - grads_r).norm() / grads_r.norm()).item(),
+           "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2},
+           "ring": RING_SIZE, "sequences": seqs,
+           "launches": dict(zip(KERNEL_COUNTS, launches)),
+           "want_launches": dict(zip(KERNEL_COUNTS, want))}
+    rec["ok"] = (launches == want and rec["loss_rel_err"] <= TRAIN_LOSS_REL
+                 and rec["grad_rel_l2"] <= TRAIN_GRAD_REL_L2)
+    return rec
+
+
+def _refusal(raw: dict) -> str:
+    """The `Pretrainer` on the shipped cooldown's ``mesh.model`` 4 in this one
+    process: JAX's `MeshConfig.resolve` assertion, or an error."""
+    from vjepa2_tpu_torch.core.config import PretrainConfig
+    from vjepa2_tpu_torch.train.loop import Pretrainer
+
+    try:
+        Pretrainer(PretrainConfig.from_dict(overridden(raw, {"mesh.model": 4})), device="cuda")
+    except AssertionError as e:
+        return str(e)
+    raise AssertionError("the Pretrainer took mesh.model 4 in one process")
+
+
+def _ring_case(dev, name: str, B: int, H: int, N: int, D: int) -> dict:
+    """(a): the in-process ring of RING_SIZE over [B, H, N, D] bf16 against
+    one B3 call over all N keys and the BHND backward at full N given its
+    (out, lse): out within §2's bf16 forward tolerances, lse within 3e-2
+    where N needs no pad, dq, dk and dv within the backward's; launches
+    exact; the ring's ms against the single call's, forward and backward."""
+    import math
+
+    from vjepa2_tpu_torch.ops import flash_attention as fa
+    from vjepa2_tpu_torch.ops import ring_attention as ra
+
+    gen = torch.Generator(device=dev).manual_seed(N)
+    q, k, v, do = (torch.randn(B, H, N, D, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    fwd = lambda: fa._fwd(q, k, v, scale, None, None, None, None, False, None)  # noqa: E731
+    out_ref, lse_ref = fwd()
+    bwd = lambda: fa._bwd(q, k, v, out_ref, lse_ref, do, scale, None, None, None,  # noqa: E731
+                          None, False, None)
+    dq_ref, dk_ref, dv_ref = bwd()
+    apply = ra.in_process_ring(RING_SIZE)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    _reset_launch_counts()
+    out = apply(qg, kg, vg)
+    launches_fwd = _launch_counts()
+    _reset_launch_counts()
+    out.backward(do)
+    launches_bwd = _launch_counts()
+    # the ring's own (out, lse) and its backward on the padded operands
+    qp, kp, vp, seg = ra.pad_onto_ring(q, k, v, None, RING_SIZE)
+    ring_fwd = lambda: torch.ops.vjepa2.ring_fwd(qp, kp, vp, seg, scale,  # noqa: E731
+                                                 apply.ring_id)
+    out_p, lse_p = ring_fwd()
+    ring, R = apply.ring, RING_SIZE
+    dop = torch.nn.functional.pad(do, (0, 0, 0, qp.shape[2] - N))
+    args = [ring.shards(t, 2) for t in (qp, kp, vp)]
+    segs = None if seg is None else ring.shards(seg, 1)
+    lses = [t.contiguous() for t in lse_p.chunk(R, 2)]
+    ring_bwd = lambda: ra.ring_backward(ring, *args, segs, ring.shards(out_p, 2),  # noqa: E731
+                                        lses, ring.shards(dop, 2), scale)
+    ms = {"ring_fwd": cuda_ms(ring_fwd, 5), "single_fwd": cuda_ms(fwd, 5),
+          "ring_bwd": cuda_ms(ring_bwd, 3), "single_bwd": cuda_ms(bwd, 3)}
+    want_fwd, want_bwd = _counts(b3=R * R), _counts(bhnd_bwd=R * R)
+    grads = {}
+    for what, got, ref in (("dq", qg.grad, dq_ref), ("dk", kg.grad, dk_ref),
+                           ("dv", vg.grad, dv_ref)):
+        grads[what] = {"rel_l2": _rel_l2(got, ref),
+                       "max_abs_over_max_ref": ((got.float() - ref.float()).abs().max()
+                                                / ref.float().abs().max()).item()}
+    rec = {"shape": [B, H, N, D], "name": name, "ring": R, "hop": [B, H, qp.shape[2] // R, D],
+           "padded_to": qp.shape[2], "out_max_abs_err": (out.float() - out_ref.float()).abs()
+           .max().item(), "grads": grads, "launches_fwd": dict(zip(KERNEL_COUNTS, launches_fwd)),
+           "launches_bwd": dict(zip(KERNEL_COUNTS, launches_bwd)), "ms": ms,
+           "ring_over_single": {"fwd": ms["ring_fwd"] / ms["single_fwd"],
+                                "bwd": ms["ring_bwd"] / ms["single_bwd"]},
+           "tol": {"out": "1e-2 + 1e-2 |single|", "lse": 3e-2, "grad_rel_l2": 2e-2,
+                   "grad_max_abs": "3e-2 max|single|"}}
+    ok = (_within(out, out_ref, 1e-2, 1e-2) and launches_fwd == want_fwd
+          and launches_bwd == want_bwd and all(g["rel_l2"] <= 2e-2 and
+                                               g["max_abs_over_max_ref"] <= 3e-2
+                                               for g in grads.values()))
+    if seg is None:  # the lse of a sequence the ring takes whole
+        rec["lse_max_abs_err"] = (lse_p - lse_ref).abs().max().item()
+        ok = ok and rec["lse_max_abs_err"] <= 3e-2
+    rec["ok"] = ok
+    return rec
+
+
+def _nccl_world_one(dev) -> dict:
+    """`init_distributed` with NCCL at world size 1 on a localhost port, an
+    all-reduce of a CUDA tensor, and the group left again."""
+    import socket
+
+    from vjepa2_tpu_torch.core import distributed
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    got = distributed.init_distributed(f"localhost:{port}", 1, 0, device="cuda")
+    try:
+        backend = torch.distributed.get_backend()
+        x = torch.arange(4.0, device=dev) * 3
+        torch.distributed.all_reduce(x)
+        value = x.tolist()
+    finally:
+        distributed.destroy()
+    return {"rank_world": list(got), "backend": backend, "all_reduce": value,
+            "ok": backend == "nccl" and value == [0.0, 3.0, 6.0, 9.0] and got == (0, 1)}
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors])
+
+
+def _multi_rank_child(rank: int, world: int, store: str, raw: dict, out_dir: str) -> None:
+    """(c) on rank ``rank``: the `Pretrainer` over gloo on the one card, its
+    steps, each followed by a bit comparison with rank 0's parameters, then
+    rank 0's checkpoint restored; the record to ``out_dir``."""
+    from vjepa2_tpu_torch.core import distributed
+    from vjepa2_tpu_torch.core.config import PretrainConfig
+    from vjepa2_tpu_torch.train.loop import Pretrainer
+
+    torch.cuda.set_device(0)
+    distributed.init_distributed(f"file://{store}", world, rank, device="cuda", backend="gloo")
+    try:
+        dev = torch.device("cuda", 0)
+        trainer = Pretrainer(PretrainConfig.from_dict(raw), synthetic_data=True, device="cuda")
+        state = trainer.init_state()
+        params = list(state.encoder.parameters()) + list(state.predictor.parameters())
+        first = {}
+        opt_step = state.optimizer.step
+
+        def keep_first_grads(step):
+            if not first:
+                first["grads"] = _flat(p.grad for p in params).cpu()
+            opt_step(step)
+
+        state.optimizer.step = keep_first_grads
+        steps = []
+        for itr, batch in enumerate(trainer.make_loader(0)):
+            clips, me, mp = trainer.stage(batch)
+            clips, me, mp = clips.to(dev), [m.to(dev) for m in me], [m.to(dev) for m in mp]
+            _reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer._step_fn(clips.shape[1])(state, clips, me, mp)
+            loss = metrics["loss"].item()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = _launch_counts()
+            mine = _flat(list(params) + list(state.target_encoder.parameters()))
+            theirs = mine.clone()
+            torch.distributed.broadcast(theirs, 0)
+            same = not distributed.any_process(not torch.equal(mine, theirs))
+            del mine, theirs
+            steps.append({"step": itr + 1, "loss": loss, "ms": ms, "rows": clips.shape[0],
+                          "launches": dict(zip(KERNEL_COUNTS, launches)),
+                          "bit_equal_to_rank_0": same,
+                          "launches_ok": launches == TRAIN_CFGS[("vit_large", "")][1]})
+        state.optimizer.step = opt_step
+        if rank == 0:
+            torch.save(first["grads"], os.path.join(out_dir, "grads.pt"))
+        live = {k: v.clone() for k, v in _state_tensors(state)}
+        t0 = time.perf_counter()
+        trainer.ckpt.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        restored = trainer.restore_or_init()
+        got = dict(_state_tensors(restored))
+        same_restore = sorted(got) == sorted(live) and all(torch.equal(v, live[k])
+                                                           for k, v in got.items())
+        rec = {"rank": rank, "world": world, "backend": torch.distributed.get_backend(),
+               "dp": [trainer.layout.dp_size, trainer.layout.dp_rank], "steps": steps,
+               "checkpoint_written_by_this_rank": distributed.is_main_process(),
+               "checkpoint_save_s": save_s, "restore_bit_equal": same_restore,
+               "tensors": len(live), "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+    finally:
+        distributed.destroy()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _one_process_reference(dev, raw: dict) -> dict:
+    """The same `Pretrainer` in this one process at batch 8: step 1's loss and
+    gradients on the same weights, clips and masks (the seeded initial
+    weights, the synthetic clips' rows, the collator's masks for the whole
+    batch), and the ms of its 3 steps."""
+    from vjepa2_tpu_torch.core.config import PretrainConfig
+    from vjepa2_tpu_torch.train.loop import Pretrainer
+
+    trainer = Pretrainer(PretrainConfig.from_dict(raw), synthetic_data=True, device=dev)
+    state = trainer.init_state()
+    params = list(state.encoder.parameters()) + list(state.predictor.parameters())
+    first = {}
+    opt_step = state.optimizer.step
+
+    def keep_first_grads(step):
+        if not first:
+            first["grads"] = _flat(p.grad for p in params)
+        opt_step(step)
+
+    state.optimizer.step = keep_first_grads
+    losses, times = [], []
+    for batch in trainer.make_loader(0):
+        clips, me, mp = trainer.stage(batch)
+        clips, me, mp = clips.to(dev), [m.to(dev) for m in me], [m.to(dev) for m in mp]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer._step_fn(clips.shape[1])(state, clips, me, mp)["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "ms": times, "grads": first["grads"]}
+
+
+def phase_multi_rank(dev, smi: str) -> tuple[int, ...]:
+    """(a) the ring's kernels at the cooldown's shapes over the in-process
+    ring, (b) lives in train_accum, NCCL's initialisation at world size 1,
+    and (c) data parallelism over two processes on the one card. Returns the
+    launches of (c)'s steps on both ranks."""
+    t0 = time.perf_counter()
+    rings = [_ring_case(dev, *shape) for shape in RING_SHAPES]
+    torch.cuda.empty_cache()
+    nccl = _nccl_world_one(dev)
+    raw = overridden(TRAIN_DISK_CONFIG, MULTI_RANK_OVERRIDES)
+    out_dir = tempfile.mkdtemp(prefix="vjepa2_multi_rank_")
+    try:
+        t1 = time.perf_counter()
+        torch.multiprocessing.start_processes(
+            _multi_rank_child, (MULTI_RANK_WORLD, os.path.join(out_dir, "store"),
+                                overridden(raw, {"folder": os.path.join(out_dir, "run")}),
+                                out_dir),
+            nprocs=MULTI_RANK_WORLD, join=True, start_method="spawn")
+        ranks_s = time.perf_counter() - t1
+        ranks = []
+        for r in range(MULTI_RANK_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        grads = torch.load(os.path.join(out_dir, "grads.pt")).to(dev)
+        one = _one_process_reference(dev, overridden(raw, {"folder": os.path.join(out_dir,
+                                                                                   "one")}))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    loss_2 = ranks[0]["steps"][0]["loss"]
+    step1 = {"loss_two_processes": loss_2, "loss_one_process": one["losses"][0],
+             "loss_rel_err": abs(loss_2 - one["losses"][0]) / abs(one["losses"][0]),
+             "grad_rel_l2": _rel_l2(grads, one["grads"]),
+             "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2}}
+    del grads, one["grads"]
+    dp_ok = (step1["loss_rel_err"] <= TRAIN_LOSS_REL and step1["grad_rel_l2"] <= TRAIN_GRAD_REL_L2
+             and all(s["bit_equal_to_rank_0"] and s["launches_ok"]
+                     for r in ranks for s in r["steps"])
+             and all(r["restore_bit_equal"] for r in ranks)
+             and [r["checkpoint_written_by_this_rank"] for r in ranks] == [True, False]
+             and all(r["steps"][i]["loss"] == ranks[0]["steps"][i]["loss"]
+                     for r in ranks for i in range(len(r["steps"]))))
+    ok = all(r["ok"] for r in rings) and nccl["ok"] and dp_ok
+    emit({"phase": "multi_rank", "ring": rings, "nccl_world_1": nccl,
+          "data_parallel": {"config": TRAIN_DISK_CONFIG_FILE, "overrides": MULTI_RANK_OVERRIDES,
+                            "world": MULTI_RANK_WORLD, "backend": "gloo (named: NCCL refuses "
+                            "two ranks on one device)", "ranks": ranks,
+                            "ranks_seconds": ranks_s, "step_1": step1,
+                            "one_process": {"losses": one["losses"], "ms": one["ms"]},
+                            "ok": dp_ok},
+          "not_shown": "NCCL across cards (the ring's P2P and the gradient all-reduce): one card",
+          "seconds": time.perf_counter() - t0, "ok": ok, "gpu": smi})
+    if not ok:
+        raise AssertionError("multi_rank: a check failed (see its record)")
+    steps = [s["launches"] for r in ranks for s in r["steps"]]
+    return tuple(sum(s[name] for s in steps) for name in KERNEL_COUNTS)
 
 
 def _droid_trajectory(trainer, predictor, target_encoder):
@@ -3860,10 +4224,13 @@ def _card_steps(wm, rep, goal, acts, poses) -> list:
 def phase_plan(dev, smi: str) -> tuple[int, ...]:
     """CEM planning over the V-JEPA 2-AC world model: `vjepa2_ac_vit_giant()`
     with no argument (card, bf16, weights drawn after `torch.manual_seed(0)`)
-    in a `WorldModel`: two encodes (start and goal frames, 256 px), 1 warm-up
-    and `PLAN_TIMED` plans at `CEMConfig()`, one traced plan; then the CPU
+    in a `WorldModel`: two encodes (start and goal frames, 256 px), a warm-up
+    plan at 1 CEM step, `PLAN_TIMED` plans at `CEMConfig()`, then plan 0 again,
+    traced and bit-equal to the timed one; then the CPU
     checks on `_CPU_WORK` beside the later phases (the record prints when
     they end). Returns the launches of the counted encodes and plans."""
+    import dataclasses
+
     import torch.nn.functional as F
 
     from vjepa2_tpu_torch.hub.backbones import vjepa2_ac_vit_giant
@@ -3898,24 +4265,31 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
             total[i] += n
         return out, ms
 
-    def plan(seed):
-        return wm.infer_next_action(rep, pose, goal, generator=torch.Generator(dev).manual_seed(seed))
+    # the warm-up plans at 1 CEM step (10 until PR 22); the traced plan
+    # repeats the timed one, bit for bit
+    cut = WorldModel(enc, pred, tokens_per_frame(enc),
+                     cem_config=dataclasses.replace(cfg, cem_steps=PLAN_WARMUP_STEPS))
+
+    def plan(seed, model=wm):
+        return model.infer_next_action(rep, pose, goal,
+                                       generator=torch.Generator(dev).manual_seed(seed))
 
     wm.encode(frames[0])  # warm-up, outside the counted run
     (rep, enc_ms0), (goal, enc_ms1) = (counted(lambda: wm.encode(f), ENCODE_LAUNCHES, "an encode")
                                        for f in frames)
     reps_ok = all(r.shape == (256, enc.embed_dim) and r.dtype == torch.float32
                   and bool(torch.isfinite(r).all()) for r in (rep, goal))
-    warm = plan(0)
+    warm = plan(0, cut)
     plans, plan_ms = [], []
     for seed in range(PLAN_TIMED):
         p, ms = counted(lambda: plan(seed), PLAN_LAUNCHES, "a plan")
         plans.append(p)
         plan_ms.append(ms)
-    repeat_equal = bool(np.array_equal(plans[0], warm))
-    traced = wall_and_busy(lambda: plan(PLAN_TIMED))
+    repeat = []
+    traced = wall_and_busy(lambda: repeat.append(plan(0)))
+    repeat_equal = bool(np.array_equal(plans[0], repeat[0]))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    plans_ok = all(_plan_ok(p, cfg) for p in plans + [warm])
+    plans_ok = all(_plan_ok(p, cfg) for p in plans + [warm, repeat[0]])
 
     # step_fn on a few candidates at T = 1 and 2 (the start and goal latents
     # as frames), on the card
@@ -3943,7 +4317,8 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
               "cem": {k: getattr(cfg, k) for k in cfg.__dataclass_fields__},
               "ms_per_encode": [enc_ms0, enc_ms1], "median_ms_per_encode": max(enc_ms0, enc_ms1),
               "ms_per_plan": plan_ms, "median_ms_per_plan": sorted(plan_ms)[len(plan_ms) // 2],
-              "warmup_plans": 1, "one_traced_plan": traced, "peak_memory_gb": peak_gb,
+              "warmup_plans": 1, "warmup_cem_steps": PLAN_WARMUP_STEPS,
+              "one_traced_plan": traced, "peak_memory_gb": peak_gb,
               "launches_per_encode": dict(zip(KERNEL_COUNTS, ENCODE_LAUNCHES)),
               "launches_per_plan": dict(zip(KERNEL_COUNTS, PLAN_LAUNCHES)),
               "plans": [p.tolist() for p in plans], "plans_ok": plans_ok,
@@ -5179,9 +5554,9 @@ def phase_disk_data(root: str) -> dict:
     (mp4v) read by the port's `VideoReader` (its own backend choice); else
     uint8 `.npy` arrays read by the doubles (`NpyVideoDataset`,
     `NpyEpicKitchens`, `DroidDouble`). The manifests: ``train`` (72 rows,
-    each video 9 times, labelled with its index), ``bench`` (192 rows: a
-    batch for each of the 8 loader workers), ``val`` (the first 4 videos)
-    and ``online`` (16 rows); the DROID trajectories and their CSV (``droid``; h5py's files,
+    each video 9 times, labelled with its index), ``bench`` (144 rows: a
+    batch for each of 6 loader workers), ``val`` (the first 4 videos)
+    and ``online`` (8 rows); the DROID trajectories and their CSV (``droid``; h5py's files,
     else `DroidDouble`'s), the EK100 annotations over the 8 videos
     (``ek100_train``, ``ek100_val``) and the ImageNet folders (``in1k_train``,
     ``in1k_val``). Runs on a thread beside the kernel phases; prints the
@@ -5214,7 +5589,7 @@ def phase_disk_data(root: str) -> dict:
         paths.append(path)
         nbytes += os.path.getsize(path)
     manifests = {}
-    for name, rows in (("train", paths * DISK_REPEATS), ("bench", paths * 24),
+    for name, rows in (("train", paths * DISK_REPEATS), ("bench", paths * 18),
                        ("val", paths[:DISK_VAL_ROWS]), ("online", paths * ONLINE_REPEATS)):
         manifests[name] = os.path.join(root, f"{name}.csv")
         with open(manifests[name], "w") as f:
@@ -5287,9 +5662,10 @@ def _batch_indices():
         DataLoader.batched_indices = orig
 
 
-# batches of the bench manifest's 8 (a batch a worker) that train_disk's
+# batches of the bench manifest's 6 (a batch a worker) that train_disk's
 # loader hands over with no step; the 3 after feed a step and two traced steps
-LOADER_ALONE_BATCHES = 5
+# (5 of 8 until PR 22)
+LOADER_ALONE_BATCHES = 3
 
 
 def _loader_and_traced_steps(trainer, rec, manifest: str, dev) -> tuple[dict, dict]:
@@ -5489,6 +5865,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data) -
     data = data.result()
     loop_l = timed("train_loop", phase_train_loop, dev, smi, data)
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
+    multi_l = timed("multi_rank", phase_multi_rank, dev, smi)
     _DEFERRED.extend(_CPU_WORK.submit(job) for job in _CPU_LATER)  # beside device-bound phases
     droid_fp32_l = timed("train_droid_fp32", phase_train_droid_fp32, dev, smi)
     droid_l = timed("train_droid", phase_train_droid, dev, smi, data)
@@ -5514,7 +5891,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data) -
     total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
                                  accum_l, droid_l, plan_l, export_l, eval_v, eval_a, eval_i,
                                  eval_384, fp32_l, droid_fp32_l, plan_fp32_l, fused_fp32_l,
-                                 disk_l)]
+                                 disk_l, multi_l)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):

@@ -52,7 +52,7 @@ def test_disk_data_writes_the_npy_double(tmp_path, small, monkeypatch):
     assert data["decoder"] == "npy-double"
     rows = (tmp_path / "train.csv").read_text().splitlines()
     assert len(rows) == chip_smoke.DISK_VIDEOS * chip_smoke.DISK_REPEATS
-    assert len((tmp_path / "bench.csv").read_text().splitlines()) == 8 * 24
+    assert len((tmp_path / "bench.csv").read_text().splitlines()) == 8 * 18
     path = rows[0].split(" ")[0]
     reader = chip_smoke.NpyVideoDataset([data["train"]], frame_step=2).open_video(path)
     assert len(reader) == 60 and reader.avg_fps == 30.0
@@ -78,7 +78,7 @@ def test_train_disk_config_is_the_shipped_yaml():
     assert chip_smoke.TRAIN_DISK_CONFIG == shipped
     raw = chip_smoke.overridden(shipped, {"data.datasets": ["m.csv"],
                                           **chip_smoke.TRAIN_DISK_OVERRIDES})
-    assert raw["data"]["datasets"] == ["m.csv"] and raw["optimization"]["ipe"] == 3
+    assert raw["data"]["datasets"] == ["m.csv"] and raw["optimization"]["ipe"] == 2
     assert raw["data"]["batch_size"] == 24 and raw["data"]["num_workers"] == 8
 
 

@@ -18,7 +18,8 @@ temporary directory with ``optimization.ipe`` 3 and ``mesh.data`` 1.
   predictor, the target and AdamW's moments bit-equal; the CSV's rows and
   the checkpoints. ``meta.read_checkpoint``: the target from a torch
   checkpoint's ``target_encoder`` (else ``encoder``) entry, unchanged after
-  the run. A NaN loss aborts the run; the refusals (several cards); the
+  the run. A NaN loss aborts the run; the refusals (ROADMAP A12b's axes, a data
+  axis wider than the world); the
   trainer reads ``data.datasets`` (`tests/test_torch_data_droid.py` holds
   its trajectories from disk to JAX's).
 """
@@ -222,13 +223,15 @@ def test_nan_loss_aborts_the_run(tmp_path, monkeypatch):
         _main(_write(tmp_path, "run"))
 
 
-@pytest.mark.parametrize("overrides, match", [
-    ({"mesh.model": 2}, "A12"),
-    ({"mesh.fsdp": 2}, "A12"),
-    ({"mesh.data": 2}, "A12"),
+@pytest.mark.parametrize("overrides, error, match", [
+    ({"mesh.model": 2}, NotImplementedError, "A12b"),
+    ({"mesh.fsdp": 2}, NotImplementedError, "A12b"),
+    ({"mesh.data": 2}, AssertionError, "> 1 devices"),
 ])
-def test_refusals(tmp_path, overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_refusals(tmp_path, overrides, error, match):
+    """Tensor parallelism and parameter sharding (ROADMAP A12b), and a data
+    axis wider than the world (JAX's `resolve` assertion, one process)."""
+    with pytest.raises(error, match=match):
         loop.DroidTrainer(PretrainConfig.from_dict(_raw(tmp_path / "run", overrides)),
                           device="cpu")
 

@@ -4,9 +4,10 @@ the shipped ViT-L configs (SSv2: the multiclip plugin; Diving-48: the
 multilevel plugin with ``out_layers``; IN1K: the image plugin; EK100:
 anticipation), `shrink_config` and the synthetic loaders equal to JAX's,
 `chip_smoke.py`'s eval dicts equal to their YAML files, the image and EK100
-data paths read unless ``--synthetic-data`` is given, and the refusals: several
-processes, the pipeline-parallel checkpoint layout and Orbax directories
-(ROADMAP A12), no card without ``--device cpu``. Checkpoints: a released
+data paths read unless ``--synthetic-data`` is given, and the refusals: a
+process group without a coordinator, a count and an id, the
+pipeline-parallel checkpoint layout and Orbax directories (ROADMAP A12b), no
+card without ``--device cpu``. Checkpoints: a released
 `.pt` and a `Pretrainer` checkpoint load their target encoder, and the EK100
 runner takes its predictor from the same checkpoint file.
 
@@ -154,7 +155,9 @@ def test_data_on_disk_is_read_unless_synthetic_data(name, key):
 @pytest.mark.parametrize("flags", [["--num-processes", "2"], ["--process-id", "1"],
                                    ["--coordinator", "host:1234"]])
 def test_several_processes_are_refused(flags):
-    with pytest.raises(SystemExit, match="one card"):
+    """Several processes run (`tests/test_torch_data_parallel.py`); what is
+    refused is a process group without a coordinator, a count and an id."""
+    with pytest.raises(ValueError, match="coordinator, a process count"):
         cli.main(["--fname", str(ROOT / "configs/eval/vitl/ssv2.yaml"), "--tiny",
                   "--device", "cpu", *flags])
 

@@ -17,7 +17,7 @@ temporary directory and ``optimization.ipe`` 3.
   grad norm rtol 1e-5, EMA target atol 1e-6) and as the mean of its
   per-bucket losses (rtol 1e-6, `tests/train/test_multifpc.py:83`), and the
   `Pretrainer` grouping two fpcs into one step.
-* The refusals (several cards), the online eval built from ``evals``, the
+* The refusals (ROADMAP A12b's axes, a mesh wider than the world), the online eval built from ``evals``, the
   action-conditioned app running through the same CLI on the smoke config
   (`tests/test_torch_droid_loop.py` holds it to JAX), and `chip_smoke.py`'s
   four config dicts equal to their YAML files after the overrides it
@@ -279,15 +279,19 @@ def test_without_a_device_the_cli_fails_on_entry_device(tmp_path, monkeypatch):
     assert not (tmp_path / "run").exists()
 
 
-@pytest.mark.parametrize("overrides, match", [
-    ({"mesh.model": 2}, "A12"),
-    ({"mesh.model": 4, "model.context_parallel": True}, "A12"),
-    ({"mesh.fsdp": 2}, "A12"),
-    ({"mesh.pipe": 2}, "A12"),
+@pytest.mark.parametrize("overrides, error, match", [
+    ({"mesh.model": 2}, NotImplementedError, "tensor parallelism.*A12b"),
+    ({"mesh.model": 4, "model.context_parallel": True}, AssertionError, "not divisible"),
+    ({"mesh.fsdp": 2}, NotImplementedError, "A12b"),
+    ({"mesh.pipe": 2}, NotImplementedError, "A12b"),
+    ({"mesh.data": 2}, AssertionError, "> 1 devices"),
 ])
-def test_refusals(tmp_path, overrides, match):
+def test_refusals(tmp_path, overrides, error, match):
+    """What the port still refuses: parameter sharding, pipelines and tensor
+    parallelism (ROADMAP A12b), and, as JAX's `MeshConfig.resolve`, a mesh
+    wider than the world (one process here: a ring of 4 or 2 data ranks)."""
     raw = chip_smoke.overridden(_raw(tmp_path / "run"), overrides)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         loop.Pretrainer(PretrainConfig.from_dict(raw), device="cpu")
 
 
@@ -332,7 +336,11 @@ def test_refusals_of_the_cli(tmp_path):
     out = _main(_write(tmp_path, "droid", {"loss.auto_steps": 2}), "--app", "vjepa_droid")
     assert out["step"] == 2 * IPE and np.isfinite(out["loss"])
     assert len(_csv_rows(tmp_path / "droid", "droid_log_r0.csv")) == 2 * IPE
-    with pytest.raises(SystemExit, match="A12"):
+    # several processes run (`tests/test_torch_data_parallel.py`); a pipeline
+    # is still refused, and so is a process count without a coordinator
+    with pytest.raises(NotImplementedError, match="A12b"):
+        _main(_write(tmp_path, "run", {"mesh.pipe": 2}))
+    with pytest.raises(ValueError, match="coordinator"):
         _main(_write(tmp_path, "run"), "--num-processes", "2")
 
 

@@ -10,8 +10,15 @@ Usage:
   python -m vjepa2_tpu_torch.cli.eval --fname configs/eval/vitl/ek100.yaml --epochs 1
   python -m vjepa2_tpu_torch.cli.eval --fname configs/eval/vitl/in1k.yaml --tiny --device cpu
 
-One process on one card. ``--device`` is ``cuda`` unless given, and without
-a card the run fails (`core.device.entry_device`). On the card the encoder
+One process a card, on one card or several: ``--coordinator``,
+``--num-processes`` and ``--process-id``, or torchrun's or SLURM's
+environment, start a process group (`core.distributed.init_distributed`,
+NCCL on the card, gloo with ``--device cpu``). Each rank reads its shard of
+the data from disk (JAX's sampler over the processes); the probes average
+their gradients over the ranks, as the reference's DDP-wrapped classifiers
+do (JAX's do not: ROADMAP queue C), and the val counts are summed over them
+(`core.distributed.global_sum`). ``--device`` is ``cuda`` unless given, and
+without a card the run fails (`core.device.entry_device`). On the card the encoder
 (and EK100's predictor) is built in bf16 with the flash kernels on
 (``use_flash``), as the `Pretrainer` and the hub build theirs; on the CPU in
 fp32 on the plain route. The probes compute in fp32 either way.
@@ -30,7 +37,7 @@ Checkpoints (``--checkpoint`` or ``model_kwargs.checkpoint``):
 a torch file (a released ``.pt``: its ``target_encoder``, else ``encoder``,
 else the whole file; or a `Pretrainer` step file, whose target encoder it
 takes) or a `Pretrainer` checkpoint directory (its latest step); JAX's
-Orbax checkpoints and the pipeline-parallel layout are refused (ROADMAP A12).
+Orbax checkpoints and the pipeline-parallel layout are refused (ROADMAP A12b).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import os
 import numpy as np
 import torch
 
+from vjepa2_tpu_torch.core import distributed
 from vjepa2_tpu_torch.core.device import entry_device
 from vjepa2_tpu_torch.core.logging import get_logger
 from vjepa2_tpu_torch.evals.probes import ProbeConfig
@@ -117,7 +125,7 @@ def resolve_checkpoint(path: str) -> str:
         raise NotImplementedError(
             f"{path} holds no <step>.pt of the port's Pretrainer: the JAX package's Orbax "
             "checkpoints, its pipeline-parallel layout among them, are not read by the "
-            "port (ROADMAP A12)")
+            "port (ROADMAP A12b)")
     return mgr.path(step)
 
 
@@ -131,7 +139,7 @@ def load_encoder_state(path: str) -> dict:
     ckpt = load_checkpoint(resolve_checkpoint(path))
     if "encoder_blocks" in ckpt or "encoder_blocks" in (ckpt.get("target_params") or {}):
         raise NotImplementedError("the pipeline-parallel checkpoint layout (stacked "
-                                  "'encoder_blocks') is not ported (ROADMAP A12)")
+                                  "'encoder_blocks') is not ported (ROADMAP A12b)")
     return module_state_dict(next((ckpt[k] for k in ("target_encoder", "encoder") if k in ckpt),
                                   ckpt))
 
@@ -173,13 +181,23 @@ def eval_collate(samples):
     return clips, labels, ci
 
 
+def _shard(shard):
+    """(ways, index) of the data a rank reads: ``shard``, else the process
+    group's (world, rank) (JAX's `jax.process_count()`, `process_index()`)."""
+    if shard is not None:
+        return shard
+    rank, world = distributed.world()
+    return world, rank
+
+
 def make_video_eval_loaders(data_c, batch_size, fpc, res, num_clips, num_classes, ipe,
-                            synthetic=False):
+                            synthetic=False, shard=None):
     """(train, val) loaders of a probe eval: ``data.dataset_train`` and
     ``dataset_val`` from disk (a `VideoDataset` with JAX's frame step and
     random-crop transform, flipped only in training; ``ipe`` train batches
-    an epoch, the whole val manifest), else synthetic: ``ipe`` batches, then
-    ``ipe // 4``. The batches come in the sampler's order."""
+    an epoch, the whole val manifest; this rank's ``shard``, `_shard`), else
+    synthetic: ``ipe`` batches, then ``ipe // 4``, the same on every rank.
+    The batches come in the sampler's order."""
     if synthetic or not data_c.get("dataset_train"):
         _warn_synthetic(data_c, "dataset_train", synthetic)
         return (SyntheticEvalLoader(batch_size, num_clips, fpc, res, num_classes, ipe),
@@ -190,11 +208,13 @@ def make_video_eval_loaders(data_c, batch_size, fpc, res, num_clips, num_classes
     from vjepa2_tpu_torch.data.transforms import VideoTransform
     from vjepa2_tpu_torch.data.video_dataset import VideoDataset
 
+    ways, index = _shard(shard)
+
     def make(path, train):
         ds = VideoDataset(data_paths=[path], frames_per_clip=fpc,
                           frame_step=data_c.get("frame_step", 4), fps=None, num_clips=num_clips,
                           transform=VideoTransform(crop_size=res, horizontal_flip=train))
-        sampler = DistributedSampler(len(ds), 1, 0, shuffle=train)
+        sampler = DistributedSampler(len(ds), ways, index, shuffle=train)
         return DataLoader(ds, sampler, batch_size, num_workers=data_c.get("num_workers", 4),
                           collate_fn=eval_collate, ordered=True,
                           epoch_len=ipe if train else None)
@@ -265,7 +285,8 @@ def synthetic_images(batch_size: int, res: int, num_classes: int, ipe: int):
     return Replay(lambda: synth(ipe, 0)), Replay(lambda: synth(max(1, ipe // 4), 1))
 
 
-def make_image_eval_loaders(data_c, batch_size, res, num_classes, ipe, synthetic=False):
+def make_image_eval_loaders(data_c, batch_size, res, num_classes, ipe, synthetic=False,
+                            shard=None):
     """(train, val) loaders of the IN1K probe: ImageNet folders ``data.root``
     (``ipe`` batches an epoch, `ImageTransform`'s random resized crops and
     flips) and ``root_val`` (else ``root``; the whole folder, centre crops),
@@ -277,13 +298,14 @@ def make_image_eval_loaders(data_c, batch_size, res, num_classes, ipe, synthetic
     from vjepa2_tpu_torch.data.transforms import ImageTransform
 
     workers = int(data_c.get("num_workers", 4))
+    ways, index = _shard(shard)
     _, train_loader, _ = init_image_data(
         data_c["root"], batch_size, transform=ImageTransform(crop_size=res, train=True),
-        train=True, num_workers=workers, ipe=ipe)
+        train=True, num_workers=workers, world_size=ways, rank=index, ipe=ipe)
     _, val_loader, _ = init_image_data(
         data_c.get("root_val") or data_c["root"], batch_size,
         transform=ImageTransform(crop_size=res, train=False), train=False,
-        num_workers=workers)
+        num_workers=workers, world_size=ways, rank=index)
     return train_loader, val_loader
 
 
@@ -345,7 +367,7 @@ def synthetic_anticipation(batch_size: int, fpc: int, res: int, ipe: int,
 
 
 def make_anticipation_loaders(data_c, batch_size, fpc, res, ipe, synthetic=False,
-                              default_workers=4, synthetic_labels=SYNTHETIC_LABELS):
+                              default_workers=4, synthetic_labels=SYNTHETIC_LABELS, shard=None):
     """((verbs, nouns, actions), the valid action classes or None, (train,
     val) loaders) of the EK100 eval: ``data.annotations_train`` /
     ``annotations_val`` (else the train file) from disk as JAX's launcher
@@ -372,8 +394,10 @@ def make_anticipation_loaders(data_c, batch_size, fpc, res, ipe, synthetic=False
         label_space=train_ds.label_space, frames_per_clip=fpc,
         transform=VideoTransform(crop_size=res))
 
+    ways, index = _shard(shard)
+
     def make(ds, train):
-        return DataLoader(ds, DistributedSampler(len(ds), 1, 0, shuffle=train), batch_size,
+        return DataLoader(ds, DistributedSampler(len(ds), ways, index, shuffle=train), batch_size,
                           num_workers=int(data_c.get("num_workers", default_workers)),
                           collate_fn=anticipation_collate, ordered=True,
                           epoch_len=ipe if train else None)
@@ -498,8 +522,6 @@ EVALS = {
 
 
 def main(argv=None):
-    from vjepa2_tpu_torch.core.config import read_yaml
-
     p = argparse.ArgumentParser()
     p.add_argument("--fname", required=True)
     p.add_argument("--checkpoint", default=None)
@@ -510,15 +532,27 @@ def main(argv=None):
                    help="smoke mode: shrink model/resolution/ipe but keep the exact "
                         "config-driven dispatch path (plugin module_name, probe grid, ...)")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    p.add_argument("--coordinator", default=None, help="multi-host coordinator address")
+    p.add_argument("--coordinator", default=None,
+                   help="the process group's address, host:port (or a file:// store)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
     get_logger(force=True)
-    if args.coordinator or (args.num_processes or 1) > 1 or (args.process_id or 0) > 0:
-        raise SystemExit("several processes (--coordinator, --num-processes, --process-id) are "
-                         "not ported: the port evaluates on one card (ROADMAP A12)")
     args.device = entry_device(args.device)
+    owned = not distributed.initialized()
+    rank, world = distributed.init_distributed(args.coordinator, args.num_processes,
+                                               args.process_id, device=args.device)
+    if world > 1:
+        logger.info("process %d / %d", rank, world)
+    try:
+        return _run(args)
+    finally:
+        if owned:
+            distributed.destroy()
+
+
+def _run(args):
+    from vjepa2_tpu_torch.core.config import read_yaml
 
     cfg = read_yaml(args.fname)
     if args.tiny:

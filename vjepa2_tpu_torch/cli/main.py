@@ -1,14 +1,21 @@
 """CLI launcher (counterpart of `vjepa2_tpu/cli/main.py`; reference
 `app/main.py`).
 
-One process on one card. App dispatch is config-driven over an explicit
-registry, as in JAX.
+One process a card, on one card or several. ``--coordinator host:port``,
+``--num-processes`` and ``--process-id``, or the scheduler's environment
+(torchrun's ``MASTER_ADDR`` / ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK``,
+SLURM's tasks, a JobSet's index), start a process group
+(`core.distributed.init_distributed`: NCCL on the card, each rank on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``), which the run leaves at
+its end; the config's ``mesh`` lays the ranks out (`train.loop`). App
+dispatch is config-driven over an explicit registry, as in JAX.
 
 Usage:
   python -m vjepa2_tpu_torch.cli.main --fname configs/train/vith16/pretrain-256px-16f.yaml
   python -m vjepa2_tpu_torch.cli.main --fname cfg.yaml --epochs 1 --synthetic-data
   python -m vjepa2_tpu_torch.cli.main --fname cfg.yaml --device cpu
   python -m vjepa2_tpu_torch.cli.main --fname configs/train/vitg16/droid-256px-8f.yaml --epochs 1
+  torchrun --nproc-per-node 8 -m vjepa2_tpu_torch.cli.main --fname cfg.yaml
 
 Apps: ``vjepa`` (masked pretraining, `train.loop.Pretrainer`) and
 ``vjepa_droid`` (action-conditioned post-training, `train.droid_loop.DroidTrainer`).
@@ -26,6 +33,7 @@ from __future__ import annotations
 import argparse
 import pprint
 
+from vjepa2_tpu_torch.core import distributed
 from vjepa2_tpu_torch.core.config import PretrainConfig, read_yaml
 from vjepa2_tpu_torch.core.device import entry_device
 from vjepa2_tpu_torch.core.logging import get_logger
@@ -79,16 +87,26 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=None, help="override epoch count")
     p.add_argument("--synthetic-data", action="store_true", help="run on synthetic clips")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    p.add_argument("--coordinator", default=None, help="multi-host coordinator address host:port")
+    p.add_argument("--coordinator", default=None,
+                   help="the process group's address, host:port (or a file:// store)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
     get_logger(force=True)
-    if (args.num_processes or 1) > 1 or (args.process_id or 0) > 0:
-        raise SystemExit("several processes (--num-processes, --process-id) are not ported: "
-                         "the port trains on one card (ROADMAP A12)")
     args.device = entry_device(args.device)
+    owned = not distributed.initialized()
+    rank, world = distributed.init_distributed(args.coordinator, args.num_processes,
+                                               args.process_id, device=args.device)
+    if world > 1:
+        logger.info("process %d / %d", rank, world)
+    try:
+        return _run(args)
+    finally:
+        if owned:
+            distributed.destroy()
 
+
+def _run(args):
     raw = read_yaml(args.fname)
     cfg = PretrainConfig.from_dict(raw)
     app = args.app or cfg.app
@@ -98,7 +116,8 @@ def main(argv=None):
     logger.info("loaded config:\n%s", pprint.pformat(raw)[:2000])
     from vjepa2_tpu_torch.core.provenance import dump_provenance
 
-    dump_provenance(cfg.folder, raw, app=app)
+    if distributed.is_main_process():
+        dump_provenance(cfg.folder, raw, app=app)
     result = APPS[app](cfg, args)
     logger.info("done: %s", result)
     return result

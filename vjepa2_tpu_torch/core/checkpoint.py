@@ -16,7 +16,11 @@ restored step. The manager keeps JAX's semantics (`checkpoint.py:18-50`):
 * a restore is exact: every tensor comes back bit-equal, onto the devices of
   the state it is restored into.
 
-Saves are synchronous, and every step handed to ``save`` is written.
+Saves are synchronous, and every step handed to ``save`` is written. In a
+process group only rank 0 writes and prunes, and every rank waits for it at
+a barrier: the data- and context-parallel ranks hold the same state, and
+the file keeps the one-process format, so any world size resumes it (every
+rank reads the same file).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import time
 from typing import Any, Optional
 
 import torch
+
+from vjepa2_tpu_torch.core import distributed
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
@@ -78,9 +84,12 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> None:
         """Write ``state`` (a `state_dict()` holder, or tensors in dicts and
-        lists) as ``step``, then drop the steps outside the window."""
-        _atomic_save(_state_of(state), self.path(step))
-        self._collect(step)
+        lists) as ``step``, then drop the steps outside the window; rank 0
+        only, the others waiting until it is done."""
+        if distributed.is_main_process():
+            _atomic_save(_state_of(state), self.path(step))
+            self._collect(step)
+        distributed.barrier()
 
     def _collect(self, newest: int) -> None:
         steps = self.all_steps()

@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vjepa2_tpu_torch.core.checkpoint import load_params, save_params
+from vjepa2_tpu_torch.core.distributed import global_sum
 from vjepa2_tpu_torch.evals.probes import ProbeConfig, ProbeGrid, probe_flash
 from vjepa2_tpu_torch.evals.video_classification import frozen_features
 from vjepa2_tpu_torch.models.attentive_pooler import AttentivePooler
@@ -71,7 +72,10 @@ class ClassMeanRecall:
         np.add.at(self.FN, labels[~hits], 1)
 
     def compute(self, eps: float = 1e-8) -> dict:
-        TP, FN = self.TP, self.FN
+        """Class-mean recall@k and accuracy over every process's counts (the
+        TP / FN vectors summed over the processes, JAX
+        `action_anticipation.py:71-76`)."""
+        TP, FN = global_sum(self.TP), global_sum(self.FN)
         nch = max(1, int(((TP + FN) > 0).sum()))
         recall = 100.0 * float((TP / (TP + FN + eps)).sum()) / nch
         total = max(1, int((TP + FN).sum()))

@@ -58,7 +58,7 @@ def make_online_eval(eval_cfg_paths, ipe: int = 20, epochs: int = 1):
         # the pretraining geometry: the encoder is built for it
         train, val = make_video_eval_loaders(
             data_c, int(opt_c.get("batch_size", 2)), encoder.num_frames, encoder.img_size[0], 1,
-            num_classes, ipe)
+            num_classes, ipe, shard=ctx.get("shard"))
         return ev.run(train, val, epochs=epochs)["top1"]
 
     def run_image(encoder, cfg, ctx) -> float:
@@ -74,7 +74,8 @@ def make_online_eval(eval_cfg_paths, ipe: int = 20, epochs: int = 1):
             # images as as many frames as a tubelet holds, at least 2
             img_as_video_nframes=max(2, encoder.tubelet_size))
         train, val = make_image_eval_loaders(data_c, int(opt_c.get("batch_size", 4)),
-                                             encoder.img_size[0], num_classes, ipe)
+                                             encoder.img_size[0], num_classes, ipe,
+                                             shard=ctx.get("shard"))
         return ev.run(train, val, epochs=epochs)["top1"]
 
     def run_anticipation(encoder, cfg, ctx) -> float:
@@ -89,7 +90,7 @@ def make_online_eval(eval_cfg_paths, ipe: int = 20, epochs: int = 1):
         hp = encoder.img_size[0] // encoder.patch_size
         sizes, valid_actions, (train, val) = make_anticipation_loaders(
             data_c, int(opt_c.get("batch_size", 2)), encoder.num_frames, encoder.img_size[0],
-            ipe, default_workers=0,
+            ipe, default_workers=0, shard=ctx.get("shard"),
             synthetic_labels=tuple(int(data_c.get(k, d)) for k, d in (
                 ("num_verbs", 5), ("num_nouns", 7), ("num_actions", 9))))
         ev = AnticipationEval(
@@ -109,6 +110,8 @@ def make_online_eval(eval_cfg_paths, ipe: int = 20, epochs: int = 1):
                "action_anticipation_frozen": run_anticipation}
 
     def online_eval(encoder, epoch: int, **ctx) -> dict:
+        """``ctx``: ``predictor`` (the live one) and ``shard`` = (ways, index),
+        the data group this rank reads its share of the eval data in."""
         results = {}
         for path, cfg in cfgs:
             name = cfg.get("eval_name", "video_classification_frozen")

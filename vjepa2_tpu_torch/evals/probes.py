@@ -21,6 +21,11 @@ from start_lr over warmup steps to lr, cosine to final_lr) and weight decay
 ``p <- p - lr * (u + wd * p)`` on every leaf, biases, LayerNorms and the
 query included (reference `eval.py:468-487`). The probe computes in fp32
 whatever the features' dtype, as JAX's `AttentiveClassifier` default.
+Across several processes each probe's gradients are averaged over them
+before its update (`core.distributed.mean_`), as the reference's
+DDP-wrapped classifiers average theirs, so the probes stay bit-equal on
+every rank; JAX's jitted probe step averages nothing across processes
+(ROADMAP queue C).
 Subclasses change the objective, the decay rule or the weight-decay
 schedule (`evals.action_anticipation.AnticipationGrid`).
 """
@@ -36,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from vjepa2_tpu_torch.core import distributed
 from vjepa2_tpu_torch.core.schedulers import cosine_wd, warmup_cosine_lr
 from vjepa2_tpu_torch.models.attentive_pooler import AttentiveClassifier
 
@@ -136,6 +142,7 @@ class ProbeGrid:
                 out = functional_call(self.model, p, (feats,))
                 loss, acc = self.objective(out, *targets)
                 grads = torch.autograd.grad(loss, list(p.values()))
+            distributed.mean_(grads, distributed.world_group())
             self._adam(params, opt, i, dict(zip(p, grads)), self.lr(i, step), self.wd(i, step))
             losses.append(loss.detach())
             if acc is not None:

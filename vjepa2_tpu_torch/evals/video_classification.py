@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from vjepa2_tpu_torch.core.checkpoint import load_params, save_params
+from vjepa2_tpu_torch.core.distributed import global_sum
 from vjepa2_tpu_torch.core.logging import AverageMeter, get_logger
 from vjepa2_tpu_torch.evals.probes import ProbeConfig, ProbeGrid, count_correct
 from vjepa2_tpu_torch.evals.wrappers import encode_clips
@@ -36,6 +37,11 @@ def frozen_features(extract: Callable, device, *batch) -> torch.Tensor:
 
 
 def top1_result(correct: np.ndarray, total: int) -> dict:
+    """Per-probe top-1 over every process's val shard: the counts are summed
+    over the processes first (JAX `video_classification.py:135-140`,
+    `image_classification.py:91-96`)."""
+    correct = global_sum(correct)
+    total = int(global_sum(np.int64(total)))
     top1 = correct / max(1, total)
     best = int(np.argmax(top1))
     return {"top1_per_probe": top1, "best_probe": best, "top1": float(top1[best])}

@@ -46,10 +46,18 @@ that a `checkpoint_name` region encloses. A selective checkpoint context
 caches those outputs in the forward and hands them back in the recompute,
 which then launches neither the kernel nor the GEMM.
 
+The context-parallel route (``cp_attend``, JAX `modules.py:577-605`) comes
+before the others: with a ring (`ops.ring_attention.seq_sharded_attention`)
+and no segment ids, q and k are rotated by the interleaved RoPE tables and
+attention runs token-sharded around the ring when N divides by its size;
+other lengths take the BHND flash route with those tables. The ring's
+(out, lse) is the output of ``torch.ops.vjepa2.ring_fwd``, which the remat
+policies keep as they keep the flash kernels'.
+
 The AC predictor's blocks (`ACBlock`, `ACAttention`; JAX `modules.py:629-909`)
 reuse `Attention`'s projections and routes with frame-causal segment ids.
 
-Not ported yet: drop_path, context parallelism and SwiGLU.
+Not ported yet: drop_path and SwiGLU.
 """
 
 from __future__ import annotations
@@ -67,7 +75,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from vjepa2_tpu_torch.ops.attention import attend_bhdn, attend_bhnd, sdpa
+from vjepa2_tpu_torch.ops import ring_attention  # noqa: F401  (registers vjepa2::ring_fwd)
+from vjepa2_tpu_torch.ops.attention import (_apply_rope_cache_bhnd, attend_bhdn, attend_bhnd,
+                                            sdpa)
 from vjepa2_tpu_torch.ops.flash_attention import BHND_HEAD_WIDTHS, bhnd_head_supported
 from vjepa2_tpu_torch.ops.flash_attention_dn import dn_head_eligible
 from vjepa2_tpu_torch.ops.ln_mlp import ln_mlp
@@ -197,8 +207,8 @@ def checkpoint_name(name: str):
 
 def _remat_policy(saves: frozenset):
     aten = torch.ops.aten
-    flash = ({torch.ops.vjepa2.flash_fwd_dn.default, torch.ops.vjepa2.flash_fwd_bhnd.default}
-             if "flash_out" in saves else set())
+    flash = ({torch.ops.vjepa2.flash_fwd_dn.default, torch.ops.vjepa2.flash_fwd_bhnd.default,
+              torch.ops.vjepa2.ring_fwd.default} if "flash_out" in saves else set())
     producers = {aten.addmm.default, aten.baddbmm.default, aten.mm.default, aten.bmm.default,
                  torch.ops.vjepa2.ln_qkv.default}
 
@@ -290,8 +300,9 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, use_rope: bool = False,
                  use_flash: bool = False, dtype=torch.float32, device=None,
-                 init_std: float = 0.02, proj_init_scale: float = 1.0):
+                 init_std: float = 0.02, proj_init_scale: float = 1.0, cp_attend=None):
         super().__init__()
+        self.cp_attend = cp_attend
         self.dim, self.num_heads = dim, num_heads
         self.head_dim = dim // num_heads
         self.use_rope, self.use_flash = use_rope, use_flash
@@ -321,6 +332,8 @@ class Attention(nn.Module):
         routes."""
         if ln is not None:
             return self._fused_forward(x, ln, rope_expanded, qkv_perm, kv_valid)
+        if self.cp_attend is not None and segment_ids is None:
+            return self._cp_forward(x, rope_cache, kv_valid)
         B, N, C = x.shape
         H, Dh, dt = self.num_heads, self.head_dim, self.dtype
         if not self.use_flash:
@@ -357,6 +370,28 @@ class Attention(nn.Module):
             out = out.transpose(1, 2).reshape(B, N, C)  # a view of the kernel's output
         return dense(self.proj, out, dt)
 
+    def _cp_forward(self, x, rope_cache, kv_valid):
+        """The context-parallel route (`modules.py:577-605`): q, k, v
+        [B, H, N, Dh] from the canonical qkv rows, q and k rotated by the
+        interleaved ``rope_cache``, attention around the ring; a length the
+        ring does not divide takes the BHND flash route with the tables."""
+        B, N, C = x.shape
+        if self.use_rope and rope_cache is None:
+            raise ValueError("the context-parallel route with RoPE needs rope_cache")
+        b = None if self.qkv.bias is None else self.qkv.bias.to(self.dtype)
+        with checkpoint_name("flash_qkv"):
+            y = F.linear(x.to(self.dtype), self.qkv.weight.to(self.dtype), b)
+        q, k, v = y.view(B, N, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4).unbind(0)
+        rope = rope_cache if self.use_rope else None
+        if N % self.cp_attend.axis_size == 0:
+            if rope is not None:
+                q, k = _apply_rope_cache_bhnd(q, rope), _apply_rope_cache_bhnd(k, rope)
+            out = self.cp_attend(q, k, v)
+        else:
+            out = attend_bhnd(q, k, v, rope_cache=rope, use_flash=self.use_flash,
+                              kv_valid=kv_valid)
+        return dense(self.proj, out.transpose(1, 2).reshape(B, N, C), self.dtype)
+
     def _fused_forward(self, x, ln, rope_expanded, qkv_perm, kv_valid):
         """LN + qkv + RoPE as one kernel (B7; the bias in fp32, the q/k rows
         permuted to the split-half layout under RoPE), then attention
@@ -390,13 +425,13 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  use_rope: bool = False, use_flash: bool = False, layer_id: int = 0,
                  dtype=torch.float32, device=None, init_std: float = 0.02,
-                 fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False):
+                 fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False, cp_attend=None):
         super().__init__()
         self.fuse_ln_qkv, self.fuse_ln_mlp = fuse_ln_qkv, fuse_ln_mlp
         rescale = 1.0 / math.sqrt(2.0 * (layer_id + 1))
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, use_rope, use_flash, dtype, device,
-                              init_std, proj_init_scale=rescale)
+                              init_std, proj_init_scale=rescale, cp_attend=cp_attend)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device,
                        init_std=init_std, out_init_scale=rescale)
@@ -408,8 +443,8 @@ class Block(nn.Module):
         self.mlp.reset_parameters(generator)
 
     def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None):
-        # the gate of `modules.py:798-805`; the port has no mask, causal or CP route here
-        fuse_qkv = (self.fuse_ln_qkv and self.attn.use_flash
+        # the gate of `modules.py:798-805`; the port has no mask or causal route here
+        fuse_qkv = (self.fuse_ln_qkv and self.attn.use_flash and self.attn.cp_attend is None
                     and (not self.attn.use_rope or rope_expanded is not None))
         if fuse_qkv:
             x = x + self.attn(x, rope_cache, rope_expanded, qkv_perm, kv_valid,

@@ -13,7 +13,9 @@ State-dict keys are the reference's: ``predictor_embed.*``,
 ``predictor_norm.*``, ``predictor_proj.*``. ``fuse_ln_qkv`` / ``fuse_ln_mlp``
 put every block on the fused LayerNorm routes (B7, B8).
 ``use_activation_checkpointing`` / ``remat_policy`` run every block under
-`modules.remat_call`, as the encoder (`predictor.py:51,173-176`). Not ported
+`modules.remat_call`, as the encoder (`predictor.py:51,173-176`).
+``cp_attend``: the context-parallel route in every block, without the stack
+pad and the RoPE hoist (`predictor.py:141,162`). Not ported
 yet: ``chop_last_n_tokens``, ``return_all_tokens``.
 """
 
@@ -37,8 +39,10 @@ class VisionTransformerPredictor(nn.Module):
                  zero_init_mask_tokens: bool = True, use_rope: bool = False,
                  use_flash: bool = False, dtype=torch.float32, device=None,
                  init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False,
-                 use_activation_checkpointing: bool = False, remat_policy: str | None = None):
+                 use_activation_checkpointing: bool = False, remat_policy: str | None = None,
+                 cp_attend=None):
         super().__init__()
+        self.cp_attend = cp_attend
         if num_frames <= 1:
             raise NotImplementedError("the image (2D patch) predictor is not ported yet")
         self.remat = block_remat(use_activation_checkpointing, remat_policy, fuse_ln_mlp)
@@ -59,7 +63,7 @@ class VisionTransformerPredictor(nn.Module):
                 nn.Parameter(torch.zeros(1, 1, P, device=device)) for _ in range(num_mask_tokens))
         self.predictor_blocks = nn.ModuleList(
             Block(P, num_heads, mlp_ratio, qkv_bias, use_rope, use_flash, i, dtype, device,
-                  init_std, fuse_ln_qkv, fuse_ln_mlp)
+                  init_std, fuse_ln_qkv, fuse_ln_mlp, cp_attend)
             for i in range(depth))
         self.predictor_norm = LayerNorm(P, dtype=dtype, device=device)
         self.predictor_proj = nn.Linear(P, embed_dim, device=device)
@@ -117,11 +121,12 @@ class VisionTransformerPredictor(nn.Module):
         tokens = torch.gather(tokens, 1, order[:, :, None].expand(-1, -1, P))
 
         n_seq = tokens.shape[1]
-        tokens, positions_sorted, kv_valid = stack_pad(tokens, positions_sorted, self.use_flash)
+        flash_layout = self.use_flash and self.cp_attend is None
+        tokens, positions_sorted, kv_valid = stack_pad(tokens, positions_sorted, flash_layout)
         rope_cache = rope_expanded = qkv_perm = None
         if self.use_rope:
             rope_cache, rope_expanded, qkv_perm = rope_tables(
-                positions_sorted, P // self.num_heads, self.num_heads, hp, wp, self.use_flash)
+                positions_sorted, P // self.num_heads, self.num_heads, hp, wp, flash_layout)
         for blk in self.predictor_blocks:
             tokens = remat_call(blk, self.remat, tokens, rope_cache, rope_expanded, qkv_perm,
                                 kv_valid)

@@ -25,6 +25,11 @@ list of ``norm(tokens[:, :n_real])`` after each listed block, the one final
 norm shared by every tap, stack-pad rows sliced off before it (the frozen
 evals' multilevel features).
 
+``cp_attend`` (a ring, `ops.ring_attention.seq_sharded_attention`): every
+block's attention takes the context-parallel route; the stack pad and the
+RoPE hoist are off under it, as JAX's (`vision_transformer.py:159,197`):
+the ring pads its own shards and the blocks take the interleaved tables.
+
 Not ported yet: the image (2D patch) path.
 """
 
@@ -82,8 +87,9 @@ class VisionTransformer(nn.Module):
                  use_flash: bool = False, dtype=torch.float32, device=None,
                  init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False,
                  use_activation_checkpointing: bool = False, remat_policy: str | None = None,
-                 out_layers=None):
+                 out_layers=None, cp_attend=None):
         super().__init__()
+        self.cp_attend = cp_attend
         if num_frames <= 1:
             raise NotImplementedError("the image (2D patch) encoder is not ported yet")
         self.out_layers = None if out_layers is None else tuple(out_layers)
@@ -97,7 +103,7 @@ class VisionTransformer(nn.Module):
                                         device, init_std)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, use_rope, use_flash, i, dtype,
-                  device, init_std, fuse_ln_qkv, fuse_ln_mlp)
+                  device, init_std, fuse_ln_qkv, fuse_ln_mlp, cp_attend)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim, dtype=dtype, device=device)
         if not use_rope:
@@ -148,12 +154,12 @@ class VisionTransformer(nn.Module):
         elif self.use_rope:
             pos_ids = torch.arange(tp * hp * wp, device=x.device)
         n_real = tokens.shape[1]
-        tokens, pos_ids, kv_valid = stack_pad(tokens, pos_ids, self.use_flash)
+        flash_layout = self.use_flash and self.cp_attend is None
+        tokens, pos_ids, kv_valid = stack_pad(tokens, pos_ids, flash_layout)
         rope_cache = rope_expanded = qkv_perm = None
         if self.use_rope:
             rope_cache, rope_expanded, qkv_perm = rope_tables(
-                pos_ids, self.embed_dim // self.num_heads, self.num_heads, hp, wp,
-                self.use_flash)
+                pos_ids, self.embed_dim // self.num_heads, self.num_heads, hp, wp, flash_layout)
         outs = []
         for i, blk in enumerate(self.blocks):
             tokens = remat_call(blk, self.remat, tokens, rope_cache, rope_expanded, qkv_perm,

@@ -38,10 +38,13 @@ def accumulate(loss_and_backward: Callable, microbatches: Sequence, grad_accum: 
     return total * inv
 
 
-def validate_grad_accum(batch_size: int, grad_accum: int) -> None:
-    """Config-time check (JAX's message): fail here with a readable message
-    instead of a shape error at the first step. One card means a
-    data-parallel width of 1, so JAX's microbatch-by-mesh check always
-    passes."""
+def validate_grad_accum(batch_size: int, grad_accum: int, data_parallel: int = 1) -> None:
+    """Config-time checks (JAX's messages, `accum.py:43-56`): fail here with a
+    readable message instead of a shape error at the first step. The
+    batch splits into ``grad_accum`` microbatches, each over the
+    ``data_parallel`` ranks of the mesh's data group."""
     if batch_size % grad_accum:
         raise ValueError(f"batch_size {batch_size} not divisible by grad_accum {grad_accum}")
+    if (batch_size // grad_accum) % data_parallel:
+        raise ValueError(f"microbatch {batch_size // grad_accum} not divisible by the "
+                         f"data-parallel mesh ({data_parallel} ways)")

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from vjepa2_tpu_torch.core.device import entry_device
+from vjepa2_tpu_torch.core.distributed import mean_gradients, mean_metric
 from vjepa2_tpu_torch.core.optim import ScheduledAdamW, global_norm
 from vjepa2_tpu_torch.core.schedulers import cosine_wd, wsd_lr
 from vjepa2_tpu_torch.models.ac_predictor import VisionTransformerPredictorAC, vit_ac_predictor
@@ -174,7 +175,7 @@ def droid_losses(predictor: nn.Module, target_encoder: nn.Module, hp: DroidHPara
 
 
 def make_droid_train_step(hp: DroidHParams, tokens_per_frame: int, norm_stats=None,
-                          grad_accum: int = 1):
+                          grad_accum: int = 1, grad_group=None):
     """The AC train step: ``train_step(state, clips, actions, states,
     extrinsics=None)`` updates the `DroidState` in place and returns its
     metrics (``loss``, ``loss_teacher_forcing``, ``loss_rollout``,
@@ -184,6 +185,10 @@ def make_droid_train_step(hp: DroidHParams, tokens_per_frame: int, norm_stats=No
     dim [A, B/A, ...]; each microbatch runs its forward and backward in turn
     and the mean gradient makes one update (`train/accum.py`), the losses
     averaged the same way (JAX `droid.py:180-186`).
+
+    ``grad_group``: the data-parallel process group; the gradients and the
+    losses are averaged over it before the update (JAX's step over a
+    ``data`` mesh, `droid.py:198-215`).
     """
 
     def loss_and_backward(state: DroidState, clips, actions, states, extrinsics):
@@ -200,6 +205,8 @@ def make_droid_train_step(hp: DroidHParams, tokens_per_frame: int, norm_stats=No
             micro = [(state, clips[i], actions[i], states[i],
                       None if extrinsics is None else extrinsics[i]) for i in range(grad_accum)]
             losses = accumulate(loss_and_backward, micro, grad_accum, state.optimizer.params)
+        mean_gradients(state.optimizer.params, grad_group)
+        losses = mean_metric(losses, grad_group)
         grad_norm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
         state.optimizer.step(state.step)
         state.step += 1

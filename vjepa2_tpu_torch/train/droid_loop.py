@@ -4,8 +4,13 @@ DROID step (counterpart of `vjepa2_tpu/train/droid_loop.py`; reference
 
 The target encoder is frozen (drawn from ``meta.seed``, or a pretrained
 encoder's state dict passed in as ``enc_state``); the AC predictor trains.
-What one card cannot honour is refused as in the `Pretrainer`
-(`loop._refuse`): several cards (ROADMAP A12).
+Several processes lay out as the `Pretrainer`'s (`loop.process_layout`):
+the data group splits the global batch ``data.batch_size``, reads its
+shards through a sampler over that group, and averages the predictor's
+gradients (JAX `droid_loop.py:71,147,175-189`); rank 0 writes the
+checkpoints and each rank logs to ``droid_log_r{rank}.csv``. The AC
+predictor has no context-parallel route (JAX's has none either), and what
+the `Pretrainer` refuses is refused here too (ROADMAP A12b).
 
 Data: ``data.datasets[0]`` lists DROID trajectory directories, read through
 `data.droid.DROIDVideoDataset` (every frame: ``frameskip`` 1, as JAX's loop,
@@ -17,9 +22,9 @@ replays epoch 0 every epoch: ROADMAP queue C).
 the bf16 kernels, fp32 the fp32 ones (the AC predictor's frame-causal
 segment ids included). The models take the flash routes whatever
 ``model.use_flash`` says: the kernels on the card, their plain versions on
-the CPU. Each iteration logs (epoch, itr, loss, iter_ms) to
-``droid_log_r0.csv``; a non-finite loss aborts the run; every epoch ends
-with a checkpoint, from which ``meta.load_checkpoint`` resumes.
+the CPU. Each iteration logs (epoch, itr, loss, iter_ms); a non-finite loss
+aborts the run; every epoch ends with a checkpoint, from which
+``meta.load_checkpoint`` resumes.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from vjepa2_tpu_torch.train.accum import validate_grad_accum
 from vjepa2_tpu_torch.train.droid import (DroidHParams, DroidState, build_droid_models,
                                           make_droid_optimizer, make_droid_train_step,
                                           tokens_per_frame)
-from vjepa2_tpu_torch.train.loop import IMAGENET_MEAN, IMAGENET_STD, _refuse
+from vjepa2_tpu_torch.train.loop import IMAGENET_MEAN, IMAGENET_STD, process_layout
 
 logger = get_logger(__name__)
 
@@ -72,13 +77,18 @@ class SyntheticDroidLoader:
     """Deterministic synthetic trajectories (JAX `droid_loop.py:43`): one
     clip for every example, random actions, states and extrinsics."""
 
-    def __init__(self, batch_size: int, fpc: int, crop_size: int, ipe: int, seed: int = 0):
+    def __init__(self, batch_size: int, fpc: int, crop_size: int, ipe: int, seed: int = 0,
+                 shard: tuple[int, int] = (1, 0)):
+        """``shard`` = (ways, index): this rank's rows of the global batch."""
         rng = np.random.default_rng(seed)
         clip = synthetic_clip(fpc, crop_size, crop_size, seed).astype(np.float32) / 255.0
-        self.clips = np.stack([clip] * batch_size)
-        self.actions = rng.normal(size=(batch_size, fpc - 1, 7)).astype(np.float32) * 0.05
-        self.states = rng.normal(size=(batch_size, fpc, 7)).astype(np.float32)
-        self.extr = rng.normal(size=(batch_size, fpc, 6)).astype(np.float32)
+        ways, index = shard
+        rows = slice(index * (batch_size // ways), (index + 1) * (batch_size // ways))
+        self.clips = np.stack([clip] * (batch_size // ways))
+        self.actions = (rng.normal(size=(batch_size, fpc - 1, 7)).astype(np.float32)
+                        * 0.05)[rows]
+        self.states = rng.normal(size=(batch_size, fpc, 7)).astype(np.float32)[rows]
+        self.extr = rng.normal(size=(batch_size, fpc, 6)).astype(np.float32)[rows]
         self.ipe = ipe
 
     def __iter__(self):
@@ -95,8 +105,11 @@ class DroidTrainer:
 
     def __post_init__(self):
         c = self.cfg
-        _refuse(c)
         self.device = entry_device(self.device)
+        if c.mesh.model > 1 and c.model.context_parallel:
+            raise NotImplementedError("the AC predictor has no context-parallel route: set "
+                                      "mesh.model: 1 (tensor parallelism is ROADMAP A12b)")
+        self.layout = process_layout(c, self.device)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
         # reference: max_num_frames = max(dataset_fpcs) (`train.py:106`)
         self.frames_per_clip = max(c.data.dataset_fpcs) if c.data.dataset_fpcs else 8
@@ -114,14 +127,14 @@ class DroidTrainer:
         self.ipe = o.ipe or DEFAULT_IPE
         self.hp = droid_hparams(c)
         self.grad_accum = max(1, int(o.grad_accum))
-        if self.grad_accum > 1:
-            validate_grad_accum(c.data.batch_size, self.grad_accum)
+        validate_grad_accum(c.data.batch_size, self.grad_accum, self.layout.dp_size)
         os.makedirs(c.folder, exist_ok=True)
         keep_period = c.meta.save_every_freq * self.ipe if c.meta.save_every_freq else None
         self.ckpt = CheckpointManager(os.path.join(c.folder, "ckpt"), keep_period=keep_period)
         norm_stats = (IMAGENET_MEAN, IMAGENET_STD) if c.data.normalize_on_device else None
         self._step = make_droid_train_step(self.hp, self.tpf, norm_stats=norm_stats,
-                                           grad_accum=self.grad_accum)
+                                           grad_accum=self.grad_accum,
+                                           grad_group=self.layout.dp_group)
 
     def make_loader(self, epoch: int = 0):
         """Epoch ``epoch``'s batches: synthetic trajectories, or
@@ -130,17 +143,19 @@ class DroidTrainer:
         clips and states of ``frames_per_clip`` frames, actions of one
         fewer."""
         c = self.cfg
+        lay = self.layout
         if self.synthetic_data or not c.data.datasets:
             return SyntheticDroidLoader(c.data.batch_size, self.frames_per_clip,
-                                        c.data.crop_size, self.ipe, c.meta.seed)
+                                        c.data.crop_size, self.ipe, c.meta.seed,
+                                        (lay.dp_size, lay.dp_rank))
         ds = DROIDVideoDataset(
             c.data.datasets[0], camera_views=c.data.camera_views,
             frames_per_clip=self.frames_per_clip, frameskip=1, fps=c.data.fps,
             transform=VideoTransform(crop_size=c.data.crop_size,
                                      normalize_on_device=c.data.normalize_on_device),
             camera_frame=c.data.camera_frame, seed=c.meta.seed)
-        sampler = DistributedSampler(len(ds), 1, 0, seed=c.meta.seed)
-        loader = DataLoader(ds, sampler, batch_size=c.data.batch_size,
+        sampler = DistributedSampler(len(ds), lay.dp_size, lay.dp_rank, seed=c.meta.seed)
+        loader = DataLoader(ds, sampler, batch_size=c.data.batch_size // lay.dp_size,
                             num_workers=c.data.num_workers, collate_fn=droid_collate,
                             ordered=True, seed=c.meta.seed, epoch_len=self.ipe)
         loader.set_epoch(epoch)
@@ -192,7 +207,8 @@ class DroidTrainer:
         c = self.cfg
         epochs = epochs if epochs is not None else c.optimization.epochs
         state = self.restore_or_init()
-        csv = CSVLogger(os.path.join(c.folder, "droid_log_r0.csv"), ("%d", "epoch"),
+        csv = CSVLogger(os.path.join(c.folder, f"droid_log_r{self.layout.rank}.csv"),
+                        ("%d", "epoch"),
                         ("%d", "itr"), ("%.5f", "loss"), ("%.2f", "iter_ms"))
         last_loss = float("nan")
         for epoch in range(state.step // self.ipe, epochs):

@@ -2,14 +2,25 @@
 (counterpart of `vjepa2_tpu/train/loop.py`; reference `app/vjepa/train.py:main`
 minus DDP wrappers, GradScaler and scheduler replay on resume).
 
-One card: the mesh, pipeline parallelism and ring-attention context
-parallelism are not here (ROADMAP A12), and a config that asks for them is
-refused: nothing is skipped quietly.
+Several processes, one per GPU (`core.distributed`, `cli.main`): the
+config's ``mesh`` lays the ranks out as JAX's `core/mesh.py` lays out its
+devices (`process_layout`). ``data`` splits the batch: ``data.batch_size``
+is the global batch, as on JAX's mesh; each rank of the data group loads
+its share through a sampler over that group and takes its rows of the
+masks the collator samples for the whole batch, and the step averages the
+gradients over the group. ``model`` with ``model.context_parallel`` rings
+each block's attention over the token dimension
+(`ops.ring_attention.seq_sharded_attention`); the ranks of one ``model``
+group read the same clips. Only rank 0 writes checkpoints, in the one-card
+format, which any world size resumes; the others wait at a barrier. Each
+rank logs to ``log_r{rank}.csv``. Parameter sharding (``fsdp``), tensor
+parallelism (``model`` without ``context_parallel``) and pipelines
+(``pipe``) are refused (ROADMAP A12b): nothing is skipped quietly.
 
 In-process evals: with ``evals`` (eval YAMLs) and ``meta.eval_freq``, every
 ``eval_freq``-th epoch ends, after its checkpoint, with
 `evals.online.make_online_eval`'s probes on the frozen EMA target and the
-live predictor, each metric logged to ``eval_log_r0.csv`` (JAX's
+live predictor, each metric logged to ``eval_log_r{rank}.csv`` (JAX's
 `loop.py:503-546`).
 
 Data: ``data.datasets`` (CSV or ``.npy`` manifests) is read from disk through
@@ -46,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vjepa2_tpu_torch.core import distributed, mesh as mesh_lib
 from vjepa2_tpu_torch.core.checkpoint import CheckpointManager
 from vjepa2_tpu_torch.core.config import PretrainConfig
 from vjepa2_tpu_torch.core.device import entry_device
@@ -75,17 +87,20 @@ class SyntheticVideoLoader:
     on disk (smoke tests, perf shakeout). With several fpcs it emits one
     bucket per step, round-robin (matching the real loader's FpcBucketSampler)."""
 
-    def __init__(self, batch_size: int, fpc, crop_size: int, ipe: int, seed: int = 0):
-        self.batch_size = batch_size
+    def __init__(self, batch_size: int, fpc, crop_size: int, ipe: int, seed: int = 0,
+                 shard: tuple[int, int] = (1, 0)):
+        """``shard`` = (ways, index): this rank's rows of the global batch
+        of ``batch_size`` clips."""
+        ways, index = shard
+        self.batch_size = batch_size // ways
         self.fpcs = list(fpc) if isinstance(fpc, (list, tuple)) else [fpc]
         self.crop_size = crop_size
         self.ipe = ipe
         self._batches = {}
+        rows = range(index * self.batch_size, (index + 1) * self.batch_size)
         for f in self.fpcs:
             base = synthetic_clip(f, crop_size, crop_size, seed=seed).astype(np.float32) / 255.0
-            self._batches[f] = np.stack(
-                [np.roll(base, s, axis=2) for s in range(batch_size)]
-            )
+            self._batches[f] = np.stack([np.roll(base, s, axis=2) for s in rows])
 
     def __iter__(self):
         for i in range(self.ipe):
@@ -119,17 +134,56 @@ def group_fpc_batches(loader, fpcs, max_pending: int = 8):
 
 
 def _refuse(c: PretrainConfig) -> None:
-    """Raise on what one card and this slice cannot honour, naming the
-    ROADMAP item that brings it."""
+    """Raise on the mesh axes the port does not honour yet, naming the
+    ROADMAP item that brings them."""
     m = c.mesh
-    if m.model > 1:
-        what = "context parallelism" if c.model.context_parallel else "tensor parallelism"
-        raise NotImplementedError(f"mesh.model={m.model} ({what} over a model axis) needs "
-                                  "several cards: not ported (ROADMAP A12); set mesh.model: 1")
-    for name, value in (("mesh.fsdp", m.fsdp), ("mesh.pipe", m.pipe), ("mesh.data", m.data)):
+    if m.model > 1 and not c.model.context_parallel:
+        raise NotImplementedError(f"mesh.model={m.model} without model.context_parallel is "
+                                  "tensor parallelism: not ported (ROADMAP A12b); set "
+                                  "mesh.model: 1 or model.context_parallel: true")
+    for name, value in (("mesh.fsdp", m.fsdp), ("mesh.pipe", m.pipe)):
         if value > 1:
-            raise NotImplementedError(f"{name}={value} needs several cards: not ported "
-                                      "(ROADMAP A12)")
+            raise NotImplementedError(f"{name}={value} (parameter sharding / pipeline stages) "
+                                      "is not ported (ROADMAP A12b)")
+
+
+@dataclass
+class ProcessLayout:
+    """This rank's place in the config's mesh: its rank, the data group it
+    averages gradients over (size ``dp_size``, this rank ``dp_rank`` in it;
+    None in one process) and the ring of its ``model`` group (None without
+    context parallelism)."""
+
+    rank: int
+    dp_group: object
+    dp_size: int
+    dp_rank: int
+    cp_attend: object
+
+
+def process_layout(c: PretrainConfig, device) -> ProcessLayout:
+    """The mesh over the process group's ranks, as JAX's `Pretrainer` builds
+    its device mesh (`loop.py:105-131`): `_refuse`, then JAX's `resolve`
+    over the world (one process with ``data`` > 1 fails its assertion, as
+    in JAX), then the groups and, with ``model.context_parallel`` and
+    ``model`` > 1, the ring."""
+    _refuse(c)
+    rank, world = distributed.world()
+    cfg = mesh_lib.MeshConfig(c.mesh.data, c.mesh.fsdp, c.mesh.model, c.mesh.pipe)
+    d, f, m, p = cfg.resolve(world)
+    if d * f * m * p != world:
+        raise ValueError(f"mesh {d}x{f}x{m}x{p} leaves {world - d * f * m * p} of {world} "
+                         "ranks without a place: every rank trains")
+    mesh = mesh_lib.make_mesh(cfg, torch.device(device).type) if world > 1 else None
+    dp_group = mesh_lib.data_group(mesh)
+    cp_attend = None
+    if c.model.context_parallel and m > 1:
+        from vjepa2_tpu_torch.ops.ring_attention import seq_sharded_attention
+
+        cp_attend = seq_sharded_attention(mesh_lib.model_group(mesh))
+    return ProcessLayout(rank, dp_group, d * f,
+                         0 if dp_group is None else torch.distributed.get_rank(dp_group),
+                         cp_attend)
 
 
 @dataclass
@@ -140,8 +194,8 @@ class Pretrainer:
 
     def __post_init__(self):
         c = self.cfg
-        _refuse(c)
         self.device = entry_device(self.device)
+        self.layout = process_layout(c, self.device)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
         self.fpcs = sorted(set(c.data.dataset_fpcs))
         self.encoder, self.predictor = build_models(
@@ -163,6 +217,7 @@ class Pretrainer:
             device=self.device,
             use_activation_checkpointing=c.model.use_activation_checkpointing,
             remat_policy=c.model.remat_policy,
+            cp_attend=self.layout.cp_attend,
         )
         o = c.optimization
         self.hp = PretrainHParams(
@@ -171,8 +226,8 @@ class Pretrainer:
             final_wd=o.final_weight_decay, ema=tuple(o.ema), betas=tuple(o.betas), eps=o.eps,
             loss_exp=c.loss.loss_exp)
         self.grad_accum = max(1, int(o.grad_accum))
+        validate_grad_accum(c.data.batch_size, self.grad_accum, self.layout.dp_size)
         if self.grad_accum > 1:
-            validate_grad_accum(c.data.batch_size, self.grad_accum)
             if o.multifpc_within_step:
                 raise ValueError("grad_accum composes with the per-fpc-bucket step, not the "
                                  "within-step multi-fpc program (each bucket is already a "
@@ -196,9 +251,10 @@ class Pretrainer:
         """Epoch ``epoch``'s batches: synthetic clips, or ``data.datasets``
         from disk (ipe batches, in the sampler's order)."""
         c = self.cfg
+        lay = self.layout
         if self.synthetic_data or not c.data.datasets:
             return SyntheticVideoLoader(c.data.batch_size, self.fpcs, c.data.crop_size,
-                                        self.hp.ipe, c.meta.seed)
+                                        self.hp.ipe, c.meta.seed, (lay.dp_size, lay.dp_rank))
         aug = c.data_aug
         transform = VideoTransform(
             crop_size=c.data.crop_size, random_resize_scale=tuple(aug.random_resize_scale),
@@ -206,10 +262,12 @@ class Pretrainer:
             horizontal_flip=aug.horizontal_flip, motion_shift=aug.motion_shift,
             auto_augment=aug.auto_augment, rand_erase_prob=aug.reprob,
             normalize_on_device=c.data.normalize_on_device)
+        # the data group's ranks read disjoint shards (JAX `loop.py:249-250`)
         _, loader, _ = init_video_data(
-            data_paths=c.data.datasets, batch_size=c.data.batch_size, transform=transform,
-            datasets_weights=c.data.datasets_weights, dataset_fpcs=c.data.dataset_fpcs,
-            fps=c.data.fps, num_workers=c.data.num_workers, ordered=True, ipe=self.hp.ipe,
+            data_paths=c.data.datasets, batch_size=c.data.batch_size // lay.dp_size,
+            transform=transform, datasets_weights=c.data.datasets_weights,
+            dataset_fpcs=c.data.dataset_fpcs, fps=c.data.fps, num_workers=c.data.num_workers,
+            world_size=lay.dp_size, rank=lay.dp_rank, ordered=True, ipe=self.hp.ipe,
             seed=c.meta.seed)
         loader.set_epoch(epoch)
         return loader
@@ -247,7 +305,8 @@ class Pretrainer:
             fi, n_mask = self.fpcs.index(fpc), len(self.cfg.mask)
             self._step_fns[fpc] = make_train_step(
                 self.hp, [fi * n_mask + mi for mi in range(n_mask)],
-                norm_stats=self._norm_stats(), grad_accum=self.grad_accum)
+                norm_stats=self._norm_stats(), grad_accum=self.grad_accum,
+                grad_group=self.layout.dp_group)
         return self._step_fns[fpc]
 
     @property
@@ -257,7 +316,8 @@ class Pretrainer:
     def _multifpc_step_fn(self):
         if "multifpc" not in self._step_fns:
             self._step_fns["multifpc"] = make_multifpc_train_step(
-                self.hp, len(self.cfg.mask), norm_stats=self._norm_stats())
+                self.hp, len(self.cfg.mask), norm_stats=self._norm_stats(),
+                grad_group=self.layout.dp_group)
         return self._step_fns["multifpc"]
 
     def _host_clips(self, clips) -> torch.Tensor:
@@ -265,6 +325,16 @@ class Pretrainer:
         on the card)."""
         clips = torch.from_numpy(np.ascontiguousarray(clips))
         return clips if clips.dtype == torch.uint8 else clips.to(self.dtype)
+
+    def _masks(self, fpc: int, rows: int):
+        """The masks of this rank's ``rows`` examples: the collator samples
+        them for the global batch (the same on every rank), and the rank
+        takes its rows."""
+        lay = self.layout
+        me, mp = self.collator(fpc, rows * lay.dp_size)
+        lo = lay.dp_rank * rows
+        return ([torch.from_numpy(np.ascontiguousarray(m[lo:lo + rows])) for m in me],
+                [torch.from_numpy(np.ascontiguousarray(m[lo:lo + rows])) for m in mp])
 
     def stage(self, batch):
         """Host work per batch, on the prefetch thread: the clips' cast and
@@ -274,9 +344,7 @@ class Pretrainer:
         clips_list, _labels, _ci = batch
         clips = self._host_clips(clips_list[0])
         self.collator.step()
-        me, mp = self.collator(clips.shape[1], clips.shape[0])
-        me = [torch.from_numpy(m) for m in me]
-        mp = [torch.from_numpy(m) for m in mp]
+        me, mp = self._masks(clips.shape[1], clips.shape[0])
         if self.grad_accum > 1:
             a = self.grad_accum
             b = clips.shape[0] // a
@@ -292,10 +360,10 @@ class Pretrainer:
         out_c, out_me, out_mp = [], [], []
         for batch in group:
             clips = self._host_clips(batch[0][0])
-            me, mp = self.collator(clips.shape[1], clips.shape[0])
+            me, mp = self._masks(clips.shape[1], clips.shape[0])
             out_c.append(clips)
-            out_me.append([torch.from_numpy(m) for m in me])
-            out_mp.append([torch.from_numpy(m) for m in mp])
+            out_me.append(me)
+            out_mp.append(mp)
         return tuple(out_c), tuple(out_me), tuple(out_mp)
 
     # -- loop ---------------------------------------------------------------
@@ -305,8 +373,8 @@ class Pretrainer:
         epochs = epochs if epochs is not None else self.hp.epochs
         state = self.restore_or_init()
         preempted = False
-        csv = CSVLogger(os.path.join(c.folder, "log_r0.csv"), ("%d", "epoch"), ("%d", "itr"),
-                        ("%.5f", "loss"), ("%.2f", "iter_ms"))
+        csv = CSVLogger(os.path.join(c.folder, f"log_r{self.layout.rank}.csv"), ("%d", "epoch"),
+                        ("%d", "itr"), ("%.5f", "loss"), ("%.2f", "iter_ms"))
         start_epoch = int(state.step) // self.hp.ipe
         # mid-epoch resume (preemption): skip the iterations already trained
         skip_itrs = int(state.step) % self.hp.ipe
@@ -364,7 +432,8 @@ class Pretrainer:
                     drain()
                     logger.info("epoch %d itr %d loss %.4f (avg %.4f) %.0f ms", epoch, itr,
                                 loss_meter.val, loss_meter.avg, time_meter.avg)
-                if preemption_guard is not None and preemption_guard.should_stop:
+                if preemption_guard is not None and distributed.any_process(
+                        preemption_guard.should_stop):
                     # checkpoint mid-epoch and hand control back for requeue
                     # (reference: submitit checkpoint() + resume_preempt,
                     # `app/main_distributed.py:87-91`)
@@ -379,10 +448,12 @@ class Pretrainer:
                 return {"loss": last_loss, "step": int(state.step), "preempted": True}
             if (self.online_eval is not None and c.meta.eval_freq
                     and (epoch + 1) % c.meta.eval_freq == 0):
-                metrics = self.online_eval(state.target_encoder, epoch, predictor=state.predictor)
+                metrics = self.online_eval(state.target_encoder, epoch, predictor=state.predictor,
+                                           shard=(self.layout.dp_size, self.layout.dp_rank))
                 logger.info("online eval @ epoch %d: %s", epoch, metrics)
                 if eval_csv is None:
-                    eval_csv = CSVLogger(os.path.join(c.folder, "eval_log_r0.csv"),
+                    eval_csv = CSVLogger(os.path.join(c.folder,
+                                                      f"eval_log_r{self.layout.rank}.csv"),
                                          ("%d", "epoch"), ("%s", "tag"), ("%.5f", "top1"))
                 for tag, top1 in metrics.items():
                     eval_csv.log(epoch, tag, float(top1))

@@ -13,8 +13,15 @@ parameters and optimizer state needs no loss scaling.
 average before the one update (`train/accum.py`); `make_multifpc_train_step`
 averages the loss over every (fpc bucket x mask config) pair in one update.
 Activation checkpointing is the models' (`build_models`'
-``use_activation_checkpointing`` and ``remat_policy``). Not ported yet:
-sharding (one card).
+``use_activation_checkpointing`` and ``remat_policy``).
+
+Data parallelism (``grad_group``, the mesh's data group): each rank takes
+its share of the batch, and after the backward the gradients are averaged
+over the group, bucketed (`core.distributed.mean_gradients`), before AdamW,
+so the parameters stay bit-equal on every rank; the returned loss is the
+group's mean, the global batch's loss as JAX's jitted mean gives it.
+Context parallelism is the models' (`build_models`' ``cp_attend``). Not
+ported yet: parameter sharding (ROADMAP A12b).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Sequence
 import torch
 
 from vjepa2_tpu_torch.core.device import entry_device
+from vjepa2_tpu_torch.core.distributed import mean_gradients, mean_metric
 from vjepa2_tpu_torch.core.optim import ScheduledAdamW, ema_update, global_norm
 from vjepa2_tpu_torch.core.schedulers import cosine_wd, ema_momentum, warmup_cosine_lr
 from vjepa2_tpu_torch.models.modules import parse_ln_fusions
@@ -71,7 +79,7 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
                  zero_init_mask_tokens: bool = True, use_flash: bool = True,
                  dtype=torch.bfloat16, device="cuda", fuse_ln: str = "",
                  use_activation_checkpointing: bool = False, remat_policy: str | None = None,
-                 ) -> tuple[VisionTransformer, VisionTransformerPredictor]:
+                 cp_attend=None) -> tuple[VisionTransformer, VisionTransformerPredictor]:
     """Mirror of reference `app/vjepa/utils.py:init_video_model`; parameters
     are allocated on ``device`` but not initialised (`init_params` does).
     Builds on the card with the flash kernels on by default, and raises
@@ -79,7 +87,9 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
     the fused LayerNorm prologues for every block of both models, as
     `bench.py --fuse-ln` takes them ('qkv,mlp', 'qkv', 'mlp' or '').
     ``use_activation_checkpointing`` / ``remat_policy``: every block of both
-    models under the remat policy (`models.modules.resolve_remat_policy`)."""
+    models under the remat policy (`models.modules.resolve_remat_policy`).
+    ``cp_attend``: a ring (`ops.ring_attention`) every block of both models
+    attends through (JAX's ``build_models(cp_attend=)``)."""
     device = entry_device(device)
     fuse_qkv, fuse_mlp = parse_ln_fusions(fuse_ln)
     enc = MODEL_REGISTRY[model_name](
@@ -87,7 +97,7 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
         tubelet_size=tubelet_size, uniform_power=uniform_power, use_rope=use_rope,
         use_flash=use_flash, dtype=dtype, device=device, fuse_ln_qkv=fuse_qkv,
         fuse_ln_mlp=fuse_mlp, use_activation_checkpointing=use_activation_checkpointing,
-        remat_policy=remat_policy)
+        remat_policy=remat_policy, cp_attend=cp_attend)
     pred = VisionTransformerPredictor(
         img_size=(crop_size, crop_size), patch_size=patch_size, num_frames=num_frames,
         tubelet_size=tubelet_size, embed_dim=enc.embed_dim, predictor_embed_dim=pred_embed_dim,
@@ -96,7 +106,8 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
         num_mask_tokens=num_mask_tokens, zero_init_mask_tokens=zero_init_mask_tokens,
         use_rope=use_rope, use_flash=use_flash, dtype=dtype, device=device,
         fuse_ln_qkv=fuse_qkv, fuse_ln_mlp=fuse_mlp,
-        use_activation_checkpointing=use_activation_checkpointing, remat_policy=remat_policy)
+        use_activation_checkpointing=use_activation_checkpointing, remat_policy=remat_policy,
+        cp_attend=cp_attend)
     return enc, pred
 
 
@@ -165,9 +176,12 @@ def forward_loss(encoder, predictor, clips, masks_enc, masks_pred, h_list, loss_
     return jepa_loss(z_list, h_list, loss_exp)
 
 
-def _update(state: TrainState, loss: torch.Tensor, momentum: float) -> dict:
-    """The update after the gradients are in ``.grad``: the grad norm, AdamW
-    at the step's lr and weight decay, the EMA of the target, the count."""
+def _update(state: TrainState, loss: torch.Tensor, momentum: float, grad_group=None) -> dict:
+    """The update after the gradients are in ``.grad``: their mean over
+    ``grad_group``, the grad norm, AdamW at the step's lr and weight decay,
+    the EMA of the target, the count."""
+    mean_gradients(state.optimizer.params, grad_group)
+    loss = mean_metric(loss, grad_group)
     grad_norm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
     state.optimizer.step(state.step)
     ema_update(state.target_encoder.parameters(), state.encoder.parameters(), momentum)
@@ -176,7 +190,7 @@ def _update(state: TrainState, loss: torch.Tensor, momentum: float) -> dict:
 
 
 def make_train_step(hp: PretrainHParams, mask_indices: Sequence[int] | None = None,
-                    norm_stats=None, grad_accum: int = 1):
+                    norm_stats=None, grad_accum: int = 1, grad_group=None):
     """The train step: ``train_step(state, clips, masks_enc, masks_pred)``
     updates ``state`` in place and returns its metrics (``loss``,
     ``grad_norm``, ``ema_momentum``).
@@ -190,6 +204,9 @@ def make_train_step(hp: PretrainHParams, mask_indices: Sequence[int] | None = No
     [A, B/A, ...] and [A, B/A, K] (`pretrain.py:192-263`); each microbatch
     runs its target, context and predictor passes and its backward in turn,
     and the mean gradient makes one update (`train/accum.py`).
+
+    ``grad_group``: the process group the gradients and the loss are
+    averaged over (None: this process alone).
     """
 
     def loss_and_backward(state: TrainState, clips, masks_enc, masks_pred) -> torch.Tensor:
@@ -210,12 +227,13 @@ def make_train_step(hp: PretrainHParams, mask_indices: Sequence[int] | None = No
             micro = [(state, clips[i], [m[i] for m in masks_enc], [m[i] for m in masks_pred])
                      for i in range(grad_accum)]
             loss = accumulate(loss_and_backward, micro, grad_accum, state.optimizer.params)
-        return _update(state, loss, momentum)
+        return _update(state, loss, momentum, grad_group)
 
     return train_step
 
 
-def make_multifpc_train_step(hp: PretrainHParams, num_mask_cfgs: int, norm_stats=None):
+def make_multifpc_train_step(hp: PretrainHParams, num_mask_cfgs: int, norm_stats=None,
+                             grad_group=None):
     """The reference's within-step multi-fpc composition
     (`app/vjepa/train.py:425-435`; JAX `pretrain.py:266-352`): ONE update
     averages the JEPA loss over every (fpc bucket x mask config) pair.
@@ -244,6 +262,6 @@ def make_multifpc_train_step(hp: PretrainHParams, num_mask_cfgs: int, norm_stats
         loss = jepa_loss(z_list, h_flat, hp.loss_exp)
         state.optimizer.zero_grad()
         loss.backward()
-        return _update(state, loss, momentum)
+        return _update(state, loss, momentum, grad_group)
 
     return train_step
