@@ -148,7 +148,8 @@ Phases, each printed as one JSON object on a line of its own:
    epoch's sample indices the sampler's for that epoch (epoch 1's order not
    epoch 0's); the loop's ms a step from disk beside the same step on the
    synthetic trajectories, each epoch loader's first batch (its workers'
-   start) and clips/s, peak memory, the checkpoints, and one more step
+   start) and clips/s, peak memory, epoch 0's checkpoint (the resumed
+   epoch writes none: nothing reads it), and one more step
    traced, as in phase 15;
 18. plan   — latent planning: the hub's `vjepa2_ac_vit_giant()` called with
    no argument (the 22-head ViT-g and the 24 x 1024 AC predictor on the
@@ -354,13 +355,37 @@ Phases, each printed as one JSON object on a line of its own:
    and an all-reduce of a CUDA tensor; (c) two spawned processes on this
    card over gloo (named: NCCL refuses two ranks on one device) train phase
    6's ViT-L step through the `Pretrainer` (the shipped ViT-L config at
-   batch 8 = 4 + 4, no remat, synthetic clips, 3 steps): each step's
+   batch 8 = 4 + 4, no remat, synthetic clips, 2 steps): each step's
    launches (B1 96, B2 72 a rank), the parameters bit-equal to rank 0's
    after each step (a broadcast), step 1's loss and gradients against the
    one-process step at batch 8 on the same weights, clips and masks in this
    process (phase 6's bf16 tolerances), rank 0's checkpoint (only rank 0
    writes) restored bit-equal on both; ms a step on two processes and on
    one. It cannot show NCCL across cards;
+31. model_parallel (run after phase 30) — parameter sharding, tensor
+   parallelism and the pipeline on the one card: (a) FSDP2
+   (`core.sharding.Parallel`, ``shard=True``) over a one-rank NCCL mesh on
+   the shipped ViT-g pretrain config's step (`MP_GIANT_CONFIG_FILE`: its
+   widths, batch 24, full remat, bf16, its collator's masks), against the
+   same step unwrapped from the same weights, clips and masks: step 1's loss
+   and gradients within phase 6's bf16 tolerances, each way's ms a step,
+   peak and launches (equal); (b) two spawned processes on this card over
+   gloo at ``mesh {data 1, model 2}`` train phase 6's ViT-L step, unfused and
+   with ``fuse_ln="qkv,mlp"``: each rank runs 8 of ViT-L's 16 heads and 6 of
+   the predictor's 12 (B1/B2, or B7 at 1536 qkv rows, B8 at 2048 fc1
+   columns and B3/B4-B5 on the fused route), each step's launches as phase
+   6's (or phase 14's), the parameters both ranks hold whole bit-equal to
+   rank 0's, rank 0's step-1 loss and gathered gradients against the
+   one-process step in this process (run while the ranks start); whether gloo takes CUDA tensors for
+   `all_gather_into_tensor` and `reduce_scatter_tensor`, and, where it does,
+   the ViT-L step at ``fsdp 2`` over gloo against one process; (c) phase
+   6's step with the encoder in 4 GPipe stages of 2 microbatches on the
+   in-process transport (`core.pipeline.InProcessPipe`) against the plain
+   step: step 1's loss and gradients, 168 B1 + 120 B2 a step, ms and peak
+   both ways. It cannot show NCCL's collectives or P2P across cards. The
+   kernel phases hold the new per-rank shapes (`tp ...`, `pp ...`, `fsdp
+   ...` in `SHAPES`, `BWD_SHAPES`, `BHND_SHAPES`, `BHND_BWD_SHAPES`,
+   `PROLOGUE_SHAPES`) against their plain versions;
 Phases 19, 20, 22 and 23 run in the order eval_anticipation, eval_video,
 eval_image, eval_video_384; each eval phase's CPU reference, like those of
 phases 4, 6, 9, 10, 14, 17, 18, 26 and 27, runs on a worker thread beside
@@ -483,6 +508,17 @@ SHAPES = [
     # the ViT-g/384 K400 eval (phase eval_video_384): the 22-head encoder over
     # 8 clips of 16f@384, a RoPE grid of 8 x 24 x 24
     ("vit_giant_xformers/384 encoder", (8, 22, 64, 4608), {"grid": (24, 24)}),
+    # phase model_parallel: a tensor-parallel rank's heads (8 of ViT-L's 16,
+    # 6 of the predictor's 12), a pipeline microbatch (4 of 8 clips), the
+    # ViT-g step at its config's batch of 24 (per-example tables of its
+    # collator's masks)
+    ("tp vit_large target, 8 of 16 heads", (8, 8, 64, 2048), {}),
+    ("tp predictor, 6 of 12 heads", (8, 6, 32, 1664), {"kv_valid_len": 1623}),
+    ("pp vit_large target, a microbatch of 4", (4, 16, 64, 2048), {}),
+    ("fsdp vit_giant_xformers target, batch 24", (24, 22, 64, 2048), {}),
+    ("fsdp vit_giant_xformers context, mask 0, batch 24", (24, 22, 64, 584),
+     {"seq": "giant_ctx0"}),
+    ("fsdp vit_giant predictor, mask 1, batch 24", (24, 12, 32, 1664), {"seq": "giant_pred1"}),
 ]
 # operands above this many elements (the plan's 108 M and 213 M) are drawn on
 # the card: numpy takes seconds for each
@@ -522,6 +558,12 @@ BWD_SHAPES = [
     ("cooldown context, mask 1", 16, 64, "cool_ctx1"),
     ("cooldown predictor, mask 0", 12, 32, "cool_pred0"),
     ("cooldown predictor, mask 1", 12, 32, "cool_pred1"),
+    # phase model_parallel's (as `SHAPES`)
+    ("tp context encoder, mask 0, 8 of 16 heads", 8, 64, "ctx0"),
+    ("tp predictor, mask 0, 6 of 12 heads", 6, 32, "pred0"),
+    ("pp context encoder, mask 0, a microbatch of 4", 16, 64, "pp_ctx0"),
+    ("fsdp vit_giant_xformers context, mask 0, batch 24", 22, 64, "giant_ctx0"),
+    ("fsdp vit_giant predictor, mask 1, batch 24", 12, 32, "giant_pred1"),
 ]
 # B2 against plain: both from the same bf16 inputs, plain in fp32. The kernels
 # round at 2**-9 relative where plain does not: q_s and k_rot, q_u, p before
@@ -553,6 +595,9 @@ BHND_SHAPES = [
     ("fused vit_large context, mask 1", (8, 16, 176, 64), {"kv_valid_len": 173}),
     ("fused predictor, mask 0", (8, 12, 1624, 32), {"kv_valid_len": 1623}),
     ("fused predictor, mask 1", (8, 12, 1664, 32), {"kv_valid_len": 1662}),
+    # phase model_parallel: the fused step at a tensor-parallel rank's heads
+    ("tp fused vit_large target, 8 of 16 heads", (8, 8, 2048, 64), {}),
+    ("tp fused predictor, mask 1, 6 of 12 heads", (8, 6, 1664, 32), {"kv_valid_len": 1662}),
 ]
 # the BHND backward's shapes: the context passes, JAX's B5 shape (full N with
 # 1024-square blocks), the ViT-g width, and a ring hop
@@ -566,6 +611,8 @@ BHND_BWD_SHAPES = [
     ("fused vit_large context, mask 1", (8, 16, 176, 64), {"kv_valid_len": 173}),
     ("fused predictor, mask 0", (8, 12, 1624, 32), {"kv_valid_len": 1623}),
     ("fused predictor, mask 1", (8, 12, 1664, 32), {"kv_valid_len": 1662}),
+    ("tp fused vit_large context, mask 0, 8 of 16 heads", (8, 8, 584, 64), {"kv_valid_len": 578}),
+    ("tp fused predictor, mask 0, 6 of 12 heads", (8, 6, 1624, 32), {"kv_valid_len": 1623}),
 ]
 # the AC sequences of `BWD_SHAPES`: (frames of 2 + 256 tokens, stack pad)
 AC_SEQUENCES = {"ac": (7, 0), "ac_pad": (7, 2), "ac_rollout": (2, 0), "ac_rollout_pad": (2, 4)}
@@ -736,12 +783,26 @@ RING_SHAPES = [("cooldown target", 2, 16, 8192, 64),
                ("cooldown predictor, padded onto the ring", 2, 12, 6480, 32)]
 # (c): phase 6's ViT-L step (16f@256, the 12 x 384 predictor, no remat,
 # bf16) through the `Pretrainer` on two processes on the one card, batch 8
-# = 4 + 4, 3 steps on synthetic clips, over gloo (NCCL refuses two ranks on
+# = 4 + 4, 2 steps on synthetic clips, over gloo (NCCL refuses two ranks on
 # one device): the shipped ViT-L config with these overrides
 MULTI_RANK_OVERRIDES = {"data.batch_size": 8, "data.num_workers": 0,
                         "model.use_activation_checkpointing": False,
-                        "optimization.ipe": 3, "optimization.epochs": 1}
+                        "optimization.ipe": 2, "optimization.epochs": 1}
 MULTI_RANK_WORLD = 2
+# Phase model_parallel: (a) FSDP2 on the shipped ViT-g pretrain
+# config's step (its widths, batch 24 a rank, full remat, bf16) over a
+# one-rank NCCL mesh, against the step unwrapped: 1 warm-up and MP_STEPS
+# timed steps each; (b) phase 6's ViT-L step at mesh {data 1, model 2} on
+# two processes over gloo, unfused and fused, MP_TP_STEPS steps each; (c)
+# phase 6's ViT-L step with the encoder in MP_PIPE GPipe stages of
+# MP_MICROBATCHES microbatches on the in-process transport: the target and
+# both contexts launch B1 once a block and microbatch, the predictor once a
+# block (24 x 2 + 2 x 24 x 2 + 2 x 12), B2 2 x 24 x 2 + 2 x 12 a step
+MP_GIANT_CONFIG_FILE = "configs/train/vitg16/pretrain-256px-16f.yaml"
+MP_STEPS = 2
+MP_TP_WORLD, MP_TP_STEPS = 2, 1
+MP_PIPE, MP_MICROBATCHES = 4, 2
+MP_PIPE_LAUNCHES = _counts(b1=168, b2=120)
 # V-JEPA 2-AC post-training (phase train_droid): the ViT-g target over 64
 # single frames (40 B1 forwards), then the AC predictor's teacher forcing and
 # one rollout call (24 B1 and 24 B2 each); batch 8, 8 frames at 256 px
@@ -1079,6 +1140,10 @@ PROLOGUE_SHAPES = [
     ("predictor, mask 1", 8, 1664, 384, 12, 32, 1536, "pred1", 1662),
     ("vit_huge target", 8, 2048, 1280, 16, 80, 5120, "shared", None),
     ("vit_giant target", 8, 2048, 1408, 16, 88, 6144, "shared", None),
+    # phase model_parallel: a tensor-parallel rank's 1536 qkv rows (8 of 16
+    # heads) and 2048 fc1 columns, and the predictor's 576 and 768
+    ("tp vit_large target, 8 of 16 heads", 8, 2048, 1024, 8, 64, 2048, "shared", None),
+    ("tp predictor, mask 0, 6 of 12 heads", 8, 1624, 384, 6, 32, 768, "pred0", 1623),
 ]
 # (name, [B, H, N, D], features) — the shapes the fp32 BHND kernels take on
 # the main paths: the probes' self-attention in the IN1K, SSv2 and ViT-g/384
@@ -2481,7 +2546,8 @@ def phase_train_accum(dev, smi: str) -> tuple[int, ...]:
     raw = overridden(ACCUM_CONFIG, overrides)
     try:
         torch.cuda.reset_peak_memory_stats(dev)
-        with _LoopRecorder() as rec:
+        # no checkpoint written (a cut for time, ~10 s): nothing restores it
+        with _LoopRecorder(skip_saves=True) as rec:
             _run_config(raw, dev)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
         _check_launches("train_accum", rec.steps, ACCUM_LAUNCHES)
@@ -2784,8 +2850,10 @@ def _multi_rank_child(rank: int, world: int, store: str, raw: dict, out_dir: str
                "checkpoint_written_by_this_rank": distributed.is_main_process(),
                "checkpoint_save_s": save_s, "restore_bit_equal": same_restore,
                "tensors": len(live), "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
-    finally:
-        distributed.destroy()
+    except BaseException:
+        distributed.destroy(meet=False)
+        raise
+    distributed.destroy()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
 
@@ -2794,7 +2862,7 @@ def _one_process_reference(dev, raw: dict) -> dict:
     """The same `Pretrainer` in this one process at batch 8: step 1's loss and
     gradients on the same weights, clips and masks (the seeded initial
     weights, the synthetic clips' rows, the collator's masks for the whole
-    batch), and the ms of its 3 steps."""
+    batch), and the ms of its steps."""
     from vjepa2_tpu_torch.core.config import PretrainConfig
     from vjepa2_tpu_torch.train.loop import Pretrainer
 
@@ -2876,6 +2944,471 @@ def phase_multi_rank(dev, smi: str) -> tuple[int, ...]:
         raise AssertionError("multi_rank: a check failed (see its record)")
     steps = [s["launches"] for r in ranks for s in r["steps"]]
     return tuple(sum(s[name] for s in steps) for name in KERNEL_COUNTS)
+
+
+def _giant_models(dev):
+    """Phase model_parallel (a)'s models: the shipped ViT-g config's encoder
+    and predictor (`MP_GIANT_CONFIG_FILE`) in bf16, full remat, weights drawn
+    from the config's seed on the card."""
+    from vjepa2_tpu_torch.core.config import read_yaml
+    from vjepa2_tpu_torch.train import pretrain as tp
+
+    raw = read_yaml(MP_GIANT_CONFIG_FILE)
+    m, d = raw["model"], raw["data"]
+    enc, pred = tp.build_models(
+        m["model_name"], crop_size=d["crop_size"], patch_size=d["patch_size"],
+        num_frames=max(d["dataset_fpcs"]), tubelet_size=d["tubelet_size"],
+        pred_depth=m["pred_depth"], pred_embed_dim=m["pred_embed_dim"],
+        pred_num_heads=m["pred_num_heads"], uniform_power=m["uniform_power"],
+        use_rope=m["use_rope"], use_mask_tokens=m["use_mask_tokens"],
+        num_mask_tokens=len(raw["mask"]) * len(set(d["dataset_fpcs"])),
+        zero_init_mask_tokens=m["zero_init_mask_tokens"], use_flash=True,
+        dtype=torch.bfloat16, device=dev,
+        use_activation_checkpointing=m["use_activation_checkpointing"])
+    tp.init_params(enc, pred, torch.Generator(device=dev).manual_seed(raw["meta"]["seed"]))
+    return raw, enc, pred
+
+
+def _flat_grads(named, gather=None) -> torch.Tensor:
+    """The gradients of ``named`` (name, parameter) as one fp32 host vector, in
+    name order (``gather(name, grad)`` makes each whole first)."""
+    parts = []
+    for name, p in sorted(named, key=lambda kv: kv[0]):
+        g = p.grad if gather is None else gather(name, p.grad)
+        parts.append(g.detach().float().reshape(-1).cpu())
+    return torch.cat(parts)
+
+
+def _timed_steps(dev, state, step_fn, batches, keep_first) -> dict:
+    """Run ``batches`` (clips, masks_enc, masks_pred) through ``step_fn``:
+    step 1's gradients through ``keep_first(state)`` (from the optimizer's
+    step), each step's ms, loss and launches."""
+    first, opt_step = {}, state.optimizer.step
+
+    def keep(step):
+        if not first:
+            first["grads"] = keep_first(state)
+        opt_step(step)
+
+    state.optimizer.step = keep
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for clips, me, mp in batches:
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step_fn(state, clips, me, mp)
+        loss = metrics["loss"].item()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not np.isfinite(loss):
+            raise AssertionError(f"non-finite loss {loss}")
+        steps.append({"ms": ms, "loss": loss, "grad_norm": metrics["grad_norm"].item(),
+                      "launches": _launch_counts()})
+    state.optimizer.step = opt_step
+    return {"steps": steps, "grads": first["grads"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def _giant_batches(dev, raw: dict, n: int):
+    """``n`` batches of the ViT-g config's per-rank batch: seeded bf16 clips and
+    fresh masks from its collator, on the card."""
+    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+
+    d = raw["data"]
+    b, f, s = d["batch_size"], max(d["dataset_fpcs"]), d["crop_size"]
+    coll = MaskCollator(raw["mask"], dataset_fpcs=[f], crop_size=(s, s),
+                        seed=raw["meta"]["seed"])
+    clips = torch.from_numpy(np.random.RandomState(0).rand(b, f, s, s, 3).astype(np.float32)
+                             ).to(dev, torch.bfloat16)
+    out = []
+    for _ in range(n):
+        me, mp = _masks(coll, b)
+        out.append((clips, [torch.from_numpy(m).to(dev) for m in me],
+                    [torch.from_numpy(m).to(dev) for m in mp]))
+    return out
+
+
+def _fsdp_giant(dev) -> dict:
+    """(a) FSDP2 (`core.sharding.Parallel` with ``shard=True``) over a
+    one-rank NCCL mesh on the ViT-g pretrain step, against the same step
+    unwrapped: the same weights, clips and masks, step 1's loss and
+    gradients, ms a step, peak and launches both ways."""
+    import gc
+    import socket
+
+    from torch.distributed.tensor import DTensor
+
+    from vjepa2_tpu_torch.core import distributed
+    from vjepa2_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from vjepa2_tpu_torch.core.sharding import Parallel
+    from vjepa2_tpu_torch.train import pretrain as tp
+    from vjepa2_tpu_torch.train.state import TrainState
+
+    runs = {}
+    for wrapped in (False, True):
+        raw, enc, pred = _giant_models(dev)
+        hp = tp.PretrainHParams(ipe=100, epochs=10)
+        batches = _giant_batches(dev, raw, 1 + MP_STEPS)
+        if wrapped:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            distributed.init_distributed(f"localhost:{port}", 1, 0, device="cuda")
+            par = Parallel(make_mesh(MeshConfig(1, 1, 1, 1), "cuda"), shard=True)
+            target = par.place(enc, pred)
+            state = TrainState(0, enc, pred, target, tp.make_optimizer(hp, enc, pred), par)
+
+            def keep_first(st):
+                return _flat_grads(st.named_parameters(), lambda n, g: (
+                    g.full_tensor() if isinstance(g, DTensor) else g))
+
+            step_fn = tp.make_train_step(hp, grad_group=par.dp_group)
+        else:
+            state = TrainState.create(enc, pred, tp.make_optimizer(hp, enc, pred))
+
+            def keep_first(st):
+                return _flat_grads(st.named_parameters())
+
+            step_fn = tp.make_train_step(hp)
+        try:
+            runs[wrapped] = _timed_steps(dev, state, step_fn, batches, keep_first)
+            runs[wrapped]["dtensor_parameters"] = sum(
+                isinstance(p, DTensor) for _, p in state.named_parameters())
+        except BaseException:
+            if wrapped:
+                distributed.destroy(meet=False)
+            raise
+        if wrapped:
+            distributed.destroy()
+        del state, enc, pred, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, fsdp = runs[False], runs[True]
+    g_plain, g_fsdp = plain.pop("grads"), fsdp.pop("grads")
+    rec = {"config": MP_GIANT_CONFIG_FILE, "batch": raw["data"]["batch_size"],
+           "steps": 1 + MP_STEPS,
+           "loss_rel_err": abs(fsdp["steps"][0]["loss"] - plain["steps"][0]["loss"])
+           / abs(plain["steps"][0]["loss"]),
+           "grad_rel_l2": _rel_l2(g_fsdp, g_plain), "grads_bit_equal": torch.equal(g_fsdp, g_plain),
+           "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2}}
+    del g_plain, g_fsdp
+    for name, run in (("unwrapped", plain), ("fsdp2", fsdp)):
+        timed = [s["ms"] for s in run["steps"][1:]]
+        rec[name] = {"ms_per_step": [s["ms"] for s in run["steps"]],
+                     "median_ms": sorted(timed)[len(timed) // 2],
+                     "losses": [s["loss"] for s in run["steps"]],
+                     "peak_memory_gb": run["peak_memory_gb"],
+                     "launches_per_step": dict(zip(KERNEL_COUNTS, run["steps"][-1]["launches"])),
+                     "dtensor_parameters": run["dtensor_parameters"]}
+    rec["launches_equal"] = all(a["launches"] == b["launches"]
+                                for a, b in zip(plain["steps"], fsdp["steps"]))
+    rec["ok"] = (rec["loss_rel_err"] <= TRAIN_LOSS_REL and rec["grad_rel_l2"] <= TRAIN_GRAD_REL_L2
+                 and rec["launches_equal"] and rec["fsdp2"]["dtensor_parameters"] > 0
+                 and rec["unwrapped"]["launches_per_step"]["b1"] > 0)
+    rec["_launches"] = [s["launches"] for s in fsdp["steps"][1:]]
+    return rec
+
+
+def _tp_state(dev, fuse_ln: str, mesh_cfg):
+    """Phase 6's ViT-L models (``fuse_ln``) from seed 0, placed by a
+    `Parallel` over ``mesh_cfg``: (state, step function)."""
+    from vjepa2_tpu_torch.core.mesh import make_mesh
+    from vjepa2_tpu_torch.core.sharding import Parallel
+    from vjepa2_tpu_torch.train import pretrain as tp
+    from vjepa2_tpu_torch.train.state import TrainState
+
+    enc, pred = _build_step_models(tp, "vit_large", fuse_ln, dev, torch.bfloat16)
+    tp.init_params(enc, pred, torch.Generator(device=dev).manual_seed(0))
+    par = Parallel(make_mesh(mesh_cfg, "cuda"))
+    target = par.place(enc, pred)
+    hp = tp.PretrainHParams(ipe=100, epochs=10)
+    state = TrainState(0, enc, pred, target, tp.make_optimizer(hp, enc, pred), par)
+    return state, tp.make_train_step(hp, grad_group=par.dp_group)
+
+
+def _replicated_flat(state) -> torch.Tensor:
+    """The parameters every rank of the ``model`` group holds whole (biases,
+    LayerNorms, the embeddings, the predictor's projections) of the state's
+    three models, one fp32 host vector: the ranks must agree on them bit for
+    bit (the split matrices differ by rank by design)."""
+    par = state.parallel
+    parts = []
+    for key, m in (*state.trained().items(), ("target_encoder", state.target_encoder)):
+        rules = par.layouts[key].params
+        parts += [p.detach().float().reshape(-1).cpu() for n, p in sorted(m.named_parameters())
+                  if rules[n][1] is None]
+    return torch.cat(parts)
+
+
+def _gathered_grads(state) -> torch.Tensor:
+    par = state.parallel
+    lay = {f"{k}.{n}": v for k in state.trained() for n, v in par.layouts[k].params.items()}
+
+    def whole(name, g):
+        _, rule, owner = lay[name]
+        return par.gather(g, rule, owner, None, g.device)
+
+    return _flat_grads(state.named_parameters(), whole)
+
+
+def _gloo_cuda_collectives(dev) -> dict:
+    """Whether gloo takes CUDA tensors for the collectives FSDP2 runs."""
+    import torch.distributed as dist
+
+    out = {}
+    world = dist.get_world_size()
+    x = torch.arange(4.0, device=dev) + dist.get_rank()
+    for name, call in (
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty(4 * world, device=dev), x)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                torch.empty(4 // world, device=dev), x))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 -- the record says which refuses, and how
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _tp_child(rank: int, world: int, store: str, batches, out_dir: str) -> None:
+    """(b) on rank ``rank`` of 2 over gloo on the one card: phase 6's ViT-L
+    step at ``mesh {data 1, model 2}``, unfused and fused, each step's
+    launches and ms, the parameters both ranks hold whole bit-equal to rank
+    0's after each step (a broadcast), step 1's gathered gradients (rank 0
+    writes them); then, if gloo takes CUDA tensors for FSDP2's collectives,
+    the unfused step at ``fsdp 2``."""
+    from vjepa2_tpu_torch.core import distributed
+    from vjepa2_tpu_torch.core.mesh import MeshConfig
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    distributed.init_distributed(f"file://{store}", world, rank, device="cuda", backend="gloo")
+    rec = {"rank": rank}
+    try:
+        batches = [(c.to(dev), [m.to(dev) for m in me], [m.to(dev) for m in mp])
+                   for c, me, mp in batches]
+        rec["gloo_cuda"] = _gloo_cuda_collectives(dev)
+        for fuse_ln in ("", "qkv,mlp"):
+            state, step_fn = _tp_state(dev, fuse_ln, MeshConfig(data=1, model=world))
+            steps = []
+            for i, (clips, me, mp) in enumerate(batches):
+                if i == 0:
+                    opt_step = state.optimizer.step
+                    kept = {}
+
+                    def keep(step, opt_step=opt_step, kept=kept, state=state):
+                        kept["grads"] = _gathered_grads(state)
+                        opt_step(step)
+
+                    state.optimizer.step = keep
+                _reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step_fn(state, clips, me, mp)["loss"].item()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = _launch_counts()
+                if i == 0:
+                    state.optimizer.step = opt_step
+                    if rank == 0:
+                        torch.save(kept["grads"],
+                                   os.path.join(out_dir, f"tp_grads_{fuse_ln or 'unfused'}.pt"))
+                    kept.clear()
+                mine = _replicated_flat(state)
+                theirs = mine.clone()
+                torch.distributed.broadcast(theirs, 0)
+                same = not distributed.any_process(not torch.equal(mine, theirs))
+                steps.append({"step": i + 1, "loss": loss, "ms": ms,
+                              "launches": dict(zip(KERNEL_COUNTS, launches)),
+                              "launches_ok": launches == TRAIN_CFGS[("vit_large", fuse_ln)][1],
+                              "replicated_bit_equal_to_rank_0": same,
+                              "replicated_parameters": mine.numel()})
+            rec[fuse_ln or "unfused"] = {"steps": steps,
+                                         "local_heads": [state.encoder.perm_heads,
+                                                         state.predictor.perm_heads]}
+            del state, step_fn
+            torch.cuda.empty_cache()
+        if all(v == "ok" for v in rec["gloo_cuda"].values()):
+            state, step_fn = _tp_state(dev, "", MeshConfig(data=1, fsdp=world))
+            clips, me, mp = batches[0]
+            rows = slice(rank * CLIPS // world, (rank + 1) * CLIPS // world)
+            loss = step_fn(state, clips[rows], [m[rows] for m in me], [m[rows] for m in mp])
+            rec["fsdp_2"] = {"loss": loss["loss"].item()}
+            del state, step_fn
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    except BaseException:
+        distributed.destroy(meet=False)
+        raise
+    distributed.destroy()
+    with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _one_process_step1(dev, fuse_ln: str, batch) -> tuple[float, torch.Tensor]:
+    """Phase 6's ViT-L step (``fuse_ln``) in this process from seed 0 on one
+    batch: (loss, flat gradients)."""
+    from vjepa2_tpu_torch.train import pretrain as tp
+    from vjepa2_tpu_torch.train.state import TrainState
+
+    enc, pred = _build_step_models(tp, "vit_large", fuse_ln, dev, torch.bfloat16)
+    tp.init_params(enc, pred, torch.Generator(device=dev).manual_seed(0))
+    hp = tp.PretrainHParams(ipe=100, epochs=10)
+    state = TrainState.create(enc, pred, tp.make_optimizer(hp, enc, pred))
+    run = _timed_steps(dev, state, tp.make_train_step(hp), [batch],
+                       lambda st: _flat_grads(st.named_parameters()))
+    return run["steps"][0]["loss"], run["grads"]
+
+
+def _tensor_parallel_ranks(dev) -> dict:
+    """(b): `_tp_child` on 2 spawned processes, against the one-process step."""
+    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+
+    coll = MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE))
+    clips = torch.from_numpy(np.random.RandomState(0).rand(CLIPS, FRAMES, SIZE, SIZE, 3)
+                             .astype(np.float32)).to(torch.bfloat16)
+    batches = []
+    for _ in range(MP_TP_STEPS):
+        me, mp = _masks(coll, CLIPS)
+        batches.append((clips, [torch.from_numpy(m) for m in me],
+                        [torch.from_numpy(m) for m in mp]))
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="vjepa2_tp_")
+    try:
+        t1 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _tp_child, (MP_TP_WORLD, os.path.join(out_dir, "store"), batches, out_dir),
+            nprocs=MP_TP_WORLD, join=False, start_method="spawn")
+        # the one-process references while the ranks start and build
+        clips, me, mp = batches[0]
+        one = {fuse_ln: _one_process_step1(dev, fuse_ln, (
+            clips.to(dev), [m.to(dev) for m in me], [m.to(dev) for m in mp]))
+            for fuse_ln in ("", "qkv,mlp")}
+        torch.cuda.empty_cache()
+        while not ctx.join():
+            pass
+        ranks_s = time.perf_counter() - t1
+        ranks = []
+        for r in range(MP_TP_WORLD):
+            with open(os.path.join(out_dir, f"tp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        rec = {"world": MP_TP_WORLD, "mesh": {"data": 1, "model": MP_TP_WORLD},
+               "backend": "gloo (named: NCCL refuses two ranks on one device)",
+               "ranks_seconds": ranks_s, "gloo_cuda": ranks[0]["gloo_cuda"],
+               "peak_memory_gb": [r["peak_memory_gb"] for r in ranks]}
+        ok = True
+        for fuse_ln in ("", "qkv,mlp"):
+            key = fuse_ln or "unfused"
+            grads = torch.load(os.path.join(out_dir, f"tp_grads_{key}.pt"))
+            loss_1, g_1 = one.pop(fuse_ln)
+            loss_2 = ranks[0][key]["steps"][0]["loss"]
+            step1 = {"loss_tp": loss_2, "loss_one_process": loss_1,
+                     "loss_rel_err": abs(loss_2 - loss_1) / abs(loss_1),
+                     "grad_rel_l2": _rel_l2(grads, g_1)}
+            del grads, g_1
+            case_ok = (step1["loss_rel_err"] <= TRAIN_LOSS_REL
+                       and step1["grad_rel_l2"] <= TRAIN_GRAD_REL_L2
+                       and all(s["launches_ok"] and s["replicated_bit_equal_to_rank_0"]
+                               for r in ranks for s in r[key]["steps"])
+                       and all(r[key]["steps"][i]["loss"] == ranks[0][key]["steps"][i]["loss"]
+                               for r in ranks for i in range(MP_TP_STEPS)))
+            rec[key] = {"step_1": step1, "ok": case_ok, "local_heads": ranks[0][key]["local_heads"],
+                        "ranks": [r[key]["steps"] for r in ranks]}
+            ok = ok and case_ok
+            if fuse_ln == "":
+                rec["_one_loss"] = loss_1
+        if "fsdp_2" in ranks[0]:
+            losses = [r["fsdp_2"]["loss"] for r in ranks]
+            rec["fsdp_2"] = {"losses": losses,
+                             "loss_rel_err": abs(losses[0] - rec["_one_loss"]) / abs(rec["_one_loss"])}
+            ok = ok and rec["fsdp_2"]["loss_rel_err"] <= TRAIN_LOSS_REL and losses[0] == losses[1]
+        rec.pop("_one_loss")
+        rec["ok"] = ok
+        rec["_launches"] = [tuple(s["launches"][n] for n in KERNEL_COUNTS)
+                            for r in ranks for key in ("unfused", "qkv,mlp")
+                            for s in r[key]["steps"]]
+        return rec
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _pipeline_in_process(dev) -> dict:
+    """(c) phase 6's ViT-L step with the encoder's 24 blocks in 4 GPipe
+    stages of 2 microbatches on the in-process transport, against the plain
+    step: the same weights, clips and masks; step 1's loss and gradients,
+    launches and ms both ways."""
+    import gc
+
+    from vjepa2_tpu_torch.core.pipeline import InProcessPipe, Pipeline
+    from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+    from vjepa2_tpu_torch.train import pretrain as tp
+    from vjepa2_tpu_torch.train.state import TrainState
+
+    coll = MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE))
+    clips = torch.from_numpy(np.random.RandomState(0).rand(CLIPS, FRAMES, SIZE, SIZE, 3)
+                             .astype(np.float32)).to(dev, torch.bfloat16)
+    batches = []
+    for _ in range(1 + MP_STEPS):
+        me, mp = _masks(coll, CLIPS)
+        batches.append((clips, [torch.from_numpy(m).to(dev) for m in me],
+                        [torch.from_numpy(m).to(dev) for m in mp]))
+    runs = {}
+    for piped in (False, True):
+        enc, pred = _build_step_models(tp, "vit_large", "", dev, torch.bfloat16)
+        tp.init_params(enc, pred, torch.Generator(device=dev).manual_seed(0))
+        if piped:
+            enc.pipeline_(Pipeline(InProcessPipe(MP_PIPE), MP_MICROBATCHES, enc.depth))
+        hp = tp.PretrainHParams(ipe=100, epochs=10)
+        state = TrainState.create(enc, pred, tp.make_optimizer(hp, enc, pred))
+        runs[piped] = _timed_steps(dev, state, tp.make_train_step(hp), batches,
+                                   lambda st: _flat_grads(st.named_parameters()))
+        del state, enc, pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, piped = runs[False], runs[True]
+    want = MP_PIPE_LAUNCHES
+    rec = {"stages": MP_PIPE, "microbatches": MP_MICROBATCHES, "transport": "InProcessPipe",
+           "loss_rel_err": abs(piped["steps"][0]["loss"] - plain["steps"][0]["loss"])
+           / abs(plain["steps"][0]["loss"]),
+           "grad_rel_l2": _rel_l2(piped.pop("grads"), plain.pop("grads")),
+           "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2},
+           "launches_per_step": dict(zip(KERNEL_COUNTS, want)),
+           "launches_ok": all(s["launches"] == want for s in piped["steps"])}
+    for name, run in (("plain", plain), ("pipelined", piped)):
+        timed = [s["ms"] for s in run["steps"][1:]]
+        rec[name] = {"ms_per_step": [s["ms"] for s in run["steps"]],
+                     "median_ms": sorted(timed)[len(timed) // 2],
+                     "losses": [s["loss"] for s in run["steps"]],
+                     "peak_memory_gb": run["peak_memory_gb"]}
+    rec["ok"] = (rec["loss_rel_err"] <= TRAIN_LOSS_REL and rec["grad_rel_l2"] <= TRAIN_GRAD_REL_L2
+                 and rec["launches_ok"])
+    rec["_launches"] = [s["launches"] for s in piped["steps"][1:]]
+    return rec
+
+
+def phase_model_parallel(dev, smi: str) -> tuple[int, ...]:
+    """(a) FSDP2 on the ViT-g step over a one-rank NCCL mesh, (b) tensor
+    parallelism across two processes on the one card over gloo, unfused
+    and fused, (c) the pipeline on the in-process transport. Returns the
+    launches of the main-path runs: (a)'s FSDP2 steps, (b)'s steps on both
+    ranks, (c)'s pipelined steps (their timed steps)."""
+    t0 = time.perf_counter()
+    seconds = {}
+    parts = {}
+    for name, fn in (("fsdp_vit_giant", _fsdp_giant), ("tensor_parallel", _tensor_parallel_ranks),
+                     ("pipeline", _pipeline_in_process)):
+        t1 = time.perf_counter()
+        parts[name] = fn(dev)
+        seconds[name] = time.perf_counter() - t1
+    launches = [run for p in parts.values() for run in p.pop("_launches")]
+    ok = all(p["ok"] for p in parts.values())
+    emit({"phase": "model_parallel", **parts, "seconds": {**seconds,
+                                                         "total": time.perf_counter() - t0},
+          "not_shown": "NCCL all-gather, reduce-scatter and send/recv across cards: one card",
+          "ok": ok, "gpu": smi})
+    if not ok:
+        raise AssertionError("model_parallel: a check failed (see its record)")
+    return tuple(sum(run[i] for run in launches) for i in range(len(KERNEL_COUNTS)))
 
 
 def _droid_trajectory(trainer, predictor, target_encoder):
@@ -3056,7 +3589,9 @@ def phase_train_droid(dev, smi: str, data: dict) -> tuple[int, ...]:
                                             for k, v in _state_tensors(state)) \
                     and sorted(k for k, _ in _state_tensors(state)) == sorted(saved)
 
-            with _LoopRecorder(on_restore=compare, droid=True) as part2:
+            # the resumed epoch writes no checkpoint (a cut for time, ~14-19 s):
+            # nothing reads it; epoch 0's is the one restored
+            with _LoopRecorder(on_restore=compare, droid=True, skip_saves=True) as part2:
                 _run_config(raw, dev, epochs=2)
             peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
             del saved
@@ -3312,7 +3847,16 @@ def _mask_seqs():
     from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
 
     me, mp = _masks(MaskCollator(MASK_CFGS, dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE)), 8)
-    return {**_sorted_seqs(me, mp), **_cooldown_seqs(), "ek100_pred": _ek100_positions()}
+    seqs = _sorted_seqs(me, mp)
+    # phase model_parallel: a pipeline microbatch's rows, and the ViT-g
+    # config's collator at its batch of 24 (`_giant_batches`)
+    from vjepa2_tpu_torch.core.config import read_yaml
+
+    raw = read_yaml(MP_GIANT_CONFIG_FILE)
+    gme, gmp = _masks(MaskCollator(raw["mask"], dataset_fpcs=[FRAMES], crop_size=(SIZE, SIZE),
+                                   seed=raw["meta"]["seed"]), raw["data"]["batch_size"])
+    return {**seqs, "pp_ctx0": seqs["ctx0"][:4], **_sorted_seqs(gme, gmp, "giant_"),
+            **_cooldown_seqs(), "ek100_pred": _ek100_positions()}
 
 
 def _ek100_positions():
@@ -5866,6 +6410,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data) -
     loop_l = timed("train_loop", phase_train_loop, dev, smi, data)
     accum_l = timed("train_accum", phase_train_accum, dev, smi)
     multi_l = timed("multi_rank", phase_multi_rank, dev, smi)
+    mp_l = timed("model_parallel", phase_model_parallel, dev, smi)
     _DEFERRED.extend(_CPU_WORK.submit(job) for job in _CPU_LATER)  # beside device-bound phases
     droid_fp32_l = timed("train_droid_fp32", phase_train_droid_fp32, dev, smi)
     droid_l = timed("train_droid", phase_train_droid, dev, smi, data)
@@ -5891,7 +6436,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data) -
     total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
                                  accum_l, droid_l, plan_l, export_l, eval_v, eval_a, eval_i,
                                  eval_384, fp32_l, droid_fp32_l, plan_fp32_l, fused_fp32_l,
-                                 disk_l, multi_l)]
+                                 disk_l, multi_l, mp_l)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):

@@ -44,8 +44,10 @@ def _rank_main(rank, fn, world, store, out_dir, args):
     distributed.init_distributed("file://" + store, world, rank, device="cpu")
     try:
         out = fn(rank, world, *args)
-    finally:
-        distributed.destroy()
+    except BaseException:
+        distributed.destroy(meet=False)
+        raise
+    distributed.destroy()
     torch.save(out, f"{out_dir}/out{rank}.pt")
 
 

@@ -18,8 +18,8 @@ temporary directory with ``optimization.ipe`` 3 and ``mesh.data`` 1.
   predictor, the target and AdamW's moments bit-equal; the CSV's rows and
   the checkpoints. ``meta.read_checkpoint``: the target from a torch
   checkpoint's ``target_encoder`` (else ``encoder``) entry, unchanged after
-  the run. A NaN loss aborts the run; the refusals (ROADMAP A12b's axes, a data
-  axis wider than the world); the
+  the run. A NaN loss aborts the run; the refusals (the ring, which the AC
+  predictor lacks, and JAX's: a mesh wider than the world); the
   trainer reads ``data.datasets`` (`tests/test_torch_data_droid.py` holds
   its trajectories from disk to JAX's).
 """
@@ -224,13 +224,16 @@ def test_nan_loss_aborts_the_run(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides, error, match", [
-    ({"mesh.model": 2}, NotImplementedError, "A12b"),
-    ({"mesh.fsdp": 2}, NotImplementedError, "A12b"),
+    ({"mesh.model": 2, "model.context_parallel": True}, NotImplementedError,
+     "no context-parallel route"),
+    ({"mesh.fsdp": 2}, AssertionError, "mesh 1x2x1x1 > 1 devices"),
     ({"mesh.data": 2}, AssertionError, "> 1 devices"),
 ])
 def test_refusals(tmp_path, overrides, error, match):
-    """Tensor parallelism and parameter sharding (ROADMAP A12b), and a data
-    axis wider than the world (JAX's `resolve` assertion, one process)."""
+    """The ring, which the AC predictor has no route for, and JAX's `resolve`
+    assertions in one process: an ``fsdp`` or a data axis wider than the
+    world. Parameter sharding and tensor parallelism run
+    (`tests/test_torch_model_parallel.py`)."""
     with pytest.raises(error, match=match):
         loop.DroidTrainer(PretrainConfig.from_dict(_raw(tmp_path / "run", overrides)),
                           device="cpu")

@@ -6,7 +6,8 @@ anticipation), `shrink_config` and the synthetic loaders equal to JAX's,
 `chip_smoke.py`'s eval dicts equal to their YAML files, the image and EK100
 data paths read unless ``--synthetic-data`` is given, and the refusals: a
 process group without a coordinator, a count and an id, the
-pipeline-parallel checkpoint layout and Orbax directories (ROADMAP A12b), no
+pipeline-parallel checkpoint layout and Orbax directories (JAX's layouts,
+which the port never writes), no
 card without ``--device cpu``. Checkpoints: a released
 `.pt` and a `Pretrainer` checkpoint load their target encoder, and the EK100
 runner takes its predictor from the same checkpoint file.
@@ -237,7 +238,7 @@ def test_jax_checkpoint_layouts_are_refused(tmp_path):
     orbax = tmp_path / "orbax"
     (orbax / "default").mkdir(parents=True)
     for path in (pipeline, orbax):
-        with pytest.raises(NotImplementedError, match="A12"):
+        with pytest.raises(NotImplementedError, match="never writes"):
             cli.build_encoder(MODEL_KWARGS, 64, 4, str(path), device="cpu")
 
 

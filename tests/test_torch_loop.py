@@ -17,7 +17,8 @@ temporary directory and ``optimization.ipe`` 3.
   grad norm rtol 1e-5, EMA target atol 1e-6) and as the mean of its
   per-bucket losses (rtol 1e-6, `tests/train/test_multifpc.py:83`), and the
   `Pretrainer` grouping two fpcs into one step.
-* The refusals (ROADMAP A12b's axes, a mesh wider than the world), the online eval built from ``evals``, the
+* The refusals (JAX's: a pipeline with the ring, microbatches or stages that
+  do not divide, a mesh wider than the world), the online eval built from ``evals``, the
   action-conditioned app running through the same CLI on the smoke config
   (`tests/test_torch_droid_loop.py` holds it to JAX), and `chip_smoke.py`'s
   four config dicts equal to their YAML files after the overrides it
@@ -280,16 +281,25 @@ def test_without_a_device_the_cli_fails_on_entry_device(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides, error, match", [
-    ({"mesh.model": 2}, NotImplementedError, "tensor parallelism.*A12b"),
+    ({"mesh.pipe": 2, "model.context_parallel": True}, AssertionError,
+     "pipeline and ring-attention context parallelism"),
     ({"mesh.model": 4, "model.context_parallel": True}, AssertionError, "not divisible"),
-    ({"mesh.fsdp": 2}, NotImplementedError, "A12b"),
-    ({"mesh.pipe": 2}, NotImplementedError, "A12b"),
+    ({"mesh.pipe": 2, "mesh.pipe_microbatches": 3}, AssertionError,
+     "batch 4 not divisible by pipe_microbatches=3"),
+    ({"mesh.pipe": 5}, AssertionError, "depth 12 not divisible by pipe=5"),
+    ({"mesh.pipe": 2, "optimization.grad_accum": 2}, AssertionError,
+     "per-accumulation batch 2 not divisible by pipe_microbatches=4"),
     ({"mesh.data": 2}, AssertionError, "> 1 devices"),
 ])
 def test_refusals(tmp_path, overrides, error, match):
-    """What the port still refuses: parameter sharding, pipelines and tensor
-    parallelism (ROADMAP A12b), and, as JAX's `MeshConfig.resolve`, a mesh
-    wider than the world (one process here: a ring of 4 or 2 data ranks)."""
+    """What the port still refuses, as JAX's `Pretrainer` does with JAX's
+    messages (`vjepa2_tpu/train/loop.py:112-118,174-191`,
+    `tests/train/test_pipeline_loop.py:152`): a pipeline with the ring, a
+    batch or an accumulation pass that the pipeline's microbatches do not
+    divide, a depth that its stages do not divide; and, as JAX's
+    `MeshConfig.resolve`, a mesh wider than the world (one process here: a
+    ring of 4 or 2 data ranks). Parameter sharding, tensor parallelism and
+    pipelines run (`tests/test_torch_model_parallel.py`)."""
     raw = chip_smoke.overridden(_raw(tmp_path / "run"), overrides)
     with pytest.raises(error, match=match):
         loop.Pretrainer(PretrainConfig.from_dict(raw), device="cpu")
@@ -336,10 +346,11 @@ def test_refusals_of_the_cli(tmp_path):
     out = _main(_write(tmp_path, "droid", {"loss.auto_steps": 2}), "--app", "vjepa_droid")
     assert out["step"] == 2 * IPE and np.isfinite(out["loss"])
     assert len(_csv_rows(tmp_path / "droid", "droid_log_r0.csv")) == 2 * IPE
-    # several processes run (`tests/test_torch_data_parallel.py`); a pipeline
-    # is still refused, and so is a process count without a coordinator
-    with pytest.raises(NotImplementedError, match="A12b"):
-        _main(_write(tmp_path, "run", {"mesh.pipe": 2}))
+    # several processes run (`tests/test_torch_data_parallel.py`), pipelines
+    # too (`tests/test_torch_model_parallel.py`); JAX's refusal of a pipeline
+    # with the ring stands, and so does a process count without a coordinator
+    with pytest.raises(AssertionError, match="pipeline and ring-attention"):
+        _main(_write(tmp_path, "run", {"mesh.pipe": 2, "model.context_parallel": True}))
     with pytest.raises(ValueError, match="coordinator"):
         _main(_write(tmp_path, "run"), "--num-processes", "2")
 

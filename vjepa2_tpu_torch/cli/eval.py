@@ -36,8 +36,10 @@ warning.
 Checkpoints (``--checkpoint`` or ``model_kwargs.checkpoint``):
 a torch file (a released ``.pt``: its ``target_encoder``, else ``encoder``,
 else the whole file; or a `Pretrainer` step file, whose target encoder it
-takes) or a `Pretrainer` checkpoint directory (its latest step); JAX's
-Orbax checkpoints and the pipeline-parallel layout are refused (ROADMAP A12b).
+takes) or a `Pretrainer` checkpoint directory (its latest step), whatever
+mesh wrote it (a sharded or pipelined run writes the one-process layout);
+JAX's Orbax checkpoints and JAX's stacked pipeline layout, which the port
+never writes, are refused.
 """
 
 from __future__ import annotations
@@ -125,21 +127,23 @@ def resolve_checkpoint(path: str) -> str:
         raise NotImplementedError(
             f"{path} holds no <step>.pt of the port's Pretrainer: the JAX package's Orbax "
             "checkpoints, its pipeline-parallel layout among them, are not read by the "
-            "port (ROADMAP A12b)")
+            "port, which never writes them")
     return mgr.path(step)
 
 
 def load_encoder_state(path: str) -> dict:
     """The encoder state dict of a torch checkpoint (`resolve_checkpoint`):
     a released ``.pt`` or a `Pretrainer` step, ``target_encoder``, else
-    ``encoder``, else the whole file. The pipeline-parallel layout is
+    ``encoder``, else the whole file. JAX's stacked pipeline layout is
     refused."""
     from vjepa2_tpu_torch.hub.backbones import load_checkpoint, module_state_dict
 
     ckpt = load_checkpoint(resolve_checkpoint(path))
     if "encoder_blocks" in ckpt or "encoder_blocks" in (ckpt.get("target_params") or {}):
-        raise NotImplementedError("the pipeline-parallel checkpoint layout (stacked "
-                                  "'encoder_blocks') is not ported (ROADMAP A12b)")
+        raise NotImplementedError("JAX's pipeline-parallel checkpoint layout (stacked "
+                                  "'encoder_blocks') is not read by the port, which never "
+                                  "writes it: unstack it with JAX's "
+                                  "tools/convert_pp_layout.py --to plain")
     return module_state_dict(next((ckpt[k] for k in ("target_encoder", "encoder") if k in ckpt),
                                   ckpt))
 
@@ -545,10 +549,14 @@ def main(argv=None):
     if world > 1:
         logger.info("process %d / %d", rank, world)
     try:
-        return _run(args)
-    finally:
+        out = _run(args)
+    except BaseException:
         if owned:
-            distributed.destroy()
+            distributed.destroy(meet=False)
+        raise
+    if owned:
+        distributed.destroy()
+    return out
 
 
 def _run(args):

@@ -16,6 +16,7 @@ Usage:
   python -m vjepa2_tpu_torch.cli.main --fname cfg.yaml --device cpu
   python -m vjepa2_tpu_torch.cli.main --fname configs/train/vitg16/droid-256px-8f.yaml --epochs 1
   torchrun --nproc-per-node 8 -m vjepa2_tpu_torch.cli.main --fname cfg.yaml
+  torchrun --nproc-per-node 8 -m vjepa2_tpu_torch.cli.main --fname configs/train/smoke-pipeline.yaml
 
 Apps: ``vjepa`` (masked pretraining, `train.loop.Pretrainer`) and
 ``vjepa_droid`` (action-conditioned post-training, `train.droid_loop.DroidTrainer`).
@@ -100,10 +101,14 @@ def main(argv=None):
     if world > 1:
         logger.info("process %d / %d", rank, world)
     try:
-        return _run(args)
-    finally:
+        out = _run(args)
+    except BaseException:
         if owned:
-            distributed.destroy()
+            distributed.destroy(meet=False)
+        raise
+    if owned:
+        distributed.destroy()
+    return out
 
 
 def _run(args):

@@ -18,9 +18,10 @@ restored step. The manager keeps JAX's semantics (`checkpoint.py:18-50`):
 
 Saves are synchronous, and every step handed to ``save`` is written. In a
 process group only rank 0 writes and prunes, and every rank waits for it at
-a barrier: the data- and context-parallel ranks hold the same state, and
-the file keeps the one-process format, so any world size resumes it (every
-rank reads the same file).
+a barrier: the data- and context-parallel ranks hold the same state, and a
+sharded state (``state.parallel``, `core.sharding`) is gathered by every
+rank first, so the file keeps the one-process format and any mesh resumes
+it (every rank reads the same file and keeps its share).
 """
 
 from __future__ import annotations
@@ -86,8 +87,10 @@ class CheckpointManager:
         """Write ``state`` (a `state_dict()` holder, or tensors in dicts and
         lists) as ``step``, then drop the steps outside the window; rank 0
         only, the others waiting until it is done."""
+        sharded = getattr(state, "parallel", None) is not None
+        obj = _state_of(state) if sharded else None  # the gathers take every rank
         if distributed.is_main_process():
-            _atomic_save(_state_of(state), self.path(step))
+            _atomic_save(obj if sharded else _state_of(state), self.path(step))
             self._collect(step)
         distributed.barrier()
 

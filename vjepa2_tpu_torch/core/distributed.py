@@ -168,9 +168,16 @@ def initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def destroy() -> None:
-    """Leave the process group, if there is one."""
+def destroy(meet: bool = True) -> None:
+    """Leave the process group, if there is one. With ``meet`` every rank
+    first meets the others at a barrier: a rank that left at once could
+    close its connections while a peer still reads from them, and a gloo
+    peer that loses a connection mid-transfer aborts its process. A rank
+    that leaves on an error does not wait (its peers fail on the closed
+    connections instead of waiting for it)."""
     if initialized():
+        if meet and dist.get_world_size() > 1:
+            dist.barrier()
         _CONTROL.clear()
         dist.destroy_process_group()
 

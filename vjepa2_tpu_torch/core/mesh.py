@@ -8,12 +8,18 @@ trainers use of it:
 
 * ``data`` (with ``fsdp``): the batch splits over these ranks and the
   gradients are averaged over them (`data_group`);
+* ``fsdp``: ZeRO-3 parameter sharding (`core.sharding`, FSDP2 over the
+  ``(data, fsdp)`` ranks of one ``(pipe, model)`` place: replicated over
+  ``data``, sharded over ``fsdp``);
 * ``model`` with ``model.context_parallel``: the ranks of one group hold one
   clip and ring its attention over the token dimension (`model_group`,
-  `ops.ring_attention.seq_sharded_attention`).
+  `ops.ring_attention.seq_sharded_attention`); without it, Megatron tensor
+  parallelism: each rank holds its heads and hidden columns
+  (`ops.tensor_parallel`);
+* ``pipe``: GPipe stages of the encoder's blocks (`core.pipeline`).
 
-Parameter sharding (``fsdp`` > 1, `param_spec`'s tensor-parallel rules) and
-the ``pipe`` axis are not ported (ROADMAP A12b); the trainers refuse them.
+`param_placement` is JAX's `param_spec` (`mesh.py:123-164`) in the port's
+layout: which dims of each parameter the ``fsdp`` and ``model`` axes cut.
 """
 
 from __future__ import annotations
@@ -105,6 +111,7 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str = "cuda", slice_o
     dp_lists = [ranks[i, :, :, j].reshape(-1).tolist() for i in range(p) for j in range(m)]
     mesh.dp_group = _subgroup(dp_lists)
     mesh.model_group = mesh.get_group("model")
+    mesh.pipe_group = mesh.get_group("pipe")
     return mesh
 
 
@@ -128,3 +135,80 @@ def data_group(mesh):
 def model_group(mesh):
     """The ranks that share this rank's clip (``model``); None without a mesh."""
     return None if mesh is None else mesh.model_group
+
+
+def pipe_group(mesh):
+    """The ranks that hold this rank's place on the other pipeline stages
+    (``pipe``); None without a mesh."""
+    return None if mesh is None else mesh.pipe_group
+
+
+def state_group(mesh):
+    """The ranks of this rank's data index (``pipe`` x ``fsdp`` x ``model``),
+    which hold one copy of the train state between them: a global norm sums
+    over them. Every rank calls it, in the same order."""
+    ranks = mesh.mesh.numpy()
+    return _subgroup([ranks[:, i].reshape(-1).tolist() for i in range(ranks.shape[1])])
+
+
+def shard_mesh(mesh, cp: bool = False):
+    """The 2-D ``(data, fsdp)`` mesh FSDP2 shards this rank's parameters
+    over (replicated over ``data``); with ``cp`` the second axis is
+    ``(fsdp, model)`` combined (JAX's ``cp=True`` rule). Every rank calls
+    it, in the same order."""
+    if not cp:
+        return mesh["data", "fsdp"]
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = mesh.mesh.numpy()
+    p, d, f, m = ranks.shape
+    combined = DeviceMesh(mesh.device_type, ranks.reshape(p, d, f * m),
+                          mesh_dim_names=("pipe", "data", "shard"))
+    return combined["data", "shard"]
+
+
+def _torch_to_flax_dims(name: str, ndim: int) -> list[int]:
+    """For each dim of the JAX leaf, the port's dim holding it: a Dense
+    kernel [in, out] is the transposed ``weight`` [out, in]; a conv kernel
+    [t, p, p, C, D] is ``weight`` [D, C, t, p, p] (`hub.converter`); other
+    leaves keep their order."""
+    if name.endswith("weight") and ndim == 2:
+        return [1, 0]
+    if name.endswith("weight") and ndim == 5:
+        return [2, 3, 4, 1, 0]
+    return list(range(ndim))
+
+
+def param_placement(name: str, shape, tp: bool = True, cp: bool = False) -> tuple:
+    """JAX's `param_spec` (`core/mesh.py:123-164`) for the port's parameter
+    ``name`` of ``shape``: one entry a dim, None (whole), ``"fsdp"``,
+    ``"model"`` or ``("fsdp", "model")``.
+
+    * 1-D parameters (biases, LayerNorms) are replicated;
+    * with ``tp``, qkv / ``kv`` / fc1 (and an MLP weight that widens) are
+      column-parallel: the output dim on ``model``, the input dim on
+      ``fsdp``; attn.proj / fc3 (and an fc2 that narrows) are row-parallel:
+      the input dim on ``model``, the output dim on ``fsdp``;
+    * every other matrix is ZeRO-sharded on its largest dim as JAX's leaf
+      lays it out (the first of equal dims), over ``fsdp``, or over
+      ``("fsdp", "model")`` with ``cp``.
+    """
+    if tp and cp:
+        raise ValueError("the 'model' axis carries either tensors (tp) or tokens (cp), not both")
+    shape = tuple(shape)
+    if len(shape) < 2:
+        return (None,) * len(shape)
+    order = _torch_to_flax_dims(name, len(shape))  # JAX dim i is the port's dim order[i]
+    flax_shape = [shape[d] for d in order]
+    spec = [None] * len(shape)
+    if len(shape) == 2 and tp:
+        d_in, d_out = flax_shape
+        is_qkv = name.endswith("qkv.weight") or name.endswith("kv.weight")
+        col = is_qkv or "mlp.fc1" in name or (d_out > d_in and "mlp" in name)
+        row = ("attn.proj" in name or "mlp.fc3" in name
+               or ("mlp.fc2" in name and d_out < d_in))
+        if col or row:
+            spec[order[0]], spec[order[1]] = ("fsdp", "model") if col else ("model", "fsdp")
+            return tuple(spec)
+    spec[order[int(np.argmax(flax_shape))]] = ("fsdp", "model") if cp else "fsdp"
+    return tuple(spec)

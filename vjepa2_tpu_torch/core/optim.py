@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
 
 def wd_mask(params: Iterable[torch.Tensor]) -> list[bool]:
@@ -65,14 +66,35 @@ class ScheduledAdamW:
 @torch.no_grad()
 def ema_update(target_params, online_params, momentum: float) -> None:
     """target <- m * target + (1 - m) * online, in place
-    (reference `train.py:456-465`)."""
-    target_params, online_params = list(target_params), list(online_params)
-    torch._foreach_mul_(target_params, momentum)
-    torch._foreach_add_(target_params, online_params, alpha=1.0 - momentum)
+    (reference `train.py:456-465`). Sharded (DTensor) and whole parameters
+    update as two lists."""
+    for tgt, onl in split_sharded(list(target_params), list(online_params)):
+        torch._foreach_mul_(tgt, momentum)
+        torch._foreach_add_(tgt, onl, alpha=1.0 - momentum)
+
+
+def split_sharded(first: list, *rest: list) -> list[tuple[list, ...]]:
+    """Parallel lists split in two by whether ``first``'s tensor is a
+    DTensor (a sharded parameter or its gradient): a foreach op takes one
+    kind at a time. One part when there is one kind."""
+    from torch.distributed.tensor import DTensor
+
+    kinds = [isinstance(t, DTensor) for t in first]
+    return [tuple([x for x, k in zip(lst, kinds) if k is kind] for lst in (first, *rest))
+            for kind in dict.fromkeys(kinds)]
 
 
 @torch.no_grad()
-def global_norm(tensors) -> torch.Tensor:
-    """L2 norm over every entry of every tensor, in fp32."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tensors, group=None, replicas=None) -> torch.Tensor:
+    """L2 norm over every entry of every tensor, in fp32. With ``group``
+    the tensors are this rank's shares of tensors spread over the group:
+    the squares summed over it, tensor i counted once although
+    ``replicas[i]`` ranks of the group hold it whole."""
+    if group is None:
+        norms = torch._foreach_norm([t.float() for t in tensors])
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    for t, r in zip(tensors, replicas):
+        sq = sq + t.float().square().sum() / r
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt()

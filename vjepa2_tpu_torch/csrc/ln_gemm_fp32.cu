@@ -13,7 +13,7 @@
 //     -> y fp32 (not rounded: the plain version's y.to(x.dtype) is the
 //     identity) -> z = y W^T + b -> exact GELU (`erff`) -> h [R, hidden]
 //     fp32, plus mean and rstd [R]. W [hidden, C] fp32 (`fc1.weight`).
-//     C in {384, 1024, 1280, 1408}, hidden in {1536, 4096, 5120, 6144};
+//     C in {384, 1024, 1280, 1408}, hidden a multiple of 128 (a column tile);
 //   * B7: x [B, N, C] fp32 -> LN -> y W^T + b (the bias in fp32) ->
 //     split-half RoPE on q and k (`rope_pair`'s roundings) -> q, k, v
 //     [B, H, N, D] fp32, plus mean and rstd [B, N]. W [3 H D, C] fp32
@@ -458,7 +458,7 @@ extern "C" int vjepa2_ln_mlp_f32(const void* x, const void* gamma, const void* b
                                  void* mean, void* rstd, int R, int C, int hidden, float eps,
                                  void* stream) {
   if (R <= 0 || !ln_width_ok(C) ||
-      (hidden != 1536 && hidden != 4096 && hidden != 5120 && hidden != 6144) ||
+      hidden <= 0 || hidden % GeluEpilogueF32::kBN != 0 ||
       reinterpret_cast<uintptr_t>(h) % 8 != 0 || reinterpret_cast<uintptr_t>(bias) % 8 != 0)
     return cudaErrorInvalidValue;
   F32Params<GeluEpilogueF32> p;

@@ -10,7 +10,8 @@
 // Mosaic cannot lower, and both JAX reference paths use erf.
 // x [R, C] bf16; W [hidden, C] bf16 (the port's `fc1.weight`, K-contiguous:
 // the K-major B operand as it lies); gamma, beta, bias fp32. C in {384,
-// 1024, 1280, 1408}, hidden in {1536, 4096, 5120, 6144}.
+// 1024, 1280, 1408}, hidden a multiple of 256 (a column tile: the models'
+// 1536, 4096, 5120 and 6144, and a tensor-parallel rank's share of them).
 //
 // B7 replaces `vjepa2_tpu/ops/ln_qkv.py:50 _ln_qkv_kernel` (`pallas_call`
 // `:108`): LN(x) -> y bf16 @ W_qkv^T (fp32 accumulation) + b (fp32, before
@@ -422,7 +423,7 @@ extern "C" int vjepa2_ln_mlp_bf16(const void* x, const void* gamma, const void* 
                                   const void* w, const void* bias, void* h, void* mean,
                                   void* rstd, int R, int C, int hidden, float eps, void* stream) {
   if (R <= 0 || !ln_width_ok(C) ||
-      (hidden != 1536 && hidden != 4096 && hidden != 5120 && hidden != 6144) || !aligned16(h) ||
+      hidden <= 0 || hidden % GeluEpilogue::kBN != 0 || !aligned16(h) ||
       reinterpret_cast<uintptr_t>(bias) % 8 != 0)
     return cudaErrorInvalidValue;
   LnGemmParams<GeluEpilogue> p;

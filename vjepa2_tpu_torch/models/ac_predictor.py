@@ -51,6 +51,7 @@ class VisionTransformerPredictorAC(nn.Module):
         self.patch_size = patch_size
         self.embed_dim, self.predictor_embed_dim = embed_dim, predictor_embed_dim
         self.num_heads = num_heads
+        self.perm_heads = num_heads  # the heads a block runs (fewer under tensor parallelism)
         self.use_flash = use_flash
         self.use_extrinsics = use_extrinsics
         self.dtype = dtype
@@ -101,7 +102,7 @@ class VisionTransformerPredictorAC(nn.Module):
         tokens, _, _ = stack_pad(tokens.reshape(B, n, P), None, self.use_flash)
         pad = tokens.shape[1] - n
         rope_cache, rope_expanded, qkv_perm = ac_rope_tables(
-            P // self.num_heads, self.num_heads, T, gh, gw, cond, gh, self.use_flash, x.device,
+            P // self.num_heads, self.perm_heads, T, gh, gw, cond, gh, self.use_flash, x.device,
             pad)
         seg = frame_segments(T, cond + gh * gw, x.device, pad)
         for blk in self.predictor_blocks:

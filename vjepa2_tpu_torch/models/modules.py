@@ -57,6 +57,13 @@ policies keep as they keep the flash kernels'.
 The AC predictor's blocks (`ACBlock`, `ACAttention`; JAX `modules.py:629-909`)
 reuse `Attention`'s projections and routes with frame-causal segment ids.
 
+Tensor parallelism (`Attention.shard_heads_`, `Mlp.shard_hidden_`;
+`ops.tensor_parallel`): a layer keeps its rank's heads and hidden columns
+and runs every route at those local sizes; the qkv and fc1 products are
+column-parallel, proj and fc2 row-parallel, their sums one
+``torch.ops.vjepa2.tp_all_reduce`` each, which the remat policies keep as
+they keep the flash kernels' outputs.
+
 Not ported yet: drop_path and SwiGLU.
 """
 
@@ -83,6 +90,7 @@ from vjepa2_tpu_torch.ops.flash_attention_dn import dn_head_eligible
 from vjepa2_tpu_torch.ops.ln_mlp import ln_mlp
 from vjepa2_tpu_torch.ops.ln_qkv import ln_qkv
 from vjepa2_tpu_torch.ops.rope import expand_rope_cache, rope_from_ids, separate_positions
+from vjepa2_tpu_torch.ops.tensor_parallel import copy_in, gather_rows, reduce_out
 
 # std of a standard normal truncated to [-2, 2]; JAX's truncated_normal
 # divides by it so the truncated draw has the requested std
@@ -208,7 +216,8 @@ def checkpoint_name(name: str):
 def _remat_policy(saves: frozenset):
     aten = torch.ops.aten
     flash = ({torch.ops.vjepa2.flash_fwd_dn.default, torch.ops.vjepa2.flash_fwd_bhnd.default,
-              torch.ops.vjepa2.ring_fwd.default} if "flash_out" in saves else set())
+              torch.ops.vjepa2.ring_fwd.default, torch.ops.vjepa2.tp_all_reduce.default,
+              torch.ops.vjepa2.tp_all_gather.default} if "flash_out" in saves else set())
     producers = {aten.addmm.default, aten.baddbmm.default, aten.mm.default, aten.bmm.default,
                  torch.ops.vjepa2.ln_qkv.default}
 
@@ -269,12 +278,39 @@ class Mlp(nn.Module):
         self.out_init_scale = out_init_scale
         self.fc1 = nn.Linear(in_dim, hidden_dim, device=device)
         self.fc2 = nn.Linear(hidden_dim, out_dim or in_dim, device=device)
+        self.tp = None
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         init_linear_(self.fc1, self.init_std, 1.0, generator)
         init_linear_(self.fc2, self.init_std, self.out_init_scale, generator)
 
+    def shard_hidden_(self, tp) -> None:
+        """Keep this rank's hidden columns (`ops.tensor_parallel`): its rows of
+        fc1.weight and its columns of fc2.weight; the biases stay whole."""
+        hidden = self.fc1.weight.shape[0]
+        if hidden % tp.size:
+            raise ValueError(f"MLP hidden width {hidden} not divisible by mesh.model={tp.size}")
+        self.fc1.weight = nn.Parameter(tp.rows(self.fc1.weight.detach()).clone())
+        self.fc2.weight = nn.Parameter(tp.cols(self.fc2.weight.detach()).clone())
+        self.tp = tp
+
+    def _tp_forward(self, x, ln):
+        tp, dt = self.tp, self.dtype
+        x = copy_in(x, tp)
+        b1 = tp.rows(copy_in(self.fc1.bias, tp))
+        if ln is not None:
+            h = ln_mlp(x, copy_in(ln[0], tp), copy_in(ln[1], tp), self.fc1.weight.to(dt),
+                       b1.float())
+        else:
+            with checkpoint_name("mlp_h"):
+                h = F.linear(x.to(dt), self.fc1.weight.to(dt), b1.to(dt))
+            h = F.gelu(h)
+        y = reduce_out(F.linear(h.to(dt), self.fc2.weight.to(dt)), tp)
+        return y + self.fc2.bias.to(dt)
+
     def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
+        if self.tp is not None:
+            return self._tp_forward(x, ln)
         if ln is not None:  # no "mlp_h" here, as in JAX (`modules.py:228-238`)
             h = ln_mlp(x, ln[0], ln[1], self.fc1.weight.to(self.dtype), self.fc1.bias.float())
             return dense(self.fc2, h, self.dtype)
@@ -315,10 +351,58 @@ class Attention(nn.Module):
                 f"and 64 (DN) and {', '.join(map(str, BHND_HEAD_WIDTHS))} (BHND)")
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
+        self.tp = None
+        self.tp_gather = False
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         init_linear_(self.qkv, self.init_std, 1.0, generator)
         init_linear_(self.proj, self.init_std, self.proj_init_scale, generator)
+
+    def shard_heads_(self, tp) -> None:
+        """Keep this rank's share of the layer (`ops.tensor_parallel`): its
+        heads' rows of q, k and v in qkv.weight and its columns of
+        proj.weight; the biases stay whole. With heads that ``tp`` divides,
+        the layer then runs ``num_heads / tp.size`` heads; otherwise
+        (``tp_gather``) it gathers the qkv weight and runs them all."""
+        if self.cp_attend is not None:
+            raise ValueError("the 'model' axis carries either tensors (tp) or tokens (cp), "
+                             "not both")
+        if self.dim % tp.size:
+            raise ValueError(f"attention width {self.dim} not divisible by mesh.model={tp.size}")
+        self.qkv.weight = nn.Parameter(tp.rows(self.qkv.weight.detach(), parts=3).clone())
+        self.proj.weight = nn.Parameter(tp.cols(self.proj.weight.detach()).clone())
+        self.tp = tp
+        self.tp_gather = self.num_heads % tp.size != 0
+        if not self.tp_gather:
+            self.num_heads //= tp.size
+
+    def _input(self, x):
+        """x, through `copy_in` under tensor parallelism."""
+        return x if self.tp is None else copy_in(x, self.tp)
+
+    def _qkv_params(self):
+        """(weight, bias) of the qkv product this rank computes: under tensor
+        parallelism its heads' rows, or the whole gathered weight."""
+        w, b = self.qkv.weight, self.qkv.bias
+        if self.tp is None:
+            return w, b
+        b = None if b is None else copy_in(b, self.tp)
+        if self.tp_gather:
+            return gather_rows(w, self.tp, 3), b
+        return w, None if b is None else self.tp.rows(b, 3)
+
+    def _project(self, out):
+        """proj on the attention output [B, N, local width]: under tensor
+        parallelism row-parallel on this rank's columns, summed over the
+        group, the bias added after the sum."""
+        dt = self.dtype
+        if self.tp is None:
+            return dense(self.proj, out, dt)
+        if self.tp_gather:
+            n = out.shape[-1] // self.tp.size
+            out = out.narrow(-1, self.tp.rank * n, n)
+        y = reduce_out(F.linear(out.to(dt), self.proj.weight.to(dt)), self.tp)
+        return y + self.proj.bias.to(dt)
 
     def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None,
                 ln=None, segment_ids=None):
@@ -334,18 +418,21 @@ class Attention(nn.Module):
             return self._fused_forward(x, ln, rope_expanded, qkv_perm, kv_valid)
         if self.cp_attend is not None and segment_ids is None:
             return self._cp_forward(x, rope_cache, kv_valid)
-        B, N, C = x.shape
+        x = self._input(x)
+        B, N, _ = x.shape
         H, Dh, dt = self.num_heads, self.head_dim, self.dtype
+        C = H * Dh
+        w, b = self._qkv_params()
         if not self.use_flash:
             if self.use_rope and rope_cache is None:
                 raise ValueError("the plain route with RoPE needs rope_cache")
-            q, k, v = dense(self.qkv, x, dt).view(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
+            qkv = F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
+            q, k, v = qkv.view(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
             out = attend_bhnd(q, k, v, rope_cache=rope_cache if self.use_rope else None,
                               segment_ids=segment_ids, kv_valid=kv_valid)
-            return dense(self.proj, out.transpose(1, 2).reshape(B, N, C), dt)
+            return self._project(out.transpose(1, 2).reshape(B, N, C))
         if self.use_rope and (rope_expanded is None or qkv_perm is None):
             raise ValueError("the flash routes with RoPE need rope_expanded and qkv_perm")
-        w, b = self.qkv.weight, self.qkv.bias
         if self.use_rope:
             w = w[qkv_perm]
             b = None if b is None else b[qkv_perm]
@@ -368,7 +455,7 @@ class Attention(nn.Module):
             out = attend_bhnd(q, k, v, rope_expanded=rope, use_flash=True, kv_valid=kv_valid,
                               segment_ids=segment_ids)
             out = out.transpose(1, 2).reshape(B, N, C)  # a view of the kernel's output
-        return dense(self.proj, out, dt)
+        return self._project(out)
 
     def _cp_forward(self, x, rope_cache, kv_valid):
         """The context-parallel route (`modules.py:577-605`): q, k, v
@@ -396,21 +483,24 @@ class Attention(nn.Module):
         """LN + qkv + RoPE as one kernel (B7; the bias in fp32, the q/k rows
         permuted to the split-half layout under RoPE), then attention
         rope-free (`modules.py:498-515`)."""
-        B, N, C = x.shape
-        w, b = self.qkv.weight, self.qkv.bias
+        x = self._input(x)
+        if self.tp is not None:
+            ln = (copy_in(ln[0], self.tp), copy_in(ln[1], self.tp))
+        B, N, _ = x.shape
+        w, b = self._qkv_params()
         rope = rope_expanded if self.use_rope else None
         if self.use_rope:
             if rope_expanded is None or qkv_perm is None:
                 raise ValueError("the fused route with RoPE needs rope_expanded and qkv_perm")
             w = w[qkv_perm]
             b = None if b is None else b[qkv_perm]
-        b = torch.zeros(3 * self.dim, device=w.device) if b is None else b.float()
+        b = torch.zeros(w.shape[0], device=w.device) if b is None else b.float()
         w = w.to(self.dtype)
         with checkpoint_name("flash_qkv"):
             q, k, v = ln_qkv(x, ln[0], ln[1], w, b, rope, num_heads=self.num_heads,
                              head_dim=self.head_dim)
         out = attend_bhnd(q, k, v, use_flash=self.use_flash, kv_valid=kv_valid)
-        return dense(self.proj, out.transpose(1, 2).reshape(B, N, C), self.dtype)
+        return self._project(out.transpose(1, 2).reshape(B, N, -1))
 
 
 class Block(nn.Module):

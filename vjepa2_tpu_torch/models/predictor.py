@@ -50,6 +50,7 @@ class VisionTransformerPredictor(nn.Module):
         self.patch_size = patch_size
         self.embed_dim, self.predictor_embed_dim = embed_dim, predictor_embed_dim
         self.num_heads = num_heads
+        self.perm_heads = num_heads  # the heads a block runs (fewer under tensor parallelism)
         self.use_rope, self.use_flash = use_rope, use_flash
         self.num_mask_tokens = num_mask_tokens
         self.zero_init_mask_tokens = zero_init_mask_tokens
@@ -126,7 +127,7 @@ class VisionTransformerPredictor(nn.Module):
         rope_cache = rope_expanded = qkv_perm = None
         if self.use_rope:
             rope_cache, rope_expanded, qkv_perm = rope_tables(
-                positions_sorted, P // self.num_heads, self.num_heads, hp, wp, flash_layout)
+                positions_sorted, P // self.num_heads, self.perm_heads, hp, wp, flash_layout)
         for blk in self.predictor_blocks:
             tokens = remat_call(blk, self.remat, tokens, rope_cache, rope_expanded, qkv_perm,
                                 kv_valid)

@@ -30,6 +30,13 @@ block's attention takes the context-parallel route; the stack pad and the
 RoPE hoist are off under it, as JAX's (`vision_transformer.py:159,197`):
 the ring pads its own shards and the blocks take the interleaved tables.
 
+``pipeline_`` (`core.pipeline`): the forward splits as JAX's does
+(`vision_transformer.py:108-110,210`, ``stage="pre"``): the embedding (`pre`,
+with the aux every block reads), the blocks, which then run as GPipe stages
+over the microbatches, each stage under the remat policy, and the final
+norm; ``out_layers`` and ``cp_attend`` are refused with it, as in JAX
+(`pipeline.py:213`).
+
 Not ported yet: the image (2D patch) path.
 """
 
@@ -40,6 +47,7 @@ import torch.nn as nn
 
 import torch.nn.functional as F
 
+from vjepa2_tpu_torch.core.pipeline import pipeline_blocks
 from vjepa2_tpu_torch.models.modules import (Block, LayerNorm, block_remat, qkv_row_perm,
                                              remat_call)
 from vjepa2_tpu_torch.models.patch_embed import PatchEmbed3D
@@ -97,6 +105,8 @@ class VisionTransformer(nn.Module):
         self.img_size = tuple(img_size)
         self.patch_size, self.num_frames, self.tubelet_size = patch_size, num_frames, tubelet_size
         self.embed_dim, self.depth, self.num_heads = embed_dim, depth, num_heads
+        self.perm_heads = num_heads  # the heads a block runs (fewer under tensor parallelism)
+        self.pipeline = None
         self.use_rope, self.use_flash = use_rope, use_flash
         self.dtype = dtype
         self.patch_embed = PatchEmbed3D(embed_dim, patch_size, tubelet_size, in_chans, dtype,
@@ -132,14 +142,25 @@ class VisionTransformer(nn.Module):
             f"sincos table resize to a ({t_patches}, {h_patches}, {w_patches}) grid is not "
             "ported yet")
 
-    def forward(self, x: torch.Tensor, masks=None):
-        """x: [B, T, H, W, C] -> [B, T'H'W', D] in ``dtype``, or with
-        ``out_layers`` the list of those after each listed block.
+    def pipeline_(self, pipeline) -> None:
+        """Run the blocks as the stages of ``pipeline`` (`core.pipeline.Pipeline`);
+        the blocks of other processes' stages are dropped (their names stay
+        free: ``blocks.{i}`` of this process's blocks keep their ``i``)."""
+        if self.out_layers is not None:
+            raise ValueError("pipeline mode has no out_layers taps")
+        if self.cp_attend is not None:
+            raise ValueError("pipeline does not compose with the CP ring")
+        owned = set(pipeline.owned())
+        for i in range(self.depth):
+            if i not in owned:
+                self.blocks[i] = nn.Identity()
+        self.pipeline = pipeline
 
-        masks: None, a [B, K] index tensor, or a list of them; with a list the
-        outputs are stacked along batch (reference semantics):
-        [B * len(masks), K, D].
-        """
+    def pre(self, x: torch.Tensor, masks=None):
+        """The embedding before the blocks (JAX's ``stage="pre"``): (tokens
+        [B, N', D], aux) with aux the blocks' ``rope_cache``,
+        ``rope_expanded``, ``qkv_perm`` and ``kv_valid``, and ``n_real``,
+        the tokens before the stack pad."""
         if masks is not None and not isinstance(masks, (list, tuple)):
             masks = [masks]
         _, T, H, W, _ = x.shape
@@ -159,11 +180,47 @@ class VisionTransformer(nn.Module):
         rope_cache = rope_expanded = qkv_perm = None
         if self.use_rope:
             rope_cache, rope_expanded, qkv_perm = rope_tables(
-                pos_ids, self.embed_dim // self.num_heads, self.num_heads, hp, wp, flash_layout)
+                pos_ids, self.embed_dim // self.num_heads, self.perm_heads, hp, wp, flash_layout)
+        return tokens, {"rope_cache": rope_cache, "rope_expanded": rope_expanded,
+                        "qkv_perm": qkv_perm, "kv_valid": kv_valid, "n_real": n_real,
+                        "batched": masks is not None}
+
+    def _block_args(self, aux):
+        return aux["rope_cache"], aux["rope_expanded"], aux["qkv_perm"], aux["kv_valid"]
+
+    def _stage(self, s: int, x: torch.Tensor, aux: dict) -> torch.Tensor:
+        """Pipeline stage ``s`` on one microbatch, under the remat policy."""
+        blocks = [self.blocks[i] for i in self.pipeline.stage_blocks(s)]
+
+        def run(x):
+            for blk in blocks:
+                x = blk(x, *self._block_args(aux))
+            return x
+
+        return remat_call(run, self.remat, x)
+
+    def forward(self, x: torch.Tensor, masks=None):
+        """x: [B, T, H, W, C] -> [B, T'H'W', D] in ``dtype``, or with
+        ``out_layers`` the list of those after each listed block.
+
+        masks: None, a [B, K] index tensor, or a list of them; with a list the
+        outputs are stacked along batch (reference semantics):
+        [B * len(masks), K, D].
+        """
+        tokens, aux = self.pre(x, masks)
+        n_real = aux["n_real"]
+        if self.pipeline is not None:
+            # with masks the tables follow each example's ids: microbatched
+            per = ("rope_cache", "rope_expanded") if aux["batched"] else ()
+            aux_mb = {k: aux[k] for k in per}
+            aux_bc = {k: aux[k] for k in ("rope_cache", "rope_expanded", "qkv_perm", "kv_valid")
+                      if k not in per}
+            tokens = pipeline_blocks(self._stage, tokens, aux_mb, aux_bc, self.pipeline.pipe,
+                                     self.pipeline.n_microbatch)
+            return self.norm(tokens[:, :n_real])
         outs = []
         for i, blk in enumerate(self.blocks):
-            tokens = remat_call(blk, self.remat, tokens, rope_cache, rope_expanded, qkv_perm,
-                                kv_valid)
+            tokens = remat_call(blk, self.remat, tokens, *self._block_args(aux))
             if self.out_layers is not None and i in self.out_layers:
                 outs.append(self.norm(tokens[:, :n_real]))
         if self.out_layers is not None:
@@ -178,6 +235,7 @@ def _factory(embed_dim, depth, num_heads, mlp_ratio, use_rope=False):
                                  num_heads=num_heads, mlp_ratio=mlp_ratio, qkv_bias=True,
                                  **kwargs)
 
+    make.depth = depth
     return make
 
 

@@ -38,9 +38,12 @@ from vjepa2_tpu_torch import _build
 from vjepa2_tpu_torch.ops.flash_attention import NOT_TMA_READY, tma_operand
 from vjepa2_tpu_torch.ops.layernorm import LN_WIDTHS, ln_backward, ln_forward_f32
 
-# Hidden widths the kernel takes: mlp_ratio 4 at C 384, 1024, 1280 and
-# vit_giant's 48/11 at 1408.
+# The models' hidden widths: mlp_ratio 4 at C 384, 1024, 1280 and
+# vit_giant's 48/11 at 1408. The kernels take any multiple of their column
+# tile (256 columns bf16, 128 fp32): these, and a tensor-parallel rank's
+# share of them.
 MLP_HIDDEN_WIDTHS = (1536, 4096, 5120, 6144)
+MLP_COLUMN_TILE = {torch.bfloat16: 256, torch.float32: 128}
 
 # Kernel launches since the last reset, on bf16 and, apart, on fp32
 # operands; `chip_smoke.py` reads them.
@@ -100,9 +103,10 @@ def _ln_mlp_cuda(x, gamma, beta, w, bias, eps):
     global LAUNCHES, LAUNCHES_FP32
     B, N, C = x.shape
     hidden = w.shape[0]
-    if C not in LN_WIDTHS or hidden not in MLP_HIDDEN_WIDTHS:
+    tile = MLP_COLUMN_TILE.get(x.dtype, 256)
+    if C not in LN_WIDTHS or hidden <= 0 or hidden % tile:
         raise ValueError(f"ln_mlp kernel: row width {C} (takes {', '.join(map(str, LN_WIDTHS))}), "
-                         f"hidden {hidden} (takes {', '.join(map(str, MLP_HIDDEN_WIDTHS))})")
+                         f"hidden {hidden} (takes a multiple of {tile})")
     if x.dtype != w.dtype or x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the ln_mlp kernel on CUDA takes x and w both bf16 or both fp32; got "
                         f"{x.dtype}, {w.dtype}")

@@ -16,25 +16,32 @@ from typing import Callable, Sequence
 
 import torch
 
+from vjepa2_tpu_torch.core.optim import split_sharded
+
 
 def accumulate(loss_and_backward: Callable, microbatches: Sequence, grad_accum: int,
-               params: Sequence[torch.Tensor]) -> torch.Tensor:
+               params: Sequence[torch.Tensor], sync: Callable | None = None) -> torch.Tensor:
     """Run ``loss_and_backward(*microbatch)`` (a forward and a ``backward()``
     that adds into ``.grad``, returning the detached loss) over the
     ``grad_accum`` microbatches, then scale every ``.grad`` of ``params`` by
     ``1 / grad_accum``. ``microbatches``: a sequence of argument tuples.
-    Returns the mean loss."""
+    ``sync(flag)``: turns a sharded state's gradient reduction off before
+    every microbatch but the last and on before the last, so that the
+    accumulated gradient is reduced once (`core.sharding`). Returns the
+    mean loss."""
     if len(microbatches) != grad_accum:
         raise ValueError(f"{len(microbatches)} microbatches for grad_accum {grad_accum}")
     total = None
-    for args in microbatches:
+    for i, args in enumerate(microbatches):
+        if sync is not None:
+            sync(i == grad_accum - 1)
         loss = loss_and_backward(*args)
         total = loss if total is None else total + loss
     inv = 1.0 / grad_accum
     with torch.no_grad():
         grads = [p.grad for p in params if p.grad is not None]
-        if grads:
-            torch._foreach_mul_(grads, inv)
+        for (part,) in split_sharded(grads):
+            torch._foreach_mul_(part, inv)
     return total * inv
 
 

@@ -17,12 +17,19 @@ JAX carries a trainable copy of the encoder when ``enc_lr_scale > 0``
 (`droid.py:249-250`); the objective never reads it, so its gradient is zero,
 and JAX masks it from weight decay, so it never changes. The port leaves it
 out: the predictor's updates and the grad norm are the same without it.
+
+A sharded state (``state.parallel``, `core.sharding`; JAX's `DroidTrainer`
+on a ``(data, fsdp, model)`` mesh, `droid_loop.py:71`): the predictor's
+blocks split their heads and hidden columns over ``model`` and both models
+shard over ``fsdp``; the gradients are averaged per placement and the grad
+norm is the global one, as the pretrain step's (`train.pretrain._update`).
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.nn as nn
@@ -64,14 +71,35 @@ class DroidState:
     predictor: nn.Module
     target_encoder: nn.Module
     optimizer: ScheduledAdamW
+    parallel: Any = None
+
+    def trained(self) -> dict:
+        return {"predictor": self.predictor}
+
+    def named_parameters(self):
+        return [(f"predictor.{n}", p) for n, p in self.predictor.named_parameters()]
 
     def state_dict(self) -> dict:
+        par = self.parallel
+        if par is not None:  # gathered: every rank calls it
+            return {"step": self.step,
+                    "predictor": par.model_state_dict("predictor", self.predictor),
+                    "target_encoder": par.model_state_dict("target_encoder",
+                                                           self.target_encoder),
+                    "optimizer": par.optimizer_state_dict(self.optimizer, self.trained())}
         return {"step": self.step, "predictor": self.predictor.state_dict(),
                 "target_encoder": self.target_encoder.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
         self.step = int(state["step"])
+        par = self.parallel
+        if par is not None:
+            par.load_model_state_dict("predictor", self.predictor, state["predictor"])
+            par.load_model_state_dict("target_encoder", self.target_encoder,
+                                      state["target_encoder"])
+            par.load_optimizer_state_dict(self.optimizer, self.trained(), state["optimizer"])
+            return
         self.predictor.load_state_dict(state["predictor"])
         self.target_encoder.load_state_dict(state["target_encoder"])
         self.optimizer.load_state_dict(state["optimizer"])
@@ -204,10 +232,21 @@ def make_droid_train_step(hp: DroidHParams, tokens_per_frame: int, norm_stats=No
         else:
             micro = [(state, clips[i], actions[i], states[i],
                       None if extrinsics is None else extrinsics[i]) for i in range(grad_accum)]
-            losses = accumulate(loss_and_backward, micro, grad_accum, state.optimizer.params)
-        mean_gradients(state.optimizer.params, grad_group)
+            sync = None
+            if state.parallel is not None:
+                def sync(flag):
+                    state.parallel.set_gradient_sync([state.predictor], flag)
+            losses = accumulate(loss_and_backward, micro, grad_accum, state.optimizer.params,
+                                sync)
+        par = state.parallel
+        if par is None:
+            mean_gradients(state.optimizer.params, grad_group)
+            grad_norm = global_norm([p.grad for p in state.optimizer.params
+                                     if p.grad is not None])
+        else:
+            par.finish_gradients(state.named_parameters())
+            grad_norm = par.grad_norm(state.optimizer.params)
         losses = mean_metric(losses, grad_group)
-        grad_norm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
         state.optimizer.step(state.step)
         state.step += 1
         return {"loss": losses[0], "loss_teacher_forcing": losses[1], "loss_rollout": losses[2],

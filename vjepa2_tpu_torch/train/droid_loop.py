@@ -8,9 +8,12 @@ Several processes lay out as the `Pretrainer`'s (`loop.process_layout`):
 the data group splits the global batch ``data.batch_size``, reads its
 shards through a sampler over that group, and averages the predictor's
 gradients (JAX `droid_loop.py:71,147,175-189`); rank 0 writes the
-checkpoints and each rank logs to ``droid_log_r{rank}.csv``. The AC
-predictor has no context-parallel route (JAX's has none either), and what
-the `Pretrainer` refuses is refused here too (ROADMAP A12b).
+checkpoints and each rank logs to ``droid_log_r{rank}.csv``. ``mesh.fsdp``
+shards both models and ``mesh.model`` splits the AC predictor's heads and
+hidden columns (`core.sharding.Parallel.place_droid`). The AC predictor has
+no context-parallel route (JAX's has none either). JAX's `DroidTrainer`
+builds its mesh without ``pipe`` (`droid_loop.py:71`), so ``mesh.pipe`` is
+dropped here too, with a warning (ROADMAP queue C).
 
 Data: ``data.datasets[0]`` lists DROID trajectory directories, read through
 `data.droid.DROIDVideoDataset` (every frame: ``frameskip`` 1, as JAX's loop,
@@ -108,8 +111,12 @@ class DroidTrainer:
         self.device = entry_device(self.device)
         if c.mesh.model > 1 and c.model.context_parallel:
             raise NotImplementedError("the AC predictor has no context-parallel route: set "
-                                      "mesh.model: 1 (tensor parallelism is ROADMAP A12b)")
-        self.layout = process_layout(c, self.device)
+                                      "model.context_parallel: false (mesh.model then splits "
+                                      "its heads)")
+        if c.mesh.pipe > 1:
+            logger.warning("mesh.pipe=%d is dropped: the DROID trainer's mesh has no pipe "
+                           "axis (as JAX's)", c.mesh.pipe)
+        self.layout = process_layout(c, self.device, pipe=False)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
         # reference: max_num_frames = max(dataset_fpcs) (`train.py:106`)
         self.frames_per_clip = max(c.data.dataset_fpcs) if c.data.dataset_fpcs else 8
@@ -172,8 +179,11 @@ class DroidTrainer:
         logger.info("params: target encoder %.1fM predictor %.1fM",
                     sum(p.numel() for p in self.target_encoder.parameters()) / 1e6,
                     sum(p.numel() for p in self.predictor.parameters()) / 1e6)
+        par = self.layout.parallel
+        if par is not None:
+            par.place_droid(self.target_encoder, self.predictor)
         return DroidState(0, self.predictor, self.target_encoder,
-                          make_droid_optimizer(self.hp, self.predictor))
+                          make_droid_optimizer(self.hp, self.predictor), par)
 
     def restore_or_init(self) -> DroidState:
         state = self.init_state()

@@ -10,12 +10,19 @@ its share through a sampler over that group and takes its rows of the
 masks the collator samples for the whole batch, and the step averages the
 gradients over the group. ``model`` with ``model.context_parallel`` rings
 each block's attention over the token dimension
-(`ops.ring_attention.seq_sharded_attention`); the ranks of one ``model``
-group read the same clips. Only rank 0 writes checkpoints, in the one-card
-format, which any world size resumes; the others wait at a barrier. Each
-rank logs to ``log_r{rank}.csv``. Parameter sharding (``fsdp``), tensor
-parallelism (``model`` without ``context_parallel``) and pipelines
-(``pipe``) are refused (ROADMAP A12b): nothing is skipped quietly.
+(`ops.ring_attention.seq_sharded_attention`), and without it splits each
+block's heads and hidden columns (tensor parallelism); ``fsdp`` shards the
+parameters, the EMA target and AdamW's moments (FSDP2, also over ``model``
+under context parallelism); ``pipe`` splits the encoder's blocks into GPipe
+stages over ``mesh.pipe_microbatches`` microbatches (`core.sharding`,
+`core.pipeline`). The ranks of one ``model`` group and of one ``pipe``
+group read the same clips. JAX's refusals stay, with JAX's messages: a
+pipeline with context parallelism, a batch (or an accumulation pass) that
+the pipeline's microbatches do not divide, a depth that the stages do not
+divide, a mesh wider than the world. Only rank 0 writes checkpoints, in the
+one-card format (a sharded state is gathered to it first), which any mesh
+resumes; the others wait at a barrier. The online evals see the gathered
+encoder. Each rank logs to ``log_r{rank}.csv``.
 
 In-process evals: with ``evals`` (eval YAMLs) and ``meta.eval_freq``, every
 ``eval_freq``-th epoch ends, after its checkpoint, with
@@ -68,6 +75,7 @@ from vjepa2_tpu_torch.data.transforms import VideoTransform
 from vjepa2_tpu_torch.data.video import synthetic_clip
 from vjepa2_tpu_torch.evals.online import make_online_eval
 from vjepa2_tpu_torch.masks.multiblock3d import MaskCollator
+from vjepa2_tpu_torch.models.vision_transformer import MODEL_REGISTRY
 from vjepa2_tpu_torch.train.accum import validate_grad_accum
 from vjepa2_tpu_torch.train.pretrain import (PretrainHParams, build_models, init_params,
                                              make_multifpc_train_step, make_optimizer,
@@ -133,57 +141,75 @@ def group_fpc_batches(loader, fpcs, max_pending: int = 8):
             yield [pending[x].popleft() for x in fpcs]
 
 
-def _refuse(c: PretrainConfig) -> None:
-    """Raise on the mesh axes the port does not honour yet, naming the
-    ROADMAP item that brings them."""
-    m = c.mesh
-    if m.model > 1 and not c.model.context_parallel:
-        raise NotImplementedError(f"mesh.model={m.model} without model.context_parallel is "
-                                  "tensor parallelism: not ported (ROADMAP A12b); set "
-                                  "mesh.model: 1 or model.context_parallel: true")
-    for name, value in (("mesh.fsdp", m.fsdp), ("mesh.pipe", m.pipe)):
-        if value > 1:
-            raise NotImplementedError(f"{name}={value} (parameter sharding / pipeline stages) "
-                                      "is not ported (ROADMAP A12b)")
+def check_pipeline(c: PretrainConfig) -> None:
+    """JAX's refusals of a pipeline (`vjepa2_tpu/train/loop.py:112-118,174-191`),
+    with its messages: with the ring, a batch or an accumulation pass that
+    the microbatches do not divide, a depth that the stages do not divide.
+    Checked before the mesh, so that one process names them too."""
+    m, o = c.mesh, c.optimization
+    if m.pipe <= 1:
+        return
+    assert not c.model.context_parallel, (
+        "pipeline and ring-attention context parallelism both re-schedule the block stack; "
+        "pick one")
+    assert c.data.batch_size % m.pipe_microbatches == 0, (
+        f"batch {c.data.batch_size} not divisible by pipe_microbatches={m.pipe_microbatches}")
+    depth = MODEL_REGISTRY[c.model.model_name].depth
+    assert depth % m.pipe == 0, f"depth {depth} not divisible by pipe={m.pipe}"
+    ga = max(1, int(o.grad_accum))
+    if ga > 1:
+        per_pass = c.data.batch_size // ga
+        assert per_pass % m.pipe_microbatches == 0, (
+            f"per-accumulation batch {per_pass} not divisible by "
+            f"pipe_microbatches={m.pipe_microbatches}")
 
 
 @dataclass
 class ProcessLayout:
     """This rank's place in the config's mesh: its rank, the data group it
     averages gradients over (size ``dp_size``, this rank ``dp_rank`` in it;
-    None in one process) and the ring of its ``model`` group (None without
-    context parallelism)."""
+    None in one process), the ring of its ``model`` group (None without
+    context parallelism) and what shards its state (`core.sharding.Parallel`;
+    None when nothing does)."""
 
     rank: int
     dp_group: object
     dp_size: int
     dp_rank: int
     cp_attend: object
+    parallel: object = None
 
 
-def process_layout(c: PretrainConfig, device) -> ProcessLayout:
+def process_layout(c: PretrainConfig, device, pipe: bool = True) -> ProcessLayout:
     """The mesh over the process group's ranks, as JAX's `Pretrainer` builds
-    its device mesh (`loop.py:105-131`): `_refuse`, then JAX's `resolve`
-    over the world (one process with ``data`` > 1 fails its assertion, as
-    in JAX), then the groups and, with ``model.context_parallel`` and
-    ``model`` > 1, the ring."""
-    _refuse(c)
+    its device mesh (`loop.py:105-131`): JAX's `resolve` over the world (one
+    process with a mesh wider than one fails its assertion, as in JAX),
+    then the groups and, with ``model.context_parallel`` and ``model`` > 1,
+    the ring; with ``fsdp``, ``model`` or ``pipe`` > 1 the state's
+    placement. ``pipe=False`` drops the ``pipe`` axis (JAX's `DroidTrainer`
+    builds its mesh without it)."""
     rank, world = distributed.world()
-    cfg = mesh_lib.MeshConfig(c.mesh.data, c.mesh.fsdp, c.mesh.model, c.mesh.pipe)
+    cfg = mesh_lib.MeshConfig(c.mesh.data, c.mesh.fsdp, c.mesh.model,
+                              c.mesh.pipe if pipe else 1)
     d, f, m, p = cfg.resolve(world)
     if d * f * m * p != world:
         raise ValueError(f"mesh {d}x{f}x{m}x{p} leaves {world - d * f * m * p} of {world} "
                          "ranks without a place: every rank trains")
     mesh = mesh_lib.make_mesh(cfg, torch.device(device).type) if world > 1 else None
     dp_group = mesh_lib.data_group(mesh)
-    cp_attend = None
-    if c.model.context_parallel and m > 1:
+    cp = bool(c.model.context_parallel and m > 1)
+    cp_attend = parallel = None
+    if cp:
         from vjepa2_tpu_torch.ops.ring_attention import seq_sharded_attention
 
         cp_attend = seq_sharded_attention(mesh_lib.model_group(mesh))
+    if f > 1 or m > 1 or p > 1:
+        from vjepa2_tpu_torch.core.sharding import Parallel
+
+        parallel = Parallel(mesh, cp=cp, pipe_microbatches=c.mesh.pipe_microbatches)
     return ProcessLayout(rank, dp_group, d * f,
                          0 if dp_group is None else torch.distributed.get_rank(dp_group),
-                         cp_attend)
+                         cp_attend, parallel)
 
 
 @dataclass
@@ -195,10 +221,11 @@ class Pretrainer:
     def __post_init__(self):
         c = self.cfg
         self.device = entry_device(self.device)
+        check_pipeline(c)
         self.layout = process_layout(c, self.device)
         self.dtype = torch.bfloat16 if c.meta.dtype in ("bfloat16", "bf16") else torch.float32
         self.fpcs = sorted(set(c.data.dataset_fpcs))
-        self.encoder, self.predictor = build_models(
+        self.model_kwargs = dict(
             model_name=c.model.model_name,
             crop_size=c.data.crop_size,
             patch_size=c.data.patch_size,
@@ -217,8 +244,9 @@ class Pretrainer:
             device=self.device,
             use_activation_checkpointing=c.model.use_activation_checkpointing,
             remat_policy=c.model.remat_policy,
-            cp_attend=self.layout.cp_attend,
         )
+        self.encoder, self.predictor = build_models(**self.model_kwargs,
+                                                    cp_attend=self.layout.cp_attend)
         o = c.optimization
         self.hp = PretrainHParams(
             lr=o.lr, start_lr=o.start_lr, final_lr=o.final_lr, warmup_epochs=o.warmup,
@@ -282,12 +310,29 @@ class Pretrainer:
         self.collator.step()
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.meta.seed)
         init_params(self.encoder, self.predictor, gen)
-        state = TrainState.create(self.encoder, self.predictor,
-                                  make_optimizer(self.hp, self.encoder, self.predictor))
         logger.info("params: encoder %.1fM predictor %.1fM",
                     sum(p.numel() for p in self.encoder.parameters()) / 1e6,
                     sum(p.numel() for p in self.predictor.parameters()) / 1e6)
-        return state
+        par = self.layout.parallel
+        if par is None:
+            return TrainState.create(self.encoder, self.predictor,
+                                     make_optimizer(self.hp, self.encoder, self.predictor))
+        # every rank drew the whole weights: each keeps its share
+        target = par.place(self.encoder, self.predictor)
+        return TrainState(0, self.encoder, self.predictor, target,
+                          make_optimizer(self.hp, self.encoder, self.predictor), par)
+
+    def eval_models(self, state: TrainState):
+        """(EMA target, predictor) as one process holds them, for the online
+        evals: a sharded state's gathered into plain models (every rank
+        calls it)."""
+        if state.parallel is None:
+            return state.target_encoder, state.predictor
+        sd = state.state_dict()
+        encoder, predictor = build_models(**self.model_kwargs)
+        encoder.load_state_dict(sd["target_encoder"])
+        predictor.load_state_dict(sd["predictor"])
+        return encoder.requires_grad_(False), predictor
 
     def restore_or_init(self) -> TrainState:
         state = self.init_state()
@@ -448,7 +493,8 @@ class Pretrainer:
                 return {"loss": last_loss, "step": int(state.step), "preempted": True}
             if (self.online_eval is not None and c.meta.eval_freq
                     and (epoch + 1) % c.meta.eval_freq == 0):
-                metrics = self.online_eval(state.target_encoder, epoch, predictor=state.predictor,
+                target, predictor = self.eval_models(state)
+                metrics = self.online_eval(target, epoch, predictor=predictor,
                                            shard=(self.layout.dp_size, self.layout.dp_rank))
                 logger.info("online eval @ epoch %d: %s", epoch, metrics)
                 if eval_csv is None:

@@ -20,8 +20,14 @@ its share of the batch, and after the backward the gradients are averaged
 over the group, bucketed (`core.distributed.mean_gradients`), before AdamW,
 so the parameters stay bit-equal on every rank; the returned loss is the
 group's mean, the global batch's loss as JAX's jitted mean gives it.
-Context parallelism is the models' (`build_models`' ``cp_attend``). Not
-ported yet: parameter sharding (ROADMAP A12b).
+Context parallelism is the models' (`build_models`' ``cp_attend``).
+
+A sharded state (``state.parallel``, `core.sharding`): the gradients are
+averaged per placement: FSDP's reduce-scatter for the sharded parameters,
+the data group's mean for the whole ones, a sum over ``pipe`` for the
+patch embedding only the first stage differentiates; ``grad_norm`` is the
+global norm over the state group, as JAX's ``optax.global_norm``; AdamW and
+the EMA update run on each rank's shards. Accumulation reduces once a step.
 """
 
 from __future__ import annotations
@@ -178,11 +184,17 @@ def forward_loss(encoder, predictor, clips, masks_enc, masks_pred, h_list, loss_
 
 def _update(state: TrainState, loss: torch.Tensor, momentum: float, grad_group=None) -> dict:
     """The update after the gradients are in ``.grad``: their mean over
-    ``grad_group``, the grad norm, AdamW at the step's lr and weight decay,
-    the EMA of the target, the count."""
-    mean_gradients(state.optimizer.params, grad_group)
+    ``grad_group`` (per placement for a sharded state), the grad norm,
+    AdamW at the step's lr and weight decay, the EMA of the target, the
+    count."""
+    par = state.parallel
+    if par is None:
+        mean_gradients(state.optimizer.params, grad_group)
+        grad_norm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
+    else:
+        par.finish_gradients(state.named_parameters())
+        grad_norm = par.grad_norm(state.optimizer.params)
     loss = mean_metric(loss, grad_group)
-    grad_norm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
     state.optimizer.step(state.step)
     ema_update(state.target_encoder.parameters(), state.encoder.parameters(), momentum)
     state.step += 1
@@ -226,7 +238,12 @@ def make_train_step(hp: PretrainHParams, mask_indices: Sequence[int] | None = No
         else:
             micro = [(state, clips[i], [m[i] for m in masks_enc], [m[i] for m in masks_pred])
                      for i in range(grad_accum)]
-            loss = accumulate(loss_and_backward, micro, grad_accum, state.optimizer.params)
+            sync = None
+            if state.parallel is not None:
+                def sync(flag):
+                    state.parallel.set_gradient_sync(state.trained().values(), flag)
+            loss = accumulate(loss_and_backward, micro, grad_accum, state.optimizer.params,
+                              sync)
         return _update(state, loss, momentum, grad_group)
 
     return train_step
