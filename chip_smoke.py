@@ -157,8 +157,10 @@ Phases, each printed as one JSON object on a line of its own:
    encoded (256 px, 40 B1 launches each), then a warm-up plan at 1 CEM step
    and 1 timed CEM plan at `CEMConfig()` (400 samples, rollout 2, 10 steps,
    top-k 10: 480 B1 launches each at [400, 16, 64, 264] and [400, 16, 64,
-   520]), then the same plan (seed 0) traced; the plans finite, [2, 7],
-   within the CEM's clips, the traced repeat bit-equal; encode and step_fn (4 candidates at 1 and
+   520]), then the warm-up plan again, traced (a second full plan cost ~9 s);
+   the plans finite, [2, 7], within the CEM's clips, the traced repeat
+   bit-equal (phase 24 holds its loaded plan to the timed one); encode and
+   step_fn (4 candidates at 1 and
    2 frames) against the fp32 CPU path (on the worker thread; the CPU world
    model serves phase 27 too), and the CEM update on a linear world model on
    the card against the CPU's. Prints ms per encode and per plan, peak
@@ -257,7 +259,8 @@ Phases, each printed as one JSON object on a line of its own:
    each train step launches B1 24 times and B1 and B2 at fp32 18
    times each, a val batch B1 24 and B1 at fp32 18; the checks
    of phase 19 with the CPU's share cut to the first 4 examples, but the
-   probe save and restore (phase 19's code; cut in PR 20 for time);
+   probe save and restore (phase 19's code) and the extra traced step
+   (device-bound), both cut for time, as phase 23's;
 23. eval_video_384 — the ViT-g/384 K400 probe eval: `run_video_classification`
    on the shipped config (`EVAL_VIDEO_384_CONFIG`: batch 1 of 8 segments of
    16f@384, the 22-head ViT-g into features [1, 36864, 1408], 10 fp32
@@ -265,7 +268,8 @@ Phases, each printed as one JSON object on a line of its own:
    step launches B1 40 times at [8,22,64,4608] and the fp32 forward and
    backward 30 times each at [1,16,36864,88], a val batch B1 40 and the
    forward 30; finite losses (the probe save and restore is phase 19's
-   code: cut here in PR 20 for time), and,
+   code) and the extra traced step (device-bound), both cut here for
+   time, and,
    forward only against fp32 on the plain route on the card (the host's
    CPU cannot hold a 36,864-token probe or a 384-px ViT-g clip in the
    script's time): segment 0's features and probe 0's logits (the plain
@@ -281,14 +285,26 @@ Phases, each printed as one JSON object on a line of its own:
    while_loop). Then a fresh process that loads the ViT-L program and
    imports no `vjepa2_tpu_torch.models` module answers requests of 1 and 8
    clips at 16f@256 (24 B1 each), and the program loaded here is timed
-   against the eager encoder, 5 repeats interleaved; ViT-H answers one clip
+   against the eager encoder, 3 repeats interleaved; ViT-H answers one clip
    (32 B3); the world model, loaded as a `ServingWorldModel`, two encodes of
-   480 x 640 uint8 frames (40 B1 each) and one plan at seed 0 (480 B1), each
-   beside eager's (every eager copy built as the child built it). Every answer must equal
+   480 x 640 uint8 frames (40 B1 each) beside eager's (every eager copy built
+   as the child built it) and one plan (480 B1) on phase 18's latents, pose
+   and seed, against phase 18's eager plan (no second eager plan). Every
+   answer must equal
    eager's (`torch.equal`; where they part, the record says where and holds
    the answer within 5e-2 relative L2 of the fp32 CPU path, and the plan to
    [2, 7], finite, in the CEM's clips). Prints trace, save and load seconds,
    artifact bytes, and ms per request, encode and plan, loaded and eager.
+   The fp32 programs (A11c), exported by the same child:
+   `vjepa2_vit_large(num_frames=16, dtype=torch.float32)` (symbolic batch)
+   and `vjepa2_ac_vit_giant(dtype=torch.float32)` in phase 27's
+   `WorldModel` (its CEM steps), loaded here: ViT-L requests of 1 and 8
+   clips against the eager fp32 encoder (24 B1 at fp32 each), the world
+   model's two encodes of phase 27's frames (40 B1 at fp32 each) and its
+   plan at phase 27's seed, held to phase 27's eager results (no second
+   eager fp32 plan); every answer `torch.equal`, no node of the fp32
+   programs (and no op of an encoder call) making a bf16 tensor; the fp32
+   artifacts are deleted once checked.
 26. train_droid_fp32 (run before phase 17) — the DROID trainer at JAX's
    default precision: `run_vjepa_droid` on `DROID_CONFIG` with
    ``meta.dtype: float32`` (TF32 off), one epoch of 2 steps (phase 17 covers
@@ -386,11 +402,27 @@ Phases, each printed as one JSON object on a line of its own:
    kernel phases hold the new per-rank shapes (`tp ...`, `pp ...`, `fsdp
    ...` in `SHAPES`, `BWD_SHAPES`, `BHND_SHAPES`, `BHND_BWD_SHAPES`,
    `PROLOGUE_SHAPES`) against their plain versions;
+32. model_options (run after phase 6) — the model options at full
+   width: (a) phase 6's step with SwiGLU MLPs (`build_models(use_silu=
+   True)`: hidden 2736 and 1024 with ``wide_silu``; three plain GEMMs, as
+   in JAX), 1 + 2 steps of exactly 96 B1 + 72 B2, phase 6's checks (the
+   EMA, finite gradients, clip 0's loss and gradients against the fp32 CPU
+   path at full depth on the worker thread from phase 26 on); (b) the image encoder
+   `vit_large(num_frames=1, img_size=(224, 224), use_rope=True,
+   use_flash=True)` in bf16 answering 3 requests of 64 images (196 tokens,
+   stack-padded to 200), 24 B1 each; (c) its sincos twin fed 256-px images,
+   its 14 x 14 table resized bicubically to 16 x 16 (`models.resize`, as
+   `jax.image.resize`), 24 B1 a request of 64; in (b) and (c) image 0's
+   features against the fp32 CPU path within 5e-2 relative L2. The kernel
+   phases 3 and 5 hold B1 at those rows and B1/B2 at the AC predictor's
+   rows without segment ids (``is_frame_causal=False``: the pad keys masked
+   by kv_valid);
 Phases 19, 20, 22 and 23 run in the order eval_anticipation, eval_video,
 eval_image, eval_video_384; each eval phase's CPU reference, like those of
-phases 4, 6, 9, 10, 14, 17, 18, 26 and 27, runs on a worker thread beside
+phases 4, 6, 9, 10, 14, 17, 18, 26, 27 and 32, runs on a worker thread beside
 the card work of the phases after it (phase 6's beside the kernel phases,
-and train_fp32 waits for it; phases 9's and 14's from train_droid_fp32 on),
+and train_fp32 waits for it; phases 9's, 14's and 32's SwiGLU step's from
+train_droid_fp32 on),
 and its record prints when that reference ends; the script waits for all
 of them before its summary.
 The kernel phases 3 and 5 also hold B1 and B2 at the cooldown's shapes
@@ -519,6 +551,14 @@ SHAPES = [
     ("fsdp vit_giant_xformers context, mask 0, batch 24", (24, 22, 64, 584),
      {"seq": "giant_ctx0"}),
     ("fsdp vit_giant predictor, mask 1, batch 24", (24, 12, 32, 1664), {"seq": "giant_pred1"}),
+    # phase model_options: the image encoder's 196 tokens stack-padded to 200
+    # (a request of 64 images), the sincos one's 256 at 256 px; the AC
+    # predictor with is_frame_causal=False (no segment ids: the pad keys
+    # masked by kv_valid), teacher forcing and rollout
+    ("vit_large image encoder, 224 px", (64, 16, 64, 200), {"kv_valid_len": 196}),
+    ("vit_large image encoder, 256 px", (64, 16, 64, 256), {}),
+    ("ac predictor, full attention, stack-padded", (8, 16, 64, 1808), {"kv_valid_len": 1806}),
+    ("ac rollout, full attention, stack-padded", (8, 16, 64, 520), {"kv_valid_len": 516}),
 ]
 # operands above this many elements (the plan's 108 M and 213 M) are drawn on
 # the card: numpy takes seconds for each
@@ -564,6 +604,9 @@ BWD_SHAPES = [
     ("pp context encoder, mask 0, a microbatch of 4", 16, 64, "pp_ctx0"),
     ("fsdp vit_giant_xformers context, mask 0, batch 24", 22, 64, "giant_ctx0"),
     ("fsdp vit_giant predictor, mask 1, batch 24", 12, 32, "giant_pred1"),
+    # phase model_options: the AC predictor with is_frame_causal=False
+    ("ac predictor, full attention, stack-padded", 16, 64, "ac_full_pad"),
+    ("ac rollout, full attention, stack-padded", 16, 64, "ac_rollout_full_pad"),
 ]
 # B2 against plain: both from the same bf16 inputs, plain in fp32. The kernels
 # round at 2**-9 relative where plain does not: q_s and k_rot, q_u, p before
@@ -614,8 +657,11 @@ BHND_BWD_SHAPES = [
     ("tp fused vit_large context, mask 0, 8 of 16 heads", (8, 8, 584, 64), {"kv_valid_len": 578}),
     ("tp fused predictor, mask 0, 6 of 12 heads", (8, 6, 1624, 32), {"kv_valid_len": 1623}),
 ]
-# the AC sequences of `BWD_SHAPES`: (frames of 2 + 256 tokens, stack pad)
-AC_SEQUENCES = {"ac": (7, 0), "ac_pad": (7, 2), "ac_rollout": (2, 0), "ac_rollout_pad": (2, 4)}
+# the AC sequences of `BWD_SHAPES`: (frames of 2 + 256 tokens, stack pad);
+# frame-causal but for `AC_FULL_ATTENTION`'s, whose pad keys kv_valid masks
+AC_SEQUENCES = {"ac": (7, 0), "ac_pad": (7, 2), "ac_rollout": (2, 0), "ac_rollout_pad": (2, 4),
+                "ac_full_pad": (7, 2), "ac_rollout_full_pad": (2, 4)}
+AC_FULL_ATTENTION = frozenset({"ac_full_pad", "ac_rollout_full_pad"})
 # launch counters, in the order `_launch_counts` reads them (the fp32 calls
 # of the BHND and DN wrappers, both on `csrc/flash_fp32.cuh`, count apart, as
 # do B6's, B7's and B8's fp32 calls)
@@ -642,6 +688,9 @@ TRAIN_CFGS = {
     ("vit_huge", ""): ("train_huge", _counts(b1=24, b2=24, b3=96, bhnd_bwd=64)),
     ("vit_large", "qkv,mlp"): ("train_fused", _counts(b3=96, bhnd_bwd=72, b6_bwd=144, b7=96,
                                                       b8=96)),
+    # phase model_options: phase 6's step with SwiGLU MLPs (three plain GEMMs,
+    # as in JAX): the attention's launches of phase 6
+    ("vit_large", "silu"): ("model_options", _counts(b1=96, b2=72)),
 }
 # The same ViT-L steps at fp32 (phases train_fp32 and train_fused_fp32), per
 # fusions: unfused, every attention on the DN route, as in JAX, through B1
@@ -863,7 +912,7 @@ PLAN_FP32_LAUNCHES = _counts(b1_fp32=PLAN_FP32_STEPS * 2 * 24)
 # plan (480 B1). A loaded program's answer is held to eager's with
 # `torch.equal`; where the two part, to the fp32 CPU path within the serving
 # slice's relative L2.
-EXPORT_BATCHES, EXPORT_REPEATS, EXPORT_REL_L2 = (1, 8), 5, 5e-2
+EXPORT_BATCHES, EXPORT_REPEATS, EXPORT_REL_L2 = (1, 8), 3, 5e-2  # repeats cut from 5 for time
 
 # The frozen evals (phases eval_video, eval_anticipation): the shipped ViT-L
 # configs as `yaml.safe_load` gives them (`tests/test_torch_eval_cli.py`
@@ -1454,6 +1503,30 @@ def _seq_positions(dev, ids):
     return pos.to(dev), (n if N != n else None)
 
 
+class _SeedStream:
+    """The values of ``np.random.RandomState(0).randn``, drawn once and kept:
+    every kernel case draws its operands as ``RandomState(0)`` would, a prefix
+    of this one stream, so each case takes a slice instead of drawing again
+    (numpy takes ~0.7 s per 16.7 M values on the host)."""
+
+    def __init__(self):
+        self.rng, self.values = np.random.RandomState(0), np.empty(0)
+
+    def randn(self, *shapes) -> list:
+        """One array a shape, in order, as successive ``randn(*shape)`` calls
+        on a fresh ``RandomState(0)`` give them (float64)."""
+        sizes = [int(np.prod(shape)) for shape in shapes]
+        need = sum(sizes) - self.values.size
+        if need > 0:
+            self.values = np.concatenate([self.values, self.rng.randn(need)])
+        offsets = np.cumsum([0] + sizes)
+        return [self.values[a:b].reshape(shape)
+                for a, b, shape in zip(offsets[:-1], offsets[1:], shapes)]
+
+
+_SEED_STREAM = _SeedStream()
+
+
 def _dn_case(dev, B, H, D, N, feats, seqs=None):
     """(q, k, v, kwargs) for one B1 shape: random bf16 [B, H, D, N]
     operands, RoPE tables (shared, or per example from a collator sequence
@@ -1466,9 +1539,8 @@ def _dn_case(dev, B, H, D, N, feats, seqs=None):
         q, k, v = (torch.randn(B, H, D, N, generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
     else:
-        rng = np.random.RandomState(0)
-        q, k, v = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
-                   .to(dev, torch.bfloat16) for _ in range(3))
+        q, k, v = (torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+                   for a in _SEED_STREAM.randn(*[(B, H, D, N)] * 3))
     kw = {}
     pos = torch.arange(N, device=dev)
     if "seq" in feats:
@@ -1631,16 +1703,19 @@ def _dn_bwd_case(dev, H, D, seq, seqs):
     """(q, k, v, do, kwargs) for one B2 shape of `BWD_SHAPES`: random bf16
     [8, H, D, N] operands and cotangent, per-example RoPE tables of a
     collator sequence stack-padded to a multiple of 8 with its kv_valid, or
-    the AC predictor's frame-causal segments with shared tables."""
+    the AC predictor's frame-causal segments (or, with full attention, the
+    stack pad's kv_valid) with shared tables."""
     from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
 
-    rng = np.random.RandomState(0)
     kw = {}
-    if seq in AC_SEQUENCES:  # frames of 2 + 256 tokens, frame-causal, shared tables
+    if seq in AC_SEQUENCES:  # frames of 2 + 256 tokens, shared tables
         frames, pad = AC_SEQUENCES[seq]
         N = frames * 258 + pad
         pos = torch.arange(N, device=dev)
-        kw["segment_ids"] = _ac_segments(dev, N, frames, pad)
+        if seq in AC_FULL_ATTENTION:
+            kw["kv_valid_len"] = N - pad
+        else:  # frame-causal
+            kw["segment_ids"] = _ac_segments(dev, N, frames, pad)
     else:  # per-example positions, stack-padded with id 0 as the models pad
         pos, kv_valid = _seq_positions(dev, seqs[seq])
         N = pos.shape[1]
@@ -1649,8 +1724,8 @@ def _dn_bwd_case(dev, H, D, seq, seqs):
     (cos, sin), _ = expand_rope_cache(build_rope_cache(pos, D, 16, 16), D)
     kw["rope_expanded"] = (cos, sin)
     B = pos.shape[0] if pos.ndim == 2 else 8
-    q, k, v, do = (torch.from_numpy(rng.randn(B, H, D, N).astype(np.float32))
-                   .to(dev, torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+                   for a in _SEED_STREAM.randn(*[(B, H, D, N)] * 4))
     return q, k, v, do, kw
 
 
@@ -1760,11 +1835,13 @@ _FP32_STEP_MS: dict = {}
 
 
 def _build_step_models(tp, model: str, fuse_ln: str, device, dtype):
-    """Phase 6's (encoder, predictor) of ``model`` (`train.pretrain.build_models`)."""
+    """Phase 6's (encoder, predictor) of ``model`` (`train.pretrain.build_models`);
+    ``fuse_ln`` "silu" builds SwiGLU MLPs (``use_silu``) and no fusion."""
+    silu = fuse_ln == "silu"
     return tp.build_models(model, crop_size=SIZE, num_frames=FRAMES, pred_depth=12,
                            pred_embed_dim=384, pred_num_heads=12, use_rope=True,
                            num_mask_tokens=2, use_flash=True, dtype=dtype, device=device,
-                           fuse_ln=fuse_ln)
+                           fuse_ln="" if silu else fuse_ln, use_silu=silu)
 
 
 class _Trainer:
@@ -2091,6 +2168,142 @@ def phase_train_fused_fp32(dev, smi: str) -> tuple[int, ...]:
 
     _CPU_LATER.append(finish)
     return launches
+
+
+# phase model_options: (b) `vit_large(num_frames=1, img_size=(224, 224))`
+# with RoPE on the flash route answers IMAGE_REQUESTS requests of
+# IMAGE_BATCH images (196 tokens, stack-padded to 200); (c) its sincos twin
+# is fed 256-px images, its 14 x 14 table resized bicubically to 16 x 16
+# (`models.resize`). One image's features of each against the fp32 CPU
+# path, within LOGITS_REL_L2 (bf16 over 24 layers, as phase slice's).
+IMAGE_REQUESTS, IMAGE_BATCH, IMAGE_SIZE, IMAGE_OFF_GRID = 3, 64, 224, 256
+
+
+def _swiglu_step(dev, smi: str) -> tuple[int, ...]:
+    """(a) Phase 6's ViT-L step with SwiGLU MLPs (`build_models(use_silu=True)`,
+    hidden 2736 and 1024 with ``wide_silu``): phase 6's run (`_timed_run`:
+    the warm-up with the EMA check, `TRAIN_STEPS` timed steps of exactly 96
+    B1 + 72 B2, finite gradients, peak), clip 0's loss and gradients against
+    the fp32 CPU path at full depth on `_CPU_WORK` from `_CPU_LATER` on, as
+    train_huge's (the record prints then; at once, it ran beside train_fp32's
+    own CPU reference and slowed it by ~10 s). Returns the timed steps'
+    launches."""
+    from vjepa2_tpu_torch.models.modules import SwiGLUFFN
+
+    tr = _Trainer(dev, "vit_large", "silu")
+    blocks = [*tr.enc.blocks, *tr.pred.predictor_blocks]
+    hidden = sorted({b.mlp.fc1.out_features for b in blocks})
+    if not all(isinstance(b.mlp, SwiGLUFFN) for b in blocks) or hidden != [1024, 2736]:
+        raise AssertionError(f"model_options: the SwiGLU step's MLPs are not SwiGLU at hidden "
+                             f"1024 / 2736 ({hidden})")
+    rec, launches = _timed_run(dev, tr, True)
+    del tr
+
+    def finish() -> None:
+        clip0 = rec["clip0"]()
+        ok = _clip0_ok(clip0)
+        emit({"phase": "model_options", "path": "(a) swiglu pretrain step",
+              "model": "vit_large 16f@256 bs8 + predictor (12 x 384, 12 heads) bf16, RoPE, "
+                       "use_silu (hidden 2736 / 1024), AdamW fp32",
+              **rec, "clip0": clip0, "ok": ok, "gpu": smi})
+        if not ok:
+            raise AssertionError(f"model_options: the SwiGLU step's clip-0 loss or gradients "
+                                 f"are off the CPU fp32 reference: {clip0}")
+
+    _CPU_LATER.append(finish)
+    return launches
+
+
+def _image_requests(dev, smi: str, path: str, use_rope: bool, size: int) -> tuple[int, ...]:
+    """(b) / (c): an image `vit_large` in bf16 on the flash route (weights from
+    a generator seeded 0) answers `IMAGE_REQUESTS` requests of `IMAGE_BATCH`
+    images of ``size`` px after a warm-up, each launching B1 exactly 24 times
+    at the stack pad's length; image 0's features against the fp32 CPU path
+    on `_CPU_WORK`. Returns the counted requests' launches."""
+    from vjepa2_tpu_torch.models.vision_transformer import vit_large
+
+    def build(device, dtype):
+        return vit_large(num_frames=1, img_size=(IMAGE_SIZE, IMAGE_SIZE), use_rope=use_rope,
+                         use_flash=True, dtype=dtype, device=device).eval()
+
+    t0 = time.perf_counter()
+    enc = build(dev, torch.bfloat16)
+    enc.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    requests = [torch.rand(IMAGE_BATCH, size, size, 3, generator=gen, device=dev)
+                for _ in range(IMAGE_REQUESTS)]
+    with torch.inference_mode():
+        tokens, aux = enc.pre(requests[0][:1])
+    rows = {"n": tokens.shape[1], "kv_valid": aux["kv_valid"], "real": aux["n_real"]}
+    want_rows = (size // 16) ** 2
+    if rows["real"] != want_rows or rows["n"] != want_rows + (-want_rows) % 8:
+        raise AssertionError(f"model_options {path}: rows {rows}, want {want_rows} real")
+    setup_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        enc(requests[0])  # warm-up, outside the counted run
+    _reset_launch_counts()
+    want = _counts(b1=len(enc.blocks))
+    times, first = [], None
+    for x in requests:
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            out = enc(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+        if launched != want:
+            raise AssertionError(f"model_options {path}: a request launched "
+                                 f"{dict(zip(KERNEL_COUNTS, launched))}, want "
+                                 f"{dict(zip(KERNEL_COUNTS, want))}")
+        if out.shape != (IMAGE_BATCH, want_rows, 1024) or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"model_options {path}: features {tuple(out.shape)}")
+        first = out[0].float().cpu() if first is None else first
+    launches = _launch_counts()
+    state = {k: v.to("cpu", copy=True) for k, v in enc.state_dict().items()}
+    image0 = requests[0][:1].cpu()
+    med = sorted(times)[len(times) // 2]
+    del enc, requests
+
+    def finish() -> None:
+        torch.set_num_threads(os.cpu_count() or 1)
+        t2 = time.perf_counter()
+        cpu = build("cpu", torch.float32)
+        cpu.load_state_dict(state)
+        with torch.inference_mode():
+            ref = cpu(image0)[0]
+        rel = _rel_l2(first, ref)
+        ok = rel <= LOGITS_REL_L2
+        emit({"phase": "model_options", "path": path,
+              "model": f"vit_large(num_frames=1, img_size=(224, 224), "
+                       f"{'use_rope' if use_rope else 'sincos'}) bf16 on the flash route, "
+                       f"{size}-px images",
+              "requests": IMAGE_REQUESTS, "images_per_request": IMAGE_BATCH,
+              "warmup_requests": 1, "rows": rows, "ms_per_request": times,
+              "median_ms_per_request": med, "images_per_s": IMAGE_BATCH / (med / 1e3),
+              "launches": dict(zip(KERNEL_COUNTS, launches)),
+              "launches_per_request": dict(zip(KERNEL_COUNTS, want)),
+              "features_rel_l2_vs_cpu_fp32": rel, "tol_rel_l2": LOGITS_REL_L2,
+              "setup_s": setup_s, "cpu_reference_s": time.perf_counter() - t2, "ok": ok,
+              "gpu": smi})
+        if not ok:
+            raise AssertionError(f"model_options {path}: features off the CPU fp32 reference "
+                                 f"(rel L2 {rel})")
+
+    _DEFERRED.append(_CPU_WORK.submit(finish))
+    return launches
+
+
+def phase_model_options(dev, smi: str) -> tuple[int, ...]:
+    """The model options at full width on the card: (a) the SwiGLU
+    pretrain step (`_swiglu_step`), (b) the image encoder with RoPE, (c) the
+    sincos image encoder off its grid (`_image_requests`). The counts are set
+    to 0 before each path and read after it; returns their sum."""
+    runs = [_swiglu_step(dev, smi),
+            _image_requests(dev, smi, "(b) image encoder", True, IMAGE_SIZE),
+            _image_requests(dev, smi, "(c) sincos table off its grid", False, IMAGE_OFF_GRID)]
+    return tuple(sum(c) for c in zip(*runs))
 
 
 class _LoopRecorder:
@@ -3804,9 +4017,8 @@ def _given_lse(lse, feats):
 def _bhnd_case(dev, B, H, N, D, feats, seqs):
     """(q, k, v, do, kwargs, mask) for one BHND shape: random bf16 operands,
     RoPE tables (`_rope_tables`), and the shape's masks."""
-    rng = np.random.RandomState(0)
-    q, k, v, do = (torch.from_numpy(rng.randn(B, H, N, D).astype(np.float32))
-                   .to(dev, torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+                   for a in _SEED_STREAM.randn(*[(B, H, N, D)] * 4))
     kw, seg_q, seg_k = {}, None, None
     if feats.get("rope"):
         kw["rope_expanded"] = _rope_tables(dev, B, N, D, feats["rope"], seqs)
@@ -4000,11 +4212,11 @@ def _within(got, want, atol, rtol) -> bool:
 def _ln_case(dev, R, C, dtype=torch.bfloat16):
     """(x, dy, gamma, beta) for one B6 shape: random rows and cotangent in
     ``dtype`` (bf16 or fp32), a random fp32 affine."""
-    rng = np.random.RandomState(0)
-    x = torch.from_numpy((rng.randn(R, C) * 2 + 0.3).astype(np.float32)).to(dev, dtype)
-    dy = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dev, dtype)
-    gamma = torch.from_numpy((rng.randn(C) * 0.5 + 1).astype(np.float32)).to(dev)
-    beta = torch.from_numpy((rng.randn(C) * 0.5).astype(np.float32)).to(dev)
+    x, dy, gamma, beta = _SEED_STREAM.randn((R, C), (R, C), (C,), (C,))
+    x = torch.from_numpy((x * 2 + 0.3).astype(np.float32)).to(dev, dtype)
+    dy = torch.from_numpy(dy.astype(np.float32)).to(dev, dtype)
+    gamma = torch.from_numpy((gamma * 0.5 + 1).astype(np.float32)).to(dev)
+    beta = torch.from_numpy((beta * 0.5).astype(np.float32)).to(dev)
     return x, dy, gamma, beta
 
 
@@ -4105,17 +4317,16 @@ def _prologue_case(dev, B, N, C, H, D, hidden, tables, real, seqs, kernel,
     ``dtype`` (bf16 or fp32) with the stack-pad rows zero, a random
     LayerNorm affine, W in ``dtype`` scaled by 1/sqrt(C), a random fp32 bias,
     the RoPE tables of the shape (B7)."""
-    rng = np.random.RandomState(0)
-    x = torch.from_numpy((rng.randn(B, N, C) * 1.5 + 0.2).astype(np.float32))
+    n_out = 3 * H * D if kernel == "ln_qkv" else hidden
+    x, gamma, beta, w, bias = _SEED_STREAM.randn((B, N, C), (C,), (C,), (n_out, C), (n_out,))
+    x = torch.from_numpy((x * 1.5 + 0.2).astype(np.float32))
     if real is not None:
         x[:, real:] = 0.0
     x = x.to(dev, dtype)
-    gamma = torch.from_numpy((rng.randn(C) * 0.5 + 1).astype(np.float32)).to(dev)
-    beta = torch.from_numpy((rng.randn(C) * 0.5).astype(np.float32)).to(dev)
-    n_out = 3 * H * D if kernel == "ln_qkv" else hidden
-    w = torch.from_numpy((rng.randn(n_out, C) / np.sqrt(C)).astype(np.float32))
-    w = w.to(dev, dtype)
-    bias = torch.from_numpy((rng.randn(n_out) * 0.5).astype(np.float32)).to(dev)
+    gamma = torch.from_numpy((gamma * 0.5 + 1).astype(np.float32)).to(dev)
+    beta = torch.from_numpy((beta * 0.5).astype(np.float32)).to(dev)
+    w = torch.from_numpy((w / np.sqrt(C)).astype(np.float32)).to(dev, dtype)
+    bias = torch.from_numpy((bias * 0.5).astype(np.float32)).to(dev)
     rope = _rope_tables(dev, B, N, D, tables, seqs) if kernel == "ln_qkv" else None
     return x, gamma, beta, w, bias, rope
 
@@ -4769,8 +4980,9 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
     """CEM planning over the V-JEPA 2-AC world model: `vjepa2_ac_vit_giant()`
     with no argument (card, bf16, weights drawn after `torch.manual_seed(0)`)
     in a `WorldModel`: two encodes (start and goal frames, 256 px), a warm-up
-    plan at 1 CEM step, `PLAN_TIMED` plans at `CEMConfig()`, then plan 0 again,
-    traced and bit-equal to the timed one; then the CPU
+    plan at 1 CEM step, `PLAN_TIMED` plans at `CEMConfig()`, then the warm-up
+    again, traced and bit-equal to it (phase export's loaded plan is held to
+    plan 0); then the CPU
     checks on `_CPU_WORK` beside the later phases (the record prints when
     they end). Returns the launches of the counted encodes and plans."""
     import dataclasses
@@ -4829,11 +5041,15 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
         p, ms = counted(lambda: plan(seed), PLAN_LAUNCHES, "a plan")
         plans.append(p)
         plan_ms.append(ms)
+    # the warm-up's plan again, traced and bit-equal to it (not the full
+    # plan: phase export holds its loaded plan to plan 0)
     repeat = []
-    traced = wall_and_busy(lambda: repeat.append(plan(0)))
-    repeat_equal = bool(np.array_equal(plans[0], repeat[0]))
+    traced = wall_and_busy(lambda: repeat.append(plan(0, cut)))
+    repeat_equal = bool(np.array_equal(warm, repeat[0]))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     plans_ok = all(_plan_ok(p, cfg) for p in plans + [warm, repeat[0]])
+    # what phase export holds the loaded bf16 plan to (no second eager plan)
+    _PLAN_EAGER.update(rep=rep.cpu(), goal=goal.cpu(), pose=pose, seed=0, plan=plans[0])
 
     # step_fn on a few candidates at T = 1 and 2 (the start and goal latents
     # as frames), on the card
@@ -4862,6 +5078,7 @@ def phase_plan(dev, smi: str) -> tuple[int, ...]:
               "ms_per_encode": [enc_ms0, enc_ms1], "median_ms_per_encode": max(enc_ms0, enc_ms1),
               "ms_per_plan": plan_ms, "median_ms_per_plan": sorted(plan_ms)[len(plan_ms) // 2],
               "warmup_plans": 1, "warmup_cem_steps": PLAN_WARMUP_STEPS,
+              "traced_plan": "the warm-up's, repeated (cut from the full plan for time)",
               "one_traced_plan": traced, "peak_memory_gb": peak_gb,
               "launches_per_encode": dict(zip(KERNEL_COUNTS, ENCODE_LAUNCHES)),
               "launches_per_plan": dict(zip(KERNEL_COUNTS, PLAN_LAUNCHES)),
@@ -4913,16 +5130,13 @@ def phase_plan_fp32(dev, smi: str) -> tuple[int, ...]:
     counted encodes and plan."""
     import dataclasses
 
-    from vjepa2_tpu_torch.hub.backbones import vjepa2_ac_vit_giant
     from vjepa2_tpu_torch.planning import CEMConfig, WorldModel
     from vjepa2_tpu_torch.train.droid import tokens_per_frame
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    torch.manual_seed(0)
-    enc, pred = vjepa2_ac_vit_giant(dtype=torch.float32)
-    cfg = dataclasses.replace(CEMConfig(), cem_steps=PLAN_FP32_STEPS)
-    wm = WorldModel(enc, pred, tokens_per_frame(enc), cem_config=cfg)
+    wm = _world_model_fp32()
+    enc, pred, cfg = wm.encoder, wm.predictor, wm.cem_config
     cut = WorldModel(enc, pred, tokens_per_frame(enc),
                      cem_config=dataclasses.replace(cfg, cem_steps=PLAN_FP32_CUT_STEPS))
     same = all(torch.equal(v.detach().cpu(), w[k])
@@ -4966,6 +5180,8 @@ def phase_plan_fp32(dev, smi: str) -> tuple[int, ...]:
     card_steps, steps_bf16_ops = _no_bf16(lambda: _card_steps(wm, rep, goal, acts, poses))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     card_rep, card_goal = rep.cpu(), goal.cpu()
+    _PLAN_FP32_EAGER.update(frames=frames, rep=card_rep, goal=card_goal, pose=pose, seed=0,
+                            plan=timed)  # what phase export holds the fp32 programs to
     del wm, cut, enc, pred, rep, goal
     route = _check_fp32_route("plan_fp32", total)
     record = {"phase": "plan_fp32", "fp32_route": route,
@@ -5107,31 +5323,61 @@ def _world_model(size: int):
     return WorldModel(enc, pred, tokens_per_frame(enc), preprocessor=vjepa2_preprocessor(size))
 
 
+def _world_model_fp32():
+    """Phase plan_fp32's world model: `vjepa2_ac_vit_giant(dtype=torch.float32)`
+    (weights drawn after `torch.manual_seed(0)`: phase plan's, bit for bit)
+    in a `WorldModel` at `CEMConfig()` with `PLAN_FP32_STEPS` CEM steps, no
+    preprocessor."""
+    import dataclasses
+
+    from vjepa2_tpu_torch.hub.backbones import vjepa2_ac_vit_giant
+    from vjepa2_tpu_torch.planning import CEMConfig, WorldModel
+    from vjepa2_tpu_torch.train.droid import tokens_per_frame
+
+    torch.manual_seed(0)
+    enc, pred = vjepa2_ac_vit_giant(dtype=torch.float32)
+    return WorldModel(enc, pred, tokens_per_frame(enc),
+                      cem_config=dataclasses.replace(CEMConfig(), cem_steps=PLAN_FP32_STEPS))
+
+
+# phase plan's and plan_fp32's eager encodes, pose, seed and plan (and
+# plan_fp32's frames), which phase export holds the loaded world models'
+# plans to (no second eager plan)
+_PLAN_EAGER: dict = {}
+_PLAN_FP32_EAGER: dict = {}
+EXPORT_ARTIFACTS = ("vit_large", "vit_huge", "world_model", "vit_large_fp32", "world_model_fp32")
+
+
 def export_artifacts(root: str, frames: int, size: int) -> dict:
-    """Phase export's three artifacts, exported under ``root`` by the process
-    that calls this: `vjepa2_vit_large(num_frames=frames)` and
-    `vjepa2_vit_huge(num_frames=frames)` with a symbolic batch, and the world
-    model of `_world_model`, each built as the phase builds its eager copy
-    (weights drawn after `torch.manual_seed(0)`). Per artifact: the build,
-    trace and save seconds and its bytes."""
+    """Phase export's artifacts (`EXPORT_ARTIFACTS`), exported under ``root``
+    by the process that calls this: `vjepa2_vit_large(num_frames=frames)`
+    and `vjepa2_vit_huge(num_frames=frames)` with a symbolic batch, the world
+    model of `_world_model`, and the fp32 ones (A11c): the ViT-L encoder at
+    ``dtype=torch.float32`` and phase plan_fp32's world model
+    (`_world_model_fp32`); each built as its eager copy is built (weights
+    drawn after `torch.manual_seed(0)`). Per artifact: the build, trace and
+    save seconds and its bytes."""
     from vjepa2_tpu_torch.hub import export
     from vjepa2_tpu_torch.hub.backbones import vjepa2_vit_huge, vjepa2_vit_large
 
     torch.set_num_threads(1)  # beside the phases that run meanwhile
     out = {}
-    for name in ("vit_large", "vit_huge", "world_model"):
+    for name in EXPORT_ARTIFACTS:
         t0 = time.perf_counter()
         if name == "world_model":
             model = _world_model(size)
+        elif name == "world_model_fp32":
+            model = _world_model_fp32()
         else:
             torch.manual_seed(0)
-            factory = vjepa2_vit_large if name == "vit_large" else vjepa2_vit_huge
-            model, _ = factory(num_frames=frames)
+            factory = vjepa2_vit_huge if name == "vit_huge" else vjepa2_vit_large
+            dtype = {"dtype": torch.float32} if name.endswith("fp32") else {}
+            model, _ = factory(num_frames=frames, **dtype)
         clock = {"build_s": time.perf_counter() - t0}
         art = os.path.join(root, name)
         with _export_clock(clock):
             t1 = time.perf_counter()
-            if name == "world_model":
+            if name.startswith("world_model"):
                 export.export_world_model(model, art)
             else:
                 export.export_encoder(model, art, batch="B")
@@ -5173,6 +5419,85 @@ def _child_result(proc: subprocess.Popen, log: str, what: str, timeout: float = 
     return json.loads(out.strip().splitlines()[-1])
 
 
+def _export_fp32(dev, root: str, clips, counted, eager) -> dict:
+    """Phase export's fp32 programs (A11c): the ViT-L program answers
+    requests of `EXPORT_BATCHES` clips against the eager fp32 encoder (built
+    as the child built it); the world model's encode and plan programs answer
+    phase plan_fp32's frames, encodes, pose and seed, held to that phase's
+    eager results. Every answer `torch.equal`; no node of the programs
+    (`hub.export.program_dtypes`) and no op of an encoder call
+    (`_no_bf16`) makes a bf16 tensor; launches as the eager fp32 calls'.
+    Each artifact is deleted once checked. ``counted`` and ``eager`` are
+    phase export's."""
+    from vjepa2_tpu_torch.hub import export
+    from vjepa2_tpu_torch.hub.backbones import vjepa2_vit_large
+
+    out, ok = {}, True
+    torch.manual_seed(0)
+    enc, _ = vjepa2_vit_large(num_frames=FRAMES, dtype=torch.float32)
+    art = os.path.join(root, "vit_large_fp32")
+    clock = {}
+    with _export_clock(clock):
+        t1 = time.perf_counter()
+        fn, meta = export.load_encoder(art)
+        load_s = time.perf_counter() - t1
+    want = _counts(b1_fp32=len(enc.blocks))
+    requests = {}
+    for b in EXPORT_BATCHES:
+        x = clips[:b].to(dev)
+        (got, bf16_ops), loaded_ms = counted(lambda: _no_bf16(lambda: fn(x)), want,
+                                             f"a loaded fp32 ViT-L request of {b}")
+        ref, eager_ms = counted(lambda: eager(enc)(x), want, f"an eager fp32 ViT-L request of {b}")
+        requests[b] = {"parity": _parity(got, ref), "bf16_ops": bf16_ops,
+                       "ms": {"loaded": loaded_ms, "eager": eager_ms}}
+        ok = ok and requests[b]["parity"]["ok"] and not bf16_ops
+    dtypes = export.program_dtypes(fn.module)
+    ok = ok and "bfloat16" not in dtypes and meta.get("dtype") == "float32"
+    out["vit_large"] = {"meta_dtype": meta.get("dtype"), "graph_ops": export.program_op_counts(
+        fn.module), "graph_dtypes": dtypes, **clock, "load_encoder_s": load_s,
+        "artifact_bytes": _dir_bytes(art), "launches_per_request": dict(zip(KERNEL_COUNTS, want)),
+        "requests": requests}
+    del enc, fn
+    shutil.rmtree(art, ignore_errors=True)
+
+    eager32 = _PLAN_FP32_EAGER
+    art = os.path.join(root, "world_model_fp32")
+    clock = {}
+    with _export_clock(clock):
+        t1 = time.perf_counter()
+        swm = export.load_world_model(art)
+        load_s = time.perf_counter() - t1
+    encodes = [counted(lambda: _no_bf16(lambda: swm.encode(f)), ENCODE_FP32_LAUNCHES,
+                       "a loaded fp32 encode") for f in eager32["frames"]]
+    enc_parity = [_parity(got, want_rep) for ((got, _), _), want_rep
+                  in zip(encodes, (eager32["rep"], eager32["goal"]))]
+    enc_bf16 = sorted({op for (_, ops), _ in encodes for op in ops})
+    plan, plan_ms = counted(lambda: swm.plan(eager32["rep"], eager32["pose"], eager32["goal"],
+                                             seed=eager32["seed"]),
+                            PLAN_FP32_LAUNCHES, "a loaded fp32 plan")
+    plan_equal = bool(np.array_equal(plan, eager32["plan"]))
+    if not plan_equal:
+        print(f"export: the loaded fp32 plan parts from plan_fp32's: {plan.tolist()} vs "
+              f"{eager32['plan'].tolist()}", file=sys.stderr, flush=True)
+    dtypes = {"encode": export.program_dtypes(swm._encode),
+              "plan (loop body, one CEM step)": export.program_dtypes(swm._plan)}
+    ok = (ok and all(p["ok"] for p in enc_parity) and not enc_bf16 and plan_equal
+          and not any("bfloat16" in d for d in dtypes.values()))
+    out["world_model"] = {
+        "cem": swm.meta["cem"], "graph_dtypes": dtypes, **clock, "load_world_model_s": load_s,
+        "artifact_bytes": _dir_bytes(art),
+        "launches_per_encode": dict(zip(KERNEL_COUNTS, ENCODE_FP32_LAUNCHES)),
+        "launches_per_plan": dict(zip(KERNEL_COUNTS, PLAN_FP32_LAUNCHES)),
+        "ms_per_encode": [t for _, t in encodes], "encode_parity_vs_plan_fp32": enc_parity,
+        "encode_bf16_ops": enc_bf16, "ms_per_plan": plan_ms, "plan": plan.tolist(),
+        "plan_equal_to_plan_fp32": plan_equal}
+    del swm
+    shutil.rmtree(art, ignore_errors=True)
+    _PLAN_FP32_EAGER.clear()
+    out["ok"] = ok
+    return out
+
+
 def phase_export(dev, smi: str, exports: tuple, root: str) -> tuple[int, ...]:
     """The serving export (`hub.export`). The artifacts come from the child
     `start_exports` started after the build: `vjepa2_vit_large(num_frames=16)`
@@ -5182,8 +5507,10 @@ def phase_export(dev, smi: str, exports: tuple, root: str) -> tuple[int, ...]:
     loads the ViT-L program with no model module imported and answers
     requests of 1 and 8 clips (16f@256), while this one loads it and times
     it against the eager encoder, interleaved; ViT-H answers one clip; the
-    world model runs eagerly, then loaded as a `ServingWorldModel`: two
-    encodes of 480 x 640 uint8 frames and one plan at seed 0 against eager's.
+    world model encodes eagerly, then loaded as a `ServingWorldModel`: two
+    encodes of 480 x 640 uint8 frames against eager's, and one plan on phase
+    plan's latents, pose and seed 0 against phase plan's eager plan
+    (`_PLAN_EAGER`); then the fp32 programs (`_export_fp32`).
     Every eager copy is built as the child built it, and every answer
     launches its kernels exactly as eager does. Returns the launches of the
     counted calls (this process's)."""
@@ -5309,18 +5636,12 @@ def phase_export(dev, smi: str, exports: tuple, root: str) -> tuple[int, ...]:
         ok = ok and par["ok"]
         del enc, fn, got, ref
 
-        # the world model: eager here, then the child's programs loaded
+        # the world model: its encodes eager here, then the child's programs loaded
         wm = _world_model(SIZE)
         cfg = wm.cem_config
         frames = [rs.randint(0, 256, (480, 640, 3), np.uint8) for _ in range(2)]  # start, goal
-        pose = np.concatenate([rs.uniform(-0.3, 0.3, 6), [0.5]]).astype(np.float32)
         eager_out = [counted(lambda: wm.encode(f), ENCODE_LAUNCHES, "an eager encode")
                      for f in frames]
-        rep, goal = (r for r, _ in eager_out)
-        plan_eager, eager_plan_ms = counted(
-            lambda: wm.infer_next_action(rep, pose, goal,
-                                         generator=torch.Generator(dev).manual_seed(0)),
-            PLAN_LAUNCHES, "an eager plan")
         mark("world model run eagerly")
         clock = {}
         with _export_clock(clock):
@@ -5342,14 +5663,18 @@ def phase_export(dev, smi: str, exports: tuple, root: str) -> tuple[int, ...]:
                       for f in frames]
         enc_parity = [_parity(got, want_rep, cpu_encode(f))
                       for (got, _), (want_rep, _), f in zip(loaded_out, eager_out, frames)]
-        plan, plan_ms = counted(lambda: swm.plan(rep, pose, goal, seed=0), PLAN_LAUNCHES,
-                                "a loaded plan")
+        # the plan on phase plan's latents, pose and seed, against its eager
+        # plan (the same weights and CEMConfig): phase plan ran it already
+        eager_plan = _PLAN_EAGER
+        plan, plan_ms = counted(lambda: swm.plan(eager_plan["rep"], eager_plan["pose"],
+                                                 eager_plan["goal"], seed=eager_plan["seed"]),
+                                PLAN_LAUNCHES, "a loaded plan")
         mark("world model planned")
-        plan_equal = bool(np.array_equal(plan, plan_eager))
-        plan_ok = _plan_ok(plan, cfg) and _plan_ok(plan_eager, cfg)
+        plan_equal = bool(np.array_equal(plan, eager_plan["plan"]))
+        plan_ok = _plan_ok(plan, cfg)
         if not plan_equal:
-            print(f"export: the loaded plan parts from eager: {plan.tolist()} vs "
-                  f"{plan_eager.tolist()}", file=sys.stderr, flush=True)
+            print(f"export: the loaded plan parts from phase plan's: {plan.tolist()} vs "
+                  f"{eager_plan['plan'].tolist()}", file=sys.stderr, flush=True)
         rec["world_model"] = {
             "cem": swm.meta["cem"], "frame_preprocessor": swm.meta["frame_preprocessor"],
             "graph_ops": {"encode": export.program_op_counts(swm._encode),
@@ -5360,10 +5685,16 @@ def phase_export(dev, smi: str, exports: tuple, root: str) -> tuple[int, ...]:
             "ms_per_encode": {"loaded": [t for _, t in loaded_out],
                               "eager": [t for _, t in eager_out]},
             "encode_parity": enc_parity,
-            "ms_per_plan": {"loaded": plan_ms, "eager": eager_plan_ms},
-            "plan": plan.tolist(), "plan_equal": plan_equal, "plan_ok": plan_ok}
-        ok = ok and plan_ok and all(p["ok"] for p in enc_parity)
-        del wm, swm, eager_out, loaded_out, rep, goal
+            "ms_per_plan": {"loaded": plan_ms, "eager": "phase plan's ms_per_plan"},
+            "plan": plan.tolist(), "plan_equal_to_phase_plan": plan_equal, "plan_ok": plan_ok}
+        ok = ok and plan_ok and plan_equal and all(p["ok"] for p in enc_parity)
+        del wm, swm, eager_out, loaded_out
+        _PLAN_EAGER.clear()
+        shutil.rmtree(os.path.join(root, "world_model"), ignore_errors=True)
+
+        rec["fp32"] = _export_fp32(dev, root, clips, counted, eager)
+        mark("fp32 programs checked")
+        ok = ok and rec["fp32"]["ok"]
 
         # the ViT-L serving process, which ran beside the work above
         served = _child_result(server, serve_log, "the serving process")
@@ -5691,9 +6022,12 @@ def _probes_restore_bit_equal(ev) -> bool:
 
 def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, cls, want: dict,
                     run, checks, extra: dict, overrides=EVAL_OVERRIDES,
-                    restore_check: bool = True, loaders=None) -> tuple[int, ...]:
+                    restore_check: bool = True, loaders=None,
+                    traced_step: bool = True) -> tuple[int, ...]:
     """One eval config through its `cli.eval` run function under an
-    `_EvalRecorder`; then one more traced train step, the checks
+    `_EvalRecorder`; then, with ``traced_step``, one more traced train step
+    (off for the device-bound fp32 probe steps of IN1K and K400-384, whose
+    idle share was 0.15-0.44% on an H100: cut for time), the checks
     (``checks(ev, rec)``: a dict with "ok", or a function of no argument
     that gives it, run on the CPU beside the later phases by `_CPU_WORK`,
     the record emitted when it ends) and, with ``restore_check``, a probe
@@ -5716,7 +6050,8 @@ def _run_eval_phase(phase: str, dev, smi: str, config: dict, config_file: str, c
     run_s = time.perf_counter() - t0
     ev = rec.instance
     losses_finite = bool(torch.isfinite(rec.first["losses"]).all())
-    traced = wall_and_busy(lambda: ev.train_batch(*rec.first["args"]))
+    traced = (wall_and_busy(lambda: ev.train_batch(*rec.first["args"])) if traced_step
+              else "not traced (device-bound; cut for time)")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     # the IN1K and K400-384 probes restore through eval_video's code
     # (`ProbeCheckpoint`); their copies to the host took 16-47 s (PR 20)
@@ -5874,7 +6209,7 @@ def phase_eval_image(dev, smi: str, data: dict) -> tuple[int, ...]:
                       "flash kernels, 1000 classes), one at a time; random weights; images "
                       f"from disk ({IMAGE_TRAIN} train and {IMAGE_VAL} val JPEGs of "
                       f"{IMAGE_HW[1]} x {IMAGE_HW[0]} in {IMAGE_CLASSES} classes, PIL)"},
-            overrides=overrides, restore_check=False, loaders=clock)
+            overrides=overrides, restore_check=False, loaders=clock, traced_step=False)
 
 
 def _eval_384_checks(ev, rec) -> dict:
@@ -5970,7 +6305,7 @@ def phase_eval_video_384(dev, smi: str) -> tuple[int, ...]:
                   "1 -> features [1, 36864, 1408]; 10 fp32 probes (depth 4, 16 heads of 88 on "
                   "the fp32 flash kernels, 400 classes), one at a time; random weights, "
                   "synthetic clips"},
-        overrides=EVAL_VIDEO_384_OVERRIDES, restore_check=False)
+        overrides=EVAL_VIDEO_384_OVERRIDES, restore_check=False, traced_step=False)
 
 
 def _disk_video(i: int, frames: int = 0) -> np.ndarray:
@@ -6387,6 +6722,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data) -
     serve_launches = timed("slice", phase_slice, dev, smi)
     rec_bwd = timed("kernel_bwd", phase_kernels_bwd, dev, smi)
     train_l = timed("train", phase_train, dev, smi, "vit_large")
+    options_l = timed("model_options", phase_model_options, dev, smi)
     rec_bhnd = timed("kernel_bhnd", phase_kernels_bhnd, dev, smi)
     rec_bhnd_bwd = timed("kernel_bhnd_bwd", phase_kernels_bhnd_bwd, dev, smi)
     rec_fp32, rec_fp32_bwd, rec_dn_fp32, rec_dn_fp32_bwd = timed("kernel_fp32", phase_kernels_fp32,
@@ -6436,7 +6772,7 @@ def _run_phases(dev, smi, timed, seconds, t_start, exports, export_root, data) -
     total = [sum(c) for c in zip(serve_launches, train_l, train_h, fused_l, unfused_l, loop_l,
                                  accum_l, droid_l, plan_l, export_l, eval_v, eval_a, eval_i,
                                  eval_384, fp32_l, droid_fp32_l, plan_fp32_l, fused_fp32_l,
-                                 disk_l, multi_l, mp_l)]
+                                 disk_l, multi_l, mp_l, options_l)]
     total[2] += giant_launches
 
     def entry(name, source, replaces, launches, r, err_key, **extra):

@@ -81,3 +81,25 @@ def test_released_checkpoint_loads_by_key(tmp_path):
     enc = _encoder(3)
     load_encoder_checkpoint(enc, str(path))
     _assert_same(enc.state_dict(), src)
+
+
+@pytest.mark.parametrize("num_frames", [1, 4], ids=["image", "video"])
+def test_swiglu_and_image_round_trip(num_frames):
+    """SwiGLU blocks (fc1, fc2 and fc3) and the image tokenizer's Conv2d
+    weight [D, C, p, p] through JAX's `convert_encoder` / `convert_predictor`
+    ([p, p, C, D] kernel) and back: the identical tensors, loaded strictly."""
+    cfg = dict(ENC, num_frames=num_frames, use_silu=True)
+    enc = VisionTransformer(**cfg)
+    enc.reset_parameters(torch.Generator().manual_seed(4))
+    sd = enc.state_dict()
+    assert sd["patch_embed.proj.weight"].ndim == (4 if num_frames == 1 else 5)
+    assert "blocks.1.mlp.fc3.weight" in sd
+    back = state_dict_from_flax(convert_encoder(sd))
+    _assert_same(back, sd)
+    VisionTransformer(**cfg).load_state_dict(back)
+    pred = VisionTransformerPredictor(img_size=(32, 32), num_frames=num_frames, embed_dim=48,
+                                      predictor_embed_dim=32, depth=2, num_heads=2,
+                                      use_mask_tokens=True, use_silu=True, wide_silu=False)
+    pred.reset_parameters(torch.Generator().manual_seed(5))
+    psd = pred.state_dict()
+    _assert_same(state_dict_from_flax(convert_predictor(psd)), psd)

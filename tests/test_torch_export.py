@@ -122,6 +122,27 @@ def _route_encoder(route):
     return enc
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_program_dtypes_and_image_encoder_round_trip(dtype, tmp_path):
+    """`program_dtypes` reads the dtypes a program's nodes make: an fp32
+    encoder's program (JAX's hub default, A11c) makes no bf16 tensor, a bf16
+    one does; an image encoder (``num_frames=1``, [B, H, W, 3]) with SwiGLU
+    blocks exports, records its dtype and loads bit-equal to eager."""
+    enc = VisionTransformer(**dict(ENC, num_frames=1), use_flash=True, use_silu=True,
+                            dtype=dtype)
+    enc.reset_parameters(torch.Generator().manual_seed(2))
+    texport.export_encoder(enc, str(tmp_path), batch=2)
+    fn, meta = texport.load_encoder(str(tmp_path), device="cpu")
+    dtypes = texport.program_dtypes(fn.module)
+    assert meta["dtype"] == str(dtype).removeprefix("torch.")
+    assert ("bfloat16" in dtypes) == (dtype == torch.bfloat16) and dtypes["float32"] > 0
+    images = torch.from_numpy(np.random.RandomState(4).rand(2, 32, 32, 3).astype(np.float32))
+    got = fn(images)
+    assert got.shape == (2, 4, 128) and got.dtype == dtype
+    with torch.inference_mode():
+        assert torch.equal(got, enc(images))
+
+
 ROUTE_OPS = {"dn": {"flash_fwd_dn": 2}, "bhnd": {"flash_fwd_bhnd": 2},
              "fused": {"ln_qkv": 2, "flash_fwd_bhnd": 2, "ln_mlp": 2}}
 

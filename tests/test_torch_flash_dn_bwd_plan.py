@@ -110,7 +110,7 @@ def test_scratch_at_the_smoke_shapes():
     assert [lengths[seq] for _, _, _, seq in c.BWD_SHAPES] == [584, 176, 1624, 1664, 1806,
                                                                1808, 516, 520, 2304, 568,
                                                                6480, 6472, 584, 1624, 584,
-                                                               584, 1664]
+                                                               584, 1664, 1808, 520]
     assert [batches[seq] for seq in ("pp_ctx0", "giant_ctx0", "giant_pred1")] == [4, 24, 24]
     for _, H, D, seq in c.BWD_SHAPES:
         N, B = lengths[seq], batches[seq]

@@ -145,7 +145,9 @@ def _jax_trees():
 _MESH_CASES = [("blocks_0/attn/qkv/kernel", (64, 192)), ("blocks_0/attn/proj/kernel", (64, 64)),
                ("blocks_0/mlp/fc1/kernel", (64, 256)), ("blocks_0/mlp/fc2/kernel", (256, 64)),
                ("blocks_0/mlp/fc2/kernel", (64, 256)), ("blocks_0/mlp/fc3/kernel", (256, 64)),
-               ("norm/scale", (64,)), ("patch_embed/proj/kernel", (2, 16, 16, 3, 64))]
+               ("norm/scale", (64,)), ("patch_embed/proj/kernel", (2, 16, 16, 3, 64)),
+               ("patch_embed/proj/kernel", (16, 16, 3, 64)),  # the image tokenizer
+               ("blocks_0/mlp/fc2/kernel", (64, 176))]  # SwiGLU's fc2: column-parallel
 
 
 @pytest.mark.parametrize("tp, cp", [(True, False), (False, True), (False, False)])
@@ -365,13 +367,16 @@ def test_fsdp_step_matches_jax_accumulates_and_restores_anywhere(tmp_path):
 
 def _layer(kind):
     """(block, its input, rope args) for a route: a Block whose attention
-    takes the plain, DN (heads of 32), BHND (heads of 80) or fused route."""
+    takes the plain, DN (heads of 32), BHND (heads of 80) or fused route, or
+    a SwiGLU block on the DN route (hidden 344: fc1 and fc2 cut by rows, fc3
+    by columns)."""
     from vjepa2_tpu_torch.models.modules import Block
 
-    heads, dh = {"plain": (4, 32), "dn": (4, 32), "bhnd": (2, 80), "fused": (4, 32)}[kind]
+    heads, dh = {"plain": (4, 32), "dn": (4, 32), "bhnd": (2, 80), "fused": (4, 32),
+                 "swiglu": (4, 32)}[kind]
     dim = heads * dh
     blk = Block(dim, heads, use_rope=True, use_flash=kind != "plain", fuse_ln_qkv=kind == "fused",
-                fuse_ln_mlp=kind == "fused")
+                fuse_ln_mlp=kind == "fused", use_silu=kind == "swiglu")
     blk.reset_parameters(torch.Generator().manual_seed(1))
     x = torch.from_numpy(np.random.RandomState(2).randn(2, 24, dim).astype(np.float32))
     return blk, x
@@ -402,13 +407,13 @@ def _routes_rank(rank, world):
 
     par = Parallel(make_mesh(MeshConfig(data=1, model=2), device_type="cpu"))
     out = {}
-    for kind in ("plain", "dn", "bhnd", "fused"):
+    for kind in ROUTES:
         blk, x = _layer(kind)
         blk.attn.shard_heads_(par.tp)
         blk.mlp.shard_hidden_(par.tp)
         y, xx, w = _run_block(blk, x)
         (y * w).sum().backward()
-        grads = {n: (par.tp.gather(p.grad, *_tp_rule(n)) if _tp_rule(n) else p.grad)
+        grads = {n: (par.tp.gather(p.grad, *_tp_rule(n, kind)) if _tp_rule(n, kind) else p.grad)
                  for n, p in blk.named_parameters()}
         out[kind] = (y.detach(), xx.grad, grads)
     remat = {}
@@ -426,15 +431,18 @@ def _routes_rank(rank, world):
     return out
 
 
-def _tp_rule(name):
-    from vjepa2_tpu_torch.core.sharding import _TP_RULES
+def _tp_rule(name, kind):
+    from vjepa2_tpu_torch.core.sharding import _SWIGLU_TP_RULES, _TP_RULES
 
-    return _TP_RULES.get(name)
+    return (_SWIGLU_TP_RULES if kind == "swiglu" else _TP_RULES).get(name)
+
+
+ROUTES = ("plain", "dn", "bhnd", "fused", "swiglu")
 
 
 def test_each_route_under_tensor_parallelism_and_remat(tmp_path):
     ranks = spawn(_routes_rank, 2, tmp_path)
-    for kind in ("plain", "dn", "bhnd", "fused"):
+    for kind in ROUTES:
         blk, x = _layer(kind)
         y, xx, w = _run_block(blk, x)
         (y * w).sum().backward()

@@ -108,6 +108,42 @@ def test_in_process_pipeline_gradients_match_jax():
                                    err_msg=n)
 
 
+def test_in_process_pipeline_with_swiglu_matches_jax():
+    """A SwiGLU encoder in 4 stages of 2 microbatches (the stages' blocks are
+    the encoder's, built with its ``use_silu`` / ``wide_silu``, as JAX's
+    stage `Block`, `core/pipeline.py:223-224`): the masked forward and the
+    gradients of mean(out^2) under full remat against JAX's sequential
+    SwiGLU encoder, at the tolerances of the tests above."""
+    import jax
+    import jax.numpy as jnp
+
+    from vjepa2_tpu.models.vision_transformer import VisionTransformer as JaxViT
+    from vjepa2_tpu_torch.core.pipeline import InProcessPipe, Pipeline
+    from vjepa2_tpu_torch.models.modules import SwiGLUFFN
+    from vjepa2_tpu_torch.models.vision_transformer import VisionTransformer
+
+    cfg = dict(P_ENC, use_silu=True)
+    jenc = JaxViT(**dict(cfg, use_flash=False, dtype=jnp.float32))
+    _, clips, masks, _, _, _ = _jax_encoder()
+    variables = jax.jit(lambda c: jenc.init(jax.random.PRNGKey(0), c))(jnp.asarray(clips))
+    want = jax.jit(lambda v, c, m: jenc.apply(v, c, [m]))(variables, clips,
+                                                          jnp.asarray(masks, jnp.int32))
+    grads = jax.jit(jax.grad(lambda v, c: (jenc.apply(v, c) ** 2).mean()))(variables, clips)
+    enc = VisionTransformer(**cfg)
+    enc.load_state_dict(_flax_sd(variables))
+    enc.pipeline_(Pipeline(InProcessPipe(4), 2, cfg["depth"]))
+    assert all(isinstance(b.mlp, SwiGLUFFN) for b in enc.blocks)
+    with torch.no_grad():
+        got = enc(torch.from_numpy(clips), [torch.from_numpy(masks)])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    enc.remat = frozenset()
+    (enc(torch.from_numpy(clips)) ** 2).mean().backward()
+    want = _flax_sd(grads)
+    for n, p in enc.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[n].numpy(), rtol=2e-4, atol=1e-5,
+                                   err_msg=n)
+
+
 # the pipeline widths of `tests/core/test_pipeline.py` (and test_mesh's TP step's predictor)
 PS, PT, PB = 32, 4, 8
 P_ENC = dict(img_size=(PS, PS), patch_size=16, num_frames=PT, tubelet_size=2, embed_dim=64,

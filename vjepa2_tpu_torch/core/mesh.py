@@ -170,10 +170,13 @@ def shard_mesh(mesh, cp: bool = False):
 def _torch_to_flax_dims(name: str, ndim: int) -> list[int]:
     """For each dim of the JAX leaf, the port's dim holding it: a Dense
     kernel [in, out] is the transposed ``weight`` [out, in]; a conv kernel
-    [t, p, p, C, D] is ``weight`` [D, C, t, p, p] (`hub.converter`); other
-    leaves keep their order."""
+    [t, p, p, C, D] is ``weight`` [D, C, t, p, p], an image's [p, p, C, D]
+    ``weight`` [D, C, p, p] (`hub.converter`); other leaves keep their
+    order."""
     if name.endswith("weight") and ndim == 2:
         return [1, 0]
+    if name.endswith("weight") and ndim == 4:
+        return [2, 3, 1, 0]
     if name.endswith("weight") and ndim == 5:
         return [2, 3, 4, 1, 0]
     return list(range(ndim))

@@ -49,9 +49,11 @@ from vjepa2_tpu_torch.core.optim import global_norm
 from vjepa2_tpu_torch.core.pipeline import Pipeline, ProcessPipe
 from vjepa2_tpu_torch.ops.tensor_parallel import TensorParallel
 
-# the TP cut of a block's matrices: (rows or cols, pieces along dim 0)
+# the TP cut of a block's matrices: (rows or cols, pieces along dim 0); a
+# SwiGLU MLP's fc2 is column-parallel as its fc1 and fc3 row-parallel
 _TP_RULES = {"attn.qkv.weight": (0, 3), "attn.proj.weight": (1, 1),
              "mlp.fc1.weight": (0, 1), "mlp.fc2.weight": (1, 1)}
+_SWIGLU_TP_RULES = {**_TP_RULES, "mlp.fc2.weight": (0, 1), "mlp.fc3.weight": (1, 1)}
 
 
 def _is_dtensor(t) -> bool:
@@ -135,7 +137,8 @@ class Parallel:
             i = _block_index(pname, blocks)
             rule = None
             if tp is not None and i is not None:
-                rule = _TP_RULES.get(pname.split(".", 2)[2])
+                swiglu = hasattr(getattr(model, blocks)[i].mlp, "fc3")
+                rule = (_SWIGLU_TP_RULES if swiglu else _TP_RULES).get(pname.split(".", 2)[2])
             spec = mesh_lib.param_placement(pname, prm.shape, tp=tp is not None, cp=self.cp)
             shard = [d for d, a in enumerate(spec) if a in ("fsdp", ("fsdp", "model"))]
             lay.params[pname] = (tuple(prm.shape), rule, stage_of.get(i))

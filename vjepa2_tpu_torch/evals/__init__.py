@@ -1,7 +1,7 @@
 """Frozen evals (counterpart of `vjepa2_tpu/evals`): attentive-probe grids on
 frozen features for video and image classification and EK100 action
-anticipation. In-process evals during pretraining (`evals/online.py`) are
-not ported yet (ROADMAP A10b)."""
+anticipation, and the in-process evals during pretraining
+(`evals/online.py`)."""
 
 from vjepa2_tpu_torch.evals.action_anticipation import (
     AnticipationEval,

@@ -9,7 +9,9 @@ parity tests. Layout rules, the JAX converter's read backwards:
 
 * ``<name>_<i>`` scopes       -> ``<name>.<i>`` (``blocks_3`` -> ``blocks.3``)
 * Dense ``kernel`` [in, out]  -> ``weight`` [out, in]
-* conv ``kernel`` [t, p, p, C, D] -> ``weight`` [D, C, t, p, p]
+* conv ``kernel`` [t, p, p, C, D] -> ``weight`` [D, C, t, p, p]; an image's
+  [p, p, C, D] -> ``weight`` [D, C, p, p]
+* a SwiGLU MLP's ``fc1``, ``fc2`` and ``fc3`` as any Dense
 * LayerNorm ``scale``         -> ``weight``
 * the predictor's ``mask_tokens`` [num, P] -> ``mask_tokens.{j}`` [1, 1, P]
   (`vjepa2_tpu/hub/converter.py:104-107,246-249`)
@@ -50,6 +52,8 @@ def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
             return "weight", arr.T
         if arr.ndim == 5:
             return "weight", arr.transpose(4, 3, 0, 1, 2)
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"unexpected kernel rank {arr.ndim}")
     if name == "scale":
         return "weight", arr

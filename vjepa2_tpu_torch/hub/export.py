@@ -121,20 +121,41 @@ def program_op_counts(program: torch.nn.Module) -> dict[str, int]:
         and node.target.namespace == "vjepa2"))
 
 
+def program_dtypes(program: torch.nn.Module) -> dict[str, int]:
+    """The dtypes the nodes of a loaded program make (a loop body's counted
+    once), by name, from each node's recorded value: an fp32 program's
+    should hold no ``bfloat16``."""
+    from torch.utils import _pytree
+
+    counts: collections.Counter = collections.Counter()
+    for module in program.modules():
+        if not isinstance(module, torch.fx.GraphModule):
+            continue
+        for node in module.graph.nodes:
+            for val in _pytree.tree_leaves(node.meta.get("val")):
+                if isinstance(val, torch.Tensor):
+                    counts[str(val.dtype).removeprefix("torch.")] += 1
+    return dict(counts)
+
+
 def export_encoder(encoder, out_dir: str, batch="B", dtype: Optional[str] = None) -> str:
     """Save the encoder's forward as a serving program.
 
-    encoder: a `VisionTransformer` (its weights ride in the program); batch:
-    an int for a fixed batch or a string (e.g. "B") for a symbolic batch
-    dimension; dtype: the clips' dtype (a name or a torch dtype, fp32 by
-    default). Traced on the device that holds the encoder. Returns out_dir.
+    encoder: a `VisionTransformer` (its weights ride in the program; an
+    image encoder's program takes [B, H, W, 3]); batch: an int for a fixed
+    batch or a string (e.g. "B") for a symbolic batch dimension; dtype: the
+    clips' dtype (a name or a torch dtype, fp32 by default). Traced on the
+    device that holds the encoder, at its compute dtype (an fp32 encoder
+    gives an fp32 program). Returns out_dir.
     """
     T = encoder.num_frames
     H, W = encoder.img_size
     in_dtype = getattr(torch, dtype) if isinstance(dtype, str) else (dtype or torch.float32)
     dev = next(encoder.parameters()).device
     symbolic = isinstance(batch, str)
-    clips = torch.zeros((2 if symbolic else int(batch), T, H, W, 3), dtype=in_dtype, device=dev)
+    frames = (T,) if encoder.is_video else ()
+    clips = torch.zeros((2 if symbolic else int(batch), *frames, H, W, 3), dtype=in_dtype,
+                        device=dev)
     dynamic = ({0: torch.export.Dim(batch, min=1)},) if symbolic else None
     program = _export(encoder, (clips,), dynamic)
     os.makedirs(out_dir, exist_ok=True)
@@ -142,7 +163,7 @@ def export_encoder(encoder, out_dir: str, batch="B", dtype: Optional[str] = None
     _write_meta(out_dir, {
         "num_frames": int(T), "img_size": [int(H), int(W)],
         "in_dtype": str(in_dtype).removeprefix("torch."), "batch": batch,
-        "embed_dim": int(encoder.embed_dim),
+        "embed_dim": int(encoder.embed_dim), "dtype": str(encoder.dtype).removeprefix("torch."),
         "torch_version": torch.__version__,
     })
     return out_dir

@@ -22,8 +22,10 @@ State-dict keys are the reference's: ``predictor_embed.*``,
 ``use_activation_checkpointing`` / ``remat_policy`` run every block under
 `modules.remat_call` (JAX's ``nn.remat(ACBlock, ...)``, `:115-121`). RoPE is
 always on, as in JAX, whose `ACAttention` builds its tables when the model
-passes none. Not ported yet: the SwiGLU MLP (``use_silu``) and JAX's
-``is_frame_causal=False`` (no caller).
+passes none. ``use_silu`` / ``wide_silu``: SwiGLU MLPs. ``is_frame_causal=False``
+(JAX `:44`, no shipped config): no segment ids, full attention; the stack
+pad's keys are masked by ``kv_valid`` instead, so B1 and B2 run without
+segments.
 """
 
 from __future__ import annotations
@@ -40,13 +42,15 @@ class VisionTransformerPredictorAC(nn.Module):
     def __init__(self, img_size=(224, 224), patch_size: int = 16, embed_dim: int = 768,
                  predictor_embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, use_silu: bool = False,
-                 use_flash: bool = False, action_embed_dim: int = 7, use_extrinsics: bool = False, dtype=torch.float32,
-                 device=None, init_std: float = 0.02, fuse_ln_mlp: bool = False,
-                 use_activation_checkpointing: bool = False, remat_policy: str | None = None):
+                 use_flash: bool = False, action_embed_dim: int = 7,
+                 use_extrinsics: bool = False, dtype=torch.float32, device=None,
+                 init_std: float = 0.02, fuse_ln_mlp: bool = False,
+                 use_activation_checkpointing: bool = False, remat_policy: str | None = None,
+                 wide_silu: bool = True, is_frame_causal: bool = True):
         super().__init__()
-        if use_silu:
-            raise NotImplementedError("the SwiGLU MLP (use_silu) is not ported yet")
-        self.remat = block_remat(use_activation_checkpointing, remat_policy, fuse_ln_mlp)
+        self.is_frame_causal = is_frame_causal
+        self.remat = block_remat(use_activation_checkpointing, remat_policy,
+                                 fuse_ln_mlp and not use_silu)
         self.img_size = tuple(img_size)
         self.patch_size = patch_size
         self.embed_dim, self.predictor_embed_dim = embed_dim, predictor_embed_dim
@@ -66,7 +70,8 @@ class VisionTransformerPredictorAC(nn.Module):
                                    if use_extrinsics else None)
         self.predictor_blocks = nn.ModuleList(
             ACBlock(P, num_heads, mlp_ratio, qkv_bias, grid, use_flash, i, dtype, device,
-                    init_std, fuse_ln_mlp)
+                    init_std, fuse_ln_mlp, use_silu=use_silu, wide_silu=wide_silu,
+                    is_frame_causal=is_frame_causal)
             for i in range(depth))
         self.predictor_norm = LayerNorm(P, dtype=dtype, device=device)
         self.predictor_proj = nn.Linear(P, embed_dim, device=device)
@@ -98,16 +103,19 @@ class VisionTransformerPredictorAC(nn.Module):
             conds.append(dense(self.extrinsics_encoder, extrinsics, dt))
         tokens = torch.cat([c[:, :, None] for c in conds] + [tokens], dim=2)
         n = T * (cond + gh * gw)
-        # the pad keys get PAD_SEGMENT: the DN kernels take no kv_valid with segments
-        tokens, _, _ = stack_pad(tokens.reshape(B, n, P), None, self.use_flash)
+        # frame-causal, the pad keys get PAD_SEGMENT (the DN kernels take no
+        # kv_valid with segments); otherwise kv_valid masks them
+        tokens, _, kv_valid = stack_pad(tokens.reshape(B, n, P), None, self.use_flash)
         pad = tokens.shape[1] - n
         rope_cache, rope_expanded, qkv_perm = ac_rope_tables(
             P // self.num_heads, self.perm_heads, T, gh, gw, cond, gh, self.use_flash, x.device,
             pad)
-        seg = frame_segments(T, cond + gh * gw, x.device, pad)
+        seg = None
+        if self.is_frame_causal:
+            seg, kv_valid = frame_segments(T, cond + gh * gw, x.device, pad), None
         for blk in self.predictor_blocks:
             tokens = remat_call(blk, self.remat, tokens, T, gh, gw, cond, rope_cache,
-                                rope_expanded, qkv_perm, seg)
+                                rope_expanded, qkv_perm, seg, kv_valid)
         tokens = tokens[:, :n].reshape(B, T, cond + gh * gw, P)[:, :, cond:]
         tokens = self.predictor_norm(tokens.reshape(B, T * gh * gw, P))
         return dense(self.predictor_proj, tokens, dt)

@@ -64,7 +64,16 @@ column-parallel, proj and fc2 row-parallel, their sums one
 ``torch.ops.vjepa2.tp_all_reduce`` each, which the remat policies keep as
 they keep the flash kernels' outputs.
 
-Not ported yet: drop_path and SwiGLU.
+The SwiGLU MLP (`SwiGLUFFN`, JAX `modules.py:260-293`) replaces `Mlp` in a
+block built with ``use_silu``; it comes before the fused MLP route, as in
+JAX, so ``fuse_ln_mlp`` leaves a SwiGLU block unfused. A boolean
+``attn_mask`` or ``is_causal`` sends `Attention` to the masked route (JAX
+`modules.py:604-621`): q and k rotated by whichever tables the call carries,
+then the plain math of `ops.attention.sdpa` on any device (JAX's branch is
+plain XLA); the fused, DN, BHND and context-parallel routes are off under
+it. Stochastic depth (`drop_path`, JAX `modules.py:748-756`) scales a
+block's two residual branches when its forward is handed a generator; the
+models hand none, as JAX's always run their blocks deterministic.
 """
 
 from __future__ import annotations
@@ -89,7 +98,8 @@ from vjepa2_tpu_torch.ops.flash_attention import BHND_HEAD_WIDTHS, bhnd_head_sup
 from vjepa2_tpu_torch.ops.flash_attention_dn import dn_head_eligible
 from vjepa2_tpu_torch.ops.ln_mlp import ln_mlp
 from vjepa2_tpu_torch.ops.ln_qkv import ln_qkv
-from vjepa2_tpu_torch.ops.rope import expand_rope_cache, rope_from_ids, separate_positions
+from vjepa2_tpu_torch.ops.rope import (expand_rope_cache, rope_from_ids, rope_rotate,
+                                       separate_positions)
 from vjepa2_tpu_torch.ops.tensor_parallel import copy_in, gather_rows, reduce_out
 
 # std of a standard normal truncated to [-2, 2]; JAX's truncated_normal
@@ -319,6 +329,91 @@ class Mlp(nn.Module):
         return dense(self.fc2, F.gelu(h), self.dtype)
 
 
+def swiglu_hidden(hidden: int, wide_silu: bool) -> int:
+    """The SwiGLU MLP's hidden width: with ``wide_silu``, 2/3 of ``hidden``
+    rounded up to a multiple of 8 (ViT-L's 4096 -> 2736, the predictor's
+    1536 -> 1024), as JAX's `SwiGLUFFN` and the reference."""
+    if wide_silu:
+        hidden = int(2 * hidden / 3)
+        hidden = (hidden + 7) // 8 * 8
+    return hidden
+
+
+class SwiGLUFFN(nn.Module):
+    """silu(fc1(x)) * fc2(x) -> fc3 (JAX `modules.py:260-293`); the residual
+    rescale ``out_init_scale`` goes on fc2, as in JAX and the reference. fc1's
+    and fc2's outputs are both the "mlp_h" residuals the selective remat
+    policy keeps. Three plain GEMMs: JAX computes them outside any kernel."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int | None = None,
+                 wide_silu: bool = True, dtype=torch.float32, device=None,
+                 init_std: float = 0.02, out_init_scale: float = 1.0):
+        super().__init__()
+        self.dtype = dtype
+        self.init_std = init_std
+        self.out_init_scale = out_init_scale
+        hidden = swiglu_hidden(hidden_dim, wide_silu)
+        self.fc1 = nn.Linear(in_dim, hidden, device=device)
+        self.fc2 = nn.Linear(in_dim, hidden, device=device)
+        self.fc3 = nn.Linear(hidden, out_dim or in_dim, device=device)
+        self.tp = None
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        init_linear_(self.fc1, self.init_std, 1.0, generator)
+        init_linear_(self.fc2, self.init_std, self.out_init_scale, generator)
+        init_linear_(self.fc3, self.init_std, 1.0, generator)
+
+    def shard_hidden_(self, tp) -> None:
+        """Keep this rank's hidden columns, as JAX's `param_spec` cuts the
+        layer (`core/mesh.py:152-155`): its rows of fc1.weight and
+        fc2.weight (column-parallel) and its columns of fc3.weight
+        (row-parallel); the biases stay whole."""
+        hidden = self.fc1.weight.shape[0]
+        if hidden % tp.size:
+            raise ValueError(f"SwiGLU hidden width {hidden} not divisible by "
+                             f"mesh.model={tp.size}")
+        for fc in (self.fc1, self.fc2):
+            fc.weight = nn.Parameter(tp.rows(fc.weight.detach()).clone())
+        self.fc3.weight = nn.Parameter(tp.cols(self.fc3.weight.detach()).clone())
+        self.tp = tp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, tp = self.dtype, self.tp
+        if tp is None:
+            with checkpoint_name("mlp_h"):
+                x1 = dense(self.fc1, x, dt)
+            with checkpoint_name("mlp_h"):
+                x2 = dense(self.fc2, x, dt)
+            return dense(self.fc3, F.silu(x1) * x2, dt)
+        x = copy_in(x, tp).to(dt)
+        b1, b2 = (tp.rows(copy_in(fc.bias, tp)).to(dt) for fc in (self.fc1, self.fc2))
+        with checkpoint_name("mlp_h"):
+            x1 = F.linear(x, self.fc1.weight.to(dt), b1)
+        with checkpoint_name("mlp_h"):
+            x2 = F.linear(x, self.fc2.weight.to(dt), b2)
+        y = reduce_out(F.linear(F.silu(x1) * x2, self.fc3.weight.to(dt)), tp)
+        return y + self.fc3.bias.to(dt)
+
+
+def drop_path(x: torch.Tensor, rate: float, rng=None) -> torch.Tensor:
+    """Stochastic depth (JAX `modules.py:748-756`, reference `modules.py:53-64`):
+    each example's residual branch is kept with probability 1 - ``rate``,
+    as floor(1 - rate + u) for a uniform draw u, and scaled by 1 / (1 -
+    rate). ``rng``: the `torch.Generator` the [B] draws come from, or a
+    callable giving the draws for a shape (a test replays JAX's with it);
+    None, or ``rate`` 0, is the identity (JAX's ``deterministic``)."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    if isinstance(rng, torch.Generator):
+        u = torch.rand(shape, generator=rng, device=rng.device, dtype=torch.float32)
+    else:
+        u = rng(shape)
+    mask = torch.floor(keep + u.to(device=x.device, dtype=torch.float32))
+    return (x / keep) * mask.to(x.dtype)
+
+
 class Attention(nn.Module):
     """Self-attention with optional factorized 3D RoPE.
 
@@ -332,13 +427,18 @@ class Attention(nn.Module):
     tables and the matching ``qkv_perm`` (`qkv_row_perm`). Other widths have
     no flash kernel and raise. Without ``use_flash`` it takes the plain
     route, with RoPE from the interleaved ``rope_cache``.
+
+    ``is_causal``, or a boolean ``attn_mask`` handed to the forward, takes
+    the masked route whatever ``use_flash`` says (JAX `modules.py:604-621`).
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, use_rope: bool = False,
                  use_flash: bool = False, dtype=torch.float32, device=None,
-                 init_std: float = 0.02, proj_init_scale: float = 1.0, cp_attend=None):
+                 init_std: float = 0.02, proj_init_scale: float = 1.0, cp_attend=None,
+                 is_causal: bool = False):
         super().__init__()
         self.cp_attend = cp_attend
+        self.is_causal = is_causal
         self.dim, self.num_heads = dim, num_heads
         self.head_dim = dim // num_heads
         self.use_rope, self.use_flash = use_rope, use_flash
@@ -405,7 +505,7 @@ class Attention(nn.Module):
         return y + self.proj.bias.to(dt)
 
     def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None,
-                ln=None, segment_ids=None):
+                ln=None, segment_ids=None, attn_mask=None):
         """``kv_valid``: the number of real tokens when the model stack-padded
         the sequence; keys at or past it are masked (pad query rows are the
         model's to slice off). ``ln=(gamma, beta)``: x is the pre-LayerNorm
@@ -413,7 +513,10 @@ class Attention(nn.Module):
         rope-free); `Block` passes it only with ``use_flash``.
         ``segment_ids`` ([N] int): query i attends key j iff seg[i] >=
         seg[j] (`ACAttention`'s frame-causal ids), on the plain, DN and BHND
-        routes."""
+        routes. ``attn_mask`` (boolean, True = attend; [N, N], [B, N, N] or
+        [B, H, N, N]) takes the masked route, as ``is_causal`` does."""
+        if attn_mask is not None or self.is_causal:
+            return self._masked_forward(x, rope_cache, rope_expanded, qkv_perm, attn_mask)
         if ln is not None:
             return self._fused_forward(x, ln, rope_expanded, qkv_perm, kv_valid)
         if self.cp_attend is not None and segment_ids is None:
@@ -456,6 +559,39 @@ class Attention(nn.Module):
                               segment_ids=segment_ids)
             out = out.transpose(1, 2).reshape(B, N, C)  # a view of the kernel's output
         return self._project(out)
+
+    def _masked_forward(self, x, rope_cache, rope_expanded, qkv_perm, attn_mask):
+        """The masked route (JAX `modules.py:604-621`): q, k, v [B, N, H, Dh]
+        from the qkv product, q and k rotated by the split-half tables (the
+        q/k rows permuted by ``qkv_perm``: q.k is the same) or the
+        interleaved cache, in fp32 and rounded back, then `sdpa` with the
+        mask and the causal flag: the plain math on every device, as JAX's
+        branch is plain XLA. As JAX's, it takes no ``kv_valid``: the models
+        pass no mask, and a stack pad's keys come after every real query, so
+        the causal mask leaves them out."""
+        x = self._input(x)
+        B, N, _ = x.shape
+        H, Dh, dt = self.num_heads, self.head_dim, self.dtype
+        w, b = self._qkv_params()
+        if self.use_rope:
+            if rope_expanded is not None:
+                if qkv_perm is None:
+                    raise ValueError("the split-half tables need qkv_perm")
+                w = w[qkv_perm]
+                b = None if b is None else b[qkv_perm]
+            elif rope_cache is None:
+                raise ValueError("the masked route with RoPE needs rope_cache or rope_expanded")
+        qkv = F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
+        q, k, v = qkv.view(B, N, 3, H, Dh).unbind(2)
+        if self.use_rope and rope_expanded is not None:
+            cos, sin = (t.to(device=x.device, dtype=torch.float32)[:, :, None]
+                        for t in rope_expanded)
+            q, k = (rope_rotate(t.float(), cos, sin).to(t.dtype) for t in (q, k))
+        elif self.use_rope:
+            q, k = (_apply_rope_cache_bhnd(t.transpose(1, 2), rope_cache).transpose(1, 2)
+                    for t in (q, k))
+        out = sdpa(q, k, v, attn_mask=attn_mask, is_causal=self.is_causal)
+        return self._project(out.reshape(B, N, H * Dh))
 
     def _cp_forward(self, x, rope_cache, kv_valid):
         """The context-parallel route (`modules.py:577-605`): q, k, v
@@ -503,28 +639,46 @@ class Attention(nn.Module):
         return self._project(out.transpose(1, 2).reshape(B, N, -1))
 
 
+def block_mlp(dim: int, mlp_ratio: float, use_silu: bool, wide_silu: bool, dtype, device,
+              init_std: float, rescale: float) -> nn.Module:
+    """A block's MLP: `SwiGLUFFN` with ``use_silu``, else `Mlp` (JAX
+    `modules.py:828-845`)."""
+    hidden = int(dim * mlp_ratio)
+    if use_silu:
+        return SwiGLUFFN(dim, hidden, wide_silu=wide_silu, dtype=dtype, device=device,
+                         init_std=init_std, out_init_scale=rescale)
+    return Mlp(dim, hidden, dtype=dtype, device=device, init_std=init_std,
+               out_init_scale=rescale)
+
+
 class Block(nn.Module):
     """Pre-norm transformer block (reference `modules.py:500-563`).
 
     ``fuse_ln_qkv`` / ``fuse_ln_mlp``: run norm1 inside B7 and norm2 inside B8
     (JAX's ``FUSE_LN_QKV`` / ``FUSE_LN_MLP``, `modules.py:794-846`). The qkv
-    fusion applies only on the flash route with RoPE off or pre-expanded;
-    the MLP fusion whenever its flag is on. The state dict is the same
-    either way."""
+    fusion applies only on the flash route with RoPE off or pre-expanded and
+    no mask or causal flag; the MLP fusion whenever its flag is on and the
+    MLP is not SwiGLU (``use_silu``, chosen first, as in JAX). The state
+    dict is the same either way. ``drop_path_rate``: stochastic depth on
+    both residual branches when the forward is handed ``rng`` (`drop_path`)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  use_rope: bool = False, use_flash: bool = False, layer_id: int = 0,
                  dtype=torch.float32, device=None, init_std: float = 0.02,
-                 fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False, cp_attend=None):
+                 fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False, cp_attend=None,
+                 use_silu: bool = False, wide_silu: bool = True, is_causal: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
-        self.fuse_ln_qkv, self.fuse_ln_mlp = fuse_ln_qkv, fuse_ln_mlp
+        self.fuse_ln_qkv, self.fuse_ln_mlp = fuse_ln_qkv, fuse_ln_mlp and not use_silu
+        self.drop_path_rate = drop_path_rate
         rescale = 1.0 / math.sqrt(2.0 * (layer_id + 1))
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, use_rope, use_flash, dtype, device,
-                              init_std, proj_init_scale=rescale, cp_attend=cp_attend)
+                              init_std, proj_init_scale=rescale, cp_attend=cp_attend,
+                              is_causal=is_causal)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device,
-                       init_std=init_std, out_init_scale=rescale)
+        self.mlp = block_mlp(dim, mlp_ratio, use_silu, wide_silu, dtype, device, init_std,
+                             rescale)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         self.norm1.reset_parameters()
@@ -532,18 +686,27 @@ class Block(nn.Module):
         self.norm2.reset_parameters()
         self.mlp.reset_parameters(generator)
 
-    def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None):
-        # the gate of `modules.py:798-805`; the port has no mask or causal route here
+    def forward(self, x, rope_cache=None, rope_expanded=None, qkv_perm=None, kv_valid=None,
+                attn_mask=None, rng=None):
+        """``attn_mask``: the masked route's boolean mask (`Attention`);
+        ``rng``: a generator (or a callable of the draws) for `drop_path`,
+        None to run deterministic."""
+        # the gate of `modules.py:798-805`
         fuse_qkv = (self.fuse_ln_qkv and self.attn.use_flash and self.attn.cp_attend is None
+                    and attn_mask is None and not self.attn.is_causal
                     and (not self.attn.use_rope or rope_expanded is not None))
         if fuse_qkv:
-            x = x + self.attn(x, rope_cache, rope_expanded, qkv_perm, kv_valid,
-                              ln=(self.norm1.weight, self.norm1.bias))
+            y = self.attn(x, rope_cache, rope_expanded, qkv_perm, kv_valid,
+                          ln=(self.norm1.weight, self.norm1.bias))
         else:
-            x = x + self.attn(self.norm1(x), rope_cache, rope_expanded, qkv_perm, kv_valid)
+            y = self.attn(self.norm1(x), rope_cache, rope_expanded, qkv_perm, kv_valid,
+                          attn_mask=attn_mask)
+        x = x + drop_path(y, self.drop_path_rate, rng)
         if self.fuse_ln_mlp:
-            return x + self.mlp(x, ln=(self.norm2.weight, self.norm2.bias))
-        return x + self.mlp(self.norm2(x))
+            y = self.mlp(x, ln=(self.norm2.weight, self.norm2.bias))
+        else:
+            y = self.mlp(self.norm2(x))
+        return x + drop_path(y, self.drop_path_rate, rng)
 
 
 # The segment id of stack-pad tokens in a frame-causal sequence: no real
@@ -602,58 +765,69 @@ class ACAttention(Attention):
     (JAX `modules.py:660`): [B, T * (A + HW), C], A conditioning tokens
     leading each frame group. The projections and routes are `Attention`'s
     (state-dict names ``qkv.*`` and ``proj.*``), always with RoPE; query i
-    attends key j iff frame(i) >= frame(j), as segment ids. JAX's
-    ``is_frame_causal=False`` (full attention) has no caller and is not
-    ported.
+    attends key j iff frame(i) >= frame(j), as segment ids.
 
     The model hands in the tables and ids it built once for all its blocks
     (stack-padded on the flash routes); called alone, the layer builds them
     for the unpadded sequence.
+
+    ``is_frame_causal=False`` (JAX `modules.py:692-695`): no segment ids,
+    every token attends every real one; a stack pad's keys are masked by
+    the ``kv_valid`` the model hands in, so the DN route runs B1/B2 without
+    segments.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, grid_size: int = 16,
                  use_flash: bool = False, dtype=torch.float32, device=None,
-                 init_std: float = 0.02, proj_init_scale: float = 1.0):
+                 init_std: float = 0.02, proj_init_scale: float = 1.0,
+                 is_frame_causal: bool = True):
         super().__init__(dim, num_heads, qkv_bias, True, use_flash, dtype, device, init_std,
                          proj_init_scale)
         self.grid_size = grid_size
+        self.is_frame_causal = is_frame_causal
 
     def forward(self, x, T: int, h_patches: int, w_patches: int, cond_tokens: int,
-                rope_cache=None, rope_expanded=None, qkv_perm=None, segment_ids=None):
+                rope_cache=None, rope_expanded=None, qkv_perm=None, segment_ids=None,
+                kv_valid=None):
         if rope_cache is None and rope_expanded is None:
             rope_cache, rope_expanded, qkv_perm = ac_rope_tables(
                 self.head_dim, self.num_heads, T, h_patches, w_patches, cond_tokens,
                 self.grid_size, self.use_flash, x.device)
-            segment_ids = frame_segments(T, cond_tokens + h_patches * w_patches, x.device)
-        return super().forward(x, rope_cache, rope_expanded, qkv_perm,
+            if self.is_frame_causal:
+                segment_ids = frame_segments(T, cond_tokens + h_patches * w_patches, x.device)
+        return super().forward(x, rope_cache, rope_expanded, qkv_perm, kv_valid,
                                segment_ids=segment_ids)
 
 
 class ACBlock(nn.Module):
     """Pre-norm block with `ACAttention` (JAX `modules.py:858`); with
     ``fuse_ln_mlp`` norm2, fc1 and GELU run as B8 (JAX's ``FUSE_LN_MLP``,
-    `modules.py:906-914`). State-dict names as `Block`'s."""
+    `modules.py:906-914`), unless ``use_silu`` makes the MLP `SwiGLUFFN`
+    (chosen first, as in JAX). State-dict names as `Block`'s."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  grid_size: int = 16, use_flash: bool = False, layer_id: int = 0,
                  dtype=torch.float32, device=None, init_std: float = 0.02,
-                 fuse_ln_mlp: bool = False):
+                 fuse_ln_mlp: bool = False, use_silu: bool = False, wide_silu: bool = True,
+                 is_frame_causal: bool = True):
         super().__init__()
-        self.fuse_ln_mlp = fuse_ln_mlp
+        self.fuse_ln_mlp = fuse_ln_mlp and not use_silu
         rescale = 1.0 / math.sqrt(2.0 * (layer_id + 1))
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = ACAttention(dim, num_heads, qkv_bias, grid_size, use_flash, dtype, device,
-                                init_std, proj_init_scale=rescale)
+                                init_std, proj_init_scale=rescale,
+                                is_frame_causal=is_frame_causal)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device,
-                       init_std=init_std, out_init_scale=rescale)
+        self.mlp = block_mlp(dim, mlp_ratio, use_silu, wide_silu, dtype, device, init_std,
+                             rescale)
 
     reset_parameters = Block.reset_parameters
 
     def forward(self, x, T: int, h_patches: int, w_patches: int, cond_tokens: int,
-                rope_cache=None, rope_expanded=None, qkv_perm=None, segment_ids=None):
+                rope_cache=None, rope_expanded=None, qkv_perm=None, segment_ids=None,
+                kv_valid=None):
         x = x + self.attn(self.norm1(x), T, h_patches, w_patches, cond_tokens, rope_cache,
-                          rope_expanded, qkv_perm, segment_ids)
+                          rope_expanded, qkv_perm, segment_ids, kv_valid)
         if self.fuse_ln_mlp:
             return x + self.mlp(x, ln=(self.norm2.weight, self.norm2.bias))
         return x + self.mlp(self.norm2(x))

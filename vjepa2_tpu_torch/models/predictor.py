@@ -15,8 +15,16 @@ put every block on the fused LayerNorm routes (B7, B8).
 ``use_activation_checkpointing`` / ``remat_policy`` run every block under
 `modules.remat_call`, as the encoder (`predictor.py:51,173-176`).
 ``cp_attend``: the context-parallel route in every block, without the stack
-pad and the RoPE hoist (`predictor.py:141,162`). Not ported
-yet: ``chop_last_n_tokens``, ``return_all_tokens``.
+pad and the RoPE hoist (`predictor.py:141,162`). ``num_frames`` <= 1: the
+image predictor, its sincos table 2D (`predictor.py:61-68`). ``use_silu`` /
+``wide_silu``: SwiGLU MLPs.
+
+``chop_last_n_tokens`` drops the last tokens of the sorted sequence before
+the blocks; ``return_all_tokens`` returns every token the blocks saw, in
+sorted order, instead of the targets in mask order (`predictor.py:52-53,
+133-135,202-206`). Chopping without ``return_all_tokens`` is refused: the
+inverse gather then reads past the chopped sequence, where JAX's
+``take_along_axis`` fills NaN rows (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import torch.nn as nn
 
 from vjepa2_tpu_torch.models.modules import (Block, LayerNorm, block_remat, dense, init_linear_,
                                              remat_call, trunc_normal_)
-from vjepa2_tpu_torch.models.pos_embs import get_3d_sincos_pos_embed
+from vjepa2_tpu_torch.models.pos_embs import get_2d_sincos_pos_embed, get_3d_sincos_pos_embed
 from vjepa2_tpu_torch.models.vision_transformer import rope_tables, stack_pad
 
 
@@ -40,12 +48,17 @@ class VisionTransformerPredictor(nn.Module):
                  use_flash: bool = False, dtype=torch.float32, device=None,
                  init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False,
                  use_activation_checkpointing: bool = False, remat_policy: str | None = None,
-                 cp_attend=None):
+                 cp_attend=None, use_silu: bool = False, wide_silu: bool = True,
+                 return_all_tokens: bool = False, chop_last_n_tokens: int = 0):
         super().__init__()
         self.cp_attend = cp_attend
-        if num_frames <= 1:
-            raise NotImplementedError("the image (2D patch) predictor is not ported yet")
-        self.remat = block_remat(use_activation_checkpointing, remat_policy, fuse_ln_mlp)
+        if chop_last_n_tokens > 0 and not return_all_tokens:
+            raise ValueError(
+                "chop_last_n_tokens without return_all_tokens: the targets' inverse gather "
+                "would read past the chopped sequence (JAX's take_along_axis fills NaN there)")
+        self.return_all_tokens, self.chop_last_n_tokens = return_all_tokens, chop_last_n_tokens
+        self.remat = block_remat(use_activation_checkpointing, remat_policy,
+                                 fuse_ln_mlp and not use_silu)
         self.img_size = tuple(img_size)
         self.patch_size = patch_size
         self.embed_dim, self.predictor_embed_dim = embed_dim, predictor_embed_dim
@@ -64,14 +77,16 @@ class VisionTransformerPredictor(nn.Module):
                 nn.Parameter(torch.zeros(1, 1, P, device=device)) for _ in range(num_mask_tokens))
         self.predictor_blocks = nn.ModuleList(
             Block(P, num_heads, mlp_ratio, qkv_bias, use_rope, use_flash, i, dtype, device,
-                  init_std, fuse_ln_qkv, fuse_ln_mlp, cp_attend)
+                  init_std, fuse_ln_qkv, fuse_ln_mlp, cp_attend, use_silu=use_silu,
+                  wide_silu=wide_silu)
             for i in range(depth))
         self.predictor_norm = LayerNorm(P, dtype=dtype, device=device)
         self.predictor_proj = nn.Linear(P, embed_dim, device=device)
         if not use_rope:
             gh = self.img_size[0] // patch_size
-            table = get_3d_sincos_pos_embed(P, gh, num_frames // tubelet_size,
-                                            uniform_power=uniform_power)
+            table = (get_3d_sincos_pos_embed(P, gh, num_frames // tubelet_size,
+                                             uniform_power=uniform_power)
+                     if num_frames > 1 else get_2d_sincos_pos_embed(P, gh))
             self.register_buffer("pos_embed",
                                  torch.as_tensor(table, dtype=torch.float32, device=device),
                                  persistent=False)
@@ -94,7 +109,9 @@ class VisionTransformerPredictor(nn.Module):
                 w_patches: int | None = None) -> torch.Tensor:
         """x: [B, Nc, E] context tokens; masks_x: [B, Nc]; masks_y: [B, Np]
         position ids. h_patches/w_patches: the input clip's patch grid for the
-        RoPE factorisation (default: the init grid). Returns [B, Np, E]."""
+        RoPE factorisation (default: the init grid). Returns [B, Np, E], or
+        with ``return_all_tokens`` [B, Nc + Np - chop_last_n_tokens, E] in
+        sorted order."""
         B, n_ctxt, _ = x.shape
         n_pred = masks_y.shape[1]
         P = self.predictor_embed_dim
@@ -120,6 +137,9 @@ class VisionTransformerPredictor(nn.Module):
         order = torch.argsort(positions, dim=1, stable=True)
         positions_sorted = torch.gather(positions, 1, order)
         tokens = torch.gather(tokens, 1, order[:, :, None].expand(-1, -1, P))
+        if self.chop_last_n_tokens > 0:
+            tokens = tokens[:, :-self.chop_last_n_tokens]
+            positions_sorted = positions_sorted[:, :-self.chop_last_n_tokens]
 
         n_seq = tokens.shape[1]
         flash_layout = self.use_flash and self.cp_attend is None
@@ -133,8 +153,9 @@ class VisionTransformerPredictor(nn.Module):
                                 kv_valid)
         tokens = self.predictor_norm(tokens[:, :n_seq])
 
-        inverse = torch.argsort(order, dim=1)
-        tokens = torch.gather(tokens, 1, inverse[:, :, None].expand(-1, -1, P))[:, n_ctxt:]
+        if not self.return_all_tokens:
+            inverse = torch.argsort(order, dim=1)
+            tokens = torch.gather(tokens, 1, inverse[:, :, None].expand(-1, -1, P))[:, n_ctxt:]
         return dense(self.predictor_proj, tokens, self.dtype)
 
 

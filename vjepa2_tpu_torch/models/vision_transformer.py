@@ -1,8 +1,17 @@
-"""Video ViT encoder (counterpart of `vjepa2_tpu/models/vision_transformer.py:37`).
+"""Video and image ViT encoder (counterpart of
+`vjepa2_tpu/models/vision_transformer.py:37`).
 
-Channels-last input [B, T, H, W, C]. The forward with RoPE or with the sincos
-table, unmasked or masked (tokens gathered after the patch embed, RoPE
-position ids carried alongside). With ``use_flash`` and RoPE, the split-half
+Channels-last input: [B, T, H, W, C] for a video (``num_frames`` > 1, the
+tubelet tokenizer), [B, H, W, C] for an image (``num_frames`` <= 1, the 2D
+patch tokenizer, one temporal patch: the RoPE tables at t = 1, a 2D sincos
+table). The forward with RoPE or with the sincos table, unmasked or masked
+(tokens gathered after the patch embed, RoPE position ids carried
+alongside). An input off the init grid resizes the sincos table as JAX does
+(`vision_transformer.py:68-97`, `models.resize`): trilinear for a video,
+after its first frames at the trained size, bicubic for an image.
+``handle_nonsquare_inputs=False`` builds the RoPE ids on the square init
+grid whatever the input's. ``use_silu`` / ``wide_silu``: SwiGLU MLPs
+(`modules.SwiGLUFFN`). With ``use_flash`` and RoPE, the split-half
 tables and the qkv row permutation are built once per forward and shared by
 every layer (the JAX package's ``ROPE_HOIST``). ``fuse_ln_qkv`` /
 ``fuse_ln_mlp`` put every block on the fused LayerNorm routes (B7, B8;
@@ -36,8 +45,6 @@ with the aux every block reads), the blocks, which then run as GPipe stages
 over the microbatches, each stage under the remat policy, and the final
 norm; ``out_layers`` and ``cp_attend`` are refused with it, as in JAX
 (`pipeline.py:213`).
-
-Not ported yet: the image (2D patch) path.
 """
 
 from __future__ import annotations
@@ -50,8 +57,9 @@ import torch.nn.functional as F
 from vjepa2_tpu_torch.core.pipeline import pipeline_blocks
 from vjepa2_tpu_torch.models.modules import (Block, LayerNorm, block_remat, qkv_row_perm,
                                              remat_call)
-from vjepa2_tpu_torch.models.patch_embed import PatchEmbed3D
-from vjepa2_tpu_torch.models.pos_embs import get_3d_sincos_pos_embed
+from vjepa2_tpu_torch.models.patch_embed import PatchEmbed, PatchEmbed3D
+from vjepa2_tpu_torch.models.pos_embs import get_2d_sincos_pos_embed, get_3d_sincos_pos_embed
+from vjepa2_tpu_torch.models.resize import resize
 from vjepa2_tpu_torch.ops.masking import apply_masks
 from vjepa2_tpu_torch.ops.rope import build_rope_cache, expand_rope_cache
 
@@ -95,13 +103,15 @@ class VisionTransformer(nn.Module):
                  use_flash: bool = False, dtype=torch.float32, device=None,
                  init_std: float = 0.02, fuse_ln_qkv: bool = False, fuse_ln_mlp: bool = False,
                  use_activation_checkpointing: bool = False, remat_policy: str | None = None,
-                 out_layers=None, cp_attend=None):
+                 out_layers=None, cp_attend=None, use_silu: bool = False,
+                 wide_silu: bool = True, handle_nonsquare_inputs: bool = True):
         super().__init__()
         self.cp_attend = cp_attend
-        if num_frames <= 1:
-            raise NotImplementedError("the image (2D patch) encoder is not ported yet")
+        self.is_video = num_frames > 1
+        self.handle_nonsquare_inputs = handle_nonsquare_inputs
         self.out_layers = None if out_layers is None else tuple(out_layers)
-        self.remat = block_remat(use_activation_checkpointing, remat_policy, fuse_ln_mlp)
+        self.remat = block_remat(use_activation_checkpointing, remat_policy,
+                                 fuse_ln_mlp and not use_silu)
         self.img_size = tuple(img_size)
         self.patch_size, self.num_frames, self.tubelet_size = patch_size, num_frames, tubelet_size
         self.embed_dim, self.depth, self.num_heads = embed_dim, depth, num_heads
@@ -109,17 +119,23 @@ class VisionTransformer(nn.Module):
         self.pipeline = None
         self.use_rope, self.use_flash = use_rope, use_flash
         self.dtype = dtype
-        self.patch_embed = PatchEmbed3D(embed_dim, patch_size, tubelet_size, in_chans, dtype,
-                                        device, init_std)
+        if self.is_video:
+            self.patch_embed = PatchEmbed3D(embed_dim, patch_size, tubelet_size, in_chans,
+                                            dtype, device, init_std)
+        else:
+            self.patch_embed = PatchEmbed(embed_dim, patch_size, in_chans, dtype, device,
+                                          init_std)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, use_rope, use_flash, i, dtype,
-                  device, init_std, fuse_ln_qkv, fuse_ln_mlp, cp_attend)
+                  device, init_std, fuse_ln_qkv, fuse_ln_mlp, cp_attend, use_silu=use_silu,
+                  wide_silu=wide_silu)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim, dtype=dtype, device=device)
         if not use_rope:
             gh = self.img_size[0] // patch_size
-            table = get_3d_sincos_pos_embed(embed_dim, gh, num_frames // tubelet_size,
-                                            uniform_power=uniform_power)
+            table = (get_3d_sincos_pos_embed(embed_dim, gh, num_frames // tubelet_size,
+                                             uniform_power=uniform_power)
+                     if self.is_video else get_2d_sincos_pos_embed(embed_dim, gh))
             self.register_buffer("pos_embed",
                                  torch.as_tensor(table, dtype=torch.float32, device=device),
                                  persistent=False)
@@ -131,16 +147,23 @@ class VisionTransformer(nn.Module):
         self.norm.reset_parameters()
 
     def _sincos_table(self, t_patches: int, h_patches: int, w_patches: int) -> torch.Tensor:
-        """The init-grid table, or its first frames for a shorter clip at the
-        trained spatial size (reference ``interpolate_pos_encoding``)."""
+        """The init-grid table; for a video its first frames for a shorter
+        clip at the trained spatial size, else the table resized trilinearly
+        to the input's grid; for an image the table resized bicubically
+        (reference ``interpolate_pos_encoding``, JAX `:68-97`)."""
         gh = self.img_size[0] // self.patch_size
         gw = self.img_size[1] // self.patch_size
+        D = self.embed_dim
+        if not self.is_video:
+            if (h_patches, w_patches) == (gh, gw):
+                return self.pos_embed
+            grid = self.pos_embed.reshape(gh, gw, D)
+            return resize(grid, (h_patches, w_patches, D), "bicubic").reshape(-1, D)
         gt = self.num_frames // self.tubelet_size
         if (h_patches, w_patches) == (gh, gw) and t_patches <= gt:
             return self.pos_embed[: t_patches * gh * gw]
-        raise NotImplementedError(
-            f"sincos table resize to a ({t_patches}, {h_patches}, {w_patches}) grid is not "
-            "ported yet")
+        grid = self.pos_embed.reshape(gt, gh, gw, D)
+        return resize(grid, (t_patches, h_patches, w_patches, D), "trilinear").reshape(-1, D)
 
     def pipeline_(self, pipeline) -> None:
         """Run the blocks as the stages of ``pipeline`` (`core.pipeline.Pipeline`);
@@ -163,8 +186,13 @@ class VisionTransformer(nn.Module):
         the tokens before the stack pad."""
         if masks is not None and not isinstance(masks, (list, tuple)):
             masks = [masks]
-        _, T, H, W, _ = x.shape
-        tp, hp, wp = T // self.tubelet_size, H // self.patch_size, W // self.patch_size
+        if x.ndim == 4:  # an image [B, H, W, C]: one temporal patch
+            _, H, W, _ = x.shape
+            tp = 1
+        else:
+            _, T, H, W, _ = x.shape
+            tp = T // self.tubelet_size
+        hp, wp = H // self.patch_size, W // self.patch_size
         tokens = self.patch_embed(x)
         if not self.use_rope:
             tokens = tokens + self._sincos_table(tp, hp, wp)[None].to(self.dtype)
@@ -177,6 +205,8 @@ class VisionTransformer(nn.Module):
         n_real = tokens.shape[1]
         flash_layout = self.use_flash and self.cp_attend is None
         tokens, pos_ids, kv_valid = stack_pad(tokens, pos_ids, flash_layout)
+        if not self.handle_nonsquare_inputs:  # JAX `:178-179`: RoPE on the init grid
+            hp = wp = self.img_size[0] // self.patch_size
         rope_cache = rope_expanded = qkv_perm = None
         if self.use_rope:
             rope_cache, rope_expanded, qkv_perm = rope_tables(
@@ -200,7 +230,8 @@ class VisionTransformer(nn.Module):
         return remat_call(run, self.remat, x)
 
     def forward(self, x: torch.Tensor, masks=None):
-        """x: [B, T, H, W, C] -> [B, T'H'W', D] in ``dtype``, or with
+        """x: [B, T, H, W, C] (or an image [B, H, W, C]) -> [B, T'H'W', D] in
+        ``dtype``, or with
         ``out_layers`` the list of those after each listed block.
 
         masks: None, a [B, K] index tensor, or a list of them; with a list the
@@ -239,7 +270,9 @@ def _factory(embed_dim, depth, num_heads, mlp_ratio, use_rope=False):
     return make
 
 
-# Factories mirror `vjepa2_tpu/models/vision_transformer.py:268-281`.
+# Factories mirror `vjepa2_tpu/models/vision_transformer.py:268-281`
+# (vit_synthetic: width 1, one head of width 1, which no flash kernel takes).
+vit_synthetic = _factory(1, 1, 1, 4)
 vit_tiny = _factory(192, 12, 3, 4)
 vit_small = _factory(384, 12, 6, 4)
 vit_base = _factory(768, 12, 12, 4)
@@ -253,6 +286,17 @@ vit_large_rope = _factory(1024, 24, 16, 4, use_rope=True)
 vit_huge_rope = _factory(1280, 32, 16, 4, use_rope=True)
 vit_giant_rope = _factory(1408, 40, 16, 48 / 11, use_rope=True)
 vit_giant_xformers_rope = _factory(1408, 40, 22, 48 / 11, use_rope=True)
+
+VIT_EMBED_DIMS = {
+    "vit_synthetic": 1,
+    "vit_tiny": 192,
+    "vit_small": 384,
+    "vit_base": 768,
+    "vit_large": 1024,
+    "vit_huge": 1280,
+    "vit_giant": 1408,
+    "vit_gigantic": 1664,
+}
 
 MODEL_REGISTRY = {
     name: fn for name, fn in globals().items() if name.startswith("vit_") and callable(fn)

@@ -57,16 +57,34 @@ def attention_mask(n: int, m: int, device, kv_valid: int | None = None, segment_
     return mask
 
 
-def sdpa(q, k, v, use_flash: bool = False):
-    """Scaled dot-product attention over [B, N, H, Dh] tensors. ``use_flash``
-    runs the BHND flash kernel (B3; `ops/attention.py:59-64`): on a CUDA
-    tensor a head width it does not take raises, as `Attention` does, and on
-    a CPU tensor its plain version runs."""
+def sdpa(q, k, v, attn_mask=None, is_causal: bool = False, scale: float | None = None,
+         use_flash: bool = False):
+    """Scaled dot-product attention over [B, N, H, Dh] tensors
+    (`vjepa2_tpu/ops/attention.py:38-72`). ``attn_mask`` is boolean, True =
+    attend: [N, M], [B, N, M] or [B, H, N, M]; ``is_causal`` ANDs the lower
+    triangle into it. ``use_flash`` runs the BHND flash kernel (B3) only with
+    no mask, not causal and no scale, as JAX does: on a CUDA tensor a head
+    width it does not take raises, as `Attention` does, and on a CPU tensor
+    its plain version runs. Otherwise the plain math runs on any device, as
+    JAX's branch is plain XLA: fp32 scores, the probabilities cast before
+    P.V. A row with no key to attend gives 0 (JAX's -1e30 fill averages v
+    there: ROADMAP queue C, "Fully masked rows")."""
     from vjepa2_tpu_torch.ops import flash_attention as fa
 
-    if use_flash:
+    if use_flash and attn_mask is None and not is_causal and scale is None:
         return fa.flash_attention(q, k, v)
-    out, _ = softmax_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    mask = None
+    if attn_mask is not None:
+        mask = attn_mask.to(device=q.device, dtype=torch.bool)
+        if mask.ndim == 2:
+            mask = mask[None, None]
+        elif mask.ndim == 3:  # one mask an example, shared by its heads
+            mask = mask[:, None]
+    if is_causal:
+        causal = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool, device=q.device).tril()
+        mask = causal if mask is None else mask & causal
+    out, _ = softmax_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale,
+                               mask)
     return out.transpose(1, 2)
 
 

@@ -112,22 +112,26 @@ def build_droid_models(model_name: str = "vit_giant_xformers", crop_size: int = 
                        use_extrinsics: bool = False, use_flash: bool = True,
                        dtype=torch.bfloat16, device="cuda",
                        use_activation_checkpointing: bool = False,
-                       remat_policy: str | None = None
+                       remat_policy: str | None = None, use_silu: bool = False,
+                       wide_silu: bool = True
                        ) -> tuple[VisionTransformer, VisionTransformerPredictorAC]:
     """The target encoder (one frame as a 2-frame tubelet, frozen) and the AC
     predictor, as JAX's `DroidTrainer` builds them (`droid_loop.py:70-98`);
     parameters allocated on ``device``, not initialised. Builds on the card
-    unless ``device="cpu"`` is passed."""
+    unless ``device="cpu"`` is passed. ``use_silu`` / ``wide_silu``: SwiGLU
+    MLPs in both models, as `train.pretrain.build_models` hands them (JAX's
+    `DroidTrainer` passes them to neither: ROADMAP queue C)."""
     device = entry_device(device)
     enc = MODEL_REGISTRY[model_name](
         patch_size=patch_size, img_size=(crop_size, crop_size), num_frames=2,
         tubelet_size=tubelet_size, uniform_power=uniform_power, use_rope=use_rope,
-        use_flash=use_flash, dtype=dtype, device=device)
+        use_flash=use_flash, dtype=dtype, device=device, use_silu=use_silu, wide_silu=wide_silu)
     pred = vit_ac_predictor(
         img_size=(crop_size, crop_size), patch_size=patch_size, embed_dim=enc.embed_dim,
         predictor_embed_dim=pred_embed_dim, depth=pred_depth, num_heads=pred_num_heads or 16,
         use_extrinsics=use_extrinsics, use_flash=use_flash, dtype=dtype, device=device,
-        use_activation_checkpointing=use_activation_checkpointing, remat_policy=remat_policy)
+        use_activation_checkpointing=use_activation_checkpointing, remat_policy=remat_policy,
+        use_silu=use_silu, wide_silu=wide_silu)
     return enc.requires_grad_(False), pred
 
 

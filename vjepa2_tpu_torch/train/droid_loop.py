@@ -128,7 +128,7 @@ class DroidTrainer:
             uniform_power=m.uniform_power, use_rope=m.use_rope,
             use_extrinsics=m.use_extrinsics, use_flash=True, dtype=self.dtype,
             device=self.device, use_activation_checkpointing=m.use_activation_checkpointing,
-            remat_policy=m.remat_policy)
+            remat_policy=m.remat_policy, use_silu=m.use_silu, wide_silu=m.wide_silu)
         self.tpf = tokens_per_frame(self.target_encoder)
         o = c.optimization
         self.ipe = o.ipe or DEFAULT_IPE

@@ -236,6 +236,9 @@ class Pretrainer:
             pred_num_heads=c.model.pred_num_heads,
             uniform_power=c.model.uniform_power,
             use_rope=c.model.use_rope,
+            # JAX's loop drops these two (ROADMAP queue C): the config's MLP trains here
+            use_silu=c.model.use_silu,
+            wide_silu=c.model.wide_silu,
             use_mask_tokens=c.model.use_mask_tokens,
             num_mask_tokens=len(c.mask) * len(self.fpcs),
             zero_init_mask_tokens=c.model.zero_init_mask_tokens,

@@ -85,7 +85,8 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
                  zero_init_mask_tokens: bool = True, use_flash: bool = True,
                  dtype=torch.bfloat16, device="cuda", fuse_ln: str = "",
                  use_activation_checkpointing: bool = False, remat_policy: str | None = None,
-                 cp_attend=None) -> tuple[VisionTransformer, VisionTransformerPredictor]:
+                 cp_attend=None, use_silu: bool = False, wide_silu: bool = True
+                 ) -> tuple[VisionTransformer, VisionTransformerPredictor]:
     """Mirror of reference `app/vjepa/utils.py:init_video_model`; parameters
     are allocated on ``device`` but not initialised (`init_params` does).
     Builds on the card with the flash kernels on by default, and raises
@@ -95,7 +96,9 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
     ``use_activation_checkpointing`` / ``remat_policy``: every block of both
     models under the remat policy (`models.modules.resolve_remat_policy`).
     ``cp_attend``: a ring (`ops.ring_attention`) every block of both models
-    attends through (JAX's ``build_models(cp_attend=)``)."""
+    attends through (JAX's ``build_models(cp_attend=)``). ``use_silu`` /
+    ``wide_silu``: SwiGLU MLPs in both models, as JAX's
+    (`pretrain.py:67-68,92-93,111-112`)."""
     device = entry_device(device)
     fuse_qkv, fuse_mlp = parse_ln_fusions(fuse_ln)
     enc = MODEL_REGISTRY[model_name](
@@ -103,7 +106,7 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
         tubelet_size=tubelet_size, uniform_power=uniform_power, use_rope=use_rope,
         use_flash=use_flash, dtype=dtype, device=device, fuse_ln_qkv=fuse_qkv,
         fuse_ln_mlp=fuse_mlp, use_activation_checkpointing=use_activation_checkpointing,
-        remat_policy=remat_policy, cp_attend=cp_attend)
+        remat_policy=remat_policy, cp_attend=cp_attend, use_silu=use_silu, wide_silu=wide_silu)
     pred = VisionTransformerPredictor(
         img_size=(crop_size, crop_size), patch_size=patch_size, num_frames=num_frames,
         tubelet_size=tubelet_size, embed_dim=enc.embed_dim, predictor_embed_dim=pred_embed_dim,
@@ -113,7 +116,7 @@ def build_models(model_name: str = "vit_base", crop_size: int = 224, patch_size:
         use_rope=use_rope, use_flash=use_flash, dtype=dtype, device=device,
         fuse_ln_qkv=fuse_qkv, fuse_ln_mlp=fuse_mlp,
         use_activation_checkpointing=use_activation_checkpointing, remat_policy=remat_policy,
-        cp_attend=cp_attend)
+        cp_attend=cp_attend, use_silu=use_silu, wide_silu=wide_silu)
     return enc, pred
 
 
